@@ -1,0 +1,187 @@
+"""Model runtime: parameters resident on the device, shape buckets.
+
+Port of ``seldon_core_tpu/models/base.py`` (``ModelRuntime`` and the MODEL
+graph unit). A runtime places a model's parameters on one ``torch.device``
+once, pads every request to a batch bucket on the host (so the forward runs
+at a few fixed batch sizes, the counterpart of one compiled program per
+bucket), and splits batches above the largest bucket into bucket-sized
+chunks. Wire-dtype policy: token ids (``int_inputs="ids"``) stay int32 end
+to end — never through bfloat16, which corrupts every id from 257 up;
+floating outputs are cast to float32 on the device before readback (numpy
+has no bfloat16).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
+from seldon_core_tpu_torch.core.message import SeldonMessage
+from seldon_core_tpu_torch.core.tensor import (
+    bucket_for,
+    default_buckets,
+    pad_batch,
+    resolve_device,
+    to_device,
+    to_host,
+)
+from seldon_core_tpu_torch.engine.units import Unit
+from seldon_core_tpu_torch.graph.spec import PredictiveUnit
+from seldon_core_tpu_torch.models.convert import params_to_torch
+
+# forwards at or above this stall the serving loop enough to tax other
+# requests' latency; offload_compute="auto" moves them to the compute pool
+OFFLOAD_MIN_FORWARD_MS = 3.0
+
+_COMPUTE_POOL: ThreadPoolExecutor | None = None
+_COMPUTE_POOL_LOCK = threading.Lock()
+
+
+def compute_pool() -> ThreadPoolExecutor:
+    """Shared worker pool for offloaded forwards and device readbacks. Small
+    on purpose: it exists to keep the event loop free, not for throughput
+    (torch releases the GIL inside its kernels and while it waits on the
+    card)."""
+    global _COMPUTE_POOL
+    if _COMPUTE_POOL is None:
+        with _COMPUTE_POOL_LOCK:
+            if _COMPUTE_POOL is None:
+                _COMPUTE_POOL = ThreadPoolExecutor(
+                    max_workers=2, thread_name_prefix="seldon-compute"
+                )
+    return _COMPUTE_POOL
+
+
+ApplyFn = Callable[[Any, torch.Tensor], torch.Tensor]
+
+
+class ModelRuntime:
+    """One model loaded onto one device.
+
+    ``apply_fn(params, x[batch, ...]) -> y[batch, ...]`` takes the parameter
+    tree (tensors on ``device``) and a batch tensor on ``device``."""
+
+    def __init__(
+        self,
+        apply_fn: ApplyFn,
+        params: Any,
+        *,
+        device: Any = None,
+        buckets: Sequence[int] = (),
+        max_batch: int = 64,
+        dtype: torch.dtype = torch.float32,
+        class_names: Sequence[str] = (),
+        int_inputs: str = "cast",
+        offload_compute: str = "auto",
+    ):
+        if int_inputs not in ("cast", "ids"):
+            raise ValueError(f"int_inputs must be 'cast' or 'ids', got {int_inputs!r}")
+        if offload_compute not in ("auto", "always", "never"):
+            raise ValueError(
+                "offload_compute must be 'auto', 'always' or 'never', got "
+                f"{offload_compute!r}"
+            )
+        self.apply_fn = apply_fn
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        # "cast": integer payloads are values and normalize to float;
+        # "ids": integers are token ids and stay exact int32
+        self.int_inputs = int_inputs
+        self.class_names = tuple(class_names)
+        self.buckets = tuple(buckets) if buckets else default_buckets(max_batch)
+        # "auto" resolves at warmup() from a measured forward; until then
+        # only "always" offloads
+        self.offload_compute_mode = offload_compute
+        self.offload_compute = offload_compute == "always"
+        self.stat_forward_ms: float | None = None
+        self.feature_shape: tuple[int, ...] | None = None
+        self._low_precision = torch.finfo(dtype).bits < 32
+        self.params = params_to_torch(params, self.device, dtype)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            if self._low_precision and x.dtype == torch.float32:
+                x = x.to(self.dtype)
+            y = self.apply_fn(self.params, x)
+            if self._low_precision and y.is_floating_point():
+                y = y.float()
+        return y
+
+    # -------------------------------------------------------------- predict
+    def predict(self, x) -> np.ndarray:
+        """Host-in host-out batched predict with bucket padding."""
+        return to_host(self.predict_device(x))
+
+    def predict_device(self, x) -> torch.Tensor:
+        """Like predict but leaves the result on the device."""
+        x = to_host(x)
+        # every wire form maps onto the two input dtypes warmup ran: int32
+        # ids (the JSON wire's float32 holds every id < 2^24 exactly), or
+        # float32 values (cast to the model dtype on the device)
+        x = np.asarray(x, dtype=np.int32 if self.int_inputs == "ids" else np.float32)
+        n = x.shape[0]
+        bucket = bucket_for(n, self.buckets)
+        if bucket is None:
+            step = self.buckets[-1]
+            return torch.cat(
+                [self.predict_device(x[i : i + step]) for i in range(0, n, step)], dim=0
+            )
+        padded, valid = pad_batch(x, bucket)
+        y = self._forward(to_device(padded, self.device))
+        return y if valid == bucket else y[:valid]
+
+    def warmup(self) -> None:
+        """One forward per bucket ahead of traffic, then resolve
+        offload_compute="auto" from the largest bucket's measured time."""
+        if self.feature_shape is None:
+            raise ValueError("set runtime.feature_shape before warmup()")
+        wire = np.int32 if self.int_inputs == "ids" else np.float32
+        for b in self.buckets:
+            self.predict(np.zeros((b, *self.feature_shape), dtype=wire))
+        if self.offload_compute_mode == "auto":
+            x = np.zeros((max(self.buckets), *self.feature_shape), dtype=wire)
+            self.stat_forward_ms = self._measure_forward_ms(x)
+            self.offload_compute = self.stat_forward_ms >= OFFLOAD_MIN_FORWARD_MS
+
+    def _measure_forward_ms(self, x: np.ndarray, runs: int = 3) -> float:
+        """Median forward time including readback, which waits for the
+        device — the stall one forward would put on the serving loop."""
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            self.predict(x)
+            times.append(time.perf_counter() - t0)
+        times.sort()
+        return times[len(times) // 2] * 1e3
+
+
+class ModelUnit(Unit):
+    """Graph MODEL unit backed by a ModelRuntime (counterpart of
+    ``JaxModelUnit``)."""
+
+    def __init__(self, spec: PredictiveUnit, runtime: ModelRuntime):
+        super().__init__(spec)
+        self.runtime = runtime
+
+    async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
+        if msg.data is None:
+            raise APIException(
+                ErrorCode.ENGINE_INVALID_JSON,
+                f"MODEL node '{self.spec.name}' needs tensor data; opaque "
+                "binData/strData is not a tensor",
+            )
+        x = msg.array
+        if self.runtime.offload_compute:
+            y = await asyncio.get_running_loop().run_in_executor(
+                compute_pool(), self.runtime.predict_device, x
+            )
+        else:
+            y = self.runtime.predict_device(x)
+        return msg.with_array(y, self.runtime.class_names or msg.names)
