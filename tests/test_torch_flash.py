@@ -3,10 +3,12 @@
 On the CPU the port's wrapper computes its plain version
 (flash_attention_reference); the JAX kernel runs in interpret mode, as
 tests/test_ops.py runs it. Same numpy inputs into both. Tolerances:
-float32 2e-5 (both sides sum in f32 in different orders), bfloat16
-rtol 1e-2 / atol 1.6e-2 — bf16 keeps 8 significant bits, and the two sides
-round p and the output at different points (per 16-key block in JAX, once
-per row here), so a few ulps of the output's binade separate them.
+float32 2e-5 (both sides sum in f32 in different orders); bfloat16 and
+float16 4 ulps of max|ref| in the dtype and a relative L2 error of 1e-2 —
+the two sides round p at different points (per 16-key block in JAX, once
+per row here; per 64-key tile in the CUDA kernel), which at most flips the
+rounding of an output element, while a 5% error in the softmax normaliser
+exceeds both limits.
 
 JAX is imported inside the tests that compare with it, so that the card's
 host, which has no JAX, still collects the file for its ``-m gpu`` test.
@@ -20,7 +22,14 @@ from seldon_core_tpu_torch.ops import flash_attention as ft
 from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES, flash_attention
 
 F32 = dict(rtol=2e-5, atol=2e-5)
-BF16 = dict(rtol=1e-2, atol=1.6e-2)
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _assert_close_in_ulps(got, ref, dtype):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    ulp = 2.0 ** (np.floor(np.log2(ref.abs().max().item())) - MANTISSA_BITS[dtype])
+    assert (got - ref).abs().max().item() <= 4 * ulp
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
 
 
 def _np_qkv(sq=64, sk=None, b=2, h=2, d=16, seed=0):
@@ -93,7 +102,7 @@ def test_flash_attention_causal_with_q_padding(jax_ops):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_bf16_matches_jax(jax_ops, causal):
     got, ref = _both(jax_ops, _np_qkv(d=64, b=1, seed=5), dtype="bf16", block_q=16, block_k=16, causal=causal)
-    np.testing.assert_allclose(got, ref, **BF16)
+    _assert_close_in_ulps(torch.tensor(got), torch.tensor(ref), torch.bfloat16)
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(monkeypatch):
@@ -150,8 +159,10 @@ def test_kernel_matches_plain_version_on_card(cuda, dtype, causal, sq, sk, d):
     torch.cuda.synchronize()
     assert LAUNCHES.count == before + 1
     ref = ft.flash_attention_reference(q, k, v, causal=causal)
-    tol = F32 if dtype == torch.float32 else BF16
-    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(), **tol)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **F32)
+    else:
+        _assert_close_in_ulps(got, ref, dtype)
 
 
 @pytest.mark.gpu
