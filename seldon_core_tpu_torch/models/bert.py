@@ -92,7 +92,7 @@ def _dense(p, x):
 def _default_attention(q, k, v):
     if q.shape[2] >= FLASH_MIN_SEQ:
         if q.shape[2] >= PALLAS_MIN_SEQ and q.is_cuda and k.shape[2] % 128 == 0:
-            return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+            return flash_attention(q, k, v)
         return blockwise_attention(q, k, v, block_size=512)
     return naive_attention(q, k, v)
 
@@ -103,7 +103,7 @@ def _pallas_attention(q, k, v):
     the JAX package's shape rule."""
     sk = k.shape[2]
     if sk % 16 == 0 and (sk % 128 == 0 or sk <= DEFAULT_BLOCK_K):
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        return flash_attention(q, k, v)
     return blockwise_attention(q, k, v, block_size=512)
 
 
@@ -123,10 +123,11 @@ def _attention(p, x, num_heads, attn_impl):
     head = d // num_heads
     q, k, v = _dense(p["qkv"], x).split(d, dim=-1)
 
-    def heads(t):
+    def heads(t):  # a view of the QKV output, [b, heads, s, head]
         return t.reshape(b, s, num_heads, head).transpose(1, 2)
 
     ctx = attn_impl(heads(q), heads(k), heads(v))
+    # a view when ctx lies as [b, s, heads, head], as the CUDA kernel writes it
     ctx = ctx.transpose(1, 2).reshape(b, s, d)
     return _dense(p["attn_out"], ctx)
 

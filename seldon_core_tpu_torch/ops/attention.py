@@ -101,6 +101,6 @@ def causal_attention_auto(q, k, v) -> torch.Tensor:
         if s >= PALLAS_MIN_SEQ and q.is_cuda and k.shape[2] % 128 == 0:
             from seldon_core_tpu_torch.ops.flash_attention import flash_attention
 
-            return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+            return flash_attention(q, k, v, causal=True)
         return blockwise_attention(q, k, v, block_size=512, causal=True)
     return naive_attention(q, k, v, causal=True)

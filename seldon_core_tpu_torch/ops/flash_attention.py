@@ -7,11 +7,17 @@ first use) or raises; it never falls back. On a CPU tensor it computes
 rounding points, which the tests hold against the JAX kernel in interpret
 mode and ``chip_smoke.py`` holds the kernel against on the card.
 
+The kernel reads q, k and v through their strides, so the head-split views
+of a fused QKV projection go in without a copy (``check_kernel_layout``
+says what it takes), and it writes its output as [batch, seq, heads,
+head_dim] in memory, returned as the [batch, heads, seq, head_dim] view: the
+caller's merge of the heads is then a view too.
+
 The keyword surface is the JAX wrapper's. ``block_q`` and ``block_k`` keep
 only their contract: ``block_k`` decides which KV lengths are rejected as
 ragged (``_kv_block``), exactly as on the TPU. The CUDA kernel tiles by its
-own fixed sizes (64 q rows x 64 keys for bf16/f16), masks ragged edges
-itself, and ignores both.
+own fixed sizes (64 or 128 q rows x 128 keys for bf16/f16), masks ragged
+edges itself, and ignores both.
 """
 
 from __future__ import annotations
@@ -89,6 +95,27 @@ def flash_attention_reference(
     return (o / l).to(q.dtype)
 
 
+def check_kernel_layout(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the kernel can read ``t`` where it lies:
+    a last dimension of stride 1, every other stride a multiple of 8
+    elements, and a 16-byte aligned base (TMA's rules: its global strides
+    are multiples of 16 bytes). The stride of a dimension of size 1 is never
+    used and not checked. Plain Python, so it runs on CPU tensors too."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_attention kernel needs {name} with a last-dimension stride of 1, got {t.stride()}")
+    for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        if size > 1 and stride % 8:
+            raise ValueError(f"flash_attention kernel needs {name} strides that are multiples of 8 elements, got {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention kernel needs a 16-byte aligned {name}")
+
+
+def _kernel_strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, seq) element strides of a [b, h, s, d] view; a
+    dimension of size 1 gets d, a legal stride that is never stepped."""
+    return [st if size > 1 else t.shape[-1] for size, st in zip(t.shape[:3], t.stride()[:3])]
+
+
 def _lib() -> ctypes.CDLL:
     from seldon_core_tpu_torch.ops import kernel_build
 
@@ -101,15 +128,19 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p,  # k
             ctypes.c_void_p,  # v
             ctypes.c_void_p,  # o
-            ctypes.c_int,  # batch * heads
+            ctypes.c_int,  # batch
+            ctypes.c_int,  # heads
             ctypes.c_int,  # sq
             ctypes.c_int,  # sk
             ctypes.c_int,  # head_dim
             ctypes.c_int,  # dtype code
             ctypes.c_float,  # scale
             ctypes.c_int,  # causal
+            ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (b, h, s) of q, k, v, o
             ctypes.c_void_p,  # cudaStream_t
         ]
+        lib.flash_attention_setup_ns.restype = ctypes.c_longlong
+        lib.flash_attention_setup_ns.argtypes = []
     return lib
 
 
@@ -126,13 +157,9 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention kernel needs contiguous {name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel needs 16-byte aligned {name}")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} exceeds the kernel grid limit 65535")
-    out = torch.empty_like(q)
+        check_kernel_layout(name, t)
+    out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _kernel_strides(t)))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -141,13 +168,15 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
             k.data_ptr(),
             v.data_ptr(),
             out.data_ptr(),
-            b * h,
+            b,
+            h,
             sq,
             sk,
             d,
             _DTYPE_CODES[q.dtype],
             1.0 / math.sqrt(d),
             int(causal),
+            strides,
             stream,
         )
     if err != 0:
@@ -165,7 +194,8 @@ def flash_attention(
     block_k: int = DEFAULT_BLOCK_K,
     causal: bool = False,
 ) -> torch.Tensor:
-    """q,k,v: [batch, heads, seq, head_dim] -> [batch, heads, sq, head_dim].
+    """q,k,v: [batch, heads, seq, head_dim] -> [batch, heads, sq, head_dim]
+    (on the card, a view of a [batch, sq, heads, head_dim] tensor).
 
     ``causal=True`` masks columns past each row (top-left aligned) and the
     kernel skips KV tiles wholly above the diagonal. Raises ``ValueError``

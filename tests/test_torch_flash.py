@@ -6,7 +6,7 @@ tests/test_ops.py runs it. Same numpy inputs into both. Tolerances:
 float32 2e-5 (both sides sum in f32 in different orders); bfloat16 and
 float16 4 ulps of max|ref| in the dtype and a relative L2 error of 1e-2 —
 the two sides round p at different points (per 16-key block in JAX, once
-per row here; per 64-key tile in the CUDA kernel), which at most flips the
+per row here; per 128-key tile in the CUDA kernel), which at most flips the
 rounding of an output element, while a 5% error in the softmax normaliser
 exceeds both limits.
 
@@ -125,6 +125,58 @@ def test_flash_attention_rejects_mismatched_shapes():
         flash_attention(q[0], k[0], v[0])
 
 
+def _bert_views(b=2, s=64, h=2, d=16, seed=7, dtype=torch.float32, device="cpu"):
+    """q, k, v as models/bert.py cuts them from one fused QKV projection
+    [b, s, 3*h*d]: views with batch stride 3*h*d*s, head stride d and seq
+    stride 3*h*d."""
+    fused = torch.from_numpy(np.random.default_rng(seed).standard_normal((b, s, 3 * h * d)).astype(np.float32))
+    fused = fused.to(device=device, dtype=dtype)
+    return tuple(t.reshape(b, s, h, d).transpose(1, 2) for t in fused.split(h * d, dim=-1))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_strided_views_match_contiguous_copies(causal):
+    views = _bert_views()
+    assert not any(t.is_contiguous() for t in views)
+    got = flash_attention(*views, block_q=16, block_k=16, causal=causal)
+    ref = flash_attention(*(t.contiguous() for t in views), block_q=16, block_k=16, causal=causal)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **F32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_strided_views_match_jax(jax_ops, causal):
+    jnp, jax_flash, _ = jax_ops
+    views = _bert_views(seed=11)
+    got = flash_attention(*views, block_q=16, block_k=16, causal=causal)
+    ref = jax_flash(*(jnp.asarray(t.contiguous().numpy()) for t in views), block_q=16, block_k=16, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
+
+
+def _layout_cases():
+    x = torch.zeros(2, 3, 64, 64, dtype=torch.bfloat16)
+    buf = torch.zeros(2 * 3 * 64 * 196 + 8, dtype=torch.bfloat16)
+    return {
+        "bert_views": (_bert_views(h=3, d=64, dtype=torch.bfloat16)[1], None),
+        "contiguous": (x, None),
+        "head_transposed": (torch.zeros(2, 64, 3, 64, dtype=torch.bfloat16).transpose(1, 2), None),
+        # the stride of a dimension of size 1 is never stepped
+        "batch_of_one_any_stride": (buf.as_strided((1, 3, 64, 64), (5, 4096, 64, 1)), None),
+        "last_dim_transposed": (x.transpose(2, 3), "last-dimension stride"),
+        "stride_not_multiple_of_8": (buf.as_strided((2, 3, 64, 64), (3 * 64 * 196, 64, 196, 1)), "multiples of 8"),
+        "unaligned_base": (buf[1:1 + x.numel()].view(2, 3, 64, 64), "16-byte aligned"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_layout_cases()))
+def test_kernel_layout_check(case):
+    t, refusal = _layout_cases()[case]
+    if refusal is None:
+        ft.check_kernel_layout("q", t)
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            ft.check_kernel_layout("q", t)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -171,11 +223,39 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(x, x, x)
     y = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(y, y, y)
+    flash_attention(y, y, y)  # a head-transposed view goes in as it lies
+    torch.cuda.synchronize()
+    w = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="last-dimension stride"):
+        flash_attention(w, w, w)
     z = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="supports"):
         flash_attention(z, z, z)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "dtype,causal,s,h,d",
+    [
+        (torch.bfloat16, False, 512, 12, 64),  # BERT-base
+        (torch.bfloat16, True, 200, 3, 128),
+        (torch.float16, False, 65, 2, 64),
+        (torch.float32, True, 77, 3, 128),
+    ],
+)
+def test_kernel_on_bert_layout_views_matches_plain_version(cuda, dtype, causal, s, h, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    views = _bert_views(b=2, s=s, h=h, d=d, seed=3, dtype=dtype, device=cuda)
+    before = LAUNCHES.count
+    got = flash_attention(*views, causal=causal, block_k=4096)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 1
+    assert got.transpose(1, 2).is_contiguous()  # [b, s, h, d] in memory
+    ref = ft.flash_attention_reference(*views, causal=causal)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **F32)
+    else:
+        _assert_close_in_ulps(got, ref, dtype)
 
 
 @pytest.mark.gpu
