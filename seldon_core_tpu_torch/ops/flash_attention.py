@@ -139,8 +139,6 @@ def _lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (b, h, s) of q, k, v, o
             ctypes.c_void_p,  # cudaStream_t
         ]
-        lib.flash_attention_setup_ns.restype = ctypes.c_longlong
-        lib.flash_attention_setup_ns.argtypes = []
     return lib
 
 
