@@ -8,6 +8,8 @@ Wire shapes:
     {"binData": "<base64>"} | {"strData": "..."}
     {"status": {"code": ..., "info": ..., "reason": ..., "status": "FAILURE"}}
 
+    {"request": {...}, "response": {...}, "reward": r, "truth": {...}}  (Feedback)
+
 The pure-Python path only; arrays decode to host numpy, and a tensor payload
 on any device is read back to the host when encoded.
 """
@@ -24,6 +26,7 @@ from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import (
     DataKind,
     DefaultData,
+    Feedback,
     Meta,
     SeldonMessage,
     Status,
@@ -114,6 +117,17 @@ def message_from_json(text: str | bytes, dtype: Any = DEFAULT_DTYPE) -> SeldonMe
     return message_from_dict(obj, dtype)
 
 
+def feedback_from_dict(obj: Mapping[str, Any], dtype: Any = DEFAULT_DTYPE) -> Feedback:
+    if not isinstance(obj, Mapping):
+        raise APIException(ErrorCode.ENGINE_INVALID_JSON, "feedback must be a JSON object")
+    return Feedback(
+        request=message_from_dict(obj["request"], dtype) if "request" in obj else None,
+        response=message_from_dict(obj["response"], dtype) if "response" in obj else None,
+        reward=float(obj.get("reward", 0.0)),
+        truth=message_from_dict(obj["truth"], dtype) if "truth" in obj else None,
+    )
+
+
 def _encode_array(data: DefaultData) -> dict[str, Any]:
     out: dict[str, Any] = {}
     if data.names:
@@ -162,3 +176,18 @@ def message_to_dict(msg: SeldonMessage) -> dict[str, Any]:
 
 def message_to_json(msg: SeldonMessage) -> str:
     return json.dumps(message_to_dict(msg))
+
+
+# meta alone, for binary responses that carry it in a header
+meta_to_dict = _encode_meta
+
+
+def feedback_to_dict(fb: Feedback) -> dict[str, Any]:
+    out: dict[str, Any] = {"reward": fb.reward}
+    if fb.request is not None:
+        out["request"] = message_to_dict(fb.request)
+    if fb.response is not None:
+        out["response"] = message_to_dict(fb.response)
+    if fb.truth is not None:
+        out["truth"] = message_to_dict(fb.truth)
+    return out

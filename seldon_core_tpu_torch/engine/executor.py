@@ -9,7 +9,8 @@ Port of ``seldon_core_tpu/engine/executor.py``, the plain graph walk:
     5. aggregate                  (COMBINER; pass-through for single child)
     6. transform_output
 
-meta merged per node, ROUTER choices recorded in meta.routing.
+meta merged per node, ROUTER choices recorded in meta.routing; feedback
+walks the recorded routing back down to the units that learn from it.
 ``execute_many`` walks a coalesced batch: data nodes run once on the merged
 rows, route nodes decide per request. A result that a model left on the
 card is read back to the host in the compute pool, off the event loop,
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
-from seldon_core_tpu_torch.core.message import Meta, SeldonMessage
+from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.tensor import to_host
 from seldon_core_tpu_torch.engine.units import ROUTE_ALL, Unit, UnitRegistry, default_registry
 from seldon_core_tpu_torch.graph.spec import (
@@ -272,6 +273,39 @@ class GraphExecutor:
             msg = out.with_meta(msg.meta.merged_with(out.meta))
         return msg
 
+    # ------------------------------------------------------------ feedback
+    async def send_feedback(self, feedback: Feedback) -> None:
+        await self._send_feedback(self.root, feedback)
+
+    async def _send_feedback(self, node: Node, feedback: Feedback) -> None:
+        """Down the branch each router took for the response (its
+        meta.routing), into every unit that takes SEND_FEEDBACK."""
+        routing_map = {}
+        if feedback.response is not None:
+            routing_map = dict(feedback.response.meta.routing)
+        branch = int(routing_map.get(node.name, ROUTE_ALL))
+        if _has_method(node, PredictiveUnitMethod.SEND_FEEDBACK):
+            await node.unit.send_feedback(feedback, branch)
+        if not node.children:
+            return
+        if branch == ROUTE_ALL:
+            await _gather_settled(*(self._send_feedback(c, feedback) for c in node.children))
+            return
+        if not (0 <= branch < len(node.children)):
+            raise APIException(
+                ErrorCode.ENGINE_INVALID_ROUTING,
+                f"feedback routing {branch} invalid for '{node.name}'",
+            )
+        await self._send_feedback(node.children[branch], feedback)
+
+    def stateful_units(self) -> dict[str, Unit]:
+        """Units with learnable state: those that override send_feedback."""
+        return {
+            n.name: n.unit
+            for n in self.root.walk()
+            if type(n.unit).send_feedback is not Unit.send_feedback
+        }
+
 
 def build_node(spec: PredictiveUnit, registry: UnitRegistry, context: dict[str, Any]) -> Node:
     """Resolve each spec unit to a runtime Unit, in order: an override in
@@ -307,9 +341,17 @@ def build_executor(
     registry: UnitRegistry | None = None,
     context: dict[str, Any] | None = None,
 ) -> GraphExecutor:
-    """``context['device']`` names where models run (the card by default)."""
+    """``context['device']`` names where models run (the card by default).
+    With ``tpu.fuse_graph`` (the default) pure subtrees collapse into one
+    fused unit each (``engine/fused.py``)."""
     registry = registry or default_registry()
     context = dict(context or {})
     context.setdefault("containers", {c.name: c for c in predictor.componentSpec.containers})
     context.setdefault("tpu", predictor.tpu)
-    return GraphExecutor(build_node(predictor.graph, registry, context))
+    root = build_node(predictor.graph, registry, context)
+    tpu_cfg = context.get("tpu")
+    if tpu_cfg is not None and getattr(tpu_cfg, "fuse_graph", True):
+        from seldon_core_tpu_torch.engine.fused import fuse_graph
+
+        root = fuse_graph(root, tpu_cfg)
+    return GraphExecutor(root)

@@ -4,7 +4,9 @@ Port of ``seldon_core_tpu/engine/units.py`` (the ``Unit`` base,
 ``UnitRegistry`` and ``default_registry``). Default method semantics:
 transform_input / transform_output are identity (for MODEL units
 transform_input IS predict); route -1 fans out to all children; aggregate
-passes a single child output through and rejects many.
+passes a single child output through and rejects many; send_feedback does
+nothing. The ``as_pure_*`` hooks let graph fusion (``engine/fused.py``)
+express a unit as a pure torch function; a unit without one never fuses.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 from typing import Any, Callable, Sequence
 
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
-from seldon_core_tpu_torch.core.message import SeldonMessage
+from seldon_core_tpu_torch.core.message import Feedback, SeldonMessage
 from seldon_core_tpu_torch.graph.spec import (
     PredictiveUnit,
     PredictiveUnitImplementation,
@@ -53,6 +55,23 @@ class Unit:
             f"unit '{self.name}' received {len(msgs)} child outputs but does not aggregate",
         )
 
+    async def send_feedback(self, feedback: Feedback, routing: int) -> None:
+        return None
+
+    # hooks for graph fusion (engine/fused.py): a unit that can express itself
+    # as a pure torch function returns (fn, params); others None.
+    # as_pure_fn: combiner aggregate, fn(params, [child outputs]) -> y
+    def as_pure_fn(self):
+        return None
+
+    # as_pure_input_fn: transform_input equivalent, fn(params, x) -> x'
+    def as_pure_input_fn(self):
+        return None
+
+    # as_pure_output_fn: transform_output equivalent, fn(params, y) -> y'
+    def as_pure_output_fn(self):
+        return None
+
 
 UnitFactory = Callable[[PredictiveUnit, dict], Unit]
 
@@ -76,15 +95,12 @@ class UnitRegistry:
         return factory(spec, context)
 
 
-def _make_model_unit(spec: PredictiveUnit, context: dict) -> Unit:
-    from seldon_core_tpu_torch.models.zoo import make_model_unit
-
-    return make_model_unit(spec, context)
-
-
 def default_registry() -> UnitRegistry:
-    """The port's built-ins: ``JAX_MODEL`` (the deployment JSON's name for
-    an in-process zoo model) builds the torch model unit."""
+    """A registry holding the port's built-ins (``engine/builtin.py``),
+    ``JAX_MODEL`` (the deployment JSON's name for an in-process zoo model)
+    among them."""
+    from seldon_core_tpu_torch.engine import builtin  # late import: avoids a cycle
+
     registry = UnitRegistry()
-    registry.register(PredictiveUnitImplementation.JAX_MODEL, _make_model_unit)
+    builtin.register_builtins(registry)
     return registry

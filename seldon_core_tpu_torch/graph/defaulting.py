@@ -7,11 +7,17 @@ Port of ``seldon_core_tpu/graph/defaulting.py``:
   wired to sequential ports from PU_PORT_BASE;
 - a default mesh ({"data": n_local_devices}) and batch buckets derived
   from max_batch.
+
+``mesh_from_spec`` is the device-count rule of
+``seldon_core_tpu/parallel/mesh.py::mesh_from_spec``, which the server
+applies to the mesh it is asked for.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Mapping
 
 from seldon_core_tpu_torch.core.tensor import default_buckets
 from seldon_core_tpu_torch.graph.spec import (
@@ -26,6 +32,28 @@ from seldon_core_tpu_torch.graph.spec import (
 )
 
 PU_PORT_BASE = 9000
+DATA_AXIS = "data"
+
+
+def mesh_from_spec(axes: Mapping[str, int] | None, n_devices: int) -> dict[str, int] | None:
+    """The mesh ``{axis: size}`` that ``n_devices`` can hold, or None when
+    one device is asked for. A mesh larger than the devices shrinks its
+    data axis (fewer replicas: serving still comes up on a smaller host);
+    any other axis that needs more devices raises ValueError."""
+    if not axes:
+        return None
+    axes = {str(k): int(v) for k, v in axes.items()}
+    total = math.prod(axes.values())
+    if total == 1:
+        return None
+    if total > n_devices:
+        shrink = total // n_devices
+        if DATA_AXIS in axes and axes[DATA_AXIS] % shrink == 0:
+            axes[DATA_AXIS] //= shrink
+            total = math.prod(axes.values())
+        if total > n_devices:
+            raise ValueError(f"mesh {axes} needs {total} devices, have {n_devices}")
+    return axes
 
 
 def _default_unit(

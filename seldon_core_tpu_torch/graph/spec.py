@@ -175,6 +175,7 @@ _TPU_FIELDS = (
     "queue_timeout_ms",
     "dtype",
     "offload_compute",
+    "fuse_graph",
 )
 
 
@@ -192,6 +193,9 @@ class TpuSpec:
     # "auto": time the forward at warmup and run slow ones (>= 3 ms) on the
     # compute pool so they never stall the serving loop; "always" / "never"
     offload_compute: str = "auto"
+    # collapse pure subtrees (models, combiners, pure transformers) into one
+    # fused forward at build time (engine/fused.py)
+    fuse_graph: bool = True
     extra: Mapping[str, Any] = field(default_factory=dict)
 
     @staticmethod
@@ -204,6 +208,7 @@ class TpuSpec:
             queue_timeout_ms=float(obj.get("queue_timeout_ms", 2000.0)),
             dtype=str(obj.get("dtype", "float32")),
             offload_compute=str(obj.get("offload_compute", "auto")),
+            fuse_graph=bool_param(obj.get("fuse_graph", True)),
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 

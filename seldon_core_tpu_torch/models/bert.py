@@ -24,7 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.models.zoo import ModelSpec, register_model
+from seldon_core_tpu_torch.models.zoo import ModelSpec, dense, register_model, softmax_f32
 from seldon_core_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     PALLAS_MIN_SEQ,
@@ -85,10 +85,6 @@ def _ln(p, x, eps=1e-6):
     return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def _dense(p, x):
-    return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
-
-
 def _default_attention(q, k, v):
     if q.shape[2] >= FLASH_MIN_SEQ:
         if q.shape[2] >= PALLAS_MIN_SEQ and q.is_cuda and k.shape[2] % 128 == 0:
@@ -121,7 +117,7 @@ _KERNEL_IMPLS = {
 def _attention(p, x, num_heads, attn_impl):
     b, s, d = x.shape
     head = d // num_heads
-    q, k, v = _dense(p["qkv"], x).split(d, dim=-1)
+    q, k, v = dense(p["qkv"], x).split(d, dim=-1)
 
     def heads(t):  # a view of the QKV output, [b, heads, s, head]
         return t.reshape(b, s, num_heads, head).transpose(1, 2)
@@ -129,14 +125,14 @@ def _attention(p, x, num_heads, attn_impl):
     ctx = attn_impl(heads(q), heads(k), heads(v))
     # a view when ctx lies as [b, s, heads, head], as the CUDA kernel writes it
     ctx = ctx.transpose(1, 2).reshape(b, s, d)
-    return _dense(p["attn_out"], ctx)
+    return dense(p["attn_out"], ctx)
 
 
 def _layer_apply(p, x, num_heads, attn_impl):
     x = _ln(p["ln1"], x + _attention(p, x, num_heads, attn_impl))
     # exact erf GELU, as BERT (paper and HF) uses
-    h = torch.nn.functional.gelu(_dense(p["mlp_in"], x), approximate="none")
-    return _ln(p["ln2"], x + _dense(p["mlp_out"], h))
+    h = torch.nn.functional.gelu(dense(p["mlp_in"], x), approximate="none")
+    return _ln(p["ln2"], x + dense(p["mlp_out"], h))
 
 
 def _infer_heads(params: dict) -> int:
@@ -156,18 +152,16 @@ def bert_logits(params: dict, x: torch.Tensor, attn_impl=_default_attention) -> 
     cls = h[:, 0, :]  # [CLS] pooling
     pooler = params.get("pooler")
     if pooler is not None:  # HF tanh pooler, present on imported checkpoints
-        cls = torch.tanh(_dense(pooler, cls))
-    return _dense(params["head"], cls)
+        cls = torch.tanh(dense(pooler, cls))
+    return dense(params["head"], cls)
 
 
 def make_apply_bert(attn_impl):
-    """Serving apply (softmax probabilities) with the given attention. The
-    softmax runs in float32 whatever the compute dtype: probabilities leave
-    as float32, and rounding them to bfloat16 first would cost each row's
-    sum up to 4e-3."""
+    """Serving apply (float32 softmax probabilities) with the given
+    attention."""
 
     def apply(params, x):
-        return torch.softmax(bert_logits(params, x, attn_impl), dim=-1, dtype=torch.float32)
+        return softmax_f32(bert_logits(params, x, attn_impl))
 
     return apply
 

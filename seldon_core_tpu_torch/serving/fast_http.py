@@ -217,6 +217,9 @@ def engine_routes(service, state: dict) -> dict:
     async def predictions(req: WireRequest) -> WireResponse:
         return await wire.engine_predictions(service, req)
 
+    async def feedback(req: WireRequest) -> WireResponse:
+        return await wire.engine_feedback(service, req)
+
     async def ready(req: WireRequest) -> WireResponse:
         if state["paused"] or not service.executor.ready():
             return WireResponse.text("paused" if state["paused"] else "loading", 503)
@@ -227,6 +230,7 @@ def engine_routes(service, state: dict) -> dict:
 
     return {
         ("POST", "/api/v0.1/predictions"): predictions,
+        ("POST", "/api/v0.1/feedback"): feedback,
         ("GET", "/ready"): ready,
         ("GET", "/ping"): ping,
     }

@@ -1,9 +1,12 @@
 """Predictor server: one process serves one predictor on one device.
 
 Port of ``seldon_core_tpu/serving/server.py``: parse and default the
-deployment, build the executor (models on the device), warm every batch
-bucket, serve REST through the fast ingress, and on shutdown stop taking
-traffic and flush the micro-batcher.
+deployment, hold its ``tpu.mesh`` to the one device this process serves
+(a larger data axis shrinks, any other axis that needs more devices is
+refused, as the JAX package's mesh rule does), build the executor (models
+on the device, pure subtrees fused), warm every batch bucket, serve REST
+through the fast ingress, and on shutdown stop taking traffic and flush the
+micro-batcher.
 
 CLI:
     python -m seldon_core_tpu_torch.serving.server --deployment dep.json \
@@ -20,7 +23,7 @@ import signal
 
 from seldon_core_tpu_torch.core.tensor import resolve_device
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_executor
-from seldon_core_tpu_torch.graph.defaulting import default_deployment
+from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeployment
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
@@ -39,6 +42,7 @@ class PredictorServer:
         self.predictor = predictor
         self.deployment_name = deployment_name
         self.device = resolve_device(device)
+        mesh_from_spec(predictor.tpu.mesh, n_devices=1)  # one process serves one device
         self.executor: GraphExecutor = build_executor(
             predictor, context={"device": self.device}
         )

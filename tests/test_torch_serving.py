@@ -76,6 +76,7 @@ def _key_fields(dep):
                 p.tpu.queue_timeout_ms,
                 p.tpu.dtype,
                 p.tpu.offload_compute,
+                p.tpu.fuse_graph,
             )
             for p in dep.spec.predictors
         ],
@@ -285,3 +286,20 @@ def test_no_module_of_the_port_imports_jax():
         if m.split(".")[0] in ("jax", "jaxlib", "seldon_core_tpu")
     ]
     assert bad == []
+
+
+def test_warm_pool_threads_runs_one_forward_on_every_pool_thread():
+    """On the card, warmup also runs a forward on each compute-pool thread
+    (cuDNN and cuBLAS handles are per thread); each thread takes exactly one."""
+    import threading
+
+    from seldon_core_tpu_torch.graph.spec import TpuSpec
+    from seldon_core_tpu_torch.models import base, zoo
+
+    rt = zoo._runtime_from_modelspec(zoo.get_model("iris_logistic"), TpuSpec(batch_buckets=(1,)), "cpu")
+    threads = []
+    real = rt.predict
+    rt.predict = lambda x: threads.append(threading.current_thread().name) or real(x)
+    rt._warm_pool_threads(np.zeros((1, 4), np.float32))
+    assert len(threads) == len(set(threads)) == base.COMPUTE_POOL_WORKERS
+    assert all(name.startswith("seldon-compute") for name in threads)
