@@ -39,6 +39,25 @@ Phases, each of which raises on failure (no phase catches its own):
    epsilon-greedy -> 2x BERT-base DAG at seq 128 as JSON ids (12 kernel
    launches per request, answers against blockwise attention, and a
    feedback that moves only the routed arm).
+5. serve the four decoder deployments of
+   ``seldon_core_tpu_torch/deployments/`` through REST: ``tiny_gpt`` (the
+   fused greedy ``generate``, buckets 2 and 8) against the port's forward and
+   ``reference_generate`` on the CPU; ``gpt_continuous_batching`` (8 slots)
+   under 16 staggered requests with mixed ``max_new_tokens`` against the
+   fused ``generate`` on the card (float32, TF32 off), one SSE stream
+   against its buffered reply, no new dispatch key after warmup, an EOS
+   deployment retiring early, and the per-step device time;
+   ``tiny_gpt_paged_kv`` (int8 pages, prefix reuse, chunked prefill) under
+   shared-prefix traffic, with the int8 pool's teacher-forced logits against
+   an fp pool's and the allocator's audit; ``gpt2_small_long_prompt``
+   (GPT-2-small widths, a 4096-token prompt, bf16), whose prefill must
+   launch the causal flash kernel once per layer, with its prompt (and
+   first-token) logits and greedy ids held against blockwise causal attention and the
+   kernel's plain version, two wrong attentions shown to fail, and the
+   request's time split into prefill, kernel and decode.
+   Greedy ids of two paths may part only at a near-tie: at the first
+   token where a row diverges, the reference path's top logit must be
+   within the tie margin of the served token's.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -82,7 +101,7 @@ SEQ_LONG = 4096  # the auto policy takes the kernel from PALLAS_MIN_SEQ
 L2_FLUSH_BYTES = 128 << 20  # written before a cold-L2 call: over twice the 50 MB L2
 KV_TILE = 128  # keys per KV tile of the bf16/f16 kernel
 BASELINE_DIR = ROOT / "seldon_core_tpu_torch" / "deployments"
-DEVICE = "cuda"  # where phase 4 serves
+DEVICE = "cuda"  # where phases 4 and 5 serve
 # Phase 4 limits (measured numbers: chip_smoke.py on an H100, PERF.md).
 # Small models against the port's own forward on the CPU on the same
 # weights: float32 sums 4 to 512 terms in another order (measured 1.2e-7);
@@ -109,6 +128,25 @@ ENSEMBLE_TIE_ROWS = 0.1
 # so both faults must fail both checks.
 RESNET_BF16_REL_L2 = 8e-3
 RESNET_F32_REL_L2 = 1e-4
+# Phase 5 limits (measured numbers: chip_smoke.py on an H100, PERF.md).
+# Greedy ids of two paths (the card against the CPU, the scheduler against
+# the fused generate, the kernel against blockwise attention) may part only
+# at a near-tie: at the first diverging token the other path's top logit
+# must be within GEN_TIE_MARGIN of its logit for the served token.
+# No tie row showed in the first card run (32 GPT-2-small bf16 tokens
+# against blockwise and the plain version; every float32 row equal).
+GEN_TIE_MARGIN = {"float32": 1e-3, "bfloat16": 0.1}
+# GPT-2-small prefill logits at every prompt position (the last row gives
+# the first generated token), kernel against blockwise attention and against
+# the plain version, relative L2: measured 0.0099-0.0124 (bf16 rounding
+# through 12 layers), while a mask shifted by one key moved them by 0.076
+# over the whole prompt (0.037 at the last row, whose own attention has no
+# key past it to see) and a dropped 128-key tile by 0.32. The limit sits
+# between, 2.4x above the noise and 2.5x below the shifted mask; both wrong
+# attentions must land outside it over the whole prompt on every run.
+LONG_LOGITS_REL_L2 = 0.03
+INT8_KV_ATOL = 0.25  # the JAX package's own bound (tests/test_kv_pool.py)
+CB_REQUESTS = 16
 
 
 def card_line() -> str:
@@ -822,6 +860,435 @@ async def serve_dag(card) -> int:
     return launches
 
 
+def _ids_post(port: int, ids, tags: dict | None = None, path: str = "/api/v0.1/predictions"):
+    body = {"data": {"ndarray": ids.tolist()}}
+    if tags:
+        body["meta"] = {"tags": tags}
+    return _request(port, json.dumps(body).encode(), path=path)
+
+
+def next_logits(params, seq) -> "torch.Tensor":
+    """Float32 next-token logits after ``seq`` (one prefill forward)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.decoder import prefill
+
+    with torch.inference_mode():
+        return prefill(params, torch.from_numpy(np.asarray(seq, np.int64)[None]))[0][0].float()
+
+
+def tie_rule(label, served, ref, params, prompt_len: int, dtype_name: str) -> list:
+    """Rows of ``served`` against ``ref`` (int arrays, prompt included):
+    equal, or parting first at a near-tie of the reference path, whose
+    parameters are ``params`` (its attention as currently planted). Returns
+    the tie rows as (row, generated index, gap)."""
+    import numpy as np
+
+    margin = GEN_TIE_MARGIN[dtype_name]
+    ties = []
+    for r, (a, b) in enumerate(zip(np.asarray(served), np.asarray(ref))):
+        n = min(len(a), len(b))
+        diff = np.nonzero(a[prompt_len:n] != b[prompt_len:n])[0]
+        if not len(diff):
+            continue
+        t = prompt_len + int(diff[0])
+        logits = next_logits(params, a[:t].astype(np.int64)).cpu()
+        gap = float(logits.max() - logits[int(a[t])])
+        ties.append((r, t - prompt_len, gap))
+        if gap > margin:
+            raise AssertionError(f"{label}: row {r} parts from the reference at generated token {t - prompt_len} "
+                                 f"({a[t]} vs {b[t]}) with a top-logit gap of {gap} > {margin}")
+    return ties
+
+
+def _cpu_params(runtime):
+    import torch
+
+    from seldon_core_tpu_torch.models.convert import params_to_numpy, params_to_torch
+
+    return params_to_torch(params_to_numpy(runtime.params), torch.device("cpu"), runtime.dtype)
+
+
+async def serve_tiny_gpt(card) -> None:
+    """Phase 5a: the fused greedy generate through REST at buckets 2 and 8
+    (float32), held against the port's own generate and reference_generate
+    on the CPU on the same weights."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.decoder import generate, reference_generate
+
+    server, build_s, warmup_s = await _start(BASELINE_DIR / "tiny_gpt.json")
+    runtime = _model_runtime(server)
+    seq, max_new = runtime.generative["seq"], runtime.generative["max_new_tokens"]
+    vocab = runtime.params["tok_emb"].shape[0]
+    rng = np.random.default_rng(5)
+    try:
+        served = []
+        for n in (2, 8):
+            ids = rng.integers(0, vocab, size=(n, seq))
+            status, _, body, ms = await _ids_post(server.port, ids)
+            if status != 200:
+                raise AssertionError(f"tiny_gpt predict returned HTTP {status}: {body[:300]!r}")
+            out = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)
+            if out.shape != (n, seq + max_new) or not (out[:, :seq] == ids).all():
+                raise AssertionError(f"tiny_gpt served ids of shape {out.shape}, want ({n}, {seq + max_new}) "
+                                     "with the prompt echoed")
+            served.append((ids, out, ms))
+    finally:
+        await server.stop()
+    cpu = _cpu_params(runtime)
+    ties = []
+    for ids, out, ms in served:
+        with torch.inference_mode():
+            want = generate(cpu, torch.from_numpy(ids), max_new).numpy()
+        ref = reference_generate(cpu, ids, max_new)
+        if not (ref == want).all():
+            raise AssertionError("tiny_gpt: the CPU generate disagrees with reference_generate")
+        ties += tie_rule("tiny_gpt", out, want, cpu, seq, "float32")
+        print(f"[{card}] request tiny_gpt batch={len(ids)} latency_ms={ms:.3f} rows equal to the CPU "
+              f"forward: {int((out == want).all(axis=1).sum())}/{len(ids)}", flush=True)
+    print(f"[{card}] tiny_gpt: build_s={build_s:.3f} warmup_s={warmup_s:.3f} tie rows {ties} "
+          f"(margin {GEN_TIE_MARGIN['float32']})", flush=True)
+
+
+def _fused_oracle(runtime, ids):
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.decoder import generate
+
+    with torch.inference_mode():
+        return generate(runtime.params, torch.from_numpy(np.asarray(ids)).to(runtime.device),
+                        runtime.generative["max_new_tokens"]).cpu().numpy()
+
+
+def _deployment_copy(name: str, tpu_update: dict) -> Path:
+    """A copy of a deployment file with its tpu block updated, under the
+    git-ignored build/."""
+    dep = json.loads((BASELINE_DIR / f"{name}.json").read_text())
+    dep["spec"]["predictors"][0]["tpu"].update(tpu_update)
+    path = ROOT / "build" / f"{name}_{'_'.join(tpu_update)}.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(dep))
+    return path
+
+
+async def _read_sse(port: int, ids) -> tuple[int, list]:
+    """One POST to the SSE route: (status, the data events in order)."""
+    status, headers, body, _ = await _ids_post(port, ids, path="/api/v0.1/predictions/stream")
+    if status != 200 or headers.get("transfer-encoding") != "chunked":
+        raise AssertionError(f"stream returned HTTP {status} {headers}: {body[:300]!r}")
+    raw, rest = b"", body
+    while True:
+        size_line, _, rest = rest.partition(b"\r\n")
+        size = int(size_line, 16)
+        if size == 0:
+            break
+        raw, rest = raw + rest[:size], rest[size + 2:]
+    return status, [json.loads(f[6:]) for f in raw.split(b"\n\n") if f.startswith(b"data: ")]
+
+
+async def serve_continuous_batching(card) -> None:
+    """Phase 5b: gpt_continuous_batching under 16 staggered requests with
+    mixed per-request max_new_tokens, every row against the fused generate
+    on the card; one SSE stream against its buffered reply; no new dispatch
+    key after warmup; an EOS copy of the deployment retiring early; the
+    per-step device time and host share."""
+    import numpy as np
+
+    server, build_s, warmup_s = await _start(BASELINE_DIR / "gpt_continuous_batching.json")
+    sched, runtime = server.decode_scheduler, _model_runtime(server)
+    seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, vocab, size=(CB_REQUESTS, seq))
+    budgets = [int(b) for b in rng.integers(1, sched.max_new_tokens + 1, size=CB_REQUESTS)]
+    try:
+        async def one(i):
+            await asyncio.sleep(0.004 * i)  # staggered arrival: later rows admit mid-stream
+            return await _ids_post(server.port, prompts[i : i + 1], {"max_new_tokens": budgets[i]})
+
+        t0 = time.perf_counter()
+        replies = await asyncio.gather(*(one(i) for i in range(CB_REQUESTS)))
+        wall = time.perf_counter() - t0
+        status, events = await _read_sse(server.port, prompts[:1])
+        _, _, body, _ = await _ids_post(server.port, prompts[:1])
+        buffered = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0]
+        recompiles = sched.recompiles_since_warmup()
+        steps, peak = sched.stat_steps, sched.stat_peak_active
+    finally:
+        await server.stop()
+    served = []
+    for (status, _, body, ms), b in zip(replies, budgets):
+        out = json.loads(body)
+        if status != 200 or out["meta"]["tags"]["gen_lens"] != [b]:
+            raise AssertionError(f"gpt_continuous_batching returned HTTP {status}: {body[:300]!r}")
+        served.append(np.asarray(out["data"]["ndarray"], np.int64)[0][: seq + b])
+    want = _fused_oracle(runtime, prompts)
+    ties = []
+    for r, (out, b) in enumerate(zip(served, budgets)):
+        ties += [(r, *t[1:]) for t in tie_rule("gpt_continuous_batching", [out], [want[r][: seq + b]],
+                                               runtime.params, seq, "float32")]
+    lat = sorted(ms for _, _, _, ms in replies)
+    tokens = [e["token"] for e in events if "token" in e]
+    done = events[-1]
+    print(f"[{card}] gpt_continuous_batching: slots={sched.n_slots} build_s={build_s:.3f} warmup_s={warmup_s:.3f} "
+          f"requests={CB_REQUESTS} tokens={sum(budgets)} wall_s={wall:.3f} steps={steps} peak_active={peak} "
+          f"latency_ms p50={lat[len(lat) // 2]:.3f} max={lat[-1]:.3f} rows equal to the fused generate: "
+          f"{sum(int((o == w[: len(o)]).all()) for o, w in zip(served, want))}/{CB_REQUESTS} tie rows {ties} "
+          f"recompiles_since_warmup={recompiles}", flush=True)
+    print(f"[{card}] gpt_continuous_batching stream: {len(tokens)} token events, done={done.get('done')} "
+          f"gen_lens={done.get('gen_lens')}", flush=True)
+    if recompiles != 0:
+        raise AssertionError(f"the scheduler dispatched {recompiles} new (program, shape) keys after warmup")
+    if tokens != buffered[seq:].tolist() or done.get("ids") != [buffered.tolist()]:
+        raise AssertionError("the SSE stream's tokens differ from the buffered reply for the same prompt")
+    step_breakdown(card, sched)
+
+    # EOS: a copy of the deployment whose eos id is the 3rd greedy token of
+    # a prompt must stop that row there
+    eos = int(want[1][seq + 2])
+    server, _, _ = await _start(_deployment_copy("gpt_continuous_batching", {"decode_eos_id": eos}))
+    try:
+        status, _, body, ms = await _ids_post(server.port, prompts[1:2])
+    finally:
+        await server.stop()
+    out = json.loads(body)
+    gen_len = out["meta"]["tags"]["gen_lens"][0]
+    cut = seq + want[1][seq:].tolist().index(eos) + 1
+    print(f"[{card}] gpt_continuous_batching eos={eos}: gen_lens={gen_len} latency_ms={ms:.3f}", flush=True)
+    row = np.asarray(out["data"]["ndarray"], np.int64)[0]
+    if status != 200 or gen_len != cut - seq or not (row[:cut] == want[1][:cut]).all() or not (row[cut:] == eos).all():
+        raise AssertionError(f"the EOS deployment did not retire the row at its first eos: {body[:300]!r}")
+
+
+def step_breakdown(card, sched, reps: int = 20) -> None:
+    """One scheduler step with every slot generating (all-zero block
+    tables: every write lands in junk page 0): host wall time (the step
+    ends in the token readback), device busy time, host share."""
+    import numpy as np
+
+    n = sched.n_slots
+    z, pos = np.zeros(n, np.int32), np.full(n, sched.max_ctx - 1, np.int32)
+    bt, zf = sched.pool.block_tables(), np.zeros(n, np.float32)
+    step = lambda: sched._step(bt, z, pos, zf, z, 0)  # noqa: E731
+    wall = wall_ms(step, reps)
+    kernels, ops = profile_device(step)
+    busy = sum(kernels.values())
+    device = (f"device_busy_ms={busy:.4f} host_share={max(0.0, 1 - busy / wall):.3f}" if busy > 0
+              else "device time: not measured (the profiler saw no device activity)")
+    print(f"[{card}] decode step breakdown slots={n} virtual_ctx={sched.pool.virtual_ctx} "
+          f"step_wall_ms={wall:.3f} device_ops_per_step={ops:g} {device}", flush=True)
+
+
+async def serve_paged_kv(card) -> None:
+    """Phase 5c: tiny_gpt_paged_kv (int8 pages, prefix reuse, chunked
+    prefill) under shared-prefix traffic: the prefix index must hit, the
+    allocator's audit must hold, and int8 against fp pools on the same
+    weights, teacher-forced, must stay within INT8_KV_ATOL."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import decoder
+
+    server, build_s, warmup_s = await _start(BASELINE_DIR / "tiny_gpt_paged_kv.json")
+    sched, runtime = server.decode_scheduler, _model_runtime(server)
+    seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, vocab, size=(12, seq))
+    prompts[:, : seq - 16] = prompts[0, : seq - 16]  # one shared system prompt
+    try:
+        first = await _ids_post(server.port, prompts[:1], {"cache_prefix": seq - 16})
+        rest = await asyncio.gather(*(_ids_post(server.port, prompts[i : i + 1]) for i in range(1, 12)))
+        stats = dict(hits=sched.stat_prefix_hits, misses=sched.stat_prefix_misses,
+                     tokens_saved=sched.stat_prefix_tokens_saved, chunks=sched.stat_chunk_dispatches,
+                     cow=sched.pool.alloc.stat_cow_copies, shared=sched.pool.alloc.stat_pages_shared,
+                     recompiles=sched.recompiles_since_warmup())
+        sched.pool.alloc.check()
+    finally:
+        await server.stop()
+    served = []
+    for status, _, body, _ in [first, *rest]:
+        if status != 200:
+            raise AssertionError(f"tiny_gpt_paged_kv returned HTTP {status}: {body[:300]!r}")
+        served.append(np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0])
+    want = _fused_oracle(runtime, prompts)
+    agree = float(np.mean([(s[seq:] == w[seq:]).mean() for s, w in zip(served, want)]))
+
+    # teacher-forced int8 against fp pools on the deployment's weights
+    params, pool = runtime.params, sched.pool
+    pps = pool.pages_per_slot
+    bt = torch.arange(1, 1 + pps, device=runtime.device)[None, :]
+    on = lambda a: torch.as_tensor(a, device=runtime.device)  # noqa: E731
+    streams = {}
+    with torch.inference_mode():
+        pools = {kv: decoder.paged_kv_init(params, 1 + pps, pool.page_size, kv_dtype=kv) for kv in ("", "int8")}
+        for kv, p in pools.items():
+            lg, _, _ = decoder.paged_chunk_prefill(params, p, bt, on(prompts[:1]), on([0]), on([seq]))
+            streams[kv] = [lg[0, seq - 1].float().cpu()]
+        tok = int(torch.argmax(streams[""][0]))
+        for i in range(sched.max_new_tokens - 1):
+            for kv, p in pools.items():
+                lg, _, _ = decoder.paged_decode_step(params, p, bt, on([tok]), on([seq + i]))
+                streams[kv].append(lg[0].float().cpu())
+            tok = int(torch.argmax(streams[""][-1]))
+    drift = max(float((a - b).abs().max()) for a, b in zip(streams[""], streams["int8"]))
+    print(f"[{card}] tiny_gpt_paged_kv: kv_dtype={pool.kv_dtype} pages={pool.n_pages} page_size={pool.page_size} "
+          f"build_s={build_s:.3f} warmup_s={warmup_s:.3f} {json.dumps(stats)} greedy agreement with the fused "
+          f"generate={agree:.3f} int8 vs fp teacher-forced max logit drift={drift} (limit {INT8_KV_ATOL})", flush=True)
+    if stats["hits"] <= 0 or stats["recompiles"] != 0:
+        raise AssertionError(f"tiny_gpt_paged_kv: no prefix hit or a new dispatch key: {stats}")
+    if not 0.0 < drift < INT8_KV_ATOL:
+        raise AssertionError(f"int8 KV logits drift {drift} from the fp pool's (limit {INT8_KV_ATOL}, and > 0)")
+
+
+def shifted_mask_attention(q, k, v):
+    """Causal attention whose mask lets each row see one key past itself."""
+    import math
+
+    import torch
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril(diagonal=1)
+    return torch.matmul(torch.softmax(s.masked_fill(~keep, -1e30), dim=-1), v.float()).to(q.dtype)
+
+
+def tile_dropped_attention(q, k, v):
+    """Causal attention with keys KV_TILE..2*KV_TILE-1 masked out of every
+    row: one 128-key tile dropped."""
+    import math
+
+    import torch
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril()
+    keep[:, KV_TILE : 2 * KV_TILE] = False
+    keep[:, 0] = True
+    return torch.matmul(torch.softmax(s.masked_fill(~keep, -1e30), dim=-1), v.float()).to(q.dtype)
+
+
+def causal_arms() -> dict:
+    """The decoder's prefill attention run other ways: blockwise (no
+    kernel), the kernel's plain version, and two wrong attentions."""
+    from seldon_core_tpu_torch.ops.attention import blockwise_attention
+    from seldon_core_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    return {
+        "blockwise": lambda q, k, v: blockwise_attention(q, k, v, block_size=512, causal=True),
+        "plain_version": lambda q, k, v: flash_attention_reference(q, k, v, causal=True),
+        "shifted_mask": shifted_mask_attention,
+        "tile_dropped": tile_dropped_attention,
+    }
+
+
+async def serve_long_prompt(card) -> int:
+    """Phase 5d: GPT-2-small widths, one 4096-token prompt per request,
+    bf16. The prefill must launch the flash kernel once per layer; prompt
+    logits within LONG_LOGITS_REL_L2 of blockwise attention and of the
+    kernel's plain version, two wrong attentions outside it; greedy ids
+    equal to both up to the tie rule; where the request's time goes.
+    Returns the kernel launches of the path."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import decoder
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    server, build_s, warmup_s = await _start(BASELINE_DIR / "gpt2_small_long_prompt.json")
+    runtime = _model_runtime(server)
+    params, dims = runtime.params, decoder.decoder_dims(runtime.params)
+    seq, max_new = runtime.generative["seq"], runtime.generative["max_new_tokens"]
+    rng = np.random.default_rng(8)
+    try:
+        served, deltas, latencies = [], [], []
+        LAUNCHES.reset()  # the path's run starts here
+        for _ in range(2):
+            ids = rng.integers(0, dims["vocab"], size=(1, seq))
+            before = LAUNCHES.count
+            status, _, body, ms = await _ids_post(server.port, ids)
+            if status != 200:
+                raise AssertionError(f"gpt2_small_long_prompt returned HTTP {status}: {body[:300]!r}")
+            served.append((ids, np.asarray(json.loads(body)["data"]["ndarray"], np.int64)))
+            deltas.append(LAUNCHES.count - before)
+            latencies.append(ms)
+        launches = LAUNCHES.count  # ... and ends here
+    finally:
+        await server.stop()
+    print(f"[{card}] gpt2_small_long_prompt: {json.dumps(dims)} dtype={runtime.dtype} build_s={build_s:.3f} "
+          f"warmup_s={warmup_s:.3f} latency_ms={[round(m, 3) for m in latencies]} kernel_launches={deltas}",
+          flush=True)
+    if deltas != [dims["layers"]] * len(deltas):
+        raise AssertionError(f"long-prompt flash launches per request {deltas}, want {dims['layers']} each")
+    for ids, out in served:
+        if out.shape != (1, seq + max_new) or not (out[:, :seq] == ids).all():
+            raise AssertionError(f"gpt2_small_long_prompt served ids of shape {out.shape}")
+
+    def prompt_logits(x):
+        h = decoder._embed(params, x)
+        for lp in params["layers"]:
+            h, _, _ = decoder._layer_prefill(lp, h, dims["heads"])
+        return decoder._logits(params, h)[0].float()
+
+    ids = served[0][0]
+    with torch.inference_mode():
+        x = torch.from_numpy(ids).to(runtime.device)
+        kernel_logits = prompt_logits(x)
+        rows, ties = {}, {}
+        for name, fn in causal_arms().items():
+            with planted(decoder, "_causal_attention", fn):
+                got = prompt_logits(x)
+                rows[name] = rel_l2(got, kernel_logits)
+                rows[f"{name}_first_token"] = rel_l2(got[-1], kernel_logits[-1])
+                del got
+                if name in ("blockwise", "plain_version"):
+                    ref = decoder.generate(params, x, max_new).cpu().numpy()
+                    ties[name] = tie_rule(f"gpt2_small_long_prompt vs {name}", served[0][1], ref, params, seq,
+                                          "bfloat16")
+    print(f"[{card}] gpt2_small_long_prompt prompt logits vs the kernel (relative L2; limit "
+          f"{LONG_LOGITS_REL_L2}): {json.dumps(rows)}; greedy tie rows {ties}", flush=True)
+    if max(rows[f"{a}{b}"] for a in ("blockwise", "plain_version") for b in ("", "_first_token")) > LONG_LOGITS_REL_L2:
+        raise AssertionError(f"long-prompt logits disagree with the same weights run another way: {rows}")
+    for name in ("shifted_mask", "tile_dropped"):
+        if rows[name] <= LONG_LOGITS_REL_L2:
+            raise AssertionError(f"the long-prompt check cannot see a wrong attention ({name}: {rows[name]})")
+    long_breakdown(card, runtime, ids)
+    return launches
+
+
+def long_breakdown(card, runtime, ids) -> None:
+    """Where one long-prompt request's device time goes: the request's host
+    wall (ids in, ids back), device busy and idle share, the prefill's
+    device time and the kernel's share of it, and the per-token decode
+    device time."""
+    import torch
+
+    from seldon_core_tpu_torch.models.decoder import prefill
+
+    max_new = runtime.generative["max_new_tokens"]
+    x = torch.from_numpy(ids).to(runtime.device)
+
+    def prefill_only():
+        with torch.inference_mode():
+            prefill(runtime.params, x)[0].cpu()
+
+    wall = wall_ms(lambda: runtime.predict(ids), reps=3)
+    total, ops = profile_device(lambda: runtime.predict(ids), reps=1)
+    pre, _ = profile_device(prefill_only, reps=1)
+    busy, pre_busy = sum(total.values()), sum(pre.values())
+    flash = sum(t for k, t in pre.items() if "flash_fwd" in k)
+    if busy > 0 and pre_busy > 0:
+        device = (f"device_busy_ms={busy:.4f} idle_share={max(0.0, 1 - busy / wall):.3f} "
+                  f"prefill_device_ms={pre_busy:.4f} flash_ms={flash:.4f} flash_share_of_prefill={flash / pre_busy:.3f} "
+                  f"decode_device_ms_per_token={(busy - pre_busy) / (max_new - 1):.4f}")
+    else:
+        device = "device time: not measured (the profiler saw no device activity)"
+    print(f"[{card}] gpt2_small_long_prompt breakdown request_wall_ms={wall:.3f} "
+          f"device_ops_per_request={ops:g} {device}", flush=True)
+    for name, t in sorted(pre.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    prefill {t:.4f} ms  {name[:110]}")
+
+
 def sass_counts(library: Path) -> dict:
     """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the built
     library holds, from its disassembly."""
@@ -888,8 +1355,10 @@ def main() -> int:
     print(f"[{card}] flash_attention SASS: {json.dumps(sass)}", flush=True)
     if min(sass.values()) == 0:
         raise AssertionError(f"the flash kernel's library lacks wgmma or TMA instructions: {sass}")
+    print(f"[{card}] phase 1 seconds: {time.perf_counter() - t0:.3f}", flush=True)
 
     # 2. kernel against its plain version
+    t2 = time.perf_counter()
     bf16, f32 = torch.bfloat16, torch.float32
     dense, views = "contiguous", "qkv_views"
     cases = [
@@ -909,6 +1378,10 @@ def main() -> int:
         ("dag_seq128_b1_views", (1, 12, 128, 128, 64), bf16, False, views),
         ("dag_seq128_b64", (64, 12, 128, 128, 64), bf16, False, dense),
         ("dag_seq128_b64_views", (64, 12, 128, 128, 64), bf16, False, views),
+        # the decoder's prefill at GPT-2-small widths and a 4096-token prompt
+        ("decoder_prefill_views", (1, 12, 4096, 4096, 64), bf16, True, views),
+        ("decoder_prefill", (1, 12, 4096, 4096, 64), bf16, True, dense),
+        ("decoder_prefill_f32", (1, 12, 4096, 4096, 64), f32, True, views),
     ]
     rows = {c[0]: check_flash(c, card) for c in cases}
     host = host_cost(card)
@@ -920,28 +1393,45 @@ def main() -> int:
     else:
         raise AssertionError("flash_attention took a ragged kv length of 4100")
     del x
+    print(f"[{card}] phase 2 seconds: {time.perf_counter() - t2:.3f}", flush=True)
 
     # 3. BERT-base at seq 512
+    t3 = time.perf_counter()
     bert_launches = asyncio.run(serve_bert(card, BASELINE_DIR / "bert_base_flash.json"))
     if bert_launches <= 0:
         raise AssertionError("the BERT path launched no flash_attention kernel")
+    print(f"[{card}] phase 3 seconds: {time.perf_counter() - t3:.3f}", flush=True)
 
     # 4. the five BASELINE deployments
+    t4 = time.perf_counter()
     asyncio.run(serve_small(card))
     serve_resnet_ensemble(card)
     dag_launches = asyncio.run(serve_dag(card))
     if dag_launches <= 0:
         raise AssertionError("the DAG path launched no flash_attention kernel")
+    print(f"[{card}] phase 4 seconds: {time.perf_counter() - t4:.3f}", flush=True)
+
+    # 5. the four decoder deployments
+    t5 = time.perf_counter()
+    asyncio.run(serve_tiny_gpt(card))
+    asyncio.run(serve_continuous_batching(card))
+    asyncio.run(serve_paged_kv(card))
+    decoder_launches = asyncio.run(serve_long_prompt(card))
+    if decoder_launches <= 0:
+        raise AssertionError("the decoder path launched no flash_attention kernel")
+    print(f"[{card}] phase 5 seconds: {time.perf_counter() - t5:.3f}", flush=True)
 
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
+    prefill_row = rows["decoder_prefill_views"]
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
-        "launches": bert_launches + dag_launches,
-        "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches},
+        "launches": bert_launches + dag_launches + decoder_launches,
+        "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
+                             "gpt2_small_long_prompt (phase 5)": decoder_launches},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -952,6 +1442,8 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "seq128_b64_views": {k: dag[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms")},
+        "decoder_prefill_views": {k: prefill_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "library_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ Port of ``seldon_core_tpu/graph/defaulting.py``:
 
 ``mesh_from_spec`` is the device-count rule of
 ``seldon_core_tpu/parallel/mesh.py::mesh_from_spec``, which the server
-applies to the mesh it is asked for.
+applies to the mesh it is asked for. ``decode_problems`` holds the
+generative tier's ``decode_*`` knobs to the JAX package's validation rules
+(``seldon_core_tpu/graph/validation.py``) and names every knob of that tier
+the port does not serve yet.
 """
 
 from __future__ import annotations
@@ -54,6 +57,82 @@ def mesh_from_spec(axes: Mapping[str, int] | None, n_devices: int) -> dict[str, 
         if total > n_devices:
             raise ValueError(f"mesh {axes} needs {total} devices, have {n_devices}")
     return axes
+
+
+# decode_* knobs of the JAX package the port does not serve yet, with their
+# defaults there: a deployment that sets one to anything else is refused by
+# name, as engine/builtin.py refuses an unported built-in
+UNPORTED_DECODE_KNOBS = {
+    "decode_draft_model": "",
+    "decode_spec_k": 0,
+    "decode_spec_tree": "",
+    "decode_spec_accept_floor": 0.0,
+    "decode_kv_host_bytes": 0,
+    "decode_kv_store_tier": "",
+    "decode_mesh_axes": {},
+    "decode_replicas": 1,
+    "decode_router_policy": "",
+    "decode_autoscale_replicas": 0,
+    "decode_autoscale_queue_depth": 0,
+    "decode_health_poll_ms": 0.0,
+    "decode_health_miss_threshold": 3,
+    "decode_drain_timeout_ms": 5000.0,
+    "decode_slo_ttft_ms": 0.0,
+    "decode_slo_itl_ms": 0.0,
+    "decode_npy_bindata": True,
+}
+
+
+def decode_problems(name: str, tpu) -> list[str]:
+    """Every problem with predictor ``name``'s decode_* knobs: the JAX
+    package's validation rules for the knobs the port serves, and each
+    unported knob a deployment sets."""
+    problems = [
+        f"predictor '{name}' sets {knob}={tpu.extra[knob]!r}: that part of the "
+        "generative tier is not part of the torch port yet"
+        for knob, default in UNPORTED_DECODE_KNOBS.items()
+        if knob in tpu.extra and tpu.extra[knob] != default
+    ]
+    if tpu.decode_eos_id < -1:
+        problems.append(f"predictor '{name}' decode_eos_id must be >= -1")
+    for knob in ("decode_prefix_slots", "decode_prefix_ctx", "decode_prefill_chunk",
+                 "decode_kv_page_size", "decode_kv_pages"):
+        if getattr(tpu, knob) < 0:
+            problems.append(f"predictor '{name}' {knob} must be >= 0")
+    if tpu.decode_kv_dtype not in ("", "int8"):
+        problems.append(
+            f"predictor '{name}' decode_kv_dtype '{tpu.decode_kv_dtype}' unsupported (want '' or 'int8')"
+        )
+    if (tpu.decode_kv_page_size > 0 or tpu.decode_kv_pages > 0 or tpu.decode_kv_dtype) and tpu.decode_slots <= 0:
+        problems.append(
+            f"predictor '{name}' decode_kv_page_size/decode_kv_pages/decode_kv_dtype "
+            "need decode_slots > 0 (the continuous-batching scheduler)"
+        )
+    if (
+        tpu.decode_kv_page_size > 0
+        and tpu.decode_prefill_chunk > 0
+        and tpu.decode_prefill_chunk % tpu.decode_kv_page_size != 0
+    ):
+        # every chunk boundary on a page boundary: chunked prefill never
+        # copy-on-writes its own half-written page
+        problems.append(
+            f"predictor '{name}' decode_prefill_chunk ({tpu.decode_prefill_chunk}) "
+            f"must be a multiple of decode_kv_page_size ({tpu.decode_kv_page_size})"
+        )
+    if 0 < tpu.decode_kv_pages < tpu.decode_slots + 1:
+        problems.append(
+            f"predictor '{name}' decode_kv_pages ({tpu.decode_kv_pages}) is below "
+            f"decode_slots + 1 ({tpu.decode_slots + 1}) — the page budget cannot "
+            "host the configured concurrency"
+        )
+    if tpu.decode_prefix_ctx > 0 and tpu.decode_prefix_slots == 0:
+        problems.append(f"predictor '{name}' decode_prefix_ctx needs decode_prefix_slots > 0")
+    if (tpu.decode_prefix_slots > 0 or tpu.decode_prefill_chunk > 0) and tpu.decode_slots <= 0:
+        problems.append(
+            f"predictor '{name}' decode_prefix_slots/decode_prefill_chunk need "
+            "decode_slots > 0 (the continuous-batching scheduler)"
+        )
+    return problems
 
 
 def _default_unit(

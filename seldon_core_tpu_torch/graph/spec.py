@@ -176,6 +176,17 @@ _TPU_FIELDS = (
     "dtype",
     "offload_compute",
     "fuse_graph",
+    "decode_slots",
+    "decode_eos_id",
+    "decode_temperature",
+    "decode_top_k",
+    "decode_seed",
+    "decode_prefix_slots",
+    "decode_prefix_ctx",
+    "decode_prefill_chunk",
+    "decode_kv_page_size",
+    "decode_kv_pages",
+    "decode_kv_dtype",
 )
 
 
@@ -196,6 +207,19 @@ class TpuSpec:
     # collapse pure subtrees (models, combiners, pure transformers) into one
     # fused forward at build time (engine/fused.py)
     fuse_graph: bool = True
+    # the generative tier (serving/decode_scheduler.py): decode_slots > 0
+    # serves a single-node decoder through the continuous-batching loop
+    decode_slots: int = 0
+    decode_eos_id: int = -1  # -1: no EOS, every request runs its budget
+    decode_temperature: float = 0.0  # <= 0: greedy
+    decode_top_k: int = 0  # <= 0: the full vocabulary
+    decode_seed: int = 0
+    decode_prefix_slots: int = 0  # prefix-index entries (0: no prefix reuse)
+    decode_prefix_ctx: int = 0  # longest capturable prefix (0: the prompt)
+    decode_prefill_chunk: int = 0  # prompt tokens per chunk round (0: all)
+    decode_kv_page_size: int = 0  # tokens per page (0: 16)
+    decode_kv_pages: int = 0  # page budget (0: flat-equivalent)
+    decode_kv_dtype: str = ""  # "" or "int8"
     extra: Mapping[str, Any] = field(default_factory=dict)
 
     @staticmethod
@@ -209,6 +233,17 @@ class TpuSpec:
             dtype=str(obj.get("dtype", "float32")),
             offload_compute=str(obj.get("offload_compute", "auto")),
             fuse_graph=bool_param(obj.get("fuse_graph", True)),
+            decode_slots=int(obj.get("decode_slots", 0)),
+            decode_eos_id=int(obj.get("decode_eos_id", -1)),
+            decode_temperature=float(obj.get("decode_temperature", 0.0)),
+            decode_top_k=int(obj.get("decode_top_k", 0)),
+            decode_seed=int(obj.get("decode_seed", 0)),
+            decode_prefix_slots=int(obj.get("decode_prefix_slots", 0)),
+            decode_prefix_ctx=int(obj.get("decode_prefix_ctx", 0)),
+            decode_prefill_chunk=int(obj.get("decode_prefill_chunk", 0)),
+            decode_kv_page_size=int(obj.get("decode_kv_page_size", 0)),
+            decode_kv_pages=int(obj.get("decode_kv_pages", 0)),
+            decode_kv_dtype=str(obj.get("decode_kv_dtype", "")),
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 

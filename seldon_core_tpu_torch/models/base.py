@@ -106,6 +106,9 @@ class ModelRuntime:
         self.offload_compute = offload_compute == "always"
         self.stat_forward_ms: float | None = None
         self.feature_shape: tuple[int, ...] | None = None
+        # generative decode geometry ({"seq", "max_new_tokens"}), set by the
+        # zoo for decoders; read by the decode scheduler's opt-in
+        self.generative: dict | None = None
         self._low_precision = torch.finfo(dtype).bits < 32
         self.params = params_to_torch(params, self.device, dtype, layout)
 

@@ -6,8 +6,8 @@ deterministic init and loads it into a ModelRuntime on the deployment's
 device. The graph unit factory serves implementation ``JAX_MODEL`` — the
 deployment JSON keeps that name so one file serves both packages.
 
-Initialisation: ``bert_*`` and ``resnet*`` draw with numpy in the JAX
-package, and the port makes the same draws, so a seed gives that package's
+Initialisation: ``bert_*``, ``resnet*`` and ``tiny_gpt`` draw with numpy in
+the JAX package, and the port makes the same draws, so a seed gives that package's
 parameters bit for bit. The small models here (``iris_logistic``,
 ``iris_mlp``, ``mnist_mlp``) draw with ``jax.random`` there; the port
 cannot repeat those draws without JAX and draws with
@@ -25,6 +25,7 @@ import inspect
 import threading
 import urllib.parse
 from collections import OrderedDict
+from functools import partial
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -50,6 +51,10 @@ class ModelSpec:
     # numpy leaf -> array or tensor in the port's layout, applied once at
     # load (models/convert.py); None keeps the JAX package's layout
     layout: Callable[[np.ndarray], Any] | None = None
+    # generative decoders advertise their decode geometry ({"seq": prompt
+    # bucket, "max_new_tokens": cap}) so serving can offer the
+    # continuous-batching scheduler (tpu.decode_slots)
+    generative: dict | None = None
 
 
 Builder = Callable[..., ModelSpec]
@@ -212,6 +217,50 @@ def build_mnist_mlp(seed: int = 0, hidden: int = 512, **_) -> ModelSpec:
     return ModelSpec(_apply_mlp3_flat, params, (784,), tuple(str(i) for i in range(10)))
 
 
+@register_model("tiny_gpt")
+def build_tiny_gpt(
+    seed: int = 0,
+    vocab: int = 512,
+    hidden: int = 128,
+    layers: int = 2,
+    ffn: int = 256,
+    max_len: int = 128,
+    seq: int = 32,
+    max_new_tokens: int = 16,
+    resid_scale: float = 1.0,
+    **_,
+) -> ModelSpec:
+    """GPT-style causal decoder served by greedy KV-cache generation
+    (models/decoder.py): prefill through the causal attention policy (the
+    flash kernel on the card from 4096 tokens), then single-token steps.
+    The prompt bucket and ``max_new_tokens`` are deployment parameters.
+    Wire: int token ids in, ids out ([b, seq + max_new_tokens], int32)."""
+    from seldon_core_tpu_torch.models.decoder import init_decoder
+
+    if seq + max_new_tokens > max_len:
+        raise ValueError(
+            f"seq={seq} + max_new_tokens={max_new_tokens} exceeds "
+            f"max_len={max_len} — raise max_len"
+        )
+    params = init_decoder(
+        seed, vocab=vocab, hidden=hidden, layers=layers, ffn=ffn, max_len=max_len,
+        resid_scale=resid_scale,
+    )
+    return ModelSpec(
+        partial(_apply_tiny_gpt, max_new_tokens=max_new_tokens),
+        params,
+        (seq,),
+        int_inputs="ids",
+        generative={"seq": seq, "max_new_tokens": max_new_tokens},
+    )
+
+
+def _apply_tiny_gpt(p, x, *, max_new_tokens: int):
+    from seldon_core_tpu_torch.models.decoder import generate
+
+    return generate(p, x, max_new_tokens)
+
+
 def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None) -> ModelRuntime:
     dtype_name = getattr(tpu_cfg, "dtype", "float32")
     if dtype_name not in DTYPES:
@@ -229,6 +278,7 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None) -> ModelRuntime
         layout=ms.layout,
     )
     rt.feature_shape = ms.feature_shape
+    rt.generative = ms.generative
     return rt
 
 

@@ -4,7 +4,9 @@ Concurrent requests for one predictor are coalesced along the batch axis:
 collect until ``max_batch`` rows or a ``batch_timeout_ms`` deadline, run the
 graph once on the merged batch (``GraphExecutor.execute_many``, which still
 routes per request), then hand each request its own rows. Requests merge
-only when their non-batch shape and dtype match.
+only when their non-batch shape and dtype match. A generative predictor's
+tensor requests bypass coalescing and ride its continuous-batching decode
+scheduler instead (per-row slot admission).
 """
 
 from __future__ import annotations
@@ -22,10 +24,13 @@ ExecuteFn = Callable[[SeldonMessage], Awaitable[SeldonMessage]]
 ExecuteManyFn = Callable[[list], Awaitable[list]]
 
 
-def make_batcher(tpu_spec, execute: ExecuteFn, *, execute_many: ExecuteManyFn) -> "MicroBatcher | None":
+def make_batcher(
+    tpu_spec, execute: ExecuteFn, *, execute_many: ExecuteManyFn, decode_scheduler=None
+) -> "MicroBatcher | None":
     """The batching policy of a predictor's TpuSpec: None when batching is
-    pointless (max_batch <= 1)."""
-    if tpu_spec.max_batch <= 1:
+    pointless (max_batch <= 1), except that a generative predictor's
+    ``decode_scheduler`` always gets one, which hands it tensor requests."""
+    if tpu_spec.max_batch <= 1 and decode_scheduler is None:
         return None
     return MicroBatcher(
         execute,
@@ -33,6 +38,7 @@ def make_batcher(tpu_spec, execute: ExecuteFn, *, execute_many: ExecuteManyFn) -
         max_batch=tpu_spec.max_batch,
         batch_timeout_ms=tpu_spec.batch_timeout_ms,
         queue_timeout_ms=tpu_spec.queue_timeout_ms,
+        decode_scheduler=decode_scheduler,
     )
 
 
@@ -54,9 +60,12 @@ class MicroBatcher:
         max_batch: int = 64,
         batch_timeout_ms: float = 3.0,
         queue_timeout_ms: float = 2000.0,
+        decode_scheduler=None,
     ):
         self._execute = execute
         self._execute_many = execute_many
+        # generative tier: tensor requests ride the decode loop instead
+        self._decode = decode_scheduler
         self.max_batch = max_batch
         self.batch_timeout_s = batch_timeout_ms / 1000.0
         self.queue_timeout_s = queue_timeout_ms / 1000.0
@@ -76,6 +85,10 @@ class MicroBatcher:
         arr = msg.array
         if arr is None:
             return await self._execute(msg)
+        if self._decode is not None:
+            # iteration-level scheduling replaces shape-keyed coalescing:
+            # every row admits into a KV slot as one frees
+            return await self._decode.execute_message(msg)
         arr = np.asarray(arr)
         if arr.ndim < 2:
             arr = np.atleast_2d(arr)
@@ -137,5 +150,8 @@ class MicroBatcher:
         for key in list(self._pending):
             self._cancel_timer(key)
             self._flush(key)
-        while self._inflight:
-            await asyncio.gather(*list(self._inflight), return_exceptions=True)
+        # wait on the unfinished ones only: gather over finished tasks
+        # returns without yielding, so a finished task whose discard
+        # callback has not run yet would spin this loop forever
+        while pending := [t for t in self._inflight if not t.done()]:
+            await asyncio.gather(*pending, return_exceptions=True)

@@ -1,0 +1,815 @@
+"""Continuous-batching decode scheduler for the generative tier.
+
+Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
+(Orca-style iteration-level scheduling over a vLLM-style paged KV pool):
+
+- ONE per-step program (``_fused_step``: ``paged_decode_step`` plus
+  sampling) runs over the shared page pool through static-shape
+  ``[n_slots, max_pages]`` block tables; slots are assigned per sequence
+  and freed on completion.
+- Between steps the scheduler admits waiting sequences into free slots and
+  retires finished ones (EOS or the request's own ``max_new_tokens``), so
+  batch composition changes at step boundaries while every dispatch keeps
+  its shape.
+- Prompts are computed by chunk rounds (``_fused_chunk``) from a small
+  ladder of chunk buckets, interleaved with decode steps; with
+  ``decode_prefill_chunk`` a long prompt spreads over several rounds.
+- Prefix reuse (``decode_prefix_slots``): a host-side radix index over
+  prompt prefixes whose entries reference pool pages; an admission maps the
+  longest match's pages into its block table (refcount bumps, no copy) and
+  computes only the uncovered suffix.
+- Tokens stream to the caller as they are chosen (``on_token``), which is
+  what the SSE route forwards.
+
+Device work runs off the event loop on one worker thread per scheduler.
+``compile_counts()`` counts the distinct (program, shape) keys dispatched;
+``warmup()`` dispatches every key serving can need, so no new key may
+appear after it (``recompiles_since_warmup() == 0``), the port's form of
+the JAX package's zero-recompile guard.
+
+Greedy equivalence: with greedy sampling every sequence gets, token for
+token, the fused ``generate``'s output, whenever it was admitted (on the
+card up to float32 near-ties: cuBLAS may sum a slot batch and a bucket
+batch in other orders).
+
+Not ported yet, and refused by name at deployment build
+(``graph/defaulting.py::decode_problems``): speculation and tree knobs,
+the host/store KV tiers, tensor-parallel decode, the replicated fleet and
+SLO targets. The pipelined rounds and the flight recorder have no knob and
+are simply absent: the serial loop is the one whose greedy output the
+pipelined one must equal. Deadlines wait for the resilience layer; the
+queue timeout is honoured.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import logging
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
+from seldon_core_tpu_torch.core.message import Meta, SeldonMessage
+from seldon_core_tpu_torch.core.tensor import to_device
+from seldon_core_tpu_torch.models.decoder import (
+    decoder_dims,
+    paged_chunk_prefill,
+    paged_decode_step,
+    sample_tokens,
+    sampling_generator,
+)
+from seldon_core_tpu_torch.serving.kv_pool import PagedKVPool
+
+log = logging.getLogger(__name__)
+
+OnToken = Callable[[int, int], None]  # (token_id, index within the generation)
+
+
+def _sample(logits, temps: np.ndarray, topks: np.ndarray, seed: int, tick: int) -> torch.Tensor:
+    dev = logits.device
+    gen = sampling_generator(seed, tick, dev) if (temps > 0).any() else None
+    return sample_tokens(logits, to_device(temps, dev), to_device(topks, dev), gen)
+
+
+def _fused_step(params, pool, bt, tokens, positions, temps, topks, seed, tick):
+    """One scheduler step: the paged decode step and sampling for every
+    slot. Host arrays in; the next token per slot (int32, on the device)
+    and the pool, written in place, out."""
+    dev = params["tok_emb"].device
+    logits, _hidden, pool = paged_decode_step(
+        params, pool, to_device(bt, dev), to_device(tokens, dev), to_device(positions, dev)
+    )
+    return _sample(logits, temps, topks, seed, tick), pool
+
+
+def _fused_chunk(params, pool, bt, ids, positions, counts, temps, topks, seed, tick):
+    """One prefill chunk round: ``paged_chunk_prefill`` over every slot
+    (counts-0 slots ride along, their writes sent to the junk page) and a
+    sample from each slot's last consumed position, which is the first
+    generated token of a slot whose prompt completes this round."""
+    dev = params["tok_emb"].device
+    logits, _hidden, pool = paged_chunk_prefill(
+        params, pool, to_device(bt, dev), to_device(ids, dev), to_device(positions, dev), to_device(counts, dev)
+    )
+    idx = torch.from_numpy(np.clip(counts - 1, 0, ids.shape[1] - 1)).to(dev).long()
+    last = logits[torch.arange(ids.shape[0], device=dev), idx]
+    return _sample(last, temps, topks, seed, tick), pool
+
+
+def usable_prefix_len(length: int, seq_len: int) -> int:
+    """The longest reusable span of a matched prefix: at most seq_len - 1,
+    since the last prompt position's logits give the first generated
+    token and must be computed."""
+    return max(0, min(int(length), int(seq_len) - 1))
+
+
+def capture_prefix_len(length: int, prefix_ctx: int, seq_len: int) -> int:
+    """The span a slot may capture into the prefix index: the request
+    clamped to the prefix window and the prompt. 0: nothing capturable."""
+    return max(0, min(int(length), int(prefix_ctx), int(seq_len)))
+
+
+class _PrefixEntry:
+    """One cached prefix: its tokens and a reference to the pool pages that
+    hold its K/V (a kv_pool pin id)."""
+
+    __slots__ = ("tokens", "pages", "pin_id", "last_use")
+
+    def __init__(self, tokens: np.ndarray, pages: list[int], pin_id: int):
+        self.tokens = np.asarray(tokens, np.int32)
+        self.pages = list(pages)
+        self.pin_id = pin_id
+        self.last_use = 0
+
+
+class PrefixIndex:
+    """Host-side radix index over token prefixes whose K/V lives in pool
+    pages: a hit maps the entry's pages into the reader's block table.
+
+    Matching walks the token trie as deep as the prompt agrees with any
+    entry (longest common prefix: causal K/V at position i depends only on
+    tokens 0..i). ``max_entries`` caps the index (insert evicts the LRU entry
+    and returns it, so the caller releases its pin); the pool reclaims
+    pin-only pages under pressure and drops their entries through
+    ``remove_by_pins``."""
+
+    def __init__(self, max_entries: int):
+        self.max_entries = max_entries
+        self.entries: dict[int, _PrefixEntry] = {}  # pin_id -> entry
+        self._clock = 0
+        self._root: dict[int, list] = {}  # token -> [children, entry]
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def match(self, prompt, touch: bool = True) -> tuple["_PrefixEntry | None", int]:
+        """Longest common prefix of ``prompt`` with any entry: (entry,
+        depth). ``touch=False`` peeks without bumping the LRU age."""
+        node, ent, depth = self._root, None, 0
+        for t in prompt:
+            nxt = node.get(int(t))
+            if nxt is None:
+                break
+            node, ent = nxt[0], nxt[1]
+            depth += 1
+        if ent is None:
+            return None, 0
+        if touch:
+            ent.last_use = self._tick()
+        return ent, depth
+
+    def insert(self, tokens, pages: list[int], pin_id: int) -> tuple["_PrefixEntry", "_PrefixEntry | None"]:
+        """Index a captured prefix; returns (entry, evicted), ``evicted``
+        being the LRU entry the cap pushed out (the caller releases its
+        pin) or None."""
+        evicted = None
+        if len(self.entries) >= self.max_entries:
+            evicted = min(self.entries.values(), key=lambda e: e.last_use)
+            self.remove(evicted)
+        e = _PrefixEntry(tokens, pages, pin_id)
+        e.last_use = self._tick()
+        self.entries[pin_id] = e
+        self._index(e)
+        return e, evicted
+
+    def _index(self, e: "_PrefixEntry") -> None:
+        node = self._root
+        for t in e.tokens:
+            nxt = node.setdefault(int(t), [{}, e])
+            nxt[1] = e  # the newest entry through a node wins
+            node = nxt[0]
+
+    def _rebuild(self) -> None:
+        self._root = {}
+        for other in self.entries.values():
+            self._index(other)
+
+    def remove(self, e: "_PrefixEntry") -> None:
+        del self.entries[e.pin_id]
+        self._rebuild()
+
+    def remove_by_pins(self, pin_ids) -> None:
+        """Pool-pressure reclaim callback: drop the entries whose pins the
+        allocator dropped, with one trie rebuild."""
+        dropped = [pin_id for pin_id in pin_ids if self.entries.pop(pin_id, None) is not None]
+        if dropped:
+            self._rebuild()
+
+    def clear(self) -> None:
+        self.entries.clear()
+        self._root = {}
+
+
+class _Seq:
+    """One in-flight generation request."""
+
+    __slots__ = (
+        "prompt", "max_new", "temperature", "top_k", "on_token", "future",
+        "tokens", "pos", "deadline", "prefilling", "prefill_pos", "chunk_cap",
+        "cache_prefix",
+    )
+
+    def __init__(self, prompt, max_new, temperature, top_k, on_token, future):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.temperature = temperature
+        self.top_k = top_k
+        self.on_token = on_token
+        self.future = future
+        self.tokens: list[int] = []
+        self.pos = 0
+        self.deadline = 0.0  # admission deadline (perf_counter; 0: none)
+        # incremental prefill: prefill_pos is the next prompt position to
+        # compute (it starts past the span reused from the prefix pool)
+        self.prefilling = False
+        self.prefill_pos = 0
+        self.chunk_cap = 0  # per-round prefill token cap (0: the whole suffix)
+        self.cache_prefix = 0  # meta.tags.cache_prefix capture hint
+
+
+class DecodeScheduler:
+    """Slot-based continuous-batching decode loop for one decoder model.
+
+    ``params`` is the decoder's parameter tree as tensors on one device
+    (``ModelRuntime.params``). ``seq_len`` is the fixed prompt bucket and
+    ``max_new_tokens`` the generation cap the pool is sized for
+    (``max_ctx = seq_len + max_new_tokens``)."""
+
+    def __init__(
+        self,
+        params,
+        *,
+        seq_len: int,
+        max_new_tokens: int,
+        n_slots: int = 8,
+        eos_id: int = -1,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: int = 0,
+        queue_timeout_s: float = 0.0,
+        prefix_slots: int = 0,
+        prefix_ctx: int = 0,
+        prefill_chunk: int = 0,
+        kv_page_size: int = 0,
+        kv_pages: int = 0,
+        kv_dtype: str = "",
+        dtype: torch.dtype | None = None,
+    ):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        dims = decoder_dims(params)
+        self.max_ctx = seq_len + max_new_tokens
+        if self.max_ctx > dims["max_len"]:
+            raise ValueError(
+                f"seq_len {seq_len} + max_new_tokens {max_new_tokens} exceeds "
+                f"the position table ({dims['max_len']})"
+            )
+        self.params = params
+        self.seq_len = seq_len
+        self.max_new_tokens = max_new_tokens
+        self.n_slots = n_slots
+        self.eos_id = int(eos_id)
+        self.default_temperature = float(temperature)
+        self.default_top_k = int(top_k)
+        # how long a request may wait un-admitted before REQUEST_TIMEOUT
+        self.queue_timeout_s = float(queue_timeout_s)
+        self._seed = int(seed)
+        self._tick = 0  # sampling draws are deterministic in (seed, tick)
+
+        self.prefix_enabled = prefix_slots > 0
+        self.prefix_slots = int(prefix_slots) if self.prefix_enabled else 0
+        self.prefix_ctx = min(int(prefix_ctx) or seq_len, seq_len) if self.prefix_enabled else 0
+        self.prefill_chunk = min(max(0, int(prefill_chunk)), seq_len)
+        # power-of-four chunk ladder up to the chunk cap (or the prompt)
+        top = self.prefill_chunk or seq_len
+        cb, b = [], 1
+        while b < top:
+            cb.append(b)
+            b *= 4
+        self.chunk_buckets = tuple(cb) + (top,)
+
+        # distinct (program, shape) keys dispatched: compile_counts()
+        self._dispatch_keys: set = set()
+        self.pool = PagedKVPool(
+            params,
+            n_slots=n_slots,
+            cache_ctx=self.max_ctx,
+            page_size=kv_page_size,
+            n_pages=kv_pages,
+            kv_dtype=kv_dtype,
+            dtype=dtype if dtype is not None else params["tok_emb"].dtype,
+            dispatch_keys=self._dispatch_keys,
+        )
+        if self.prefix_enabled:
+            self._prefix_index = PrefixIndex(self.prefix_slots)
+            self.pool.alloc.on_pins_reclaimed = self._on_pins_reclaimed
+        self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="seldon-decode")
+        self._slots: list[_Seq | None] = [None] * n_slots
+        self._free: list[int] = list(range(n_slots - 1, -1, -1))
+        self._waiting: collections.deque[_Seq] = collections.deque()
+        self._wake = asyncio.Event()
+        self._task: asyncio.Task | None = None
+        self._closed = False
+        self._warmup_keys: int | None = None
+
+        self.stat_steps = 0
+        self.stat_admitted = 0
+        self.stat_retired = 0
+        self.stat_peak_active = 0
+        self.stat_prefix_hits = 0
+        self.stat_prefix_misses = 0
+        self.stat_prefix_tokens_saved = 0
+        self.stat_chunk_dispatches = 0
+        # rounds whose queue head could not reserve pages
+        self.stat_admit_blocked_rounds = 0
+
+    # ------------------------------------------------------------ dispatch
+    def _step(self, bt, toks, pos, temps, topks, tick) -> np.ndarray:
+        self._dispatch_keys.add(("step", len(toks)))
+        nxt, self.pool.state = _fused_step(
+            self.params, self.pool.state, bt, toks, pos, temps, topks, self._seed, tick
+        )
+        return nxt.cpu().numpy()
+
+    def _chunk(self, bt, ids, pos, counts, temps, topks, tick) -> np.ndarray:
+        self._dispatch_keys.add(("chunk",) + ids.shape)
+        nxt, self.pool.state = _fused_chunk(
+            self.params, self.pool.state, bt, ids, pos, counts, temps, topks, self._seed, tick
+        )
+        return nxt.cpu().numpy()
+
+    def _on_worker(self, fn):
+        with torch.inference_mode():
+            return fn()
+
+    async def _device_call(self, fn):
+        """Run a device dispatch and its readback on the worker thread."""
+        return await asyncio.get_running_loop().run_in_executor(self._worker, self._on_worker, fn)
+
+    def warmup(self) -> None:
+        """Dispatch every (program, shape) key serving can need — each chunk
+        bucket, the step, the copy ladder — on the worker thread, with
+        all-zero block tables and counts, so every write lands in junk page
+        0. compile_counts() after this is the baseline."""
+
+        def run():
+            z = np.zeros(self.n_slots, np.int32)
+            zf = np.zeros(self.n_slots, np.float32)
+            bt0 = self.pool.block_tables()
+            for c in self.chunk_buckets:
+                self._chunk(bt0, np.zeros((self.n_slots, c), np.int32), z, z, zf, z, 0)
+            self.pool.warmup()
+            self._step(bt0, z, z, zf, z, 0)
+
+        self._worker.submit(self._on_worker, run).result()
+        self._warmup_keys = sum(self.compile_counts().values())
+
+    def compile_counts(self) -> dict[str, int]:
+        """Distinct (program, shape) keys dispatched, per program."""
+        counts = collections.Counter(k[0] for k in self._dispatch_keys)
+        return {name: counts.get(name, 0) for name in ("step", "chunk", "copy")}
+
+    def recompiles_since_warmup(self) -> int:
+        """New (program, shape) keys since warmup(): 0 is the serving
+        invariant; -1 when warmup never ran."""
+        if self._warmup_keys is None:
+            return -1
+        return sum(self.compile_counts().values()) - self._warmup_keys
+
+    @property
+    def active(self) -> int:
+        return self.n_slots - len(self._free)
+
+    # -------------------------------------------------------------- submit
+    async def submit(
+        self,
+        prompt,
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        top_k: int | None = None,
+        cache_prefix: int | None = None,
+        prefill_chunk: int | None = None,
+        on_token: OnToken | None = None,
+    ) -> np.ndarray:
+        """Generate for one prompt [seq_len]; resolves with the int32
+        sequence (prompt echoed, generated ids appended). ``on_token`` is
+        called from the loop per generated token: keep it cheap.
+        ``cache_prefix`` hints how many leading tokens are worth capturing
+        into the prefix pool; ``prefill_chunk`` tightens (never widens) the
+        deployment's chunk cap."""
+        if self._closed:
+            raise APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, "decode scheduler closed")
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        if prompt.shape[0] != self.seq_len:
+            raise APIException(
+                ErrorCode.ENGINE_INVALID_JSON,
+                f"prompt length {prompt.shape[0]} != deployment seq_len "
+                f"{self.seq_len} (the generative tier serves one prompt bucket)",
+            )
+        max_new = int(max_new_tokens) if max_new_tokens is not None else self.max_new_tokens
+        max_new = max(1, min(max_new, self.max_new_tokens))
+        temp = float(temperature) if temperature is not None else self.default_temperature
+        k = int(top_k) if top_k is not None else self.default_top_k
+        seq = _Seq(prompt, max_new, temp, k, on_token, asyncio.get_running_loop().create_future())
+        seq.chunk_cap = self.prefill_chunk
+        if prefill_chunk is not None and int(prefill_chunk) >= 1:
+            # tighten-only; values < 1 are ignored (0 is the widest setting)
+            pc = int(prefill_chunk)
+            seq.chunk_cap = min(pc, self.prefill_chunk) if self.prefill_chunk else pc
+        if self.prefix_enabled and cache_prefix is not None:
+            seq.cache_prefix = max(0, min(int(cache_prefix), self.prefix_ctx))
+        if self.queue_timeout_s > 0:
+            seq.deadline = time.perf_counter() + self.queue_timeout_s
+        self._waiting.append(seq)
+        if self._task is None or self._task.done():
+            self._task = asyncio.ensure_future(self._run())
+        self._wake.set()
+        return await seq.future
+
+    # ---------------------------------------------------------------- loop
+    def _emit(self, seq: _Seq, tok: int) -> None:
+        seq.tokens.append(tok)
+        if seq.on_token is not None:
+            try:
+                seq.on_token(tok, len(seq.tokens) - 1)
+            except Exception:  # noqa: BLE001 - a broken consumer must not kill the loop
+                log.exception("on_token callback failed")
+
+    def _finished(self, seq: _Seq, tok: int) -> bool:
+        return tok == self.eos_id or len(seq.tokens) >= seq.max_new
+
+    def _on_pins_reclaimed(self, pin_ids: list[int]) -> None:
+        """Allocator callback: pool pressure reclaimed prefix pins; drop the
+        index entries that held them."""
+        self._prefix_index.remove_by_pins(pin_ids)
+
+    def _maybe_capture(self, seq: _Seq, slot: int, length: int) -> None:
+        """Pin ``slot``'s leading prompt pages as a prefix entry unless the
+        index already covers prompt[:length]: a refcount bump, no device
+        work."""
+        length = capture_prefix_len(length, self.prefix_ctx, self.seq_len)
+        if length < 1:
+            return
+        _, depth = self._prefix_index.match(seq.prompt, touch=False)
+        if depth >= length:
+            return
+        pin = self.pool.alloc.capture(slot, length)
+        if pin is None:
+            return  # the span's pages are not materialized
+        _, evicted = self._prefix_index.insert(seq.prompt[:length], pin.pages, pin.pin_id)
+        if evicted is not None:
+            self.pool.alloc.release(evicted.pin_id)
+
+    def _retire(self, slot: int) -> None:
+        seq = self._slots[slot]
+        self._slots[slot] = None
+        self._free.append(slot)
+        self.stat_retired += 1
+        if seq is None:
+            return
+        # automatic capture: the full prompt of every request that gave no
+        # cache_prefix hint (a hinted one captured at prefill completion);
+        # a request cancelled mid-prefill has incomplete K/V
+        if self.prefix_enabled and not seq.prefilling and seq.cache_prefix == 0:
+            self._maybe_capture(seq, slot, self.seq_len)
+        self.pool.alloc.retire(slot)
+        if not seq.future.done():
+            seq.future.set_result(np.concatenate([seq.prompt, np.asarray(seq.tokens, np.int32)]))
+
+    def _next_tick(self) -> int:
+        self._tick += 1
+        return self._tick
+
+    async def _run_copies(self, copies: list[tuple[int, int]]) -> None:
+        """The round's copy-on-write page copies, before its write dispatch."""
+        if copies:
+            await self._device_call(lambda: self.pool.run_copies(copies))
+
+    def _admit_decide(self, seq: _Seq, slot: int) -> tuple:
+        """Longest-prefix match, the cache_prefix boundary-page reserve and
+        the allocator's worst-case reservation (``try_admit`` maps shared
+        pages into the slot's block table). Returns (entry, reuse,
+        admitted)."""
+        entry, reuse = None, 0
+        if self.prefix_enabled:
+            entry, depth = self._prefix_index.match(seq.prompt)
+            reuse = usable_prefix_len(depth, self.seq_len)
+            if reuse <= 0:
+                entry = None
+        # a hinted capture whose last page reaches past the prompt will be
+        # copy-on-written by this slot's own generation: reserve for it
+        extra = 0
+        if self.prefix_enabled and seq.cache_prefix > 0:
+            alloc = self.pool.alloc
+            extra = 1 if alloc.pages_for(seq.cache_prefix) * alloc.page_size > self.seq_len else 0
+        admitted = self.pool.alloc.try_admit(slot, entry.pages if entry is not None else (), reuse, extra)
+        return entry, reuse, admitted
+
+    def _install_admit(self, seq: _Seq, slot: int, entry, reuse: int) -> None:
+        seq.prefilling = True
+        self._slots[slot] = seq
+        self.stat_admitted += 1
+        if self.prefix_enabled:
+            if entry is not None:
+                self.pool.alloc.touch(entry.pin_id)
+                self.stat_prefix_hits += 1
+                self.stat_prefix_tokens_saved += reuse
+            else:
+                self.stat_prefix_misses += 1
+        seq.prefill_pos = reuse
+        self.stat_peak_active = max(self.stat_peak_active, self.active)
+
+    def _admit(self) -> None:
+        """Move waiting sequences into free slots, FIFO: host work only
+        (slot assignment, prefix match, page reservation). The head waits
+        when the pool cannot guarantee its pages."""
+        while self._waiting and self._free:
+            seq = self._waiting[0]
+            if seq.future.cancelled():
+                self._waiting.popleft()
+                continue
+            slot = self._free[-1]
+            entry, reuse, admitted = self._admit_decide(seq, slot)
+            if not admitted:
+                self.stat_admit_blocked_rounds += 1
+                break
+            self._waiting.popleft()
+            self._free.pop()
+            self._install_admit(seq, slot, entry, reuse)
+        self._expire_waiting()
+
+    def _expire_waiting(self) -> None:
+        """Fail waiting requests past the queue deadline (REQUEST_TIMEOUT)."""
+        now = time.perf_counter()
+        for seq in [s for s in self._waiting if s.deadline and s.deadline < now]:
+            self._waiting.remove(seq)
+            if not seq.future.done():
+                seq.future.set_exception(
+                    APIException(ErrorCode.REQUEST_TIMEOUT, "request timed out waiting for a decode slot")
+                )
+
+    def _chunk_input_arrays(self, rows: list) -> tuple:
+        """(bucket, ids, pos, counts, temps, topks) of a chunk round from
+        (slot, prefill_pos, count, seq) rows."""
+        bucket = next(b for b in self.chunk_buckets if b >= max(r[2] for r in rows))
+        ids = np.zeros((self.n_slots, bucket), np.int32)
+        pos = np.zeros(self.n_slots, np.int32)
+        counts = np.zeros(self.n_slots, np.int32)
+        temps = np.zeros(self.n_slots, np.float32)
+        topks = np.zeros(self.n_slots, np.int32)
+        for slot, pp, c, seq in rows:
+            ids[slot, :c] = seq.prompt[pp : pp + c]
+            pos[slot] = pp
+            counts[slot] = c
+            temps[slot] = seq.temperature
+            topks[slot] = seq.top_k
+        return bucket, ids, pos, counts, temps, topks
+
+    async def _chunk_round(self) -> None:
+        """One prefill chunk round: every prefilling slot consumes up to its
+        chunk cap of prompt tokens in one dispatch; slots whose prompt
+        completes emit their first token and start generating."""
+        rows = []
+        for i, seq in enumerate(self._slots):
+            if seq is None or not seq.prefilling:
+                continue
+            if seq.future.cancelled():
+                self._retire(i)
+                continue
+            rem = self.seq_len - seq.prefill_pos
+            rows.append((i, seq.prefill_pos, min(rem, seq.chunk_cap or rem), seq))
+        if not rows:
+            return
+        bucket, ids, pos, counts, temps, topks = self._chunk_input_arrays(rows)
+        copies: list[tuple[int, int]] = []
+        for i, pp, c, _ in rows:
+            # allocate fresh pages, copy-on-write a shared boundary page
+            copies += self.pool.alloc.prepare_write(i, pp, c)
+        await self._run_copies(copies)
+        bt = self.pool.block_tables()
+        tick = self._next_tick()
+        toks = await self._device_call(lambda: self._chunk(bt, ids, pos, counts, temps, topks, tick))
+        self.stat_chunk_dispatches += 1
+        for i, _, c, seq in rows:
+            seq.prefill_pos += c
+            if seq.prefill_pos < self.seq_len:
+                continue
+            seq.prefilling = False
+            seq.pos = self.seq_len
+            if self.prefix_enabled and seq.cache_prefix > 0:
+                # hinted capture: the span's pages are pinned from now on
+                self._maybe_capture(seq, i, seq.cache_prefix)
+            tok = int(toks[i])
+            self._emit(seq, tok)
+            if self._finished(seq, tok):
+                self._retire(i)
+
+    async def _step_round(self) -> None:
+        """One decode step for every generating slot."""
+        toks = np.zeros(self.n_slots, np.int32)
+        pos = np.zeros(self.n_slots, np.int32)
+        temps = np.zeros(self.n_slots, np.float32)
+        topks = np.zeros(self.n_slots, np.int32)
+        gen = []
+        for i, seq in enumerate(self._slots):
+            if seq is None:
+                continue
+            if seq.future.cancelled():
+                # the client vanished (a stream closed): free the slot
+                self._retire(i)
+                continue
+            if seq.prefilling:
+                # ride the step like a free slot, its junk write parked at
+                # its own prefill cursor, which the next chunk overwrites
+                pos[i] = seq.prefill_pos
+                continue
+            toks[i] = seq.tokens[-1]
+            pos[i] = seq.pos
+            temps[i] = seq.temperature
+            topks[i] = seq.top_k
+            gen.append(i)
+        if not gen:
+            return
+        copies: list[tuple[int, int]] = []
+        for i in gen:
+            copies += self.pool.alloc.prepare_write(i, self._slots[i].pos, 1)
+        await self._run_copies(copies)
+        bt = self.pool.block_tables()
+        tick = self._next_tick()
+        nxt = await self._device_call(lambda: self._step(bt, toks, pos, temps, topks, tick))
+        self.stat_steps += 1
+        for i in gen:
+            seq = self._slots[i]
+            seq.pos += 1
+            tok = int(nxt[i])
+            self._emit(seq, tok)
+            if self._finished(seq, tok):
+                self._retire(i)
+
+    async def _run(self) -> None:
+        try:
+            while True:
+                self._admit()
+                if self.active == 0:
+                    if not self._waiting:
+                        if self._closed:
+                            return
+                        self._wake.clear()
+                        await self._wake.wait()
+                    continue
+                await self._chunk_round()
+                await self._step_round()
+                # let ingress and admissions interleave with the loop
+                await asyncio.sleep(0)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 - fail every waiter, not just one
+            log.exception("decode loop failed")
+            for seq in list(self._slots) + list(self._waiting):
+                if seq is not None and not seq.future.done():
+                    seq.future.set_exception(APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, str(e)))
+            self._slots = [None] * self.n_slots
+            self._free = list(range(self.n_slots - 1, -1, -1))
+            self._waiting.clear()
+            self._reset_device_state()
+
+    def _reset_device_state(self) -> None:
+        """Error-path rebuild: a fresh pool and allocator, and no index
+        entry pointing into the old one."""
+        self.pool.reset()
+        if self.prefix_enabled:
+            self._prefix_index.clear()
+
+    async def close(self) -> None:
+        """Drain: take no new work, finish everything in flight and queued,
+        then stop the worker thread."""
+        self._closed = True
+        self._wake.set()
+        if self._task is not None:
+            try:
+                await self._task
+            except Exception:  # noqa: BLE001 - loop errors already went to the futures
+                pass
+            self._task = None
+        self._worker.shutdown(wait=True)
+
+    async def abort(self) -> None:
+        """Hard stop: cancel the loop mid-round and every unsettled future,
+        then rebuild the pool so the allocator is consistent again."""
+        self._closed = True
+        self._wake.set()
+        task, self._task = self._task, None
+        if task is not None and not task.done():
+            task.cancel()
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+        for seq in list(self._slots) + list(self._waiting):
+            if seq is not None and not seq.future.done():
+                seq.future.cancel()
+        self._slots = [None] * self.n_slots
+        self._free = list(range(self.n_slots - 1, -1, -1))
+        self._waiting.clear()
+        self._worker.submit(self._reset_device_state).result()
+        self._worker.shutdown(wait=True)
+
+    # ----------------------------------------------------- message adapter
+    def request_params_from_meta(self, meta: Meta) -> dict:
+        """Per-request overrides from meta.tags: max_new_tokens, temperature,
+        top_k, cache_prefix, prefill_chunk (clamped to the deployment's
+        caps at submit)."""
+        tags = meta.tags or {}
+        out: dict = {}
+        for key, cast in (
+            ("max_new_tokens", int),
+            ("temperature", float),
+            ("top_k", int),
+            ("cache_prefix", int),
+            ("prefill_chunk", int),
+        ):
+            if key in tags:
+                try:
+                    out[key] = cast(tags[key])
+                except (TypeError, ValueError):
+                    raise APIException(
+                        ErrorCode.ENGINE_INVALID_JSON,
+                        f"meta.tags.{key} must be a number, got {tags[key]!r}",
+                    ) from None
+        return out
+
+    async def execute_message(self, msg: SeldonMessage) -> SeldonMessage:
+        """Buffered serving entry: every row of the request is its own
+        sequence. The response keeps the fused path's [b, seq + max_new]
+        shape: rows that stopped at EOS are right-padded with the EOS id,
+        and each row's generated length rides meta.tags.gen_lens."""
+        arr = msg.array
+        if arr is None:
+            raise APIException(ErrorCode.ENGINE_INVALID_JSON, "generative predictor needs tensor token ids")
+        rows = np.atleast_2d(np.asarray(arr)).astype(np.int32)
+        overrides = self.request_params_from_meta(msg.meta)
+        # settle every row before failing the request, so no sibling row
+        # keeps decoding detached
+        outs = await asyncio.gather(*(self.submit(row, **overrides) for row in rows), return_exceptions=True)
+        for o in outs:
+            if isinstance(o, BaseException):
+                raise o
+        max_new = max(1, min(int(overrides.get("max_new_tokens", self.max_new_tokens)), self.max_new_tokens))
+        full = np.full((len(outs), rows.shape[1] + max_new), self.eos_id if self.eos_id >= 0 else 0, np.int32)
+        gen_lens = []
+        for i, o in enumerate(outs):
+            full[i, : len(o)] = o
+            gen_lens.append(int(len(o) - rows.shape[1]))
+        meta = Meta(
+            puid=msg.meta.puid,
+            tags={**msg.meta.tags, "gen_lens": gen_lens},
+            routing=dict(msg.meta.routing),
+            request_path=dict(msg.meta.request_path),
+        )
+        return msg.with_array_meta(full, meta)
+
+
+def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
+    """A DecodeScheduler for a predictor whose graph is ONE generative model
+    node and whose deployment opted in (tpu.decode_slots > 0); None
+    otherwise, with a log line when an opt-in is ignored. A multi-node
+    graph keeps the fused path: the scheduler owns the whole device loop."""
+    if tpu_spec.decode_slots <= 0:
+        return None
+    root = executor.root
+    runtime = getattr(root.unit, "runtime", None)
+    gen = getattr(runtime, "generative", None)
+    if root.children or gen is None:
+        log.warning(
+            "decode_slots=%s set but the graph is not a single generative "
+            "model node — serving the fused whole-batch path",
+            tpu_spec.decode_slots,
+        )
+        return None
+    return DecodeScheduler(
+        runtime.params,
+        seq_len=int(gen["seq"]),
+        max_new_tokens=int(gen["max_new_tokens"]),
+        n_slots=int(tpu_spec.decode_slots),
+        eos_id=int(tpu_spec.decode_eos_id),
+        temperature=float(tpu_spec.decode_temperature),
+        top_k=int(tpu_spec.decode_top_k),
+        seed=int(tpu_spec.decode_seed),
+        queue_timeout_s=float(tpu_spec.queue_timeout_ms) / 1000.0,
+        prefix_slots=int(tpu_spec.decode_prefix_slots),
+        prefix_ctx=int(tpu_spec.decode_prefix_ctx),
+        prefill_chunk=int(tpu_spec.decode_prefill_chunk),
+        kv_page_size=int(tpu_spec.decode_kv_page_size),
+        kv_pages=int(tpu_spec.decode_kv_pages),
+        kv_dtype=str(tpu_spec.decode_kv_dtype),
+        dtype=runtime.dtype,
+    )

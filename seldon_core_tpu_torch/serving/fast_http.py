@@ -3,7 +3,8 @@
 Port of ``seldon_core_tpu/serving/fast_http.py`` on its pure-Python head
 parser (``parse_head_py``; the JAX package's C parser is not carried over).
 It serves exactly what the data plane needs: requests framed by
-Content-Length, keep-alive, and a small exact-path route table. No chunked
+Content-Length, keep-alive, a small exact-path route table, and chunked
+responses for the generative tier's per-token SSE route. No chunked
 request bodies (411 without Content-Length), no TLS, no websockets.
 """
 
@@ -13,11 +14,11 @@ import asyncio
 import logging
 from typing import Awaitable, Callable, Mapping
 
-from seldon_core_tpu_torch.serving.wire import WireRequest, WireResponse
+from seldon_core_tpu_torch.serving.wire import WireRequest, WireResponse, WireStreamResponse
 
 log = logging.getLogger(__name__)
 
-Handler = Callable[[WireRequest], Awaitable[WireResponse]]
+Handler = Callable[[WireRequest], Awaitable["WireResponse | WireStreamResponse"]]
 
 _MAX_BODY = 64 * 1024 * 1024
 _MAX_HEADER = 64 * 1024
@@ -167,7 +168,10 @@ class HttpProtocol(asyncio.Protocol):
         except Exception:  # noqa: BLE001 - handlers should not raise; answer anyway
             log.exception("ingress handler failed for %s", req.path)
             resp = WireResponse(status=500, body=b'{"status":"FAILURE"}')
-        self._write_response(resp, keep_alive)
+        if isinstance(resp, WireStreamResponse):
+            await self._write_stream(resp, keep_alive)
+        else:
+            self._write_response(resp, keep_alive)
 
     def _on_handler_done(self, task: asyncio.Task) -> None:
         if not task.cancelled() and task.exception() is not None:
@@ -191,6 +195,36 @@ class HttpProtocol(asyncio.Protocol):
         )
         if not keep_alive:
             self._close()
+
+    async def _write_stream(self, resp: WireStreamResponse, keep_alive: bool = True) -> None:
+        """A streaming (SSE) response under Transfer-Encoding: chunked, each
+        event one chunk written as it is produced. A client that vanishes
+        mid-stream ends the loop; the event source is closed either way, so
+        its generation is cancelled rather than left running."""
+        t = self._transport
+        try:
+            if t is None:
+                return
+            extra = b"".join(f"{k}: {v}\r\n".encode() for k, v in resp.headers.items())
+            t.write(
+                _status_line(resp.status)
+                + b"Content-Type: " + resp.content_type.encode() + b"\r\n"
+                + b"Transfer-Encoding: chunked\r\n"
+                + b"Cache-Control: no-cache\r\n"
+                + extra
+                + (b"Connection: keep-alive\r\n\r\n" if keep_alive else b"Connection: close\r\n\r\n")
+            )
+            async for chunk in resp.events:
+                if self._transport is None or self._closing:
+                    break
+                if chunk:
+                    self._transport.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
+        finally:
+            await resp.events.aclose()
+            if self._transport is not None and not self._closing:
+                self._transport.write(b"0\r\n\r\n")
+                if not keep_alive:
+                    self._close()
 
     def _respond_simple(self, status: int, text: bytes, keep_alive: bool = False) -> None:
         self._write_response(
@@ -217,6 +251,9 @@ def engine_routes(service, state: dict) -> dict:
     async def predictions(req: WireRequest) -> WireResponse:
         return await wire.engine_predictions(service, req)
 
+    async def predictions_stream(req: WireRequest):
+        return await wire.engine_predictions_stream(service, req)
+
     async def feedback(req: WireRequest) -> WireResponse:
         return await wire.engine_feedback(service, req)
 
@@ -230,6 +267,7 @@ def engine_routes(service, state: dict) -> dict:
 
     return {
         ("POST", "/api/v0.1/predictions"): predictions,
+        ("POST", "/api/v0.1/predictions/stream"): predictions_stream,
         ("POST", "/api/v0.1/feedback"): feedback,
         ("GET", "/ready"): ready,
         ("GET", "/ping"): ping,

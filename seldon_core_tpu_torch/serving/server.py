@@ -3,10 +3,12 @@
 Port of ``seldon_core_tpu/serving/server.py``: parse and default the
 deployment, hold its ``tpu.mesh`` to the one device this process serves
 (a larger data axis shrinks, any other axis that needs more devices is
-refused, as the JAX package's mesh rule does), build the executor (models
-on the device, pure subtrees fused), warm every batch bucket, serve REST
-through the fast ingress, and on shutdown stop taking traffic and flush the
-micro-batcher.
+refused, as the JAX package's mesh rule does), refuse decode_* knobs the
+port does not serve, build the executor (models on the device, pure
+subtrees fused) and, for a single generative model with
+``tpu.decode_slots``, its continuous-batching decode scheduler, warm every
+batch bucket, serve REST through the fast ingress, and on shutdown stop
+taking traffic, flush the micro-batcher and drain the scheduler.
 
 CLI:
     python -m seldon_core_tpu_torch.serving.server --deployment dep.json \
@@ -23,9 +25,10 @@ import signal
 
 from seldon_core_tpu_torch.core.tensor import resolve_device
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_executor
-from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec
+from seldon_core_tpu_torch.graph.defaulting import decode_problems, default_deployment, mesh_from_spec
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeployment
 from seldon_core_tpu_torch.serving.batcher import make_batcher
+from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
 from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
 from seldon_core_tpu_torch.serving.service import PredictionService
 
@@ -43,12 +46,19 @@ class PredictorServer:
         self.deployment_name = deployment_name
         self.device = resolve_device(device)
         mesh_from_spec(predictor.tpu.mesh, n_devices=1)  # one process serves one device
+        problems = decode_problems(predictor.name, predictor.tpu)
+        if problems:
+            raise ValueError("; ".join(problems))
         self.executor: GraphExecutor = build_executor(
             predictor, context={"device": self.device}
         )
+        self.decode_scheduler = scheduler_for_executor(self.executor, predictor.tpu)
         self.batcher = (
             make_batcher(
-                predictor.tpu, self.executor.execute, execute_many=self.executor.execute_many
+                predictor.tpu,
+                self.executor.execute,
+                execute_many=self.executor.execute_many,
+                decode_scheduler=self.decode_scheduler,
             )
             if enable_batching
             else None
@@ -58,16 +68,20 @@ class PredictorServer:
             deployment_name=deployment_name,
             predictor_name=predictor.name,
             batcher=self.batcher,
+            decode_scheduler=self.decode_scheduler,
         )
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None
 
     def warmup(self) -> None:
-        """One forward per batch bucket of every model, before traffic."""
+        """One forward per batch bucket of every model, and every dispatch
+        shape of the decode scheduler, before traffic."""
         for node in self.executor.root.walk():
             runtime = getattr(node.unit, "runtime", None)
             if runtime is not None and runtime.feature_shape is not None:
                 runtime.warmup()
+        if self.decode_scheduler is not None:
+            self.decode_scheduler.warmup()
 
     async def start(self, host: str = "0.0.0.0", port: int = 8000) -> None:
         self._server = await start_fast_server(
@@ -83,6 +97,8 @@ class PredictorServer:
         self.state["paused"] = True  # readiness false -> load balancers drain
         if self.batcher is not None:
             await self.batcher.close()
+        if self.decode_scheduler is not None:
+            await self.decode_scheduler.close()
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()

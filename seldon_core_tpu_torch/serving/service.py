@@ -6,11 +6,17 @@ npy payload to the tensor arm, assign a puid when the request has none, run
 the request through the micro-batcher (or straight through the executor),
 return the response under the request's puid and, for an npy request, as
 npy (``mirror_npy_kind``). Feedback walks the graph along the routing the
-response recorded.
+response recorded. ``predict_stream`` streams a generative predictor's
+tokens as they are chosen.
 """
 
 from __future__ import annotations
 
+import asyncio
+
+import numpy as np
+
+from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.codec_npy import array_from_npy, is_npy, npy_from_array
 from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.puid import new_puid
@@ -61,21 +67,30 @@ class PredictionService:
         deployment_name: str = "",
         predictor_name: str = "",
         batcher: MicroBatcher | None = None,
+        decode_scheduler=None,
     ):
         self.executor = executor
         self.deployment_name = deployment_name
         self.predictor_name = predictor_name
         self.batcher = batcher
+        self.decode_scheduler = decode_scheduler
 
-    async def predict(self, msg: SeldonMessage, *, wire_npy: bool = False) -> SeldonMessage:
-        """``wire_npy``: the transport saw an explicit application/x-npy
-        body. Other binData is decoded when it starts with the npy magic,
-        else passed through opaque."""
+    @staticmethod
+    def _prepare(msg: SeldonMessage, wire_npy: bool) -> tuple[SeldonMessage, bool]:
+        """Decode an npy payload to the tensor arm and assign a puid; returns
+        the message and whether the request was npy."""
         npy_requested = wire_npy or is_npy(msg.bin_data)
         if npy_requested:
             msg = SeldonMessage.from_array(array_from_npy(msg.bin_data), meta=msg.meta)
         if not msg.meta.puid:
             msg = _with_puid(msg, new_puid())
+        return msg, npy_requested
+
+    async def predict(self, msg: SeldonMessage, *, wire_npy: bool = False) -> SeldonMessage:
+        """``wire_npy``: the transport saw an explicit application/x-npy
+        body. Other binData is decoded when it starts with the npy magic,
+        else passed through opaque."""
+        msg, npy_requested = self._prepare(msg, wire_npy)
         if self.batcher is not None:
             out = await self.batcher.submit(msg)
         else:
@@ -85,6 +100,74 @@ class PredictionService:
         if npy_requested:
             out = mirror_npy_kind(out)
         return out
+
+    async def predict_stream(self, msg: SeldonMessage, *, wire_npy: bool = False):
+        """Per-token streaming predict: an async generator of events
+            {"row": r, "index": i, "token": t}   per generated token
+            {"done": true, "ids": [[...]], "gen_lens": [...], "puid": ...}
+        the last. Without a decode scheduler the one event is the buffered
+        predict()'s answer."""
+        msg, _ = self._prepare(msg, wire_npy)
+        puid = msg.meta.puid
+        sched = self.decode_scheduler
+        if sched is None:
+            out = await self.predict(msg)
+            arr = out.array
+            ev = {
+                "done": True,
+                "ids": np.atleast_2d(np.asarray(arr)).astype(int).tolist() if arr is not None else [],
+                "puid": puid,
+            }
+            if "gen_lens" in out.meta.tags:
+                ev["gen_lens"] = out.meta.tags["gen_lens"]
+            yield ev
+            return
+        if msg.array is None:
+            raise APIException(ErrorCode.ENGINE_INVALID_JSON, "streaming predict needs tensor token ids")
+        rows = np.atleast_2d(np.asarray(msg.array)).astype(np.int32)
+        overrides = sched.request_params_from_meta(msg.meta)
+        queue: asyncio.Queue = asyncio.Queue()
+
+        def on_token(row: int):
+            def cb(tok: int, index: int) -> None:
+                queue.put_nowait({"row": row, "index": index, "token": tok})
+
+            return cb
+
+        async def run_all():
+            try:
+                # settle every row before failing the stream
+                outs = await asyncio.gather(
+                    *(sched.submit(row, **overrides, on_token=on_token(i)) for i, row in enumerate(rows)),
+                    return_exceptions=True,
+                )
+                for o in outs:
+                    if isinstance(o, BaseException):
+                        raise o
+                queue.put_nowait(("done", outs))
+            except Exception as e:  # noqa: BLE001 - surfaced as a stream event
+                queue.put_nowait(("error", e))
+
+        runner = asyncio.ensure_future(run_all())
+        try:
+            while True:
+                ev = await queue.get()
+                if isinstance(ev, dict):
+                    yield ev
+                    continue
+                kind, payload = ev
+                if kind == "error":
+                    raise payload
+                yield {
+                    "done": True,
+                    "ids": [o.tolist() for o in payload],
+                    "gen_lens": [len(o) - rows.shape[1] for o in payload],
+                    "puid": puid,
+                }
+                break
+        finally:
+            # a closed stream cancels its rows' generations
+            runner.cancel()
 
     async def send_feedback(self, feedback: Feedback) -> SeldonMessage:
         await self.executor.send_feedback(feedback)

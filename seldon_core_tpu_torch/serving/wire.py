@@ -1,6 +1,7 @@
 """Transport-neutral engine handlers (port of
 ``seldon_core_tpu/serving/wire.py``: ``engine_predictions``,
-``engine_feedback``, ``classify_binary_bytes`` and ``npy_wire_response``).
+``engine_predictions_stream``, ``engine_feedback``, ``sse_frame``,
+``classify_binary_bytes`` and ``npy_wire_response``).
 
 Every failure leaves as the reference's status-JSON body with the error
 code's HTTP status, never as an HTML 500.
@@ -54,6 +55,23 @@ class WireResponse:
     @staticmethod
     def text(text: str, status: int = 200) -> "WireResponse":
         return WireResponse(status=status, body=text.encode(), content_type="text/plain")
+
+
+@dataclass
+class WireStreamResponse:
+    """A streaming response: ``events`` is an async iterator of bytes
+    chunks (SSE frames), which the transport writes as they come under
+    Transfer-Encoding: chunked."""
+
+    events: object  # AsyncIterator[bytes]
+    status: int = 200
+    content_type: str = "text/event-stream"
+    headers: dict[str, str] = field(default_factory=dict)
+
+
+def sse_frame(obj) -> bytes:
+    """One server-sent-events data frame."""
+    return b"data: " + json.dumps(obj, separators=(",", ":")).encode() + b"\n\n"
 
 
 def failure_response(e: BaseException, op: str) -> WireResponse:
@@ -113,3 +131,41 @@ async def engine_feedback(service, req: WireRequest) -> WireResponse:
         return WireResponse(body=message_to_json(out).encode())
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(e, "feedback")
+
+
+async def engine_predictions_stream(service, req: WireRequest):
+    """POST /api/v0.1/predictions/stream: per-token SSE for the generative
+    tier (``PredictionService.predict_stream``). Events: ``data: {"row": r,
+    "index": i, "token": t}`` per generated token, then ``data: {"done":
+    true, "ids": [[...]], ...}``. The request is parsed as /predictions
+    parses it; per-request sampling rides meta.tags.
+
+    The first event is awaited before the head is committed, so a request
+    that fails validation gets an ordinary status-JSON failure; a failure
+    after streaming began is sent as a terminal error event."""
+    try:
+        kind = classify_binary_bytes(req.content_type, req.body)
+        msg = SeldonMessage(bin_data=req.body) if kind != "json" else message_from_json(req.body)
+        gen = service.predict_stream(msg, wire_npy=kind == "npy")
+        first = await gen.__anext__()
+    except StopAsyncIteration:
+        return WireResponse(status=500, body=b'{"status":"FAILURE"}')
+    except Exception as e:  # noqa: BLE001 - wire boundary
+        return failure_response(e, "predict_stream")
+
+    async def events():
+        try:
+            yield sse_frame(first)
+            try:
+                async for ev in gen:
+                    yield sse_frame(ev)
+            except Exception as e:  # noqa: BLE001 - the head is already committed
+                log.exception("stream failed mid-flight")
+                err = e.to_status_json() if isinstance(e, APIException) else {"status": "FAILURE"}
+                yield sse_frame({"error": err})
+        finally:
+            # a client that disconnects must reach the service generator,
+            # whose finally cancels the generation
+            await gen.aclose()
+
+    return WireStreamResponse(events=events())
