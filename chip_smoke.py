@@ -58,6 +58,24 @@ Phases, each of which raises on failure (no phase catches its own):
    Greedy ids of two paths may part only at a near-tie: at the first
    token where a row diverges, the reference path's top logit must be
    within the tie margin of the served token's.
+6. serve the three speculative deployments of
+   ``seldon_core_tpu_torch/deployments/`` through REST — ``tiny_gpt_speculative``
+   (a 1-layer draft, k=4), ``tiny_gpt_tree_speculation`` (tree "2,2,1,1",
+   accept floor 0.3, prefix reuse) and ``gpt2_small_speculative``
+   (GPT-2-small widths, a 2-layer draft, k=4, bf16), plus a tree copy of
+   the last ("2,2,1,1": a verify 15 wide) and a float32 copy: 16 staggered
+   requests with mixed budgets, one opted out (``spec_k=0``), served by the
+   speculative server and by a copy with speculation off in turns; every
+   greedy row held to the plain scheduler's and to the fused ``generate``'s
+   under the tie rule, one SSE stream against its buffered reply, no new
+   dispatch key after warmup; per deployment the rounds, tokens per target
+   dispatch, accept rate, mean accepted per round, ms per token against the
+   plain scheduler, and one round's wall, device time (draft and verify)
+   and host share. Three planted faults: a draft from another seed (ids
+   unchanged, accept rate lower), an acceptance that keeps one draft token
+   past the first mismatch and a tree commit that writes a sibling's K/V
+   (both must fail the id check). The speculation path launches no flash
+   kernel (counted).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -147,6 +165,10 @@ GEN_TIE_MARGIN = {"float32": 1e-3, "bfloat16": 0.1}
 LONG_LOGITS_REL_L2 = 0.03
 INT8_KV_ATOL = 0.25  # the JAX package's own bound (tests/test_kv_pool.py)
 CB_REQUESTS = 16
+# Phase 6: requests per deployment, and the least mean number of draft
+# tokens the GPT-2-small chain (k=4) must accept per riding slot and round
+SPEC_REQUESTS = 16
+SPEC_MIN_ACCEPTED = 1.0
 
 
 def card_line() -> str:
@@ -964,12 +986,15 @@ def _fused_oracle(runtime, ids):
                         runtime.generative["max_new_tokens"]).cpu().numpy()
 
 
-def _deployment_copy(name: str, tpu_update: dict) -> Path:
-    """A copy of a deployment file with its tpu block updated, under the
-    git-ignored build/."""
+def _deployment_copy(name: str, tpu_update: dict, graph_update: dict | None = None) -> Path:
+    """A copy of a deployment file with its tpu block (and its graph's
+    parameter values) updated, under the git-ignored build/."""
     dep = json.loads((BASELINE_DIR / f"{name}.json").read_text())
-    dep["spec"]["predictors"][0]["tpu"].update(tpu_update)
-    path = ROOT / "build" / f"{name}_{'_'.join(tpu_update)}.json"
+    pred = dep["spec"]["predictors"][0]
+    pred["tpu"].update(tpu_update)
+    for p in pred["graph"]["parameters"]:
+        p["value"] = (graph_update or {}).get(p["name"], p["value"])
+    path = ROOT / "build" / f"{name}_{'_'.join([*tpu_update, *(graph_update or {})])}.json"
     path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps(dep))
     return path
@@ -1289,6 +1314,297 @@ def long_breakdown(card, runtime, ids) -> None:
         print(f"    prefill {t:.4f} ms  {name[:110]}")
 
 
+SPEC_OFF = {"decode_draft_model": "", "decode_spec_k": 0, "decode_spec_tree": "", "decode_spec_accept_floor": 0.0}
+
+
+def _spec_stats(sched) -> dict:
+    return dict(rounds=sched.stat_steps, spec_dispatches=sched.stat_spec_dispatches,
+                proposed=sched.stat_spec_proposed, accepted=sched.stat_spec_accepted,
+                emitted=sched.stat_spec_emitted, rides=sched.stat_spec_rides)
+
+
+async def _spec_traffic(port: int, prompts, budgets) -> tuple[list, float]:
+    """SPEC_REQUESTS staggered requests with their own max_new_tokens, the
+    second one tagged spec_k=0 (opted out): (replies, wall seconds)."""
+    async def one(i):
+        await asyncio.sleep(0.004 * i)
+        tags = {"max_new_tokens": budgets[i], **({"spec_k": 0} if i == 1 else {})}
+        return await _ids_post(port, prompts[i : i + 1], tags)
+
+    t0 = time.perf_counter()
+    replies = await asyncio.gather(*(one(i) for i in range(len(prompts))))
+    return replies, time.perf_counter() - t0
+
+
+def _served_rows(label: str, replies, budgets, seq: int) -> list:
+    import numpy as np
+
+    rows = []
+    for (status, _, body, _), b in zip(replies, budgets):
+        out = json.loads(body) if status == 200 else {}
+        if status != 200 or out["meta"]["tags"]["gen_lens"] != [b]:
+            raise AssertionError(f"{label} returned HTTP {status}: {body[:300]!r}")
+        rows.append(np.asarray(out["data"]["ndarray"], np.int64)[0][: seq + b])
+    return rows
+
+
+def _hold_ids(label: str, rows, ref_rows, params, seq: int, dtype_name: str) -> list:
+    """Each served row against its reference row under the tie rule; the tie
+    rows as (request, generated index, gap)."""
+    ties = []
+    for r, (a, b) in enumerate(zip(rows, ref_rows)):
+        ties += [(r, *t[1:]) for t in tie_rule(label, [a], [b[: len(a)]], params, seq, dtype_name)]
+    return ties
+
+
+def _spec_prompts(sched, vocab: int, seed: int = 9):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, vocab, size=(SPEC_REQUESTS, sched.seq_len))
+    budgets = [int(b) for b in rng.integers(1, sched.max_new_tokens + 1, size=SPEC_REQUESTS)]
+    budgets[0] = sched.max_new_tokens  # one request runs the whole budget
+    return prompts, budgets
+
+
+async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
+    """Phase 6, one deployment: SPEC_REQUESTS staggered requests (mixed
+    budgets, one opted out) through REST, on the speculative server and on
+    a copy with speculation off, in turns (spec, plain, plain, spec); every
+    greedy row held to the plain scheduler's and to the fused generate's
+    under the tie rule; one SSE stream against its buffered reply; no new
+    dispatch key on either server; then the round's breakdown. Returns the
+    numbers printed. ``check_only`` serves one spec and one plain run and
+    skips the timings (the float32 copies)."""
+    import numpy as np
+
+    spec_srv, build_s, warmup_s = await _start(path)
+    dep = json.loads(path.read_text())
+    dep["spec"]["predictors"][0]["tpu"].update(SPEC_OFF)
+    plain_path = ROOT / "build" / f"{path.stem}_plain.json"
+    plain_path.parent.mkdir(exist_ok=True)
+    plain_path.write_text(json.dumps(dep))
+    plain_srv, _, _ = await _start(plain_path)
+    sched, plain = spec_srv.decode_scheduler, plain_srv.decode_scheduler
+    runtime = _model_runtime(spec_srv)
+    dtype_name = str(runtime.dtype).removeprefix("torch.")
+    label = f"{path.stem} ({dtype_name})"
+    seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
+    prompts, budgets = _spec_prompts(sched, vocab)
+    order = ("spec", "plain") if check_only else ("spec", "plain", "plain", "spec")
+    runs = {"spec": [], "plain": []}
+    try:
+        for kind in order:
+            srv = spec_srv if kind == "spec" else plain_srv
+            before = _spec_stats(srv.decode_scheduler)
+            replies, wall = await _spec_traffic(srv.port, prompts, budgets)
+            after = _spec_stats(srv.decode_scheduler)
+            runs[kind].append((replies, wall, {k: after[k] - before[k] for k in after}))
+        status, events = await _read_sse(spec_srv.port, prompts[:1])
+        _, _, body, _ = await _ids_post(spec_srv.port, prompts[:1])
+        buffered = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0]
+        recompiles = (sched.recompiles_since_warmup(), plain.recompiles_since_warmup())
+        breakdown = {} if check_only else spec_breakdown(card, sched, plain)
+    finally:
+        await spec_srv.stop()
+        await plain_srv.stop()
+    rows = _served_rows(label, runs["spec"][0][0], budgets, seq)
+    plain_rows = _served_rows(f"{label} plain", runs["plain"][0][0], budgets, seq)
+    for replies, _, _ in runs["spec"][1:]:
+        if any((a != b).any() for a, b in zip(_served_rows(label, replies, budgets, seq), rows)):
+            raise AssertionError(f"{label}: two runs of the same greedy traffic served different ids")
+    want = _fused_oracle(runtime, prompts)
+    ties = {"plain_scheduler": _hold_ids(f"{label} vs the plain scheduler", rows, plain_rows, runtime.params, seq,
+                                         dtype_name),
+            "fused_generate": _hold_ids(f"{label} vs the fused generate", rows, want, runtime.params, seq,
+                                        dtype_name)}
+    tokens = [e["token"] for e in events if "token" in e]
+    if tokens != buffered[seq:].tolist() or events[-1].get("ids") != [buffered.tolist()]:
+        raise AssertionError(f"{label}: the SSE stream's tokens differ from the buffered reply")
+    if recompiles != (0, 0):
+        raise AssertionError(f"{label}: new (program, shape) keys after warmup (spec, plain): {recompiles}")
+    st = runs["spec"][0][2]
+    n_tok = sum(budgets)
+    decode_tokens = n_tok - SPEC_REQUESTS  # each request's first token comes from its prompt's chunk round
+    result = dict(
+        deployment=path.stem, dtype=dtype_name, spec_k=sched.spec_k,
+        tree=None if sched.spec_tree is None else ",".join(map(str, sched.spec_tree.branching)),
+        requests=SPEC_REQUESTS, tokens=n_tok, rounds=st["rounds"], spec_rounds=st["spec_dispatches"],
+        plain_rounds=runs["plain"][0][2]["rounds"],
+        tokens_per_target_dispatch=decode_tokens / max(st["rounds"], 1),
+        plain_tokens_per_target_dispatch=decode_tokens / max(runs["plain"][0][2]["rounds"], 1),
+        accept_rate=st["accepted"] / max(st["proposed"], 1),
+        mean_accepted_per_round=st["accepted"] / max(st["rides"], 1),
+        ms_per_token=[w * 1e3 / n_tok for _, w, _ in runs["spec"]],
+        plain_ms_per_token=[w * 1e3 / n_tok for _, w, _ in runs["plain"]],
+        tie_rows=ties, sse_tokens=len(tokens), build_s=build_s, warmup_s=warmup_s,
+        dispatch_keys=sched.compile_counts(), **breakdown,
+    )
+    print(f"[{card}] speculative {json.dumps(result)}", flush=True)
+    return result
+
+
+def spec_breakdown(card, sched, plain, reps: int = 20) -> dict:
+    """One speculative round pair with every slot generating at its full
+    limits (all-zero block tables: every pool write lands in junk page 0):
+    host wall (the round ends in its readback), device busy, the draft's
+    device time (its program alone; the verify's is the rest) and host
+    share; and the plain step of the same model beside it."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.serving.decode_scheduler import _fused_draft, _fused_draft_tree
+
+    n, tree = sched.n_slots, sched.spec_tree
+    z, zf = np.zeros(n, np.int32), np.zeros(n, np.float32)
+    pos = np.full(n, sched.max_ctx - 1, np.int32)
+    bt, limits = sched.pool.block_tables(), np.full(n, sched.spec_k, np.int32)
+    wl = None if tree is None else np.tile(np.asarray(tree.branching, np.int32), (n, 1))
+    spec_round = lambda: sched._spec(bt, z, pos, zf, z, limits, wl, 0)  # noqa: E731
+    dev = sched.pool.device
+    zd, posd, zfd = (torch.as_tensor(a, device=dev) for a in (z.astype(np.int64), pos.astype(np.int64), zf))
+
+    def draft_only():
+        if tree is None:
+            _fused_draft(sched.draft_params, sched._dck, sched._dcv, zd, posd, zfd, zd, None, sched.spec_k)
+        else:
+            _fused_draft_tree(sched.draft_params, sched._dck, sched._dcv, zd, posd, zfd, zd, None, tree)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        wall = wall_ms(spec_round, reps)
+        total, ops = profile_device(spec_round)
+        draft, draft_ops = profile_device(draft_only)
+        plain_step = lambda: plain._step(bt, z, pos, zf, z, 0)  # noqa: E731
+        plain_wall = wall_ms(plain_step, reps)
+        plain_busy, plain_ops = profile_device(plain_step)
+    busy, draft_ms, plain_ms = sum(total.values()), sum(draft.values()), sum(plain_busy.values())
+    if busy <= 0 or draft_ms <= 0 or plain_ms <= 0:
+        row = dict(round_wall_ms=wall, plain_step_wall_ms=plain_wall,
+                   device="not measured (the profiler saw no device activity)")
+    else:
+        row = dict(round_wall_ms=wall, round_device_ms=busy, draft_device_ms=draft_ms,
+                   verify_device_ms=busy - draft_ms, host_share=max(0.0, 1 - busy / wall),
+                   device_ops_per_round=ops, draft_device_ops=draft_ops, plain_step_wall_ms=plain_wall,
+                   plain_step_device_ms=plain_ms, plain_step_host_share=max(0.0, 1 - plain_ms / plain_wall),
+                   plain_step_device_ops=plain_ops)
+    return row
+
+
+async def spec_faults(card, matched: dict) -> dict:
+    """Phase 6's planted faults, each served through REST on the tiny
+    deployments (float32) and held to the fused generate:
+    - a draft from another seed must leave every greedy id unchanged while
+      the accept rate falls below the matched draft's (speculation cannot
+      change greedy output);
+    - an acceptance that keeps one draft token past the first mismatch must
+      fail the id check;
+    - a tree commit that writes a sibling's K/V in place of the accepted
+      node's must fail the id check."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.serving import decode_scheduler as ds
+
+    real_accept, real_commit = ds.speculative_accept, ds.paged_tree_commit
+
+    def accept_one_past(target_logits, drafts, draft_logits, limits, temps, topks, gen):
+        out, acc = real_accept(target_logits, drafts, draft_logits, limits, temps, topks, gen)
+        past = acc < limits.to(acc.dtype)  # a draft existed there and lost: keep it anyway
+        rows = torch.arange(out.shape[0], device=out.device)
+        bonus = out[rows, acc.long()]
+        acc2 = acc + past.to(acc.dtype)
+        out2 = torch.cat([drafts.to(out.dtype), torch.zeros_like(out[:, :1])], dim=1)
+        out2[rows, acc2.long()] = bonus
+        return out2, acc2
+
+    def sibling_of(tree) -> "np.ndarray":
+        """Each block's next sibling under its parent (itself where its
+        depth has branching 1)."""
+        sib = np.arange(tree.width)
+        for p in range(tree.width):
+            kids = [int(c) for c in tree.child_table[p] if c]
+            for i, c in enumerate(kids):
+                sib[c] = kids[(i + 1) % len(kids)]
+        return sib
+
+    sibling = {}  # the served tree's sibling table, set when its server starts
+
+    def commit_sibling(pool, bt, new_k, new_v, path_idx, positions, n_acc):
+        sib = sibling["table"].to(path_idx.device)
+        return real_commit(pool, bt, new_k, new_v, sib[path_idx.long()].to(path_idx.dtype), positions, n_acc)
+
+    out = {}
+    cases = [
+        ("other_seed_draft", _deployment_copy("tiny_gpt_speculative",
+                                              {"decode_draft_model": "zoo://draft?layers=1&resid_scale=0.1&seed=7"}),
+         None, False),
+        ("accept_one_past_mismatch", BASELINE_DIR / "tiny_gpt_speculative.json",
+         planted(ds, "speculative_accept", accept_one_past), True),
+        # a draft equal to the target (all 4 layers) accepts every path, so
+        # the commit runs at every depth; at resid_scale 1 the target's
+        # logits depend enough on the K/V it attends to that a sibling's
+        # K/V changes its ids (at 0.1 they barely move)
+        ("tree_commit_sibling_kv", _deployment_copy("tiny_gpt_tree_speculation",
+                                                    {"decode_draft_model": "zoo://draft?layers=4"},
+                                                    {"resid_scale": "1.0"}),
+         planted(ds, "paged_tree_commit", commit_sibling), True),
+    ]
+    for name, path, fault, must_fail in cases:
+        server, _, _ = await _start(path)
+        sched, runtime = server.decode_scheduler, _model_runtime(server)
+        if sched.spec_tree is not None:
+            sibling["table"] = torch.as_tensor(sibling_of(sched.spec_tree))
+        prompts, budgets = _spec_prompts(sched, runtime.params["tok_emb"].shape[0])
+        try:
+            before = _spec_stats(sched)
+            if fault is None:
+                replies, _ = await _spec_traffic(server.port, prompts, budgets)
+            else:
+                with fault:
+                    replies, _ = await _spec_traffic(server.port, prompts, budgets)
+            st = {k: v - before[k] for k, v in _spec_stats(sched).items()}
+        finally:
+            await server.stop()
+        rows = _served_rows(name, replies, budgets, sched.seq_len)
+        want = _fused_oracle(runtime, prompts)
+        try:
+            ties = _hold_ids(name, rows, want, runtime.params, sched.seq_len, "float32")
+            failed, why = False, f"tie rows {ties}"
+        except AssertionError as e:
+            failed, why = True, str(e)
+        rate = st["accepted"] / max(st["proposed"], 1)
+        out[name] = dict(id_check_failed=failed, accept_rate=rate, rows_differing=sum(
+            int((a != b[: len(a)]).any()) for a, b in zip(rows, want)), detail=why[:200])
+        print(f"[{card}] planted fault {name}: {json.dumps(out[name])}", flush=True)
+        if failed != must_fail:
+            raise AssertionError(f"planted fault {name}: the id check {'passed' if must_fail else 'failed'}: {why}")
+    if not out["other_seed_draft"]["accept_rate"] < matched["accept_rate"]:
+        raise AssertionError(f"another seed's draft accepted as often as the matched one: "
+                             f"{out['other_seed_draft']['accept_rate']} vs {matched['accept_rate']}")
+    return out
+
+
+async def serve_speculation(card) -> dict:
+    """Phase 6: the three speculative deployments (and the GPT-2-small tree
+    copy) through REST, the float32 copies, the planted faults. Returns the
+    per-deployment numbers."""
+    results = {}
+    for name in ("tiny_gpt_speculative", "tiny_gpt_tree_speculation", "gpt2_small_speculative"):
+        results[name] = await serve_speculative(card, BASELINE_DIR / f"{name}.json")
+    tree_copy = _deployment_copy("gpt2_small_speculative", {"decode_spec_tree": "2,2,1,1"})
+    results["gpt2_small_speculative_tree"] = await serve_speculative(card, tree_copy)
+    # the GPT-2-small chain in float32 (TF32 off): ids held at the float32 margin
+    f32 = _deployment_copy("gpt2_small_speculative", {"dtype": "float32"})
+    results["gpt2_small_speculative_f32"] = await serve_speculative(card, f32, check_only=True)
+    gpt2 = results["gpt2_small_speculative"]
+    if gpt2["mean_accepted_per_round"] < SPEC_MIN_ACCEPTED:
+        raise AssertionError(f"the GPT-2-small chain accepted {gpt2['mean_accepted_per_round']} draft tokens per "
+                             f"round, want >= {SPEC_MIN_ACCEPTED}")
+    results["faults"] = await spec_faults(card, results["tiny_gpt_speculative"])
+    return results
+
+
 def sass_counts(library: Path) -> dict:
     """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the built
     library holds, from its disassembly."""
@@ -1334,7 +1650,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 2
     from seldon_core_tpu_torch.ops import kernel_build
-    from seldon_core_tpu_torch.ops.flash_attention import flash_attention
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES, flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1421,6 +1737,16 @@ def main() -> int:
         raise AssertionError("the decoder path launched no flash_attention kernel")
     print(f"[{card}] phase 5 seconds: {time.perf_counter() - t5:.3f}", flush=True)
 
+    # 6. speculative decoding: the three speculative deployments
+    t6 = time.perf_counter()
+    before = LAUNCHES.count
+    asyncio.run(serve_speculation(card))
+    # the speculation path's attention is masked attention over the page
+    # pool and the draft cache, plain PyTorch as in the JAX package
+    spec_launches = LAUNCHES.count - before
+    print(f"[{card}] phase 6 flash_attention launches: {spec_launches}", flush=True)
+    print(f"[{card}] phase 6 seconds: {time.perf_counter() - t6:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -1429,9 +1755,10 @@ def main() -> int:
         "route": "cuda",
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
-        "launches": bert_launches + dag_launches + decoder_launches,
+        "launches": bert_launches + dag_launches + decoder_launches + spec_launches,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
-                             "gpt2_small_long_prompt (phase 5)": decoder_launches},
+                             "gpt2_small_long_prompt (phase 5)": decoder_launches,
+                             "speculative deployments (phase 6)": spec_launches},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],

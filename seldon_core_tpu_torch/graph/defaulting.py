@@ -61,12 +61,9 @@ def mesh_from_spec(axes: Mapping[str, int] | None, n_devices: int) -> dict[str, 
 
 # decode_* knobs of the JAX package the port does not serve yet, with their
 # defaults there: a deployment that sets one to anything else is refused by
-# name, as engine/builtin.py refuses an unported built-in
+# name, as engine/builtin.py refuses an unported built-in (the speculation
+# knobs are served and held to the JAX package's rules below)
 UNPORTED_DECODE_KNOBS = {
-    "decode_draft_model": "",
-    "decode_spec_k": 0,
-    "decode_spec_tree": "",
-    "decode_spec_accept_floor": 0.0,
     "decode_kv_host_bytes": 0,
     "decode_kv_store_tier": "",
     "decode_mesh_axes": {},
@@ -131,6 +128,58 @@ def decode_problems(name: str, tpu) -> list[str]:
         problems.append(
             f"predictor '{name}' decode_prefix_slots/decode_prefill_chunk need "
             "decode_slots > 0 (the continuous-batching scheduler)"
+        )
+    return problems + _speculation_problems(name, tpu)
+
+
+def _speculation_problems(name: str, tpu) -> list[str]:
+    """The JAX package's rules for the speculation knobs
+    (``seldon_core_tpu/graph/validation.py``), with its messages."""
+    from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree
+
+    problems = []
+    if tpu.decode_spec_k < 0:
+        problems.append(f"predictor '{name}' decode_spec_k must be >= 0")
+    if tpu.decode_spec_k > 0 or tpu.decode_spec_tree:
+        if tpu.decode_slots <= 0:
+            problems.append(
+                f"predictor '{name}' decode_spec_k/decode_spec_tree "
+                "need decode_slots > 0 (the continuous-batching scheduler)"
+            )
+        if not tpu.decode_draft_model:
+            problems.append(
+                f"predictor '{name}' decode_spec_k/decode_spec_tree "
+                "need decode_draft_model (the draft that proposes)"
+            )
+    if tpu.decode_spec_tree:
+        # the tree must parse and fit the widened verify's node cap
+        try:
+            tree = SpecTree.from_text(tpu.decode_spec_tree)
+        except ValueError as e:
+            problems.append(f"predictor '{name}' decode_spec_tree: {e}")
+        else:
+            if tree.n_tree > MAX_TREE_NODES:
+                problems.append(
+                    f"predictor '{name}' decode_spec_tree "
+                    f"'{tpu.decode_spec_tree}' flattens to "
+                    f"{tree.n_tree} nodes — the widened verify dispatch "
+                    f"caps at {MAX_TREE_NODES}"
+                )
+    elif tpu.decode_spec_k > MAX_TREE_NODES:
+        problems.append(
+            f"predictor '{name}' decode_spec_k "
+            f"({tpu.decode_spec_k}) exceeds the widened-verify "
+            f"headroom ({MAX_TREE_NODES} proposed tokens per dispatch)"
+        )
+    if not (0.0 <= tpu.decode_spec_accept_floor < 1.0):
+        problems.append(
+            f"predictor '{name}' decode_spec_accept_floor "
+            f"({tpu.decode_spec_accept_floor}) must be in [0, 1)"
+        )
+    if tpu.decode_spec_accept_floor > 0 and not (tpu.decode_spec_k > 0 or tpu.decode_spec_tree):
+        problems.append(
+            f"predictor '{name}' decode_spec_accept_floor needs "
+            "decode_spec_k > 0 or decode_spec_tree (nothing to adapt)"
         )
     return problems
 

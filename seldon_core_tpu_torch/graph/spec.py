@@ -187,6 +187,10 @@ _TPU_FIELDS = (
     "decode_kv_page_size",
     "decode_kv_pages",
     "decode_kv_dtype",
+    "decode_draft_model",
+    "decode_spec_k",
+    "decode_spec_tree",
+    "decode_spec_accept_floor",
 )
 
 
@@ -220,6 +224,11 @@ class TpuSpec:
     decode_kv_page_size: int = 0  # tokens per page (0: 16)
     decode_kv_pages: int = 0  # page budget (0: flat-equivalent)
     decode_kv_dtype: str = ""  # "" or "int8"
+    # draft-model speculation: a zoo:// draft with a chain depth or a tree
+    decode_draft_model: str = ""
+    decode_spec_k: int = 0  # proposed tokens per round (0: no chain)
+    decode_spec_tree: str = ""  # per-depth branching, e.g. "2,2,1,1"
+    decode_spec_accept_floor: float = 0.0  # accept-rate floor (0: fixed shape)
     extra: Mapping[str, Any] = field(default_factory=dict)
 
     @staticmethod
@@ -244,6 +253,10 @@ class TpuSpec:
             decode_kv_page_size=int(obj.get("decode_kv_page_size", 0)),
             decode_kv_pages=int(obj.get("decode_kv_pages", 0)),
             decode_kv_dtype=str(obj.get("decode_kv_dtype", "")),
+            decode_draft_model=str(obj.get("decode_draft_model", "") or ""),
+            decode_spec_k=int(obj.get("decode_spec_k", 0)),
+            decode_spec_tree=str(obj.get("decode_spec_tree", "") or ""),
+            decode_spec_accept_floor=float(obj.get("decode_spec_accept_floor", 0.0)),
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 

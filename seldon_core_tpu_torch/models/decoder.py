@@ -2,10 +2,13 @@
 
 Port of ``seldon_core_tpu/models/decoder.py``: the dense model, the fused
 ``generate`` oracle, the slot-cache blocks and the paged-KV blocks the
-continuous-batching scheduler (``serving/decode_scheduler.py``) runs. The
-function names are the JAX package's. Parameters are the same tree with
-torch tensors as leaves (``models/convert.py``); ``init_decoder`` makes the
-JAX package's numpy draws, so a seed gives its parameters bit for bit.
+continuous-batching scheduler (``serving/decode_scheduler.py``) runs, and
+draft-model speculation (the k-chain and the token tree). The function
+names are the JAX package's. Parameters are the same tree with torch
+tensors as leaves (``models/convert.py``); ``init_decoder`` makes the JAX
+package's numpy draws, so a seed gives its parameters bit for bit. The
+EAGLE-style feature draft (``init_feature_draft`` and its programs) is not
+ported yet.
 
 What changes in the port:
 
@@ -20,11 +23,16 @@ What changes in the port:
 - ``lax.dynamic_update_slice`` clamps a block's start so that it fits; the
   slot writes below clamp the same way.
 - Sampling draws come from a ``torch.Generator`` seeded from
-  ``(seed, tick)``, not from ``jax.random``: sampled tokens differ from the
-  JAX package's, greedy and ``top_k=1`` tokens do not.
+  ``(seed, tick, stream)``, not from ``jax.random``: sampled tokens differ
+  from the JAX package's, greedy and ``top_k=1`` tokens do not. A
+  speculative round draws its proposals and its acceptance from two other
+  streams of the same tick (the JAX package's ``fold_in(key, 1)`` and
+  ``fold_in(key, 2)``), each stream's draws in a fixed order.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -351,6 +359,16 @@ def chunk_prefill(params, cache_k, cache_v, tokens, positions, counts):
     return _slots_forward(params, cache_k, cache_v, tokens, positions, counts), cache_k, cache_v
 
 
+def verify_step(params, cache_k, cache_v, tokens, positions):
+    """decode_step widened to m queries per slot: consume tokens[n, m] (the
+    last emitted token and the m-1 draft proposals) with slot i's query j at
+    positions[i] + j; returns (logits[n, m, vocab], cache_k, cache_v) with
+    every query's K/V written at its own position. logits[i, j] is the
+    next-token distribution after consuming query j, what j sequential
+    decode steps give for the same prefix."""
+    return _slots_forward(params, cache_k, cache_v, tokens, positions), cache_k, cache_v
+
+
 def _transform_logits(logits: torch.Tensor, temperature, top_k) -> torch.Tensor:
     """top_k restriction (<= 0: the full vocabulary), then temperature
     scaling, per row. top_k is data, not shape."""
@@ -365,25 +383,39 @@ def _transform_logits(logits: torch.Tensor, temperature, top_k) -> torch.Tensor:
     return masked / temperature.clamp_min(1e-6)[..., None].to(logits.dtype)
 
 
-def sampling_generator(seed: int, tick: int, device) -> torch.Generator:
-    """The draw stream of one sampling call, deterministic in (seed, tick)."""
+# draw streams of one scheduler tick: the step (or chunk) sample, a
+# speculative round's draft proposals, its acceptance
+STREAM_STEP, STREAM_DRAFT, STREAM_VERIFY = 0, 1, 2
+_STREAM_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: streams never share a seed
+
+
+def sampling_generator(seed: int, tick: int, device, stream: int = STREAM_STEP) -> torch.Generator:
+    """The draw stream of one sampling call, deterministic in (seed, tick,
+    stream). Stream 0 is seeded (seed << 32) | tick; another stream XORs in
+    a multiple of an odd constant whose high bits are set, so for one seed
+    no two (tick, stream) pairs share a generator seed."""
+    base = ((int(seed) & 0xFFFFFFFF) << 32) | (int(tick) & 0xFFFFFFFF)
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(tick) & 0xFFFFFFFF))
+    g.manual_seed(base ^ ((int(stream) * _STREAM_MIX) & 0xFFFFFFFFFFFFFFFF))
     return g
+
+
+def _gumbel_argmax(scaled: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One categorical draw per row of the logits ``scaled`` (the Gumbel-max
+    trick, as jax.random.categorical), int64."""
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device).clamp_(1e-20, 1.0)
+    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample_tokens(logits, temperature, top_k, generator: torch.Generator | None) -> torch.Tensor:
     """Per row: greedy argmax where temperature <= 0, else a draw from the
-    temperature-scaled distribution restricted to the top_k logits (the
-    Gumbel-max trick, as jax.random.categorical). ``generator`` may be None
-    only when no row samples."""
+    temperature-scaled distribution restricted to the top_k logits.
+    ``generator`` may be None only when no row samples."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     temperature = torch.as_tensor(temperature, device=logits.device)
     if generator is None:
         return greedy
-    scaled = _transform_logits(logits.float(), temperature, top_k)
-    u = torch.rand(scaled.shape, generator=generator, device=logits.device).clamp_(1e-20, 1.0)
-    sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+    sampled = _gumbel_argmax(_transform_logits(logits.float(), temperature, top_k), generator).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
 
 
@@ -532,6 +564,420 @@ def paged_chunk_prefill(params, pool, bt, tokens, positions, counts):
     K/V entries per slot (the rest go to the junk page). Returns (logits,
     hidden[n, c, d], pool)."""
     return _paged_forward(params, pool, bt, tokens, positions, counts)
+
+
+def paged_verify_step(params, pool, bt, tokens, positions):
+    """verify_step over the page pool: m queries per slot, logits[i, j]
+    scored after consuming query j — the widened speculative verify.
+    Returns (logits, hidden[n, m, d], pool)."""
+    return _paged_forward(params, pool, bt, tokens, positions)
+
+
+# ------------------------------------------------ speculative decoding
+# Draft-model speculation (Leviathan et al.; Chen et al.): a small draft
+# decoder proposes k tokens per slot in one dispatch, the target scores all
+# k+1 queries against the pool in one widened dispatch, and the longest
+# valid prefix is accepted. Speculative writes need no rollback: positions
+# advance only by the accepted length, so rejected entries sit beyond every
+# later mask until the next consumed token overwrites them.
+
+
+def draft_propose(params, cache_k, cache_v, tokens, positions, temperature, top_k, generator, k: int):
+    """k autoregressive draft steps: from each slot's last emitted token,
+    propose (draft_tokens[n, k] int32, draft_logits[n, k, vocab], cache_k,
+    cache_v), the flat draft cache written in place. Greedy rows propose
+    the argmax; sampled rows draw from the same transformed distribution
+    ``sample_tokens`` serves (the q that acceptance corrects against).
+    ``generator`` may be None only when no row samples."""
+    toks = tokens
+    drafts, logit_steps = [], []
+    for j in range(k):
+        logits, cache_k, cache_v = decode_step(params, cache_k, cache_v, toks, positions + j)
+        toks = sample_tokens(logits, temperature, top_k, generator)
+        drafts.append(toks)
+        logit_steps.append(logits)
+    # one more cache-fill step consuming the LAST proposal at pos + k
+    # (logits discarded): a fully accepted round moves the slot past pos +
+    # k without consuming d_k here, and without this write the draft cache
+    # keeps a hole inside every later mask and the accept rate decays
+    decode_step(params, cache_k, cache_v, toks, positions + k)
+    return torch.stack(drafts, dim=1), torch.stack(logit_steps, dim=1), cache_k, cache_v
+
+
+def speculative_accept(target_logits, draft_tokens, draft_logits, limits, temperature, top_k, generator):
+    """The acceptance rule. target_logits [n, k+1, V] (position j scored
+    after consuming query j), the draft's proposals [n, k] and raw logits
+    [n, k, V], per-slot accept limits [n] (0..k): returns (out_tokens
+    [n, k+1] int32, n_accepted [n] int32); slot i emits
+    out_tokens[i, :n_accepted[i] + 1].
+
+    Greedy rows (temperature <= 0) accept the longest draft prefix equal to
+    the target's own argmax chain and emit the target's argmax at the first
+    mismatch: sequential greedy decoding, by induction. Sampled rows accept
+    d_j with probability min(1, p(d_j) / q(d_j)) and resample a true
+    rejection from the residual max(p - q, 0); a limit clamp is not a
+    rejection (nothing was proposed there), its bonus samples p.
+    ``generator`` may be None only when no row samples."""
+    n, kp1, _ = target_logits.shape
+    k = kp1 - 1
+    dev = target_logits.device
+    rows = torch.arange(n, device=dev)
+    draft_tokens = draft_tokens.long()
+    limits = limits.long()
+    greedy_t = torch.argmax(target_logits, dim=-1)  # [n, k+1]
+    ok = draft_tokens == greedy_t[:, :k]
+    if generator is not None:
+        temp, topk = temperature[:, None], top_k[:, None]
+        p = torch.softmax(_transform_logits(target_logits.float(), temp, topk), dim=-1)
+        q = torch.softmax(_transform_logits(draft_logits.float(), temp, topk), dim=-1)
+        p_d = torch.gather(p[:, :k], -1, draft_tokens[..., None])[..., 0]
+        q_d = torch.gather(q, -1, draft_tokens[..., None])[..., 0]
+        u = torch.rand((n, k), generator=generator, device=dev)
+        ok = torch.where(temperature[:, None] > 0, u * q_d < p_d, ok)  # u < p/q without the division
+    ok = ok & (torch.arange(k, device=dev)[None, :] < limits[:, None])
+    n_acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    bonus = greedy_t[rows, n_acc]
+    if generator is not None:
+        p_a = p[rows, n_acc]
+        q_a = torch.where((n_acc < k)[:, None], q[rows, n_acc.clamp(max=k - 1)], 0.0)
+        residual = (p_a - q_a).clamp_min(0.0)
+        rsum = residual.sum(dim=-1, keepdim=True)
+        residual = torch.where(rsum > 1e-9, residual / rsum.clamp_min(1e-9), p_a)
+        dist = torch.where((n_acc < limits)[:, None], residual, p_a)  # a draft existed here and lost
+        bonus = torch.where(temperature > 0, _gumbel_argmax(torch.log(dist + 1e-38), generator), bonus)
+    out = torch.cat([draft_tokens, torch.zeros((n, 1), dtype=torch.long, device=dev)], dim=1)
+    out[rows, n_acc] = bonus
+    return out.to(torch.int32), n_acc.to(torch.int32)
+
+
+# -------------------------------------------------- tree speculation
+# The draft proposes a token TREE (``branching[d]`` candidates per depth
+# under every surviving branch; models/spec_tree.py owns the layout) and the
+# target scores the flattened tree in one widened dispatch; acceptance
+# walks the longest valid path. Sibling nodes at one depth would collide on
+# one (page, offset), so the tree forward never writes the pool: in-dispatch
+# queries read their ancestors' K/V in registers through the ancestor mask,
+# and only the accepted path is committed afterwards, every other column
+# sent to junk page 0.
+
+
+def sequence_hidden(params, ids):
+    """Teacher-forced (logits, hidden) at every position: ids[b, s] ->
+    ([b, s, vocab], [b, s, d]); ``hidden`` is the final layer's residual
+    stream (pre-``ln_f``)."""
+    ids = _long(ids).to(params["tok_emb"].device)
+    heads = _heads(params)
+    x = _embed(params, ids)
+    for lp in params["layers"]:
+        x, _, _ = _layer_prefill(lp, x, heads)
+    return _logits(params, x), x
+
+
+def sequence_logits(params, ids):
+    """Teacher-forced logits at every position: ids[b, s] -> [b, s, vocab];
+    row j is the next-token distribution after tokens 0..j."""
+    return sequence_hidden(params, ids)[0]
+
+
+@lru_cache(maxsize=32)
+def _tree_tables(tree, device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ancestor_mask [width, width] bool, block_depth [width], child_table
+    [width, max_b]) of a tree on ``device``, copied once: a program that
+    uploaded them per call would wait on the card at every upload."""
+    return (
+        torch.from_numpy(tree.ancestor_mask).to(device),
+        torch.from_numpy(tree.block_depth).long().to(device),
+        torch.from_numpy(tree.child_table).long().to(device),
+    )
+
+
+def _layer_tree_flat(p, x, cache_k, cache_v, positions, h, ek, ev, sub_mask):
+    """One layer of a draft tree-expansion step over the FLAT draft cache:
+    x [n, c, d] carries one depth's nodes; attention reads the cache at
+    entries <= positions[i] (prompt, committed tokens and the root's fresh
+    write) plus the in-register K/V of every node proposed so far this round
+    (``ek``/``ev`` [n, h, E, hd], grown per depth; never written to the
+    cache). ``sub_mask`` [c, E + c] is the ancestor-or-self mask over those
+    nodes. Returns (x_out, ek', ev') with this depth's K/V appended."""
+    q, k, v = _qkv(p, x, h)  # [n, h, c, hd]
+    ek = k if ek is None else torch.cat([ek, k], dim=2)
+    ev = v if ev is None else torch.cat([ev, v], dim=2)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    qf = q.float()
+    c_len = cache_k.shape[2]
+    s_cache = torch.einsum("nhqd,nhkd->nhqk", qf, cache_k.float()) * scale
+    valid = torch.arange(c_len, device=x.device)[None, None, None, :] <= positions[:, None, None, None]
+    s_cache = torch.where(valid, s_cache, NEG_INF)
+    s_ext = torch.einsum("nhqd,nhkd->nhqk", qf, ek.float()) * scale
+    s_ext = torch.where(sub_mask[None, None], s_ext, NEG_INF)
+    p_attn = torch.softmax(torch.cat([s_cache, s_ext], dim=-1), dim=-1)
+    ctx = torch.einsum("nhqk,nhkd->nhqd", p_attn[..., :c_len], cache_v.float()) + torch.einsum(
+        "nhqk,nhkd->nhqd", p_attn[..., c_len:], ev.float()
+    )
+    x = x + _proj(p["attn_out"], _merge_heads(ctx.to(x.dtype)))
+    return _mlp(p, x), ek, ev
+
+
+def _tree_candidates(parent_logits, temperature, top_k, generator, b: int):
+    """One depth's candidates [n, c_prev * b] in parent-major block order,
+    from the parents' logits [n, c_prev, V]. Greedy rows take the top-b
+    distinct tokens (branch 0 is the chain's argmax proposal); sampled rows
+    draw b i.i.d. tokens from the transformed distribution ``sample_tokens``
+    serves, which is what makes the per-depth recursive rejection in
+    ``speculative_accept_tree`` exact."""
+    n, c_prev, _ = parent_logits.shape
+    cand = torch.topk(parent_logits, b, dim=-1).indices  # [n, c_prev, b]
+    if generator is not None:
+        scaled = _transform_logits(
+            parent_logits.reshape(n * c_prev, -1).float(),
+            temperature.repeat_interleave(c_prev),
+            top_k.repeat_interleave(c_prev),
+        )
+        sampled = torch.stack([_gumbel_argmax(scaled, generator) for _ in range(b)], dim=-1)
+        cand = torch.where((temperature > 0)[:, None, None], sampled.reshape(n, c_prev, b), cand)
+    return cand.reshape(n, c_prev * b).to(torch.int32)
+
+
+def draft_propose_tree(params, cache_k, cache_v, tokens, positions, temperature, top_k, generator, tree):
+    """Grow the whole proposal tree: a root decode step (consume the last
+    emitted token at ``pos`` and write its K/V — always consumed, so the
+    write is never speculative), then ``tree.depth`` widened expansions,
+    each proposing ``branching[d]`` children per node.
+
+    Returns (node_tokens [n, n_tree] int32, block_logits [n, width, V],
+    node_k [L, n, h, n_tree, hd], node_v, cache_k, cache_v): block j's
+    logits are the draft's next-token distribution after consuming block
+    j's token along its path (block 0: the root), the q each node's
+    children are corrected against. The cache gains only the root's entry;
+    the verify dispatch commits the accepted path (``draft_tree_commit``)."""
+    heads = _heads(params)
+    max_len = params["pos_emb"].shape[0]
+    positions = positions.long()
+    mask = _tree_tables(tree, positions.device)[0]
+    logits0, cache_k, cache_v = decode_step(params, cache_k, cache_v, tokens, positions)
+    n_layers = len(params["layers"])
+    ek: list = [None] * n_layers
+    ev: list = [None] * n_layers
+    block_logits, node_tokens = [logits0[:, None, :]], []
+    parent_logits = logits0[:, None, :]
+    for d in range(1, tree.depth + 1):
+        c_d, start = tree.level_counts[d - 1], tree.level_starts[d - 1]
+        toks_d = _tree_candidates(parent_logits, temperature, top_k, generator, tree.branching[d - 1])
+        node_tokens.append(toks_d)
+        pidx = (positions + d).clamp(0, max_len - 1)
+        x = params["tok_emb"][toks_d.long()] + params["pos_emb"][pidx][:, None, :]
+        sub_mask = mask[start : start + c_d, 1 : start + c_d]
+        for li, lp in enumerate(params["layers"]):
+            x, ek[li], ev[li] = _layer_tree_flat(
+                lp, x, cache_k[li], cache_v[li], positions, heads, ek[li], ev[li], sub_mask
+            )
+        parent_logits = _logits(params, x)  # [n, c_d, V]
+        block_logits.append(parent_logits)
+    return (
+        torch.cat(node_tokens, dim=1),
+        torch.cat(block_logits, dim=1),
+        torch.stack(ek),
+        torch.stack(ev),
+        cache_k,
+        cache_v,
+    )
+
+
+def _layer_tree_paged(p, x, kv, bt, positions, h, mask):
+    """One layer of the widened target tree verify over the page pool: all
+    ``width`` blocks at once, attention over the gathered cache (entries
+    strictly before ``pos``: nothing speculative lives there) plus the
+    dispatch's own fresh K/V under the ancestor mask. The pool is not
+    written. int8 pools round-trip the fresh K/V through the per-row
+    quantizer the commit will apply (and fp pools through the pool dtype),
+    so every value a query reads is what the sequential plain path would
+    read back from the pool. Returns (x_out, k, v) with the raw fresh K/V
+    for the commit."""
+    q, k, v = _qkv(p, x, h)  # [n, h, m, hd]
+    n, hh, m, hd = k.shape
+    if len(kv) == 6:
+
+        def _rt(t):
+            qr, sc, zp = _quant_rows(t.transpose(1, 2).reshape(n * m, hh, hd).float())
+            deq = qr.float() * sc[:, None, None] + zp[:, None, None]
+            return deq.reshape(n, m, hh, hd).transpose(1, 2)
+
+        k_att, v_att = _rt(k), _rt(v)
+    else:
+        k_att, v_att = k.to(kv[0].dtype).float(), v.to(kv[0].dtype).float()
+    cache_k, cache_v = _paged_gather(kv, bt)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    qf = q.float()
+    c_len = cache_k.shape[2]
+    s_cache = torch.einsum("nhqd,nhkd->nhqk", qf, cache_k) * scale
+    valid = torch.arange(c_len, device=x.device)[None, None, None, :] < positions[:, None, None, None]
+    s_cache = torch.where(valid, s_cache, NEG_INF)
+    s_blk = torch.einsum("nhqd,nhkd->nhqk", qf, k_att) * scale
+    s_blk = torch.where(mask[None, None], s_blk, NEG_INF)
+    p_attn = torch.softmax(torch.cat([s_cache, s_blk], dim=-1), dim=-1)
+    ctx = torch.einsum("nhqk,nhkd->nhqd", p_attn[..., :c_len], cache_v) + torch.einsum(
+        "nhqk,nhkd->nhqd", p_attn[..., c_len:], v_att
+    )
+    x = x + _proj(p["attn_out"], _merge_heads(ctx.to(x.dtype)))
+    return _mlp(p, x), k, v
+
+
+def paged_tree_verify(params, pool, bt, tokens, positions, tree):
+    """Score the flattened tree in one widened dispatch: tokens [n, width]
+    (block 0 the last emitted token, blocks 1.. the tree nodes), block j at
+    position ``pos + depth(j)``. logits[i, j] is the target's next-token
+    distribution after consuming block j's token along its path. Returns
+    (logits [n, width, V], hidden [n, width, d], new_k [L, n, h, width, hd],
+    new_v); the pool is untouched (``paged_tree_commit`` writes the
+    accepted path)."""
+    heads = _heads(params)
+    max_len = params["pos_emb"].shape[0]
+    tokens, positions, bt = tokens.long(), positions.long(), bt.long()
+    mask, block_depth, _ = _tree_tables(tree, tokens.device)
+    pidx = (positions[:, None] + block_depth[None, :]).clamp(0, max_len - 1)
+    x = params["tok_emb"][tokens] + params["pos_emb"][pidx]
+    nk, nv = [], []
+    for li, lp in enumerate(params["layers"]):
+        x, k, v = _layer_tree_paged(lp, x, tuple(a[li] for a in pool), bt, positions, heads, mask)
+        nk.append(k)
+        nv.append(v)
+    return _logits(params, x), x, torch.stack(nk), torch.stack(nv)
+
+
+def _select_path(node_kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """node_kv [L, n, h, W, hd] -> [L, n, h, D, hd]: slot i's columns
+    idx[i] (int64 [n, D])."""
+    L, n, h, _, hd = node_kv.shape
+    return torch.gather(node_kv, 3, idx[None, :, None, :, None].expand(L, n, h, idx.shape[1], hd))
+
+
+def paged_tree_commit(pool, bt, new_k, new_v, path_idx, positions, n_acc):
+    """Write the ACCEPTED path's K/V (the root block and the chosen node at
+    depths 1..n_acc) through the block tables at ``pos..pos+n_acc``, in
+    place; every column past ``n_acc + 1`` goes to junk page 0 by the
+    counts mask, so the pool holds exactly what sequential decoding would
+    have written."""
+    idx = path_idx.long()
+    k_sel, v_sel = _select_path(new_k, idx), _select_path(new_v, idx)
+    bt, positions, counts = bt.long(), positions.long(), n_acc.long() + 1
+    for li in range(new_k.shape[0]):
+        _paged_write(tuple(a[li] for a in pool), k_sel[li], v_sel[li], bt, positions, counts)
+    return pool
+
+
+def draft_tree_commit(cache_k, cache_v, node_k, node_v, path_idx, positions, n_acc):
+    """The draft-side twin of ``paged_tree_commit``: write the accepted
+    path's draft K/V into the flat draft cache at ``pos+1..pos+n_acc`` (the
+    root's entry at ``pos`` was written by the draft dispatch itself), in
+    place. node_k/node_v [L, n, h, n_tree, hd] are in node order, so
+    ``path_idx[:, 1:] - 1`` selects the chosen node per depth; columns past
+    ``n_acc`` keep the cache's bytes (a masked select: a zero-accept slot
+    changes nothing)."""
+    depth = path_idx.shape[1] - 1
+    idx = (path_idx[:, 1:].long() - 1).clamp_min(0)
+    k_sel, v_sel = _select_path(node_k, idx), _select_path(node_v, idx)  # [L, n, h, D, hd]
+    n = idx.shape[0]
+    rows = torch.arange(n, device=idx.device)[:, None]
+    cols = _block_index(positions.long() + 1, depth, cache_k.shape[3])
+    keep = (torch.arange(depth, device=idx.device)[None, :] < n_acc.long()[:, None])[:, :, None, None]
+    for cache, sel in ((cache_k, k_sel), (cache_v, v_sel)):
+        for li in range(cache.shape[0]):
+            c = cache[li]  # [n, h, T, hd]
+            c[rows, :, cols, :] = torch.where(keep, sel[li].transpose(1, 2).to(c.dtype), c[rows, :, cols, :])
+    return cache_k, cache_v
+
+
+def speculative_accept_tree(target_logits, block_tokens, draft_logits, width_limits, temperature, top_k,
+                            generator, tree):
+    """Longest-accepted-PATH walk over the scored tree. Per depth the
+    current node's children (in branch order, gated by ``width_limits
+    [n, depth]``, the per-slot tighten/adapt mask; width 0 at a depth ends
+    that slot's walk as a limit clamp, not a rejection) are tried:
+
+    - greedy rows (temperature <= 0) accept the child equal to the target's
+      own argmax at the current node: sequential greedy decoding, for any
+      draft;
+    - sampled rows run recursive rejection resampling (SpecInfer): each
+      candidate (i.i.d. from the draft's q) accepts with probability
+      min(1, r(c)/q(c)) against the running residual r (r starts at the
+      target's p; a rejection folds q out: r <- norm(max(r - q, 0))).
+
+    The bonus token at the final node samples the target's p, or after a
+    true rejection the final residual. Returns (out_tokens [n, depth+1]
+    int32 — slot i emits out[:n_acc[i]+1], n_acc [n] int32, path_idx
+    [n, depth+1] int32 block indices, path_idx[:, 0] = 0). ``generator``
+    may be None only when no row samples."""
+    n, _, vocab = target_logits.shape
+    dev = target_logits.device
+    rows = torch.arange(n, device=dev)
+    block_tokens = block_tokens.long()
+    width_limits = width_limits.long()
+    greedy_t = torch.argmax(target_logits, dim=-1)  # [n, width]
+    child_tab = _tree_tables(tree, dev)[2]
+    sampled = generator is not None
+    if sampled:
+        temp, topk = temperature[:, None], top_k[:, None]
+        p_all = torch.softmax(_transform_logits(target_logits.float(), temp, topk), dim=-1)
+        q_all = torch.softmax(_transform_logits(draft_logits.float(), temp, topk), dim=-1)
+        sampled_row = temperature > 0
+        rejected = torch.zeros(n, dtype=torch.bool, device=dev)
+        rej_dist = torch.zeros((n, vocab), dtype=torch.float32, device=dev)
+    cur = torch.zeros(n, dtype=torch.long, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    n_acc = torch.zeros(n, dtype=torch.long, device=dev)
+    path_blocks = []
+    for d in range(1, tree.depth + 1):
+        b = tree.branching[d - 1]
+        ch = child_tab[cur][:, :b]  # [n, b] candidate block indices
+        ch_tok = torch.gather(block_tokens, 1, ch)
+        wl = width_limits[:, d - 1]
+        step_ok = alive & (wl > 0)
+        in_w = torch.arange(b, device=dev)[None, :] < wl[:, None]
+        # greedy arm: at most one candidate can match (top-b is distinct)
+        g_match = (ch_tok == greedy_t[rows, cur][:, None]) & in_w
+        acc_d, sel = g_match.any(dim=1), torch.argmax(g_match.to(torch.uint8), dim=1)
+        if sampled:
+            p_cur, q_cur = p_all[rows, cur], q_all[rows, cur]
+            r = p_cur
+            s_acc = torch.zeros(n, dtype=torch.bool, device=dev)
+            s_sel = torch.zeros(n, dtype=torch.long, device=dev)
+            for bi in range(b):
+                c_tok = ch_tok[:, bi : bi + 1]
+                r_c = torch.gather(r, 1, c_tok)[:, 0]
+                q_c = torch.gather(q_cur, 1, c_tok)[:, 0]
+                u = torch.rand(n, generator=generator, device=dev)
+                considered = in_w[:, bi] & ~s_acc
+                ok_bi = considered & (u * q_c < r_c)  # u < r/q without dividing
+                s_sel = torch.where(ok_bi, bi, s_sel)
+                s_acc = s_acc | ok_bi
+                # a rejected candidate folds its proposal out of the residual
+                r_new = (r - q_cur).clamp_min(0.0)
+                rs = r_new.sum(dim=-1, keepdim=True)
+                r_new = torch.where(rs > 1e-9, r_new / rs.clamp_min(1e-9), p_cur)
+                r = torch.where((considered & ~ok_bi)[:, None], r_new, r)
+            acc_d = torch.where(sampled_row, s_acc, acc_d)
+            sel = torch.where(sampled_row, s_sel, sel)
+        acc_d = acc_d & step_ok
+        if sampled:
+            # a TRUE rejection (candidates existed, all lost) pins the final
+            # residual as the bonus distribution; a limit clamp does not
+            rej_now = step_ok & ~acc_d
+            rej_dist = torch.where((rej_now & ~rejected)[:, None], r, rej_dist)
+            rejected = rejected | rej_now
+        cur = torch.where(acc_d, ch[rows, sel], cur)
+        n_acc = n_acc + acc_d.long()
+        alive = alive & acc_d
+        path_blocks.append(cur)
+    bonus = greedy_t[rows, cur]
+    if sampled:
+        dist = torch.where(rejected[:, None], rej_dist, p_all[rows, cur])
+        bonus = torch.where(sampled_row, _gumbel_argmax(torch.log(dist + 1e-38), generator), bonus)
+    path_idx = torch.cat([torch.zeros((n, 1), dtype=torch.long, device=dev), torch.stack(path_blocks, dim=1)], dim=1)
+    out = torch.cat(
+        [torch.gather(block_tokens, 1, path_idx[:, 1:]), torch.zeros((n, 1), dtype=torch.long, device=dev)], dim=1
+    )
+    out[rows, n_acc] = bonus
+    return out.to(torch.int32), n_acc.to(torch.int32), path_idx.to(torch.int32)
 
 
 def reference_generate(params: dict, ids, max_new_tokens: int) -> np.ndarray:

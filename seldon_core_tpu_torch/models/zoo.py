@@ -255,6 +255,47 @@ def build_tiny_gpt(
     )
 
 
+@register_model("draft")
+def build_draft(
+    seed: int = 0,
+    vocab: int = 512,
+    hidden: int = 128,
+    layers: int = 1,
+    ffn: int = 256,
+    max_len: int = 128,
+    resid_scale: float = 1.0,
+    seq: int = 32,
+    max_new_tokens: int = 16,
+    distilled: str = "",
+    features: int = 0,
+    **_,
+) -> ModelSpec:
+    """Draft decoder for speculative decoding (``tpu.decode_draft_model``):
+    ``tiny_gpt`` with a one-layer default, and it delegates to
+    ``build_tiny_gpt``. ``init_decoder`` draws positionally from one seeded
+    generator, so a draft built with the target's seed, vocab, hidden, ffn
+    and max_len (the scheduler injects vocab and max_len) IS the target's
+    embeddings and leading layers: early-exit self-speculation. With the
+    default init the truncated layers carry little of the target's logits;
+    builds meant as drafts set ``resid_scale`` on both, so the shared
+    prefix carries the prediction.
+
+    ``features=1`` (the EAGLE-style feature head) and ``distilled=`` (a
+    distillation checkpoint) are not ported yet and are refused by name."""
+    if features:
+        raise ValueError(
+            "zoo://draft?features=1 (the EAGLE-style feature-draft head) is not part of the torch port yet"
+        )
+    if distilled:
+        raise ValueError(
+            f"zoo://draft?distilled={distilled} (a distilled draft checkpoint) is not part of the torch port yet"
+        )
+    return build_tiny_gpt(
+        seed=seed, vocab=vocab, hidden=hidden, layers=layers, ffn=ffn, max_len=max_len,
+        seq=seq, max_new_tokens=max_new_tokens, resid_scale=resid_scale,
+    )
+
+
 def _apply_tiny_gpt(p, x, *, max_new_tokens: int):
     from seldon_core_tpu_torch.models.decoder import generate
 

@@ -18,6 +18,19 @@ Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
   prompt prefixes whose entries reference pool pages; an admission maps the
   longest match's pages into its block table (refcount bumps, no copy) and
   computes only the uncovered suffix.
+- Draft-model speculation (``decode_draft_model`` with ``decode_spec_k``,
+  or ``decode_spec_tree`` for a token tree): a small draft decoder keeps a
+  flat per-slot cache beside the pool and proposes k tokens (or a whole
+  candidate tree) per slot in one dispatch (``_fused_draft`` /
+  ``_fused_draft_tree``); the target scores them in one widened dispatch
+  over the pool and accepts on the device (``_fused_verify`` /
+  ``_fused_tree_verify``); slots advance by their accepted length plus a
+  bonus token. A round reads back only (out_tokens, n_accepted).
+  ``decode_spec_accept_floor`` runs the accept-driven controller
+  (``_TreeAutoTuner``) that moves the depth between plain decode and the
+  configured ceiling, and reshapes the tree's widths. Per request,
+  ``meta.tags.spec_k`` and ``meta.tags.spec_tree`` tighten (``spec_k=0``
+  opts out).
 - Tokens stream to the caller as they are chosen (``on_token``), which is
   what the SSE route forwards.
 
@@ -28,15 +41,16 @@ appear after it (``recompiles_since_warmup() == 0``), the port's form of
 the JAX package's zero-recompile guard.
 
 Greedy equivalence: with greedy sampling every sequence gets, token for
-token, the fused ``generate``'s output, whenever it was admitted (on the
-card up to float32 near-ties: cuBLAS may sum a slot batch and a bucket
-batch in other orders).
+token, the fused ``generate``'s output, whenever it was admitted and
+whatever the draft proposes (on the card up to float32 near-ties: cuBLAS
+may sum a slot batch, a widened verify and a bucket batch in other orders).
 
 Not ported yet, and refused by name at deployment build
-(``graph/defaulting.py::decode_problems``): speculation and tree knobs,
-the host/store KV tiers, tensor-parallel decode, the replicated fleet and
-SLO targets. The pipelined rounds and the flight recorder have no knob and
-are simply absent: the serial loop is the one whose greedy output the
+(``graph/defaulting.py::decode_problems``): the host/store KV tiers,
+tensor-parallel decode, the replicated fleet and SLO targets; the feature
+draft (``zoo://draft?features=1``) and distilled drafts are refused by the
+zoo. The pipelined rounds and the flight recorder have no knob and are
+simply absent: the serial loop is the one whose greedy output the
 pipelined one must equal. Deadlines wait for the resilience layer; the
 queue timeout is honoured.
 """
@@ -57,12 +71,25 @@ from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import Meta, SeldonMessage
 from seldon_core_tpu_torch.core.tensor import to_device
 from seldon_core_tpu_torch.models.decoder import (
+    STREAM_DRAFT,
+    STREAM_VERIFY,
     decoder_dims,
+    draft_propose,
+    draft_propose_tree,
+    draft_tree_commit,
+    init_slot_cache,
     paged_chunk_prefill,
     paged_decode_step,
+    paged_tree_commit,
+    paged_tree_verify,
+    paged_verify_step,
+    prefill,
     sample_tokens,
     sampling_generator,
+    speculative_accept,
+    speculative_accept_tree,
 )
+from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree, parse_spec_tree
 from seldon_core_tpu_torch.serving.kv_pool import PagedKVPool
 
 log = logging.getLogger(__name__)
@@ -99,6 +126,178 @@ def _fused_chunk(params, pool, bt, ids, positions, counts, temps, topks, seed, t
     idx = torch.from_numpy(np.clip(counts - 1, 0, ids.shape[1] - 1)).to(dev).long()
     last = logits[torch.arange(ids.shape[0], device=dev), idx]
     return _sample(last, temps, topks, seed, tick), pool
+
+
+# The speculative programs below take tensors already on the device: the
+# round uploads every input before it queues the draft, because an upload
+# between the draft and the verify would wait for the draft to finish.
+
+
+def _scatter_prefill_rows(cache_k, cache_v, k_new, v_new, row_for_slot, valid_slot):
+    """Write a prefill wave's K/V (k_new [L, rows, h, s, hd]) into the flat
+    DRAFT cache, in place: slot j takes wave row ``row_for_slot[j]`` where
+    ``valid_slot[j]`` and keeps its bytes elsewhere. Each slot selects its
+    row, so no write has two sources."""
+    s = k_new.shape[3]
+    mask = valid_slot[None, :, None, None, None]
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        sel = new.index_select(1, row_for_slot).to(cache.dtype)  # [L, n_slots, h, s, hd]
+        cache[:, :, :, :s] = torch.where(mask, sel, cache[:, :, :, :s])
+    return cache_k, cache_v
+
+
+def _fused_draft_admit(params, dcache_k, dcache_v, ids, row_for_slot, valid_slot):
+    """Draft-side prompt prefill for slots whose target prefill completed:
+    the draft shares no K/V with the target's pool, so its flat cache takes
+    the FULL prompt in one bucketed dispatch, whatever prefix the target
+    reused."""
+    _, k_new, v_new = prefill(params, ids)
+    return _scatter_prefill_rows(dcache_k, dcache_v, k_new, v_new, row_for_slot, valid_slot)
+
+
+def _fused_draft(params, cache_k, cache_v, tokens, positions, temps, topks, generator, k):
+    """Draft side of a chain round: k draft steps (``draft_propose``) from
+    the round's draft stream. Returns (drafts [n, k], draft_logits [n, k,
+    V]), the draft cache written in place."""
+    drafts, dlogits, _, _ = draft_propose(params, cache_k, cache_v, tokens, positions, temps, topks, generator, k)
+    return drafts, dlogits
+
+
+def _fused_verify(params, pool, bt, tokens, drafts, draft_logits, positions, limits, temps, topks, generator):
+    """Target side of a chain round: the widened [n, k+1] paged verify and
+    the acceptance rule. Returns (out_tokens [n, k+1], n_accepted [n]) on
+    the device, the pool written in place; the draft's proposals and
+    logits never leave the device."""
+    queries = torch.cat([tokens[:, None], drafts.long()], dim=1)
+    logits, _hidden, _ = paged_verify_step(params, pool, bt, queries, positions)
+    return speculative_accept(logits, drafts, draft_logits, limits, temps, topks, generator)
+
+
+def _fused_draft_tree(params, cache_k, cache_v, tokens, positions, temps, topks, generator, tree):
+    """Draft side of a tree round: the root step and ``tree.depth`` widened
+    expansions (``draft_propose_tree``). Returns (node_tokens, block_logits,
+    node_k, node_v); the draft cache gains only the root's entry."""
+    return draft_propose_tree(params, cache_k, cache_v, tokens, positions, temps, topks, generator, tree)[:4]
+
+
+def _fused_tree_verify(params, pool, bt, tokens, node_tokens, block_logits, node_k, node_v, dck, dcv, positions,
+                       width_limits, temps, topks, generator, tree):
+    """Target side of a tree round: the whole tree scored in one widened
+    dispatch (``paged_tree_verify``; the pool is not written by the
+    forward), the longest-accepted-path walk, then both commits: the
+    accepted path's target K/V into the pool (every other column to junk
+    page 0) and its draft K/V into the flat draft cache. Returns
+    (out_tokens [n, depth+1], n_accepted [n]) on the device."""
+    queries = torch.cat([tokens[:, None], node_tokens.long()], dim=1)
+    logits, _hidden, new_k, new_v = paged_tree_verify(params, pool, bt, queries, positions, tree)
+    out, acc, path_idx = speculative_accept_tree(logits, queries, block_logits, width_limits, temps, topks,
+                                                 generator, tree)
+    paged_tree_commit(pool, bt, new_k, new_v, path_idx, positions, acc)
+    draft_tree_commit(dck, dcv, node_k, node_v, path_idx, positions, acc)
+    return out, acc
+
+
+class _TreeAutoTuner:
+    """Accept-driven speculation controller (the JAX package's, unchanged):
+    an EWMA of accepted/allowed moves the effective depth between plain
+    decode (rate < ``floor``, with a periodic depth-1 probe) and the
+    configured ceiling; on tree deployments ``reach[d]``, an EWMA of the
+    probability that a riding slot's accepted path reaches depth d+1,
+    narrows the widths of rarely reached depths (``reach / reach_hi``,
+    floor 1; cut below ``reach_lo``), with a periodic full-shape probe while
+    narrowed. Adaptation changes only data (per-slot limits and width
+    masks), never a program shape, and never widens past the configured
+    tree. ``floor <= 0`` pins the configured shape."""
+
+    def __init__(
+        self,
+        floor: float,
+        ceiling: int,
+        tree: SpecTree | None = None,
+        alpha: float = 0.2,
+        probe_every: int = 16,
+        reach_hi: float = 0.5,
+        reach_lo: float = 0.05,
+    ):
+        self.floor = float(floor)
+        self.ceiling = int(ceiling)
+        self.tree = tree
+        self.alpha = float(alpha)
+        self.probe_every = int(probe_every)
+        self.reach_hi = float(reach_hi)
+        self.reach_lo = float(reach_lo)
+        # optimistic start: the first rounds run the full configured shape
+        self.rate = 1.0
+        self.reach = [1.0] * (tree.depth if tree is not None else 0)
+        self.plain_rounds = 0
+        self.spec_rounds = 0
+        self.probes = 0
+        self.probing = False  # the last decide() returned a probe round
+
+    def update(self, accepted: int, allowed: int, paths=None) -> None:
+        """Per-round observation: total accepted/allowed, and optionally the
+        riding slots' (accepted, limit) pairs for the reach estimate."""
+        if allowed > 0:
+            self.rate += self.alpha * (accepted / allowed - self.rate)
+        if not paths or self.tree is None:
+            return
+        # reach[0] stays 1.0: depth-1 nodes are reachable by construction
+        for d in range(1, len(self.reach)):
+            samples = [1.0 if a >= d else 0.0 for a, lim in paths if lim >= d + 1]
+            if samples:
+                self.reach[d] += self.alpha * (sum(samples) / len(samples) - self.reach[d])
+
+    def depth(self) -> int:
+        """Effective depth for the next round (0: plain). Moves the probe
+        counters: call once per round (``decide``)."""
+        if self.floor <= 0.0:
+            return self.ceiling
+        if self.rate < self.floor:
+            self.plain_rounds += 1
+            if self.probe_every and self.plain_rounds % self.probe_every == 0:
+                self.probes += 1
+                self.probing = True
+                return 1
+            return 0
+        self.plain_rounds = 0
+        frac = (self.rate - self.floor) / max(1.0 - self.floor, 1e-6)
+        return max(1, min(self.ceiling, int(np.ceil(frac * self.ceiling))))
+
+    def widths(self) -> tuple[int, ...] | None:
+        """Tuned per-depth width ceiling for the next round (None: no tree
+        or adaptation off). Depth 1 keeps its configured width."""
+        if self.tree is None or self.floor <= 0.0:
+            return None
+        base = self.tree.branching
+        out = [base[0]]
+        for d in range(1, len(base)):
+            r = self.reach[d]
+            if r < self.reach_lo:
+                out.append(0)
+            elif r >= self.reach_hi:
+                out.append(base[d])
+            else:
+                out.append(max(1, int(np.ceil(base[d] * r / self.reach_hi))))
+        if self.probing or tuple(out) == base:
+            return base if self.probing else tuple(out)
+        # narrowed: a periodic full-shape probe so reach can recover
+        self.spec_rounds += 1
+        if self.probe_every and self.spec_rounds % self.probe_every == 0:
+            self.probes += 1
+            self.probing = True
+            return base
+        return tuple(out)
+
+    def decide(self) -> tuple[int, tuple[int, ...] | None, bool]:
+        """One call per round: (effective depth, tuned width ceiling or
+        None, probe flag). A depth-0 (plain) round skips the width tuner, so
+        it spends no width-probe on a round that observes nothing."""
+        self.probing = False
+        d = self.depth()
+        if d == 0:
+            return 0, None, False
+        w = self.widths()
+        return d, w, self.probing
 
 
 def usable_prefix_len(length: int, seq_len: int) -> int:
@@ -210,16 +409,20 @@ class _Seq:
     """One in-flight generation request."""
 
     __slots__ = (
-        "prompt", "max_new", "temperature", "top_k", "on_token", "future",
-        "tokens", "pos", "deadline", "prefilling", "prefill_pos", "chunk_cap",
-        "cache_prefix",
+        "prompt", "max_new", "temperature", "top_k", "spec_k", "tree_widths",
+        "on_token", "future", "tokens", "pos", "deadline", "prefilling",
+        "prefill_pos", "chunk_cap", "cache_prefix",
     )
 
-    def __init__(self, prompt, max_new, temperature, top_k, on_token, future):
+    def __init__(self, prompt, max_new, temperature, top_k, spec_k, on_token, future):
         self.prompt = prompt
         self.max_new = max_new
         self.temperature = temperature
         self.top_k = top_k
+        self.spec_k = spec_k  # this request's speculation depth cap (0: plain)
+        # tree deployments: the per-depth widths this request rides (the
+        # deployment tree tightened by meta.tags.spec_tree); () elsewhere
+        self.tree_widths: tuple[int, ...] = ()
         self.on_token = on_token
         self.future = future
         self.tokens: list[int] = []
@@ -239,7 +442,8 @@ class DecodeScheduler:
     ``params`` is the decoder's parameter tree as tensors on one device
     (``ModelRuntime.params``). ``seq_len`` is the fixed prompt bucket and
     ``max_new_tokens`` the generation cap the pool is sized for
-    (``max_ctx = seq_len + max_new_tokens``)."""
+    (``max_ctx = seq_len + max_new_tokens``). ``draft_params`` (on the same
+    device) with ``spec_k`` or ``spec_tree`` turns speculation on."""
 
     def __init__(
         self,
@@ -253,6 +457,10 @@ class DecodeScheduler:
         top_k: int = 0,
         seed: int = 0,
         queue_timeout_s: float = 0.0,
+        draft_params=None,
+        spec_k: int = 0,
+        spec_tree: str = "",
+        spec_accept_floor: float = 0.0,
         prefix_slots: int = 0,
         prefix_ctx: int = 0,
         prefill_chunk: int = 0,
@@ -265,6 +473,8 @@ class DecodeScheduler:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if spec_k > 0 and draft_params is None:
+            raise ValueError(f"spec_k={spec_k} needs a draft model (decode_draft_model)")
         dims = decoder_dims(params)
         self.max_ctx = seq_len + max_new_tokens
         if self.max_ctx > dims["max_len"]:
@@ -276,6 +486,7 @@ class DecodeScheduler:
         self.seq_len = seq_len
         self.max_new_tokens = max_new_tokens
         self.n_slots = n_slots
+        self._init_speculation(dims, draft_params, int(spec_k), str(spec_tree or "").strip(), spec_accept_floor)
         self.eos_id = int(eos_id)
         self.default_temperature = float(temperature)
         self.default_top_k = int(top_k)
@@ -298,16 +509,26 @@ class DecodeScheduler:
 
         # distinct (program, shape) keys dispatched: compile_counts()
         self._dispatch_keys: set = set()
+        dtype = dtype if dtype is not None else params["tok_emb"].dtype
+        # spec_k columns of headroom in the pool and the draft cache: a
+        # chain round writes a fixed [k+1]-wide block at each slot's
+        # position, which for a slot one token from its budget reaches
+        # spec_k past max_ctx (the flat draft cache would otherwise clamp
+        # the block backwards over accepted entries)
+        self._cache_ctx = self.max_ctx + self.spec_k
         self.pool = PagedKVPool(
             params,
             n_slots=n_slots,
-            cache_ctx=self.max_ctx,
+            cache_ctx=self._cache_ctx,
             page_size=kv_page_size,
             n_pages=kv_pages,
             kv_dtype=kv_dtype,
-            dtype=dtype if dtype is not None else params["tok_emb"].dtype,
+            dtype=dtype,
             dispatch_keys=self._dispatch_keys,
         )
+        self._dtype = dtype
+        if self.spec_enabled:
+            self._dck, self._dcv = init_slot_cache(self.draft_params, n_slots, self._cache_ctx, dtype)
         if self.prefix_enabled:
             self._prefix_index = PrefixIndex(self.prefix_slots)
             self.pool.alloc.on_pins_reclaimed = self._on_pins_reclaimed
@@ -330,6 +551,65 @@ class DecodeScheduler:
         self.stat_chunk_dispatches = 0
         # rounds whose queue head could not reserve pages
         self.stat_admit_blocked_rounds = 0
+        # speculation: accept rate = accepted / proposed (proposed counts
+        # the depth positions a path could advance through), tokens per
+        # target dispatch = emitted / dispatches; rides are generating
+        # slots that rode a round with a nonzero limit, and ride_emitted
+        # the tokens those slots emitted
+        self.stat_spec_dispatches = 0
+        self.stat_spec_proposed = 0
+        self.stat_spec_accepted = 0
+        self.stat_spec_emitted = 0
+        self.stat_spec_rides = 0
+        self.stat_spec_ride_emitted = 0
+
+    def _init_speculation(self, dims: dict, draft_params, spec_k: int, tree_text: str, accept_floor: float) -> None:
+        """The speculation config: a k-chain (``spec_k``) or a token tree
+        (``tree_text``, whose depth then stands for spec_k: the per-request
+        spec_k tighten caps the depth, meta.tags.spec_tree the widths), the
+        draft's geometry checks and the accept-driven controller."""
+        self.spec_tree: SpecTree | None = None
+        if tree_text:
+            if draft_params is None:
+                raise ValueError("decode_spec_tree needs a draft model (decode_draft_model)")
+            self.spec_tree = SpecTree.from_text(tree_text)
+            if self.spec_tree.n_tree > MAX_TREE_NODES:
+                raise ValueError(
+                    f"decode_spec_tree {tree_text!r} flattens to {self.spec_tree.n_tree} nodes — "
+                    f"the widened verify dispatch caps at {MAX_TREE_NODES}"
+                )
+        self.spec_enabled = draft_params is not None and (spec_k >= 1 or self.spec_tree is not None)
+        if self.spec_tree is not None:
+            self.spec_k = self.spec_tree.depth
+        else:
+            self.spec_k = spec_k if self.spec_enabled else 0
+            if self.spec_k > MAX_TREE_NODES:
+                raise ValueError(
+                    f"decode_spec_k={self.spec_k} exceeds the widened-verify headroom "
+                    f"({MAX_TREE_NODES} proposed tokens per dispatch)"
+                )
+        self.draft_params = draft_params if self.spec_enabled else None
+        self._adapt = _TreeAutoTuner(accept_floor, self.spec_k, self.spec_tree) if self.spec_enabled else None
+        if not self.spec_enabled:
+            return
+        ddims = decoder_dims(draft_params)
+        if ddims["vocab"] != dims["vocab"]:
+            raise ValueError(
+                f"draft vocab {ddims['vocab']} != target vocab {dims['vocab']} — "
+                "speculation needs a shared vocabulary"
+            )
+        if self.max_ctx > ddims["max_len"]:
+            raise ValueError(
+                f"draft position table ({ddims['max_len']}) is smaller than "
+                f"seq_len + max_new_tokens ({self.max_ctx})"
+            )
+        # wave buckets of the draft's prompt prefill (one dispatch for the
+        # slots whose target prefill completed in a round)
+        buckets, b = [], 1
+        while b < self.n_slots:
+            buckets.append(b)
+            b *= 2
+        self.admit_buckets = tuple(buckets) + (self.n_slots,)
 
     # ------------------------------------------------------------ dispatch
     def _step(self, bt, toks, pos, temps, topks, tick) -> np.ndarray:
@@ -346,6 +626,48 @@ class DecodeScheduler:
         )
         return nxt.cpu().numpy()
 
+    def _draft_admit(self, ids, row_for_slot, valid_slot) -> None:
+        """The draft's prompt prefill for a wave of slots (``ids`` [bucket,
+        seq_len], slot j taking row row_for_slot[j] where valid_slot[j]);
+        no readback."""
+        self._dispatch_keys.add(("draft_admit",) + ids.shape)
+        dev = self.pool.device
+        _fused_draft_admit(self.draft_params, self._dck, self._dcv, to_device(ids, dev),
+                           to_device(row_for_slot, dev).long(), to_device(valid_slot, dev))
+
+    def _spec(self, bt, toks, pos, temps, topks, limits, wlimits, tick) -> tuple[np.ndarray, np.ndarray]:
+        """One speculative round pair, draft then widened verify, and its one
+        readback: (out_tokens [n, spec_k + 1], n_accepted [n]). Every input
+        is uploaded before the draft is queued, and nothing between the two
+        programs waits on the card. ``wlimits`` (tree deployments) replaces
+        ``limits`` as the verify's per-slot mask."""
+        dev = self.pool.device
+        n = len(toks)
+        bt_d, toks_d, pos_d, temps_d, topks_d, lim_d = (
+            to_device(a, dev) for a in (bt, toks, pos, temps, topks, limits if wlimits is None else wlimits)
+        )
+        toks_d, pos_d, bt_d = toks_d.long(), pos_d.long(), bt_d.long()
+        sampled = bool((temps > 0).any())
+        g_draft = sampling_generator(self._seed, tick, dev, STREAM_DRAFT) if sampled else None
+        g_verify = sampling_generator(self._seed, tick, dev, STREAM_VERIFY) if sampled else None
+        tree = self.spec_tree
+        if tree is None:
+            self._dispatch_keys.add(("draft", n, self.spec_k))
+            self._dispatch_keys.add(("verify", n, self.spec_k + 1))
+            drafts, dlogits = _fused_draft(self.draft_params, self._dck, self._dcv, toks_d, pos_d, temps_d, topks_d,
+                                           g_draft, self.spec_k)
+            out, acc = _fused_verify(self.params, self.pool.state, bt_d, toks_d, drafts, dlogits, pos_d, lim_d,
+                                     temps_d, topks_d, g_verify)
+        else:
+            self._dispatch_keys.add(("draft_tree", n, tree.branching))
+            self._dispatch_keys.add(("tree_verify", n, tree.width))
+            node_toks, blogits, nk, nv = _fused_draft_tree(self.draft_params, self._dck, self._dcv, toks_d, pos_d,
+                                                           temps_d, topks_d, g_draft, tree)
+            out, acc = _fused_tree_verify(self.params, self.pool.state, bt_d, toks_d, node_toks, blogits, nk, nv,
+                                          self._dck, self._dcv, pos_d, lim_d, temps_d, topks_d, g_verify, tree)
+        res = torch.cat([out, acc[:, None]], dim=1).cpu().numpy()
+        return res[:, :-1], res[:, -1]
+
     def _on_worker(self, fn):
         with torch.inference_mode():
             return fn()
@@ -356,9 +678,11 @@ class DecodeScheduler:
 
     def warmup(self) -> None:
         """Dispatch every (program, shape) key serving can need — each chunk
-        bucket, the step, the copy ladder — on the worker thread, with
-        all-zero block tables and counts, so every write lands in junk page
-        0. compile_counts() after this is the baseline."""
+        bucket, the step, the copy ladder and, with speculation, the draft
+        admit per wave bucket and the round pair — on the worker thread,
+        with all-zero block tables, counts and limits, so every pool write
+        lands in junk page 0 (the draft cache's junk is overwritten by each
+        admission). compile_counts() after this is the baseline."""
 
         def run():
             z = np.zeros(self.n_slots, np.int32)
@@ -368,14 +692,22 @@ class DecodeScheduler:
                 self._chunk(bt0, np.zeros((self.n_slots, c), np.int32), z, z, zf, z, 0)
             self.pool.warmup()
             self._step(bt0, z, z, zf, z, 0)
+            if self.spec_enabled:
+                for b in self.admit_buckets:
+                    self._draft_admit(np.zeros((b, self.seq_len), np.int32), z, np.zeros(self.n_slots, bool))
+                wl0 = None if self.spec_tree is None else np.zeros((self.n_slots, self.spec_k), np.int32)
+                self._spec(bt0, z, z, zf, z, z, wl0, 0)
 
         self._worker.submit(self._on_worker, run).result()
         self._warmup_keys = sum(self.compile_counts().values())
 
     def compile_counts(self) -> dict[str, int]:
         """Distinct (program, shape) keys dispatched, per program."""
+        names = ["step", "chunk", "copy"]
+        if self.spec_enabled:
+            names += ["draft_admit"] + (["draft", "verify"] if self.spec_tree is None else ["draft_tree", "tree_verify"])
         counts = collections.Counter(k[0] for k in self._dispatch_keys)
-        return {name: counts.get(name, 0) for name in ("step", "chunk", "copy")}
+        return {name: counts.get(name, 0) for name in names}
 
     def recompiles_since_warmup(self) -> int:
         """New (program, shape) keys since warmup(): 0 is the serving
@@ -396,6 +728,8 @@ class DecodeScheduler:
         max_new_tokens: int | None = None,
         temperature: float | None = None,
         top_k: int | None = None,
+        spec_k: int | None = None,
+        spec_tree: str | None = None,
         cache_prefix: int | None = None,
         prefill_chunk: int | None = None,
         on_token: OnToken | None = None,
@@ -403,6 +737,9 @@ class DecodeScheduler:
         """Generate for one prompt [seq_len]; resolves with the int32
         sequence (prompt echoed, generated ids appended). ``on_token`` is
         called from the loop per generated token: keep it cheap.
+        ``spec_k`` tightens (never widens) the deployment's speculation
+        depth, 0 opting this request out; ``spec_tree`` ("2,1") tightens a
+        tree deployment's per-depth widths (ignored elsewhere).
         ``cache_prefix`` hints how many leading tokens are worth capturing
         into the prefix pool; ``prefill_chunk`` tightens (never widens) the
         deployment's chunk cap."""
@@ -419,7 +756,17 @@ class DecodeScheduler:
         max_new = max(1, min(max_new, self.max_new_tokens))
         temp = float(temperature) if temperature is not None else self.default_temperature
         k = int(top_k) if top_k is not None else self.default_top_k
-        seq = _Seq(prompt, max_new, temp, k, on_token, asyncio.get_running_loop().create_future())
+        sk = self.spec_k if spec_k is None else max(0, min(int(spec_k), self.spec_k))
+        seq = _Seq(prompt, max_new, temp, k, sk, on_token, asyncio.get_running_loop().create_future())
+        if self.spec_tree is not None:
+            # per depth min(request, deployment); omitted depths get 0, and
+            # a 0 width (min_branch=0) is the documented opt-out
+            seq.tree_widths = self.spec_tree.branching
+            if spec_tree is not None:
+                try:
+                    seq.tree_widths = self.spec_tree.tighten(parse_spec_tree(spec_tree, min_branch=0))
+                except ValueError as e:
+                    raise APIException(ErrorCode.ENGINE_INVALID_JSON, f"meta.tags.spec_tree: {e}") from None
         seq.chunk_cap = self.prefill_chunk
         if prefill_chunk is not None and int(prefill_chunk) >= 1:
             # tighten-only; values < 1 are ignored (0 is the widest setting)
@@ -574,6 +921,19 @@ class DecodeScheduler:
             topks[slot] = seq.top_k
         return bucket, ids, pos, counts, temps, topks
 
+    def _draft_admit_arrays(self, slots: list[int]) -> tuple:
+        """(ids [bucket, seq_len], row_for_slot, valid_slot) of a draft
+        admit wave over ``slots``."""
+        bucket = next(b for b in self.admit_buckets if b >= len(slots))
+        ids = np.zeros((bucket, self.seq_len), np.int32)
+        row_for_slot = np.zeros(self.n_slots, np.int32)
+        valid_slot = np.zeros(self.n_slots, bool)
+        for r, i in enumerate(slots):
+            ids[r] = self._slots[i].prompt
+            row_for_slot[i] = r
+            valid_slot[i] = True
+        return ids, row_for_slot, valid_slot
+
     async def _chunk_round(self) -> None:
         """One prefill chunk round: every prefilling slot consumes up to its
         chunk cap of prompt tokens in one dispatch; slots whose prompt
@@ -597,7 +957,18 @@ class DecodeScheduler:
         await self._run_copies(copies)
         bt = self.pool.block_tables()
         tick = self._next_tick()
-        toks = await self._device_call(lambda: self._chunk(bt, ids, pos, counts, temps, topks, tick))
+        # the slots whose prompt completes this round also prefill the
+        # draft's cache with their full prompt, in the same worker call
+        finishing = [i for i, pp, c, _ in rows if pp + c >= self.seq_len]
+        admit = self._draft_admit_arrays(finishing) if self.spec_enabled and finishing else None
+
+        def run():
+            toks = self._chunk(bt, ids, pos, counts, temps, topks, tick)
+            if admit is not None:
+                self._draft_admit(*admit)
+            return toks
+
+        toks = await self._device_call(run)
         self.stat_chunk_dispatches += 1
         for i, _, c, seq in rows:
             seq.prefill_pos += c
@@ -613,8 +984,41 @@ class DecodeScheduler:
             if self._finished(seq, tok):
                 self._retire(i)
 
+    def _spec_limits(self) -> tuple[np.ndarray | None, np.ndarray | None]:
+        """This round's per-slot accept limits [n] (and, on tree
+        deployments, per-depth width limits [n, depth]) from the
+        controller's effective depth and tuned widths, each request's
+        tighten and its remaining budget; (None, None) without speculation.
+        A slot one token from its budget rides with limit 0."""
+        if not self.spec_enabled:
+            return None, None
+        depth, tuned, _ = self._adapt.decide()
+        limits = np.zeros(self.n_slots, np.int32)
+        for i, seq in enumerate(self._slots):
+            if seq is not None and not seq.prefilling:
+                # a round emits accepted + 1 tokens
+                limits[i] = max(0, min(seq.spec_k, depth, seq.max_new - len(seq.tokens) - 1))
+        if self.spec_tree is None:
+            return limits, None
+        wlimits = np.zeros((self.n_slots, self.spec_tree.depth), np.int32)
+        for i, seq in enumerate(self._slots):
+            if seq is None or seq.prefilling or limits[i] <= 0:
+                continue
+            w = seq.tree_widths
+            if tuned is not None:
+                w = tuple(min(a, b) for a, b in zip(w, tuned))
+            for d in range(min(int(limits[i]), len(w))):
+                if w[d] <= 0:
+                    break
+                wlimits[i, d] = w[d]
+            # the depth the walk can reach: a zeroed width must not count
+            # as an acceptance opportunity
+            limits[i] = int((wlimits[i] > 0).sum())
+        return limits, wlimits
+
     async def _step_round(self) -> None:
-        """One decode step for every generating slot."""
+        """One decode round for every generating slot: a speculative round
+        pair when any slot may speculate, else the plain step."""
         toks = np.zeros(self.n_slots, np.int32)
         pos = np.zeros(self.n_slots, np.int32)
         temps = np.zeros(self.n_slots, np.float32)
@@ -639,12 +1043,25 @@ class DecodeScheduler:
             gen.append(i)
         if not gen:
             return
+        limits, wlimits = self._spec_limits()
+        spec_round = limits is not None and bool(limits.any())
+        # page residency for the round's writes: one token per generating
+        # slot on the plain step, the whole [k+1]-wide block on a
+        # speculative round (prefilling slots' junk parks in pages they own
+        # or in the junk page)
+        width = self.spec_k + 1 if spec_round else 1
         copies: list[tuple[int, int]] = []
         for i in gen:
-            copies += self.pool.alloc.prepare_write(i, self._slots[i].pos, 1)
+            copies += self.pool.alloc.prepare_write(i, self._slots[i].pos, width)
         await self._run_copies(copies)
         bt = self.pool.block_tables()
         tick = self._next_tick()
+        if spec_round:
+            out_t, acc = await self._device_call(
+                lambda: self._spec(bt, toks, pos, temps, topks, limits, wlimits, tick)
+            )
+            self._consume_spec(out_t, acc, limits)
+            return
         nxt = await self._device_call(lambda: self._step(bt, toks, pos, temps, topks, tick))
         self.stat_steps += 1
         for i in gen:
@@ -654,6 +1071,35 @@ class DecodeScheduler:
             self._emit(seq, tok)
             if self._finished(seq, tok):
                 self._retire(i)
+
+    def _consume_spec(self, out_t: np.ndarray, acc: np.ndarray, limits: np.ndarray) -> None:
+        """The readback half of a speculative round: every generating slot
+        emits out_t[i, :acc[i] + 1] token by token (EOS and budget retire
+        mid-burst, streaming sees each token), then the attribution and the
+        controller's update. Limit-0 slots emit exactly their plain-step
+        token."""
+        self.stat_steps += 1
+        self.stat_spec_dispatches += 1
+        proposed, accepted, emitted = int(limits.sum()), int(acc.sum()), 0
+        for i, seq in enumerate(list(self._slots)):
+            if seq is None or seq.prefilling:
+                continue
+            riding = int(limits[i]) > 0
+            for j in range(int(acc[i]) + 1):
+                seq.pos += 1
+                tok = int(out_t[i, j])
+                self._emit(seq, tok)
+                emitted += 1
+                self.stat_spec_ride_emitted += int(riding)
+                if self._finished(seq, tok):
+                    self._retire(i)
+                    break
+        self.stat_spec_proposed += proposed
+        self.stat_spec_accepted += accepted
+        self.stat_spec_emitted += emitted
+        self.stat_spec_rides += int((limits > 0).sum())
+        paths = [(int(acc[i]), int(limits[i])) for i in range(self.n_slots) if limits[i] > 0]
+        self._adapt.update(accepted, proposed, paths=paths)
 
     async def _run(self) -> None:
         try:
@@ -683,9 +1129,11 @@ class DecodeScheduler:
             self._reset_device_state()
 
     def _reset_device_state(self) -> None:
-        """Error-path rebuild: a fresh pool and allocator, and no index
-        entry pointing into the old one."""
+        """Error-path rebuild: a fresh pool and allocator (and draft cache),
+        and no index entry pointing into the old one."""
         self.pool.reset()
+        if self.spec_enabled:
+            self._dck, self._dcv = init_slot_cache(self.draft_params, self.n_slots, self._cache_ctx, self._dtype)
         if self.prefix_enabled:
             self._prefix_index.clear()
 
@@ -726,14 +1174,20 @@ class DecodeScheduler:
     # ----------------------------------------------------- message adapter
     def request_params_from_meta(self, meta: Meta) -> dict:
         """Per-request overrides from meta.tags: max_new_tokens, temperature,
-        top_k, cache_prefix, prefill_chunk (clamped to the deployment's
-        caps at submit)."""
+        top_k, spec_k, spec_tree, cache_prefix, prefill_chunk (clamped to
+        the deployment's caps at submit; spec_k, spec_tree and prefill_chunk
+        only tighten)."""
         tags = meta.tags or {}
         out: dict = {}
+        if "spec_tree" in tags:
+            # per-depth widths ("2,1"), parsed against the deployment tree
+            # at submit
+            out["spec_tree"] = str(tags["spec_tree"])
         for key, cast in (
             ("max_new_tokens", int),
             ("temperature", float),
             ("top_k", int),
+            ("spec_k", int),
             ("cache_prefix", int),
             ("prefill_chunk", int),
         ):
@@ -778,6 +1232,51 @@ class DecodeScheduler:
         return msg.with_array_meta(full, meta)
 
 
+def _draft_for(runtime, tpu_spec) -> tuple:
+    """(draft params on the runtime's device, spec_k, spec_tree) from the
+    deployment's speculation knobs, or (None, 0, "") with a log line in
+    the JAX package's warn-and-disable cases: a tree past MAX_TREE_NODES,
+    a tree without a draft, a chain past the verify headroom, a draft that
+    is not a decoder, and only one of the draft and the depth set. The
+    draft takes the target's vocabulary and position table unless its URI
+    pins them, and stays float32, as the JAX package keeps it."""
+    from seldon_core_tpu_torch.models.convert import params_to_torch
+    from seldon_core_tpu_torch.models.zoo import _parse_zoo_uri, get_model
+
+    draft_uri = str(tpu_spec.decode_draft_model or "")
+    spec_k = int(tpu_spec.decode_spec_k)
+    spec_tree = str(tpu_spec.decode_spec_tree or "").strip()
+    if spec_tree:
+        try:
+            if SpecTree.from_text(spec_tree).n_tree > MAX_TREE_NODES:
+                raise ValueError(f"flattens past the {MAX_TREE_NODES}-node verify headroom")
+        except ValueError as e:
+            log.warning("decode_spec_tree=%r unservable (%s) — tree speculation disabled", spec_tree, e)
+            spec_tree = ""
+    if spec_tree and not draft_uri:
+        log.warning("decode_spec_tree=%r needs decode_draft_model — tree speculation disabled", spec_tree)
+        spec_tree = ""
+    if not spec_tree and spec_k > MAX_TREE_NODES:
+        log.warning("decode_spec_k=%s exceeds the %s-token verify headroom — speculation disabled",
+                    spec_k, MAX_TREE_NODES)
+        spec_k = 0
+    if not (draft_uri and (spec_k > 0 or spec_tree)):
+        if draft_uri or spec_k > 0:
+            log.warning(
+                "speculative decoding needs BOTH decode_draft_model and decode_spec_k > 0 (or "
+                "decode_spec_tree) — got %r / %s — speculation disabled", draft_uri, spec_k,
+            )
+        return None, 0, ""
+    name, kwargs = _parse_zoo_uri(draft_uri) if draft_uri.startswith("zoo://") else (draft_uri, {})
+    dims = decoder_dims(runtime.params)
+    spec = get_model(name, **{"vocab": dims["vocab"], "max_len": dims["max_len"], **kwargs})
+    if not (isinstance(spec.params, dict) and "tok_emb" in spec.params):
+        log.warning("decode_draft_model=%r is not a decoder (models/decoder.py layout) — speculation disabled",
+                    draft_uri)
+        return None, 0, ""
+    return params_to_torch(spec.params, runtime.device), spec_k, spec_tree
+
+
 def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
     """A DecodeScheduler for a predictor whose graph is ONE generative model
     node and whose deployment opted in (tpu.decode_slots > 0); None
@@ -795,6 +1294,7 @@ def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
             tpu_spec.decode_slots,
         )
         return None
+    draft_params, spec_k, spec_tree = _draft_for(runtime, tpu_spec)
     return DecodeScheduler(
         runtime.params,
         seq_len=int(gen["seq"]),
@@ -805,6 +1305,10 @@ def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
         top_k=int(tpu_spec.decode_top_k),
         seed=int(tpu_spec.decode_seed),
         queue_timeout_s=float(tpu_spec.queue_timeout_ms) / 1000.0,
+        draft_params=draft_params,
+        spec_k=spec_k,
+        spec_tree=spec_tree,
+        spec_accept_floor=float(tpu_spec.decode_spec_accept_floor),
         prefix_slots=int(tpu_spec.decode_prefix_slots),
         prefix_ctx=int(tpu_spec.decode_prefix_ctx),
         prefill_chunk=int(tpu_spec.decode_prefill_chunk),

@@ -337,13 +337,26 @@ async def test_streaming_e2e_through_fast_ingress():
         await server.stop()
 
 
-@pytest.mark.parametrize("knob", sorted(UNPORTED_DECODE_KNOBS))
+# the speculation knobs, once in UNPORTED_DECODE_KNOBS, are served now: set
+# alone, each is refused by the JAX package's validation rule that names it,
+# except the draft model alone, which serves with speculation off (the JAX
+# package's warn-and-disable case)
+SERVED_SPEC_KNOBS = {"decode_draft_model": "", "decode_spec_accept_floor": 0.0, "decode_spec_k": 0,
+                     "decode_spec_tree": ""}
+
+
+@pytest.mark.parametrize("knob", sorted({**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS}))
 def test_unported_decode_knob_refused_by_name(knob):
-    value = {str: "x", int: 2, float: 0.5, dict: {"tp": 2}, bool: False}[type(UNPORTED_DECODE_KNOBS[knob])]
-    with pytest.raises(ValueError, match=knob):
-        PredictorServer(_predictor(2, **{knob: value}), device="cpu")
+    default = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS}[knob]
+    value = {str: "x", int: 2, float: 0.5, dict: {"tp": 2}, bool: False}[type(default)]
+    if knob == "decode_draft_model":
+        server = PredictorServer(_predictor(2, **{knob: "zoo://draft"}), device="cpu")
+        assert not server.decode_scheduler.spec_enabled
+    else:
+        with pytest.raises(ValueError, match=knob):
+            PredictorServer(_predictor(2, **{knob: value}), device="cpu")
     # the JAX package's default is no request for the feature: accepted
-    assert decode_problems("p", TpuSpec.from_dict({"decode_slots": 2, knob: UNPORTED_DECODE_KNOBS[knob]})) == []
+    assert decode_problems("p", TpuSpec.from_dict({"decode_slots": 2, knob: default})) == []
 
 
 @pytest.mark.parametrize("tpu,needle", [
