@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (no phase catches its own):
 
 1. build every CUDA kernel under ``seldon_core_tpu_torch/csrc/`` with nvcc
-   for sm_90a (into the git-ignored ``build/kernels/``), and count the
-   Hopper instructions in the built library (``HGMMA``, ``UTMALDG``): the
-   flash kernel must hold both;
+   for sm_90a (into the git-ignored ``build/kernels/``, one nvcc per source,
+   all started together), and count the Hopper instructions in the built
+   libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, as contiguous tensors and as the views
    of one fused QKV projection that BERT hands it (plus the causal and
@@ -76,6 +76,20 @@ Phases, each of which raises on failure (no phase catches its own):
    past the first mismatch and a tree commit that writes a sibling's K/V
    (both must fail the id check). The speculation path launches no flash
    kernel (counted).
+7. int8 weights and the resilience layer: the W8A16 kernel
+   (``csrc/int8_matmul.cu``, which must hold HMMA instructions) against its
+   plain version in bf16 and float32 at BERT-base's served projections at
+   bucket 32 and bucket 1, iris's (M, 4 -> 3) and three stacked members
+   (through the vmap rule, one with a shared input), with scales applied
+   per row and one dropped K tile shown to fail every case, each case
+   timed beside its plain version and ``torch.addmm`` / ``torch.baddbmm``
+   on the pre-dequantized weights; the ``bert_int8`` deployment through
+   REST (49 launches per forward, counted; probabilities against the bf16
+   deployment and the CPU; resident parameter bytes; a profiler breakdown
+   at bucket 32); ``iris_fallback_breaker`` on the card with faults
+   installed (fallback and breaker, a deadline tag's 504, a breakered node
+   without fallback answering 500 then 503 with Retry-After, and
+   ``batch_across_requests`` false walking each request alone).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -169,6 +183,18 @@ CB_REQUESTS = 16
 # tokens the GPT-2-small chain (k=4) must accept per riding slot and round
 SPEC_REQUESTS = 16
 SPEC_MIN_ACCEPTED = 1.0
+# Phase 7: the W8A16 kernel against its plain version under KERNEL_TOL, as
+# the flash kernel is held: bf16 rounds y once where the plain version rounds
+# the product and then its sum with the bias (an ulp of y apart at most);
+# float32 sums in another order. Scales applied per row instead of per
+# column, or one K tile dropped, must fail every case (PERF.md has the
+# measured margins). The bert_int8 deployment's probabilities against the
+# same seed's bf16 deployment without weight_quant are held to the JAX
+# package's own int8 bound (tests/test_quant.py:94); against the port's int8
+# forward on the CPU to SERVE_ATOL (bf16 rounding flips through 12 layers).
+INT8_K_TILE = {"bfloat16": 64, "float32": 32}  # K columns per tile of each body
+INT8_SERVE_ATOL = 3e-2
+INT8_LAUNCHES = 12 * 4 + 1  # qkv, attn_out, mlp_in, mlp_out per layer, and the head
 
 
 def card_line() -> str:
@@ -1605,16 +1631,353 @@ async def serve_speculation(card) -> dict:
     return results
 
 
-def sass_counts(library: Path) -> dict:
-    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the built
-    library holds, from its disassembly."""
+def int8_weights(k: int, n: int, rng):
+    """One quantized [k, n] weight (payload, scale) whose columns differ in
+    magnitude, which is why the scheme keeps a scale per column."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.quant import payload, quantize_params
+
+    w = rng.standard_normal((k, n)) * np.exp(rng.uniform(-1.0, 1.0, n)) / np.sqrt(k)
+    leaf = quantize_params({"w": w.astype(np.float32)})["w"]
+    return payload(leaf), leaf["scale"]
+
+
+def int8_bound(e, m, k, n, dtype_name, shared_x):
+    """Least time for the call on an H100 SXM: x read once (once for all
+    members when shared), each member's int8 payload, scales and bias read
+    once and y written once at HBM rate, against 2*M*N*K operations per
+    member at the activation dtype's peak."""
+    elem = 4 if dtype_name == "float32" else 2
+    nbytes = m * k * elem * (1 if shared_x else e) + e * (k * n + 4 * n + elem * n + elem * m * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * e * m * n * k / PEAK_OPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_planted(x, q, s, b, k_tile: int) -> dict:
+    """The plain version with a planted fault: scales applied per row (row k
+    takes column k mod N's scale), or one K tile of x dropped (the second
+    tile, or half of a K shorter than two tiles)."""
+    import torch
+
+    from seldon_core_tpu_torch.ops.int8_matmul import _batched_reference
+
+    k, n = q.shape[1], q.shape[2]
+    rows = torch.arange(k, device=q.device) % n
+    per_row = (q.float() * s[:, rows][:, :, None]).to(x.dtype)
+    t = max(1, min(k_tile, k // 2))
+    keep = torch.ones(k, device=x.device, dtype=x.dtype)
+    keep[t:2 * t] = 0
+    return {
+        "scale_per_row": torch.matmul(x, per_row) + b[:, None, :],
+        "k_tile_dropped": _batched_reference(x * keep, q, s, b),
+    }
+
+
+def check_int8(case, card) -> dict:
+    """One W8A16 kernel-vs-plain case on the card: x [E, M, K] (one x
+    shared by the E members when ``shared``, as a fused ensemble's input
+    is), E quantized [K, N] weights, a bias; E > 1 goes through the vmap
+    rule, as graph fusion calls it. Returns the case's numbers."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops.int8_matmul import _batched_reference, int8_matmul
+
+    name, (e, m, k, n), dtype, shared = case
+    dtype_name = str(dtype).removeprefix("torch.")
+    rng = np.random.default_rng(len(name) * 7919 + m + k + n)
+    weights = [int8_weights(k, n, rng) for _ in range(e)]
+    q = torch.from_numpy(np.stack([w for w, _ in weights])).cuda()
+    s = torch.from_numpy(np.stack([sc for _, sc in weights])).reshape(e, n).cuda()
+    b = torch.from_numpy(rng.standard_normal((e, n)).astype(np.float32) * 0.1).cuda().to(dtype)
+    x1 = torch.from_numpy(rng.standard_normal((1 if shared else e, m, k)).astype(np.float32)).cuda().to(dtype)
+    x = x1.expand(e, m, k)
+    if e == 1:
+        def call():
+            return int8_matmul(x1[0], q[0], s[0], b[0])[None]
+    else:
+        fused = torch.func.vmap(int8_matmul, in_dims=(None if shared else 0, 0, 0, 0))
+
+        def call():
+            return fused(x1[0] if shared else x1, q, s, b)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # the plain version sums in f32
+    try:
+        out = call()
+        torch.cuda.synchronize()
+        ref = _batched_reference(x, q, s, b)
+        agree = agreement(out, ref, dtype_name)
+        planted = {f: agreement(y, ref, dtype_name)
+                   for f, y in int8_planted(x, q, s, b, INT8_K_TILE[dtype_name]).items()}
+        w = (q.float() * s[:, None, :]).to(dtype)
+        ms = device_ms(call)
+        plain_ms = device_ms(lambda: _batched_reference(x, q, s, b))
+        if e == 1:
+            library_ms = device_ms(lambda: torch.addmm(b[0], x1[0], w[0]))
+        else:
+            library_ms = device_ms(lambda: torch.baddbmm(b[:, None, :], x, w))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    bound_ms, bound_by = int8_bound(e, m, k, n, dtype_name, shared)
+    row = dict(
+        case=name, shape=[e, m, k, n], dtype=dtype_name, shared_x=shared,
+        max_abs_err=agree["max_abs_err"], atol=agree["atol"], rel_l2=agree["rel_l2"],
+        rel_l2_limit=agree["rel_l2_limit"],
+        planted_faults={f: dict(max_abs_err=a["max_abs_err"], rel_l2=a["rel_l2"], caught=not a["ok"])
+                        for f, a in planted.items()},
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+    )
+    print(f"[{card}] int8_matmul {json.dumps(row)}", flush=True)
+    if not agree["ok"]:
+        raise AssertionError(f"int8_matmul {name}: kernel disagrees with its plain version: {agree}")
+    for fault, a in planted.items():
+        if a["ok"]:
+            raise AssertionError(f"int8_matmul {name}: the check passes a planted fault ({fault}): {a}")
+    return row
+
+
+INT8_SHAPES = [
+    # BERT-base's projections at bucket 32 x seq 128 (M = 4096), and its head
+    ("qkv_b32", (1, 4096, 768, 2304), False),
+    ("attn_out_b32", (1, 4096, 768, 768), False),
+    ("mlp_in_b32", (1, 4096, 768, 3072), False),
+    ("mlp_out_b32", (1, 4096, 3072, 768), False),
+    ("head_b32", (1, 32, 768, 2), False),
+    # the same at bucket 1 (M = 128 rows, the head one)
+    ("qkv_b1", (1, 128, 768, 2304), False),
+    ("attn_out_b1", (1, 128, 768, 768), False),
+    ("mlp_in_b1", (1, 128, 768, 3072), False),
+    ("mlp_out_b1", (1, 128, 3072, 768), False),
+    ("head_b1", (1, 1, 768, 2), False),
+    # iris: K = 4, N = 3, ragged everywhere
+    ("iris", (1, 5, 4, 3), False),
+    # a fused ensemble of three members: the shared input, then per-member rows
+    ("stacked_e3_shared_x", (3, 256, 768, 768), True),
+    ("stacked_e3", (3, 256, 768, 768), False),
+]
+
+
+def int8_kernel_checks(card) -> dict:
+    """Phase 7b: every INT8_SHAPES case in bfloat16 and float32."""
+    import torch
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape, shared in INT8_SHAPES:
+            label = f"{name}_{str(dtype).removeprefix('torch.')}"
+            rows[label] = check_int8((label, shape, dtype, shared), card)
+    return rows
+
+
+def param_bytes(tree) -> int:
+    """Bytes of every tensor in a parameter tree (int8 payloads and float32
+    scales of quantized leaves included)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.nbytes
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return 0
+
+
+def int8_breakdown(card, label: str, runtime, ids) -> dict:
+    """Host wall time of one served forward at the runtime's bucket (ids in,
+    probabilities back on the host), the device's busy time inside it and
+    the W8A16 kernel's part of that (torch.profiler), and the costliest
+    kernels."""
+    kernels, ops = profile_device(lambda: runtime.predict(ids))
+    wall = wall_ms(lambda: runtime.predict(ids))
+    busy = sum(kernels.values())
+    int8 = sum(t for k, t in kernels.items() if "mma_body" in k or "fma_body" in k)
+    row = dict(predict_wall_ms=wall, device_ops_per_forward=ops)
+    if busy > 0:
+        row.update(device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall), int8_kernel_ms=int8,
+                   int8_share_of_busy=int8 / busy)
+    print(f"[{card}] breakdown {label} rows={len(ids)} {json.dumps(row)}"
+          + ("" if busy > 0 else " device time: not measured (the profiler saw no device activity)"), flush=True)
+    for name, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {t:.4f} ms  {name[:110]}")
+    return row
+
+
+async def serve_bert_int8(card) -> int:
+    """Phase 7c: the bert_int8 deployment (BERT-base, bf16, bucket 32, seq
+    128, int8 weights) through REST: 49 W8A16 launches per forward, counted;
+    its probabilities against the same seed's bf16 deployment without
+    weight_quant (INT8_SERVE_ATOL) and against the port's int8 forward on
+    the CPU (SERVE_ATOL, the first rows: the forward is row-independent);
+    the parameter bytes each holds on the card; a profiler breakdown and the
+    wall time at bucket 32. Returns the main path's launches."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.convert import params_to_numpy, params_to_torch
+    from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
+    from seldon_core_tpu_torch.ops.int8_matmul import LAUNCHES as INT8
+
+    server, build_s, warm_s = await _start(BASELINE_DIR / "bert_int8.json")
+    runtime = _model_runtime(server)
+    layers, seq = len(runtime.params["layers"]), runtime.feature_shape[0]
+    table = runtime.params["tok_emb"]  # 30522 rows: above the rule's 8192, so not quantized
+    vocab = (payload(table) if is_quantized_leaf(table) else table).shape[0]
+    if not is_quantized_leaf(runtime.params["layers"][0]["qkv"]["w"]) or not is_quantized_leaf(runtime.params["head"]["w"]):
+        raise AssertionError("bert_int8 holds float projections")
+    print(f"[{card}] serve: bert_int8.json layers={layers} seq={seq} vocab={vocab} dtype={runtime.dtype} "
+          f"buckets={runtime.buckets} build_s={build_s:.3f} warmup_s={warm_s:.3f}", flush=True)
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, vocab, size=(n, seq)) for n in (32, 5, 32)]
+    served, deltas, latencies = [], [], []
+    try:
+        INT8.reset()  # the main path's run starts here
+        for ids in batches:
+            before = INT8.count
+            status, out, ms = await _post(server.port, json.dumps({"data": {"ndarray": ids.tolist()}}).encode())
+            if status != 200:
+                raise AssertionError(f"bert_int8 predict returned HTTP {status}: {out}")
+            served.append(_check_probs(out, len(ids)))
+            deltas.append(INT8.count - before)
+            latencies.append(ms)
+        main_launches = INT8.count  # ... and ends here
+    finally:
+        await server.stop()
+    for ids, ms, delta in zip(batches, latencies, deltas):
+        print(f"[{card}] request bert_int8 batch={len(ids)} latency_ms={ms:.3f} int8_launches={delta}", flush=True)
+    if deltas != [INT8_LAUNCHES] * len(batches):
+        raise AssertionError(f"int8_matmul launches per request {deltas}, want {INT8_LAUNCHES} each")
+
+    bf16_server, *_ = await _start(_deployment_copy("bert_int8", {"weight_quant": ""}))
+    bf16 = _model_runtime(bf16_server)
+    await bf16_server.stop()
+    vs_bf16 = max(float(np.abs(p - bf16.predict(ids)).max()) for ids, p in zip(batches, served))
+    cpu_rows = 4
+    cpu_params = params_to_torch(params_to_numpy(runtime.params), torch.device("cpu"), runtime.dtype)
+    with torch.inference_mode():
+        cpu_ids = torch.from_numpy(batches[0][:cpu_rows].astype(np.int32))
+        on_cpu = runtime.apply_fn(cpu_params, cpu_ids).float().numpy()
+    del cpu_params
+    vs_cpu = float(np.abs(served[0][:cpu_rows] - on_cpu).max())
+    resident = {"int8": param_bytes(runtime.params), "bf16": param_bytes(bf16.params)}
+    print(f"[{card}] bert_int8 vs the bf16 deployment: max_abs_diff={vs_bf16} (atol {INT8_SERVE_ATOL}); "
+          f"vs the int8 forward on the CPU ({cpu_rows} rows): {vs_cpu} (atol {SERVE_ATOL})", flush=True)
+    print(f"[{card}] bert_int8 parameter bytes on the card: {json.dumps(resident)} "
+          f"ratio={resident['int8'] / resident['bf16']:.4f}", flush=True)
+    if vs_bf16 > INT8_SERVE_ATOL or vs_cpu > SERVE_ATOL:
+        raise AssertionError(f"bert_int8 disagrees: vs bf16 {vs_bf16}, vs the CPU {vs_cpu}")
+    if resident["int8"] >= resident["bf16"]:
+        raise AssertionError(f"int8 parameters take no fewer bytes than bf16: {resident}")
+    ids32 = batches[0]
+    int8_row = int8_breakdown(card, "bert_int8", runtime, ids32)
+    bf16_row = int8_breakdown(card, "bert_int8 without weight_quant (bf16)", bf16, ids32)
+    print(f"[{card}] bert_int8 bucket 32 wall: int8 {int8_row['predict_wall_ms']:.3f} ms, bf16 "
+          f"{bf16_row['predict_wall_ms']:.3f} ms", flush=True)
+    del bf16
+    return main_launches
+
+
+def _iris_primary_as_root() -> Path:
+    """iris_fallback_breaker with its breakered primary as the whole graph:
+    no router above it, so no fallback."""
+    dep = json.loads((BASELINE_DIR / "iris_fallback_breaker.json").read_text())
+    pred = dep["spec"]["predictors"][0]
+    pred["graph"] = pred["graph"]["children"][0]
+    path = ROOT / "build" / "iris_fallback_breaker_primary_only.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(dep))
+    return path
+
+
+async def serve_resilience(card) -> dict:
+    """Phase 7d: iris_fallback_breaker on the card, as the example stands,
+    with faults installed on its primary: a failing primary is served by the
+    fallback (200, degraded, routing restamped) and opens its breaker; a
+    hang is cut by a 50 ms deadline tag (504, code 304); a breakered node
+    without a fallback answers 500 (code 103), then 503 (code 305) with
+    Retry-After; with batch_across_requests false, concurrent requests walk
+    one each."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.engine.faults import FaultSpec, install_faults
+
+    path = BASELINE_DIR / "iris_fallback_breaker.json"
+    body = json.dumps({"data": {"ndarray": [[5.1, 3.5, 1.4, 0.2]]}}).encode()
+    results = {}
+
+    server, *_ = await _start(path)
+    try:
+        sched = install_faults(server.executor, {"iris-primary": FaultSpec(error_rate=1.0, seed=5)})
+        replies = [await _post(server.port, body) for _ in range(4)]
+        breaker = server.executor.breaker_for("iris-primary").state
+    finally:
+        await server.stop()
+    for status, out, _ in replies:
+        if status != 200 or out["meta"]["tags"].get("degraded") != "router_fallback" \
+                or out["meta"]["routing"] != {"router": 1}:
+            raise AssertionError(f"a failing primary was not served by the fallback: {status} {out}")
+        _check_probs(out, 1, classes=3)
+    if sched["iris-primary"].calls != 5 or breaker != "open":
+        raise AssertionError(f"primary calls {sched['iris-primary'].calls} (want 5), breaker {breaker} (want open)")
+    results["fallback"] = dict(statuses=[r[0] for r in replies], ms=[r[2] for r in replies],
+                               primary_calls=sched["iris-primary"].calls, breaker=breaker)
+
+    server, *_ = await _start(path)
+    try:
+        # a 2 s hang: the deadline answers at 50 ms; the merged batch walk
+        # it was cut from runs on until the hang ends, and stop() waits
+        install_faults(server.executor, {"iris-primary": FaultSpec(timeout_rate=1.0, hang_s=2.0, seed=5)})
+        tagged = json.dumps({"meta": {"tags": {"deadline_ms": 50}},
+                             "data": {"ndarray": [[5.1, 3.5, 1.4, 0.2]]}}).encode()
+        status, out, ms = await _post(server.port, tagged)
+    finally:
+        await server.stop()
+    if (status, out.get("code")) != (504, 304):
+        raise AssertionError(f"a hang under a 50 ms deadline answered {status} {out}")
+    results["deadline"] = dict(status=status, code=out["code"], ms=ms)
+
+    server, *_ = await _start(_iris_primary_as_root())
+    try:
+        install_faults(server.executor, {"iris-primary": FaultSpec(error_rate=1.0, seed=5)})
+        first = await _request(server.port, body)
+        second = await _request(server.port, body)
+    finally:
+        await server.stop()
+    got = [(r[0], json.loads(r[2])["code"]) for r in (first, second)]
+    if got != [(500, 103), (503, 305)] or int(second[1].get("retry-after", "0")) < 1:
+        raise AssertionError(f"a breakered node without fallback answered {got}, headers {second[1]}")
+    results["no_fallback"] = dict(replies=got, retry_after=second[1]["retry-after"])
+
+    for across in (True, False):
+        server, *_ = await _start(_deployment_copy("iris_fallback_breaker", {"batch_across_requests": across}))
+        try:
+            sched = install_faults(server.executor, {"iris-primary": FaultSpec()})
+            bodies = [json.dumps({"data": {"ndarray": [[float(i), 3.5, 1.4, 0.2]]}}).encode() for i in range(8)]
+            replies = await asyncio.gather(*(_post(server.port, b) for b in bodies))
+            walks, batcher = sched["iris-primary"].calls, server.batcher is not None
+        finally:
+            await server.stop()
+        if any(r[0] != 200 for r in replies):
+            raise AssertionError(f"batch_across_requests={across}: {[r[0] for r in replies]}")
+        if not across and (walks != 8 or batcher):
+            raise AssertionError(f"batch_across_requests false walked {walks} times for 8 requests (batcher {batcher})")
+        results[f"batch_across_requests_{str(across).lower()}"] = dict(requests=8, primary_calls=walks)
+    print(f"[{card}] iris_fallback_breaker: {json.dumps(results)}", flush=True)
+    return results
+
+
+def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
+    """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
+    and UTMALDG, a TMA load) the built library holds, from its
+    disassembly."""
     import re
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "--dump-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
 def host_cost(card, calls: int = 200) -> dict:
@@ -1671,6 +2034,10 @@ def main() -> int:
     print(f"[{card}] flash_attention SASS: {json.dumps(sass)}", flush=True)
     if min(sass.values()) == 0:
         raise AssertionError(f"the flash kernel's library lacks wgmma or TMA instructions: {sass}")
+    int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HMMA",))
+    print(f"[{card}] int8_matmul SASS: {json.dumps(int8_sass)}", flush=True)
+    if int8_sass["HMMA"] == 0:
+        raise AssertionError(f"the int8_matmul library lacks tensor-core (HMMA) instructions: {int8_sass}")
     print(f"[{card}] phase 1 seconds: {time.perf_counter() - t0:.3f}", flush=True)
 
     # 2. kernel against its plain version
@@ -1747,6 +2114,15 @@ def main() -> int:
     print(f"[{card}] phase 6 flash_attention launches: {spec_launches}", flush=True)
     print(f"[{card}] phase 6 seconds: {time.perf_counter() - t6:.3f}", flush=True)
 
+    # 7. int8 weights and the resilience layer
+    t7 = time.perf_counter()
+    int8_rows = int8_kernel_checks(card)
+    int8_launches = asyncio.run(serve_bert_int8(card))
+    if int8_launches <= 0:
+        raise AssertionError("the bert_int8 path launched no int8_matmul kernel")
+    asyncio.run(serve_resilience(card))
+    print(f"[{card}] phase 7 seconds: {time.perf_counter() - t7:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -1772,6 +2148,21 @@ def main() -> int:
         "decoder_prefill_views": {k: prefill_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                               "bound_by", "library_ms")},
     }]
+    int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
+    served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
+              "qkv_b1_bfloat16", "qkv_b32_float32", "stacked_e3_shared_x_bfloat16"}
+    kernels.append({
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "seldon_core_tpu_torch/csrc/int8_matmul.cu",
+        # no Pallas kernel: XLA's fusion of quant.dequantize into the matmul
+        "replaces": "seldon_core_tpu/models/base.py:137",
+        "launches": int8_launches,
+        "launches_by_path": {"bert_int8 (phase 7)": int8_launches},
+        **{k: int8_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{name: {k: int8_rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")} for name in sorted(served)},
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

@@ -47,10 +47,26 @@ class ErrorCode(enum.Enum):
 
 
 class APIException(Exception):
-    def __init__(self, error: ErrorCode, info: str = ""):
+    def __init__(
+        self,
+        error: ErrorCode,
+        info: str = "",
+        *,
+        retry_after_s: float | None = None,
+    ):
         self.error = error
         self.info = info
+        # when set (open circuit breaker), the wire sends it as an HTTP
+        # Retry-After header so clients back off instead of hammering
+        self.retry_after_s = retry_after_s
         super().__init__(f"{error.name}({error.code}): {error.message} {info}".rstrip())
+
+    def retry_after_header(self) -> str | None:
+        """Value of the HTTP Retry-After header, or None: whole seconds,
+        rounded up, at least 1."""
+        if self.retry_after_s is None:
+            return None
+        return str(max(1, int(self.retry_after_s + 0.999)))
 
     def to_status_json(self) -> dict:
         """The JSON error body shape the reference engine returns."""

@@ -3,8 +3,9 @@
 Port of ``seldon_core_tpu/engine/builtin.py``: SIMPLE_MODEL (constant
 output test stub), SIMPLE_ROUTER (always child 0), RANDOM_ABTEST (seeded
 A/B split), EPSILON_GREEDY (bandit router fed by send_feedback),
-MEAN_TRANSFORMER (subtracts stored means) and AVERAGE_COMBINER (element-wise
-mean ensemble), plus JAX_MODEL, the deployment JSON's name for an
+MEAN_TRANSFORMER (subtracts stored means), AVERAGE_COMBINER (element-wise
+mean ensemble) and FAULT_INJECTOR (seeded failures and latency), plus
+JAX_MODEL, the deployment JSON's name for an
 in-process zoo model. Routing draws from Python's ``random.Random`` exactly
 as the JAX package does, so the same requests give the same
 ``meta.routing`` in both packages.
@@ -191,6 +192,34 @@ class EpsilonGreedyRouter(Unit):
             self.rewards[routing] += feedback.reward
 
 
+class FaultInjectorUnit(Unit):
+    """Chaos-testing transformer: fails a seeded fraction of requests
+    transport-class or adds latency, so retries, breakers and fallbacks can
+    be exercised without breaking a real model. Parameters: ``fail_rate``
+    (0..1, default 0), ``delay_ms`` (added latency, default 0), ``seed``."""
+
+    def __init__(self, spec: PredictiveUnit):
+        super().__init__(spec)
+        self.fail_rate = float(self.params.get("fail_rate", 0.0))
+        self.delay_ms = float(self.params.get("delay_ms", 0.0))
+        self._rng = _seeded_rng(self.params.get("seed"))
+        self._lock = threading.Lock()
+
+    async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
+        if self.delay_ms > 0:
+            import asyncio
+
+            await asyncio.sleep(self.delay_ms / 1000.0)
+        with self._lock:
+            fail = self._rng.random() < self.fail_rate
+        if fail:
+            raise APIException(
+                ErrorCode.ENGINE_MICROSERVICE_ERROR,
+                f"fault injected by unit '{self.name}'",
+            )
+        return msg
+
+
 class AverageCombinerUnit(Unit):
     """Element-wise mean ensemble; children of different shapes are an
     error. Tensors are averaged on their device, numpy on the host."""
@@ -243,7 +272,6 @@ def _not_ported(spec: PredictiveUnit, context: dict) -> Unit:
 
 
 _NOT_PORTED = (
-    PredictiveUnitImplementation.FAULT_INJECTOR,
     PredictiveUnitImplementation.OUTLIER_DETECTOR,
     PredictiveUnitImplementation.PYTHON_CLASS,
     PredictiveUnitImplementation.SHADOW,
@@ -259,6 +287,7 @@ def register_builtins(registry: UnitRegistry) -> None:
         PredictiveUnitImplementation.AVERAGE_COMBINER: AverageCombinerUnit,
         PredictiveUnitImplementation.EPSILON_GREEDY: EpsilonGreedyRouter,
         PredictiveUnitImplementation.MEAN_TRANSFORMER: MeanTransformerUnit,
+        PredictiveUnitImplementation.FAULT_INJECTOR: FaultInjectorUnit,
     }
     for impl, cls in simple.items():
         registry.register(impl, lambda spec, ctx, _cls=cls: _cls(spec))

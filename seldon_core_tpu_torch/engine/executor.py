@@ -15,13 +15,22 @@ walks the recorded routing back down to the units that learn from it.
 rows, route nodes decide per request. A result that a model left on the
 card is read back to the host in the compute pool, off the event loop,
 before rows are scattered or the response is encoded.
+
+Every unit call goes through the reference's resilience pipeline
+(``engine/resilience.py``): deadline check -> breaker gate -> attempt ->
+retry loop with backoff that never sleeps past the deadline (idempotent
+methods only, never send_feedback). Breakers are kept per node. A ROUTER
+with ``fallback_child`` serves that branch when the chosen child's breaker
+is open or its subtree fails transport-class; a COMBINER with ``quorum``
+aggregates the children that survive. Degraded replies carry
+``meta.tags["degraded"]`` and the branch actually served in meta.routing.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -29,22 +38,42 @@ import torch
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.tensor import to_host
+from seldon_core_tpu_torch.engine.resilience import (
+    HALF_OPEN,
+    NULL_EVENTS,
+    CircuitBreaker,
+    ResilienceEvents,
+    RetryState,
+    breaker_open_error,
+    current_deadline,
+    deadline_exceeded,
+    is_breaker_open_error,
+    is_retryable,
+)
 from seldon_core_tpu_torch.engine.units import ROUTE_ALL, Unit, UnitRegistry, default_registry
 from seldon_core_tpu_torch.graph.spec import (
     TYPE_METHODS,
     PredictiveUnit,
     PredictiveUnitMethod,
     PredictorSpec,
+    ResilienceSpec,
 )
+
+# degradation marker written into meta.tags when a request was served by a
+# fallback branch or a partial quorum instead of its nominal path
+DEGRADED_TAG = "degraded"
 
 
 @dataclasses.dataclass
 class Node:
-    """Runtime tree node."""
+    """Runtime tree node. ``policy``: the node's resilience knobs, parsed
+    from its CR parameters; their runtime state (breakers, retry RNGs) lives
+    on the executor, keyed by node name."""
 
     spec: PredictiveUnit
     unit: Unit
     children: list["Node"]
+    policy: ResilienceSpec = dataclasses.field(default_factory=ResilienceSpec)
 
     @property
     def name(self) -> str:
@@ -79,8 +108,23 @@ async def _gather_settled(*aws):
 class GraphExecutor:
     """Executes one predictor graph."""
 
-    def __init__(self, root: Node):
+    def __init__(self, root: Node, resilience_events: ResilienceEvents | None = None):
         self.root = root
+        self._events = resilience_events or NULL_EVENTS
+        self._retries: dict[str, RetryState] = {}
+        self._breakers: dict[str, CircuitBreaker] = {}
+        for n in root.walk():
+            if n.policy.retry is not None:
+                self._retries[n.name] = RetryState(n.policy.retry)
+            if n.policy.breaker is not None:
+                self._breakers[n.name] = CircuitBreaker(
+                    n.policy.breaker,
+                    on_transition=lambda state, k=n.name: self._events.breaker_transition(k, state),
+                )
+
+    def breaker_for(self, node_name: str) -> CircuitBreaker | None:
+        """The breaker guarding a node, if one is configured."""
+        return self._breakers.get(node_name)
 
     def ready(self) -> bool:
         return all(n.unit.ready() for n in self.root.walk())
@@ -152,10 +196,139 @@ class GraphExecutor:
         host = await asyncio.get_running_loop().run_in_executor(compute_pool(), to_host, arr)
         return out.with_array(host)
 
-    async def _merged_call(self, fn, msgs):
-        out = await fn(self._merge_rows(msgs))
+    async def _merged_call(self, node, method, fn, msgs):
+        out = await self._call(node, method, fn, self._merge_rows(msgs))
         out = await self._settle_to_host(out)
         return self._scatter_rows(msgs, out)
+
+    # ---------------------------------------------------------- resilience
+    @staticmethod
+    def _counts_for_breaker(e: BaseException) -> bool:
+        """Failures that indict the node's health: all but our own budget
+        exhaustion, breaker fast-fails and cancellation."""
+        if isinstance(e, asyncio.CancelledError):
+            return False
+        return not (
+            isinstance(e, APIException)
+            and e.error in (ErrorCode.REQUEST_DEADLINE_EXCEEDED, ErrorCode.ENGINE_BREAKER_OPEN)
+        )
+
+    async def _call(self, node: Node, method: str, fn, *args):
+        """One unit-method call through the resilience pipeline:
+        deadline check -> breaker gate -> attempt -> retry loop. Breaker
+        outcomes are recorded per attempt, so a flapping node opens its
+        breaker even while retries absorb the failures; a backoff never
+        sleeps past the request's remaining budget."""
+        d = current_deadline()
+        if d is not None and d.expired():
+            self._events.deadline_exceeded(node.name)
+            raise deadline_exceeded(f"unit '{node.name}'.{method}")
+        breaker = self._breakers.get(node.name)
+        took_probe = False
+        if breaker is not None and method != "send_feedback":
+            if not breaker.allow():
+                raise breaker_open_error(node.name, breaker)
+            # allow() consumed a probe slot iff the breaker sits half-open
+            took_probe = breaker.state == HALF_OPEN
+        retry = self._retries.get(node.name)
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                result = await fn(*args)
+            except BaseException as e:
+                if breaker is not None:
+                    if self._counts_for_breaker(e):
+                        breaker.record_failure()
+                    elif took_probe:
+                        # no verdict (cancel / deadline): free the probe slot
+                        # so the breaker cannot wedge in half-open
+                        breaker.release_probe()
+                # the backoff slept is the one validated against the budget
+                backoff_s = retry.backoff(attempt) if retry is not None else 0.0
+                if retry is not None and retry.should_retry(method, attempt, e, backoff_s):
+                    self._events.retry(node.name, attempt)
+                    await asyncio.sleep(backoff_s)
+                    if breaker is not None:
+                        if not breaker.allow():
+                            # the node tripped open while we backed off
+                            raise breaker_open_error(node.name, breaker) from e
+                        took_probe = breaker.state == HALF_OPEN
+                    continue
+                raise
+            if breaker is not None:
+                breaker.record_success()
+            return result
+
+    def _fallback_branch(self, node: Node, chosen: int) -> int | None:
+        """The router's configured degradation branch, when it is a real
+        child other than the one routing chose."""
+        fb = node.policy.fallback_child
+        if fb is None or fb == chosen or not (0 <= fb < len(node.children)):
+            return None
+        return fb
+
+    def _branch_breaker_open(self, node: Node, branch: int) -> bool:
+        """Non-consuming peek at the chosen child's breaker: firmly open ->
+        degrade without dispatching; a reset-elapsed breaker reads half-open
+        so probe traffic still reaches the child."""
+        breaker = self._breakers.get(node.children[branch].name)
+        return breaker is not None and breaker.is_open()
+
+    @staticmethod
+    def _fallback_eligible(e: BaseException) -> bool:
+        """A router degrades around the chosen child's breaker fast-failing
+        or a transport/5xx-class failure in its subtree; never around an
+        exhausted deadline."""
+        return is_breaker_open_error(e) or is_retryable(e)
+
+    @staticmethod
+    def _degrade_meta(msg: SeldonMessage, node_name: str, branch: int, mode: str) -> SeldonMessage:
+        """Restamp routing with the branch actually served (feedback replays
+        down the real path) and the degradation marker."""
+        return msg.with_meta(
+            msg.meta.merged_with(Meta(routing={node_name: branch}, tags={DEGRADED_TAG: mode}))
+        )
+
+    async def _routed_walk(self, node: Node, branch: int, payload):
+        """Walk the routed child with one message (or, in the batched walk,
+        a list of the messages routed to it), degrading to the fallback
+        branch when the child's breaker is open or its subtree fails
+        transport-class."""
+        walk = self._get_output_many if isinstance(payload, list) else self._get_output
+        fb = self._fallback_branch(node, branch)
+        if fb is None or not self._branch_breaker_open(node, branch):
+            try:
+                return await walk(node.children[branch], payload)
+            except Exception as e:  # noqa: BLE001 - gated by _fallback_eligible
+                if fb is None or not self._fallback_eligible(e):
+                    raise
+        self._events.degraded(node.name, "router_fallback")
+        if isinstance(payload, list):
+            payload = [self._degrade_meta(m, node.name, fb, "router_fallback") for m in payload]
+        else:
+            payload = self._degrade_meta(payload, node.name, fb, "router_fallback")
+        return await walk(node.children[fb], payload)
+
+    async def _settle_quorum(self, node: Node, aws: Sequence) -> tuple[list, bool]:
+        """Settle every child walk. With a COMBINER quorum, a partial
+        fan-out failure degrades to the surviving outputs; without one (or
+        below it) the first failure re-raises once all have settled.
+        Returns (outputs, degraded)."""
+        results = await asyncio.gather(*aws, return_exceptions=True)
+        failures = [r for r in results if isinstance(r, BaseException)]
+        ok = [r for r in results if not isinstance(r, BaseException)]
+        if not failures:
+            return ok, False
+        quorum = node.policy.quorum
+        if (
+            quorum is not None
+            and _has_method(node, PredictiveUnitMethod.AGGREGATE)
+            and len(ok) >= max(quorum, 1)
+        ):
+            self._events.degraded(node.name, "quorum")
+            return ok, True
+        raise failures[0]
 
     async def _get_output_many(
         self, node: Node, msgs: list[SeldonMessage]
@@ -166,14 +339,14 @@ class GraphExecutor:
             for m in msgs
         ]
         if _has_method(node, PredictiveUnitMethod.TRANSFORM_INPUT):
-            msgs = await self._merged_call(unit.transform_input, msgs)
+            msgs = await self._merged_call(node, "transform_input", unit.transform_input, msgs)
         if not node.children:
             return msgs
 
         if _has_method(node, PredictiveUnitMethod.ROUTE):
             branches = []
             for m in msgs:
-                b = await unit.route(m)
+                b = await self._call(node, "route", unit.route, m)
                 if b != ROUTE_ALL and not (0 <= b < len(node.children)):
                     raise APIException(
                         ErrorCode.ENGINE_INVALID_ROUTING,
@@ -192,7 +365,7 @@ class GraphExecutor:
                 sub = [msgs[i] for i in idxs]
                 if b == ROUTE_ALL:
                     return idxs, await self._fanout_many(node, sub)
-                return idxs, await self._get_output_many(node.children[b], sub)
+                return idxs, await self._routed_walk(node, b, sub)
 
             results: list[Any] = [None] * len(msgs)
             for idxs, outs in await _gather_settled(
@@ -205,7 +378,7 @@ class GraphExecutor:
             out_msgs = await self._fanout_many(node, msgs)
 
         if _has_method(node, PredictiveUnitMethod.TRANSFORM_OUTPUT):
-            out_msgs = await self._merged_call(unit.transform_output, out_msgs)
+            out_msgs = await self._merged_call(node, "transform_output", unit.transform_output, out_msgs)
         return out_msgs
 
     async def _fanout_many(
@@ -214,12 +387,15 @@ class GraphExecutor:
         """All-children fan-out for a batch: each child walks the whole
         batch, then AGGREGATE runs once on the row-aligned child outputs."""
         unit = node.unit
-        child_outs = await _gather_settled(
-            *(self._get_output_many(c, msgs) for c in node.children)
+        child_outs, degraded = await self._settle_quorum(
+            node, [self._get_output_many(c, msgs) for c in node.children]
         )
         if _has_method(node, PredictiveUnitMethod.AGGREGATE):
             merged_children = [self._merge_rows(co) for co in child_outs]
-            out = await self._settle_to_host(await unit.aggregate(merged_children))
+            out = await self._call(node, "aggregate", unit.aggregate, merged_children)
+            out = await self._settle_to_host(out)
+            if degraded:
+                out = out.with_meta(out.meta.merged_with(Meta(tags={DEGRADED_TAG: "quorum"})))
             base = []
             for i, m in enumerate(msgs):
                 meta = m.meta
@@ -238,28 +414,35 @@ class GraphExecutor:
         unit = node.unit
         msg = msg.with_meta(msg.meta.merged_with(Meta(request_path={node.name: unit.image})))
         if _has_method(node, PredictiveUnitMethod.TRANSFORM_INPUT):
-            out = await unit.transform_input(msg)
+            out = await self._call(node, "transform_input", unit.transform_input, msg)
             msg = out.with_meta(msg.meta.merged_with(out.meta))
         if not node.children:
             return msg
 
         branch = ROUTE_ALL
         if _has_method(node, PredictiveUnitMethod.ROUTE):
-            branch = await unit.route(msg)
+            branch = await self._call(node, "route", unit.route, msg)
             if branch != ROUTE_ALL and not (0 <= branch < len(node.children)):
                 raise APIException(
                     ErrorCode.ENGINE_INVALID_ROUTING,
                     f"unit '{node.name}' routed to {branch} with {len(node.children)} children",
                 )
             msg = msg.with_meta(msg.meta.merged_with(Meta(routing={node.name: branch})))
-        targets = node.children if branch == ROUTE_ALL else [node.children[branch]]
-        child_outputs = await _gather_settled(*(self._get_output(c, msg) for c in targets))
+        degraded = False
+        if branch != ROUTE_ALL:
+            child_outputs = [await self._routed_walk(node, branch, msg)]
+        elif len(node.children) == 1:
+            child_outputs = [await self._get_output(node.children[0], msg)]
+        else:
+            child_outputs, degraded = await self._settle_quorum(
+                node, [self._get_output(c, msg) for c in node.children]
+            )
 
         merged_meta = msg.meta
         for co in child_outputs:
             merged_meta = merged_meta.merged_with(co.meta)
         if _has_method(node, PredictiveUnitMethod.AGGREGATE):
-            out = await unit.aggregate(child_outputs)
+            out = await self._call(node, "aggregate", unit.aggregate, child_outputs)
         elif len(child_outputs) == 1:
             out = child_outputs[0]
         else:
@@ -268,8 +451,10 @@ class GraphExecutor:
                 f"unit '{node.name}' fanned out to {len(child_outputs)} children without AGGREGATE",
             )
         msg = out.with_meta(merged_meta.merged_with(out.meta))
+        if degraded:
+            msg = msg.with_meta(msg.meta.merged_with(Meta(tags={DEGRADED_TAG: "quorum"})))
         if _has_method(node, PredictiveUnitMethod.TRANSFORM_OUTPUT):
-            out = await unit.transform_output(msg)
+            out = await self._call(node, "transform_output", unit.transform_output, msg)
             msg = out.with_meta(msg.meta.merged_with(out.meta))
         return msg
 
@@ -333,17 +518,21 @@ def build_node(spec: PredictiveUnit, registry: UnitRegistry, context: dict[str, 
     if container is not None and container.image:
         unit.image = container.image
     children = [build_node(c, registry, context) for c in spec.children]
-    return Node(spec=spec, unit=unit, children=children)
+    return Node(spec=spec, unit=unit, children=children, policy=ResilienceSpec.for_unit(spec))
 
 
 def build_executor(
     predictor: PredictorSpec,
     registry: UnitRegistry | None = None,
     context: dict[str, Any] | None = None,
+    resilience_events: ResilienceEvents | None = None,
 ) -> GraphExecutor:
     """``context['device']`` names where models run (the card by default).
     With ``tpu.fuse_graph`` (the default) pure subtrees collapse into one
-    fused unit each (``engine/fused.py``)."""
+    fused unit each (``engine/fused.py``), which keeps the resilience knobs
+    of the subtree's root, as in the JAX package. ``resilience_events``
+    receives every retry, breaker transition, deadline exhaustion and
+    degradation (default: a sink that counts nothing)."""
     registry = registry or default_registry()
     context = dict(context or {})
     context.setdefault("containers", {c.name: c for c in predictor.componentSpec.containers})
@@ -354,4 +543,4 @@ def build_executor(
         from seldon_core_tpu_torch.engine.fused import fuse_graph
 
         root = fuse_graph(root, tpu_cfg)
-    return GraphExecutor(root)
+    return GraphExecutor(root, resilience_events=resilience_events)

@@ -213,9 +213,11 @@ def fuse_graph(root: Node, tpu_cfg=None) -> Node:
         # the members' names survive in requestPath
         members = ",".join(n.name for n in root.walk() if n is not root)
         unit.image = f"fused[{members}]" if len(members) <= 120 else f"fused:{sub.n_models}-models"
-        return Node(spec=spec, unit=unit, children=[])
+        # the island replaces the subtree rooted here: the root's resilience
+        # knobs (retry, breaker) ride the island's one dispatch
+        return Node(spec=spec, unit=unit, children=[], policy=root.policy)
 
     new_children = [fuse_graph(c, tpu_cfg) for c in root.children]
     if any(a is not b for a, b in zip(new_children, root.children)):
-        return Node(spec=root.spec, unit=root.unit, children=new_children)
+        return Node(spec=root.spec, unit=root.unit, children=new_children, policy=root.policy)
     return root

@@ -10,10 +10,13 @@ Port of ``seldon_core_tpu/graph/defaulting.py``:
 
 ``mesh_from_spec`` is the device-count rule of
 ``seldon_core_tpu/parallel/mesh.py::mesh_from_spec``, which the server
-applies to the mesh it is asked for. ``decode_problems`` holds the
-generative tier's ``decode_*`` knobs to the JAX package's validation rules
-(``seldon_core_tpu/graph/validation.py``) and names every knob of that tier
-the port does not serve yet.
+applies to the mesh it is asked for. ``spec_problems`` holds a
+predictor's ``tpu`` block to the JAX package's validation rules
+(``seldon_core_tpu/graph/validation.py``): ``weight_quant`` and the deadline
+here, the generative tier's ``decode_*`` knobs in ``decode_problems``, which
+names every knob of that tier the port does not serve yet. A generative
+model with ``weight_quant`` is refused by name where the model is built
+(``models/zoo.py``): only the build knows the model decodes.
 """
 
 from __future__ import annotations
@@ -78,6 +81,22 @@ UNPORTED_DECODE_KNOBS = {
     "decode_slo_itl_ms": 0.0,
     "decode_npy_bindata": True,
 }
+
+
+def spec_problems(name: str, tpu) -> list[str]:
+    """Every problem with predictor ``name``'s ``tpu`` block: the JAX
+    package's rules for ``weight_quant`` and the budgets, then the decode
+    tier's (``decode_problems``)."""
+    problems = [
+        f"predictor '{name}' {knob} must be >= 0"
+        for knob in ("batch_timeout_ms", "deadline_ms", "queue_timeout_ms")
+        if getattr(tpu, knob) < 0
+    ]
+    if tpu.weight_quant not in ("", "int8"):
+        problems.append(
+            f"predictor '{name}' weight_quant '{tpu.weight_quant}' unsupported (want '' or 'int8')"
+        )
+    return problems + decode_problems(name, tpu)
 
 
 def decode_problems(name: str, tpu) -> list[str]:

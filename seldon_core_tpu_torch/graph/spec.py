@@ -3,9 +3,12 @@
 Port of ``seldon_core_tpu/graph/spec.py`` (pydantic there): the same field
 names and enums, so one SeldonDeployment JSON serves both packages — the
 implementation name ``JAX_MODEL`` included, which here selects the port's
-torch model unit. ``SeldonDeployment.from_dict`` parses a CR dict; keys this
-port does not read are kept (``TpuSpec.extra``) or ignored, never rejected,
-so every example deployment still parses.
+torch model unit. ``SeldonDeployment.from_dict`` parses a CR dict; other keys of
+the ``tpu`` block are kept in ``TpuSpec.extra``, where
+``graph/defaulting.py::spec_problems`` refuses by name each one the port
+does not serve, so no knob a deployment sets is silently ignored. A unit's
+resilience knobs (retries, breaker, fallback, quorum) ride its parameters
+and parse into ``ResilienceSpec``.
 """
 
 from __future__ import annotations
@@ -129,6 +132,85 @@ def bool_param(value: Any) -> bool:
 
 
 @dataclass(frozen=True)
+class RetrySpec:
+    """Per-node retry policy (engine/resilience.RetryState runs it). Retries
+    apply only to idempotent methods (never send_feedback) and only to
+    transport/5xx-class failures, and never sleep past the deadline."""
+
+    max_attempts: int = 1  # total attempts; 1 = no retry
+    backoff_ms: float = 25.0  # first backoff; grows by backoff_mult
+    backoff_mult: float = 2.0
+    jitter: float = 0.5  # +/- fraction applied to each backoff
+    seed: Optional[int] = None  # deterministic jitter for tests and chaos runs
+
+
+@dataclass(frozen=True)
+class BreakerSpec:
+    """Per-node circuit breaker (engine/resilience.CircuitBreaker): opens on
+    ``failure_threshold`` consecutive failures or a windowed error rate >=
+    ``error_rate``; after ``reset_ms`` admits ``half_open_probes`` probes
+    (a success closes it, a failure re-opens it)."""
+
+    failure_threshold: int = 5
+    error_rate: float = 0.5
+    window: int = 20
+    reset_ms: float = 1000.0
+    half_open_probes: int = 1
+
+
+@dataclass(frozen=True)
+class ResilienceSpec:
+    """Resilience knobs of ONE graph node, parsed from its CR parameters:
+
+    - ``retry_max_attempts`` (> 1 enables retry), ``retry_backoff_ms``,
+      ``retry_backoff_mult``, ``retry_jitter``, ``retry_seed``
+    - ``breaker_failure_threshold`` (> 0 enables the breaker),
+      ``breaker_error_rate``, ``breaker_window``, ``breaker_reset_ms``,
+      ``breaker_half_open_probes``
+    - ``fallback_child`` (ROUTER: the branch served when the chosen child's
+      breaker is open or its subtree fails transport-class)
+    - ``quorum`` (COMBINER: aggregate this many surviving children instead
+      of failing the request when a child errors)
+    """
+
+    retry: Optional[RetrySpec] = None
+    breaker: Optional[BreakerSpec] = None
+    fallback_child: Optional[int] = None
+    quorum: Optional[int] = None
+
+    @staticmethod
+    def from_parameters(params: Mapping[str, Any]) -> "ResilienceSpec":
+        retry = None
+        if int(params.get("retry_max_attempts", 1)) > 1:
+            retry = RetrySpec(
+                max_attempts=int(params["retry_max_attempts"]),
+                backoff_ms=float(params.get("retry_backoff_ms", 25.0)),
+                backoff_mult=float(params.get("retry_backoff_mult", 2.0)),
+                jitter=float(params.get("retry_jitter", 0.5)),
+                seed=int(params["retry_seed"]) if "retry_seed" in params else None,
+            )
+        breaker = None
+        if int(params.get("breaker_failure_threshold", 0)) > 0:
+            breaker = BreakerSpec(
+                failure_threshold=int(params["breaker_failure_threshold"]),
+                error_rate=float(params.get("breaker_error_rate", 0.5)),
+                window=int(params.get("breaker_window", 20)),
+                reset_ms=float(params.get("breaker_reset_ms", 1000.0)),
+                half_open_probes=int(params.get("breaker_half_open_probes", 1)),
+            )
+        return ResilienceSpec(
+            retry=retry,
+            breaker=breaker,
+            fallback_child=int(params["fallback_child"]) if "fallback_child" in params else None,
+            quorum=int(params["quorum"]) if "quorum" in params else None,
+        )
+
+    @staticmethod
+    def for_unit(unit: "PredictiveUnit") -> "ResilienceSpec":
+        return ResilienceSpec.from_parameters(parameters_dict(unit.parameters))
+
+
+@dataclass(frozen=True)
 class PredictiveUnit:
     name: str
     children: tuple["PredictiveUnit", ...] = ()
@@ -176,6 +258,10 @@ _TPU_FIELDS = (
     "dtype",
     "offload_compute",
     "fuse_graph",
+    "deadline_ms",
+    "batch_across_requests",
+    "weight_quant",
+    "donate_input",
     "decode_slots",
     "decode_eos_id",
     "decode_temperature",
@@ -197,7 +283,9 @@ _TPU_FIELDS = (
 @dataclass(frozen=True)
 class TpuSpec:
     """A predictor's execution config. The port reads these fields; every
-    other key of the CR's ``tpu`` block stays in ``extra``, unread."""
+    other key of the CR's ``tpu`` block stays in ``extra``, where
+    ``graph/defaulting.py::spec_problems`` refuses the ones the port does
+    not serve."""
 
     mesh: Mapping[str, int] = field(default_factory=dict)
     batch_buckets: tuple[int, ...] = ()  # () -> derived from max_batch
@@ -211,6 +299,16 @@ class TpuSpec:
     # collapse pure subtrees (models, combiners, pure transformers) into one
     # fused forward at build time (engine/fused.py)
     fuse_graph: bool = True
+    # per-request deadline budget stamped at the serving entrypoint (0: none);
+    # a request's meta.tags["deadline_ms"] may tighten it, never widen it
+    deadline_ms: float = 0.0
+    # False: no micro-batcher, every request walks the graph on its own
+    batch_across_requests: bool = True
+    # "int8": weight-only int8 (models/quant.py, ops/int8_matmul.py)
+    weight_quant: str = ""
+    # accepted for the JAX package's CR; eager PyTorch frees the input when
+    # its last reference drops, and the output never depends on it
+    donate_input: bool = False
     # the generative tier (serving/decode_scheduler.py): decode_slots > 0
     # serves a single-node decoder through the continuous-batching loop
     decode_slots: int = 0
@@ -242,6 +340,10 @@ class TpuSpec:
             dtype=str(obj.get("dtype", "float32")),
             offload_compute=str(obj.get("offload_compute", "auto")),
             fuse_graph=bool_param(obj.get("fuse_graph", True)),
+            deadline_ms=float(obj.get("deadline_ms", 0.0)),
+            batch_across_requests=bool_param(obj.get("batch_across_requests", True)),
+            weight_quant=str(obj.get("weight_quant", "") or ""),
+            donate_input=bool_param(obj.get("donate_input", False)),
             decode_slots=int(obj.get("decode_slots", 0)),
             decode_eos_id=int(obj.get("decode_eos_id", -1)),
             decode_temperature=float(obj.get("decode_temperature", 0.0)),

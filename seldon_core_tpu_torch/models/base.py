@@ -11,6 +11,14 @@ uint8 batch of an image-shaped value model (the binary image wire) goes to
 the device as uint8, a quarter of float32's bytes, and is cast there;
 floating outputs are cast to float32 on the device before readback (numpy
 has no bfloat16).
+
+``weight_quant="int8"`` quantizes the parameters from their original
+float32 leaves, on the JAX package's layout, before they are laid out and
+placed (``models/quant.py``, as ``seldon_core_tpu/models/base.py:137-168``
+does): payloads int8, scales float32. The model's functions take the
+quantized leaves where they use them (``ops/int8_matmul.py`` for a matmul).
+Parameters that arrive already quantized keep their payloads and float32
+scales in a plain runtime too (a fused ensemble of quantized members).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from seldon_core_tpu_torch.core.tensor import (
 from seldon_core_tpu_torch.engine.units import Unit
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit
 from seldon_core_tpu_torch.models.convert import params_to_torch
+from seldon_core_tpu_torch.models.quant import quantize_params
 
 # forwards at or above this stall the serving loop enough to tax other
 # requests' latency; offload_compute="auto" moves them to the compute pool
@@ -84,7 +93,10 @@ class ModelRuntime:
         int_inputs: str = "cast",
         offload_compute: str = "auto",
         layout: Callable[[np.ndarray], Any] | None = None,
+        weight_quant: str = "",
     ):
+        if weight_quant not in ("", "int8"):
+            raise ValueError(f"weight_quant must be '' or 'int8', got {weight_quant!r}")
         if int_inputs not in ("cast", "ids"):
             raise ValueError(f"int_inputs must be 'cast' or 'ids', got {int_inputs!r}")
         if offload_compute not in ("auto", "always", "never"):
@@ -110,6 +122,9 @@ class ModelRuntime:
         # zoo for decoders; read by the decode scheduler's opt-in
         self.generative: dict | None = None
         self._low_precision = torch.finfo(dtype).bits < 32
+        self.weight_quant = weight_quant
+        if weight_quant == "int8":
+            params = quantize_params(params)
         self.params = params_to_torch(params, self.device, dtype, layout)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:

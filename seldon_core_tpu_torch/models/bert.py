@@ -15,6 +15,13 @@ Attention follows the deployment knob ``attn_kernel``:
   whenever the KV length tiles by the JAX kernel's rule, blockwise
   otherwise;
 - ``blockwise``: blockwise at any length.
+
+With ``tpu.weight_quant="int8"`` every projection (qkv, attn_out, mlp_in,
+mlp_out, the head) is a quantized leaf that ``dense`` hands to the W8A16
+kernel: 4 launches a layer and one for the head. The embedding tables are
+not matmul operands: a quantized one (``pos_emb``; ``tok_emb`` only below
+8193 rows, as in ``bert_tiny``) gathers its int8 rows and dequantizes
+those, as the JAX package dequantizes before its gather.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch.models.quant import embed
 from seldon_core_tpu_torch.models.zoo import ModelSpec, dense, register_model, softmax_f32
 from seldon_core_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
@@ -136,7 +144,7 @@ def _layer_apply(p, x, num_heads, attn_impl):
 
 
 def _infer_heads(params: dict) -> int:
-    hidden = params["layers"][0]["qkv"]["w"].shape[0]
+    hidden = params["ln_emb"]["scale"].shape[-1]
     return max(1, hidden // 64)
 
 
@@ -144,9 +152,12 @@ def bert_logits(params: dict, x: torch.Tensor, attn_impl=_default_attention) -> 
     """x: token ids [batch, seq] (any numeric dtype) -> logits [batch, classes]."""
     ids = x.long()
     num_heads = _infer_heads(params)
-    compute_dtype = params["tok_emb"].dtype
-    h = params["tok_emb"][ids] + params["pos_emb"][: ids.shape[1]][None, :, :]
-    h = _ln(params["ln_emb"], h.to(compute_dtype))
+    # the runtime's compute dtype: a norm vector is never quantized, and the
+    # runtime casts every floating leaf that is not a scale to that dtype
+    compute_dtype = params["ln_emb"]["scale"].dtype
+    positions = torch.arange(ids.shape[1], device=ids.device)
+    h = embed(params["tok_emb"], ids, compute_dtype) + embed(params["pos_emb"], positions, compute_dtype)[None]
+    h = _ln(params["ln_emb"], h)
     for lp in params["layers"]:
         h = _layer_apply(lp, h, num_heads, attn_impl)
     cls = h[:, 0, :]  # [CLS] pooling

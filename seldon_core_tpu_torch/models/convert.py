@@ -10,6 +10,12 @@ want another (ResNet's convolution kernels: HWIO there, OIHW here) names a
 ``layout`` function, which ``params_to_torch`` applies to each numpy leaf
 once, at load. A tensor leaf is already in the port's layout and is only
 moved and cast.
+
+A weight-only int8 leaf (``models/quant.py``) moves as a unit: the layout
+applies to its payload and to its scale alike (a convolution's HWIO payload
+and (1, 1, 1, O) scale become OIHW and (O, 1, 1, 1) under one transpose),
+the payload stays int8 and the scale stays float32 — cast to bf16 it would
+lose the per-channel precision the scheme keeps.
 """
 
 from __future__ import annotations
@@ -19,9 +25,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch.models.quant import is_quantized_leaf
+
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a dict / list / tuple tree."""
+    """Apply ``fn`` to every leaf of a dict / list / tuple tree; a quantized
+    marker dict is one leaf."""
+    if is_quantized_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -37,18 +48,24 @@ def params_to_torch(
 ) -> Any:
     """numpy (or tensor) leaves -> tensors on ``device``. Floating leaves
     take ``dtype`` (rounded to nearest even, as ``jnp.asarray(a, dtype)``
-    does); integer leaves keep their own dtype. ``layout`` maps each numpy
-    leaf to the port's layout first (a tensor or an array; the memory format
-    of a tensor it returns is kept)."""
+    does); integer leaves keep their own dtype, and so do the float32
+    scales of quantized leaves. ``layout`` maps each numpy leaf to the
+    port's layout first (a tensor or an array; the memory format of a
+    tensor it returns is kept)."""
+
+    def place(a):
+        if isinstance(a, torch.Tensor):
+            return a
+        a = np.asarray(a)
+        t = layout(a) if layout is not None else a
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.array(t, copy=True))
+        return t
 
     def leaf(a):
-        if isinstance(a, torch.Tensor):
-            t = a
-        else:
-            a = np.asarray(a)
-            t = layout(a) if layout is not None else a
-            if not isinstance(t, torch.Tensor):
-                t = torch.from_numpy(np.array(t, copy=True))
+        if is_quantized_leaf(a):
+            return {k: place(v).to(device=device) for k, v in a.items()}
+        t = place(a)
         if t.is_floating_point():
             return t.to(device=device, dtype=dtype)
         return t.to(device=device)
@@ -58,9 +75,12 @@ def params_to_torch(
 
 def params_to_numpy(tree: Any) -> Any:
     """Tensor leaves -> host numpy; floating leaves come back as float32
-    (numpy has no bfloat16)."""
+    (numpy has no bfloat16); a quantized leaf keeps its int8 payload and
+    float32 scale."""
 
     def leaf(t):
+        if is_quantized_leaf(t):
+            return {k: leaf(v) for k, v in t.items()}
         if isinstance(t, torch.Tensor):
             t = t.detach()
             if t.is_floating_point():

@@ -14,6 +14,14 @@ and every activation stays channels_last. Convolutions are ``F.conv2d``
 ``conv_general_dilated``, not in a Pallas kernel, so a library call is the
 faithful port.
 
+With ``tpu.weight_quant="int8"`` the convolution kernels and the head are
+quantized leaves (quantized on the JAX layout, payload and scale laid out
+together). The head goes through the W8A16 kernel; a convolution kernel is
+dequantized for ``F.conv2d`` on every forward, materialized in device
+memory at the compute dtype (cuDNN takes no int8 weight with float
+activations), which is what the JAX package's XLA convolution is handed
+after its dequantize.
+
 Padding is XLA's SAME, which is asymmetric: ``total = max((out - 1) *
 stride + k - in, 0)`` split as ``(total // 2, total - total // 2)``. The
 7x7/2 stem on 224 pads (2, 3), a 3x3/2 conv or the 3x3/2 max-pool on an even
@@ -30,7 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from seldon_core_tpu_torch.models.zoo import ModelSpec, register_model, softmax_f32
+from seldon_core_tpu_torch.models.quant import dequantize, is_quantized_leaf, payload
+from seldon_core_tpu_torch.models.zoo import ModelSpec, dense, register_model, softmax_f32
 
 # stage depths for the resnet family
 _DEPTHS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
@@ -208,15 +217,16 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
 
 
 def _conv(x, w, stride=1, bias=None, pads=None):
-    """x [N, C, H, W] (channels_last), w OIHW; SAME padding unless ``pads``
-    gives ((top, bottom), (left, right))."""
+    """x [N, C, H, W] (channels_last), w OIHW (or its quantized leaf);
+    SAME padding unless ``pads`` gives ((top, bottom), (left, right))."""
+    w = dequantize(w, x.dtype).to(x.dtype)  # a quantized kernel: materialized per forward
     if pads is None:
         pads = (_same_pads(x.shape[2], w.shape[2], stride), _same_pads(x.shape[3], w.shape[3], stride))
     (top, bottom), (left, right) = pads
     b = None if bias is None else bias.to(x.dtype)
     if top == bottom and left == right:
-        return F.conv2d(x, w.to(x.dtype), b, stride=stride, padding=(top, left))
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), w.to(x.dtype), b, stride=stride)
+        return F.conv2d(x, w, b, stride=stride, padding=(top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, stride=stride)
 
 
 def _channel(v, x):
@@ -278,7 +288,8 @@ def resnet_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     bottleneck = "conv3" in params["stage0"][0]
     block_apply = _bottleneck_apply if bottleneck else _basic_apply
     stem = params["stem"]
-    if stem["conv"].shape[1] == 12:  # space-to-depth stem (OIHW: I is dim 1)
+    stem_w = payload(stem["conv"]) if is_quantized_leaf(stem["conv"]) else stem["conv"]
+    if stem_w.shape[1] == 12:  # space-to-depth stem (OIHW: I is dim 1)
         h = _conv_norm(_space_to_depth(x).permute(0, 3, 1, 2), stem, "conv", "bn", "bias",
                        pads=((1, 2), (1, 2)))
     else:
@@ -290,7 +301,7 @@ def resnet_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
             h = block_apply(bp, h, 2 if (stage > 0 and b == 0) else 1)
         stage += 1
     h = h.mean(dim=(2, 3))  # global average pool
-    return h @ params["head"]["w"].to(h.dtype) + params["head"]["b"].to(h.dtype)
+    return dense(params["head"], h)
 
 
 def apply_resnet(params: dict, x: torch.Tensor) -> torch.Tensor:

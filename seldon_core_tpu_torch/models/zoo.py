@@ -34,6 +34,8 @@ import torch
 
 from seldon_core_tpu_torch.graph.spec import ContainerSpec, PredictiveUnit, parameters_dict
 from seldon_core_tpu_torch.models.base import ModelRuntime, ModelUnit
+from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
+from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -154,7 +156,12 @@ def _dense_init(rng: np.random.Generator, n_in: int, n_out: int) -> dict:
 
 
 def dense(p, x):
-    return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+    """x @ w + b; a quantized ``w`` goes through the W8A16 kernel
+    (``ops/int8_matmul.py``), which dequantizes in registers."""
+    w = p["w"]
+    if is_quantized_leaf(w):
+        return int8_matmul(x, payload(w), w["scale"], p["b"])
+    return x @ w.to(x.dtype) + p["b"].to(x.dtype)
 
 
 def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
@@ -306,6 +313,14 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None) -> ModelRuntime
     dtype_name = getattr(tpu_cfg, "dtype", "float32")
     if dtype_name not in DTYPES:
         raise ValueError(f"tpu.dtype must be one of {sorted(DTYPES)}, got {dtype_name!r}")
+    weight_quant = getattr(tpu_cfg, "weight_quant", "")
+    if weight_quant and ms.generative is not None:
+        # the JAX package's decode scheduler does not take int8 weights
+        # either (it falls back to the fused path); the fused int8 generate
+        # is not ported yet
+        raise ValueError(
+            f"tpu.weight_quant={weight_quant!r} on a generative model is not part of the torch port yet"
+        )
     rt = ModelRuntime(
         ms.apply_fn,
         ms.params,
@@ -317,6 +332,7 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None) -> ModelRuntime
         int_inputs=ms.int_inputs,
         offload_compute=getattr(tpu_cfg, "offload_compute", "auto"),
         layout=ms.layout,
+        weight_quant=weight_quant,
     )
     rt.feature_shape = ms.feature_shape
     rt.generative = ms.generative

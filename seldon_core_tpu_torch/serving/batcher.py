@@ -6,7 +6,9 @@ graph once on the merged batch (``GraphExecutor.execute_many``, which still
 routes per request), then hand each request its own rows. Requests merge
 only when their non-batch shape and dtype match. A generative predictor's
 tensor requests bypass coalescing and ride its continuous-batching decode
-scheduler instead (per-row slot admission).
+scheduler instead (per-row slot admission). The merged walk runs under the
+loosest deadline of its batch-mates (each request's own budget is enforced
+at its ingress, so a tight mate cannot cancel the shared walk).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import SeldonMessage
+from seldon_core_tpu_torch.engine.resilience import DEADLINE, Deadline, current_deadline
 
 ExecuteFn = Callable[[SeldonMessage], Awaitable[SeldonMessage]]
 ExecuteManyFn = Callable[[list], Awaitable[list]]
@@ -28,9 +31,10 @@ def make_batcher(
     tpu_spec, execute: ExecuteFn, *, execute_many: ExecuteManyFn, decode_scheduler=None
 ) -> "MicroBatcher | None":
     """The batching policy of a predictor's TpuSpec: None when batching is
-    pointless (max_batch <= 1), except that a generative predictor's
+    pointless (max_batch <= 1) or forbidden (``batch_across_requests``
+    false: every request walks alone), except that a generative predictor's
     ``decode_scheduler`` always gets one, which hands it tensor requests."""
-    if tpu_spec.max_batch <= 1 and decode_scheduler is None:
+    if decode_scheduler is None and (tpu_spec.max_batch <= 1 or not tpu_spec.batch_across_requests):
         return None
     return MicroBatcher(
         execute,
@@ -47,6 +51,8 @@ class _Pending:
     msg: SeldonMessage
     rows: int
     future: asyncio.Future
+    # the submitting request's deadline budget (DEADLINE at submit time)
+    deadline: Deadline | None = None
 
 
 class MicroBatcher:
@@ -99,7 +105,7 @@ class MicroBatcher:
 
         key = (arr.shape[1:], str(arr.dtype))
         loop = asyncio.get_running_loop()
-        item = _Pending(msg=msg, rows=rows, future=loop.create_future())
+        item = _Pending(msg=msg, rows=rows, future=loop.create_future(), deadline=current_deadline())
         self._pending.setdefault(key, []).append(item)
         self._pending_rows[key] = self._pending_rows.get(key, 0) + rows
         if self._pending_rows[key] >= self.max_batch:
@@ -128,6 +134,14 @@ class MicroBatcher:
         task.add_done_callback(self._inflight.discard)
 
     async def _run_batch(self, items: list[_Pending]) -> None:
+        # the merged walk's budget: the loosest batch-mate's (none if any
+        # mate has none). The flush task inherits the context of whichever
+        # request triggered the flush; its budget alone would cancel the
+        # work of looser mates.
+        if any(i.deadline is None for i in items):
+            DEADLINE.set(None)
+        else:
+            DEADLINE.set(max((i.deadline for i in items), key=lambda d: d.expires_at))
         self.stat_batches += 1
         self.stat_rows += sum(i.rows for i in items)
         try:

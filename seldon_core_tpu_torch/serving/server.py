@@ -3,8 +3,9 @@
 Port of ``seldon_core_tpu/serving/server.py``: parse and default the
 deployment, hold its ``tpu.mesh`` to the one device this process serves
 (a larger data axis shrinks, any other axis that needs more devices is
-refused, as the JAX package's mesh rule does), refuse decode_* knobs the
-port does not serve, build the executor (models on the device, pure
+refused, as the JAX package's mesh rule does), hold the ``tpu`` block to
+the JAX package's rules and refuse the knobs the port does not serve
+(``graph/defaulting.py::spec_problems``), build the executor (models on the device, pure
 subtrees fused) and, for a single generative model with
 ``tpu.decode_slots``, its continuous-batching decode scheduler, warm every
 batch bucket, serve REST through the fast ingress, and on shutdown stop
@@ -25,7 +26,7 @@ import signal
 
 from seldon_core_tpu_torch.core.tensor import resolve_device
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_executor
-from seldon_core_tpu_torch.graph.defaulting import decode_problems, default_deployment, mesh_from_spec
+from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec, spec_problems
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeployment
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
@@ -46,7 +47,7 @@ class PredictorServer:
         self.deployment_name = deployment_name
         self.device = resolve_device(device)
         mesh_from_spec(predictor.tpu.mesh, n_devices=1)  # one process serves one device
-        problems = decode_problems(predictor.name, predictor.tpu)
+        problems = spec_problems(predictor.name, predictor.tpu)
         if problems:
             raise ValueError("; ".join(problems))
         self.executor: GraphExecutor = build_executor(
@@ -69,6 +70,7 @@ class PredictorServer:
             predictor_name=predictor.name,
             batcher=self.batcher,
             decode_scheduler=self.decode_scheduler,
+            deadline_ms=predictor.tpu.deadline_ms,
         )
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None

@@ -3,9 +3,12 @@
 Port of ``seldon_core_tpu/serving/service.py::PredictionService``
 (``predict`` and ``send_feedback``, without tracing or metrics): decode an
 npy payload to the tensor arm, assign a puid when the request has none, run
-the request through the micro-batcher (or straight through the executor),
-return the response under the request's puid and, for an npy request, as
-npy (``mirror_npy_kind``). Feedback walks the graph along the routing the
+the request through the micro-batcher (or straight through the executor)
+under its deadline budget, return the response under the request's puid
+and, for an npy request, as npy (``mirror_npy_kind``). The budget is
+``tpu.deadline_ms``, tightened but never widened by ``meta.tags
+["deadline_ms"]``: stamped into ``DEADLINE`` for every node call and
+enforced here, where exhaustion cancels the walk and answers 504 (code 304). Feedback walks the graph along the routing the
 response recorded. ``predict_stream`` streams a generative predictor's
 tokens as they are chosen.
 """
@@ -21,6 +24,7 @@ from seldon_core_tpu_torch.core.codec_npy import array_from_npy, is_npy, npy_fro
 from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.puid import new_puid
 from seldon_core_tpu_torch.engine.executor import GraphExecutor
+from seldon_core_tpu_torch.engine.resilience import DEADLINE, Deadline
 from seldon_core_tpu_torch.serving.batcher import MicroBatcher
 
 
@@ -68,12 +72,48 @@ class PredictionService:
         predictor_name: str = "",
         batcher: MicroBatcher | None = None,
         decode_scheduler=None,
+        deadline_ms: float = 0.0,
     ):
         self.executor = executor
         self.deployment_name = deployment_name
         self.predictor_name = predictor_name
         self.batcher = batcher
         self.decode_scheduler = decode_scheduler
+        # per-request deadline budget (tpu.deadline_ms); 0 = none
+        self.deadline_ms = deadline_ms
+
+    def _request_deadline(self, msg: SeldonMessage) -> Deadline | None:
+        """The request's budget: the deployment's, tightened (never widened)
+        by a positive meta.tags["deadline_ms"]. None when neither is set."""
+        budget_ms = float(self.deadline_ms or 0.0)
+        tag = msg.meta.tags.get("deadline_ms")
+        if tag is not None:
+            try:
+                req_ms = float(tag)
+            except (TypeError, ValueError):
+                req_ms = 0.0
+            if req_ms > 0:
+                budget_ms = min(budget_ms, req_ms) if budget_ms > 0 else req_ms
+        return Deadline(budget_ms / 1000.0) if budget_ms > 0 else None
+
+    async def _execute_with_deadline(self, msg: SeldonMessage) -> SeldonMessage:
+        """Run the walk under the request's budget: stamped into DEADLINE
+        (every node call checks what remains) and enforced with wait_for,
+        whose cancellation unwinds the whole walk (siblings settle first)."""
+        run = self.batcher.submit(msg) if self.batcher is not None else self.executor.execute(msg)
+        deadline = self._request_deadline(msg)
+        if deadline is None:
+            return await run
+        token = DEADLINE.set(deadline)
+        try:
+            return await asyncio.wait_for(run, timeout=max(deadline.remaining(), 0.0))
+        except asyncio.TimeoutError:
+            raise APIException(
+                ErrorCode.REQUEST_DEADLINE_EXCEEDED,
+                "request exceeded its deadline budget at the ingress",
+            ) from None
+        finally:
+            DEADLINE.reset(token)
 
     @staticmethod
     def _prepare(msg: SeldonMessage, wire_npy: bool) -> tuple[SeldonMessage, bool]:
@@ -91,10 +131,7 @@ class PredictionService:
         body. Other binData is decoded when it starts with the npy magic,
         else passed through opaque."""
         msg, npy_requested = self._prepare(msg, wire_npy)
-        if self.batcher is not None:
-            out = await self.batcher.submit(msg)
-        else:
-            out = await self.executor.execute(msg)
+        out = await self._execute_with_deadline(msg)
         if out.meta.puid != msg.meta.puid:
             out = _with_puid(out, msg.meta.puid)
         if npy_requested:

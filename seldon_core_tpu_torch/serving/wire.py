@@ -75,10 +75,17 @@ def sse_frame(obj) -> bytes:
 
 
 def failure_response(e: BaseException, op: str) -> WireResponse:
+    """The status-JSON failure; an open breaker's 503 carries Retry-After,
+    so clients back off until its next probe could be admitted."""
     if not isinstance(e, APIException):
         log.exception("unhandled error serving %s", op)
         e = APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, str(e))
-    return WireResponse(status=e.error.http_status, body=json.dumps(e.to_status_json()).encode())
+    retry_after = e.retry_after_header()
+    return WireResponse(
+        status=e.error.http_status,
+        body=json.dumps(e.to_status_json()).encode(),
+        headers={} if retry_after is None else {"Retry-After": retry_after},
+    )
 
 
 def classify_binary_bytes(ctype: str, raw: bytes) -> str:

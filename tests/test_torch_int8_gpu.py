@@ -1,0 +1,103 @@
+"""The W8A16 kernel on the card (``-m gpu``; each skips here).
+
+- ``csrc/int8_matmul.cu`` against its plain version, ``x @ dequantize(q,
+  scale) + b``, in bfloat16 and float32, one member and three stacked
+  members through the vmap rule (one launch for all), ragged and aligned
+  shapes (float32 sums in another order: rtol 1e-5; bf16 rounds y once
+  where the plain version rounds twice: 2e-2);
+- a ``bert_tiny`` int8 deployment served on ``cuda`` launches the kernel
+  2 x 4 + 1 = 9 times per forward and answers as the same deployment on the
+  CPU (plain version) within 2e-2 in bf16;
+- a fused ensemble of three int8 ``iris_mlp`` members (one apply function,
+  so the members are vmapped) launches each of its 2 matmuls once for all
+  members, and answers as the same ensemble on the CPU.
+
+Nothing here imports JAX: the card's host has none. The CPU side is held
+against the JAX package by tests/test_torch_quant.py.
+"""
+
+import asyncio
+
+import numpy as np
+import pytest
+import torch
+
+from seldon_core_tpu_torch.core.message import SeldonMessage
+from seldon_core_tpu_torch.engine.fused import FusedUnit
+from seldon_core_tpu_torch.graph.spec import PredictorSpec
+from seldon_core_tpu_torch.models import quant
+from seldon_core_tpu_torch.ops import int8_matmul as i8
+from seldon_core_tpu_torch.serving.server import PredictorServer
+
+BF16_ATOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A16 kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 64, 768, 2304), (1, 5, 4, 3), (3, 40, 96, 20)])
+def test_int8_matmul_kernel_matches_plain_version(cuda, shape, dtype):
+    e, m, k, n = shape
+    rng = np.random.default_rng(0)
+    leaves = [quant.quantize_params({"w": rng.standard_normal((k, n)).astype(np.float32)})["w"] for _ in range(e)]
+    q = torch.from_numpy(np.stack([quant.payload(leaf) for leaf in leaves])).to(cuda)
+    s = torch.from_numpy(np.stack([leaf["scale"] for leaf in leaves])).reshape(e, n).to(cuda)
+    b = torch.randn(e, n, device=cuda).to(dtype)
+    x = torch.randn(e, m, k, device=cuda).to(dtype)
+    before = i8.LAUNCHES.count
+    if e == 1:
+        got = i8.int8_matmul(x[0], q[0], s[0], b[0])[None]
+    else:
+        got = torch.func.vmap(i8.int8_matmul)(x, q, s, b)
+    torch.cuda.synchronize()
+    assert i8.LAUNCHES.count == before + 1
+    want = i8._batched_reference(x, q, s, b)
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=BF16_ATOL, atol=BF16_ATOL)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _predictor(graph):
+    return PredictorSpec.from_dict({"name": "p", "graph": graph, "tpu": {
+        "max_batch": 4, "batch_buckets": [4], "dtype": "bfloat16", "weight_quant": "int8"}})
+
+
+def _model(name, uri):
+    return {"name": name, "type": "MODEL", "implementation": "JAX_MODEL",
+            "parameters": [{"name": "model_uri", "value": uri, "type": "STRING"}]}
+
+
+def _serve(predictor, device, ids):
+    server = PredictorServer(predictor, device=device, enable_batching=False)
+    out = asyncio.run(server.service.predict(SeldonMessage.from_array(ids)))
+    return server, np.asarray(out.array)
+
+
+@pytest.mark.gpu
+def test_bert_tiny_int8_launches_per_forward_and_answers_like_the_cpu(cuda):
+    ids = np.random.default_rng(1).integers(0, 1024, (3, 16)).astype(np.float32)
+    pred = _predictor(_model("bert", "zoo://bert_tiny?seq=16"))
+    before = i8.LAUNCHES.count
+    _, got = _serve(pred, "cuda", ids)
+    assert i8.LAUNCHES.count - before == 2 * 4 + 1
+    _, want = _serve(pred, "cpu", ids)
+    np.testing.assert_allclose(got, want, atol=BF16_ATOL)
+
+
+@pytest.mark.gpu
+def test_fused_int8_ensemble_launches_once_for_all_members(cuda):
+    graph = {"name": "avg", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+             "children": [_model(f"m{i}", f"zoo://iris_mlp?seed={i}") for i in range(3)]}
+    x = np.random.default_rng(2).uniform(0, 8, (2, 4)).astype(np.float32)
+    before = i8.LAUNCHES.count
+    server, got = _serve(_predictor(graph), "cuda", x)
+    assert isinstance(server.executor.root.unit, FusedUnit)
+    assert i8.LAUNCHES.count - before == 2
+    _, want = _serve(_predictor(graph), "cpu", x)
+    np.testing.assert_allclose(got, want, atol=BF16_ATOL)

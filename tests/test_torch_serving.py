@@ -77,6 +77,10 @@ def _key_fields(dep):
                 p.tpu.dtype,
                 p.tpu.offload_compute,
                 p.tpu.fuse_graph,
+                p.tpu.deadline_ms,
+                p.tpu.batch_across_requests,
+                p.tpu.weight_quant,
+                p.tpu.donate_input,
             )
             for p in dep.spec.predictors
         ],
