@@ -8,7 +8,8 @@ Phases, each of which raises on failure (no phase catches its own):
 1. build every CUDA kernel under ``seldon_core_tpu_torch/csrc/`` with nvcc
    for sm_90a (into the git-ignored ``build/kernels/``, one nvcc per source,
    all started together), and count the Hopper instructions in the built
-   libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both;
+   libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both,
+   the W8A16 kernel both and ``HMMA`` (its mma.sync body for ragged shapes);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, as contiguous tensors and as the views
    of one fused QKV projection that BERT hands it (plus the causal and
@@ -77,16 +78,21 @@ Phases, each of which raises on failure (no phase catches its own):
    (both must fail the id check). The speculation path launches no flash
    kernel (counted).
 7. int8 weights and the resilience layer: the W8A16 kernel
-   (``csrc/int8_matmul.cu``, which must hold HMMA instructions) against its
-   plain version in bf16 and float32 at BERT-base's served projections at
-   bucket 32 and bucket 1, iris's (M, 4 -> 3) and three stacked members
-   (through the vmap rule, one with a shared input), with scales applied
-   per row and one dropped K tile shown to fail every case, each case
-   timed beside its plain version and ``torch.addmm`` / ``torch.baddbmm``
-   on the pre-dequantized weights; the ``bert_int8`` deployment through
-   REST (49 launches per forward, counted; probabilities against the bf16
-   deployment and the CPU; resident parameter bytes; a profiler breakdown
-   at bucket 32); ``iris_fallback_breaker`` on the card with faults
+   (``csrc/int8_matmul.cu``) against its plain version in bf16 and float32
+   at BERT-base's served projections at bucket 32 and bucket 1, iris's (M,
+   4 -> 3), the wgmma body's edges (M % 128 != 0, K % 64 != 0, N not a
+   multiple of the tile) and three stacked members (through the vmap rule,
+   a shared input and per-member rows, at K 768 and 776), each case on the
+   body ``select_body`` must name for it (counted per body), with scales
+   applied per row and one dropped K tile shown to fail every case, each
+   case timed beside its plain version, ``torch.addmm`` /
+   ``torch.baddbmm`` on the pre-dequantized weights and, where it took
+   the wgmma body, the mma.sync body on the same inputs; the wrapper's host
+   cost per call; the ``bert_int8`` deployment through REST (49 launches
+   per forward, counted: 48 on the wgmma body, the head on the mma body;
+   probabilities against the bf16 deployment and the CPU; resident
+   parameter bytes; a profiler breakdown at bucket 32);
+   ``iris_fallback_breaker`` on the card with faults
    installed (fallback and breaker, a deadline tag's 504, a breakered node
    without fallback answering 500 then 503 with Retry-After, and
    ``batch_across_requests`` false walking each request alone).
@@ -186,15 +192,18 @@ SPEC_MIN_ACCEPTED = 1.0
 # Phase 7: the W8A16 kernel against its plain version under KERNEL_TOL, as
 # the flash kernel is held: bf16 rounds y once where the plain version rounds
 # the product and then its sum with the bias (an ulp of y apart at most);
-# float32 sums in another order. Scales applied per row instead of per
-# column, or one K tile dropped, must fail every case (PERF.md has the
-# measured margins). The bert_int8 deployment's probabilities against the
-# same seed's bf16 deployment without weight_quant are held to the JAX
-# package's own int8 bound (tests/test_quant.py:94); against the port's int8
-# forward on the CPU to SERVE_ATOL (bf16 rounding flips through 12 layers).
-INT8_K_TILE = {"bfloat16": 64, "float32": 32}  # K columns per tile of each body
+# every body forms the plain version's W bit for bit; float32 sums in
+# another order. Scales applied per row instead of per column, or one K
+# tile dropped, must fail every case (PERF.md has the measured margins). The bert_int8 deployment's
+# probabilities against the same seed's bf16 deployment without weight_quant
+# are held to the JAX package's own int8 bound (tests/test_quant.py:94);
+# against the port's int8 forward on the CPU to SERVE_ATOL (bf16 rounding
+# flips through 12 layers).
+# K columns per tile: 64 for the wgmma and mma bodies (bf16), 32 for fma
+INT8_K_TILE = {"bfloat16": 64, "float32": 32}
 INT8_SERVE_ATOL = 3e-2
 INT8_LAUNCHES = 12 * 4 + 1  # qkv, attn_out, mlp_in, mlp_out per layer, and the head
+INT8_LAUNCHES_BY_BODY = {"wgmma": 12 * 4, "mma": 1, "fma": 0}  # the head has N = 2
 
 
 def card_line() -> str:
@@ -1678,13 +1687,15 @@ def check_int8(case, card) -> dict:
     """One W8A16 kernel-vs-plain case on the card: x [E, M, K] (one x
     shared by the E members when ``shared``, as a fused ensemble's input
     is), E quantized [K, N] weights, a bias; E > 1 goes through the vmap
-    rule, as graph fusion calls it. Returns the case's numbers."""
+    rule, as graph fusion calls it. The call must launch once, on ``body``.
+    Returns the case's numbers."""
     import numpy as np
     import torch
 
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
     from seldon_core_tpu_torch.ops.int8_matmul import _batched_reference, int8_matmul
 
-    name, (e, m, k, n), dtype, shared = case
+    name, (e, m, k, n), dtype, shared, body = case
     dtype_name = str(dtype).removeprefix("torch.")
     rng = np.random.default_rng(len(name) * 7919 + m + k + n)
     weights = [int8_weights(k, n, rng) for _ in range(e)]
@@ -1704,14 +1715,18 @@ def check_int8(case, card) -> dict:
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # the plain version sums in f32
     try:
+        before = {name_: c.count for name_, c in i8.LAUNCHES_BY_BODY.items()}
         out = call()
         torch.cuda.synchronize()
+        launched = {name_: c.count - before[name_] for name_, c in i8.LAUNCHES_BY_BODY.items()}
         ref = _batched_reference(x, q, s, b)
         agree = agreement(out, ref, dtype_name)
         planted = {f: agreement(y, ref, dtype_name)
                    for f, y in int8_planted(x, q, s, b, INT8_K_TILE[dtype_name]).items()}
         w = (q.float() * s[:, None, :]).to(dtype)
         ms = device_ms(call)
+        # the simple body on the same inputs, where the wgmma body served
+        ms_mma = device_ms(lambda: i8._launch(x, q, s, b, body="mma")) if body == "wgmma" else None
         plain_ms = device_ms(lambda: _batched_reference(x, q, s, b))
         if e == 1:
             library_ms = device_ms(lambda: torch.addmm(b[0], x1[0], w[0]))
@@ -1721,14 +1736,16 @@ def check_int8(case, card) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
     bound_ms, bound_by = int8_bound(e, m, k, n, dtype_name, shared)
     row = dict(
-        case=name, shape=[e, m, k, n], dtype=dtype_name, shared_x=shared,
+        case=name, shape=[e, m, k, n], dtype=dtype_name, shared_x=shared, body=body,
         max_abs_err=agree["max_abs_err"], atol=agree["atol"], rel_l2=agree["rel_l2"],
         rel_l2_limit=agree["rel_l2_limit"],
         planted_faults={f: dict(max_abs_err=a["max_abs_err"], rel_l2=a["rel_l2"], caught=not a["ok"])
                         for f, a in planted.items()},
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms=ms, ms_mma=ms_mma, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
     )
     print(f"[{card}] int8_matmul {json.dumps(row)}", flush=True)
+    if launched != {name_: int(name_ == body) for name_ in launched}:
+        raise AssertionError(f"int8_matmul {name}: want one launch on the {body} body, got {launched}")
     if not agree["ok"]:
         raise AssertionError(f"int8_matmul {name}: kernel disagrees with its plain version: {agree}")
     for fault, a in planted.items():
@@ -1737,37 +1754,75 @@ def check_int8(case, card) -> dict:
     return row
 
 
-INT8_SHAPES = [
+INT8_SHAPES = [  # name, (E, M, K, N), x shared by the members, the bf16 body
     # BERT-base's projections at bucket 32 x seq 128 (M = 4096), and its head
-    ("qkv_b32", (1, 4096, 768, 2304), False),
-    ("attn_out_b32", (1, 4096, 768, 768), False),
-    ("mlp_in_b32", (1, 4096, 768, 3072), False),
-    ("mlp_out_b32", (1, 4096, 3072, 768), False),
-    ("head_b32", (1, 32, 768, 2), False),
+    ("qkv_b32", (1, 4096, 768, 2304), False, "wgmma"),
+    ("attn_out_b32", (1, 4096, 768, 768), False, "wgmma"),
+    ("mlp_in_b32", (1, 4096, 768, 3072), False, "wgmma"),
+    ("mlp_out_b32", (1, 4096, 3072, 768), False, "wgmma"),
+    ("head_b32", (1, 32, 768, 2), False, "mma"),
     # the same at bucket 1 (M = 128 rows, the head one)
-    ("qkv_b1", (1, 128, 768, 2304), False),
-    ("attn_out_b1", (1, 128, 768, 768), False),
-    ("mlp_in_b1", (1, 128, 768, 3072), False),
-    ("mlp_out_b1", (1, 128, 3072, 768), False),
-    ("head_b1", (1, 1, 768, 2), False),
+    ("qkv_b1", (1, 128, 768, 2304), False, "wgmma"),
+    ("attn_out_b1", (1, 128, 768, 768), False, "wgmma"),
+    ("mlp_in_b1", (1, 128, 768, 3072), False, "wgmma"),
+    ("mlp_out_b1", (1, 128, 3072, 768), False, "wgmma"),
+    ("head_b1", (1, 1, 768, 2), False, "mma"),
     # iris: K = 4, N = 3, ragged everywhere
-    ("iris", (1, 5, 4, 3), False),
-    # a fused ensemble of three members: the shared input, then per-member rows
-    ("stacked_e3_shared_x", (3, 256, 768, 768), True),
-    ("stacked_e3", (3, 256, 768, 768), False),
+    ("iris", (1, 5, 4, 3), False, "mma"),
+    # the wgmma body's edges: M % 128 != 0, K % 64 != 0, N % 128 != 0
+    ("m_ragged", (1, 4000, 768, 2304), False, "wgmma"),
+    ("k_ragged", (1, 256, 776, 768), False, "wgmma"),
+    ("n_ragged", (1, 256, 768, 400), False, "wgmma"),
+    # a fused ensemble of three members: the shared input, then per-member
+    # rows; K = 776 ends mid-tile, where a read across a member's edge shows
+    ("stacked_e3_shared_x", (3, 256, 768, 768), True, "wgmma"),
+    ("stacked_e3", (3, 256, 768, 768), False, "wgmma"),
+    ("stacked_e3_k776_shared_x", (3, 256, 776, 768), True, "wgmma"),
+    ("stacked_e3_k776", (3, 256, 776, 768), False, "wgmma"),
 ]
 
 
 def int8_kernel_checks(card) -> dict:
-    """Phase 7b: every INT8_SHAPES case in bfloat16 and float32."""
+    """Phase 7b: every INT8_SHAPES case in bfloat16 and float32 (fma)."""
     import torch
 
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, shape, shared in INT8_SHAPES:
+        for name, shape, shared, body in INT8_SHAPES:
             label = f"{name}_{str(dtype).removeprefix('torch.')}"
-            rows[label] = check_int8((label, shape, dtype, shared), card)
+            body = body if dtype == torch.bfloat16 else "fma"
+            rows[label] = check_int8((label, shape, dtype, shared, body), card)
     return rows
+
+
+def int8_host_cost(card, calls: int = 200) -> dict:
+    """Host microseconds per W8A16 call at the qkv bucket-32 shape (the
+    whole wrapper: checks, body rule, ctypes, x's tensor map, launch) and
+    torch.addmm on the pre-dequantized weights beside it.
+    Medians of ``calls`` calls, no synchronisation inside the loop."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+
+    qw, sc = int8_weights(768, 2304, np.random.default_rng(5))
+    q, s = torch.from_numpy(qw).cuda(), torch.from_numpy(sc).reshape(-1).cuda()
+    b = torch.zeros(2304, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(4096, 768, device="cuda").to(torch.bfloat16)
+    w = (q.float() * s).to(torch.bfloat16)
+    walls, lib_walls = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        int8_matmul(x, q, s, b)
+        walls.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        torch.addmm(b, x, w)
+        lib_walls.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    row = dict(wrapper_us=med(walls), library_call_us=med(lib_walls))
+    print(f"[{card}] int8_matmul host cost per call (4096, 768 -> 2304): {json.dumps(row)}", flush=True)
+    return row
 
 
 def param_bytes(tree) -> int:
@@ -1792,7 +1847,7 @@ def int8_breakdown(card, label: str, runtime, ids) -> dict:
     kernels, ops = profile_device(lambda: runtime.predict(ids))
     wall = wall_ms(lambda: runtime.predict(ids))
     busy = sum(kernels.values())
-    int8 = sum(t for k, t in kernels.items() if "mma_body" in k or "fma_body" in k)
+    int8 = sum(t for k, t in kernels.items() if any(b in k for b in ("wgmma_body", "mma_body", "fma_body")))
     row = dict(predict_wall_ms=wall, device_ops_per_forward=ops)
     if busy > 0:
         row.update(device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall), int8_kernel_ms=int8,
@@ -1811,12 +1866,14 @@ async def serve_bert_int8(card) -> int:
     weight_quant (INT8_SERVE_ATOL) and against the port's int8 forward on
     the CPU (SERVE_ATOL, the first rows: the forward is row-independent);
     the parameter bytes each holds on the card; a profiler breakdown and the
-    wall time at bucket 32. Returns the main path's launches."""
+    wall time at bucket 32. Returns the main path's launches, in all and
+    by body."""
     import numpy as np
     import torch
 
     from seldon_core_tpu_torch.models.convert import params_to_numpy, params_to_torch
     from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
     from seldon_core_tpu_torch.ops.int8_matmul import LAUNCHES as INT8
 
     server, build_s, warm_s = await _start(BASELINE_DIR / "bert_int8.json")
@@ -1830,24 +1887,31 @@ async def serve_bert_int8(card) -> int:
           f"buckets={runtime.buckets} build_s={build_s:.3f} warmup_s={warm_s:.3f}", flush=True)
     rng = np.random.default_rng(7)
     batches = [rng.integers(0, vocab, size=(n, seq)) for n in (32, 5, 32)]
-    served, deltas, latencies = [], [], []
+    served, deltas, body_deltas, latencies = [], [], [], []
     try:
-        INT8.reset()  # the main path's run starts here
+        i8.reset_launches()  # the main path's run starts here
         for ids in batches:
             before = INT8.count
+            by_body = {body: c.count for body, c in i8.LAUNCHES_BY_BODY.items()}
             status, out, ms = await _post(server.port, json.dumps({"data": {"ndarray": ids.tolist()}}).encode())
             if status != 200:
                 raise AssertionError(f"bert_int8 predict returned HTTP {status}: {out}")
             served.append(_check_probs(out, len(ids)))
             deltas.append(INT8.count - before)
+            body_deltas.append({body: c.count - by_body[body] for body, c in i8.LAUNCHES_BY_BODY.items()})
             latencies.append(ms)
         main_launches = INT8.count  # ... and ends here
+        main_by_body = {body: c.count for body, c in i8.LAUNCHES_BY_BODY.items()}
     finally:
         await server.stop()
-    for ids, ms, delta in zip(batches, latencies, deltas):
-        print(f"[{card}] request bert_int8 batch={len(ids)} latency_ms={ms:.3f} int8_launches={delta}", flush=True)
+    for ids, ms, delta, by_body in zip(batches, latencies, deltas, body_deltas):
+        print(f"[{card}] request bert_int8 batch={len(ids)} latency_ms={ms:.3f} int8_launches={delta} "
+              f"by_body={json.dumps(by_body)}", flush=True)
     if deltas != [INT8_LAUNCHES] * len(batches):
         raise AssertionError(f"int8_matmul launches per request {deltas}, want {INT8_LAUNCHES} each")
+    if body_deltas != [INT8_LAUNCHES_BY_BODY] * len(batches):
+        raise AssertionError(f"int8_matmul launches per body and request {body_deltas}, "
+                             f"want {INT8_LAUNCHES_BY_BODY} each")
 
     bf16_server, *_ = await _start(_deployment_copy("bert_int8", {"weight_quant": ""}))
     bf16 = _model_runtime(bf16_server)
@@ -1875,7 +1939,7 @@ async def serve_bert_int8(card) -> int:
     print(f"[{card}] bert_int8 bucket 32 wall: int8 {int8_row['predict_wall_ms']:.3f} ms, bf16 "
           f"{bf16_row['predict_wall_ms']:.3f} ms", flush=True)
     del bf16
-    return main_launches
+    return main_launches, main_by_body
 
 
 def _iris_primary_as_root() -> Path:
@@ -2034,10 +2098,10 @@ def main() -> int:
     print(f"[{card}] flash_attention SASS: {json.dumps(sass)}", flush=True)
     if min(sass.values()) == 0:
         raise AssertionError(f"the flash kernel's library lacks wgmma or TMA instructions: {sass}")
-    int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HMMA",))
+    int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HGMMA", "UTMALDG", "HMMA"))
     print(f"[{card}] int8_matmul SASS: {json.dumps(int8_sass)}", flush=True)
-    if int8_sass["HMMA"] == 0:
-        raise AssertionError(f"the int8_matmul library lacks tensor-core (HMMA) instructions: {int8_sass}")
+    if min(int8_sass.values()) == 0:
+        raise AssertionError(f"the int8_matmul library lacks wgmma, TMA or mma.sync instructions: {int8_sass}")
     print(f"[{card}] phase 1 seconds: {time.perf_counter() - t0:.3f}", flush=True)
 
     # 2. kernel against its plain version
@@ -2117,7 +2181,8 @@ def main() -> int:
     # 7. int8 weights and the resilience layer
     t7 = time.perf_counter()
     int8_rows = int8_kernel_checks(card)
-    int8_launches = asyncio.run(serve_bert_int8(card))
+    int8_host = int8_host_cost(card)
+    int8_launches, int8_by_body = asyncio.run(serve_bert_int8(card))
     if int8_launches <= 0:
         raise AssertionError("the bert_int8 path launched no int8_matmul kernel")
     asyncio.run(serve_resilience(card))
@@ -2150,7 +2215,9 @@ def main() -> int:
     }]
     int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
     served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
-              "qkv_b1_bfloat16", "qkv_b32_float32", "stacked_e3_shared_x_bfloat16"}
+              "qkv_b1_bfloat16", "qkv_b32_float32", "stacked_e3_shared_x_bfloat16", "stacked_e3_bfloat16",
+              "stacked_e3_k776_shared_x_bfloat16", "stacked_e3_k776_bfloat16",
+              "m_ragged_bfloat16", "k_ragged_bfloat16", "n_ragged_bfloat16"}
     kernels.append({
         "name": "int8_matmul",
         "route": "cuda",
@@ -2159,9 +2226,12 @@ def main() -> int:
         "replaces": "seldon_core_tpu/models/base.py:137",
         "launches": int8_launches,
         "launches_by_path": {"bert_int8 (phase 7)": int8_launches},
-        **{k: int8_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        **{name: {k: int8_rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms")} for name in sorted(served)},
+        "launches_by_body": int8_by_body,
+        "host_us": int8_host["wrapper_us"],
+        **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        **{name: {k: int8_rows[name][k] for k in ("body", "max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")} for name in sorted(served)},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

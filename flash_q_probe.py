@@ -203,6 +203,8 @@ def build(out: Path) -> dict[str, Path]:
     from seldon_core_tpu_torch.ops import kernel_build
 
     nvcc = kernel_build._nvcc()
+    for header in SRC.parent.glob("*.cuh"):  # the variants include them from beside themselves
+        shutil.copy(header, out / header.name)
     procs = {}
     for name, src in variants(SRC.read_text()).items():
         cu, so = out / f"flash_{name}.cu", out / f"libflash_{name}.so"

@@ -2,8 +2,9 @@
 
 ``int8_matmul(x, q, scale, bias)`` computes ``x @ W + bias`` with ``W[k, n]
 = cast(float32(q[k, n]) * scale[n])`` in ``x``'s dtype: the JAX package's
-``quant.dequantize`` followed by the matmul, element by element. That pair
-has no Pallas kernel: in ``seldon_core_tpu/models/base.py:137-168`` the
+``quant.dequantize`` followed by the matmul, element by element (every body
+of the kernel forms the same W bit for bit). That pair has no Pallas
+kernel: in ``seldon_core_tpu/models/base.py:137-168`` the
 dequantize runs inside ``jit`` and XLA fuses ``q * scale`` into the
 matmul's operand read, so the full-precision weight never reaches device
 memory. Eager PyTorch has no such fusion (``x @ dequantize(q)`` would read 1
@@ -16,11 +17,21 @@ tensor it computes ``int8_matmul_reference``, the plain version, which the
 CPU tests hold against the JAX package and ``chip_smoke.py`` holds the
 kernel against on the card.
 
-The wrapper is a ``torch.library`` custom op with a vmap rule, so a fused
-ensemble of quantized members (``engine/fused.py`` vmaps the members'
-apply) launches the kernel once for all members: the rule maps the stacked
-member axis onto the kernel's member dimension (grid z), and an input shared
-by every member goes in once, with a member stride of 0.
+The kernel has three bodies, and ``select_body`` names the one a call
+takes before the launch, from the shape, dtype, strides and base addresses
+alone: ``wgmma`` (TMA and wgmma, bf16/f16 operands that TMA can address:
+every bf16 projection of BERT-base but its 2-class head), ``mma`` (mma.sync,
+bf16/f16 of any shape: the head, iris, misaligned views) and ``fma``
+(float32). A body that cannot take the call makes the launch fail, and the
+wrapper raises: no call is retried on another body.
+
+Under ``vmap`` the wrapper goes through a ``torch.library`` custom op with
+a vmap rule, so a fused ensemble of quantized members (``engine/fused.py``
+vmaps the members' apply) launches the kernel once for all members: the
+rule maps the stacked member axis onto the kernel's member dimension (grid
+z), and an input shared by every member goes in once, with a member stride
+of 0. Outside any functorch transform it calls the launch directly, which
+saves the op's dispatch.
 """
 
 from __future__ import annotations
@@ -33,9 +44,38 @@ import torch
 from seldon_core_tpu_torch.ops.flash_attention import LaunchCounter
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# launches of the kernel (compare-only launches included; callers reset
-# the counter around the run they want to read)
+_BODY_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
+# launches of the kernel, in all and by body (compare-only launches
+# included; callers reset the counters around the run they want to read)
 LAUNCHES = LaunchCounter()
+LAUNCHES_BY_BODY = {body: LaunchCounter() for body in _BODY_CODES}
+
+
+def reset_launches() -> None:
+    LAUNCHES.reset()
+    for counter in LAUNCHES_BY_BODY.values():
+        counter.reset()
+
+
+def select_body(m: int, n: int, k: int, dtype: torch.dtype, x_strides: tuple, q_member_stride: int,
+                x_ptr: int, q_ptr: int) -> str:
+    """The kernel body for one launch over x [E, M, K] and q [E, K, N]:
+    ``x_strides`` are x's member and row strides in elements as the kernel
+    takes them (a member stride of 0 shares one x), ``q_member_stride`` q's
+    (0 shares one q), the pointers the operands' first bytes.
+
+    ``wgmma`` reads x and q through TMA, which needs 16-byte-aligned bases
+    and global strides that are multiples of 16 bytes: K and x's strides
+    in multiples of 8 bf16/f16 elements (rows at least K apart), N and q's
+    member stride in multiples of 16 bytes. Every other bf16/f16 call takes
+    ``mma``, float32 ``fma``."""
+    if dtype == torch.float32:
+        return "fma"
+    x_member, x_row = x_strides
+    if (k > 0 and k % 8 == 0 and x_row % 8 == 0 and x_row >= k and x_member % 8 == 0 and n % 16 == 0
+            and q_member_stride % 16 == 0 and x_ptr % 16 == 0 and q_ptr % 16 == 0):
+        return "wgmma"
+    return "mma"
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -78,6 +118,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong,  # scale member stride
             ctypes.c_longlong,  # bias member stride
             ctypes.c_int,  # dtype code
+            ctypes.c_int,  # body code
             ctypes.c_void_p,  # cudaStream_t
         ]
     return lib
@@ -87,7 +128,24 @@ def _member_stride(t: torch.Tensor) -> int:
     return t.stride(0) if t.shape[0] > 1 else 0
 
 
-def _launch(x, q, scale, bias) -> torch.Tensor:
+def _kernel_strides(x: torch.Tensor, q: torch.Tensor) -> tuple:
+    """x's member and row strides and q's member stride, in elements, as
+    the kernel takes them for x [E, M, K] and q [E, K, N]."""
+    m, k = x.shape[1], x.shape[2]
+    return (_member_stride(x), x.stride(1) if m > 1 else k), _member_stride(q)
+
+
+def body_for(x: torch.Tensor, q: torch.Tensor) -> str:
+    """``select_body`` for x [E, M, K] and q [E, K, N] as the wrapper hands
+    them to the kernel."""
+    x_strides, q_es = _kernel_strides(x, q)
+    return select_body(x.shape[1], q.shape[2], x.shape[2], x.dtype, x_strides, q_es, x.data_ptr(), q.data_ptr())
+
+
+def _launch(x, q, scale, bias, body: Optional[str] = None) -> torch.Tensor:
+    """One launch; ``body`` None takes ``select_body``'s choice, a name
+    forces that body (chip_smoke.py times one body against the other) and
+    raises where it cannot take the call."""
     e, m, k = x.shape
     n = q.shape[2]
     if x.dtype not in _DTYPE_CODES:
@@ -111,6 +169,9 @@ def _launch(x, q, scale, bias) -> torch.Tensor:
     y = torch.empty(e, m, n, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    x_strides, q_es = _kernel_strides(x, q)
+    if body is None:
+        body = select_body(m, n, k, x.dtype, x_strides, q_es, x.data_ptr(), q.data_ptr())
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -124,17 +185,19 @@ def _launch(x, q, scale, bias) -> torch.Tensor:
             m,
             n,
             k,
-            _member_stride(x),
-            x.stride(1) if m > 1 else k,
-            _member_stride(q),
+            *x_strides,
+            q_es,
             _member_stride(scale),
             0 if bias is None else _member_stride(bias),
             _DTYPE_CODES[x.dtype],
+            _BODY_CODES[body],
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"int8_matmul kernel launch failed ({body} body, x {tuple(x.shape)} strides "
+                           f"{x.stride()}, q {tuple(q.shape)}, {x.dtype}): cudaError {err}")
     LAUNCHES.add()
+    LAUNCHES_BY_BODY[body].add()
     return y
 
 
@@ -148,10 +211,7 @@ def _batched(x, q, scale, bias):
     return _launch(x, q, scale, bias)
 
 
-@torch.library.custom_op("seldon_tpu_torch::int8_matmul", mutates_args=())
-def _int8_matmul_op(
-    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor]
-) -> torch.Tensor:
+def _one_member(x, q, scale, bias):
     k = x.shape[-1]
     y = _batched(
         x.reshape(1, -1, k),
@@ -160,6 +220,13 @@ def _int8_matmul_op(
         None if bias is None else bias.reshape(1, -1),
     )
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+@torch.library.custom_op("seldon_tpu_torch::int8_matmul", mutates_args=())
+def _int8_matmul_op(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor]
+) -> torch.Tensor:
+    return _one_member(x, q, scale, bias)
 
 
 @_int8_matmul_op.register_fake
@@ -202,4 +269,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         )
     if bias is not None:
         bias = bias.to(x.dtype)
-    return _int8_matmul_op(x, q, scale, bias)
+    if torch._C._are_functorch_transforms_active():
+        return _int8_matmul_op(x, q, scale, bias)  # vmap reaches the kernel through the op's rule
+    # the op's dispatch costs tens of microseconds of host time a call, and
+    # a served BERT-base forward makes 49 of them
+    return _one_member(x, q, scale, bias)

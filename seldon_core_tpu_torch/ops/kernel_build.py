@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under the git-ignored
 ``build/kernels/`` directory of the checkout, at first use, then loaded with
-``ctypes``. The library's file name carries a digest of its source, so an
-edited kernel is rebuilt and a stale one is never loaded. Nothing here runs
+``ctypes``. The sources share ``csrc/hopper.cuh``. The library's file name
+carries a digest of its source and the shared headers, so an edited kernel
+is rebuilt and a stale one is never loaded. Nothing here runs
 at import time: the CPU tests import every module, and this host may have no
 ``nvcc`` at all.
 """
@@ -51,8 +52,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a digest of its source and of every
+    shared header under ``csrc/`` (``*.cuh``), so an edit to either
+    rebuilds it."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, float]:

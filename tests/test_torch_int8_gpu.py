@@ -5,6 +5,9 @@
   members through the vmap rule (one launch for all), ragged and aligned
   shapes (float32 sums in another order: rtol 1e-5; bf16 rounds y once
   where the plain version rounds twice: 2e-2);
+- the wgmma body at its edges (M % 128, K % 64 and N % 128 not 0; three
+  stacked members with a K that ends mid-tile, per-member and shared x),
+  each launched once on the body ``select_body`` names;
 - a ``bert_tiny`` int8 deployment served on ``cuda`` launches the kernel
   2 x 4 + 1 = 9 times per forward and answers as the same deployment on the
   CPU (plain version) within 2e-2 in bf16;
@@ -61,6 +64,50 @@ def test_int8_matmul_kernel_matches_plain_version(cuda, shape, dtype):
     want = i8._batched_reference(x, q, s, b)
     tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=BF16_ATOL, atol=BF16_ATOL)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _case(cuda, e, m, k, n, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    leaves = [quant.quantize_params({"w": rng.standard_normal((k, n)).astype(np.float32)})["w"] for _ in range(e)]
+    q = torch.from_numpy(np.stack([quant.payload(leaf) for leaf in leaves])).to(cuda)
+    s = torch.from_numpy(np.stack([leaf["scale"] for leaf in leaves])).reshape(e, n).to(cuda)
+    b = torch.randn(e, n, device=cuda).to(dtype)
+    return q, s, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_x", [False, True])
+@pytest.mark.parametrize("shape, body", [
+    ((1, 300, 776, 400), "wgmma"),  # M % 128, K % 64 and N % 128 all ragged
+    ((3, 40, 776, 48), "wgmma"),  # members whose K ends mid-tile
+    ((3, 40, 772, 48), "mma"),  # K % 8 != 0: TMA cannot stride x's rows
+])
+def test_int8_matmul_body_edges_match_plain_version(cuda, shape, body, shared_x):
+    e, m, k, n = shape
+    q, s, b = _case(cuda, e, m, k, n, torch.bfloat16, seed=1)
+    x1 = torch.randn(1 if shared_x else e, m, k, device=cuda).to(torch.bfloat16)
+    x = x1.expand(e, m, k)
+    before = {name: c.count for name, c in i8.LAUNCHES_BY_BODY.items()}
+    if e == 1:
+        got = i8.int8_matmul(x1[0], q[0], s[0], b[0])[None]
+    else:
+        got = torch.func.vmap(i8.int8_matmul, in_dims=(None if shared_x else 0, 0, 0, 0))(
+            x1[0] if shared_x else x1, q, s, b)
+    torch.cuda.synchronize()
+    assert {name: c.count - before[name] for name, c in i8.LAUNCHES_BY_BODY.items()} == {
+        name: int(name == body) for name in i8.LAUNCHES_BY_BODY}
+    want = i8._batched_reference(x, q, s, b)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ATOL, atol=BF16_ATOL)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_refuses_a_body_that_cannot_take_the_call(cuda):
+    q, s, b = _case(cuda, 1, 8, 4, 3, torch.bfloat16)
+    x = torch.randn(1, 8, 4, device=cuda).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma body"):
+        i8._launch(x, q, s, b, body="wgmma")  # K = 4, N = 3: no TMA map
+    with pytest.raises(RuntimeError, match="fma body"):
+        i8._launch(x, q, s, b, body="fma")  # bf16 activations
 
 
 def _predictor(graph):
