@@ -107,6 +107,8 @@ the model's projections run in full float32 where they are float32).
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -204,6 +206,17 @@ INT8_K_TILE = {"bfloat16": 64, "float32": 32}
 INT8_SERVE_ATOL = 3e-2
 INT8_LAUNCHES = 12 * 4 + 1  # qkv, attn_out, mlp_in, mlp_out per layer, and the head
 INT8_LAUNCHES_BY_BODY = {"wgmma": 12 * 4, "mma": 1, "fma": 0}  # the head has N = 2
+
+
+def require_launches(label: str, deltas: list, want: int) -> None:
+    """Launches per request on a served path, as the kernels' counters read
+    them: on a captured path each replay credits the launches its capture
+    counted, so 0 means the replays credit nothing, not that no kernel ran."""
+    if any(d == 0 for d in deltas):
+        raise AssertionError(f"{label}: a captured path reports 0 launches per request {deltas}: its graph replays "
+                             f"credit no launches to the counter (want {want} each)")
+    if deltas != [want] * len(deltas):
+        raise AssertionError(f"{label}: launches per request {deltas}, want {want} each")
 
 
 def card_line() -> str:
@@ -492,8 +505,7 @@ async def serve_bert(card, deployment: Path):
         await server.stop()
     for ids, ms, delta in zip(batches, latencies, deltas):
         print(f"[{card}] request batch={len(ids)} seq={seq} latency_ms={ms:.3f} kernel_launches={delta}", flush=True)
-    if deltas != [layers] * len(batches):
-        raise AssertionError(f"flash kernel launches per request {deltas}, want {layers} each")
+    require_launches("bert_base_flash flash_attention", deltas, layers)
 
     check_served_bert(card, "bert_base_flash", [(runtime, ids, probs) for ids, probs in zip(batches, served)])
     forward_breakdown(card, runtime, rng)
@@ -520,8 +532,7 @@ async def serve_bert(card, deployment: Path):
         raise AssertionError(f"auto predict returned HTTP {status}: {out}")
     _check_probs(out, 1)
     print(f"[{card}] request auto batch=1 seq={SEQ_LONG} latency_ms={ms:.3f} kernel_launches={auto_launches}", flush=True)
-    if auto_launches != long_layers:
-        raise AssertionError(f"auto policy at seq {SEQ_LONG} launched the kernel {auto_launches} times, want {long_layers}")
+    require_launches(f"bert-base auto policy at seq {SEQ_LONG} flash_attention", [auto_launches], long_layers)
     return main_launches
 
 
@@ -600,16 +611,31 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-async def _start(path: Path):
+async def _start(path: Path, cuda_graphs: bool = True):
     """A warmed PredictorServer for one deployment file, serving REST on a
-    free port on the card; returns it with its build and warmup seconds."""
+    free port on the card; returns it with its build and warmup seconds.
+    ``cuda_graphs=False`` builds the eager twin. The server's
+    ``warmup_reserved_bytes`` is the growth of torch.cuda.memory_reserved()
+    over its warmup (from an emptied cache): on the captured server, the
+    graph pool."""
+    import torch
+
     from seldon_core_tpu_torch.serving.server import PredictorServer, load_predictor
 
     predictor, name = load_predictor(str(path))
     t0 = time.perf_counter()
-    server = PredictorServer(predictor, deployment_name=name, device=DEVICE)
+    server = PredictorServer(predictor, deployment_name=name, device=DEVICE, cuda_graphs=cuda_graphs)
     t1 = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        gc.collect()  # earlier servers' graphs and buffers leave the cache first
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
     server.warmup()
+    if on_card:
+        torch.cuda.synchronize()
+    server.warmup_reserved_bytes = torch.cuda.memory_reserved() - reserved if on_card else 0
     t2 = time.perf_counter()
     await server.start("127.0.0.1", 0)
     return server, t1 - t0, t2 - t1
@@ -911,8 +937,7 @@ async def serve_dag(card) -> int:
     for (n, route, ms), delta in zip(latencies, deltas):
         print(f"[{card}] request full_dag_bert batch={n} seq={seq} arm={route} latency_ms={ms:.3f} "
               f"kernel_launches={delta}", flush=True)
-    if deltas != [layers] * len(deltas):
-        raise AssertionError(f"DAG flash launches per request {deltas}, want {layers} each")
+    require_launches("full_dag_bert flash_attention", deltas, layers)
     check_served_bert(card, "full_dag_bert", served)
     return launches
 
@@ -1058,33 +1083,38 @@ async def serve_continuous_batching(card) -> None:
     per-step device time and host share."""
     import numpy as np
 
-    server, build_s, warmup_s = await _start(BASELINE_DIR / "gpt_continuous_batching.json")
+    path = BASELINE_DIR / "gpt_continuous_batching.json"
+    server, build_s, warmup_s = await _start(path)
+    twin, _, twin_warm = await _start(path, cuda_graphs=False)
     sched, runtime = server.decode_scheduler, _model_runtime(server)
     seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
     rng = np.random.default_rng(6)
     prompts = rng.integers(0, vocab, size=(CB_REQUESTS, seq))
     budgets = [int(b) for b in rng.integers(1, sched.max_new_tokens + 1, size=CB_REQUESTS)]
-    try:
+
+    async def traffic(port):
         async def one(i):
             await asyncio.sleep(0.004 * i)  # staggered arrival: later rows admit mid-stream
-            return await _ids_post(server.port, prompts[i : i + 1], {"max_new_tokens": budgets[i]})
+            return await _ids_post(port, prompts[i : i + 1], {"max_new_tokens": budgets[i]})
 
         t0 = time.perf_counter()
         replies = await asyncio.gather(*(one(i) for i in range(CB_REQUESTS)))
-        wall = time.perf_counter() - t0
+        return replies, time.perf_counter() - t0
+
+    try:
+        replies, wall = await traffic(server.port)
+        twin_replies, twin_wall = await traffic(twin.port)
         status, events = await _read_sse(server.port, prompts[:1])
         _, _, body, _ = await _ids_post(server.port, prompts[:1])
         buffered = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0]
-        recompiles = sched.recompiles_since_warmup()
+        recompiles = (sched.recompiles_since_warmup(), twin.decode_scheduler.recompiles_since_warmup())
         steps, peak = sched.stat_steps, sched.stat_peak_active
     finally:
         await server.stop()
-    served = []
-    for (status, _, body, ms), b in zip(replies, budgets):
-        out = json.loads(body)
-        if status != 200 or out["meta"]["tags"]["gen_lens"] != [b]:
-            raise AssertionError(f"gpt_continuous_batching returned HTTP {status}: {body[:300]!r}")
-        served.append(np.asarray(out["data"]["ndarray"], np.int64)[0][: seq + b])
+        await twin.stop()
+    served = _served_rows("gpt_continuous_batching", replies, budgets, seq)
+    twin_rows = _served_rows("gpt_continuous_batching eager twin", twin_replies, budgets, seq)
+    hold_twin_rows("gpt_continuous_batching", served, twin_rows)
     want = _fused_oracle(runtime, prompts)
     ties = []
     for r, (out, b) in enumerate(zip(served, budgets)):
@@ -1097,14 +1127,17 @@ async def serve_continuous_batching(card) -> None:
           f"requests={CB_REQUESTS} tokens={sum(budgets)} wall_s={wall:.3f} steps={steps} peak_active={peak} "
           f"latency_ms p50={lat[len(lat) // 2]:.3f} max={lat[-1]:.3f} rows equal to the fused generate: "
           f"{sum(int((o == w[: len(o)]).all()) for o, w in zip(served, want))}/{CB_REQUESTS} tie rows {ties} "
-          f"recompiles_since_warmup={recompiles}", flush=True)
+          f"recompiles_since_warmup (captured, eager)={recompiles}; eager twin wall_s={twin_wall:.3f} "
+          f"warmup_s={twin_warm:.3f}; compile_counts {sched.compile_counts()} captures={sched.graphs.stat_captures}; "
+          f"warmup memory_reserved growth bytes captured={server.warmup_reserved_bytes} "
+          f"eager={twin.warmup_reserved_bytes}", flush=True)
     print(f"[{card}] gpt_continuous_batching stream: {len(tokens)} token events, done={done.get('done')} "
           f"gen_lens={done.get('gen_lens')}", flush=True)
-    if recompiles != 0:
-        raise AssertionError(f"the scheduler dispatched {recompiles} new (program, shape) keys after warmup")
+    if recompiles != (0, 0):
+        raise AssertionError(f"the schedulers (captured, eager) built {recompiles} new keys after warmup")
     if tokens != buffered[seq:].tolist() or done.get("ids") != [buffered.tolist()]:
         raise AssertionError("the SSE stream's tokens differ from the buffered reply for the same prompt")
-    step_breakdown(card, sched)
+    step_breakdown(card, {"captured": sched, "eager": twin.decode_scheduler})
 
     # EOS: a copy of the deployment whose eos id is the 3rd greedy token of
     # a prompt must stop that row there
@@ -1123,23 +1156,35 @@ async def serve_continuous_batching(card) -> None:
         raise AssertionError(f"the EOS deployment did not retire the row at its first eos: {body[:300]!r}")
 
 
-def step_breakdown(card, sched, reps: int = 20) -> None:
-    """One scheduler step with every slot generating (all-zero block
-    tables: every write lands in junk page 0): host wall time (the step
-    ends in the token readback), device busy time, host share."""
+def hold_twin_rows(label: str, rows, twin_rows) -> None:
+    """Greedy ids of the captured scheduler against its eager twin's: bit for
+    bit (the same kernels, launch configurations and order run either
+    way)."""
+    differ = [r for r, (a, b) in enumerate(zip(rows, twin_rows)) if a.shape != b.shape or (a != b).any()]
+    if differ:
+        raise AssertionError(f"{label}: captured rows {differ} differ from the eager twin's")
+
+
+def step_breakdown(card, scheds: dict, reps: int = 20) -> None:
+    """One scheduler step per mode with every slot generating (all-zero
+    block tables: every write lands in junk page 0): host wall time (the
+    step ends in the token readback), device busy time, host share."""
     import numpy as np
 
-    n = sched.n_slots
-    z, pos = np.zeros(n, np.int32), np.full(n, sched.max_ctx - 1, np.int32)
-    bt, zf = sched.pool.block_tables(), np.zeros(n, np.float32)
-    step = lambda: sched._step(bt, z, pos, zf, z, 0)  # noqa: E731
-    wall = wall_ms(step, reps)
-    kernels, ops = profile_device(step)
-    busy = sum(kernels.values())
-    device = (f"device_busy_ms={busy:.4f} host_share={max(0.0, 1 - busy / wall):.3f}" if busy > 0
-              else "device time: not measured (the profiler saw no device activity)")
-    print(f"[{card}] decode step breakdown slots={n} virtual_ctx={sched.pool.virtual_ctx} "
-          f"step_wall_ms={wall:.3f} device_ops_per_step={ops:g} {device}", flush=True)
+    fns = {}
+    for mode, sched in scheds.items():
+        n = sched.n_slots
+        z, pos = np.zeros(n, np.int32), np.full(n, sched.max_ctx - 1, np.int32)
+        bt, zf = sched.pool.block_tables(), np.zeros(n, np.float32)
+
+        def step(sched=sched, z=z, pos=pos, bt=bt, zf=zf):
+            sched.pool.load_block_tables(bt)
+            sched._step(z, pos, zf, z, 0)
+
+        fns[mode] = step
+    any_sched = next(iter(scheds.values()))
+    _modes_breakdown(card, f"decode step breakdown slots={any_sched.n_slots} "
+                     f"virtual_ctx={any_sched.pool.virtual_ctx}", fns, "step", reps)
 
 
 async def serve_paged_kv(card) -> None:
@@ -1152,27 +1197,39 @@ async def serve_paged_kv(card) -> None:
 
     from seldon_core_tpu_torch.models import decoder
 
-    server, build_s, warmup_s = await _start(BASELINE_DIR / "tiny_gpt_paged_kv.json")
+    path = BASELINE_DIR / "tiny_gpt_paged_kv.json"
+    server, build_s, warmup_s = await _start(path)
+    twin, _, _ = await _start(path, cuda_graphs=False)
     sched, runtime = server.decode_scheduler, _model_runtime(server)
     seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
     rng = np.random.default_rng(7)
     prompts = rng.integers(0, vocab, size=(12, seq))
     prompts[:, : seq - 16] = prompts[0, : seq - 16]  # one shared system prompt
+
+    async def traffic(port):
+        first = await _ids_post(port, prompts[:1], {"cache_prefix": seq - 16})
+        rest = await asyncio.gather(*(_ids_post(port, prompts[i : i + 1]) for i in range(1, 12)))
+        out = []
+        for status, _, body, _ in [first, *rest]:
+            if status != 200:
+                raise AssertionError(f"tiny_gpt_paged_kv returned HTTP {status}: {body[:300]!r}")
+            out.append(np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0])
+        return out
+
     try:
-        first = await _ids_post(server.port, prompts[:1], {"cache_prefix": seq - 16})
-        rest = await asyncio.gather(*(_ids_post(server.port, prompts[i : i + 1]) for i in range(1, 12)))
+        served = await traffic(server.port)
+        hold_twin_rows("tiny_gpt_paged_kv", served, await traffic(twin.port))
         stats = dict(hits=sched.stat_prefix_hits, misses=sched.stat_prefix_misses,
                      tokens_saved=sched.stat_prefix_tokens_saved, chunks=sched.stat_chunk_dispatches,
                      cow=sched.pool.alloc.stat_cow_copies, shared=sched.pool.alloc.stat_pages_shared,
-                     recompiles=sched.recompiles_since_warmup())
+                     recompiles=sched.recompiles_since_warmup(),
+                     twin_recompiles=twin.decode_scheduler.recompiles_since_warmup(),
+                     compile_counts=sched.compile_counts(), captures=sched.graphs.stat_captures,
+                     pool_bytes=server.warmup_reserved_bytes)
         sched.pool.alloc.check()
     finally:
         await server.stop()
-    served = []
-    for status, _, body, _ in [first, *rest]:
-        if status != 200:
-            raise AssertionError(f"tiny_gpt_paged_kv returned HTTP {status}: {body[:300]!r}")
-        served.append(np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0])
+        await twin.stop()
     want = _fused_oracle(runtime, prompts)
     agree = float(np.mean([(s[seq:] == w[seq:]).mean() for s, w in zip(served, want)]))
 
@@ -1197,7 +1254,7 @@ async def serve_paged_kv(card) -> None:
     print(f"[{card}] tiny_gpt_paged_kv: kv_dtype={pool.kv_dtype} pages={pool.n_pages} page_size={pool.page_size} "
           f"build_s={build_s:.3f} warmup_s={warmup_s:.3f} {json.dumps(stats)} greedy agreement with the fused "
           f"generate={agree:.3f} int8 vs fp teacher-forced max logit drift={drift} (limit {INT8_KV_ATOL})", flush=True)
-    if stats["hits"] <= 0 or stats["recompiles"] != 0:
+    if stats["hits"] <= 0 or stats["recompiles"] != 0 or stats["twin_recompiles"] != 0:
         raise AssertionError(f"tiny_gpt_paged_kv: no prefix hit or a new dispatch key: {stats}")
     if not 0.0 < drift < INT8_KV_ATOL:
         raise AssertionError(f"int8 KV logits drift {drift} from the fp pool's (limit {INT8_KV_ATOL}, and > 0)")
@@ -1278,8 +1335,7 @@ async def serve_long_prompt(card) -> int:
     print(f"[{card}] gpt2_small_long_prompt: {json.dumps(dims)} dtype={runtime.dtype} build_s={build_s:.3f} "
           f"warmup_s={warmup_s:.3f} latency_ms={[round(m, 3) for m in latencies]} kernel_launches={deltas}",
           flush=True)
-    if deltas != [dims["layers"]] * len(deltas):
-        raise AssertionError(f"long-prompt flash launches per request {deltas}, want {dims['layers']} each")
+    require_launches("gpt2_small_long_prompt flash_attention", deltas, dims["layers"])
     for ids, out in served:
         if out.shape != (1, seq + max_new) or not (out[:, :seq] == ids).all():
             raise AssertionError(f"gpt2_small_long_prompt served ids of shape {out.shape}")
@@ -1414,6 +1470,7 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
     import numpy as np
 
     spec_srv, build_s, warmup_s = await _start(path)
+    twin_srv, _, twin_warm = await _start(path, cuda_graphs=False)
     dep = json.loads(path.read_text())
     dep["spec"]["predictors"][0]["tpu"].update(SPEC_OFF)
     plain_path = ROOT / "build" / f"{path.stem}_plain.json"
@@ -1435,15 +1492,19 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
             replies, wall = await _spec_traffic(srv.port, prompts, budgets)
             after = _spec_stats(srv.decode_scheduler)
             runs[kind].append((replies, wall, {k: after[k] - before[k] for k in after}))
+        twin_replies, twin_wall = await _spec_traffic(twin_srv.port, prompts, budgets)
         status, events = await _read_sse(spec_srv.port, prompts[:1])
         _, _, body, _ = await _ids_post(spec_srv.port, prompts[:1])
         buffered = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0]
-        recompiles = (sched.recompiles_since_warmup(), plain.recompiles_since_warmup())
-        breakdown = {} if check_only else spec_breakdown(card, sched, plain)
+        recompiles = (sched.recompiles_since_warmup(), plain.recompiles_since_warmup(),
+                      twin_srv.decode_scheduler.recompiles_since_warmup())
+        breakdown = {} if check_only else spec_breakdown(card, sched, twin_srv.decode_scheduler, plain)
     finally:
         await spec_srv.stop()
         await plain_srv.stop()
+        await twin_srv.stop()
     rows = _served_rows(label, runs["spec"][0][0], budgets, seq)
+    hold_twin_rows(label, rows, _served_rows(f"{label} eager twin", twin_replies, budgets, seq))
     plain_rows = _served_rows(f"{label} plain", runs["plain"][0][0], budgets, seq)
     for replies, _, _ in runs["spec"][1:]:
         if any((a != b).any() for a, b in zip(_served_rows(label, replies, budgets, seq), rows)):
@@ -1456,8 +1517,8 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
     tokens = [e["token"] for e in events if "token" in e]
     if tokens != buffered[seq:].tolist() or events[-1].get("ids") != [buffered.tolist()]:
         raise AssertionError(f"{label}: the SSE stream's tokens differ from the buffered reply")
-    if recompiles != (0, 0):
-        raise AssertionError(f"{label}: new (program, shape) keys after warmup (spec, plain): {recompiles}")
+    if recompiles != (0, 0, 0):
+        raise AssertionError(f"{label}: new keys after warmup (spec, plain, eager twin): {recompiles}")
     st = runs["spec"][0][2]
     n_tok = sum(budgets)
     decode_tokens = n_tok - SPEC_REQUESTS  # each request's first token comes from its prompt's chunk round
@@ -1473,56 +1534,68 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
         ms_per_token=[w * 1e3 / n_tok for _, w, _ in runs["spec"]],
         plain_ms_per_token=[w * 1e3 / n_tok for _, w, _ in runs["plain"]],
         tie_rows=ties, sse_tokens=len(tokens), build_s=build_s, warmup_s=warmup_s,
-        dispatch_keys=sched.compile_counts(), **breakdown,
+        dispatch_keys=sched.compile_counts(), captures=sched.graphs.stat_captures,
+        eager_rounds=sched.stat_eager_rounds, eager_twin_ms_per_token=twin_wall * 1e3 / n_tok,
+        eager_twin_warmup_s=twin_warm,
+        pool_bytes={"captured": spec_srv.warmup_reserved_bytes, "eager": twin_srv.warmup_reserved_bytes},
+        **breakdown,
     )
     print(f"[{card}] speculative {json.dumps(result)}", flush=True)
     return result
 
 
-def spec_breakdown(card, sched, plain, reps: int = 20) -> dict:
+def spec_breakdown(card, sched, twin, plain, reps: int = 20) -> dict:
     """One speculative round pair with every slot generating at its full
-    limits (all-zero block tables: every pool write lands in junk page 0):
-    host wall (the round ends in its readback), device busy, the draft's
-    device time (its program alone; the verify's is the rest) and host
-    share; and the plain step of the same model beside it."""
+    limits (all-zero block tables: every pool write lands in junk page 0),
+    captured and on the eager twin: host wall (the round ends in its
+    readback), device busy, the draft's device time (its program alone;
+    the verify's is the rest) and host share; and the plain step of the
+    same model beside it."""
     import numpy as np
     import torch
-
-    from seldon_core_tpu_torch.serving.decode_scheduler import _fused_draft, _fused_draft_tree
 
     n, tree = sched.n_slots, sched.spec_tree
     z, zf = np.zeros(n, np.int32), np.zeros(n, np.float32)
     pos = np.full(n, sched.max_ctx - 1, np.int32)
     bt, limits = sched.pool.block_tables(), np.full(n, sched.spec_k, np.int32)
     wl = None if tree is None else np.tile(np.asarray(tree.branching, np.int32), (n, 1))
-    spec_round = lambda: sched._spec(bt, z, pos, zf, z, limits, wl, 0)  # noqa: E731
-    dev = sched.pool.device
-    zd, posd, zfd = (torch.as_tensor(a, device=dev) for a in (z.astype(np.int64), pos.astype(np.int64), zf))
 
-    def draft_only():
-        if tree is None:
-            _fused_draft(sched.draft_params, sched._dck, sched._dcv, zd, posd, zfd, zd, None, sched.spec_k)
-        else:
-            _fused_draft_tree(sched.draft_params, sched._dck, sched._dcv, zd, posd, zfd, zd, None, tree)
+    def spec_round(s):
+        s.pool.load_block_tables(bt)
+        s._spec(z, pos, zf, z, limits, wl, 0)
+
+    def draft_only(s):
+        draft, _ = s._spec_entries(n)
+        draft.load(z, pos)
+        draft.replay()
         torch.cuda.synchronize()
 
+    plain_bt = plain.pool.block_tables()  # no spec_k headroom: fewer pages per slot
+
+    def plain_step():
+        plain.pool.load_block_tables(plain_bt)
+        plain._step(z, pos, zf, z, 0)
+
+    row = {}
     with torch.inference_mode():
-        wall = wall_ms(spec_round, reps)
-        total, ops = profile_device(spec_round)
-        draft, draft_ops = profile_device(draft_only)
-        plain_step = lambda: plain._step(bt, z, pos, zf, z, 0)  # noqa: E731
-        plain_wall = wall_ms(plain_step, reps)
+        for mode, s in (("", sched), ("eager_", twin)):
+            wall = wall_ms(lambda: spec_round(s), reps)
+            total, ops = profile_device(lambda: spec_round(s))
+            draft, draft_ops = profile_device(lambda: draft_only(s))
+            busy, draft_ms = sum(total.values()), sum(draft.values())
+            row[f"{mode}round_wall_ms"] = wall
+            if busy > 0 and draft_ms > 0:
+                row.update({f"{mode}round_device_ms": busy, f"{mode}draft_device_ms": draft_ms,
+                            f"{mode}verify_device_ms": busy - draft_ms, f"{mode}host_share": max(0.0, 1 - busy / wall),
+                            f"{mode}device_ops_per_round": ops, f"{mode}draft_device_ops": draft_ops})
+        row["plain_step_wall_ms"] = wall_ms(plain_step, reps)
         plain_busy, plain_ops = profile_device(plain_step)
-    busy, draft_ms, plain_ms = sum(total.values()), sum(draft.values()), sum(plain_busy.values())
-    if busy <= 0 or draft_ms <= 0 or plain_ms <= 0:
-        row = dict(round_wall_ms=wall, plain_step_wall_ms=plain_wall,
-                   device="not measured (the profiler saw no device activity)")
-    else:
-        row = dict(round_wall_ms=wall, round_device_ms=busy, draft_device_ms=draft_ms,
-                   verify_device_ms=busy - draft_ms, host_share=max(0.0, 1 - busy / wall),
-                   device_ops_per_round=ops, draft_device_ops=draft_ops, plain_step_wall_ms=plain_wall,
-                   plain_step_device_ms=plain_ms, plain_step_host_share=max(0.0, 1 - plain_ms / plain_wall),
+    plain_ms = sum(plain_busy.values())
+    if plain_ms > 0:
+        row.update(plain_step_device_ms=plain_ms, plain_step_host_share=max(0.0, 1 - plain_ms / row["plain_step_wall_ms"]),
                    plain_step_device_ops=plain_ops)
+    if "round_device_ms" not in row:
+        row["device"] = "not measured (the profiler saw no device activity)"
     return row
 
 
@@ -1539,6 +1612,7 @@ async def spec_faults(card, matched: dict) -> dict:
     import numpy as np
     import torch
 
+    from seldon_core_tpu_torch.models.spec_tree import SpecTree
     from seldon_core_tpu_torch.serving import decode_scheduler as ds
 
     real_accept, real_commit = ds.speculative_accept, ds.paged_tree_commit
@@ -1563,11 +1637,14 @@ async def spec_faults(card, matched: dict) -> dict:
                 sib[c] = kids[(i + 1) % len(kids)]
         return sib
 
-    sibling = {}  # the served tree's sibling table, set when its server starts
+    # the served tree's sibling table, on the card before its server
+    # captures the planted commit (a capture refuses an upload)
+    tree_path = BASELINE_DIR / "tiny_gpt_tree_speculation.json"
+    tree_text = json.loads(tree_path.read_text())["spec"]["predictors"][0]["tpu"]["decode_spec_tree"]
+    sibling = torch.as_tensor(sibling_of(SpecTree.from_text(tree_text)), device=DEVICE)
 
     def commit_sibling(pool, bt, new_k, new_v, path_idx, positions, n_acc):
-        sib = sibling["table"].to(path_idx.device)
-        return real_commit(pool, bt, new_k, new_v, sib[path_idx.long()].to(path_idx.dtype), positions, n_acc)
+        return real_commit(pool, bt, new_k, new_v, sibling[path_idx.long()].to(path_idx.dtype), positions, n_acc)
 
     out = {}
     cases = [
@@ -1586,21 +1663,20 @@ async def spec_faults(card, matched: dict) -> dict:
          planted(ds, "paged_tree_commit", commit_sibling), True),
     ]
     for name, path, fault, must_fail in cases:
-        server, _, _ = await _start(path)
-        sched, runtime = server.decode_scheduler, _model_runtime(server)
-        if sched.spec_tree is not None:
-            sibling["table"] = torch.as_tensor(sibling_of(sched.spec_tree))
-        prompts, budgets = _spec_prompts(sched, runtime.params["tok_emb"].shape[0])
-        try:
-            before = _spec_stats(sched)
-            if fault is None:
+        # planted before the server starts: its warmup captures the fault
+        with fault or contextlib.nullcontext():
+            server, _, _ = await _start(path)
+            sched, runtime = server.decode_scheduler, _model_runtime(server)
+            if sched.spec_tree is not None and sched.spec_tree.branching != SpecTree.from_text(tree_text).branching:
+                raise AssertionError(f"{name}: serves tree {sched.spec_tree.branching}, the sibling table is for "
+                                     f"{tree_text}")
+            prompts, budgets = _spec_prompts(sched, runtime.params["tok_emb"].shape[0])
+            try:
+                before = _spec_stats(sched)
                 replies, _ = await _spec_traffic(server.port, prompts, budgets)
-            else:
-                with fault:
-                    replies, _ = await _spec_traffic(server.port, prompts, budgets)
-            st = {k: v - before[k] for k, v in _spec_stats(sched).items()}
-        finally:
-            await server.stop()
+                st = {k: v - before[k] for k, v in _spec_stats(sched).items()}
+            finally:
+                await server.stop()
         rows = _served_rows(name, replies, budgets, sched.seq_len)
         want = _fused_oracle(runtime, prompts)
         try:
@@ -1907,8 +1983,7 @@ async def serve_bert_int8(card) -> int:
     for ids, ms, delta, by_body in zip(batches, latencies, deltas, body_deltas):
         print(f"[{card}] request bert_int8 batch={len(ids)} latency_ms={ms:.3f} int8_launches={delta} "
               f"by_body={json.dumps(by_body)}", flush=True)
-    if deltas != [INT8_LAUNCHES] * len(batches):
-        raise AssertionError(f"int8_matmul launches per request {deltas}, want {INT8_LAUNCHES} each")
+    require_launches("bert_int8 int8_matmul", deltas, INT8_LAUNCHES)
     if body_deltas != [INT8_LAUNCHES_BY_BODY] * len(batches):
         raise AssertionError(f"int8_matmul launches per body and request {body_deltas}, "
                              f"want {INT8_LAUNCHES_BY_BODY} each")
@@ -2031,6 +2106,219 @@ async def serve_resilience(card) -> dict:
     return results
 
 
+# ------------------------------------------------ captured against eager
+# Every runtime and decode scheduler serves its dispatch keys as captured
+# CUDA graphs (seldon_core_tpu_torch/ops/graphs.py); the eager twin
+# (cuda_graphs=False) runs the same keys eagerly on the same static buffers.
+# The same kernels run with the same launch configurations either way, so
+# the twins must agree bit for bit, and the launch counters (credited per
+# replay on the captured side) must read the same.
+LOAD_SECONDS = 1.5  # per load point
+LOAD_USERS = (8, 16, 32)  # the saturating point: the first whose successor rises <= 10%
+LOAD_RISE = 1.10
+LOAD_WORKERS = 2  # client processes of a multi-user point
+
+
+def _runtimes(server) -> list:
+    """(node name, runtime) of every model node of a server's graph."""
+    return [(n.name, n.unit.runtime) for n in server.executor.root.walk()
+            if getattr(n.unit, "runtime", None) is not None]
+
+
+def _launch_counts() -> dict:
+    from seldon_core_tpu_torch.ops import flash_attention, int8_matmul
+
+    return {"flash_attention": flash_attention.LAUNCHES.count, "int8_matmul": int8_matmul.LAUNCHES.count,
+            **{f"int8_{b}": c.count for b, c in int8_matmul.LAUNCHES_BY_BODY.items()}}
+
+
+def _launches_of(fn) -> dict:
+    """The kernel launches ``fn`` made (on a captured path: the launches
+    its replays credited), by counter, zeros left out."""
+    before = _launch_counts()
+    fn()
+    return {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+
+
+def _twin_input(runtime, n: int, wire, rng):
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
+
+    shape = tuple(runtime.feature_shape)
+    if wire == np.int32:
+        table = runtime.params["tok_emb"]
+        vocab = (payload(table) if is_quantized_leaf(table) else table).shape[0]
+        return rng.integers(0, vocab, size=(n, *shape)).astype(np.int32)
+    if wire == np.uint8:
+        return rng.integers(0, 256, size=(n, *shape), dtype=np.uint8)
+    return rng.uniform(0, 8, size=(n, *shape)).astype(np.float32)
+
+
+def _wires(runtime) -> list:
+    import numpy as np
+
+    if runtime.int_inputs == "ids":
+        return [np.int32]
+    return [np.float32, np.uint8] if runtime._uint8_wire() else [np.float32]
+
+
+def _modes_breakdown(card, label: str, fns: dict, unit: str, reps: int = 5) -> dict:
+    """Host wall and device busy time of one call of each mode's ``fn``
+    (which must end on the host), and the host share."""
+    out = {}
+    for mode, fn in fns.items():
+        wall = wall_ms(fn, reps)
+        kernels, ops = profile_device(fn)
+        busy = sum(kernels.values())
+        row = dict(wall_ms=wall, device_ops=ops)
+        if busy > 0:
+            row.update(device_ms=busy, host_share=max(0.0, 1 - busy / wall))
+        out[mode] = row
+        print(f"[{card}] {label} {unit} mode={mode} {json.dumps(row)}"
+              + ("" if busy > 0 else " device time: not measured (the profiler saw no device activity)"), flush=True)
+    return out
+
+
+def check_twin_runtimes(card, label: str, cap, eager, kernels: tuple = ()) -> dict:
+    """Every runtime of the captured server against its eager twin: at
+    every bucket and wire dtype the same rows bit for bit and the same
+    kernel launches (the captured side's credited by its replays; a kernel
+    in ``kernels`` must launch on both, so a captured path that reports 0
+    fails here); each key one captured graph; the forward's wall and device
+    time at the smallest and largest bucket in both modes."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    rows = {}
+    for (node, rc), (_, re) in zip(_runtimes(cap), _runtimes(eager)):
+        if not rc.graphs.capture or re.graphs.capture:
+            raise AssertionError(f"{label}/{node}: the captured server does not capture or its twin does")
+        if rc.graphs.stat_captures != sum(rc.compile_counts().values()):
+            raise AssertionError(f"{label}/{node}: {rc.graphs.stat_captures} captures for keys {rc.compile_counts()}")
+        launches = {}
+        for b in rc.buckets:
+            for wire in _wires(rc):
+                x = _twin_input(rc, b, wire, rng)
+                got = {}
+                per = {mode: _launches_of(lambda rt=rt, mode=mode: got.__setitem__(mode, rt.predict(x)))
+                       for mode, rt in (("captured", rc), ("eager", re))}
+                if not np.array_equal(got["captured"], got["eager"]):
+                    diff = float(np.abs(got["captured"].astype(np.float64) - got["eager"]).max())
+                    raise AssertionError(f"{label}/{node} bucket {b} {np.dtype(wire).name}: captured rows differ "
+                                         f"from the eager twin's (max abs {diff})")
+                if per["captured"] != per["eager"]:
+                    raise AssertionError(f"{label}/{node} bucket {b}: replays credited {per['captured']}, the eager "
+                                         f"twin launched {per['eager']}")
+                for k in kernels:
+                    if per["captured"].get(k, 0) <= 0:
+                        raise AssertionError(f"{label}/{node} bucket {b}: the captured path reports 0 {k} launches "
+                                             "(its replays credit none)")
+                launches[b] = per["captured"]
+        print(f"[{card}] twins {label}/{node}: buckets={list(rc.buckets)} wires="
+              f"{[np.dtype(w).name for w in _wires(rc)]} captured rows equal to the eager twin's bit for bit; "
+              f"launches per forward (credited by replays) {json.dumps(launches)}; compile_counts "
+              f"{rc.compile_counts()} captures={rc.graphs.stat_captures} replays={rc.graphs.stat_replays}", flush=True)
+        for b in sorted({rc.buckets[0], rc.buckets[-1]}):
+            x = _twin_input(rc, b, _wires(rc)[-1], rng)
+            rows[f"{node}_b{b}"] = _modes_breakdown(
+                card, f"twins {label}/{node} bucket={b}",
+                {"captured": lambda: rc.predict(x), "eager": lambda: re.predict(x)}, "forward")
+    return rows
+
+
+async def _load_point(port: int, users: int, load: dict) -> dict:
+    """One closed-loop load point from the port's load generator, run as
+    its CLI in other processes so the server keeps its own."""
+    cmd = [sys.executable, "-m", "seldon_core_tpu_torch.tools.loadtest", f"http://127.0.0.1:{port}",
+           "--users", str(users), "--duration", str(LOAD_SECONDS), "--workers", str(1 if users == 1 else LOAD_WORKERS),
+           "--static-payload", "--json", "--payload", load["payload"]]
+    shape = load["features"]
+    cmd += ["--features", str(shape)] if isinstance(shape, int) else ["--shape", ",".join(map(str, shape))]
+    proc = await asyncio.create_subprocess_exec(*cmd, stdout=asyncio.subprocess.PIPE,
+                                                stderr=asyncio.subprocess.PIPE, cwd=str(ROOT))
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), timeout=120)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"loadtest exited {proc.returncode}: {err.decode()[-500:]}")
+    summary = json.loads(out.decode().strip().splitlines()[-1])
+    if summary["errors"] or summary["requests"] <= 0:
+        raise AssertionError(f"loadtest at {users} users: {summary}")
+    return summary
+
+
+async def load_curve(card, label: str, mode: str, port: int, load: dict) -> dict:
+    """1 user (latency), then 8, 16 and 32 users until predictions/s stops
+    rising by more than 10%: the last point that rose is the saturating
+    one."""
+    points = {1: await _load_point(port, 1, load)}
+    print(f"[{card}] load {label} mode={mode} users=1 {json.dumps(points[1])}", flush=True)
+    sat = None
+    for users in LOAD_USERS:
+        points[users] = await _load_point(port, users, load)
+        print(f"[{card}] load {label} mode={mode} users={users} {json.dumps(points[users])}", flush=True)
+        if sat is not None and points[users]["requests_per_sec"] <= LOAD_RISE * points[sat]["requests_per_sec"]:
+            break
+        sat = users
+    return {"users_1": points[1], "saturation": {"users": sat, **points[sat]}}
+
+
+async def serve_twins(card, path: Path, kernels: tuple = (), load: dict | None = None) -> dict:
+    """One deployment served captured and as its eager twin: the runtimes
+    held together (``check_twin_runtimes``), then, with ``load``, each
+    server driven by the port's load generator; no new key on either
+    after the traffic; the graph pool's bytes."""
+    label = path.stem
+    cap, build_s, cap_warm = await _start(path)
+    eager, _, eager_warm = await _start(path, cuda_graphs=False)
+    try:
+        breakdown = check_twin_runtimes(card, label, cap, eager, kernels)
+        curves = {}
+        if load is not None:
+            for mode, srv in (("captured", cap), ("eager", eager)):
+                curves[mode] = await load_curve(card, label, mode, srv.port, load)
+    finally:
+        await cap.stop()
+        await eager.stop()
+    recompiles = {f"{mode}/{node}": rt.recompiles_since_warmup() for mode, srv in (("captured", cap), ("eager", eager))
+                  for node, rt in _runtimes(srv)}
+    pool = {"captured": cap.warmup_reserved_bytes, "eager": eager.warmup_reserved_bytes}
+    print(f"[{card}] twins {label}: warmup_s captured={cap_warm:.3f} eager={eager_warm:.3f} build_s={build_s:.3f} "
+          f"warmup memory_reserved growth bytes {json.dumps(pool)} recompiles_since_warmup after the traffic "
+          f"{json.dumps(recompiles)}", flush=True)
+    if any(recompiles.values()):
+        raise AssertionError(f"{label}: new keys after warmup: {recompiles}")
+    summary = {"pool_bytes": pool, "breakdown": breakdown}
+    if curves:
+        summary["load"] = {mode: {"p50_ms_1_user": c["users_1"]["p50_ms"], "p99_ms_1_user": c["users_1"]["p99_ms"],
+                                  "saturating_users": c["saturation"]["users"],
+                                  "predictions_per_s": c["saturation"]["requests_per_sec"],
+                                  "p50_ms": c["saturation"]["p50_ms"], "p99_ms": c["saturation"]["p99_ms"]}
+                           for mode, c in curves.items()}
+        print(f"[{card}] load {label} summary {json.dumps(summary['load'])}", flush=True)
+    return summary
+
+
+async def baseline_twins(card) -> dict:
+    """Phase 4d: the five BASELINE deployments captured against their eager
+    twins, and under load (JSON bodies; the ResNet ensemble uint8 npy, the
+    wire it serves)."""
+    loads = {
+        "iris": {"payload": "json", "features": 4},
+        "mnist": {"payload": "json", "features": 784},
+        "iris_abtest": {"payload": "json", "features": 4},
+        "resnet_ensemble": {"payload": "npy", "features": (224, 224, 3)},
+        "full_dag_bert": {"payload": "json", "features": 128},
+    }
+    return {name: await serve_twins(card, BASELINE_DIR / f"{name}.json",
+                                    ("flash_attention",) if name == "full_dag_bert" else (), load)
+            for name, load in loads.items()}
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -2147,6 +2435,8 @@ def main() -> int:
     bert_launches = asyncio.run(serve_bert(card, BASELINE_DIR / "bert_base_flash.json"))
     if bert_launches <= 0:
         raise AssertionError("the BERT path launched no flash_attention kernel")
+    twins = {"bert_base_flash": asyncio.run(serve_twins(card, BASELINE_DIR / "bert_base_flash.json",
+                                                        ("flash_attention",)))}
     print(f"[{card}] phase 3 seconds: {time.perf_counter() - t3:.3f}", flush=True)
 
     # 4. the five BASELINE deployments
@@ -2156,6 +2446,7 @@ def main() -> int:
     dag_launches = asyncio.run(serve_dag(card))
     if dag_launches <= 0:
         raise AssertionError("the DAG path launched no flash_attention kernel")
+    twins.update(asyncio.run(baseline_twins(card)))
     print(f"[{card}] phase 4 seconds: {time.perf_counter() - t4:.3f}", flush=True)
 
     # 5. the four decoder deployments
@@ -2166,6 +2457,8 @@ def main() -> int:
     decoder_launches = asyncio.run(serve_long_prompt(card))
     if decoder_launches <= 0:
         raise AssertionError("the decoder path launched no flash_attention kernel")
+    twins["gpt2_small_long_prompt"] = asyncio.run(serve_twins(card, BASELINE_DIR / "gpt2_small_long_prompt.json",
+                                                              ("flash_attention",)))
     print(f"[{card}] phase 5 seconds: {time.perf_counter() - t5:.3f}", flush=True)
 
     # 6. speculative decoding: the three speculative deployments
@@ -2185,6 +2478,8 @@ def main() -> int:
     int8_launches, int8_by_body = asyncio.run(serve_bert_int8(card))
     if int8_launches <= 0:
         raise AssertionError("the bert_int8 path launched no int8_matmul kernel")
+    twins["bert_int8"] = asyncio.run(serve_twins(card, BASELINE_DIR / "bert_int8.json", ("int8_matmul",),
+                                                 {"payload": "json", "features": 128}))
     asyncio.run(serve_resilience(card))
     print(f"[{card}] phase 7 seconds: {time.perf_counter() - t7:.3f}", flush=True)
 
@@ -2233,6 +2528,8 @@ def main() -> int:
         **{name: {k: int8_rows[name][k] for k in ("body", "max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms")} for name in sorted(served)},
     })
+    print(json.dumps({"captured_vs_eager": {name: {k: v for k, v in t.items() if k != "breakdown"}
+                                            for name, t in twins.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

@@ -527,7 +527,8 @@ def build_executor(
     context: dict[str, Any] | None = None,
     resilience_events: ResilienceEvents | None = None,
 ) -> GraphExecutor:
-    """``context['device']`` names where models run (the card by default).
+    """``context['device']`` names where models run (the card by default);
+    ``context['cuda_graphs']`` false builds every runtime as its eager twin.
     With ``tpu.fuse_graph`` (the default) pure subtrees collapse into one
     fused unit each (``engine/fused.py``), which keeps the resilience knobs
     of the subtree's root, as in the JAX package. ``resilience_events``
@@ -542,5 +543,5 @@ def build_executor(
     if tpu_cfg is not None and getattr(tpu_cfg, "fuse_graph", True):
         from seldon_core_tpu_torch.engine.fused import fuse_graph
 
-        root = fuse_graph(root, tpu_cfg)
+        root = fuse_graph(root, tpu_cfg, context.get("cuda_graphs", True))
     return GraphExecutor(root, resilience_events=resilience_events)

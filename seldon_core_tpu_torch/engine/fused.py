@@ -191,10 +191,11 @@ class FusedUnit(ModelUnit):
     """A whole pure subtree collapsed into one ModelRuntime."""
 
 
-def fuse_graph(root: Node, tpu_cfg=None) -> Node:
+def fuse_graph(root: Node, tpu_cfg=None, cuda_graphs: bool = True) -> Node:
     """Replace fusable subtrees with single FusedUnit leaves, top-down: the
     largest pure island wins. A no-op when nothing fuses. The fused runtime
-    runs on its members' device."""
+    runs on its members' device, one captured graph per bucket unless
+    ``cuda_graphs`` is false."""
     sub = _collect(root)
     if sub is not None and sub.n_nodes > 1:
         runtime = ModelRuntime(
@@ -206,6 +207,7 @@ def fuse_graph(root: Node, tpu_cfg=None) -> Node:
             dtype=DTYPES.get(getattr(tpu_cfg, "dtype", "float32"), torch.float32),
             class_names=sub.class_names,
             offload_compute=getattr(tpu_cfg, "offload_compute", "auto"),
+            cuda_graphs=cuda_graphs,
         )
         runtime.feature_shape = sub.feature_shape
         spec = PredictiveUnit(name=root.name, type=PredictiveUnitType.MODEL)
@@ -217,7 +219,7 @@ def fuse_graph(root: Node, tpu_cfg=None) -> Node:
         # knobs (retry, breaker) ride the island's one dispatch
         return Node(spec=spec, unit=unit, children=[], policy=root.policy)
 
-    new_children = [fuse_graph(c, tpu_cfg) for c in root.children]
+    new_children = [fuse_graph(c, tpu_cfg, cuda_graphs) for c in root.children]
     if any(a is not b for a, b in zip(new_children, root.children)):
         return Node(spec=root.spec, unit=root.unit, children=new_children, policy=root.policy)
     return root

@@ -12,6 +12,15 @@ the device as uint8, a quarter of float32's bytes, and is cast there;
 floating outputs are cast to float32 on the device before readback (numpy
 has no bfloat16).
 
+Each (bucket, wire dtype) is one dispatch key with one CUDA graph
+(``ops/graphs.py``), captured in ``warmup()``: a request copies its padded
+batch into the key's static input and replays the graph, the port's form of
+the JAX package's one compiled program per shape. ``compile_counts()``
+counts the captures and ``recompiles_since_warmup()`` the keys first met
+after warmup (each captured when it arrives, as ``jax.jit`` would compile
+it). ``cuda_graphs=False`` runs the same keys eagerly on the same static
+buffers: the eager twin a caller asks for by name.
+
 ``weight_quant="int8"`` quantizes the parameters from their original
 float32 leaves, on the JAX package's layout, before they are laid out and
 placed (``models/quant.py``, as ``seldon_core_tpu/models/base.py:137-168``
@@ -39,13 +48,13 @@ from seldon_core_tpu_torch.core.tensor import (
     default_buckets,
     pad_batch,
     resolve_device,
-    to_device,
     to_host,
 )
 from seldon_core_tpu_torch.engine.units import Unit
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit
 from seldon_core_tpu_torch.models.convert import params_to_torch
 from seldon_core_tpu_torch.models.quant import quantize_params
+from seldon_core_tpu_torch.ops.graphs import GraphCache
 
 # forwards at or above this stall the serving loop enough to tax other
 # requests' latency; offload_compute="auto" moves them to the compute pool
@@ -94,6 +103,7 @@ class ModelRuntime:
         offload_compute: str = "auto",
         layout: Callable[[np.ndarray], Any] | None = None,
         weight_quant: str = "",
+        cuda_graphs: bool = True,
     ):
         if weight_quant not in ("", "int8"):
             raise ValueError(f"weight_quant must be '' or 'int8', got {weight_quant!r}")
@@ -126,6 +136,10 @@ class ModelRuntime:
         if weight_quant == "int8":
             params = quantize_params(params)
         self.params = params_to_torch(params, self.device, dtype, layout)
+        # one captured graph per (bucket, wire dtype) on the card
+        self.cuda_graphs = cuda_graphs
+        self.graphs = GraphCache(self.device, capture=cuda_graphs)
+        self._warmup_keys: int | None = None
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -160,8 +174,11 @@ class ModelRuntime:
                 [self.predict_device(x[i : i + step]) for i in range(0, n, step)], dim=0
             )
         padded, valid = pad_batch(x, bucket)
-        y = self._forward(to_device(padded, self.device))
-        return y if valid == bucket else y[:valid]
+        entry = self.graphs.entry(("forward", bucket, padded.dtype.str), self._forward,
+                                  [(padded.shape, torch.from_numpy(padded[:0]).dtype)])
+        # the rows leave the static output before the next request may
+        # overwrite it
+        return entry.run(padded, post=lambda y: y[:valid].clone())
 
     def _uint8_wire(self) -> bool:
         """uint8 rides to the device raw only for image-shaped value models
@@ -170,8 +187,9 @@ class ModelRuntime:
         return self.int_inputs == "cast" and shape is not None and len(tuple(shape)) >= 2
 
     def warmup(self) -> None:
-        """One forward per bucket and wire dtype ahead of traffic, then
-        resolve offload_compute="auto" from the largest bucket's measured
+        """One forward per bucket and wire dtype ahead of traffic, each
+        captured as a CUDA graph on the card, then resolve
+        offload_compute="auto" from the largest bucket's measured (replayed)
         time. A runtime that offloads to the compute pool on the card also
         runs one forward on each pool thread: PyTorch builds cuDNN and
         cuBLAS handles per thread, and without it the first ResNet50
@@ -186,6 +204,7 @@ class ModelRuntime:
         for b in self.buckets:
             for wire in wires:
                 self.predict(np.zeros((b, *self.feature_shape), dtype=wire))
+        self._warmup_keys = sum(self.compile_counts().values())
         if self.offload_compute_mode == "auto":
             x = np.zeros((max(self.buckets), *self.feature_shape), dtype=wires[0])
             self.stat_forward_ms = self._measure_forward_ms(x)
@@ -204,6 +223,18 @@ class ModelRuntime:
 
         for f in [compute_pool().submit(run) for _ in range(COMPUTE_POOL_WORKERS)]:
             f.result()
+
+    def compile_counts(self) -> dict[str, int]:
+        """Dispatch keys built, per program: on the card each is one captured
+        CUDA graph (the runtime's one program is ``forward``)."""
+        return {"forward": self.graphs.counts().get("forward", 0)}
+
+    def recompiles_since_warmup(self) -> int:
+        """Keys built since warmup(): 0 is the serving invariant; -1 when
+        warmup never ran."""
+        if self._warmup_keys is None:
+            return -1
+        return sum(self.compile_counts().values()) - self._warmup_keys
 
     def _measure_forward_ms(self, x: np.ndarray, runs: int = 3) -> float:
         """Median forward time including readback, which waits for the

@@ -683,7 +683,9 @@ def sequence_logits(params, ids):
 def _tree_tables(tree, device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(ancestor_mask [width, width] bool, block_depth [width], child_table
     [width, max_b]) of a tree on ``device``, copied once: a program that
-    uploaded them per call would wait on the card at every upload."""
+    uploaded them per call would wait on the card at every upload, and a
+    CUDA graph capture refuses the upload, so the decode scheduler makes
+    them when it builds its tree, before any program runs."""
     return (
         torch.from_numpy(tree.ancestor_mask).to(device),
         torch.from_numpy(tree.block_depth).long().to(device),

@@ -309,7 +309,7 @@ def _apply_tiny_gpt(p, x, *, max_new_tokens: int):
     return generate(p, x, max_new_tokens)
 
 
-def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None) -> ModelRuntime:
+def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bool = True) -> ModelRuntime:
     dtype_name = getattr(tpu_cfg, "dtype", "float32")
     if dtype_name not in DTYPES:
         raise ValueError(f"tpu.dtype must be one of {sorted(DTYPES)}, got {dtype_name!r}")
@@ -333,6 +333,7 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None) -> ModelRuntime
         offload_compute=getattr(tpu_cfg, "offload_compute", "auto"),
         layout=ms.layout,
         weight_quant=weight_quant,
+        cuda_graphs=cuda_graphs,
     )
     rt.feature_shape = ms.feature_shape
     rt.generative = ms.generative
@@ -355,15 +356,16 @@ def _parse_zoo_uri(uri: str) -> tuple[str, dict]:
 
 
 def build_runtime_from_uri(
-    uri: str, tpu_cfg, device=None, extra_params: dict | None = None
+    uri: str, tpu_cfg, device=None, extra_params: dict | None = None, cuda_graphs: bool = True
 ) -> ModelRuntime:
     """``extra_params``: unit parameters beyond model/model_uri, merged as
-    builder kwargs under the URI's own query string (the URI wins)."""
+    builder kwargs under the URI's own query string (the URI wins).
+    ``cuda_graphs=False`` builds the eager twin (``ModelRuntime``)."""
     if not uri.startswith("zoo://"):
         raise ValueError(f"unsupported model_uri '{uri}' (the torch port serves zoo:// only)")
     name, kwargs = _parse_zoo_uri(uri)
     ms = get_model(name, **{**(extra_params or {}), **kwargs})
-    return _runtime_from_modelspec(ms, tpu_cfg, device)
+    return _runtime_from_modelspec(ms, tpu_cfg, device, cuda_graphs)
 
 
 def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
@@ -381,11 +383,13 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
     if uri is None:
         raise ValueError(f"JAX_MODEL unit '{spec.name}' needs a model_uri parameter")
     runtime = build_runtime_from_uri(
-        uri, context.get("tpu"), context.get("device"), extra_params=extra
+        uri, context.get("tpu"), context.get("device"), extra_params=extra,
+        cuda_graphs=context.get("cuda_graphs", True),
     )
     return ModelUnit(spec, runtime)
 
 
 def unit_from_container(spec: PredictiveUnit, container: ContainerSpec, context: dict) -> ModelUnit:
-    runtime = build_runtime_from_uri(container.model_uri, context.get("tpu"), context.get("device"))
+    runtime = build_runtime_from_uri(container.model_uri, context.get("tpu"), context.get("device"),
+                                     cuda_graphs=context.get("cuda_graphs", True))
     return ModelUnit(spec, runtime)

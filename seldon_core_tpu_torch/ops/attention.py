@@ -8,6 +8,8 @@ instead of O(seq^2); the JAX ``lax.scan`` over blocks is a Python loop here.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 NEG_INF = -1e30
@@ -20,9 +22,17 @@ FLASH_MIN_SEQ = 1024
 PALLAS_MIN_SEQ = 4096
 
 
+@lru_cache(maxsize=64)
+def _sqrt_d(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """sqrt(d) as a 0-dim tensor on ``device``, uploaded once: a CUDA graph
+    capture refuses an upload, and the eager run before each capture makes
+    this one."""
+    return torch.tensor(d**0.5, dtype=dtype, device=device)
+
+
 def _scaled_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     s = torch.einsum("bhqd,bhkd->bhqk", q, k)
-    return s / torch.tensor(q.shape[-1] ** 0.5, dtype=q.dtype, device=q.device)
+    return s / _sqrt_d(q.shape[-1], q.dtype, q.device)
 
 
 def _block_stats(q, k, v, mask=None):

@@ -38,15 +38,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 class LaunchCounter:
     """How many times a wrapper launched its kernel (compare-only launches
-    included; callers reset it around the run they want to read)."""
+    included; callers reset it around the run they want to read). A replayed
+    CUDA graph adds the launches it holds (``ops/graphs.py``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.count = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:

@@ -3,7 +3,7 @@
 Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
 (Orca-style iteration-level scheduling over a vLLM-style paged KV pool):
 
-- ONE per-step program (``_fused_step``: ``paged_decode_step`` plus
+- ONE per-step program (``_step_logits``: ``paged_decode_step``, then
   sampling) runs over the shared page pool through static-shape
   ``[n_slots, max_pages]`` block tables; slots are assigned per sequence
   and freed on completion.
@@ -11,7 +11,7 @@ Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
   retires finished ones (EOS or the request's own ``max_new_tokens``), so
   batch composition changes at step boundaries while every dispatch keeps
   its shape.
-- Prompts are computed by chunk rounds (``_fused_chunk``) from a small
+- Prompts are computed by chunk rounds (``_chunk_logits``) from a small
   ladder of chunk buckets, interleaved with decode steps; with
   ``decode_prefill_chunk`` a long prompt spreads over several rounds.
 - Prefix reuse (``decode_prefix_slots``): a host-side radix index over
@@ -35,10 +35,21 @@ Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
   what the SSE route forwards.
 
 Device work runs off the event loop on one worker thread per scheduler.
-``compile_counts()`` counts the distinct (program, shape) keys dispatched;
-``warmup()`` dispatches every key serving can need, so no new key may
-appear after it (``recompiles_since_warmup() == 0``), the port's form of
-the JAX package's zero-recompile guard.
+Every (program, shape) key is one CUDA graph on the card (``ops/graphs.py``),
+captured in ``warmup()`` over static inputs, the device block tables
+(``PagedKVPool.bt_device``), the pool and the draft cache, which keep their
+addresses for the scheduler's life; a round writes its arguments into the
+static inputs and replays. The programs are captured up to the logits, and
+sampling stays eager after them, with the draws per (seed, tick, stream)
+unchanged. A speculative round pair samples inside the draft chain and the
+acceptance, so only greedy rounds (every slot at temperature 0) replay the
+captured pair; a round with a sampled slot runs the pair eagerly
+(``stat_eager_rounds``). ``compile_counts()`` counts the keys built, per
+program, under the JAX scheduler's names; ``warmup()`` builds every key
+serving can need, so no new key may appear after it
+(``recompiles_since_warmup() == 0``), the port's form of the JAX package's
+zero-recompile guard. ``cuda_graphs=False`` runs the same keys eagerly on
+the same static buffers (the eager twin).
 
 Greedy equivalence: with greedy sampling every sequence gets, token for
 token, the fused ``generate``'s output, whenever it was admitted and
@@ -88,8 +99,10 @@ from seldon_core_tpu_torch.models.decoder import (
     sampling_generator,
     speculative_accept,
     speculative_accept_tree,
+    _tree_tables,
 )
 from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree, parse_spec_tree
+from seldon_core_tpu_torch.ops.graphs import GraphCache
 from seldon_core_tpu_torch.serving.kv_pool import PagedKVPool
 
 log = logging.getLogger(__name__)
@@ -98,34 +111,29 @@ OnToken = Callable[[int, int], None]  # (token_id, index within the generation)
 
 
 def _sample(logits, temps: np.ndarray, topks: np.ndarray, seed: int, tick: int) -> torch.Tensor:
+    """Eager sampling after a program's logits: the greedy argmax, or draws
+    from the (seed, tick) generator when any slot samples."""
+    if not (temps > 0).any():
+        return torch.argmax(logits, dim=-1).to(torch.int32)
     dev = logits.device
-    gen = sampling_generator(seed, tick, dev) if (temps > 0).any() else None
-    return sample_tokens(logits, to_device(temps, dev), to_device(topks, dev), gen)
+    return sample_tokens(logits, to_device(temps, dev), to_device(topks, dev), sampling_generator(seed, tick, dev))
 
 
-def _fused_step(params, pool, bt, tokens, positions, temps, topks, seed, tick):
-    """One scheduler step: the paged decode step and sampling for every
-    slot. Host arrays in; the next token per slot (int32, on the device)
-    and the pool, written in place, out."""
-    dev = params["tok_emb"].device
-    logits, _hidden, pool = paged_decode_step(
-        params, pool, to_device(bt, dev), to_device(tokens, dev), to_device(positions, dev)
-    )
-    return _sample(logits, temps, topks, seed, tick), pool
+def _step_logits(params, pool, bt, tokens, positions):
+    """The captured half of one scheduler step: the paged decode step for
+    every slot. Returns logits [n, V]; the pool is written in place."""
+    return paged_decode_step(params, pool, bt, tokens, positions)[0]
 
 
-def _fused_chunk(params, pool, bt, ids, positions, counts, temps, topks, seed, tick):
-    """One prefill chunk round: ``paged_chunk_prefill`` over every slot
-    (counts-0 slots ride along, their writes sent to the junk page) and a
-    sample from each slot's last consumed position, which is the first
-    generated token of a slot whose prompt completes this round."""
-    dev = params["tok_emb"].device
-    logits, _hidden, pool = paged_chunk_prefill(
-        params, pool, to_device(bt, dev), to_device(ids, dev), to_device(positions, dev), to_device(counts, dev)
-    )
-    idx = torch.from_numpy(np.clip(counts - 1, 0, ids.shape[1] - 1)).to(dev).long()
-    last = logits[torch.arange(ids.shape[0], device=dev), idx]
-    return _sample(last, temps, topks, seed, tick), pool
+def _chunk_logits(params, pool, bt, ids, positions, counts):
+    """The captured half of one prefill chunk round: ``paged_chunk_prefill``
+    over every slot (counts-0 slots ride along, their writes sent to the
+    junk page) and the logits at each slot's last consumed position, which
+    give the first generated token of a slot whose prompt completes this
+    round. Returns logits [n, V]."""
+    logits, _hidden, _ = paged_chunk_prefill(params, pool, bt, ids, positions, counts)
+    idx = (counts.long() - 1).clamp(0, ids.shape[1] - 1)
+    return logits[torch.arange(ids.shape[0], device=ids.device), idx]
 
 
 # The speculative programs below take tensors already on the device: the
@@ -468,6 +476,7 @@ class DecodeScheduler:
         kv_pages: int = 0,
         kv_dtype: str = "",
         dtype: torch.dtype | None = None,
+        cuda_graphs: bool = True,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -507,8 +516,8 @@ class DecodeScheduler:
             b *= 4
         self.chunk_buckets = tuple(cb) + (top,)
 
-        # distinct (program, shape) keys dispatched: compile_counts()
-        self._dispatch_keys: set = set()
+        # one captured graph per (program, shape) key: compile_counts()
+        self.graphs = GraphCache(params["tok_emb"].device, capture=cuda_graphs)
         dtype = dtype if dtype is not None else params["tok_emb"].dtype
         # spec_k columns of headroom in the pool and the draft cache: a
         # chain round writes a fixed [k+1]-wide block at each slot's
@@ -524,11 +533,21 @@ class DecodeScheduler:
             n_pages=kv_pages,
             kv_dtype=kv_dtype,
             dtype=dtype,
-            dispatch_keys=self._dispatch_keys,
+            graphs=self.graphs,
         )
         self._dtype = dtype
+        dev = self.pool.device
+        # the greedy round pair's temperatures and top-k: a round with no
+        # generator reads neither
+        self._zf = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+        self._zi = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self.stat_eager_rounds = 0  # sampled round pairs, run eagerly
         if self.spec_enabled:
             self._dck, self._dcv = init_slot_cache(self.draft_params, n_slots, self._cache_ctx, dtype)
+            if self.spec_tree is not None:
+                # the tree's constant tables go to the device now, never
+                # inside a program (a capture refuses an upload)
+                _tree_tables(self.spec_tree, dev)
         if self.prefix_enabled:
             self._prefix_index = PrefixIndex(self.prefix_slots)
             self.pool.alloc.on_pins_reclaimed = self._on_pins_reclaimed
@@ -612,61 +631,107 @@ class DecodeScheduler:
         self.admit_buckets = tuple(buckets) + (self.n_slots,)
 
     # ------------------------------------------------------------ dispatch
-    def _step(self, bt, toks, pos, temps, topks, tick) -> np.ndarray:
-        self._dispatch_keys.add(("step", len(toks)))
-        nxt, self.pool.state = _fused_step(
-            self.params, self.pool.state, bt, toks, pos, temps, topks, self._seed, tick
-        )
-        return nxt.cpu().numpy()
+    # Each method runs on the worker thread; the round's block tables are
+    # already in ``pool.bt_device`` (``pool.load_block_tables``).
+    def _step(self, toks, pos, temps, topks, tick) -> np.ndarray:
+        n = len(toks)
+        params, pool, bt = self.params, self.pool.state, self.pool.bt_device
+        entry = self.graphs.entry(("step", n), lambda t, p: _step_logits(params, pool, bt, t, p),
+                                  [((n,), torch.int32), ((n,), torch.int32)])
+        return entry.run(toks, pos, post=lambda logits: _sample(logits, temps, topks, self._seed, tick)).cpu().numpy()
 
-    def _chunk(self, bt, ids, pos, counts, temps, topks, tick) -> np.ndarray:
-        self._dispatch_keys.add(("chunk",) + ids.shape)
-        nxt, self.pool.state = _fused_chunk(
-            self.params, self.pool.state, bt, ids, pos, counts, temps, topks, self._seed, tick
-        )
-        return nxt.cpu().numpy()
+    def _chunk(self, ids, pos, counts, temps, topks, tick) -> np.ndarray:
+        n = len(pos)
+        params, pool, bt = self.params, self.pool.state, self.pool.bt_device
+        entry = self.graphs.entry(("chunk",) + ids.shape,
+                                  lambda i, p, c: _chunk_logits(params, pool, bt, i, p, c),
+                                  [(ids.shape, torch.int32), ((n,), torch.int32), ((n,), torch.int32)])
+        return entry.run(ids, pos, counts, post=lambda logits: _sample(logits, temps, topks, self._seed, tick)
+                         ).cpu().numpy()
 
     def _draft_admit(self, ids, row_for_slot, valid_slot) -> None:
         """The draft's prompt prefill for a wave of slots (``ids`` [bucket,
         seq_len], slot j taking row row_for_slot[j] where valid_slot[j]);
         no readback."""
-        self._dispatch_keys.add(("draft_admit",) + ids.shape)
-        dev = self.pool.device
-        _fused_draft_admit(self.draft_params, self._dck, self._dcv, to_device(ids, dev),
-                           to_device(row_for_slot, dev).long(), to_device(valid_slot, dev))
+        dparams, dck, dcv, n = self.draft_params, self._dck, self._dcv, self.n_slots
+        entry = self.graphs.entry(("draft_admit",) + ids.shape,
+                                  lambda i, r, v: _fused_draft_admit(dparams, dck, dcv, i, r.long(), v),
+                                  [(ids.shape, torch.int32), ((n,), torch.int32), ((n,), torch.bool)])
+        entry.run(ids, row_for_slot, valid_slot, post=lambda _: None)
 
-    def _spec(self, bt, toks, pos, temps, topks, limits, wlimits, tick) -> tuple[np.ndarray, np.ndarray]:
+    def _spec_entries(self, n: int) -> tuple:
+        """The greedy round pair's two entries: the draft program (static
+        inputs: last tokens, positions) and the verify program (static
+        input: the per-slot limits, or width limits on a tree), which reads
+        the draft's inputs and outputs where they lie."""
+        dparams, params, dck, dcv = self.draft_params, self.params, self._dck, self._dcv
+        pool, bt, zf, zi, tree, k = self.pool.state, self.pool.bt_device, self._zf, self._zi, self.spec_tree, self.spec_k
+        ins = [((n,), torch.int32), ((n,), torch.int32)]
+        if tree is None:
+            draft = self.graphs.entry(
+                ("draft", n, k),
+                lambda t, p: _fused_draft(dparams, dck, dcv, t.long(), p.long(), zf, zi, None, k), ins)
+
+            def verify_fn(lim):
+                t, p = (a.long() for a in draft.inputs)
+                drafts, dlogits = draft.outputs
+                return _fused_verify(params, pool, bt, t, drafts, dlogits, p, lim, zf, zi, None)
+
+            return draft, self.graphs.entry(("verify", n, k + 1), verify_fn, [((n,), torch.int32)])
+        draft = self.graphs.entry(
+            ("draft_tree", n, tree.branching),
+            lambda t, p: _fused_draft_tree(dparams, dck, dcv, t.long(), p.long(), zf, zi, None, tree), ins)
+
+        def tree_verify_fn(wl):
+            t, p = (a.long() for a in draft.inputs)
+            node_toks, blogits, nk, nv = draft.outputs
+            return _fused_tree_verify(params, pool, bt, t, node_toks, blogits, nk, nv, dck, dcv, p, wl, zf, zi,
+                                      None, tree)
+
+        return draft, self.graphs.entry(("tree_verify", n, tree.width), tree_verify_fn,
+                                        [((n, tree.depth), torch.int32)])
+
+    def _spec(self, toks, pos, temps, topks, limits, wlimits, tick) -> tuple[np.ndarray, np.ndarray]:
         """One speculative round pair, draft then widened verify, and its one
         readback: (out_tokens [n, spec_k + 1], n_accepted [n]). Every input
         is uploaded before the draft is queued, and nothing between the two
         programs waits on the card. ``wlimits`` (tree deployments) replaces
-        ``limits`` as the verify's per-slot mask."""
+        ``limits`` as the verify's per-slot mask. A greedy round replays the
+        captured pair; a round with a sampled slot runs it eagerly."""
+        lim = limits if wlimits is None else wlimits
+        if (temps > 0).any():
+            out, acc = self._spec_sampled(toks, pos, temps, topks, lim, tick)
+            res = torch.cat([out, acc[:, None]], dim=1)
+        else:
+            draft, verify = self._spec_entries(len(toks))
+            with draft.lock, verify.lock:
+                draft.load(toks, pos)
+                verify.load(lim)
+                draft.replay()
+                out, acc = verify.replay()
+                res = torch.cat([out, acc[:, None]], dim=1)  # off the static outputs
+        res = res.cpu().numpy()
+        return res[:, :-1], res[:, -1]
+
+    def _spec_sampled(self, toks, pos, temps, topks, lim, tick) -> tuple:
+        """The eager round pair: the draft's draws from stream 1 and the
+        acceptance's from stream 2 of the tick's generator."""
+        self.stat_eager_rounds += 1
         dev = self.pool.device
-        n = len(toks)
-        bt_d, toks_d, pos_d, temps_d, topks_d, lim_d = (
-            to_device(a, dev) for a in (bt, toks, pos, temps, topks, limits if wlimits is None else wlimits)
-        )
-        toks_d, pos_d, bt_d = toks_d.long(), pos_d.long(), bt_d.long()
-        sampled = bool((temps > 0).any())
-        g_draft = sampling_generator(self._seed, tick, dev, STREAM_DRAFT) if sampled else None
-        g_verify = sampling_generator(self._seed, tick, dev, STREAM_VERIFY) if sampled else None
+        toks_d, pos_d, temps_d, topks_d, lim_d = (to_device(a, dev) for a in (toks, pos, temps, topks, lim))
+        toks_d, pos_d, bt_d = toks_d.long(), pos_d.long(), self.pool.bt_device
+        g_draft = sampling_generator(self._seed, tick, dev, STREAM_DRAFT)
+        g_verify = sampling_generator(self._seed, tick, dev, STREAM_VERIFY)
         tree = self.spec_tree
         if tree is None:
-            self._dispatch_keys.add(("draft", n, self.spec_k))
-            self._dispatch_keys.add(("verify", n, self.spec_k + 1))
             drafts, dlogits = _fused_draft(self.draft_params, self._dck, self._dcv, toks_d, pos_d, temps_d, topks_d,
                                            g_draft, self.spec_k)
-            out, acc = _fused_verify(self.params, self.pool.state, bt_d, toks_d, drafts, dlogits, pos_d, lim_d,
-                                     temps_d, topks_d, g_verify)
-        else:
-            self._dispatch_keys.add(("draft_tree", n, tree.branching))
-            self._dispatch_keys.add(("tree_verify", n, tree.width))
-            node_toks, blogits, nk, nv = _fused_draft_tree(self.draft_params, self._dck, self._dcv, toks_d, pos_d,
-                                                           temps_d, topks_d, g_draft, tree)
-            out, acc = _fused_tree_verify(self.params, self.pool.state, bt_d, toks_d, node_toks, blogits, nk, nv,
-                                          self._dck, self._dcv, pos_d, lim_d, temps_d, topks_d, g_verify, tree)
-        res = torch.cat([out, acc[:, None]], dim=1).cpu().numpy()
-        return res[:, :-1], res[:, -1]
+            return _fused_verify(self.params, self.pool.state, bt_d, toks_d, drafts, dlogits, pos_d, lim_d,
+                                 temps_d, topks_d, g_verify)
+        node_toks, blogits, nk, nv = _fused_draft_tree(self.draft_params, self._dck, self._dcv, toks_d, pos_d,
+                                                       temps_d, topks_d, g_draft, tree)
+        return _fused_tree_verify(self.params, self.pool.state, bt_d, toks_d, node_toks, blogits, nk, nv,
+                                  self._dck, self._dcv, pos_d, lim_d, temps_d, topks_d, g_verify, tree)
 
     def _on_worker(self, fn):
         with torch.inference_mode():
@@ -677,41 +742,43 @@ class DecodeScheduler:
         return await asyncio.get_running_loop().run_in_executor(self._worker, self._on_worker, fn)
 
     def warmup(self) -> None:
-        """Dispatch every (program, shape) key serving can need — each chunk
-        bucket, the step, the copy ladder and, with speculation, the draft
-        admit per wave bucket and the round pair — on the worker thread,
-        with all-zero block tables, counts and limits, so every pool write
-        lands in junk page 0 (the draft cache's junk is overwritten by each
-        admission). compile_counts() after this is the baseline."""
+        """Build (on the card: capture) every (program, shape) key serving
+        can need — each chunk bucket, the step, the copy ladder and, with
+        speculation, the draft admit per wave bucket and the greedy round
+        pair — on the worker thread, with all-zero block tables, counts and
+        limits, so every pool write lands in junk page 0 (the draft cache's
+        junk is overwritten by each admission). compile_counts() after this
+        is the baseline."""
 
         def run():
             z = np.zeros(self.n_slots, np.int32)
             zf = np.zeros(self.n_slots, np.float32)
-            bt0 = self.pool.block_tables()
+            self.pool.load_block_tables(self.pool.block_tables())
             for c in self.chunk_buckets:
-                self._chunk(bt0, np.zeros((self.n_slots, c), np.int32), z, z, zf, z, 0)
+                self._chunk(np.zeros((self.n_slots, c), np.int32), z, z, zf, z, 0)
             self.pool.warmup()
-            self._step(bt0, z, z, zf, z, 0)
+            self._step(z, z, zf, z, 0)
             if self.spec_enabled:
                 for b in self.admit_buckets:
                     self._draft_admit(np.zeros((b, self.seq_len), np.int32), z, np.zeros(self.n_slots, bool))
                 wl0 = None if self.spec_tree is None else np.zeros((self.n_slots, self.spec_k), np.int32)
-                self._spec(bt0, z, z, zf, z, z, wl0, 0)
+                self._spec(z, z, zf, z, z, wl0, 0)
 
         self._worker.submit(self._on_worker, run).result()
         self._warmup_keys = sum(self.compile_counts().values())
 
     def compile_counts(self) -> dict[str, int]:
-        """Distinct (program, shape) keys dispatched, per program."""
+        """(program, shape) keys built, per program, under the JAX
+        scheduler's names: on the card each is one captured CUDA graph."""
         names = ["step", "chunk", "copy"]
         if self.spec_enabled:
             names += ["draft_admit"] + (["draft", "verify"] if self.spec_tree is None else ["draft_tree", "tree_verify"])
-        counts = collections.Counter(k[0] for k in self._dispatch_keys)
+        counts = self.graphs.counts()
         return {name: counts.get(name, 0) for name in names}
 
     def recompiles_since_warmup(self) -> int:
-        """New (program, shape) keys since warmup(): 0 is the serving
-        invariant; -1 when warmup never ran."""
+        """Keys built since warmup(): 0 is the serving invariant; -1 when
+        warmup never ran."""
         if self._warmup_keys is None:
             return -1
         return sum(self.compile_counts().values()) - self._warmup_keys
@@ -963,7 +1030,8 @@ class DecodeScheduler:
         admit = self._draft_admit_arrays(finishing) if self.spec_enabled and finishing else None
 
         def run():
-            toks = self._chunk(bt, ids, pos, counts, temps, topks, tick)
+            self.pool.load_block_tables(bt)
+            toks = self._chunk(ids, pos, counts, temps, topks, tick)
             if admit is not None:
                 self._draft_admit(*admit)
             return toks
@@ -1057,12 +1125,20 @@ class DecodeScheduler:
         bt = self.pool.block_tables()
         tick = self._next_tick()
         if spec_round:
-            out_t, acc = await self._device_call(
-                lambda: self._spec(bt, toks, pos, temps, topks, limits, wlimits, tick)
-            )
+
+            def spec():
+                self.pool.load_block_tables(bt)
+                return self._spec(toks, pos, temps, topks, limits, wlimits, tick)
+
+            out_t, acc = await self._device_call(spec)
             self._consume_spec(out_t, acc, limits)
             return
-        nxt = await self._device_call(lambda: self._step(bt, toks, pos, temps, topks, tick))
+
+        def step():
+            self.pool.load_block_tables(bt)
+            return self._step(toks, pos, temps, topks, tick)
+
+        nxt = await self._device_call(step)
         self.stat_steps += 1
         for i in gen:
             seq = self._slots[i]
@@ -1133,7 +1209,10 @@ class DecodeScheduler:
         and no index entry pointing into the old one."""
         self.pool.reset()
         if self.spec_enabled:
-            self._dck, self._dcv = init_slot_cache(self.draft_params, self.n_slots, self._cache_ctx, self._dtype)
+            # in place: the captured programs hold the cache's addresses
+            with torch.inference_mode():
+                self._dck.zero_()
+                self._dcv.zero_()
         if self.prefix_enabled:
             self._prefix_index.clear()
 
@@ -1316,4 +1395,5 @@ def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
         kv_pages=int(tpu_spec.decode_kv_pages),
         kv_dtype=str(tpu_spec.decode_kv_dtype),
         dtype=runtime.dtype,
+        cuda_graphs=runtime.cuda_graphs,
     )

@@ -12,7 +12,9 @@ paging, Kwon et al., SOSP 2023):
   write into a shared page, and LRU reclaim of prefix pins when the free
   list runs dry;
 - block tables carried as a static-shape ``[n_slots, max_pages]`` int32
-  array;
+  array on the host, and as ONE device tensor of that shape
+  (``bt_device``) that the decode programs read, written in place from the
+  host table before each round (a CUDA graph holds its address);
 - reservation-based admission: a sequence admits only when the pool can
   guarantee its worst-case EXCLUSIVE page need, so admission throttles
   instead of deadlocking mid-decode.
@@ -31,8 +33,8 @@ import logging
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.core.tensor import to_device
 from seldon_core_tpu_torch.models.decoder import paged_copy, paged_kv_init
+from seldon_core_tpu_torch.ops.graphs import GraphCache, StaticBuffer
 
 log = logging.getLogger(__name__)
 
@@ -334,8 +336,9 @@ class PagedKVPool:
     ``cache_ctx`` is the per-slot virtual context (seq + max_new).
     ``n_pages=0`` sizes the pool to the flat-equivalent capacity (every slot
     can hold its full context with no sharing); smaller explicit budgets
-    are where paging pays. ``dispatch_keys`` is the scheduler's record of
-    distinct (program, shape) dispatches; the copy ladder adds its own."""
+    are where paging pays. ``graphs`` is the scheduler's graph cache: each
+    copy bucket is one of its dispatch keys (``copy``), one captured graph
+    on the card."""
 
     def __init__(
         self,
@@ -347,7 +350,7 @@ class PagedKVPool:
         n_pages: int = 0,
         kv_dtype: str = "",
         dtype=torch.float32,
-        dispatch_keys: set | None = None,
+        graphs: GraphCache | None = None,
     ):
         if kv_dtype not in ("", "int8"):
             raise ValueError(
@@ -361,11 +364,14 @@ class PagedKVPool:
         self._dtype = dtype
         self.device = params["tok_emb"].device
         self.n_slots = int(n_slots)
-        self.dispatch_keys = dispatch_keys if dispatch_keys is not None else set()
+        self.graphs = graphs if graphs is not None else GraphCache(self.device)
         self.alloc = PageAllocator(
             self.n_pages, self.page_size, self.n_slots, self.pages_per_slot
         )
+        # the pool's tensors keep their addresses for the scheduler's life:
+        # captured graphs write and read them in place
         self.state = paged_kv_init(params, self.n_pages, self.page_size, dtype, kv_dtype)
+        self._bt = StaticBuffer(self.alloc.block_tables.shape, torch.int32, self.device)
         buckets, b = [], 1
         while b < self.n_slots:
             buckets.append(b)
@@ -378,13 +384,24 @@ class PagedKVPool:
         return self.pages_per_slot * self.page_size
 
     def block_tables(self) -> np.ndarray:
-        """Fresh host copy of the block tables for one dispatch."""
+        """Fresh host copy of the block tables for one round."""
         return self.alloc.block_tables.copy()
 
+    @property
+    def bt_device(self) -> torch.Tensor:
+        """The device block tables every decode program reads."""
+        return self._bt.tensor
+
+    def load_block_tables(self, bt: np.ndarray) -> None:
+        """Write a round's host block tables into ``bt_device``, in place,
+        ahead of the round's programs on the current stream."""
+        self._bt.write(bt)
+
     def _copy(self, src: np.ndarray, dst: np.ndarray) -> None:
-        self.dispatch_keys.add(("copy", len(src)))
-        with torch.inference_mode():
-            paged_copy(self.state, to_device(src, self.device), to_device(dst, self.device))
+        state = self.state
+        entry = self.graphs.entry(("copy", len(src)), lambda s, d: paged_copy(state, s, d),
+                                  [(src.shape, torch.int64), (dst.shape, torch.int64)])
+        entry.run(src, dst, post=lambda _: None)
 
     def run_copies(self, copies: list[tuple[int, int]]) -> None:
         """Run the round's copy-on-write page copies through the bucket
@@ -409,13 +426,15 @@ class PagedKVPool:
             self._copy(np.zeros(b, np.int64), np.zeros(b, np.int64))
 
     def reset(self) -> None:
-        """Post-failure recovery: reallocate the pool and drop every host
-        mapping with it."""
+        """Post-failure recovery: a fresh allocator, and the pool's tensors
+        rewritten in place to their initial bytes (captured graphs keep
+        their addresses)."""
         on_reclaimed = self.alloc.on_pins_reclaimed
         self.alloc = PageAllocator(
             self.n_pages, self.page_size, self.n_slots, self.pages_per_slot
         )
         self.alloc.on_pins_reclaimed = on_reclaimed
-        self.state = paged_kv_init(
-            self._params, self.n_pages, self.page_size, self._dtype, self.kv_dtype
-        )
+        fresh = paged_kv_init(self._params, self.n_pages, self.page_size, self._dtype, self.kv_dtype)
+        with torch.inference_mode():
+            for a, f in zip(self.state, fresh):
+                a.copy_(f)

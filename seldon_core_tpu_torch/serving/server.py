@@ -42,6 +42,7 @@ class PredictorServer:
         deployment_name: str = "",
         enable_batching: bool = True,
         device=None,
+        cuda_graphs: bool = True,
     ):
         self.predictor = predictor
         self.deployment_name = deployment_name
@@ -50,8 +51,10 @@ class PredictorServer:
         problems = spec_problems(predictor.name, predictor.tpu)
         if problems:
             raise ValueError("; ".join(problems))
+        # cuda_graphs=False: every runtime and the decode scheduler run their
+        # dispatch keys eagerly (the eager twins the card checks compare with)
         self.executor: GraphExecutor = build_executor(
-            predictor, context={"device": self.device}
+            predictor, context={"device": self.device, "cuda_graphs": cuda_graphs}
         )
         self.decode_scheduler = scheduler_for_executor(self.executor, predictor.tpu)
         self.batcher = (
@@ -77,7 +80,9 @@ class PredictorServer:
 
     def warmup(self) -> None:
         """One forward per batch bucket of every model, and every dispatch
-        shape of the decode scheduler, before traffic."""
+        shape of the decode scheduler, before traffic: on the card each is
+        captured as a CUDA graph (``ops/graphs.py``) unless the server was
+        built with ``cuda_graphs=False``."""
         for node in self.executor.root.walk():
             runtime = getattr(node.unit, "runtime", None)
             if runtime is not None and runtime.feature_shape is not None:

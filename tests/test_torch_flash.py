@@ -272,6 +272,9 @@ def test_bert_pallas_arm_launches_the_kernel_on_card(cuda, dtype, tol):
 
     ms = get_model("bert_tiny", seed=2, seq=128, attn_kernel="pallas")
     rt = _runtime_from_modelspec(ms, TpuSpec(batch_buckets=(4,), max_batch=4, dtype=dtype), cuda)
+    # warmed as served: a key's first use also runs the eager forward its
+    # graph is captured from, which launches the kernel too
+    rt.warmup()
     ids = np.random.default_rng(0).integers(0, 1024, size=(3, 128))
     before = LAUNCHES.count
     got = rt.predict(ids)
