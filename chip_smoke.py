@@ -96,6 +96,24 @@ Phases, each of which raises on failure (no phase catches its own):
    installed (fallback and breaker, a deadline tag's 504, a breakered node
    without fallback answering 500 then 503 with Retry-After, and
    ``batch_across_requests`` false walking each request alone).
+8. telemetry, which every phase ran with at its defaults: 50 one-row
+   requests each on ``bert_base_flash`` and the DAG, each with its own W3C
+   ``traceparent`` and the ``trace`` tag, every ``/traces/{puid}`` a tree
+   (an ingress root continuing the header, one batcher span, one span per
+   unit call, children inside their parents) and ``/metrics`` counts rising
+   by exactly the requests and unit calls (and one DAG feedback);
+   ``iris_fallback_breaker`` with a failing primary, its retry, fault,
+   degraded and breaker metrics against the traces and the fault schedule;
+   ``gpt_continuous_batching``'s ``/decode/flight`` frames against the
+   served tokens, ``/decode/health``, ``/decode/profile`` (``?hz`` capped
+   at 200), an SLO copy's attainment counters; the decode round's split
+   (busy against gap, enqueue against readback per family, the gap by
+   phase) with ``ENGINE_FLIGHT_SYNC_TIMING`` off and on, also for
+   ``gpt2_small_speculative``; the step's wall with the recorder on and
+   off, and an idle step direct, through the worker and the hop alone;
+   iris and the DAG under the load generator at 16 users with telemetry on
+   and off, in turns. A dropped span, a metric off by one and a frame that
+   loses a token must each fail their check.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -110,6 +128,7 @@ import asyncio
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -356,14 +375,17 @@ def check_flash(case, card):
 
 
 async def _request(port: int, body: bytes, ctype: str = "application/json",
-                   path: str = "/api/v0.1/predictions") -> tuple[int, dict, bytes, float]:
-    """One POST through the port's REST ingress: (status, lower-case headers,
-    body, wall ms from connect to the last byte)."""
+                   path: str = "/api/v0.1/predictions", headers: dict | None = None,
+                   method: str = "POST") -> tuple[int, dict, bytes, float]:
+    """One request through the port's REST ingress (a POST unless told):
+    (status, lower-case headers, body, wall ms from connect to the last
+    byte)."""
     t0 = time.perf_counter()
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items()).encode()
     writer.write(
-        b"POST %s HTTP/1.1\r\nHost: localhost\r\nContent-Type: %s\r\nContent-Length: %d\r\n"
-        b"Connection: close\r\n\r\n" % (path.encode(), ctype.encode(), len(body)) + body
+        b"%s %s HTTP/1.1\r\nHost: localhost\r\nContent-Type: %s\r\nContent-Length: %d\r\n%s"
+        b"Connection: close\r\n\r\n" % (method.encode(), path.encode(), ctype.encode(), len(body), extra) + body
     )
     await writer.drain()
     raw = await reader.read()
@@ -611,10 +633,11 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-async def _start(path: Path, cuda_graphs: bool = True):
+async def _start(path: Path, cuda_graphs: bool = True, **server_kw):
     """A warmed PredictorServer for one deployment file, serving REST on a
     free port on the card; returns it with its build and warmup seconds.
-    ``cuda_graphs=False`` builds the eager twin. The server's
+    ``cuda_graphs=False`` builds the eager twin; ``server_kw`` goes to the
+    server (``metrics_enabled=False``). The server's
     ``warmup_reserved_bytes`` is the growth of torch.cuda.memory_reserved()
     over its warmup (from an emptied cache): on the captured server, the
     graph pool."""
@@ -624,7 +647,7 @@ async def _start(path: Path, cuda_graphs: bool = True):
 
     predictor, name = load_predictor(str(path))
     t0 = time.perf_counter()
-    server = PredictorServer(predictor, deployment_name=name, device=DEVICE, cuda_graphs=cuda_graphs)
+    server = PredictorServer(predictor, deployment_name=name, device=DEVICE, cuda_graphs=cuda_graphs, **server_kw)
     t1 = time.perf_counter()
     on_card = DEVICE == "cuda"
     if on_card:
@@ -2319,6 +2342,477 @@ async def baseline_twins(card) -> dict:
             for name, load in loads.items()}
 
 
+# ------------------------------------------------------ phase 8: telemetry
+# Every server of phases 3-7 runs with telemetry at its defaults (tracing,
+# metrics and the flight recorder on). Phase 8 reads what it recorded:
+# request traces, /metrics, the decode flight frames and the profiler,
+# each check shown to fail on a planted fault, and prints the split of a
+# served request, the decode round's host phases and telemetry's cost.
+TRACE_REQUESTS = 50
+TELEMETRY_LOAD_USERS = 16  # at or past the saturating point of iris and the DAG (PERF.md)
+_LABEL_RE = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def metric_samples(text: str) -> dict:
+    """Prometheus 0.0.4 text -> {(sample name, sorted label pairs): value}
+    (the card's host has no prometheus_client to parse it)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        out[(name, tuple(sorted(_LABEL_RE.findall(labels))))] = float(value)
+    return out
+
+
+def metric_total(samples: dict, name: str, **labels) -> float:
+    return sum(v for (n, ls), v in samples.items() if n == name and all((k, v2) in ls for k, v2 in labels.items()))
+
+
+async def _get(port: int, path: str):
+    status, _, body, _ = await _request(port, b"", path=path, method="GET")
+    if status != 200:
+        raise AssertionError(f"GET {path} answered {status}: {body[:300]!r}")
+    return body
+
+
+def _traceparent(name: str, i: int) -> tuple[str, str, str]:
+    """Request ``i``'s header: a trace id of its own (fragments under one
+    trace id merge in the store) and a caller's span id."""
+    import zlib
+
+    trace_id, parent = f"{zlib.crc32(name.encode()):08x}{i + 1:024x}", f"{0xa11ce + i:016x}"
+    return f"00-{trace_id}-{parent}-01", trace_id, parent
+
+
+def expected_calls(node, routing: dict) -> list:
+    """The unit calls a request's walk makes, from the graph and its
+    routing: ``name.method`` per call, in walk order."""
+    from seldon_core_tpu_torch.engine.executor import _has_method
+    from seldon_core_tpu_torch.graph.spec import PredictiveUnitMethod as M
+
+    calls = []
+    if _has_method(node, M.TRANSFORM_INPUT):
+        calls.append(f"{node.name}.transform_input")
+    if node.children:
+        if _has_method(node, M.ROUTE):
+            calls.append(f"{node.name}.route")
+        branch = routing.get(node.name, -1)
+        for c in (node.children if branch < 0 else [node.children[branch]]):
+            calls += expected_calls(c, routing)
+        if _has_method(node, M.AGGREGATE):
+            calls.append(f"{node.name}.aggregate")
+    if _has_method(node, M.TRANSFORM_OUTPUT):
+        calls.append(f"{node.name}.transform_output")
+    return calls
+
+
+def check_trace(rec: dict, trace_id: str, parent: str, calls: list) -> dict:
+    """A served request's span tree: an ingress root continuing the header
+    (its trace id, parented to its span), one batcher child, one unit span
+    per unit call under the batcher, every child inside its parent's
+    interval. Returns the request's split in ms."""
+    spans = rec["trace"]
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s for s in spans if s["name"] == "ingress"]
+    if rec["trace_id"] != trace_id or len(roots) != 1 or roots[0]["parent_id"] != parent:
+        raise AssertionError(f"trace {rec['trace_id']}: want one ingress root continuing {trace_id}/{parent}")
+    root = roots[0]
+    batchers = [s for s in spans if s["name"] == "batcher"]
+    if len(batchers) != 1 or batchers[0]["parent_id"] != root["span_id"]:
+        raise AssertionError(f"trace {trace_id}: {len(batchers)} batcher spans, want one under the root")
+    batcher = batchers[0]
+    units = [s for s in spans if "unit" in s.get("attrs", {}) and "method" in s.get("attrs", {})]
+    if sorted(s["name"] for s in units) != sorted(calls) or any(s["parent_id"] != batcher["span_id"] for s in units):
+        raise AssertionError(f"trace {trace_id}: unit spans {[s['name'] for s in units]}, want {calls} under the "
+                             f"batcher")
+    if len(spans) != 2 + len(units):
+        raise AssertionError(f"trace {trace_id}: {len(spans)} spans, want {2 + len(units)}")
+    for s in spans:
+        p = by_id.get(s["parent_id"])
+        if p is not None and not (p["start_ns"] <= s["start_ns"] <= s["end_ns"] <= p["end_ns"]):
+            raise AssertionError(f"trace {trace_id}: span {s['name']} leaves its parent {p['name']}'s interval")
+    children = sum(s["end_ns"] - s["start_ns"] for s in spans if s["parent_id"] == root["span_id"])
+    return {"root_ms": root["ms"], "batcher_ms": batcher["ms"],
+            "queue_wait_ms": batcher["attrs"]["queue_wait_ms"],
+            "ingress_self_ms": (root["end_ns"] - root["start_ns"] - children) / 1e6,
+            **{f"unit {s['name']}": s["ms"] for s in units}}
+
+
+def check_delta(label: str, before: dict, after: dict, name: str, want: float, **labels) -> None:
+    got = metric_total(after, name, **labels) - metric_total(before, name, **labels)
+    if got != want:
+        raise AssertionError(f"{label}: {name}{labels} moved by {got}, want {want}")
+
+
+def check_flight(label: str, frames: list, tokens: int, requests: int) -> None:
+    """The frames of a decode run total what was served: tokens, and one
+    admission and one retirement per request."""
+    got = (sum(f["tokens"] for f in frames), sum(f.get("admitted", 0) for f in frames),
+           sum(f.get("retired", 0) for f in frames))
+    if got != (tokens, requests, requests):
+        raise AssertionError(f"{label}: flight frames total (tokens, admitted, retired) {got}, "
+                             f"want {(tokens, requests, requests)}")
+
+
+def must_fail(label: str, fn) -> None:
+    """A planted fault: the check must raise."""
+    try:
+        fn()
+    except AssertionError:
+        return
+    raise AssertionError(f"planted fault passed its check: {label}")
+
+
+def _mean(rows: list) -> dict:
+    """Per key, the mean over the rows that have it (a routed arm's span
+    over the requests routed to it)."""
+    keys = sorted({k for r in rows for k in r})
+    return {k: round(sum(r[k] for r in rows if k in r) / sum(k in r for r in rows), 4) for k in keys}
+
+
+async def serve_traces(card, name: str) -> dict:
+    """Phase 8a: TRACE_REQUESTS one-row requests, each with its own
+    traceparent header and the ``trace`` tag (a trace continuing a caller's
+    header is kept only when flagged: the reference's tail sampling), one
+    after another; each GET /traces/{puid} held by ``check_trace``;
+    /metrics: the ingress count rises by the requests, each unit call's
+    count by the requests that made it; on the DAG one feedback moves
+    ``seldon_api_model_feedback``. Returns the mean split."""
+    import numpy as np
+
+    server, *_ = await _start(BASELINE_DIR / f"{name}.json")
+    rt = _runtimes(server)[0][1]
+    rng = np.random.default_rng(12)
+    dep, pred = server.deployment_name, server.predictor.name
+    splits, calls_made = [], {}
+    try:
+        before = metric_samples((await _get(server.port, "/metrics")).decode())
+        last = None
+        for i in range(TRACE_REQUESTS):
+            header, trace_id, parent = _traceparent(name, i)
+            ids = rng.integers(0, rt.params["tok_emb"].shape[0], size=(1, rt.feature_shape[0]))
+            body = {"meta": {"puid": f"{name}-trace-{i}", "tags": {"trace": 1}}, "data": {"ndarray": ids.tolist()}}
+            status, _, out, client_ms = await _request(server.port, json.dumps(body).encode(),
+                                                       headers={"traceparent": header})
+            if status != 200:
+                raise AssertionError(f"{name} traced request answered {status}: {out[:300]!r}")
+            last = json.loads(out)
+            calls = expected_calls(server.executor.root, last["meta"].get("routing", {}))
+            for c in calls:
+                calls_made[c] = calls_made.get(c, 0) + 1
+            rec = json.loads(await _get(server.port, f"/traces/{name}-trace-{i}"))
+            split = check_trace(rec, trace_id, parent, calls)
+            # what the client waited beyond the root span: the HTTP parse,
+            # the JSON codecs outside the service, the event loop's turns
+            splits.append({**split, "client_ms": client_ms, "outside_root_ms": client_ms - split["root_ms"]})
+        if name == "full_dag_bert":
+            fb = json.dumps({"response": last, "reward": 1.0}).encode()
+            status, _, out, _ = await _request(server.port, fb, path="/api/v0.1/feedback")
+            if status != 200:
+                raise AssertionError(f"feedback answered {status}: {out[:200]!r}")
+        after = metric_samples((await _get(server.port, "/metrics")).decode())
+        recompiles = {n: r.recompiles_since_warmup() for n, r in _runtimes(server)}
+    finally:
+        await server.stop()
+    if any(recompiles.values()):
+        raise AssertionError(f"{name}: new keys after warmup with telemetry on: {recompiles}")
+    ingress = "seldon_api_ingress_server_requests_duration_seconds_count"
+    unit = "seldon_api_engine_client_requests_duration_seconds_count"
+    check_delta(name, before, after, ingress, TRACE_REQUESTS, deployment_name=dep, method="predict")
+    for call, n in calls_made.items():
+        node, method = call.rsplit(".", 1)
+        check_delta(name, before, after, unit, n, deployment_name=dep, predictor_name=pred, model_name=node,
+                    method=method)
+    if name == "full_dag_bert":
+        router = server.executor.root.children[0].name
+        check_delta(name, before, after, "seldon_api_model_feedback_total", 1, model_name=router)
+        check_delta(name, before, after, ingress, 1, method="feedback")
+    # planted faults: a dropped span, a metric off by one
+    rec = json.loads(json.dumps(rec))
+    _, trace_id, parent = _traceparent(name, TRACE_REQUESTS - 1)
+    for drop in ("batcher", calls[-1]):
+        cut = dict(rec, trace=[s for s in rec["trace"] if s["name"] != drop])
+        must_fail(f"{name}: trace without its {drop} span", lambda: check_trace(cut, trace_id, parent, calls))
+    must_fail(f"{name}: ingress count off by one", lambda: check_delta(
+        name, before, after, ingress, TRACE_REQUESTS + 1, deployment_name=dep, method="predict"))
+    split = _mean(splits)
+    print(f"[{card}] telemetry {name} bucket 1: {TRACE_REQUESTS} traces held (root continues the header, one "
+          f"batcher, one span per unit call {sorted(calls_made)}, children inside parents); /metrics ingress "
+          f"+{TRACE_REQUESTS}, unit calls {json.dumps(calls_made)}; mean split ms {json.dumps(split)}", flush=True)
+    return split
+
+
+async def telemetry_faults(card) -> dict:
+    """Phase 8b: iris_fallback_breaker with a failing primary (phase 7's
+    traffic, each request traced): retries equal the traces' retry events,
+    injected faults the fault schedule's calls, one degraded response per
+    request, the breaker open."""
+    from seldon_core_tpu_torch.engine.faults import FaultSpec, install_faults
+
+    server, *_ = await _start(BASELINE_DIR / "iris_fallback_breaker.json")
+    dep = server.deployment_name
+    retry_events = 0
+    try:
+        sched = install_faults(server.executor, {"iris-primary": FaultSpec(error_rate=1.0, seed=5)})
+        before = metric_samples((await _get(server.port, "/metrics")).decode())
+        for i in range(4):
+            body = {"meta": {"puid": f"faults-{i}", "tags": {"trace": 1}}, "data": {"ndarray": [[5.1, 3.5, 1.4, 0.2]]}}
+            status, out, _ = await _post(server.port, json.dumps(body).encode())
+            if status != 200 or out["meta"]["tags"].get("degraded") != "router_fallback":
+                raise AssertionError(f"a failing primary was not served by the fallback: {status} {out}")
+            rec = json.loads(await _get(server.port, f"/traces/faults-{i}"))
+            retry_events += sum(e["name"] == "retry" for s in rec["trace"] for e in s.get("events", []))
+        after = metric_samples((await _get(server.port, "/metrics")).decode())
+        calls = sched["iris-primary"].calls
+    finally:
+        await server.stop()
+    check_delta("faults", before, after, "seldon_tpu_retries_total", retry_events, deployment_name=dep,
+                model_name="iris-primary")
+    check_delta("faults", before, after, "seldon_tpu_faults_injected_total", calls, deployment_name=dep,
+                model_name="iris-primary", kind="error")
+    check_delta("faults", before, after, "seldon_tpu_degraded_responses_total", 4, deployment_name=dep,
+                mode="router_fallback")
+    check_delta("faults", before, after, "seldon_tpu_breaker_transitions_total", 1, deployment_name=dep,
+                endpoint="iris-primary", state="open")
+    state = metric_total(after, "seldon_tpu_breaker_state", deployment_name=dep, endpoint="iris-primary")
+    if state != 2 or retry_events == 0:
+        raise AssertionError(f"breaker state gauge {state} (want 2 = open), retry events {retry_events}")
+    must_fail("faults: degraded off by one", lambda: check_delta(
+        "faults", before, after, "seldon_tpu_degraded_responses_total", 5, deployment_name=dep,
+        mode="router_fallback"))
+    out = {"retries": retry_events, "faults": calls, "degraded": 4, "breaker_state": state}
+    print(f"[{card}] telemetry faults iris_fallback_breaker: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_split(frames: list) -> dict:
+    """Per round, from /decode/flight frames: wall, busy and gap; enqueue and
+    readback per family; the gap by phase, each as ms and as a share of the
+    round's wall."""
+    n = len(frames)
+    fam = {}
+    for f in frames:
+        for k, v in f.get("busy_us", {}).items():
+            fam.setdefault(k, [0.0, 0.0])[0] += v
+        for k, v in f.get("rdb_us", {}).items():
+            fam.setdefault(k, [0.0, 0.0])[1] += v
+    busy = sum(v[0] for v in fam.values()) / n / 1e3
+    gap = sum(f["gap_us"] for f in frames) / n / 1e3
+    wall = busy + gap
+    phases = {}
+    for f in frames:
+        for k, v in f.get("phase_us", {}).items():
+            phases[k] = phases.get(k, 0.0) + v
+    modes = {}
+    for f in frames:
+        modes[f["mode"]] = modes.get(f["mode"], 0) + 1
+    return {
+        "rounds": n, "modes": modes, "wall_ms": round(wall, 4), "busy_ms": round(busy, 4), "gap_ms": round(gap, 4),
+        "families_ms": {k: {"enqueue": round((b - r) / n / 1e3, 4), "readback": round(r / n / 1e3, 4)}
+                        for k, (b, r) in fam.items()},
+        "phases_ms": {k: round(v / n / 1e3, 4) for k, v in sorted(phases.items(), key=lambda kv: -kv[1])},
+        "phase_share_of_wall": {k: round(v / n / 1e3 / wall, 4) for k, v in phases.items()} if wall else {},
+    }
+
+
+async def _frames_of(port: int, name: str, since: int) -> list:
+    rep = json.loads(await _get(port, "/decode/flight?n=4096"))["recorders"][name]
+    return [f for f in rep["frames"] if f["seq"] >= since]
+
+
+async def decode_phases(card, name: str, traffic, sched, port: int, dep: str) -> dict:
+    """The round split of ``traffic`` with ENGINE_FLIGHT_SYNC_TIMING off,
+    then on (a synchronize after every dispatch: each family's enqueue
+    column is then the device's wall)."""
+    out = {}
+    for sync in (False, True):
+        sched._sync_timing = sync
+        since = sched.flight.rounds
+        await traffic(port)
+        out["sync_on" if sync else "sync_off"] = phase_split(await _frames_of(port, dep, since))
+    sched._sync_timing = False
+    print(f"[{card}] telemetry decode phases {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+async def step_hop(sched, reps: int = 50) -> dict:
+    """With no traffic: one plain step called directly (``_step``: inputs
+    uploaded, the replay, sampling, the readback), the same through the
+    worker thread as a round calls it, and the worker hop alone — the
+    median ms of each."""
+    import numpy as np
+
+    n = sched.n_slots
+    z, pos = np.zeros(n, np.int32), np.full(n, sched.max_ctx - 1, np.int32)
+    bt, zf = sched.pool.block_tables(), np.zeros(n, np.float32)
+
+    def step():
+        sched.pool.load_block_tables(bt)
+        sched._step(z, pos, zf, z, 0)
+
+    async def timed(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            await fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return round(sorted(times)[reps // 2], 4)
+
+    async def direct():
+        sched._on_worker(step)
+
+    return {"direct": await timed(direct), "via_worker": await timed(lambda: sched._device_call(step)),
+            "hop_only": await timed(lambda: sched._device_call(lambda: None))}
+
+
+async def serve_decode_telemetry(card) -> dict:
+    """Phase 8c: gpt_continuous_batching under phase 5's traffic (16
+    staggered requests, mixed budgets): /decode/flight frames total the
+    served tokens, admissions and retirements; /decode/health reads the
+    bubble; /decode/profile has samples of the loop's thread (?hz=200);
+    the round split with sync timing off and on; the step's wall with the
+    recorder on and off, in turns. A copy with decode_slo_ttft_ms huge and
+    decode_slo_itl_ms tiny: every TTFT meets its SLO and every later token
+    breaches, on /metrics. Then gpt2_small_speculative's round split."""
+    import numpy as np
+
+    out = {}
+    path = BASELINE_DIR / "gpt_continuous_batching.json"
+    server, *_ = await _start(path)
+    sched = server.decode_scheduler
+    dep = server.deployment_name
+    vocab = _model_runtime(server).params["tok_emb"].shape[0]
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, vocab, size=(CB_REQUESTS, sched.seq_len))
+    budgets = [int(b) for b in rng.integers(1, sched.max_new_tokens + 1, size=CB_REQUESTS)]
+
+    async def traffic(port):
+        async def one(i):
+            await asyncio.sleep(0.004 * i)
+            return await _ids_post(port, prompts[i : i + 1], {"max_new_tokens": budgets[i]})
+
+        replies = await asyncio.gather(*(one(i) for i in range(CB_REQUESTS)))
+        return _served_rows("gpt_continuous_batching telemetry", replies, budgets, sched.seq_len)
+
+    try:
+        prof = json.loads(await _get(server.port, "/decode/profile?hz=1000"))
+        if prof["hz"] != 200:
+            raise AssertionError(f"/decode/profile?hz=1000 set {prof['hz']} Hz, want the 200 Hz cap")
+        await traffic(server.port)
+        frames = await _frames_of(server.port, dep, 0)
+        check_flight("gpt_continuous_batching", frames, sum(budgets), CB_REQUESTS)
+        lost = json.loads(json.dumps(frames))
+        next(f for f in lost if f["tokens"])["tokens"] -= 1
+        must_fail("a frame that loses a token", lambda: check_flight("planted", lost, sum(budgets), CB_REQUESTS))
+        health = json.loads(await _get(server.port, "/decode/health"))[dep]
+        if not 0.0 < health["bubble_fraction"] < 1.0 or health["tokens"] != sum(budgets):
+            raise AssertionError(f"/decode/health: {health}")
+        prof = json.loads(await _get(server.port, "/decode/profile?n=8"))
+        if prof["samples"] <= 0:
+            raise AssertionError(f"/decode/profile sampled nothing: {prof}")
+        out["health"] = {k: health[k] for k in ("bubble_fraction", "top_gap_phase", "phase_of_gap", "rounds")}
+        out["profile"] = {"samples": prof["samples"], "top": prof["top"][:5]}
+        out["phases"] = await decode_phases(card, "gpt_continuous_batching", traffic, sched, server.port, dep)
+        walls = {"on": [], "off": []}
+        for on in (True, False, False, True):
+            sched.flight.enabled = sched._phases.enabled = on
+            steps = sched.stat_steps
+            t0 = time.perf_counter()
+            await traffic(server.port)
+            walls["on" if on else "off"].append(round((time.perf_counter() - t0) * 1e3 / (sched.stat_steps - steps), 4))
+        sched.flight.enabled = sched._phases.enabled = True
+        out["step_wall_ms_flight"] = walls
+        out["idle_step_ms"] = await step_hop(sched)
+        await _get(server.port, "/decode/profile?hz=19")  # back to the default rate
+        if sched.recompiles_since_warmup() != 0:
+            raise AssertionError("gpt_continuous_batching built new keys with telemetry on")
+    finally:
+        await server.stop()
+
+    server, *_ = await _start(_deployment_copy("gpt_continuous_batching",
+                                               {"decode_slo_ttft_ms": 1e6, "decode_slo_itl_ms": 1e-3}))
+    try:
+        before = metric_samples((await _get(server.port, "/metrics")).decode())
+        rows = await traffic(server.port)
+        after = metric_samples((await _get(server.port, "/metrics")).decode())
+    finally:
+        await server.stop()
+    slo = "seldon_tpu_decode_slo_attainment_total"
+    sdep = server.deployment_name
+    check_delta("slo", before, after, slo, CB_REQUESTS, deployment_name=sdep, kind="ttft", outcome="ok")
+    check_delta("slo", before, after, slo, sum(budgets) - CB_REQUESTS, deployment_name=sdep, kind="itl",
+                outcome="breach")
+    check_delta("slo", before, after, slo, 0, deployment_name=sdep, kind="ttft", outcome="breach")
+    must_fail("slo: itl breaches off by one", lambda: check_delta(
+        "slo", before, after, slo, sum(budgets) - CB_REQUESTS + 1, deployment_name=sdep, kind="itl",
+        outcome="breach"))
+    out["slo"] = {"ttft_ok": CB_REQUESTS, "itl_breach": sum(budgets) - CB_REQUESTS, "rows": len(rows)}
+
+    path = BASELINE_DIR / "gpt2_small_speculative.json"
+    server, *_ = await _start(path)
+    sched = server.decode_scheduler
+    prompts_s, budgets_s = _spec_prompts(sched, _model_runtime(server).params["tok_emb"].shape[0])
+
+    async def spec_traffic(port):
+        replies, _ = await _spec_traffic(port, prompts_s, budgets_s)
+        return _served_rows("gpt2_small_speculative telemetry", replies, budgets_s, sched.seq_len)
+
+    try:
+        await spec_traffic(server.port)  # the controller settles
+        out["spec_phases"] = await decode_phases(card, "gpt2_small_speculative", spec_traffic, sched, server.port,
+                                                 server.deployment_name)
+        if sched.recompiles_since_warmup() != 0:
+            raise AssertionError("gpt2_small_speculative built new keys with telemetry on")
+    finally:
+        await server.stop()
+    keys = ("health", "profile", "slo", "step_wall_ms_flight", "idle_step_ms")
+    print(f"[{card}] telemetry decode: {json.dumps({k: out[k] for k in keys})}", flush=True)
+    return out
+
+
+async def telemetry_cost(card) -> dict:
+    """Phase 8d: telemetry on (the defaults) against off (the tracer
+    disabled, metrics_enabled=False) under the load generator at
+    TELEMETRY_LOAD_USERS users, in turns (on, off, off, on): iris
+    (ingress-bound) and the BERT DAG."""
+    from seldon_core_tpu_torch.telemetry import Tracer
+
+    loads = {"iris": {"payload": "json", "features": 4}, "full_dag_bert": {"payload": "json", "features": 128}}
+    out = {}
+    for name, load in loads.items():
+        on, *_ = await _start(BASELINE_DIR / f"{name}.json")
+        off, *_ = await _start(BASELINE_DIR / f"{name}.json", metrics_enabled=False)
+        off.service.tracer = Tracer(enabled=False)
+        runs = {"on": [], "off": []}
+        try:
+            for mode, srv in (("on", on), ("off", off), ("off", off), ("on", on)):
+                pt = await _load_point(srv.port, TELEMETRY_LOAD_USERS, load)
+                runs[mode].append({k: pt[k] for k in ("requests_per_sec", "p50_ms", "p99_ms")})
+        finally:
+            await on.stop()
+            await off.stop()
+        if off.metrics.export() != b"":
+            raise AssertionError(f"{name}: the telemetry-off server exported metrics")
+        spread = {m: round(max(r["requests_per_sec"] for r in rs) / min(r["requests_per_sec"] for r in rs), 3)
+                  for m, rs in runs.items()}
+        out[name] = {**runs, "spread": spread}
+        print(f"[{card}] telemetry cost {name} users={TELEMETRY_LOAD_USERS}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+async def serve_telemetry(card) -> dict:
+    """Phase 8, every part in one event loop."""
+    out = {"split": {}}
+    for name in ("bert_base_flash", "full_dag_bert"):
+        out["split"][name] = await serve_traces(card, name)
+    out["faults"] = await telemetry_faults(card)
+    out["decode"] = await serve_decode_telemetry(card)
+    out["cost"] = await telemetry_cost(card)
+    return out
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -2483,6 +2977,11 @@ def main() -> int:
     asyncio.run(serve_resilience(card))
     print(f"[{card}] phase 7 seconds: {time.perf_counter() - t7:.3f}", flush=True)
 
+    # 8. telemetry: traces, /metrics, the flight recorder and the profiler
+    t8 = time.perf_counter()
+    telemetry_out = asyncio.run(serve_telemetry(card))
+    print(f"[{card}] phase 8 seconds: {time.perf_counter() - t8:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -2530,6 +3029,7 @@ def main() -> int:
     })
     print(json.dumps({"captured_vs_eager": {name: {k: v for k, v in t.items() if k != "breakdown"}
                                             for name, t in twins.items()}}), flush=True)
+    print(json.dumps({"telemetry": {"card": card, **telemetry_out}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

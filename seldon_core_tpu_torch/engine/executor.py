@@ -24,13 +24,23 @@ with ``fallback_child`` serves that branch when the chosen child's breaker
 is open or its subtree fails transport-class; a COMBINER with ``quorum``
 aggregates the children that survive. Degraded replies carry
 ``meta.tags["degraded"]`` and the branch actually served in meta.routing.
+
+Each attempt of a unit call is one trace span (``telemetry``), named
+``{unit}.{method}``, recorded into every trace the walk runs under, and
+timed into the ``unit_call_hook``; a tensor the unit left on the card is
+read back inside its span, so span and metric hold the device's time, not
+the launch's. Retries, breaker fast-fails and transitions, deadline
+exhaustion and degradation are span events as well as ``ResilienceEvents``.
+A request tagged ``trace`` outside a served trace gets its unit spans back
+in ``meta.tags["trace"]`` (``telemetry.local_trace(s)``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
-from typing import Any, Sequence
+import time
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +48,7 @@ import torch
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.tensor import to_host
+from seldon_core_tpu_torch import telemetry
 from seldon_core_tpu_torch.engine.resilience import (
     HALF_OPEN,
     NULL_EVENTS,
@@ -108,9 +119,17 @@ async def _gather_settled(*aws):
 class GraphExecutor:
     """Executes one predictor graph."""
 
-    def __init__(self, root: Node, resilience_events: ResilienceEvents | None = None):
+    def __init__(
+        self,
+        root: Node,
+        resilience_events: ResilienceEvents | None = None,
+        unit_call_hook: Callable[[str, str, float], None] | None = None,
+        feedback_metrics_hook: Callable[[str, float], None] | None = None,
+    ):
         self.root = root
         self._events = resilience_events or NULL_EVENTS
+        self._unit_hook = unit_call_hook
+        self._feedback_hook = feedback_metrics_hook
         self._retries: dict[str, RetryState] = {}
         self._breakers: dict[str, CircuitBreaker] = {}
         for n in root.walk():
@@ -119,8 +138,14 @@ class GraphExecutor:
             if n.policy.breaker is not None:
                 self._breakers[n.name] = CircuitBreaker(
                     n.policy.breaker,
-                    on_transition=lambda state, k=n.name: self._events.breaker_transition(k, state),
+                    on_transition=lambda state, k=n.name: self._on_breaker_transition(k, state),
                 )
+
+    def _on_breaker_transition(self, key: str, state: str) -> None:
+        """A transition fires inside some request's walk: it goes to the
+        event sink and to that request's trace."""
+        self._events.breaker_transition(key, state)
+        telemetry.add_event("breaker_transition", {"endpoint": key, "state": state})
 
     def breaker_for(self, node_name: str) -> CircuitBreaker | None:
         """The breaker guarding a node, if one is configured."""
@@ -131,8 +156,13 @@ class GraphExecutor:
 
     # ------------------------------------------------------------- predict
     async def execute(self, msg: SeldonMessage) -> SeldonMessage:
-        out = await self._get_output(self.root, msg)
-        return await self._settle_to_host(out)
+        if "trace" in msg.meta.tags and not telemetry.active():
+            # a request tagged {"trace": ...} outside a served trace still
+            # gets its unit spans back, from a store-less local trace
+            with telemetry.local_trace(puid=msg.meta.puid) as buf:
+                out = await self._get_output(self.root, msg)
+            return out.with_meta(out.meta.merged_with(Meta(tags={"trace": buf.tag_spans()})))
+        return await self._get_output(self.root, msg)
 
     async def execute_many(self, msgs: list[SeldonMessage]) -> list[SeldonMessage]:
         """Vectorized walk for a coalesced batch; every message needs a
@@ -144,6 +174,15 @@ class GraphExecutor:
             return [await self.execute(m) for m in msgs]
         if len({tuple(a.shape[1:]) for a in arrays}) != 1:
             return [await self.execute(m) for m in msgs]
+        tagged = [i for i, m in enumerate(msgs) if "trace" in m.meta.tags]
+        if tagged and not telemetry.active():
+            # one local trace per tagged request: the merged walk reports
+            # the spans the scalar walk would
+            with telemetry.local_traces([msgs[i].meta.puid for i in tagged]) as bufs:
+                outs = await self._get_output_many(self.root, list(msgs))
+            for buf, i in zip(bufs, tagged):
+                outs[i] = outs[i].with_meta(outs[i].meta.merged_with(Meta(tags={"trace": buf.tag_spans()})))
+            return outs
         return await self._get_output_many(self.root, list(msgs))
 
     @staticmethod
@@ -198,7 +237,6 @@ class GraphExecutor:
 
     async def _merged_call(self, node, method, fn, msgs):
         out = await self._call(node, method, fn, self._merge_rows(msgs))
-        out = await self._settle_to_host(out)
         return self._scatter_rows(msgs, out)
 
     # ---------------------------------------------------------- resilience
@@ -218,15 +256,19 @@ class GraphExecutor:
         deadline check -> breaker gate -> attempt -> retry loop. Breaker
         outcomes are recorded per attempt, so a flapping node opens its
         breaker even while retries absorb the failures; a backoff never
-        sleeps past the request's remaining budget."""
+        sleeps past the request's remaining budget. Each attempt is one
+        span and one timed call, closed after the result's readback (a
+        replay returns before the card has finished)."""
         d = current_deadline()
         if d is not None and d.expired():
             self._events.deadline_exceeded(node.name)
+            telemetry.add_event("deadline_exceeded", {"unit": node.name})
             raise deadline_exceeded(f"unit '{node.name}'.{method}")
         breaker = self._breakers.get(node.name)
         took_probe = False
         if breaker is not None and method != "send_feedback":
             if not breaker.allow():
+                telemetry.add_event("breaker_open", {"endpoint": node.name})
                 raise breaker_open_error(node.name, breaker)
             # allow() consumed a probe slot iff the breaker sits half-open
             took_probe = breaker.state == HALF_OPEN
@@ -234,9 +276,17 @@ class GraphExecutor:
         attempt = 0
         while True:
             attempt += 1
+            t0 = time.perf_counter()
+            span_handle = telemetry.begin_spans(
+                f"{node.name}.{method}", {"unit": node.name, "method": method, "attempt": attempt}
+            )
             try:
                 result = await fn(*args)
+                if isinstance(result, SeldonMessage):
+                    result = await self._settle_to_host(result)
             except BaseException as e:
+                telemetry.end_spans(span_handle, error=True)
+                self._record_call(node, method, time.perf_counter() - t0)
                 if breaker is not None:
                     if self._counts_for_breaker(e):
                         breaker.record_failure()
@@ -248,17 +298,29 @@ class GraphExecutor:
                 backoff_s = retry.backoff(attempt) if retry is not None else 0.0
                 if retry is not None and retry.should_retry(method, attempt, e, backoff_s):
                     self._events.retry(node.name, attempt)
+                    telemetry.add_event("retry", {"unit": node.name, "attempt": attempt})
                     await asyncio.sleep(backoff_s)
                     if breaker is not None:
                         if not breaker.allow():
                             # the node tripped open while we backed off
+                            telemetry.add_event("breaker_open", {"endpoint": node.name})
                             raise breaker_open_error(node.name, breaker) from e
                         took_probe = breaker.state == HALF_OPEN
                     continue
                 raise
+            telemetry.end_spans(span_handle)
+            self._record_call(node, method, time.perf_counter() - t0)
             if breaker is not None:
                 breaker.record_success()
             return result
+
+    def _record_call(self, node: Node, method: str, dt: float) -> None:
+        if self._unit_hook is not None:
+            self._unit_hook(node.name, method, dt)
+
+    def _degraded_event(self, node: Node, mode: str) -> None:
+        self._events.degraded(node.name, mode)
+        telemetry.add_event("degraded", {"unit": node.name, "mode": mode})
 
     def _fallback_branch(self, node: Node, chosen: int) -> int | None:
         """The router's configured degradation branch, when it is a real
@@ -303,7 +365,7 @@ class GraphExecutor:
             except Exception as e:  # noqa: BLE001 - gated by _fallback_eligible
                 if fb is None or not self._fallback_eligible(e):
                     raise
-        self._events.degraded(node.name, "router_fallback")
+        self._degraded_event(node, "router_fallback")
         if isinstance(payload, list):
             payload = [self._degrade_meta(m, node.name, fb, "router_fallback") for m in payload]
         else:
@@ -326,7 +388,7 @@ class GraphExecutor:
             and _has_method(node, PredictiveUnitMethod.AGGREGATE)
             and len(ok) >= max(quorum, 1)
         ):
-            self._events.degraded(node.name, "quorum")
+            self._degraded_event(node, "quorum")
             return ok, True
         raise failures[0]
 
@@ -393,7 +455,6 @@ class GraphExecutor:
         if _has_method(node, PredictiveUnitMethod.AGGREGATE):
             merged_children = [self._merge_rows(co) for co in child_outs]
             out = await self._call(node, "aggregate", unit.aggregate, merged_children)
-            out = await self._settle_to_host(out)
             if degraded:
                 out = out.with_meta(out.meta.merged_with(Meta(tags={DEGRADED_TAG: "quorum"})))
             base = []
@@ -471,6 +532,8 @@ class GraphExecutor:
         branch = int(routing_map.get(node.name, ROUTE_ALL))
         if _has_method(node, PredictiveUnitMethod.SEND_FEEDBACK):
             await node.unit.send_feedback(feedback, branch)
+            if self._feedback_hook is not None:
+                self._feedback_hook(node.name, feedback.reward)
         if not node.children:
             return
         if branch == ROUTE_ALL:
@@ -526,6 +589,8 @@ def build_executor(
     registry: UnitRegistry | None = None,
     context: dict[str, Any] | None = None,
     resilience_events: ResilienceEvents | None = None,
+    unit_call_hook: Callable[[str, str, float], None] | None = None,
+    feedback_metrics_hook: Callable[[str, float], None] | None = None,
 ) -> GraphExecutor:
     """``context['device']`` names where models run (the card by default);
     ``context['cuda_graphs']`` false builds every runtime as its eager twin.
@@ -533,7 +598,9 @@ def build_executor(
     fused unit each (``engine/fused.py``), which keeps the resilience knobs
     of the subtree's root, as in the JAX package. ``resilience_events``
     receives every retry, breaker transition, deadline exhaustion and
-    degradation (default: a sink that counts nothing)."""
+    degradation (default: a sink that counts nothing); ``unit_call_hook``
+    every unit-call attempt's (unit, method, seconds) and
+    ``feedback_metrics_hook`` every (unit, reward) feedback reaches."""
     registry = registry or default_registry()
     context = dict(context or {})
     context.setdefault("containers", {c.name: c for c in predictor.componentSpec.containers})
@@ -544,4 +611,9 @@ def build_executor(
         from seldon_core_tpu_torch.engine.fused import fuse_graph
 
         root = fuse_graph(root, tpu_cfg, context.get("cuda_graphs", True))
-    return GraphExecutor(root, resilience_events=resilience_events)
+    return GraphExecutor(
+        root,
+        resilience_events=resilience_events,
+        unit_call_hook=unit_call_hook,
+        feedback_metrics_hook=feedback_metrics_hook,
+    )

@@ -22,6 +22,7 @@ import random
 import threading
 from typing import Sequence
 
+from seldon_core_tpu_torch import telemetry
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import Feedback, SeldonMessage
 from seldon_core_tpu_torch.engine.units import Unit
@@ -112,6 +113,9 @@ class ChaosUnit(Unit):
         d = self.schedule.next()
         if d.delay_s > 0:
             await asyncio.sleep(d.delay_s)
+        if d.action != "ok":
+            # an injected fault is an event of the request's trace
+            telemetry.add_event("fault_injected", {"unit": self.name, "kind": d.action})
         if d.action == "timeout":
             if self._on_fault is not None:
                 self._on_fault(self.name, "timeout")

@@ -152,6 +152,12 @@ class RetryState:
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
+_STATE_GAUGE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+
+def breaker_state_value(state: str) -> int:
+    """Numeric encoding for the ``seldon_tpu_breaker_state`` gauge."""
+    return _STATE_GAUGE[state]
 
 
 class CircuitBreaker:
@@ -284,8 +290,8 @@ def is_breaker_open_error(exc: BaseException) -> bool:
 
 class ResilienceEvents:
     """No-op event sink. The executor reports every resilience action here;
-    tests substitute recorders. The JAX package's servers forward it to the
-    metrics registry, which the port does not have yet."""
+    the server hands it ``metrics.registry.MetricsResilienceEvents``, which
+    forwards each to the metrics registry, and tests substitute recorders."""
 
     def retry(self, unit: str, attempt: int) -> None:
         pass

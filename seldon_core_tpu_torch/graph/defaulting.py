@@ -65,7 +65,7 @@ def mesh_from_spec(axes: Mapping[str, int] | None, n_devices: int) -> dict[str, 
 # decode_* knobs of the JAX package the port does not serve yet, with their
 # defaults there: a deployment that sets one to anything else is refused by
 # name, as engine/builtin.py refuses an unported built-in (the speculation
-# knobs are served and held to the JAX package's rules below)
+# and SLO knobs are served and held to the JAX package's rules below)
 UNPORTED_DECODE_KNOBS = {
     "decode_kv_host_bytes": 0,
     "decode_kv_store_tier": "",
@@ -77,8 +77,6 @@ UNPORTED_DECODE_KNOBS = {
     "decode_health_poll_ms": 0.0,
     "decode_health_miss_threshold": 3,
     "decode_drain_timeout_ms": 5000.0,
-    "decode_slo_ttft_ms": 0.0,
-    "decode_slo_itl_ms": 0.0,
     "decode_npy_bindata": True,
 }
 
@@ -112,9 +110,14 @@ def decode_problems(name: str, tpu) -> list[str]:
     if tpu.decode_eos_id < -1:
         problems.append(f"predictor '{name}' decode_eos_id must be >= -1")
     for knob in ("decode_prefix_slots", "decode_prefix_ctx", "decode_prefill_chunk",
-                 "decode_kv_page_size", "decode_kv_pages"):
+                 "decode_kv_page_size", "decode_kv_pages", "decode_slo_ttft_ms", "decode_slo_itl_ms"):
         if getattr(tpu, knob) < 0:
             problems.append(f"predictor '{name}' {knob} must be >= 0")
+    if (tpu.decode_slo_ttft_ms > 0 or tpu.decode_slo_itl_ms > 0) and tpu.decode_slots <= 0:
+        problems.append(
+            f"predictor '{name}' decode_slo_ttft_ms/decode_slo_itl_ms need decode_slots > 0 "
+            "(the SLO attainment telemetry lives in the decode scheduler)"
+        )
     if tpu.decode_kv_dtype not in ("", "int8"):
         problems.append(
             f"predictor '{name}' decode_kv_dtype '{tpu.decode_kv_dtype}' unsupported (want '' or 'int8')"

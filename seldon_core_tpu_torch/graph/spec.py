@@ -277,6 +277,8 @@ _TPU_FIELDS = (
     "decode_spec_k",
     "decode_spec_tree",
     "decode_spec_accept_floor",
+    "decode_slo_ttft_ms",
+    "decode_slo_itl_ms",
 )
 
 
@@ -327,6 +329,11 @@ class TpuSpec:
     decode_spec_k: int = 0  # proposed tokens per round (0: no chain)
     decode_spec_tree: str = ""  # per-depth branching, e.g. "2,2,1,1"
     decode_spec_accept_floor: float = 0.0  # accept-rate floor (0: fixed shape)
+    # decode SLO targets the attainment telemetry judges (0: none): a
+    # breach moves seldon_tpu_decode_slo_attainment_total, dumps the flight
+    # ring and marks the row's meta.tags.slo; scheduling is unchanged
+    decode_slo_ttft_ms: float = 0.0
+    decode_slo_itl_ms: float = 0.0
     extra: Mapping[str, Any] = field(default_factory=dict)
 
     @staticmethod
@@ -359,6 +366,8 @@ class TpuSpec:
             decode_spec_k=int(obj.get("decode_spec_k", 0)),
             decode_spec_tree=str(obj.get("decode_spec_tree", "") or ""),
             decode_spec_accept_floor=float(obj.get("decode_spec_accept_floor", 0.0)),
+            decode_slo_ttft_ms=float(obj.get("decode_slo_ttft_ms", 0.0)),
+            decode_slo_itl_ms=float(obj.get("decode_slo_itl_ms", 0.0)),
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 

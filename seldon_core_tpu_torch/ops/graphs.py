@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import time
 import threading
 from typing import Any, Callable, Sequence
 
@@ -88,6 +89,11 @@ class GraphCache:
                 if e is None:
                     e = self._entries[key] = GraphEntry(self, fn, inputs)
         return e
+
+    def build_seconds(self) -> dict[tuple, float]:
+        """Seconds each built entry's first run took: its capture (with the
+        eager run before it) on the card, its first eager run elsewhere."""
+        return {k: e.build_s for k, e in list(self._entries.items()) if e.build_s is not None}
 
     def counts(self) -> dict[str, int]:
         """Entries per program name (``key[0]``)."""
@@ -140,6 +146,7 @@ class GraphEntry:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: Any = None
         self.launches = [0] * len(COUNTERS)
+        self.build_s: float | None = None
 
     def load(self, *values) -> None:
         """Copy the call's arguments (host arrays or tensors, each exactly its
@@ -157,11 +164,15 @@ class GraphEntry:
             return self._replay()
 
     def _replay(self) -> Any:
+        t0 = time.perf_counter() if self.build_s is None else 0.0
         if not self.cache.capture:
             self.outputs = self.fn(*self.inputs)
+            if self.build_s is None:
+                self.build_s = time.perf_counter() - t0
             return self.outputs
         if self.graph is None:
             self._capture()
+            self.build_s = time.perf_counter() - t0
         self.graph.replay()
         for counter, n in zip(COUNTERS, self.launches):
             if n:

@@ -9,11 +9,18 @@ tensor requests bypass coalescing and ride its continuous-batching decode
 scheduler instead (per-row slot admission). The merged walk runs under the
 loosest deadline of its batch-mates (each request's own budget is enforced
 at its ingress, so a tight mate cannot cancel the shared walk).
+
+Every batch is observed in ``seldon_tpu_batch_size`` and every mate's wait
+in ``seldon_tpu_batch_queue_wait_seconds``. A traced mate gets a
+``batcher`` span, opened at its own enqueue with its ``queue_wait_ms``;
+the merged walk runs under every mate's trace at once, so its unit spans
+land in each mate's tree under that mate's batcher span.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 from dataclasses import dataclass
 from typing import Awaitable, Callable
 
@@ -22,13 +29,21 @@ import numpy as np
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import SeldonMessage
 from seldon_core_tpu_torch.engine.resilience import DEADLINE, Deadline, current_deadline
+from seldon_core_tpu_torch.metrics import NullMetrics
+from seldon_core_tpu_torch import telemetry
 
 ExecuteFn = Callable[[SeldonMessage], Awaitable[SeldonMessage]]
 ExecuteManyFn = Callable[[list], Awaitable[list]]
 
 
 def make_batcher(
-    tpu_spec, execute: ExecuteFn, *, execute_many: ExecuteManyFn, decode_scheduler=None
+    tpu_spec,
+    execute: ExecuteFn,
+    *,
+    execute_many: ExecuteManyFn,
+    decode_scheduler=None,
+    metrics: NullMetrics | None = None,
+    deployment_name: str = "",
 ) -> "MicroBatcher | None":
     """The batching policy of a predictor's TpuSpec: None when batching is
     pointless (max_batch <= 1) or forbidden (``batch_across_requests``
@@ -43,6 +58,8 @@ def make_batcher(
         batch_timeout_ms=tpu_spec.batch_timeout_ms,
         queue_timeout_ms=tpu_spec.queue_timeout_ms,
         decode_scheduler=decode_scheduler,
+        metrics=metrics,
+        deployment_name=deployment_name,
     )
 
 
@@ -53,6 +70,11 @@ class _Pending:
     future: asyncio.Future
     # the submitting request's deadline budget (DEADLINE at submit time)
     deadline: Deadline | None = None
+    enqueued_at: float = 0.0  # perf_counter at submit
+    # the submitter's trace contexts and enqueue time (the flush task runs
+    # in whichever mate's context triggered it)
+    trace_ctxs: tuple = ()
+    enq_ns: int = 0
 
 
 class MicroBatcher:
@@ -67,7 +89,11 @@ class MicroBatcher:
         batch_timeout_ms: float = 3.0,
         queue_timeout_ms: float = 2000.0,
         decode_scheduler=None,
+        metrics: NullMetrics | None = None,
+        deployment_name: str = "",
     ):
+        self._metrics = metrics or NullMetrics()
+        self._deployment = deployment_name
         self._execute = execute
         self._execute_many = execute_many
         # generative tier: tensor requests ride the decode loop instead
@@ -105,7 +131,15 @@ class MicroBatcher:
 
         key = (arr.shape[1:], str(arr.dtype))
         loop = asyncio.get_running_loop()
-        item = _Pending(msg=msg, rows=rows, future=loop.create_future(), deadline=current_deadline())
+        item = _Pending(
+            msg=msg,
+            rows=rows,
+            future=loop.create_future(),
+            deadline=current_deadline(),
+            enqueued_at=time.perf_counter(),
+            trace_ctxs=telemetry.current_contexts(),
+            enq_ns=telemetry.now_ns(),
+        )
         self._pending.setdefault(key, []).append(item)
         self._pending_rows[key] = self._pending_rows.get(key, 0) + rows
         if self._pending_rows[key] >= self.max_batch:
@@ -142,8 +176,26 @@ class MicroBatcher:
             DEADLINE.set(None)
         else:
             DEADLINE.set(max((i.deadline for i in items), key=lambda d: d.expires_at))
+        total_rows = sum(i.rows for i in items)
         self.stat_batches += 1
-        self.stat_rows += sum(i.rows for i in items)
+        self.stat_rows += total_rows
+        now = time.perf_counter()
+        waits = [now - i.enqueued_at for i in items]
+        self._metrics.batch(self._deployment, total_rows, waits)
+        batch_spans = []
+        walk_ctxs = []
+        for i, w in zip(items, waits):
+            if not i.trace_ctxs:
+                continue
+            ctxs, spans = telemetry.child_contexts(
+                i.trace_ctxs,
+                "batcher",
+                {"rows": total_rows, "mates": len(items), "queue_wait_ms": round(w * 1e3, 3)},
+                start_ns=i.enq_ns,
+            )
+            walk_ctxs.extend(ctxs)
+            batch_spans.extend(spans)
+        telemetry.TRACE.set(tuple(walk_ctxs))
         try:
             if len(items) == 1:
                 outs = [await self._execute(items[0].msg)]
@@ -156,6 +208,12 @@ class MicroBatcher:
             for i in items:
                 if not i.future.done():
                     i.future.set_exception(e)
+            for s in batch_spans:
+                s.error = True
+        finally:
+            t_end = telemetry.now_ns()
+            for s in batch_spans:
+                s.end(t_end)
 
     async def close(self) -> None:
         """Flush queued requests, then await every in-flight batch so no

@@ -56,14 +56,31 @@ token, the fused ``generate``'s output, whenever it was admitted and
 whatever the draft proposes (on the card up to float32 near-ties: cuBLAS
 may sum a slot batch, a widened verify and a bucket batch in other orders).
 
+Telemetry, as in the JAX package: every round commits ONE flight frame
+(``telemetry/flight.py``) at ``_commit_round`` — mode, active and
+prefilling slots, admissions, retirements and the blocked cause, tokens,
+speculation accepted and proposed, and each program family's wall split
+into enqueue and blocked readback (``rdb_ns``) against the host gap, which
+``with self._phase(P_X)`` blocks split by phase. On the card a replay
+returns before the device finishes and ``.cpu()`` is where the host waits;
+``ENGINE_FLIGHT_SYNC_TIMING=on`` adds a ``torch.cuda.synchronize()`` after
+each dispatch so the enqueue column is the device's wall. The metrics
+hooks (steps, TTFT, ITL, SLO attainment against ``decode_slo_ttft_ms`` /
+``decode_slo_itl_ms`` and a request's deadline budget, goodput,
+speculation, prefix reuse, the page pool, rounds, bubble, capture seconds)
+report to the server's registry; each request's trace gets its admission,
+prefill-chunk, verify and generate spans on the contexts captured at
+submit (the loop runs in its own task, its dispatches on a worker thread).
+The sampling profiler watches the loop's thread (``telemetry/profile.py``).
+
 Not ported yet, and refused by name at deployment build
 (``graph/defaulting.py::decode_problems``): the host/store KV tiers,
-tensor-parallel decode, the replicated fleet and SLO targets; the feature
-draft (``zoo://draft?features=1``) and distilled drafts are refused by the
-zoo. The pipelined rounds and the flight recorder have no knob and are
-simply absent: the serial loop is the one whose greedy output the
-pipelined one must equal. Deadlines wait for the resilience layer; the
-queue timeout is honoured.
+tensor-parallel decode and the replicated fleet; the feature draft
+(``zoo://draft?features=1``) and distilled drafts are refused by the zoo.
+The pipelined rounds have no knob and are simply absent (the recorder's
+``overlap_ns`` reads 0): the serial loop is the one whose greedy output the
+pipelined one must equal. The queue timeout is honoured, and a request's
+deadline budget is enforced at the ingress and judged here for goodput.
 """
 
 from __future__ import annotations
@@ -78,9 +95,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch import telemetry
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import Meta, SeldonMessage
 from seldon_core_tpu_torch.core.tensor import to_device
+from seldon_core_tpu_torch.engine.resilience import current_deadline
+from seldon_core_tpu_torch.metrics import NullMetrics
 from seldon_core_tpu_torch.models.decoder import (
     STREAM_DRAFT,
     STREAM_VERIFY,
@@ -104,6 +124,27 @@ from seldon_core_tpu_torch.models.decoder import (
 from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree, parse_spec_tree
 from seldon_core_tpu_torch.ops.graphs import GraphCache
 from seldon_core_tpu_torch.serving.kv_pool import PagedKVPool
+from seldon_core_tpu_torch.telemetry import profile as profile_mod
+from seldon_core_tpu_torch.telemetry.flight import (
+    F_CHUNK,
+    F_COPY,
+    F_DRAFT,
+    F_STEP,
+    F_VERIFY,
+    P_ACCEPT_WALK,
+    P_ADMIT,
+    P_ALLOC,
+    P_COMMIT,
+    P_EMIT_SLO,
+    P_PREFIX_MATCH,
+    P_SAMPLING,
+    P_SCATTER,
+    FlightFrame,
+    FlightRecorder,
+    PhaseTimer,
+    sync_timing_enabled,
+)
+from seldon_core_tpu_torch.telemetry.flight import register as flight_register
 
 log = logging.getLogger(__name__)
 
@@ -401,12 +442,13 @@ class PrefixIndex:
         del self.entries[e.pin_id]
         self._rebuild()
 
-    def remove_by_pins(self, pin_ids) -> None:
+    def remove_by_pins(self, pin_ids) -> int:
         """Pool-pressure reclaim callback: drop the entries whose pins the
-        allocator dropped, with one trie rebuild."""
+        allocator dropped, with one trie rebuild. Returns how many."""
         dropped = [pin_id for pin_id in pin_ids if self.entries.pop(pin_id, None) is not None]
         if dropped:
             self._rebuild()
+        return len(dropped)
 
     def clear(self) -> None:
         self.entries.clear()
@@ -419,7 +461,9 @@ class _Seq:
     __slots__ = (
         "prompt", "max_new", "temperature", "top_k", "spec_k", "tree_widths",
         "on_token", "future", "tokens", "pos", "deadline", "prefilling",
-        "prefill_pos", "chunk_cap", "cache_prefix",
+        "prefill_pos", "chunk_cap", "cache_prefix", "t_enqueued", "t_last_token",
+        "slo_deadline", "slo_ok", "slo_sink", "prefix_len", "chunk_idx", "trace_ctxs",
+        "gen_spans",
     )
 
     def __init__(self, prompt, max_new, temperature, top_k, spec_k, on_token, future):
@@ -442,6 +486,20 @@ class _Seq:
         self.prefill_pos = 0
         self.chunk_cap = 0  # per-round prefill token cap (0: the whole suffix)
         self.cache_prefix = 0  # meta.tags.cache_prefix capture hint
+        # telemetry: arrival and last-token times (TTFT, ITL), the deadline
+        # budget this request is judged against for goodput (perf_counter;
+        # 0: none) and its SLO verdict, reported through slo_sink
+        self.t_enqueued = time.perf_counter()
+        self.t_last_token = 0.0
+        self.slo_deadline = 0.0
+        self.slo_ok = True
+        self.slo_sink = None
+        self.prefix_len = 0  # prompt positions reused from the prefix pool
+        self.chunk_idx = 0
+        # the submitter's trace contexts, captured at submit: the loop runs
+        # in its own task, so spans go to each sequence's traces explicitly
+        self.trace_ctxs = telemetry.current_contexts()
+        self.gen_spans: list = []  # open "decode.generate" spans, one per context
 
 
 class DecodeScheduler:
@@ -477,6 +535,10 @@ class DecodeScheduler:
         kv_dtype: str = "",
         dtype: torch.dtype | None = None,
         cuda_graphs: bool = True,
+        metrics: NullMetrics | None = None,
+        deployment_name: str = "",
+        slo_ttft_ms: float = 0.0,
+        slo_itl_ms: float = 0.0,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -581,6 +643,27 @@ class DecodeScheduler:
         self.stat_spec_emitted = 0
         self.stat_spec_rides = 0
         self.stat_spec_ride_emitted = 0
+        self.stat_tokens = 0
+
+        self._metrics = metrics or NullMetrics()
+        self._deployment = deployment_name
+        # SLO targets the attainment telemetry judges (0: not configured)
+        self.slo_ttft_s = max(0.0, float(slo_ttft_ms)) / 1e3
+        self.slo_itl_s = max(0.0, float(slo_itl_ms)) / 1e3
+        # one frame per round into a bounded ring (ENGINE_FLIGHT=off: none),
+        # read by GET /decode/flight and /decode/health
+        self.flight = flight_register(
+            FlightRecorder(
+                n_slots=n_slots,
+                name=deployment_name or "decode",
+                slo_ttft_ms=float(slo_ttft_ms),
+                slo_itl_ms=float(slo_itl_ms),
+            )
+        )
+        self.flight.queue_depth_source = lambda: len(self._waiting)
+        self._phases = PhaseTimer(enabled=self.flight.enabled)
+        self._sync_timing = sync_timing_enabled() and self.pool.device.type == "cuda"
+        self._round_reset()
 
     def _init_speculation(self, dims: dict, draft_params, spec_k: int, tree_text: str, accept_floor: float) -> None:
         """The speculation config: a k-chain (``spec_k``) or a token tree
@@ -638,7 +721,9 @@ class DecodeScheduler:
         params, pool, bt = self.params, self.pool.state, self.pool.bt_device
         entry = self.graphs.entry(("step", n), lambda t, p: _step_logits(params, pool, bt, t, p),
                                   [((n,), torch.int32), ((n,), torch.int32)])
-        return entry.run(toks, pos, post=lambda logits: _sample(logits, temps, topks, self._seed, tick)).cpu().numpy()
+        nxt = entry.run(toks, pos, post=lambda logits: _sample(logits, temps, topks, self._seed, tick))
+        self._mark_enqueued()
+        return nxt.cpu().numpy()
 
     def _chunk(self, ids, pos, counts, temps, topks, tick) -> np.ndarray:
         n = len(pos)
@@ -646,8 +731,9 @@ class DecodeScheduler:
         entry = self.graphs.entry(("chunk",) + ids.shape,
                                   lambda i, p, c: _chunk_logits(params, pool, bt, i, p, c),
                                   [(ids.shape, torch.int32), ((n,), torch.int32), ((n,), torch.int32)])
-        return entry.run(ids, pos, counts, post=lambda logits: _sample(logits, temps, topks, self._seed, tick)
-                         ).cpu().numpy()
+        toks = entry.run(ids, pos, counts, post=lambda logits: _sample(logits, temps, topks, self._seed, tick))
+        self._mark_enqueued()
+        return toks.cpu().numpy()
 
     def _draft_admit(self, ids, row_for_slot, valid_slot) -> None:
         """The draft's prompt prefill for a wave of slots (``ids`` [bucket,
@@ -699,8 +785,9 @@ class DecodeScheduler:
         ``limits`` as the verify's per-slot mask. A greedy round replays the
         captured pair; a round with a sampled slot runs it eagerly."""
         lim = limits if wlimits is None else wlimits
+        t0 = time.perf_counter_ns()
         if (temps > 0).any():
-            out, acc = self._spec_sampled(toks, pos, temps, topks, lim, tick)
+            out, acc = self._spec_sampled(toks, pos, temps, topks, lim, tick, t0)
             res = torch.cat([out, acc[:, None]], dim=1)
         else:
             draft, verify = self._spec_entries(len(toks))
@@ -708,12 +795,14 @@ class DecodeScheduler:
                 draft.load(toks, pos)
                 verify.load(lim)
                 draft.replay()
+                self._draft_done(t0)
                 out, acc = verify.replay()
                 res = torch.cat([out, acc[:, None]], dim=1)  # off the static outputs
+        self._mark_enqueued()
         res = res.cpu().numpy()
         return res[:, :-1], res[:, -1]
 
-    def _spec_sampled(self, toks, pos, temps, topks, lim, tick) -> tuple:
+    def _spec_sampled(self, toks, pos, temps, topks, lim, tick, t0: int) -> tuple:
         """The eager round pair: the draft's draws from stream 1 and the
         acceptance's from stream 2 of the tick's generator."""
         self.stat_eager_rounds += 1
@@ -726,16 +815,133 @@ class DecodeScheduler:
         if tree is None:
             drafts, dlogits = _fused_draft(self.draft_params, self._dck, self._dcv, toks_d, pos_d, temps_d, topks_d,
                                            g_draft, self.spec_k)
+            self._draft_done(t0)
             return _fused_verify(self.params, self.pool.state, bt_d, toks_d, drafts, dlogits, pos_d, lim_d,
                                  temps_d, topks_d, g_verify)
         node_toks, blogits, nk, nv = _fused_draft_tree(self.draft_params, self._dck, self._dcv, toks_d, pos_d,
                                                        temps_d, topks_d, g_draft, tree)
+        self._draft_done(t0)
         return _fused_tree_verify(self.params, self.pool.state, bt_d, toks_d, node_toks, blogits, nk, nv,
                                   self._dck, self._dcv, pos_d, lim_d, temps_d, topks_d, g_verify, tree)
 
     def _on_worker(self, fn):
         with torch.inference_mode():
             return fn()
+
+    # ------------------------------------------------------ round telemetry
+    def _sync(self) -> None:
+        """ENGINE_FLIGHT_SYNC_TIMING=on: wait for the device after a
+        dispatch, so its family's column is the device's wall."""
+        if self._sync_timing:
+            torch.cuda.synchronize(self.pool.device)
+
+    def _mark_enqueued(self) -> None:
+        """On the worker, between a dispatch's enqueue and its blocking
+        readback: ``_timed_call`` splits the family's wall here."""
+        self._sync()
+        self._rb_mark_ns = time.perf_counter_ns()
+
+    def _draft_done(self, t0: int, late: bool = False) -> None:
+        """On the worker, after the draft program of a round (queued from
+        ``t0``): its share of the call goes to the draft family. ``late``:
+        it ran after the call's readback mark (the draft admit after a
+        chunk), so it also leaves the readback column."""
+        self._sync()
+        self._rb_draft_ns = time.perf_counter_ns() - t0
+        self._rb_draft_late = late
+
+    async def _timed_call(self, family: int, fn):
+        """_device_call with its wall attributed to one program family of
+        the round's frame, split into enqueue and blocked readback at the
+        worker's ``_mark_enqueued`` (no mark: all enqueue), less what a
+        ``_draft_done`` moved to the draft family."""
+        t0 = time.perf_counter_ns()
+        self._rb_mark_ns = 0
+        self._rb_draft_ns = 0
+        try:
+            return await self._device_call(fn)
+        finally:
+            t2 = time.perf_counter_ns()
+            mark = self._rb_mark_ns or t2
+            d = self._rb_draft_ns
+            self._rb_busy[family] += t2 - t0 - d
+            self._rb_rdb[family] += t2 - mark - (d if self._rb_draft_late else 0)
+            self._rb_busy[F_DRAFT] += d
+
+    def _round_reset(self, t_ns: int | None = None) -> None:
+        """Reset the per-round flight accumulators (written on the hot path,
+        read only at _commit_round)."""
+        self._rb_busy = [0, 0, 0, 0, 0]  # ns per flight.FAMILIES entry
+        self._rb_rdb = [0, 0, 0, 0, 0]  # the blocked-readback share of busy
+        self._rb_mark_ns = 0
+        self._rb_draft_ns = 0
+        self._rb_draft_late = False
+        self._rb_t0 = t_ns if t_ns is not None else time.perf_counter_ns()
+        self._rb_admitted = 0
+        self._rb_retired = 0
+        self._rb_blocked = ""
+        self._rb_tokens = 0
+        self._rb_cow = 0
+        self._rb_accepted = 0
+        self._rb_proposed = 0
+        self._rb_depth = 0
+        self._rb_active = 0
+        self._rb_probe = False
+        self._rb_widths: tuple = ()
+        self._phases.reset()
+
+    def _phase(self, p: int):
+        """The round's host-phase ``with`` handle for a flight P_* constant
+        (innermost phase wins; a no-op under ENGINE_FLIGHT=off). Never
+        held across a dispatch: busy time is _timed_call's."""
+        return self._phases.phase(p)
+
+    def _kv_gauges(self) -> None:
+        a = self.pool.alloc
+        self._metrics.decode_kv_pool(self._deployment, a.free_pages, a.live_pages, a.prefix_pages)
+
+    def _commit_round(self, mode: str, *, step: bool) -> None:
+        """THE per-round commit point: the step metric, the round metrics
+        and the flight frame. ``step`` marks rounds that ran a decode or
+        verify dispatch; a chunk-only round records a frame too."""
+        t_c0 = time.perf_counter_ns()
+        active = self._rb_active if step else self.active
+        if step:
+            self._metrics.decode_step(self._deployment, active, self.n_slots)
+        # the phase array freezes before the round clock stops, so the
+        # commit's own cost stays inside the gap it is attributed to
+        phase_ns = self._phases.commit(P_COMMIT, t_c0) if self.flight.enabled else ()
+        now_ns = time.perf_counter_ns()
+        busy = sum(self._rb_busy)
+        gap = max(now_ns - self._rb_t0 - busy, 0)
+        if self.flight.enabled:
+            snap = self.pool.alloc.snapshot()
+            prefilling = sum(1 for s in self._slots if s is not None and s.prefilling)
+            self.flight.record(
+                FlightFrame(
+                    self.flight.rounds, now_ns, mode, active, prefilling,
+                    len(self._waiting), self._rb_admitted, self._rb_retired,
+                    self._rb_blocked, self._rb_tokens, self._rb_accepted,
+                    self._rb_proposed, self._rb_depth, tuple(self._rb_busy),
+                    gap, snap["free"], snap["live"], snap["prefix"],
+                    self._rb_cow, phase_ns, tuple(self._rb_rdb), 0,
+                    self._rb_probe, tuple(self._rb_widths),
+                )
+            )
+            if self.spec_enabled:
+                tree = self.spec_tree
+                self.flight.spec_state = {
+                    "tree": ",".join(map(str, tree.branching)) if tree is not None else "",
+                    "widths": list(self._rb_widths),
+                    "nodes": tree.nodes_for_widths(self._rb_widths) if tree is not None and self._rb_widths else 0,
+                    "accept_ewma": round(self._adapt.rate, 4),
+                    "depth": self._rb_depth,
+                    "probes": self._adapt.probes,
+                }
+        self._metrics.decode_round(self._deployment, busy / 1e9, gap / 1e9)
+        if self.flight.enabled and self.flight.rounds % 64 == 0:
+            self._metrics.decode_bubble(self._deployment, self.flight.bubble_fraction())
+        self._round_reset(now_ns)
 
     async def _device_call(self, fn):
         """Run a device dispatch and its readback on the worker thread."""
@@ -766,6 +972,11 @@ class DecodeScheduler:
 
         self._worker.submit(self._on_worker, run).result()
         self._warmup_keys = sum(self.compile_counts().values())
+        # seldon_tpu_xla_compile_seconds keeps the JAX package's name and
+        # bucket label (the slot count): one sample per dispatch key, its
+        # capture's seconds (its first eager run off the card)
+        for seconds in self.graphs.build_seconds().values():
+            self._metrics.compile(self._deployment, self.n_slots, seconds)
 
     def compile_counts(self) -> dict[str, int]:
         """(program, shape) keys built, per program, under the JAX
@@ -800,6 +1011,7 @@ class DecodeScheduler:
         cache_prefix: int | None = None,
         prefill_chunk: int | None = None,
         on_token: OnToken | None = None,
+        _slo_sink: Callable[[bool], None] | None = None,
     ) -> np.ndarray:
         """Generate for one prompt [seq_len]; resolves with the int32
         sequence (prompt echoed, generated ids appended). ``on_token`` is
@@ -809,7 +1021,8 @@ class DecodeScheduler:
         tree deployment's per-depth widths (ignored elsewhere).
         ``cache_prefix`` hints how many leading tokens are worth capturing
         into the prefix pool; ``prefill_chunk`` tightens (never widens) the
-        deployment's chunk cap."""
+        deployment's chunk cap. ``_slo_sink`` receives the request's SLO
+        verdict at retirement (``execute_message``'s ``meta.tags.slo``)."""
         if self._closed:
             raise APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, "decode scheduler closed")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
@@ -841,8 +1054,14 @@ class DecodeScheduler:
             seq.chunk_cap = min(pc, self.prefill_chunk) if self.prefill_chunk else pc
         if self.prefix_enabled and cache_prefix is not None:
             seq.cache_prefix = max(0, min(int(cache_prefix), self.prefix_ctx))
+        # goodput: a request submitted under a deadline budget is judged
+        # against it at retirement
+        d = current_deadline()
+        if d is not None:
+            seq.slo_deadline = time.perf_counter() + max(d.remaining(), 0.0)
+        seq.slo_sink = _slo_sink
         if self.queue_timeout_s > 0:
-            seq.deadline = time.perf_counter() + self.queue_timeout_s
+            seq.deadline = seq.t_enqueued + self.queue_timeout_s
         self._waiting.append(seq)
         if self._task is None or self._task.done():
             self._task = asyncio.ensure_future(self._run())
@@ -851,7 +1070,39 @@ class DecodeScheduler:
 
     # ---------------------------------------------------------------- loop
     def _emit(self, seq: _Seq, tok: int) -> None:
+        """Record one generated token: time it (TTFT, ITL and their SLOs),
+        stream it. Runs under the emit/SLO phase."""
+        with self._phase(P_EMIT_SLO):
+            self._emit_inner(seq, tok)
+
+    def _emit_inner(self, seq: _Seq, tok: int) -> None:
+        now = time.perf_counter()
         seq.tokens.append(tok)
+        if len(seq.tokens) == 1:
+            ttft = now - seq.t_enqueued
+            self._metrics.decode_ttft(self._deployment, ttft)
+            if self.prefix_enabled:
+                self._metrics.decode_ttft_split(self._deployment, ttft, "warm" if seq.prefix_len > 0 else "cold")
+            if self.slo_ttft_s > 0:
+                # a breach dumps the flight ring (rate-limited), and the
+                # dump's trace id rides the breach counter as an exemplar
+                ok = ttft <= self.slo_ttft_s
+                seq.slo_ok = seq.slo_ok and ok
+                tid = self.flight.note_ttft(ok)
+                self._metrics.decode_slo(self._deployment, "ttft", ok, trace_id=tid or None)
+            for sp in seq.gen_spans:
+                sp.add_event("first_token", {"ttft_ms": round(ttft * 1e3, 3)})
+        else:
+            itl = now - seq.t_last_token
+            self._metrics.decode_inter_token(self._deployment, itl)
+            if self.slo_itl_s > 0:
+                ok = itl <= self.slo_itl_s
+                seq.slo_ok = seq.slo_ok and ok
+                tid = self.flight.note_itl(ok)
+                self._metrics.decode_slo(self._deployment, "itl", ok, trace_id=tid or None)
+        seq.t_last_token = now
+        self.stat_tokens += 1
+        self._rb_tokens += 1
         if seq.on_token is not None:
             try:
                 seq.on_token(tok, len(seq.tokens) - 1)
@@ -864,7 +1115,9 @@ class DecodeScheduler:
     def _on_pins_reclaimed(self, pin_ids: list[int]) -> None:
         """Allocator callback: pool pressure reclaimed prefix pins; drop the
         index entries that held them."""
-        self._prefix_index.remove_by_pins(pin_ids)
+        for _ in range(self._prefix_index.remove_by_pins(pin_ids)):
+            self._metrics.decode_prefix_evicted(self._deployment)
+        self._metrics.decode_kv_reclaimed(self._deployment, len(pin_ids))
 
     def _maybe_capture(self, seq: _Seq, slot: int, length: int) -> None:
         """Pin ``slot``'s leading prompt pages as a prefix entry unless the
@@ -882,20 +1135,36 @@ class DecodeScheduler:
         _, evicted = self._prefix_index.insert(seq.prompt[:length], pin.pages, pin.pin_id)
         if evicted is not None:
             self.pool.alloc.release(evicted.pin_id)
+            self._metrics.decode_prefix_evicted(self._deployment)
 
     def _retire(self, slot: int) -> None:
         seq = self._slots[slot]
         self._slots[slot] = None
         self._free.append(slot)
         self.stat_retired += 1
+        self._rb_retired += 1
         if seq is None:
             return
+        # goodput: the tokens count as delivered within the SLO only when
+        # the request's deadline budget held at retirement
+        met = True
+        if seq.slo_deadline:
+            met = time.perf_counter() <= seq.slo_deadline
+            seq.slo_ok = seq.slo_ok and met
+            tid = self.flight.note_deadline(met)
+            self._metrics.decode_slo(self._deployment, "deadline", met, trace_id=tid or None)
+        self.flight.note_goodput(len(seq.tokens), met)
+        self._metrics.decode_goodput(self._deployment, len(seq.tokens), met)
+        if seq.slo_sink is not None:
+            seq.slo_sink(seq.slo_ok)
         # automatic capture: the full prompt of every request that gave no
         # cache_prefix hint (a hinted one captured at prefill completion);
         # a request cancelled mid-prefill has incomplete K/V
         if self.prefix_enabled and not seq.prefilling and seq.cache_prefix == 0:
             self._maybe_capture(seq, slot, self.seq_len)
         self.pool.alloc.retire(slot)
+        self._kv_gauges()
+        _end_spans(seq, tokens=len(seq.tokens))
         if not seq.future.done():
             seq.future.set_result(np.concatenate([seq.prompt, np.asarray(seq.tokens, np.int32)]))
 
@@ -906,7 +1175,9 @@ class DecodeScheduler:
     async def _run_copies(self, copies: list[tuple[int, int]]) -> None:
         """The round's copy-on-write page copies, before its write dispatch."""
         if copies:
-            await self._device_call(lambda: self.pool.run_copies(copies))
+            await self._timed_call(F_COPY, lambda: self.pool.run_copies(copies))
+            self._rb_cow += len(copies)
+            self._metrics.decode_kv_cow(self._deployment, len(copies))
 
     def _admit_decide(self, seq: _Seq, slot: int) -> tuple:
         """Longest-prefix match, the cache_prefix boundary-page reserve and
@@ -915,7 +1186,8 @@ class DecodeScheduler:
         admitted)."""
         entry, reuse = None, 0
         if self.prefix_enabled:
-            entry, depth = self._prefix_index.match(seq.prompt)
+            with self._phase(P_PREFIX_MATCH):
+                entry, depth = self._prefix_index.match(seq.prompt)
             reuse = usable_prefix_len(depth, self.seq_len)
             if reuse <= 0:
                 entry = None
@@ -925,21 +1197,45 @@ class DecodeScheduler:
         if self.prefix_enabled and seq.cache_prefix > 0:
             alloc = self.pool.alloc
             extra = 1 if alloc.pages_for(seq.cache_prefix) * alloc.page_size > self.seq_len else 0
-        admitted = self.pool.alloc.try_admit(slot, entry.pages if entry is not None else (), reuse, extra)
+        with self._phase(P_ALLOC):
+            admitted = self.pool.alloc.try_admit(slot, entry.pages if entry is not None else (), reuse, extra)
         return entry, reuse, admitted
 
-    def _install_admit(self, seq: _Seq, slot: int, entry, reuse: int) -> None:
+    def _install_admit(self, seq: _Seq, slot: int, entry, reuse: int, t0: int) -> None:
         seq.prefilling = True
         self._slots[slot] = seq
         self.stat_admitted += 1
+        self._rb_admitted += 1
+        shared_pages = self.pool.alloc.pages_for(reuse) if reuse else 0
         if self.prefix_enabled:
             if entry is not None:
                 self.pool.alloc.touch(entry.pin_id)
                 self.stat_prefix_hits += 1
                 self.stat_prefix_tokens_saved += reuse
+                self._metrics.decode_prefix(self._deployment, True, reuse)
+                self._metrics.decode_kv_shared(self._deployment, shared_pages)
             else:
                 self.stat_prefix_misses += 1
+                self._metrics.decode_prefix(self._deployment, False, 0)
         seq.prefill_pos = reuse
+        seq.prefix_len = reuse
+        for c in seq.trace_ctxs:
+            ms = c.buf.begin(
+                "decode.prefix_match" if self.prefix_enabled else "decode.admit",
+                c.span.span_id,
+                {"slot": slot, "hit": reuse > 0},
+                start_ns=t0,
+            )
+            ms.add_event("reuse", {"tokens": reuse})
+            ms.add_event(
+                "kv_alloc",
+                {
+                    "shared_pages": shared_pages,
+                    "reserved_pages": int(self.pool.alloc._reserved[slot]),
+                    "free_pages": self.pool.alloc.free_pages,
+                },
+            )
+            ms.end()
         self.stat_peak_active = max(self.stat_peak_active, self.active)
 
     def _admit(self) -> None:
@@ -951,15 +1247,22 @@ class DecodeScheduler:
             if seq.future.cancelled():
                 self._waiting.popleft()
                 continue
+            t0 = telemetry.now_ns()
             slot = self._free[-1]
             entry, reuse, admitted = self._admit_decide(seq, slot)
             if not admitted:
                 self.stat_admit_blocked_rounds += 1
+                self._rb_blocked = "pages"
                 break
             self._waiting.popleft()
             self._free.pop()
-            self._install_admit(seq, slot, entry, reuse)
+            self._install_admit(seq, slot, entry, reuse, t0)
+        self._kv_gauges()
         self._expire_waiting()
+        if self._waiting and not self._free and not self._rb_blocked:
+            # queued behind fully occupied slots (the page cause is set
+            # where try_admit refused)
+            self._rb_blocked = "slots"
 
     def _expire_waiting(self) -> None:
         """Fail waiting requests past the queue deadline (REQUEST_TIMEOUT)."""
@@ -1005,24 +1308,26 @@ class DecodeScheduler:
         """One prefill chunk round: every prefilling slot consumes up to its
         chunk cap of prompt tokens in one dispatch; slots whose prompt
         completes emit their first token and start generating."""
-        rows = []
-        for i, seq in enumerate(self._slots):
-            if seq is None or not seq.prefilling:
-                continue
-            if seq.future.cancelled():
-                self._retire(i)
-                continue
-            rem = self.seq_len - seq.prefill_pos
-            rows.append((i, seq.prefill_pos, min(rem, seq.chunk_cap or rem), seq))
-        if not rows:
-            return
-        bucket, ids, pos, counts, temps, topks = self._chunk_input_arrays(rows)
-        copies: list[tuple[int, int]] = []
-        for i, pp, c, _ in rows:
-            # allocate fresh pages, copy-on-write a shared boundary page
-            copies += self.pool.alloc.prepare_write(i, pp, c)
+        with self._phase(P_ALLOC):
+            rows = []
+            for i, seq in enumerate(self._slots):
+                if seq is None or not seq.prefilling:
+                    continue
+                if seq.future.cancelled():
+                    self._retire(i)
+                    continue
+                rem = self.seq_len - seq.prefill_pos
+                rows.append((i, seq.prefill_pos, min(rem, seq.chunk_cap or rem), seq))
+            if not rows:
+                return
+            bucket, ids, pos, counts, temps, topks = self._chunk_input_arrays(rows)
+            copies: list[tuple[int, int]] = []
+            for i, pp, c, _ in rows:
+                # allocate fresh pages, copy-on-write a shared boundary page
+                copies += self.pool.alloc.prepare_write(i, pp, c)
         await self._run_copies(copies)
-        bt = self.pool.block_tables()
+        with self._phase(P_ALLOC):
+            bt = self.pool.block_tables()
         tick = self._next_tick()
         # the slots whose prompt completes this round also prefill the
         # draft's cache with their full prompt, in the same worker call
@@ -1033,24 +1338,42 @@ class DecodeScheduler:
             self.pool.load_block_tables(bt)
             toks = self._chunk(ids, pos, counts, temps, topks, tick)
             if admit is not None:
+                td = time.perf_counter_ns()
                 self._draft_admit(*admit)
+                self._draft_done(td, late=True)
             return toks
 
-        toks = await self._device_call(run)
+        t0 = telemetry.now_ns()
+        toks = await self._timed_call(F_CHUNK, run)
+        t1 = telemetry.now_ns()
         self.stat_chunk_dispatches += 1
-        for i, _, c, seq in rows:
-            seq.prefill_pos += c
-            if seq.prefill_pos < self.seq_len:
-                continue
-            seq.prefilling = False
-            seq.pos = self.seq_len
-            if self.prefix_enabled and seq.cache_prefix > 0:
-                # hinted capture: the span's pages are pinned from now on
-                self._maybe_capture(seq, i, seq.cache_prefix)
-            tok = int(toks[i])
-            self._emit(seq, tok)
-            if self._finished(seq, tok):
-                self._retire(i)
+        with self._phase(P_SCATTER):
+            done = []
+            for i, _, c, seq in rows:
+                seq.prefill_pos += c
+                for ctx in seq.trace_ctxs:
+                    ctx.buf.begin(
+                        "decode.prefill_chunk",
+                        ctx.span.span_id,
+                        {"slot": i, "chunk": seq.chunk_idx, "tokens": c, "bucket": bucket, "reused": seq.prefix_len},
+                        start_ns=t0,
+                    ).end(t1)
+                seq.chunk_idx += 1
+                if seq.prefill_pos >= self.seq_len:
+                    done.append((i, seq))
+            for i, seq in done:
+                seq.prefilling = False
+                seq.pos = self.seq_len
+                if self.prefix_enabled and seq.cache_prefix > 0:
+                    # hinted capture: the span's pages are pinned from now on
+                    self._maybe_capture(seq, i, seq.cache_prefix)
+                for ctx in seq.trace_ctxs:
+                    seq.gen_spans.append(ctx.buf.begin("decode.generate", ctx.span.span_id, {"slot": i},
+                                                       start_ns=t1))
+                tok = int(toks[i])
+                self._emit(seq, tok)
+                if self._finished(seq, tok):
+                    self._retire(i)
 
     def _spec_limits(self) -> tuple[np.ndarray | None, np.ndarray | None]:
         """This round's per-slot accept limits [n] (and, on tree
@@ -1060,7 +1383,11 @@ class DecodeScheduler:
         A slot one token from its budget rides with limit 0."""
         if not self.spec_enabled:
             return None, None
-        depth, tuned, _ = self._adapt.decide()
+        depth, tuned, probe = self._adapt.decide()
+        self._rb_depth = int(depth)
+        self._rb_probe = bool(probe)
+        if self.spec_tree is not None:
+            self._rb_widths = tuned if tuned is not None else self.spec_tree.branching
         limits = np.zeros(self.n_slots, np.int32)
         for i, seq in enumerate(self._slots):
             if seq is not None and not seq.prefilling:
@@ -1084,45 +1411,56 @@ class DecodeScheduler:
             limits[i] = int((wlimits[i] > 0).sum())
         return limits, wlimits
 
-    async def _step_round(self) -> None:
+    async def _step_round(self) -> str | None:
         """One decode round for every generating slot: a speculative round
-        pair when any slot may speculate, else the plain step."""
-        toks = np.zeros(self.n_slots, np.int32)
-        pos = np.zeros(self.n_slots, np.int32)
-        temps = np.zeros(self.n_slots, np.float32)
-        topks = np.zeros(self.n_slots, np.int32)
-        gen = []
-        for i, seq in enumerate(self._slots):
-            if seq is None:
-                continue
-            if seq.future.cancelled():
-                # the client vanished (a stream closed): free the slot
-                self._retire(i)
-                continue
-            if seq.prefilling:
-                # ride the step like a free slot, its junk write parked at
-                # its own prefill cursor, which the next chunk overwrites
-                pos[i] = seq.prefill_pos
-                continue
-            toks[i] = seq.tokens[-1]
-            pos[i] = seq.pos
-            temps[i] = seq.temperature
-            topks[i] = seq.top_k
-            gen.append(i)
+        pair when any slot may speculate, else the plain step. Returns the
+        round's mode ("plain", "chain" or "tree"), None when no slot was
+        generating."""
+        with self._phase(P_SAMPLING):
+            toks = np.zeros(self.n_slots, np.int32)
+            pos = np.zeros(self.n_slots, np.int32)
+            temps = np.zeros(self.n_slots, np.float32)
+            topks = np.zeros(self.n_slots, np.int32)
+            gen = []
+            for i, seq in enumerate(self._slots):
+                if seq is None:
+                    continue
+                if seq.future.cancelled():
+                    # the client vanished (a stream closed): free the slot
+                    self._retire(i)
+                    continue
+                if seq.prefilling:
+                    # ride the step like a free slot, its junk write parked
+                    # at its own prefill cursor, which the next chunk
+                    # overwrites
+                    pos[i] = seq.prefill_pos
+                    continue
+                toks[i] = seq.tokens[-1]
+                pos[i] = seq.pos
+                temps[i] = seq.temperature
+                topks[i] = seq.top_k
+                gen.append(i)
         if not gen:
-            return
+            return None
         limits, wlimits = self._spec_limits()
         spec_round = limits is not None and bool(limits.any())
+        if not spec_round:
+            # a probe that fell to a plain round is no exploration
+            self._rb_probe = False
+            self._rb_widths = ()
         # page residency for the round's writes: one token per generating
         # slot on the plain step, the whole [k+1]-wide block on a
         # speculative round (prefilling slots' junk parks in pages they own
         # or in the junk page)
         width = self.spec_k + 1 if spec_round else 1
-        copies: list[tuple[int, int]] = []
-        for i in gen:
-            copies += self.pool.alloc.prepare_write(i, self._slots[i].pos, width)
+        with self._phase(P_ALLOC):
+            copies: list[tuple[int, int]] = []
+            for i in gen:
+                copies += self.pool.alloc.prepare_write(i, self._slots[i].pos, width)
         await self._run_copies(copies)
-        bt = self.pool.block_tables()
+        with self._phase(P_ALLOC):
+            bt = self.pool.block_tables()
+            self._kv_gauges()
         tick = self._next_tick()
         if spec_round:
 
@@ -1130,46 +1468,73 @@ class DecodeScheduler:
                 self.pool.load_block_tables(bt)
                 return self._spec(toks, pos, temps, topks, limits, wlimits, tick)
 
-            out_t, acc = await self._device_call(spec)
-            self._consume_spec(out_t, acc, limits)
-            return
+            t0 = telemetry.now_ns()
+            out_t, acc = await self._timed_call(F_VERIFY, spec)
+            self._rb_active = self.active  # occupancy at dispatch
+            self._consume_spec(out_t, acc, limits, wlimits, t0, telemetry.now_ns())
+            return "chain" if self.spec_tree is None else "tree"
 
         def step():
             self.pool.load_block_tables(bt)
             return self._step(toks, pos, temps, topks, tick)
 
-        nxt = await self._device_call(step)
+        nxt = await self._timed_call(F_STEP, step)
+        self._rb_active = self.active  # occupancy at dispatch
         self.stat_steps += 1
-        for i in gen:
-            seq = self._slots[i]
-            seq.pos += 1
-            tok = int(nxt[i])
-            self._emit(seq, tok)
-            if self._finished(seq, tok):
-                self._retire(i)
+        with self._phase(P_SAMPLING):
+            for i in gen:
+                seq = self._slots[i]
+                seq.pos += 1
+                tok = int(nxt[i])
+                self._emit(seq, tok)
+                if self._finished(seq, tok):
+                    self._retire(i)
+        return "plain"
 
-    def _consume_spec(self, out_t: np.ndarray, acc: np.ndarray, limits: np.ndarray) -> None:
+    def _consume_spec(self, out_t: np.ndarray, acc: np.ndarray, limits: np.ndarray, wlimits, t0: int,
+                      t1: int) -> None:
         """The readback half of a speculative round: every generating slot
         emits out_t[i, :acc[i] + 1] token by token (EOS and budget retire
         mid-burst, streaming sees each token), then the attribution and the
         controller's update. Limit-0 slots emit exactly their plain-step
-        token."""
+        token. Each slot's traces get one ``decode.verify`` span for the
+        round (``t0``..``t1``) with its accept count."""
         self.stat_steps += 1
         self.stat_spec_dispatches += 1
         proposed, accepted, emitted = int(limits.sum()), int(acc.sum()), 0
-        for i, seq in enumerate(list(self._slots)):
-            if seq is None or seq.prefilling:
-                continue
-            riding = int(limits[i]) > 0
-            for j in range(int(acc[i]) + 1):
-                seq.pos += 1
-                tok = int(out_t[i, j])
-                self._emit(seq, tok)
-                emitted += 1
-                self.stat_spec_ride_emitted += int(riding)
-                if self._finished(seq, tok):
-                    self._retire(i)
-                    break
+        tree = self.spec_tree
+        with self._phase(P_ACCEPT_WALK):
+            for i, seq in enumerate(list(self._slots)):
+                if seq is None or seq.prefilling:
+                    continue
+                riding = int(limits[i]) > 0
+                attrs = {"slot": i, "proposed": int(limits[i])}
+                if tree is not None:
+                    nodes = int(wlimits[i].sum())
+                    attrs["tree"] = ",".join(map(str, tree.branching))
+                    attrs["tree_nodes"] = nodes
+                    if riding:
+                        self._metrics.decode_spec_tree(self._deployment, nodes, int(acc[i]))
+                for ctx in seq.trace_ctxs:
+                    vs = ctx.buf.begin("decode.verify", ctx.span.span_id, attrs, start_ns=t0)
+                    ev = {"accepted": int(acc[i])}
+                    if tree is not None:
+                        ev["path_depth"] = int(acc[i])
+                    vs.add_event("accept", ev)
+                    vs.end(t1)
+                for j in range(int(acc[i]) + 1):
+                    seq.pos += 1
+                    tok = int(out_t[i, j])
+                    self._emit(seq, tok)
+                    emitted += 1
+                    self.stat_spec_ride_emitted += int(riding)
+                    if self._finished(seq, tok):
+                        self._retire(i)
+                        break
+        self._rb_accepted = accepted
+        self._rb_proposed = proposed
+        self._metrics.decode_spec(self._deployment, proposed, accepted, emitted,
+                                  mode="chain" if tree is None else "tree")
         self.stat_spec_proposed += proposed
         self.stat_spec_accepted += accepted
         self.stat_spec_emitted += emitted
@@ -1179,25 +1544,41 @@ class DecodeScheduler:
 
     async def _run(self) -> None:
         try:
+            # the sampling profiler watches the loop's thread (a no-op
+            # under ENGINE_DECODE_PROFILE=off)
+            profile_mod.watch_decode_thread()
+            # the round clock starts with the loop: warmup and idle time
+            # before the first request are no decode bubble
+            self._round_reset()
             while True:
-                self._admit()
+                with self._phase(P_ADMIT):
+                    self._admit()
                 if self.active == 0:
                     if not self._waiting:
                         if self._closed:
                             return
                         self._wake.clear()
                         await self._wake.wait()
+                        # the idle wait is the queue's silence, not bubble
+                        self._round_reset()
                     continue
                 await self._chunk_round()
-                await self._step_round()
+                mode = await self._step_round()
+                self._commit_round(mode or "chunk", step=mode is not None)
                 # let ingress and admissions interleave with the loop
                 await asyncio.sleep(0)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 - fail every waiter, not just one
             log.exception("decode loop failed")
+            # the rounds leading up to the error are the diagnostic: dump
+            # them into the span store before the ring rolls on
+            self.flight.dump("round_error", force=True)
             for seq in list(self._slots) + list(self._waiting):
-                if seq is not None and not seq.future.done():
+                if seq is None:
+                    continue
+                _end_spans(seq, error=True)
+                if not seq.future.done():
                     seq.future.set_exception(APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, str(e)))
             self._slots = [None] * self.n_slots
             self._free = list(range(self.n_slots - 1, -1, -1))
@@ -1242,7 +1623,10 @@ class DecodeScheduler:
             except (asyncio.CancelledError, Exception):  # noqa: BLE001
                 pass
         for seq in list(self._slots) + list(self._waiting):
-            if seq is not None and not seq.future.done():
+            if seq is None:
+                continue
+            _end_spans(seq, error=True)
+            if not seq.future.done():
                 seq.future.cancel()
         self._slots = [None] * self.n_slots
         self._free = list(range(self.n_slots - 1, -1, -1))
@@ -1290,9 +1674,20 @@ class DecodeScheduler:
             raise APIException(ErrorCode.ENGINE_INVALID_JSON, "generative predictor needs tensor token ids")
         rows = np.atleast_2d(np.asarray(arr)).astype(np.int32)
         overrides = self.request_params_from_meta(msg.meta)
+        # with SLO targets, or a request under a deadline budget, each row's
+        # met/breached verdict comes back in meta.tags.slo
+        track_slo = bool(self.slo_ttft_s or self.slo_itl_s) or current_deadline() is not None
+        slo_flags = [True] * len(rows)
+
+        def sink(i: int):
+            return (lambda ok: slo_flags.__setitem__(i, ok)) if track_slo else None
+
         # settle every row before failing the request, so no sibling row
         # keeps decoding detached
-        outs = await asyncio.gather(*(self.submit(row, **overrides) for row in rows), return_exceptions=True)
+        outs = await asyncio.gather(
+            *(self.submit(row, **overrides, _slo_sink=sink(i)) for i, row in enumerate(rows)),
+            return_exceptions=True,
+        )
         for o in outs:
             if isinstance(o, BaseException):
                 raise o
@@ -1302,13 +1697,30 @@ class DecodeScheduler:
         for i, o in enumerate(outs):
             full[i, : len(o)] = o
             gen_lens.append(int(len(o) - rows.shape[1]))
+        tags = {**msg.meta.tags, "gen_lens": gen_lens}
+        if track_slo:
+            tags["slo"] = ["met" if ok else "breached" for ok in slo_flags]
         meta = Meta(
             puid=msg.meta.puid,
-            tags={**msg.meta.tags, "gen_lens": gen_lens},
+            tags=tags,
             routing=dict(msg.meta.routing),
             request_path=dict(msg.meta.request_path),
         )
         return msg.with_array_meta(full, meta)
+
+
+def _end_spans(seq: _Seq, *, tokens: int | None = None, error: bool = False) -> None:
+    """Close a sequence's open generate spans (at retirement with its token
+    count, or errored when the loop fails or is aborted)."""
+    if not seq.gen_spans:
+        return
+    t = telemetry.now_ns()
+    for sp in seq.gen_spans:
+        if tokens is not None and sp.attrs is not None:
+            sp.attrs["tokens"] = tokens
+        sp.error = sp.error or error
+        sp.end(t)
+    seq.gen_spans = []
 
 
 def _draft_for(runtime, tpu_spec) -> tuple:
@@ -1356,7 +1768,9 @@ def _draft_for(runtime, tpu_spec) -> tuple:
     return params_to_torch(spec.params, runtime.device), spec_k, spec_tree
 
 
-def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
+def scheduler_for_executor(
+    executor, tpu_spec, *, metrics: NullMetrics | None = None, deployment_name: str = ""
+) -> DecodeScheduler | None:
     """A DecodeScheduler for a predictor whose graph is ONE generative model
     node and whose deployment opted in (tpu.decode_slots > 0); None
     otherwise, with a log line when an opt-in is ignored. A multi-node
@@ -1396,4 +1810,8 @@ def scheduler_for_executor(executor, tpu_spec) -> DecodeScheduler | None:
         kv_dtype=str(tpu_spec.decode_kv_dtype),
         dtype=runtime.dtype,
         cuda_graphs=runtime.cuda_graphs,
+        metrics=metrics,
+        deployment_name=deployment_name,
+        slo_ttft_ms=float(tpu_spec.decode_slo_ttft_ms),
+        slo_itl_ms=float(tpu_spec.decode_slo_itl_ms),
     )

@@ -3,9 +3,14 @@
 Port of ``seldon_core_tpu/serving/fast_http.py`` on its pure-Python head
 parser (``parse_head_py``; the JAX package's C parser is not carried over).
 It serves exactly what the data plane needs: requests framed by
-Content-Length, keep-alive, a small exact-path route table, and chunked
-responses for the generative tier's per-token SSE route. No chunked
-request bodies (411 without Content-Length), no TLS, no websockets.
+Content-Length, keep-alive, a small exact-path route table (a route ending
+in ``/*`` takes one more path segment), and chunked responses for the
+generative tier's per-token SSE route. No chunked request bodies (411
+without Content-Length), no TLS, no websockets.
+
+Besides the data plane it serves the telemetry read-outs: ``/metrics`` and
+``/prometheus``, and the trace, flight and profile routes that the JAX
+package serves on its operator API (``serving/wire.py``).
 """
 
 from __future__ import annotations
@@ -108,6 +113,14 @@ def parse_head_py(raw: bytes) -> "PyHead | int | tuple[int, bytes]":
     return PyHead(method, path, headers, clen, head_end + 4)
 
 
+def _route(routes: Mapping[tuple[str, str], Handler], method: str, path: str) -> Handler | None:
+    """The exact route, else the ``/*`` route of the path's parent."""
+    handler = routes.get((method, path))
+    if handler is None and "/" in path[1:]:
+        handler = routes.get((method, path[: path.rindex("/") + 1] + "*"))
+    return handler
+
+
 class HttpProtocol(asyncio.Protocol):
     """One connection. Requests are processed strictly in order: parse ->
     run the handler task -> write the response -> parse the next. Bytes
@@ -152,11 +165,11 @@ class HttpProtocol(asyncio.Protocol):
         self._pending_head = None
         body = bytes(self._buf[head.body_start : head.body_start + head.clen])
         del self._buf[: head.body_start + head.clen]
-        path = head.path.split("?", 1)[0]
-        req = WireRequest(method=head.method, path=path, headers=head.headers, body=body)
+        path, _, query = head.path.partition("?")
+        req = WireRequest(method=head.method, path=path, headers=head.headers, body=body, query=query)
         keep_alive = head.headers.get("connection", "").lower() != "close"
         self._busy = True
-        task = asyncio.ensure_future(self._run(self._routes.get((head.method, path)), req, keep_alive))
+        task = asyncio.ensure_future(self._run(_route(self._routes, head.method, path), req, keep_alive))
         task.add_done_callback(self._on_handler_done)
 
     async def _run(self, handler: Handler | None, req: WireRequest, keep_alive: bool) -> None:
@@ -265,10 +278,26 @@ def engine_routes(service, state: dict) -> dict:
     async def ping(req: WireRequest) -> WireResponse:
         return WireResponse.text("pong")
 
+    async def prometheus(req: WireRequest) -> WireResponse:
+        return wire.metrics_response(service.metrics, req)
+
+    def read_out(fn):
+        async def handler(req: WireRequest) -> WireResponse:
+            return fn(req)
+
+        return handler
+
     return {
         ("POST", "/api/v0.1/predictions"): predictions,
         ("POST", "/api/v0.1/predictions/stream"): predictions_stream,
         ("POST", "/api/v0.1/feedback"): feedback,
         ("GET", "/ready"): ready,
         ("GET", "/ping"): ping,
+        ("GET", "/metrics"): prometheus,
+        ("GET", "/prometheus"): prometheus,
+        ("GET", "/traces"): read_out(wire.traces_list),
+        ("GET", "/traces/*"): read_out(wire.trace_get),
+        ("GET", "/decode/flight"): read_out(wire.decode_flight),
+        ("GET", "/decode/health"): read_out(wire.decode_health),
+        ("GET", "/decode/profile"): read_out(wire.decode_profile),
     }

@@ -11,6 +11,13 @@ subtrees fused) and, for a single generative model with
 batch bucket, serve REST through the fast ingress, and on shutdown stop
 taking traffic, flush the micro-batcher and drain the scheduler.
 
+Metrics are on by default (``metrics_enabled=False`` swaps in a registry
+that records nothing): the executor's unit calls, feedback and resilience
+events, the batcher, the decode scheduler and the ingress all report to
+one ``metrics.registry.Metrics``, served at ``/metrics``. ``start`` runs
+the event-loop lag probe and freezes the warmed-up heap out of the
+garbage collector's scans (``serving/gc_policy.py``).
+
 CLI:
     python -m seldon_core_tpu_torch.serving.server --deployment dep.json \
         [--predictor NAME] [--device cuda|cpu] [--host H] [--port 8000] \
@@ -28,9 +35,11 @@ from seldon_core_tpu_torch.core.tensor import resolve_device
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_executor
 from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec, spec_problems
 from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeployment
+from seldon_core_tpu_torch.metrics.registry import MetricsResilienceEvents, get_metrics, run_loop_lag_probe
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
 from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
+from seldon_core_tpu_torch.serving.gc_policy import apply_serving_gc_policy
 from seldon_core_tpu_torch.serving.service import PredictionService
 
 
@@ -43,10 +52,12 @@ class PredictorServer:
         enable_batching: bool = True,
         device=None,
         cuda_graphs: bool = True,
+        metrics_enabled: bool = True,
     ):
         self.predictor = predictor
         self.deployment_name = deployment_name
         self.device = resolve_device(device)
+        self.metrics = get_metrics(metrics_enabled)
         mesh_from_spec(predictor.tpu.mesh, n_devices=1)  # one process serves one device
         problems = spec_problems(predictor.name, predictor.tpu)
         if problems:
@@ -54,15 +65,27 @@ class PredictorServer:
         # cuda_graphs=False: every runtime and the decode scheduler run their
         # dispatch keys eagerly (the eager twins the card checks compare with)
         self.executor: GraphExecutor = build_executor(
-            predictor, context={"device": self.device, "cuda_graphs": cuda_graphs}
+            predictor,
+            context={"device": self.device, "cuda_graphs": cuda_graphs},
+            resilience_events=MetricsResilienceEvents(self.metrics, deployment_name),
+            unit_call_hook=lambda unit, method, dt: self.metrics.unit_call(
+                deployment_name, predictor.name, unit, method, dt
+            ),
+            feedback_metrics_hook=lambda unit, reward: self.metrics.feedback(
+                deployment_name, predictor.name, unit, reward
+            ),
         )
-        self.decode_scheduler = scheduler_for_executor(self.executor, predictor.tpu)
+        self.decode_scheduler = scheduler_for_executor(
+            self.executor, predictor.tpu, metrics=self.metrics, deployment_name=deployment_name
+        )
         self.batcher = (
             make_batcher(
                 predictor.tpu,
                 self.executor.execute,
                 execute_many=self.executor.execute_many,
                 decode_scheduler=self.decode_scheduler,
+                metrics=self.metrics,
+                deployment_name=deployment_name,
             )
             if enable_batching
             else None
@@ -74,9 +97,11 @@ class PredictorServer:
             batcher=self.batcher,
             decode_scheduler=self.decode_scheduler,
             deadline_ms=predictor.tpu.deadline_ms,
+            metrics=self.metrics,
         )
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None
+        self._lag_probe: asyncio.Task | None = None
 
     def warmup(self) -> None:
         """One forward per batch bucket of every model, and every dispatch
@@ -94,6 +119,10 @@ class PredictorServer:
         self._server = await start_fast_server(
             engine_routes(self.service, self.state), host, port
         )
+        # seldon_tpu_event_loop_lag_ms: whatever stalls the loop shows here
+        # before it shows as every request's tail latency
+        self._lag_probe = asyncio.ensure_future(run_loop_lag_probe(self.metrics))
+        apply_serving_gc_policy()
 
     @property
     def port(self) -> int:
@@ -102,6 +131,8 @@ class PredictorServer:
 
     async def stop(self) -> None:
         self.state["paused"] = True  # readiness false -> load balancers drain
+        if self._lag_probe is not None:
+            self._lag_probe.cancel()
         if self.batcher is not None:
             await self.batcher.close()
         if self.decode_scheduler is not None:

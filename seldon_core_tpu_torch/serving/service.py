@@ -1,8 +1,11 @@
 """PredictionService: request-level orchestration above the executor.
 
 Port of ``seldon_core_tpu/serving/service.py::PredictionService``
-(``predict`` and ``send_feedback``, without tracing or metrics): decode an
-npy payload to the tensor arm, assign a puid when the request has none, run
+(``predict``, ``predict_stream`` and ``send_feedback``): decode an npy
+payload to the tensor arm, assign a puid when the request has none, open
+the request's ingress root span (continuing an incoming W3C
+``traceparent``; a request tagged ``trace`` is kept whatever the sampling
+and gets its unit spans back in ``meta.tags["trace"]``), run
 the request through the micro-batcher (or straight through the executor)
 under its deadline budget, return the response under the request's puid
 and, for an npy request, as npy (``mirror_npy_kind``). The budget is
@@ -10,12 +13,15 @@ and, for an npy request, as npy (``mirror_npy_kind``). The budget is
 ["deadline_ms"]``: stamped into ``DEADLINE`` for every node call and
 enforced here, where exhaustion cancels the walk and answers 504 (code 304). Feedback walks the graph along the routing the
 response recorded. ``predict_stream`` streams a generative predictor's
-tokens as they are chosen.
+tokens as they are chosen. Every request lands in the ingress histogram
+with its trace id as exemplar (a failure in the error counter instead, at
+the wire), and, under ``ENGINE_ACCESS_LOG=json``, in the access log.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 
 import numpy as np
 
@@ -23,9 +29,13 @@ from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.codec_npy import array_from_npy, is_npy, npy_from_array
 from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.puid import new_puid
-from seldon_core_tpu_torch.engine.executor import GraphExecutor
+from seldon_core_tpu_torch.engine.executor import DEGRADED_TAG, GraphExecutor
 from seldon_core_tpu_torch.engine.resilience import DEADLINE, Deadline
+from seldon_core_tpu_torch.metrics import NullMetrics
 from seldon_core_tpu_torch.serving.batcher import MicroBatcher
+from seldon_core_tpu_torch.telemetry import get_tracer
+from seldon_core_tpu_torch.telemetry.access_log import enabled as access_log_enabled
+from seldon_core_tpu_torch.telemetry.access_log import log_request
 
 
 def _with_puid(msg: SeldonMessage, puid: str) -> SeldonMessage:
@@ -63,6 +73,34 @@ def mirror_npy_kind(out: SeldonMessage) -> SeldonMessage:
     )
 
 
+def _batch_rows(msg: SeldonMessage) -> int:
+    """Request batch size for the access log (tensor leading dim, else 1)."""
+    arr = msg.array
+    if arr is not None and getattr(arr, "shape", ()):
+        return int(arr.shape[0])
+    return 1
+
+
+def _gen_log_fields(out: "SeldonMessage | None") -> tuple[int, str]:
+    """The access log's generative fields from the response tags the
+    decode scheduler stamped: (generated tokens, SLO verdict — "breached"
+    if any row breached, "" when the tier did not judge)."""
+    if out is None:
+        return 0, ""
+    tokens = 0
+    gl = out.meta.tags.get("gen_lens")
+    if isinstance(gl, (list, tuple)):
+        try:
+            tokens = int(sum(int(x) for x in gl))
+        except (TypeError, ValueError):
+            tokens = 0
+    slo = ""
+    sl = out.meta.tags.get("slo")
+    if isinstance(sl, (list, tuple)) and sl:
+        slo = "breached" if any(x == "breached" for x in sl) else "met"
+    return tokens, slo
+
+
 class PredictionService:
     def __init__(
         self,
@@ -73,11 +111,17 @@ class PredictionService:
         batcher: MicroBatcher | None = None,
         decode_scheduler=None,
         deadline_ms: float = 0.0,
+        metrics: NullMetrics | None = None,
+        tracer=None,
     ):
         self.executor = executor
         self.deployment_name = deployment_name
         self.predictor_name = predictor_name
         self.batcher = batcher
+        self.metrics = metrics or NullMetrics()
+        # the process-global tracer by default: every deployment's traces
+        # land in one store behind GET /traces
+        self.tracer = tracer or get_tracer()
         self.decode_scheduler = decode_scheduler
         # per-request deadline budget (tpu.deadline_ms); 0 = none
         self.deadline_ms = deadline_ms
@@ -108,6 +152,7 @@ class PredictionService:
         try:
             return await asyncio.wait_for(run, timeout=max(deadline.remaining(), 0.0))
         except asyncio.TimeoutError:
+            self.metrics.deadline_exceeded(self.deployment_name, "ingress")
             raise APIException(
                 ErrorCode.REQUEST_DEADLINE_EXCEEDED,
                 "request exceeded its deadline budget at the ingress",
@@ -126,29 +171,87 @@ class PredictionService:
             msg = _with_puid(msg, new_puid())
         return msg, npy_requested
 
-    async def predict(self, msg: SeldonMessage, *, wire_npy: bool = False) -> SeldonMessage:
+    def _trace_attrs(self, method: str) -> dict:
+        return {"deployment": self.deployment_name, "predictor": self.predictor_name, "method": method}
+
+    async def predict(
+        self, msg: SeldonMessage, *, wire_npy: bool = False, traceparent: str | None = None
+    ) -> SeldonMessage:
         """``wire_npy``: the transport saw an explicit application/x-npy
         body. Other binData is decoded when it starts with the npy magic,
-        else passed through opaque."""
+        else passed through opaque. ``traceparent``: the caller's W3C trace
+        header, whose trace this request's spans continue."""
+        start = time.perf_counter()
         msg, npy_requested = self._prepare(msg, wire_npy)
-        out = await self._execute_with_deadline(msg)
+        buf = None
+        status = 200
+        degraded = ""
+        out = None
+        try:
+            with self.tracer.request_trace(
+                "ingress",
+                puid=msg.meta.puid,
+                parent=traceparent,
+                attrs=self._trace_attrs("predict"),
+                force="trace" in msg.meta.tags,
+            ) as buf:
+                out = await self._execute_with_deadline(msg)
+                degraded = str(out.meta.tags.get(DEGRADED_TAG) or "")
+                if buf is not None and degraded:
+                    buf.flags.add("degraded")
+        except APIException as e:
+            status = e.error.http_status
+            raise
+        except BaseException:
+            status = 500
+            raise
+        finally:
+            if access_log_enabled():
+                tokens, slo = _gen_log_fields(out)
+                log_request(
+                    deployment=self.deployment_name,
+                    method="predict",
+                    puid=msg.meta.puid,
+                    trace_id=buf.trace_id if buf is not None else "",
+                    status=status,
+                    duration_ms=(time.perf_counter() - start) * 1e3,
+                    batch=_batch_rows(msg),
+                    degraded=degraded,
+                    retries=buf.event_count("retry") if buf is not None else 0,
+                    tokens=tokens,
+                    slo=slo,
+                )
+        if buf is not None and "trace" in msg.meta.tags:
+            # the opt-in contract: per-unit timings ride back in
+            # tags["trace"]; the whole tree is GET /traces/{puid}
+            out = out.with_meta(out.meta.merged_with(Meta(tags={"trace": buf.tag_spans()})))
         if out.meta.puid != msg.meta.puid:
             out = _with_puid(out, msg.meta.puid)
         if npy_requested:
             out = mirror_npy_kind(out)
+        self.metrics.ingress_request(
+            self.deployment_name,
+            "predict",
+            time.perf_counter() - start,
+            trace_id=buf.trace_id if buf is not None else None,
+        )
         return out
 
-    async def predict_stream(self, msg: SeldonMessage, *, wire_npy: bool = False):
+    async def predict_stream(
+        self, msg: SeldonMessage, *, wire_npy: bool = False, traceparent: str | None = None
+    ):
         """Per-token streaming predict: an async generator of events
             {"row": r, "index": i, "token": t}   per generated token
             {"done": true, "ids": [[...]], "gen_lens": [...], "puid": ...}
         the last. Without a decode scheduler the one event is the buffered
-        predict()'s answer."""
+        predict()'s answer. The ingress span stays open for the stream's
+        life; the scheduler hangs each row's spans under it."""
+        start = time.perf_counter()
         msg, _ = self._prepare(msg, wire_npy)
         puid = msg.meta.puid
         sched = self.decode_scheduler
         if sched is None:
-            out = await self.predict(msg)
+            out = await self.predict(msg, traceparent=traceparent)
             arr = out.array
             ev = {
                 "done": True,
@@ -163,6 +266,12 @@ class PredictionService:
             raise APIException(ErrorCode.ENGINE_INVALID_JSON, "streaming predict needs tensor token ids")
         rows = np.atleast_2d(np.asarray(msg.array)).astype(np.int32)
         overrides = sched.request_params_from_meta(msg.meta)
+        # the scheduler picks the trace context up at submit
+        buf, troot, ttoken = self.tracer.begin_request(
+            "ingress", puid=puid, parent=traceparent, attrs=self._trace_attrs("predict_stream"),
+            force="trace" in msg.meta.tags,
+        )
+        trace_err: BaseException | None = None
         queue: asyncio.Queue = asyncio.Queue()
 
         def on_token(row: int):
@@ -202,10 +311,65 @@ class PredictionService:
                     "puid": puid,
                 }
                 break
+        except BaseException as e:
+            trace_err = e
+            raise
         finally:
             # a closed stream cancels its rows' generations
             runner.cancel()
+            self.tracer.finish_request(buf, troot, ttoken, error=trace_err)
+            status = 200
+            if isinstance(trace_err, APIException):
+                status = trace_err.error.http_status
+            elif trace_err is not None:
+                status = 500
+            if access_log_enabled():
+                log_request(
+                    deployment=self.deployment_name,
+                    method="predict_stream",
+                    puid=puid,
+                    trace_id=buf.trace_id if buf is not None else "",
+                    status=status,
+                    duration_ms=(time.perf_counter() - start) * 1e3,
+                    batch=int(rows.shape[0]),
+                )
+            self.metrics.ingress_request(
+                self.deployment_name,
+                "predict_stream",
+                time.perf_counter() - start,
+                trace_id=buf.trace_id if buf is not None else None,
+            )
 
-    async def send_feedback(self, feedback: Feedback) -> SeldonMessage:
-        await self.executor.send_feedback(feedback)
+    async def send_feedback(self, feedback: Feedback, *, traceparent: str | None = None) -> SeldonMessage:
+        start = time.perf_counter()
+        puid = feedback.response.meta.puid if feedback.response is not None else ""
+        buf = None
+        status = 200
+        try:
+            with self.tracer.request_trace(
+                "ingress", puid=puid, parent=traceparent, attrs=self._trace_attrs("feedback")
+            ) as buf:
+                await self.executor.send_feedback(feedback)
+        except APIException as e:
+            status = e.error.http_status
+            raise
+        except BaseException:
+            status = 500
+            raise
+        finally:
+            if access_log_enabled():
+                log_request(
+                    deployment=self.deployment_name,
+                    method="feedback",
+                    puid=puid,
+                    trace_id=buf.trace_id if buf is not None else "",
+                    status=status,
+                    duration_ms=(time.perf_counter() - start) * 1e3,
+                )
+        self.metrics.ingress_request(
+            self.deployment_name,
+            "feedback",
+            time.perf_counter() - start,
+            trace_id=buf.trace_id if buf is not None else None,
+        )
         return SeldonMessage(meta=Meta(puid=new_puid()))

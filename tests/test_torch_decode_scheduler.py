@@ -343,15 +343,23 @@ async def test_streaming_e2e_through_fast_ingress():
 # package's warn-and-disable case)
 SERVED_SPEC_KNOBS = {"decode_draft_model": "", "decode_spec_accept_floor": 0.0, "decode_spec_k": 0,
                      "decode_spec_tree": ""}
+# the SLO targets, once unported too, are served: set alone on a scheduler
+# deployment, each reaches the scheduler
+SERVED_SLO_KNOBS = {"decode_slo_itl_ms": 0.0, "decode_slo_ttft_ms": 0.0}
+ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS}
 
 
-@pytest.mark.parametrize("knob", sorted({**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS}))
+@pytest.mark.parametrize("knob", sorted(ONCE_UNPORTED))
 def test_unported_decode_knob_refused_by_name(knob):
-    default = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS}[knob]
+    default = ONCE_UNPORTED[knob]
     value = {str: "x", int: 2, float: 0.5, dict: {"tp": 2}, bool: False}[type(default)]
     if knob == "decode_draft_model":
         server = PredictorServer(_predictor(2, **{knob: "zoo://draft"}), device="cpu")
         assert not server.decode_scheduler.spec_enabled
+    elif knob in SERVED_SLO_KNOBS:
+        server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
+        assert getattr(server.decode_scheduler, knob.replace("decode_", "").replace("_ms", "_s")) == value / 1e3
+        assert knob not in UNPORTED_DECODE_KNOBS
     else:
         with pytest.raises(ValueError, match=knob):
             PredictorServer(_predictor(2, **{knob: value}), device="cpu")
@@ -368,6 +376,8 @@ def test_unported_decode_knob_refused_by_name(knob):
     ({"decode_slots": 2, "decode_prefix_ctx": 8}, "needs decode_prefix_slots"),
     ({"decode_slots": 2, "decode_eos_id": -2}, "decode_eos_id"),
     ({"decode_slots": 2, "decode_prefix_slots": -1}, "must be >= 0"),
+    ({"decode_slots": 2, "decode_slo_ttft_ms": -1.0}, "decode_slo_ttft_ms must be >= 0"),
+    ({"decode_slo_itl_ms": 5.0}, "need decode_slots"),
 ])
 def test_decode_knob_validation(tpu, needle):
     problems = decode_problems("p", TpuSpec.from_dict(tpu))
