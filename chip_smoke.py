@@ -114,6 +114,31 @@ Phases, each of which raises on failure (no phase catches its own):
    iris and the DAG under the load generator at 16 users with telemetry on
    and off, in turns. A dropped span, a metric off by one and a frame that
    loses a token must each fail their check.
+9. the pipelined decode rounds and the KV tiers: ``gpt_continuous_batching``
+   under phase 5's traffic, ``gpt2_small_speculative``, its tree copy and
+   its copy with speculation off under phase 6's, each served on the
+   pipelined loop and the serial one in turns (pipelined, serial, serial,
+   pipelined): greedy rows bit for bit between the loops and held to the
+   fused ``generate``; a sampled run (every request at once) identical
+   between the loops; frames with overlap in every pipelined round and
+   none in a serial one; no new dispatch key; per deployment and loop the
+   round's wall, busy, gap and overlap, the step's (or verify's) enqueue
+   and readback and tokens/s; an idle step queued from the loop's thread
+   against through the worker; the pipelined loop's readback polled within
+   its bound, synchronized on the worker at once and polled to the end, in
+   turns, under the same traffic. A decision whose caller leaves during the
+   flight is rolled back, and a pool of two slots' pages defers a head;
+   an admission installed before the readback walk and a chunk plan taken
+   with a stale key must fail their checks. Then ``gpt2_small_kv_tier``
+   through REST: a prompt served cold, warm from the device, promoted
+   from host, then from the store (warm rows bit for bit, each promoted
+   entry's pages the tier's bytes and the tier's bytes those the entry
+   held on the card while warm), a promotion inside an overlap window (bit
+   for bit its device-warm row), a corrupt store entry served cold, a
+   promotion's wall per page against the cold prefill's, and a promotion
+   written one page off and a demotion read one page off that must fail
+   their byte checks; an int8-pool copy of ``tiny_gpt_paged_kv`` held to
+   its own cold output.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -2813,6 +2838,601 @@ async def serve_telemetry(card) -> dict:
     return out
 
 
+# Phase 9: the pipelined rounds against the serial loop, and the host and
+# store KV tiers. Both loops are served by one server per deployment, in
+# turns (pipelined, serial, serial, pipelined): the scheduler's
+# ``pipeline_enabled`` is what ENGINE_DECODE_PIPELINE=off sets at build.
+LOOPS = ("pipelined", "serial", "serial", "pipelined")
+TIER_MAX_NEW = 8  # generated tokens per tier request: the prefix is what is held
+IDLE_REPS = 50
+
+
+def round_numbers(frames: list) -> dict:
+    """``phase_split`` of a run's frames, the mean overlap per round (ms)
+    and how many rounds ran a window."""
+    out = phase_split(frames)
+    out["overlap_ms"] = round(sum(f.get("overlap_us", 0.0) for f in frames) / len(frames) / 1e3, 4)
+    out["overlap_rounds"] = sum(1 for f in frames if f.get("overlap_us"))
+    out["step_rounds"] = sum(1 for f in frames if f["mode"] != "chunk")
+    return out
+
+
+async def _cb_traffic(port: int, prompts, budgets, tags: dict | None = None, stagger: float = 0.004):
+    """Phase 5's traffic: staggered requests with their own budgets."""
+    async def one(i):
+        await asyncio.sleep(stagger * i)
+        return await _ids_post(port, prompts[i : i + 1], {"max_new_tokens": budgets[i], **(tags or {})})
+
+    t0 = time.perf_counter()
+    replies = await asyncio.gather(*(one(i) for i in range(len(prompts))))
+    return replies, time.perf_counter() - t0
+
+
+async def loops_in_turns(card, label: str, server, traffic, budgets) -> tuple[list, dict]:
+    """``traffic`` on the pipelined and the serial loop in turns: the rows
+    of each run (bit for bit between the loops and between runs of one
+    loop), and per loop and run the round numbers from the flight frames
+    and tokens/s. A pipelined run must run a window in every step round
+    (``stat_pipelined_rounds`` counts them) and show overlap; a serial run
+    none."""
+    sched = server.decode_scheduler
+    rows, numbers = {}, {"pipelined": [], "serial": []}
+    for loop in LOOPS:
+        sched.pipeline_enabled = loop == "pipelined"
+        since, windows = sched.flight.rounds, sched.stat_pipelined_rounds
+        replies, wall = await traffic(server.port)
+        run_rows = _served_rows(f"{label} {loop}", replies, budgets, sched.seq_len)
+        ref = rows.setdefault(loop, run_rows)
+        if any((a != b).any() for a, b in zip(run_rows, ref)):
+            raise AssertionError(f"{label}: two {loop} runs of the same traffic served different ids")
+        n = round_numbers(await _frames_of(server.port, server.deployment_name, since))
+        n["pipelined_rounds"] = sched.stat_pipelined_rounds - windows
+        n["tokens_per_s"] = round(sum(budgets) / wall, 2)
+        numbers[loop].append(n)
+        want = n["step_rounds"] if loop == "pipelined" else 0
+        if n["pipelined_rounds"] != want or (loop == "pipelined") != (n["overlap_rounds"] > 0):
+            raise AssertionError(f"{label} {loop}: {n['pipelined_rounds']} windows and {n['overlap_rounds']} rounds "
+                                 f"with overlap over {n['step_rounds']} step rounds")
+    sched.pipeline_enabled = True
+    differ = [r for r, (a, b) in enumerate(zip(rows["pipelined"], rows["serial"])) if (a != b).any()]
+    if differ:
+        raise AssertionError(f"{label}: pipelined rows {differ} differ from the serial loop's")
+    print(f"[{card}] pipeline {label}: {json.dumps(numbers)}", flush=True)
+    return rows["pipelined"], numbers
+
+
+async def readback_waits_in_turns(card, label: str, server, traffic, budgets, rows) -> dict:
+    """The pipelined loop under ``traffic`` with its readback polled on the
+    loop's thread within ``readback_spin_s`` (the default), handed to the
+    worker at once (the bound 0: the event's synchronize() there) and
+    polled to the end (no bound), in turns: every run's rows bit for bit
+    ``rows``; per mode and run the round numbers, tokens/s and the waits
+    handed to the worker."""
+    sched = server.decode_scheduler
+    spin = sched.readback_spin_s
+    bounds = {"bounded_poll": spin, "worker_sync": 0.0, "poll": float("inf")}
+    numbers = {mode: [] for mode in bounds}
+    for mode in ("bounded_poll", "worker_sync", "poll", "poll", "worker_sync", "bounded_poll"):
+        sched.readback_spin_s = bounds[mode]
+        since, handoffs = sched.flight.rounds, sched.stat_readback_handoffs
+        replies, wall = await traffic(server.port)
+        got = _served_rows(f"{label} {mode}", replies, budgets, sched.seq_len)
+        if any((a != b).any() for a, b in zip(got, rows)):
+            raise AssertionError(f"{label}: the {mode} readback wait served other ids than the loops' runs")
+        n = round_numbers(await _frames_of(server.port, server.deployment_name, since))
+        n["handoffs"] = sched.stat_readback_handoffs - handoffs
+        n["tokens_per_s"] = round(sum(budgets) / wall, 2)
+        numbers[mode].append(n)
+    sched.readback_spin_s = spin
+    print(f"[{card}] readback wait {label} (bound {spin * 1e3} ms): {json.dumps(numbers)}", flush=True)
+    return numbers
+
+
+async def idle_step(sched, reps: int = IDLE_REPS) -> dict:
+    """With no traffic, the median ms of one plain step (inputs, replay,
+    sampling, readback): through the worker as the serial loop runs it;
+    queued from the loop's thread and awaited by polling its event, as the
+    pipelined loop runs it; queued from the loop's thread and awaited by
+    the event's synchronize() on the worker; and the worker hop alone."""
+    import numpy as np
+    import torch
+
+    n = sched.n_slots
+    z, pos = np.zeros(n, np.int32), np.full(n, sched.max_ctx - 1, np.int32)
+    bt, zf = sched.pool.block_tables(), np.zeros(n, np.float32)
+
+    def step():
+        sched.pool.load_block_tables(bt)
+        sched._step(z, pos, zf, z, 0)
+
+    def enqueue():
+        with sched._on_stream(), torch.inference_mode():
+            sched.pool.load_block_tables(bt)
+            return sched._readback_async(sched._step_enqueue(z, pos, zf, z, 0))
+
+    async def poll():
+        await sched._await_readback(*enqueue())
+
+    async def sync_on_worker():
+        host, done = enqueue()
+        if done is not None:
+            await sched._device_call(done.synchronize)
+        host.numpy().copy()
+
+    async def timed(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            await fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return round(sorted(times)[reps // 2], 4)
+
+    return {"via_worker": await timed(lambda: sched._device_call(step)), "loop_poll": await timed(poll),
+            "loop_event_sync_on_worker": await timed(sync_on_worker),
+            "hop_only": await timed(lambda: sched._device_call(lambda: None))}
+
+
+async def rollback_run(sched, prompts) -> dict:
+    """F generates; at F's first overlap window P arrives (so the window
+    decides it), P's caller leaves while the step is in flight (its task
+    cancelled), and Q arrives after the window, to be admitted by the
+    serial walk into the slot P's decision held. Returns F's and Q's rows
+    and the counters' deltas."""
+    real, loop, tasks = sched._overlap_window, asyncio.get_running_loop(), {}
+
+    def window():
+        if "p" in tasks or not sched.active or sched._waiting:
+            return real()
+        tasks["p"] = asyncio.Task(sched.submit(prompts[1], max_new_tokens=4), loop=loop, eager_start=True)
+        real()
+        tasks["p"].cancel()  # the caller leaves during the flight
+        tasks["q"] = asyncio.Task(sched.submit(prompts[2], max_new_tokens=4), loop=loop, eager_start=True)
+
+    keys = ("stat_pipeline_rollbacks", "stat_admitted", "stat_pipeline_admits")
+    before = {k: getattr(sched, k) for k in keys}
+    sched._overlap_window = window
+    try:
+        f = await sched.submit(prompts[0], max_new_tokens=8)
+        q = await tasks["q"]
+    finally:
+        del sched._overlap_window
+    with contextlib.suppress(asyncio.CancelledError):
+        await tasks["p"]
+    return {"f": f, "q": q, **{k: getattr(sched, k) - before[k] for k in keys}}
+
+
+def check_rollback(run: dict) -> None:
+    """The decision whose caller left was rolled back, never installed: one
+    rollback, and only F and Q were admitted."""
+    if (run["stat_pipeline_rollbacks"], run["stat_admitted"]) != (1, 2):
+        raise AssertionError(f"a decision whose caller left in flight: {run['stat_pipeline_rollbacks']} rollbacks "
+                             f"and {run['stat_admitted']} admissions, want 1 and 2")
+
+
+def check_rollback_rows(run: dict, want, params, seq: int) -> None:
+    """F's and Q's ids against the fused generate (tie rule, float32)."""
+    _hold_ids("rollback run", [run["f"], run["q"]], [want[0][: seq + 8], want[2][: seq + 4]], params, seq,
+              "float32")
+
+
+async def pipeline_faults(card, sched, runtime, prompts) -> dict:
+    """The rollback and the stale-plan guard on the live scheduler, then two
+    planted faults on the same traffic, each of which must fail its check:
+    an overlap admission installed before the readback walk (the rollback
+    check), a chunk plan taken with a stale key (Q served P's prompt)."""
+    seq = sched.seq_len
+    want = _fused_oracle(runtime, prompts[:3])
+    run = await rollback_run(sched, prompts)
+    check_rollback(run)
+    check_rollback_rows(run, want, runtime.params, seq)
+    out = {"rollback": {k: v for k, v in run.items() if k.startswith("stat_")}}
+    real_admit = sched._pipeline_admit
+
+    def install_now():
+        real_admit()
+        sched._apply_pending()  # the fault: installed under the flight
+
+    def take_any(key):
+        plan, sched._pending_chunk_plan = sched._pending_chunk_plan, None
+        return plan  # the fault: no key check
+
+    for name, attr, fn, check in (
+        ("admission_installed_before_the_walk", "_pipeline_admit", install_now, lambda r: check_rollback(r)),
+        ("chunk_plan_with_a_stale_key", "_pipeline_take_chunk_plan", take_any,
+         lambda r: check_rollback_rows(r, want, runtime.params, seq)),
+    ):
+        with planted(sched, attr, fn):
+            r = await rollback_run(sched, prompts)
+        delattr(sched, attr)
+        must_fail(name, lambda: check(r))
+        out[name] = {k: v for k, v in r.items() if k.startswith("stat_")}
+        print(f"[{card}] planted fault {name}: failed its check ({json.dumps(out[name])})", flush=True)
+    return out
+
+
+async def serve_pipeline(card) -> dict:
+    """Phase 9a: gpt_continuous_batching under phase 5's traffic and the
+    GPT-2-small speculative deployment, its tree copy and its copy with
+    speculation off under phase 6's, each on both loops in turns; greedy
+    rows bit for bit between the loops and held to the fused generate; a
+    sampled run (all requests at once, so both loops admit them in one
+    round) identical between the loops; the idle step on both dispatch
+    paths; a rollback and a deferral provoked; two planted faults."""
+    import numpy as np
+
+    out = {}
+    path = BASELINE_DIR / "gpt_continuous_batching.json"
+    server, *_ = await _start(path)
+    sched, runtime = server.decode_scheduler, _model_runtime(server)
+    seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, vocab, size=(CB_REQUESTS, seq))
+    budgets = [int(b) for b in rng.integers(1, sched.max_new_tokens + 1, size=CB_REQUESTS)]
+    try:
+        rows, loops = await loops_in_turns(card, "gpt_continuous_batching", server,
+                                           lambda port: _cb_traffic(port, prompts, budgets), budgets)
+        ties = _hold_ids("gpt_continuous_batching pipelined", rows, _fused_oracle(runtime, prompts), runtime.params,
+                         seq, "float32")
+        out["gpt_continuous_batching"] = {
+            "loops": loops, "tie_rows": ties, "idle_step_ms": await idle_step(sched),
+            "readback_waits": await readback_waits_in_turns(card, "gpt_continuous_batching", server,
+                                                            lambda port: _cb_traffic(port, prompts, budgets),
+                                                            budgets, rows)}
+        out["faults"] = await pipeline_faults(card, sched, runtime, prompts)
+        recompiles = sched.recompiles_since_warmup()
+    finally:
+        await server.stop()
+    # a pool that holds two slots' worst case: heads the window tries defer
+    server, *_ = await _start(_deployment_copy("gpt_continuous_batching", {"decode_kv_pages": 14}))
+    tight = server.decode_scheduler
+    try:
+        replies, _ = await _cb_traffic(server.port, prompts, budgets)
+        ties = _hold_ids("tight pool", _served_rows("tight pool", replies, budgets, seq),
+                         _fused_oracle(_model_runtime(server), prompts), _model_runtime(server).params, seq,
+                         "float32")
+        tight.pool.alloc.check()
+        out["tight_pool"] = {"deferred": tight.stat_pipeline_deferred, "blocked_rounds": tight.stat_admit_blocked_rounds,
+                             "tie_rows": ties}
+        recompiles = (recompiles, tight.recompiles_since_warmup())
+    finally:
+        await server.stop()
+    if tight.stat_pipeline_deferred < 1:
+        raise AssertionError(f"the tight pool deferred no head under a flight: {out['tight_pool']}")
+    spec = BASELINE_DIR / "gpt2_small_speculative.json"
+    for name, path in (("gpt2_small_speculative", spec),
+                       ("gpt2_small_speculative_tree", _deployment_copy("gpt2_small_speculative",
+                                                                        {"decode_spec_tree": "2,2,1,1"})),
+                       ("gpt2_small_speculative_plain", _deployment_copy("gpt2_small_speculative", SPEC_OFF))):
+        server, *_ = await _start(path)
+        sched, runtime = server.decode_scheduler, _model_runtime(server)
+        seq_s = sched.seq_len
+        prompts_s, budgets_s = _spec_prompts(sched, runtime.params["tok_emb"].shape[0])
+        try:
+            rows, loops = await loops_in_turns(card, name, server,
+                                               lambda port: _spec_traffic(port, prompts_s, budgets_s), budgets_s)
+            ties = _hold_ids(f"{name} pipelined", rows, _fused_oracle(runtime, prompts_s), runtime.params, seq_s,
+                             "bfloat16")
+            out[name] = {"loops": loops, "tie_rows": ties}
+            if name == "gpt2_small_speculative":
+                out[name]["readback_waits"] = await readback_waits_in_turns(
+                    card, name, server, lambda port: _spec_traffic(port, prompts_s, budgets_s), budgets_s, rows)
+                # sampled rows: every request at once (a slot each), the
+                # deployment's fixed decode_seed, both loops
+                sampled = {}
+                n = sched.n_slots
+                # the prefix index first holds these prompts (one entry each,
+                # its cap), so both runs reuse the same spans
+                await asyncio.gather(*(sched.submit(prompts_s[i], max_new_tokens=1) for i in range(n)))
+                eager, tick = sched.stat_eager_rounds, sched._tick
+                for loop in ("pipelined", "serial"):
+                    sched.pipeline_enabled = loop == "pipelined"
+                    # a slot's draws are per (seed, tick, stream) and its row:
+                    # both runs start at one tick with the slots in one order
+                    sched._tick, sched._free = tick, list(range(n - 1, -1, -1))
+                    # through the scheduler's entry: requests through the
+                    # ingress reach it in as many turns of the loop as
+                    # their connections take
+                    sampled[loop] = await asyncio.gather(*(sched.submit(prompts_s[i], temperature=0.8, top_k=40,
+                                                                        max_new_tokens=16) for i in range(n)))
+                sched.pipeline_enabled = True
+                if any((a != b).any() for a, b in zip(sampled["pipelined"], sampled["serial"])):
+                    raise AssertionError(f"{name}: sampled rows differ between the loops")
+                out[name]["sampled"] = {"rows": n, "eager_rounds": sched.stat_eager_rounds - eager}
+                if sched.stat_eager_rounds == eager:
+                    raise AssertionError(f"{name}: the sampled run ran no eager round")
+            out[name]["recompiles"] = sched.recompiles_since_warmup()
+            out[name]["pipeline_stats"] = pipeline_stats(sched)
+        finally:
+            await server.stop()
+        if out[name]["recompiles"] != 0:
+            raise AssertionError(f"{name}: new keys after warmup: {out[name]['recompiles']}")
+    if recompiles != (0, 0):
+        raise AssertionError(f"gpt_continuous_batching (and its tight copy) built new keys after warmup: {recompiles}")
+    return out
+
+
+def pipeline_stats(sched) -> dict:
+    return {k: getattr(sched, f"stat_{k}") for k in ("pipelined_rounds", "pipeline_admits", "pipeline_deferred",
+                                                     "pipeline_rollbacks", "pipeline_plans_used",
+                                                     "readback_handoffs")}
+
+
+def record_promotions(sched) -> list:
+    """Keep (tokens, components) of every entry the scheduler promotes."""
+    promoted, real = [], sched._install_promoted
+
+    def install(tokens, comps):
+        promoted.append((tokens, comps))
+        return real(tokens, comps)
+
+    sched._install_promoted = install
+    return promoted
+
+
+def check_promoted_bytes(sched, prompt, promoted: list) -> None:
+    """The prefix entry that serves ``prompt`` holds, page for page, the
+    bytes of the last entry promoted (read back from the card)."""
+    import numpy as np
+
+    entry, depth = sched._prefix_index.match(prompt, touch=False)
+    tokens, comps = promoted[-1]
+    if entry is None or len(tokens) != len(entry.tokens) or (np.asarray(tokens) != entry.tokens).any():
+        raise AssertionError(f"the prompt's device entry ({depth} deep) is not the last promoted one")
+    with sched._on_stream():
+        got = sched.pool.read_pages(entry.pages)
+    bad = [i for i, (a, b) in enumerate(zip(got, comps)) if not np.array_equal(a, b[:, : a.shape[1]])]
+    if bad:
+        raise AssertionError(f"promoted pages differ from the tier's bytes in components {bad}")
+
+
+def device_entry_bytes(sched, prompt) -> list:
+    """The bytes of the device prefix entry that serves ``prompt``, read
+    back from the card page for page (``read_pages``' layout)."""
+    entry, depth = sched._prefix_index.match(prompt, touch=False)
+    if entry is None:
+        raise AssertionError(f"no device entry serves the prompt ({depth} deep)")
+    with sched._on_stream():
+        return sched.pool.read_pages(entry.pages)
+
+
+def check_tier_bytes(label: str, warm: list, comps: list) -> None:
+    """A tier's components for an entry hold, page for page, the bytes its
+    pages held on the card while it was warm there: the demotion's
+    readback, the host entry and the store's pickle, end to end."""
+    import numpy as np
+
+    bad = [i for i, (a, b) in enumerate(zip(warm, comps)) if not np.array_equal(a, np.asarray(b)[:, : a.shape[1]])]
+    if len(warm) != len(comps) or bad:
+        raise AssertionError(f"{label}: the tier's bytes differ from the device-warm entry's in components {bad}")
+
+
+async def _tier_request(server, prompt, tags: dict | None = None):
+    import numpy as np
+
+    status, _, body, ms = await _ids_post(server.port, prompt[None], {"max_new_tokens": TIER_MAX_NEW, **(tags or {})})
+    if status != 200:
+        raise AssertionError(f"tier request returned HTTP {status}: {body[:300]!r}")
+    return np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0][: len(prompt) + TIER_MAX_NEW], ms
+
+
+def _in_window(sched, fn) -> None:
+    """Run ``fn`` (it submits) at the start of the next overlap window."""
+    real = sched._overlap_window
+
+    def window():
+        del sched._overlap_window
+        fn()
+        real()
+
+    sched._overlap_window = window
+
+
+async def serve_kv_tiers(card) -> dict:
+    """Phase 9b: gpt2_small_kv_tier (GPT-2-small widths, bf16, a page budget
+    below its prefixes, the host tier and a file store in a temp dir)
+    through REST. A prompt A served cold, warm from the device, then (its
+    entry pushed out of the index's LRU cap) promoted from host, then
+    (pushed out of host too) promoted from the store: each warm row bit for
+    bit the device-warm row and held to the cold one under the tie rule,
+    each promoted entry's pages the tier's bytes. A promotion inside an
+    overlap window (D), bit for bit D's device-warm row. The bytes a
+    promotion installs are the tier's, and the tier's are the bytes the
+    entry held on the card while warm (A from host and from the store, D).
+    A corrupt store entry degrading to a cold prefill; a promotion written
+    one page off and a demotion read one page off must each fail its byte
+    check; the promotion's wall per page against the cold prefill's. Then
+    an int8 copy of tiny_gpt_paged_kv held to its own cold output."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    out = {}
+    store_dir = tempfile.mkdtemp(prefix="kv-tier-store-")
+    server, build_s, warmup_s = await _start(_deployment_copy("gpt2_small_kv_tier",
+                                                              {"decode_kv_store_tier": f"file://{store_dir}"}))
+    sched, runtime = server.decode_scheduler, _model_runtime(server)
+    tier, seq = sched._host_tier, sched.seq_len
+    vocab = runtime.params["tok_emb"].shape[0]
+    promoted = record_promotions(sched)
+    entry_bytes = sum(a[:, :1].numel() * a.element_size() for a in sched.pool.state) * sched.pool.alloc.pages_for(seq)
+    host_entries = tier.budget_bytes // entry_bytes
+    cap = sched.prefix_slots
+    prompts = np.random.default_rng(10).integers(0, vocab, size=(4 + 2 * cap + host_entries, seq))
+    a = prompts[0]
+    fill = iter(prompts[1:])
+    # per filler prompt: its cold row, its device-warm row and the bytes of
+    # its device entry while warm
+    cold_rows, warm_rows, warm_bytes = {}, {}, {}
+
+    async def serve_fill():
+        p = next(fill)
+        cold_rows[p.tobytes()] = (p, (await _tier_request(server, p))[0])
+        warm_rows[p.tobytes()] = (await _tier_request(server, p))[0]
+        warm_bytes[p.tobytes()] = device_entry_bytes(sched, p)
+
+    try:
+        cold, cold_ms = await _tier_request(server, a)
+        warm_dev, dev_ms = await _tier_request(server, a)
+        if sched.stat_prefix_hits != 1:
+            raise AssertionError(f"the repeat of A missed the device index ({sched.stat_prefix_hits} hits)")
+        a_bytes = device_entry_bytes(sched, a)
+        for _ in range(cap):  # A leaves the index (LRU cap): demoted to host
+            await serve_fill()
+        if sched._prefix_index.match(a, touch=False)[1] or tier.probe(a, include_store=False) < seq:
+            raise AssertionError("A was not demoted to host by the index's cap")
+        host_before = tier.stat_promotions_host
+        warm_host, host_ms = await _tier_request(server, a)
+        if tier.stat_promotions_host != host_before + 1:
+            raise AssertionError("A was not promoted from host")
+        check_promoted_bytes(sched, a, promoted)
+        check_tier_bytes("A from host", a_bytes, promoted[-1][1])
+        for _ in range(cap + host_entries + 1):  # A leaves the index, then host: spilled to the store
+            await serve_fill()
+        if sched._prefix_index.match(a, touch=False)[1] or tier.probe(a, include_store=False) or tier.probe(a) < seq:
+            raise AssertionError("A is not in the store alone")
+        store_before = tier.stat_promotions_store
+        warm_store, store_ms = await _tier_request(server, a)
+        if tier.stat_promotions_store != store_before + 1:
+            raise AssertionError("A was not promoted from the store")
+        check_promoted_bytes(sched, a, promoted)
+        check_tier_bytes("A from the store", a_bytes, promoted[-1][1])
+        for label, row in (("host", warm_host), ("store", warm_store)):
+            if (row != warm_dev).any():
+                raise AssertionError(f"A promoted from {label} served other ids than A warm from the device")
+        ties = _hold_ids("A warm vs cold", [warm_dev], [cold], runtime.params, seq, "bfloat16")
+        out["a"] = {"warm_equals_cold": bool((warm_dev == cold).all()), "tie_rows": ties,
+                    "latency_ms": {"cold": cold_ms, "device": dev_ms, "host": host_ms, "store": store_ms}}
+        # a promotion inside an overlap window: D (in host, off the device)
+        # arrives while F's step is in flight
+        d = next(p for p, _ in cold_rows.values()
+                 if tier.probe(p, include_store=False) >= seq and not sched._prefix_index.match(p, touch=False)[1])
+        overlap_before, tasks = sched.stat_tier_promote_overlap, []
+        _in_window(sched, lambda: tasks.append(asyncio.Task(
+            sched.submit(d, max_new_tokens=TIER_MAX_NEW), loop=asyncio.get_running_loop(), eager_start=True)))
+        await sched.submit(next(fill), max_new_tokens=TIER_MAX_NEW)
+        d_row = await tasks[0]
+        if sched.stat_tier_promote_overlap != overlap_before + 1:
+            raise AssertionError("D was not promoted inside the overlap window")
+        check_promoted_bytes(sched, d, promoted)
+        check_tier_bytes("D from host", warm_bytes[d.tobytes()], promoted[-1][1])
+        if (d_row != warm_rows[d.tobytes()]).any():
+            raise AssertionError("D promoted in a window served other ids than D warm from the device")
+        out["d"] = {"warm_equals_device_warm": True,
+                    "tie_rows": _hold_ids("D promoted in a window vs cold", [d_row], [cold_rows[d.tobytes()][1]],
+                                          runtime.params, seq, "bfloat16")}
+        # a corrupt store entry: the request degrades to a cold prefill
+        e = next(p for p, _ in cold_rows.values()
+                 if tier.probe(p) >= seq and not tier.probe(p, include_store=False)
+                 and not sched._prefix_index.match(p, touch=False)[1])
+        key = tier._best_store_key(tuple(int(t) for t in e))
+        tier.store.save(tier._store_index[key][0], b"not a pickle")
+        drops, promos = tier.stat_store_drops, sched.stat_tier_promotions
+        e_row, _ = await _tier_request(server, e)
+        if tier.stat_store_drops != drops + 1 or sched.stat_tier_promotions != promos:
+            raise AssertionError("the corrupt store entry was not dropped, or was promoted")
+        if (e_row != cold_rows[e.tobytes()][1]).any():
+            raise AssertionError("the request behind a corrupt store entry served other ids than its cold prefill")
+        # timings, idle: one entry's pages written from host memory against
+        # the chunk rounds that compute the same prefix cold
+        g = next(p for p, _ in cold_rows.values()
+                 if tier.probe(p, include_store=False) >= seq and not sched._prefix_index.match(p, touch=False)[1])
+        comps = tier._best_host(tuple(int(t) for t in g)).components
+        n_pages = sched.pool.alloc.pages_for(seq)
+        pin = sched.pool.alloc.preseed_pin(n_pages)
+        chunk = sched.prefill_chunk or seq
+        z = np.zeros(sched.n_slots, np.int32)
+        counts = z.copy()
+        counts[0] = chunk
+        ids = np.zeros((sched.n_slots, chunk), np.int32)
+
+        def promote():
+            with sched._on_stream():
+                sched.pool.write_pages(pin.pages, [c[:, :n_pages] for c in comps])
+            if sched._stream is not None:
+                sched._stream.synchronize()
+
+        def prefill():
+            with sched._on_stream(), torch.inference_mode():
+                sched.pool.load_block_tables(sched.pool.block_tables())  # every write to junk page 0
+                for start in range(0, seq, chunk):
+                    sched._chunk(ids, np.full(sched.n_slots, start, np.int32), counts, z.astype(np.float32), z, 0)
+
+        promote_ms, prefill_ms = wall_ms(promote, 10), wall_ms(prefill, 10)
+        sched.pool.alloc.release(pin.pin_id)
+        out["timing"] = {"promote_ms_per_page": promote_ms / n_pages, "cold_prefill_ms_per_page": prefill_ms / n_pages,
+                         "pages": n_pages}
+        # planted: a promotion that writes each page's bytes one page off
+        real_write = sched.pool.write_pages
+
+        def one_page_off(pages, cols):
+            real_write(list(pages[1:]) + list(pages[:1]), cols)
+
+        with planted(sched.pool, "write_pages", one_page_off):
+            g_row, _ = await _tier_request(server, g)
+        delattr(sched.pool, "write_pages")
+        must_fail("a promotion one page off", lambda: check_promoted_bytes(sched, g, promoted))
+        g_ids_failed = bool((g_row != cold_rows[g.tobytes()][1]).any())
+        print(f"[{card}] planted fault promotion_one_page_off: failed the byte check; ids "
+              f"{'differ from' if g_ids_failed else 'equal'} the cold row", flush=True)
+        # planted: a demotion that reads each page's bytes one page off, of
+        # an entry warm on the device and not in host
+        h = next(p for p, _ in reversed(list(cold_rows.values()))
+                 if sched._prefix_index.match(p, touch=False)[0] is not None and not tier.probe(p, include_store=False))
+        h_entry, _ = sched._prefix_index.match(h, touch=False)
+        real_read = sched.pool.read_pages
+
+        def read_one_off(pages):
+            return real_read(list(pages[1:]) + list(pages[:1]))
+
+        with planted(sched.pool, "read_pages", read_one_off):
+            sched._demote_entry(h_entry)
+        delattr(sched.pool, "read_pages")
+        h_comps = tier._best_host(tuple(int(t) for t in h_entry.tokens)).components
+        must_fail("a demotion one page off",
+                  lambda: check_tier_bytes("H demoted one page off", warm_bytes[h.tobytes()], h_comps))
+        print(f"[{card}] planted fault demotion_one_page_off: failed the tier byte check", flush=True)
+        out["stats"] = {"tier": tier.snapshot(), "demotions": sched.stat_tier_demotions,
+                        "promotions": sched.stat_tier_promotions,
+                        "promote_overlap": sched.stat_tier_promote_overlap,
+                        "demote_overlap": sched.stat_tier_demote_overlap,
+                        "demote_overlap_ms": sched.stat_tier_demote_overlap_ns / 1e6,
+                        "pipeline": pipeline_stats(sched), "build_s": build_s, "warmup_s": warmup_s,
+                        "entry_bytes": entry_bytes, "host_entries": host_entries}
+        if sched.recompiles_since_warmup() != 0:
+            raise AssertionError(f"gpt2_small_kv_tier built new keys after warmup: {sched.compile_counts()}")
+    finally:
+        await server.stop()
+    # int8 pages: A warm from host equals A's own cold output
+    server, *_ = await _start(_deployment_copy("tiny_gpt_paged_kv", {"decode_kv_host_bytes": 1 << 24,
+                                                                      "decode_prefix_slots": 1}))
+    sched = server.decode_scheduler
+    p8 = np.random.default_rng(11).integers(0, _model_runtime(server).params["tok_emb"].shape[0],
+                                           size=(2, sched.seq_len))
+    try:
+        cold8, _ = await _tier_request(server, p8[0])
+        await _tier_request(server, p8[1])  # its capture pushes A out: demoted
+        warm8, _ = await _tier_request(server, p8[0])
+        if sched.stat_tier_promotions != 1 or (warm8 != cold8).any():
+            raise AssertionError(f"int8 pool: {sched.stat_tier_promotions} promotions; the warm row "
+                                 f"{'equals' if (warm8 == cold8).all() else 'differs from'} the cold one")
+        out["int8"] = {"promotions": sched.stat_tier_promotions, "warm_equals_cold": True}
+    finally:
+        await server.stop()
+    print(f"[{card}] kv tiers: {json.dumps(out)}", flush=True)
+    return out
+
+
+async def serve_phase9(card) -> dict:
+    """Phase 9, both parts in one event loop; it ends with the reconcile's
+    rollbacks and deferrals (each provoked at least once)."""
+    out = {"pipeline": await serve_pipeline(card), "tiers": await serve_kv_tiers(card)}
+    p = out["pipeline"]
+    print(f"[{card}] phase 9 stat_pipeline_rollbacks={p['faults']['rollback']['stat_pipeline_rollbacks']} "
+          f"stat_pipeline_deferred={p['tight_pool']['deferred']}", flush=True)
+    return out
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -2982,6 +3602,16 @@ def main() -> int:
     telemetry_out = asyncio.run(serve_telemetry(card))
     print(f"[{card}] phase 8 seconds: {time.perf_counter() - t8:.3f}", flush=True)
 
+    # 9. the pipelined rounds against the serial loop, and the KV tiers
+    t9 = time.perf_counter()
+    before = LAUNCHES.count
+    phase9 = asyncio.run(serve_phase9(card))
+    # prompts of 32 and 128 tokens: the decode programs' attention is the
+    # masked attention over the page pool, plain PyTorch as in the JAX package
+    pipeline_launches = LAUNCHES.count - before
+    print(f"[{card}] phase 9 flash_attention launches: {pipeline_launches}", flush=True)
+    print(f"[{card}] phase 9 seconds: {time.perf_counter() - t9:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -2990,10 +3620,11 @@ def main() -> int:
         "route": "cuda",
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
-        "launches": bert_launches + dag_launches + decoder_launches + spec_launches,
+        "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
-                             "speculative deployments (phase 6)": spec_launches},
+                             "speculative deployments (phase 6)": spec_launches,
+                             "pipelined and tier deployments (phase 9)": pipeline_launches},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -3030,6 +3661,7 @@ def main() -> int:
     print(json.dumps({"captured_vs_eager": {name: {k: v for k, v in t.items() if k != "breakdown"}
                                             for name, t in twins.items()}}), flush=True)
     print(json.dumps({"telemetry": {"card": card, **telemetry_out}}), flush=True)
+    print(json.dumps({"pipeline_and_tiers": {"card": card, **phase9}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

@@ -64,11 +64,9 @@ def mesh_from_spec(axes: Mapping[str, int] | None, n_devices: int) -> dict[str, 
 
 # decode_* knobs of the JAX package the port does not serve yet, with their
 # defaults there: a deployment that sets one to anything else is refused by
-# name, as engine/builtin.py refuses an unported built-in (the speculation
-# and SLO knobs are served and held to the JAX package's rules below)
+# name, as engine/builtin.py refuses an unported built-in (the speculation,
+# SLO and KV tier knobs are served and held to the JAX package's rules below)
 UNPORTED_DECODE_KNOBS = {
-    "decode_kv_host_bytes": 0,
-    "decode_kv_store_tier": "",
     "decode_mesh_axes": {},
     "decode_replicas": 1,
     "decode_router_policy": "",
@@ -143,6 +141,20 @@ def decode_problems(name: str, tpu) -> list[str]:
             f"predictor '{name}' decode_kv_pages ({tpu.decode_kv_pages}) is below "
             f"decode_slots + 1 ({tpu.decode_slots + 1}) — the page budget cannot "
             "host the configured concurrency"
+        )
+    if tpu.decode_kv_host_bytes < 0:
+        problems.append(f"predictor '{name}' decode_kv_host_bytes must be >= 0")
+    if tpu.decode_kv_host_bytes > 0 and tpu.decode_prefix_slots <= 0:
+        # the host tier demotes and promotes prefix entries: without the
+        # prefix cache there is nothing to tier
+        problems.append(
+            f"predictor '{name}' decode_kv_host_bytes needs decode_prefix_slots > 0 "
+            "(the host tier holds demoted prefix-cache entries)"
+        )
+    if tpu.decode_kv_store_tier and tpu.decode_kv_host_bytes <= 0:
+        problems.append(
+            f"predictor '{name}' decode_kv_store_tier needs decode_kv_host_bytes > 0 "
+            "(the store is fed by the host tier's LRU)"
         )
     if tpu.decode_prefix_ctx > 0 and tpu.decode_prefix_slots == 0:
         problems.append(f"predictor '{name}' decode_prefix_ctx needs decode_prefix_slots > 0")

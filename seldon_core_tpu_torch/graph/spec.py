@@ -273,6 +273,8 @@ _TPU_FIELDS = (
     "decode_kv_page_size",
     "decode_kv_pages",
     "decode_kv_dtype",
+    "decode_kv_host_bytes",
+    "decode_kv_store_tier",
     "decode_draft_model",
     "decode_spec_k",
     "decode_spec_tree",
@@ -324,6 +326,10 @@ class TpuSpec:
     decode_kv_page_size: int = 0  # tokens per page (0: 16)
     decode_kv_pages: int = 0  # page budget (0: flat-equivalent)
     decode_kv_dtype: str = ""  # "" or "int8"
+    # the prefix tiers below the pool: host bytes (0: none) and the store
+    # the host tier's LRU spills to ("file://<dir>" or "redis://...")
+    decode_kv_host_bytes: int = 0
+    decode_kv_store_tier: str = ""
     # draft-model speculation: a zoo:// draft with a chain depth or a tree
     decode_draft_model: str = ""
     decode_spec_k: int = 0  # proposed tokens per round (0: no chain)
@@ -362,6 +368,8 @@ class TpuSpec:
             decode_kv_page_size=int(obj.get("decode_kv_page_size", 0)),
             decode_kv_pages=int(obj.get("decode_kv_pages", 0)),
             decode_kv_dtype=str(obj.get("decode_kv_dtype", "")),
+            decode_kv_host_bytes=int(obj.get("decode_kv_host_bytes", 0)),
+            decode_kv_store_tier=str(obj.get("decode_kv_store_tier", "") or ""),
             decode_draft_model=str(obj.get("decode_draft_model", "") or ""),
             decode_spec_k=int(obj.get("decode_spec_k", 0)),
             decode_spec_tree=str(obj.get("decode_spec_tree", "") or ""),

@@ -9,13 +9,14 @@ Grafana dashboards carry over (port of ``seldon_core_tpu/metrics/registry.py``):
   PredictiveUnitBean.java:239-242)
 - the JAX package's ``seldon_tpu_*`` additions for the features the port
   serves: batching, the decode tier (steps, TTFT, ITL, speculation, prefix
-  reuse, the paged KV pool, rounds, bubble, goodput, SLO attainment), the
-  resilience layer and the event-loop lag. ``seldon_tpu_xla_compile_seconds``
-  keeps its name; here it times the capture of CUDA graphs at warmup.
+  reuse, the paged KV pool and its host and store tiers, rounds, bubble,
+  goodput, SLO attainment), the resilience layer and the event-loop lag.
+  ``seldon_tpu_xla_compile_seconds`` keeps its name; here it times the
+  capture of CUDA graphs at warmup.
 
-The hooks of features the port does not have yet (the host/store KV
-tiers, sibling pulls, per-device pages, the replica router and fleet,
-shadow comparison) stay no-ops inherited from ``NullMetrics``, and their
+The hooks of features the port does not have yet (sibling pulls,
+per-device pages, the replica router and fleet, shadow comparison) stay
+no-ops inherited from ``NullMetrics``, and their
 families are not registered.
 
 The card's host has no ``prometheus_client``, so the registry carries its
@@ -327,13 +328,14 @@ class NullMetrics:
         pass
 
     def decode_kv_tier_bytes(self, deployment: str, tier: str, nbytes: int) -> None:
-        pass
+        """Bytes resident in one slow KV tier (``tier`` = host | store)."""
 
     def decode_kv_demotion(self, deployment: str, tier: str, n: int) -> None:
-        pass
+        """``n`` prefix entries demoted into ``tier`` (host: a device eviction
+        caught by the host pool; store: a host-LRU spill)."""
 
     def decode_kv_promotion(self, deployment: str, tier: str, n: int) -> None:
-        pass
+        """``n`` prefix entries promoted to the device pool from ``tier``."""
 
     def decode_kv_sibling_pull(self, deployment: str, outcome: str) -> None:
         pass
@@ -511,6 +513,15 @@ class Metrics(NullMetrics):
             "seldon_tpu_decode_kv_pins_reclaimed_total",
             "Prefix pins reclaimed LRU-first under pool allocation pressure", ["deployment_name"],
             registry=registry)
+        self._kv_tier_bytes = Gauge(
+            "seldon_tpu_decode_kv_tier_bytes", "Bytes of demoted prefix KV resident per slow tier (host|store)",
+            ["deployment_name", "tier"], registry=registry)
+        self._kv_demotions = Counter(
+            "seldon_tpu_decode_kv_demotions_total", "Prefix entries demoted into a slow KV tier (host|store)",
+            ["deployment_name", "tier"], registry=registry)
+        self._kv_promotions = Counter(
+            "seldon_tpu_decode_kv_promotions_total", "Prefix entries promoted to the device pool from a slow tier",
+            ["deployment_name", "tier"], registry=registry)
         self._decode_round_busy = Histogram(
             "seldon_tpu_decode_round_device_seconds", "Device-dispatch wall time per decode scheduler round",
             ["deployment_name"], registry=registry)
@@ -627,6 +638,17 @@ class Metrics(NullMetrics):
     def decode_kv_reclaimed(self, deployment, pins):
         if pins > 0:
             self._kv_reclaimed.labels(deployment).inc(pins)
+
+    def decode_kv_tier_bytes(self, deployment, tier, nbytes):
+        self._kv_tier_bytes.labels(deployment, tier).set(nbytes)
+
+    def decode_kv_demotion(self, deployment, tier, n):
+        if n > 0:
+            self._kv_demotions.labels(deployment, tier).inc(n)
+
+    def decode_kv_promotion(self, deployment, tier, n):
+        if n > 0:
+            self._kv_promotions.labels(deployment, tier).inc(n)
 
     def decode_round(self, deployment, busy_s, gap_s):
         self._decode_round_busy.labels(deployment).observe(busy_s)

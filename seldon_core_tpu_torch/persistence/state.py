@@ -1,0 +1,97 @@
+"""State stores: the persistence tier's byte bags.
+
+Port of the store half of ``seldon_core_tpu/persistence/state.py``, which
+the host KV tier (``serving/kv_host_tier.py``) spills to: the reference's
+key format (``persistence_{deployment}_{unit}``), one pickle file per key
+under a directory (``file://``), or Redis (``redis://``, with ``redis``
+imported only when such a store is made) with a bounded socket budget.
+``StatePersister``, the periodic snapshot of stateful units, comes with
+the units that have state.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+
+log = logging.getLogger(__name__)
+
+
+def state_key(deployment_id: str, unit_id: str) -> str:
+    return f"persistence_{deployment_id}_{unit_id}"  # reference key format
+
+
+class FileStateStore:
+    """One pickle file per key under a directory; a relative directory is
+    resolved against the working directory once, when the store is made."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+
+    def _path(self, key: str) -> str:
+        safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in key)
+        # sanitizing is lossy ("a/b" and "a_b" collide): a short digest of
+        # the raw key keeps distinct keys in distinct files
+        digest = hashlib.blake2b(key.encode(), digest_size=4).hexdigest()
+        return os.path.join(self.directory, f"{safe}.{digest}.pkl")
+
+    def save(self, key: str, payload: bytes) -> None:
+        tmp = self._path(key) + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+        os.replace(tmp, self._path(key))
+
+    def load(self, key: str) -> bytes | None:
+        try:
+            with open(self._path(key), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
+
+
+class RedisStateStore:
+    """Redis-backed store with a bounded socket budget: a hung Redis
+    degrades to skip-store (save dropped, load misses, both logged) and
+    never blocks the serving loop."""
+
+    def __init__(self, url: str):
+        import redis  # not in the base image
+
+        from seldon_core_tpu_torch.utils.env import redis_timeout_s
+
+        timeout = redis_timeout_s()
+        self._errors = (redis.exceptions.ConnectionError, redis.exceptions.TimeoutError)
+        self._r = redis.Redis.from_url(url, socket_timeout=timeout, socket_connect_timeout=timeout)
+
+    def save(self, key: str, payload: bytes) -> None:
+        try:
+            self._r.set(key, payload)
+        except self._errors as e:
+            log.warning("redis save skipped (store unreachable): %s", e)
+
+    def load(self, key: str) -> bytes | None:
+        try:
+            return self._r.get(key)
+        except self._errors as e:
+            log.warning("redis load skipped (store unreachable): %s", e)
+            return None
+
+
+def make_state_store(url: str):
+    """The store a URL names (``file://<dir>``, the directory absolute or
+    relative to the working directory, or ``redis://...``), None for
+    an empty URL or when ``redis`` cannot be imported; another scheme
+    raises ValueError."""
+    if not url:
+        return None
+    if url.startswith("file://"):
+        return FileStateStore(url[len("file://"):])
+    if url.startswith("redis://"):
+        try:
+            return RedisStateStore(url)
+        except ImportError:
+            log.warning("redis not importable; state persistence disabled")
+            return None
+    raise ValueError(f"unknown state store url: {url}")

@@ -1,7 +1,7 @@
 """Continuous-batching decode scheduler for the generative tier.
 
-Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
-(Orca-style iteration-level scheduling over a vLLM-style paged KV pool):
+Port of ``seldon_core_tpu/serving/decode_scheduler.py`` (Orca-style
+iteration-level scheduling over a vLLM-style paged KV pool):
 
 - ONE per-step program (``_step_logits``: ``paged_decode_step``, then
   sampling) runs over the shared page pool through static-shape
@@ -34,8 +34,10 @@ Port of the serial loop of ``seldon_core_tpu/serving/decode_scheduler.py``
 - Tokens stream to the caller as they are chosen (``on_token``), which is
   what the SSE route forwards.
 
-Device work runs off the event loop on one worker thread per scheduler.
-Every (program, shape) key is one CUDA graph on the card (``ops/graphs.py``),
+Device work runs on one CUDA stream per scheduler (``_on_stream``), which
+the loop's thread and the scheduler's one worker thread both enter, so the
+order of the work on the card is the order in which either thread queued
+it. Every (program, shape) key is one CUDA graph on the card (``ops/graphs.py``),
 captured in ``warmup()`` over static inputs, the device block tables
 (``PagedKVPool.bt_device``), the pool and the draft cache, which keep their
 addresses for the scheduler's life; a round writes its arguments into the
@@ -63,7 +65,7 @@ speculation accepted and proposed, and each program family's wall split
 into enqueue and blocked readback (``rdb_ns``) against the host gap, which
 ``with self._phase(P_X)`` blocks split by phase. On the card a replay
 returns before the device finishes and ``.cpu()`` is where the host waits;
-``ENGINE_FLIGHT_SYNC_TIMING=on`` adds a ``torch.cuda.synchronize()`` after
+``ENGINE_FLIGHT_SYNC_TIMING=on`` synchronizes the scheduler's stream after
 each dispatch so the enqueue column is the device's wall. The metrics
 hooks (steps, TTFT, ITL, SLO attainment against ``decode_slo_ttft_ms`` /
 ``decode_slo_itl_ms`` and a request's deadline budget, goodput,
@@ -73,20 +75,42 @@ prefill-chunk, verify and generate spans on the contexts captured at
 submit (the loop runs in its own task, its dispatches on a worker thread).
 The sampling profiler watches the loop's thread (``telemetry/profile.py``).
 
+Pipelined rounds (the default; ``ENGINE_DECODE_PIPELINE=off`` or
+``ENGINE_FLIGHT_SYNC_TIMING=on`` forces the serial loop): the loop's
+thread queues the round's block tables, the step's (or the greedy round
+pair's) replay and a ``non_blocking`` copy of its tokens into pinned host
+memory with an event behind it, then runs round N+1's host phases while
+the card works (``_overlap_window``: admission decisions into a shadow
+list, the next chunk round's input arrays, the queue-expiry sweep and the
+pool gauges), and only then waits for the event: polled between turns of
+the event loop for up to ``readback_spin_s``, then synchronized on the
+worker (``stat_readback_handoffs``). The decisions are installed after the readback
+walks (``_apply_pending``), so each round admits what the serial loop
+would. A speculative round with a sampled slot runs its eager pair on the
+worker thread while the window runs on the loop. The serial loop runs
+every dispatch and its readback on the worker thread, as before: it is the
+twin whose output the pipelined loop is held to.
+
+Host and store KV tiers (``decode_kv_host_bytes``,
+``decode_kv_store_tier``; ``serving/kv_host_tier.py``): a prefix entry the
+pool reclaims or the index's cap evicts demotes its pages' bytes to host
+memory (then to the store), and an admission whose device match is
+shallower than a tier's promotes the entry back into ``preseed_pin``-pinned
+free pages, inside the overlap window when the admission is decided there.
+
 Not ported yet, and refused by name at deployment build
-(``graph/defaulting.py::decode_problems``): the host/store KV tiers,
-tensor-parallel decode and the replicated fleet; the feature draft
-(``zoo://draft?features=1``) and distilled drafts are refused by the zoo.
-The pipelined rounds have no knob and are simply absent (the recorder's
-``overlap_ns`` reads 0): the serial loop is the one whose greedy output the
-pipelined one must equal. The queue timeout is honoured, and a request's
-deadline budget is enforced at the ingress and judged here for goodput.
+(``graph/defaulting.py::decode_problems``): tensor-parallel decode and the
+replicated fleet (with it the sibling pull between replicas); the feature
+draft (``zoo://draft?features=1``) and distilled drafts are refused by the
+zoo. The queue timeout is honoured, and a request's deadline budget is
+enforced at the ingress and judged here for goodput.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -123,6 +147,8 @@ from seldon_core_tpu_torch.models.decoder import (
 )
 from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree, parse_spec_tree
 from seldon_core_tpu_torch.ops.graphs import GraphCache
+from seldon_core_tpu_torch.persistence.state import make_state_store
+from seldon_core_tpu_torch.serving.kv_host_tier import KVHostTier
 from seldon_core_tpu_torch.serving.kv_pool import PagedKVPool
 from seldon_core_tpu_torch.telemetry import profile as profile_mod
 from seldon_core_tpu_torch.telemetry.flight import (
@@ -142,6 +168,7 @@ from seldon_core_tpu_torch.telemetry.flight import (
     FlightFrame,
     FlightRecorder,
     PhaseTimer,
+    decode_pipeline_enabled,
     sync_timing_enabled,
 )
 from seldon_core_tpu_torch.telemetry.flight import register as flight_register
@@ -151,13 +178,22 @@ log = logging.getLogger(__name__)
 OnToken = Callable[[int, int], None]  # (token_id, index within the generation)
 
 
-def _sample(logits, temps: np.ndarray, topks: np.ndarray, seed: int, tick: int) -> torch.Tensor:
-    """Eager sampling after a program's logits: the greedy argmax, or draws
-    from the (seed, tick) generator when any slot samples."""
+def _sampling_inputs(temps: np.ndarray, topks: np.ndarray, device) -> tuple | None:
+    """A round's temperatures and top-k on the device, or None when every
+    slot is greedy. Uploaded before the round's program is queued: a
+    blocking upload behind it would wait for the program."""
     if not (temps > 0).any():
+        return None
+    return to_device(temps, device), to_device(topks, device)
+
+
+def _sample(logits, sampling: tuple | None, seed: int, tick: int) -> torch.Tensor:
+    """Eager sampling after a program's logits: the greedy argmax, or draws
+    from the (seed, tick) generator when any slot samples (``sampling``:
+    ``_sampling_inputs``)."""
+    if sampling is None:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    dev = logits.device
-    return sample_tokens(logits, to_device(temps, dev), to_device(topks, dev), sampling_generator(seed, tick, dev))
+    return sample_tokens(logits, *sampling, sampling_generator(seed, tick, logits.device))
 
 
 def _step_logits(params, pool, bt, tokens, positions):
@@ -362,6 +398,54 @@ def capture_prefix_len(length: int, prefix_ctx: int, seq_len: int) -> int:
     return max(0, min(int(length), int(prefix_ctx), int(seq_len)))
 
 
+class _PipelineGate:
+    """Per-stage cost gate for the pipelined loop's overlap window (the
+    JAX package's, unchanged): an EWMA of each stage's measured host cost,
+    with a floor below which the stage stops riding the pipeline (moving a
+    trivially cheap phase across the round boundary buys nothing). A
+    skipped stage still probes every ``probe_every``-th opportunity, so a
+    workload whose host cost grows re-enables it. Optimistic start: an
+    unmeasured stage always runs."""
+
+    __slots__ = ("floor_ns", "alpha", "probe_every", "ewma", "skips")
+
+    def __init__(self, floor_ns: float = 1_000.0, alpha: float = 0.2, probe_every: int = 32):
+        self.floor_ns = float(floor_ns)
+        self.alpha = float(alpha)
+        self.probe_every = int(probe_every)
+        self.ewma: dict[str, float] = {}
+        self.skips: dict[str, int] = {}
+
+    def allow(self, stage: str) -> bool:
+        mean = self.ewma.get(stage)
+        if mean is None or mean >= self.floor_ns:
+            return True
+        n = self.skips.get(stage, 0) + 1
+        self.skips[stage] = n
+        return self.probe_every > 0 and n % self.probe_every == 0
+
+    def note(self, stage: str, ns: int) -> None:
+        prev = self.ewma.get(stage)
+        self.ewma[stage] = float(ns) if prev is None else prev + self.alpha * (ns - prev)
+
+
+class _PendingAdmit:
+    """One admission decided under an in-flight dispatch (shadow round
+    state): held un-installed until ``_apply_pending``, so the readback
+    walks see exactly the dispatch-time slot table. The allocator
+    reservation (``try_admit``) is the decision's only live footprint, so
+    ``alloc.retire(slot)`` is the whole rollback."""
+
+    __slots__ = ("seq", "slot", "entry", "reuse", "t0")
+
+    def __init__(self, seq: "_Seq", slot: int, entry, reuse: int, t0: int):
+        self.seq = seq
+        self.slot = slot
+        self.entry = entry
+        self.reuse = reuse
+        self.t0 = t0
+
+
 class _PrefixEntry:
     """One cached prefix: its tokens and a reference to the pool pages that
     hold its K/V (a kv_pool pin id)."""
@@ -463,7 +547,7 @@ class _Seq:
         "on_token", "future", "tokens", "pos", "deadline", "prefilling",
         "prefill_pos", "chunk_cap", "cache_prefix", "t_enqueued", "t_last_token",
         "slo_deadline", "slo_ok", "slo_sink", "prefix_len", "chunk_idx", "trace_ctxs",
-        "gen_spans",
+        "gen_spans", "uid", "slot", "kv_tier",
     )
 
     def __init__(self, prompt, max_new, temperature, top_k, spec_k, on_token, future):
@@ -477,6 +561,10 @@ class _Seq:
         self.tree_widths: tuple[int, ...] = ()
         self.on_token = on_token
         self.future = future
+        # the scheduler's serial number for this request (submit order): a
+        # chunk plan's key tells two tenants of one slot apart by it
+        self.uid = 0
+        self.slot = -1
         self.tokens: list[int] = []
         self.pos = 0
         self.deadline = 0.0  # admission deadline (perf_counter; 0: none)
@@ -496,6 +584,9 @@ class _Seq:
         self.slo_sink = None
         self.prefix_len = 0  # prompt positions reused from the prefix pool
         self.chunk_idx = 0
+        # meta.tags.kv_tier, tighten-only: "" the whole ladder, "host" no
+        # store consult, "off" no promotion (the device match still applies)
+        self.kv_tier = ""
         # the submitter's trace contexts, captured at submit: the loop runs
         # in its own task, so spans go to each sequence's traces explicitly
         self.trace_ctxs = telemetry.current_contexts()
@@ -533,6 +624,8 @@ class DecodeScheduler:
         kv_page_size: int = 0,
         kv_pages: int = 0,
         kv_dtype: str = "",
+        kv_host_bytes: int = 0,
+        kv_store=None,
         dtype: torch.dtype | None = None,
         cuda_graphs: bool = True,
         metrics: NullMetrics | None = None,
@@ -599,6 +692,12 @@ class DecodeScheduler:
         )
         self._dtype = dtype
         dev = self.pool.device
+        # the one stream every device call of this scheduler is queued on,
+        # from the loop's thread and from the worker's (a stream is a
+        # per-thread setting in PyTorch: both enter this one), so a CoW copy
+        # or a promotion queued after a pipelined replay runs after it
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._pinned: dict[tuple, torch.Tensor] = {}  # pipelined readback buffers
         # the greedy round pair's temperatures and top-k: a round with no
         # generator reads neither
         self._zf = torch.zeros(n_slots, dtype=torch.float32, device=dev)
@@ -613,6 +712,20 @@ class DecodeScheduler:
         if self.prefix_enabled:
             self._prefix_index = PrefixIndex(self.prefix_slots)
             self.pool.alloc.on_pins_reclaimed = self._on_pins_reclaimed
+        # demand-paged prefix tiers below the pool: host numpy state, no
+        # dispatch key. ``kv_store`` is the store tier under the host tier
+        # (``persistence.state.make_state_store`` of the JAX scheduler's
+        # ``kv_store_url``), None for host only
+        self._host_tier = None
+        if self.prefix_enabled and int(kv_host_bytes) > 0:
+            self._host_tier = KVHostTier(
+                int(kv_host_bytes),
+                page_size=self.pool.page_size,
+                kv_dtype=self.pool.kv_dtype,
+                store=kv_store,
+                deployment=deployment_name or "decode",
+                metrics=metrics,
+            )
         self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="seldon-decode")
         self._slots: list[_Seq | None] = [None] * n_slots
         self._free: list[int] = list(range(n_slots - 1, -1, -1))
@@ -629,6 +742,15 @@ class DecodeScheduler:
         self.stat_prefix_hits = 0
         self.stat_prefix_misses = 0
         self.stat_prefix_tokens_saved = 0
+        self.stat_prefix_preseeded = 0
+        # the tiers: device evictions demoted, misses promoted back, the
+        # promotions made inside an overlap window, and the demotions made
+        # there with the ns their page readback held the window
+        self.stat_tier_demotions = 0
+        self.stat_tier_promotions = 0
+        self.stat_tier_promote_overlap = 0
+        self.stat_tier_demote_overlap = 0
+        self.stat_tier_demote_overlap_ns = 0
         self.stat_chunk_dispatches = 0
         # rounds whose queue head could not reserve pages
         self.stat_admit_blocked_rounds = 0
@@ -662,7 +784,28 @@ class DecodeScheduler:
         )
         self.flight.queue_depth_source = lambda: len(self._waiting)
         self._phases = PhaseTimer(enabled=self.flight.enabled)
-        self._sync_timing = sync_timing_enabled() and self.pool.device.type == "cuda"
+        self._sync_timing = sync_timing_enabled()
+        # pipelined rounds: round N+1's host phases run against the shadow
+        # state below (pending admissions and a chunk plan keyed on the
+        # rows it was built for) while round N's dispatch is in flight
+        self.pipeline_enabled = decode_pipeline_enabled()
+        self._gate = _PipelineGate()
+        self._pending_admits: list[_PendingAdmit] = []
+        self._pending_chunk_plan: tuple | None = None
+        # the last overlap window ran the admission sundries (expiry sweep,
+        # gauges): the next serial walk skips them once
+        self._pending_admit_sweep = False
+        self._seq_uid = 0
+        self.stat_pipelined_rounds = 0  # rounds that ran an overlap window
+        self.stat_pipeline_admits = 0  # admissions decided under a flight
+        self.stat_pipeline_deferred = 0  # heads the pre-retire pool deferred
+        self.stat_pipeline_rollbacks = 0  # decisions whose caller left in flight
+        self.stat_pipeline_plans_used = 0  # chunk plans from a window consumed
+        # the poll's bound (``_await_readback``): above a step's readback
+        # wait under traffic, below a speculative round's
+        self.readback_spin_s = 1e-3
+        self.stat_readback_handoffs = 0  # readback waits handed to the worker
+        self._in_overlap = False  # inside _overlap_window (promotion attribution)
         self._round_reset()
 
     def _init_speculation(self, dims: dict, draft_params, spec_k: int, tree_text: str, accept_floor: float) -> None:
@@ -714,14 +857,29 @@ class DecodeScheduler:
         self.admit_buckets = tuple(buckets) + (self.n_slots,)
 
     # ------------------------------------------------------------ dispatch
-    # Each method runs on the worker thread; the round's block tables are
+    # Each method runs inside ``_on_stream()``: on the worker thread (the
+    # serial loop, chunk rounds, copies) or on the loop's thread (the
+    # pipelined rounds' ``*_enqueue``). The round's block tables are
     # already in ``pool.bt_device`` (``pool.load_block_tables``).
-    def _step(self, toks, pos, temps, topks, tick) -> np.ndarray:
+    def _on_stream(self):
+        """The scheduler's stream as the calling thread's current stream
+        (nothing off the card)."""
+        return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
+
+    def _step_enqueue(self, toks, pos, temps, topks, tick) -> torch.Tensor:
+        """Queue one step and its sampling; the next tokens [n] stay on the
+        device. The entry's lock is released only after the sampling that
+        reads its static logits is queued, so a later replay of the key
+        runs after it on the stream."""
         n = len(toks)
         params, pool, bt = self.params, self.pool.state, self.pool.bt_device
         entry = self.graphs.entry(("step", n), lambda t, p: _step_logits(params, pool, bt, t, p),
                                   [((n,), torch.int32), ((n,), torch.int32)])
-        nxt = entry.run(toks, pos, post=lambda logits: _sample(logits, temps, topks, self._seed, tick))
+        sampling = _sampling_inputs(temps, topks, self.pool.device)
+        return entry.run(toks, pos, post=lambda logits: _sample(logits, sampling, self._seed, tick))
+
+    def _step(self, toks, pos, temps, topks, tick) -> np.ndarray:
+        nxt = self._step_enqueue(toks, pos, temps, topks, tick)
         self._mark_enqueued()
         return nxt.cpu().numpy()
 
@@ -731,9 +889,44 @@ class DecodeScheduler:
         entry = self.graphs.entry(("chunk",) + ids.shape,
                                   lambda i, p, c: _chunk_logits(params, pool, bt, i, p, c),
                                   [(ids.shape, torch.int32), ((n,), torch.int32), ((n,), torch.int32)])
-        toks = entry.run(ids, pos, counts, post=lambda logits: _sample(logits, temps, topks, self._seed, tick))
+        sampling = _sampling_inputs(temps, topks, self.pool.device)
+        toks = entry.run(ids, pos, counts, post=lambda logits: _sample(logits, sampling, self._seed, tick))
         self._mark_enqueued()
         return toks.cpu().numpy()
+
+    def _readback_async(self, t: torch.Tensor) -> tuple:
+        """Queue ``t``'s copy into a pinned host buffer behind the work that
+        makes it, and an event behind the copy: (buffer, event). Off the
+        card the tensor is already on the host: (t, None). One buffer per
+        shape, reused: a round reads its buffer before the next is queued."""
+        if self._stream is None:
+            return t, None
+        key = (tuple(t.shape), t.dtype)
+        host = self._pinned.get(key)
+        if host is None:
+            host = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return host, done
+
+    async def _await_readback(self, host: torch.Tensor, done) -> np.ndarray:
+        """Wait for ``_readback_async``'s event, then copy the values out of
+        the reused buffer. The event is polled between turns of the event
+        loop (ingress and submits run meanwhile) for at most
+        ``readback_spin_s``; a round still in flight then hands the wait to
+        the worker (the event's synchronize(), which releases the GIL), so
+        a long round never spins the loop's thread against the units and
+        the compute pool it shares the GIL with."""
+        if done is not None:
+            end = time.perf_counter() + self.readback_spin_s
+            while not done.query():
+                if time.perf_counter() >= end:
+                    self.stat_readback_handoffs += 1
+                    await self._device_call(done.synchronize)
+                    break
+                await asyncio.sleep(0)
+        return host.numpy().copy()
 
     def _draft_admit(self, ids, row_for_slot, valid_slot) -> None:
         """The draft's prompt prefill for a wave of slots (``ids`` [bucket,
@@ -777,6 +970,19 @@ class DecodeScheduler:
         return draft, self.graphs.entry(("tree_verify", n, tree.width), tree_verify_fn,
                                         [((n, tree.depth), torch.int32)])
 
+    def _spec_enqueue(self, toks, pos, lim, t0: int) -> torch.Tensor:
+        """Queue the captured greedy round pair: [n, spec_k + 2] on the
+        device, out_tokens then n_accepted, copied off the static outputs
+        before the entries' locks are released."""
+        draft, verify = self._spec_entries(len(toks))
+        with draft.lock, verify.lock, torch.inference_mode():
+            draft.load(toks, pos)
+            verify.load(lim)
+            draft.replay()
+            self._draft_done(t0)
+            out, acc = verify.replay()
+            return torch.cat([out, acc[:, None]], dim=1)
+
     def _spec(self, toks, pos, temps, topks, limits, wlimits, tick) -> tuple[np.ndarray, np.ndarray]:
         """One speculative round pair, draft then widened verify, and its one
         readback: (out_tokens [n, spec_k + 1], n_accepted [n]). Every input
@@ -790,14 +996,7 @@ class DecodeScheduler:
             out, acc = self._spec_sampled(toks, pos, temps, topks, lim, tick, t0)
             res = torch.cat([out, acc[:, None]], dim=1)
         else:
-            draft, verify = self._spec_entries(len(toks))
-            with draft.lock, verify.lock:
-                draft.load(toks, pos)
-                verify.load(lim)
-                draft.replay()
-                self._draft_done(t0)
-                out, acc = verify.replay()
-                res = torch.cat([out, acc[:, None]], dim=1)  # off the static outputs
+            res = self._spec_enqueue(toks, pos, lim, t0)
         self._mark_enqueued()
         res = res.cpu().numpy()
         return res[:, :-1], res[:, -1]
@@ -825,15 +1024,15 @@ class DecodeScheduler:
                                   self._dck, self._dcv, pos_d, lim_d, temps_d, topks_d, g_verify, tree)
 
     def _on_worker(self, fn):
-        with torch.inference_mode():
+        with self._on_stream(), torch.inference_mode():
             return fn()
 
     # ------------------------------------------------------ round telemetry
     def _sync(self) -> None:
         """ENGINE_FLIGHT_SYNC_TIMING=on: wait for the device after a
         dispatch, so its family's column is the device's wall."""
-        if self._sync_timing:
-            torch.cuda.synchronize(self.pool.device)
+        if self._sync_timing and self._stream is not None:
+            self._stream.synchronize()
 
     def _mark_enqueued(self) -> None:
         """On the worker, between a dispatch's enqueue and its blocking
@@ -888,6 +1087,13 @@ class DecodeScheduler:
         self._rb_active = 0
         self._rb_probe = False
         self._rb_widths: tuple = ()
+        self._rb_promotions = 0
+        # shadow admissions still pending here are error-path residue (the
+        # normal flow drains them at _apply_pending before the commit):
+        # roll their reservations back
+        for p in self._pending_admits:
+            self.pool.alloc.retire(p.slot)
+        self._pending_admits.clear()
         self._phases.reset()
 
     def _phase(self, p: int):
@@ -924,8 +1130,8 @@ class DecodeScheduler:
                     self._rb_blocked, self._rb_tokens, self._rb_accepted,
                     self._rb_proposed, self._rb_depth, tuple(self._rb_busy),
                     gap, snap["free"], snap["live"], snap["prefix"],
-                    self._rb_cow, phase_ns, tuple(self._rb_rdb), 0,
-                    self._rb_probe, tuple(self._rb_widths),
+                    self._rb_cow, phase_ns, tuple(self._rb_rdb), self._phases.overlap_ns,
+                    self._rb_probe, tuple(self._rb_widths), self._rb_promotions,
                 )
             )
             if self.spec_enabled:
@@ -1010,6 +1216,7 @@ class DecodeScheduler:
         spec_tree: str | None = None,
         cache_prefix: int | None = None,
         prefill_chunk: int | None = None,
+        kv_tier: str | None = None,
         on_token: OnToken | None = None,
         _slo_sink: Callable[[bool], None] | None = None,
     ) -> np.ndarray:
@@ -1021,8 +1228,10 @@ class DecodeScheduler:
         tree deployment's per-depth widths (ignored elsewhere).
         ``cache_prefix`` hints how many leading tokens are worth capturing
         into the prefix pool; ``prefill_chunk`` tightens (never widens) the
-        deployment's chunk cap. ``_slo_sink`` receives the request's SLO
-        verdict at retirement (``execute_message``'s ``meta.tags.slo``)."""
+        deployment's chunk cap. ``kv_tier`` ("off" or "host") narrows which
+        KV tiers may promote this request's prefix. ``_slo_sink`` receives
+        the request's SLO verdict at retirement (``execute_message``'s
+        ``meta.tags.slo``)."""
         if self._closed:
             raise APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, "decode scheduler closed")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
@@ -1038,6 +1247,8 @@ class DecodeScheduler:
         k = int(top_k) if top_k is not None else self.default_top_k
         sk = self.spec_k if spec_k is None else max(0, min(int(spec_k), self.spec_k))
         seq = _Seq(prompt, max_new, temp, k, sk, on_token, asyncio.get_running_loop().create_future())
+        self._seq_uid += 1
+        seq.uid = self._seq_uid
         if self.spec_tree is not None:
             # per depth min(request, deployment); omitted depths get 0, and
             # a 0 width (min_branch=0) is the documented opt-out
@@ -1054,6 +1265,11 @@ class DecodeScheduler:
             seq.chunk_cap = min(pc, self.prefill_chunk) if self.prefill_chunk else pc
         if self.prefix_enabled and cache_prefix is not None:
             seq.cache_prefix = max(0, min(int(cache_prefix), self.prefix_ctx))
+        if kv_tier is not None:
+            kt = str(kv_tier)
+            if kt not in ("", "off", "host"):
+                raise APIException(ErrorCode.ENGINE_INVALID_JSON, f"meta.tags.kv_tier '{kt}' must be 'off' or 'host'")
+            seq.kv_tier = kt
         # goodput: a request submitted under a deadline budget is judged
         # against it at retirement
         d = current_deadline()
@@ -1114,7 +1330,14 @@ class DecodeScheduler:
 
     def _on_pins_reclaimed(self, pin_ids: list[int]) -> None:
         """Allocator callback: pool pressure reclaimed prefix pins; drop the
-        index entries that held them."""
+        index entries that held them. The allocator calls before any
+        reclaimed page is reused, so the entries' pages still hold their
+        bytes: with the host tier they demote instead of vanishing."""
+        if self._host_tier is not None:
+            for pin_id in pin_ids:
+                entry = self._prefix_index.entries.get(pin_id)
+                if entry is not None:
+                    self._demote_entry(entry)
         for _ in range(self._prefix_index.remove_by_pins(pin_ids)):
             self._metrics.decode_prefix_evicted(self._deployment)
         self._metrics.decode_kv_reclaimed(self._deployment, len(pin_ids))
@@ -1134,8 +1357,154 @@ class DecodeScheduler:
             return  # the span's pages are not materialized
         _, evicted = self._prefix_index.insert(seq.prompt[:length], pin.pages, pin.pin_id)
         if evicted is not None:
+            # the index cap's LRU victim demotes while its pages are intact
+            self._demote_entry(evicted)
             self.pool.alloc.release(evicted.pin_id)
             self._metrics.decode_prefix_evicted(self._deployment)
+
+    def _demote_entry(self, entry) -> None:
+        """Demote one evicted prefix entry's pages to the host tier: each
+        pool component's columns read back verbatim (an int8 pool's planes
+        with their scale and zero point) while the pages are intact. The
+        readback waits for the stream: inside an overlap window that is the
+        in-flight round, and the wait is counted
+        (``stat_tier_demote_overlap``, ``stat_tier_demote_overlap_ns``)."""
+        if self._host_tier is None:
+            return
+        t0 = time.perf_counter_ns()
+        with self._on_stream():
+            comps = self.pool.read_pages(entry.pages)
+        if self._in_overlap:
+            self.stat_tier_demote_overlap += 1
+            self.stat_tier_demote_overlap_ns += time.perf_counter_ns() - t0
+        if self._host_tier.put(entry.tokens, comps):
+            self.stat_tier_demotions += 1
+
+    def _promote(self, seq: _Seq, depth: int) -> bool:
+        """Consult the host (then store) tier for an entry deeper than the
+        device match and promote it into pinned free pages. Runs on both
+        admission paths, the serial walk and ``_pipeline_admit`` under an
+        in-flight dispatch: the page writes are queued behind the round on
+        the scheduler's stream and touch only pages off the free list, and
+        ``preseed_pin`` keeps the reservation invariant. Returns whether
+        the device index gained a deeper entry."""
+        tier = self._host_tier
+        include_store = seq.kv_tier != "host"
+        if tier.probe(seq.prompt, include_store=include_store) <= depth:
+            return False
+        got = tier.fetch(seq.prompt, min_depth=depth, include_store=include_store)
+        if got is None:
+            return False
+        tokens, comps, src_tier = got
+        t0 = telemetry.now_ns()
+        if not self._install_promoted(tokens, comps):
+            return False
+        self.stat_tier_promotions += 1
+        self._rb_promotions += 1
+        if self._in_overlap:
+            self.stat_tier_promote_overlap += 1
+        self._metrics.decode_kv_promotion(self._deployment, src_tier, 1)
+        nbytes = int(sum(int(np.asarray(c).nbytes) for c in comps))
+        for c in seq.trace_ctxs:
+            ms = c.buf.begin("decode.kv_promote", c.span.span_id,
+                             {"tier": src_tier, "bytes": nbytes, "overlap": self._in_overlap}, start_ns=t0)
+            ms.add_event("promoted", {"tokens": int(np.asarray(tokens).shape[0])})
+            ms.end()
+        return True
+
+    def _entry_pages(self, tokens, comps) -> tuple | None:
+        """(span, page count, each component's first columns) of a tier or
+        spill entry this pool can install: the span clamped down to whole
+        pages inside the prefix window, every component's axes and dtype
+        checked against the pool's before any page is pinned. None when it
+        does not fit."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        layout = self.pool.host_layout()
+        if len(comps) != len(layout):
+            return None
+        length = capture_prefix_len(len(tokens), self.prefix_ctx, self.seq_len)
+        length = (length // self.pool.page_size) * self.pool.page_size
+        n_pages = self.pool.alloc.pages_for(length)
+        if n_pages < 1:
+            return None
+        cols = []
+        for comp, (shape, dtype) in zip(comps, layout):
+            full = np.asarray(comp)
+            if (full.ndim != len(shape) + 1 or full.shape[0] != shape[0] or full.shape[1] < n_pages
+                    or full.shape[2:] != tuple(shape[1:]) or full.dtype != dtype):
+                return None
+            cols.append(full[:, :n_pages])
+        return tokens[:length], n_pages, cols
+
+    def _install_promoted(self, tokens, comps) -> bool:
+        """Install one promoted entry's bytes into ``preseed_pin``-pinned
+        free pages and the prefix index (the one-entry twin of
+        ``preseed_prefix_state``). False degrades to a cold prefill."""
+        fit = self._entry_pages(tokens, comps)
+        if fit is None:
+            return False
+        span, n_pages, cols = fit
+        _, depth = self._prefix_index.match(span, touch=False)
+        if depth >= len(span):
+            return False  # a device entry at least as deep landed meanwhile
+        pin = self.pool.alloc.preseed_pin(n_pages)
+        if pin is None:
+            # free-list pressure: a promotion never triggers the reclaim it
+            # would feed; the normal reservation path prefills cold instead
+            return False
+        with self._on_stream():
+            self.pool.write_pages(pin.pages, cols)
+        self._index_pinned(span, pin)
+        return True
+
+    def _index_pinned(self, span, pin) -> None:
+        _, evicted = self._prefix_index.insert(span, pin.pages, pin.pin_id)
+        if evicted is not None:
+            self._demote_entry(evicted)
+            self.pool.alloc.release(evicted.pin_id)
+            self._metrics.decode_prefix_evicted(self._deployment)
+
+    def preseed_prefix_state(self, payload: dict | None) -> int:
+        """Seed the page pool and the prefix index from a spilled payload
+        (the JAX package's ``export_prefix_state`` schema: page_size,
+        kv_dtype and entries of tokens and per-component page columns), so
+        the first request sharing a seeded prefix admits warm. Pages come
+        straight off the free list into prefix pins; entries that do not
+        fit this pool's geometry are skipped, and an empty free list stops
+        the walk. Returns the entries seeded."""
+        if not self.prefix_enabled or not payload:
+            return 0
+        if payload.get("page_size") != self.pool.page_size or payload.get("kv_dtype") != self.pool.kv_dtype:
+            log.warning("prefix spill geometry mismatch (page_size/kv_dtype): preseed skipped")
+            return 0
+        staged: list[tuple[np.ndarray, object]] = []  # (span, pin)
+        staged_cols: list[list[np.ndarray]] = []
+        for entry in payload.get("entries", ()):
+            fit = self._entry_pages(entry.get("tokens"), entry.get("components") or [])
+            if fit is None:
+                continue
+            span, n_pages, cols = fit
+            _, depth = self._prefix_index.match(span, touch=False)
+            if depth >= len(span) or any(len(t) >= len(span) and np.array_equal(t[: len(span)], span)
+                                         for t, _ in staged):
+                continue  # already covered (an entry or an earlier staged one)
+            pin = self.pool.alloc.preseed_pin(n_pages)
+            if pin is None:
+                break  # free list exhausted: stop seeding, keep serving
+            staged.append((span, pin))
+            staged_cols.append(cols)
+        if not staged:
+            return 0
+        # one write per component for the whole payload
+        pages = [p for _, pin in staged for p in pin.pages]
+        with self._on_stream():
+            self.pool.write_pages(pages, [np.concatenate(c, axis=1) for c in zip(*staged_cols)])
+        for span, pin in staged:
+            self._index_pinned(span, pin)
+        self.stat_prefix_preseeded += len(staged)
+        self._metrics.router_preseed(self._deployment, len(pages))
+        self._kv_gauges()
+        return len(staged)
 
     def _retire(self, slot: int) -> None:
         seq = self._slots[slot]
@@ -1180,14 +1549,22 @@ class DecodeScheduler:
             self._metrics.decode_kv_cow(self._deployment, len(copies))
 
     def _admit_decide(self, seq: _Seq, slot: int) -> tuple:
-        """Longest-prefix match, the cache_prefix boundary-page reserve and
-        the allocator's worst-case reservation (``try_admit`` maps shared
-        pages into the slot's block table). Returns (entry, reuse,
-        admitted)."""
+        """Longest-prefix match (promoting a deeper host or store entry
+        first), the cache_prefix boundary-page reserve and the allocator's
+        worst-case reservation (``try_admit`` maps shared pages into the
+        slot's block table). Shared by the serial walk and
+        ``_pipeline_admit``, where it runs under an in-flight dispatch: the
+        reservation is undone whole by ``alloc.retire(slot)``, and is
+        conservative (round N's retirements only free pages). Returns
+        (entry, reuse, admitted)."""
         entry, reuse = None, 0
         if self.prefix_enabled:
             with self._phase(P_PREFIX_MATCH):
                 entry, depth = self._prefix_index.match(seq.prompt)
+                # a promotion installs a cache entry (monotone), so a
+                # decision rolled back later needs no undo of it
+                if self._host_tier is not None and seq.kv_tier != "off" and self._promote(seq, depth):
+                    entry, depth = self._prefix_index.match(seq.prompt)
             reuse = usable_prefix_len(depth, self.seq_len)
             if reuse <= 0:
                 entry = None
@@ -1202,6 +1579,10 @@ class DecodeScheduler:
         return entry, reuse, admitted
 
     def _install_admit(self, seq: _Seq, slot: int, entry, reuse: int, t0: int) -> None:
+        """Install an admission decision into the live slot table (the
+        pipelined loop defers this to ``_apply_pending``); the caller owns
+        the queue and free-list bookkeeping."""
+        seq.slot = slot
         seq.prefilling = True
         self._slots[slot] = seq
         self.stat_admitted += 1
@@ -1241,7 +1622,12 @@ class DecodeScheduler:
     def _admit(self) -> None:
         """Move waiting sequences into free slots, FIFO: host work only
         (slot assignment, prefix match, page reservation). The head waits
-        when the pool cannot guarantee its pages."""
+        when the pool cannot guarantee its pages. On the pipelined loop this
+        is the serial tail of admission: the flight's decisions were
+        installed before the last round committed, and what still waits
+        (arrivals during the flight, heads the pre-retire pool deferred)
+        admits here against the post-retire pool, so each round admits
+        what the serial loop would."""
         while self._waiting and self._free:
             seq = self._waiting[0]
             if seq.future.cancelled():
@@ -1257,33 +1643,207 @@ class DecodeScheduler:
             self._waiting.popleft()
             self._free.pop()
             self._install_admit(seq, slot, entry, reuse, t0)
-        self._kv_gauges()
-        self._expire_waiting()
+        if not self._pipeline_take_admit_sweep():
+            # the gauges and the expiry sweep, unless the last overlap
+            # window ran them under the in-flight dispatch
+            self._kv_gauges()
+            self._expire_waiting()
         if self._waiting and not self._free and not self._rb_blocked:
             # queued behind fully occupied slots (the page cause is set
             # where try_admit refused)
             self._rb_blocked = "slots"
 
     def _expire_waiting(self) -> None:
-        """Fail waiting requests past the queue deadline (REQUEST_TIMEOUT)."""
+        """Fail waiting requests past the queue deadline (REQUEST_TIMEOUT),
+        from the serial walk or under the flight (``_pipeline_sundries``).
+        A waiter the same window already decided is admitted, not waiting:
+        the serial walk pops admitted requests before the sweep sees them,
+        and the pipelined one must match."""
+        if not self._waiting:
+            return
+        decided = {p.seq.uid for p in self._pending_admits}
         now = time.perf_counter()
-        for seq in [s for s in self._waiting if s.deadline and s.deadline < now]:
+        for seq in [s for s in self._waiting if s.deadline and s.deadline < now and s.uid not in decided]:
             self._waiting.remove(seq)
             if not seq.future.done():
                 seq.future.set_exception(
                     APIException(ErrorCode.REQUEST_TIMEOUT, "request timed out waiting for a decode slot")
                 )
 
+    # ------------------------------------------------- pipelined round state
+    def _pipeline_on(self) -> bool:
+        """Whether this round may run pipelined: the ENGINE_DECODE_PIPELINE
+        switch (read at build into ``pipeline_enabled``) and not sync
+        timing, whose per-dispatch device walls need the serial loop."""
+        return self.pipeline_enabled and not self._sync_timing
+
+    def _overlap_window(self) -> None:
+        """Round N+1's host phases, run on the loop while round N's dispatch
+        is in flight (between its enqueue and the wait for its readback).
+        Each stage is gated on its own measured cost (``_PipelineGate``).
+        Phase timers count into the frame's ``overlap_ns`` here (the
+        PhaseTimer's overlap mode): this wall lies inside the dispatch's
+        busy window, so it must not land in the round's phase split."""
+        self._phases.begin_overlap()
+        self._in_overlap = True
+        try:
+            if self._waiting and self._free and self._gate.allow("admit"):
+                g0 = time.perf_counter_ns()
+                with self._phase(P_ADMIT):
+                    self._pipeline_admit()
+                self._gate.note("admit", time.perf_counter_ns() - g0)
+            if ((self._pending_admits or any(s is not None and s.prefilling for s in self._slots))
+                    and self._gate.allow("build")):
+                g0 = time.perf_counter_ns()
+                with self._phase(P_ALLOC):
+                    self._pipeline_plan_chunk()
+                self._gate.note("build", time.perf_counter_ns() - g0)
+            # the per-round admission sundries ride every window, ungated
+            self._pipeline_sundries()
+        finally:
+            self._in_overlap = False
+            self._phases.end_overlap()
+            self.stat_pipelined_rounds += 1
+
+    def _pipeline_admit(self) -> None:
+        """Round N+1's admission decisions under round N's dispatch, into
+        the shadow pending list; ``_apply_pending`` installs them after the
+        readback walks. Slots come from the current free list (never a
+        predicted retirement) and reservations are made against the
+        pre-retire pool, so a decision holds however round N retires. A
+        head the pool cannot guarantee yet defers to the serial ``_admit``
+        after the reconcile (``stat_pipeline_deferred``)."""
+        pending = self._pending_admits
+        taken = {p.slot for p in pending}
+        queued = {p.seq.uid for p in pending}
+        avail = [s for s in self._free if s not in taken]
+        for seq in self._waiting:
+            if seq.uid in queued:
+                continue
+            if seq.future.cancelled():
+                continue  # the serial walk owns queue cleanup: this pass only reads the queue
+            if not avail:
+                break
+            slot = avail[-1]
+            t0 = telemetry.now_ns()
+            entry, reuse, admitted = self._admit_decide(seq, slot)
+            if not admitted:
+                # FIFO: the head defers, everyone behind waits with it
+                self.stat_pipeline_deferred += 1
+                break
+            avail.pop()
+            pending.append(_PendingAdmit(seq, slot, entry, reuse, t0))
+
+    def _pipeline_sundries(self) -> None:
+        """The serial walk's per-round sundries under the flight: the
+        queue-expiry sweep and the pool gauges. Both touch only waiters
+        and metrics; the next serial walk skips them once
+        (``_pipeline_take_admit_sweep``)."""
+        with self._phase(P_ADMIT):
+            self._expire_waiting()
+            self._kv_gauges()
+        self._pending_admit_sweep = True
+
+    def _pipeline_take_admit_sweep(self) -> bool:
+        """One-shot: whether the last overlap window ran the admission
+        sundries for this round (a serial round runs them itself)."""
+        swept = self._pending_admit_sweep
+        self._pending_admit_sweep = False
+        return swept
+
+    def _pipeline_plan_chunk(self) -> None:
+        """Round N+1's chunk-round input arrays, built against the shadow
+        state: the prefilling slots' next chunk and the pending admissions'
+        first. Array building only: page residency (prepare_write, CoW)
+        stays in the serial chunk round, because a copy cannot be rolled
+        back. The plan carries its rows' key (slot, uid, position, count);
+        ``_pipeline_take_chunk_plan`` hands it out only while the live rows
+        still match, so a cancellation, an extra admission or a slot's new
+        tenant in between discards it."""
+        rows: list[tuple[int, int, int, int, _Seq]] = []
+        for i, seq in enumerate(self._slots):
+            if seq is None or not seq.prefilling or seq.future.cancelled():
+                continue
+            rem = self.seq_len - seq.prefill_pos
+            c = min(rem, seq.chunk_cap or rem)
+            if c > 0:
+                rows.append((i, seq.uid, seq.prefill_pos, c, seq))
+        for p in self._pending_admits:
+            if p.seq.future.cancelled():
+                continue
+            rem = self.seq_len - p.reuse
+            c = min(rem, p.seq.chunk_cap or rem)
+            if c > 0:
+                rows.append((p.slot, p.seq.uid, p.reuse, c, p.seq))
+        if not rows:
+            self._pending_chunk_plan = None
+            return
+        rows.sort(key=lambda r: r[0])
+        self._pending_chunk_plan = (tuple(r[:4] for r in rows),) + self._chunk_input_arrays(rows)
+
+    def _pipeline_take_chunk_plan(self, key: tuple):
+        """The window's chunk plan if the live rows still match its key,
+        else None (a stale plan is normal: the serial build runs). One-shot
+        either way."""
+        plan = self._pending_chunk_plan
+        self._pending_chunk_plan = None
+        if plan is not None and plan[0] == key:
+            self.stat_pipeline_plans_used += 1
+            return plan
+        return None
+
+    def _apply_pending(self) -> None:
+        """The reconcile of the shadow admissions: install the flight's
+        decisions into the live slot table, after the readback walks (which
+        must see the dispatch-time slot table) and before ``_commit_round``
+        (they belong to this round's frame, as the serial walk's do). A
+        decision whose caller left during the flight (its future settled)
+        rolls back: ``alloc.retire`` releases its reservation."""
+        if not self._pending_admits:
+            return
+        while self._pending_admits:
+            p = self._pending_admits.pop(0)
+            if p.seq.future.done():
+                self.pool.alloc.retire(p.slot)
+                self.stat_pipeline_rollbacks += 1
+                with contextlib.suppress(ValueError):  # expiry skips decided admits
+                    self._waiting.remove(p.seq)
+                continue
+            entry, reuse = p.entry, p.reuse
+            if self.prefix_enabled and reuse < self.seq_len - 1:
+                # the decision matched an index older than this round's
+                # captures (a retirement in the walk can capture the very
+                # prompt a decided sharer carries, which the serial walk,
+                # admitting after the walks, would see): re-match and
+                # upgrade to the warm mapping
+                with self._phase(P_PREFIX_MATCH):
+                    _, depth = self._prefix_index.match(p.seq.prompt, touch=False)
+                if usable_prefix_len(depth, self.seq_len) > reuse:
+                    self.pool.alloc.retire(p.slot)  # undo the shallow mapping
+                    entry, reuse, ok = self._admit_decide(p.seq, p.slot)
+                    if not ok:
+                        # a deeper reuse on the post-retire pool needs fewer
+                        # pages, so this is defensive: the head stays queued
+                        self.stat_pipeline_deferred += 1
+                        continue
+            with contextlib.suppress(ValueError):
+                self._waiting.remove(p.seq)
+            self._free.remove(p.slot)
+            self._install_admit(p.seq, p.slot, entry, reuse, p.t0)
+            self.stat_pipeline_admits += 1
+        self._kv_gauges()
+
     def _chunk_input_arrays(self, rows: list) -> tuple:
         """(bucket, ids, pos, counts, temps, topks) of a chunk round from
-        (slot, prefill_pos, count, seq) rows."""
-        bucket = next(b for b in self.chunk_buckets if b >= max(r[2] for r in rows))
+        (slot, uid, prefill_pos, count, seq) rows, for the serial chunk
+        round and the window's plan alike."""
+        bucket = next(b for b in self.chunk_buckets if b >= max(r[3] for r in rows))
         ids = np.zeros((self.n_slots, bucket), np.int32)
         pos = np.zeros(self.n_slots, np.int32)
         counts = np.zeros(self.n_slots, np.int32)
         temps = np.zeros(self.n_slots, np.float32)
         topks = np.zeros(self.n_slots, np.int32)
-        for slot, pp, c, seq in rows:
+        for slot, _uid, pp, c, seq in rows:
             ids[slot, :c] = seq.prompt[pp : pp + c]
             pos[slot] = pp
             counts[slot] = c
@@ -1317,13 +1877,20 @@ class DecodeScheduler:
                     self._retire(i)
                     continue
                 rem = self.seq_len - seq.prefill_pos
-                rows.append((i, seq.prefill_pos, min(rem, seq.chunk_cap or rem), seq))
+                rows.append((i, seq.uid, seq.prefill_pos, min(rem, seq.chunk_cap or rem), seq))
             if not rows:
                 return
-            bucket, ids, pos, counts, temps, topks = self._chunk_input_arrays(rows)
+            # the window may have built this round's arrays under the last
+            # round's dispatch: valid only while the live rows match its key
+            plan = self._pipeline_take_chunk_plan(tuple(r[:4] for r in rows))
+            if plan is not None:
+                _, bucket, ids, pos, counts, temps, topks = plan
+            else:
+                bucket, ids, pos, counts, temps, topks = self._chunk_input_arrays(rows)
             copies: list[tuple[int, int]] = []
-            for i, pp, c, _ in rows:
+            for i, _, pp, c, _ in rows:
                 # allocate fresh pages, copy-on-write a shared boundary page
+                # (always serial: a copy cannot be rolled back)
                 copies += self.pool.alloc.prepare_write(i, pp, c)
         await self._run_copies(copies)
         with self._phase(P_ALLOC):
@@ -1331,7 +1898,7 @@ class DecodeScheduler:
         tick = self._next_tick()
         # the slots whose prompt completes this round also prefill the
         # draft's cache with their full prompt, in the same worker call
-        finishing = [i for i, pp, c, _ in rows if pp + c >= self.seq_len]
+        finishing = [i for i, _, pp, c, _ in rows if pp + c >= self.seq_len]
         admit = self._draft_admit_arrays(finishing) if self.spec_enabled and finishing else None
 
         def run():
@@ -1349,7 +1916,7 @@ class DecodeScheduler:
         self.stat_chunk_dispatches += 1
         with self._phase(P_SCATTER):
             done = []
-            for i, _, c, seq in rows:
+            for i, _, _, c, seq in rows:
                 seq.prefill_pos += c
                 for ctx in seq.trace_ctxs:
                     ctx.buf.begin(
@@ -1458,9 +2025,13 @@ class DecodeScheduler:
             for i in gen:
                 copies += self.pool.alloc.prepare_write(i, self._slots[i].pos, width)
         await self._run_copies(copies)
+        pipelined = self._pipeline_on()
         with self._phase(P_ALLOC):
             bt = self.pool.block_tables()
-            self._kv_gauges()
+            if not pipelined:
+                # the pipelined loop refreshes the gauges in every window
+                # (_pipeline_sundries), at most one round stale
+                self._kv_gauges()
         tick = self._next_tick()
         if spec_round:
 
@@ -1469,27 +2040,96 @@ class DecodeScheduler:
                 return self._spec(toks, pos, temps, topks, limits, wlimits, tick)
 
             t0 = telemetry.now_ns()
-            out_t, acc = await self._timed_call(F_VERIFY, spec)
-            self._rb_active = self.active  # occupancy at dispatch
+            if pipelined:
+                out_t, acc = await self._spec_round_pipelined(bt, toks, pos, temps, limits, wlimits, spec)
+            else:
+                out_t, acc = await self._timed_call(F_VERIFY, spec)
+                self._rb_active = self.active  # occupancy at dispatch
             self._consume_spec(out_t, acc, limits, wlimits, t0, telemetry.now_ns())
-            return "chain" if self.spec_tree is None else "tree"
+            mode = "chain" if self.spec_tree is None else "tree"
+        else:
+            if pipelined:
+                nxt = await self._step_round_pipelined(bt, toks, pos, temps, topks, tick)
+            else:
 
-        def step():
+                def step():
+                    self.pool.load_block_tables(bt)
+                    return self._step(toks, pos, temps, topks, tick)
+
+                nxt = await self._timed_call(F_STEP, step)
+                self._rb_active = self.active  # occupancy at dispatch
+            self.stat_steps += 1
+            with self._phase(P_SAMPLING):
+                for i in gen:
+                    seq = self._slots[i]
+                    seq.pos += 1
+                    tok = int(nxt[i])
+                    self._emit(seq, tok)
+                    if self._finished(seq, tok):
+                        self._retire(i)
+            mode = "plain"
+        # the flight's admission decisions join this round, after its walks
+        with self._phase(P_ADMIT):
+            self._apply_pending()
+        return mode
+
+    async def _step_round_pipelined(self, bt, toks, pos, temps, topks, tick) -> np.ndarray:
+        """The pipelined plain round: queue the block tables, the step and
+        its readback from the loop's thread, run round N+1's host phases
+        (``_overlap_window``), then wait for the readback. The step's busy
+        column spans enqueue to readback (the window inside it is the
+        frame's overlap_ns); its rdb column is the wait after the window."""
+        t0 = time.perf_counter_ns()
+        # every host array the upload reads is a copy the window cannot
+        # touch: ``bt`` is ``pool.block_tables()``'s copy (the window's
+        # try_admit edits the allocator's own tables), and each static
+        # buffer stages its value in pinned memory it guards with an event
+        with self._on_stream(), torch.inference_mode():
             self.pool.load_block_tables(bt)
-            return self._step(toks, pos, temps, topks, tick)
-
-        nxt = await self._timed_call(F_STEP, step)
+            host, done = self._readback_async(self._step_enqueue(toks, pos, temps, topks, tick))
         self._rb_active = self.active  # occupancy at dispatch
-        self.stat_steps += 1
-        with self._phase(P_SAMPLING):
-            for i in gen:
-                seq = self._slots[i]
-                seq.pos += 1
-                tok = int(nxt[i])
-                self._emit(seq, tok)
-                if self._finished(seq, tok):
-                    self._retire(i)
-        return "plain"
+        self._overlap_window()
+        t2 = time.perf_counter_ns()
+        nxt = await self._await_readback(host, done)
+        t3 = time.perf_counter_ns()
+        self._rb_busy[F_STEP] += t3 - t0
+        self._rb_rdb[F_STEP] += t3 - t2
+        return nxt
+
+    async def _spec_round_pipelined(self, bt, toks, pos, temps, limits, wlimits, spec) -> tuple:
+        """The pipelined speculative round: the greedy pair's replays and
+        its readback queued from the loop's thread, the window, then the
+        wait. A pair with a sampled slot runs eagerly (hundreds of
+        launches, which would hold the loop for the whole round): it goes
+        to the worker thread unawaited and the window runs on the loop
+        meanwhile; its draws come from the same (seed, tick, stream)
+        generators as the serial loop's (``spec`` is the serial loop's call).
+        The draft's enqueue goes to the draft column, the rest of the wall
+        to the verify's."""
+        t0 = time.perf_counter_ns()
+        self._rb_draft_ns = 0
+        if (temps > 0).any():
+            pair = asyncio.get_running_loop().run_in_executor(self._worker, self._on_worker, spec)
+            self._rb_active = self.active  # occupancy at dispatch
+            self._overlap_window()
+            t2 = time.perf_counter_ns()
+            out_t, acc = await pair
+        else:
+            with self._on_stream(), torch.inference_mode():
+                self.pool.load_block_tables(bt)
+                lim = limits if wlimits is None else wlimits
+                host, done = self._readback_async(self._spec_enqueue(toks, pos, lim, t0))
+            self._rb_active = self.active
+            self._overlap_window()
+            t2 = time.perf_counter_ns()
+            res = await self._await_readback(host, done)
+            out_t, acc = res[:, :-1], res[:, -1]
+        t3 = time.perf_counter_ns()
+        d = self._rb_draft_ns
+        self._rb_busy[F_DRAFT] += d
+        self._rb_busy[F_VERIFY] += t3 - t0 - d
+        self._rb_rdb[F_VERIFY] += t3 - t2
+        return out_t, acc
 
     def _consume_spec(self, out_t: np.ndarray, acc: np.ndarray, limits: np.ndarray, wlimits, t0: int,
                       t1: int) -> None:
@@ -1587,13 +2227,15 @@ class DecodeScheduler:
 
     def _reset_device_state(self) -> None:
         """Error-path rebuild: a fresh pool and allocator (and draft cache),
-        and no index entry pointing into the old one."""
-        self.pool.reset()
-        if self.spec_enabled:
-            # in place: the captured programs hold the cache's addresses
-            with torch.inference_mode():
-                self._dck.zero_()
-                self._dcv.zero_()
+        and no index entry pointing into the old one (the host tier's
+        entries are bytes, and stay)."""
+        with self._on_stream():
+            self.pool.reset()
+            if self.spec_enabled:
+                # in place: the captured programs hold the cache's addresses
+                with torch.inference_mode():
+                    self._dck.zero_()
+                    self._dcv.zero_()
         if self.prefix_enabled:
             self._prefix_index.clear()
 
@@ -1637,15 +2279,19 @@ class DecodeScheduler:
     # ----------------------------------------------------- message adapter
     def request_params_from_meta(self, meta: Meta) -> dict:
         """Per-request overrides from meta.tags: max_new_tokens, temperature,
-        top_k, spec_k, spec_tree, cache_prefix, prefill_chunk (clamped to
-        the deployment's caps at submit; spec_k, spec_tree and prefill_chunk
-        only tighten)."""
+        top_k, spec_k, spec_tree, cache_prefix, prefill_chunk, kv_tier
+        (clamped to the deployment's caps at submit; spec_k, spec_tree,
+        prefill_chunk and kv_tier only tighten)."""
         tags = meta.tags or {}
         out: dict = {}
         if "spec_tree" in tags:
             # per-depth widths ("2,1"), parsed against the deployment tree
             # at submit
             out["spec_tree"] = str(tags["spec_tree"])
+        if "kv_tier" in tags:
+            # "off" | "host": narrows the tiers a promotion may come from
+            # (validated at submit)
+            out["kv_tier"] = str(tags["kv_tier"])
         for key, cast in (
             ("max_new_tokens", int),
             ("temperature", float),
@@ -1788,6 +2434,15 @@ def scheduler_for_executor(
         )
         return None
     draft_params, spec_k, spec_tree = _draft_for(runtime, tpu_spec)
+    kv_store, kv_store_url = None, str(tpu_spec.decode_kv_store_tier or "")
+    if kv_store_url:
+        # made once, here: through serving a bad URL disables the store
+        # tier alone, with a log line
+        try:
+            kv_store = make_state_store(kv_store_url)
+        except ValueError as e:
+            log.warning("decode_kv_store_tier=%r unservable (%s) — store tier disabled, host tier only",
+                        kv_store_url, e)
     return DecodeScheduler(
         runtime.params,
         seq_len=int(gen["seq"]),
@@ -1808,6 +2463,8 @@ def scheduler_for_executor(
         kv_page_size=int(tpu_spec.decode_kv_page_size),
         kv_pages=int(tpu_spec.decode_kv_pages),
         kv_dtype=str(tpu_spec.decode_kv_dtype),
+        kv_host_bytes=int(tpu_spec.decode_kv_host_bytes),
+        kv_store=kv_store,
         dtype=runtime.dtype,
         cuda_graphs=runtime.cuda_graphs,
         metrics=metrics,

@@ -20,10 +20,13 @@ paging, Kwon et al., SOSP 2023):
   instead of deadlocking mid-decode.
 
 Physical page 0 is a reserved junk sink: free slots' block tables are all
-zero and masked-off writes land there. Page 0 is never allocated. The
-allocator's warm scale-up preseed and fault-injection hook belong to the
-replicated decode fleet and the chaos tooling, which the port does not
-have yet.
+zero and masked-off writes land there. Page 0 is never allocated.
+``preseed_pin`` takes free pages straight into a prefix pin: the host KV
+tier's promotions land there (``serving/kv_host_tier.py``), and so does a
+replica's warm boot. ``read_pages`` and ``write_pages`` move whole page
+columns of every pool component between the card and the host, bytes
+verbatim. The allocator's fault-injection hook belongs to the chaos
+tooling, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -37,6 +40,14 @@ from seldon_core_tpu_torch.models.decoder import paged_copy, paged_kv_init
 from seldon_core_tpu_torch.ops.graphs import GraphCache, StaticBuffer
 
 log = logging.getLogger(__name__)
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    return np.dtype(np.int16) if dtype == torch.bfloat16 else torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _as_host_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
 class PoolPin:
@@ -304,6 +315,26 @@ class PageAllocator:
         self._pins[pin.pin_id] = pin
         return pin
 
+    def preseed_pin(self, n: int) -> PoolPin | None:
+        """Allocate ``n`` free pages directly into a prefix pin (a promotion
+        from the host tier, or a warm boot's preseed). Returns None when
+        the free list cannot cover it. The reservation invariant holds
+        unchanged: the pages leave the free list but enter the pin-only
+        (reclaimable) set, so ``free + reclaimable`` is constant."""
+        n = int(n)
+        if n < 1 or n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        pin = PoolPin(self._next_pin, pages)
+        self._next_pin += 1
+        self._clock += 1
+        pin.last_use = self._clock
+        for p in pages:
+            self.refs[p] = 1
+            self.pin_count[p] = 1
+        self._pins[pin.pin_id] = pin
+        return pin
+
     def touch(self, pin_id: int) -> None:
         pin = self._pins.get(pin_id)
         if pin is not None:
@@ -396,6 +427,40 @@ class PagedKVPool:
         """Write a round's host block tables into ``bt_device``, in place,
         ahead of the round's programs on the current stream."""
         self._bt.write(bt)
+
+    def host_layout(self) -> list[tuple[tuple, np.dtype]]:
+        """(shape without the page axis, numpy dtype) of each component as
+        ``read_pages`` gives it: a bfloat16 component travels as its int16
+        bit pattern (numpy has no bfloat16)."""
+        return [((a.shape[0], *a.shape[2:]), _host_dtype(a.dtype)) for a in self.state]
+
+    def read_pages(self, pages) -> list[np.ndarray]:
+        """Every component's columns at ``pages`` on the host, bytes
+        verbatim ([L, len(pages), ...] each). Queued on the current stream
+        and waited for: the caller reads while the pages still hold them."""
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
+        with torch.inference_mode():
+            return [_as_host_bits(a.index_select(1, idx)).cpu().numpy() for a in self.state]
+
+    def write_pages(self, pages, comps: list[np.ndarray]) -> None:
+        """Write host columns (``read_pages``' layout) into ``pages`` of every
+        component, in place on the current stream: a byte move, no
+        conversion. Nothing here waits for the stream: the bytes go up from
+        pinned copies, asynchronously, so a write queued behind an in-flight
+        round returns at once."""
+        with torch.inference_mode():
+            idx = self._upload(np.asarray(pages, np.int64))
+            for a, src in zip(self.state, comps):
+                vals = self._upload(src)
+                a.index_copy_(1, idx, vals.view(a.dtype) if a.dtype == torch.bfloat16 else vals)
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return t
+        # a blocking upload from pageable memory would wait for the stream;
+        # the pinned block is kept by the host allocator until its copy ran
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _copy(self, src: np.ndarray, dst: np.ndarray) -> None:
         state = self.state

@@ -4,7 +4,8 @@ Port of ``seldon_core_tpu/telemetry/flight.py``, unchanged. On the card a
 dispatch is a CUDA-graph replay (or an eager launch sequence) queued on the
 stream: its enqueue returns before the device finishes, and the blocked
 readback (``.cpu()``) is where the host waits, which is the enqueue/readback
-split below. The port runs the serial loop, so ``overlap_ns`` stays 0.
+split below. ``overlap_ns`` is the pipelined loop's window, timed by the
+``PhaseTimer``'s overlap mode (0 on the serial loop).
 
 Request-scoped tracing covers the graph tier, but the decode loop's unit
 of work is the ROUND, not the request: one fused dispatch serves every slot,

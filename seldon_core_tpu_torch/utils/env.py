@@ -6,8 +6,13 @@ credentials (``tools/loadtest.py`` takes them as the defaults of
 ``--oauth-key`` / ``--oauth-secret``, so a job can inject them from a
 secret instead of its command line), and the telemetry knobs read by
 ``telemetry/tracer.py``, ``telemetry/access_log.py``, ``telemetry/flight.py``
-and ``telemetry/profile.py``.
+and ``telemetry/profile.py``; the Redis store's socket budget
+(``persistence/state.py``).
 """
+
+from __future__ import annotations
+
+import os
 
 LOADTEST_OAUTH_KEY = "LOADTEST_OAUTH_KEY"
 LOADTEST_OAUTH_SECRET = "LOADTEST_OAUTH_SECRET"
@@ -27,11 +32,26 @@ ENGINE_FLIGHT_FRAMES = "ENGINE_FLIGHT_FRAMES"
 # "on": torch.cuda.synchronize() after every scheduler dispatch, so each
 # family's flight column is the device's wall (calibration runs; default off)
 ENGINE_FLIGHT_SYNC_TIMING = "ENGINE_FLIGHT_SYNC_TIMING"
-# the pipelined decode rounds' kill switch; the port runs the serial loop,
-# so the recorder's overlap fields read 0 whatever it says
+# the pipelined decode rounds' kill switch ("off": the serial loop; default on)
 ENGINE_DECODE_PIPELINE = "ENGINE_DECODE_PIPELINE"
 # decode-loop sampling profiler: kill switch, rate (default 19 Hz) and the
 # folded-stack table bound (default 512 entries)
 ENGINE_DECODE_PROFILE = "ENGINE_DECODE_PROFILE"
 ENGINE_DECODE_PROFILE_HZ = "ENGINE_DECODE_PROFILE_HZ"
 ENGINE_DECODE_PROFILE_TABLE = "ENGINE_DECODE_PROFILE_TABLE"
+# the Redis state store's socket and connect timeout in ms (default 2000)
+PERSISTENCE_REDIS_TIMEOUT_MS = "PERSISTENCE_REDIS_TIMEOUT_MS"
+
+
+def redis_timeout_s(env: dict | None = None) -> float:
+    """Redis socket/connect timeout in seconds (redis-py's unit), from
+    PERSISTENCE_REDIS_TIMEOUT_MS. Falls back to the 2000 ms default on unset
+    or unparsable values: a typo'd timeout must not take the store down."""
+    env = env if env is not None else os.environ
+    try:
+        ms = float(env.get(PERSISTENCE_REDIS_TIMEOUT_MS, 2000.0))
+    except (TypeError, ValueError):
+        ms = 2000.0
+    if ms <= 0:
+        ms = 2000.0
+    return ms / 1000.0

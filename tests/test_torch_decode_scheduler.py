@@ -346,7 +346,11 @@ SERVED_SPEC_KNOBS = {"decode_draft_model": "", "decode_spec_accept_floor": 0.0, 
 # the SLO targets, once unported too, are served: set alone on a scheduler
 # deployment, each reaches the scheduler
 SERVED_SLO_KNOBS = {"decode_slo_itl_ms": 0.0, "decode_slo_ttft_ms": 0.0}
-ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS}
+# the KV tier knobs, once unported too, are served: set alone, each is
+# refused by the JAX package's rule that names it (the host tier needs the
+# prefix cache, the store needs the host tier)
+SERVED_TIER_KNOBS = {"decode_kv_host_bytes": 0, "decode_kv_store_tier": ""}
+ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS, **SERVED_TIER_KNOBS}
 
 
 @pytest.mark.parametrize("knob", sorted(ONCE_UNPORTED))
@@ -363,6 +367,8 @@ def test_unported_decode_knob_refused_by_name(knob):
     else:
         with pytest.raises(ValueError, match=knob):
             PredictorServer(_predictor(2, **{knob: value}), device="cpu")
+        if knob in SERVED_TIER_KNOBS:
+            assert knob not in UNPORTED_DECODE_KNOBS
     # the JAX package's default is no request for the feature: accepted
     assert decode_problems("p", TpuSpec.from_dict({"decode_slots": 2, knob: default})) == []
 
@@ -382,3 +388,266 @@ def test_unported_decode_knob_refused_by_name(knob):
 def test_decode_knob_validation(tpu, needle):
     problems = decode_problems("p", TpuSpec.from_dict(tpu))
     assert len(problems) == 1 and needle in problems[0], problems
+
+
+# ---------------------------------------------------------- pipelined rounds
+#
+# The pipelined round loop (ENGINE_DECODE_PIPELINE, on by default): round
+# N+1's host phases run under round N's in-flight dispatch against shadow
+# state, reconciled after the readback walks. The JAX package's contracts
+# (tests/test_decode_scheduler.py, tests/test_flight_recorder.py): greedy
+# output bit-identical to the serial loop and the oracle, no new key, and a
+# rollback-safe deferral under tight page budgets. On the CPU the pipelined
+# round runs the same code with eager entries.
+
+
+def _serial(s: DecodeScheduler) -> DecodeScheduler:
+    """The serial loop on one scheduler (ENGINE_DECODE_PIPELINE=off)."""
+    s.pipeline_enabled = False
+    return s
+
+
+async def _staggered(sched, ids, budgets=None, stagger=0.002):
+    async def one(i):
+        await asyncio.sleep(i * stagger)
+        kw = {} if budgets is None else {"max_new_tokens": int(budgets[i])}
+        return await sched.submit(ids[i], **kw)
+
+    return await asyncio.gather(*(one(i) for i in range(len(ids))))
+
+
+async def test_pipelined_greedy_bit_identical_midstream(params):
+    """Mixed mid-stream admissions and retirements: the pipelined loop's
+    rows equal the serial loop's, the JAX oracle's and the JAX pipelined
+    scheduler's, bit for bit; the window hid host work (overlap in the
+    frames) and the phase split still fits in the gap."""
+    from seldon_core_tpu.serving.decode_scheduler import DecodeScheduler as JaxDecodeScheduler
+
+    jp, tp, jax_oracle = params
+    ids = _prompts(6, seed=31)
+    budgets = [3, MAX_NEW, 5, 2, MAX_NEW, 4]
+    oracle = jax_oracle(ids)
+    serial = _serial(_scheduler(tp, n_slots=2))
+    serial_outs = await _staggered(serial, ids, budgets)
+    await serial.close()
+    assert serial.stat_pipelined_rounds == 0
+    piped = _scheduler(tp, n_slots=2)
+    assert piped._pipeline_on()
+    outs = await _staggered(piped, ids, budgets)
+    jsched = JaxDecodeScheduler(jp, seq_len=SEQ, max_new_tokens=MAX_NEW, n_slots=2)
+    jsched.warmup()
+    jouts = await _staggered(jsched, ids, budgets)
+    await jsched.close()
+    for i, (a, b, j) in enumerate(zip(serial_outs, outs, jouts)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, oracle[i][: SEQ + budgets[i]])
+        np.testing.assert_array_equal(b, j)
+    assert piped.stat_pipelined_rounds > 0
+    agg = piped.flight.aggregate()
+    assert agg["overlap_of_gap"] > 0.0
+    assert agg["overlap_of_gap"] + agg["bubble_residual"] == pytest.approx(1.0, abs=2e-4)
+    assert agg["phase_of_gap"] <= 1.0
+    piped.pool.alloc.check()
+    await piped.close()
+
+
+async def test_pipelined_prefix_warm_admissions(params):
+    """Prefix-warm admissions under the pipeline: the seed request's
+    retirement captures its prompt, sharers then admit against the warm
+    index; rows equal the serial loop's and the hits count the same."""
+    _, tp, jax_oracle = params
+    shared, distinct = _prompts(1, seed=8)[0], _prompts(1, seed=9)[0]
+    ids = np.stack([shared, shared, shared, distinct])
+
+    def mk(pipe: bool) -> DecodeScheduler:
+        s = _scheduler(tp, n_slots=2, prefix_slots=4)
+        return s if pipe else _serial(s)
+
+    serial = mk(False)
+    serial_outs = [await serial.submit(ids[0])] + await _staggered(serial, ids[1:])
+    await serial.close()
+    piped = mk(True)
+    outs = [await piped.submit(ids[0])] + await _staggered(piped, ids[1:])
+    oracle = jax_oracle(ids)
+    for a, b, o in zip(serial_outs, outs, oracle):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, o)
+    assert piped.stat_prefix_hits == serial.stat_prefix_hits >= 1
+    assert piped.stat_pipelined_rounds > 0 and piped.recompiles_since_warmup() == 0
+    await piped.close()
+
+
+async def test_pipelined_tight_pages_deferred_admit_rollback(params):
+    """A page budget that fits one slot's worst case: the admission tried
+    under an in-flight dispatch is refused by the pre-retire pool and
+    defers to the serial walk, which admits once the retirement frees the
+    pages. Rows equal the oracle, the allocator audit holds, the deferral
+    is counted."""
+    _, tp, jax_oracle = params
+    ids = _prompts(3, seed=23)
+    sched = _scheduler(tp, n_slots=2, kv_page_size=4, kv_pages=7)  # 5 pages a slot: one slot and slack
+    assert sched._pipeline_on()
+    outs = await _staggered(sched, ids, stagger=0.001)
+    for row, out in zip(jax_oracle(ids), outs):
+        np.testing.assert_array_equal(out, row)
+    assert sched.stat_admit_blocked_rounds > 0
+    assert sched.stat_pipeline_deferred > 0
+    sched.pool.alloc.check()
+    await sched.close()
+
+
+async def test_pipeline_expiry_never_fails_a_decided_admit_and_failed_futures_roll_back(params):
+    """Two reconcile edges: the window's expiry sweep must not time out a
+    waiter the same window decided, and a decision whose future settled
+    during the flight (cancelled or failed) rolls its reservation back."""
+    import time as _time
+
+    from seldon_core_tpu_torch.serving.decode_scheduler import _Seq
+
+    sched = _scheduler(params[1], n_slots=2)
+    loop = asyncio.get_running_loop()
+    seq = _Seq(_prompts(1, seed=41)[0], 4, 0.0, 0, 0, None, loop.create_future())
+    seq.uid = 10_001
+    seq.deadline = _time.perf_counter() - 1.0
+    sched._waiting.append(seq)
+    sched._overlap_window()  # decides the admission, then sweeps
+    assert len(sched._pending_admits) == 1
+    assert not seq.future.done(), "the sweep expired a decided admission"
+    sched._apply_pending()
+    assert sched._slots[seq.slot] is seq and seq.prefilling
+    seq2 = _Seq(_prompts(1, seed=43)[0], 4, 0.0, 0, 0, None, loop.create_future())
+    seq2.uid = 10_002
+    sched._waiting.append(seq2)
+    sched._pipeline_admit()
+    assert len(sched._pending_admits) == 1
+    seq2.future.set_exception(APIException(ErrorCode.REQUEST_TIMEOUT, "expired mid-flight"))
+    free_before = len(sched._free)
+    sched._apply_pending()
+    assert sched.stat_pipeline_rollbacks == 1
+    assert len(sched._free) == free_before
+    assert all(s is None or s is seq for s in sched._slots)
+    sched.pool.alloc.check()
+    seq.future.cancel()
+    await sched.close()
+
+
+async def test_pipeline_reconcile_upgrades_to_post_capture_prefix_hit(params):
+    """A decision made before a capture the same round's walk performs is
+    upgraded at the reconcile to the warm mapping the serial loop would
+    have served."""
+    from seldon_core_tpu_torch.serving.decode_scheduler import _PendingAdmit, _Seq
+
+    sched = _scheduler(params[1], n_slots=2, prefix_slots=4)
+    shared = _prompts(1, seed=51)[0]
+    await sched.submit(shared)  # a finished tenant captures the prompt at retirement
+    assert sched._prefix_index.entries
+    hits_before = sched.stat_prefix_hits
+    seq = _Seq(shared, 4, 0.0, 0, 0, None, asyncio.get_running_loop().create_future())
+    seq.uid = 20_001
+    slot = sched._free[-1]
+    assert sched.pool.alloc.try_admit(slot, (), 0, 0)  # the cold decision, made before the capture
+    sched._waiting.append(seq)
+    sched._pending_admits.append(_PendingAdmit(seq, slot, None, 0, 0))
+    sched._apply_pending()
+    assert sched._slots[slot] is seq
+    assert seq.prefix_len > 0, "the reconcile kept the stale cold decision"
+    assert sched.stat_prefix_hits == hits_before + 1
+    sched.pool.alloc.check()
+    seq.future.cancel()
+    await sched.close()
+
+
+async def test_pipelined_zero_recompiles_and_kill_switch(params, monkeypatch):
+    """No new key with the pipeline on (sampled rows included), and the
+    kill switches: ENGINE_DECODE_PIPELINE=off and sync timing each force
+    the serial loop."""
+    from seldon_core_tpu_torch.telemetry import flight as flight_mod
+
+    _, tp, jax_oracle = params
+    ids = _prompts(5, seed=37)
+    sched = _scheduler(tp, n_slots=3)
+    outs = await asyncio.gather(*(sched.submit(row, max_new_tokens=2 + i, temperature=0.5 * (i % 2), top_k=i)
+                                  for i, row in enumerate(ids)))
+    assert all(len(o) > SEQ for o in outs)
+    assert sched.stat_pipelined_rounds > 0 and sched.recompiles_since_warmup() == 0
+    await sched.close()
+    forced = _scheduler(tp, n_slots=2)
+    forced._sync_timing = True  # ENGINE_FLIGHT_SYNC_TIMING=on
+    assert not forced._pipeline_on()
+    np.testing.assert_array_equal(await forced.submit(ids[0]), jax_oracle(ids[:1])[0])
+    assert forced.stat_pipelined_rounds == 0
+    await forced.close()
+    monkeypatch.setenv(flight_mod.ENGINE_DECODE_PIPELINE, "off")
+    assert not flight_mod.decode_pipeline_enabled()
+    off = DecodeScheduler(tp, seq_len=SEQ, max_new_tokens=MAX_NEW, n_slots=2)
+    assert not off.pipeline_enabled and not off._pipeline_on()
+    monkeypatch.setenv(flight_mod.ENGINE_DECODE_PIPELINE, "on")
+    assert flight_mod.decode_pipeline_enabled()
+
+
+async def test_pipelined_frames_carry_overlap(params):
+    """With the pipeline on, plain frames carry overlap_ns > 0 and the
+    phase split stays within each frame's gap (the JAX package's
+    tests/test_flight_recorder.py contract)."""
+    _, tp, _ = params
+    s = _scheduler(tp, n_slots=4)
+    await asyncio.gather(*(s.submit(row, max_new_tokens=4) for row in _prompts(6, seed=3)))
+    assert s.recompiles_since_warmup() == 0
+    frames = s.flight.snapshot()
+    assert any(f.overlap_ns > 0 for f in frames)
+    for f in frames:
+        assert sum(f.phase_ns) <= f.gap_ns + 50_000, (f.seq, f.phase_ns, f.gap_ns)
+    assert s.flight.aggregate()["overlap_of_gap"] > 0.0 and s.stat_pipelined_rounds > 0
+    await s.close()
+
+
+async def test_pipelined_chunk_plans_are_taken_only_while_their_key_holds(params):
+    """With chunked prefill the window builds the next chunk round's arrays
+    and the chunk round takes them (rows equal the oracle); a plan whose
+    key no longer matches the live rows is discarded, and a key without
+    the tenant's uid would hand one request's plan to another."""
+    _, tp, jax_oracle = params
+    ids = _prompts(4, seed=45)
+    sched = _scheduler(tp, n_slots=2, prefill_chunk=2)
+    outs = await _staggered(sched, ids)
+    for row, out in zip(jax_oracle(ids), outs):
+        np.testing.assert_array_equal(out, row)
+    assert sched.stat_pipeline_plans_used > 0
+    used = sched.stat_pipeline_plans_used
+    sched._pending_chunk_plan = (((0, 7, 0, 2),), "stale")
+    assert sched._pipeline_take_chunk_plan(((0, 8, 0, 2),)) is None  # same slot and span, another tenant
+    assert sched._pending_chunk_plan is None and sched.stat_pipeline_plans_used == used
+    await sched.close()
+
+
+class _SlowEvent:
+    """A readback event that reports done only after ``polls`` queries, or
+    when synchronized; records the thread that synchronized it."""
+
+    def __init__(self, polls: int):
+        self.polls, self.synced_on = polls, None
+
+    def query(self) -> bool:
+        self.polls -= 1
+        return self.polls < 0
+
+    def synchronize(self) -> None:
+        import threading
+
+        self.synced_on = threading.current_thread().name
+
+
+@pytest.mark.parametrize("spin_s, polls, handoff", [(1.0, 3, False), (0.0, 10**9, True)])
+async def test_readback_wait_polls_within_its_bound_then_hands_off(params, spin_s, polls, handoff):
+    """A pipelined round's readback is polled on the loop's thread for at
+    most ``readback_spin_s``; a round still in flight then waits on the
+    worker (the event's synchronize()), counted, never spinning on."""
+    _, tp, _ = params
+    sched = _scheduler(tp)
+    sched.readback_spin_s = spin_s
+    host, done = torch.arange(3, dtype=torch.int32), _SlowEvent(polls)
+    got = await sched._await_readback(host, done)
+    np.testing.assert_array_equal(got, [0, 1, 2])
+    assert sched.stat_readback_handoffs == int(handoff)
+    assert (done.synced_on or "").startswith("seldon-decode") == handoff
+    await sched.close()

@@ -48,8 +48,7 @@ TRACE_B = "4bf92f3577b34da6a3ce929d0e0e4736"
 # families of features the port does not serve yet: registered by the JAX
 # package only, and never moved by the hooks below
 WAITING_FAMILIES = {
-    "seldon_tpu_decode_kv_demotions", "seldon_tpu_decode_kv_pages_per_device", "seldon_tpu_decode_kv_promotions",
-    "seldon_tpu_decode_kv_sibling_pulls", "seldon_tpu_decode_kv_tier_bytes", "seldon_tpu_replica_boot_failures",
+    "seldon_tpu_decode_kv_pages_per_device", "seldon_tpu_decode_kv_sibling_pulls", "seldon_tpu_replica_boot_failures",
     "seldon_tpu_replica_drains", "seldon_tpu_replica_evictions", "seldon_tpu_replica_migrations",
     "seldon_tpu_replica_recoveries", "seldon_tpu_replica_spill_failures", "seldon_tpu_replica_state",
     "seldon_tpu_router_arm_estimate", "seldon_tpu_router_preseeded_pages", "seldon_tpu_router_queue_depth",
@@ -89,6 +88,11 @@ def drive(m) -> None:
     m.decode_kv_shared("gpt", 0)
     m.decode_kv_cow("gpt", 2)
     m.decode_kv_reclaimed("gpt", 1)
+    m.decode_kv_tier_bytes("gpt", "host", 4096)
+    m.decode_kv_tier_bytes("gpt", "store", 0)
+    m.decode_kv_demotion("gpt", "host", 2)
+    m.decode_kv_demotion("gpt", "store", 0)
+    m.decode_kv_promotion("gpt", "store", 1)
     m.decode_round("gpt", 0.0007, 0.0002)
     m.decode_bubble("gpt", 0.21)
     m.decode_goodput("gpt", 9, True)
@@ -188,9 +192,6 @@ def test_every_jax_hook_is_there_and_the_waiting_ones_record_nothing():
     m = Metrics()
     before = m.export()
     m.decode_kv_per_device("gpt", 4, 1)
-    m.decode_kv_tier_bytes("gpt", "host", 1024)
-    m.decode_kv_demotion("gpt", "host", 1)
-    m.decode_kv_promotion("gpt", "store", 1)
     m.decode_kv_sibling_pull("gpt", "hit")
     m.router_route("gpt", "affinity", "shed")
     m.router_queue_depth("gpt", 0, 3)

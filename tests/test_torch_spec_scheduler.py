@@ -435,3 +435,63 @@ def test_deployment_files_build_on_the_cpu(name):
     if name == "gpt2_small_speculative":
         assert (dims["vocab"], dims["hidden"], dims["layers"], dims["heads"]) == (50257, 768, 12, 12)
         assert sched.params["tok_emb"].dtype == torch.bfloat16 and sched.n_slots == 8
+
+
+# ---------------------------------------------------------- pipelined rounds
+
+
+async def _staggered(sched, ids, stagger=0.002, **kw):
+    async def one(i):
+        await asyncio.sleep(i * stagger)
+        return await sched.submit(ids[i], **kw)
+
+    return await asyncio.gather(*(one(i) for i in range(len(ids))))
+
+
+@pytest.mark.parametrize("shape", ["chain", "tree"])
+async def test_pipelined_spec_rounds_bit_identical(target, shape):
+    """Speculative rounds through the pipelined twin (the greedy pair and
+    its readback queued from the loop's thread, the window, then the wait):
+    chain and tree rows equal the serial loop's, the port's generate and
+    the JAX package's generate, bit for bit."""
+    jp, tp = target
+    ids = _prompts(4, seed=17)
+    kw = {"spec_tree": "2,2,1"} if shape == "tree" else {"spec_k": 3}
+    oracle = _oracle(tp, ids)
+    np.testing.assert_array_equal(oracle, np.asarray(jd.generate(jp, jnp.asarray(ids), MAX_NEW)))
+    serial = _scheduler(tp, DRAFTS["high_accept"](), **kw)
+    serial.pipeline_enabled = False
+    serial_outs = await _staggered(serial, ids)
+    await serial.close()
+    piped = _scheduler(tp, DRAFTS["high_accept"](), **kw)
+    outs = await _staggered(piped, ids)
+    for a, b, row in zip(serial_outs, outs, oracle):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(b, row)
+    assert piped.stat_spec_dispatches > 0 and piped.stat_pipelined_rounds > 0
+    assert serial.stat_pipelined_rounds == 0
+    assert piped.recompiles_since_warmup() == 0
+    piped.pool.alloc.check()
+    await piped.close()
+
+
+@pytest.mark.parametrize("shape", ["chain", "tree"])
+async def test_pipelined_sampled_rows_equal_the_serial_loop(target, shape):
+    """Sampled speculative rounds run their eager pair on the worker while
+    the window runs on the loop: with every request admitted in the same
+    round (all submitted at once, a slot each), the sampled rows of the two
+    loops are identical, draws per (seed, tick, stream) unchanged."""
+    _, tp = target
+    ids = _prompts(3, seed=29)
+    kw = {"spec_tree": "2,2,1"} if shape == "tree" else {"spec_k": 3}
+    rows = {}
+    for pipe in (False, True):
+        s = _scheduler(tp, DRAFTS["high_accept"](), n_slots=3, seed=11, **kw)
+        s.pipeline_enabled = pipe
+        rows[pipe] = await asyncio.gather(*(s.submit(row, temperature=0.9, top_k=8) for row in ids))
+        assert s.stat_eager_rounds > 0 and s.stat_spec_dispatches > 0
+        assert (s.stat_pipelined_rounds > 0) == pipe
+        s.pool.alloc.check()
+        await s.close()
+    for a, b in zip(rows[False], rows[True]):
+        np.testing.assert_array_equal(a, b)
