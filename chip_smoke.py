@@ -39,7 +39,11 @@ Phases, each of which raises on failure (no phase catches its own):
    fused, sequential and unfused forwards timed); the transformer ->
    epsilon-greedy -> 2x BERT-base DAG at seq 128 as JSON ids (12 kernel
    launches per request, answers against blockwise attention, and a
-   feedback that moves only the routed arm).
+   feedback that moves only the routed arm); on iris the reference's
+   engine surface (``/pause`` then ``/ready`` 503, ``/unpause`` then 200,
+   by GET and POST; urlencoded and multipart ``json=`` predictions equal to
+   the JSON body's answer; a form without the field 400 code 101) and
+   ``load_predictor`` refusing a childless ROUTER with the reference's text.
 5. serve the four decoder deployments of
    ``seldon_core_tpu_torch/deployments/`` through REST: ``tiny_gpt`` (the
    fused greedy ``generate``, buckets 2 and 8) against the port's forward and
@@ -75,8 +79,17 @@ Phases, each of which raises on failure (no phase catches its own):
    and host share. Three planted faults: a draft from another seed (ids
    unchanged, accept rate lower), an acceptance that keeps one draft token
    past the first mismatch and a tree commit that writes a sibling's K/V
-   (both must fail the id check). The speculation path launches no flash
-   kernel (counted).
+   (both must fail the id check). Then the feature draft the same way:
+   ``tiny_gpt_feature_draft``, ``gpt2_small_feature_draft`` (the
+   EAGLE-style head, tree "4,3,2,1", accept floor 0.3, bf16) and a copy of
+   the latter at "2,2,1,1" with no floor, each with the four feature keys
+   (``step_f``, ``chunk_f``, ``draft_feat``, ``ftree_verify``) and the
+   carry check: after greedy requests, speculating and opted out, each
+   slot's carried feature against the target's ``sequence_hidden`` at its
+   last consumed position, recomputed on the card (``CARRY_TOL``); a
+   ``step_f`` that leaves the carry stale must fail it, and an
+   ``ftree_verify`` that keeps a draft token past a mismatch the id
+   check. The speculation path launches no flash kernel (counted).
 7. int8 weights and the resilience layer: the W8A16 kernel
    (``csrc/int8_matmul.cu``) against its plain version in bf16 and float32
    at BERT-base's served projections at bucket 32 and bucket 1, iris's (M,
@@ -115,8 +128,9 @@ Phases, each of which raises on failure (no phase catches its own):
    and off, in turns. A dropped span, a metric off by one and a frame that
    loses a token must each fail their check.
 9. the pipelined decode rounds and the KV tiers: ``gpt_continuous_batching``
-   under phase 5's traffic, ``gpt2_small_speculative``, its tree copy and
-   its copy with speculation off under phase 6's, each served on the
+   under phase 5's traffic, ``gpt2_small_speculative``, its tree copy, its
+   copy with speculation off and ``gpt2_small_feature_draft`` under phase
+   6's, each served on the
    pipelined loop and the serial one in turns (pipelined, serial, serial,
    pipelined): greedy rows bit for bit between the loops and held to the
    fused ``generate``; a sampled run (every request at once) identical
@@ -138,7 +152,10 @@ Phases, each of which raises on failure (no phase catches its own):
    promotion's wall per page against the cold prefill's, and a promotion
    written one page off and a demotion read one page off that must fail
    their byte checks; an int8-pool copy of ``tiny_gpt_paged_kv`` held to
-   its own cold output.
+   its own cold output; and a copy of ``gpt2_small_feature_draft`` with
+   the host tier and a one-entry index, whose prompt promoted from host
+   serves its device-warm row bit for bit, the head's window opened past
+   the reused span.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -746,6 +763,75 @@ async def serve_small(card) -> None:
             print(f"[{card}] iris_abtest routing {routes}", flush=True)
             if routes != want:
                 raise AssertionError(f"A/B routing {routes}, random.Random(1337) gives {want}")
+
+
+FORM_BOUNDARY = "chipsmokeform"
+
+
+async def serve_engine_compat(card) -> dict:
+    """Phase 4: the reference's engine surface on the served iris. /pause
+    then /ready answers 503 ``paused``, /unpause then /ready 200 ``ready``,
+    by GET and by POST; a prediction sent as an urlencoded and as a
+    multipart ``json=`` form answers what its JSON body answers, bit for
+    bit; a form without the field answers 400 with code 101; and
+    ``load_predictor`` refuses a copy of iris_abtest whose ROUTER has no
+    children, with the reference's problem text."""
+    from urllib.parse import urlencode
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.validation import ValidationError
+    from seldon_core_tpu_torch.serving.server import load_predictor
+
+    x = np.random.default_rng(2).uniform(0, 8, size=(4, 4)).round(2)
+    msg = json.dumps({"data": {"ndarray": x.tolist()}})
+    forms = {
+        "urlencoded": (urlencode({"json": msg}).encode(), "application/x-www-form-urlencoded"),
+        "multipart": (f'--{FORM_BOUNDARY}\r\nContent-Disposition: form-data; name="json"\r\n\r\n{msg}\r\n'
+                      f"--{FORM_BOUNDARY}--\r\n".encode(), f"multipart/form-data; boundary={FORM_BOUNDARY}"),
+    }
+    want = [("/pause", 200, "paused"), ("/ready", 503, "paused"), ("/unpause", 200, "unpaused"), ("/ready", 200, "ready")]
+    server, *_ = await _start(BASELINE_DIR / "iris.json")
+    try:
+        readiness = {}
+        for method in ("GET", "POST"):
+            readiness[method] = []
+            for path, *_ in want:
+                status, _, body, _ = await _request(server.port, b"", path=path,
+                                                    method="GET" if path == "/ready" else method)
+                readiness[method].append((path, status, body.decode()))
+            if readiness[method] != want:
+                raise AssertionError(f"/pause and /unpause by {method}: {readiness[method]}, want {want}")
+        status, _, body, _ = await _request(server.port, msg.encode())
+        ref = json.loads(body)["data"]["ndarray"]
+        for name, (form, ctype) in forms.items():
+            status, _, body, _ = await _request(server.port, form, ctype)
+            if status != 200 or json.loads(body)["data"]["ndarray"] != ref:
+                raise AssertionError(f"a {name} json= prediction answered {status}: {body[:300]!r}, not the JSON "
+                                     "body's answer")
+        status, _, body, _ = await _request(server.port, urlencode({"payload": msg}).encode(),
+                                            "application/x-www-form-urlencoded")
+        err = json.loads(body)
+        if status != 400 or err.get("code") != 101 or err.get("info") != "missing 'json' form field":
+            raise AssertionError(f"a form without json= answered {status}: {err}")
+    finally:
+        await server.stop()
+    dep = json.loads((BASELINE_DIR / "iris_abtest.json").read_text())
+    dep["spec"]["predictors"][0]["graph"]["children"] = []
+    path = ROOT / "build" / "iris_abtest_childless_router.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(dep))
+    try:
+        load_predictor(str(path))
+    except ValidationError as e:
+        problems = e.problems
+    else:
+        raise AssertionError("load_predictor served an A/B router with no children")
+    if "ROUTER 'ab' must have children" not in problems:
+        raise AssertionError(f"the childless router was refused without the reference's text: {problems}")
+    out = {"readiness": readiness, "forms": sorted(forms), "missing_field": err, "childless_router": problems}
+    print(f"[{card}] engine compat (iris): {json.dumps(out)}", flush=True)
+    return out
 
 
 def _member_params(predictor, dtype, device):
@@ -1547,6 +1633,15 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
         recompiles = (sched.recompiles_since_warmup(), plain.recompiles_since_warmup(),
                       twin_srv.decode_scheduler.recompiles_since_warmup())
         breakdown = {} if check_only else spec_breakdown(card, sched, twin_srv.decode_scheduler, plain)
+        carry = {}
+        if sched.feature_draft:
+            keys = sched.compile_counts()
+            if sorted(keys) != sorted(FEATURE_KEYS + ("copy",)) or min(keys[k] for k in FEATURE_KEYS) < 1:
+                raise AssertionError(f"{label}: feature dispatch keys {keys}, want each of {FEATURE_KEYS}")
+            # speculative rounds (and, below the accept floor, plain ones),
+            # then every round a step_f (every request opted out)
+            carry = {"spec": await carry_check(card, spec_srv, label),
+                     "spec_k_0": await carry_check(card, spec_srv, label, {"spec_k": 0})}
     finally:
         await spec_srv.stop()
         await plain_srv.stop()
@@ -1586,6 +1681,7 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
         eager_rounds=sched.stat_eager_rounds, eager_twin_ms_per_token=twin_wall * 1e3 / n_tok,
         eager_twin_warmup_s=twin_warm,
         pool_bytes={"captured": spec_srv.warmup_reserved_bytes, "eager": twin_srv.warmup_reserved_bytes},
+        **({"carry": carry} if carry else {}),
         **breakdown,
     )
     print(f"[{card}] speculative {json.dumps(result)}", flush=True)
@@ -1614,7 +1710,7 @@ def spec_breakdown(card, sched, twin, plain, reps: int = 20) -> dict:
 
     def draft_only(s):
         draft, _ = s._spec_entries(n)
-        draft.load(z, pos)
+        draft.load(z, pos, *s._feature_inputs(None)[0])
         draft.replay()
         torch.cuda.synchronize()
 
@@ -1744,6 +1840,128 @@ async def spec_faults(card, matched: dict) -> dict:
     return out
 
 
+FEATURE_KEYS = ("step_f", "chunk_f", "draft_feat", "ftree_verify")
+# the carried feature against the target's sequence_hidden recomputed on the
+# card: max |carried - recomputed| over max |recomputed|, per slot. bf16:
+# the paged programs and the dense prefill round each of 12 layers' sums in
+# other orders (an ulp of bf16 is 2^-8 of a value); float32 with TF32 off
+CARRY_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+async def carry_check(card, server, label: str, tags: dict | None = None, seed: int = 17) -> dict:
+    """The feature carry: one greedy request per slot with mixed budgets
+    through REST, then each slot's carried feature (``sched._feat``) against
+    the target's ``sequence_hidden`` at the last position its last tenant
+    consumed (every token but the last emitted one), recomputed on the
+    card, within CARRY_TOL. Returns the worst error and the slots held."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.decoder import sequence_hidden
+
+    sched, runtime = server.decode_scheduler, _model_runtime(server)
+    dtype_name = str(runtime.dtype).removeprefix("torch.")
+    rng = np.random.default_rng(seed)
+    n = sched.n_slots
+    prompts = rng.integers(0, runtime.params["tok_emb"].shape[0], size=(n, sched.seq_len))
+    budgets = [int(b) for b in rng.integers(1, sched.max_new_tokens + 1, size=n)]
+    admitted = []  # (prompt bytes, slot), in admission order
+    real = sched._install_admit
+
+    def install(seq, slot, entry, reuse, t0):
+        admitted.append((seq.prompt.tobytes(), slot))
+        return real(seq, slot, entry, reuse, t0)
+
+    sched._install_admit = install
+    try:
+        replies = await asyncio.gather(*(_ids_post(server.port, prompts[i : i + 1],
+                                                   {"max_new_tokens": budgets[i], **(tags or {})}) for i in range(n)))
+    finally:
+        del sched._install_admit
+    rows = {p.astype(np.int32).tobytes(): r  # the key of a _Seq's int32 prompt
+            for p, r in zip(prompts, _served_rows(f"{label} carry", replies, budgets, sched.seq_len))}
+    last = {slot: key for key, slot in admitted}  # each slot's last tenant
+    errs = {}
+    with torch.inference_mode():
+        for slot, key in last.items():
+            consumed = torch.as_tensor(rows[key][:-1][None], device=runtime.device)
+            ref = sequence_hidden(runtime.params, consumed)[1][0, -1].float()
+            got = sched._feat[slot].float()
+            errs[slot] = float((got - ref).abs().max() / ref.abs().max())
+    worst = max(errs.values())
+    out = {"slots": len(errs), "worst_rel_err": worst, "tol": CARRY_TOL[dtype_name], "tags": tags or {}}
+    print(f"[{card}] feature carry {label}: {json.dumps(out)}", flush=True)
+    if worst > CARRY_TOL[dtype_name]:
+        raise AssertionError(f"{label}: carried features off the target's hidden by {errs} (tol "
+                             f"{CARRY_TOL[dtype_name]})")
+    return out
+
+
+async def feature_faults(card) -> dict:
+    """Phase 6's planted faults of the feature draft, each on a copy of
+    tiny_gpt_feature_draft (float32) with the accept floor off, so every
+    round speculates:
+    - a step_f that leaves the carry stale must fail the carry check (on
+      requests that opt out: every round a step_f);
+    - an ftree_verify that accepts one draft token past the first
+      mismatch must fail the id check against the fused generate."""
+    import torch
+
+    from seldon_core_tpu_torch.models.decoder import _tree_tables, paged_decode_step
+    from seldon_core_tpu_torch.serving import decode_scheduler as ds
+
+    real_accept = ds.speculative_accept_tree
+
+    def stale_step(params, pool, bt, tokens, positions, feats, fmask):
+        return paged_decode_step(params, pool, bt, tokens, positions)[0]
+
+    def accept_one_past(target_logits, block_tokens, draft_logits, wl, temps, topks, gen, tree):
+        out, acc, path = real_accept(target_logits, block_tokens, draft_logits, wl, temps, topks, gen, tree)
+        rows = torch.arange(out.shape[0], device=out.device)
+        a = acc.long()
+        past = a < (wl > 0).sum(dim=1)  # a candidate existed there and lost: keep its first anyway
+        nxt = _tree_tables(tree, out.device)[2][path[rows, a].long(), 0]
+        a2 = torch.where(past, a + 1, a)
+        bonus = out[rows, a]
+        path2, out2 = path.clone(), out.clone()
+        path2[rows, a2] = torch.where(past, nxt.to(path.dtype), path[rows, a2])
+        out2[rows, a] = torch.where(past, block_tokens[rows, nxt].to(out.dtype), bonus)
+        out2[rows, a2] = bonus
+        return out2, a2.to(acc.dtype), path2
+
+    path = _deployment_copy("tiny_gpt_feature_draft", {"decode_spec_accept_floor": 0.0})
+    out = {}
+    with planted(ds, "_step_feat_logits", stale_step):
+        server, *_ = await _start(path)
+        try:
+            await carry_check(card, server, "stale step_f carry (planted)", {"spec_k": 0})
+        except AssertionError as e:
+            out["step_f_stale_carry"] = {"carry_check_failed": True, "detail": str(e)[:200]}
+        else:
+            raise AssertionError("planted fault step_f_stale_carry passed the carry check")
+        finally:
+            await server.stop()
+    with planted(ds, "speculative_accept_tree", accept_one_past):
+        server, *_ = await _start(path)
+        sched, runtime = server.decode_scheduler, _model_runtime(server)
+        prompts, budgets = _spec_prompts(sched, runtime.params["tok_emb"].shape[0])
+        try:
+            replies, _ = await _spec_traffic(server.port, prompts, budgets)
+        finally:
+            await server.stop()
+    rows = _served_rows("ftree_verify one past", replies, budgets, sched.seq_len)
+    try:
+        _hold_ids("ftree_verify one past (planted)", rows, _fused_oracle(runtime, prompts), runtime.params,
+                  sched.seq_len, "float32")
+    except AssertionError as e:
+        out["ftree_verify_one_past_mismatch"] = {"id_check_failed": True, "detail": str(e)[:200]}
+    else:
+        raise AssertionError("planted fault ftree_verify_one_past_mismatch passed the id check")
+    for name, row in out.items():
+        print(f"[{card}] planted fault {name}: {json.dumps(row)}", flush=True)
+    return out
+
+
 async def serve_speculation(card) -> dict:
     """Phase 6: the three speculative deployments (and the GPT-2-small tree
     copy) through REST, the float32 copies, the planted faults. Returns the
@@ -1753,14 +1971,26 @@ async def serve_speculation(card) -> dict:
         results[name] = await serve_speculative(card, BASELINE_DIR / f"{name}.json")
     tree_copy = _deployment_copy("gpt2_small_speculative", {"decode_spec_tree": "2,2,1,1"})
     results["gpt2_small_speculative_tree"] = await serve_speculative(card, tree_copy)
-    # the GPT-2-small chain in float32 (TF32 off): ids held at the float32 margin
-    f32 = _deployment_copy("gpt2_small_speculative", {"dtype": "float32"})
+    # the GPT-2-small chain in float32 (TF32 off): ids held at the float32
+    # margin, at 4 of its 12 layers (the id check holds at any depth and
+    # this copy prints no timing), to keep the script's time
+    f32 = _deployment_copy("gpt2_small_speculative", {"dtype": "float32"}, {"layers": "4"})
     results["gpt2_small_speculative_f32"] = await serve_speculative(card, f32, check_only=True)
     gpt2 = results["gpt2_small_speculative"]
     if gpt2["mean_accepted_per_round"] < SPEC_MIN_ACCEPTED:
         raise AssertionError(f"the GPT-2-small chain accepted {gpt2['mean_accepted_per_round']} draft tokens per "
                              f"round, want >= {SPEC_MIN_ACCEPTED}")
     results["faults"] = await spec_faults(card, results["tiny_gpt_speculative"])
+    # the feature draft: the two deployments, a copy at the truncated tree
+    # copy's shape and floor (none), the carry check (inside each), faults
+    for name in ("tiny_gpt_feature_draft", "gpt2_small_feature_draft"):
+        results[name] = await serve_speculative(card, BASELINE_DIR / f"{name}.json")
+    # every round speculates and emits one token a slot: the eager twin's
+    # second wave waits longer for a slot than the 2 s default queue timeout
+    ftree = _deployment_copy("gpt2_small_feature_draft", {"decode_spec_tree": "2,2,1,1",
+                                                          "decode_spec_accept_floor": 0.0, "queue_timeout_ms": 30000.0})
+    results["gpt2_small_feature_draft_tree"] = await serve_speculative(card, ftree)
+    results["feature_faults"] = await feature_faults(card)
     return results
 
 
@@ -3102,7 +3332,8 @@ async def serve_pipeline(card) -> dict:
     for name, path in (("gpt2_small_speculative", spec),
                        ("gpt2_small_speculative_tree", _deployment_copy("gpt2_small_speculative",
                                                                         {"decode_spec_tree": "2,2,1,1"})),
-                       ("gpt2_small_speculative_plain", _deployment_copy("gpt2_small_speculative", SPEC_OFF))):
+                       ("gpt2_small_speculative_plain", _deployment_copy("gpt2_small_speculative", SPEC_OFF)),
+                       ("gpt2_small_feature_draft", BASELINE_DIR / "gpt2_small_feature_draft.json")):
         server, *_ = await _start(path)
         sched, runtime = server.decode_scheduler, _model_runtime(server)
         seq_s = sched.seq_len
@@ -3140,6 +3371,9 @@ async def serve_pipeline(card) -> dict:
                 out[name]["sampled"] = {"rows": n, "eager_rounds": sched.stat_eager_rounds - eager}
                 if sched.stat_eager_rounds == eager:
                     raise AssertionError(f"{name}: the sampled run ran no eager round")
+            if sched.feature_draft:
+                out[name]["spec"] = {k: getattr(sched, f"stat_spec_{k}") for k in ("dispatches", "proposed",
+                                                                                    "accepted", "emitted")}
             out[name]["recompiles"] = sched.recompiles_since_warmup()
             out[name]["pipeline_stats"] = pipeline_stats(sched)
         finally:
@@ -3423,10 +3657,59 @@ async def serve_kv_tiers(card) -> dict:
     return out
 
 
+async def feature_host_tier(card) -> dict:
+    """Phase 9c: a copy of gpt2_small_feature_draft with the host tier and a
+    one-entry prefix index through REST. A prompt A served cold, then warm
+    from the device; B's capture pushes A out (demoted to host); A again,
+    promoted from host: its greedy row bit for bit the device-warm row (and
+    held to the cold one under the tie rule), and both warm admissions
+    open the head's window past the reused span."""
+    import numpy as np
+
+    path = _deployment_copy("gpt2_small_feature_draft", {"decode_kv_host_bytes": 1 << 26, "decode_prefix_slots": 1})
+    server, *_ = await _start(path)
+    sched, runtime = server.decode_scheduler, _model_runtime(server)
+    seq, tier = sched.seq_len, sched._host_tier
+    starts = []  # (reuse, the head's window start) per admission
+    real = sched._install_admit
+
+    def install(s, slot, entry, reuse, t0):
+        real(s, slot, entry, reuse, t0)
+        starts.append((reuse, int(sched._draft_start[slot])))
+
+    sched._install_admit = install
+    a, b = np.random.default_rng(12).integers(0, runtime.params["tok_emb"].shape[0], size=(2, seq))
+    try:
+        cold, cold_ms = await _tier_request(server, a)
+        warm_dev, dev_ms = await _tier_request(server, a)
+        await _tier_request(server, b)  # its capture pushes A out of the one-entry index
+        if sched._prefix_index.match(a, touch=False)[1] or tier.probe(a, include_store=False) < seq:
+            raise AssertionError("A was not demoted to host by B's capture")
+        promotions = sched.stat_tier_promotions
+        warm_host, host_ms = await _tier_request(server, a)
+        if sched.stat_tier_promotions != promotions + 1:
+            raise AssertionError("A was not promoted from host")
+        recompiles = sched.recompiles_since_warmup()
+    finally:
+        del sched._install_admit
+        await server.stop()
+    if (warm_host != warm_dev).any():
+        raise AssertionError("the feature deployment's A promoted from host served other ids than A warm from the device")
+    reuse = seq - 1  # the last prompt position is always computed
+    if starts != [(0, 0), (reuse, reuse), (0, 0), (reuse, reuse)] or recompiles != 0:
+        raise AssertionError(f"feature host tier: admissions (reuse, window start) {starts}, recompiles {recompiles}")
+    out = {"warm_host_equals_warm_device": True, "admissions": starts,
+           "tie_rows": _hold_ids("feature A warm vs cold", [warm_dev], [cold], runtime.params, seq, "bfloat16"),
+           "latency_ms": {"cold": cold_ms, "device": dev_ms, "host": host_ms}}
+    print(f"[{card}] feature host tier: {json.dumps(out)}", flush=True)
+    return out
+
+
 async def serve_phase9(card) -> dict:
-    """Phase 9, both parts in one event loop; it ends with the reconcile's
+    """Phase 9, all parts in one event loop; it ends with the reconcile's
     rollbacks and deferrals (each provoked at least once)."""
-    out = {"pipeline": await serve_pipeline(card), "tiers": await serve_kv_tiers(card)}
+    out = {"pipeline": await serve_pipeline(card), "tiers": await serve_kv_tiers(card),
+           "feature_host_tier": await feature_host_tier(card)}
     p = out["pipeline"]
     print(f"[{card}] phase 9 stat_pipeline_rollbacks={p['faults']['rollback']['stat_pipeline_rollbacks']} "
           f"stat_pipeline_deferred={p['tight_pool']['deferred']}", flush=True)
@@ -3556,6 +3839,7 @@ def main() -> int:
     # 4. the five BASELINE deployments
     t4 = time.perf_counter()
     asyncio.run(serve_small(card))
+    asyncio.run(serve_engine_compat(card))
     serve_resnet_ensemble(card)
     dag_launches = asyncio.run(serve_dag(card))
     if dag_launches <= 0:

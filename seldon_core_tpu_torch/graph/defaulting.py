@@ -10,13 +10,11 @@ Port of ``seldon_core_tpu/graph/defaulting.py``:
 
 ``mesh_from_spec`` is the device-count rule of
 ``seldon_core_tpu/parallel/mesh.py::mesh_from_spec``, which the server
-applies to the mesh it is asked for. ``spec_problems`` holds a
-predictor's ``tpu`` block to the JAX package's validation rules
-(``seldon_core_tpu/graph/validation.py``): ``weight_quant`` and the deadline
-here, the generative tier's ``decode_*`` knobs in ``decode_problems``, which
-names every knob of that tier the port does not serve yet. A generative
-model with ``weight_quant`` is refused by name where the model is built
-(``models/zoo.py``): only the build knows the model decodes.
+applies to the mesh it is asked for. The rules a defaulted deployment is
+held to live in ``graph/validation.py`` (``spec_problems`` and
+``decode_problems`` are re-exported here for their older callers). A
+generative model with ``weight_quant`` is refused by name where the model
+is built (``models/zoo.py``): only the build knows the model decodes.
 """
 
 from __future__ import annotations
@@ -35,6 +33,11 @@ from seldon_core_tpu_torch.graph.spec import (
     PredictiveUnitMethod,
     SeldonDeployment,
     bool_param,
+)
+from seldon_core_tpu_torch.graph.validation import (  # noqa: F401 - re-exported
+    UNPORTED_DECODE_KNOBS,
+    decode_problems,
+    spec_problems,
 )
 
 PU_PORT_BASE = 9000
@@ -60,162 +63,6 @@ def mesh_from_spec(axes: Mapping[str, int] | None, n_devices: int) -> dict[str, 
         if total > n_devices:
             raise ValueError(f"mesh {axes} needs {total} devices, have {n_devices}")
     return axes
-
-
-# decode_* knobs of the JAX package the port does not serve yet, with their
-# defaults there: a deployment that sets one to anything else is refused by
-# name, as engine/builtin.py refuses an unported built-in (the speculation,
-# SLO and KV tier knobs are served and held to the JAX package's rules below)
-UNPORTED_DECODE_KNOBS = {
-    "decode_mesh_axes": {},
-    "decode_replicas": 1,
-    "decode_router_policy": "",
-    "decode_autoscale_replicas": 0,
-    "decode_autoscale_queue_depth": 0,
-    "decode_health_poll_ms": 0.0,
-    "decode_health_miss_threshold": 3,
-    "decode_drain_timeout_ms": 5000.0,
-    "decode_npy_bindata": True,
-}
-
-
-def spec_problems(name: str, tpu) -> list[str]:
-    """Every problem with predictor ``name``'s ``tpu`` block: the JAX
-    package's rules for ``weight_quant`` and the budgets, then the decode
-    tier's (``decode_problems``)."""
-    problems = [
-        f"predictor '{name}' {knob} must be >= 0"
-        for knob in ("batch_timeout_ms", "deadline_ms", "queue_timeout_ms")
-        if getattr(tpu, knob) < 0
-    ]
-    if tpu.weight_quant not in ("", "int8"):
-        problems.append(
-            f"predictor '{name}' weight_quant '{tpu.weight_quant}' unsupported (want '' or 'int8')"
-        )
-    return problems + decode_problems(name, tpu)
-
-
-def decode_problems(name: str, tpu) -> list[str]:
-    """Every problem with predictor ``name``'s decode_* knobs: the JAX
-    package's validation rules for the knobs the port serves, and each
-    unported knob a deployment sets."""
-    problems = [
-        f"predictor '{name}' sets {knob}={tpu.extra[knob]!r}: that part of the "
-        "generative tier is not part of the torch port yet"
-        for knob, default in UNPORTED_DECODE_KNOBS.items()
-        if knob in tpu.extra and tpu.extra[knob] != default
-    ]
-    if tpu.decode_eos_id < -1:
-        problems.append(f"predictor '{name}' decode_eos_id must be >= -1")
-    for knob in ("decode_prefix_slots", "decode_prefix_ctx", "decode_prefill_chunk",
-                 "decode_kv_page_size", "decode_kv_pages", "decode_slo_ttft_ms", "decode_slo_itl_ms"):
-        if getattr(tpu, knob) < 0:
-            problems.append(f"predictor '{name}' {knob} must be >= 0")
-    if (tpu.decode_slo_ttft_ms > 0 or tpu.decode_slo_itl_ms > 0) and tpu.decode_slots <= 0:
-        problems.append(
-            f"predictor '{name}' decode_slo_ttft_ms/decode_slo_itl_ms need decode_slots > 0 "
-            "(the SLO attainment telemetry lives in the decode scheduler)"
-        )
-    if tpu.decode_kv_dtype not in ("", "int8"):
-        problems.append(
-            f"predictor '{name}' decode_kv_dtype '{tpu.decode_kv_dtype}' unsupported (want '' or 'int8')"
-        )
-    if (tpu.decode_kv_page_size > 0 or tpu.decode_kv_pages > 0 or tpu.decode_kv_dtype) and tpu.decode_slots <= 0:
-        problems.append(
-            f"predictor '{name}' decode_kv_page_size/decode_kv_pages/decode_kv_dtype "
-            "need decode_slots > 0 (the continuous-batching scheduler)"
-        )
-    if (
-        tpu.decode_kv_page_size > 0
-        and tpu.decode_prefill_chunk > 0
-        and tpu.decode_prefill_chunk % tpu.decode_kv_page_size != 0
-    ):
-        # every chunk boundary on a page boundary: chunked prefill never
-        # copy-on-writes its own half-written page
-        problems.append(
-            f"predictor '{name}' decode_prefill_chunk ({tpu.decode_prefill_chunk}) "
-            f"must be a multiple of decode_kv_page_size ({tpu.decode_kv_page_size})"
-        )
-    if 0 < tpu.decode_kv_pages < tpu.decode_slots + 1:
-        problems.append(
-            f"predictor '{name}' decode_kv_pages ({tpu.decode_kv_pages}) is below "
-            f"decode_slots + 1 ({tpu.decode_slots + 1}) — the page budget cannot "
-            "host the configured concurrency"
-        )
-    if tpu.decode_kv_host_bytes < 0:
-        problems.append(f"predictor '{name}' decode_kv_host_bytes must be >= 0")
-    if tpu.decode_kv_host_bytes > 0 and tpu.decode_prefix_slots <= 0:
-        # the host tier demotes and promotes prefix entries: without the
-        # prefix cache there is nothing to tier
-        problems.append(
-            f"predictor '{name}' decode_kv_host_bytes needs decode_prefix_slots > 0 "
-            "(the host tier holds demoted prefix-cache entries)"
-        )
-    if tpu.decode_kv_store_tier and tpu.decode_kv_host_bytes <= 0:
-        problems.append(
-            f"predictor '{name}' decode_kv_store_tier needs decode_kv_host_bytes > 0 "
-            "(the store is fed by the host tier's LRU)"
-        )
-    if tpu.decode_prefix_ctx > 0 and tpu.decode_prefix_slots == 0:
-        problems.append(f"predictor '{name}' decode_prefix_ctx needs decode_prefix_slots > 0")
-    if (tpu.decode_prefix_slots > 0 or tpu.decode_prefill_chunk > 0) and tpu.decode_slots <= 0:
-        problems.append(
-            f"predictor '{name}' decode_prefix_slots/decode_prefill_chunk need "
-            "decode_slots > 0 (the continuous-batching scheduler)"
-        )
-    return problems + _speculation_problems(name, tpu)
-
-
-def _speculation_problems(name: str, tpu) -> list[str]:
-    """The JAX package's rules for the speculation knobs
-    (``seldon_core_tpu/graph/validation.py``), with its messages."""
-    from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree
-
-    problems = []
-    if tpu.decode_spec_k < 0:
-        problems.append(f"predictor '{name}' decode_spec_k must be >= 0")
-    if tpu.decode_spec_k > 0 or tpu.decode_spec_tree:
-        if tpu.decode_slots <= 0:
-            problems.append(
-                f"predictor '{name}' decode_spec_k/decode_spec_tree "
-                "need decode_slots > 0 (the continuous-batching scheduler)"
-            )
-        if not tpu.decode_draft_model:
-            problems.append(
-                f"predictor '{name}' decode_spec_k/decode_spec_tree "
-                "need decode_draft_model (the draft that proposes)"
-            )
-    if tpu.decode_spec_tree:
-        # the tree must parse and fit the widened verify's node cap
-        try:
-            tree = SpecTree.from_text(tpu.decode_spec_tree)
-        except ValueError as e:
-            problems.append(f"predictor '{name}' decode_spec_tree: {e}")
-        else:
-            if tree.n_tree > MAX_TREE_NODES:
-                problems.append(
-                    f"predictor '{name}' decode_spec_tree "
-                    f"'{tpu.decode_spec_tree}' flattens to "
-                    f"{tree.n_tree} nodes — the widened verify dispatch "
-                    f"caps at {MAX_TREE_NODES}"
-                )
-    elif tpu.decode_spec_k > MAX_TREE_NODES:
-        problems.append(
-            f"predictor '{name}' decode_spec_k "
-            f"({tpu.decode_spec_k}) exceeds the widened-verify "
-            f"headroom ({MAX_TREE_NODES} proposed tokens per dispatch)"
-        )
-    if not (0.0 <= tpu.decode_spec_accept_floor < 1.0):
-        problems.append(
-            f"predictor '{name}' decode_spec_accept_floor "
-            f"({tpu.decode_spec_accept_floor}) must be in [0, 1)"
-        )
-    if tpu.decode_spec_accept_floor > 0 and not (tpu.decode_spec_k > 0 or tpu.decode_spec_tree):
-        problems.append(
-            f"predictor '{name}' decode_spec_accept_floor needs "
-            "decode_spec_k > 0 or decode_spec_tree (nothing to adapt)"
-        )
-    return problems
 
 
 def _default_unit(

@@ -5,7 +5,7 @@ names and enums, so one SeldonDeployment JSON serves both packages — the
 implementation name ``JAX_MODEL`` included, which here selects the port's
 torch model unit. ``SeldonDeployment.from_dict`` parses a CR dict; other keys of
 the ``tpu`` block are kept in ``TpuSpec.extra``, where
-``graph/defaulting.py::spec_problems`` refuses by name each one the port
+``graph/validation.py::spec_problems`` refuses by name each one the port
 does not serve, so no knob a deployment sets is silently ignored. A unit's
 resilience knobs (retries, breaker, fallback, quorum) ride its parameters
 and parse into ``ResilienceSpec``.
@@ -288,7 +288,7 @@ _TPU_FIELDS = (
 class TpuSpec:
     """A predictor's execution config. The port reads these fields; every
     other key of the CR's ``tpu`` block stays in ``extra``, where
-    ``graph/defaulting.py::spec_problems`` refuses the ones the port does
+    ``graph/validation.py::spec_problems`` refuses the ones the port does
     not serve."""
 
     mesh: Mapping[str, int] = field(default_factory=dict)

@@ -3,12 +3,11 @@
 Port of ``seldon_core_tpu/models/decoder.py``: the dense model, the fused
 ``generate`` oracle, the slot-cache blocks and the paged-KV blocks the
 continuous-batching scheduler (``serving/decode_scheduler.py``) runs, and
-draft-model speculation (the k-chain and the token tree). The function
-names are the JAX package's. Parameters are the same tree with torch
-tensors as leaves (``models/convert.py``); ``init_decoder`` makes the JAX
-package's numpy draws, so a seed gives its parameters bit for bit. The
-EAGLE-style feature draft (``init_feature_draft`` and its programs) is not
-ported yet.
+draft-model speculation (the k-chain, the token tree and the EAGLE-style
+feature head). The function names are the JAX package's. Parameters are
+the same tree with torch tensors as leaves (``models/convert.py``);
+``init_decoder`` and ``init_feature_draft`` make the JAX package's numpy
+draws, so a seed gives its parameters bit for bit.
 
 What changes in the port:
 
@@ -303,12 +302,15 @@ def _block_index(positions: torch.Tensor, m: int, length: int) -> torch.Tensor:
     return start[:, None] + torch.arange(m, device=positions.device)[None, :]
 
 
-def _layer_step_slots(p, x, cache_k, cache_v, positions, h, counts=None):
+def _layer_step_slots(p, x, cache_k, cache_v, positions, h, counts=None, starts=None):
     """_layer_step at PER-SLOT positions and m queries per slot. x: [n, m,
     d]; cache [n, h, max_ctx, hd]; positions [n]: slot i's query j sits at
     positions[i] + j, writes its K/V there and attends to cache entries <=
     positions[i] + j. ``counts`` [n] (chunked prefill): slot i keeps only its
-    first counts[i] K/V entries and leaves the rest of its cache as it was."""
+    first counts[i] K/V entries and leaves the rest of its cache as it was.
+    ``starts`` [n]: slot i's attention lower bound, entries before starts[i]
+    masked out (the feature head on a prefix-warm admission, whose reused
+    span has no draft K/V); None keeps the whole [0, pos] window."""
     q, k, v = _qkv(p, x, h)  # [n, h, m, hd]
     n, m = x.shape[0], x.shape[1]
     rows = torch.arange(n, device=x.device)[:, None]
@@ -321,7 +323,10 @@ def _layer_step_slots(p, x, cache_k, cache_v, positions, h, counts=None):
     cache_k[rows, :, cols, :] = kt.to(cache_k.dtype)
     cache_v[rows, :, cols, :] = vt.to(cache_v.dtype)
     q_pos = positions[:, None] + torch.arange(m, device=x.device)[None, :]
-    valid = torch.arange(cache_k.shape[2], device=x.device)[None, None, :] <= q_pos[:, :, None]
+    keys = torch.arange(cache_k.shape[2], device=x.device)[None, None, :]
+    valid = keys <= q_pos[:, :, None]
+    if starts is not None:
+        valid = valid & (keys >= starts[:, None, None])
     x = _masked_attention(p, x, q, cache_k, cache_v, valid)
     return _mlp(p, x), cache_k, cache_v
 
@@ -693,14 +698,16 @@ def _tree_tables(tree, device: torch.device) -> tuple[torch.Tensor, torch.Tensor
     )
 
 
-def _layer_tree_flat(p, x, cache_k, cache_v, positions, h, ek, ev, sub_mask):
+def _layer_tree_flat(p, x, cache_k, cache_v, positions, h, ek, ev, sub_mask, starts=None):
     """One layer of a draft tree-expansion step over the FLAT draft cache:
     x [n, c, d] carries one depth's nodes; attention reads the cache at
     entries <= positions[i] (prompt, committed tokens and the root's fresh
     write) plus the in-register K/V of every node proposed so far this round
     (``ek``/``ev`` [n, h, E, hd], grown per depth; never written to the
     cache). ``sub_mask`` [c, E + c] is the ancestor-or-self mask over those
-    nodes. Returns (x_out, ek', ev') with this depth's K/V appended."""
+    nodes; ``starts`` [n] opens slot i's cache window at starts[i] (see
+    ``_layer_step_slots``). Returns (x_out, ek', ev') with this depth's K/V
+    appended."""
     q, k, v = _qkv(p, x, h)  # [n, h, c, hd]
     ek = k if ek is None else torch.cat([ek, k], dim=2)
     ev = v if ev is None else torch.cat([ev, v], dim=2)
@@ -708,7 +715,10 @@ def _layer_tree_flat(p, x, cache_k, cache_v, positions, h, ek, ev, sub_mask):
     qf = q.float()
     c_len = cache_k.shape[2]
     s_cache = torch.einsum("nhqd,nhkd->nhqk", qf, cache_k.float()) * scale
-    valid = torch.arange(c_len, device=x.device)[None, None, None, :] <= positions[:, None, None, None]
+    keys = torch.arange(c_len, device=x.device)[None, None, None, :]
+    valid = keys <= positions[:, None, None, None]
+    if starts is not None:
+        valid = valid & (keys >= starts[:, None, None, None])
     s_cache = torch.where(valid, s_cache, NEG_INF)
     s_ext = torch.einsum("nhqd,nhkd->nhqk", qf, ek.float()) * scale
     s_ext = torch.where(sub_mask[None, None], s_ext, NEG_INF)
@@ -980,6 +990,154 @@ def speculative_accept_tree(target_logits, block_tokens, draft_logits, width_lim
     )
     out[rows, n_acc] = bonus
     return out.to(torch.int32), n_acc.to(torch.int32), path_idx.to(torch.int32)
+
+
+# ------------------------------------------------------ feature-level draft
+# EAGLE-style feature drafting (Li et al., EAGLE): the draft head conditions
+# on the TARGET's last hidden state, the final layer's residual stream that
+# the paged programs above return as ``hidden``, instead of re-embedding
+# tokens through truncated layers. The head is one transformer layer and a
+# weight-tied LM head; its input at position j is
+# ``fc([target_feature_{j-1} ; tok_emb(token_j)])`` (position 0 pads the
+# feature with zeros), and the tree expansion autoregresses in feature
+# space: a depth-d node's input feature is its parent node's own hidden.
+# The cache discipline is the token tree's: a flat per-slot K/V cache of
+# one layer, a root write that is never speculative, expansion K/V in
+# registers, and only the accepted path committed (``draft_tree_commit``).
+# On a prefix-warm admission the reused span has no draft K/V, and
+# ``starts`` opens the head's attention window at the computed suffix.
+
+
+def is_feature_draft(params) -> bool:
+    """Whether a draft's parameter tree is the feature-head layout (the
+    ``fc`` fuse marks it; a truncated decoder has none)."""
+    return isinstance(params, dict) and "fc" in params
+
+
+def init_feature_draft(seed: int = 0, vocab: int = 512, hidden: int = 128, ffn: int = 256,
+                       max_len: int = 128) -> dict:
+    """Numpy feature-head parameters, bit-identical to the JAX package's:
+    the ``fc`` [2*hidden -> hidden] fuse, one decoder layer, a position
+    table and the weight-tied LM head. ``hidden`` must equal the target's
+    (the fuse consumes the target's feature). The draws follow
+    ``init_decoder``'s positional order with ``fc`` drawn last, so a head
+    built with the target's seed, vocab, hidden and ffn starts with the
+    target's embeddings and leading layer verbatim."""
+    heads = _heads_for(hidden)
+    if hidden % heads:
+        raise ValueError(f"hidden={hidden} not divisible by its derived head count {heads}")
+    rng = np.random.default_rng(seed)
+    return {
+        "tok_emb": (rng.standard_normal((vocab, hidden)) * 0.02).astype(np.float32),
+        "pos_emb": (rng.standard_normal((max_len, hidden)) * 0.02).astype(np.float32),
+        "layers": [
+            {
+                "ln1": _ln_init(hidden),
+                "qkv": _dense(rng, hidden, 3 * hidden),
+                "attn_out": _dense(rng, hidden, hidden),
+                "ln2": _ln_init(hidden),
+                "mlp_in": _dense(rng, hidden, ffn),
+                "mlp_out": _dense(rng, ffn, hidden),
+            }
+        ],
+        "ln_f": _ln_init(hidden),
+        "fc": _dense(rng, 2 * hidden, hidden),
+    }
+
+
+def _feature_fuse(params: dict, feats, tokens, pidx) -> torch.Tensor:
+    """The head's input embedding ``fc([feature ; tok_emb(token)])`` plus the
+    position embedding: feats [n, m, d] aligned with tokens [n, m], pidx
+    position indices broadcastable to [n, m] (already clipped)."""
+    emb = params["tok_emb"][tokens]
+    return _proj(params["fc"], torch.cat([feats.to(emb.dtype), emb], dim=-1)) + params["pos_emb"][pidx]
+
+
+def feature_sequence_logits(params: dict, ids, feats) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced head forward: ids [b, s] with the target's aligned
+    features feats [b, s, d] (``sequence_hidden``'s second output) ->
+    (logits [b, s, vocab], head hidden [b, s, d]). Input j fuses feature j-1
+    with token j (feature -1 = zeros), so logits[j] predicts token j+1: the
+    serving root step's conditioning."""
+    ids = _long(ids).to(params["tok_emb"].device)
+    heads = _heads(params)
+    s = ids.shape[1]
+    fin = torch.cat([torch.zeros_like(feats[:, :1]), feats[:, :-1]], dim=1)
+    x = _feature_fuse(params, fin, ids, torch.arange(s, device=ids.device)[None, :])
+    for lp in params["layers"]:
+        x, _, _ = _layer_prefill(lp, x, heads)
+    return _logits(params, x), x
+
+
+def feature_chunk_prefill(params: dict, cache_k, cache_v, tokens, target_hidden, prev_feat, positions, counts,
+                          starts):
+    """The head's teacher-forced prefill of one chunk round, beside the
+    target's: tokens [n, c] (the chunk's prompt ids), the target's hidden
+    for the same chunk [n, c, d], and ``prev_feat`` [n, d], the carried
+    feature at positions[i] - 1 (zeros where positions == starts, a slot's
+    first computed position, as the recipe pads position 0). Writes the
+    head's K/V in place under the target chunk's ``counts`` mask (a
+    counts-0 slot changes nothing) with the ``starts`` window. Returns
+    (cache_k, cache_v)."""
+    heads = _heads(params)
+    max_len = params["pos_emb"].shape[0]
+    tokens, positions = tokens.long(), positions.long()
+    counts, starts = counts.long(), starts.long()
+    m = tokens.shape[1]
+    first = (positions == starts)[:, None]
+    fin0 = torch.where(first, torch.zeros_like(prev_feat), prev_feat)
+    fin = torch.cat([fin0[:, None, :], target_hidden[:, :-1, :].to(fin0.dtype)], dim=1)
+    pidx = (positions[:, None] + torch.arange(m, device=tokens.device)[None, :]).clamp(0, max_len - 1)
+    x = _feature_fuse(params, fin, tokens, pidx)
+    for li, lp in enumerate(params["layers"]):
+        x, _, _ = _layer_step_slots(lp, x, cache_k[li], cache_v[li], positions, heads, counts=counts, starts=starts)
+    return cache_k, cache_v
+
+
+def draft_propose_features(params: dict, cache_k, cache_v, feats, tokens, positions, starts, temperature, top_k,
+                           generator, tree):
+    """``draft_propose_tree`` with the feature head: the root step fuses each
+    slot's carried target feature (``feats`` [n, d], the hidden at position
+    ``pos - 1``) with the last emitted token and writes its K/V at ``pos``;
+    each expansion depth fuses the parent node's own head hidden with the
+    candidate token. The same candidate rule, draw order, block layout and
+    return shape as the token tree draft, so the verify, the acceptance
+    and the commits are shared."""
+    heads = _heads(params)
+    max_len = params["pos_emb"].shape[0]
+    tokens, positions, starts = tokens.long(), positions.long(), starts.long()
+    mask = _tree_tables(tree, positions.device)[0]
+    x = _feature_fuse(params, feats[:, None, :], tokens[:, None], positions.clamp(0, max_len - 1)[:, None])
+    for li, lp in enumerate(params["layers"]):
+        x, _, _ = _layer_step_slots(lp, x, cache_k[li], cache_v[li], positions, heads, starts=starts)
+    logits0 = _logits(params, x)[:, 0, :]
+    n_layers = len(params["layers"])
+    ek: list = [None] * n_layers
+    ev: list = [None] * n_layers
+    block_logits, node_tokens = [logits0[:, None, :]], []
+    parent_logits, parent_feats = logits0[:, None, :], x
+    for d in range(1, tree.depth + 1):
+        b = tree.branching[d - 1]
+        c_d, start = tree.level_counts[d - 1], tree.level_starts[d - 1]
+        toks_d = _tree_candidates(parent_logits, temperature, top_k, generator, b)
+        node_tokens.append(toks_d)
+        pidx = (positions + d).clamp(0, max_len - 1)[:, None]
+        x = _feature_fuse(params, parent_feats.repeat_interleave(b, dim=1), toks_d.long(), pidx)
+        sub_mask = mask[start : start + c_d, 1 : start + c_d]
+        for li, lp in enumerate(params["layers"]):
+            x, ek[li], ev[li] = _layer_tree_flat(
+                lp, x, cache_k[li], cache_v[li], positions, heads, ek[li], ev[li], sub_mask, starts=starts
+            )
+        parent_logits, parent_feats = _logits(params, x), x
+        block_logits.append(parent_logits)
+    return (
+        torch.cat(node_tokens, dim=1),
+        torch.cat(block_logits, dim=1),
+        torch.stack(ek),
+        torch.stack(ev),
+        cache_k,
+        cache_v,
+    )
 
 
 def reference_generate(params: dict, ids, max_new_tokens: int) -> np.ndarray:

@@ -287,19 +287,34 @@ def build_draft(
     builds meant as drafts set ``resid_scale`` on both, so the shared
     prefix carries the prediction.
 
-    ``features=1`` (the EAGLE-style feature head) and ``distilled=`` (a
-    distillation checkpoint) are not ported yet and are refused by name."""
-    if features:
-        raise ValueError(
-            "zoo://draft?features=1 (the EAGLE-style feature-draft head) is not part of the torch port yet"
-        )
+    ``features=1`` builds the EAGLE-style feature-draft head instead
+    (``models/decoder.init_feature_draft``): one layer whose input fuses the
+    target's last hidden state with the token embedding. ``hidden`` must be
+    the target's (the scheduler injects it, and ``ffn``, from the target);
+    ``layers`` and ``resid_scale`` do not apply. The head serves only
+    through ``tpu.decode_draft_model``: its apply raises to say so.
+    ``distilled=`` (a distillation checkpoint, for either kind) is not
+    ported yet and is refused by name."""
     if distilled:
         raise ValueError(
             f"zoo://draft?distilled={distilled} (a distilled draft checkpoint) is not part of the torch port yet"
         )
+    if features:
+        from seldon_core_tpu_torch.models.decoder import init_feature_draft
+
+        params = init_feature_draft(seed, vocab=vocab, hidden=hidden, ffn=ffn, max_len=max_len)
+        return ModelSpec(_feature_draft_apply, params, (seq,), (), int_inputs="ids")
     return build_tiny_gpt(
         seed=seed, vocab=vocab, hidden=hidden, layers=layers, ffn=ffn, max_len=max_len,
         seq=seq, max_new_tokens=max_new_tokens, resid_scale=resid_scale,
+    )
+
+
+def _feature_draft_apply(p, x):
+    raise ValueError(
+        "a feature-draft head (zoo://draft?features=1) conditions on the "
+        "target's hidden states and cannot serve standalone — point "
+        "tpu.decode_draft_model at it instead"
     )
 
 

@@ -31,6 +31,17 @@ iteration-level scheduling over a vLLM-style paged KV pool):
   configured ceiling, and reshapes the tree's widths. Per request,
   ``meta.tags.spec_k`` and ``meta.tags.spec_tree`` tighten (``spec_k=0``
   opts out).
+- Feature drafting (``zoo://draft?features=1``, the EAGLE-style head of
+  ``models/decoder.init_feature_draft``): the draft conditions on the
+  target's last hidden state. Each slot's feature is carried on the device
+  ([n_slots, hidden] at the target's dtype) and every program that moves a
+  position updates it where the round's carry mask (the generating slots)
+  says so. Four keys take the place of step, chunk, draft admit and the
+  tree pair: ``step_f``, ``chunk_f`` (which also prefills the head's flat
+  cache with the chunk's prompt, so there is no draft admit),
+  ``draft_feat`` and ``ftree_verify``; a chain config is promoted to the
+  branching-1 tree. A prefix-warm admission opens the head's attention
+  window at its computed suffix (``_draft_start``).
 - Tokens stream to the caller as they are chosen (``on_token``), which is
   what the SSE route forwards.
 
@@ -99,10 +110,10 @@ shallower than a tier's promotes the entry back into ``preseed_pin``-pinned
 free pages, inside the overlap window when the admission is decided there.
 
 Not ported yet, and refused by name at deployment build
-(``graph/defaulting.py::decode_problems``): tensor-parallel decode and the
-replicated fleet (with it the sibling pull between replicas); the feature
-draft (``zoo://draft?features=1``) and distilled drafts are refused by the
-zoo. The queue timeout is honoured, and a request's deadline budget is
+(``graph/validation.py::decode_problems``): tensor-parallel decode and the
+replicated fleet (with it the sibling pull between replicas); distilled
+drafts (``zoo://draft?distilled=``) are refused by the zoo. The queue
+timeout is honoured, and a request's deadline budget is
 enforced at the ingress and judged here for goodput.
 """
 
@@ -130,9 +141,12 @@ from seldon_core_tpu_torch.models.decoder import (
     STREAM_VERIFY,
     decoder_dims,
     draft_propose,
+    draft_propose_features,
     draft_propose_tree,
     draft_tree_commit,
+    feature_chunk_prefill,
     init_slot_cache,
+    is_feature_draft,
     paged_chunk_prefill,
     paged_decode_step,
     paged_tree_commit,
@@ -213,6 +227,32 @@ def _chunk_logits(params, pool, bt, ids, positions, counts):
     return logits[torch.arange(ids.shape[0], device=ids.device), idx]
 
 
+def _step_feat_logits(params, pool, bt, tokens, positions, feats, fmask):
+    """``_step_logits`` for feature-draft deployments: the same step, and
+    the consumed position's hidden replaces the slot's carried feature
+    ``feats`` [n, d] in place wherever ``fmask`` (the generating slots)
+    holds, so a plain round keeps the next speculative round's draft root
+    conditioned on the last consumed position."""
+    logits, hidden, _ = paged_decode_step(params, pool, bt, tokens, positions)
+    feats.copy_(torch.where(fmask[:, None], hidden.to(feats.dtype), feats))
+    return logits
+
+
+def _chunk_feat_logits(params, fparams, pool, bt, dck, dcv, ids, positions, counts, feats, starts):
+    """``_chunk_logits`` for feature-draft deployments: the target's chunk,
+    then the head's teacher-forced prefill of the same chunk into its flat
+    cache under the same counts mask (``feature_chunk_prefill``: the head's
+    prompt K/V rides the chunk round, so feature mode has no draft admit),
+    and the carry: a slot that consumed prompt tokens takes the hidden of
+    its last one. Returns the last consumed position's logits [n, V]."""
+    logits, hidden, _ = paged_chunk_prefill(params, pool, bt, ids, positions, counts)
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    idx = (counts.long() - 1).clamp(0, ids.shape[1] - 1)
+    feature_chunk_prefill(fparams, dck, dcv, ids, hidden, feats, positions, counts, starts)
+    feats.copy_(torch.where((counts > 0)[:, None], hidden[rows, idx].to(feats.dtype), feats))
+    return logits[rows, idx]
+
+
 # The speculative programs below take tensors already on the device: the
 # round uploads every input before it queues the draft, because an upload
 # between the draft and the verify would wait for the draft to finish.
@@ -279,6 +319,35 @@ def _fused_tree_verify(params, pool, bt, tokens, node_tokens, block_logits, node
                                                  generator, tree)
     paged_tree_commit(pool, bt, new_k, new_v, path_idx, positions, acc)
     draft_tree_commit(dck, dcv, node_k, node_v, path_idx, positions, acc)
+    return out, acc
+
+
+def _fused_draft_feat(fparams, dck, dcv, feats, tokens, positions, starts, temps, topks, generator, tree):
+    """Draft side of a feature round: the head's root step (the carried
+    target feature fused with the last emitted token) and ``tree.depth``
+    expansions autoregressing in feature space
+    (``draft_propose_features``). Returns (node_tokens, block_logits,
+    node_k, node_v), the layout of the token tree's draft."""
+    return draft_propose_features(fparams, dck, dcv, feats, tokens, positions, starts, temps, topks, generator,
+                                  tree)[:4]
+
+
+def _fused_ftree_verify(params, pool, bt, tokens, node_tokens, block_logits, node_k, node_v, dck, dcv, feats, fmask,
+                        positions, width_limits, temps, topks, generator, tree):
+    """``_fused_tree_verify`` for feature-draft deployments: the same verify,
+    walk and both commits, and the carry the next round's root needs: the
+    target's hidden at the accepted path's last block (the root when
+    nothing was accepted) replaces ``feats`` in place where ``fmask``
+    holds. The readback stays (out_tokens, n_accepted)."""
+    queries = torch.cat([tokens[:, None], node_tokens.long()], dim=1)
+    logits, hidden, new_k, new_v = paged_tree_verify(params, pool, bt, queries, positions, tree)
+    out, acc, path_idx = speculative_accept_tree(logits, queries, block_logits, width_limits, temps, topks,
+                                                 generator, tree)
+    paged_tree_commit(pool, bt, new_k, new_v, path_idx, positions, acc)
+    draft_tree_commit(dck, dcv, node_k, node_v, path_idx, positions, acc)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    last_blk = torch.gather(path_idx.long(), 1, acc.long()[:, None])[:, 0]
+    feats.copy_(torch.where(fmask[:, None], hidden[rows, last_blk].to(feats.dtype), feats))
     return out, acc
 
 
@@ -705,6 +774,14 @@ class DecodeScheduler:
         self.stat_eager_rounds = 0  # sampled round pairs, run eagerly
         if self.spec_enabled:
             self._dck, self._dcv = init_slot_cache(self.draft_params, n_slots, self._cache_ctx, dtype)
+            if self.feature_draft:
+                # each slot's carried target feature (the hidden at its last
+                # consumed position, at the target's dtype), which every
+                # program that moves a position updates on the device, and
+                # each slot's draft attention window start (host data: the
+                # prefix a warm admission reused has no draft K/V)
+                self._feat = torch.zeros((n_slots, dims["hidden"]), dtype=dtype, device=dev)
+                self._draft_start = np.zeros(n_slots, np.int32)
             if self.spec_tree is not None:
                 # the tree's constant tables go to the device now, never
                 # inside a program (a capture refuses an upload)
@@ -824,6 +901,18 @@ class DecodeScheduler:
                     f"the widened verify dispatch caps at {MAX_TREE_NODES}"
                 )
         self.spec_enabled = draft_params is not None and (spec_k >= 1 or self.spec_tree is not None)
+        # the EAGLE-style feature head (``models/decoder.init_feature_draft``,
+        # marked by its ``fc`` fuse) always rides the tree programs: a chain
+        # config is promoted to the branching-1 tree, which is the chain,
+        # under the chain's verify headroom
+        self.feature_draft = self.spec_enabled and is_feature_draft(draft_params)
+        if self.feature_draft and self.spec_tree is None:
+            if spec_k > MAX_TREE_NODES:
+                raise ValueError(
+                    f"decode_spec_k={spec_k} exceeds the widened-verify headroom "
+                    f"({MAX_TREE_NODES} proposed tokens per dispatch)"
+                )
+            self.spec_tree = SpecTree.chain(max(1, spec_k))
         if self.spec_tree is not None:
             self.spec_k = self.spec_tree.depth
         else:
@@ -848,6 +937,13 @@ class DecodeScheduler:
                 f"draft position table ({ddims['max_len']}) is smaller than "
                 f"seq_len + max_new_tokens ({self.max_ctx})"
             )
+        if self.feature_draft:
+            if ddims["hidden"] != dims["hidden"]:
+                raise ValueError(
+                    f"feature draft hidden {ddims['hidden']} != target hidden {dims['hidden']} — "
+                    "the head's fc fuse consumes the target's feature vector directly"
+                )
+            return  # the head's prompt K/V rides the chunk rounds: no draft admit
         # wave buckets of the draft's prompt prefill (one dispatch for the
         # slots whose target prefill completed in a round)
         buckets, b = [], 1
@@ -866,31 +962,50 @@ class DecodeScheduler:
         (nothing off the card)."""
         return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
 
-    def _step_enqueue(self, toks, pos, temps, topks, tick) -> torch.Tensor:
+    def _step_enqueue(self, toks, pos, temps, topks, tick, fmask=None) -> torch.Tensor:
         """Queue one step and its sampling; the next tokens [n] stay on the
         device. The entry's lock is released only after the sampling that
         reads its static logits is queued, so a later replay of the key
-        runs after it on the stream."""
+        runs after it on the stream. ``fmask`` [n] (feature mode): the
+        generating slots, whose carried feature the step moves (None:
+        none)."""
         n = len(toks)
         params, pool, bt = self.params, self.pool.state, self.pool.bt_device
-        entry = self.graphs.entry(("step", n), lambda t, p: _step_logits(params, pool, bt, t, p),
-                                  [((n,), torch.int32), ((n,), torch.int32)])
+        ins = [((n,), torch.int32), ((n,), torch.int32)]
+        if self.feature_draft:
+            feats = self._feat
+            entry = self.graphs.entry(("step_f", n),
+                                      lambda t, p, m: _step_feat_logits(params, pool, bt, t, p, feats, m),
+                                      ins + [((n,), torch.bool)])
+            args = (toks, pos, np.zeros(n, bool) if fmask is None else fmask)
+        else:
+            entry = self.graphs.entry(("step", n), lambda t, p: _step_logits(params, pool, bt, t, p), ins)
+            args = (toks, pos)
         sampling = _sampling_inputs(temps, topks, self.pool.device)
-        return entry.run(toks, pos, post=lambda logits: _sample(logits, sampling, self._seed, tick))
+        return entry.run(*args, post=lambda logits: _sample(logits, sampling, self._seed, tick))
 
-    def _step(self, toks, pos, temps, topks, tick) -> np.ndarray:
-        nxt = self._step_enqueue(toks, pos, temps, topks, tick)
+    def _step(self, toks, pos, temps, topks, tick, fmask=None) -> np.ndarray:
+        nxt = self._step_enqueue(toks, pos, temps, topks, tick, fmask)
         self._mark_enqueued()
         return nxt.cpu().numpy()
 
     def _chunk(self, ids, pos, counts, temps, topks, tick) -> np.ndarray:
         n = len(pos)
         params, pool, bt = self.params, self.pool.state, self.pool.bt_device
-        entry = self.graphs.entry(("chunk",) + ids.shape,
-                                  lambda i, p, c: _chunk_logits(params, pool, bt, i, p, c),
-                                  [(ids.shape, torch.int32), ((n,), torch.int32), ((n,), torch.int32)])
+        ins = [(ids.shape, torch.int32), ((n,), torch.int32), ((n,), torch.int32)]
+        if self.feature_draft:
+            fparams, dck, dcv, feats = self.draft_params, self._dck, self._dcv, self._feat
+            entry = self.graphs.entry(
+                ("chunk_f",) + ids.shape,
+                lambda i, p, c, st: _chunk_feat_logits(params, fparams, pool, bt, dck, dcv, i, p, c, feats, st),
+                ins + [((n,), torch.int32)])
+            args = (ids, pos, counts, self._draft_start.copy())
+        else:
+            entry = self.graphs.entry(("chunk",) + ids.shape,
+                                      lambda i, p, c: _chunk_logits(params, pool, bt, i, p, c), ins)
+            args = (ids, pos, counts)
         sampling = _sampling_inputs(temps, topks, self.pool.device)
-        toks = entry.run(ids, pos, counts, post=lambda logits: _sample(logits, sampling, self._seed, tick))
+        toks = entry.run(*args, post=lambda logits: _sample(logits, sampling, self._seed, tick))
         self._mark_enqueued()
         return toks.cpu().numpy()
 
@@ -940,12 +1055,29 @@ class DecodeScheduler:
 
     def _spec_entries(self, n: int) -> tuple:
         """The greedy round pair's two entries: the draft program (static
-        inputs: last tokens, positions) and the verify program (static
-        input: the per-slot limits, or width limits on a tree), which reads
-        the draft's inputs and outputs where they lie."""
+        inputs: last tokens, positions, and in feature mode the draft
+        window starts) and the verify program (static input: the per-slot
+        limits, or width limits on a tree, and in feature mode the carry
+        mask), which reads the draft's inputs and outputs where they lie."""
         dparams, params, dck, dcv = self.draft_params, self.params, self._dck, self._dcv
         pool, bt, zf, zi, tree, k = self.pool.state, self.pool.bt_device, self._zf, self._zi, self.spec_tree, self.spec_k
         ins = [((n,), torch.int32), ((n,), torch.int32)]
+        if self.feature_draft:
+            feats = self._feat
+            draft = self.graphs.entry(
+                ("draft_feat", n, tree.branching),
+                lambda t, p, st: _fused_draft_feat(dparams, dck, dcv, feats, t.long(), p.long(), st.long(), zf, zi,
+                                                   None, tree),
+                ins + [((n,), torch.int32)])
+
+            def ftree_verify_fn(wl, fm):
+                t, p = (a.long() for a in draft.inputs[:2])
+                node_toks, blogits, nk, nv = draft.outputs
+                return _fused_ftree_verify(params, pool, bt, t, node_toks, blogits, nk, nv, dck, dcv, feats, fm, p,
+                                           wl, zf, zi, None, tree)
+
+            return draft, self.graphs.entry(("ftree_verify", n, tree.width), ftree_verify_fn,
+                                            [((n, tree.depth), torch.int32), ((n,), torch.bool)])
         if tree is None:
             draft = self.graphs.entry(
                 ("draft", n, k),
@@ -970,38 +1102,49 @@ class DecodeScheduler:
         return draft, self.graphs.entry(("tree_verify", n, tree.width), tree_verify_fn,
                                         [((n, tree.depth), torch.int32)])
 
-    def _spec_enqueue(self, toks, pos, lim, t0: int) -> torch.Tensor:
+    def _feature_inputs(self, fmask) -> tuple[tuple, tuple]:
+        """The round pair's feature-mode static inputs, (the draft's window
+        starts,) and (the verify's carry mask,); () and () otherwise.
+        ``fmask`` None: no slot's carry moves."""
+        if not self.feature_draft:
+            return (), ()
+        return (self._draft_start.copy(),), (np.zeros(self.n_slots, bool) if fmask is None else fmask,)
+
+    def _spec_enqueue(self, toks, pos, lim, t0: int, fmask=None) -> torch.Tensor:
         """Queue the captured greedy round pair: [n, spec_k + 2] on the
         device, out_tokens then n_accepted, copied off the static outputs
         before the entries' locks are released."""
         draft, verify = self._spec_entries(len(toks))
+        draft_extra, verify_extra = self._feature_inputs(fmask)
         with draft.lock, verify.lock, torch.inference_mode():
-            draft.load(toks, pos)
-            verify.load(lim)
+            draft.load(toks, pos, *draft_extra)
+            verify.load(lim, *verify_extra)
             draft.replay()
             self._draft_done(t0)
             out, acc = verify.replay()
             return torch.cat([out, acc[:, None]], dim=1)
 
-    def _spec(self, toks, pos, temps, topks, limits, wlimits, tick) -> tuple[np.ndarray, np.ndarray]:
+    def _spec(self, toks, pos, temps, topks, limits, wlimits, tick, fmask=None) -> tuple[np.ndarray, np.ndarray]:
         """One speculative round pair, draft then widened verify, and its one
         readback: (out_tokens [n, spec_k + 1], n_accepted [n]). Every input
         is uploaded before the draft is queued, and nothing between the two
         programs waits on the card. ``wlimits`` (tree deployments) replaces
-        ``limits`` as the verify's per-slot mask. A greedy round replays the
-        captured pair; a round with a sampled slot runs it eagerly."""
+        ``limits`` as the verify's per-slot mask; ``fmask`` (feature mode)
+        marks the generating slots, whose carried feature the verify moves.
+        A greedy round replays the captured pair; a round with a sampled
+        slot runs it eagerly."""
         lim = limits if wlimits is None else wlimits
         t0 = time.perf_counter_ns()
         if (temps > 0).any():
-            out, acc = self._spec_sampled(toks, pos, temps, topks, lim, tick, t0)
+            out, acc = self._spec_sampled(toks, pos, temps, topks, lim, tick, t0, fmask)
             res = torch.cat([out, acc[:, None]], dim=1)
         else:
-            res = self._spec_enqueue(toks, pos, lim, t0)
+            res = self._spec_enqueue(toks, pos, lim, t0, fmask)
         self._mark_enqueued()
         res = res.cpu().numpy()
         return res[:, :-1], res[:, -1]
 
-    def _spec_sampled(self, toks, pos, temps, topks, lim, tick, t0: int) -> tuple:
+    def _spec_sampled(self, toks, pos, temps, topks, lim, tick, t0: int, fmask=None) -> tuple:
         """The eager round pair: the draft's draws from stream 1 and the
         acceptance's from stream 2 of the tick's generator."""
         self.stat_eager_rounds += 1
@@ -1011,6 +1154,15 @@ class DecodeScheduler:
         g_draft = sampling_generator(self._seed, tick, dev, STREAM_DRAFT)
         g_verify = sampling_generator(self._seed, tick, dev, STREAM_VERIFY)
         tree = self.spec_tree
+        if self.feature_draft:
+            (starts,), (fm,) = self._feature_inputs(fmask)
+            starts_d, fm_d = to_device(starts, dev).long(), to_device(fm, dev)
+            node_toks, blogits, nk, nv = _fused_draft_feat(self.draft_params, self._dck, self._dcv, self._feat, toks_d,
+                                                           pos_d, starts_d, temps_d, topks_d, g_draft, tree)
+            self._draft_done(t0)
+            return _fused_ftree_verify(self.params, self.pool.state, bt_d, toks_d, node_toks, blogits, nk, nv,
+                                       self._dck, self._dcv, self._feat, fm_d, pos_d, lim_d, temps_d, topks_d,
+                                       g_verify, tree)
         if tree is None:
             drafts, dlogits = _fused_draft(self.draft_params, self._dck, self._dcv, toks_d, pos_d, temps_d, topks_d,
                                            g_draft, self.spec_k)
@@ -1156,11 +1308,12 @@ class DecodeScheduler:
     def warmup(self) -> None:
         """Build (on the card: capture) every (program, shape) key serving
         can need — each chunk bucket, the step, the copy ladder and, with
-        speculation, the draft admit per wave bucket and the greedy round
-        pair — on the worker thread, with all-zero block tables, counts and
-        limits, so every pool write lands in junk page 0 (the draft cache's
-        junk is overwritten by each admission). compile_counts() after this
-        is the baseline."""
+        speculation, the draft admit per wave bucket (none in feature mode)
+        and the greedy round pair — on the worker thread, with all-zero
+        block tables, counts, limits and carry masks, so every pool write
+        lands in junk page 0 and no carried feature moves (the draft
+        cache's junk is overwritten by each admission). compile_counts()
+        after this is the baseline."""
 
         def run():
             z = np.zeros(self.n_slots, np.int32)
@@ -1171,7 +1324,7 @@ class DecodeScheduler:
             self.pool.warmup()
             self._step(z, z, zf, z, 0)
             if self.spec_enabled:
-                for b in self.admit_buckets:
+                for b in () if self.feature_draft else self.admit_buckets:
                     self._draft_admit(np.zeros((b, self.seq_len), np.int32), z, np.zeros(self.n_slots, bool))
                 wl0 = None if self.spec_tree is None else np.zeros((self.n_slots, self.spec_k), np.int32)
                 self._spec(z, z, zf, z, z, wl0, 0)
@@ -1187,9 +1340,13 @@ class DecodeScheduler:
     def compile_counts(self) -> dict[str, int]:
         """(program, shape) keys built, per program, under the JAX
         scheduler's names: on the card each is one captured CUDA graph."""
-        names = ["step", "chunk", "copy"]
-        if self.spec_enabled:
-            names += ["draft_admit"] + (["draft", "verify"] if self.spec_tree is None else ["draft_tree", "tree_verify"])
+        if self.feature_draft:
+            names = ["step_f", "chunk_f", "copy", "draft_feat", "ftree_verify"]
+        else:
+            names = ["step", "chunk", "copy"]
+            if self.spec_enabled:
+                names += ["draft_admit"] + (["draft", "verify"] if self.spec_tree is None
+                                            else ["draft_tree", "tree_verify"])
         counts = self.graphs.counts()
         return {name: counts.get(name, 0) for name in names}
 
@@ -1587,6 +1744,10 @@ class DecodeScheduler:
         self._slots[slot] = seq
         self.stat_admitted += 1
         self._rb_admitted += 1
+        if self.feature_draft:
+            # the head's window opens at the computed suffix: the reused span
+            # (a device match or a promoted tier entry) has no draft K/V
+            self._draft_start[slot] = reuse
         shared_pages = self.pool.alloc.pages_for(reuse) if reuse else 0
         if self.prefix_enabled:
             if entry is not None:
@@ -1898,8 +2059,10 @@ class DecodeScheduler:
         tick = self._next_tick()
         # the slots whose prompt completes this round also prefill the
         # draft's cache with their full prompt, in the same worker call
+        # (feature mode: the head's chunk prefill rode the chunk program)
         finishing = [i for i, _, pp, c, _ in rows if pp + c >= self.seq_len]
-        admit = self._draft_admit_arrays(finishing) if self.spec_enabled and finishing else None
+        admit = (self._draft_admit_arrays(finishing)
+                 if self.spec_enabled and not self.feature_draft and finishing else None)
 
         def run():
             self.pool.load_block_tables(bt)
@@ -1989,6 +2152,9 @@ class DecodeScheduler:
             temps = np.zeros(self.n_slots, np.float32)
             topks = np.zeros(self.n_slots, np.int32)
             gen = []
+            # the generating slots: the feature programs' carry mask (a slot
+            # riding the dispatch with junk must keep its carried feature)
+            fmask = np.zeros(self.n_slots, bool)
             for i, seq in enumerate(self._slots):
                 if seq is None:
                     continue
@@ -2007,6 +2173,7 @@ class DecodeScheduler:
                 temps[i] = seq.temperature
                 topks[i] = seq.top_k
                 gen.append(i)
+                fmask[i] = True
         if not gen:
             return None
         limits, wlimits = self._spec_limits()
@@ -2037,11 +2204,11 @@ class DecodeScheduler:
 
             def spec():
                 self.pool.load_block_tables(bt)
-                return self._spec(toks, pos, temps, topks, limits, wlimits, tick)
+                return self._spec(toks, pos, temps, topks, limits, wlimits, tick, fmask)
 
             t0 = telemetry.now_ns()
             if pipelined:
-                out_t, acc = await self._spec_round_pipelined(bt, toks, pos, temps, limits, wlimits, spec)
+                out_t, acc = await self._spec_round_pipelined(bt, toks, pos, temps, limits, wlimits, fmask, spec)
             else:
                 out_t, acc = await self._timed_call(F_VERIFY, spec)
                 self._rb_active = self.active  # occupancy at dispatch
@@ -2049,12 +2216,12 @@ class DecodeScheduler:
             mode = "chain" if self.spec_tree is None else "tree"
         else:
             if pipelined:
-                nxt = await self._step_round_pipelined(bt, toks, pos, temps, topks, tick)
+                nxt = await self._step_round_pipelined(bt, toks, pos, temps, topks, tick, fmask)
             else:
 
                 def step():
                     self.pool.load_block_tables(bt)
-                    return self._step(toks, pos, temps, topks, tick)
+                    return self._step(toks, pos, temps, topks, tick, fmask)
 
                 nxt = await self._timed_call(F_STEP, step)
                 self._rb_active = self.active  # occupancy at dispatch
@@ -2073,7 +2240,7 @@ class DecodeScheduler:
             self._apply_pending()
         return mode
 
-    async def _step_round_pipelined(self, bt, toks, pos, temps, topks, tick) -> np.ndarray:
+    async def _step_round_pipelined(self, bt, toks, pos, temps, topks, tick, fmask) -> np.ndarray:
         """The pipelined plain round: queue the block tables, the step and
         its readback from the loop's thread, run round N+1's host phases
         (``_overlap_window``), then wait for the readback. The step's busy
@@ -2086,7 +2253,7 @@ class DecodeScheduler:
         # buffer stages its value in pinned memory it guards with an event
         with self._on_stream(), torch.inference_mode():
             self.pool.load_block_tables(bt)
-            host, done = self._readback_async(self._step_enqueue(toks, pos, temps, topks, tick))
+            host, done = self._readback_async(self._step_enqueue(toks, pos, temps, topks, tick, fmask))
         self._rb_active = self.active  # occupancy at dispatch
         self._overlap_window()
         t2 = time.perf_counter_ns()
@@ -2096,7 +2263,7 @@ class DecodeScheduler:
         self._rb_rdb[F_STEP] += t3 - t2
         return nxt
 
-    async def _spec_round_pipelined(self, bt, toks, pos, temps, limits, wlimits, spec) -> tuple:
+    async def _spec_round_pipelined(self, bt, toks, pos, temps, limits, wlimits, fmask, spec) -> tuple:
         """The pipelined speculative round: the greedy pair's replays and
         its readback queued from the loop's thread, the window, then the
         wait. A pair with a sampled slot runs eagerly (hundreds of
@@ -2118,7 +2285,7 @@ class DecodeScheduler:
             with self._on_stream(), torch.inference_mode():
                 self.pool.load_block_tables(bt)
                 lim = limits if wlimits is None else wlimits
-                host, done = self._readback_async(self._spec_enqueue(toks, pos, lim, t0))
+                host, done = self._readback_async(self._spec_enqueue(toks, pos, lim, t0, fmask))
             self._rb_active = self.active
             self._overlap_window()
             t2 = time.perf_counter_ns()
@@ -2236,6 +2403,9 @@ class DecodeScheduler:
                 with torch.inference_mode():
                     self._dck.zero_()
                     self._dcv.zero_()
+                    if self.feature_draft:
+                        self._feat.zero_()
+                        self._draft_start[:] = 0
         if self.prefix_enabled:
             self._prefix_index.clear()
 
@@ -2376,7 +2546,8 @@ def _draft_for(runtime, tpu_spec) -> tuple:
     a tree without a draft, a chain past the verify headroom, a draft that
     is not a decoder, and only one of the draft and the depth set. The
     draft takes the target's vocabulary and position table unless its URI
-    pins them, and stays float32, as the JAX package keeps it."""
+    pins them (a feature head also the target's hidden and FFN widths),
+    and stays float32, as the JAX package keeps it."""
     from seldon_core_tpu_torch.models.convert import params_to_torch
     from seldon_core_tpu_torch.models.zoo import _parse_zoo_uri, get_model
 
@@ -2406,7 +2577,12 @@ def _draft_for(runtime, tpu_spec) -> tuple:
         return None, 0, ""
     name, kwargs = _parse_zoo_uri(draft_uri) if draft_uri.startswith("zoo://") else (draft_uri, {})
     dims = decoder_dims(runtime.params)
-    spec = get_model(name, **{"vocab": dims["vocab"], "max_len": dims["max_len"], **kwargs})
+    kwargs = {"vocab": dims["vocab"], "max_len": dims["max_len"], **kwargs}
+    if kwargs.get("features"):
+        # a feature head's fuse consumes the target's hidden, and its FFN
+        # defaults to the target's width
+        kwargs = {"hidden": dims["hidden"], "ffn": int(runtime.params["layers"][0]["mlp_in"]["w"].shape[1]), **kwargs}
+    spec = get_model(name, **kwargs)
     if not (isinstance(spec.params, dict) and "tok_emb" in spec.params):
         log.warning("decode_draft_model=%r is not a decoder (models/decoder.py layout) — speculation disabled",
                     draft_uri)

@@ -8,7 +8,9 @@ in ``/*`` takes one more path segment), and chunked responses for the
 generative tier's per-token SSE route. No chunked request bodies (411
 without Content-Length), no TLS, no websockets.
 
-Besides the data plane it serves the telemetry read-outs: ``/metrics`` and
+Besides the data plane it serves ``/pause`` and ``/unpause`` (GET or
+POST; after ``/pause``, ``/ready`` answers 503 ``paused``) and the
+telemetry read-outs: ``/metrics`` and
 ``/prometheus``, and the trace, flight and profile routes that the JAX
 package serves on its operator API (``serving/wire.py``).
 """
@@ -278,6 +280,14 @@ def engine_routes(service, state: dict) -> dict:
     async def ping(req: WireRequest) -> WireResponse:
         return WireResponse.text("pong")
 
+    async def pause(req: WireRequest) -> WireResponse:
+        state["paused"] = True  # /ready answers 503 "paused": load balancers drain
+        return WireResponse.text("paused")
+
+    async def unpause(req: WireRequest) -> WireResponse:
+        state["paused"] = False
+        return WireResponse.text("unpaused")
+
     async def prometheus(req: WireRequest) -> WireResponse:
         return wire.metrics_response(service.metrics, req)
 
@@ -287,7 +297,7 @@ def engine_routes(service, state: dict) -> dict:
 
         return handler
 
-    return {
+    routes = {
         ("POST", "/api/v0.1/predictions"): predictions,
         ("POST", "/api/v0.1/predictions/stream"): predictions_stream,
         ("POST", "/api/v0.1/feedback"): feedback,
@@ -301,3 +311,7 @@ def engine_routes(service, state: dict) -> dict:
         ("GET", "/decode/health"): read_out(wire.decode_health),
         ("GET", "/decode/profile"): read_out(wire.decode_profile),
     }
+    for method in ("GET", "POST"):
+        routes[(method, "/pause")] = pause
+        routes[(method, "/unpause")] = unpause
+    return routes

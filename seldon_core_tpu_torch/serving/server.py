@@ -1,11 +1,13 @@
 """Predictor server: one process serves one predictor on one device.
 
-Port of ``seldon_core_tpu/serving/server.py``: parse and default the
-deployment, hold its ``tpu.mesh`` to the one device this process serves
-(a larger data axis shrinks, any other axis that needs more devices is
-refused, as the JAX package's mesh rule does), hold the ``tpu`` block to
-the JAX package's rules and refuse the knobs the port does not serve
-(``graph/defaulting.py::spec_problems``), build the executor (models on the device, pure
+Port of ``seldon_core_tpu/serving/server.py``: parse, default and
+validate the deployment (``graph/validation.py::validate_deployment``, the
+JAX package's rules and the port's refusal of the knobs it does not serve,
+on every path: ``load_predictor`` validates the whole deployment and
+``PredictorServer`` the predictor it is given, as the JAX ``_prepare``
+does), hold its ``tpu.mesh`` to the one device this process serves (a
+larger data axis shrinks, any other axis that needs more devices is
+refused, as the JAX package's mesh rule does), build the executor (models on the device, pure
 subtrees fused) and, for a single generative model with
 ``tpu.decode_slots``, its continuous-batching decode scheduler, warm every
 batch bucket, serve REST through the fast ingress, and on shutdown stop
@@ -33,8 +35,9 @@ import signal
 
 from seldon_core_tpu_torch.core.tensor import resolve_device
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_executor
-from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec, spec_problems
-from seldon_core_tpu_torch.graph.spec import PredictorSpec, SeldonDeployment
+from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec
+from seldon_core_tpu_torch.graph.spec import DeploymentSpec, PredictorSpec, SeldonDeployment
+from seldon_core_tpu_torch.graph.validation import validate_deployment
 from seldon_core_tpu_torch.metrics.registry import MetricsResilienceEvents, get_metrics, run_loop_lag_probe
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
@@ -58,10 +61,10 @@ class PredictorServer:
         self.deployment_name = deployment_name
         self.device = resolve_device(device)
         self.metrics = get_metrics(metrics_enabled)
-        mesh_from_spec(predictor.tpu.mesh, n_devices=1)  # one process serves one device
-        problems = spec_problems(predictor.name, predictor.tpu)
-        if problems:
-            raise ValueError("; ".join(problems))
+        # whichever way the spec came, it is held to the deployment rules,
+        # then to the one device this process serves
+        validate_predictor(predictor, deployment_name)
+        mesh_from_spec(predictor.tpu.mesh, n_devices=1)
         # cuda_graphs=False: every runtime and the decode scheduler run their
         # dispatch keys eagerly (the eager twins the card checks compare with)
         self.executor: GraphExecutor = build_executor(
@@ -142,9 +145,18 @@ class PredictorServer:
             await self._server.wait_closed()
 
 
+def validate_predictor(predictor: PredictorSpec, deployment_name: str = "") -> None:
+    """Hold one predictor to ``validate_deployment``, defaulted as the only
+    predictor of its deployment (the JAX server's ``_prepare``): raises
+    ValidationError listing every problem."""
+    dep = SeldonDeployment(spec=DeploymentSpec(name=deployment_name or "default", predictors=(predictor,)))
+    validate_deployment(default_deployment(dep, n_devices=1))
+
+
 def load_predictor(path: str, predictor: str | None = None) -> tuple[PredictorSpec, str]:
     with open(path) as f:
         dep = default_deployment(SeldonDeployment.from_dict(json.load(f)))
+    validate_deployment(dep)
     preds = {p.name: p for p in dep.spec.predictors}
     if not preds:
         raise ValueError(f"deployment {path} has no predictors")

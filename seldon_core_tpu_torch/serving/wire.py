@@ -1,7 +1,9 @@
 """Transport-neutral engine handlers (port of
 ``seldon_core_tpu/serving/wire.py``: ``engine_predictions``,
 ``engine_predictions_stream``, ``engine_feedback``, ``sse_frame``,
-``classify_binary_bytes`` and ``npy_wire_response``), plus the telemetry
+``classify_binary_bytes``, ``npy_wire_response``, and the reference's
+``json=`` form field of urlencoded and multipart bodies through
+``payload_obj`` and ``_multipart_field``), plus the telemetry
 read-outs: ``/metrics`` with the JAX REST app's format negotiation
 (``seldon_core_tpu/serving/http_util.py::prometheus_response``) and the
 trace, flight and profile routes of the JAX operator API
@@ -17,11 +19,13 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 from dataclasses import dataclass, field
 from urllib.parse import parse_qs
 
 from seldon_core_tpu_torch.core.codec_json import (
     feedback_from_dict,
+    message_from_dict,
     message_from_json,
     message_to_json,
     meta_to_dict,
@@ -33,6 +37,9 @@ from seldon_core_tpu_torch.core.message import SeldonMessage
 log = logging.getLogger(__name__)
 
 NPY_CONTENT_TYPES = ("application/x-npy", "application/octet-stream")
+# bodies that carry the request in a ``json=`` form field (the reference's
+# wire quirk, wrappers/python/microservice.py)
+FORM_CONTENT_TYPES = ("application/x-www-form-urlencoded", "multipart/form-data")
 # a Seldon-Meta header longer than this is cut to puid and routing
 META_HEADER_MAX = 6144
 
@@ -119,6 +126,50 @@ def classify_binary_bytes(ctype: str, raw: bytes) -> str:
     return "bin"
 
 
+def _multipart_field(req: WireRequest, field_name: str) -> str | None:
+    """One text field of a multipart/form-data body, or None."""
+    m = re.search(r'boundary="?([^";]+)"?', req.headers.get("content-type", ""))
+    if not m:
+        return None
+    delim = b"--" + m.group(1).encode()
+    needle = f'name="{field_name}"'.encode()
+    for part in req.body.split(delim):
+        head, sep, payload = part.partition(b"\r\n\r\n")
+        if sep and needle in head:
+            return payload.rstrip(b"\r\n").decode("utf-8", errors="replace")
+    return None
+
+
+def payload_obj(req: WireRequest, invalid_code: ErrorCode) -> dict:
+    """The request's JSON object: the body, or the ``json=`` field of an
+    urlencoded or multipart form. A form without the field, and a body or
+    field that is not JSON, raise ``invalid_code``."""
+    ctype = req.content_type
+    if ctype in FORM_CONTENT_TYPES:
+        if ctype.startswith("multipart"):
+            raw = _multipart_field(req, "json")
+        else:
+            raw = (parse_qs(req.body.decode("utf-8", errors="replace")).get("json") or [None])[0]
+        if raw is None:
+            raise APIException(invalid_code, "missing 'json' form field")
+        try:
+            return json.loads(raw)
+        except json.JSONDecodeError as e:
+            raise APIException(invalid_code, str(e)) from e
+    try:
+        return json.loads(req.body)
+    except Exception as e:  # noqa: BLE001 - any undecodable body is the same 400
+        raise APIException(invalid_code, str(e)) from e
+
+
+def _message(req: WireRequest) -> SeldonMessage:
+    """A JSON request's SeldonMessage: a form's ``json=`` field, else the
+    body."""
+    if req.content_type in FORM_CONTENT_TYPES:
+        return message_from_dict(payload_obj(req, ErrorCode.ENGINE_INVALID_JSON))
+    return message_from_json(req.body)
+
+
 def npy_wire_response(out: SeldonMessage) -> WireResponse:
     """Raw npy body, meta in the ``Seldon-Meta`` header; a meta longer than
     META_HEADER_MAX is cut to puid and routing with ``truncated``."""
@@ -141,20 +192,17 @@ async def engine_predictions(service, req: WireRequest) -> WireResponse:
             if kind == "npy" and is_npy(out.bin_data):
                 return npy_wire_response(out)
             return WireResponse(body=message_to_json(out).encode())
-        out = await service.predict(message_from_json(req.body), traceparent=tp)
+        out = await service.predict(_message(req), traceparent=tp)
         return WireResponse(body=message_to_json(out).encode())
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(e, "predict", service)
 
 
 async def engine_feedback(service, req: WireRequest) -> WireResponse:
-    """POST /api/v0.1/feedback: a JSON Feedback whose response meta carries
-    the routing to reward."""
+    """POST /api/v0.1/feedback: a JSON Feedback (the body or a form's
+    ``json=`` field) whose response meta carries the routing to reward."""
     try:
-        try:
-            obj = json.loads(req.body)
-        except (json.JSONDecodeError, UnicodeDecodeError) as e:
-            raise APIException(ErrorCode.ENGINE_INVALID_JSON, str(e)) from e
+        obj = payload_obj(req, ErrorCode.ENGINE_INVALID_JSON)
         out = await service.send_feedback(feedback_from_dict(obj), traceparent=req.headers.get("traceparent"))
         return WireResponse(body=message_to_json(out).encode())
     except Exception as e:  # noqa: BLE001 - wire boundary
@@ -173,7 +221,7 @@ async def engine_predictions_stream(service, req: WireRequest):
     after streaming began is sent as a terminal error event."""
     try:
         kind = classify_binary_bytes(req.content_type, req.body)
-        msg = SeldonMessage(bin_data=req.body) if kind != "json" else message_from_json(req.body)
+        msg = SeldonMessage(bin_data=req.body) if kind != "json" else _message(req)
         gen = service.predict_stream(msg, wire_npy=kind == "npy", traceparent=req.headers.get("traceparent"))
         first = await gen.__anext__()
     except StopAsyncIteration:

@@ -379,7 +379,7 @@ def test_serving_warns_and_disables(tpu, reason, caplog):
     assert reason in caplog.text
 
 
-@pytest.mark.parametrize("uri,needle", [("zoo://draft?features=1", "features=1"),
+@pytest.mark.parametrize("uri,needle", [("zoo://draft?features=1&distilled=/tmp/d.npz", "distilled"),
                                          ("zoo://draft?distilled=/tmp/d.npz", "distilled")])
 def test_zoo_refuses_unported_draft_kinds_by_name(uri, needle):
     with pytest.raises(ValueError, match=needle):
