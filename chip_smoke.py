@@ -156,6 +156,22 @@ Phases, each of which raises on failure (no phase catches its own):
    the host tier and a one-entry index, whose prompt promoted from host
    serves its device-warm row bit for bit, the head's window opened past
    the reused span.
+10. learning: copies of ``iris`` (float32, SGD, lr 0.5) and ``mnist``
+   (bf16, Adam, lr 1e-3) with ``finetune`` on, each taking 6 labelled
+   feedbacks of 8 rows through REST ``/api/v0.1/feedback`` while a client
+   predicts a probe without pause: every answer equal, bit for bit, to the
+   eager forward of one published parameter version (the last answer to
+   the final one's), the taught class's probability up, no dispatch key
+   after warmup, and a planted update that copies half the leaves failing
+   that check; ms per train step. Then ``distill(features=True)`` on the
+   card at GPT-2-small width (the target of ``gpt2_small_feature_draft``,
+   128-token prompts, 64 on-policy tokens, 1400 steps, about 60 s), its
+   report and seconds per step, and the deployment served with the
+   distilled head (``distilled=`` a checkpoint in a temporary directory)
+   beside speculation off under phase 6's traffic: greedy rows equal, the
+   accept rate, accepted per round, tokens per target dispatch and ms per
+   token. Neither kernel launches in this phase (counted): no gradient
+   passes through a kernel, whose wrapper refuses autograd.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -3716,6 +3732,297 @@ async def serve_phase9(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+# Learning: online fine-tuning through REST feedback, and the distillation
+# recipe at GPT-2-small width feeding a served feature head.
+
+# (deployment, optimizer, lr, finetune_batch, taught class): the JAX
+# test's sgd parameters on iris (float32), Adam on MNIST (bf16)
+FINETUNE_CASES = (("iris", "sgd", 0.5, 8, 2), ("mnist", "adam", 1e-3, 8, 3))
+FINETUNE_STEPS = 6  # steps per case, each one feedback of finetune_batch rows
+FINETUNE_PROBE_ROWS = 4
+FINETUNE_STEP_REPS = 10  # train steps timed after the checks
+# the target of gpt2_small_feature_draft.json (seed 0) and its head, trained
+# in float32 on 128-token prompts with 64 on-policy tokens
+DISTILL = dict(seed=0, vocab=50257, hidden=768, layers=12, ffn=3072, max_len=192, resid_scale=0.1, seq=128,
+               horizon=192, batch=16, lr=1e-3, teacher_temp=0.5, eval_prompts=16, features=True)
+# about 60 s of training: 43.2 ms a step at this width (H100 80GB HBM3,
+# 700 W; this phase, PERF.md)
+DISTILL_STEPS = 1400
+DISTILL_LOG_EVERY = 100
+
+
+def _finetune_copy(name: str, opt: str, lr: float, batch: int) -> Path:
+    """A copy of a deployment whose model unit fine-tunes from feedback."""
+    dep = json.loads((BASELINE_DIR / f"{name}.json").read_text())
+    graph = dep["spec"]["predictors"][0]["graph"]
+    graph["parameters"] += [
+        {"name": "finetune", "value": "true", "type": "BOOL"},
+        {"name": "finetune_batch", "value": str(batch), "type": "INT"},
+        {"name": "finetune_lr", "value": str(lr), "type": "FLOAT"},
+        {"name": "finetune_optimizer", "value": opt, "type": "STRING"},
+    ]
+    path = ROOT / "build" / f"{name}_finetune_{opt}.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(dep))
+    return path
+
+
+def _snapshot(tree):
+    """A host copy of a parameter tree (float32 numpy, never a view)."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.convert import params_to_numpy, tree_map
+
+    return tree_map(np.array, params_to_numpy(tree))
+
+
+def record_versions(runtime) -> list:
+    """Every tree ``runtime.load_params`` publishes, host copies, the
+    weights it started with first."""
+    versions = [_snapshot(runtime.params)]
+    publish = runtime.load_params
+
+    def record(tree):
+        publish(tree)
+        versions.append(_snapshot(tree))
+
+    runtime.load_params = record
+    return versions
+
+
+def plant_torn_update(runtime) -> None:
+    """The planted fault: an update that copies the first half of the
+    leaves and leaves the rest on the old weights."""
+    import torch
+
+    from seldon_core_tpu_torch.models.convert import tree_map
+
+    def torn(tree):
+        dst, src = [], []
+        tree_map(dst.append, runtime.params)
+        tree_map(src.append, tree)
+        with runtime.params_lock, torch.no_grad():
+            for d, s in list(zip(dst, src))[: len(dst) // 2]:
+                d.copy_(s)
+
+    runtime.load_params = torn
+
+
+def eager_rows(runtime, tree, x) -> "np.ndarray":
+    """The served forward on ``tree``, eagerly: a twin runtime on the same
+    device with the same buckets and dtype, no graph."""
+    from seldon_core_tpu_torch.models.base import ModelRuntime
+
+    twin = ModelRuntime(runtime.apply_fn, tree, device=runtime.device, buckets=runtime.buckets,
+                        dtype=runtime.dtype, class_names=runtime.class_names, cuda_graphs=False)
+    return twin.predict(x)
+
+
+def check_versions(label: str, served: list, forwards: list) -> list:
+    """Every served answer equals, bit for bit, the forward of one published
+    version; returns how many answers each version served."""
+    import numpy as np
+
+    counts = [0] * len(forwards)
+    for i, rows in enumerate(served):
+        hits = [v for v, f in enumerate(forwards) if np.array_equal(rows, f)]
+        if not hits:
+            raise AssertionError(f"{label}: answer {i} of {len(served)} equals the forward of no published version "
+                                 f"(a torn update?)")
+        counts[hits[-1]] += 1
+    return counts
+
+
+async def _rest_probs(port: int, x) -> "np.ndarray":
+    import numpy as np
+
+    status, out, _ = await _post(port, json.dumps({"data": {"ndarray": x.tolist()}}).encode())
+    if status != 200:
+        raise AssertionError(f"predict returned HTTP {status}: {out}")
+    return np.asarray(out["data"]["ndarray"], np.float32)
+
+
+async def finetune_run(card, name: str, opt: str, lr: float, batch: int, taught: int, torn: bool = False) -> dict:
+    """One fine-tuning deployment through REST: FINETUNE_STEPS labelled
+    feedbacks of ``batch`` rows of class ``taught`` while a client predicts
+    a probe without pause; every answer is the forward of one published
+    version, the last answer the eager forward on the final weights, the
+    taught class's probability rises and no dispatch key is added."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.online import OnlineFinetuneModelUnit
+
+    server, _, _ = await _start(_finetune_copy(name, opt, lr, batch))
+    label = f"{name} finetune {opt}{' (torn update planted)' if torn else ''}"
+    try:
+        unit = server.executor.root.unit
+        rt = unit.runtime
+        if not isinstance(unit, OnlineFinetuneModelUnit):
+            raise AssertionError(f"{label}: the unit is a {type(unit).__name__}, not an OnlineFinetuneModelUnit")
+        if torn:
+            plant_torn_update(rt)
+        versions = record_versions(rt)
+        features = rt.feature_shape[0]
+        rng = np.random.default_rng(11)
+        scale = 8.0 if name == "iris" else 1.0
+        probe = rng.uniform(0, scale, (FINETUNE_PROBE_ROWS, features)).round(3).astype(np.float32)
+        before = await _rest_probs(server.port, probe)
+        served, done = [before], asyncio.Event()
+
+        async def predicting():
+            while not done.is_set():
+                served.append(await _rest_probs(server.port, probe))
+
+        client = asyncio.ensure_future(predicting())
+        feedback_ms = []
+        try:
+            for _ in range(FINETUNE_STEPS):
+                x = np.concatenate([probe, rng.uniform(0, scale, (batch - len(probe), features))]).round(3)
+                body = {"request": {"data": {"ndarray": x.tolist()}}, "response": {}, "reward": 1.0,
+                        "truth": {"data": {"ndarray": [[taught]] * batch}}}
+                status, _, payload, ms = await _request(server.port, json.dumps(body).encode(),
+                                                        path="/api/v0.1/feedback")
+                if status != 200:
+                    raise AssertionError(f"{label}: feedback returned HTTP {status}: {payload[:300]!r}")
+                feedback_ms.append(ms)
+                await asyncio.sleep(0)
+        finally:
+            done.set()
+            await client
+        after = await _rest_probs(server.port, probe)
+        served.append(after)
+        if unit._steps_taken != FINETUNE_STEPS or len(versions) != FINETUNE_STEPS + 1:
+            raise AssertionError(f"{label}: {unit._steps_taken} steps and {len(versions) - 1} published updates "
+                                 f"for {FINETUNE_STEPS} full batches")
+        forwards = [eager_rows(rt, v, probe) for v in versions]
+        counts = check_versions(label, served, forwards)
+        captured = rt.predict(probe)
+        if not (np.array_equal(after, forwards[-1]) and np.array_equal(captured, forwards[-1])):
+            raise AssertionError(f"{label}: the served answer after the last step is not the eager forward on the "
+                                 f"final weights (max diff {float(np.abs(after - forwards[-1]).max())})")
+        rise = float(after[:, taught].mean() - before[:, taught].mean())
+        if rise <= 0:
+            raise AssertionError(f"{label}: the taught class's mean probability moved by {rise}")
+        if rt.recompiles_since_warmup() != 0:
+            raise AssertionError(f"{label}: {rt.recompiles_since_warmup()} dispatch keys after warmup")
+        # the step alone: FINETUNE_STEP_REPS more steps, each waited for
+        bx = np.concatenate([probe, rng.uniform(0, scale, (batch - len(probe), features))]).astype(np.float32)
+        by = np.full(batch, taught, np.int32)
+        step_ms = []
+        for _ in range(FINETUNE_STEP_REPS):
+            t0 = time.perf_counter()
+            unit._train(bx, by)
+            if rt.device.type == "cuda":
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        await server.stop()
+    row = dict(dtype=str(rt.dtype).removeprefix("torch."), optimizer=opt, lr=lr, batch=batch, steps=FINETUNE_STEPS,
+               answers=len(served), answers_per_version=counts, taught_class=taught,
+               taught_prob_before=float(before[:, taught].mean()), taught_prob_after=float(after[:, taught].mean()),
+               train_step_ms=sorted(step_ms)[len(step_ms) // 2], feedback_request_ms=feedback_ms,
+               keys_after_warmup=rt.recompiles_since_warmup())
+    print(f"[{card}] finetune {name}: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def serve_finetune(card) -> dict:
+    """Phase 10a: each case, then the torn update planted on iris, which
+    must fail the version check."""
+    out = {name: await finetune_run(card, name, opt, lr, batch, taught)
+           for name, opt, lr, batch, taught in FINETUNE_CASES}
+    name, opt, lr, batch, taught = FINETUNE_CASES[0]
+    try:
+        await finetune_run(card, name, opt, lr, batch, taught, torn=True)
+    except AssertionError as e:
+        print(f"[{card}] finetune planted torn update failed its check (as it must): {e}", flush=True)
+    else:
+        raise AssertionError("planted fault passed its check: a torn parameter update")
+    return out
+
+
+@contextlib.contextmanager
+def timed_steps(stamps: list):
+    """Record the host time at every call of a feature-distillation step:
+    consecutive stamps are one training iteration (the random rows' teacher
+    forward, the step, and the readback of its metrics, which waits for
+    the device)."""
+    from seldon_core_tpu_torch.training import steps
+
+    make = steps.make_feature_distill_step
+
+    def timed(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(state, batch):
+            stamps.append(time.perf_counter())
+            return step(state, batch)
+
+        return run
+
+    steps.make_feature_distill_step = timed
+    try:
+        yield
+    finally:
+        steps.make_feature_distill_step = make
+
+
+def distill_feature_head(card, out: str) -> dict:
+    """Phase 10b's training: ``distill(features=True)`` on the card at
+    GPT-2-small width, the checkpoint written to ``out``."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.training.distill_draft import distill
+
+    stamps: list = []
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_steps(stamps):
+        report = distill(device=DEVICE, out=out, steps=DISTILL_STEPS, log_every=DISTILL_LOG_EVERY, **DISTILL)
+    wall = time.perf_counter() - t0
+    gaps = np.diff(stamps)
+    # the pool's refreshes (every steps // 4) fall between two stamps
+    step_s = float(np.median(gaps)) if len(gaps) else float("nan")
+    row = dict(steps=DISTILL_STEPS, s_per_step=step_s, training_s=float(gaps.sum()) if len(gaps) else 0.0,
+               wall_s=wall, **{k: report[k] for k in ("accept_proxy_before", "accept_proxy_after", "final_kl",
+                                                        "final_top1", "final_feat_mse")},
+               history=report["history"])
+    print(f"[{card}] distill gpt2_small feature head: {json.dumps(row)}", flush=True)
+    for k in ("final_kl", "final_feat_mse"):
+        if not np.isfinite(report[k]):
+            raise AssertionError(f"distillation ended with {k} = {report[k]}")
+    if report["accept_proxy_after"] <= report["accept_proxy_before"]:
+        raise AssertionError(f"distillation did not lift the accept proxy: {report['accept_proxy_before']} -> "
+                             f"{report['accept_proxy_after']}")
+    return row
+
+
+async def serve_learning(card) -> dict:
+    """Phase 10: fine-tuning through feedback (10a), then the distilled
+    feature head served beside speculation off under phase 6's traffic
+    (10b)."""
+    import tempfile
+
+    out = {"finetune": await serve_finetune(card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "gpt2_small_head.npz")
+        out["distill"] = distill_feature_head(card, ck)
+        uri = f"zoo://draft?features=1&hidden={DISTILL['hidden']}&ffn={DISTILL['ffn']}&distilled={ck}"
+        path = _deployment_copy("gpt2_small_feature_draft", {"decode_draft_model": uri})
+        served = await serve_speculative(card, path)
+    if served["accept_rate"] <= 0:
+        raise AssertionError("the distilled feature head accepted no draft token")
+    out["served"] = {k: served[k] for k in ("accept_rate", "mean_accepted_per_round", "tokens_per_target_dispatch",
+                                            "plain_tokens_per_target_dispatch", "ms_per_token", "plain_ms_per_token",
+                                            "rounds", "spec_rounds", "plain_rounds", "tie_rows")}
+    print(f"[{card}] distilled head served: {json.dumps(out['served'])}", flush=True)
+    return out
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -3761,7 +4068,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 2
-    from seldon_core_tpu_torch.ops import kernel_build
+    from seldon_core_tpu_torch.ops import int8_matmul, kernel_build
     from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES, flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3896,6 +4203,18 @@ def main() -> int:
     print(f"[{card}] phase 9 flash_attention launches: {pipeline_launches}", flush=True)
     print(f"[{card}] phase 9 seconds: {time.perf_counter() - t9:.3f}", flush=True)
 
+    # 10. learning: fine-tuning from feedback, distillation, the head served
+    t10 = time.perf_counter()
+    before, int8_before = LAUNCHES.count, int8_matmul.LAUNCHES.count
+    learning = asyncio.run(serve_learning(card))
+    # no gradient passes through a kernel: the wrappers refuse autograd, and
+    # the learning paths' attention is dense (under FLASH_MIN_SEQ)
+    learning_launches = LAUNCHES.count - before
+    learning_int8 = int8_matmul.LAUNCHES.count - int8_before
+    print(f"[{card}] phase 10 flash_attention launches: {learning_launches} int8_matmul launches: {learning_int8}",
+          flush=True)
+    print(f"[{card}] phase 10 seconds: {time.perf_counter() - t10:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -3904,11 +4223,13 @@ def main() -> int:
         "route": "cuda",
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
-        "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches,
+        "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
+        + learning_launches,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
-                             "pipelined and tier deployments (phase 9)": pipeline_launches},
+                             "pipelined and tier deployments (phase 9)": pipeline_launches,
+                             "learning (phase 10)": learning_launches},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -3933,8 +4254,8 @@ def main() -> int:
         "source": "seldon_core_tpu_torch/csrc/int8_matmul.cu",
         # no Pallas kernel: XLA's fusion of quant.dequantize into the matmul
         "replaces": "seldon_core_tpu/models/base.py:137",
-        "launches": int8_launches,
-        "launches_by_path": {"bert_int8 (phase 7)": int8_launches},
+        "launches": int8_launches + learning_int8,
+        "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8},
         "launches_by_body": int8_by_body,
         "host_us": int8_host["wrapper_us"],
         **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
@@ -3946,6 +4267,7 @@ def main() -> int:
                                             for name, t in twins.items()}}), flush=True)
     print(json.dumps({"telemetry": {"card": card, **telemetry_out}}), flush=True)
     print(json.dumps({"pipeline_and_tiers": {"card": card, **phase9}}), flush=True)
+    print(json.dumps({"learning": {"card": card, **learning}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

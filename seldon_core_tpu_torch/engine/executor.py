@@ -546,6 +546,11 @@ class GraphExecutor:
             )
         await self._send_feedback(node.children[branch], feedback)
 
+    def units(self):
+        """All runtime units in the graph, pre-order (what a
+        ``StatePersister`` attaches)."""
+        return (n.unit for n in self.root.walk())
+
     def stateful_units(self) -> dict[str, Unit]:
         """Units with learnable state: those that override send_feedback."""
         return {

@@ -136,6 +136,9 @@ class ModelRuntime:
         if weight_quant == "int8":
             params = quantize_params(params)
         self.params = params_to_torch(params, self.device, dtype, layout)
+        # held while a forward is queued and while load_params queues its
+        # copies: a replay sees every leaf of one update or none
+        self.params_lock = threading.Lock()
         # one captured graph per (bucket, wire dtype) on the card
         self.cuda_graphs = cuda_graphs
         self.graphs = GraphCache(self.device, capture=cuda_graphs)
@@ -178,7 +181,29 @@ class ModelRuntime:
                                   [(padded.shape, torch.from_numpy(padded[:0]).dtype)])
         # the rows leave the static output before the next request may
         # overwrite it
-        return entry.run(padded, post=lambda y: y[:valid].clone())
+        with self.params_lock:
+            return entry.run(padded, post=lambda y: y[:valid].clone())
+
+    def load_params(self, tree: Any) -> None:
+        """Copy a tree of the resident parameters' structure and shapes into
+        them in place, as one update: the captured graphs read these tensors'
+        storage, so new weights must land in it (a new tree would leave every
+        replay on the old one). The copies are queued on the device's current
+        stream under ``params_lock``, the stream and lock a forward is
+        queued under, so each forward sees all of the update or none of it."""
+        dst, src = [], []
+
+        def pair(d, s):
+            dst.append(d)
+            src.append(s)
+
+        _zip_trees(pair, self.params, tree)
+        for d, s in zip(dst, src):
+            if tuple(d.shape) != tuple(s.shape):
+                raise ValueError(f"a parameter update of shape {tuple(s.shape)} for a leaf of shape {tuple(d.shape)}")
+        with self.params_lock, torch.no_grad():
+            for d, s in zip(dst, src):
+                d.copy_(s)
 
     def _uint8_wire(self) -> bool:
         """uint8 rides to the device raw only for image-shaped value models
@@ -246,6 +271,23 @@ class ModelRuntime:
             times.append(time.perf_counter() - t0)
         times.sort()
         return times[len(times) // 2] * 1e3
+
+
+def _zip_trees(fn: Callable[[torch.Tensor, Any], None], dst: Any, src: Any) -> None:
+    """``fn(dst_leaf, src_leaf)`` over two trees of one structure; raises
+    where they differ."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or dst.keys() != src.keys():
+            raise ValueError("a parameter update whose tree differs from the runtime's")
+        for k in dst:
+            _zip_trees(fn, dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(dst) != len(src):
+            raise ValueError("a parameter update whose tree differs from the runtime's")
+        for d, s in zip(dst, src):
+            _zip_trees(fn, d, s)
+    else:
+        fn(dst, src)
 
 
 class ModelUnit(Unit):

@@ -22,6 +22,7 @@ one architecture share function identity, which is what lets graph fusion
 from __future__ import annotations
 
 import inspect
+import logging
 import threading
 import urllib.parse
 from collections import OrderedDict
@@ -32,7 +33,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.graph.spec import ContainerSpec, PredictiveUnit, parameters_dict
+from seldon_core_tpu_torch.graph.spec import (
+    TYPE_METHODS,
+    ContainerSpec,
+    PredictiveUnit,
+    PredictiveUnitMethod,
+    bool_param,
+    parameters_dict,
+)
 from seldon_core_tpu_torch.models.base import ModelRuntime, ModelUnit
 from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
 from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
@@ -293,21 +301,30 @@ def build_draft(
     the target's (the scheduler injects it, and ``ffn``, from the target);
     ``layers`` and ``resid_scale`` do not apply. The head serves only
     through ``tpu.decode_draft_model``: its apply raises to say so.
-    ``distilled=`` (a distillation checkpoint, for either kind) is not
-    ported yet and is refused by name."""
-    if distilled:
-        raise ValueError(
-            f"zoo://draft?distilled={distilled} (a distilled draft checkpoint) is not part of the torch port yet"
-        )
+
+    ``distilled=/path/to.npz`` refills either kind's weights from a
+    distillation checkpoint (``training/distill_draft.py``, the JAX
+    package's ``.npz`` format, so each package reads the other's). The
+    load asserts every leaf's shape against this build's, so the URI still
+    carries the whole geometry and ``distilled`` only swaps the values."""
     if features:
         from seldon_core_tpu_torch.models.decoder import init_feature_draft
 
         params = init_feature_draft(seed, vocab=vocab, hidden=hidden, ffn=ffn, max_len=max_len)
+        if distilled:
+            from seldon_core_tpu_torch.training.distill_draft import load_draft_checkpoint
+
+            params = load_draft_checkpoint(str(distilled), params)
         return ModelSpec(_feature_draft_apply, params, (seq,), (), int_inputs="ids")
-    return build_tiny_gpt(
+    ms = build_tiny_gpt(
         seed=seed, vocab=vocab, hidden=hidden, layers=layers, ffn=ffn, max_len=max_len,
         seq=seq, max_new_tokens=max_new_tokens, resid_scale=resid_scale,
     )
+    if distilled:
+        from seldon_core_tpu_torch.training.distill_draft import load_draft_checkpoint
+
+        ms.params = load_draft_checkpoint(str(distilled), ms.params)
+    return ms
 
 
 def _feature_draft_apply(p, x):
@@ -386,21 +403,45 @@ def build_runtime_from_uri(
 def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
     """Factory for implementation=JAX_MODEL units: the model comes from a
     unit parameter ``model_uri`` (or the ``model`` shorthand), or from the
-    unit's container; every other unit parameter is a builder kwarg."""
+    unit's container; every other unit parameter but ``finetune`` is a
+    builder kwarg. ``finetune`` true (``bool_param``: the string "false" is
+    false) builds an ``OnlineFinetuneModelUnit`` (``models/online.py``), as
+    ``make_jax_model_unit`` does, and is refused with int8 weights before
+    any parameter is built."""
     params = parameters_dict(spec.parameters)
     uri = params.get("model_uri") or (
         f"zoo://{params['model']}" if "model" in params else None
     )
-    extra = {k: v for k, v in params.items() if k not in ("model", "model_uri")}
+    extra = {k: v for k, v in params.items() if k not in ("model", "model_uri", "finetune")}
     if uri is None:
         container = (context.get("containers") or {}).get(spec.name)
         uri = getattr(container, "model_uri", "") or None
     if uri is None:
         raise ValueError(f"JAX_MODEL unit '{spec.name}' needs a model_uri parameter")
+    finetune = bool_param(params.get("finetune", False))
+    if finetune and getattr(context.get("tpu"), "weight_quant", "") == "int8":
+        raise ValueError(
+            f"unit '{spec.name}': finetune=true cannot combine with "
+            "tpu.weight_quant='int8' — gradients over int8 weight payloads "
+            "are undefined and updates would corrupt the frozen per-channel "
+            "scales; serve the finetuning replica unquantized"
+        )
     runtime = build_runtime_from_uri(
         uri, context.get("tpu"), context.get("device"), extra_params=extra,
         cuda_graphs=context.get("cuda_graphs", True),
     )
+    if finetune:
+        from seldon_core_tpu_torch.models.online import OnlineFinetuneModelUnit
+
+        effective = tuple(spec.methods) or TYPE_METHODS.get(spec.type, ())
+        if PredictiveUnitMethod.SEND_FEEDBACK not in effective:
+            logging.getLogger(__name__).warning(
+                "finetune=true on unit '%s' but SEND_FEEDBACK is not in its "
+                "methods — feedback will never reach it (run the spec "
+                "through defaulting, or add the method explicitly)",
+                spec.name,
+            )
+        return OnlineFinetuneModelUnit(spec, runtime)
     return ModelUnit(spec, runtime)
 
 

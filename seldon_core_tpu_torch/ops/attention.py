@@ -26,8 +26,10 @@ PALLAS_MIN_SEQ = 4096
 def _sqrt_d(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """sqrt(d) as a 0-dim tensor on ``device``, uploaded once: a CUDA graph
     capture refuses an upload, and the eager run before each capture makes
-    this one."""
-    return torch.tensor(d**0.5, dtype=dtype, device=device)
+    this one. It is made outside inference mode, so a training step may
+    save it for its backward after a served forward made it."""
+    with torch.inference_mode(False):
+        return torch.tensor(d**0.5, dtype=dtype, device=device)
 
 
 def _scaled_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,21 @@ class LaunchCounter:
 LAUNCHES = LaunchCounter()
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd would have to pass through a kernel that has no
+    backward: grad mode on and an input that requires grad. The kernel's
+    output would carry no ``grad_fn`` and the gradient would stop there
+    without a word, so the call fails by name on every route, the CPU's
+    plain version included (the JAX package's Pallas kernel has no backward
+    either, and a gradient through it fails there too)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel (nor has the kernel it ports): it cannot run under autograd on "
+            "inputs that require grad; call it under torch.no_grad(), or train a model whose forward does "
+            "not reach it"
+        )
+
+
 def _kv_block(sk: int, requested: int) -> int:
     """Largest power-of-two block <= requested that divides sk (any
     128-multiple sk admits 128) — the JAX kernel's tiling rule, kept as the
@@ -198,13 +213,15 @@ def flash_attention(
 
     ``causal=True`` masks columns past each row (top-left aligned) and the
     kernel skips KV tiles wholly above the diagonal. Raises ``ValueError``
-    on KV lengths the JAX kernel rejects as ragged."""
+    on KV lengths the JAX kernel rejects as ragged, and ``RuntimeError``
+    under autograd (``refuse_autograd``): there is no backward."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"expected 4-D q and equal-shape k/v, got {q.shape}, {k.shape}, {v.shape}")
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch/heads/head_dim")
     if block_q <= 0:
         raise ValueError(f"block_q must be positive, got {block_q}")
+    refuse_autograd("flash_attention", q, k, v)
     _kv_block(k.shape[2], block_k)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)

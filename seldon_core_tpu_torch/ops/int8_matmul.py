@@ -41,7 +41,7 @@ from typing import Optional
 
 import torch
 
-from seldon_core_tpu_torch.ops.flash_attention import LaunchCounter
+from seldon_core_tpu_torch.ops.flash_attention import LaunchCounter, refuse_autograd
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BODY_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
@@ -262,7 +262,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., K] in float32 / bfloat16 / float16, q int8 [K, N], scale
     float32 with N elements (the quantized leaf's [1, N]), bias [N] or None
-    -> [..., N] in x's dtype, accumulated in float32."""
+    -> [..., N] in x's dtype, accumulated in float32. Raises under
+    autograd (``refuse_autograd``): the kernel has no backward."""
+    refuse_autograd("int8_matmul", x, scale, bias)
     if q.dim() != 2 or x.shape[-1] != q.shape[0] or scale.numel() != q.shape[1]:
         raise ValueError(
             f"int8_matmul: x {tuple(x.shape)}, q {tuple(q.shape)} and scale {tuple(scale.shape)} disagree"

@@ -5,8 +5,11 @@ the host KV tier (``serving/kv_host_tier.py``) spills to: the reference's
 key format (``persistence_{deployment}_{unit}``), one pickle file per key
 under a directory (``file://``), or Redis (``redis://``, with ``redis``
 imported only when such a store is made) with a bounded socket budget.
-``StatePersister``, the periodic snapshot of stateful units, comes with
-the units that have state.
+``StatePersister`` snapshots stateful units (those that define
+``__getstate__`` and ``__setstate__``: the online fine-tuning unit,
+``models/online.py``) when asked and restores them when attached, under
+the same keys; the reference's periodic snapshot thread comes with the
+serving wiring that would start it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import pickle
+from typing import Any, Iterable
 
 log = logging.getLogger(__name__)
 
@@ -95,3 +100,49 @@ def make_state_store(url: str):
             log.warning("redis not importable; state persistence disabled")
             return None
     raise ValueError(f"unknown state store url: {url}")
+
+
+class StatePersister:
+    """Snapshots stateful units (``persist_now``); restores them at attach
+    time. A unit is stateful when its own class hierarchy defines both
+    ``__getstate__`` and ``__setstate__``."""
+
+    def __init__(self, store, deployment_id: str):
+        self.store = store
+        self.deployment_id = deployment_id
+        self._units: dict[str, Any] = {}
+
+    @staticmethod
+    def is_stateful(unit: Any) -> bool:
+        # object defines a default __getstate__ (3.11+): only an explicit
+        # pair in the unit's own classes counts
+        mro = [c for c in type(unit).__mro__ if c is not object]
+        return any("__getstate__" in c.__dict__ for c in mro) and any("__setstate__" in c.__dict__ for c in mro)
+
+    def attach(self, units: Iterable[Any]) -> int:
+        """Register stateful units and restore any saved state; returns the
+        number restored."""
+        restored = 0
+        for unit in units:
+            if not self.is_stateful(unit):
+                continue
+            name = getattr(unit, "name", None) or type(unit).__name__
+            self._units[name] = unit
+            payload = self.store.load(state_key(self.deployment_id, name))
+            if payload is not None:
+                try:
+                    unit.__setstate__(pickle.loads(payload))
+                    restored += 1
+                except Exception as e:  # noqa: BLE001 - stale or corrupt state
+                    log.warning("could not restore state for %s: %s", name, e)
+        return restored
+
+    def persist_now(self) -> int:
+        saved = 0
+        for name, unit in self._units.items():
+            try:
+                self.store.save(state_key(self.deployment_id, name), pickle.dumps(unit.__getstate__()))
+                saved += 1
+            except Exception as e:  # noqa: BLE001
+                log.warning("could not persist state for %s: %s", name, e)
+        return saved

@@ -111,8 +111,7 @@ free pages, inside the overlap window when the admission is decided there.
 
 Not ported yet, and refused by name at deployment build
 (``graph/validation.py::decode_problems``): tensor-parallel decode and the
-replicated fleet (with it the sibling pull between replicas); distilled
-drafts (``zoo://draft?distilled=``) are refused by the zoo. The queue
+replicated fleet (with it the sibling pull between replicas). The queue
 timeout is honoured, and a request's deadline budget is
 enforced at the ingress and judged here for goodput.
 """

@@ -18,10 +18,10 @@ The load-bearing invariants:
 - a chain config promotes to the branching-1 tree under the JAX package's
   program names and its verify-width cap.
 
-Two of the JAX file's tests wait for parts of the port that do not exist
-yet: the tensor-parallel agreement test (tensor-parallel decode, ROADMAP
-item 12) and the distillation CLI test (the distillation recipe, ROADMAP
-item 3.5; until then ``zoo://draft?distilled=`` is refused by name).
+One of the JAX file's tests waits for a part of the port that does not
+exist yet: the tensor-parallel agreement test (tensor-parallel decode,
+ROADMAP item 12). The distillation CLI test's twin is in
+tests/test_torch_training.py.
 """
 
 import asyncio
@@ -413,10 +413,11 @@ async def test_serving_feature_draft_wiring():
         await server.stop()
 
 
-def test_zoo_feature_draft_builds_and_refuses_standalone():
+def test_zoo_feature_draft_builds_and_refuses_standalone(tmp_path):
     """The zoo's head is the JAX zoo's, its apply refuses to serve
-    standalone with the JAX message, and a distilled head stays refused by
-    name (the distillation recipe is not ported yet)."""
+    standalone with the JAX message, and a distilled head loads as the JAX
+    zoo loads it: a missing checkpoint raises the same error type in both,
+    a checkpoint the JAX package wrote gives both the same weights."""
     from seldon_core_tpu.models.zoo import get_model as jax_get_model
 
     ms = get_model("draft", features=1, vocab=VOCAB, hidden=64, ffn=128, max_len=64)
@@ -428,8 +429,20 @@ def test_zoo_feature_draft_builds_and_refuses_standalone():
     with pytest.raises(ValueError) as je:
         jms.apply_fn(jms.params, np.zeros((1, SEQ), np.int32))
     assert str(e.value) == str(je.value) and "decode_draft_model" in str(e.value)
-    with pytest.raises(ValueError, match="distilled"):
-        get_model("draft", features=1, vocab=VOCAB, hidden=64, ffn=128, max_len=64, distilled="/tmp/d.npz")
+    from seldon_core_tpu.training.distill_draft import save_draft_checkpoint as jax_save
+
+    geom = dict(features=1, vocab=VOCAB, hidden=64, ffn=128, max_len=64)
+    missing = str(tmp_path / "missing.npz")
+    with pytest.raises(FileNotFoundError):
+        jax_get_model("draft", **geom, distilled=missing)
+    with pytest.raises(FileNotFoundError):
+        get_model("draft", **geom, distilled=missing)
+    ck = str(tmp_path / "head.npz")
+    jax_save(ck, jax_get_model("draft", seed=9, **geom).params)
+    loaded, jloaded = get_model("draft", **geom, distilled=ck), jax_get_model("draft", **geom, distilled=ck)
+    assert td.is_feature_draft(loaded.params)
+    np.testing.assert_array_equal(loaded.params["fc"]["w"], np.asarray(jloaded.params["fc"]["w"]))
+    assert not np.array_equal(loaded.params["fc"]["w"], ms.params["fc"]["w"])  # the seed-0 build's
 
 
 @pytest.mark.parametrize("name", ["tiny_gpt_feature_draft", "gpt2_small_feature_draft"])

@@ -379,11 +379,36 @@ def test_serving_warns_and_disables(tpu, reason, caplog):
     assert reason in caplog.text
 
 
-@pytest.mark.parametrize("uri,needle", [("zoo://draft?features=1&distilled=/tmp/d.npz", "distilled"),
-                                         ("zoo://draft?distilled=/tmp/d.npz", "distilled")])
-def test_zoo_refuses_unported_draft_kinds_by_name(uri, needle):
-    with pytest.raises(ValueError, match=needle):
-        PredictorServer(_predictor(decode_draft_model=uri, decode_spec_k=2), device="cpu")
+@pytest.mark.parametrize("query,features", [("features=1&", True), ("", False)], ids=["feature_head", "truncated"])
+def test_zoo_refuses_unported_draft_kinds_by_name(query, features, tmp_path):
+    """``zoo://draft?distilled=`` as the JAX package serves it, for both
+    kinds: a missing checkpoint fails the server's build with the JAX
+    zoo's error type, and a checkpoint the JAX package wrote (from another
+    seed, at the geometry the scheduler injects from the target) serves
+    with exactly its weights."""
+    from seldon_core_tpu.models.zoo import get_model as jax_get_model
+    from seldon_core_tpu.training.distill_draft import flatten_params as jax_flatten
+    from seldon_core_tpu.training.distill_draft import save_draft_checkpoint as jax_save
+    from seldon_core_tpu_torch.training.distill_draft import flatten_params
+
+    geom = {"vocab": VOCAB, "max_len": 128, **({"hidden": 128, "ffn": 256} if features else {})}
+    missing = str(tmp_path / "missing.npz")
+    with pytest.raises(FileNotFoundError):
+        jax_get_model("draft", **geom, **({"features": 1} if features else {}), distilled=missing)
+    with pytest.raises(FileNotFoundError):
+        PredictorServer(_predictor(decode_draft_model=f"zoo://draft?{query}distilled={missing}", decode_spec_k=2),
+                        device="cpu")
+    ck = str(tmp_path / "d.npz")
+    jax_save(ck, jax_get_model("draft", seed=5, **geom, **({"features": 1} if features else {})).params)
+    server = PredictorServer(_predictor(decode_draft_model=f"zoo://draft?{query}distilled={ck}", decode_spec_k=2),
+                             device="cpu")
+    sched = server.decode_scheduler
+    assert sched.spec_enabled and td.is_feature_draft(sched.draft_params) == features
+    want = jax_flatten(jax_get_model("draft", **geom, **({"features": 1} if features else {}), distilled=ck).params)
+    got = flatten_params(sched.draft_params)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
 
 
 async def test_speculative_serving_through_the_server():
