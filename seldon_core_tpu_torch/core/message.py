@@ -129,6 +129,14 @@ class SeldonMessage:
             data=base.with_array(array, names), meta=self.meta, status=self.status
         )
 
+    def with_bin_data(self, raw: bytes) -> "SeldonMessage":
+        """Replace the payload with bytes (clears the other oneof arms)."""
+        return SeldonMessage(bin_data=bytes(raw), meta=self.meta, status=self.status)
+
+    def with_str_data(self, text: str) -> "SeldonMessage":
+        """Replace the payload with a string (clears the other oneof arms)."""
+        return SeldonMessage(str_data=text, meta=self.meta, status=self.status)
+
     def with_meta(self, meta: Meta) -> "SeldonMessage":
         if meta is self.meta:
             return self

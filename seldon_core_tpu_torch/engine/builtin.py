@@ -4,11 +4,13 @@ Port of ``seldon_core_tpu/engine/builtin.py``: SIMPLE_MODEL (constant
 output test stub), SIMPLE_ROUTER (always child 0), RANDOM_ABTEST (seeded
 A/B split), EPSILON_GREEDY (bandit router fed by send_feedback),
 MEAN_TRANSFORMER (subtracts stored means), AVERAGE_COMBINER (element-wise
-mean ensemble) and FAULT_INJECTOR (seeded failures and latency), plus
-JAX_MODEL, the deployment JSON's name for an
-in-process zoo model. Routing draws from Python's ``random.Random`` exactly
-as the JAX package does, so the same requests give the same
-``meta.routing`` in both packages.
+mean ensemble), FAULT_INJECTOR (seeded failures and latency), SHADOW
+(serve child 0, mirror the rest), OUTLIER_DETECTOR (max |z| score tags)
+and PYTHON_CLASS (a user's class loaded in-process), plus JAX_MODEL, the
+deployment JSON's name for an in-process zoo model. PREFIX_AFFINITY is
+refused by name: it is not part of the port yet. Routing draws from
+Python's ``random.Random`` exactly as the JAX package does, so the same
+requests give the same ``meta.routing`` in both packages.
 
 A payload here is host numpy or a torch tensor on the card: in the
 single-request walk a model's output reaches its parent still on the
@@ -18,6 +20,7 @@ and on the host for numpy, so nothing is read back mid-graph.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 import threading
 from typing import Sequence
@@ -27,8 +30,9 @@ import torch
 
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
 from seldon_core_tpu_torch.core.message import Feedback, SeldonMessage
-from seldon_core_tpu_torch.engine.units import Unit, UnitRegistry
-from seldon_core_tpu_torch.graph.spec import PredictiveUnit, PredictiveUnitImplementation
+from seldon_core_tpu_torch.core.tensor import to_host
+from seldon_core_tpu_torch.engine.units import PythonClassUnit, Unit, UnitRegistry
+from seldon_core_tpu_torch.graph.spec import PredictiveUnit, PredictiveUnitImplementation, parameters_dict
 
 
 def _seeded_rng(seed) -> random.Random:
@@ -157,6 +161,32 @@ class RandomABTestUnit(Unit):
         return 0 if draw < self.ratio_a else 1
 
 
+class ShadowRouterUnit(Unit):
+    """Traffic shadowing: child 0 is the primary and serves the response;
+    every other child is a shadow that gets a copy of the same input,
+    detached. Its latency and failures never reach the caller, but its unit
+    timers tick and its answers are compared with the primary's
+    (``seldon_tpu_shadow_comparisons``), so a candidate model is validated
+    under production traffic before an A/B test sends it live requests.
+    Routing records branch 0, so feedback replays down the primary only.
+    The executor does the mirroring (``GraphExecutor._spawn_shadow``),
+    keyed off ``shadow_fanout``."""
+
+    shadow_fanout = True
+
+    def __init__(self, spec: PredictiveUnit):
+        super().__init__(spec)
+        if len(spec.children) < 2:
+            raise APIException(
+                ErrorCode.ENGINE_INVALID_ROUTING,
+                f"SHADOW '{self.name}' needs >= 2 children "
+                f"(primary + shadows), has {len(spec.children)}",
+            )
+
+    async def route(self, msg: SeldonMessage) -> int:
+        return 0  # the primary; shadows are mirrored by the executor
+
+
 class EpsilonGreedyRouter(Unit):
     """Multi-armed bandit router. Parameters: ``epsilon`` (exploration rate,
     default 0.1), ``seed``. Per-arm pull counts and summed rewards live on
@@ -220,6 +250,43 @@ class FaultInjectorUnit(Unit):
         return msg
 
 
+class ZScoreOutlierUnit(Unit):
+    """Built-in outlier detector: scores each request by the max absolute
+    z-score of its features against stored training stats and writes
+    ``meta.tags.outlierScore`` (and ``outlier`` when ``threshold`` is set),
+    passing the data through unchanged. Custom scorers are user classes
+    with ``score()`` (``engine/units.py::OutlierDetectorUnit``).
+
+    Parameters: ``means`` / ``stds`` (comma-separated floats, a single
+    value broadcasts; default 0 / 1), ``threshold`` (optional cutoff)."""
+
+    def __init__(self, spec: PredictiveUnit):
+        super().__init__(spec)
+        label = f"OUTLIER_DETECTOR '{spec.name}'"
+        self.means = _parse_float_vec(label, "means", self.params.get("means", "0"))
+        self.stds = _parse_float_vec(label, "stds", self.params.get("stds", "1"))
+        if np.any(self.stds <= 0):
+            raise ValueError(f"OUTLIER_DETECTOR '{spec.name}': stds must be positive")
+        self.threshold = float(self.params["threshold"]) if "threshold" in self.params else None
+
+    async def transform_input(self, msg: SeldonMessage) -> SeldonMessage:
+        if msg.array is None:
+            raise APIException(ErrorCode.ENGINE_INVALID_RESPONSE, f"unit '{self.name}' needs tensor data")
+        x = to_host(msg.array).astype(np.float32, copy=False)
+        for name, vec in (("means", self.means), ("stds", self.stds)):
+            if vec.size not in (1, x.shape[-1]):
+                raise APIException(
+                    ErrorCode.ENGINE_MICROSERVICE_ERROR,
+                    f"unit '{self.name}': {name} has {vec.size} values "
+                    f"but input has {x.shape[-1]} features",
+                )
+        score = float(np.max(np.abs((x - self.means) / self.stds)))
+        tags = {**msg.meta.tags, "outlierScore": score}
+        if self.threshold is not None:
+            tags["outlier"] = score > self.threshold
+        return msg.with_meta(dataclasses.replace(msg.meta, tags=tags))
+
+
 class AverageCombinerUnit(Unit):
     """Element-wise mean ensemble; children of different shapes are an
     error. Tensors are averaged on their device, numpy on the host."""
@@ -264,6 +331,39 @@ def _make_model_unit(spec: PredictiveUnit, context: dict) -> Unit:
     return make_model_unit(spec, context)
 
 
+def make_python_class_unit(spec: PredictiveUnit, context: dict) -> PythonClassUnit:
+    """PYTHON_CLASS: load a duck-typed user class in-process.
+
+    Parameters: ``module`` (module name == class name, the reference
+    wrappers/python convention), optional ``model_dir`` (the directory the
+    module is imported from, isolated per directory), and every remaining
+    parameter is passed to the class constructor. The CR names code that
+    runs in the serving process: ``context["allow_python_class"]`` False
+    refuses it (a direct ``build_executor`` caller is already code, so the
+    default allows it)."""
+    from seldon_core_tpu_torch.serving.microservice import load_user_object
+
+    if not context.get("allow_python_class", True):
+        raise APIException(
+            ErrorCode.ENGINE_MICROSERVICE_ERROR,
+            f"PYTHON_CLASS unit '{spec.name}' refused: this platform was not "
+            "started with allow_python_class (start with "
+            "--allow-python-class, set SELDON_TPU_ALLOW_PYTHON_CLASS=1, or "
+            "DeploymentManager(allow_python_class=True) to let CRs load "
+            "local code in-process)",
+        )
+    params = parameters_dict(spec.parameters)
+    try:
+        module = params.pop("module")
+    except KeyError:
+        raise APIException(
+            ErrorCode.ENGINE_MICROSERVICE_ERROR,
+            f"PYTHON_CLASS unit '{spec.name}' needs a 'module' parameter",
+        ) from None
+    model_dir = params.pop("model_dir", None)
+    return PythonClassUnit(spec, load_user_object(str(module), model_dir, params))
+
+
 def _not_ported(spec: PredictiveUnit, context: dict) -> Unit:
     raise ValueError(
         f"unit '{spec.name}': implementation {spec.implementation.value} is not "
@@ -271,12 +371,7 @@ def _not_ported(spec: PredictiveUnit, context: dict) -> Unit:
     )
 
 
-_NOT_PORTED = (
-    PredictiveUnitImplementation.OUTLIER_DETECTOR,
-    PredictiveUnitImplementation.PYTHON_CLASS,
-    PredictiveUnitImplementation.SHADOW,
-    PredictiveUnitImplementation.PREFIX_AFFINITY,
-)
+_NOT_PORTED = (PredictiveUnitImplementation.PREFIX_AFFINITY,)
 
 
 def register_builtins(registry: UnitRegistry) -> None:
@@ -288,9 +383,12 @@ def register_builtins(registry: UnitRegistry) -> None:
         PredictiveUnitImplementation.EPSILON_GREEDY: EpsilonGreedyRouter,
         PredictiveUnitImplementation.MEAN_TRANSFORMER: MeanTransformerUnit,
         PredictiveUnitImplementation.FAULT_INJECTOR: FaultInjectorUnit,
+        PredictiveUnitImplementation.OUTLIER_DETECTOR: ZScoreOutlierUnit,
+        PredictiveUnitImplementation.SHADOW: ShadowRouterUnit,
     }
     for impl, cls in simple.items():
         registry.register(impl, lambda spec, ctx, _cls=cls: _cls(spec))
+    registry.register(PredictiveUnitImplementation.PYTHON_CLASS, make_python_class_unit)
     for impl in _NOT_PORTED:
         registry.register(impl, _not_ported)
     registry.register(PredictiveUnitImplementation.JAX_MODEL, _make_model_unit)

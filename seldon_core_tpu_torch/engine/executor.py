@@ -33,12 +33,21 @@ the launch's. Retries, breaker fast-fails and transitions, deadline
 exhaustion and degradation are span events as well as ``ResilienceEvents``.
 A request tagged ``trace`` outside a served trace gets its unit spans back
 in ``meta.tags["trace"]`` (``telemetry.local_trace(s)``).
+
+A SHADOW router (``shadow_fanout``) serves its routed child and mirrors a
+copy of the input to every other child as a detached task: no deadline,
+no trace, failures logged and never raised. When a mirror finishes, its
+answer is compared with the primary's (``_outputs_agree``) and the verdict
+goes to the ``shadow_compare_hook``; ``drain_shadows`` awaits the mirrors
+still in flight.
 """
 
 from __future__ import annotations
 
 import asyncio
+import copy
 import dataclasses
+import logging
 import time
 from typing import Any, Callable, Sequence
 
@@ -50,6 +59,7 @@ from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.core.tensor import to_host
 from seldon_core_tpu_torch import telemetry
 from seldon_core_tpu_torch.engine.resilience import (
+    DEADLINE,
     HALF_OPEN,
     NULL_EVENTS,
     CircuitBreaker,
@@ -73,6 +83,8 @@ from seldon_core_tpu_torch.graph.spec import (
 # degradation marker written into meta.tags when a request was served by a
 # fallback branch or a partial quorum instead of its nominal path
 DEGRADED_TAG = "degraded"
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -125,11 +137,16 @@ class GraphExecutor:
         resilience_events: ResilienceEvents | None = None,
         unit_call_hook: Callable[[str, str, float], None] | None = None,
         feedback_metrics_hook: Callable[[str, float], None] | None = None,
+        shadow_compare_hook: Callable[[str, bool], None] | None = None,
     ):
         self.root = root
         self._events = resilience_events or NULL_EVENTS
         self._unit_hook = unit_call_hook
         self._feedback_hook = feedback_metrics_hook
+        # (shadow unit, agree) per mirrored prediction
+        self._shadow_hook = shadow_compare_hook
+        # SHADOW mirror walks in flight, kept so drain_shadows can await them
+        self._shadow_tasks: set[asyncio.Task] = set()
         self._retries: dict[str, RetryState] = {}
         self._breakers: dict[str, CircuitBreaker] = {}
         for n in root.walk():
@@ -405,16 +422,26 @@ class GraphExecutor:
         if not node.children:
             return msgs
 
+        shadow = getattr(unit, "shadow_fanout", False)
         if _has_method(node, PredictiveUnitMethod.ROUTE):
             branches = []
             for m in msgs:
                 b = await self._call(node, "route", unit.route, m)
+                if shadow and b == ROUTE_ALL:
+                    b = 0  # a shadow router's primary, as in the single walk
                 if b != ROUTE_ALL and not (0 <= b < len(node.children)):
                     raise APIException(
                         ErrorCode.ENGINE_INVALID_ROUTING,
                         f"unit '{node.name}' routed to {b} with {len(node.children)} children",
                     )
                 branches.append(b)
+            # mirror every message to each child that is not its primary
+            mirrors = []
+            if shadow:
+                for i, child in enumerate(node.children):
+                    idxs = [j for j, b in enumerate(branches) if b != i]
+                    if idxs:
+                        mirrors.append((child.name, self._spawn_shadow(child, [msgs[j] for j in idxs]), idxs))
             msgs = [
                 m.with_meta(m.meta.merged_with(Meta(routing={node.name: b})))
                 for m, b in zip(msgs, branches)
@@ -435,6 +462,8 @@ class GraphExecutor:
             ):
                 for i, o in zip(idxs, outs):
                     results[i] = o
+            for name, task, idxs in mirrors:  # the primaries exist now
+                self._attach_compare(name, task, [results[j] for j in idxs])
             out_msgs = results
         else:
             out_msgs = await self._fanout_many(node, msgs)
@@ -490,7 +519,19 @@ class GraphExecutor:
                 )
             msg = msg.with_meta(msg.meta.merged_with(Meta(routing={node.name: branch})))
         degraded = False
-        if branch != ROUTE_ALL:
+        if getattr(unit, "shadow_fanout", False):
+            # serve the routed (primary) child; mirror a copy to every other
+            # child, detached: a slow shadow must not hold the response
+            primary = 0 if branch == ROUTE_ALL else branch
+            mirrors = [
+                (child.name, self._spawn_shadow(child, msg))
+                for i, child in enumerate(node.children)
+                if i != primary
+            ]
+            child_outputs = [await self._get_output(node.children[primary], msg)]
+            for name, task in mirrors:
+                self._attach_compare(name, task, child_outputs[0])
+        elif branch != ROUTE_ALL:
             child_outputs = [await self._routed_walk(node, branch, msg)]
         elif len(node.children) == 1:
             child_outputs = [await self._get_output(node.children[0], msg)]
@@ -518,6 +559,105 @@ class GraphExecutor:
             out = await self._call(node, "transform_output", unit.transform_output, msg)
             msg = out.with_meta(msg.meta.merged_with(out.meta))
         return msg
+
+    # -------------------------------------------------------------- shadow
+    @staticmethod
+    def _shadow_copy(msg: SeldonMessage) -> SeldonMessage:
+        """A copy of the payload for a mirror walk: a candidate that writes
+        into its input must not corrupt what the primary serves from."""
+        if msg.array is not None:
+            arr = msg.array
+            arr = arr.clone() if isinstance(arr, torch.Tensor) else np.array(arr)
+            return msg.with_array(arr, msg.names)
+        if msg.json_data is not None:
+            return dataclasses.replace(msg, json_data=copy.deepcopy(msg.json_data))
+        return msg  # bytes and str are immutable
+
+    def _spawn_shadow(self, child: Node, payload) -> asyncio.Task:
+        """Detached mirror walk of ``child`` (a message, or a list of them
+        for the batched walk). It runs with no deadline (a slow candidate
+        would read as a disagreement, not as latency) and outside the
+        request's trace (which has shipped before it ends); a failure is
+        logged and the task returns None."""
+        if isinstance(payload, list):
+            payload = [self._shadow_copy(m) for m in payload]
+        else:
+            payload = self._shadow_copy(payload)
+
+        async def _run():
+            DEADLINE.set(None)
+            telemetry.clear()
+            try:
+                if isinstance(payload, list):
+                    return await self._get_output_many(child, payload)
+                return await self._get_output(child, payload)
+            except Exception as e:  # noqa: BLE001 - a shadow's failure is data, not an error
+                log.warning("shadow child '%s' failed: %s", child.name, e)
+                return None
+
+        task = asyncio.ensure_future(_run())
+        self._shadow_tasks.add(task)
+        task.add_done_callback(self._shadow_tasks.discard)
+        return task
+
+    @staticmethod
+    def _outputs_agree(primary: SeldonMessage | None, shadow: SeldonMessage | None) -> bool:
+        """Did the candidate make the primary's call? Classifier outputs
+        compare by rowwise argmax, other tensors by allclose (rtol 1e-3,
+        atol 1e-5), bytes, str and JSON by equality. A failed shadow (None)
+        or another payload kind disagrees."""
+        if primary is None or shadow is None:
+            return False
+        if primary.array is not None and shadow.array is not None:
+            x, y = to_host(primary.array), to_host(shadow.array)
+            if x.shape != y.shape:
+                return False
+            if x.ndim >= 2 and x.shape[-1] > 1:
+                return bool(np.array_equal(np.argmax(x, -1), np.argmax(y, -1)))
+            return bool(np.allclose(x, y, rtol=1e-3, atol=1e-5))
+        if primary.array is not None or shadow.array is not None:
+            return False
+        return bool(
+            primary.bin_data == shadow.bin_data
+            and primary.str_data == shadow.str_data
+            and primary.json_data == shadow.json_data
+        )
+
+    def _attach_compare(self, shadow_name: str, task: asyncio.Task, primary_out) -> None:
+        """When the mirror finishes, compare it with the primary's (already
+        served) output and report the verdict. ``primary_out``: a message,
+        or in the batched walk a list aligned with the mirrored messages."""
+        if self._shadow_hook is None:
+            return
+
+        def _done(t: asyncio.Task) -> None:
+            if t.cancelled():
+                return
+            out = t.result()
+            try:
+                if isinstance(primary_out, list):
+                    shadows = out if isinstance(out, list) else [None] * len(primary_out)
+                    for p, s in zip(primary_out, shadows):
+                        self._shadow_hook(shadow_name, self._outputs_agree(p, s))
+                else:
+                    self._shadow_hook(shadow_name, self._outputs_agree(primary_out, out))
+            except Exception as e:  # noqa: BLE001 - metrics must not break serving
+                log.warning("shadow comparison for '%s' failed: %s", shadow_name, e)
+
+        task.add_done_callback(_done)
+
+    async def drain_shadows(self) -> None:
+        """Await the mirror walks in flight (tests, shutdown). The set is
+        drained explicitly: a finished task's discard callback may still be
+        queued, and a gather of done tasks does not yield."""
+        while self._shadow_tasks:
+            pending = list(self._shadow_tasks)
+            await asyncio.gather(*pending, return_exceptions=True)
+            self._shadow_tasks.difference_update(pending)
+            await asyncio.sleep(0)  # let queued done-callbacks run
+        # a comparison attached to an already finished mirror is still
+        # queued: one more yield runs it
+        await asyncio.sleep(0)
 
     # ------------------------------------------------------------ feedback
     async def send_feedback(self, feedback: Feedback) -> None:
@@ -596,6 +736,7 @@ def build_executor(
     resilience_events: ResilienceEvents | None = None,
     unit_call_hook: Callable[[str, str, float], None] | None = None,
     feedback_metrics_hook: Callable[[str, float], None] | None = None,
+    shadow_compare_hook: Callable[[str, bool], None] | None = None,
 ) -> GraphExecutor:
     """``context['device']`` names where models run (the card by default);
     ``context['cuda_graphs']`` false builds every runtime as its eager twin.
@@ -605,7 +746,9 @@ def build_executor(
     receives every retry, breaker transition, deadline exhaustion and
     degradation (default: a sink that counts nothing); ``unit_call_hook``
     every unit-call attempt's (unit, method, seconds) and
-    ``feedback_metrics_hook`` every (unit, reward) feedback reaches."""
+    ``feedback_metrics_hook`` every (unit, reward) feedback reaches;
+    ``shadow_compare_hook`` every (shadow unit, agree) a SHADOW router's
+    mirror yields."""
     registry = registry or default_registry()
     context = dict(context or {})
     context.setdefault("containers", {c.name: c for c in predictor.componentSpec.containers})
@@ -621,4 +764,5 @@ def build_executor(
         resilience_events=resilience_events,
         unit_call_hook=unit_call_hook,
         feedback_metrics_hook=feedback_metrics_hook,
+        shadow_compare_hook=shadow_compare_hook,
     )

@@ -281,6 +281,7 @@ _TPU_FIELDS = (
     "decode_spec_accept_floor",
     "decode_slo_ttft_ms",
     "decode_slo_itl_ms",
+    "decode_npy_bindata",
 )
 
 
@@ -340,6 +341,9 @@ class TpuSpec:
     # ring and marks the row's meta.tags.slo; scheduling is unchanged
     decode_slo_ttft_ms: float = 0.0
     decode_slo_itl_ms: float = 0.0
+    # False: binData is never sniffed for the npy magic (an explicit
+    # application/x-npy body is still decoded); one value per deployment
+    decode_npy_bindata: bool = True
     extra: Mapping[str, Any] = field(default_factory=dict)
 
     @staticmethod
@@ -376,6 +380,7 @@ class TpuSpec:
             decode_spec_accept_floor=float(obj.get("decode_spec_accept_floor", 0.0)),
             decode_slo_ttft_ms=float(obj.get("decode_slo_ttft_ms", 0.0)),
             decode_slo_itl_ms=float(obj.get("decode_slo_itl_ms", 0.0)),
+            decode_npy_bindata=bool_param(obj.get("decode_npy_bindata", True)),
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 

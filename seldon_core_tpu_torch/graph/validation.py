@@ -50,7 +50,6 @@ UNPORTED_DECODE_KNOBS = {
     "decode_health_poll_ms": 0.0,
     "decode_health_miss_threshold": 3,
     "decode_drain_timeout_ms": 5000.0,
-    "decode_npy_bindata": True,
 }
 
 
@@ -104,7 +103,7 @@ def validate_deployment(dep: SeldonDeployment) -> None:
 
     # wire semantics are deployment-level: predictors must agree on
     # whether binData is sniffed for npy
-    toggles = {bool(_unported(p.tpu, "decode_npy_bindata")) for p in dep.spec.predictors}
+    toggles = {p.tpu.decode_npy_bindata for p in dep.spec.predictors}
     if len(toggles) > 1:
         problems.append(
             "all predictors must agree on tpu.decode_npy_bindata "

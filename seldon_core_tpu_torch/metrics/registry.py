@@ -10,12 +10,13 @@ Grafana dashboards carry over (port of ``seldon_core_tpu/metrics/registry.py``):
 - the JAX package's ``seldon_tpu_*`` additions for the features the port
   serves: batching, the decode tier (steps, TTFT, ITL, speculation, prefix
   reuse, the paged KV pool and its host and store tiers, rounds, bubble,
-  goodput, SLO attainment), the resilience layer and the event-loop lag.
+  goodput, SLO attainment), the resilience layer, SHADOW agreement and the
+  event-loop lag.
   ``seldon_tpu_xla_compile_seconds`` keeps its name; here it times the
   capture of CUDA graphs at warmup.
 
 The hooks of features the port does not have yet (sibling pulls,
-per-device pages, the replica router and fleet, shadow comparison) stay
+per-device pages, the replica router and fleet) stay
 no-ops inherited from ``NullMetrics``, and their
 families are not registered.
 
@@ -544,6 +545,10 @@ class Metrics(NullMetrics):
             "seldon_tpu_decode_ttft_split_seconds",
             "TTFT split by admission path (warm = prefix hit, cold = full prefill)", ["deployment_name", "path"],
             registry=registry)
+        # SHADOW candidate validation: per-shadow agreement with the primary
+        self._shadow = Counter(
+            "seldon_tpu_shadow_comparisons", "Shadow-vs-primary output comparisons",
+            ["deployment_name", "predictor_name", "shadow_unit", "agree"], registry=registry)
         self._retries = Counter(
             "seldon_tpu_retries_total", "Unit-call retry attempts dispatched", ["deployment_name", "model_name"],
             registry=registry)
@@ -674,6 +679,9 @@ class Metrics(NullMetrics):
 
     def compile(self, deployment, bucket, duration_s):
         self._compile.labels(deployment, str(bucket)).observe(duration_s)
+
+    def shadow_compare(self, deployment, predictor, shadow_unit, agree):
+        self._shadow.labels(deployment, predictor, shadow_unit, "true" if agree else "false").inc()
 
     def loop_lag(self, lag_ms):
         self._loop_lag.set(lag_ms)

@@ -139,7 +139,7 @@ class ModelRuntime:
         # held while a forward is queued and while load_params queues its
         # copies: a replay sees every leaf of one update or none
         self.params_lock = threading.Lock()
-        # one captured graph per (bucket, wire dtype) on the card
+        # one captured graph per (bucket, wire dtype, feature shape) on the card
         self.cuda_graphs = cuda_graphs
         self.graphs = GraphCache(self.device, capture=cuda_graphs)
         self._warmup_keys: int | None = None
@@ -177,7 +177,9 @@ class ModelRuntime:
                 [self.predict_device(x[i : i + step]) for i in range(0, n, step)], dim=0
             )
         padded, valid = pad_batch(x, bucket)
-        entry = self.graphs.entry(("forward", bucket, padded.dtype.str), self._forward,
+        # a feature shape other than the warmed one is a key of its own (the
+        # JAX package compiles it anew), never a write into another's buffer
+        entry = self.graphs.entry(("forward", bucket, padded.dtype.str, padded.shape[1:]), self._forward,
                                   [(padded.shape, torch.from_numpy(padded[:0]).dtype)])
         # the rows leave the static output before the next request may
         # overwrite it

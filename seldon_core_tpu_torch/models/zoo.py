@@ -1,10 +1,12 @@
 """Model zoo: named model builders -> (apply_fn, params, metadata).
 
-Port of ``seldon_core_tpu/models/zoo.py`` for ``zoo://`` URIs:
-``zoo://<name>[?k=v...]`` builds a registered model with a fresh
-deterministic init and loads it into a ModelRuntime on the deployment's
-device. The graph unit factory serves implementation ``JAX_MODEL`` — the
-deployment JSON keeps that name so one file serves both packages.
+Port of ``seldon_core_tpu/models/zoo.py``: ``zoo://<name>[?k=v...]``
+builds a registered model with a fresh deterministic init, ``file://<dir>``
+restores a checkpoint either package wrote and ``hf-bert://<dir>`` imports
+a Hugging Face BERT classifier, each into a ModelRuntime on the
+deployment's device. The graph unit factory serves implementation
+``JAX_MODEL`` — the deployment JSON keeps that name so one file serves both
+packages.
 
 Initialisation: ``bert_*``, ``resnet*`` and ``tiny_gpt`` draw with numpy in
 the JAX package, and the port makes the same draws, so a seed gives that package's
@@ -392,12 +394,71 @@ def build_runtime_from_uri(
 ) -> ModelRuntime:
     """``extra_params``: unit parameters beyond model/model_uri, merged as
     builder kwargs under the URI's own query string (the URI wins).
-    ``cuda_graphs=False`` builds the eager twin (``ModelRuntime``)."""
-    if not uri.startswith("zoo://"):
-        raise ValueError(f"unsupported model_uri '{uri}' (the torch port serves zoo:// only)")
-    name, kwargs = _parse_zoo_uri(uri)
-    ms = get_model(name, **{**(extra_params or {}), **kwargs})
+    ``cuda_graphs=False`` builds the eager twin (``ModelRuntime``).
+
+    Schemes: ``zoo://<name>?k=v`` (a seeded zoo build), ``file://<dir>`` (a
+    checkpoint of either package, ``persistence/checkpoint.py``) and
+    ``hf-bert://<dir>?seq=N`` (a local ``save_pretrained`` directory of a
+    ``BertForSequenceClassification``, ``models/hf_import.py``)."""
+    extra_params = extra_params or {}
+    if uri.startswith("zoo://"):
+        name, kwargs = _parse_zoo_uri(uri)
+        ms = get_model(name, **{**extra_params, **kwargs})
+    elif uri.startswith("file://"):
+        if extra_params:
+            logging.getLogger(__name__).warning(
+                "file:// checkpoints ignore extra unit parameters %s (the "
+                "builder and its kwargs are baked into the checkpoint)",
+                sorted(extra_params),
+            )
+        from seldon_core_tpu_torch.persistence.checkpoint import restore_model
+
+        ms = restore_model(uri[len("file://"):])
+    elif uri.startswith("hf-bert://"):
+        ms = _hf_bert_spec(uri, extra_params)
+    else:
+        raise ValueError(f"unsupported model_uri '{uri}'")
     return _runtime_from_modelspec(ms, tpu_cfg, device, cuda_graphs)
+
+
+def _hf_bert_spec(uri: str, extra_params: dict) -> ModelSpec:
+    """The ``hf-bert://`` branch of the JAX package's
+    ``build_runtime_from_uri``: the URI's query wins over the unit
+    parameters, ``seq`` defaults to 128 and may not pass the checkpoint's
+    position table, ``attn_kernel`` picks the apply. ``seq_parallel`` is
+    accepted and does nothing on one card."""
+    from seldon_core_tpu_torch.models.bert import apply_for_kernel
+    from seldon_core_tpu_torch.models.hf_import import (
+        bert_params_from_hf,
+        check_bert_geometry,
+        class_names_from_config,
+        load_hf_bert_dir,
+    )
+
+    path, _, query = uri[len("hf-bert://"):].partition("?")
+    kwargs = {
+        **{k: str(v) for k, v in extra_params.items()},
+        **dict(urllib.parse.parse_qsl(query)),  # the uri's query wins
+    }
+    apply = apply_for_kernel(str(kwargs.get("attn_kernel", "auto")))
+    state, config = load_hf_bert_dir(path)
+    check_bert_geometry(path, state, config)
+    params = bert_params_from_hf(state)
+    seq = int(kwargs.get("seq", 128))
+    max_len = int(params["pos_emb"].shape[0])
+    if seq > max_len:
+        raise ValueError(
+            f"hf-bert seq={seq} exceeds the checkpoint's "
+            f"max_position_embeddings={max_len} — failing fast instead "
+            "of an opaque XLA broadcast error at warmup"
+        )
+    return ModelSpec(
+        apply,
+        params,
+        (seq,),
+        class_names_from_config(config, params["head"]["w"].shape[1]),
+        int_inputs="ids",
+    )
 
 
 def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:

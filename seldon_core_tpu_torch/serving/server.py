@@ -18,7 +18,9 @@ that records nothing): the executor's unit calls, feedback and resilience
 events, the batcher, the decode scheduler and the ingress all report to
 one ``metrics.registry.Metrics``, served at ``/metrics``. ``start`` runs
 the event-loop lag probe and freezes the warmed-up heap out of the
-garbage collector's scans (``serving/gc_policy.py``).
+garbage collector's scans (``serving/gc_policy.py``). A SHADOW router's
+agreement verdicts count in ``seldon_tpu_shadow_comparisons``, and
+``stop`` awaits the mirror walks still in flight.
 
 CLI:
     python -m seldon_core_tpu_torch.serving.server --deployment dep.json \
@@ -77,6 +79,9 @@ class PredictorServer:
             feedback_metrics_hook=lambda unit, reward: self.metrics.feedback(
                 deployment_name, predictor.name, unit, reward
             ),
+            shadow_compare_hook=lambda unit, agree: self.metrics.shadow_compare(
+                deployment_name, predictor.name, unit, agree
+            ),
         )
         self.decode_scheduler = scheduler_for_executor(
             self.executor, predictor.tpu, metrics=self.metrics, deployment_name=deployment_name
@@ -101,6 +106,7 @@ class PredictorServer:
             decode_scheduler=self.decode_scheduler,
             deadline_ms=predictor.tpu.deadline_ms,
             metrics=self.metrics,
+            decode_npy=predictor.tpu.decode_npy_bindata,
         )
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None
@@ -140,6 +146,7 @@ class PredictorServer:
             await self.batcher.close()
         if self.decode_scheduler is not None:
             await self.decode_scheduler.close()
+        await self.executor.drain_shadows()
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()

@@ -113,6 +113,7 @@ class PredictionService:
         deadline_ms: float = 0.0,
         metrics: NullMetrics | None = None,
         tracer=None,
+        decode_npy: bool = True,
     ):
         self.executor = executor
         self.deployment_name = deployment_name
@@ -125,6 +126,9 @@ class PredictionService:
         self.decode_scheduler = decode_scheduler
         # per-request deadline budget (tpu.deadline_ms); 0 = none
         self.deadline_ms = deadline_ms
+        # tpu.decode_npy_bindata: False keeps every binData opaque, for
+        # bytes-contract graphs whose payloads could start with the npy magic
+        self.decode_npy = decode_npy
 
     def _request_deadline(self, msg: SeldonMessage) -> Deadline | None:
         """The request's budget: the deployment's, tightened (never widened)
@@ -160,11 +164,12 @@ class PredictionService:
         finally:
             DEADLINE.reset(token)
 
-    @staticmethod
-    def _prepare(msg: SeldonMessage, wire_npy: bool) -> tuple[SeldonMessage, bool]:
+    def _prepare(self, msg: SeldonMessage, wire_npy: bool) -> tuple[SeldonMessage, bool]:
         """Decode an npy payload to the tensor arm and assign a puid; returns
-        the message and whether the request was npy."""
-        npy_requested = wire_npy or is_npy(msg.bin_data)
+        the message and whether the request was npy. An explicit
+        application/x-npy body (``wire_npy``) is decoded even with sniffing
+        off."""
+        npy_requested = wire_npy or (self.decode_npy and is_npy(msg.bin_data))
         if npy_requested:
             msg = SeldonMessage.from_array(array_from_npy(msg.bin_data), meta=msg.meta)
         if not msg.meta.puid:
@@ -178,8 +183,8 @@ class PredictionService:
         self, msg: SeldonMessage, *, wire_npy: bool = False, traceparent: str | None = None
     ) -> SeldonMessage:
         """``wire_npy``: the transport saw an explicit application/x-npy
-        body. Other binData is decoded when it starts with the npy magic,
-        else passed through opaque. ``traceparent``: the caller's W3C trace
+        body. Other binData is decoded when it starts with the npy magic
+        and ``decode_npy`` is on, else passed through opaque. ``traceparent``: the caller's W3C trace
         header, whose trace this request's spans continue."""
         start = time.perf_counter()
         msg, npy_requested = self._prepare(msg, wire_npy)

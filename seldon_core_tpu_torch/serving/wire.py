@@ -115,13 +115,15 @@ def failure_response(e: BaseException, op: str, service=None) -> WireResponse:
     )
 
 
-def classify_binary_bytes(ctype: str, raw: bytes) -> str:
-    """``"npy"``, ``"bin"`` or ``"json"``: application/x-npy is npy;
-    application/octet-stream is npy when the bytes start with the npy
-    magic, else opaque binData; any other content type is JSON."""
+def classify_binary_bytes(ctype: str, raw: bytes, sniff_npy: bool = True) -> str:
+    """``"npy"``, ``"bin"`` or ``"json"``: application/x-npy is npy (an
+    explicit opt-in, honoured whatever ``sniff_npy`` says);
+    application/octet-stream is npy when ``sniff_npy`` is on
+    (``tpu.decode_npy_bindata``) and the bytes start with the npy magic,
+    else opaque binData; any other content type is JSON."""
     if ctype not in NPY_CONTENT_TYPES:
         return "json"
-    if ctype == "application/x-npy" or is_npy(raw):
+    if ctype == "application/x-npy" or (sniff_npy and is_npy(raw)):
         return "npy"
     return "bin"
 
@@ -185,7 +187,7 @@ async def engine_predictions(service, req: WireRequest) -> WireResponse:
     """POST /api/v0.1/predictions against one PredictionService: a JSON
     SeldonMessage, or a raw npy body answered in npy."""
     try:
-        kind = classify_binary_bytes(req.content_type, req.body)
+        kind = classify_binary_bytes(req.content_type, req.body, service.decode_npy)
         tp = req.headers.get("traceparent")
         if kind != "json":
             out = await service.predict(SeldonMessage(bin_data=req.body), wire_npy=kind == "npy", traceparent=tp)
@@ -220,7 +222,7 @@ async def engine_predictions_stream(service, req: WireRequest):
     that fails validation gets an ordinary status-JSON failure; a failure
     after streaming began is sent as a terminal error event."""
     try:
-        kind = classify_binary_bytes(req.content_type, req.body)
+        kind = classify_binary_bytes(req.content_type, req.body, service.decode_npy)
         msg = SeldonMessage(bin_data=req.body) if kind != "json" else _message(req)
         gen = service.predict_stream(msg, wire_npy=kind == "npy", traceparent=req.headers.get("traceparent"))
         first = await gen.__anext__()

@@ -350,7 +350,11 @@ SERVED_SLO_KNOBS = {"decode_slo_itl_ms": 0.0, "decode_slo_ttft_ms": 0.0}
 # refused by the JAX package's rule that names it (the host tier needs the
 # prefix cache, the store needs the host tier)
 SERVED_TIER_KNOBS = {"decode_kv_host_bytes": 0, "decode_kv_store_tier": ""}
-ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS, **SERVED_TIER_KNOBS}
+# the npy wire toggle, once unported too, is served: set alone, it reaches
+# the prediction service
+SERVED_WIRE_KNOBS = {"decode_npy_bindata": True}
+ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS, **SERVED_TIER_KNOBS,
+                 **SERVED_WIRE_KNOBS}
 
 
 @pytest.mark.parametrize("knob", sorted(ONCE_UNPORTED))
@@ -363,6 +367,10 @@ def test_unported_decode_knob_refused_by_name(knob):
     elif knob in SERVED_SLO_KNOBS:
         server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
         assert getattr(server.decode_scheduler, knob.replace("decode_", "").replace("_ms", "_s")) == value / 1e3
+        assert knob not in UNPORTED_DECODE_KNOBS
+    elif knob in SERVED_WIRE_KNOBS:
+        server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
+        assert server.service.decode_npy is value
         assert knob not in UNPORTED_DECODE_KNOBS
     else:
         with pytest.raises(ValueError, match=knob):

@@ -52,7 +52,7 @@ WAITING_FAMILIES = {
     "seldon_tpu_replica_drains", "seldon_tpu_replica_evictions", "seldon_tpu_replica_migrations",
     "seldon_tpu_replica_recoveries", "seldon_tpu_replica_spill_failures", "seldon_tpu_replica_state",
     "seldon_tpu_router_arm_estimate", "seldon_tpu_router_preseeded_pages", "seldon_tpu_router_queue_depth",
-    "seldon_tpu_router_replicas", "seldon_tpu_router_routes", "seldon_tpu_shadow_comparisons",
+    "seldon_tpu_router_replicas", "seldon_tpu_router_routes",
 }
 
 
@@ -108,6 +108,9 @@ def drive(m) -> None:
     m.deadline_exceeded("iris", "ingress")
     m.degraded("iris", "router_fallback")
     m.fault_injected("iris", "iris-primary", "error")
+    m.shadow_compare("iris-shadow", "main", "candidate", True)
+    m.shadow_compare("iris-shadow", "main", "candidate", False)
+    m.shadow_compare("iris-shadow", "main", "candidate", False)
 
 
 def families(text: str, openmetrics: bool) -> dict:
@@ -203,7 +206,6 @@ def test_every_jax_hook_is_there_and_the_waiting_ones_record_nothing():
                "replica_spill_failure"):
         getattr(m, fn)("gpt")
     m.replica_migration("gpt", 2)
-    m.shadow_compare("iris", "default", "shadow", True)
     assert m.export() == before
 
 

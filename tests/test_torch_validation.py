@@ -158,6 +158,11 @@ UNPORTED_CASES = {
 }
 
 
+# knobs of UNPORTED_CASES the port serves now: held to the reference's
+# rules alone, word for word
+SERVED_CASES = {"npy_bindata_disagrees"}
+
+
 @pytest.mark.parametrize("case", sorted(UNPORTED_CASES))
 def test_unported_knobs_refused_by_name_with_the_jax_rules(case):
     """A knob the port does not serve is refused by name, and every problem
@@ -168,7 +173,7 @@ def test_unported_knobs_refused_by_name_with_the_jax_rules(case):
     got = _port_problems(obj)
     assert got, "an unported knob must be refused"
     assert [p for p in got if "not part of the torch port" not in p] == want
-    assert any("not part of the torch port" in p for p in got)
+    assert any("not part of the torch port" in p for p in got) == (case not in SERVED_CASES)
 
 
 def test_graph_package_exports_validation():
