@@ -191,6 +191,39 @@ Phases, each of which raises on failure (no phase catches its own):
    on the card at build: accuracy, its forward against the CPU's, the ms
    a request holds the event loop); ``gbm.json`` where sklearn is at hand,
    else a line saying why it is skipped.
+12. the replicated decode fleet: ``gpt2_small_replicated`` (two GPT-2-small
+   scheduler replicas of 8 slots on the card's one copy of the parameters,
+   the prefix-affinity router, health polled every 20 ms, autoscale to 3
+   at queue depth 8) through REST on the pipelined loop, beside one-replica
+   copies at 8 slots and at 16 (twice the pages and prefix entries), in
+   turns. Traffic: 8 system prompts of 96 tokens, each opened by one
+   request (the 8 staggered by 4 ms and awaited), then 3 sharers each (the
+   24 staggered by 4 ms, system prompt by system prompt), 32 distinct
+   tokens a prompt and budgets of 8 to 32, every request an SSE stream.
+   12a: every greedy row bit for bit the 8-slot copy's, held to the 16-slot
+   copy's and the fused ``generate``'s under the tie rule, every stream its
+   reply; exactly one cold prefill per system prompt and no sibling pull
+   but for a shed; 0 keys after warmup; ``/metrics`` routes rising by the
+   requests; tokens/s and TTFT p50/p99 of each, each replica's round wall,
+   busy and host share; the fleet under round robin paying more cold
+   captures with sibling pulls, and a router planted to ignore the prefix
+   key failing the count. 12b: on replica 0 mid-traffic a hung round
+   (evicted within (threshold + 1) polls plus 20 ms of its hang), a window
+   of dropped probes and an induced OOM, each evicting, migrating and
+   readmitting it half-open with every row bit for bit its uninterrupted
+   row and each state shown on ``/decode/fleet`` and ``/decode/health``;
+   on the idle fleet, both loops, a request killed after 0, 1, 16 and 31
+   tokens resuming bit for bit, its cost against its uninterrupted wall,
+   and a replay one token short and a re-streamed replay failing the
+   stream check. 12c: ``POST /decode/drain?replica=1`` under traffic (rows
+   intact, replica 1 ``down``, its system prompts device hits on replica
+   0); ``?replica=x`` 400, and on the 8-slot copy ``/decode/fleet`` 404 and
+   ``/decode/drain`` 400. 12d: traffic holding replica 0's queue past 8
+   boots replica 2 pre-seeded through the ``file://`` store under
+   ``fleet_spill_store/``: its pages the spilled bytes and replica 0's, its
+   first request of a spilled system prompt a prefix hit, 0 keys after its
+   warmup; its boot split and memory. A preseed written one page off must
+   fail the byte check. Neither kernel launches in the phase (counted).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -4465,6 +4498,776 @@ async def serve_user_code(card) -> dict:
             "mnist_cnn": await serve_mnist_cnn(card), "gbm": await serve_gbm(card)}
 
 
+# ---------------------------------------------------------------- phase 12
+FLEET_GROUPS = 8  # system prompts
+FLEET_PER_GROUP = 4  # requests per system prompt: its opener, then 3 sharers
+FLEET_SHARED = 96  # tokens of a system prompt; 32 distinct tokens follow
+FLEET_STAGGER_S = 0.004
+FLEET_MIN_NEW = 8  # budgets of 8 to 32 new tokens
+FLEET_STORE = Path("fleet_spill_store")  # the spill store (git-ignored), relative to the checkout
+FLEET_HANG_S = 0.4  # the hung round's sleep: eviction, migration, then readmission
+# the hung replica's eviction: at most threshold polls after the first
+# missed probe, and (threshold + 1) polls plus this slack after the hang
+# begins (the poll right after it may still see the ticks of the rounds
+# before it; each poll waits for the loop)
+FLEET_EVICT_SLACK_MS = 20.0
+FLEET_SCALE_EVERY_S = 0.01  # the scale-up traffic tops the queue up to twice the autoscale depth this often
+FLEET_SCALE_LIMIT_S = 60.0
+
+
+def fleet_groups(seq: int, vocab: int, seed: int):
+    """FLEET_GROUPS system prompts of FLEET_SHARED tokens, each followed by
+    distinct tokens in FLEET_PER_GROUP requests: (openers, sharers,
+    opener budgets, sharer budgets). Sharers come group by group."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    heads = rng.integers(0, vocab, size=(FLEET_GROUPS, FLEET_SHARED))
+    prompts = [[np.concatenate([h, rng.integers(0, vocab, seq - FLEET_SHARED)]) for _ in range(FLEET_PER_GROUP)]
+               for h in heads]
+    openers = np.stack([g[0] for g in prompts])
+    sharers = np.stack([p for g in prompts for p in g[1:]])
+    budgets = [int(b) for b in rng.integers(FLEET_MIN_NEW, 33, size=FLEET_GROUPS * FLEET_PER_GROUP)]
+    return openers, sharers, budgets[:FLEET_GROUPS], budgets[FLEET_GROUPS:]
+
+
+async def _sse_timed(port: int, ids, budget: int) -> dict:
+    """One SSE request: its events, the ms to the first token event and to
+    the end, and the ids of its done event."""
+    body = json.dumps({"meta": {"tags": {"max_new_tokens": budget}}, "data": {"ndarray": [ids.tolist()]}}).encode()
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"POST /api/v0.1/predictions/stream HTTP/1.1\r\nHost: localhost\r\nContent-Type: application/json"
+                 b"\r\nContent-Length: %d\r\nConnection: close\r\n\r\n" % len(body) + body)
+    await writer.drain()
+    raw, ttft = b"", None
+    while True:
+        chunk = await reader.read(65536)
+        if not chunk:
+            break
+        raw += chunk
+        if ttft is None and b'"token"' in raw:
+            ttft = (time.perf_counter() - t0) * 1e3
+    writer.close()
+    wall = (time.perf_counter() - t0) * 1e3
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    if not head.startswith(b"HTTP/1.1 200"):
+        raise AssertionError(f"stream returned {head[:80]!r}: {rest[:300]!r}")
+    data = b""
+    while rest:
+        size_line, _, rest = rest.partition(b"\r\n")
+        size = int(size_line, 16)
+        if size == 0:
+            break
+        data, rest = data + rest[:size], rest[size + 2:]
+    events = [json.loads(f[6:]) for f in data.split(b"\n\n") if f.startswith(b"data: ")]
+    done = events[-1]
+    if not done.get("done"):
+        raise AssertionError(f"stream ended without its done event: {events[-1]}")
+    return {"events": events[:-1], "ids": done["ids"][0], "ttft_ms": ttft, "wall_ms": wall}
+
+
+def stream_check(label: str, reply: dict, seq: int) -> None:
+    """The client's stream is the reply's generated ids, each once, in
+    order, at its own index: nothing streamed twice, nothing skipped."""
+    got = [(e["token"], e["index"]) for e in reply["events"]]
+    want = [(t, i) for i, t in enumerate(reply["ids"][seq:])]
+    if got != want:
+        raise AssertionError(f"{label}: streamed {got[:40]}, the reply generated {want[:40]}")
+
+
+async def fleet_traffic(port: int, openers, sharers, ob, sb) -> tuple[list, float]:
+    """The openers staggered by FLEET_STAGGER_S (each system prompt's first
+    request), awaited, then the sharers group by group the same way: every
+    request an SSE stream. (replies in group order, wall seconds)."""
+    async def wave(prompts, budgets):
+        async def one(i):
+            await asyncio.sleep(FLEET_STAGGER_S * i)
+            return await _sse_timed(port, prompts[i], budgets[i])
+
+        return await asyncio.gather(*(one(i) for i in range(len(prompts))))
+
+    t0 = time.perf_counter()
+    first = await wave(openers, ob)
+    rest = await wave(sharers, sb)
+    return first + rest, time.perf_counter() - t0
+
+
+def fleet_rows(label: str, replies, budgets, seq: int) -> list:
+    import numpy as np
+
+    rows = []
+    for r, b in zip(replies, budgets):
+        stream_check(label, r, seq)
+        if len(r["ids"]) - seq != b:
+            raise AssertionError(f"{label}: a reply generated {len(r['ids']) - seq} tokens, budget {b}")
+        rows.append(np.asarray(r["ids"], np.int64))
+    return rows
+
+
+def _percentile(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return round(xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))], 3)
+
+
+def _fleet_counts(sched) -> dict:
+    """Prefix hits, misses, sibling pulls and shed routes of a scheduler or
+    a fleet, cumulative."""
+    bal = getattr(sched, "balancer", None)
+    return dict(hits=sched.stat_prefix_hits, misses=sched.stat_prefix_misses,
+                pulls=getattr(sched, "stat_sibling_pulls", 0), sheds=bal.stat_routes["shed"] if bal else 0)
+
+
+def cold_check(label: str, counts: dict) -> None:
+    """One cold prefix capture per system prompt: exactly one cold prefill
+    a group, and no replica pulling a group's pages from a sibling except
+    where the bounded-load shed moved a request off its home."""
+    if counts["misses"] != FLEET_GROUPS or counts["pulls"] > counts["sheds"]:
+        raise AssertionError(f"{label}: {counts['misses']} cold prefills and {counts['pulls']} sibling pulls for "
+                             f"{FLEET_GROUPS} system prompts ({counts['sheds']} shed routes)")
+
+
+async def _start_fleet(path: Path):
+    """``_start`` for a fleet deployment, recording each replica's growth of
+    memory_reserved() over its own warmup."""
+    import torch
+
+    from seldon_core_tpu_torch.serving.server import PredictorServer, load_predictor
+
+    predictor, name = load_predictor(str(path))
+    t0 = time.perf_counter()
+    server = PredictorServer(predictor, deployment_name=name, device=DEVICE)
+    t1 = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    server.replica_warmup_bytes = {}
+    for i, r in server.decode_scheduler.live_replicas:
+        def warm(r=r, i=i, real=r.warmup):
+            before = torch.cuda.memory_reserved() if on_card else 0
+            real()
+            if on_card:
+                torch.cuda.synchronize()
+            server.replica_warmup_bytes[i] = (torch.cuda.memory_reserved() - before) if on_card else 0
+
+        r.warmup = warm
+    server.warmup()
+    t2 = time.perf_counter()
+    await server.start("127.0.0.1", 0)
+    return server, t1 - t0, t2 - t1
+
+
+def _one_replica_copy(slots: int, pages: int, entries: int) -> Path:
+    """A one-replica copy of gpt2_small_replicated under its own name (each
+    server's flight recorder is registered by its deployment's name)."""
+    path = _deployment_copy("gpt2_small_replicated", {
+        "decode_replicas": 1, "decode_router_policy": "", "decode_autoscale_replicas": 0,
+        "decode_autoscale_queue_depth": 0, "decode_health_poll_ms": 0, "decode_slots": slots,
+        "decode_kv_pages": pages, "decode_prefix_slots": entries})
+    dep = json.loads(path.read_text())
+    dep["spec"]["name"] = dep["metadata"]["name"] = f"{dep['spec']['name']}-one{slots}"
+    path = path.with_name(f"gpt2_small_replicated_one{slots}.json")
+    path.write_text(json.dumps(dep))
+    return path
+
+
+def _pool_bytes(sched) -> int:
+    return sum(int(a.numel()) * a.element_size() for a in sched.pool.state)
+
+
+async def fleet_runs(card, fleet, one8, one16, params) -> dict:
+    """Phase 12a: the affinity fleet and the two one-replica copies under
+    the same traffic in turns (fleet, one8, one16, then fresh system prompts
+    one16, one8, fleet): every greedy row bit for bit one8's, held to one16's
+    and the fused generate's under the tie rule; one cold capture per system
+    prompt each; zero keys after warmup; /metrics routes rising by exactly
+    the requests; tokens/s, TTFT p50/p99, and per replica the round's wall,
+    busy and host share. Then the same fleet under round robin (more cold
+    captures, sibling pulls) and a router planted to ignore the prefix key
+    (must fail the cold-capture count)."""
+    import numpy as np
+
+    sched = fleet.decode_scheduler
+    seq, vocab = sched.seq_len, int(params["tok_emb"].shape[0])
+    servers = {"fleet": fleet, "one8": one8, "one16": one16}
+    numbers, rows_by_seed = {n: [] for n in servers}, {}
+    for seed, order in ((121, ("fleet", "one8", "one16")), (122, ("one16", "one8", "fleet"))):
+        openers, sharers, ob, sb = fleet_groups(seq, vocab, seed)
+        budgets = ob + sb
+        rows = {}
+        for name in order:
+            srv = servers[name]
+            s = srv.decode_scheduler
+            c0 = _fleet_counts(s)
+            m0 = metric_samples((await _get(srv.port, "/metrics")).decode())
+            since = {i: r.flight.rounds for i, r in (s.live_replicas if name == "fleet" else [(0, s)])}
+            replies, wall = await fleet_traffic(srv.port, openers, sharers, ob, sb)
+            c1 = _fleet_counts(s)
+            m1 = metric_samples((await _get(srv.port, "/metrics")).decode())
+            counts = {k: c1[k] - c0[k] for k in c0}
+            rows[name] = fleet_rows(f"fleet 12a {name}", replies, budgets, seq)
+            cold_check(f"fleet 12a {name} seed {seed}", counts)
+            ttft = [r["ttft_ms"] for r in replies]
+            run = dict(seed=seed, tokens_per_s=round(sum(budgets) / wall, 2), ttft_p50_ms=_percentile(ttft, 0.5),
+                       ttft_p99_ms=_percentile(ttft, 0.99), **counts)
+            if name == "fleet":
+                routed = metric_total(m1, "seldon_tpu_router_routes_total") - metric_total(
+                    m0, "seldon_tpu_router_routes_total")
+                if routed != len(budgets):
+                    raise AssertionError(f"fleet 12a: /metrics counted {routed} routes for {len(budgets)} requests")
+                run["routes"] = routed
+            run["replicas"] = {}
+            for i, r in (s.live_replicas if name == "fleet" else [(0, s)]):
+                n = phase_split(await _frames_of(srv.port, r.flight.name, since[i]))
+                run["replicas"][i] = dict(rounds=n["rounds"], wall_ms=n["wall_ms"], busy_ms=n["busy_ms"],
+                                          host_share=round(n["gap_ms"] / n["wall_ms"], 4) if n["wall_ms"] else 0)
+            numbers[name].append(run)
+            if s.recompiles_since_warmup() != 0:
+                raise AssertionError(f"fleet 12a {name}: {s.recompiles_since_warmup()} dispatch keys after warmup")
+        diff = [r for r, (a, b) in enumerate(zip(rows["fleet"], rows["one8"])) if (a != b).any()]
+        if diff:
+            raise AssertionError(f"fleet 12a seed {seed}: fleet rows {diff} differ from the one-replica copy's")
+        runtime = _model_runtime(fleet)
+        ref = _fused_oracle(runtime, np.concatenate([openers, sharers]))
+        ties = {"one16": _hold_ids("fleet 12a one16", rows["fleet"], rows["one16"], params, seq, "bfloat16"),
+                "fused": _hold_ids("fleet 12a fused", rows["fleet"], ref, params, seq, "bfloat16")}
+        one16_equal = all((a == b).all() for a, b in zip(rows["fleet"], rows["one16"]))
+        print(f"[{card}] fleet 12a seed {seed}: rows bit for bit one8's; one16 equal {one16_equal}, ties "
+              f"{json.dumps(ties)}", flush=True)
+        rows_by_seed[seed] = (openers, sharers, budgets, rows["fleet"])
+    print(f"[{card}] fleet 12a in turns: {json.dumps(numbers)}", flush=True)
+
+    # round robin on the same fleet, fresh system prompts, against one8
+    openers, sharers, ob, sb = fleet_groups(seq, vocab, 123)
+    budgets = ob + sb
+    sched.policy = sched.balancer.policy = "round_robin"
+    c0 = _fleet_counts(sched)
+    replies, wall = await fleet_traffic(fleet.port, openers, sharers, ob, sb)
+    rr = {k: v - c0[k] for k, v in _fleet_counts(sched).items()}
+    sched.policy = sched.balancer.policy = "affinity"
+    rr_rows = fleet_rows("fleet 12a round_robin", replies, budgets, seq)
+    one_replies, _ = await fleet_traffic(one8.port, openers, sharers, ob, sb)
+    one_rows = fleet_rows("fleet 12a round_robin one8", one_replies, budgets, seq)
+    if any((a != b).any() for a, b in zip(rr_rows, one_rows)):
+        raise AssertionError("fleet 12a: round-robin rows differ from the one-replica copy's")
+    rr["cold_captures"] = rr["misses"] + rr["pulls"]
+    rr["tokens_per_s"] = round(sum(budgets) / wall, 2)
+    if rr["cold_captures"] <= FLEET_GROUPS or rr["pulls"] < 1:
+        raise AssertionError(f"fleet 12a round robin paid no more cold captures than affinity: {rr}")
+    must_fail("fleet 12a round robin held to affinity's count", lambda: cold_check("round robin", rr))
+
+    # planted: a router that ignores the prefix key
+    openers, sharers, ob, sb = fleet_groups(seq, vocab, 124)
+    real = sched.balancer.pick
+    sched.balancer.pick = lambda key, depths=None: real((), depths)
+    c0 = _fleet_counts(sched)
+    try:
+        replies, _ = await fleet_traffic(fleet.port, openers, sharers, ob, sb)
+    finally:
+        del sched.balancer.pick
+    planted = {k: v - c0[k] for k, v in _fleet_counts(sched).items()}
+    fleet_rows("fleet 12a keyless router", replies, ob + sb, seq)
+    must_fail("a router that ignores the prefix key", lambda: cold_check("keyless router", planted))
+    print(f"[{card}] fleet 12a round robin {json.dumps(rr)}; planted keyless router {json.dumps(planted)} "
+          f"(failed the cold-capture check)", flush=True)
+    if sched.recompiles_since_warmup() != 0:
+        raise AssertionError(f"fleet 12a: {sched.recompiles_since_warmup()} keys after warmup")
+    return {"turns": numbers, "round_robin": rr, "planted_keyless": planted, "rows": rows_by_seed[121]}
+
+
+def _record_read_outs(fleet_body: bytes, health_body: bytes, name: str, seen: dict) -> None:
+    """Each replica's state as a /decode/fleet and a /decode/health body
+    show it, appended to ``seen``."""
+    for r in json.loads(fleet_body)["replicas"]:
+        seen.setdefault(("fleet", r["replica"]), []).append(r["state"])
+    for rec, h in json.loads(health_body).items():
+        if rec.startswith(f"{name}/r"):
+            seen.setdefault(("health", h["replica_id"]), []).append(h["state"])
+
+
+def _read_outs_now(server, seen: dict) -> None:
+    """What the two routes' handlers answer at this instant (called from the
+    state funnel: an eviction may last one poll interval, shorter than an
+    HTTP round trip under traffic)."""
+    from seldon_core_tpu_torch.serving import wire
+
+    get = lambda path: wire.WireRequest("GET", path, {}, b"")  # noqa: E731
+    _record_read_outs(wire.decode_fleet(server.service, get("/decode/fleet")).body,
+                      wire.decode_health(get("/decode/health")).body, server.deployment_name, seen)
+
+
+async def _read_outs_http(server, seen: dict) -> None:
+    _record_read_outs(await _get(server.port, "/decode/fleet"), await _get(server.port, "/decode/health"),
+                      server.deployment_name, seen)
+
+
+def _states_shown(seen: dict, arm: int, want: tuple) -> bool:
+    """Whether both read-outs showed ``want`` in that order for ``arm``."""
+    for src in ("fleet", "health"):
+        states = seen.get((src, arm), [])
+        dedup = [s for i, s in enumerate(states) if i == 0 or states[i - 1] != s]
+        it = iter(dedup)
+        if not all(w in it for w in want):
+            return False
+    return True
+
+
+async def fleet_faults(card, fleet, base: dict) -> dict:
+    """Phase 12b: install_decode_faults on replica 0 in the middle of 12a's
+    first traffic: a round that hangs (evicted by the poller within the
+    threshold, its rows migrated, readmitted half-open after the hang), a
+    window of dropped probes (evicted and readmitted the same way), an
+    induced allocator OOM (counted and migrated). Every row bit for bit its
+    uninterrupted row, every stream whole, each state shown by /decode/fleet
+    and /decode/health (their handlers read at each transition, the routes
+    over HTTP before and after)."""
+    from seldon_core_tpu_torch.engine.faults import DecodeFaultSpec, install_decode_faults
+
+    sched = fleet.decode_scheduler
+    r0 = sched.replicas[0]
+    openers, sharers, budgets, want = base["rows_in"]
+    seq = sched.seq_len
+    transitions = []
+    real_set = sched._set_replica_state  # instance attributes over the methods, removed after
+
+    def set_state(arm, state, reason=""):
+        transitions.append((arm, state, time.perf_counter()))
+        real_set(arm, state, reason)
+        _read_outs_now(fleet, seen)
+
+    seen = {}
+    sched._set_replica_state = set_state
+    probes = []
+    real_probe = sched._probe_ok
+
+    def probe_ok(arm, r):
+        ok = real_probe(arm, r)
+        probes.append((arm, ok, time.perf_counter()))
+        return ok
+
+    sched._probe_ok = probe_ok
+    out = {}
+    try:
+        for label, spec in (("hang", DecodeFaultSpec(hang_at_round=6, hang_s=FLEET_HANG_S)),
+                            ("drop_health", DecodeFaultSpec(drop_health_from=1, drop_health_count=5)),
+                            ("oom", DecodeFaultSpec(oom_at_round=6))):
+            seen.clear()
+            await _read_outs_http(fleet, seen)
+            ev0, mig0, rec0 = sched.stat_evictions, sched.stat_migrations, sched.stat_recoveries
+            del transitions[:], probes[:]
+            hang_at = []
+            if label == "hang":
+                real_chaos = r0._chaos_round
+
+                async def chaos(real_chaos=real_chaos):
+                    if state.rounds + 1 == state.spec.hang_at_round:
+                        hang_at.append(time.perf_counter())
+                    await real_chaos()
+
+                r0._chaos_round = chaos
+            state = install_decode_faults(r0, spec)
+            replies, _ = await fleet_traffic(fleet.port, openers, sharers, budgets[:FLEET_GROUPS],
+                                             budgets[FLEET_GROUPS:])
+            rows = fleet_rows(f"fleet 12b {label}", replies, budgets, seq)
+            bad = [i for i, (a, b) in enumerate(zip(rows, want)) if (a != b).any()]
+            if bad:
+                raise AssertionError(f"fleet 12b {label}: rows {bad} differ from their uninterrupted rows")
+            for _ in range(400):  # readmission
+                if sched.replica_states()[0] == "up" and any(s == "up" for a, s, _ in transitions if a == 0):
+                    break
+                await asyncio.sleep(0.01)
+            await _read_outs_http(fleet, seen)
+            r0.__dict__.pop("_chaos_round", None)
+            r0._faults = None
+            evicted = [t for a, s, t in transitions if a == 0 and s == "evicted"]
+            readmitted = [t for a, s, t in transitions if a == 0 and s == "up"]
+            row = dict(injected=state.injected, evictions=sched.stat_evictions - ev0,
+                       migrations=sched.stat_migrations - mig0, recoveries=sched.stat_recoveries - rec0,
+                       states_shown=_states_shown(seen, 0, ("up", "evicted", "up")))
+            if evicted and hang_at:
+                row["evicted_after_hang_ms"] = round((evicted[0] - hang_at[0]) * 1e3, 3)
+                miss = [t for a, ok, t in probes if a == 0 and not ok and t >= hang_at[0]]
+                row["evicted_after_first_miss_ms"] = round((evicted[0] - miss[0]) * 1e3, 3)
+            if evicted and readmitted:
+                row["readmitted_after_ms"] = round((readmitted[-1] - evicted[0]) * 1e3, 3)
+            out[label] = row
+            # a dropped probe evicts a replica that may be between rows; a
+            # hang and an OOM strike with rows in flight
+            if (row["injected"] < 1 or row["evictions"] != 1 or row["recoveries"] != 1 or not row["states_shown"]
+                    or (label != "drop_health" and row["migrations"] < 1)):
+                raise AssertionError(f"fleet 12b {label}: {row}; states seen {seen}")
+            if label == "hang":
+                poll_ms = sched.health_poll_s * 1e3
+                limit = (sched.health_miss_threshold + 1) * poll_ms + FLEET_EVICT_SLACK_MS
+                if (row.get("evicted_after_hang_ms", limit + 1) > limit
+                        or row["evicted_after_first_miss_ms"] > sched.health_miss_threshold * poll_ms):
+                    raise AssertionError(f"fleet 12b: the hung replica was evicted {row} after its hang (limit "
+                                         f"{limit} ms) and its first missed probe (limit "
+                                         f"{sched.health_miss_threshold * poll_ms} ms)")
+    finally:
+        del sched._set_replica_state, sched._probe_ok
+    print(f"[{card}] fleet 12b faults on replica 0 (poll {sched.health_poll_s * 1e3} ms, threshold "
+          f"{sched.health_miss_threshold}): {json.dumps(out)}", flush=True)
+    return out
+
+
+async def _one_migration(fleet, prompt, budget: int, k: int, plant=None) -> dict:
+    """One request on an idle fleet, its replica failing (an induced OOM)
+    after k streamed tokens: (row, stream, wall ms); its arm readmitted
+    after. ``plant`` (replicas) -> undo, a fault planted on the survivors."""
+    from seldon_core_tpu_torch.engine.faults import DecodeFaultSpec, install_decode_faults
+
+    sched = fleet.decode_scheduler
+    arm = sched.route(prompt)[0]
+    victim = sched.replicas[arm]
+    streamed = []
+
+    def on_token(tok, idx):
+        streamed.append((int(tok), idx))
+        if idx == k - 1:
+            install_decode_faults(victim, DecodeFaultSpec(oom_at_round=1))
+
+    if k == 0:
+        install_decode_faults(victim, DecodeFaultSpec(oom_at_round=1))
+    undo = plant([r for i, r in sched.live_replicas if i != arm]) if plant else None
+    t0 = time.perf_counter()
+    try:
+        out = await sched.submit(prompt, max_new_tokens=budget, on_token=on_token)
+    finally:
+        if undo:
+            undo()
+    wall = (time.perf_counter() - t0) * 1e3
+    victim._faults = None
+    for _ in range(200):
+        await asyncio.sleep(0.01)
+        if sched.replica_states()[arm] == "up":
+            break
+    else:
+        raise AssertionError(f"replica {arm} not readmitted after its OOM")
+    return {"ids": list(map(int, out)), "events": [{"token": t, "index": i} for t, i in streamed], "wall_ms": wall}
+
+
+def _replay_one_fewer(replicas):
+    reals = {}
+    for r in replicas:
+        reals[r] = r.submit
+
+        async def submit(prompt, real=r.submit, **kw):
+            if kw.get("_replay_tokens"):
+                kw["_replay_tokens"] = kw["_replay_tokens"][:-1]
+            return await real(prompt, **kw)
+
+        r.submit = submit
+    return lambda: [r.__dict__.pop("submit") for r in reals]
+
+
+def _restream_replay(replicas):
+    for r in replicas:
+        def planted(seq, tok, r=r, real=r._emit_inner):
+            idx = len(seq.tokens)
+            out = real(seq, tok)
+            if idx < seq.emit_base and seq.on_token is not None:
+                seq.on_token(out, idx)
+            return out
+
+        r._emit_inner = planted
+    return lambda: [r.__dict__.pop("_emit_inner") for r in replicas]
+
+
+async def fleet_migration_cost(card, fleet, base: dict) -> dict:
+    """The resume on both loops: a request whose replica dies after k
+    streamed tokens (k = 0, 1, 16 and the budget's last) ends bit for bit
+    its uninterrupted row with its stream whole; its wall against the same
+    request uninterrupted on the idle fleet is the migration's cost. A
+    resume replaying one token fewer and one re-streaming the replay must
+    each fail the stream check."""
+    import numpy as np
+
+    sched = fleet.decode_scheduler
+    seq = sched.seq_len
+    openers, _, budgets, want = base["rows_in"]
+    prompt, budget = openers[0], sched.max_new_tokens
+    out = {}
+    for loop in ("pipelined", "serial"):
+        for _, r in sched.live_replicas:
+            r.pipeline_enabled = loop == "pipelined"
+        t0 = time.perf_counter()
+        clean = await sched.submit(prompt, max_new_tokens=budget)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        costs = {}
+        for k in (0, 1, 16, budget - 1):
+            got = await _one_migration(fleet, prompt, budget, k)
+            stream_check(f"fleet migration {loop} k={k}", got, seq)
+            if got["ids"] != list(map(int, clean)):
+                raise AssertionError(f"fleet migration {loop} k={k}: the resumed row differs from the "
+                                     "uninterrupted one")
+            costs[k] = round(got["wall_ms"] - plain_ms, 3)
+        out[loop] = {"uninterrupted_ms": round(plain_ms, 3), "migration_cost_ms": costs}
+    for _, r in sched.live_replicas:
+        r.pipeline_enabled = True
+    if not np.array_equal(np.asarray(clean[: seq + budgets[0]]), want[0][: seq + budgets[0]]):
+        raise AssertionError("fleet migration: the idle fleet's row differs from 12a's")
+    for label, plant in (("a resume that replays one token fewer", _replay_one_fewer),
+                         ("a resume that re-streams the replayed tokens", _restream_replay)):
+        got = await _one_migration(fleet, prompt, budget, 16, plant)
+        must_fail(label, lambda got=got: stream_check(label, got, seq))
+    print(f"[{card}] fleet migration (one request, budget {budget}, idle fleet; replica killed after k tokens): "
+          f"{json.dumps(out)}; a replay one token short and a re-streamed replay failed the stream check",
+          flush=True)
+    return out
+
+
+async def fleet_drain(card, fleet, one8, base: dict) -> dict:
+    """Phase 12c: POST /decode/drain?replica=1 under 12a's traffic: the
+    replica's in-flight rows finish or migrate (every row bit for bit), its
+    prefix pages go to its rendezvous sibling (a later request of one of
+    its system prompts is a device hit there), it ends ``down``. A
+    ``?replica=x`` answers 400 naming the parameter; on a deployment
+    without a fleet /decode/fleet answers 404 and /decode/drain 400."""
+    sched = fleet.decode_scheduler
+    seq = sched.seq_len
+    openers, sharers, budgets, want = base["rows_in"]
+    home1 = [g for g in range(FLEET_GROUPS) if sched.route(openers[g])[0] == 1]
+    if not home1:
+        raise AssertionError("fleet 12c: no system prompt homes on replica 1")
+    traffic = asyncio.ensure_future(fleet_traffic(fleet.port, openers, sharers, budgets[:FLEET_GROUPS],
+                                                  budgets[FLEET_GROUPS:]))
+    await asyncio.sleep(0.06)  # the sharers are in flight
+    status, _, body, drain_ms = await _request(fleet.port, b"", path="/decode/drain?replica=1")
+    drained = json.loads(body)
+    replies, _ = await traffic
+    if status != 200 or drained.get("replica") != 1 or sched.replica_states()[1] != "down":
+        raise AssertionError(f"fleet 12c: drain answered {status} {drained}, states {sched.replica_states()}")
+    rows = fleet_rows("fleet 12c", replies, budgets, seq)
+    bad = [i for i, (a, b) in enumerate(zip(rows, want)) if (a != b).any()]
+    if bad:
+        raise AssertionError(f"fleet 12c: rows {bad} differ from their uninterrupted rows")
+    prompt = sharers[home1[0] * (FLEET_PER_GROUP - 1)].copy()
+    prompt[-1] = (prompt[-1] + 1) % int(_model_runtime(fleet).params["tok_emb"].shape[0])
+    r0 = sched.replicas[0]
+    c0 = (r0.stat_prefix_hits, r0.stat_prefix_misses, sched.stat_sibling_pulls)
+    status, _, body, _ = await _ids_post(fleet.port, prompt[None], {"max_new_tokens": 4})
+    c1 = (r0.stat_prefix_hits, r0.stat_prefix_misses, sched.stat_sibling_pulls)
+    if status != 200 or (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) != (1, 0, 0):
+        raise AssertionError(f"fleet 12c: a request of a drained system prompt on replica 0: HTTP {status}, "
+                             f"(hits, misses, pulls) moved by {[b - a for a, b in zip(c0, c1)]}")
+    codes = {}
+    for label, port, method, path, want_status, want_body in (
+            ("bad replica", fleet.port, "POST", "/decode/drain?replica=x", 400,
+             {"error": "?replica must be an integer arm id", "param": "replica", "got": "x"}),
+            ("no fleet: read-out", one8.port, "GET", "/decode/fleet", 404, {"error": "no replicated decode tier"}),
+            ("no fleet: drain", one8.port, "POST", "/decode/drain", 400,
+             {"error": "ENGINE_INVALID_JSON(101): Invalid JSON deployment has no replicated decode tier to drain"})):
+        got_status, _, got_body, _ = await _request(port, b"", path=path, method=method)
+        codes[label] = got_status
+        if (got_status, json.loads(got_body)) != (want_status, want_body):
+            raise AssertionError(f"fleet 12c {label}: {got_status} {got_body!r}, want {want_status} {want_body}")
+    row = dict(drain=drained, drain_ms=round(drain_ms, 3), pushed_group_hit_on_r0=True, codes=codes,
+               states=sched.replica_states())
+    print(f"[{card}] fleet 12c drain of replica 1 under traffic: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def fleet_scale_up(card, fleet, base: dict, store: Path) -> dict:
+    """Phase 12d: traffic that holds replica 0's queue above the autoscale
+    depth boots replica 2, pre-seeded from a spill written to and read back
+    from the file:// store: its pages' bytes the exported bytes (and replica
+    0's where it still holds the entry), its first request of a spilled
+    system prompt a prefix hit, no dispatch key after its warmup; its boot
+    split, the growth of memory_reserved() over the scale-up. A preseed
+    written one page off must fail the byte check."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.persistence.state import FileStateStore
+    from seldon_core_tpu_torch.serving.affinity_router import _key_rank, prefix_route_key, spill_key
+
+    sched = fleet.decode_scheduler
+    seq = sched.seq_len
+    openers, sharers, budgets, want = base["rows_in"]
+    prompts = np.concatenate([openers, sharers])
+    payloads = []
+    real_build = sched._build_warm_replica
+
+    def build(rid, payload):
+        payloads.append(payload)
+        return real_build(rid, payload)
+
+    sched._build_warm_replica = build
+    on_card = DEVICE == "cuda"
+
+    def held() -> int:
+        """memory_reserved() with the caching allocator's free blocks
+        released first (a capture's torch.cuda.graph releases them too)."""
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    reserved0 = held()
+    pending, t0, k = [], time.perf_counter(), 0
+    try:
+        while not sched._scaling and len(sched.replicas) < 3:
+            if time.perf_counter() - t0 > FLEET_SCALE_LIMIT_S:
+                raise AssertionError(f"fleet 12d: no scale-up in {FLEET_SCALE_LIMIT_S} s (queue depth "
+                                     f"{sched.queue_depth})")
+            for _ in range(max(0, 2 * sched.autoscale_queue_depth - sched.queue_depth)):
+                pending.append(asyncio.ensure_future(_ids_post(fleet.port, prompts[k % len(prompts)][None],
+                                                               {"max_new_tokens": sched.max_new_tokens})))
+                k += 1
+            await asyncio.sleep(FLEET_SCALE_EVERY_S)
+        triggered = time.perf_counter() - t0
+        depth_at_trigger = sched.queue_depth
+        task = sched._scale_task
+        if task is not None:
+            await task
+        replies = await asyncio.gather(*pending)
+    finally:
+        del sched._build_warm_replica
+    grew = held() - reserved0
+    failed = [(status, body[:200]) for status, _, body, _ in replies if status != 200]
+    if failed or len(sched.replicas) != 3 or sched.replicas[2] is None:
+        raise AssertionError(f"fleet 12d: scale-up failed (replicas {sched.replica_states()}, boot failures "
+                             f"{sched.stat_boot_failures}, failed requests {failed[:3]} of {len(failed)})")
+    new = sched.replicas[2]
+    payload = payloads[0]
+    saved = FileStateStore(str(store)).load(spill_key(sched._deployment))
+    if not payload or not payload["entries"] or saved is None or new.stat_prefix_preseeded < 1:
+        raise AssertionError(f"fleet 12d: no spill reached replica 2 (store file {saved is not None}, "
+                             f"preseeded {new.stat_prefix_preseeded})")
+
+    def byte_check(sched_, payload_) -> int:
+        """Every seeded entry's pages hold the payload's bytes."""
+        n = 0
+        for e in payload_["entries"]:
+            span = np.asarray(e["tokens"])
+            ent, depth = sched_._prefix_index.match(span, touch=False)
+            if ent is None or depth < len(ent.tokens):
+                continue
+            with sched_._on_stream():
+                got = sched_.pool.read_pages(ent.pages)
+            for g, w in zip(got, e["components"]):
+                if not np.array_equal(g, w[:, : len(ent.pages)]):
+                    raise AssertionError(f"a preseeded entry's pages differ from the spilled bytes ({len(span)} "
+                                         "tokens)")
+            n += 1
+        if n < 1:
+            raise AssertionError("no spilled entry found in the pool")
+        return n
+
+    checked = byte_check(new, payload)
+    same_as_home = 0
+    home = sched.replicas[0]
+    for e in payload["entries"]:
+        ent, depth = home._prefix_index.match(np.asarray(e["tokens"]), touch=False)
+        ent2, _ = new._prefix_index.match(np.asarray(e["tokens"]), touch=False)
+        if ent is None or ent2 is None or depth < len(ent.tokens) or len(ent.pages) != len(ent2.pages):
+            continue
+        with home._on_stream():
+            a = home.pool.read_pages(ent.pages)
+        with new._on_stream():
+            b = new.pool.read_pages(ent2.pages)
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("a preseeded entry's pages differ from the home replica's")
+        same_as_home += 1
+    # planted: a preseed written one page off
+    plant = sched.factory(99)
+    real_write = plant.pool.write_pages
+    plant.pool.write_pages = lambda pages, comps: real_write([p + 1 for p in pages], comps)
+    plant.preseed_prefix_state(payload)
+    must_fail("a preseed written one page off", lambda: byte_check(plant, payload))
+    from seldon_core_tpu_torch.telemetry import flight
+
+    flight._RECORDERS.pop(plant.flight.name, None)
+    del plant
+    # the new replica's first request of a spilled system prompt
+    spilled = [np.asarray(e["tokens"]) for e in payload["entries"]]
+    mine = [t for t in spilled
+            if max((0, 2), key=lambda a: _key_rank(prefix_route_key(t, block=sched.affinity_block, seq_len=seq),
+                                                   a)) == 2]
+    src = mine[0] if mine else spilled[0]
+    g = next(i for i, p in enumerate(prompts) if np.array_equal(p[: len(src)], src))
+    prompt = prompts[g].copy()
+    prompt[-1] = (prompt[-1] + 3) % int(_model_runtime(fleet).params["tok_emb"].shape[0])
+    c0 = (new.stat_prefix_hits, new.stat_prefix_misses)
+    if mine:
+        status, _, body, _ = await _ids_post(fleet.port, prompt[None], {"max_new_tokens": 4})
+        via = "REST (routed to replica 2)"
+    else:
+        await new.submit(prompt, max_new_tokens=4)
+        status, via = 200, "replica 2 directly (no spilled system prompt homes on it)"
+    if status != 200 or (new.stat_prefix_hits - c0[0], new.stat_prefix_misses - c0[1]) != (1, 0):
+        raise AssertionError(f"fleet 12d: replica 2's first request of a spilled system prompt was no prefix hit")
+    if new.recompiles_since_warmup() != 0 or sched.recompiles_since_warmup() != 0:
+        raise AssertionError("fleet 12d: dispatch keys after warmup")
+    row = dict(triggered_after_s=round(triggered, 3), queue_depth_at_trigger=depth_at_trigger,
+               requests=len(replies), boot_s={k: round(v, 3) for k, v in new.boot_split.items()},
+               spilled_entries=len(payload["entries"]), preseeded=new.stat_prefix_preseeded,
+               bytes_checked=checked, equal_to_home=same_as_home, first_request=via,
+               reserved_growth_mib=round(grew / 2**20, 1), pool_mib=round(_pool_bytes(new) / 2**20, 1),
+               states=sched.replica_states())
+    print(f"[{card}] fleet 12d warm scale-up: {json.dumps(row)}; a preseed written one page off failed the byte "
+          f"check", flush=True)
+    return row
+
+
+async def serve_fleet(card) -> dict:
+    """Phase 12: the replicated decode fleet (gpt2_small_replicated: two
+    GPT-2-small replicas of 8 slots sharing the card's parameters, the
+    affinity router, health polling at 20 ms) through REST on the pipelined
+    loop, beside one-replica copies at 8 and at 16 slots (16 slots get
+    twice the pages and prefix entries): 12a routing and rows, 12b eviction
+    and migration, 12c drain, 12d warm scale-up, and the planted faults of
+    each. Neither kernel launches (counted)."""
+    import shutil
+
+    from seldon_core_tpu_torch.ops import int8_matmul
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.utils.env import PERSISTENCE_STORE
+
+    t0 = time.perf_counter()
+    store = ROOT / FLEET_STORE
+    shutil.rmtree(store, ignore_errors=True)
+    os.environ[PERSISTENCE_STORE] = f"file://{store}"
+    launches0, int8_0 = LAUNCHES.count, int8_matmul.LAUNCHES.count
+    tpu = json.loads((BASELINE_DIR / "gpt2_small_replicated.json").read_text())["spec"]["predictors"][0]["tpu"]
+    fleet, fleet_build, fleet_warm = await _start_fleet(BASELINE_DIR / "gpt2_small_replicated.json")
+    one8, *_ = await _start(_one_replica_copy(tpu["decode_slots"], tpu["decode_kv_pages"], tpu["decode_prefix_slots"]))
+    one16, *_ = await _start(_one_replica_copy(2 * tpu["decode_slots"], 2 * tpu["decode_kv_pages"],
+                                               2 * tpu["decode_prefix_slots"]))
+    sched = fleet.decode_scheduler
+    params = _cpu_params(_model_runtime(fleet))
+    memory = {"replica_warmup_mib": {i: round(b / 2**20, 1) for i, b in fleet.replica_warmup_bytes.items()},
+              "replica_pool_mib": {i: round(_pool_bytes(r) / 2**20, 1) for i, r in sched.live_replicas},
+              "one8_warmup_mib": round(one8.warmup_reserved_bytes / 2**20, 1),
+              "one16_warmup_mib": round(one16.warmup_reserved_bytes / 2**20, 1)}
+    print(f"[{card}] phase 12 fleet built in {fleet_build:.3f} s, warmed in {fleet_warm:.3f} s; replicas share the "
+          f"parameters: {all(r.params is _model_runtime(fleet).params for _, r in sched.live_replicas)}; memory "
+          f"{json.dumps(memory)}", flush=True)
+    try:
+        runs = await fleet_runs(card, fleet, one8, one16, params)
+        base = {"rows_in": runs.pop("rows")}
+        faults = await fleet_faults(card, fleet, base)
+        migration = await fleet_migration_cost(card, fleet, base)
+        drain = await fleet_drain(card, fleet, one8, base)
+        scale = await fleet_scale_up(card, fleet, base, store)
+        sched.allocator_audits()
+    finally:
+        for srv in (fleet, one8, one16):
+            await srv.stop()
+        os.environ.pop(PERSISTENCE_STORE, None)
+    launches = {"flash_attention": LAUNCHES.count - launches0, "int8_matmul": int8_matmul.LAUNCHES.count - int8_0}
+    print(f"[{card}] phase 12 launches: {json.dumps(launches)}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the fleet launched a kernel: {launches}")
+    return {"memory": memory, "runs": runs, "faults": faults, "migration": migration, "drain": drain,
+            "scale_up": scale, "launches": launches, "seconds": round(time.perf_counter() - t0, 3)}
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -4672,6 +5475,12 @@ def main() -> int:
           f"{json.dumps(sources['bert_base_hf_int8_by_body'])}", flush=True)
     print(f"[{card}] phase 11 seconds: {time.perf_counter() - t11:.3f}", flush=True)
 
+    # 12. the replicated decode fleet: routing, eviction and migration,
+    # drain, warm scale-up
+    t12 = time.perf_counter()
+    fleet = asyncio.run(serve_fleet(card))
+    print(f"[{card}] phase 12 seconds: {time.perf_counter() - t12:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -4687,7 +5496,8 @@ def main() -> int:
                              "speculative deployments (phase 6)": spec_launches,
                              "pipelined and tier deployments (phase 9)": pipeline_launches,
                              "learning (phase 10)": learning_launches,
-                             "model sources (phase 11)": source_launches},
+                             "model sources (phase 11)": source_launches,
+                             "replicated fleet (phase 12)": fleet["launches"]["flash_attention"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -4715,7 +5525,8 @@ def main() -> int:
         "replaces": "seldon_core_tpu/models/base.py:137",
         "launches": int8_launches + learning_int8 + source_int8,
         "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8,
-                             "model sources (phase 11)": source_int8},
+                             "model sources (phase 11)": source_int8,
+                             "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"]},
         "launches_by_body": int8_by_body,
         "host_us": int8_host["wrapper_us"],
         **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
@@ -4730,6 +5541,7 @@ def main() -> int:
     print(json.dumps({"learning": {"card": card, **learning}}), flush=True)
     print(json.dumps({"model_sources_and_user_code": {"card": card, "store": store, **{
         k: v for k, v in sources.items() if not k.endswith("_by_body")}, **user_code}}), flush=True)
+    print(json.dumps({"fleet": {"card": card, **fleet}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

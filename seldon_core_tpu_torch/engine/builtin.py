@@ -6,9 +6,10 @@ A/B split), EPSILON_GREEDY (bandit router fed by send_feedback),
 MEAN_TRANSFORMER (subtracts stored means), AVERAGE_COMBINER (element-wise
 mean ensemble), FAULT_INJECTOR (seeded failures and latency), SHADOW
 (serve child 0, mirror the rest), OUTLIER_DETECTOR (max |z| score tags)
-and PYTHON_CLASS (a user's class loaded in-process), plus JAX_MODEL, the
-deployment JSON's name for an in-process zoo model. PREFIX_AFFINITY is
-refused by name: it is not part of the port yet. Routing draws from
+PYTHON_CLASS (a user's class loaded in-process) and PREFIX_AFFINITY (the
+replicated decode fleet's affinity balancer as a graph ROUTER), plus
+JAX_MODEL, the deployment JSON's name for an in-process zoo model. Every
+built-in of the JAX package is served. Routing draws from
 Python's ``random.Random`` exactly as the JAX package does, so the same
 requests give the same ``meta.routing`` in both packages.
 
@@ -222,6 +223,78 @@ class EpsilonGreedyRouter(Unit):
             self.rewards[routing] += feedback.reward
 
 
+class PrefixAffinityRouterUnit(Unit):
+    """Generative replica router: prompts that share a leading token block
+    rendezvous-hash to one child, whose prefix pool is warm for them; a
+    prompt with no affinity signal (shorter than one block, or no tensor)
+    rides reward-driven per-child bandit arms, and a home whose observed
+    queue depth runs past the bounded-load factor sheds to its second
+    rendezvous rank. The policy is ``serving/affinity_router.AffinityBalancer``,
+    the fleet's own. Rewards come through send_feedback (replayed down
+    ``meta.routing``) and, with no client change, from the SLO verdicts the
+    serving layer feeds back (``consumes_slo_feedback``); child depths come
+    through ``observe_depth`` (a poll of each child's ``/decode/health``).
+
+    Parameters: ``block`` (default 16, one KV page), ``fallback``
+    ("epsilon_greedy" | "thompson"), ``epsilon``, ``load_factor`` (default
+    1.25), ``seed``. The learned arms pickle (persistence/state.py)."""
+
+    # serving/service.py feeds meta.tags.slo verdicts back as rewards to
+    # graphs that hold this unit
+    consumes_slo_feedback = True
+
+    def __init__(self, spec: PredictiveUnit):
+        super().__init__(spec)
+        from seldon_core_tpu_torch.serving.affinity_router import DEFAULT_AFFINITY_BLOCK, AffinityBalancer
+
+        if not spec.children:
+            raise APIException(
+                ErrorCode.ENGINE_INVALID_ROUTING, f"PREFIX_AFFINITY '{spec.name}' needs children to route over"
+            )
+        self.block = int(self.params.get("block", DEFAULT_AFFINITY_BLOCK))
+        self.balancer = AffinityBalancer(
+            len(spec.children),
+            policy="affinity",
+            fallback=str(self.params.get("fallback", "epsilon_greedy")),
+            epsilon=float(self.params.get("epsilon", 0.1)),
+            load_factor=float(self.params.get("load_factor", 1.25)),
+            seed=self.params.get("seed"),
+        )
+
+    def observe_depth(self, child: int, depth: int) -> None:
+        """One child's polled queue depth, for the bounded-load shed."""
+        self.balancer.observe_depth(child, depth)
+
+    async def route(self, msg: SeldonMessage) -> int:
+        from seldon_core_tpu_torch.serving.affinity_router import prefix_route_key
+
+        key = ()
+        if msg.array is not None:
+            arr = np.atleast_2d(np.asarray(to_host(msg.array)))
+            if arr.size and np.issubdtype(arr.dtype, np.number):
+                # a batch routes on row 0: a ROUTER decides per request
+                key = prefix_route_key(arr[0], block=self.block)
+        arm, _reason = self.balancer.pick(key)
+        return arm
+
+    async def send_feedback(self, feedback: Feedback, routing: int) -> None:
+        self.balancer.reward(routing, feedback.reward)
+
+    def __getstate__(self):
+        return {"block": self.block, "balancer": self.balancer}
+
+    def __setstate__(self, state):
+        # restored onto a unit built for the current graph: keep its arm
+        # count and copy the learned estimates of the arms that still exist
+        self.block = state["block"]
+        restored, bal = state["balancer"], self.balancer
+        for i in range(min(bal.n_arms, restored.n_arms)):
+            bal.counts[i] = restored.counts[i]
+            bal.rewards[i] = restored.rewards[i]
+            bal.alpha[i] = restored.alpha[i]
+            bal.beta[i] = restored.beta[i]
+
+
 class FaultInjectorUnit(Unit):
     """Chaos-testing transformer: fails a seeded fraction of requests
     transport-class or adds latency, so retries, breakers and fallbacks can
@@ -371,7 +444,8 @@ def _not_ported(spec: PredictiveUnit, context: dict) -> Unit:
     )
 
 
-_NOT_PORTED = (PredictiveUnitImplementation.PREFIX_AFFINITY,)
+# built-ins of the JAX package the port does not serve: none
+_NOT_PORTED: tuple[PredictiveUnitImplementation, ...] = ()
 
 
 def register_builtins(registry: UnitRegistry) -> None:
@@ -385,6 +459,7 @@ def register_builtins(registry: UnitRegistry) -> None:
         PredictiveUnitImplementation.FAULT_INJECTOR: FaultInjectorUnit,
         PredictiveUnitImplementation.OUTLIER_DETECTOR: ZScoreOutlierUnit,
         PredictiveUnitImplementation.SHADOW: ShadowRouterUnit,
+        PredictiveUnitImplementation.PREFIX_AFFINITY: PrefixAffinityRouterUnit,
     }
     for impl, cls in simple.items():
         registry.register(impl, lambda spec, ctx, _cls=cls: _cls(spec))

@@ -8,7 +8,9 @@ paths, breaker transitions, deadline budgets and degradation are exercised
 end to end on the real graph. Everything is driven by one seeded RNG
 consumed in call order, so a (spec, seed) gives the same fault sequence on
 every run. The decode tier's faults (``DecodeFaultSpec``,
-``install_decode_faults``) come with the replicated decode fleet.
+``install_decode_faults``) arm one scheduler replica of a fleet: a round
+that hangs, an induced allocator OOM, a readback stall, dropped health
+probes, each a pure function of the call's ordinal.
 
     from seldon_core_tpu_torch.engine.faults import FaultSpec, install_faults
     install_faults(server.executor, {"iris-primary": FaultSpec(error_rate=1.0, seed=5)})
@@ -47,7 +49,7 @@ class FaultSpec:
 
 @dataclasses.dataclass(frozen=True)
 class FaultDecision:
-    action: str  # "ok" | "error" | "timeout"
+    action: str  # "ok" | "error" | "timeout"; decode rounds: "hang" | "oom"
     delay_s: float = 0.0
 
 
@@ -152,6 +154,78 @@ class ChaosUnit(Unit):
 
     async def send_feedback(self, feedback: Feedback, routing: int) -> None:
         await self.inner.send_feedback(feedback, routing)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeFaultSpec:
+    """A decode-tier fault profile for one scheduler replica. Round ordinals
+    are 1-based and count active decode rounds from ``install_decode_faults``
+    on (``hang_at_round=1`` hits the very next round); probe ordinals count
+    ``health_probe`` calls the same way. Every decision is a pure function
+    of (spec, ordinal), so a rerun replays the same faults."""
+
+    hang_at_round: int = 0  # the round that hangs (0: never)
+    hang_s: float = 30.0  # how long it sleeps
+    oom_at_round: int = 0  # the round whose page write hits an induced OOM
+    readback_stall_ms: float = 0.0  # added stall per device readback
+    stall_from_round: int = 0  # the first round the stall applies to (0: never)
+    drop_health_from: int = 0  # the first probe dropped (0: never)
+    drop_health_count: int = 0  # probes dropped from there (0: all)
+    seed: int = 0
+
+
+class DecodeFaultState:
+    """The decode-tier fault schedule, which the scheduler consults at the top
+    of each active round, at each readback and at each health probe; it
+    counts those calls, so decisions depend on the spec and the ordinal
+    alone, never on the clock."""
+
+    def __init__(self, spec: DecodeFaultSpec):
+        self.spec = spec
+        self._lock = threading.Lock()
+        self.rounds = 0
+        self.probes = 0
+        self.injected = 0
+
+    def round_decision(self) -> FaultDecision:
+        with self._lock:
+            self.rounds += 1
+            s = self.spec
+            if s.hang_at_round > 0 and self.rounds == s.hang_at_round:
+                self.injected += 1
+                return FaultDecision("hang", s.hang_s)
+            if s.oom_at_round > 0 and self.rounds == s.oom_at_round:
+                self.injected += 1
+                return FaultDecision("oom")
+            return FaultDecision("ok")
+
+    def readback_stall_s(self) -> float:
+        with self._lock:
+            s = self.spec
+            if s.readback_stall_ms > 0 and s.stall_from_round > 0 and self.rounds >= s.stall_from_round:
+                self.injected += 1
+                return s.readback_stall_ms / 1000.0
+            return 0.0
+
+    def health_drop(self) -> bool:
+        with self._lock:
+            self.probes += 1
+            s = self.spec
+            if s.drop_health_from <= 0 or self.probes < s.drop_health_from:
+                return False
+            if s.drop_health_count > 0 and self.probes >= s.drop_health_from + s.drop_health_count:
+                return False
+            self.injected += 1
+            return True
+
+
+def install_decode_faults(scheduler, spec: DecodeFaultSpec) -> DecodeFaultState:
+    """Arm a DecodeScheduler (one fleet replica) with a decode fault profile,
+    replacing any earlier one; returns the state, whose ``rounds``,
+    ``probes`` and ``injected`` a chaos test reads."""
+    state = DecodeFaultState(spec)
+    scheduler._faults = state
+    return state
 
 
 def install_faults(

@@ -282,6 +282,13 @@ _TPU_FIELDS = (
     "decode_slo_ttft_ms",
     "decode_slo_itl_ms",
     "decode_npy_bindata",
+    "decode_replicas",
+    "decode_router_policy",
+    "decode_autoscale_replicas",
+    "decode_autoscale_queue_depth",
+    "decode_health_poll_ms",
+    "decode_health_miss_threshold",
+    "decode_drain_timeout_ms",
 )
 
 
@@ -344,6 +351,17 @@ class TpuSpec:
     # False: binData is never sniffed for the npy magic (an explicit
     # application/x-npy body is still decoded); one value per deployment
     decode_npy_bindata: bool = True
+    # the replicated decode fleet (serving/affinity_router.py): replicas
+    # behind the router (affinity | round_robin | bandit; "" affinity), the
+    # autoscale cap and its queue-depth trigger (0: off), the health poll
+    # interval (0: off), the misses that evict, and the drain budget
+    decode_replicas: int = 1
+    decode_router_policy: str = ""
+    decode_autoscale_replicas: int = 0
+    decode_autoscale_queue_depth: int = 0
+    decode_health_poll_ms: float = 0.0
+    decode_health_miss_threshold: int = 3
+    decode_drain_timeout_ms: float = 5000.0
     extra: Mapping[str, Any] = field(default_factory=dict)
 
     @staticmethod
@@ -381,6 +399,13 @@ class TpuSpec:
             decode_slo_ttft_ms=float(obj.get("decode_slo_ttft_ms", 0.0)),
             decode_slo_itl_ms=float(obj.get("decode_slo_itl_ms", 0.0)),
             decode_npy_bindata=bool_param(obj.get("decode_npy_bindata", True)),
+            decode_replicas=int(obj.get("decode_replicas", 1)),
+            decode_router_policy=str(obj.get("decode_router_policy", "") or ""),
+            decode_autoscale_replicas=int(obj.get("decode_autoscale_replicas", 0)),
+            decode_autoscale_queue_depth=int(obj.get("decode_autoscale_queue_depth", 0)),
+            decode_health_poll_ms=float(obj.get("decode_health_poll_ms", 0.0)),
+            decode_health_miss_threshold=int(obj.get("decode_health_miss_threshold", 3)),
+            decode_drain_timeout_ms=float(obj.get("decode_drain_timeout_ms", 5000.0)),
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 

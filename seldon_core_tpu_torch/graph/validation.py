@@ -13,12 +13,12 @@ messages word for word, over the port's dataclass spec (``graph/spec.py``):
   tier's ``decode_*`` rules (``decode_problems``).
 
 The port adds its own refusal by name of each ``decode_*`` knob it does not
-serve (``UNPORTED_DECODE_KNOBS``; such a knob is read from
-``TpuSpec.extra`` and still held to the JAX package's rule). Two refusals
-stay where they are made: a ``tpu.mesh`` one card cannot hold
-(``graph/defaulting.py::mesh_from_spec``, applied by the server) and an
-unported built-in (``engine/builtin.py``). ``validate_deployment`` raises
-ValidationError listing every problem, not just the first.
+serve (``UNPORTED_DECODE_KNOBS``, tensor-parallel decode alone; such a knob
+is read from ``TpuSpec.extra`` and still held to the JAX package's rule).
+One refusal stays where it is made: a ``tpu.mesh`` one card cannot hold
+(``graph/defaulting.py::mesh_from_spec``, applied by the server).
+``validate_deployment`` raises ValidationError listing every problem, not
+just the first.
 """
 
 from __future__ import annotations
@@ -40,16 +40,9 @@ class ValidationError(ValueError):
 
 # decode_* knobs of the JAX package the port does not serve yet, with their
 # defaults there: a deployment that sets one to anything else is refused by
-# name, as engine/builtin.py refuses an unported built-in
+# name (tensor-parallel decode is multi-device work)
 UNPORTED_DECODE_KNOBS = {
     "decode_mesh_axes": {},
-    "decode_replicas": 1,
-    "decode_router_policy": "",
-    "decode_autoscale_replicas": 0,
-    "decode_autoscale_queue_depth": 0,
-    "decode_health_poll_ms": 0.0,
-    "decode_health_miss_threshold": 3,
-    "decode_drain_timeout_ms": 5000.0,
 }
 
 
@@ -294,13 +287,12 @@ def _speculation_problems(name: str, tpu) -> list[str]:
 
 
 def _fleet_problems(name: str, tpu) -> list[str]:
-    """The JAX package's rules for the replicated decode fleet (unported
-    knobs: refused by name above, held to these rules too)."""
-    replicas = int(_unported(tpu, "decode_replicas"))
-    auto = int(_unported(tpu, "decode_autoscale_replicas"))
-    depth = int(_unported(tpu, "decode_autoscale_queue_depth"))
-    policy = str(_unported(tpu, "decode_router_policy") or "")
-    poll = float(_unported(tpu, "decode_health_poll_ms"))
+    """The JAX package's rules for the replicated decode fleet."""
+    replicas = int(tpu.decode_replicas)
+    auto = int(tpu.decode_autoscale_replicas)
+    depth = int(tpu.decode_autoscale_queue_depth)
+    policy = str(tpu.decode_router_policy or "")
+    poll = float(tpu.decode_health_poll_ms)
     problems = []
     if replicas < 1:
         problems.append(f"predictor '{name}' decode_replicas must be >= 1")
@@ -351,12 +343,12 @@ def _fleet_problems(name: str, tpu) -> list[str]:
         )
     if poll < 0:
         problems.append(f"predictor '{name}' decode_health_poll_ms must be >= 0")
-    if int(_unported(tpu, "decode_health_miss_threshold")) < 1:
+    if int(tpu.decode_health_miss_threshold) < 1:
         problems.append(
             f"predictor '{name}' decode_health_miss_threshold must be >= 1 (zero would evict on the "
             "first poll)"
         )
-    if float(_unported(tpu, "decode_drain_timeout_ms")) < 0:
+    if float(tpu.decode_drain_timeout_ms) < 0:
         problems.append(f"predictor '{name}' decode_drain_timeout_ms must be >= 0")
     if poll > 0 and fleet_max <= 1:
         problems.append(

@@ -15,10 +15,11 @@ Grafana dashboards carry over (port of ``seldon_core_tpu/metrics/registry.py``):
   ``seldon_tpu_xla_compile_seconds`` keeps its name; here it times the
   capture of CUDA graphs at warmup.
 
-The hooks of features the port does not have yet (sibling pulls,
-per-device pages, the replica router and fleet) stay
-no-ops inherited from ``NullMetrics``, and their
-families are not registered.
+The replicated decode fleet's families (``seldon_tpu_router_*``,
+``seldon_tpu_replica_*`` and the sibling pulls) are registered too. The
+hook of the one feature the port does not have yet (per-device pages,
+tensor-parallel decode) stays a no-op inherited from ``NullMetrics``, and
+its family is not registered.
 
 The card's host has no ``prometheus_client``, so the registry carries its
 own Counter, Gauge and Histogram and writes both text expositions itself:
@@ -523,6 +524,10 @@ class Metrics(NullMetrics):
         self._kv_promotions = Counter(
             "seldon_tpu_decode_kv_promotions_total", "Prefix entries promoted to the device pool from a slow tier",
             ["deployment_name", "tier"], registry=registry)
+        self._kv_sibling_pulls = Counter(
+            "seldon_tpu_decode_kv_sibling_pulls_total",
+            "Cross-replica prefix pulls from the rendezvous home (outcome=hit|miss|error)",
+            ["deployment_name", "outcome"], registry=registry)
         self._decode_round_busy = Histogram(
             "seldon_tpu_decode_round_device_seconds", "Device-dispatch wall time per decode scheduler round",
             ["deployment_name"], registry=registry)
@@ -545,6 +550,47 @@ class Metrics(NullMetrics):
             "seldon_tpu_decode_ttft_split_seconds",
             "TTFT split by admission path (warm = prefix hit, cold = full prefill)", ["deployment_name", "path"],
             registry=registry)
+        # the replicated decode fleet (serving/affinity_router.py): routing,
+        # then the replica lifecycle funnel and its counters
+        self._router_routes = Counter(
+            "seldon_tpu_router_routes_total",
+            "Decode-replica routing decisions (reason=affinity|shed|fallback|round_robin)",
+            ["deployment_name", "policy", "reason"], registry=registry)
+        self._router_queue_depth = Gauge(
+            "seldon_tpu_router_queue_depth",
+            "Per-replica load (queue depth + active slots) the router last balanced on",
+            ["deployment_name", "replica"], registry=registry)
+        self._router_arm = Gauge(
+            "seldon_tpu_router_arm_estimate",
+            "Per-replica bandit arm mean-reward estimate (moved by Feedback-API rewards / automatic SLO verdicts)",
+            ["deployment_name", "replica"], registry=registry)
+        self._router_replicas = Gauge(
+            "seldon_tpu_router_replicas", "Live decode replicas behind the router (autoscale moves it)",
+            ["deployment_name"], registry=registry)
+        self._router_preseed = Counter(
+            "seldon_tpu_router_preseeded_pages_total", "Prefix-pool pages pre-seeded into warm-booted replicas",
+            ["deployment_name"], registry=registry)
+        self._replica_state = Gauge(
+            "seldon_tpu_replica_state", "Decode replica lifecycle state (0=up 1=draining 2=evicted 3=down)",
+            ["deployment_name", "replica"], registry=registry)
+        self._replica_evictions = Counter(
+            "seldon_tpu_replica_evictions_total", "Decode replicas evicted from routing (health breaker opened)",
+            ["deployment_name"], registry=registry)
+        self._replica_recoveries = Counter(
+            "seldon_tpu_replica_recoveries_total", "Evicted decode replicas readmitted via half-open probe",
+            ["deployment_name"], registry=registry)
+        self._replica_drains = Counter(
+            "seldon_tpu_replica_drains_total", "Decode replicas gracefully drained and released",
+            ["deployment_name"], registry=registry)
+        self._replica_migrations = Counter(
+            "seldon_tpu_replica_migrations_total", "In-flight generations migrated off dead/draining replicas",
+            ["deployment_name"], registry=registry)
+        self._replica_boot_failures = Counter(
+            "seldon_tpu_replica_boot_failures_total", "Scale-up replica boots that failed",
+            ["deployment_name"], registry=registry)
+        self._replica_spill_failures = Counter(
+            "seldon_tpu_replica_spill_failures_total", "Prefix-spill store/preseed round-trips that failed",
+            ["deployment_name"], registry=registry)
         # SHADOW candidate validation: per-shadow agreement with the primary
         self._shadow = Counter(
             "seldon_tpu_shadow_comparisons", "Shadow-vs-primary output comparisons",
@@ -655,6 +701,9 @@ class Metrics(NullMetrics):
         if n > 0:
             self._kv_promotions.labels(deployment, tier).inc(n)
 
+    def decode_kv_sibling_pull(self, deployment, outcome):
+        self._kv_sibling_pulls.labels(deployment, outcome).inc()
+
     def decode_round(self, deployment, busy_s, gap_s):
         self._decode_round_busy.labels(deployment).observe(busy_s)
         self._decode_round_gap.labels(deployment).observe(gap_s)
@@ -676,6 +725,45 @@ class Metrics(NullMetrics):
             except ValueError:
                 pass
         c.inc()
+
+    def router_route(self, deployment, policy, reason):
+        self._router_routes.labels(deployment, policy, reason).inc()
+
+    def router_queue_depth(self, deployment, replica, depth):
+        self._router_queue_depth.labels(deployment, str(replica)).set(depth)
+
+    def router_arm(self, deployment, replica, estimate):
+        self._router_arm.labels(deployment, str(replica)).set(estimate)
+
+    def router_replicas(self, deployment, n):
+        self._router_replicas.labels(deployment).set(n)
+
+    def router_preseed(self, deployment, pages):
+        self._router_preseed.labels(deployment).inc(pages)
+
+    def replica_state(self, deployment, replica, state):
+        from seldon_core_tpu_torch.serving.affinity_router import replica_state_value
+
+        self._replica_state.labels(deployment, str(replica)).set(replica_state_value(state))
+
+    def replica_eviction(self, deployment):
+        self._replica_evictions.labels(deployment).inc()
+
+    def replica_recovery(self, deployment):
+        self._replica_recoveries.labels(deployment).inc()
+
+    def replica_drain(self, deployment):
+        self._replica_drains.labels(deployment).inc()
+
+    def replica_migration(self, deployment, n):
+        if n > 0:
+            self._replica_migrations.labels(deployment).inc(n)
+
+    def replica_boot_failure(self, deployment):
+        self._replica_boot_failures.labels(deployment).inc()
+
+    def replica_spill_failure(self, deployment):
+        self._replica_spill_failures.labels(deployment).inc()
 
     def compile(self, deployment, bucket, duration_s):
         self._compile.labels(deployment, str(bucket)).observe(duration_s)

@@ -109,11 +109,23 @@ memory (then to the store), and an admission whose device match is
 shallower than a tier's promotes the entry back into ``preseed_pin``-pinned
 free pages, inside the overlap window when the admission is decided there.
 
+Fleet replicas (``serving/affinity_router.py``): ``scheduler_for_executor``
+builds ``decode_replicas`` schedulers behind the affinity router, each with
+its own pool, index, graph cache, stream and worker over the runtime's
+parameter tensors. A replica answers ``health_probe``, reports
+``queue_depth``, exports its prefix pages (``export_prefix_state``,
+``export_prefix_entry``; only the chosen pages' columns leave the card) and
+resumes a migrated generation (``submit(_replay_tokens=)``: the prompt
+prefills through the warmed chunk keys, then each replayed position rides
+a plain round whose input is the recorded token, and nothing replayed is
+streamed again). ``engine/faults.py::install_decode_faults`` arms its chaos
+hooks: a round that hangs on the loop, an induced allocator OOM, a
+readback stall on the worker, dropped probes.
+
 Not ported yet, and refused by name at deployment build
-(``graph/validation.py::decode_problems``): tensor-parallel decode and the
-replicated fleet (with it the sibling pull between replicas). The queue
-timeout is honoured, and a request's deadline budget is
-enforced at the ingress and judged here for goodput.
+(``graph/validation.py::decode_problems``): tensor-parallel decode. The
+queue timeout is honoured, and a request's deadline budget is enforced at
+the ingress and judged here for goodput.
 """
 
 from __future__ import annotations
@@ -122,6 +134,7 @@ import asyncio
 import collections
 import contextlib
 import logging
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
@@ -161,6 +174,7 @@ from seldon_core_tpu_torch.models.decoder import (
 from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree, parse_spec_tree
 from seldon_core_tpu_torch.ops.graphs import GraphCache
 from seldon_core_tpu_torch.persistence.state import make_state_store
+from seldon_core_tpu_torch.serving.affinity_router import capture_prefix_len, usable_prefix_len
 from seldon_core_tpu_torch.serving.kv_host_tier import KVHostTier
 from seldon_core_tpu_torch.serving.kv_pool import PagedKVPool
 from seldon_core_tpu_torch.telemetry import profile as profile_mod
@@ -453,19 +467,6 @@ class _TreeAutoTuner:
         return d, w, self.probing
 
 
-def usable_prefix_len(length: int, seq_len: int) -> int:
-    """The longest reusable span of a matched prefix: at most seq_len - 1,
-    since the last prompt position's logits give the first generated
-    token and must be computed."""
-    return max(0, min(int(length), int(seq_len) - 1))
-
-
-def capture_prefix_len(length: int, prefix_ctx: int, seq_len: int) -> int:
-    """The span a slot may capture into the prefix index: the request
-    clamped to the prefix window and the prompt. 0: nothing capturable."""
-    return max(0, min(int(length), int(prefix_ctx), int(seq_len)))
-
-
 class _PipelineGate:
     """Per-stage cost gate for the pipelined loop's overlap window (the
     JAX package's, unchanged): an EWMA of each stage's measured host cost,
@@ -516,15 +517,16 @@ class _PendingAdmit:
 
 class _PrefixEntry:
     """One cached prefix: its tokens and a reference to the pool pages that
-    hold its K/V (a kv_pool pin id)."""
+    hold its K/V (a kv_pool pin id), its LRU age and its hits."""
 
-    __slots__ = ("tokens", "pages", "pin_id", "last_use")
+    __slots__ = ("tokens", "pages", "pin_id", "last_use", "hits")
 
     def __init__(self, tokens: np.ndarray, pages: list[int], pin_id: int):
         self.tokens = np.asarray(tokens, np.int32)
         self.pages = list(pages)
         self.pin_id = pin_id
         self.last_use = 0
+        self.hits = 0
 
 
 class PrefixIndex:
@@ -562,6 +564,7 @@ class PrefixIndex:
             return None, 0
         if touch:
             ent.last_use = self._tick()
+            ent.hits += 1
         return ent, depth
 
     def insert(self, tokens, pages: list[int], pin_id: int) -> tuple["_PrefixEntry", "_PrefixEntry | None"]:
@@ -615,7 +618,7 @@ class _Seq:
         "on_token", "future", "tokens", "pos", "deadline", "prefilling",
         "prefill_pos", "chunk_cap", "cache_prefix", "t_enqueued", "t_last_token",
         "slo_deadline", "slo_ok", "slo_sink", "prefix_len", "chunk_idx", "trace_ctxs",
-        "gen_spans", "uid", "slot", "kv_tier",
+        "gen_spans", "uid", "slot", "kv_tier", "replay", "emit_base",
     )
 
     def __init__(self, prompt, max_new, temperature, top_k, spec_k, on_token, future):
@@ -655,6 +658,11 @@ class _Seq:
         # meta.tags.kv_tier, tighten-only: "" the whole ladder, "host" no
         # store consult, "off" no promotion (the device match still applies)
         self.kv_tier = ""
+        # a migrated generation's resume: positions below emit_base take the
+        # token a dead replica already streamed (``replay``) and are not
+        # streamed again
+        self.replay: tuple[int, ...] = ()
+        self.emit_base = 0
         # the submitter's trace contexts, captured at submit: the loop runs
         # in its own task, so spans go to each sequence's traces explicitly
         self.trace_ctxs = telemetry.current_contexts()
@@ -700,6 +708,7 @@ class DecodeScheduler:
         deployment_name: str = "",
         slo_ttft_ms: float = 0.0,
         slo_itl_ms: float = 0.0,
+        replica_id: int = 0,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -724,6 +733,9 @@ class DecodeScheduler:
         self.default_top_k = int(top_k)
         # how long a request may wait un-admitted before REQUEST_TIMEOUT
         self.queue_timeout_s = float(queue_timeout_s)
+        self.replica_id = int(replica_id)  # its arm in a fleet (0 alone)
+        # the decode-tier chaos profile (engine/faults.install_decode_faults)
+        self._faults = None
         self._seed = int(seed)
         self._tick = 0  # sampling draws are deterministic in (seed, tick)
 
@@ -856,6 +868,7 @@ class DecodeScheduler:
                 name=deployment_name or "decode",
                 slo_ttft_ms=float(slo_ttft_ms),
                 slo_itl_ms=float(slo_itl_ms),
+                replica_id=self.replica_id,
             )
         )
         self.flight.queue_depth_source = lambda: len(self._waiting)
@@ -1032,6 +1045,12 @@ class DecodeScheduler:
         the worker (the event's synchronize(), which releases the GIL), so
         a long round never spins the loop's thread against the units and
         the compute pool it shares the GIL with."""
+        if self._faults is not None:
+            stall = self._faults.readback_stall_s()
+            if stall > 0:
+                # the chaos readback stall holds the worker, as a stalled
+                # readback of the round in flight would
+                await self._device_call(lambda: time.sleep(stall))
         if done is not None:
             end = time.perf_counter() + self.readback_spin_s
             while not done.query():
@@ -1208,6 +1227,9 @@ class DecodeScheduler:
         t0 = time.perf_counter_ns()
         self._rb_mark_ns = 0
         self._rb_draft_ns = 0
+        stall = self._faults.readback_stall_s() if self._faults is not None else 0.0
+        if stall > 0:
+            fn = _stalled(fn, stall)
         try:
             return await self._device_call(fn)
         finally:
@@ -1360,6 +1382,12 @@ class DecodeScheduler:
     def active(self) -> int:
         return self.n_slots - len(self._free)
 
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting un-admitted: the fleet's shed and autoscale
+        signal (``/decode/health`` ``queue_depth``)."""
+        return len(self._waiting)
+
     # -------------------------------------------------------------- submit
     async def submit(
         self,
@@ -1375,6 +1403,7 @@ class DecodeScheduler:
         kv_tier: str | None = None,
         on_token: OnToken | None = None,
         _slo_sink: Callable[[bool], None] | None = None,
+        _replay_tokens=None,
     ) -> np.ndarray:
         """Generate for one prompt [seq_len]; resolves with the int32
         sequence (prompt echoed, generated ids appended). ``on_token`` is
@@ -1387,7 +1416,10 @@ class DecodeScheduler:
         deployment's chunk cap. ``kv_tier`` ("off" or "host") narrows which
         KV tiers may promote this request's prefix. ``_slo_sink`` receives
         the request's SLO verdict at retirement (``execute_message``'s
-        ``meta.tags.slo``)."""
+        ``meta.tags.slo``). ``_replay_tokens`` (a fleet migration only):
+        the tokens a dead replica already streamed, teacher-forced and not
+        streamed again, so the resumed row is the uninterrupted greedy
+        row."""
         if self._closed:
             raise APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, "decode scheduler closed")
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
@@ -1432,6 +1464,9 @@ class DecodeScheduler:
         if d is not None:
             seq.slo_deadline = time.perf_counter() + max(d.remaining(), 0.0)
         seq.slo_sink = _slo_sink
+        if _replay_tokens:
+            seq.replay = tuple(int(t) for t in _replay_tokens)
+            seq.emit_base = len(seq.replay)
         if self.queue_timeout_s > 0:
             seq.deadline = seq.t_enqueued + self.queue_timeout_s
         self._waiting.append(seq)
@@ -1441,13 +1476,24 @@ class DecodeScheduler:
         return await seq.future
 
     # ---------------------------------------------------------------- loop
-    def _emit(self, seq: _Seq, tok: int) -> None:
+    def _emit(self, seq: _Seq, tok: int) -> int:
         """Record one generated token: time it (TTFT, ITL and their SLOs),
-        stream it. Runs under the emit/SLO phase."""
+        stream it. Returns the effective token, which every consumer (the
+        finish check, the next round's input) uses: during a migration's
+        replay the recorded token overrides the computed one. Runs under the
+        emit/SLO phase."""
         with self._phase(P_EMIT_SLO):
-            self._emit_inner(seq, tok)
+            return self._emit_inner(seq, tok)
 
-    def _emit_inner(self, seq: _Seq, tok: int) -> None:
+    def _emit_inner(self, seq: _Seq, tok: int) -> int:
+        idx = len(seq.tokens)
+        if idx < seq.emit_base:
+            # replay: teacher-force the token a dead replica already
+            # streamed; no metric, no stream (that emission was the real one)
+            tok = int(seq.replay[idx])
+            seq.tokens.append(tok)
+            seq.t_last_token = time.perf_counter()
+            return tok
         now = time.perf_counter()
         seq.tokens.append(tok)
         if len(seq.tokens) == 1:
@@ -1475,11 +1521,14 @@ class DecodeScheduler:
         seq.t_last_token = now
         self.stat_tokens += 1
         self._rb_tokens += 1
-        if seq.on_token is not None:
+        # a request that left while its round was in flight streams nothing
+        # more: a migrated one resumes elsewhere from what it had streamed
+        if seq.on_token is not None and not seq.future.done():
             try:
                 seq.on_token(tok, len(seq.tokens) - 1)
             except Exception:  # noqa: BLE001 - a broken consumer must not kill the loop
                 log.exception("on_token callback failed")
+        return tok
 
     def _finished(self, seq: _Seq, tok: int) -> bool:
         return tok == self.eos_id or len(seq.tokens) >= seq.max_new
@@ -1661,6 +1710,77 @@ class DecodeScheduler:
         self._metrics.router_preseed(self._deployment, len(pages))
         self._kv_gauges()
         return len(staged)
+
+    def _payload(self, entries: list[tuple]) -> dict:
+        """A spill payload (``preseed_prefix_state``'s schema) of (tokens,
+        components) entries."""
+        return {
+            "page_size": self.pool.page_size,
+            "kv_dtype": self.pool.kv_dtype,
+            "entries": [{"tokens": np.asarray(t, np.int32).copy(), "components": [np.asarray(c) for c in comps]}
+                        for t, comps in entries],
+        }
+
+    def _read_entries(self, entries: list) -> list[tuple]:
+        """(tokens, components) of index entries: one gather of just their
+        pages' columns on the card and one readback, never the whole pool."""
+        pages = [p for e in entries for p in e.pages]
+        if not pages:
+            return []
+        with self._on_stream():
+            comps = self.pool.read_pages(pages)
+        out, at = [], 0
+        for e in entries:
+            n = len(e.pages)
+            out.append((e.tokens, [c[:, at : at + n] for c in comps]))
+            at += n
+        return out
+
+    def export_prefix_state(self, top_n: int = 0) -> dict | None:
+        """The prefix index's hottest entries with their pages' bytes as
+        stored (an int8 pool's planes and scales verbatim), for a new or a
+        sibling replica's ``preseed_prefix_state``: ranked by the pages'
+        refcounts (live sharers), then hits, then recency; ``top_n`` caps
+        them (0: all). None without the prefix cache. Runs on the loop
+        between awaits, so the index cannot move under it; the page reads
+        queue behind the round in flight."""
+        if not self.prefix_enabled:
+            return None
+        refs = self.pool.alloc.refs
+        entries = sorted(self._prefix_index.entries.values(),
+                         key=lambda e: (sum(int(refs[p]) for p in e.pages), e.hits, e.last_use), reverse=True)
+        if top_n > 0:
+            entries = entries[: int(top_n)]
+        return self._payload(self._read_entries(entries))
+
+    def prefix_probe_depth(self, prompt) -> int:
+        """How deep any local tier (the device index, the host and store
+        tiers) could serve ``prompt``: host metadata only, no LRU touch."""
+        if not self.prefix_enabled:
+            return 0
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        _, depth = self._prefix_index.match(prompt, touch=False)
+        if self._host_tier is not None:
+            depth = max(depth, self._host_tier.probe(prompt))
+        return int(depth)
+
+    def export_prefix_entry(self, prompt) -> dict | None:
+        """A one-entry payload of the deepest local entry covering
+        ``prompt`` (what a rendezvous home answers a sibling pull with): a
+        host or store hit hands over its demoted bytes, a device hit reads
+        that entry's pages. None when no tier covers it."""
+        if not self.prefix_enabled:
+            return None
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        entry, depth = self._prefix_index.match(prompt, touch=False)
+        if self._host_tier is not None and self._host_tier.probe(prompt) > depth:
+            got = self._host_tier.fetch(prompt)
+            if got is not None:
+                tokens, comps, _tier = got
+                return self._payload([(tokens, comps)])
+        if entry is None or depth < 1:
+            return None
+        return self._payload(self._read_entries([entry]))
 
     def _retire(self, slot: int) -> None:
         seq = self._slots[slot]
@@ -2099,8 +2219,7 @@ class DecodeScheduler:
                 for ctx in seq.trace_ctxs:
                     seq.gen_spans.append(ctx.buf.begin("decode.generate", ctx.span.span_id, {"slot": i},
                                                        start_ns=t1))
-                tok = int(toks[i])
-                self._emit(seq, tok)
+                tok = self._emit(seq, int(toks[i]))
                 if self._finished(seq, tok):
                     self._retire(i)
 
@@ -2229,8 +2348,7 @@ class DecodeScheduler:
                 for i in gen:
                     seq = self._slots[i]
                     seq.pos += 1
-                    tok = int(nxt[i])
-                    self._emit(seq, tok)
+                    tok = self._emit(seq, int(nxt[i]))
                     if self._finished(seq, tok):
                         self._retire(i)
             mode = "plain"
@@ -2330,8 +2448,7 @@ class DecodeScheduler:
                     vs.end(t1)
                 for j in range(int(acc[i]) + 1):
                     seq.pos += 1
-                    tok = int(out_t[i, j])
-                    self._emit(seq, tok)
+                    tok = self._emit(seq, int(out_t[i, j]))
                     emitted += 1
                     self.stat_spec_ride_emitted += int(riding)
                     if self._finished(seq, tok):
@@ -2368,6 +2485,11 @@ class DecodeScheduler:
                         # the idle wait is the queue's silence, not bubble
                         self._round_reset()
                     continue
+                if self._faults is not None:
+                    # the chaos round hook: a hung round holds its slots on
+                    # the loop; an induced OOM fails this round's page write
+                    # through the loop's real error path
+                    await self._chaos_round()
                 await self._chunk_round()
                 mode = await self._step_round()
                 self._commit_round(mode or "chunk", step=mode is not None)
@@ -2392,21 +2514,29 @@ class DecodeScheduler:
             self._reset_device_state()
 
     def _reset_device_state(self) -> None:
-        """Error-path rebuild: a fresh pool and allocator (and draft cache),
-        and no index entry pointing into the old one (the host tier's
-        entries are bytes, and stay)."""
+        """Error-path rebuild: a fresh allocator and no index entry pointing
+        into the old pool (the host tier's entries are bytes, and stay),
+        then the pool and the draft cache rewritten to their initial bytes."""
+        self._reset_host_state()
         with self._on_stream():
-            self.pool.reset()
-            if self.spec_enabled:
-                # in place: the captured programs hold the cache's addresses
-                with torch.inference_mode():
-                    self._dck.zero_()
-                    self._dcv.zero_()
-                    if self.feature_draft:
-                        self._feat.zero_()
-                        self._draft_start[:] = 0
+            self._reset_pool_bytes()
+
+    def _reset_host_state(self) -> None:
+        self.pool.reset_allocator()
+        if self.feature_draft:
+            self._draft_start[:] = 0
         if self.prefix_enabled:
             self._prefix_index.clear()
+
+    def _reset_pool_bytes(self) -> None:
+        self.pool.reset_bytes()
+        if self.spec_enabled:
+            # in place: the captured programs hold the cache's addresses
+            with torch.inference_mode():
+                self._dck.zero_()
+                self._dcv.zero_()
+                if self.feature_draft:
+                    self._feat.zero_()
 
     async def close(self) -> None:
         """Drain: take no new work, finish everything in flight and queued,
@@ -2421,9 +2551,15 @@ class DecodeScheduler:
             self._task = None
         self._worker.shutdown(wait=True)
 
-    async def abort(self) -> None:
-        """Hard stop: cancel the loop mid-round and every unsettled future,
-        then rebuild the pool so the allocator is consistent again."""
+    async def abort(self, timeout_s: float = 5.0) -> None:
+        """Hard stop of an evicted fleet replica, whose loop may hang (a
+        round asleep on the loop, or its worker stuck in a readback): cancel
+        the loop mid-round and every unsettled future, reset the allocator
+        and the index on the loop, so ``alloc.check()`` holds at once, and
+        queue the pool's rewrite on the worker behind whatever holds it.
+        Holds the event loop no longer than ``close()`` does: the rewrite is
+        awaited at most ``timeout_s``, and the worker is shut down without
+        waiting for a round that hangs."""
         self._closed = True
         self._wake.set()
         task, self._task = self._task, None
@@ -2442,8 +2578,44 @@ class DecodeScheduler:
         self._slots = [None] * self.n_slots
         self._free = list(range(self.n_slots - 1, -1, -1))
         self._waiting.clear()
-        self._worker.submit(self._reset_device_state).result()
-        self._worker.shutdown(wait=True)
+        self._reset_host_state()
+        rewrite = asyncio.get_running_loop().run_in_executor(self._worker, self._on_worker, self._reset_pool_bytes)
+        try:
+            await asyncio.wait_for(asyncio.shield(rewrite), timeout=max(0.0, float(timeout_s)))
+        except asyncio.TimeoutError:
+            log.warning("decode replica %d: pool rewrite still queued behind a stuck worker after %.1fs",
+                        self.replica_id, timeout_s)
+        self._worker.shutdown(wait=False)
+
+    # ------------------------------------------------- fleet health / chaos
+    def health_probe(self) -> dict:
+        """The fleet poller's in-process liveness probe (the twin of GET
+        /decode/health on a replica of its own). Raises while a chaos drop
+        is armed. ``ticks`` counts dispatches: active slots with no tick
+        progress between two probes read as a hung loop, which the probe,
+        being host-side, outlives."""
+        if self._faults is not None and self._faults.health_drop():
+            raise TimeoutError(f"chaos: dropped decode health response (replica {self.replica_id})")
+        return {
+            "replica_id": self.replica_id,
+            "queue_depth": len(self._waiting),
+            "active": self.active,
+            "ticks": int(self._tick),
+            "closed": bool(self._closed),
+        }
+
+    async def _chaos_round(self) -> None:
+        """Apply this round's armed decode fault, at the top of the active
+        round before any dispatch."""
+        d = self._faults.round_decision()
+        if d.action == "hang":
+            log.warning("chaos: decode replica %d hanging for %.1fs", self.replica_id, d.delay_s)
+            self._metrics.fault_injected(self._deployment, "decode", "hang")
+            await asyncio.sleep(d.delay_s)
+        elif d.action == "oom":
+            log.warning("chaos: decode replica %d arming induced allocator OOM", self.replica_id)
+            self._metrics.fault_injected(self._deployment, "decode", "oom")
+            self.pool.alloc.chaos_oom_writes = 1
 
     # ----------------------------------------------------- message adapter
     def request_params_from_meta(self, meta: Meta) -> dict:
@@ -2524,6 +2696,17 @@ class DecodeScheduler:
         return msg.with_array_meta(full, meta)
 
 
+def _stalled(fn, stall_s: float):
+    """``fn`` followed by the chaos readback stall, on the worker."""
+
+    def run():
+        out = fn()
+        time.sleep(stall_s)
+        return out
+
+    return run
+
+
 def _end_spans(seq: _Seq, *, tokens: int | None = None, error: bool = False) -> None:
     """Close a sequence's open generate spans (at retirement with its token
     count, or errored when the loop fails or is aborted)."""
@@ -2591,11 +2774,13 @@ def _draft_for(runtime, tpu_spec) -> tuple:
 
 def scheduler_for_executor(
     executor, tpu_spec, *, metrics: NullMetrics | None = None, deployment_name: str = ""
-) -> DecodeScheduler | None:
+):
     """A DecodeScheduler for a predictor whose graph is ONE generative model
-    node and whose deployment opted in (tpu.decode_slots > 0); None
-    otherwise, with a log line when an opt-in is ignored. A multi-node
-    graph keeps the fused path: the scheduler owns the whole device loop."""
+    node and whose deployment opted in (tpu.decode_slots > 0), or, with
+    ``decode_replicas`` or ``decode_autoscale_replicas`` above 1, a
+    ``ReplicatedDecodeScheduler`` of them; None otherwise, with a log line
+    when an opt-in is ignored. A multi-node graph keeps the fused path: the
+    scheduler owns the whole device loop."""
     if tpu_spec.decode_slots <= 0:
         return None
     root = executor.root
@@ -2618,8 +2803,7 @@ def scheduler_for_executor(
         except ValueError as e:
             log.warning("decode_kv_store_tier=%r unservable (%s) — store tier disabled, host tier only",
                         kv_store_url, e)
-    return DecodeScheduler(
-        runtime.params,
+    sched_kwargs = dict(
         seq_len=int(gen["seq"]),
         max_new_tokens=int(gen["max_new_tokens"]),
         n_slots=int(tpu_spec.decode_slots),
@@ -2643,7 +2827,57 @@ def scheduler_for_executor(
         dtype=runtime.dtype,
         cuda_graphs=runtime.cuda_graphs,
         metrics=metrics,
-        deployment_name=deployment_name,
         slo_ttft_ms=float(tpu_spec.decode_slo_ttft_ms),
         slo_itl_ms=float(tpu_spec.decode_slo_itl_ms),
+    )
+    replicas = max(1, int(tpu_spec.decode_replicas))
+    autoscale_max = int(tpu_spec.decode_autoscale_replicas)
+    if max(replicas, autoscale_max) > 1 and tpu_spec.extra.get("decode_mesh_axes"):
+        # refused at validation; a spec built past it serves one scheduler,
+        # the JAX package's warn-and-disable case
+        log.warning("decode_replicas/decode_autoscale_replicas with decode_mesh_axes is not supported yet — "
+                    "running one scheduler")
+        replicas, autoscale_max = 1, 0
+    if max(replicas, autoscale_max) <= 1:
+        return DecodeScheduler(runtime.params, deployment_name=deployment_name, **sched_kwargs)
+
+    # the fleet on one card: every replica decodes with the runtime's own
+    # parameter tensors (no copy) and owns its pool, prefix index, graph
+    # cache, stream and worker thread
+    from seldon_core_tpu_torch.serving.affinity_router import ReplicatedDecodeScheduler
+    from seldon_core_tpu_torch.utils.env import PERSISTENCE_STORE
+
+    base_name = deployment_name or "decode"
+
+    def replica(i: int) -> DecodeScheduler:
+        return DecodeScheduler(runtime.params, deployment_name=f"{base_name}/r{i}", replica_id=i, **sched_kwargs)
+
+    store_factory = None
+    if autoscale_max > replicas:
+        # the microservice's unit-state default, so a restart boots from the
+        # payload the last scale-up wrote; made at the first spill (a file
+        # store makes its directory)
+        spill_url = os.environ.get(PERSISTENCE_STORE, "file://./.seldon_state")
+
+        def store_factory():
+            try:
+                return make_state_store(spill_url)
+            except ValueError:
+                log.warning("PERSISTENCE_STORE %r unusable — replica spill stays in-process", spill_url)
+                return None
+
+    return ReplicatedDecodeScheduler(
+        replica,
+        replicas,
+        policy=str(tpu_spec.decode_router_policy or ""),
+        affinity_block=int(tpu_spec.decode_kv_page_size) or 16,
+        autoscale_replicas=autoscale_max,
+        autoscale_queue_depth=int(tpu_spec.decode_autoscale_queue_depth),
+        spill_store_factory=store_factory,
+        health_poll_ms=float(tpu_spec.decode_health_poll_ms),
+        health_miss_threshold=int(tpu_spec.decode_health_miss_threshold) or 3,
+        drain_timeout_ms=float(tpu_spec.decode_drain_timeout_ms) or 5000.0,
+        metrics=metrics,
+        deployment_name=base_name,
+        seed=int(tpu_spec.decode_seed),
     )

@@ -12,7 +12,9 @@ Besides the data plane it serves ``/pause`` and ``/unpause`` (GET or
 POST; after ``/pause``, ``/ready`` answers 503 ``paused``) and the
 telemetry read-outs: ``/metrics`` and
 ``/prometheus``, and the trace, flight and profile routes that the JAX
-package serves on its operator API (``serving/wire.py``).
+package serves on its operator API (``serving/wire.py``), and the
+replicated decode fleet's ``GET /decode/fleet`` and ``POST
+/decode/drain[?replica=n]``.
 """
 
 from __future__ import annotations
@@ -291,6 +293,12 @@ def engine_routes(service, state: dict) -> dict:
     async def prometheus(req: WireRequest) -> WireResponse:
         return wire.metrics_response(service.metrics, req)
 
+    async def decode_fleet(req: WireRequest) -> WireResponse:
+        return wire.decode_fleet(service, req)
+
+    async def decode_drain(req: WireRequest) -> WireResponse:
+        return await wire.decode_drain(service, req)
+
     def read_out(fn):
         async def handler(req: WireRequest) -> WireResponse:
             return fn(req)
@@ -310,6 +318,8 @@ def engine_routes(service, state: dict) -> dict:
         ("GET", "/decode/flight"): read_out(wire.decode_flight),
         ("GET", "/decode/health"): read_out(wire.decode_health),
         ("GET", "/decode/profile"): read_out(wire.decode_profile),
+        ("GET", "/decode/fleet"): decode_fleet,
+        ("POST", "/decode/drain"): decode_drain,
     }
     for method in ("GET", "POST"):
         routes[(method, "/pause")] = pause

@@ -25,8 +25,10 @@ zero and masked-off writes land there. Page 0 is never allocated.
 tier's promotions land there (``serving/kv_host_tier.py``), and so does a
 replica's warm boot. ``read_pages`` and ``write_pages`` move whole page
 columns of every pool component between the card and the host, bytes
-verbatim. The allocator's fault-injection hook belongs to the chaos
-tooling, which the port does not have yet.
+verbatim. ``PageAllocator.chaos_oom_writes`` is the chaos harness's
+induced OOM (``engine/faults.py``'s ``oom`` decode fault): the next
+``prepare_write`` raises as if the page budget ran out, which exercises the
+decode loop's error path without corrupting the accounting.
 """
 
 from __future__ import annotations
@@ -105,6 +107,9 @@ class PageAllocator:
         # (batched so the owner — the prefix index — rebuilds its trie
         # once, not once per pin, on the hot decode path)
         self.on_pins_reclaimed = None
+        # the chaos harness's induced OOM: the next prepare_write raises
+        self.chaos_oom_writes = 0
+        self.stat_chaos_ooms = 0
         self.stat_pages_shared = 0
         self.stat_cow_copies = 0
         self.stat_reclaimed_pages = 0
@@ -266,6 +271,13 @@ class PageAllocator:
         end = min(int(start) + int(count), self.pages_per_slot * ps)
         if count <= 0 or start >= end:
             return []
+        if self.chaos_oom_writes > 0:
+            self.chaos_oom_writes -= 1
+            self.stat_chaos_ooms += 1
+            raise RuntimeError(
+                "chaos: induced allocator OOM (page budget exhausted by "
+                f"fault injection) preparing write for slot {slot}"
+            )
         copies: list[tuple[int, int]] = []
         bt = self.block_tables
         for lp in range(int(start) // ps, (end - 1) // ps + 1):
@@ -490,15 +502,19 @@ class PagedKVPool:
         for b in self.copy_buckets:
             self._copy(np.zeros(b, np.int64), np.zeros(b, np.int64))
 
-    def reset(self) -> None:
-        """Post-failure recovery: a fresh allocator, and the pool's tensors
-        rewritten in place to their initial bytes (captured graphs keep
-        their addresses)."""
+    def reset_allocator(self) -> None:
+        """Post-failure recovery, host half: a fresh allocator, its reclaim
+        callback kept."""
         on_reclaimed = self.alloc.on_pins_reclaimed
         self.alloc = PageAllocator(
             self.n_pages, self.page_size, self.n_slots, self.pages_per_slot
         )
         self.alloc.on_pins_reclaimed = on_reclaimed
+
+    def reset_bytes(self) -> None:
+        """Post-failure recovery, device half: the pool's tensors rewritten
+        in place to their initial bytes on the current stream (captured
+        graphs keep their addresses)."""
         fresh = paged_kv_init(self._params, self.n_pages, self.page_size, self._dtype, self.kv_dtype)
         with torch.inference_mode():
             for a, f in zip(self.state, fresh):

@@ -16,11 +16,18 @@ response recorded. ``predict_stream`` streams a generative predictor's
 tokens as they are chosen. Every request lands in the ingress histogram
 with its trace id as exemplar (a failure in the error counter instead, at
 the wire), and, under ``ENGINE_ACCESS_LOG=json``, in the access log.
+
+With a replicated decode tier (``serving/affinity_router.py``), a reply's
+per-row SLO verdicts reward the arms that served it automatically, a
+client's feedback reaches them through ``meta.tags.replica``, and the
+operator routes read and drain the fleet (``decode_fleet_status``,
+``drain_decode_replica``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
 import time
 
 import numpy as np
@@ -36,6 +43,8 @@ from seldon_core_tpu_torch.serving.batcher import MicroBatcher
 from seldon_core_tpu_torch.telemetry import get_tracer
 from seldon_core_tpu_torch.telemetry.access_log import enabled as access_log_enabled
 from seldon_core_tpu_torch.telemetry.access_log import log_request
+
+log = logging.getLogger(__name__)
 
 
 def _with_puid(msg: SeldonMessage, puid: str) -> SeldonMessage:
@@ -129,6 +138,11 @@ class PredictionService:
         # tpu.decode_npy_bindata: False keeps every binData opaque, for
         # bytes-contract graphs whose payloads could start with the npy magic
         self.decode_npy = decode_npy
+        # a graph holding a router that consumes SLO feedback (the
+        # PREFIX_AFFINITY built-in) gets each response's meta.tags.slo
+        # verdicts back as a reward, with no client change
+        self._slo_feedback_graph = any(getattr(n.unit, "consumes_slo_feedback", False)
+                                       for n in executor.root.walk())
 
     def _request_deadline(self, msg: SeldonMessage) -> Deadline | None:
         """The request's budget: the deployment's, tightened (never widened)
@@ -232,6 +246,7 @@ class PredictionService:
             out = out.with_meta(out.meta.merged_with(Meta(tags={"trace": buf.tag_spans()})))
         if out.meta.puid != msg.meta.puid:
             out = _with_puid(out, msg.meta.puid)
+        self._maybe_slo_feedback(out)
         if npy_requested:
             out = mirror_npy_kind(out)
         self.metrics.ingress_request(
@@ -241,6 +256,62 @@ class PredictionService:
             trace_id=buf.trace_id if buf is not None else None,
         )
         return out
+
+    def _maybe_slo_feedback(self, out: SeldonMessage) -> None:
+        """Close the reward loop with no client call: a response whose rows
+        carry ``meta.tags.slo`` verdicts rewards the replicated decode
+        tier's arms through its ``meta.tags.replica`` (each row by its own
+        verdict), and a graph router that consumes SLO feedback with the
+        met fraction, sent down the Feedback path without the caller
+        waiting for it."""
+        slo = out.meta.tags.get("slo")
+        if not isinstance(slo, (list, tuple)) or not slo:
+            return
+        sched = self.decode_scheduler
+        if sched is not None and hasattr(sched, "ingest_feedback") and "replica" in out.meta.tags:
+            try:
+                sched.ingest_feedback(Feedback(response=out), use_slo=True)
+            except Exception:  # noqa: BLE001 - rewards must not fail serving
+                log.exception("automatic SLO feedback (replica arms) failed")
+        if self._slo_feedback_graph:
+            met = sum(1.0 for v in slo if v == "met") / len(slo)
+            task = asyncio.ensure_future(self.executor.send_feedback(Feedback(response=out, reward=met)))
+            task.add_done_callback(
+                lambda t: t.cancelled()
+                or (t.exception() and log.warning("automatic SLO feedback failed: %s", t.exception()))
+            )
+
+    def decode_fleet_status(self) -> dict | None:
+        """The ``GET /decode/fleet`` body: each arm's lifecycle state and the
+        fleet's lifecycle counters; None without a replicated decode tier."""
+        sched = self.decode_scheduler
+        if sched is None or not hasattr(sched, "replica_states"):
+            return None
+        states = sched.replica_states()
+        return {
+            "replicas": [{"replica": i, "state": s} for i, s in enumerate(states)],
+            "serving": sum(1 for s in states if s == "up"),
+            "evictions": sched.stat_evictions,
+            "recoveries": sched.stat_recoveries,
+            "drains": sched.stat_drains,
+            "migrations": sched.stat_migrations,
+            "health_misses": sched.stat_health_misses,
+        }
+
+    async def drain_decode_replica(self, replica: int | None = None) -> dict:
+        """The ``POST /decode/drain`` action: drain the named arm, or the
+        coldest serving one. APIException without a replicated decode tier
+        and for an arm that cannot drain (the last serving one, unknown or
+        down)."""
+        sched = self.decode_scheduler
+        if sched is None or not hasattr(sched, "drain_replica"):
+            raise APIException(ErrorCode.ENGINE_INVALID_JSON, "deployment has no replicated decode tier to drain")
+        try:
+            if replica is None:
+                return await sched.scale_down()
+            return await sched.drain_replica(int(replica))
+        except ValueError as e:
+            raise APIException(ErrorCode.ENGINE_INVALID_JSON, str(e)) from e
 
     async def predict_stream(
         self, msg: SeldonMessage, *, wire_npy: bool = False, traceparent: str | None = None
@@ -355,6 +426,11 @@ class PredictionService:
                 "ingress", puid=puid, parent=traceparent, attrs=self._trace_attrs("feedback")
             ) as buf:
                 await self.executor.send_feedback(feedback)
+                # a response the replicated decode tier served names its
+                # arms in meta.tags.replica: the client's reward reaches them
+                sched = self.decode_scheduler
+                if sched is not None and hasattr(sched, "ingest_feedback"):
+                    sched.ingest_feedback(feedback)
         except APIException as e:
             status = e.error.http_status
             raise

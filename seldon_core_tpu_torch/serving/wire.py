@@ -329,6 +329,35 @@ def decode_health(req: WireRequest) -> WireResponse:
     return WireResponse.json(flight.health_report())
 
 
+def decode_fleet(service, req: WireRequest) -> WireResponse:
+    """GET /decode/fleet: the replicated decode tier's per-arm states and
+    lifecycle counters; 404 without one."""
+    status = service.decode_fleet_status()
+    if status is None:
+        return WireResponse.json({"error": "no replicated decode tier"}, status=404)
+    return WireResponse.json(status)
+
+
+async def decode_drain(service, req: WireRequest) -> WireResponse:
+    """POST /decode/drain[?replica=n]: drain the named arm (else the coldest
+    serving one) and answer its result; 400 naming the parameter for a
+    ``replica`` that is not an integer, and the APIException's status for a
+    deployment without a fleet or an arm that cannot drain."""
+    raw = req.query_param("replica")
+    replica = None
+    if raw is not None:
+        try:
+            replica = int(raw)
+        except (TypeError, ValueError):
+            return WireResponse.json(
+                {"error": "?replica must be an integer arm id", "param": "replica", "got": raw}, status=400
+            )
+    try:
+        return WireResponse.json(await service.drain_decode_replica(replica))
+    except APIException as e:
+        return WireResponse.json({"error": str(e)}, status=e.error.http_status)
+
+
 def decode_profile(req: WireRequest) -> WireResponse:
     """GET /decode/profile: the sampling profiler's top self-time frames
     (?n=, default 30) and folded table; ?hz= retunes the rate for the

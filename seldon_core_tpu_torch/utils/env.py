@@ -7,7 +7,8 @@ credentials (``tools/loadtest.py`` takes them as the defaults of
 secret instead of its command line), and the telemetry knobs read by
 ``telemetry/tracer.py``, ``telemetry/access_log.py``, ``telemetry/flight.py``
 and ``telemetry/profile.py``; the Redis store's socket budget
-(``persistence/state.py``).
+(``persistence/state.py``); the store a decode fleet spills prefix pages
+through and its warm-boot kill switch (``serving/affinity_router.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ ENGINE_DECODE_PROFILE_HZ = "ENGINE_DECODE_PROFILE_HZ"
 ENGINE_DECODE_PROFILE_TABLE = "ENGINE_DECODE_PROFILE_TABLE"
 # the Redis state store's socket and connect timeout in ms (default 2000)
 PERSISTENCE_REDIS_TIMEOUT_MS = "PERSISTENCE_REDIS_TIMEOUT_MS"
+# the state store a replicated decode fleet spills its prefix pages through
+# (default file://./.seldon_state, resolved at the first spill)
+PERSISTENCE_STORE = "PERSISTENCE_STORE"
+# "off": no warm pre-seeding of a scaled-up replica and no sibling prefix
+# pull between replicas (default on)
+ENGINE_DECODE_REPLICA_PRESEED = "ENGINE_DECODE_REPLICA_PRESEED"
 
 
 def redis_timeout_s(env: dict | None = None) -> float:

@@ -353,8 +353,15 @@ SERVED_TIER_KNOBS = {"decode_kv_host_bytes": 0, "decode_kv_store_tier": ""}
 # the npy wire toggle, once unported too, is served: set alone, it reaches
 # the prediction service
 SERVED_WIRE_KNOBS = {"decode_npy_bindata": True}
+# the replicated fleet's knobs, once unported too, are served: set alone,
+# decode_replicas builds the fleet, the miss threshold and the drain budget
+# serve one scheduler (the JAX package ignores them there), and each other
+# is refused by the JAX package's rule that names it
+SERVED_FLEET_KNOBS = {"decode_replicas": 1, "decode_router_policy": "", "decode_autoscale_replicas": 0,
+                      "decode_autoscale_queue_depth": 0, "decode_health_poll_ms": 0.0,
+                      "decode_health_miss_threshold": 3, "decode_drain_timeout_ms": 5000.0}
 ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS, **SERVED_TIER_KNOBS,
-                 **SERVED_WIRE_KNOBS}
+                 **SERVED_WIRE_KNOBS, **SERVED_FLEET_KNOBS}
 
 
 @pytest.mark.parametrize("knob", sorted(ONCE_UNPORTED))
@@ -372,10 +379,15 @@ def test_unported_decode_knob_refused_by_name(knob):
         server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
         assert server.service.decode_npy is value
         assert knob not in UNPORTED_DECODE_KNOBS
+    elif knob in ("decode_replicas", "decode_health_miss_threshold", "decode_drain_timeout_ms"):
+        server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
+        sched = server.decode_scheduler
+        assert getattr(server.predictor.tpu, knob) == value and knob not in UNPORTED_DECODE_KNOBS
+        assert len(sched.replicas) == value if knob == "decode_replicas" else isinstance(sched, DecodeScheduler)
     else:
         with pytest.raises(ValueError, match=knob):
             PredictorServer(_predictor(2, **{knob: value}), device="cpu")
-        if knob in SERVED_TIER_KNOBS:
+        if knob in SERVED_TIER_KNOBS or knob in SERVED_FLEET_KNOBS:
             assert knob not in UNPORTED_DECODE_KNOBS
     # the JAX package's default is no request for the feature: accepted
     assert decode_problems("p", TpuSpec.from_dict({"decode_slots": 2, knob: default})) == []

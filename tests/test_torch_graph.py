@@ -322,9 +322,17 @@ async def test_simple_units():
     np.testing.assert_array_equal(_arr(out), np.float32([[0.1, 0.9, 0.5]] * 2))
 
 
-def test_unported_builtins_are_refused():
-    # PREFIX_AFFINITY is the one built-in the port does not serve yet
+async def test_unported_builtins_are_refused():
+    # PREFIX_AFFINITY, the last built-in the port refused, is served now:
+    # no built-in is refused, and it routes as the JAX package's does
+    from seldon_core_tpu_torch.engine.builtin import _NOT_PORTED
+
+    assert _NOT_PORTED == ()
     graph = {"name": "p", "type": "ROUTER", "implementation": "PREFIX_AFFINITY",
-             "children": [{"name": "s", "type": "MODEL", "implementation": "SIMPLE_MODEL"}]}
-    with pytest.raises(ValueError, match="not part of the torch port"):
-        _ours(graph)
+             "parameters": [{"name": "seed", "value": "0", "type": "INT"}],
+             "children": [{"name": "s", "type": "MODEL", "implementation": "SIMPLE_MODEL"},
+                          {"name": "t", "type": "MODEL", "implementation": "SIMPLE_MODEL"}]}
+    ids = {"data": {"ndarray": [list(range(20))]}}
+    out = await _ours(graph).execute(message_from_dict(ids))
+    ref = await _theirs(graph).execute(jax_message_from_dict(ids))
+    assert out.meta.routing == dict(ref.meta.routing) and out.meta.routing["p"] in (0, 1)

@@ -47,13 +47,7 @@ TRACE_B = "4bf92f3577b34da6a3ce929d0e0e4736"
 
 # families of features the port does not serve yet: registered by the JAX
 # package only, and never moved by the hooks below
-WAITING_FAMILIES = {
-    "seldon_tpu_decode_kv_pages_per_device", "seldon_tpu_decode_kv_sibling_pulls", "seldon_tpu_replica_boot_failures",
-    "seldon_tpu_replica_drains", "seldon_tpu_replica_evictions", "seldon_tpu_replica_migrations",
-    "seldon_tpu_replica_recoveries", "seldon_tpu_replica_spill_failures", "seldon_tpu_replica_state",
-    "seldon_tpu_router_arm_estimate", "seldon_tpu_router_preseeded_pages", "seldon_tpu_router_queue_depth",
-    "seldon_tpu_router_replicas", "seldon_tpu_router_routes",
-}
+WAITING_FAMILIES = {"seldon_tpu_decode_kv_pages_per_device"}
 
 
 def drive(m) -> None:
@@ -93,6 +87,9 @@ def drive(m) -> None:
     m.decode_kv_demotion("gpt", "host", 2)
     m.decode_kv_demotion("gpt", "store", 0)
     m.decode_kv_promotion("gpt", "store", 1)
+    m.decode_kv_sibling_pull("gpt", "hit")
+    m.decode_kv_sibling_pull("gpt", "miss")
+    m.decode_kv_sibling_pull("gpt", "hit")
     m.decode_round("gpt", 0.0007, 0.0002)
     m.decode_bubble("gpt", 0.21)
     m.decode_goodput("gpt", 9, True)
@@ -100,6 +97,22 @@ def drive(m) -> None:
     m.decode_slo("gpt", "ttft", True)
     m.decode_slo("gpt", "itl", False, trace_id=TRACE_B)
     m.compile("gpt", 8, 1.25)
+    m.router_route("gpt", "affinity", "affinity")
+    m.router_route("gpt", "affinity", "affinity")
+    m.router_route("gpt", "affinity", "shed")
+    m.router_queue_depth("gpt", 0, 3)
+    m.router_queue_depth("gpt", 1, 0)
+    m.router_arm("gpt", 0, 0.5)
+    m.router_replicas("gpt", 2)
+    m.router_replicas("gpt", 3)
+    m.router_preseed("gpt", 4)
+    for state in ("up", "evicted", "up", "draining", "down"):
+        m.replica_state("gpt", 1, state)
+    for fn in ("replica_eviction", "replica_recovery", "replica_drain", "replica_boot_failure",
+               "replica_spill_failure"):
+        getattr(m, fn)("gpt")
+    m.replica_migration("gpt", 2)
+    m.replica_migration("gpt", 0)
     m.loop_lag(2.5)
     m.loop_lag(1.0)
     m.retry("iris", "iris-primary")
@@ -194,19 +207,10 @@ def test_every_jax_hook_is_there_and_the_waiting_ones_record_nothing():
     assert hooks <= {n for n in dir(Metrics) if not n.startswith("_")}
     m = Metrics()
     before = m.export()
-    m.decode_kv_per_device("gpt", 4, 1)
-    m.decode_kv_sibling_pull("gpt", "hit")
-    m.router_route("gpt", "affinity", "shed")
-    m.router_queue_depth("gpt", 0, 3)
-    m.router_arm("gpt", 0, 0.5)
-    m.router_replicas("gpt", 2)
-    m.router_preseed("gpt", 4)
-    m.replica_state("gpt", 0, "up")
-    for fn in ("replica_eviction", "replica_recovery", "replica_drain", "replica_boot_failure",
-               "replica_spill_failure"):
-        getattr(m, fn)("gpt")
-    m.replica_migration("gpt", 2)
+    m.decode_kv_per_device("gpt", 4, 1)  # tensor-parallel decode: not served yet
     assert m.export() == before
+    m.router_route("gpt", "affinity", "shed")  # the fleet's, served since it was ported
+    assert m.export() != before
 
 
 def test_resilience_events_reach_the_same_families():

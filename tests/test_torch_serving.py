@@ -81,6 +81,13 @@ def _key_fields(dep):
                 p.tpu.batch_across_requests,
                 p.tpu.weight_quant,
                 p.tpu.donate_input,
+                p.tpu.decode_replicas,
+                p.tpu.decode_router_policy,
+                p.tpu.decode_autoscale_replicas,
+                p.tpu.decode_autoscale_queue_depth,
+                p.tpu.decode_health_poll_ms,
+                p.tpu.decode_health_miss_threshold,
+                p.tpu.decode_drain_timeout_ms,
             )
             for p in dep.spec.predictors
         ],

@@ -37,7 +37,7 @@ PORT_DEPLOYMENTS = ROOT / "seldon_core_tpu_torch" / "deployments"
 # the feature draft's without its distilled checkpoint)
 SERVED_EXAMPLES = ("bert_int8", "full_dag_bert", "gpt_continuous_batching", "iris", "iris_abtest",
                    "iris_fallback_breaker", "mnist", "resnet_ensemble", "tiny_gpt", "tiny_gpt_feature_draft",
-                   "tiny_gpt_paged_kv", "tiny_gpt_speculative", "tiny_gpt_tree_speculation")
+                   "tiny_gpt_paged_kv", "tiny_gpt_replicated", "tiny_gpt_speculative", "tiny_gpt_tree_speculation")
 
 
 def _abtest() -> dict:
@@ -159,21 +159,25 @@ UNPORTED_CASES = {
 
 
 # knobs of UNPORTED_CASES the port serves now: held to the reference's
-# rules alone, word for word
-SERVED_CASES = {"npy_bindata_disagrees"}
+# rules alone, word for word (the replicated fleet's since it was ported;
+# tensor-parallel decode, decode_mesh_axes, stays refused by name)
+SERVED_CASES = {"npy_bindata_disagrees", "replicated_example", "replicas_zero", "autoscale_without_depth",
+                "autoscale_cap_below_fleet", "depth_without_autoscale", "bad_router_policy",
+                "policy_on_one_replica", "health_knobs", "poll_on_one_replica", "fleet_without_slots"}
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED_CASES))
 def test_unported_knobs_refused_by_name_with_the_jax_rules(case):
     """A knob the port does not serve is refused by name, and every problem
-    the reference's rules find in it is named too, word for word."""
+    the reference's rules find in it is named too, word for word; a served
+    one gets the reference's verdict alone."""
     obj = UNPORTED_CASES[case]()
     want = _jax_problems(obj)
     assert bool(want) == (not case.endswith("_example"))  # the two examples pass the reference
     got = _port_problems(obj)
-    assert got, "an unported knob must be refused"
     assert [p for p in got if "not part of the torch port" not in p] == want
     assert any("not part of the torch port" in p for p in got) == (case not in SERVED_CASES)
+    assert bool(got) == (case != "replicated_example")  # the served example passes the port too
 
 
 def test_graph_package_exports_validation():
