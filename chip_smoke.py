@@ -225,6 +225,35 @@ Phases, each of which raises on failure (no phase catches its own):
    warmup; its boot split and memory. A preseed written one page off must
    fail the byte check. Neither kernel launches in the phase (counted).
 
+13. the split data plane: 13a ``bert_base_flash`` booted through
+   ``tools/stack.build_gateway_stack`` behind the port's OAuth gateway
+   (``gateway_routes`` on a port of their own, a ``file://`` audit sink):
+   tokens by Basic auth and by form, 20 one-row Bearer requests each bit
+   for bit the predictor's own ingress's answer with 12 flash launches,
+   the audit read back by ``tools/audit_tail``, the load generator with
+   ``--oauth-key`` against the gateway and without against the ingress in
+   turns (1 and 16 users), then a missing token, a wrong secret, a
+   rotated-out key's token (a gateway planted to skip that revocation
+   must fail), a deployment whose engine is gone and a removed one, each
+   with the JAX gateway's status and code. 13b ``full_dag_bert`` split:
+   its two BERT-base arms (seq 128, bf16, seeds 0 and 1) served by unit
+   servers in processes of their own (the server CLI, ``--warmup``), the
+   engine (``full_dag_bert_remote.json``, ports written in) behind the
+   gateway with ``full_dag_bert``'s OAuth client; 16 requests to it and to
+   the in-process ``full_dag_bert`` in turns, routes and probabilities
+   equal request by request; a feedback moving only the routed arm's
+   reward; the same arms as in-process unit servers behind a third engine
+   (12 flash launches a request, counted); one request's engine unit span
+   against the unit server's ingress span; the load generator on the split
+   and the in-process DAG in turns; the arms' endpoints swapped and a
+   client counting 4xx against the breaker (after 5 answers of 400 to a
+   malformed body) planted, each failing its check. 13c the microservice
+   CLI serving ``examples/models/torch_mnist_cnn`` in a process of its
+   own, driven by ``tools/contract.py`` and consumed by a ``RemoteUnit``
+   (bit for bit the class in-process), then ``/route`` and
+   ``/send-feedback`` on a router class. 0 new dispatch keys after warmup
+   in this process's servers.
+
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside it, it exits non-zero and prints no result.
@@ -2592,6 +2621,8 @@ async def _load_point(port: int, users: int, load: dict) -> dict:
     cmd = [sys.executable, "-m", "seldon_core_tpu_torch.tools.loadtest", f"http://127.0.0.1:{port}",
            "--users", str(users), "--duration", str(LOAD_SECONDS), "--workers", str(1 if users == 1 else LOAD_WORKERS),
            "--static-payload", "--json", "--payload", load["payload"]]
+    if "oauth" in load:  # through the gateway: a token first, then Bearer on every request
+        cmd += ["--oauth-key", load["oauth"][0], "--oauth-secret", load["oauth"][1]]
     shape = load["features"]
     cmd += ["--features", str(shape)] if isinstance(shape, int) else ["--shape", ",".join(map(str, shape))]
     proc = await asyncio.create_subprocess_exec(*cmd, stdout=asyncio.subprocess.PIPE,
@@ -5268,6 +5299,672 @@ async def serve_fleet(card) -> dict:
             "scale_up": scale, "launches": launches, "seconds": round(time.perf_counter() - t0, 3)}
 
 
+# ---------------------------------------------------------------- phase 13
+SPLIT_DIR = ROOT / "build" / "split_dag"  # git-ignored: the arms' deployments and a router class, written per run
+GATE_KEY, GATE_SECRET = "bert-flash-key", "bert-flash-secret"  # bert_base_flash declares no OAuth client
+GATE_REQUESTS = 20  # one-row requests through the gateway, each also sent to the predictor's ingress
+SPLIT_REQUESTS = 16  # one-row requests to the split DAG and the in-process DAG, in turns
+SPLIT_FAULT_REQUESTS = 6
+MALFORMED = 5  # 400s a unit server answers before the breaker check
+SPLIT_LOAD = (1, 16)  # users: the 1-user latency and the 16-user rate
+SPLIT_TURNS = ("a", "b", "b", "a")
+CONTRACT_ROUNDS = 4
+CONTRACT_BATCH = 8
+UNIT_BOOT_S = 300.0
+MNIST_CNN_DIR = "seldon_core_tpu_torch/examples/models/torch_mnist_cnn"
+
+
+def _arm_deployment(arm: dict, name: str) -> Path:
+    """One arm of full_dag_bert.json as a deployment of its own (its graph
+    node, the DAG's tpu block): the weights of that arm, served alone."""
+    dag = json.loads((BASELINE_DIR / "full_dag_bert.json").read_text())
+    pred = dag["spec"]["predictors"][0]
+    dep = {"metadata": {"name": name}, "spec": {"name": name, "predictors": [
+        {"name": "main", "graph": arm, "tpu": pred["tpu"]}]}}
+    SPLIT_DIR.mkdir(parents=True, exist_ok=True)
+    path = SPLIT_DIR / f"{name}.json"
+    path.write_text(json.dumps(dep, indent=1))
+    return path
+
+
+def _dag_arms() -> list:
+    dag = json.loads((BASELINE_DIR / "full_dag_bert.json").read_text())
+    return dag["spec"]["predictors"][0]["graph"]["children"][0]["children"]
+
+
+def _remote_copy(ports: list, label: str, arm_params: tuple = ()) -> Path:
+    """full_dag_bert_remote.json with the arms' ports written in."""
+    dep = json.loads((BASELINE_DIR / "full_dag_bert_remote.json").read_text())
+    arms = dep["spec"]["predictors"][0]["graph"]["children"][0]["children"]
+    for arm, port in zip(arms, ports):
+        arm["endpoint"]["service_port"] = port
+        arm["parameters"] = list(arm_params)
+    SPLIT_DIR.mkdir(parents=True, exist_ok=True)
+    path = SPLIT_DIR / f"full_dag_bert_remote_{label}.json"
+    path.write_text(json.dumps(dep, indent=1))
+    return path
+
+
+async def _spawn(args: list, label: str, env: dict | None = None):
+    """A child process of this Python (its own CUDA context on the card),
+    returned once it prints its "serving REST :port" line, with that port."""
+    proc = await asyncio.create_subprocess_exec(sys.executable, "-m", *args, stdout=asyncio.subprocess.PIPE,
+                                                stderr=asyncio.subprocess.STDOUT, cwd=str(ROOT),
+                                                env=None if env is None else {**os.environ, **env})
+    lines = []
+
+    async def until_serving():
+        while True:
+            line = (await proc.stdout.readline()).decode(errors="replace")
+            if not line:
+                raise AssertionError(f"{label} exited {await proc.wait()} before serving: {''.join(lines)[-2000:]}")
+            lines.append(line)
+            m = re.search(r"serving REST :(\d+)", line)
+            if m:
+                return int(m.group(1))
+
+    t0 = time.perf_counter()
+    try:
+        port = await asyncio.wait_for(until_serving(), UNIT_BOOT_S)
+    except BaseException:
+        await _reap(proc)
+        raise
+    # keep draining its output, so a chatty child never blocks on a full pipe
+    proc.drain_task = asyncio.ensure_future(proc.stdout.read())
+    return proc, port, time.perf_counter() - t0
+
+
+async def _reap(proc) -> None:
+    if proc.returncode is None:
+        proc.terminate()
+        try:
+            await asyncio.wait_for(proc.wait(), 30)
+        except asyncio.TimeoutError:
+            proc.kill()
+            await proc.wait()
+    task = getattr(proc, "drain_task", None)
+    if task is not None:
+        await asyncio.gather(task, return_exceptions=True)
+
+
+async def _bearer_post(port: int, token: str, body: bytes, path: str = "/api/v0.1/predictions", headers=None):
+    status, hdrs, payload, ms = await _request(port, body, path=path,
+                                               headers={"Authorization": f"Bearer {token}", **(headers or {})})
+    return status, payload, ms
+
+
+async def _token(port: int, how: str, key: str, secret: str) -> str:
+    """A client_credentials token from the gateway, by Basic auth or by an
+    urlencoded form."""
+    import base64
+    from urllib.parse import urlencode
+
+    if how == "basic":
+        basic = base64.b64encode(f"{key}:{secret}".encode()).decode()
+        status, _, body, _ = await _request(port, b"grant_type=client_credentials",
+                                            "application/x-www-form-urlencoded", "/oauth/token",
+                                            headers={"Authorization": f"Basic {basic}"})
+    else:
+        form = urlencode({"grant_type": "client_credentials", "client_id": key, "client_secret": secret})
+        status, _, body, _ = await _request(port, form.encode(), "application/x-www-form-urlencoded", "/oauth/token")
+    if status != 200:
+        raise AssertionError(f"token by {how}: HTTP {status} {body[:200]!r}")
+    return json.loads(body)["access_token"]
+
+
+async def _refused(port: int, token: str | None, want_status: int, want_code: int, label: str) -> None:
+    body = json.dumps({"data": {"ndarray": [[0.0] * 8]}}).encode()
+    headers = {"Authorization": f"Bearer {token}"} if token else {}
+    status, _, payload, _ = await _request(port, body, headers=headers)
+    out = json.loads(payload)
+    if status != want_status or out.get("code") != want_code or out.get("status") != "FAILURE":
+        raise AssertionError(f"{label}: HTTP {status} {out}, want {want_status} code {want_code}")
+
+
+async def rotation_refusal(gw, port: int, label: str) -> None:
+    """Key rotation: the deployment's old key must stop routing and its
+    tokens must stop authenticating (401, APIFE_GRPC_NO_PRINCIPAL_FOUND)."""
+    from seldon_core_tpu_torch.graph.spec import DeploymentSpec
+
+    dep = gw.store.by_principal(GATE_KEY)
+    old = await _token(port, "form", GATE_KEY, GATE_SECRET)
+    gw.store.deployment_added(DeploymentSpec(name=dep.name, oauth_key=GATE_KEY + "-2", oauth_secret=GATE_SECRET,
+                                             predictors=dep.predictors))
+    try:
+        await _refused(port, old, 401, 205, f"{label}: a token of the rotated-out key")
+        await _token(port, "form", GATE_KEY + "-2", GATE_SECRET)
+    finally:
+        gw.store.deployment_added(dep)  # back to the first key
+
+
+async def must_fail_async(label: str, fn) -> None:
+    """A planted fault in an async check: the check must raise."""
+    try:
+        await fn()
+    except AssertionError:
+        return
+    raise AssertionError(f"planted fault passed its check: {label}")
+
+
+async def _gate_points(card, label: str, port: int, load: dict) -> dict:
+    out = {}
+    for users in SPLIT_LOAD:
+        p = await _load_point(port, users, load)
+        print(f"[{card}] load {label} users={users} {json.dumps(p)}", flush=True)
+        out[users] = p
+    return out
+
+
+def _turns_summary(runs: dict) -> dict:
+    """Per arm of the comparison, its two runs' 1-user p50/p99 and 16-user
+    predictions/s."""
+    return {name: {"p50_ms_users_1": [r[1]["p50_ms"] for r in rs], "p99_ms_users_1": [r[1]["p99_ms"] for r in rs],
+                   "predictions_per_s_users_16": [r[16]["requests_per_sec"] for r in rs]}
+            for name, rs in runs.items()}
+
+
+async def gateway_in_front(card, boots) -> dict:
+    """Phase 13a: bert_base_flash behind the port's OAuth gateway
+    (tools/stack.build_gateway_stack, a file:// audit sink), the gateway's
+    routes on their own port beside the predictor's ingress. Tokens by
+    Basic auth and by form; GATE_REQUESTS one-row Bearer requests, each
+    answer bit for bit the same request's answer from the predictor's own
+    ingress and 12 flash launches each; the audit read back by
+    tools/audit_tail; the load generator with --oauth-key against the
+    gateway and without against the ingress, in turns, with a third arm,
+    the gateway with its audit sink off, beside them (the phase's other
+    processes have finished booting first: ``boots``); then the refusals:
+    a missing token, a wrong secret, a token of a rotated-out key (and a
+    gateway planted to skip that revocation must fail the check), a
+    deployment whose engine is gone and one removed from the store."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.gateway import NullAuditSink, make_audit_sink
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.serving.fast_http import gateway_routes, start_fast_server
+    from seldon_core_tpu_torch.serving.server import load_predictor
+    from seldon_core_tpu_torch.tools import audit_tail
+    from seldon_core_tpu_torch.tools.stack import build_gateway_stack
+
+    audit_dir = SPLIT_DIR / "audit"
+    if audit_dir.exists():
+        for f in audit_dir.iterdir():
+            f.unlink()
+    predictor, name = load_predictor(str(BASELINE_DIR / "bert_base_flash.json"))
+    t0 = time.perf_counter()
+    server, gw, _, _ = build_gateway_stack(predictor, deployment_name=name, oauth_key=GATE_KEY,
+                                           oauth_secret=GATE_SECRET, audit=make_audit_sink(f"file://{audit_dir}"),
+                                           device=DEVICE)
+    boot_s = time.perf_counter() - t0
+    runtime = _model_runtime(server)
+    seq, vocab, layers = runtime.feature_shape[0], runtime.params["tok_emb"].shape[0], len(runtime.params["layers"])
+    await server.start("127.0.0.1", 0)
+    gws = await start_fast_server(gateway_routes(gw), "127.0.0.1", 0)
+    gport = gws.sockets[0].getsockname()[1]
+    rng = np.random.default_rng(13)
+    row = {"boot_s": round(boot_s, 3)}
+    try:
+        token = await _token(gport, "basic", GATE_KEY, GATE_SECRET)
+        form_token = await _token(gport, "form", GATE_KEY, GATE_SECRET)
+        sent, received, deltas, ms = [], [], [], {"gateway": [], "direct": []}
+        for i in range(GATE_REQUESTS):
+            ids = rng.integers(0, vocab, size=(1, seq))
+            body = json.dumps({"data": {"ndarray": ids.tolist()}}).encode()
+            before = LAUNCHES.count
+            status, gate_raw, gate_ms = await _bearer_post(gport, token if i % 2 else form_token, body)
+            deltas.append(LAUNCHES.count - before)
+            before = LAUNCHES.count
+            d_status, _, direct_raw, direct_ms = await _request(server.port, body)
+            deltas.append(LAUNCHES.count - before)
+            if (status, d_status) != (200, 200):
+                raise AssertionError(f"13a request {i}: gateway HTTP {status}, ingress HTTP {d_status}: {gate_raw[:200]!r}")
+            gate, direct = json.loads(gate_raw), json.loads(direct_raw)
+            _check_probs(gate, 1)
+            if gate["data"] != direct["data"]:
+                raise AssertionError(f"13a request {i}: the gateway answered {gate['data']}, the ingress "
+                                     f"{direct['data']}")
+            sent.append(ids)
+            received.append(gate)
+            ms["gateway"].append(gate_ms)
+            ms["direct"].append(direct_ms)
+        require_launches("13a bert_base_flash (gateway and ingress) flash_attention", deltas, layers)
+        print(f"[{card}] 13a {GATE_REQUESTS} requests through the gateway bit for bit the ingress's; launches "
+              f"{sum(deltas)} ({layers} a request); one-request wall ms gateway {_mean([{'ms': m} for m in ms['gateway']])} "
+              f"direct {_mean([{'ms': m} for m in ms['direct']])}", flush=True)
+        records = list(audit_tail.iter_records(f"file://{audit_dir}", GATE_KEY, follow=False))
+        if len(records) != GATE_REQUESTS:
+            raise AssertionError(f"13a audit: {len(records)} records, want {GATE_REQUESTS}")
+        for i, (rec, ids, out) in enumerate(zip(records, sent, received)):
+            if np.asarray(rec["request"]["data"]["ndarray"], np.float32).tolist() != ids.astype(np.float32).tolist():
+                raise AssertionError(f"13a audit record {i}: the request is not the one sent")
+            if rec["response"] != out:
+                raise AssertionError(f"13a audit record {i}: the response is not the one received")
+        print(f"[{card}] 13a audit: {len(records)} records read back by tools/audit_tail, each request and "
+              f"response the pair sent and received", flush=True)
+        await boots()  # the unit servers and the microservice boot off the measured window
+        runs = {"gateway": [], "gateway_audit_off": [], "direct": []}
+        gate_load = {"payload": "json", "features": seq, "oauth": (GATE_KEY, GATE_SECRET)}
+        audit = gw.audit
+        for turn in ("gateway", "gateway_audit_off", "direct", "direct", "gateway_audit_off", "gateway"):
+            gw.audit = NullAuditSink() if turn == "gateway_audit_off" else audit
+            if turn == "direct":
+                runs[turn].append(await _gate_points(card, "13a direct", server.port, {"payload": "json",
+                                                                                      "features": seq}))
+            else:
+                runs[turn].append(await _gate_points(card, f"13a {turn}", gport, gate_load))
+        gw.audit = audit
+        row["load"] = _turns_summary(runs)
+        row["keys_after_warmup"] = runtime.recompiles_since_warmup()
+        if row["keys_after_warmup"]:
+            raise AssertionError(f"13a: {row['keys_after_warmup']} new dispatch keys after warmup")
+        # the refusals, each with the JAX gateway's status and code
+        await _refused(gport, None, 401, 205, "13a a missing token")
+        from urllib.parse import urlencode
+
+        form = urlencode({"grant_type": "client_credentials", "client_id": GATE_KEY, "client_secret": "wrong"})
+        status, _, body, _ = await _request(gport, form.encode(), "application/x-www-form-urlencoded", "/oauth/token")
+        if status != 401 or json.loads(body).get("error") != "invalid_client":
+            raise AssertionError(f"13a a wrong secret: HTTP {status} {body!r}")
+        await rotation_refusal(gw, gport, "13a")
+
+        # planted: a gateway whose key rotation forgets the old key's tokens
+        gw.oauth.remove_client = lambda client_id: gw.oauth._clients.pop(client_id, None)
+        try:
+            await must_fail_async("13a a gateway that skips token revocation on key rotation",
+                                  lambda: rotation_refusal(gw, gport, "13a planted"))
+        finally:
+            del gw.oauth.remove_client
+        token = await _token(gport, "basic", GATE_KEY, GATE_SECRET)  # the rotations revoked the first
+        backend = gw.backend
+        backend.unregister(name)
+        await _refused(gport, token, 500, 204, "13a a deployment whose engine is gone")
+        backend.register(name, server.service)
+        gw.store.deployment_removed(name)
+        await _refused(gport, token, 401, 205, "13a a removed deployment's token")
+    finally:
+        gws.close()
+        await server.stop()
+    row["launches"] = sum(deltas)
+    return row
+
+
+def hold_split(label: str, pairs: list) -> None:
+    """Each (split reply, in-process reply): the same route and the same
+    probabilities, bit for bit (float32 goes through JSON as the shortest
+    repr of its float64 widening, which reads back to the same float32)."""
+    for i, (a, b) in enumerate(pairs):
+        if a["meta"].get("routing") != b["meta"].get("routing"):
+            raise AssertionError(f"{label} request {i}: routed {a['meta'].get('routing')} against "
+                                 f"{b['meta'].get('routing')}")
+        if a["data"] != b["data"]:
+            import numpy as np
+
+            gap = float(np.abs(np.asarray(a["data"]["ndarray"]) - np.asarray(b["data"]["ndarray"])).max())
+            raise AssertionError(f"{label} request {i}: probabilities differ by {gap}")
+
+
+def sync_router(dst, src) -> None:
+    """Give an epsilon-greedy router another's state (its draws to come,
+    its counts and rewards)."""
+    dst._rng.setstate(src._rng.getstate())
+    dst.counts, dst.rewards = list(src.counts), list(src.rewards)
+
+
+def breaker_check(label: str, ex, unit: str, answers: list) -> None:
+    """After the unit server answered 400 to each malformed body, the
+    endpoint's breaker is still closed."""
+    if not all("-> 400" in a for a in answers):
+        raise AssertionError(f"{label}: the unit server's answers were {answers}, want 400s")
+    state = ex.breaker_for(unit).state
+    if state != "closed":
+        raise AssertionError(f"{label}: {len(answers)} answers of 400 left the breaker {state}")
+
+
+async def _malformed_answers(ex) -> list:
+    from seldon_core_tpu_torch.core.errors import APIException
+    from seldon_core_tpu_torch.core.message import SeldonMessage
+
+    answers = []
+    for _ in range(MALFORMED):
+        try:
+            await ex.execute(SeldonMessage(str_data="malformed"))
+        except APIException as e:
+            answers.append(e.info)
+        else:
+            raise AssertionError("a malformed body was answered 200")
+    return answers
+
+
+def _split_trace(engine_rec: dict, unit_rec: dict, arm: str, trace_id: str) -> dict:
+    """The hop in one request's trace: the engine's span around the arm's
+    call against the unit server's ingress span that continues it."""
+    engine_spans = [s for s in engine_rec["trace"] if s["name"].startswith(f"{arm}.")]
+    roots = [s for s in unit_rec["trace"] if s["name"] == "ingress"]
+    if len(engine_spans) != 1 or len(roots) != 1:
+        raise AssertionError(f"13b trace {trace_id}: engine spans {[s['name'] for s in engine_rec['trace']]}, "
+                             f"unit server spans {[s['name'] for s in unit_rec['trace']]}")
+    unit_span, root = engine_spans[0], roots[0]
+    if root["trace_id"] != trace_id or root["parent_id"] != unit_span["span_id"]:
+        raise AssertionError(f"13b trace: the unit server's ingress span {root} does not continue the engine's "
+                             f"{unit_span}")
+    unit_ms = (unit_span["end_ns"] - unit_span["start_ns"]) / 1e6
+    server_ms = (root["end_ns"] - root["start_ns"]) / 1e6
+    return {"engine_unit_span_ms": round(unit_ms, 4), "unit_server_ingress_span_ms": round(server_ms, 4),
+            "hop_ms": round(unit_ms - server_ms, 4)}
+
+
+async def split_dag(card, spawns: list) -> dict:
+    """Phase 13b: full_dag_bert split as the reference deploys it. Both
+    BERT-base arms (seq 128, bf16, seeds 0 and 1: full_dag_bert.json's
+    bert-a and bert-b) served by their own unit servers, separate processes
+    on the card started through the server CLI with --warmup; the engine
+    (full_dag_bert_remote.json, the ports written in) in this process
+    behind the gateway with full_dag_bert's OAuth client; the same
+    requests to the split DAG and to the in-process full_dag_bert in
+    turns: routes and probabilities equal request by request; a feedback
+    moving only the routed arm's reward; the same arms as in-process unit
+    servers on their own ports behind a third engine, counted (12 flash
+    launches a request); one request's engine unit span against the unit
+    server's ingress span; the load generator on the split and the
+    in-process DAG in turns. Planted: the arms' endpoints swapped (the
+    probability check must fail), and a client counting 4xx against the
+    breaker (the breaker check must fail after MALFORMED 400s)."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.core.errors import APIException
+    from seldon_core_tpu_torch.engine import remote
+    from seldon_core_tpu_torch.engine.executor import build_executor
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.serving.fast_http import gateway_routes, start_fast_server
+    from seldon_core_tpu_torch.serving.server import load_predictor
+    from seldon_core_tpu_torch.tools.stack import build_gateway_stack
+
+    names = [a["name"] for a in _dag_arms()]
+    arm_paths = [SPLIT_DIR / f"{n}.json" for n in names]
+    servers, gws = [], None
+    row: dict = {}
+    try:
+        t0 = time.perf_counter()
+        local, _, _ = await _start(BASELINE_DIR / "full_dag_bert.json")
+        servers.append(local)
+        twin_arms = []
+        for p in arm_paths:
+            twin, _, _ = await _start(p)
+            servers.append(twin)
+            twin_arms.append(twin)
+        in_process_s = time.perf_counter() - t0
+        done = [await task for task in spawns]
+        ports = [d[1] for d in done]
+        row["unit_server_boot_s"] = [round(d[2], 3) for d in done]
+        row["in_process_boot_s"] = round(in_process_s, 3)
+        print(f"[{card}] 13b unit servers {names} serving on ports {ports}, boot s {row['unit_server_boot_s']} "
+              f"(separate processes, booted during 13a); {in_process_s:.3f} s of in-process boots here; "
+              f"memory_reserved() per unit server is not read (their /metrics do not carry it)", flush=True)
+        predictor, dep_name = load_predictor(str(_remote_copy(ports, "split")))
+        dag = json.loads((BASELINE_DIR / "full_dag_bert.json").read_text())["spec"]
+        split, gw, _, _ = build_gateway_stack(predictor, deployment_name=dep_name, oauth_key=dag["oauth_key"],
+                                              oauth_secret=dag["oauth_secret"], device=DEVICE)
+        await split.start("127.0.0.1", 0)
+        servers.append(split)
+        gws = await start_fast_server(gateway_routes(gw), "127.0.0.1", 0)
+        gport = gws.sockets[0].getsockname()[1]
+        token = await _token(gport, "form", dag["oauth_key"], dag["oauth_secret"])
+        twins, _, _ = await _start(_remote_copy([t.port for t in twin_arms], "twins"))
+        servers.append(twins)
+        local_router = local.executor.root.children[0].unit
+        split_router = split.executor.root.children[0].unit
+        if [type(c.unit).__name__ for c in split.executor.root.children[0].children] != ["RemoteUnit"] * 2:
+            raise AssertionError("13b: the split engine's arms are not remote units")
+        runtime = twin_arms[0].executor.root.unit.runtime
+        seq, vocab, layers = runtime.feature_shape[0], runtime.params["tok_emb"].shape[0], len(runtime.params["layers"])
+        rng = np.random.default_rng(131)
+        pairs, twin_pairs, deltas, routes = [], [], [], []
+        for i in range(SPLIT_REQUESTS):
+            body = json.dumps({"data": {"ndarray": rng.integers(0, vocab, size=(1, seq)).tolist()}}).encode()
+            status, raw, _ = await _bearer_post(gport, token, body)
+            l_status, _, l_raw, _ = await _request(local.port, body)
+            before = LAUNCHES.count
+            t_status, _, t_raw, _ = await _request(twins.port, body)
+            deltas.append(LAUNCHES.count - before)
+            if (status, l_status, t_status) != (200, 200, 200):
+                raise AssertionError(f"13b request {i}: split HTTP {status}, in-process {l_status}, twins {t_status}: "
+                                     f"{raw[:300]!r}")
+            a, b, t = json.loads(raw), json.loads(l_raw), json.loads(t_raw)
+            _check_probs(a, 1)
+            pairs.append((a, b))
+            twin_pairs.append((t, b))
+            routes.append(a["meta"]["routing"]["eg"])
+        hold_split("13b split DAG against the in-process DAG", pairs)
+        hold_split("13b in-process unit servers against the in-process DAG", twin_pairs)
+        require_launches("13b in-process arm unit servers flash_attention", deltas, layers)
+        print(f"[{card}] 13b {SPLIT_REQUESTS} requests: routes {routes} equal request by request, probabilities "
+              f"bit for bit the in-process DAG's (split and in-process unit servers); {layers} flash launches a "
+              f"request on the in-process unit servers ({sum(deltas)})", flush=True)
+        row["routes"] = routes
+        row["launches"] = sum(deltas)
+        # a feedback through the gateway moves only the routed arm's reward
+        route = routes[-1]
+        counts, rewards = list(split_router.counts), list(split_router.rewards)
+        fb = json.dumps({"response": pairs[-1][0], "reward": 1.0}).encode()
+        status, raw, _ = await _bearer_post(gport, token, fb, path="/api/v0.1/feedback")
+        want_counts = [c + (i == route) for i, c in enumerate(counts)]
+        want_rewards = [r + (1.0 if i == route else 0.0) for i, r in enumerate(rewards)]
+        if status != 200 or split_router.counts != want_counts or split_router.rewards != want_rewards:
+            raise AssertionError(f"13b feedback: HTTP {status}, router {split_router.counts} {split_router.rewards}, "
+                                 f"want {want_counts} {want_rewards}")
+        # one request's hop, from its trace
+        header, trace_id, _ = _traceparent("split-dag", 0)
+        body = json.dumps({"meta": {"tags": {"trace": 1}},
+                           "data": {"ndarray": rng.integers(0, vocab, size=(1, seq)).tolist()}}).encode()
+        status, raw, _ = await _bearer_post(gport, token, body, headers={"traceparent": header})
+        if status != 200:
+            raise AssertionError(f"13b traced request: HTTP {status} {raw[:200]!r}")
+        arm = json.loads(raw)["meta"]["routing"]["eg"]
+        engine_rec = json.loads(await _get(split.port, f"/traces/{trace_id}"))
+        unit_rec = json.loads(await _get(ports[arm], f"/traces/{trace_id}"))
+        row["trace"] = _split_trace(engine_rec, unit_rec, names[arm], trace_id)
+        print(f"[{card}] 13b one request's hop to {names[arm]}: {json.dumps(row['trace'])}", flush=True)
+        # planted: the arms' endpoints swapped
+        swapped, _, _ = await _start(_remote_copy(ports[::-1], "swapped"))
+        servers.append(swapped)
+        sync_router(swapped.executor.root.children[0].unit, local_router)
+        swap_pairs = []
+        for _ in range(SPLIT_FAULT_REQUESTS):
+            body = json.dumps({"data": {"ndarray": rng.integers(0, vocab, size=(1, seq)).tolist()}}).encode()
+            _, _, s_raw, _ = await _request(swapped.port, body)
+            _, _, l_raw, _ = await _request(local.port, body)
+            swap_pairs.append((json.loads(s_raw), json.loads(l_raw)))
+        must_fail("13b the arms' endpoints swapped", lambda: hold_split("13b swapped", swap_pairs))
+        # a unit server answering 400 to malformed bodies: the breaker stays
+        # closed; a client that counts the 4xx must open it
+        breaker = ({"name": "breaker_failure_threshold", "value": str(MALFORMED), "type": "INT"},
+                   {"name": "breaker_error_rate", "value": "1.0", "type": "FLOAT"})
+        graph = {"name": names[0], "type": "MODEL", "parameters": list(breaker),
+                 "endpoint": {"service_host": "127.0.0.1", "service_port": ports[0], "type": "REST"}}
+        spec = SeldonDeployment.from_dict({"spec": {"name": "breaker", "predictors": [
+            {"name": "p", "graph": graph}]}}).spec.predictors[0]
+        ex = build_executor(spec)
+        answers = await _malformed_answers(ex)
+        breaker_check("13b", ex, names[0], answers)
+        real = remote.RemoteUnit._status_error
+        remote.RemoteUnit._status_error = staticmethod(
+            lambda url, status, body: APIException(real(url, status, body).error, real(url, status, body).info))
+        try:
+            ex = build_executor(spec)
+            planted = await _malformed_answers(ex)
+        finally:
+            remote.RemoteUnit._status_error = staticmethod(real)
+        must_fail("13b a client counting 4xx against the breaker", lambda: breaker_check("13b planted", ex, names[0],
+                                                                                          planted))
+        print(f"[{card}] 13b {MALFORMED} answers of 400 from {names[0]}'s unit server left its breaker closed; "
+              f"planted faults failed their checks (swapped endpoints, a client counting 4xx)", flush=True)
+        # numbers: the split DAG (its engine's ingress) and the in-process DAG, in turns
+        runs = {"split": [], "in_process": []}
+        for turn in ("split", "in_process", "in_process", "split"):
+            port = split.port if turn == "split" else local.port
+            runs[turn].append(await _gate_points(card, f"13b {turn}", port, {"payload": "json", "features": seq}))
+        row["load"] = _turns_summary(runs)
+        keys = {}
+        for s in (local, *twin_arms):
+            for node in s.executor.root.walk():
+                rt = getattr(node.unit, "runtime", None)
+                if rt is not None:
+                    keys[f"{s.deployment_name}/{node.name}"] = rt.recompiles_since_warmup()
+        row["keys_after_warmup"] = keys
+        if any(keys.values()):
+            raise AssertionError(f"13b: new dispatch keys after warmup {keys}")
+    finally:
+        from seldon_core_tpu_torch.engine.remote import _RestSession
+
+        # the engines' pooled connections first: a server's wait_closed
+        # waits for its clients' kept-alive connections
+        await _RestSession.close()
+        if gws is not None:
+            gws.close()
+        for s in servers:
+            await s.stop()
+    return row
+
+
+ROUTER_CLASS = """
+class PickOne:
+    def route(self, X, names):
+        return 1
+    def send_feedback(self, X, names, routing, reward, truth):
+        self.saw = reward
+"""
+
+
+def _microservice_spawn():
+    """The microservice CLI serving MnistCnn (train_steps 0 from
+    PREDICTIVE_UNIT_PARAMETERS) on a port of its own, a spawn to await."""
+    params = [{"name": "train_steps", "value": "0", "type": "INT"}]
+    if DEVICE != "cuda":
+        params.append({"name": "device", "value": DEVICE, "type": "STRING"})
+    return _spawn(["seldon_core_tpu_torch.serving.microservice", "MnistCnn", "REST", "--service-type", "MODEL",
+                   "--model-dir", MNIST_CNN_DIR, "--port", "0"], "microservice MnistCnn",
+                  env={"PREDICTIVE_UNIT_PARAMETERS": json.dumps(params)})
+
+
+async def container_contract(card, spawn) -> dict:
+    """Phase 13c: the reference's container contract. The microservice CLI
+    serving examples/models/torch_mnist_cnn (MnistCnn, train_steps 0 from
+    PREDICTIVE_UNIT_PARAMETERS) in a process of its own on the card, driven
+    by tools/contract.py with its contract.json (each batch answered 200,
+    [CONTRACT_BATCH, 10] probabilities) and consumed by an engine's
+    RemoteUnit (its answers bit for bit the class called in this process);
+    then /route and /send-feedback on a router class."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.core.message import Feedback, SeldonMessage
+    from seldon_core_tpu_torch.engine.executor import build_executor
+    from seldon_core_tpu_torch.engine.remote import RemoteUnit
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+    from seldon_core_tpu_torch.serving.microservice import load_user_object, serve_microservice
+    from seldon_core_tpu_torch.tools import contract
+
+    model_dir = MNIST_CNN_DIR
+    _, port, boot_s = await spawn
+    row = {"boot_s": round(boot_s, 3)}
+    router = None
+    try:
+        spec = json.loads((ROOT / model_dir / "contract.json").read_text())
+        t0 = time.perf_counter()
+        outs = await asyncio.to_thread(contract.run, spec, "127.0.0.1", port, rounds=CONTRACT_ROUNDS,
+                                       batch_size=CONTRACT_BATCH, seed=5)
+        row["contract_s"] = round(time.perf_counter() - t0, 3)
+        for out in outs:
+            _check_probs(out, CONTRACT_BATCH, 10)
+        graph = {"name": "mnist-cnn", "type": "MODEL",
+                 "endpoint": {"service_host": "127.0.0.1", "service_port": port, "type": "REST"}}
+        ex = build_executor(SeldonDeployment.from_dict({"spec": {"name": "c", "predictors": [
+            {"name": "p", "graph": graph}]}}).spec.predictors[0])
+        x = np.random.default_rng(6).random((CONTRACT_BATCH, 784), dtype=np.float32)
+        out = await ex.execute(SeldonMessage.from_array(x))
+        user = load_user_object("MnistCnn", model_dir, {"train_steps": 0, **({} if DEVICE == "cuda" else
+                                                                             {"device": DEVICE})})
+        want = np.asarray(user.predict(x, []), np.float32)
+        got = np.asarray(out.array)
+        row["remote_vs_in_process_max_abs"] = float(np.abs(got - want).max())
+        if not np.array_equal(got, want):
+            raise AssertionError(f"13c: the RemoteUnit's answers differ from the class in-process by "
+                                 f"{row['remote_vs_in_process_max_abs']}")
+        print(f"[{card}] 13c microservice MnistCnn (boot {boot_s:.3f} s): {CONTRACT_ROUNDS} contract batches of "
+              f"{CONTRACT_BATCH} answered 200 with [{CONTRACT_BATCH}, 10] probabilities; a RemoteUnit's answers "
+              f"bit for bit the class in-process", flush=True)
+        SPLIT_DIR.mkdir(parents=True, exist_ok=True)
+        (SPLIT_DIR / "PickOne.py").write_text(ROUTER_CLASS)
+        user = load_user_object("PickOne", str(SPLIT_DIR))
+        router, _, _ = await serve_microservice(user, "PickOne", "ROUTER", host="127.0.0.1", http_port=0)
+        rport = router.sockets[0].getsockname()[1]
+        status, _, raw, _ = await _request(rport, json.dumps({"data": {"ndarray": [[1.0, 2.0]]}}).encode(),
+                                           path="/route")
+        if status != 200 or json.loads(raw)["data"]["tensor"] != {"shape": [1, 1], "values": [1.0]}:
+            raise AssertionError(f"13c /route: HTTP {status} {raw[:200]!r}")
+        fb = {"request": {"data": {"ndarray": [[1.0, 2.0]]}}, "response": {"meta": {"routing": {"PickOne": 1}}},
+              "reward": 0.5}
+        status, _, raw, _ = await _request(rport, json.dumps(fb).encode(), path="/send-feedback")
+        if status != 200 or user.saw != 0.5:
+            raise AssertionError(f"13c /send-feedback: HTTP {status}, the class saw {getattr(user, 'saw', None)}")
+        unit = RemoteUnit(SeldonDeployment.from_dict({"spec": {"name": "r", "predictors": [{"name": "p", "graph": {
+            "name": "PickOne", "type": "ROUTER", "children": [],
+            "endpoint": {"service_host": "127.0.0.1", "service_port": rport, "type": "REST"}}}]}}).spec
+            .predictors[0].graph)
+        branch = await unit.route(SeldonMessage.from_array(np.ones((1, 2), np.float32)))
+        await unit.send_feedback(Feedback(request=SeldonMessage.from_array(np.ones((1, 2), np.float32)), reward=0.25),
+                                 branch)
+        if branch != 1 or user.saw != 0.25:
+            raise AssertionError(f"13c RemoteUnit on the router: branch {branch}, reward seen {user.saw}")
+        print(f"[{card}] 13c router class: /route a 1x1 tensor [[1.0]], /send-feedback reached it, and a "
+              f"RemoteUnit's route and feedback too", flush=True)
+    finally:
+        from seldon_core_tpu_torch.engine.remote import _RestSession
+
+        await _RestSession.close()
+        if router is not None:
+            router.close()
+    return row
+
+
+async def serve_split_data_plane(card) -> dict:
+    """Phase 13: 13a the gateway in front of an in-process engine, 13b the
+    split DAG, 13c the container contract. Returns the phase's numbers and
+    its flash launches (those counted on the in-process paths: a unit
+    server in another process is not counted from here)."""
+    from seldon_core_tpu_torch.engine.remote import _RestSession
+    from seldon_core_tpu_torch.ops import int8_matmul
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    # the phase's three other processes boot at once, during 13a's checks
+    names = [a["name"] for a in _dag_arms()]
+    spawns = [asyncio.ensure_future(_spawn(
+        ["seldon_core_tpu_torch.serving.server", "--deployment", str(_arm_deployment(a, a["name"])), "--warmup",
+         "--host", "127.0.0.1", "--port", "0", "--device", DEVICE], f"unit server {a['name']}"))
+        for a in _dag_arms()]
+    spawns.append(asyncio.ensure_future(_microservice_spawn()))
+
+    async def boots():
+        await asyncio.gather(*spawns, return_exceptions=True)
+
+    int8_before = int8_matmul.LAUNCHES.count
+    LAUNCHES.reset()  # the phase's paths run from here
+    try:
+        gate = await gateway_in_front(card, boots)
+        split = await split_dag(card, spawns[:len(names)])
+        container = await container_contract(card, spawns[-1])
+    finally:
+        await _RestSession.close()
+        for task in spawns:
+            if not task.done():
+                task.cancel()
+        for done in await asyncio.gather(*spawns, return_exceptions=True):
+            if not isinstance(done, BaseException):
+                await _reap(done[0])
+    return {"gateway": gate, "split_dag": split, "container": container,
+            "launches": {"flash_attention": LAUNCHES.count, "int8_matmul": int8_matmul.LAUNCHES.count - int8_before}}
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -5481,6 +6178,17 @@ def main() -> int:
     fleet = asyncio.run(serve_fleet(card))
     print(f"[{card}] phase 12 seconds: {time.perf_counter() - t12:.3f}", flush=True)
 
+    # 13. the split data plane: the OAuth gateway, remote REST units, the
+    # standalone microservice
+    t13 = time.perf_counter()
+    split_plane = asyncio.run(serve_split_data_plane(card))
+    split_launches = split_plane["launches"]["flash_attention"]
+    if split_launches <= 0:
+        raise AssertionError("the split data plane's paths launched no flash_attention kernel")
+    print(f"[{card}] phase 13 flash_attention launches: {split_launches} int8_matmul launches: "
+          f"{split_plane['launches']['int8_matmul']}", flush=True)
+    print(f"[{card}] phase 13 seconds: {time.perf_counter() - t13:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -5490,14 +6198,15 @@ def main() -> int:
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
-        + learning_launches + source_launches,
+        + learning_launches + source_launches + split_launches,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
                              "pipelined and tier deployments (phase 9)": pipeline_launches,
                              "learning (phase 10)": learning_launches,
                              "model sources (phase 11)": source_launches,
-                             "replicated fleet (phase 12)": fleet["launches"]["flash_attention"]},
+                             "replicated fleet (phase 12)": fleet["launches"]["flash_attention"],
+                             "split data plane (phase 13)": split_launches},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -5526,7 +6235,8 @@ def main() -> int:
         "launches": int8_launches + learning_int8 + source_int8,
         "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8,
                              "model sources (phase 11)": source_int8,
-                             "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"]},
+                             "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"],
+                             "split data plane (phase 13)": split_plane["launches"]["int8_matmul"]},
         "launches_by_body": int8_by_body,
         "host_us": int8_host["wrapper_us"],
         **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
@@ -5542,6 +6252,7 @@ def main() -> int:
     print(json.dumps({"model_sources_and_user_code": {"card": card, "store": store, **{
         k: v for k, v in sources.items() if not k.endswith("_by_body")}, **user_code}}), flush=True)
     print(json.dumps({"fleet": {"card": card, **fleet}}), flush=True)
+    print(json.dumps({"split_data_plane": {"card": card, **split_plane}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

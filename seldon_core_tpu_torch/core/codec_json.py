@@ -180,6 +180,7 @@ def message_to_json(msg: SeldonMessage) -> str:
 
 # meta alone, for binary responses that carry it in a header
 meta_to_dict = _encode_meta
+meta_from_dict = _decode_meta
 
 
 def feedback_to_dict(fb: Feedback) -> dict[str, Any]:

@@ -53,12 +53,18 @@ class APIException(Exception):
         info: str = "",
         *,
         retry_after_s: float | None = None,
+        retryable: bool | None = None,
     ):
         self.error = error
         self.info = info
         # when set (open circuit breaker), the wire sends it as an HTTP
         # Retry-After header so clients back off instead of hammering
         self.retry_after_s = retry_after_s
+        # the resilience layer's verdict, when the raiser knows better than
+        # the code: a remote unit's 4xx travels as ENGINE_MICROSERVICE_ERROR
+        # but is deterministic, so it is never replayed nor counted against
+        # the endpoint's breaker. None: classified by code.
+        self.retryable = retryable
         super().__init__(f"{error.name}({error.code}): {error.message} {info}".rstrip())
 
     def retry_after_header(self) -> str | None:

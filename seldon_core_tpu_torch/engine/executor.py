@@ -19,9 +19,11 @@ before rows are scattered or the response is encoded.
 Every unit call goes through the reference's resilience pipeline
 (``engine/resilience.py``): deadline check -> breaker gate -> attempt ->
 retry loop with backoff that never sleeps past the deadline (idempotent
-methods only, never send_feedback). Breakers are kept per node. A ROUTER
-with ``fallback_child`` serves that branch when the chosen child's breaker
-is open or its subtree fails transport-class; a COMBINER with ``quorum``
+methods only, never send_feedback). Breakers are kept per endpoint
+(``host:port`` of a remote node, else the node name) and shared by the
+nodes on one endpoint. A ROUTER with ``fallback_child`` serves that
+branch when the chosen child's breaker is open or its subtree fails
+transport-class; a COMBINER with ``quorum``
 aggregates the children that survive. Degraded replies carry
 ``meta.tags["degraded"]`` and the branch actually served in meta.routing.
 
@@ -148,15 +150,34 @@ class GraphExecutor:
         # SHADOW mirror walks in flight, kept so drain_shadows can await them
         self._shadow_tasks: set[asyncio.Task] = set()
         self._retries: dict[str, RetryState] = {}
+        # Breakers are keyed per endpoint (host:port for a node with a
+        # declared endpoint, else the node's name) and shared by the nodes
+        # on one endpoint, so a backend's health is tracked once; the first
+        # node walked with a breaker spec governs it.
         self._breakers: dict[str, CircuitBreaker] = {}
+        self._breaker_keys: dict[str, str] = {}
+        shared: dict[str, CircuitBreaker] = {}
+        shared_spec: dict[str, Any] = {}
         for n in root.walk():
             if n.policy.retry is not None:
                 self._retries[n.name] = RetryState(n.policy.retry)
-            if n.policy.breaker is not None:
-                self._breakers[n.name] = CircuitBreaker(
+            if n.policy.breaker is None:
+                continue
+            key = endpoint_key(n.spec)
+            cb = shared.get(key)
+            if cb is None:
+                cb = shared[key] = CircuitBreaker(
                     n.policy.breaker,
-                    on_transition=lambda state, k=n.name: self._on_breaker_transition(k, state),
+                    on_transition=lambda state, k=key: self._on_breaker_transition(k, state),
                 )
+                shared_spec[key] = n.policy.breaker
+            elif n.policy.breaker != shared_spec[key]:
+                log.warning(
+                    "node '%s': breaker config conflicts with the one already governing endpoint '%s' "
+                    "(first-declared wins)", n.name, key,
+                )
+            self._breakers[n.name] = cb
+            self._breaker_keys[n.name] = key
 
     def _on_breaker_transition(self, key: str, state: str) -> None:
         """A transition fires inside some request's walk: it goes to the
@@ -165,7 +186,7 @@ class GraphExecutor:
         telemetry.add_event("breaker_transition", {"endpoint": key, "state": state})
 
     def breaker_for(self, node_name: str) -> CircuitBreaker | None:
-        """The breaker guarding a node, if one is configured."""
+        """The breaker guarding a node's endpoint, if one is configured."""
         return self._breakers.get(node_name)
 
     def ready(self) -> bool:
@@ -259,14 +280,19 @@ class GraphExecutor:
     # ---------------------------------------------------------- resilience
     @staticmethod
     def _counts_for_breaker(e: BaseException) -> bool:
-        """Failures that indict the node's health: all but our own budget
-        exhaustion, breaker fast-fails and cancellation."""
+        """Failures that indict the endpoint's health: all but our own
+        budget exhaustion, breaker fast-fails, cancellation and answers the
+        raiser marked deterministic."""
         if isinstance(e, asyncio.CancelledError):
             return False
-        return not (
-            isinstance(e, APIException)
-            and e.error in (ErrorCode.REQUEST_DEADLINE_EXCEEDED, ErrorCode.ENGINE_BREAKER_OPEN)
-        )
+        if isinstance(e, APIException):
+            if e.error in (ErrorCode.REQUEST_DEADLINE_EXCEEDED, ErrorCode.ENGINE_BREAKER_OPEN):
+                return False
+            if e.retryable is False:
+                # deterministic (a remote 4xx): the backend answered, and
+                # counting it would open the breaker of a healthy endpoint
+                return False
+        return True
 
     async def _call(self, node: Node, method: str, fn, *args):
         """One unit-method call through the resilience pipeline:
@@ -285,8 +311,8 @@ class GraphExecutor:
         took_probe = False
         if breaker is not None and method != "send_feedback":
             if not breaker.allow():
-                telemetry.add_event("breaker_open", {"endpoint": node.name})
-                raise breaker_open_error(node.name, breaker)
+                telemetry.add_event("breaker_open", {"endpoint": self._breaker_keys[node.name]})
+                raise breaker_open_error(self._breaker_keys[node.name], breaker)
             # allow() consumed a probe slot iff the breaker sits half-open
             took_probe = breaker.state == HALF_OPEN
         retry = self._retries.get(node.name)
@@ -319,9 +345,9 @@ class GraphExecutor:
                     await asyncio.sleep(backoff_s)
                     if breaker is not None:
                         if not breaker.allow():
-                            # the node tripped open while we backed off
-                            telemetry.add_event("breaker_open", {"endpoint": node.name})
-                            raise breaker_open_error(node.name, breaker) from e
+                            # the endpoint tripped open while we backed off
+                            telemetry.add_event("breaker_open", {"endpoint": self._breaker_keys[node.name]})
+                            raise breaker_open_error(self._breaker_keys[node.name], breaker) from e
                         took_probe = breaker.state == HALF_OPEN
                     continue
                 raise
@@ -700,11 +726,20 @@ class GraphExecutor:
         }
 
 
+def endpoint_key(spec: PredictiveUnit) -> str:
+    """What a node's breaker is keyed by: ``host:port`` of its declared
+    endpoint, else its name."""
+    ep = spec.endpoint
+    if ep is not None and ep.service_port:
+        return f"{ep.service_host}:{ep.service_port}"
+    return spec.name
+
+
 def build_node(spec: PredictiveUnit, registry: UnitRegistry, context: dict[str, Any]) -> Node:
     """Resolve each spec unit to a runtime Unit, in order: an override in
     context['units'], the registry (JAX_MODEL), a container with a
-    model_uri, a bare identity Unit. A unit reachable only over a network
-    endpoint is refused: remote units are not part of this port."""
+    model_uri, a declared endpoint (``engine/remote.py::RemoteUnit``, REST;
+    a GRPC endpoint is refused by name), a bare identity Unit."""
     overrides = context.get("units") or {}
     unit: Unit | None = overrides.get(spec.name)
     if unit is not None and not isinstance(unit, Unit):
@@ -717,10 +752,9 @@ def build_node(spec: PredictiveUnit, registry: UnitRegistry, context: dict[str, 
 
         unit = unit_from_container(spec, container, context)
     if unit is None and spec.endpoint is not None and spec.endpoint.service_port:
-        raise ValueError(
-            f"unit '{spec.name}' is served at a network endpoint; remote units "
-            "are not supported by the torch port"
-        )
+        from seldon_core_tpu_torch.engine.remote import RemoteUnit
+
+        unit = RemoteUnit(spec)
     if unit is None:
         unit = Unit(spec)
     if container is not None and container.image:

@@ -103,6 +103,9 @@ RETRYABLE_CODES = frozenset({ErrorCode.ENGINE_MICROSERVICE_ERROR})
 
 def is_retryable(exc: BaseException) -> bool:
     if isinstance(exc, APIException):
+        # an explicit verdict wins (a remote 4xx is deterministic)
+        if exc.retryable is not None:
+            return exc.retryable
         return exc.error in RETRYABLE_CODES
     return isinstance(exc, (ConnectionError, TimeoutError, OSError))
 

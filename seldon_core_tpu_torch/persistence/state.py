@@ -7,9 +7,10 @@ under a directory (``file://``), or Redis (``redis://``, with ``redis``
 imported only when such a store is made) with a bounded socket budget.
 ``StatePersister`` snapshots stateful units (those that define
 ``__getstate__`` and ``__setstate__``: the online fine-tuning unit,
-``models/online.py``) when asked and restores them when attached, under
-the same keys; the reference's periodic snapshot thread comes with the
-serving wiring that would start it.
+``models/online.py``, a standalone microservice's user object) when
+asked, and every ``period_s`` once started (the reference's
+PersistenceThread, which ``serving/microservice.py --persistence``
+starts), and restores them when attached, under the same keys.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import hashlib
 import logging
 import os
 import pickle
+import threading
 from typing import Any, Iterable
 
 log = logging.getLogger(__name__)
@@ -102,15 +104,22 @@ def make_state_store(url: str):
     raise ValueError(f"unknown state store url: {url}")
 
 
-class StatePersister:
-    """Snapshots stateful units (``persist_now``); restores them at attach
-    time. A unit is stateful when its own class hierarchy defines both
-    ``__getstate__`` and ``__setstate__``."""
+DEFAULT_PERIOD_S = 60.0
 
-    def __init__(self, store, deployment_id: str):
+
+class StatePersister:
+    """Snapshots stateful units (``persist_now``, and on a period between
+    ``start`` and ``stop``); restores them at attach time. A unit is
+    stateful when its own class hierarchy defines both ``__getstate__`` and
+    ``__setstate__``."""
+
+    def __init__(self, store, deployment_id: str, period_s: float = DEFAULT_PERIOD_S):
         self.store = store
         self.deployment_id = deployment_id
+        self.period_s = period_s
         self._units: dict[str, Any] = {}
+        self._thread: threading.Thread | None = None
+        self._stop: threading.Event | None = None
 
     @staticmethod
     def is_stateful(unit: Any) -> bool:
@@ -146,3 +155,26 @@ class StatePersister:
             except Exception as e:  # noqa: BLE001
                 log.warning("could not persist state for %s: %s", name, e)
         return saved
+
+    def start(self) -> None:
+        """Snapshot every ``period_s`` on a daemon thread (a thread, not an
+        asyncio task, so it works whichever thread serves), as the
+        reference's PersistenceThread (persistence.py:43-48) does."""
+        if not self._units or self._thread is not None:
+            return
+        stop = self._stop = threading.Event()
+
+        def loop():
+            while not stop.wait(self.period_s):
+                self.persist_now()
+
+        self._thread = threading.Thread(target=loop, name=f"persist-{self.deployment_id}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        """End the periodic snapshots and flush once more."""
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=2)
+            self._thread = None
+        self.persist_now()

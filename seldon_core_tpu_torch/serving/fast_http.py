@@ -14,7 +14,10 @@ telemetry read-outs: ``/metrics`` and
 ``/prometheus``, and the trace, flight and profile routes that the JAX
 package serves on its operator API (``serving/wire.py``), and the
 replicated decode fleet's ``GET /decode/fleet`` and ``POST
-/decode/drain[?replica=n]``.
+/decode/drain[?replica=n]``, and the reference's internal microservice
+API (``/predict``, ``/route``, ``/send-feedback``, ``/transform-input``,
+``/transform-output``, ``/aggregate``), so every served graph can be a
+remote engine's unit. ``gateway_routes`` is the OAuth gateway's table.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ _TCHAR = frozenset(
 _STATUS_LINES = {
     200: b"HTTP/1.1 200 OK\r\n",
     400: b"HTTP/1.1 400 Bad Request\r\n",
+    401: b"HTTP/1.1 401 Unauthorized\r\n",
     404: b"HTTP/1.1 404 Not Found\r\n",
     411: b"HTTP/1.1 411 Length Required\r\n",
     413: b"HTTP/1.1 413 Payload Too Large\r\n",
@@ -324,4 +328,50 @@ def engine_routes(service, state: dict) -> dict:
     for method in ("GET", "POST"):
         routes[(method, "/pause")] = pause
         routes[(method, "/unpause")] = unpause
+
+    # the reference's internal microservice API: what a remote engine's
+    # RemoteUnit calls on this graph
+    def unit_method(name: str):
+        async def handler(req: WireRequest) -> WireResponse:
+            return await wire.engine_unit_method(service, req, name)
+
+        return handler
+
+    for name in wire.INTERNAL_API_METHODS:
+        routes[("POST", f"/{name}")] = unit_method(name)
     return routes
+
+
+def gateway_routes(gw) -> dict:
+    """The OAuth gateway's route table (``gateway/app.py``): the token
+    route, the Bearer-authenticated predictions and feedback, health and
+    the gateway's metrics."""
+    from seldon_core_tpu_torch.serving import wire
+
+    async def predictions(req: WireRequest) -> WireResponse:
+        return await wire.gateway_predictions(gw, req)
+
+    async def feedback(req: WireRequest) -> WireResponse:
+        return await wire.gateway_feedback(gw, req)
+
+    async def token(req: WireRequest) -> WireResponse:
+        return await wire.gateway_token(gw, req)
+
+    async def ready(req: WireRequest) -> WireResponse:
+        return WireResponse.text("ready")
+
+    async def ping(req: WireRequest) -> WireResponse:
+        return WireResponse.text("pong")
+
+    async def prometheus(req: WireRequest) -> WireResponse:
+        return wire.metrics_response(gw.metrics, req)
+
+    return {
+        ("POST", "/api/v0.1/predictions"): predictions,
+        ("POST", "/api/v0.1/feedback"): feedback,
+        ("POST", "/oauth/token"): token,
+        ("GET", "/ready"): ready,
+        ("GET", "/ping"): ping,
+        ("GET", "/metrics"): prometheus,
+        ("GET", "/prometheus"): prometheus,
+    }

@@ -1,25 +1,87 @@
-"""Loading a user's model class into the serving process.
+"""The standalone microservice: serve one user model class on its own,
+and the loader that imports it.
 
-Port of the loader of ``seldon_core_tpu/serving/microservice.py``
-(``load_user_object``, ``_import_user_module``, ``_dir_import_context``,
-``_dir_key_for``): a PYTHON_CLASS unit names a module, and optionally the
-directory it lives in; the module is imported, the class of the same name
-instantiated with the unit's remaining parameters as kwargs (the
-reference's wrappers/python contract: module name == class name).
+Port of ``seldon_core_tpu/serving/microservice.py`` (C18, reference
+wrappers/python/microservice.py):
 
-Each model directory is imported in isolation: its modules are keyed per
-directory in ``sys.modules``, so two deployments whose modules share a
-name load their own code, and an edited file is read again on the next
-load. The standalone microservice CLI of the JAX module is not part of the
-port yet.
+    python -m seldon_core_tpu_torch.serving.microservice <UserClass> REST \
+        --service-type MODEL --model-dir DIR [--port N] [--persistence]
+
+imports module ``<UserClass>`` from ``--model-dir`` and instantiates the
+class of the same name with the typed parameters of the
+PREDICTIVE_UNIT_PARAMETERS env JSON as kwargs (``load_user_object``,
+``parse_parameters``), wraps it as a one-unit graph of the service type
+(``build_single_unit_predictor``: MODEL, ROUTER, TRANSFORMER,
+OUTPUT_TRANSFORMER, COMBINER, or OUTLIER_DETECTOR, which tags
+``meta.tags.outlierScore``), and serves it on the port's fast ingress at
+``--port`` (default PREDICTIVE_UNIT_SERVICE_PORT, else 5000): the
+reference's internal API that an engine's ``RemoteUnit`` calls
+(``/predict``, ``/route``, ``/send-feedback``, ``/transform-input``,
+``/transform-output``, ``/aggregate``) and the external
+``/api/v0.1/predictions`` and ``/api/v0.1/feedback``. ``--persistence``
+restores the user object's state at boot and snapshots it every minute
+and at shutdown through ``persistence/state.py::StatePersister`` to
+PERSISTENCE_STORE (default ``file://./.seldon_state``). gRPC is not
+ported: ``GRPC`` and ``BOTH`` are refused by name.
+
+The loader (``load_user_object``, ``_import_user_module``,
+``_dir_import_context``, ``_dir_key_for``): each model directory is
+imported in isolation, its modules keyed per directory in
+``sys.modules``, so two deployments whose modules share a name load their
+own code, and an edited file is read again on the next load.
 """
 
 from __future__ import annotations
 
+import argparse
+import asyncio
 import contextlib
 import importlib
+import json
+import logging
 import os
 import sys
+
+from seldon_core_tpu_torch.graph.spec import PredictiveUnit, PredictiveUnitType, PredictorSpec
+from seldon_core_tpu_torch.utils.env import (
+    PERSISTENCE_STORE,
+    PREDICTIVE_UNIT_ID,
+    PREDICTIVE_UNIT_PARAMETERS,
+    PREDICTIVE_UNIT_SERVICE_PORT,
+    SELDON_DEPLOYMENT_ID,
+)
+
+log = logging.getLogger(__name__)
+
+SERVICE_TYPES = {
+    "MODEL": PredictiveUnitType.MODEL,
+    "ROUTER": PredictiveUnitType.ROUTER,
+    "TRANSFORMER": PredictiveUnitType.TRANSFORMER,
+    "OUTPUT_TRANSFORMER": PredictiveUnitType.OUTPUT_TRANSFORMER,
+    "COMBINER": PredictiveUnitType.COMBINER,
+    # the reference's fourth flavour (microservice.py:140,162): serves
+    # /transform-input, calls the user's score(), tags meta.tags.outlierScore
+    "OUTLIER_DETECTOR": PredictiveUnitType.TRANSFORMER,
+}
+API_REFUSAL = "gRPC is not ported to the torch port: serve the microservice with REST"
+
+
+def parse_parameters(raw: str | None) -> dict:
+    """PREDICTIVE_UNIT_PARAMETERS: [{"name":..,"value":..,"type":..}] with
+    typed coercion (reference microservice.py:119-133)."""
+    if not raw:
+        return {}
+    out = {}
+    for p in json.loads(raw):
+        value, ptype = p.get("value"), p.get("type", "STRING")
+        if ptype == "INT":
+            value = int(value)
+        elif ptype in ("FLOAT", "DOUBLE"):
+            value = float(value)
+        elif ptype == "BOOL":
+            value = str(value).lower() in ("1", "true", "yes")
+        out[p["name"]] = value
+    return out
 
 _USER_PREFIX = "_seldon_user_"
 
@@ -217,3 +279,126 @@ def load_user_object(name: str, model_dir: str | None = None, parameters: dict |
     cls = getattr(module, name)
     return cls(**(parameters or {}))
 
+
+def build_single_unit_predictor(name: str, service_type: str) -> PredictorSpec:
+    """A one-unit graph of the service type. Children stay empty even for
+    a router or a combiner: the microservice serves the unit's own API, and
+    the graph around it lives in whichever engine calls it."""
+    unit_type = SERVICE_TYPES[service_type]
+    return PredictorSpec(
+        name=name, graph=PredictiveUnit.from_dict({"name": name, "type": unit_type.value, "children": []})
+    )
+
+
+class _UserStateAdapter:
+    """A user object persists whole (the reference pickles the object): its
+    ``__dict__`` through the persister's getstate/setstate contract."""
+
+    def __init__(self, name: str, user_object):
+        self.name = name
+        self._user = user_object
+
+    def __getstate__(self):
+        return self._user.__dict__
+
+    def __setstate__(self, state):
+        self._user.__dict__.update(state)
+
+
+async def serve_microservice(
+    user_object,
+    name: str,
+    service_type: str = "MODEL",
+    *,
+    host: str = "0.0.0.0",
+    http_port: int | None = None,
+    persistence_url: str = "",
+    persistence_period_s: float = 60.0,
+    decode_npy: bool = True,
+):
+    """Serve one user object over REST on the fast ingress. Returns
+    (server, service, persister): ``server`` is the asyncio server (close
+    it, then ``persister.stop()`` when there is one)."""
+    from seldon_core_tpu_torch.engine.executor import build_executor
+    from seldon_core_tpu_torch.engine.units import OutlierDetectorUnit, PythonClassUnit
+    from seldon_core_tpu_torch.metrics import get_metrics
+    from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
+    from seldon_core_tpu_torch.serving.service import PredictionService
+
+    predictor = build_single_unit_predictor(name, service_type)
+    unit_cls = OutlierDetectorUnit if service_type == "OUTLIER_DETECTOR" else PythonClassUnit
+    executor = build_executor(predictor, context={"units": {name: unit_cls(predictor.graph, user_object)}})
+    service = PredictionService(executor, deployment_name=name, metrics=get_metrics(True), decode_npy=decode_npy)
+
+    persister = None
+    if persistence_url:
+        from seldon_core_tpu_torch.persistence.state import StatePersister, make_state_store
+
+        store = make_state_store(persistence_url)
+        if store is not None:
+            deployment_id = os.environ.get(SELDON_DEPLOYMENT_ID, name)
+            unit_id = os.environ.get(PREDICTIVE_UNIT_ID, name)
+            # the raw user object's learned state, never the unit wrapping it
+            persister = StatePersister(store, deployment_id, period_s=persistence_period_s)
+            if persister.attach([_UserStateAdapter(unit_id, user_object)]):
+                log.info("restored persisted state for %s", unit_id)
+            persister.start()
+
+    port = http_port if http_port is not None else int(os.environ.get(PREDICTIVE_UNIT_SERVICE_PORT, "5000"))
+    server = await start_fast_server(engine_routes(service, {"paused": False}), host, port)
+    log.info("microservice %s (%s) REST on %s:%s", name, service_type, host, port)
+    return server, service, persister
+
+
+async def _amain(args) -> None:
+    import signal
+
+    parameters = parse_parameters(os.environ.get(PREDICTIVE_UNIT_PARAMETERS))
+    user_object = load_user_object(args.interface_name, args.model_dir, parameters)
+    persistence_url = os.environ.get(PERSISTENCE_STORE, "file://./.seldon_state") if args.persistence else ""
+    server, _, persister = await serve_microservice(
+        user_object,
+        args.interface_name,
+        args.service_type,
+        http_port=args.port,
+        persistence_url=persistence_url,
+        decode_npy=not args.no_decode_npy,
+    )
+    print(
+        f"seldon-core-tpu-torch microservice {args.interface_name} ({args.service_type}) serving REST "
+        f":{server.sockets[0].getsockname()[1]}",
+        flush=True,
+    )
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    server.close()
+    await server.wait_closed()
+    if persister is not None:
+        persister.stop()
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="serve one user model class standalone (REST)")
+    p.add_argument("interface_name", help="module and class name of the user model")
+    p.add_argument("api", nargs="?", default="REST", help="REST (GRPC and BOTH are not ported)")
+    p.add_argument("--service-type", default="MODEL", choices=sorted(SERVICE_TYPES))
+    p.add_argument("--model-dir", default=".")
+    p.add_argument("--port", type=int, default=None)
+    p.add_argument("--persistence", action="store_true")
+    p.add_argument(
+        "--no-decode-npy",
+        action="store_true",
+        help="never sniff binData for npy: opaque passthrough for bytes-contract models",
+    )
+    args = p.parse_args(argv)
+    if args.api != "REST":
+        p.error(f"{args.api}: {API_REFUSAL}" if args.api in ("GRPC", "BOTH") else f"unknown api {args.api!r}")
+    logging.basicConfig(level=logging.INFO)
+    asyncio.run(_amain(args))
+
+
+if __name__ == "__main__":
+    main()

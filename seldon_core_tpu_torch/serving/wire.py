@@ -9,6 +9,12 @@ read-outs: ``/metrics`` with the JAX REST app's format negotiation
 trace, flight and profile routes of the JAX operator API
 (``seldon_core_tpu/operator/api.py``), with its query-validation contract.
 
+The reference's internal microservice API (``engine_unit_method``,
+``INTERNAL_API_METHODS``: what a remote engine's ``RemoteUnit`` calls) and
+the OAuth gateway's handlers (``gateway_predictions``,
+``gateway_feedback``, ``gateway_token``) are here too, shared by every
+route table of ``serving/fast_http.py``.
+
 Every failure leaves as the reference's status-JSON body with the error
 code's HTTP status, never as an HTML 500, and is counted in
 ``seldon_api_ingress_server_errors``. A request's W3C ``traceparent``
@@ -17,11 +23,15 @@ header reaches the service, whose trace continues it.
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import re
+import time
 from dataclasses import dataclass, field
 from urllib.parse import parse_qs
+
+import numpy as np
 
 from seldon_core_tpu_torch.core.codec_json import (
     feedback_from_dict,
@@ -98,15 +108,26 @@ def sse_frame(obj) -> bytes:
     return b"data: " + json.dumps(obj, separators=(",", ":")).encode() + b"\n\n"
 
 
-def failure_response(e: BaseException, op: str, service=None) -> WireResponse:
-    """The status-JSON failure, counted in the service's error counter; an
-    open breaker's 503 carries Retry-After, so clients back off until its
-    next probe could be admitted."""
+def failure_response(
+    e: BaseException,
+    op: str,
+    service=None,
+    *,
+    fallback_code: ErrorCode = ErrorCode.ENGINE_MICROSERVICE_ERROR,
+    metrics_error=None,
+) -> WireResponse:
+    """The status-JSON failure (an error that is not an APIException
+    becomes ``fallback_code``), counted in the service's error counter or
+    through ``metrics_error(code)``; an open breaker's 503 carries
+    Retry-After, so clients back off until its next probe could be
+    admitted."""
     if not isinstance(e, APIException):
         log.exception("unhandled error serving %s", op)
-        e = APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, str(e))
+        e = APIException(fallback_code, str(e))
     if service is not None:
         service.metrics.ingress_error(service.deployment_name, op, e.error.code)
+    if metrics_error is not None:
+        metrics_error(e.error.code)
     retry_after = e.retry_after_header()
     return WireResponse(
         status=e.error.http_status,
@@ -209,6 +230,132 @@ async def engine_feedback(service, req: WireRequest) -> WireResponse:
         return WireResponse(body=message_to_json(out).encode())
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(e, "feedback", service)
+
+
+# ------------------------------------------------- internal microservice API
+
+INTERNAL_API_METHODS = ("predict", "route", "send-feedback", "transform-input", "transform-output", "aggregate")
+
+
+async def engine_unit_method(service, req: WireRequest, method: str) -> WireResponse:
+    """The reference's internal microservice API (internal-api.md; the
+    routes of wrappers/python/microservice.py) on a served graph: what an
+    engine's ``RemoteUnit`` calls. ``/predict`` is the predictions surface
+    under its internal name (npy bodies included); ``/send-feedback``
+    walks the graph's feedback; the others call the root unit's method:
+    ``/route`` answers the branch as a 1x1 tensor, ``/aggregate`` takes
+    ``seldonMessages``. Bodies are raw JSON or the ``json=`` field of a
+    form. Each call is an ``ingress:{method}`` span that continues the
+    caller's ``traceparent``."""
+    if method == "predict":
+        return await engine_predictions(service, req)
+    try:
+        if method == "send-feedback":
+            fb = feedback_from_dict(payload_obj(req, ErrorCode.ENGINE_INVALID_JSON))
+            out = await service.send_feedback(fb, traceparent=req.headers.get("traceparent"))
+            return WireResponse(body=message_to_json(out).encode())
+        unit = service.executor.root.unit
+        with service.tracer.request_trace(
+            f"ingress:{method}",
+            parent=req.headers.get("traceparent"),
+            attrs={"deployment": service.deployment_name, "method": method},
+        ):
+            obj = payload_obj(req, ErrorCode.ENGINE_INVALID_JSON)
+            if method == "transform-input":
+                out = await unit.transform_input(message_from_dict(obj))
+            elif method == "transform-output":
+                out = await unit.transform_output(message_from_dict(obj))
+            elif method == "route":
+                branch = await unit.route(message_from_dict(obj))
+                out = SeldonMessage.from_array(np.asarray([[branch]], dtype=np.float32))
+            else:  # aggregate: the route table registers only INTERNAL_API_METHODS
+                out = await unit.aggregate([message_from_dict(m) for m in obj.get("seldonMessages", [])])
+        return WireResponse(body=message_to_json(out).encode())
+    except Exception as e:  # noqa: BLE001 - wire boundary
+        return failure_response(e, method, service)
+
+
+# ------------------------------------------------------------- gateway core
+
+
+async def gateway_predictions(gw, req: WireRequest) -> WireResponse:
+    """POST /api/v0.1/predictions through the OAuth gateway (reference
+    apife RestClientController.prediction): the Bearer token's principal
+    names the deployment, the backend predicts, the (request, response)
+    pair goes to the audit sink. An npy body is answered in npy."""
+    start = time.perf_counter()
+    try:
+        principal = gw.principal_from_auth(req.headers.get("authorization", ""))
+        dep = gw.deployment_for(principal)
+        # the predictors of one deployment share wire semantics (validated)
+        sniff = dep.predictors[0].tpu.decode_npy_bindata if dep.predictors else True
+        ctype = req.content_type
+        kind = classify_binary_bytes(ctype, req.body, sniff)
+        if kind != "json":
+            msg = SeldonMessage(bin_data=req.body)
+        elif ctype in ("application/json", ""):
+            msg = message_from_json(req.body)
+        else:
+            msg = message_from_dict(payload_obj(req, ErrorCode.APIFE_INVALID_JSON))
+        out = await gw.backend.predict(dep, msg, wire_npy=kind == "npy", traceparent=req.headers.get("traceparent"))
+        gw.audit.send(principal, msg, out)  # RestClientController.java:164
+        if gw.metrics is not None:
+            gw.metrics.ingress_request(dep.name, "predict", time.perf_counter() - start)
+        if kind == "npy":
+            from seldon_core_tpu_torch.serving.service import mirror_npy_kind
+
+            out = mirror_npy_kind(out)
+            if is_npy(out.bin_data):
+                return npy_wire_response(out)
+        return WireResponse(body=message_to_json(out).encode())
+    except Exception as e:  # noqa: BLE001 - wire boundary
+        return failure_response(
+            e, "gateway predict", fallback_code=ErrorCode.APIFE_MICROSERVICE_ERROR,
+            metrics_error=None if gw.metrics is None else lambda c: gw.metrics.ingress_error("", "predict", c),
+        )
+
+
+async def gateway_feedback(gw, req: WireRequest) -> WireResponse:
+    """POST /api/v0.1/feedback through the OAuth gateway."""
+    start = time.perf_counter()
+    try:
+        principal = gw.principal_from_auth(req.headers.get("authorization", ""))
+        dep = gw.deployment_for(principal)
+        fb = feedback_from_dict(payload_obj(req, ErrorCode.APIFE_INVALID_JSON))
+        out = await gw.backend.feedback(dep, fb)
+        if gw.metrics is not None:
+            gw.metrics.ingress_request(dep.name, "feedback", time.perf_counter() - start)
+            gw.metrics.feedback(dep.name, "", "", fb.reward)
+        return WireResponse(body=message_to_json(out).encode())
+    except Exception as e:  # noqa: BLE001 - wire boundary
+        return failure_response(
+            e, "gateway feedback", fallback_code=ErrorCode.APIFE_MICROSERVICE_ERROR,
+            metrics_error=None if gw.metrics is None else lambda c: gw.metrics.ingress_error("", "feedback", c),
+        )
+
+
+async def gateway_token(gw, req: WireRequest) -> WireResponse:
+    """POST /oauth/token: client_credentials by Basic auth, an urlencoded
+    form or a multipart form; 401 ``invalid_client`` on bad credentials."""
+    client_id = client_secret = ""
+    auth = req.headers.get("authorization", "")
+    if auth.lower().startswith("basic "):
+        try:
+            client_id, _, client_secret = base64.b64decode(auth[6:]).decode().partition(":")
+        except (ValueError, UnicodeDecodeError):
+            client_id = client_secret = ""
+    if not client_id:
+        if req.content_type == "multipart/form-data":
+            client_id = _multipart_field(req, "client_id") or ""
+            client_secret = _multipart_field(req, "client_secret") or ""
+        else:
+            fields = parse_qs(req.body.decode("utf-8", errors="replace"))
+            client_id = (fields.get("client_id") or [""])[0]
+            client_secret = (fields.get("client_secret") or [""])[0]
+    try:
+        return WireResponse.json(gw.oauth.issue_token(client_id, client_secret))
+    except PermissionError:
+        return WireResponse.json({"error": "invalid_client", "error_description": "Bad client credentials"}, status=401)
 
 
 async def engine_predictions_stream(service, req: WireRequest):

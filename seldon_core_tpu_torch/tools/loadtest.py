@@ -16,14 +16,18 @@ back). One asyncio process tops out as a generator well below a multi-core
 server's ceiling; N workers show whether a measured ceiling is the
 server's or the client's.
 
-The port serves no OAuth gateway, so ``--oauth-key`` (or its
-``LOADTEST_OAUTH_KEY`` default) is refused by name, never dropped in favour
-of an unauthenticated run.
+With ``--oauth-key`` (or its ``LOADTEST_OAUTH_KEY`` default) the
+generator fetches one client_credentials token from the gateway's
+``/oauth/token`` before the window and sends ``Authorization: Bearer`` on
+every request; a gateway that issues no token fails the run by name
+(``TokenRefused``), never an unauthenticated run in its place. The
+connection is ``serving/http_client.py::RawHttpConn``.
 
 CLI:
     python -m seldon_core_tpu_torch.tools.loadtest http://HOST:PORT \
         [--users 10] [--duration 10] [--features 4] [--batch 1] \
-        [--workers 1] [--feedback-route-rewards 0.4,0.9] [--json]
+        [--workers 1] [--feedback-route-rewards 0.4,0.9] \
+        [--oauth-key K --oauth-secret S] [--json]
 """
 
 from __future__ import annotations
@@ -39,13 +43,36 @@ import tempfile
 import time
 from dataclasses import dataclass, field
 
+from seldon_core_tpu_torch.serving.http_client import RawHttpConn as _RawHttpConn
 from seldon_core_tpu_torch.utils.env import LOADTEST_OAUTH_KEY, LOADTEST_OAUTH_SECRET
 
-OAUTH_REFUSAL = (
-    "--oauth-key: the torch port serves no OAuth gateway, and this load "
-    "generator has no aiohttp to fetch a token with; run without OAuth "
-    "against the port's REST ingress"
-)
+
+class TokenRefused(RuntimeError):
+    """The gateway would not issue a token for the --oauth-key credentials."""
+
+
+async def fetch_token(base: str, key: str, secret: str) -> str:
+    """A client_credentials token from ``{base}/oauth/token`` (an
+    urlencoded form, over one connection); raises TokenRefused naming the
+    gateway's answer when it issues none."""
+    from urllib.parse import urlencode
+
+    host, port, tls = _split_base(base)
+    conn = _RawHttpConn(host, port, use_tls=tls)
+    body = urlencode({"grant_type": "client_credentials", "client_id": key, "client_secret": secret}).encode()
+    try:
+        status, _, raw = await conn.post("/oauth/token", body, "application/x-www-form-urlencoded", {})
+    finally:
+        await conn.close()
+    try:
+        token = json.loads(raw).get("access_token") if status == 200 else None
+    except (ValueError, AttributeError):
+        token = None
+    if not token:
+        raise TokenRefused(
+            f"--oauth-key {key!r}: {base}/oauth/token answered {status} {raw[:200].decode(errors='replace')}"
+        )
+    return token
 
 
 @dataclass
@@ -126,87 +153,6 @@ def _make_payload(rng: random.Random, batch: int, shape) -> dict:
 
     dims = (batch, shape) if isinstance(shape, int) else (batch, *tuple(shape))
     return {"data": {"ndarray": _fill(dims)}}
-
-
-class _RawHttpConn:
-    """Minimal persistent HTTP/1.1 client over asyncio streams.
-
-    The load generator may share cores with the server under test, so the
-    client spends as little as it can per request: pre-built request bytes
-    and a readline header parse, so the numbers reflect the SERVER.
-    Supports exactly what the bench needs: POST, keep-alive, Content-Length
-    bodies (the port's ingress answers predictions with one), reconnect on
-    server close."""
-
-    def __init__(self, host: str, port: int, use_tls: bool = False):
-        self.host, self.port = host, port
-        self.use_tls = use_tls
-        self._reader: asyncio.StreamReader | None = None
-        self._writer: asyncio.StreamWriter | None = None
-
-    async def _connect(self) -> None:
-        self._reader, self._writer = await asyncio.open_connection(
-            self.host, self.port, ssl=True if self.use_tls else None
-        )
-
-    def build_request(
-        self, path: str, body: bytes, content_type: str, extra_headers: dict
-    ) -> bytes:
-        lines = [
-            f"POST {path} HTTP/1.1",
-            f"Host: {self.host}:{self.port}",
-            f"Content-Type: {content_type}",
-            f"Content-Length: {len(body)}",
-            "Connection: keep-alive",
-        ]
-        lines.extend(f"{k}: {v}" for k, v in extra_headers.items())
-        return ("\r\n".join(lines) + "\r\n\r\n").encode() + body
-
-    async def request_raw(self, req: bytes) -> tuple[int, dict, bytes]:
-        """Send pre-built request bytes; returns (status, headers, body).
-        Retries ONCE on a dead keep-alive connection."""
-        for attempt in (0, 1):
-            if self._writer is None:
-                await self._connect()
-            try:
-                self._writer.write(req)
-                await self._writer.drain()
-                status_line = await self._reader.readline()
-                if not status_line:
-                    raise ConnectionResetError("server closed keep-alive")
-                status = int(status_line.split(b" ", 2)[1])
-                headers: dict = {}
-                while True:
-                    line = await self._reader.readline()
-                    if line in (b"\r\n", b"\n", b""):
-                        break
-                    k, _, v = line.decode("latin-1").partition(":")
-                    headers[k.strip().lower()] = v.strip()
-                clen = int(headers.get("content-length", "0"))
-                body = await self._reader.readexactly(clen) if clen else b""
-                if headers.get("connection", "").lower() == "close":
-                    await self.close()
-                return status, headers, body
-            except (ConnectionError, asyncio.IncompleteReadError, OSError):
-                await self.close()
-                if attempt:
-                    raise
-        raise ConnectionError("unreachable")
-
-    async def post(
-        self, path: str, body: bytes, content_type: str, extra_headers: dict
-    ) -> tuple[int, dict, bytes]:
-        return await self.request_raw(
-            self.build_request(path, body, content_type, extra_headers)
-        )
-
-    async def close(self) -> None:
-        if self._writer is not None:
-            try:
-                self._writer.close()
-            except Exception:  # noqa: BLE001 - already-dead socket
-                pass
-        self._reader = self._writer = None
 
 
 def _split_base(base: str) -> tuple[str, int, bool]:
@@ -345,12 +291,13 @@ async def run_load(
     # reference locust pacing: min_wait 900 / max_wait 1100 ms (~1 req/s/user);
     # default here is closed-loop max throughput
     wait_range = (0.9, 1.1) if locust_pacing else None
+    headers: dict = {}
     if oauth_key:
-        raise ValueError(OAUTH_REFUSAL)
+        # one token for every user, fetched before the window opens
+        headers["Authorization"] = f"Bearer {await fetch_token(base, oauth_key, oauth_secret)}"
     if payload_format == "npy":
         # the codec loads before the window opens: set-up, not load
         from seldon_core_tpu_torch.core.codec_npy import npy_from_array  # noqa: F401
-    headers: dict = {}
     stats.started = time.perf_counter()
     stop_at = stats.started + duration_s
     stats.deadline = stop_at
@@ -405,8 +352,6 @@ def run_load_multiprocess(
 
     if workers < 2:
         raise ValueError("run_load_multiprocess needs workers >= 2")
-    if oauth_key:
-        raise ValueError(OAUTH_REFUSAL)
     if users < workers:
         workers = max(1, users)
     per = users // workers
@@ -554,8 +499,6 @@ def main() -> None:
     )
     p.add_argument("--json", action="store_true", dest="as_json")
     args = p.parse_args()
-    if args.oauth_key:
-        p.error(OAUTH_REFUSAL)
     rewards = (
         [float(x) for x in args.feedback_route_rewards.split(",")]
         if args.feedback_route_rewards
@@ -582,7 +525,10 @@ def main() -> None:
             args.base.rstrip("/"), workers=args.workers, **common
         )
     else:
-        stats = asyncio.run(run_load(args.base.rstrip("/"), **common))
+        try:
+            stats = asyncio.run(run_load(args.base.rstrip("/"), **common))
+        except TokenRefused as e:
+            p.exit(2, f"loadtest: {e}\n")
     if args.latency_dump:
         import numpy as np
 

@@ -4,7 +4,11 @@ Port of the part of ``seldon_core_tpu/utils/env.py`` that the port needs,
 with the JAX package's names and defaults: the load generator's OAuth
 credentials (``tools/loadtest.py`` takes them as the defaults of
 ``--oauth-key`` / ``--oauth-secret``, so a job can inject them from a
-secret instead of its command line), and the telemetry knobs read by
+secret instead of its command line); the standalone microservice's
+contract (``serving/microservice.py``: the unit's typed parameters, id and
+port, the deployment id, and its ``--persistence`` store), the reference's
+test-client credentials (``gateway/app.py``) and the remote units' REST
+timeouts (``engine/remote.py``, ``rest_timeouts``); and the telemetry knobs read by
 ``telemetry/tracer.py``, ``telemetry/access_log.py``, ``telemetry/flight.py``
 and ``telemetry/profile.py``; the Redis store's socket budget
 (``persistence/state.py``); the store a decode fleet spills prefix pages
@@ -17,6 +21,19 @@ import os
 
 LOADTEST_OAUTH_KEY = "LOADTEST_OAUTH_KEY"
 LOADTEST_OAUTH_SECRET = "LOADTEST_OAUTH_SECRET"
+# the standalone microservice (reference wrappers/python/microservice.py)
+PREDICTIVE_UNIT_PARAMETERS = "PREDICTIVE_UNIT_PARAMETERS"
+PREDICTIVE_UNIT_ID = "PREDICTIVE_UNIT_ID"
+PREDICTIVE_UNIT_SERVICE_PORT = "PREDICTIVE_UNIT_SERVICE_PORT"  # default 5000
+SELDON_DEPLOYMENT_ID = "SELDON_DEPLOYMENT_ID"
+# the reference's test-client backdoor (AuthorizationServerConfiguration.java:78-96)
+TEST_CLIENT_KEY = "TEST_CLIENT_KEY"
+TEST_CLIENT_SECRET = "TEST_CLIENT_SECRET"
+# a remote unit's REST timeouts: a connect hang fails in about a second,
+# while a slow model may use the whole total (which a request's remaining
+# deadline budget replaces)
+ENGINE_REST_CONNECT_TIMEOUT_S = "ENGINE_REST_CONNECT_TIMEOUT_S"  # default 1.0
+ENGINE_REST_TOTAL_TIMEOUT_S = "ENGINE_REST_TOTAL_TIMEOUT_S"  # default 5.0
 # tracing: process-wide toggle, tail-sampling pool bounds, optional
 # OTLP-JSON trace export, and the structured access log gate
 ENGINE_TELEMETRY = "ENGINE_TELEMETRY"  # "off" disables tracing (default on)
@@ -43,11 +60,27 @@ ENGINE_DECODE_PROFILE_TABLE = "ENGINE_DECODE_PROFILE_TABLE"
 # the Redis state store's socket and connect timeout in ms (default 2000)
 PERSISTENCE_REDIS_TIMEOUT_MS = "PERSISTENCE_REDIS_TIMEOUT_MS"
 # the state store a replicated decode fleet spills its prefix pages through
-# (default file://./.seldon_state, resolved at the first spill)
+# and a microservice's --persistence snapshots to (default
+# file://./.seldon_state)
 PERSISTENCE_STORE = "PERSISTENCE_STORE"
 # "off": no warm pre-seeding of a scaled-up replica and no sibling prefix
 # pull between replicas (default on)
 ENGINE_DECODE_REPLICA_PRESEED = "ENGINE_DECODE_REPLICA_PRESEED"
+
+
+def rest_timeouts(env: dict | None = None) -> tuple[float, float]:
+    """(connect_s, total_s) of a remote unit's REST pool. Falls back to the
+    defaults on unset, unparsable or non-positive values: a typo'd timeout
+    must not take the data plane down at boot."""
+    env = env if env is not None else os.environ
+    out = []
+    for key, default in ((ENGINE_REST_CONNECT_TIMEOUT_S, 1.0), (ENGINE_REST_TOTAL_TIMEOUT_S, 5.0)):
+        try:
+            value = float(env.get(key, default))
+        except (TypeError, ValueError):
+            value = default
+        out.append(value if value > 0 else default)
+    return out[0], out[1]
 
 
 def redis_timeout_s(env: dict | None = None) -> float:

@@ -8,8 +8,8 @@ the JAX package's, and against a port server on the CPU.
   server: predictions/s above zero, no errors, and route-reward feedback
   posted to ``/api/v0.1/feedback`` and answered 200; JSON and npy bodies;
 - ``--workers 2`` re-execs the port's module, never the JAX package's;
-- ``--oauth-key`` is refused by name, in the function, the multiprocess
-  fan-out and the CLI;
+- ``--oauth-key`` credentials the port's gateway refuses fail the run by
+  name, in the function, the multiprocess fan-out and the CLI;
 - the module imports nothing of ``seldon_core_tpu``, ``aiohttp``, ``jax``
   or ``torch``, and its npy codec no torch.
 """
@@ -105,16 +105,35 @@ async def test_two_workers_rerun_the_port_module():
 
 
 async def test_oauth_is_refused_by_name():
-    with pytest.raises(ValueError, match="OAuth"):
-        await loadtest.run_load("http://127.0.0.1:9", users=1, duration_s=0.1, oauth_key="k", oauth_secret="s")
-    with pytest.raises(ValueError, match="OAuth"):
-        loadtest.run_load_multiprocess("http://127.0.0.1:9", workers=2, oauth_key="k", oauth_secret="s")
-    proc = subprocess.run(
-        [sys.executable, "-m", "seldon_core_tpu_torch.tools.loadtest", "http://127.0.0.1:9", "--oauth-key", "k",
-         "--duration", "0.1"],
-        capture_output=True, text=True, cwd=ROOT, timeout=60,
-    )
-    assert proc.returncode == 2 and "OAuth" in proc.stderr and proc.stdout == ""
+    """The port serves the OAuth gateway now: credentials it refuses fail
+    the run by name in the function, the multiprocess fan-out and the CLI,
+    never an unauthenticated run in their place (the served path is
+    tests/test_torch_tools_gateway.py)."""
+    from seldon_core_tpu_torch.serving.fast_http import gateway_routes, start_fast_server
+    from seldon_core_tpu_torch.tools.stack import build_gateway_stack
+
+    predictor, name = load_predictor(str(ABTEST))
+    server, gw, _, _ = build_gateway_stack(predictor, deployment_name=name, oauth_key="k", oauth_secret="s",
+                                           device="cpu")
+    gws = await start_fast_server(gateway_routes(gw), "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{gws.sockets[0].getsockname()[1]}"
+    try:
+        with pytest.raises(loadtest.TokenRefused, match="--oauth-key 'k'.*401.*invalid_client"):
+            await loadtest.run_load(base, users=1, duration_s=0.1, oauth_key="k", oauth_secret="wrong")
+        with pytest.raises(RuntimeError, match="--oauth-key 'k'.*401"):
+            await asyncio.to_thread(loadtest.run_load_multiprocess, base, workers=2, users=2, duration_s=0.1,
+                                    oauth_key="k", oauth_secret="wrong", timeout_s=90)
+        proc = await asyncio.to_thread(
+            subprocess.run,
+            [sys.executable, "-m", "seldon_core_tpu_torch.tools.loadtest", base, "--oauth-key", "k",
+             "--oauth-secret", "wrong", "--duration", "0.1"],
+            capture_output=True, text=True, cwd=ROOT, timeout=60,
+        )
+        assert proc.returncode == 2 and "--oauth-key 'k'" in proc.stderr and proc.stdout == ""
+    finally:
+        gws.close()
+        await gws.wait_closed()
+        await server.stop()
 
 
 def test_module_imports_only_the_standard_library():
