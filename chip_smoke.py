@@ -165,7 +165,7 @@ Phases, each of which raises on failure (no phase catches its own):
    after warmup, and a planted update that copies half the leaves failing
    that check; ms per train step. Then ``distill(features=True)`` on the
    card at GPT-2-small width (the target of ``gpt2_small_feature_draft``,
-   128-token prompts, 64 on-policy tokens, 1400 steps, about 60 s), its
+   128-token prompts, 64 on-policy tokens, 600 steps, about 30 s), its
    report and seconds per step, and the deployment served with the
    distilled head (``distilled=`` a checkpoint in a temporary directory)
    beside speculation off under phase 6's traffic: greedy rows equal, the
@@ -253,6 +253,39 @@ Phases, each of which raises on failure (no phase catches its own):
    (bit for bit the class in-process), then ``/route`` and
    ``/send-feedback`` on a router class. 0 new dispatch keys after warmup
    in this process's servers.
+14. gRPC (``serve_grpc``), after printing the host's ``grpc`` and
+   ``google.protobuf`` versions (a missing one, or ``_pb2`` modules that
+   cannot load, fail the phase). 14a ``bert_base_flash`` with its gRPC
+   port beside REST: 20 one-row id requests by ``Seldon/Predict`` as
+   tensor, each answer bit for bit the REST ingress's, 12 flash launches
+   each; ``seldon.protos`` and ``Model/Predict`` the same; ``ServerInfo``
+   "gpu" and the card count; an npy ``binData`` request answered in
+   ``binData``; gRPC callers (``chip_smoke.py --grpc-load``, processes of
+   their own, a closed loop each on its own channel) against the REST
+   load generator in turns, at 1 and 16 users. 14b the same server behind
+   the gateway over gRPC (``aio`` and ``sync``) and gRPC-Web: 20 requests
+   each way bit for bit the REST answers, 20 audit records each way; a
+   missing and a revoked token refused with code 205 (inside a
+   ``grpc-status:0`` frame over gRPC-Web), a malformed frame
+   ``grpc-status:3``; 1-user p50/p99 each way against the REST gateway, in
+   turns. 14c ``full_dag_bert`` split over gRPC: the arms as unit-server
+   processes serving REST and gRPC (phase 13's end with its event loop,
+   so they are not shared), the engine of a ``type: GRPC`` copy of
+   ``full_dag_bert_remote.json`` behind the gRPC gateway, a REST split
+   engine and the in-process DAG beside it; 16 requests to the three:
+   routes and probabilities equal; a feedback by gRPC; one request's hop
+   from its trace (the unit server's ingress span continuing the gRPC
+   metadata's ``traceparent``); one arm's process killed (a transport
+   failure, the cached channel dropped, the breaker counting it) and
+   started again on the same gRPC port, the same engine serving the next
+   request. 14d the microservice CLI in ``GRPC`` mode serving
+   ``torch_mnist_cnn`` (no REST port), driven by ``tools/contract.py``
+   with ``--grpc`` and consumed by a GRPC ``RemoteUnit`` (bit for bit the
+   class in-process); ``Router.Route`` and ``Router.SendFeedback`` on a
+   router class. Planted, each failing its check: a codec dropping
+   ``meta.routing`` (14c's routes), a gateway taking a missing token
+   (14b's refusal), a ``RemoteUnit`` whose transport check never matches
+   (14c's dropped channel). 0 new dispatch keys after warmup.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -3842,9 +3875,10 @@ FINETUNE_STEP_REPS = 10  # train steps timed after the checks
 # in float32 on 128-token prompts with 64 on-policy tokens
 DISTILL = dict(seed=0, vocab=50257, hidden=768, layers=12, ffn=3072, max_len=192, resid_scale=0.1, seq=128,
                horizon=192, batch=16, lr=1e-3, teacher_temp=0.5, eval_prompts=16, features=True)
-# about 60 s of training: 43.2 ms a step at this width (H100 80GB HBM3,
-# 700 W; this phase, PERF.md)
-DISTILL_STEPS = 1400
+# about 26-30 s of training: 43.2-49.4 ms a step at this width (H100 80GB
+# HBM3, 700 W; this phase, PERF.md); 1400 steps until the script grew
+# past phase 14 (the accept proxy reached 0.87 there)
+DISTILL_STEPS = 600
 DISTILL_LOG_EVERY = 100
 
 
@@ -5332,12 +5366,14 @@ def _dag_arms() -> list:
     return dag["spec"]["predictors"][0]["graph"]["children"][0]["children"]
 
 
-def _remote_copy(ports: list, label: str, arm_params: tuple = ()) -> Path:
-    """full_dag_bert_remote.json with the arms' ports written in."""
+def _remote_copy(ports: list, label: str, arm_params: tuple = (), etype: str = "REST") -> Path:
+    """full_dag_bert_remote.json with the arms' ports (and endpoint type)
+    written in."""
     dep = json.loads((BASELINE_DIR / "full_dag_bert_remote.json").read_text())
     arms = dep["spec"]["predictors"][0]["graph"]["children"][0]["children"]
     for arm, port in zip(arms, ports):
         arm["endpoint"]["service_port"] = port
+        arm["endpoint"]["type"] = etype
         arm["parameters"] = list(arm_params)
     SPLIT_DIR.mkdir(parents=True, exist_ok=True)
     path = SPLIT_DIR / f"full_dag_bert_remote_{label}.json"
@@ -5347,7 +5383,9 @@ def _remote_copy(ports: list, label: str, arm_params: tuple = ()) -> Path:
 
 async def _spawn(args: list, label: str, env: dict | None = None):
     """A child process of this Python (its own CUDA context on the card),
-    returned once it prints its "serving REST :port" line, with that port."""
+    returned once it prints its "serving ..." line, with the REST port of
+    that line (None when it serves none); the gRPC port, if it names one,
+    is the process's ``grpc_port``."""
     proc = await asyncio.create_subprocess_exec(sys.executable, "-m", *args, stdout=asyncio.subprocess.PIPE,
                                                 stderr=asyncio.subprocess.STDOUT, cwd=str(ROOT),
                                                 env=None if env is None else {**os.environ, **env})
@@ -5359,9 +5397,11 @@ async def _spawn(args: list, label: str, env: dict | None = None):
             if not line:
                 raise AssertionError(f"{label} exited {await proc.wait()} before serving: {''.join(lines)[-2000:]}")
             lines.append(line)
-            m = re.search(r"serving REST :(\d+)", line)
-            if m:
-                return int(m.group(1))
+            if " serving " in line and re.search(r"(REST|gRPC) :\d+", line):
+                grpc_port = re.search(r"gRPC :(\d+)", line)
+                proc.grpc_port = int(grpc_port.group(1)) if grpc_port else None
+                rest = re.search(r"REST :(\d+)", line)
+                return int(rest.group(1)) if rest else None
 
     t0 = time.perf_counter()
     try:
@@ -5635,17 +5675,17 @@ async def _malformed_answers(ex) -> list:
     return answers
 
 
-def _split_trace(engine_rec: dict, unit_rec: dict, arm: str, trace_id: str) -> dict:
+def _split_trace(engine_rec: dict, unit_rec: dict, arm: str, trace_id: str, label: str = "13b") -> dict:
     """The hop in one request's trace: the engine's span around the arm's
     call against the unit server's ingress span that continues it."""
     engine_spans = [s for s in engine_rec["trace"] if s["name"].startswith(f"{arm}.")]
     roots = [s for s in unit_rec["trace"] if s["name"] == "ingress"]
     if len(engine_spans) != 1 or len(roots) != 1:
-        raise AssertionError(f"13b trace {trace_id}: engine spans {[s['name'] for s in engine_rec['trace']]}, "
+        raise AssertionError(f"{label} trace {trace_id}: engine spans {[s['name'] for s in engine_rec['trace']]}, "
                              f"unit server spans {[s['name'] for s in unit_rec['trace']]}")
     unit_span, root = engine_spans[0], roots[0]
     if root["trace_id"] != trace_id or root["parent_id"] != unit_span["span_id"]:
-        raise AssertionError(f"13b trace: the unit server's ingress span {root} does not continue the engine's "
+        raise AssertionError(f"{label} trace: the unit server's ingress span {root} does not continue the engine's "
                              f"{unit_span}")
     unit_ms = (unit_span["end_ns"] - unit_span["start_ns"]) / 1e6
     server_ms = (root["end_ns"] - root["start_ns"]) / 1e6
@@ -5940,7 +5980,7 @@ async def serve_split_data_plane(card) -> dict:
     names = [a["name"] for a in _dag_arms()]
     spawns = [asyncio.ensure_future(_spawn(
         ["seldon_core_tpu_torch.serving.server", "--deployment", str(_arm_deployment(a, a["name"])), "--warmup",
-         "--host", "127.0.0.1", "--port", "0", "--device", DEVICE], f"unit server {a['name']}"))
+         "--host", "127.0.0.1", "--port", "0", "--grpc-port", "0", "--device", DEVICE], f"unit server {a['name']}"))
         for a in _dag_arms()]
     spawns.append(asyncio.ensure_future(_microservice_spawn()))
 
@@ -5962,6 +6002,821 @@ async def serve_split_data_plane(card) -> dict:
             if not isinstance(done, BaseException):
                 await _reap(done[0])
     return {"gateway": gate, "split_dag": split, "container": container,
+            "launches": {"flash_attention": LAUNCHES.count, "int8_matmul": int8_matmul.LAUNCHES.count - int8_before}}
+
+
+# ---------------------------------------------------------------- phase 14
+GRPC_REQUESTS = 20  # one-row id requests each way (gRPC ports, gateway modes), each also sent over REST
+GRPC_LOAD_TURNS = ("grpc", "rest", "rest", "grpc")
+GATEWAY_TURNS = ("aio", "sync", "web", "rest", "rest", "web", "sync", "aio")
+GRPC_CALL_S = 60.0  # one in-process gRPC call's limit
+
+
+def grpc_libraries(card) -> dict:
+    """The gRPC libraries as this host has them; a missing one, or copied
+    ``_pb2`` modules that this protobuf cannot load, fail the phase."""
+    import importlib
+
+    versions = {}
+    for name in ("grpc", "google.protobuf"):
+        try:
+            versions[name] = importlib.import_module(name).__version__
+        except ImportError as e:
+            raise AssertionError(f"phase 14 needs {name} on this host: {e}") from e
+    from google.protobuf.internal import api_implementation
+
+    versions["protobuf_implementation"] = api_implementation.Type()
+    print(f"[{card}] 14 libraries: {json.dumps(versions)}", flush=True)
+    try:
+        from seldon_core_tpu_torch.proto import prediction_pb2, seldon_deployment_pb2  # noqa: F401
+    except Exception as e:  # noqa: BLE001 - report the versions with the failure
+        raise AssertionError(f"the copied _pb2 modules do not load under {versions}: {e!r}") from e
+    return versions
+
+
+def grpc_load_main(argv: list) -> int:
+    """``chip_smoke.py --grpc-load SPEC``: closed-loop gRPC or gRPC-Web
+    callers in this process, for one load point of phase 14 (the load
+    generator speaks REST only). SPEC is JSON: target host:port,
+    transport (grpc or web), method path, request bytes (hex), metadata
+    pairs, users, seconds. Each user is a closed loop on its own channel
+    (gRPC) or keep-alive connection (gRPC-Web), connected before the
+    window. Prints one JSON line: completions in the window, errors (a
+    transport failure or a FAILURE status in the answer) and every
+    latency in ms."""
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+
+    spec = json.loads(argv[0])
+    body = bytes.fromhex(spec["body_hex"])
+    metadata = tuple(tuple(kv) for kv in spec["metadata"])
+    host, port = spec["target"].rsplit(":", 1)
+    lat, errors, in_window = [], [0], [0]
+
+    def failed(reply: bytes) -> bool:
+        msg = pb.SeldonMessage.FromString(reply)
+        return msg.HasField("status") and msg.status.status == pb.Status.FAILURE
+
+    async def grpc_user(ready) -> None:
+        import grpc
+
+        async with grpc.aio.insecure_channel(spec["target"]) as ch:
+            call = ch.unary_unary(spec["path"])
+            await asyncio.wait_for(ch.channel_ready(), 30)
+            stop_at = await ready()
+            while time.perf_counter() < stop_at:
+                t0 = time.perf_counter()
+                try:
+                    bad = failed(await call(body, metadata=metadata, timeout=30))
+                except Exception:  # noqa: BLE001 - counted, the loop goes on
+                    bad = True
+                t1 = time.perf_counter()
+                errors[0] += bad
+                lat.append((t1 - t0) * 1e3)
+                in_window[0] += t1 <= stop_at
+
+    async def web_user(ready) -> None:
+        extra = "".join(f"{k}: {v}\r\n" for k, v in metadata)
+        req = (f"POST {spec['path']} HTTP/1.1\r\nHost: {host}\r\nContent-Type: application/grpc-web+proto\r\n"
+               f"{extra}Content-Length: {len(body)}\r\n\r\n").encode() + body
+        reader, writer = await asyncio.open_connection(host, int(port))
+        try:
+            stop_at = await ready()
+            while time.perf_counter() < stop_at:
+                t0 = time.perf_counter()
+                writer.write(req)
+                head = await reader.readuntil(b"\r\n\r\n")
+                payload = await reader.readexactly(int(re.search(rb"(?i)content-length: *(\d+)", head).group(1)))
+                t1 = time.perf_counter()
+                n = int.from_bytes(payload[1:5], "big")
+                errors[0] += (not head.startswith(b"HTTP/1.1 200") or payload[:1] != b"\x00"
+                              or failed(payload[5:5 + n]) or b"grpc-status:0" not in payload[5 + n:])
+                lat.append((t1 - t0) * 1e3)
+                in_window[0] += t1 <= stop_at
+        finally:
+            writer.close()
+
+    async def run() -> None:
+        users = int(spec["users"])
+        connected, count, window = asyncio.Event(), [0], {}
+
+        async def ready() -> float:
+            # the window opens once every user is connected; returns its end
+            count[0] += 1
+            if count[0] == users:
+                window["stop"] = time.perf_counter() + float(spec["seconds"])
+                connected.set()
+            await connected.wait()
+            return window["stop"]
+
+        user = grpc_user if spec["transport"] == "grpc" else web_user
+        await asyncio.gather(*(user(ready) for _ in range(users)))
+
+    asyncio.run(run())
+    print(json.dumps({"window_requests": in_window[0], "errors": errors[0], "latencies_ms": lat}), flush=True)
+    return 0
+
+
+def _percentile(xs: list, q: float) -> float:
+    """The load generator's percentile (``tools/loadtest.py``)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q / 100.0 * len(xs)))] if xs else 0.0
+
+
+async def _grpc_load_point(transport: str, port: int, path: str, body: bytes, metadata: tuple, users: int) -> dict:
+    """One closed-loop load point of gRPC (or gRPC-Web) callers, run as
+    ``chip_smoke.py --grpc-load`` in LOAD_WORKERS other processes (one for
+    a single user), as the REST load generator runs; the same summary keys
+    as its."""
+    workers = 1 if users == 1 else LOAD_WORKERS
+    procs = []
+    for w in range(workers):
+        spec = {"target": f"127.0.0.1:{port}", "transport": transport, "path": path, "body_hex": body.hex(),
+                "metadata": [list(kv) for kv in metadata], "users": users // workers + (w < users % workers),
+                "seconds": LOAD_SECONDS}
+        procs.append(await asyncio.create_subprocess_exec(
+            sys.executable, str(ROOT / "chip_smoke.py"), "--grpc-load", json.dumps(spec),
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE, cwd=str(ROOT)))
+    outs = []
+    try:
+        for proc in procs:
+            out, err = await asyncio.wait_for(proc.communicate(), timeout=120)
+            if proc.returncode != 0:
+                raise AssertionError(f"grpc load worker exited {proc.returncode}: {err.decode()[-500:]}")
+            outs.append(json.loads(out.decode().strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+    lat = [x for o in outs for x in o["latencies_ms"]]
+    summary = {"requests": len(lat), "errors": sum(o["errors"] for o in outs),
+               "requests_per_sec": round(sum(o["window_requests"] for o in outs) / LOAD_SECONDS, 2),
+               "p50_ms": round(_percentile(lat, 50), 2), "p99_ms": round(_percentile(lat, 99), 2),
+               "workers": workers}
+    if summary["errors"] or not lat:
+        raise AssertionError(f"{transport} load at {users} users: {summary}")
+    return summary
+
+
+def _grpc_answer(reply) -> "np.ndarray":
+    """A SeldonMessage proto's tensor answer as float32 (values travel as
+    float64, exactly the float32 widened)."""
+    import numpy as np
+
+    if reply.HasField("status") and reply.status.status == reply.status.FAILURE:
+        raise AssertionError(f"a gRPC answer failed: {reply.status}")
+    t = reply.data.tensor
+    return np.asarray(t.values, dtype=np.float64).astype(np.float32).reshape(tuple(t.shape))
+
+
+def _json_answer(out: dict) -> "np.ndarray":
+    import numpy as np
+
+    data = out["data"]
+    if "tensor" in data:
+        return np.asarray(data["tensor"]["values"], np.float64).astype(np.float32).reshape(data["tensor"]["shape"])
+    return np.asarray(data["ndarray"], np.float64).astype(np.float32)
+
+
+def _same_bits(label: str, a, b) -> None:
+    import numpy as np
+
+    if a.shape != b.shape or a.dtype != b.dtype or a.tobytes() != b.tobytes():
+        gap = float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.shape == b.shape else None
+        raise AssertionError(f"{label}: answers differ (shapes {a.shape} {b.shape}, max gap {gap})")
+
+
+def _tensor_request(ids):
+    """A one-row id request as the reference's tensor arm (ids below 2^24
+    go through float32 and float64 exactly)."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.core.codec_proto import message_to_proto
+    from seldon_core_tpu_torch.core.message import SeldonMessage
+
+    return message_to_proto(SeldonMessage.from_array(np.asarray(ids, np.float32)))
+
+
+def _web_frames(body: bytes) -> list:
+    frames, i = [], 0
+    while i + 5 <= len(body):
+        n = int.from_bytes(body[i + 1:i + 5], "big")
+        frames.append((body[i], body[i + 5:i + 5 + n]))
+        i += 5 + n
+    return frames
+
+
+async def _web_call(port: int, path: str, frame: bytes, token: str | None):
+    """One gRPC-Web call through the gateway's fast ingress: (HTTP status,
+    frames, wall ms)."""
+    headers = {"oauth_token": token} if token else {}
+    status, _, payload, ms = await _request(port, frame, "application/grpc-web+proto", path, headers=headers)
+    return status, _web_frames(payload), ms
+
+
+async def _web_predict(port: int, request_pb, token: str | None):
+    """A gRPC-Web Seldon.Predict: the answer proto, grpc-status:0 checked."""
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.serving.wire import grpc_web_frame
+
+    status, frames, ms = await _web_call(port, "/seldon.tpu.Seldon/Predict",
+                                         grpc_web_frame(0, request_pb.SerializeToString()), token)
+    if status != 200 or [f for f, _ in frames] != [0, 0x80] or b"grpc-status:0" not in frames[1][1]:
+        raise AssertionError(f"gRPC-Web predict: HTTP {status}, frames {frames}")
+    return pb.SeldonMessage.FromString(frames[0][1]), ms
+
+
+def _refusal(label: str, reply) -> None:
+    """The gateway's refusal: a FAILURE SeldonMessage with
+    APIFE_GRPC_NO_PRINCIPAL_FOUND (205)."""
+    if not (reply.HasField("status") and reply.status.code == 205 and reply.status.status == reply.status.FAILURE):
+        raise AssertionError(f"{label}: answered {reply.status if reply.HasField('status') else 'data'}, want a "
+                             f"failure with code 205")
+
+
+async def grpc_predictor(card, server) -> tuple:
+    """Phase 14a: bert_base_flash's own gRPC port beside its REST ingress.
+    GRPC_REQUESTS one-row id requests by seldon.tpu.Seldon/Predict as
+    tensor, each answer bit for bit the REST ingress's for the same ids, 12
+    flash launches each; the same request under seldon.protos and by
+    Model/Predict; Admin.ServerInfo; one npy binData request answered in
+    binData; then 1-user p50/p99 and 16-user predictions/s of gRPC callers
+    against the REST load generator, in turns. Returns the row and the
+    ids and REST answers (14b holds the gateway to them)."""
+    import grpc
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.core.codec_npy import array_from_npy, npy_from_array
+    from seldon_core_tpu_torch.core.message import SeldonMessage
+    from seldon_core_tpu_torch.core.codec_proto import message_to_proto
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+
+    runtime = _model_runtime(server)
+    seq, vocab, layers = runtime.feature_shape[0], runtime.params["tok_emb"].shape[0], len(runtime.params["layers"])
+    rng = np.random.default_rng(14)
+    ids_list = [rng.integers(0, vocab, size=(1, seq)) for _ in range(GRPC_REQUESTS)]
+    row: dict = {}
+    rest_answers, deltas, ms = [], [], {"grpc": [], "rest": []}
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{server.grpc_port}") as ch:
+        stub = ServiceStub(ch, "Seldon")
+        for i, ids in enumerate(ids_list):
+            before = LAUNCHES.count
+            t0 = time.perf_counter()
+            reply = await stub.Predict(_tensor_request(ids), timeout=GRPC_CALL_S)
+            ms["grpc"].append((time.perf_counter() - t0) * 1e3)
+            deltas.append(LAUNCHES.count - before)
+            body = json.dumps({"data": {"tensor": {"shape": [1, seq], "values": ids.reshape(-1).tolist()}}}).encode()
+            status, _, raw, rest_ms = await _request(server.port, body)
+            ms["rest"].append(rest_ms)
+            if status != 200:
+                raise AssertionError(f"14a request {i}: REST HTTP {status} {raw[:200]!r}")
+            rest = _json_answer(json.loads(raw))
+            got = _grpc_answer(reply)
+            _check_probs(got.tolist(), 1)
+            _same_bits(f"14a request {i}: gRPC against REST", got, rest)
+            rest_answers.append(rest)
+        require_launches("14a bert_base_flash over gRPC flash_attention", deltas, layers)
+        req = _tensor_request(ids_list[0])
+        for pkg, service in (("seldon.protos", "Seldon"), ("seldon.tpu", "Model"), ("seldon.protos", "Model")):
+            reply = await getattr(ServiceStub(ch, service, package=pkg), "Predict")(req, timeout=GRPC_CALL_S)
+            _same_bits(f"14a /{pkg}.{service}/Predict", _grpc_answer(reply), rest_answers[0])
+        info = await ServiceStub(ch, "Admin").ServerInfo(pb.ServerInfoRequest(), timeout=GRPC_CALL_S)
+        want = ("gpu", torch.cuda.device_count()) if DEVICE == "cuda" else ("cpu", 1)
+        if (info.platform, info.device_count, info.deployment_name) != (*want, server.deployment_name):
+            raise AssertionError(f"14a ServerInfo: {info}, want platform/count {want}")
+        reply = await stub.Predict(message_to_proto(SeldonMessage(bin_data=npy_from_array(
+            ids_list[1].astype(np.float32)))), timeout=GRPC_CALL_S)
+        if reply.WhichOneof("data_oneof") != "binData":
+            raise AssertionError(f"14a npy binData request answered in {reply.WhichOneof('data_oneof')}")
+        _same_bits("14a npy binData against REST", array_from_npy(reply.binData).astype(np.float32), rest_answers[1])
+    print(f"[{card}] 14a {GRPC_REQUESTS} gRPC answers bit for bit the REST ingress's, {layers} flash launches each "
+          f"({sum(deltas)}); seldon.protos and Model/Predict the same; ServerInfo {info.platform} x"
+          f"{info.device_count}; npy binData answered in binData; one-request wall ms gRPC "
+          f"{round(sum(ms['grpc']) / len(ms['grpc']), 4)} REST {round(sum(ms['rest']) / len(ms['rest']), 4)}",
+          flush=True)
+    row["launches"] = sum(deltas)
+    row["server_info"] = {"platform": info.platform, "device_count": info.device_count}
+    body = req.SerializeToString()
+    runs = {"grpc": [], "rest": []}
+    for turn in GRPC_LOAD_TURNS:
+        points = {}
+        for users in SPLIT_LOAD:
+            if turn == "grpc":
+                p = await _grpc_load_point("grpc", server.grpc_port, "/seldon.tpu.Seldon/Predict", body, (), users)
+            else:
+                p = await _load_point(server.port, users, {"payload": "json", "features": seq})
+            print(f"[{card}] load 14a {turn} users={users} {json.dumps(p)}", flush=True)
+            points[users] = p
+        runs[turn].append(points)
+    row["load"] = _turns_summary(runs)
+    return row, ids_list, rest_answers
+
+
+async def grpc_gateway_paths(card, server, gw, ids_list: list, rest_answers: list) -> dict:
+    """Phase 14b: the same bert_base_flash behind the gateway over gRPC, in
+    aio mode and in sync mode, and over gRPC-Web on the gateway's fast
+    ingress: GRPC_REQUESTS requests each way with oauth_token (metadata, or
+    the header), each answer bit for bit the REST ingress's (14a's), 12
+    flash launches each and GRPC_REQUESTS audit records each way; a missing
+    and a revoked token refused with APIFE_GRPC_NO_PRINCIPAL_FOUND each
+    way (inside a grpc-status:0 frame over gRPC-Web), a malformed gRPC-Web
+    frame grpc-status:3, and a gateway planted to accept a missing token
+    failing the refusal check; 1-user p50/p99 of each way against the REST
+    gateway, in turns."""
+    import grpc
+
+    from seldon_core_tpu_torch.gateway import grpc_gateway
+    from seldon_core_tpu_torch.gateway.grpc_gateway import OAUTH_METADATA_KEY, start_gateway_grpc
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+    from seldon_core_tpu_torch.serving.fast_http import gateway_routes, start_fast_server
+
+    runtime = _model_runtime(server)
+    seq, layers = runtime.feature_shape[0], len(runtime.params["layers"])
+    token = gw.oauth.issue_token(GATE_KEY, GATE_SECRET)["access_token"]
+    aio = await start_gateway_grpc(gw, "127.0.0.1", 0, mode="aio")
+    sync = await start_gateway_grpc(gw, "127.0.0.1", 0, mode="sync")
+    web = await start_fast_server(gateway_routes(gw), "127.0.0.1", 0)
+    wport = web.sockets[0].getsockname()[1]
+    ports = {"aio": aio.bound_port, "sync": sync.bound_port}
+    channels = {mode: grpc.aio.insecure_channel(f"127.0.0.1:{p}") for mode, p in ports.items()}
+    stubs = {mode: ServiceStub(ch, "Seldon") for mode, ch in channels.items()}
+    row: dict = {"ports": {**ports, "web": wport}}
+
+    async def predict(mode: str, request_pb, tok: str | None):
+        if mode == "web":
+            reply, _ = await _web_predict(wport, request_pb, tok)
+            return reply
+        md = ((OAUTH_METADATA_KEY, tok),) if tok else ()
+        return await stubs[mode].Predict(request_pb, metadata=md, timeout=GRPC_CALL_S)
+
+    try:
+        deltas = []
+        for mode in ("aio", "sync", "web"):
+            before_audit = len(gw.audit.topics.get(GATE_KEY, ()))
+            for i, (ids, want) in enumerate(zip(ids_list, rest_answers)):
+                before = LAUNCHES.count
+                reply = await predict(mode, _tensor_request(ids), token)
+                deltas.append(LAUNCHES.count - before)
+                _same_bits(f"14b {mode} request {i}: the gateway against REST", _grpc_answer(reply), want)
+            audit = gw.audit.topics.get(GATE_KEY, ())
+            if len(audit) - before_audit != GRPC_REQUESTS:
+                raise AssertionError(f"14b {mode}: {len(audit) - before_audit} audit records, want {GRPC_REQUESTS}")
+            last = audit[-1]
+            if _json_answer(last["response"]).tobytes() != rest_answers[-1].tobytes():
+                raise AssertionError(f"14b {mode}: the last audit record is not the last answer")
+        require_launches("14b bert_base_flash behind the gateway (aio, sync, gRPC-Web) flash_attention", deltas,
+                         layers)
+        print(f"[{card}] 14b {GRPC_REQUESTS} requests each through the gRPC gateway (aio, sync) and gRPC-Web, bit "
+              f"for bit the REST ingress's; {layers} launches each ({sum(deltas)}); {GRPC_REQUESTS} audit records "
+              f"each way", flush=True)
+        row["launches"] = sum(deltas)
+        # numbers: 1-user p50/p99 each way against the REST gateway, in turns
+        body = _tensor_request(ids_list[0]).SerializeToString()
+        runs = {m: [] for m in ("aio", "sync", "web", "rest")}
+        for turn in GATEWAY_TURNS:
+            if turn == "rest":
+                p = await _load_point(wport, 1, {"payload": "json", "features": seq, "oauth": (GATE_KEY, GATE_SECRET)})
+            elif turn == "web":
+                from seldon_core_tpu_torch.serving.wire import grpc_web_frame
+
+                p = await _grpc_load_point("web", wport, "/seldon.tpu.Seldon/Predict", grpc_web_frame(0, body),
+                                           ((OAUTH_METADATA_KEY, token),), 1)
+            else:
+                p = await _grpc_load_point("grpc", ports[turn], "/seldon.tpu.Seldon/Predict", body,
+                                           ((OAUTH_METADATA_KEY, token),), 1)
+            print(f"[{card}] load 14b {turn} users=1 {json.dumps(p)}", flush=True)
+            runs[turn].append(p)
+        row["load_users_1"] = {m: {"p50_ms": [r["p50_ms"] for r in rs], "p99_ms": [r["p99_ms"] for r in rs]}
+                               for m, rs in runs.items()}
+
+        # the refusals
+        req = _tensor_request(ids_list[0])
+
+        async def no_token_refused(label: str) -> None:
+            for mode in ("aio", "sync", "web"):
+                _refusal(f"{label} {mode}: a missing token", await predict(mode, req, None))
+
+        await no_token_refused("14b")
+        from seldon_core_tpu_torch.graph.spec import DeploymentSpec
+
+        dep = gw.store.by_principal(GATE_KEY)
+        gw.store.deployment_added(DeploymentSpec(name=dep.name, oauth_key=GATE_KEY + "-2", oauth_secret=GATE_SECRET,
+                                                 predictors=dep.predictors))
+        try:
+            for mode in ("aio", "sync", "web"):
+                _refusal(f"14b {mode}: a revoked token", await predict(mode, req, token))
+        finally:
+            gw.store.deployment_added(dep)
+        status, frames, _ = await _web_call(wport, "/seldon.tpu.Seldon/Predict", b"\x00\x00\x00", token)
+        if status != 200 or len(frames) != 1 or frames[0][0] != 0x80 or b"grpc-status:3" not in frames[0][1]:
+            raise AssertionError(f"14b a malformed gRPC-Web frame: HTTP {status}, frames {frames}")
+        # planted: a gateway that takes a missing oauth_token as a valid one
+        real = grpc_gateway.metadata_value
+        good = gw.oauth.issue_token(GATE_KEY, GATE_SECRET)["access_token"]
+        grpc_gateway.metadata_value = lambda md, key: real(md, key) or (good if key == OAUTH_METADATA_KEY else None)
+        try:
+            await must_fail_async("14b a gRPC gateway that accepts a missing oauth_token",
+                                  lambda: no_token_refused("14b planted"))
+        finally:
+            grpc_gateway.metadata_value = real
+        print(f"[{card}] 14b a missing and a revoked token refused with code 205 each way (gRPC-Web inside "
+              f"grpc-status:0), a malformed gRPC-Web frame grpc-status:3; a gateway accepting a missing token "
+              f"failed the check", flush=True)
+    finally:
+        for ch in channels.values():
+            await ch.close()
+        await aio.stop(None)
+        await sync.stop(None)
+        web.close()
+        await web.wait_closed()
+    return row
+
+
+async def grpc_split_dag(card, arms_spawned: list, restart) -> dict:
+    """Phase 14c: full_dag_bert split over gRPC. Both BERT-base arms are
+    unit-server processes serving REST and gRPC (booted at the phase's
+    start); the engine of a copy of full_dag_bert_remote.json whose arms'
+    endpoints are ``type: GRPC`` serves behind the gateway's gRPC ingress
+    (aio) with full_dag_bert's OAuth client; a REST split engine over the
+    same processes and the in-process full_dag_bert beside it.
+    SPLIT_REQUESTS one-row requests to the three, in turns: routes and
+    probabilities equal request by request; a feedback by gRPC moving only
+    the routed arm's reward; one request's engine unit span against the
+    unit server's ingress span that continues the gRPC metadata's
+    traceparent. Planted: a codec that drops meta.routing on encode must
+    fail the route check. Then one arm's process is killed: a request to it
+    fails at the transport, drops the cached channel and counts in the
+    breaker (a RemoteUnit whose transport check never matches must fail
+    the channel check); ``restart`` boots it again on the same gRPC port.
+    Returns the row and ``recover``, to await once other work has covered
+    the boot: the same engine then serves the next request."""
+    import grpc
+    import numpy as np
+
+    from seldon_core_tpu_torch.core import codec_proto
+    from seldon_core_tpu_torch.core.errors import APIException
+    from seldon_core_tpu_torch.core.message import SeldonMessage
+    from seldon_core_tpu_torch.engine import remote
+    from seldon_core_tpu_torch.engine.executor import build_executor
+    from seldon_core_tpu_torch.gateway.grpc_gateway import OAUTH_METADATA_KEY, start_gateway_grpc
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+    from seldon_core_tpu_torch.serving.server import load_predictor
+    from seldon_core_tpu_torch.tools.stack import build_gateway_stack
+
+    names = [a["name"] for a in _dag_arms()]
+    servers, gateways, channels = [], [], []
+    row: dict = {}
+    try:
+        local, _, _ = await _start(BASELINE_DIR / "full_dag_bert.json")
+        servers.append(local)
+        done = [await task for task in arms_spawned]
+        procs = [d[0] for d in done]
+        rest_ports, grpc_ports = [d[1] for d in done], [d[0].grpc_port for d in done]
+        row["unit_server_boot_s"] = [round(d[2], 3) for d in done]
+        print(f"[{card}] 14c unit servers {names} serving REST {rest_ports} and gRPC {grpc_ports}, boot s "
+              f"{row['unit_server_boot_s']} (booted during 14a and 14b)", flush=True)
+        rest_split, _, _ = await _start(_remote_copy(rest_ports, "rest14"))
+        servers.append(rest_split)
+        predictor, dep_name = load_predictor(str(_remote_copy(grpc_ports, "grpc", etype="GRPC")))
+        dag = json.loads((BASELINE_DIR / "full_dag_bert.json").read_text())["spec"]
+        split, gw, _, _ = build_gateway_stack(predictor, deployment_name=dep_name, oauth_key=dag["oauth_key"],
+                                              oauth_secret=dag["oauth_secret"], device=DEVICE)
+        await split.start("127.0.0.1", 0)
+        servers.append(split)
+        if [type(c.unit).__name__ for c in split.executor.root.children[0].children] != ["RemoteUnit"] * 2 or \
+                not all(c.unit.is_grpc for c in split.executor.root.children[0].children):
+            raise AssertionError("14c: the gRPC split engine's arms are not gRPC remote units")
+        gate = await start_gateway_grpc(gw, "127.0.0.1", 0, mode="aio")
+        gateways.append(gate)
+        token = gw.oauth.issue_token(dag["oauth_key"], dag["oauth_secret"])["access_token"]
+        md = ((OAUTH_METADATA_KEY, token),)
+        ch = grpc.aio.insecure_channel(f"127.0.0.1:{gate.bound_port}")
+        channels.append(ch)
+        stub = ServiceStub(ch, "Seldon")
+        runtime = local.executor.root.children[0].children[0].unit.runtime
+        seq, vocab = runtime.feature_shape[0], runtime.params["tok_emb"].shape[0]
+        rng = np.random.default_rng(141)
+
+        layers = len(runtime.params["layers"])
+        deltas = []
+
+        async def three(ids, via_stub):
+            """One request to the gRPC split, the REST split and the
+            in-process DAG; the in-process one's launches are counted (the
+            arms of the others run in other processes)."""
+            before = LAUNCHES.count
+            reply = await via_stub.Predict(_tensor_request(ids), metadata=md, timeout=GRPC_CALL_S)
+            body = json.dumps({"data": {"ndarray": ids.tolist()}}).encode()
+            r_status, _, r_raw, _ = await _request(rest_split.port, body)
+            l_status, _, l_raw, _ = await _request(local.port, body)
+            deltas.append(LAUNCHES.count - before)
+            if (r_status, l_status) != (200, 200):
+                raise AssertionError(f"14c: REST split HTTP {r_status}, in-process HTTP {l_status}")
+            return reply, json.loads(r_raw), json.loads(l_raw)
+
+        def hold_routes(label: str, triples: list) -> None:
+            for i, (g, r, l) in enumerate(triples):
+                routes = (dict(g.meta.routing), r["meta"].get("routing"), l["meta"].get("routing"))
+                if not routes[0] or routes[0] != routes[1] or routes[1] != routes[2]:
+                    raise AssertionError(f"{label} request {i}: routed gRPC {routes[0]}, REST {routes[1]}, "
+                                         f"in-process {routes[2]}")
+                _same_bits(f"{label} request {i}: gRPC split against in-process", _grpc_answer(g), _json_answer(l))
+                _same_bits(f"{label} request {i}: REST split against in-process", _json_answer(r), _json_answer(l))
+
+        triples = [await three(rng.integers(0, vocab, size=(1, seq)), stub) for _ in range(SPLIT_REQUESTS)]
+        hold_routes("14c", triples)
+        require_launches("14c in-process full_dag_bert flash_attention", deltas, layers)
+        routes = [t[0].meta.routing["eg"] for t in triples]
+        row["routes"] = routes
+        row["launches"] = sum(deltas)
+        print(f"[{card}] 14c {SPLIT_REQUESTS} requests: routes {routes} equal request by request across the gRPC "
+              f"split (behind the gRPC gateway), the REST split and the in-process DAG; probabilities bit for bit",
+              flush=True)
+        # a feedback by gRPC through the gateway moves only the routed arm's reward
+        router = split.executor.root.children[0].unit
+        route = routes[-1]
+        counts, rewards = list(router.counts), list(router.rewards)
+        fb = pb.Feedback(response=triples[-1][0], reward=1.0)
+        ack = await stub.SendFeedback(fb, metadata=md, timeout=GRPC_CALL_S)
+        want_counts = [c + (i == route) for i, c in enumerate(counts)]
+        want_rewards = [r + (1.0 if i == route else 0.0) for i, r in enumerate(rewards)]
+        if (ack.HasField("status") and ack.status.status == ack.status.FAILURE) or router.counts != want_counts \
+                or router.rewards != want_rewards:
+            raise AssertionError(f"14c feedback: {ack.status}, router {router.counts} {router.rewards}, want "
+                                 f"{want_counts} {want_rewards}")
+        # one request's hop, from its trace (the traceparent rides gRPC metadata)
+        header, trace_id, _ = _traceparent("grpc-split", 0)
+        req = _tensor_request(rng.integers(0, vocab, size=(1, seq)))
+        req.meta.tags["trace"].number_value = 1
+        reply = await stub.Predict(req, metadata=md + (("traceparent", header),), timeout=GRPC_CALL_S)
+        arm = reply.meta.routing["eg"]
+        engine_rec = json.loads(await _get(split.port, f"/traces/{trace_id}"))
+        unit_rec = json.loads(await _get(rest_ports[arm], f"/traces/{trace_id}"))
+        row["trace"] = _split_trace(engine_rec, unit_rec, names[arm], trace_id, "14c")
+        print(f"[{card}] 14c one request's gRPC hop to {names[arm]}: {json.dumps(row['trace'])}", flush=True)
+        # planted: a codec that drops meta.routing on encode, the three
+        # routers given the in-process one's state first
+        local_router = local.executor.root.children[0].unit
+        sync_router(router, local_router)
+        sync_router(rest_split.executor.root.children[0].unit, local_router)
+        real_encode = codec_proto.message_to_proto
+
+        def drop_routing(msg):
+            m = real_encode(msg)
+            m.meta.ClearField("routing")
+            return m
+
+        codec_proto.message_to_proto = drop_routing
+        try:
+            planted_gate = await start_gateway_grpc(gw, "127.0.0.1", 0, mode="aio")
+        finally:
+            codec_proto.message_to_proto = real_encode
+        gateways.append(planted_gate)
+        pch = grpc.aio.insecure_channel(f"127.0.0.1:{planted_gate.bound_port}")
+        channels.append(pch)
+        planted = [await three(rng.integers(0, vocab, size=(1, seq)), ServiceStub(pch, "Seldon"))
+                   for _ in range(SPLIT_FAULT_REQUESTS)]
+        must_fail("14c a codec that drops meta.routing on encode", lambda: hold_routes("14c planted", planted))
+        print(f"[{card}] 14c a feedback by gRPC moved only arm {route}'s reward; a codec that drops meta.routing "
+              f"on encode failed the route check", flush=True)
+        # one arm's process killed: a transport failure drops the cached
+        # channel and counts in the breaker; restarted, the same engine serves
+        breaker = ({"name": "breaker_failure_threshold", "value": "5", "type": "INT"},
+                   {"name": "breaker_error_rate", "value": "1.0", "type": "FLOAT"})
+        spec = SeldonDeployment.from_dict({"spec": {"name": "recover", "predictors": [{"name": "p", "graph": {
+            "name": names[0], "type": "MODEL", "parameters": list(breaker),
+            "endpoint": {"service_host": "127.0.0.1", "service_port": grpc_ports[0], "type": "GRPC"}}}]}}) \
+            .spec.predictors[0]
+        ex = build_executor(spec)
+        ids = rng.integers(0, vocab, size=(1, seq)).astype(np.float32)
+        before_kill = np.asarray((await ex.execute(SeldonMessage.from_array(ids))).array)
+        await _reap(procs[0])
+
+        async def transport_failure(label: str, executor) -> None:
+            unit = executor.root.unit
+            try:
+                await executor.execute(SeldonMessage.from_array(ids))
+            except APIException as e:
+                info = e.info
+            else:
+                raise AssertionError(f"{label}: a request to a killed unit server was answered")
+            if unit._grpc_channel is not None or unit._stub_cache:
+                raise AssertionError(f"{label}: the failed call kept its cached channel ({info})")
+            if executor.breaker_for(names[0])._consecutive_failures < 1:
+                raise AssertionError(f"{label}: the breaker did not count the failure")
+
+        await transport_failure("14c a killed arm", ex)
+        real_check = remote.RemoteUnit._is_transport_failure
+        remote.RemoteUnit._is_transport_failure = staticmethod(lambda e: False)
+        try:
+            await must_fail_async("14c a RemoteUnit whose transport check never matches",
+                                  lambda: transport_failure("14c planted", build_executor(spec)))
+        finally:
+            remote.RemoteUnit._is_transport_failure = staticmethod(real_check)
+        print(f"[{card}] 14c {names[0]}'s process killed: the request failed at the transport, dropped the cached "
+              f"channel, counted in the breaker; a RemoteUnit whose transport check never matches failed the "
+              f"check; restarting it on gRPC port {grpc_ports[0]}", flush=True)
+        restarting = asyncio.ensure_future(restart(grpc_ports[0]))
+
+        async def recover() -> dict:
+            """Once the restarted arm serves: the same engine's next request."""
+            _, _, boot_s = await restarting
+            after = np.asarray((await ex.execute(SeldonMessage.from_array(ids))).array)
+            _same_bits("14c the restarted arm through the same engine", after.astype(np.float32),
+                       before_kill.astype(np.float32))
+            if ex.root.unit._grpc_channel is None:
+                raise AssertionError("14c: the recovered unit holds no channel")
+            await remote.close_remote_units(ex)
+            print(f"[{card}] 14c restarted in {boot_s:.3f} s: the same engine's next request served, bit for bit "
+                  f"its answer before the kill", flush=True)
+            return {"restart_boot_s": round(boot_s, 3)}
+
+        keys = {}
+        for node in local.executor.root.walk():
+            rt = getattr(node.unit, "runtime", None)
+            if rt is not None:
+                keys[f"full_dag_bert/{node.name}"] = rt.recompiles_since_warmup()
+        row["keys_after_warmup"] = keys
+        if any(keys.values()):
+            raise AssertionError(f"14c: new dispatch keys after warmup {keys}")
+    finally:
+        from seldon_core_tpu_torch.engine.remote import _RestSession
+
+        await _RestSession.close()
+        for c in channels:
+            await c.close()
+        for g in gateways:
+            await g.stop(None)
+        for s in servers:
+            await s.stop()
+    return row, recover
+
+
+async def grpc_container(card, spawn) -> dict:
+    """Phase 14d: the container contract over gRPC. The microservice CLI
+    serving examples/models/torch_mnist_cnn in GRPC mode in a process of
+    its own (no REST port), driven by tools/contract.py with ``use_grpc``
+    (``--grpc``) and consumed by a GRPC RemoteUnit (bit for bit the class
+    in this process); then Router.Route and Router.SendFeedback on a
+    router class served GRPC-only in this process."""
+    import grpc
+    import numpy as np
+
+    from seldon_core_tpu_torch.core.message import Feedback, SeldonMessage
+    from seldon_core_tpu_torch.engine.executor import build_executor
+    from seldon_core_tpu_torch.engine.remote import RemoteUnit, close_remote_units
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+    from seldon_core_tpu_torch.serving.microservice import load_user_object, serve_microservice
+    from seldon_core_tpu_torch.tools import contract
+
+    proc, rest_port, boot_s = await spawn
+    port = proc.grpc_port
+    if rest_port is not None or port is None:
+        raise AssertionError(f"14d: the GRPC microservice serves REST {rest_port}, gRPC {port}")
+    row = {"boot_s": round(boot_s, 3)}
+    router = None
+    try:
+        spec = json.loads((ROOT / MNIST_CNN_DIR / "contract.json").read_text())
+        outs = await asyncio.to_thread(contract.run, spec, "127.0.0.1", port, rounds=CONTRACT_ROUNDS,
+                                       batch_size=CONTRACT_BATCH, seed=5, use_grpc=True)
+        for out in outs:
+            _check_probs(out, CONTRACT_BATCH, 10)
+        graph = {"name": "mnist-cnn", "type": "MODEL",
+                 "endpoint": {"service_host": "127.0.0.1", "service_port": port, "type": "GRPC"}}
+        ex = build_executor(SeldonDeployment.from_dict({"spec": {"name": "c", "predictors": [
+            {"name": "p", "graph": graph}]}}).spec.predictors[0])
+        x = np.random.default_rng(6).random((CONTRACT_BATCH, 784), dtype=np.float32)
+        got = np.asarray((await ex.execute(SeldonMessage.from_array(x))).array).astype(np.float32)
+        await close_remote_units(ex)
+        user = load_user_object("MnistCnn", MNIST_CNN_DIR, {"train_steps": 0, **({} if DEVICE == "cuda" else
+                                                                                 {"device": DEVICE})})
+        _same_bits("14d a GRPC RemoteUnit against the class in-process", got,
+                   np.asarray(user.predict(x, []), np.float32))
+        print(f"[{card}] 14d microservice MnistCnn GRPC (boot {boot_s:.3f} s, no REST port): {CONTRACT_ROUNDS} "
+              f"contract batches of {CONTRACT_BATCH} by tools/contract.py --grpc answered [{CONTRACT_BATCH}, 10] "
+              f"probabilities; a GRPC RemoteUnit's answers bit for bit the class in-process", flush=True)
+        SPLIT_DIR.mkdir(parents=True, exist_ok=True)
+        (SPLIT_DIR / "PickOne.py").write_text(ROUTER_CLASS)
+        user = load_user_object("PickOne", str(SPLIT_DIR))
+        router = await serve_microservice(user, "PickOne", "ROUTER", host="127.0.0.1", enable_rest=False,
+                                          grpc_port=0)
+        rport = router.grpc_server.bound_port
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{rport}") as ch:
+            reply = await ServiceStub(ch, "Router", package="seldon.protos").Route(
+                _tensor_request([[1.0, 2.0]]), timeout=GRPC_CALL_S)
+        if list(reply.data.tensor.shape) != [1, 1] or list(reply.data.tensor.values) != [1.0]:
+            raise AssertionError(f"14d Router.Route answered {reply}")
+        unit = RemoteUnit(SeldonDeployment.from_dict({"spec": {"name": "r", "predictors": [{"name": "p", "graph": {
+            "name": "PickOne", "type": "ROUTER", "children": [],
+            "endpoint": {"service_host": "127.0.0.1", "service_port": rport, "type": "GRPC"}}}]}}).spec
+            .predictors[0].graph)
+        branch = await unit.route(SeldonMessage.from_array(np.ones((1, 2), np.float32)))
+        await unit.send_feedback(Feedback(request=SeldonMessage.from_array(np.ones((1, 2), np.float32)), reward=0.25),
+                                 branch)
+        await unit.close()
+        if branch != 1 or user.saw != 0.25:
+            raise AssertionError(f"14d GRPC RemoteUnit on the router: branch {branch}, reward seen "
+                                 f"{getattr(user, 'saw', None)}")
+        print(f"[{card}] 14d router class over gRPC: Router.Route a 1x1 tensor [[1.0]], Router.SendFeedback reached "
+              f"it through a GRPC RemoteUnit", flush=True)
+    finally:
+        if router is not None:
+            await router.grpc_server.stop(None)
+    return row
+
+
+def _free_port() -> int:
+    """A port free at this moment (the server CLI's --grpc-port 0 turns
+    gRPC off, so a unit server's gRPC port is chosen here)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _grpc_unit_server(path: Path, label: str, grpc_port: int | None = None):
+    """A unit server process (the server CLI, --warmup) serving REST on a
+    free port and gRPC on ``grpc_port`` (a free one by default), a spawn to
+    await."""
+    return _spawn(["seldon_core_tpu_torch.serving.server", "--deployment", str(path), "--warmup", "--host",
+                   "127.0.0.1", "--port", "0", "--grpc-port", str(grpc_port or _free_port()), "--device", DEVICE],
+                  label)
+
+
+async def serve_grpc(card) -> dict:
+    """Phase 14: 14a the predictor's gRPC port, 14b the gateway over gRPC
+    and gRPC-Web, 14c the split DAG over gRPC, 14d the container contract
+    over gRPC. The two arm unit servers and the microservice boot as
+    processes of their own at the start, during 14a and 14b (phase 13's
+    processes are not shared: they end with its event loop). Returns the
+    phase's numbers and its launches (those of this process's paths)."""
+    from seldon_core_tpu_torch.gateway import MemoryAuditSink
+    from seldon_core_tpu_torch.ops import int8_matmul
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.serving.server import load_predictor
+    from seldon_core_tpu_torch.tools.stack import build_gateway_stack
+
+    libraries = grpc_libraries(card)
+    arms = _dag_arms()
+    paths = {a["name"]: _arm_deployment(a, a["name"]) for a in arms}
+    spawns = [asyncio.ensure_future(_grpc_unit_server(paths[a["name"]], f"unit server {a['name']}")) for a in arms]
+    params = [{"name": "train_steps", "value": "0", "type": "INT"}]
+    if DEVICE != "cuda":
+        params.append({"name": "device", "value": DEVICE, "type": "STRING"})
+    spawns.append(asyncio.ensure_future(_spawn(
+        ["seldon_core_tpu_torch.serving.microservice", "MnistCnn", "GRPC", "--service-type", "MODEL",
+         "--model-dir", MNIST_CNN_DIR, "--grpc-port", "0"], "microservice MnistCnn GRPC",
+        env={"PREDICTIVE_UNIT_PARAMETERS": json.dumps(params)})))
+    restarted = []
+
+    async def restart(grpc_port: int):
+        name = arms[0]["name"]
+        task = asyncio.ensure_future(_grpc_unit_server(paths[name], f"unit server {name} restarted", grpc_port))
+        restarted.append(task)
+        return await task
+
+    int8_before = int8_matmul.LAUNCHES.count
+    LAUNCHES.reset()  # the phase's paths run from here
+    server = None
+    try:
+        predictor, name = load_predictor(str(BASELINE_DIR / "bert_base_flash.json"))
+        t0 = time.perf_counter()
+        server, gw, _, _ = build_gateway_stack(predictor, deployment_name=name, oauth_key=GATE_KEY,
+                                               oauth_secret=GATE_SECRET, audit=MemoryAuditSink(), device=DEVICE)
+        boot_s = time.perf_counter() - t0
+        await server.start("127.0.0.1", 0, grpc_port=0)
+        predictor_row, ids_list, rest_answers = await grpc_predictor(card, server)
+        predictor_row["boot_s"] = round(boot_s, 3)
+        gateway_row = await grpc_gateway_paths(card, server, gw, ids_list, rest_answers)
+        keys = _model_runtime(server).recompiles_since_warmup()
+        if keys:
+            raise AssertionError(f"14a/14b: {keys} new dispatch keys after warmup")
+        gateway_row["keys_after_warmup"] = keys
+        await server.stop()
+        server = None
+        split_row, recover = await grpc_split_dag(card, spawns[:len(arms)], restart)
+        container_row = await grpc_container(card, spawns[-1])  # while the killed arm boots again
+        split_row.update(await recover())
+    finally:
+        if server is not None:
+            await server.stop()
+        for task in (*spawns, *restarted):
+            if not task.done():
+                task.cancel()
+        for done in await asyncio.gather(*spawns, *restarted, return_exceptions=True):
+            if not isinstance(done, BaseException):
+                await _reap(done[0])
+    return {"libraries": libraries, "predictor": predictor_row, "gateway": gateway_row, "split_dag": split_row,
+            "container": container_row,
             "launches": {"flash_attention": LAUNCHES.count, "int8_matmul": int8_matmul.LAUNCHES.count - int8_before}}
 
 
@@ -6189,6 +7044,17 @@ def main() -> int:
           f"{split_plane['launches']['int8_matmul']}", flush=True)
     print(f"[{card}] phase 13 seconds: {time.perf_counter() - t13:.3f}", flush=True)
 
+    # 14. gRPC: the predictor's gRPC port, the gateway over gRPC and
+    # gRPC-Web, the split DAG over gRPC, the container contract over gRPC
+    t14 = time.perf_counter()
+    grpc_plane = asyncio.run(serve_grpc(card))
+    grpc_launches = grpc_plane["launches"]["flash_attention"]
+    if grpc_launches <= 0:
+        raise AssertionError("the gRPC paths launched no flash_attention kernel")
+    print(f"[{card}] phase 14 flash_attention launches: {grpc_launches} int8_matmul launches: "
+          f"{grpc_plane['launches']['int8_matmul']}", flush=True)
+    print(f"[{card}] phase 14 seconds: {time.perf_counter() - t14:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -6198,7 +7064,7 @@ def main() -> int:
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
-        + learning_launches + source_launches + split_launches,
+        + learning_launches + source_launches + split_launches + grpc_launches,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
@@ -6206,7 +7072,8 @@ def main() -> int:
                              "learning (phase 10)": learning_launches,
                              "model sources (phase 11)": source_launches,
                              "replicated fleet (phase 12)": fleet["launches"]["flash_attention"],
-                             "split data plane (phase 13)": split_launches},
+                             "split data plane (phase 13)": split_launches,
+                             "gRPC (phase 14)": grpc_launches},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -6236,7 +7103,8 @@ def main() -> int:
         "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8,
                              "model sources (phase 11)": source_int8,
                              "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"],
-                             "split data plane (phase 13)": split_plane["launches"]["int8_matmul"]},
+                             "split data plane (phase 13)": split_plane["launches"]["int8_matmul"],
+                             "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"]},
         "launches_by_body": int8_by_body,
         "host_us": int8_host["wrapper_us"],
         **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
@@ -6253,6 +7121,7 @@ def main() -> int:
         k: v for k, v in sources.items() if not k.endswith("_by_body")}, **user_code}}), flush=True)
     print(json.dumps({"fleet": {"card": card, **fleet}}), flush=True)
     print(json.dumps({"split_data_plane": {"card": card, **split_plane}}), flush=True)
+    print(json.dumps({"grpc": {"card": card, **grpc_plane}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
@@ -6260,4 +7129,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grpc-load"]:
+        sys.exit(grpc_load_main(sys.argv[2:]))
     sys.exit(main())

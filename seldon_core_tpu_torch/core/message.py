@@ -113,6 +113,12 @@ class SeldonMessage:
             meta=meta or Meta(),
         )
 
+    @staticmethod
+    def failure(code: int, reason: str, info: str = "") -> "SeldonMessage":
+        """A message carrying only a FAILURE status: the gRPC edge's answer
+        to an application error (the call itself succeeds)."""
+        return SeldonMessage(status=Status(code=code, info=info, reason=reason, status=StatusFlag.FAILURE))
+
     @property
     def array(self) -> Array | None:
         return self.data.array if self.data is not None else None

@@ -738,8 +738,8 @@ def endpoint_key(spec: PredictiveUnit) -> str:
 def build_node(spec: PredictiveUnit, registry: UnitRegistry, context: dict[str, Any]) -> Node:
     """Resolve each spec unit to a runtime Unit, in order: an override in
     context['units'], the registry (JAX_MODEL), a container with a
-    model_uri, a declared endpoint (``engine/remote.py::RemoteUnit``, REST;
-    a GRPC endpoint is refused by name), a bare identity Unit."""
+    model_uri, a declared endpoint (``engine/remote.py::RemoteUnit``, REST
+    or GRPC), a bare identity Unit."""
     overrides = context.get("units") or {}
     unit: Unit | None = overrides.get(spec.name)
     if unit is not None and not isinstance(unit, Unit):

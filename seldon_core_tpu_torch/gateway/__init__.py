@@ -1,6 +1,8 @@
 """The OAuth ingress gateway (port of ``seldon_core_tpu/gateway/``, its
-names less the gRPC gateway and the aiohttp app: the port serves it with
-``serving/fast_http.py::gateway_routes``)."""
+names less the aiohttp app: the port serves REST and gRPC-Web with
+``serving/fast_http.py::gateway_routes``). The gRPC gateway,
+``gateway/grpc_gateway.py::start_gateway_grpc``, is imported from its
+module: it needs ``grpc``."""
 
 from seldon_core_tpu_torch.gateway.app import (
     Backend,

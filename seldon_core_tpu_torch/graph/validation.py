@@ -14,9 +14,7 @@ messages word for word, over the port's dataclass spec (``graph/spec.py``):
 
 The port adds its own refusal by name of each ``decode_*`` knob it does not
 serve (``UNPORTED_DECODE_KNOBS``, tensor-parallel decode alone; such a knob
-is read from ``TpuSpec.extra`` and still held to the JAX package's rule),
-and of a unit served at a GRPC endpoint (``GRPC_ENDPOINT_REFUSAL``: remote
-units are REST only).
+is read from ``TpuSpec.extra`` and still held to the JAX package's rule).
 One refusal stays where it is made: a ``tpu.mesh`` one card cannot hold
 (``graph/defaulting.py::mesh_from_spec``, applied by the server).
 ``validate_deployment`` raises ValidationError listing every problem, not
@@ -27,7 +25,6 @@ from __future__ import annotations
 
 from seldon_core_tpu_torch.graph.spec import (
     BUILTIN_IMPLEMENTATIONS,
-    EndpointType,
     PredictiveUnit,
     PredictiveUnitImplementation,
     PredictiveUnitType,
@@ -49,10 +46,6 @@ UNPORTED_DECODE_KNOBS = {
 }
 
 
-# a unit served at a GRPC endpoint (the remote units are REST only)
-GRPC_ENDPOINT_REFUSAL = "gRPC endpoints are not ported to the torch port; serve the unit over REST"
-
-
 def _unported(tpu, knob: str):
     return tpu.extra.get(knob, UNPORTED_DECODE_KNOBS[knob])
 
@@ -72,8 +65,6 @@ def _validate_unit(
     has_endpoint = unit.endpoint is not None and unit.endpoint.service_port != 0
     if not has_builtin and not has_endpoint and unit.name not in container_names:
         problems.append(f"unit '{unit.name}' has no implementation and no matching container")
-    if has_endpoint and not has_builtin and unit.endpoint.type == EndpointType.GRPC:
-        problems.append(f"unit '{unit.name}': {GRPC_ENDPOINT_REFUSAL}")
     if unit.type is None and not unit.methods and unit.implementation is None:
         problems.append(f"unit '{unit.name}' must have a type, methods, or implementation")
 

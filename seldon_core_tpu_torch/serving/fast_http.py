@@ -17,7 +17,11 @@ replicated decode fleet's ``GET /decode/fleet`` and ``POST
 /decode/drain[?replica=n]``, and the reference's internal microservice
 API (``/predict``, ``/route``, ``/send-feedback``, ``/transform-input``,
 ``/transform-output``, ``/aggregate``), so every served graph can be a
-remote engine's unit. ``gateway_routes`` is the OAuth gateway's table.
+remote engine's unit. ``gateway_routes`` is the OAuth gateway's table,
+gRPC-Web's unary routes and their CORS preflight included. The JAX
+package's ``_header_from_head`` (an extra-header scan for its C head
+parser) has no counterpart: the pure-Python parser keeps every header, so
+gRPC-Web's ``oauth_token`` reaches ``req.headers`` as it is.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ _TCHAR = frozenset(
 
 _STATUS_LINES = {
     200: b"HTTP/1.1 200 OK\r\n",
+    204: b"HTTP/1.1 204 No Content\r\n",
     400: b"HTTP/1.1 400 Bad Request\r\n",
     401: b"HTTP/1.1 401 Unauthorized\r\n",
     404: b"HTTP/1.1 404 Not Found\r\n",
@@ -206,6 +211,17 @@ class HttpProtocol(asyncio.Protocol):
         if t is None:
             return
         extra = b"".join(f"{k}: {v}\r\n".encode() for k, v in resp.headers.items())
+        if resp.status == 204:
+            # RFC 7230 3.3.2: a 204 (a CORS preflight's answer) carries no
+            # Content-Length and no body
+            t.write(
+                _status_line(204)
+                + extra
+                + (b"Connection: keep-alive\r\n\r\n" if keep_alive else b"Connection: close\r\n\r\n")
+            )
+            if not keep_alive:
+                self._close()
+            return
         t.write(
             _status_line(resp.status)
             + b"Content-Type: " + resp.content_type.encode() + b"\r\n"
@@ -344,8 +360,10 @@ def engine_routes(service, state: dict) -> dict:
 
 def gateway_routes(gw) -> dict:
     """The OAuth gateway's route table (``gateway/app.py``): the token
-    route, the Bearer-authenticated predictions and feedback, health and
-    the gateway's metrics."""
+    route, the Bearer-authenticated predictions and feedback, gRPC-Web's
+    ``Seldon.Predict`` and ``Seldon.SendFeedback`` under both package
+    spellings (``wire.GRPC_WEB_ROUTES``) with their OPTIONS preflight,
+    health and the gateway's metrics."""
     from seldon_core_tpu_torch.serving import wire
 
     async def predictions(req: WireRequest) -> WireResponse:
@@ -366,7 +384,18 @@ def gateway_routes(gw) -> dict:
     async def prometheus(req: WireRequest) -> WireResponse:
         return wire.metrics_response(gw.metrics, req)
 
-    return {
+    async def grpc_web_predict(req: WireRequest) -> WireResponse:
+        return await wire.gateway_grpc_web_predict(gw, req)
+
+    async def grpc_web_feedback(req: WireRequest) -> WireResponse:
+        return await wire.gateway_grpc_web_feedback(gw, req)
+
+    async def grpc_web_preflight(req: WireRequest) -> WireResponse:
+        # browsers preflight the non-simple content type and metadata
+        # headers with OPTIONS before the POST
+        return WireResponse(status=204, content_type="text/plain", headers=dict(wire.GRPC_WEB_CORS_HEADERS))
+
+    routes = {
         ("POST", "/api/v0.1/predictions"): predictions,
         ("POST", "/api/v0.1/feedback"): feedback,
         ("POST", "/oauth/token"): token,
@@ -375,3 +404,7 @@ def gateway_routes(gw) -> dict:
         ("GET", "/metrics"): prometheus,
         ("GET", "/prometheus"): prometheus,
     }
+    for path, method in wire.GRPC_WEB_ROUTES:
+        routes[("OPTIONS", path)] = grpc_web_preflight
+        routes[("POST", path)] = grpc_web_predict if method == "Predict" else grpc_web_feedback
+    return routes

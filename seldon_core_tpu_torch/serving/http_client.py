@@ -9,7 +9,7 @@ library only, so a client process stays light.
 - ``RawHttpConn``: one persistent connection; requests go out as
   pre-built bytes (the load generator builds each body once and re-posts
   it). A response is framed by ``Content-Length``, by chunked transfer
-  coding, or by the server closing the connection.
+  coding, or by the server closing the connection; a 204 or 304 has none.
 - ``HttpPool``: connections kept alive per (host, port), at most
   ``limit`` open in all (150, the reference's pool size), with a connect
   timeout and a total timeout per request that a caller may replace (with
@@ -144,7 +144,8 @@ class RawHttpConn:
                     break
                 k, _, v = line.decode("latin-1").partition(":")
                 headers[k.strip().lower()] = v.strip()
-            body, keep = await self._read_body(headers)
+            # a 204 or 304 has no body whatever its headers say (RFC 7230 3.3.3)
+            body, keep = (b"", True) if status in (204, 304) else await self._read_body(headers)
             ok = keep and headers.get("connection", "").lower() != "close"
             return status, headers, body
         except asyncio.IncompleteReadError as e:

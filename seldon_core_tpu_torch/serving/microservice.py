@@ -4,8 +4,8 @@ and the loader that imports it.
 Port of ``seldon_core_tpu/serving/microservice.py`` (C18, reference
 wrappers/python/microservice.py):
 
-    python -m seldon_core_tpu_torch.serving.microservice <UserClass> REST \
-        --service-type MODEL --model-dir DIR [--port N] [--persistence]
+    python -m seldon_core_tpu_torch.serving.microservice <UserClass> [REST|GRPC|BOTH] \
+        --service-type MODEL --model-dir DIR [--port N] [--grpc-port 5001] [--persistence]
 
 imports module ``<UserClass>`` from ``--model-dir`` and instantiates the
 class of the same name with the typed parameters of the
@@ -13,16 +13,21 @@ PREDICTIVE_UNIT_PARAMETERS env JSON as kwargs (``load_user_object``,
 ``parse_parameters``), wraps it as a one-unit graph of the service type
 (``build_single_unit_predictor``: MODEL, ROUTER, TRANSFORMER,
 OUTPUT_TRANSFORMER, COMBINER, or OUTLIER_DETECTOR, which tags
-``meta.tags.outlierScore``), and serves it on the port's fast ingress at
-``--port`` (default PREDICTIVE_UNIT_SERVICE_PORT, else 5000): the
-reference's internal API that an engine's ``RemoteUnit`` calls
-(``/predict``, ``/route``, ``/send-feedback``, ``/transform-input``,
-``/transform-output``, ``/aggregate``) and the external
-``/api/v0.1/predictions`` and ``/api/v0.1/feedback``. ``--persistence``
-restores the user object's state at boot and snapshots it every minute
-and at shutdown through ``persistence/state.py::StatePersister`` to
-PERSISTENCE_STORE (default ``file://./.seldon_state``). gRPC is not
-ported: ``GRPC`` and ``BOTH`` are refused by name.
+``meta.tags.outlierScore``), and serves it. ``REST`` (the default)
+serves the port's fast ingress at ``--port`` (default
+PREDICTIVE_UNIT_SERVICE_PORT, else 5000): the reference's internal API
+that an engine's ``RemoteUnit`` calls (``/predict``, ``/route``,
+``/send-feedback``, ``/transform-input``, ``/transform-output``,
+``/aggregate``) and the external ``/api/v0.1/predictions`` and
+``/api/v0.1/feedback``. ``GRPC`` serves the reference's gRPC services at
+``--grpc-port`` (default 5001; ``serving/grpc_server.py``:
+``Model.Predict``, ``Router.Route`` and the rest) and no REST port;
+``BOTH`` serves both. A port of 0 binds a free one (the JAX CLI takes a
+gRPC port of 0 as off); the "serving" line names the ports bound.
+``--persistence`` restores the user object's state at boot and snapshots
+it every minute and at shutdown through
+``persistence/state.py::StatePersister`` to PERSISTENCE_STORE (default
+``file://./.seldon_state``).
 
 The loader (``load_user_object``, ``_import_user_module``,
 ``_dir_import_context``, ``_dir_key_for``): each model directory is
@@ -63,7 +68,7 @@ SERVICE_TYPES = {
     # /transform-input, calls the user's score(), tags meta.tags.outlierScore
     "OUTLIER_DETECTOR": PredictiveUnitType.TRANSFORMER,
 }
-API_REFUSAL = "gRPC is not ported to the torch port: serve the microservice with REST"
+APIS = ("REST", "GRPC", "BOTH")
 
 
 def parse_parameters(raw: str | None) -> dict:
@@ -305,6 +310,18 @@ class _UserStateAdapter:
         self._user.__dict__.update(state)
 
 
+class ServedMicroservice(tuple):
+    """What ``serve_microservice`` returns: it unpacks as (server, service,
+    persister), where ``server`` is the REST ingress (None when REST is
+    off), and holds the gRPC server in ``grpc_server`` (None without
+    one)."""
+
+    def __new__(cls, server, service, persister, grpc_server=None):
+        self = super().__new__(cls, (server, service, persister))
+        self.grpc_server = grpc_server
+        return self
+
+
 async def serve_microservice(
     user_object,
     name: str,
@@ -312,13 +329,16 @@ async def serve_microservice(
     *,
     host: str = "0.0.0.0",
     http_port: int | None = None,
+    grpc_port: int | None = None,
+    enable_rest: bool = True,
     persistence_url: str = "",
     persistence_period_s: float = 60.0,
     decode_npy: bool = True,
-):
-    """Serve one user object over REST on the fast ingress. Returns
-    (server, service, persister): ``server`` is the asyncio server (close
-    it, then ``persister.stop()`` when there is one)."""
+) -> ServedMicroservice:
+    """Serve one user object over REST on the fast ingress (unless
+    ``enable_rest`` is off) and over gRPC when ``grpc_port`` is given (0
+    binds a free port: ``grpc_server.bound_port``). Close ``server``, stop
+    ``grpc_server``, then ``persister.stop()`` when there is one."""
     from seldon_core_tpu_torch.engine.executor import build_executor
     from seldon_core_tpu_torch.engine.units import OutlierDetectorUnit, PythonClassUnit
     from seldon_core_tpu_torch.metrics import get_metrics
@@ -344,10 +364,18 @@ async def serve_microservice(
                 log.info("restored persisted state for %s", unit_id)
             persister.start()
 
-    port = http_port if http_port is not None else int(os.environ.get(PREDICTIVE_UNIT_SERVICE_PORT, "5000"))
-    server = await start_fast_server(engine_routes(service, {"paused": False}), host, port)
-    log.info("microservice %s (%s) REST on %s:%s", name, service_type, host, port)
-    return server, service, persister
+    server = None
+    if enable_rest:
+        port = http_port if http_port is not None else int(os.environ.get(PREDICTIVE_UNIT_SERVICE_PORT, "5000"))
+        server = await start_fast_server(engine_routes(service, {"paused": False}), host, port)
+        log.info("microservice %s (%s) REST on %s:%s", name, service_type, host, port)
+    grpc_server = None
+    if grpc_port is not None:
+        from seldon_core_tpu_torch.serving.grpc_server import start_grpc_server
+
+        grpc_server = await start_grpc_server(service, host, grpc_port)
+        log.info("microservice %s (%s) gRPC on %s:%s", name, service_type, host, grpc_server.bound_port)
+    return ServedMicroservice(server, service, persister, grpc_server)
 
 
 async def _amain(args) -> None:
@@ -356,17 +384,26 @@ async def _amain(args) -> None:
     parameters = parse_parameters(os.environ.get(PREDICTIVE_UNIT_PARAMETERS))
     user_object = load_user_object(args.interface_name, args.model_dir, parameters)
     persistence_url = os.environ.get(PERSISTENCE_STORE, "file://./.seldon_state") if args.persistence else ""
-    server, _, persister = await serve_microservice(
+    served = await serve_microservice(
         user_object,
         args.interface_name,
         args.service_type,
         http_port=args.port,
+        grpc_port=args.grpc_port if args.api in ("GRPC", "BOTH") else None,
+        enable_rest=args.api in ("REST", "BOTH"),
         persistence_url=persistence_url,
         decode_npy=not args.no_decode_npy,
     )
+    server, _, persister = served
+    grpc_server = served.grpc_server
+    listening = []
+    if server is not None:
+        listening.append(f"REST :{server.sockets[0].getsockname()[1]}")
+    if grpc_server is not None:
+        listening.append(f"gRPC :{grpc_server.bound_port}")
     print(
-        f"seldon-core-tpu-torch microservice {args.interface_name} ({args.service_type}) serving REST "
-        f":{server.sockets[0].getsockname()[1]}",
+        f"seldon-core-tpu-torch microservice {args.interface_name} ({args.service_type}) serving "
+        + " ".join(listening),
         flush=True,
     )
     stop = asyncio.Event()
@@ -374,19 +411,23 @@ async def _amain(args) -> None:
     for sig in (signal.SIGTERM, signal.SIGINT):
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
-    server.close()
-    await server.wait_closed()
+    if grpc_server is not None:
+        await grpc_server.stop(5)
+    if server is not None:
+        server.close()
+        await server.wait_closed()
     if persister is not None:
         persister.stop()
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description="serve one user model class standalone (REST)")
+    p = argparse.ArgumentParser(description="serve one user model class standalone (REST and/or gRPC)")
     p.add_argument("interface_name", help="module and class name of the user model")
-    p.add_argument("api", nargs="?", default="REST", help="REST (GRPC and BOTH are not ported)")
+    p.add_argument("api", nargs="?", default="REST", choices=APIS)
     p.add_argument("--service-type", default="MODEL", choices=sorted(SERVICE_TYPES))
     p.add_argument("--model-dir", default=".")
     p.add_argument("--port", type=int, default=None)
+    p.add_argument("--grpc-port", type=int, default=5001)
     p.add_argument("--persistence", action="store_true")
     p.add_argument(
         "--no-decode-npy",
@@ -394,8 +435,6 @@ def main(argv=None) -> None:
         help="never sniff binData for npy: opaque passthrough for bytes-contract models",
     )
     args = p.parse_args(argv)
-    if args.api != "REST":
-        p.error(f"{args.api}: {API_REFUSAL}" if args.api in ("GRPC", "BOTH") else f"unknown api {args.api!r}")
     logging.basicConfig(level=logging.INFO)
     asyncio.run(_amain(args))
 

@@ -10,8 +10,19 @@ larger data axis shrinks, any other axis that needs more devices is
 refused, as the JAX package's mesh rule does), build the executor (models on the device, pure
 subtrees fused) and, for a single generative model with
 ``tpu.decode_slots``, its continuous-batching decode scheduler, warm every
-batch bucket, serve REST through the fast ingress, and on shutdown stop
-taking traffic, flush the micro-batcher and drain the scheduler.
+batch bucket, serve REST through the fast ingress and, when asked, gRPC
+beside it (``serving/grpc_server.py``), and on shutdown stop taking
+traffic, flush the micro-batcher, drain the scheduler and give in-flight
+gRPC calls ``GRACE_DRAIN_S`` (``ENGINE_DRAIN_SECONDS``, default 5) before
+the ingress closes.
+
+Two differences from the JAX server, on purpose: ``start`` serves no gRPC
+unless it is given ``grpc_port`` (tests and ``chip_smoke.py`` start many
+servers in one process, where a default of 5000 would collide; the CLI
+keeps JAX's default from ``ENGINE_SERVER_GRPC_PORT``), and where ``grpc``
+cannot be imported the CLI's default gRPC port is skipped with a warning
+naming the missing module, not silently, while a gRPC port asked for
+explicitly is an error.
 
 Metrics are on by default (``metrics_enabled=False`` swaps in a registry
 that records nothing): the executor's unit calls, feedback and resilience
@@ -25,7 +36,10 @@ agreement verdicts count in ``seldon_tpu_shadow_comparisons``, and
 CLI:
     python -m seldon_core_tpu_torch.serving.server --deployment dep.json \
         [--predictor NAME] [--device cuda|cpu] [--host H] [--port 8000] \
-        [--warmup] [--no-batch]
+        [--grpc-port 5000] [--warmup] [--no-batch]
+
+``--grpc-port`` defaults to ENGINE_SERVER_GRPC_PORT, else 5000; 0 turns
+gRPC off.
 """
 
 from __future__ import annotations
@@ -33,6 +47,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import logging
+import os
 import signal
 
 from seldon_core_tpu_torch.core.tensor import resolve_device
@@ -46,6 +62,11 @@ from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executo
 from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
 from seldon_core_tpu_torch.serving.gc_policy import apply_serving_gc_policy
 from seldon_core_tpu_torch.serving.service import PredictionService
+from seldon_core_tpu_torch.utils.env import ENGINE_DRAIN_SECONDS, ENGINE_SERVER_GRPC_PORT
+
+log = logging.getLogger(__name__)
+
+GRACE_DRAIN_S = float(os.environ.get(ENGINE_DRAIN_SECONDS, "5"))
 
 
 class PredictorServer:
@@ -110,6 +131,7 @@ class PredictorServer:
         )
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None
+        self._grpc_server = None
         self._lag_probe: asyncio.Task | None = None
 
     def warmup(self) -> None:
@@ -124,7 +146,13 @@ class PredictorServer:
         if self.decode_scheduler is not None:
             self.decode_scheduler.warmup()
 
-    async def start(self, host: str = "0.0.0.0", port: int = 8000) -> None:
+    async def start(self, host: str = "0.0.0.0", port: int = 8000, grpc_port: int | None = None) -> None:
+        """Serve REST on ``port`` and, when ``grpc_port`` is given (0 binds a
+        free one), gRPC on it; ImportError where ``grpc`` is missing."""
+        if grpc_port is not None:
+            from seldon_core_tpu_torch.serving.grpc_server import start_grpc_server
+
+            self._grpc_server = await start_grpc_server(self.service, host, grpc_port, device=self.device)
         self._server = await start_fast_server(
             engine_routes(self.service, self.state), host, port
         )
@@ -138,6 +166,11 @@ class PredictorServer:
         """The bound port (useful after start(port=0))."""
         return self._server.sockets[0].getsockname()[1]
 
+    @property
+    def grpc_port(self) -> int | None:
+        """The bound gRPC port, or None when gRPC is not served."""
+        return None if self._grpc_server is None else self._grpc_server.bound_port
+
     async def stop(self) -> None:
         self.state["paused"] = True  # readiness false -> load balancers drain
         if self._lag_probe is not None:
@@ -147,9 +180,14 @@ class PredictorServer:
         if self.decode_scheduler is not None:
             await self.decode_scheduler.close()
         await self.executor.drain_shadows()
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(GRACE_DRAIN_S)
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+        from seldon_core_tpu_torch.engine.remote import close_remote_units
+
+        await close_remote_units(self.executor)
 
 
 def validate_predictor(predictor: PredictorSpec, deployment_name: str = "") -> None:
@@ -182,14 +220,25 @@ async def _amain(args) -> None:
     )
     if args.warmup:
         server.warmup()
-    await server.start(host=args.host, port=args.port)
+    explicit = args.grpc_port is not None
+    grpc_port = args.grpc_port if explicit else int(os.environ.get(ENGINE_SERVER_GRPC_PORT, "5000"))
+    try:
+        await server.start(host=args.host, port=args.port, grpc_port=grpc_port or None)
+    except ImportError as e:
+        if explicit:
+            raise
+        # the default port on a host without grpc: REST alone, said aloud
+        log.warning("gRPC not served: %s cannot be imported (%s); REST only", e.name, e)
+        await server.start(host=args.host, port=args.port)
     stop_event = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop_event.set)
     print(
         f"seldon-core-tpu-torch predictor '{predictor.name}' of deployment "
-        f"'{dep_name}' serving REST :{server.port} on {server.device}",
+        f"'{dep_name}' serving REST :{server.port}"
+        + (f" gRPC :{server.grpc_port}" if server.grpc_port is not None else "")
+        + f" on {server.device}",
         flush=True,
     )
     await stop_event.wait()
@@ -203,6 +252,10 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument(
+        "--grpc-port", type=int, default=None,
+        help="gRPC port (default ENGINE_SERVER_GRPC_PORT, else 5000; 0 turns gRPC off)",
+    )
     parser.add_argument("--no-batch", action="store_true")
     parser.add_argument("--warmup", action="store_true")
     asyncio.run(_amain(parser.parse_args(argv)))

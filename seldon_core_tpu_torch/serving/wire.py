@@ -12,8 +12,10 @@ trace, flight and profile routes of the JAX operator API
 The reference's internal microservice API (``engine_unit_method``,
 ``INTERNAL_API_METHODS``: what a remote engine's ``RemoteUnit`` calls) and
 the OAuth gateway's handlers (``gateway_predictions``,
-``gateway_feedback``, ``gateway_token``) are here too, shared by every
-route table of ``serving/fast_http.py``.
+``gateway_feedback``, ``gateway_token``, and gRPC-Web's
+``gateway_grpc_web_predict`` and ``gateway_grpc_web_feedback`` on
+``GRPC_WEB_ROUTES``) are here too, shared by every route table of
+``serving/fast_http.py``.
 
 Every failure leaves as the reference's status-JSON body with the error
 code's HTTP status, never as an HTML 500, and is counted in
@@ -522,3 +524,149 @@ def decode_profile(req: WireRequest) -> WireResponse:
         effective = prof.set_hz(min(hz, 200))
         log.info("decode profiler retuned to %s Hz via GET /decode/profile", effective)
     return WireResponse.json(prof.report(n=n if n is not None else 30))
+
+
+# ------------------------------------------------------------- gRPC-Web
+# The HTTP/1.1 form of gRPC (unary): each message is framed as one flags
+# byte, a u32 big-endian length and the payload; the trailers travel as a
+# last frame with the 0x80 flag. Served on the fast ingress, it gives
+# gRPC-Web clients (browsers, envoy's grpc_web filter) the gateway without
+# an HTTP/2 stack. The proto modules are imported inside the handlers: a
+# host without protobuf answers a framed grpc-status 13 naming the module.
+
+GRPC_WEB_CTYPE = "application/grpc-web+proto"
+
+# CORS for browser gRPC-Web clients: the content type and the metadata
+# headers are non-simple, so cross-origin browsers preflight; grpc-web JS
+# also reads the response headers, so they are exposed
+GRPC_WEB_CORS_HEADERS = {
+    "Access-Control-Allow-Origin": "*",
+    "Access-Control-Allow-Methods": "POST, OPTIONS",
+    "Access-Control-Allow-Headers": "content-type, oauth_token, authorization, x-grpc-web, x-user-agent",
+    "Access-Control-Expose-Headers": "grpc-status, grpc-message",
+    "Access-Control-Max-Age": "86400",
+}
+
+
+def grpc_web_frame(flags: int, payload: bytes) -> bytes:
+    return bytes([flags]) + len(payload).to_bytes(4, "big") + payload
+
+
+def grpc_web_first_message(body: bytes) -> bytes:
+    """The payload of the single DATA frame a unary request carries. A
+    truncated frame, a trailer or compressed frame first, and bytes after
+    the frame (client streaming on a unary method) are refused."""
+    if len(body) < 5:
+        raise ValueError("grpc-web frame truncated")
+    if body[0] & 0x80:
+        raise ValueError("grpc-web request began with a trailer frame")
+    if body[0] & 0x01:
+        raise ValueError("compressed grpc-web frames not supported")
+    n = int.from_bytes(body[1:5], "big")
+    if len(body) < 5 + n:
+        raise ValueError("grpc-web frame length exceeds body")
+    if len(body) > 5 + n:
+        raise ValueError("trailing bytes after the unary request frame")
+    return body[5 : 5 + n]
+
+
+# the gRPC-Web routes: (path, method) under both package spellings
+GRPC_WEB_ROUTES: tuple[tuple[str, str], ...] = tuple(
+    (f"/{pkg}.Seldon/{method}", method) for pkg in ("seldon.tpu", "seldon.protos") for method in ("Predict", "SendFeedback")
+)
+
+
+def _grpc_web_response(message_pb: bytes, status: int = 0) -> WireResponse:
+    body = grpc_web_frame(0, message_pb) + grpc_web_frame(0x80, f"grpc-status:{status}\r\n".encode())
+    return WireResponse(body=body, content_type=GRPC_WEB_CTYPE, headers=dict(GRPC_WEB_CORS_HEADERS))
+
+
+def _grpc_web_error(code: int, message: str) -> WireResponse:
+    """A trailers-only answer (no DATA frame) for a transport-level
+    failure: HTTP 200, the error in ``grpc-status``, the message
+    percent-encoded so exception text cannot break the trailer block."""
+    from urllib.parse import quote
+
+    safe_msg = quote(message, safe=" ()[]{}<>=,.:;!?/'~@#$^&*+-_|")
+    trailer = f"grpc-status:{code}\r\ngrpc-message:{safe_msg}\r\n".encode()
+    return WireResponse(body=grpc_web_frame(0x80, trailer), content_type=GRPC_WEB_CTYPE,
+                        headers=dict(GRPC_WEB_CORS_HEADERS))
+
+
+def _grpc_web_principal(gw, req: WireRequest) -> str:
+    """gRPC metadata are HTTP headers under gRPC-Web: the gateway's
+    ``oauth_token`` key, else an ``Authorization: Bearer`` header."""
+    token = req.headers.get("oauth_token", "")
+    if token:
+        principal = gw.oauth.principal(token)
+        if not principal:
+            raise APIException(ErrorCode.APIFE_GRPC_NO_PRINCIPAL_FOUND, "oauth_token")
+        return principal
+    return gw.principal_from_auth(req.headers.get("authorization", ""))
+
+
+async def _grpc_web_call(gw, req: WireRequest, op: str, request_cls: str, serve) -> WireResponse:
+    """Parse the unary frame into ``request_cls``, authenticate, run
+    ``serve(principal, deployment, request_pb)`` and frame its SeldonMessage
+    proto. Malformed framing or proto is grpc-status 3; an APIException is
+    a failure SeldonMessage under grpc-status 0 (the native gateway's
+    answer); anything else, a missing protobuf included, grpc-status 13."""
+    start = time.perf_counter()
+    try:
+        from seldon_core_tpu_torch.core.codec_proto import message_to_proto
+        from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    except ImportError as e:
+        return _grpc_web_error(13, f"gRPC-Web needs {e.name}: {e}")  # 13 = INTERNAL
+    try:
+        request_pb = getattr(pb, request_cls).FromString(grpc_web_first_message(req.body))
+    except Exception as e:  # noqa: BLE001 - malformed framing or proto
+        return _grpc_web_error(3, f"invalid grpc-web request: {e}")  # 3 = INVALID_ARGUMENT
+    try:
+        principal = _grpc_web_principal(gw, req)
+        dep = gw.deployment_for(principal)
+        out = await serve(principal, dep, request_pb)
+        if gw.metrics is not None:
+            gw.metrics.ingress_request(dep.name, op, time.perf_counter() - start)
+        return _grpc_web_response(message_to_proto(out).SerializeToString())
+    except APIException as e:
+        from seldon_core_tpu_torch.serving.grpc_server import failure_proto
+
+        if gw.metrics is not None:
+            gw.metrics.ingress_error("", op, e.error.code)
+        return _grpc_web_response(failure_proto(e).SerializeToString())
+    except Exception as e:  # noqa: BLE001 - wire boundary
+        log.exception("grpc-web %s failed", op)
+        if gw.metrics is not None:
+            gw.metrics.ingress_error("", op, ErrorCode.APIFE_MICROSERVICE_ERROR.code)
+        return _grpc_web_error(13, str(e))
+
+
+async def gateway_grpc_web_predict(gw, req: WireRequest) -> WireResponse:
+    """POST /seldon.*.Seldon/Predict as application/grpc-web+proto: the
+    prediction is audited as on REST."""
+
+    async def serve(principal, dep, request_pb):
+        from seldon_core_tpu_torch.core.codec_proto import message_from_proto
+
+        msg = message_from_proto(request_pb)
+        out = await gw.backend.predict(dep, msg)
+        gw.audit.send(principal, msg, out)
+        return out
+
+    return await _grpc_web_call(gw, req, "predict", "SeldonMessage", serve)
+
+
+async def gateway_grpc_web_feedback(gw, req: WireRequest) -> WireResponse:
+    """POST /seldon.*.Seldon/SendFeedback as application/grpc-web+proto,
+    with the REST feedback's reward metric."""
+
+    async def serve(principal, dep, request_pb):
+        from seldon_core_tpu_torch.core.codec_proto import feedback_from_proto
+
+        fb = feedback_from_proto(request_pb)
+        out = await gw.backend.feedback(dep, fb)
+        if gw.metrics is not None:
+            gw.metrics.feedback(dep.name, "", "", fb.reward)
+        return out
+
+    return await _grpc_web_call(gw, req, "feedback", "Feedback", serve)

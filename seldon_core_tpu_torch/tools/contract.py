@@ -1,7 +1,11 @@
 """Contract tester: random-input conformance testing for a served model.
 
-Port of the REST half of ``seldon_core_tpu/tools/contract.py`` (stdlib
-only): gRPC is not ported, and ``--grpc`` is refused by name.
+Port of ``seldon_core_tpu/tools/contract.py``: REST with the standard
+library only; ``--grpc`` sends each prediction as ``Seldon.Predict``
+(``grpc_request``, with the token as ``oauth_token`` metadata when
+``--oauth-key`` is given, the gateway's gRPC auth) and imports ``grpc``
+and ``google.protobuf`` only then. A feedback always goes over REST, as in
+the JAX tool.
 
 Parity (C23): reference wrappers/tester.py — reads a ``contract.json`` data
 contract (features with name/dtype/ftype/range/values/repeat/shape), builds
@@ -12,7 +16,7 @@ request/response. Same contract schema, including the "inf" range sentinel.
 CLI:
     python -m seldon_core_tpu_torch.tools.contract contract.json HOST PORT \
         [--endpoint predict|send-feedback] [--batch-size N] [-n ROUNDS] \
-        [--prnt] [--oauth-key K --oauth-secret S [--oauth-port P]]
+        [--grpc] [--prnt] [--oauth-key K --oauth-secret S [--oauth-port P]]
 """
 
 from __future__ import annotations
@@ -23,8 +27,6 @@ import urllib.request
 from typing import Any
 
 import numpy as np
-
-GRPC_REFUSAL = "--grpc: gRPC is not ported to the torch port; test the REST endpoint"
 
 
 def _bound(v: Any, default: float) -> float:
@@ -97,6 +99,22 @@ def rest_request(host: str, port: int, payload: dict, endpoint: str, token: str 
         return json.loads(resp.read())
 
 
+def grpc_request(host: str, port: int, payload: dict, token: str | None) -> dict:
+    """One ``Seldon.Predict`` over gRPC; the reply as the proto's JSON."""
+    import grpc
+    from google.protobuf import json_format
+
+    from seldon_core_tpu_torch.core.codec_json import message_from_dict
+    from seldon_core_tpu_torch.core.codec_proto import message_to_proto
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+
+    with grpc.insecure_channel(f"{host}:{port}") as channel:
+        reply = ServiceStub(channel, "Seldon").Predict(
+            message_to_proto(message_from_dict(payload)), metadata=(("oauth_token", token),) if token else ()
+        )
+    return json.loads(json_format.MessageToJson(reply))
+
+
 def fetch_token(host: str, port: int, key: str, secret: str) -> str:
     body = f"grant_type=client_credentials&client_id={key}&client_secret={secret}"
     req = urllib.request.Request(
@@ -116,6 +134,7 @@ def run(
     rounds: int = 1,
     batch_size: int = 1,
     endpoint: str = "predict",
+    use_grpc: bool = False,
     oauth_key: str = "",
     oauth_secret: str = "",
     oauth_port: int | None = None,
@@ -141,7 +160,11 @@ def run(
             }
         if prnt:
             print("SENDING:", json.dumps(payload)[:400])
-        out = rest_request(host, port, payload, endpoint, token)
+        out = (
+            grpc_request(host, port, payload, token)
+            if use_grpc and endpoint == "predict"
+            else rest_request(host, port, payload, endpoint, token)
+        )
         if prnt:
             print("RECEIVED:", json.dumps(out)[:400])
         responses.append(out)
@@ -156,14 +179,12 @@ def main(argv=None) -> None:
     p.add_argument("--endpoint", default="predict", choices=["predict", "send-feedback"])
     p.add_argument("-b", "--batch-size", type=int, default=1)
     p.add_argument("-n", "--n-requests", type=int, default=1)
-    p.add_argument("--grpc", action="store_true", help="not ported: refused")
+    p.add_argument("--grpc", action="store_true", help="predict over gRPC (Seldon.Predict)")
     p.add_argument("--prnt", action="store_true", help="print requests/responses")
     p.add_argument("--oauth-key", default="")
     p.add_argument("--oauth-secret", default="")
     p.add_argument("--oauth-port", type=int, default=None)
     args = p.parse_args(argv)
-    if args.grpc:
-        p.error(GRPC_REFUSAL)
     with open(args.contract) as f:
         contract = json.load(f)
     run(
@@ -173,6 +194,7 @@ def main(argv=None) -> None:
         rounds=args.n_requests,
         batch_size=args.batch_size,
         endpoint=args.endpoint,
+        use_grpc=args.grpc,
         oauth_key=args.oauth_key,
         oauth_secret=args.oauth_secret,
         oauth_port=args.oauth_port,

@@ -12,13 +12,19 @@ timeouts (``engine/remote.py``, ``rest_timeouts``); and the telemetry knobs read
 ``telemetry/tracer.py``, ``telemetry/access_log.py``, ``telemetry/flight.py``
 and ``telemetry/profile.py``; the Redis store's socket budget
 (``persistence/state.py``); the store a decode fleet spills prefix pages
-through and its warm-boot kill switch (``serving/affinity_router.py``).
+through and its warm-boot kill switch (``serving/affinity_router.py``);
+the predictor server's gRPC port and graceful-drain window
+(``serving/server.py``).
 """
 
 from __future__ import annotations
 
 import os
 
+# the predictor server's CLI: the gRPC port (reference
+# SeldonGrpcServer.java:33) and the window stop() gives in-flight gRPC calls
+ENGINE_SERVER_GRPC_PORT = "ENGINE_SERVER_GRPC_PORT"  # default 5000
+ENGINE_DRAIN_SECONDS = "ENGINE_DRAIN_SECONDS"  # default 5
 LOADTEST_OAUTH_KEY = "LOADTEST_OAUTH_KEY"
 LOADTEST_OAUTH_SECRET = "LOADTEST_OAUTH_SECRET"
 # the standalone microservice (reference wrappers/python/microservice.py)

@@ -15,12 +15,21 @@ the CPU:
   and by a multipart form; predictions; a feedback; each refusal) through
   the JAX gateway and the port's, both serving ``iris`` (iris_logistic)
   with the JAX parameters carried across: equal status codes and error
-  bodies, probabilities within 1e-5 (float32).
+  bodies, probabilities within 1e-5 (float32);
+- gRPC (``tests/test_gateway.py``'s gRPC gateway and
+  ``tests/test_fast_http.py``'s gRPC-Web cases): the gRPC gateway in both
+  modes (a missing token a 205 failure message, a token served and
+  audited), gRPC-Web on the gateway's fast ingress answering as native
+  gRPC does (both package spellings, a bad token inside grpc-status:0,
+  malformed framing grpc-status:3, the CORS preflight, feedback), random
+  bodies always framed, and the same gRPC-Web response bytes as the JAX
+  wire for the same deterministic answers.
 """
 
 import asyncio
 import base64
 import json
+import re
 from pathlib import Path
 from urllib.parse import urlencode
 
@@ -429,3 +438,214 @@ async def test_lockstep_with_the_jax_gateway_on_iris():
     finally:
         jserver.close()
         await jserver.wait_closed()
+
+
+# ------------------------------------------------------------------ gRPC
+
+
+def _web_frames(body: bytes) -> list:
+    frames, i = [], 0
+    while i < len(body):
+        n = int.from_bytes(body[i + 1:i + 5], "big")
+        frames.append((body[i], body[i + 5:i + 5 + n]))
+        i += 5 + n
+    return frames
+
+
+def _tensor_pb(values):
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+
+    req = pb.SeldonMessage()
+    req.data.tensor.shape.extend([1, len(values)])
+    req.data.tensor.values.extend(values)
+    return req
+
+
+@pytest.mark.parametrize("mode", ["aio", "sync"])
+async def test_grpc_gateway_auth_and_predict(mode):
+    """Both ingress modes (grpc.aio, and the C-core server bridging each
+    call into the loop) serve the same auth, predict, audit and feedback
+    contract as the JAX gateway."""
+    import grpc
+
+    from seldon_core_tpu_torch.gateway.grpc_gateway import start_gateway_grpc
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+
+    audit = MemoryAuditSink()
+    gw = _gateway(audit=audit)
+    token = gw.oauth.issue_token("oauth-key-1", "oauth-secret-1")["access_token"]
+    server = await start_gateway_grpc(gw, host="127.0.0.1", port=0, mode=mode)
+    try:
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{server.bound_port}") as channel:
+            stub = ServiceStub(channel, "Seldon")
+            req = pb.SeldonMessage()
+            req.data.ndarray.values.add().list_value.values.add().number_value = 1.0
+            for md in ((), (("oauth_token", "not-a-token"),)):
+                resp = await stub.Predict(req, metadata=md)
+                assert resp.status.code == 205 and resp.status.status == pb.Status.FAILURE
+            resp = await stub.Predict(req, metadata=(("oauth_token", token),))
+            assert not resp.HasField("status")
+            np.testing.assert_allclose([v.number_value for v in resp.data.ndarray.values[0].list_value.values],
+                                       [0.1, 0.9, 0.5], rtol=1e-6)
+            (record,) = audit.topics["oauth-key-1"]
+            assert record["request"]["data"]["ndarray"] == [[1.0]]
+            fb = pb.Feedback(reward=1.0)
+            ack = await ServiceStub(channel, "Seldon", package="seldon.protos").SendFeedback(
+                fb, metadata=(("oauth_token", token),))
+            assert not ack.HasField("status")
+            assert (await stub.SendFeedback(fb)).status.code == 205
+    finally:
+        await server.stop(None)
+    with pytest.raises(ValueError, match="'sync' or 'aio'"):
+        await start_gateway_grpc(gw, "127.0.0.1", 0, mode="threads")
+
+
+async def test_grpc_web_predict_on_fast_ingress_matches_native_grpc():
+    """gRPC-Web Seldon.Predict rides the gateway's fast ingress with the
+    native gateway's semantics: oauth_token as a header, proto in and out,
+    application failures inside the SeldonMessage."""
+    import grpc
+
+    from seldon_core_tpu_torch.gateway.grpc_gateway import start_gateway_grpc
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+    from seldon_core_tpu_torch.serving.wire import grpc_web_frame
+
+    gw = _gateway()
+    token = gw.oauth.issue_token("oauth-key-1", "oauth-secret-1")["access_token"]
+    req = _tensor_pb([1.0, 2.0, 3.0])
+    raw = req.SerializeToString()
+    web = {"Content-Type": "application/grpc-web+proto", "oauth_token": token}
+    native = await start_gateway_grpc(gw, "127.0.0.1", 0)
+    try:
+        async with _Served(gw) as s:
+            st, hdrs, body = await _http(s.port, "POST", "/seldon.tpu.Seldon/Predict", grpc_web_frame(0, raw), web)
+            assert st == 200 and hdrs["content-type"] == "application/grpc-web+proto"
+            assert hdrs["access-control-allow-origin"] == "*"
+            frames = _web_frames(body)
+            assert [f for f, _ in frames] == [0, 0x80] and b"grpc-status:0" in frames[1][1]
+            out = pb.SeldonMessage.FromString(frames[0][1])
+            async with grpc.aio.insecure_channel(f"127.0.0.1:{native.bound_port}") as ch:
+                native_out = await ServiceStub(ch, "Seldon").Predict(req, metadata=(("oauth_token", token),))
+            assert out.data.tensor.values == native_out.data.tensor.values
+            assert list(out.data.names) == list(native_out.data.names)
+            st, _, body = await _http(s.port, "POST", "/seldon.protos.Seldon/Predict", grpc_web_frame(0, raw), web)
+            assert st == 200 and pb.SeldonMessage.FromString(_web_frames(body)[0][1]).data.tensor.values == \
+                out.data.tensor.values
+            # the Bearer header serves too; a bad oauth_token is a 205 failure under grpc-status:0
+            st, _, body = await _http(s.port, "POST", "/seldon.tpu.Seldon/Predict", grpc_web_frame(0, raw),
+                                      {"Content-Type": "application/grpc-web+proto",
+                                       "Authorization": f"Bearer {token}"})
+            assert st == 200 and not pb.SeldonMessage.FromString(_web_frames(body)[0][1]).HasField("status")
+            st, _, body = await _http(s.port, "POST", "/seldon.tpu.Seldon/Predict", grpc_web_frame(0, raw),
+                                      {**web, "oauth_token": "bad"})
+            (f0, fail), (f1, trailer) = _web_frames(body)
+            assert st == 200 and pb.SeldonMessage.FromString(fail).status.code == 205 and b"grpc-status:0" in trailer
+            # malformed framing: trailers only, grpc-status 3, the message percent-encoded
+            st, _, body = await _http(s.port, "POST", "/seldon.tpu.Seldon/Predict", b"\x00\x00\x00", web)
+            ((flags, trailer),) = _web_frames(body)
+            assert st == 200 and flags == 0x80 and b"grpc-status:3" in trailer and trailer.count(b"\r\n") == 2
+            # CORS preflight: 204 with no body
+            st, hdrs, body = await _http(s.port, "OPTIONS", "/seldon.tpu.Seldon/Predict", b"",
+                                         {"Origin": "http://app.example", "Access-Control-Request-Method": "POST",
+                                          "Access-Control-Request-Headers": "content-type,oauth_token"})
+            assert st == 204 and body == b"" and "content-length" not in hdrs
+            assert hdrs["access-control-allow-origin"] == "*" and "oauth_token" in hdrs["access-control-allow-headers"]
+            fb = pb.Feedback(reward=1.0)
+            fb.request.CopyFrom(req)
+            fb.response.meta.routing["r"] = 0
+            st, _, body = await _http(s.port, "POST", "/seldon.tpu.Seldon/SendFeedback",
+                                      grpc_web_frame(0, fb.SerializeToString()), web)
+            frames = _web_frames(body)
+            assert st == 200 and [f for f, _ in frames] == [0, 0x80] and b"grpc-status:0" in frames[1][1]
+    finally:
+        await native.stop(None)
+
+
+async def test_grpc_web_fuzz_never_crashes_always_frames():
+    """Arbitrary bytes at the gRPC-Web route always come back as a framed
+    answer with HTTP 200 and the trailer frame last."""
+    import random
+
+    from seldon_core_tpu_torch.serving.wire import grpc_web_frame
+
+    gw = _gateway()
+    token = gw.oauth.issue_token("oauth-key-1", "oauth-secret-1")["access_token"]
+    rng = random.Random(0)
+    bodies = [b"", b"\x00", b"\x80\x00\x00\x00\x00", b"\x01\x00\x00\x00\x00"]
+    bodies += [bytes(rng.randrange(256) for _ in range(rng.randrange(0, 40))) for _ in range(40)]
+    bodies += [grpc_web_frame(0, b"\xff\xfe\xfd"), grpc_web_frame(0, _tensor_pb([1.0]).SerializeToString()) + b"JUNK"]
+    async with _Served(gw) as s:
+        for body in bodies:
+            st, hdrs, resp = await _http(s.port, "POST", "/seldon.tpu.Seldon/Predict", body,
+                                         {"Content-Type": "application/grpc-web+proto", "oauth_token": token})
+            assert st == 200 and hdrs["content-type"] == "application/grpc-web+proto", body
+            frames = _web_frames(resp)
+            assert frames and frames[-1][0] == 0x80 and b"grpc-status:" in frames[-1][1], (body, resp)
+
+
+async def test_grpc_web_bytes_equal_the_jax_wire():
+    """The wire helpers and the served deterministic answers (refusals,
+    malformed frames) are byte for byte the JAX package's."""
+    from seldon_core_tpu.serving import wire as jwire
+    from seldon_core_tpu_torch.serving import wire
+
+    assert wire.GRPC_WEB_ROUTES == jwire.GRPC_WEB_ROUTES
+    assert wire.GRPC_WEB_CORS_HEADERS == jwire.GRPC_WEB_CORS_HEADERS
+    assert wire.GRPC_WEB_CTYPE == jwire.GRPC_WEB_CTYPE
+    payload = _tensor_pb([1.0, 2.5]).SerializeToString()
+    assert wire.grpc_web_frame(0, payload) == jwire.grpc_web_frame(0, payload)
+    for body in (b"", b"\x80\x00\x00\x00\x00", b"\x01\x00\x00\x00\x00", b"\x00\x00\x00\x00\x09ab",
+                 wire.grpc_web_frame(0, payload) + b"x", wire.grpc_web_frame(0, payload)):
+        try:
+            want = jwire.grpc_web_first_message(body)
+        except ValueError as e:
+            with pytest.raises(ValueError, match=re.escape(str(e))):
+                wire.grpc_web_first_message(body)
+        else:
+            assert wire.grpc_web_first_message(body) == want
+    for msg in ("plain", "CR\r\nLF and ünïcode %", "invalid grpc-web request: Error parsing message"):
+        ours, theirs = wire._grpc_web_error(3, msg), jwire._grpc_web_error(3, msg)
+        assert (ours.body, ours.headers, ours.content_type) == (theirs.body, theirs.headers, theirs.content_type)
+    ours, theirs = wire._grpc_web_response(payload), jwire._grpc_web_response(payload)
+    assert (ours.body, ours.headers) == (theirs.body, theirs.headers)
+    # served: the same refusals through both gateways' fast ingress
+    jgw, _ = _jax_gateway(SIMPLE, "dep1", "oauth-key-1", "oauth-secret-1")
+    jserver = await jax_start_fast_server(jax_gateway_routes(jgw), "127.0.0.1", 0)
+    jport = jserver.sockets[0].getsockname()[1]
+    try:
+        async with _Served(_gateway()) as s:
+            frame = wire.grpc_web_frame(0, payload)
+            for body, headers in ((frame, {}), (frame, {"oauth_token": "nope"}), (b"\x00\x00", {}),
+                                  (b"\x01\x00\x00\x00\x00", {"oauth_token": "nope"})):
+                headers = {"Content-Type": "application/grpc-web+proto", **headers}
+                for path in ("/seldon.tpu.Seldon/Predict", "/seldon.protos.Seldon/SendFeedback"):
+                    ours = await _http(s.port, "POST", path, body, headers)
+                    theirs = await _http(jport, "POST", path, body, headers)
+                    assert ours[0] == theirs[0] and ours[2] == theirs[2], (path, body, ours, theirs)
+    finally:
+        jserver.close()
+        await jserver.wait_closed()
+
+
+async def test_grpc_web_without_protobuf_answers_a_framed_internal_error(monkeypatch):
+    """On a host without google.protobuf a gRPC-Web request is answered
+    with a framed grpc-status 13 naming the module; the connection and the
+    REST routes keep serving."""
+    import sys
+
+    for name in ("seldon_core_tpu_torch.core.codec_proto", "seldon_core_tpu_torch.proto.prediction_pb2"):
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    monkeypatch.setitem(sys.modules, "google.protobuf", None)
+    from seldon_core_tpu_torch.serving.wire import grpc_web_frame
+
+    async with _Served(_gateway()) as s:
+        token = await s.token()
+        st, hdrs, body = await _http(s.port, "POST", "/seldon.tpu.Seldon/Predict", grpc_web_frame(0, b""),
+                                     {"Content-Type": "application/grpc-web+proto", "oauth_token": token})
+        ((flags, trailer),) = _web_frames(body)
+        assert st == 200 and flags == 0x80 and b"grpc-status:13" in trailer and b"google.protobuf" in trailer
+        status, out = await s.predict({"data": {"ndarray": [[1.0]]}}, token)
+        assert status == 200
+        np.testing.assert_allclose(out["data"]["ndarray"], [[0.1, 0.9, 0.5]], rtol=1e-6)

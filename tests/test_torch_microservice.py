@@ -9,7 +9,10 @@ microservice.py``) against the JAX package's, on the CPU:
   restored when the next process boots on the same store;
 - the CLI (``python -m seldon_core_tpu_torch.serving.microservice``)
   serving the internal API on ``--port``, ``PREDICTIVE_UNIT_PARAMETERS``
-  reaching the constructor, and ``GRPC``/``BOTH`` refused by name;
+  reaching the constructor, ``GRPC`` serving ``Model.Predict`` on
+  ``--grpc-port`` and no REST port, ``BOTH`` serving both;
+- ``serve_microservice(grpc_port=..., enable_rest=False)``: gRPC only, as
+  the JAX package's (``tests/test_tools.py``'s GRPC-only case);
 - an OUTLIER_DETECTOR microservice tagging ``outlierScore`` as the JAX
   package's does.
 """
@@ -112,29 +115,46 @@ async def test_persistence_restores_user_state_on_boot(tmp_path):
         persister.stop()
 
 
+def _cli(model_dir: str, *args: str):
+    """The microservice CLI serving Counter(start=5); returns the process
+    and its "serving ..." line."""
+    env = {**os.environ, "PREDICTIVE_UNIT_PARAMETERS": json.dumps([{"name": "start", "value": "5", "type": "INT"}])}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seldon_core_tpu_torch.serving.microservice", "Counter", *args,
+         "--service-type", "MODEL", "--model-dir", model_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env,
+    )
+    for line in proc.stdout:
+        if " serving " in line:
+            return proc, line
+    proc.wait(timeout=30)
+    raise AssertionError("the microservice exited before serving")
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    proc.wait(timeout=30)
+    assert proc.returncode == 0
+
+
 def test_cli_serves_the_internal_api_and_refuses_grpc(tmp_path):
+    """REST on --port; GRPC serves Model.Predict on --grpc-port (0: a free
+    port) and opens no REST port; BOTH serves the two; an unknown api is
+    refused by argparse."""
+    import re
+
+    import grpc
+
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.services import ServiceStub
     from tests.conftest import free_port
 
     model_dir = _write(tmp_path / "m", "Counter", COUNTER)
-    for api in ("GRPC", "BOTH"):
-        out = subprocess.run([sys.executable, "-m", "seldon_core_tpu_torch.serving.microservice", "Counter", api,
-                              "--model-dir", model_dir], capture_output=True, text=True, timeout=120, cwd=ROOT)
-        assert out.returncode == 2 and "gRPC is not ported" in out.stderr and api in out.stderr
-    port = free_port()
-    env = {**os.environ, "PREDICTIVE_UNIT_PARAMETERS": json.dumps([{"name": "start", "value": "5", "type": "INT"}])}
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "seldon_core_tpu_torch.serving.microservice", "Counter", "REST",
-         "--service-type", "MODEL", "--model-dir", model_dir, "--port", str(port)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env,
-    )
-    try:
-        for line in proc.stdout:
-            if "serving REST" in line:
-                break
-        else:
-            raise AssertionError("the microservice exited before serving")
-        assert f":{port}" in line
+    out = subprocess.run([sys.executable, "-m", "seldon_core_tpu_torch.serving.microservice", "Counter", "SOAP",
+                          "--model-dir", model_dir], capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 2 and "invalid choice: 'SOAP'" in out.stderr
 
+    def ask_rest(port):
         async def ask():
             pool = HttpPool()
             try:
@@ -146,10 +166,66 @@ def test_cli_serves_the_internal_api_and_refuses_grpc(tmp_path):
 
         for resp in asyncio.run(ask()):
             assert resp.status == 200 and resp.json()["data"]["ndarray"] == [[5.0, 5.0]]
+
+    def ask_grpc(port):
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            req = pb.SeldonMessage()
+            row = req.data.ndarray.values.add().list_value
+            for v in (1.0, 2.0):
+                row.values.add().number_value = v
+            reply = ServiceStub(ch, "Model", package="seldon.protos").Predict(req, timeout=30)
+        assert [v.number_value for v in reply.data.ndarray.values[0].list_value.values] == [5.0, 5.0]
+
+    port = free_port()
+    proc, line = _cli(model_dir, "REST", "--port", str(port))
+    try:
+        assert f"serving REST :{port}" in line and "gRPC" not in line
+        ask_rest(port)
     finally:
-        proc.terminate()
-        proc.wait(timeout=30)
-    assert proc.returncode == 0
+        _stop(proc)
+    proc, line = _cli(model_dir, "GRPC", "--grpc-port", "0")
+    try:
+        assert "REST" not in line
+        ask_grpc(int(re.search(r"gRPC :(\d+)", line).group(1)))
+    finally:
+        _stop(proc)
+    proc, line = _cli(model_dir, "BOTH", "--port", "0", "--grpc-port", "0")
+    try:
+        ask_rest(int(re.search(r"REST :(\d+)", line).group(1)))
+        ask_grpc(int(re.search(r"gRPC :(\d+)", line).group(1)))
+    finally:
+        _stop(proc)
+
+
+async def test_microservice_grpc_only_has_no_rest(tmp_path):
+    """serve_microservice with gRPC alone, as the JAX package's: no REST
+    listener, Model.Predict answering, the service and persister as
+    before."""
+    import grpc
+
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.services import ServiceStub
+
+    class Ident:
+        def predict(self, X, names):
+            return X
+
+    served = await microservice.serve_microservice(Ident(), "Ident", "MODEL", host="127.0.0.1", grpc_port=0,
+                                                   enable_rest=False)
+    server, service, persister = served
+    try:
+        assert server is None and persister is None and service.deployment_name == "Ident"
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{served.grpc_server.bound_port}") as channel:
+            req = pb.SeldonMessage()
+            req.data.ndarray.values.add().list_value.values.add().number_value = 3.0
+            reply = await ServiceStub(channel, "Model").Predict(req)
+            assert reply.data.ndarray.values[0].list_value.values[0].number_value == 3.0
+    finally:
+        await served.grpc_server.stop(None)
+    rest = await microservice.serve_microservice(Ident(), "Ident", "MODEL", host="127.0.0.1", http_port=0)
+    assert rest.grpc_server is None
+    rest[0].close()
+    await rest[0].wait_closed()
 
 
 async def test_outlier_detector_microservice_tags_like_jax(tmp_path):

@@ -22,8 +22,18 @@ a counterpart (``tests/test_remote_unit.py``'s REST cases):
   ``bert_tiny`` arms served as their own unit servers) equal to the
   in-process DAG, bit for bit, and to the JAX package's in-process DAG
   within the BERT parity tolerance (rtol 2e-4, atol 2e-5);
-- GRPC endpoints refused by name; the slice served with aiohttp, grpcio,
-  protobuf, pydantic, redis and kafka unimportable.
+- gRPC units (``tests/test_remote_unit.py``'s gRPC cases): a GRPC endpoint
+  validates and picks the per-unit-type service as the JAX unit does; a
+  gRPC model node; the JAX engine's gRPC RemoteUnit against the port's
+  gRPC server and the port's against the JAX server, equal answers; the
+  cached channel dropped on a transport failure and a backend restarted
+  on the same port reached again, and one channel per event loop;
+  INVALID_ARGUMENT neither retried nor counted against the breaker,
+  INTERNAL both; a tiny split DAG over gRPC equal to the REST split and
+  the in-process DAG; the gRPC hop continuing the caller's trace
+  (``tests/test_telemetry.py``'s gRPC case);
+- the slice served with aiohttp, grpcio, protobuf, pydantic, redis and
+  kafka unimportable.
 """
 
 import asyncio
@@ -38,12 +48,13 @@ import numpy as np
 import pytest
 
 from seldon_core_tpu.engine import build_executor as jax_build_executor
+from seldon_core_tpu.engine.remote import RemoteUnit as JaxRemoteUnit
 from seldon_core_tpu.graph import SeldonDeployment as JaxSeldonDeployment
 from seldon_core_tpu.serving.microservice import load_user_object as jax_load_user_object
 from seldon_core_tpu.serving.microservice import serve_microservice as jax_serve_microservice
 from seldon_core_tpu.serving.service import PredictionService as JaxPredictionService
 from seldon_core_tpu_torch.core.errors import APIException, ErrorCode
-from seldon_core_tpu_torch.core.message import Feedback, SeldonMessage
+from seldon_core_tpu_torch.core.message import Feedback, Meta, SeldonMessage
 from seldon_core_tpu_torch.engine import remote
 from seldon_core_tpu_torch.engine.executor import build_executor
 from seldon_core_tpu_torch.engine.remote import RemoteUnit, _RestSession
@@ -436,14 +447,29 @@ def test_rest_session_is_per_loop_and_close_get_are_serialized(monkeypatch):
 
 
 async def test_grpc_endpoints_are_refused_by_name():
-    pred = _predictor(_unit("remote-model", 5001, etype="GRPC"))
-    with pytest.raises(ValueError, match="gRPC endpoints are not ported"):
-        build_executor(pred)
-    cr = {"spec": {"name": "d", "predictors": [{"name": "p", "graph": _unit("remote-model", 5001, etype="GRPC")}]}}
-    with pytest.raises(ValidationError, match="remote-model.*gRPC endpoints are not ported"):
-        validate_deployment(SeldonDeployment.from_dict(cr))
-    validate_deployment(SeldonDeployment.from_dict(
-        {"spec": {"name": "d", "predictors": [{"name": "p", "graph": _unit("remote-model", 5001)}]}}))
+    """A GRPC endpoint is served now: it validates, as in the JAX package,
+    and builds a gRPC RemoteUnit that calls the per-unit-type service and
+    shares its breaker per host:port with a REST node of that endpoint."""
+    graph = {"name": "avg", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+             "children": [_unit("remote-model", 5001, etype="GRPC"), _unit("rest-model", 5001)]}
+    cr = {"spec": {"name": "d", "predictors": [{"name": "p", "graph": graph}]}}
+    validate_deployment(SeldonDeployment.from_dict(cr))
+    with pytest.raises(ValidationError):
+        validate_deployment(SeldonDeployment.from_dict({"spec": {"name": "d", "predictors": [
+            {"name": "p", "graph": {"name": "x", "type": "ROUTER", "children": []}}]}}))
+    ex = build_executor(_predictor(graph))
+    grpc_unit, rest_unit = (c.unit for c in ex.root.children)
+    assert isinstance(grpc_unit, RemoteUnit) and grpc_unit.is_grpc and not rest_unit.is_grpc
+    assert ex.breaker_for("remote-model") is ex.breaker_for("rest-model")
+    services = {t: RemoteUnit(_predictor(_unit("u", 5001, etype="GRPC", utype=t)).graph)
+                for t in ("MODEL", "ROUTER", "TRANSFORMER", "OUTPUT_TRANSFORMER", "COMBINER")}
+    jax_services = {t: JaxRemoteUnit(_predictor(_unit("u", 5001, etype="GRPC", utype=t), JaxSeldonDeployment).graph)
+                    for t in services}
+    for method in ("Predict", "TransformInput", "TransformOutput", "Route", "Aggregate", "SendFeedback"):
+        for t, unit in services.items():
+            assert unit._grpc_service_for(method) == jax_services[t]._grpc_service_for(method), (t, method)
+    assert services["MODEL"]._grpc_service_for("TransformInput") == "Model"
+    assert services["ROUTER"]._grpc_service_for("SendFeedback") == "Router"
 
 
 DOUBLER = """
@@ -618,3 +644,254 @@ def test_slice_serves_without_optional_client_libraries(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"remote": [[3.0] * 4], "gateway": 200, "blocked": []}
+
+
+# ------------------------------------------------------------------ gRPC
+
+SIMPLE_GRAPH = {"name": "simple-model", "type": "MODEL", "implementation": "SIMPLE_MODEL"}
+
+
+def _simple_service(**kw):
+    from seldon_core_tpu_torch.serving.service import PredictionService
+
+    return PredictionService(build_executor(_predictor(SIMPLE_GRAPH)), **kw)
+
+
+async def _grpc_server(service, port: int = 0):
+    from seldon_core_tpu_torch.serving.grpc_server import start_grpc_server
+
+    return await start_grpc_server(service, "127.0.0.1", port)
+
+
+async def _jax_grpc_server(service):
+    """The JAX package's gRPC server on port 0, and the port it bound (its
+    start_grpc_server does not return it)."""
+    import grpc
+
+    from seldon_core_tpu.serving.grpc_server import start_grpc_server
+
+    bound, real = {}, grpc.aio.server
+
+    def recording(*a, **k):
+        server = real(*a, **k)
+        add = server.add_insecure_port
+        server.add_insecure_port = lambda addr: bound.setdefault("port", add(addr))
+        return server
+
+    grpc.aio.server = recording
+    try:
+        server = await start_grpc_server(service, "127.0.0.1", 0)
+    finally:
+        grpc.aio.server = real
+    return server, bound["port"]
+
+
+async def test_remote_grpc_model_node():
+    server = await _grpc_server(_simple_service())
+    try:
+        ex = build_executor(_predictor(_unit("remote-model", server.bound_port, etype="GRPC")))
+        out = await ex.execute(_ones())
+        np.testing.assert_allclose(np.asarray(out.array), [[0.1, 0.9, 0.5]], rtol=1e-6)
+        await remote.close_remote_units(ex)
+        assert ex.root.unit._grpc_channel is None
+    finally:
+        await server.stop(None)
+
+
+async def test_grpc_hops_across_packages_give_equal_answers(tmp_path):
+    """The JAX engine's gRPC RemoteUnit against the port's gRPC server and
+    the port's against the JAX server: the wire is the reference's."""
+    from seldon_core_tpu.core.message import SeldonMessage as JaxSeldonMessage
+
+    d = _write_class(tmp_path / "m", "Doubler", DOUBLER)
+    x = np.arange(8, dtype=np.float32).reshape(2, 4) / 3.0
+    want = x * 2.0 + 1.0
+    ours = await serve_microservice(load_user_object("Doubler", str(d)), "Doubler", "MODEL", host="127.0.0.1",
+                                    enable_rest=False, grpc_port=0)
+    jservice = JaxPredictionService(jax_build_executor(_jax_predictor(
+        {"name": "Doubler", "type": "MODEL", "implementation": "SIMPLE_MODEL"})))
+    jserver, jport = await _jax_grpc_server(jservice)
+    try:
+        assert ours[0] is None  # GRPC only: no REST listener
+        jex = jax_build_executor(_jax_predictor(_unit("remote-model", ours.grpc_server.bound_port, etype="GRPC")))
+        jout = await jex.execute(JaxSeldonMessage.from_array(x))
+        np.testing.assert_array_equal(np.asarray(jout.array), want)
+        await jex.root.unit.close()
+        ex = build_executor(_predictor(_unit("remote-model", jport, etype="GRPC")))
+        out = await ex.execute(SeldonMessage.from_array(x))
+        np.testing.assert_allclose(np.asarray(out.array), [[0.1, 0.9, 0.5]] * 2, rtol=1e-6)
+        jdirect = await jservice.predict(JaxSeldonMessage.from_array(x))
+        np.testing.assert_array_equal(np.asarray(out.array), np.asarray(jdirect.array))
+        await remote.close_remote_units(ex)
+    finally:
+        await jserver.stop(None)
+        await ours.grpc_server.stop(None)
+
+
+async def test_grpc_channel_invalidated_on_transport_failure_and_recovers():
+    """A failed call at the transport drops the cached channel; a backend
+    started again on the same port is then reached by the same engine."""
+    import grpc
+
+    server = await _grpc_server(_simple_service())
+    port = server.bound_port
+    breaker = ({"name": "breaker_failure_threshold", "value": "5", "type": "INT"},)
+    ex = build_executor(_predictor(_unit("remote-model", port, etype="GRPC", params=breaker)))
+    unit = ex.root.unit
+    try:
+        await ex.execute(_ones())
+        assert unit._grpc_channel is not None and unit._stub_cache
+        await server.stop(None)
+        with pytest.raises(APIException) as err:
+            await ex.execute(_ones())
+        assert err.value.error is ErrorCode.ENGINE_MICROSERVICE_ERROR and is_retryable(err.value)
+        assert unit._grpc_channel is None and unit._stub_cache == {}
+        assert ex.breaker_for("remote-model")._consecutive_failures >= 1
+        server = await _grpc_server(_simple_service(), port)
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as probe:
+            await asyncio.wait_for(probe.channel_ready(), 30)
+        out = await ex.execute(_ones())
+        np.testing.assert_allclose(np.asarray(out.array), [[0.1, 0.9, 0.5]], rtol=1e-6)
+        assert unit._grpc_channel is not None  # a healthy channel stays cached
+    finally:
+        await server.stop(None)
+        await unit.close()
+
+
+def test_grpc_channel_is_per_event_loop():
+    """A channel cached on a loop that has ended is rebuilt on the next
+    one, never awaited across loops."""
+    async def call(port):
+        out = await unit.transform_input(_ones())
+        return unit._grpc_channel, np.asarray(out.array)
+
+    async def serve_and_call():
+        server = await _grpc_server(_simple_service())
+        try:
+            unit.endpoint = unit.endpoint.__class__(service_host="127.0.0.1", service_port=server.bound_port,
+                                                   type=unit.endpoint.type)
+            return await call(server.bound_port)
+        finally:
+            await server.stop(None)
+
+    unit = RemoteUnit(_predictor(_unit("m", 1, etype="GRPC")).graph)
+    first, a = asyncio.run(serve_and_call())
+    second, b = asyncio.run(serve_and_call())
+    assert first is not second
+    np.testing.assert_array_equal(a, b)
+
+
+async def _aborting_server(code_name: str, seen: list):
+    """A gRPC model container whose Model.Predict fails with ``code``."""
+    import grpc
+
+    from seldon_core_tpu_torch.proto.services import add_service
+
+    async def predict(request, context):
+        seen.append(1)
+        await context.abort(getattr(grpc.StatusCode, code_name), "refused")
+
+    server = grpc.aio.server()
+    add_service(server, "Model", {"Predict": predict})
+    port = server.add_insecure_port("127.0.0.1:0")
+    await server.start()
+    return server, port
+
+
+@pytest.mark.parametrize("code,hits,state,retryable", [
+    ("INVALID_ARGUMENT", 1, "closed", False), ("FAILED_PRECONDITION", 1, "closed", False),
+    ("INTERNAL", 1, "open", True)])
+async def test_grpc_deterministic_statuses_are_not_retried_nor_breaker_counted(code, hits, state, retryable):
+    """INVALID_ARGUMENT-class statuses are the deterministic answer of a
+    healthy backend: not replayed, not counted against the breaker. Other
+    statuses are retryable and counted (the breaker of threshold 1 opens at
+    once and stops the retries), as in the JAX unit."""
+    seen = []
+    server, port = await _aborting_server(code, seen)
+    try:
+        ex = build_executor(_predictor(_unit("remote-model", port, etype="GRPC", params=RETRY_AND_BREAKER)))
+        with pytest.raises(APIException) as err:
+            await ex.execute(_ones())
+        cause = err.value.__cause__ if retryable else err.value
+        assert cause.error is ErrorCode.ENGINE_MICROSERVICE_ERROR and is_retryable(cause) is retryable
+        assert cause.retryable == JaxRemoteUnit._grpc_retryable(cause.__cause__)
+        assert len(seen) == hits and ex.breaker_for("remote-model").state == state
+        assert ex.root.unit._grpc_channel is not None  # an application status keeps the channel
+        await remote.close_remote_units(ex)
+    finally:
+        await server.stop(None)
+
+
+async def test_tiny_split_dag_over_grpc_equals_rest_split_and_in_process_dag():
+    """The two bert_tiny arms served by unit servers with a gRPC port beside
+    REST: an engine whose arms' endpoints are GRPC, one whose arms are REST
+    and the in-process DAG route every request alike and answer bit for
+    bit; a feedback over gRPC moves only the routed arm's reward."""
+    arms = [_arm("bert-a", 0), _arm("bert-b", 1)]
+    arm_servers = []
+    for arm in arms:
+        pred = SeldonDeployment.from_dict(_dep(arm, arm["name"])).spec.predictors[0]
+        srv = PredictorServer(pred, deployment_name=arm["name"], device="cpu")
+        srv.warmup()
+        await srv.start("127.0.0.1", 0, grpc_port=0)
+        arm_servers.append(srv)
+
+    def engine(etype, ports, name):
+        remote_arms = [_unit(a["name"], p, etype=etype) for a, p in zip(arms, ports)]
+        return PredictorServer(SeldonDeployment.from_dict(_dep(_tiny_dag(remote_arms), name)).spec.predictors[0],
+                               deployment_name=name, device="cpu")
+
+    grpc_split = engine("GRPC", [s.grpc_port for s in arm_servers], "grpc-split")
+    rest_split = engine("REST", [s.port for s in arm_servers], "rest-split")
+    local = PredictorServer(SeldonDeployment.from_dict(_dep(_tiny_dag(arms), "local")).spec.predictors[0],
+                            deployment_name="local", device="cpu")
+    local.warmup()
+    rng = np.random.default_rng(4)
+    try:
+        assert all(c.unit.is_grpc for c in grpc_split.executor.root.children[0].children)
+        routes = []
+        for _ in range(8):
+            ids = rng.integers(0, 1024, size=(1, 16)).astype(np.float32)
+            a, b, c = [await s.service.predict(SeldonMessage.from_array(ids))
+                       for s in (grpc_split, rest_split, local)]
+            assert a.meta.routing == b.meta.routing == c.meta.routing
+            np.testing.assert_array_equal(np.asarray(a.array), np.asarray(c.array))
+            np.testing.assert_array_equal(np.asarray(b.array), np.asarray(c.array))
+            routes.append(a.meta.routing["eg"])
+        assert set(routes) == {0, 1}
+        router = grpc_split.executor.root.children[0].unit
+        rewards = list(router.rewards)
+        await grpc_split.service.send_feedback(Feedback(response=a, reward=1.0))
+        assert router.rewards == [r + (1.0 if i == routes[-1] else 0.0) for i, r in enumerate(rewards)]
+    finally:
+        await _RestSession.close()
+        for srv in (*arm_servers, grpc_split, rest_split, local):
+            await srv.stop()
+
+
+async def test_grpc_remote_hop_continues_trace():
+    """The unit server's ingress span of a gRPC hop stitches under the
+    engine's unit span through the traceparent metadata key."""
+    from seldon_core_tpu_torch import telemetry as tel
+    from seldon_core_tpu_torch.serving.service import PredictionService
+    from seldon_core_tpu_torch.telemetry.store import SpanStore
+
+    tracer = tel.Tracer(store=SpanStore(sample_rate=1.0))
+    child = _simple_service(deployment_name="child", tracer=tracer)
+    server = await _grpc_server(child)
+    try:
+        parent = PredictionService(build_executor(_predictor(_unit("remote-model", server.bound_port,
+                                                                   etype="GRPC"))),
+                                   deployment_name="parent", tracer=tracer)
+        out = await parent.predict(SeldonMessage.from_array(np.ones((1, 4), np.float32),
+                                                            meta=Meta(tags={"trace": True})))
+        spans = tracer.store.get(out.meta.puid).to_dict()["trace"]
+        assert len({s["trace_id"] for s in spans}) == 1
+        by_id = {s["span_id"]: s for s in spans}
+        child_ingress = [s for s in spans if s["name"] == "ingress"
+                         and s.get("attrs", {}).get("deployment") == "child"]
+        assert len(child_ingress) == 1
+        assert by_id[child_ingress[0]["parent_id"]]["name"].startswith("remote-model.")
+        await remote.close_remote_units(parent.executor)
+    finally:
+        await server.stop(None)

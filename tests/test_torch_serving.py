@@ -256,7 +256,8 @@ def test_port_serves_without_jax_in_a_fresh_interpreter(tmp_path):
 
 
 def test_server_cli_serves_on_cpu(tmp_path):
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    # gRPC off (its default port is a fixed number): the REST ingress alone
+    env = {**os.environ, "PYTHONPATH": str(REPO), "ENGINE_SERVER_GRPC_PORT": "0"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "seldon_core_tpu_torch.serving.server",
          "--deployment", str(_deployment(tmp_path)), "--device", "cpu",

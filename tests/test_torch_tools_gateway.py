@@ -3,8 +3,10 @@
 - ``tools/contract.py``: ``generate_batch`` equal to the JAX package's for
   every contract under ``seldon_core_tpu_torch/examples/models/`` at two
   seeds; ``run`` against a served microservice, directly and through the
-  gateway (a ``RemoteBackend`` in front of it) with ``--oauth-key``; the
-  CLI refusing ``--grpc`` by name;
+  gateway (a ``RemoteBackend`` in front of it) with ``--oauth-key``; and
+  with ``--grpc`` against a gRPC-only microservice, directly and through
+  the gRPC gateway in front of an engine whose unit reaches it over gRPC
+  (the token as ``oauth_token`` metadata);
 - ``tools/audit_tail.py`` reading back what the gateway's ``file://``
   sink wrote (``tests/test_tools.py``'s case on the port: client
   attribution, torn and corrupt lines, truncation under ``--follow``),
@@ -57,10 +59,53 @@ def test_generate_batch_matches_jax(model, seed):
         assert batch == jbatch
 
 
-def test_contract_cli_refuses_grpc(capsys):
-    with pytest.raises(SystemExit) as err:
-        contract.main([str(MODELS / "mean_classifier" / "contract.json"), "127.0.0.1", "9", "--grpc"])
-    assert err.value.code == 2 and "gRPC is not ported" in capsys.readouterr().err
+async def test_contract_cli_refuses_grpc(capsys):
+    """--grpc is served: each batch of the MeanClassifier contract answered
+    over Seldon.Predict, directly by a gRPC-only microservice and through
+    the gRPC gateway (token from the REST gateway's /oauth/token, sent as
+    oauth_token metadata) in front of an engine whose GRPC unit reaches
+    the microservice; equal answers both ways; refused credentials fail."""
+    from urllib.error import HTTPError
+
+    from seldon_core_tpu_torch.gateway.grpc_gateway import start_gateway_grpc
+    from seldon_core_tpu_torch.graph.spec import PredictorSpec
+
+    spec = json.loads((MODELS / "mean_classifier" / "contract.json").read_text())
+    user = load_user_object("MeanClassifier", str(MODELS / "mean_classifier"))
+    ms = await serve_microservice(user, "MeanClassifier", "MODEL", host="127.0.0.1", grpc_port=0, enable_rest=False)
+    mport = ms.grpc_server.bound_port
+    predictor = PredictorSpec.from_dict({"name": "p", "graph": {"name": "mean", "type": "MODEL", "endpoint": {
+        "service_host": "127.0.0.1", "service_port": mport, "type": "GRPC"}}})
+    server, gw, _, _ = build_gateway_stack(predictor, deployment_name="mean", oauth_key="mk", oauth_secret="ms",
+                                           device="cpu")
+    ggrpc = await start_gateway_grpc(gw, "127.0.0.1", 0)
+    gws = await start_fast_server(gateway_routes(gw), "127.0.0.1", 0)
+    gport = gws.sockets[0].getsockname()[1]
+    try:
+        direct = await asyncio.to_thread(contract.run, spec, "127.0.0.1", mport, rounds=3, batch_size=4, seed=1,
+                                         use_grpc=True)
+        gated = await asyncio.to_thread(contract.run, spec, "127.0.0.1", ggrpc.bound_port, rounds=3, batch_size=4,
+                                        seed=1, use_grpc=True, oauth_key="mk", oauth_secret="ms", oauth_port=gport)
+        rng = np.random.default_rng(1)
+        for d, g in zip(direct, gated):
+            _, x = contract.generate_batch(spec, 4, rng)
+            want = 1.0 / (1.0 + np.exp(-np.mean(x, axis=1, keepdims=True)))
+            for out in (d, g):
+                assert out["data"]["names"] == ["proba"]
+                np.testing.assert_allclose(out["data"]["ndarray"], want, rtol=1e-6)
+            assert d["data"] == g["data"]
+        with pytest.raises(HTTPError, match="401"):
+            await asyncio.to_thread(contract.run, spec, "127.0.0.1", ggrpc.bound_port, use_grpc=True,
+                                    oauth_key="mk", oauth_secret="no", oauth_port=gport)
+        await asyncio.to_thread(contract.main, [str(MODELS / "mean_classifier" / "contract.json"), "127.0.0.1",
+                                                str(mport), "--grpc", "-n", "2", "--prnt"])
+        assert capsys.readouterr().out.count("RECEIVED:") == 2
+    finally:
+        await ggrpc.stop(None)
+        gws.close()
+        await gws.wait_closed()
+        await server.stop()  # closes its unit's gRPC channel
+        await ms.grpc_server.stop(None)
 
 
 async def test_contract_run_direct_and_through_the_gateway(tmp_path):
