@@ -286,6 +286,43 @@ Phases, each of which raises on failure (no phase catches its own):
    ``meta.routing`` (14c's routes), a gateway taking a missing token
    (14b's refusal), a ``RemoteUnit`` whose transport check never matches
    (14c's dropped channel). 0 new dispatch keys after warmup.
+15. the all-in-one platform (``serve_platform``): one ``Platform``
+   process on the card with its data plane on one port, the operator API
+   on an admin port, a memory audit sink, a ``file://`` state store and a
+   watched directory. 15a ``bert_base_flash`` (an OAuth client added),
+   ``bert_int8`` and ``iris`` POSTed to the operator API and warmed, each
+   served through the gateway bit for bit as a standalone
+   ``PredictorServer`` of the same file serves it, 12 flash launches a
+   BERT request and 49 W8A16 launches a ``bert_int8`` forward by body, 0
+   keys after warmup, per apply its seconds, ``memory_allocated()``
+   growth, resident bytes and host estimate. 15b 16 users on
+   ``bert-base-flash`` through the gateway while it is re-applied with
+   seed 1 and ``mnist`` applied beside it: no request fails, every answer
+   the old or the new version's (a standalone server of the seed-1 CR),
+   the new one's from the first answer begun after apply returned, iris
+   (4 users; p50 and p99 beside a window of the same traffic without an
+   apply) and ``bert-int8`` unmoved; the old version unreachable though
+   the serving GC policy froze it, the heap frozen again, and
+   ``memory_allocated()`` (read with nothing thawed, less cuBLAS's
+   per-stream workspaces, whose count over the phase is bounded by
+   ``PLATFORM_NEW_WORKSPACES``) within ``PLATFORM_SLACK_BYTES`` of the
+   bytes the resident parameters account for. 15e ``/profiler/start?duration_ms=``
+   over three BERT requests writes a Chrome trace naming ``flash_fwd``;
+   the native codec's counters show C head parses and a C ndarray parse
+   of a body over 4096 bytes; iris's 1-user p50 and 16-user predictions/s
+   with the codec and with it off in-process, in turns. 15c a budget the
+   tenants fit and a second BERT-base does not: refused with "insufficient
+   HBM", ``memory_allocated()`` exactly unchanged; deletes free their
+   memory; the refused spec reconciles after a delete; after deleting
+   everything the memory is back within the slack of its reading before
+   15a. 15d an epsilon-greedy CR file in the watched directory serves,
+   learns from three feedbacks, survives a torn rewrite, is re-applied
+   with its arms restored from the state store, and is deleted when its
+   file goes. Planted, each failing its check: an update whose new version
+   answers with the old weights (on an iris copy), a delete that leaves a
+   graph cache reachable, a delete that leaves the version frozen, a
+   C-parsed head keeping the first of two ``Accept`` headers. The kernels
+   line credits the platform's launches apart from its standalone twins'.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -1823,7 +1860,7 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
     return result
 
 
-def spec_breakdown(card, sched, twin, plain, reps: int = 20) -> dict:
+def spec_breakdown(card, sched, twin, plain, reps: int = 10) -> dict:
     """One speculative round pair with every slot generating at its full
     limits (all-zero block tables: every pool write lands in junk page 0),
     captured and on the eager twin: host wall (the round ends in its
@@ -2534,7 +2571,7 @@ async def serve_resilience(card) -> dict:
 # The same kernels run with the same launch configurations either way, so
 # the twins must agree bit for bit, and the launch counters (credited per
 # replay on the captured side) must read the same.
-LOAD_SECONDS = 1.5  # per load point
+LOAD_SECONDS = 1.0  # per load point (cut from 1.5 to keep the script's time)
 LOAD_USERS = (8, 16, 32)  # the saturating point: the first whose successor rises <= 10%
 LOAD_RISE = 1.10
 LOAD_WORKERS = 2  # client processes of a multi-user point
@@ -2674,12 +2711,14 @@ async def _load_point(port: int, users: int, load: dict) -> dict:
     return summary
 
 
-async def load_curve(card, label: str, mode: str, port: int, load: dict) -> dict:
-    """1 user (latency), then 8, 16 and 32 users until predictions/s stops
-    rising by more than 10%: the last point that rose is the saturating
-    one."""
+async def load_curve(card, label: str, mode: str, port: int, load: dict, saturate: bool = True) -> dict:
+    """1 user (latency), then, with ``saturate``, 8, 16 and 32 users until
+    predictions/s stops rising by more than 10%: the last point that rose
+    is the saturating one."""
     points = {1: await _load_point(port, 1, load)}
     print(f"[{card}] load {label} mode={mode} users=1 {json.dumps(points[1])}", flush=True)
+    if not saturate:
+        return {"users_1": points[1], "saturation": None}
     sat = None
     for users in LOAD_USERS:
         points[users] = await _load_point(port, users, load)
@@ -2693,8 +2732,10 @@ async def load_curve(card, label: str, mode: str, port: int, load: dict) -> dict
 async def serve_twins(card, path: Path, kernels: tuple = (), load: dict | None = None) -> dict:
     """One deployment served captured and as its eager twin: the runtimes
     held together (``check_twin_runtimes``), then, with ``load``, each
-    server driven by the port's load generator; no new key on either
-    after the traffic; the graph pool's bytes."""
+    server driven by the port's load generator (the captured one to its
+    saturating point, the eager twin at 1 user, to keep the script's
+    time); no new key on either after the traffic; the graph
+    pool's bytes."""
     label = path.stem
     cap, build_s, cap_warm = await _start(path)
     eager, _, eager_warm = await _start(path, cuda_graphs=False)
@@ -2703,7 +2744,7 @@ async def serve_twins(card, path: Path, kernels: tuple = (), load: dict | None =
         curves = {}
         if load is not None:
             for mode, srv in (("captured", cap), ("eager", eager)):
-                curves[mode] = await load_curve(card, label, mode, srv.port, load)
+                curves[mode] = await load_curve(card, label, mode, srv.port, load, saturate=mode == "captured")
     finally:
         await cap.stop()
         await eager.stop()
@@ -2718,9 +2759,10 @@ async def serve_twins(card, path: Path, kernels: tuple = (), load: dict | None =
     summary = {"pool_bytes": pool, "breakdown": breakdown}
     if curves:
         summary["load"] = {mode: {"p50_ms_1_user": c["users_1"]["p50_ms"], "p99_ms_1_user": c["users_1"]["p99_ms"],
-                                  "saturating_users": c["saturation"]["users"],
-                                  "predictions_per_s": c["saturation"]["requests_per_sec"],
-                                  "p50_ms": c["saturation"]["p50_ms"], "p99_ms": c["saturation"]["p99_ms"]}
+                                  **({} if c["saturation"] is None else {
+                                      "saturating_users": c["saturation"]["users"],
+                                      "predictions_per_s": c["saturation"]["requests_per_sec"],
+                                      "p50_ms": c["saturation"]["p50_ms"], "p99_ms": c["saturation"]["p99_ms"]})}
                            for mode, c in curves.items()}
         print(f"[{card}] load {label} summary {json.dumps(summary['load'])}", flush=True)
     return summary
@@ -5585,7 +5627,7 @@ async def gateway_in_front(card, boots) -> dict:
         runs = {"gateway": [], "gateway_audit_off": [], "direct": []}
         gate_load = {"payload": "json", "features": seq, "oauth": (GATE_KEY, GATE_SECRET)}
         audit = gw.audit
-        for turn in ("gateway", "gateway_audit_off", "direct", "direct", "gateway_audit_off", "gateway"):
+        for turn in ("gateway", "gateway_audit_off", "direct"):
             gw.audit = NullAuditSink() if turn == "gateway_audit_off" else audit
             if turn == "direct":
                 runs[turn].append(await _gate_points(card, "13a direct", server.port, {"payload": "json",
@@ -6008,7 +6050,7 @@ async def serve_split_data_plane(card) -> dict:
 # ---------------------------------------------------------------- phase 14
 GRPC_REQUESTS = 20  # one-row id requests each way (gRPC ports, gateway modes), each also sent over REST
 GRPC_LOAD_TURNS = ("grpc", "rest", "rest", "grpc")
-GATEWAY_TURNS = ("aio", "sync", "web", "rest", "rest", "web", "sync", "aio")
+GATEWAY_TURNS = ("aio", "sync", "web", "rest")
 GRPC_CALL_S = 60.0  # one in-process gRPC call's limit
 
 
@@ -6820,6 +6862,816 @@ async def serve_grpc(card) -> dict:
             "launches": {"flash_attention": LAUNCHES.count, "int8_matmul": int8_matmul.LAUNCHES.count - int8_before}}
 
 
+# ---------------------------------------------------------------- phase 15
+PLATFORM_DIR = ROOT / "build" / "platform"  # git-ignored: the watched CRs, the state store, the trace, per run
+PLATFORM_REQUESTS = 4  # one-row requests per deployment, each also sent to a standalone server
+PLATFORM_USERS = 16  # users on bert-base-flash while it is re-applied
+PLATFORM_SIBLINGS = 4  # users on iris meanwhile, whose latency the apply must not move far
+PLATFORM_QUIET_S = 1.0  # the window without an apply that the sibling latency is held against
+PLATFORM_AFTER = 32  # answers begun after apply returned, at least
+PLATFORM_WATCH_S = 0.2  # the directory watcher's interval
+PLATFORM_WAIT_S = 60.0  # the longest a watched change may take to reconcile
+PLATFORM_LOAD_TURNS = ("c", "python", "python", "c")
+# Memory is read as memory_allocated() less cuBLAS's workspaces (active
+# blocks of exactly CUBLAS_WORKSPACE_BYTES): torch keeps one per (handle,
+# stream) for the process, and a capture on a thread or stream first seen
+# in the phase makes one. Their count is bounded instead: at most
+# PLATFORM_NEW_WORKSPACES new ones over the phase, none over 15c's
+# apply-and-delete cycles (the phase's warmups run on one thread, and
+# collected caches hand their capture streams on; planted, a new stream
+# per cache takes one a cycle). Against that reading, a swap's or a
+# delete's result may differ from the bytes the resident parameters
+# account for by PLATFORM_SLACK_BYTES: the batch buckets' static buffers
+# and graph pools (up to 7.5 MB for BERT-base on the H100, the 15a lines).
+CUBLAS_WORKSPACE_BYTES = 32 << 20  # torch's default on sm_90 (":4096:8")
+PLATFORM_NEW_WORKSPACES = 6
+PLATFORM_SLACK_BYTES = 16 << 20
+PLATFORM_CYCLES = 3  # iris applied, warmed and deleted, with no new workspace
+PLATFORM_PLANTED_WAIT_S = 2.0  # how long a planted leak is given to be freed before its check fails
+
+
+def _platform_cr(name: str, seed: int | None = None, rename: str | None = None) -> dict:
+    """A deployment file as a user applies it: renamed where asked, OAuth
+    credentials of its own where it was renamed or declares none, the
+    model URI's seed set where asked."""
+    cr = json.loads((BASELINE_DIR / f"{name}.json").read_text())
+    if rename is not None:
+        cr["metadata"]["name"] = cr["spec"]["name"] = rename
+    if rename is not None or not cr["spec"].get("oauth_key"):
+        dep = cr["metadata"]["name"]
+        cr["spec"]["oauth_key"], cr["spec"]["oauth_secret"] = f"{dep}-key", f"{dep}-secret"
+    if seed is not None:
+        for p in cr["spec"]["predictors"][0]["graph"]["parameters"]:
+            if p["name"] == "model_uri":
+                uri = re.sub(r"[?&]seed=\d+", "", p["value"])
+                p["value"] = uri + ("&" if "?" in uri else "?") + f"seed={seed}"
+    return cr
+
+
+def _vocab(runtime) -> int:
+    from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
+
+    table = runtime.params["tok_emb"]
+    return (payload(table) if is_quantized_leaf(table) else table).shape[0]
+
+
+def _write_cr(cr: dict, stem: str) -> Path:
+    path = PLATFORM_DIR / f"{stem}.json"
+    path.write_text(json.dumps(cr))
+    return path
+
+
+def _bandit_cr() -> dict:
+    """An epsilon-greedy router over two iris models: the stateful router
+    the state store carries across a re-apply."""
+    return {"apiVersion": "machinelearning.seldon.io/v1alpha1", "kind": "SeldonDeployment",
+            "metadata": {"name": "iris-bandit"},
+            "spec": {"name": "iris-bandit", "oauth_key": "iris-bandit-key", "oauth_secret": "iris-bandit-secret",
+                     "predictors": [{"name": "main", "replicas": 1, "graph": {
+                         "name": "eg", "type": "ROUTER", "implementation": "EPSILON_GREEDY",
+                         "parameters": [{"name": "epsilon", "value": "0.1", "type": "FLOAT"},
+                                        {"name": "seed", "value": "7", "type": "INT"}],
+                         "children": [{"name": f"clf{i}", "type": "MODEL", "implementation": "JAX_MODEL",
+                                       "parameters": [{"name": "model_uri", "value": f"zoo://iris_logistic?seed={i}",
+                                                       "type": "STRING"}]} for i in range(2)]},
+                         "tpu": {"max_batch": 8, "dtype": "float32"}}]}}
+
+
+def _allocated(net: bool = True) -> int:
+    """memory_allocated() once everything unreachable is collected. Nothing
+    is thawed: what the serving GC policy froze stays counted, so a version
+    the platform dropped but left frozen shows. ``net``: less cuBLAS's
+    workspaces (their count is bounded by the phase)."""
+    import torch
+
+    torch.cuda.synchronize()
+    gc.collect()
+    return torch.cuda.memory_allocated() - (CUBLAS_WORKSPACE_BYTES * _workspaces() if net else 0)
+
+
+async def _stop_standalone(srv) -> None:
+    """Stop a standalone server of the phase. Its start applied the serving
+    GC policy, which froze the whole heap, its own objects with them; they
+    are thawed and collected here, and what is alive is frozen again, as
+    the platform's policy had it. The platform's tenants stay frozen."""
+    await srv.stop()
+    gc.unfreeze()
+    gc.collect()
+    gc.freeze()
+
+
+def _workspaces() -> int:
+    """Active blocks of exactly the cuBLAS workspace's size on the card."""
+    import torch
+
+    if DEVICE != "cuda":
+        return 0
+    return sum(1 for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+               if b["state"] == "active_allocated" and b["size"] == CUBLAS_WORKSPACE_BYTES)
+
+
+async def _api(port: int, method: str, path: str, obj=None) -> tuple[int, dict]:
+    from seldon_core_tpu_torch.operator.api import BASE
+
+    body = b"" if obj is None else json.dumps(obj).encode()
+    status, _, payload, _ = await _request(port, body, path=BASE + path, method=method)
+    return status, json.loads(payload) if payload else {}
+
+
+def _answer(out: dict) -> "np.ndarray":
+    import numpy as np
+
+    return np.asarray(out["data"]["ndarray"], np.float32)
+
+
+async def _ask_server(port: int, x) -> "np.ndarray":
+    status, _, raw, _ = await _request(port, json.dumps({"data": {"ndarray": x}}).encode())
+    if status != 200:
+        raise AssertionError(f"HTTP {status}: {raw[:300]!r}")
+    return _answer(json.loads(raw))
+
+
+async def _gate_ask(port: int, token: str, x) -> "np.ndarray":
+    status, raw, _ = await _bearer_post(port, token, json.dumps({"data": {"ndarray": x}}).encode())
+    if status != 200:
+        raise AssertionError(f"HTTP {status}: {raw[:300]!r}")
+    return _answer(json.loads(raw))
+
+
+async def _versions(ask_rows, xs: list, bucket: int) -> list:
+    """Per row of ``xs`` the answers a version gives it alone and inside a
+    batch of ``bucket`` rows (the batcher pads every merged batch to the
+    bucket, whose matmuls may round otherwise): ``ask_rows(rows)`` posts
+    one request and returns its answer rows."""
+    alone = [(await ask_rows([x]))[0] for x in xs]
+    batched = []
+    for i in range(0, len(xs), bucket):
+        batched.extend(await ask_rows(xs[i:i + bucket]))
+    return [(a.tobytes(), b.tobytes()) for a, b in zip(alone, batched)]
+
+
+def check_swap(label: str, answers: list, after: list, old: list, new: list) -> None:
+    """A hot update's answers: each (user, answer) bit for bit one of the
+    old version's or the new one's answers for that user's row (``old`` and
+    ``new``: per row, the bytes of each answer it can get), and each answer
+    begun after apply returned one of the new one's."""
+    for u, got in answers:
+        if got.tobytes() not in old[u] + new[u]:
+            raise AssertionError(f"{label}: user {u} was answered {got}, neither an answer of the old version "
+                                 f"nor of the new one")
+    for u, got in after:
+        if got.tobytes() not in new[u]:
+            raise AssertionError(f"{label}: user {u} was answered {got} after apply returned, not an answer of "
+                                 f"the new version")
+
+
+async def check_freed(label: str, refs: list, before: int, expected: int, diagnose: bool = True,
+                      wait_s: float = 10.0) -> int:
+    """A replaced or deleted version: every weak reference to its
+    deployment, runtimes and graph caches dead (once its last requests and
+    its batchers' drain have ended: up to ``wait_s``), and
+    memory_allocated() within PLATFORM_SLACK_BYTES of ``expected``
+    (``before`` is the reading before, for the message). The collections
+    here thaw nothing. Returns the reading."""
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        alive = [name for name, ref in refs if ref() is not None]
+        if not alive or time.perf_counter() - t0 > wait_s:
+            break
+        await asyncio.sleep(0.05)
+    now = _allocated()
+    if alive:
+        held = {name: _holders(ref()) for name, ref in refs if ref() is not None} if diagnose else alive
+        raise AssertionError(f"{label}: still reachable: {held}")
+    if abs(now - expected) > PLATFORM_SLACK_BYTES:
+        raise AssertionError(f"{label}: memory_allocated() {now} B (was {before}), want {expected} B "
+                             f"+- {PLATFORM_SLACK_BYTES}")
+    return now
+
+
+def _holders(obj) -> list:
+    """What refers to ``obj``, to name a leak: its reference count and the
+    referrers the collector sees (a frame by function and line). Reads
+    nothing that could keep a reference itself (no ``f_locals``)."""
+    import types
+
+    out = [f"refcount {sys.getrefcount(obj) - 2}"]
+    for r in gc.get_referrers(obj):
+        if isinstance(r, types.FrameType):
+            out.append(f"frame {r.f_code.co_name} line {r.f_lineno}")
+        elif isinstance(r, dict):
+            out.append(f"dict {sorted(map(str, r))[:6]}")
+        else:
+            out.append(type(r).__qualname__)
+    return out
+
+
+def _refs(running) -> list:
+    import weakref
+
+    refs = [("deployment", weakref.ref(running))]
+    for i, rt in enumerate(running.runtimes()):
+        refs += [(f"runtime {i}", weakref.ref(rt)), (f"graph cache {i}", weakref.ref(rt.graphs))]
+    return refs
+
+
+async def _until(label: str, cond) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > PLATFORM_WAIT_S:
+            raise AssertionError(f"{label}: not within {PLATFORM_WAIT_S} s")
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def platform_boot_and_apply(card, platform, warm, standalone: dict) -> dict:
+    """Phase 15a: the three CRs through the operator API, each served
+    through the gateway bit for bit as a standalone PredictorServer of the
+    same file serves it on the same card, with the kernel launches counted
+    per request (and per W8A16 body), 0 keys after each deployment's
+    warmup (on the one thread of ``warm``), and per apply its seconds,
+    memory_allocated() growth, resident parameter bytes and host estimate.
+    The standalone servers' launches are added to ``standalone``."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.defaulting import default_deployment
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.operator.reconciler import estimate_deployment_bytes
+
+    loop = asyncio.get_running_loop()
+    rows, tokens = {}, {}
+    for name in ("bert_base_flash", "bert_int8", "iris"):
+        cr = _platform_cr(name)
+        dep = cr["metadata"]["name"]
+        before = _allocated()
+        t0 = time.perf_counter()
+        status, body = await _api(platform.admin_port, "POST", "", cr)
+        apply_s = time.perf_counter() - t0
+        if status != 200 or body["action"] != "created":
+            raise AssertionError(f"15a apply {name}: HTTP {status} {body}")
+        applied = _allocated()
+        running = platform.manager.get(dep)
+        t0 = time.perf_counter()
+        await loop.run_in_executor(warm, running.warmup)
+        warm_s = time.perf_counter() - t0
+        rows[name] = {"apply_s": round(apply_s, 3), "warmup_s": round(warm_s, 3),
+                      "allocated_growth_bytes": applied - before, "after_warmup_growth_bytes": _allocated() - before,
+                      "resident_bytes": platform.manager.hbm_usage()["deployments"][dep],
+                      "estimate_bytes": estimate_deployment_bytes(default_deployment(SeldonDeployment.from_dict(cr)))}
+        tokens[name] = await _token(platform.port, "form", cr["spec"]["oauth_key"], cr["spec"]["oauth_secret"])
+    rng = np.random.default_rng(15)
+    for name in ("bert_base_flash", "bert_int8", "iris"):
+        cr = _platform_cr(name)
+        running = platform.manager.get(cr["metadata"]["name"])
+        runtime = running.runtimes()[0]
+        path = _write_cr(cr, f"standalone_{name}")
+        window = (LAUNCHES.count, i8.LAUNCHES.count)
+        deltas, by_body = [], []
+        alone, *_ = await _start(path)
+        try:
+            for i in range(PLATFORM_REQUESTS):
+                if name == "iris":
+                    x = rng.normal(size=(1, 4)).round(3).tolist()
+                else:
+                    x = rng.integers(0, _vocab(runtime), size=(1, runtime.feature_shape[0])).tolist()
+                flash0, int80 = LAUNCHES.count, i8.LAUNCHES.count
+                bodies0 = {b: c.count for b, c in i8.LAUNCHES_BY_BODY.items()}
+                got = await _gate_ask(platform.port, tokens[name], x)
+                deltas.append((LAUNCHES.count - flash0, i8.LAUNCHES.count - int80))
+                by_body.append({b: c.count - bodies0[b] for b, c in i8.LAUNCHES_BY_BODY.items()})
+                status, _, raw, _ = await _request(alone.port, json.dumps({"data": {"ndarray": x}}).encode())
+                if status != 200:
+                    raise AssertionError(f"15a {name} standalone: HTTP {status} {raw[:200]!r}")
+                _same_bits(f"15a {name} request {i}: the platform against a standalone server", got,
+                           _answer(json.loads(raw)))
+        finally:
+            await _stop_standalone(alone)
+        # the window's launches less the platform's requests' are the standalone server's
+        standalone["flash_attention"] += LAUNCHES.count - window[0] - sum(d[0] for d in deltas)
+        standalone["int8_matmul"] += i8.LAUNCHES.count - window[1] - sum(d[1] for d in deltas)
+        if name == "bert_base_flash":
+            require_launches("15a bert_base_flash flash_attention", [d[0] for d in deltas],
+                             len(runtime.params["layers"]))
+        elif name == "bert_int8":
+            require_launches("15a bert_int8 int8_matmul", [d[1] for d in deltas], INT8_LAUNCHES)
+            if by_body != [INT8_LAUNCHES_BY_BODY] * len(by_body):
+                raise AssertionError(f"15a bert_int8 launches by body {by_body}, want {INT8_LAUNCHES_BY_BODY} each")
+        keys = runtime.recompiles_since_warmup()
+        if keys:
+            raise AssertionError(f"15a {name}: {keys} new dispatch keys after warmup")
+        rows[name].update(launches_per_request=deltas[0], keys_after_warmup=keys, cublas_workspaces=_workspaces())
+        print(f"[{card}] 15a {name}: {json.dumps(rows[name])}; {PLATFORM_REQUESTS} answers through the gateway "
+              f"bit for bit a standalone server's", flush=True)
+    return {"deployments": rows, "tokens": tokens}
+
+
+async def _swap_under_traffic(platform, port: int, token: str, xs: list, apply_fn, sibling=None) -> dict:
+    """len(xs) users each asking its own row in a closed loop through the
+    gateway while ``apply_fn()`` (a coroutine function) runs: every answer
+    with whether it began after apply returned, failures counted, and the
+    sibling's answers with their latencies in ms (``sibling``: (token, x),
+    asked by PLATFORM_SIBLINGS more users)."""
+    applied = asyncio.Event()
+    answers, after, failures, sib, sib_ms = [], [], [], [], []
+
+    async def user(u: int) -> None:
+        while not applied.is_set() or len(after) < PLATFORM_AFTER:
+            began_after = applied.is_set()
+            try:
+                got = await _gate_ask(port, token, [xs[u]])
+            except Exception as e:  # noqa: BLE001 - every failure is counted
+                failures.append(f"user {u}: {e!r}"[:300])
+                continue
+            answers.append((u, got))
+            if began_after:
+                after.append((u, got))
+
+    async def sibling_user() -> None:
+        while not applied.is_set() or len(after) < PLATFORM_AFTER:
+            t0 = time.perf_counter()
+            try:
+                sib.append(await _gate_ask(port, sibling[0], sibling[1]))
+            except Exception as e:  # noqa: BLE001
+                failures.append(f"sibling: {e!r}"[:300])
+                continue
+            sib_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tasks = [asyncio.ensure_future(user(u)) for u in range(len(xs))]
+    if sibling is not None:
+        tasks += [asyncio.ensure_future(sibling_user()) for _ in range(PLATFORM_SIBLINGS)]
+    t0 = time.perf_counter()
+    try:
+        await asyncio.sleep(0.2)  # the users are in flight before the apply
+        result = await apply_fn()
+        apply_s = time.perf_counter() - t0
+    finally:
+        applied.set()
+        await asyncio.gather(*tasks, return_exceptions=True)
+    return {"result": result, "answers": answers, "after": after, "failures": failures, "sibling": sib,
+            "sibling_ms": sib_ms, "apply_s": apply_s}
+
+
+def _quantiles_ms(ms: list) -> dict:
+    import numpy as np
+
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+async def platform_hot_update(card, platform, tokens: dict, warm, standalone: dict) -> dict:
+    """Phase 15b: PLATFORM_USERS users on bert-base-flash through the
+    gateway while it is re-applied with seed 1 and mnist applied beside it:
+    no request fails, each answer is the old or the new version's (the new
+    one's from a standalone server of the seed-1 CR), every answer begun
+    after apply returned the new one's, iris (asked throughout by
+    PLATFORM_SIBLINGS users, its p50 and p99 beside those of the same
+    traffic for PLATFORM_QUIET_S without an apply) and bert-int8 do not
+    move; the old version drained, unreachable though the serving GC
+    policy froze it, the heap frozen again, and memory_allocated() back
+    within the slack of the bytes the resident parameters account for.
+    Planted: an update whose new version is built from the old spec (on
+    iris) fails the answer check."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    loop = asyncio.get_running_loop()
+    manager = platform.manager
+    rng = np.random.default_rng(16)
+    runtime = manager.get("bert-base-flash").runtimes()[0]
+    seq, vocab, bucket = runtime.feature_shape[0], _vocab(runtime), max(runtime.buckets)
+    del runtime  # the old version must be collectable after the swap
+    xs = rng.integers(0, vocab, size=(PLATFORM_USERS, seq)).tolist()
+    old = await _versions(lambda rows: _gate_ask(platform.port, tokens["bert_base_flash"], rows), xs, bucket)
+    iris_x = [[5.1, 3.5, 1.4, 0.2]]
+    iris_before = await _gate_ask(platform.port, tokens["iris"], iris_x)
+    int8_rt = manager.get("bert-int8").runtimes()[0]
+    int8_x = rng.integers(0, _vocab(int8_rt), size=(1, int8_rt.feature_shape[0])).tolist()
+    del int8_rt
+    int8_before = await _gate_ask(platform.port, tokens["bert_int8"], int8_x)
+    new_cr = _platform_cr("bert_base_flash", seed=1)
+    window = (LAUNCHES.count, i8.LAUNCHES.count)
+    alone, *_ = await _start(_write_cr(new_cr, "standalone_bert_seed1"))
+    try:
+        new = await _versions(lambda rows: _ask_server(alone.port, rows), xs, bucket)
+    finally:
+        await _stop_standalone(alone)
+    standalone["flash_attention"] += LAUNCHES.count - window[0]
+    standalone["int8_matmul"] += i8.LAUNCHES.count - window[1]
+    if any(set(a) & set(b) for a, b in zip(old, new)):
+        raise AssertionError("15b: seed 1 answers a row as seed 0 does")
+    # the same traffic without an apply: the siblings' latency to hold the
+    # apply's against, and every answer the old version's
+    quiet = await _swap_under_traffic(platform, platform.port, tokens["bert_base_flash"], xs,
+                                      lambda: asyncio.sleep(PLATFORM_QUIET_S), sibling=(tokens["iris"], iris_x))
+    if quiet["failures"]:
+        raise AssertionError(f"15b without an apply: {len(quiet['failures'])} failed requests, "
+                             f"e.g. {quiet['failures'][:3]}")
+    check_swap("15b without an apply", quiet["answers"], quiet["after"], old, old)
+    refs = _refs(manager.get("bert-base-flash"))
+    usage_before = manager.hbm_usage()["total"]
+    refreezes = manager.release.stat_refreezes
+    before = _allocated()
+
+    async def apply_both():
+        return await asyncio.gather(_api(platform.admin_port, "POST", "", new_cr),
+                                    _api(platform.admin_port, "POST", "", _platform_cr("mnist")))
+
+    run = await _swap_under_traffic(platform, platform.port, tokens["bert_base_flash"], xs, apply_both,
+                                    sibling=(tokens["iris"], iris_x))
+    (s1, b1), (s2, b2) = run["result"]
+    if (s1, b1.get("action"), s2, b2.get("action")) != (200, "updated", 200, "created"):
+        raise AssertionError(f"15b applies: {s1} {b1}, {s2} {b2}")
+    if run["failures"]:
+        raise AssertionError(f"15b: {len(run['failures'])} failed requests, e.g. {run['failures'][:3]}")
+    check_swap("15b bert-base-flash", run["answers"], run["after"], old, new)
+    for got in quiet["sibling"] + run["sibling"]:
+        _same_bits("15b iris during the update", got, iris_before)
+    _same_bits("15b bert-int8 after the update", await _gate_ask(platform.port, tokens["bert_int8"], int8_x),
+               int8_before)
+    n_old = sum(got.tobytes() in old[u] for u, got in run["answers"])
+    # the old version drains as its last requests end; then it is unreachable
+    expected = before + manager.hbm_usage()["total"] - usage_before
+    after_bytes = await check_freed("15b the replaced bert-base-flash", refs, before, expected)
+    await _until("15b the heap frozen again", lambda: manager.release.stat_refreezes > refreezes
+                 and not manager.release.pending())
+    new_running = manager.get("bert-base-flash")
+    await loop.run_in_executor(warm, new_running.warmup)
+    del new_running
+    row = {"requests": len(run["answers"]), "answered_by_old": n_old, "after_apply": len(run["after"]),
+           "failures": 0, "apply_s": round(run["apply_s"], 3),
+           "sibling_iris": {"without_apply": _quantiles_ms(quiet["sibling_ms"]),
+                            "during_apply": _quantiles_ms(run["sibling_ms"])},
+           "release_collect_s": manager.release.stat_collect_s[-3:], "cublas_workspaces": _workspaces(),
+           "allocated_before": before, "allocated_after": after_bytes, "expected_after": expected,
+           "slack_bytes": PLATFORM_SLACK_BYTES}
+
+    # planted: the update's new version built from the old spec
+    iris_old, iris_new = _platform_cr("iris", rename="iris-planted"), _platform_cr("iris", rename="iris-planted")
+    iris_new["spec"]["predictors"][0]["graph"]["parameters"] = [
+        {"name": "model_uri", "value": "zoo://iris_logistic?seed=1", "type": "STRING"}]
+    status, body = await _api(platform.admin_port, "POST", "", iris_old)
+    token = await _token(platform.port, "form", iris_old["spec"]["oauth_key"], iris_old["spec"]["oauth_secret"])
+    ixs = rng.normal(size=(1, 4)).round(3).tolist()  # one user: every batch at bucket 1
+    iold = await _versions(lambda rows: _gate_ask(platform.port, token, rows), ixs, 1)
+    alone, *_ = await _start(_write_cr(iris_new, "standalone_iris_seed1"))
+    try:
+        inew = await _versions(lambda rows: _ask_server(alone.port, rows), ixs, 1)
+    finally:
+        await _stop_standalone(alone)
+    real = manager._service_factory
+    old_dep = manager.get("iris-planted").dep
+    manager._service_factory = lambda dep, pred: real(old_dep, old_dep.spec.predictors[0])
+    try:
+        planted = await _swap_under_traffic(platform, platform.port, token, ixs,
+                                            lambda: _api(platform.admin_port, "POST", "", iris_new))
+    finally:
+        manager._service_factory = real
+    if planted["failures"] or planted["result"][0] != 200:
+        raise AssertionError(f"15b planted update: {planted['result']} {planted['failures'][:3]}")
+    must_fail("15b an update whose new version answers with the old weights",
+              lambda: check_swap("15b planted", planted["answers"], planted["after"], iold, inew))
+    status, body = await _api(platform.admin_port, "DELETE", "/iris-planted")
+    print(f"[{card}] 15b hot update under {PLATFORM_USERS} users: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def platform_admission_and_delete(card, platform, base: int, warm) -> dict:
+    """Phase 15c: a budget the tenants fit and a second BERT-base (seed 2)
+    does not: the apply is refused with the reference's "insufficient HBM"
+    text and memory_allocated() is exactly unchanged; bert-int8 deleted
+    (with its graph cache held by a planted leak, the freed check must
+    fail; released, it passes); bert-base-flash deleted (with the heap's
+    thaw planted out, the version stays frozen and the freed check must
+    fail; thawed, it passes) and the refused spec then reconciles; every
+    tenant deleted, the heap frozen again after the deletes, and
+    memory_allocated() back within the slack of its reading before 15a
+    (``base``)."""
+    import torch
+
+    from seldon_core_tpu_torch.graph.defaulting import default_deployment
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+    from seldon_core_tpu_torch.operator.reconciler import estimate_deployment_bytes
+    from seldon_core_tpu_torch.ops import graphs
+
+    manager = platform.manager
+    second = _platform_cr("bert_base_flash", seed=2, rename="bert-base-second")
+    incoming = estimate_deployment_bytes(default_deployment(SeldonDeployment.from_dict(second)))
+    manager.hbm_budget_bytes = manager.hbm_usage()["total"] + incoming // 2
+    before = _allocated(net=False)
+    t0 = time.perf_counter()
+    status, body = await _api(platform.admin_port, "POST", "", second)
+    refuse_s = time.perf_counter() - t0
+    refused_bytes = _allocated(net=False)
+    if status != 400 or body["action"] != "failed" or "insufficient HBM" not in body["message"]:
+        raise AssertionError(f"15c the over-budget apply: HTTP {status} {body}")
+    if refused_bytes != before:
+        raise AssertionError(f"15c the refused apply moved memory_allocated() from {before} to {refused_bytes}")
+    status_of = manager.status("bert-base-second")
+    row = {"budget": manager.hbm_budget_bytes, "incoming_estimate": incoming, "refused_s": round(refuse_s, 3),
+           "refusal": body["message"], "status": status_of.state}
+
+    # planted: a delete that leaves the graph cache reachable
+    running = manager.get("bert-int8")
+    refs, resident = _refs(running), manager.hbm_usage()["deployments"]["bert-int8"]
+    leak = [running.runtimes()[0].graphs]
+    del running
+    before = _allocated()
+    status, body = await _api(platform.admin_port, "DELETE", "/bert-int8")
+    if status != 200 or body["action"] != "deleted":
+        raise AssertionError(f"15c delete bert-int8: HTTP {status} {body}")
+    await must_fail_async("15c a delete that leaves a graph cache reachable",
+                          lambda: check_freed("15c planted", refs, before, before - resident, diagnose=False,
+                                              wait_s=PLATFORM_PLANTED_WAIT_S))
+    leak.clear()
+    row["int8_freed_bytes"] = before - await check_freed("15c the deleted bert-int8", refs, before,
+                                                         before - resident)
+
+    # planted: the release's thaw taken out, so the deleted version stays
+    # in the generation the serving GC policy froze
+    running = manager.get("bert-base-flash")
+    refs, resident = _refs(running), manager.hbm_usage()["deployments"]["bert-base-flash"]
+    del running
+    before = _allocated()
+    real_unfreeze = gc.unfreeze
+    gc.unfreeze = lambda: None
+    try:
+        status, body = await _api(platform.admin_port, "DELETE", "/bert-base-flash")
+    finally:
+        gc.unfreeze = real_unfreeze
+    if status != 200 or body["action"] != "deleted":
+        raise AssertionError(f"15c delete bert-base-flash: HTTP {status} {body}")
+    await must_fail_async("15c a delete that leaves the version frozen",
+                          lambda: check_freed("15c planted", refs, before, before - resident, diagnose=False,
+                                              wait_s=PLATFORM_PLANTED_WAIT_S))
+    gc.unfreeze()
+    row["flash_freed_bytes"] = before - await check_freed("15c the deleted bert-base-flash", refs, before,
+                                                          before - resident)
+    status, body = await _api(platform.admin_port, "POST", "", second)
+    if status != 200 or body["action"] != "created":
+        raise AssertionError(f"15c the refused spec after a delete: HTTP {status} {body}")
+    manager.hbm_budget_bytes = None
+    refs, refreezes = [], manager.release.stat_refreezes
+    for name in manager.names():
+        refs += [(f"{name} {n}", r) for n, r in _refs(manager.get(name))]
+        status, body = await _api(platform.admin_port, "DELETE", f"/{name}")
+        if status != 200:
+            raise AssertionError(f"15c delete {name}: HTTP {status} {body}")
+    row["allocated_before_15a"] = base
+    row["allocated_after_deletes"] = await check_freed("15c every tenant deleted", refs, base, base)
+    await _until("15c the heap frozen again", lambda: manager.release.stat_refreezes > refreezes
+                 and not manager.release.pending())
+    row["refreezes"] = manager.release.stat_refreezes
+    row["release_collect_s"] = manager.release.stat_collect_s[-4:]
+    row["cublas_workspaces_after"] = _workspaces()
+
+    # applies and deletes take no new cuBLAS workspace: after one warm-in
+    # cycle, PLATFORM_CYCLES more of an iris copy (applied, warmed on the
+    # one warmup thread, deleted) take none; planted, a new capture stream
+    # per graph cache takes one a cycle (on the card; the CPU has none)
+    await _platform_cycles(platform, warm, 1)
+    row["cycle_new_workspaces"] = await _platform_cycles(platform, warm, PLATFORM_CYCLES)
+    check_workspaces("15c applies and deletes", row["cycle_new_workspaces"])
+    real_stream = graphs._capture_stream
+    graphs._capture_stream = torch.cuda.Stream
+    try:
+        planted = await _platform_cycles(platform, warm, PLATFORM_CYCLES)
+    finally:
+        graphs._capture_stream = real_stream
+    if DEVICE == "cuda":
+        must_fail("15c a new capture stream per graph cache", lambda: check_workspaces("15c planted", planted))
+    row["planted_new_workspaces"] = planted
+    print(f"[{card}] 15c admission and delete: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def _platform_cycles(platform, warm, n: int) -> int:
+    """``n`` times an iris copy applied, warmed on ``warm``'s thread and
+    deleted, each drop collected: the new cuBLAS workspaces."""
+    manager = platform.manager
+    before = _workspaces()
+    for _ in range(n):
+        status, body = await _api(platform.admin_port, "POST", "", _platform_cr("iris", rename="iris-cycle"))
+        if status != 200 or body["action"] != "created":
+            raise AssertionError(f"15c cycle apply: HTTP {status} {body}")
+        await asyncio.get_running_loop().run_in_executor(warm, manager.get("iris-cycle").warmup)
+        status, body = await _api(platform.admin_port, "DELETE", "/iris-cycle")
+        if status != 200:
+            raise AssertionError(f"15c cycle delete: HTTP {status} {body}")
+        await _until("15c the cycle's version collected", lambda: not manager.release.pending())
+    return _workspaces() - before
+
+
+def check_workspaces(label: str, new: int) -> None:
+    if new:
+        raise AssertionError(f"{label}: {new} new cuBLAS workspaces, want 0")
+
+
+async def platform_watch_dir(card, platform, watch_dir: Path) -> dict:
+    """Phase 15d: an epsilon-greedy CR file dropped into the watched
+    directory serves through the gateway; three feedbacks teach its router;
+    a torn rewrite keeps it serving; a changed spec re-applies it with the
+    router's arms restored from the file state store; removing the file
+    deletes it."""
+    manager = platform.manager
+    cr = _bandit_cr()
+    t0 = time.perf_counter()
+    (watch_dir / "bandit.json").write_text(json.dumps(cr))
+    await _until("15d the dropped CR file", lambda: "iris-bandit" in manager.names())
+    applied_s = time.perf_counter() - t0
+    token = await _token(platform.port, "form", cr["spec"]["oauth_key"], cr["spec"]["oauth_secret"])
+    x = [[5.1, 3.5, 1.4, 0.2]]
+    for reward in (1.0, 0.0, 1.0):
+        status, raw, _ = await _bearer_post(platform.port, token, json.dumps({"data": {"ndarray": x}}).encode())
+        out = json.loads(raw)
+        fb = json.dumps({"request": {"data": {"ndarray": x}}, "response": out, "reward": reward}).encode()
+        status, fraw, _ = await _bearer_post(platform.port, token, fb, path="/api/v0.1/feedback")
+        if status != 200:
+            raise AssertionError(f"15d feedback: HTTP {status} {fraw[:200]!r}")
+    router = manager.get("iris-bandit").services["main"].executor.root.unit
+    arms = (list(router.counts), list(router.rewards))
+    if sum(arms[0]) != 3:
+        raise AssertionError(f"15d the router counted {arms[0]} feedbacks, want 3")
+    (watch_dir / "bandit.json").write_text(json.dumps(cr)[:40])  # torn mid-write
+    await asyncio.sleep(4 * PLATFORM_WATCH_S)
+    if "iris-bandit" not in manager.names():
+        raise AssertionError("15d a torn rewrite deleted the deployment")
+    await _gate_ask(platform.port, token, x)
+    cr["spec"]["predictors"][0]["replicas"] = 2
+    (watch_dir / "bandit.json").write_text(json.dumps(cr))
+    await _until("15d the rewritten CR", lambda: manager.get("iris-bandit") is not None
+                 and manager.get("iris-bandit").dep.spec.predictors[0].replicas == 2)
+    restored = manager.get("iris-bandit").services["main"].executor.root.unit
+    if restored is router or (list(restored.counts), list(restored.rewards)) != arms:
+        raise AssertionError(f"15d the re-applied router holds {restored.counts}/{restored.rewards}, want {arms}")
+    await _gate_ask(platform.port, token, x)
+    (watch_dir / "bandit.json").unlink()
+    deleted_s = await _until("15d the removed CR file", lambda: "iris-bandit" not in manager.names())
+    row = {"applied_s": round(applied_s, 3), "arms": arms, "deleted_s": round(deleted_s, 3)}
+    print(f"[{card}] 15d directory watcher and state store: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def platform_profiler_and_codec(card, platform, tokens: dict) -> dict:
+    """Phase 15e: POST /profiler/start?duration_ms= over three BERT-base
+    requests writes a Chrome trace naming the flash kernel's symbol; the
+    native codec's counters show C head parses and C ndarray parses of
+    bodies over 4096 bytes; a head with two Accept headers is served by the
+    last (and a scan planted to keep the first fails); iris's 1-user p50
+    and 16-user predictions/s with the codec against the same server with
+    the library off in-process, in turns."""
+    import numpy as np
+
+    from seldon_core_tpu_torch import native
+    from seldon_core_tpu_torch.serving import fast_http
+
+    trace_dir = PLATFORM_DIR / "profile"
+    status, _, raw, _ = await _request(platform.admin_port, b"",
+                                       path=f"/profiler/start?dir={trace_dir}&duration_ms=3000")
+    if status != 200:
+        raise AssertionError(f"15e profiler start: HTTP {status} {raw[:200]!r}")
+    runtime = platform.manager.get("bert-base-flash").runtimes()[0]
+    rng = np.random.default_rng(17)
+    seq, vocab = runtime.feature_shape[0], _vocab(runtime)
+    for _ in range(3):
+        await _gate_ask(platform.port, tokens["bert_base_flash"], rng.integers(0, vocab, size=(1, seq)).tolist())
+    def written() -> bool:
+        try:
+            return bool(json.loads((trace_dir / "trace.json").read_text())["traceEvents"])
+        except (OSError, ValueError, KeyError):
+            return False  # not yet written, or still being written
+
+    waited = await _until("15e the profiler's auto-stop", written)
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kernels = sorted({e.get("name", "") for e in events if e.get("cat") == "kernel"})
+    flash = [k for k in kernels if "flash_fwd" in k]
+    if DEVICE == "cuda" and not flash:
+        raise AssertionError(f"15e the trace names no flash kernel; kernels {kernels[:20]}")
+
+    # a body over 4096 bytes (4 BERT-base rows; more at a smaller width)
+    # through the C ndarray parse
+    n_big = max(4, -(-4200 // len(json.dumps(rng.integers(vocab // 2, vocab, size=seq).tolist()))))
+    big = json.dumps({"data": {"ndarray": rng.integers(vocab // 2, vocab, size=(n_big, seq)).tolist()}}).encode()
+    stats0 = native.stats()["entries"]
+    status, raw, _ = await _bearer_post(platform.port, tokens["bert_base_flash"], big)
+    _check_probs(json.loads(raw), n_big)
+    stats1 = native.stats()
+    if not stats1["available"]:
+        raise AssertionError("15e the native codec is not available on this host")
+    if len(big) <= 4096 or stats1["entries"]["parse_ndarray"]["c"] <= stats0["parse_ndarray"]["c"]:
+        raise AssertionError(f"15e a {len(big)}-byte body took no C ndarray parse: {stats1}")
+    if stats1["entries"]["parse_http_head"]["c"] <= 0:
+        raise AssertionError(f"15e no C head parse: {stats1}")
+
+    async def accept_check(label: str) -> None:
+        heads0 = native.stats()["entries"]["parse_http_head"]["c"]
+        status, hdrs, _, _ = await _request(platform.port, b"", path="/metrics", method="GET", headers={
+            "Accept": "application/openmetrics-text", "accept": "text/plain"})
+        if native.stats()["entries"]["parse_http_head"]["c"] <= heads0:
+            raise AssertionError(f"{label}: the head was not parsed in C")
+        if status != 200 or not hdrs.get("content-type", "").startswith("text/plain"):
+            raise AssertionError(f"{label}: two Accept headers answered {hdrs.get('content-type')}, want the "
+                                 f"last one's text/plain")
+
+    await accept_check("15e duplicate headers")
+    real = fast_http._header_from_head
+
+    def first_wins(head: bytes, name: bytes):
+        target = name + b":"
+        for line in head.split(b"\r\n")[1:]:
+            if line[: len(target)].lower() == target:
+                return line[len(target):].strip(b" \t").decode("latin-1")
+        return None
+
+    fast_http._header_from_head = first_wins
+    try:
+        await must_fail_async("15e a C-parsed head that keeps the first duplicate header",
+                              lambda: accept_check("15e planted"))
+    finally:
+        fast_http._header_from_head = real
+
+    load = {"payload": "json", "features": 4, "oauth": ("iris-key", "iris-secret")}
+    runs = {"c": [], "python": []}
+    for turn in PLATFORM_LOAD_TURNS:
+        with contextlib.ExitStack() as stack:
+            if turn == "python":
+                stack.enter_context(native.python_only())
+            point = {}
+            for users in SPLIT_LOAD:
+                point[users] = await _load_point(platform.port, users, load)
+                print(f"[{card}] load 15e iris codec={turn} users={users} {json.dumps(point[users])}", flush=True)
+            runs[turn].append(point)
+    row = {"trace_events": len(events), "flash_kernels_in_trace": flash[:3], "auto_stop_waited_s": round(waited, 3),
+           "codec": stats1["entries"], "load": _turns_summary(runs)}
+    print(f"[{card}] 15e profiler and codec: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def serve_platform(card) -> dict:
+    """Phase 15: the all-in-one platform on the card (``platform.py``):
+    15a boot and apply, 15b the hot update under load, 15e the profiler
+    and the codec (while BERT-base still serves), 15c admission and
+    delete, 15d the directory watcher and the state store. Returns the
+    phase's numbers and its launches."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seldon_core_tpu_torch import native
+    from seldon_core_tpu_torch.ops import int8_matmul
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.platform import Platform
+
+    if PLATFORM_DIR.exists():
+        shutil.rmtree(PLATFORM_DIR)
+    watch_dir = PLATFORM_DIR / "watch"
+    watch_dir.mkdir(parents=True)
+    # what earlier phases' servers froze and left is freed before the base
+    # reading; from here on nothing is thawed but by the platform
+    gc.unfreeze()
+    base = _allocated()
+    workspaces = _workspaces()
+    warm = ThreadPoolExecutor(1, thread_name_prefix="platform-warmup")  # every warmup's captures on one thread
+    standalone = {"flash_attention": 0, "int8_matmul": 0}  # the standalone servers' launches
+    native.reset_stats()
+    int8_matmul.reset_launches()
+    LAUNCHES.reset()  # the phase's paths run from here
+    t0 = time.perf_counter()
+    platform = Platform(device=DEVICE, audit_sink_url="mem://", state_store_url=f"file://{PLATFORM_DIR / 'state'}")
+    await platform.serve("127.0.0.1", 0, grpc_port=None, watch_dir=str(watch_dir), watch_interval_s=PLATFORM_WATCH_S,
+                         fast_ingress=True, admin_port=0)
+    boot_s = time.perf_counter() - t0
+    try:
+        applied = await platform_boot_and_apply(card, platform, warm, standalone)
+        tokens = applied["tokens"]
+        update = await platform_hot_update(card, platform, tokens, warm, standalone)
+        codec = await platform_profiler_and_codec(card, platform, tokens)
+        admission = await platform_admission_and_delete(card, platform, base, warm)
+        watch = await platform_watch_dir(card, platform, watch_dir)
+        end = _allocated()
+        if abs(end - base) > PLATFORM_SLACK_BYTES:
+            raise AssertionError(f"15: memory_allocated() {end} B at the end, {base} B before the phase")
+        new_workspaces = _workspaces() - workspaces - admission["planted_new_workspaces"]
+        if new_workspaces > PLATFORM_NEW_WORKSPACES:
+            raise AssertionError(f"15: {new_workspaces} new cuBLAS workspaces over the phase, at most "
+                                 f"{PLATFORM_NEW_WORKSPACES}")
+    finally:
+        await platform.stop()
+        warm.shutdown()
+    # the platform's own launches: every launch since the reset less the
+    # standalone servers' (the twins its answers are held against)
+    by_body = {b: c.count for b, c in int8_matmul.LAUNCHES_BY_BODY.items()}
+    return {"boot_s": round(boot_s, 3), "cublas_workspaces": {"before": workspaces, "new": new_workspaces},
+            "apply": applied["deployments"], "hot_update": update, "admission": admission,
+            "watch": watch, "profiler_and_codec": codec,
+            "launches": {"flash_attention": LAUNCHES.count - standalone["flash_attention"],
+                         "int8_matmul": int8_matmul.LAUNCHES.count - standalone["int8_matmul"],
+                         "int8_by_body_with_standalone": by_body},
+            "standalone_launches": standalone}
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -7055,6 +7907,21 @@ def main() -> int:
           f"{grpc_plane['launches']['int8_matmul']}", flush=True)
     print(f"[{card}] phase 14 seconds: {time.perf_counter() - t14:.3f}", flush=True)
 
+    # 15. the all-in-one platform: the operator API, admission, hot updates,
+    # the directory watcher, the profiler endpoints, the native codec
+    t15 = time.perf_counter()
+    platform_out = asyncio.run(serve_platform(card))
+    platform_flash, platform_int8 = (platform_out["launches"]["flash_attention"],
+                                     platform_out["launches"]["int8_matmul"])
+    twins_flash, twins_int8 = (platform_out["standalone_launches"]["flash_attention"],
+                               platform_out["standalone_launches"]["int8_matmul"])
+    if platform_flash <= 0 or platform_int8 <= 0:
+        raise AssertionError(f"the platform's paths launched flash {platform_flash}, int8_matmul {platform_int8} times")
+    print(f"[{card}] phase 15 flash_attention launches: platform {platform_flash} standalone twins {twins_flash}; "
+          f"int8_matmul launches: platform {platform_int8} standalone twins {twins_int8}; int8 by body, both "
+          f"{json.dumps(platform_out['launches']['int8_by_body_with_standalone'])}", flush=True)
+    print(f"[{card}] phase 15 seconds: {time.perf_counter() - t15:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -7064,7 +7931,7 @@ def main() -> int:
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
-        + learning_launches + source_launches + split_launches + grpc_launches,
+        + learning_launches + source_launches + split_launches + grpc_launches + platform_flash + twins_flash,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
@@ -7073,7 +7940,9 @@ def main() -> int:
                              "model sources (phase 11)": source_launches,
                              "replicated fleet (phase 12)": fleet["launches"]["flash_attention"],
                              "split data plane (phase 13)": split_launches,
-                             "gRPC (phase 14)": grpc_launches},
+                             "gRPC (phase 14)": grpc_launches,
+                             "platform (phase 15)": platform_flash,
+                             "platform's standalone twins (phase 15)": twins_flash},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -7099,12 +7968,14 @@ def main() -> int:
         "source": "seldon_core_tpu_torch/csrc/int8_matmul.cu",
         # no Pallas kernel: XLA's fusion of quant.dequantize into the matmul
         "replaces": "seldon_core_tpu/models/base.py:137",
-        "launches": int8_launches + learning_int8 + source_int8,
+        "launches": int8_launches + learning_int8 + source_int8 + platform_int8 + twins_int8,
         "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8,
                              "model sources (phase 11)": source_int8,
                              "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"],
                              "split data plane (phase 13)": split_plane["launches"]["int8_matmul"],
-                             "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"]},
+                             "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"],
+                             "platform (phase 15)": platform_int8,
+                             "platform's standalone twins (phase 15)": twins_int8},
         "launches_by_body": int8_by_body,
         "host_us": int8_host["wrapper_us"],
         **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
@@ -7122,6 +7993,7 @@ def main() -> int:
     print(json.dumps({"fleet": {"card": card, **fleet}}), flush=True)
     print(json.dumps({"split_data_plane": {"card": card, **split_plane}}), flush=True)
     print(json.dumps({"grpc": {"card": card, **grpc_plane}}), flush=True)
+    print(json.dumps({"platform": {"card": card, **platform_out}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

@@ -10,8 +10,11 @@ Wire shapes:
 
     {"request": {...}, "response": {...}, "reward": r, "truth": {...}}  (Feedback)
 
-The pure-Python path only; arrays decode to host numpy, and a tensor payload
-on any device is read back to the host when encoded.
+Arrays decode to host numpy, and a tensor payload on any device is read back
+to the host when encoded. ``message_from_json_fast`` and
+``message_to_json_fast`` move the number matrix through the native codec
+(``native/``) on bodies large enough to gain, and fall back to the Python
+path on anything else, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -117,6 +120,44 @@ def message_from_json(text: str | bytes, dtype: Any = DEFAULT_DTYPE) -> SeldonMe
     return message_from_dict(obj, dtype)
 
 
+# Below this body size the C matrix codec loses: the span search, splice
+# and ctypes call cost more than parsing a few dozen numbers in Python.
+_SMALL_BODY_BYTES = 4096
+
+
+def message_from_json_fast(raw: bytes, dtype: Any = DEFAULT_DTYPE) -> SeldonMessage:
+    """Hot-path decode: the ndarray number matrix (the bulk of the body)
+    parses in C (``native/``) and the small envelope in Python json; any
+    deviation falls back to ``message_from_json``, which stays the semantic
+    source of truth. Small bodies skip the C path entirely."""
+    if len(raw) < _SMALL_BODY_BYTES:
+        return message_from_json(raw, dtype)
+    if dtype is DEFAULT_DTYPE:
+        from seldon_core_tpu_torch import native
+
+        span = native.find_ndarray_span(raw)
+        if span is not None:
+            s, e = span
+            array = native.parse_ndarray(raw[s:e])
+            if array is not None:
+                try:
+                    obj = json.loads(raw[:s] + b"null" + raw[e:])
+                except (json.JSONDecodeError, UnicodeDecodeError) as exc:
+                    raise APIException(ErrorCode.ENGINE_INVALID_JSON, str(exc)) from exc
+                data = obj.get("data") if isinstance(obj, Mapping) else None
+                # the spliced null must be this message's data.ndarray (not a
+                # nested request's), and tensor must not sit beside it (the
+                # Python path prefers tensor); otherwise fall back
+                if isinstance(data, Mapping) and data.get("ndarray", "") is None and "tensor" not in data:
+                    msg = message_from_dict({k: v for k, v in obj.items() if k != "data"}, dtype)
+                    return SeldonMessage(
+                        data=DefaultData(names=tuple(data.get("names") or ()), array=array, kind=DataKind.NDARRAY),
+                        meta=msg.meta,
+                        status=msg.status,
+                    )
+    return message_from_json(raw, dtype)
+
+
 def feedback_from_dict(obj: Mapping[str, Any], dtype: Any = DEFAULT_DTYPE) -> Feedback:
     if not isinstance(obj, Mapping):
         raise APIException(ErrorCode.ENGINE_INVALID_JSON, "feedback must be a JSON object")
@@ -176,6 +217,47 @@ def message_to_dict(msg: SeldonMessage) -> dict[str, Any]:
 
 def message_to_json(msg: SeldonMessage) -> str:
     return json.dumps(message_to_dict(msg))
+
+
+_SENTINEL = "\x00NDARRAY\x00"
+
+
+def message_to_json_fast(msg: SeldonMessage) -> bytes:
+    """Hot-path encode: a float32 2D ndarray of more than 256 values
+    serializes in C, the envelope in Python json with a placeholder
+    spliced; anything else goes through ``message_to_json``."""
+    arr = to_host(msg.data.array) if msg.data is not None else None
+    if (
+        arr is not None
+        and msg.data.kind == DataKind.NDARRAY
+        and arr.ndim == 2
+        and arr.size > 256  # small matrices: tolist and dumps beat the C call
+        and arr.dtype == np.float32  # float64 would lose precision in C
+    ):
+        from seldon_core_tpu_torch import native
+
+        body = native.encode_ndarray(arr)
+        if body is not None:
+            obj: dict[str, Any] = {"meta": _encode_meta(msg.meta)}
+            if msg.status is not None:
+                obj["status"] = {
+                    "code": msg.status.code,
+                    "info": msg.status.info,
+                    "reason": msg.status.reason,
+                    "status": msg.status.status.name,
+                }
+            data: dict[str, Any] = {}
+            if msg.data.names:
+                data["names"] = list(msg.data.names)
+            data["ndarray"] = _SENTINEL
+            obj["data"] = data
+            text = json.dumps(obj).encode()
+            # data is inserted last, so its placeholder is the rightmost
+            # occurrence: a client-forged copy of the sentinel in meta tags
+            # or names is never the one spliced
+            head, _, tail = text.rpartition(b'"\\u0000NDARRAY\\u0000"')
+            return head + body + tail
+    return message_to_json(msg).encode()
 
 
 # meta alone, for binary responses that carry it in a header

@@ -191,7 +191,8 @@ class ShadowRouterUnit(Unit):
 class EpsilonGreedyRouter(Unit):
     """Multi-armed bandit router. Parameters: ``epsilon`` (exploration rate,
     default 0.1), ``seed``. Per-arm pull counts and summed rewards live on
-    the host and move only through send_feedback."""
+    the host, move only through send_feedback, and pickle for a
+    ``StatePersister``."""
 
     def __init__(self, spec: PredictiveUnit):
         super().__init__(spec)
@@ -221,6 +222,17 @@ class EpsilonGreedyRouter(Unit):
         with self._lock:
             self.counts[routing] += 1
             self.rewards[routing] += feedback.reward
+
+    # the persistence hooks (persistence/state.py): the arms, the rng and
+    # the parameters pickle; the lock is made anew
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d.pop("_lock", None)
+        return d
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
 
 
 class PrefixAffinityRouterUnit(Unit):

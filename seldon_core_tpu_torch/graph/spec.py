@@ -8,13 +8,15 @@ the ``tpu`` block are kept in ``TpuSpec.extra``, where
 ``graph/validation.py::spec_problems`` refuses by name each one the port
 does not serve, so no knob a deployment sets is silently ignored. A unit's
 resilience knobs (retries, breaker, fallback, quorum) ride its parameters
-and parse into ``ResilienceSpec``.
+and parse into ``ResilienceSpec``. ``DeploymentStatus`` and
+``PredictorStatus`` are the status the operator writes back, and
+``to_json`` dumps any of these as the JAX package's models dump.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Mapping, Optional
 
 
@@ -498,11 +500,32 @@ class ObjectMeta:
 
 
 @dataclass(frozen=True)
+class PredictorStatus:
+    name: str
+    status: str = ""
+    description: str = ""
+    replicas: int = 0
+    replicasAvailable: int = 0
+
+
+@dataclass(frozen=True)
+class DeploymentStatus:
+    state: str = ""
+    description: str = ""
+    predictorStatus: tuple[PredictorStatus, ...] = ()
+
+
+@dataclass(frozen=True)
 class SeldonDeployment:
     apiVersion: str = "machinelearning.seldon.io/v1alpha1"
     kind: str = "SeldonDeployment"
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: DeploymentSpec = field(default_factory=DeploymentSpec)
+
+    def to_dict(self) -> dict:
+        """The CR as JSON, ``None`` fields left out (the JAX package's
+        ``to_dict``)."""
+        return to_json(self, exclude_none=True)
 
     @staticmethod
     def from_dict(obj: Mapping[str, Any]) -> "SeldonDeployment":
@@ -514,6 +537,30 @@ class SeldonDeployment:
             metadata=ObjectMeta.from_dict(obj.get("metadata") or {}),
             spec=DeploymentSpec.from_dict(obj.get("spec") or {}),
         )
+
+
+def to_json(obj: Any, exclude_none: bool = False) -> Any:
+    """A spec object as the JSON the JAX package's pydantic models dump
+    (``model_dump(mode="json")``): enums by value, tuples as lists, every
+    field with its default. ``TpuSpec.extra`` is not a field there: its
+    ``decode_mesh_axes`` is (default ``{}``), and its other keys, which the
+    JAX package drops, are kept beside the fields, so two CRs that differ
+    only in a key the port refuses never dump the same."""
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, TpuSpec):
+        out = {f.name: to_json(getattr(obj, f.name), exclude_none) for f in fields(obj) if f.name != "extra"}
+        out["decode_mesh_axes"] = {str(k): int(v) for k, v in (obj.extra.get("decode_mesh_axes") or {}).items()}
+        out.update({k: v for k, v in obj.extra.items() if k != "decode_mesh_axes"})
+        return out
+    if is_dataclass(obj):
+        out = {f.name: to_json(getattr(obj, f.name), exclude_none) for f in fields(obj)}
+        return {k: v for k, v in out.items() if v is not None} if exclude_none else out
+    if isinstance(obj, Mapping):
+        return {str(k): to_json(v, exclude_none) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return [to_json(v, exclude_none) for v in obj]
+    return obj
 
 
 # Methods implied by each unit type (reference PredictorConfigBean).

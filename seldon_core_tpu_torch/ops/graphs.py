@@ -18,7 +18,9 @@ A replay credits those launches back to the kernels' counters
 ``LAUNCHES_BY_BODY``), so the counters read the same whether a path runs
 captured or eager; a capture itself launches nothing and counts nothing.
 
-The entries of one cache share one graph memory pool and one capture stream,
+The entries of one cache share one graph memory pool and one capture stream
+(streams of collected caches are reused, so cuBLAS's per-stream workspaces
+do not grow with every cache ever made),
 and replay on the caller's current stream, one after another. A lock per
 entry serialises copy-in, replay and copy-out: two threads that run one key
 at once would otherwise write the same static buffers. ``GraphEntry.run``
@@ -42,6 +44,7 @@ import collections
 import gc
 import time
 import threading
+import weakref
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -63,16 +66,45 @@ def _structure_clone(out: Any) -> Any:
     return type(out)(_structure_clone(o) for o in out)
 
 
+# capture streams that collected caches left, per device, for new caches
+_FREE_STREAMS: dict[torch.device, list] = {}
+# reentrant: a collection inside the locked section may run a finalizer
+_FREE_STREAMS_LOCK = threading.RLock()
+
+
+def _capture_stream(device: torch.device):
+    """A capture stream for a new cache: one that a collected cache left,
+    else a new one. cuBLAS keeps a workspace (32 MiB on the H100) for each
+    (handle, stream) it has run on, for the life of the process, and the
+    capture bakes it into the graph: a new stream for every cache ever made
+    would grow the card's memory with every deployment applied and deleted,
+    where reuse bounds it by the caches alive at once (a live cache's
+    stream, and so its workspace, stays its own)."""
+    with _FREE_STREAMS_LOCK:
+        free = _FREE_STREAMS.get(device)
+        if free:
+            return free.pop()
+    return torch.cuda.Stream(device)
+
+
+def _release_stream(device: torch.device, stream) -> None:
+    with _FREE_STREAMS_LOCK:
+        _FREE_STREAMS.setdefault(device, []).append(stream)
+
+
 class GraphCache:
     """Dispatch key -> ``GraphEntry`` for one runtime or scheduler: one graph
-    memory pool, one capture stream, and the count of entries per program
-    (``key[0]``), the port's form of ``jax.jit``'s cache sizes."""
+    memory pool, one capture stream (handed to a later cache once this one
+    is collected), and the count of entries per program (``key[0]``), the
+    port's form of ``jax.jit``'s cache sizes."""
 
     def __init__(self, device: torch.device, *, capture: bool = True):
         self.device = torch.device(device)
         self.capture = bool(capture) and self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.capture else None
-        self.stream = torch.cuda.Stream(self.device) if self.capture else None
+        self.stream = _capture_stream(self.device) if self.capture else None
+        if self.capture:
+            weakref.finalize(self, _release_stream, self.device, self.stream)
         self._entries: dict[tuple, GraphEntry] = {}
         self._lock = threading.Lock()  # one entry built (and captured) at a time
         self.stat_captures = 0

@@ -128,14 +128,17 @@ class StatePersister:
         mro = [c for c in type(unit).__mro__ if c is not object]
         return any("__getstate__" in c.__dict__ for c in mro) and any("__setstate__" in c.__dict__ for c in mro)
 
-    def attach(self, units: Iterable[Any]) -> int:
+    def attach(self, units: Iterable[Any], prefix: str = "") -> int:
         """Register stateful units and restore any saved state; returns the
-        number restored."""
+        number restored. ``prefix`` (a predictor's name) namespaces the unit
+        ids, so same-named units of two predictors never share a key."""
         restored = 0
         for unit in units:
             if not self.is_stateful(unit):
                 continue
             name = getattr(unit, "name", None) or type(unit).__name__
+            if prefix:
+                name = f"{prefix}.{name}"
             self._units[name] = unit
             payload = self.store.load(state_key(self.deployment_id, name))
             if payload is not None:

@@ -106,6 +106,9 @@ class MicroBatcher:
         self._flush_timers: dict[tuple, asyncio.TimerHandle] = {}
         self._inflight: set[asyncio.Task] = set()
         self._closed = False
+        # the loop the batcher serves on, recorded at the first submit, so a
+        # thread off that loop can close it (close_nowait)
+        self._loop: asyncio.AbstractEventLoop | None = None
         # what the batcher achieved: batches run and the rows in them
         self.stat_batches = 0
         self.stat_rows = 0
@@ -114,6 +117,8 @@ class MicroBatcher:
         """Submit one request; resolves with its own rows of the result."""
         if self._closed:
             raise APIException(ErrorCode.ENGINE_MICROSERVICE_ERROR, "batcher closed")
+        if self._loop is None:
+            self._loop = asyncio.get_running_loop()
         arr = msg.array
         if arr is None:
             return await self._execute(msg)
@@ -227,3 +232,26 @@ class MicroBatcher:
         # callback has not run yet would spin this loop forever
         while pending := [t for t in self._inflight if not t.done()]:
             await asyncio.gather(*pending, return_exceptions=True)
+
+    def close_nowait(self, then: Callable[[], None] | None = None) -> None:
+        """Shutdown callable from any thread (the reconciler drains a
+        replaced or deleted deployment from a worker thread): the flag and
+        the drain are both scheduled on the batcher's loop, so a request
+        that found this batcher before the swap submits within the same
+        loop step it looked it up in and is drained, never refused.
+        ``then`` runs once the drain has ended (at once when the batcher
+        never served)."""
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            self._closed = True
+            if then is not None:
+                then()
+            return
+
+        def _drain() -> None:
+            self._closed = True
+            task = asyncio.ensure_future(self.close())
+            if then is not None:
+                task.add_done_callback(lambda _: then())
+
+        loop.call_soon_threadsafe(_drain)

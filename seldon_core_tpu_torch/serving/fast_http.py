@@ -1,8 +1,11 @@
 """Data-plane HTTP/1.1 ingress: a purpose-built asyncio.Protocol server.
 
-Port of ``seldon_core_tpu/serving/fast_http.py`` on its pure-Python head
-parser (``parse_head_py``; the JAX package's C parser is not carried over).
-It serves exactly what the data plane needs: requests framed by
+Port of ``seldon_core_tpu/serving/fast_http.py``. A request head is parsed
+in one C pass (``native.parse_http_head``) and put under the framing policy
+by ``head_from_c``; where the native library is missing, or declines a head
+whose captured values may be cut, the pure-Python ``parse_head_py`` parses
+it, and stays the semantic source both must agree with. It serves exactly
+what the data plane needs: requests framed by
 Content-Length, keep-alive, a small exact-path route table (a route ending
 in ``/*`` takes one more path segment), and chunked responses for the
 generative tier's per-token SSE route. No chunked request bodies (411
@@ -18,10 +21,14 @@ replicated decode fleet's ``GET /decode/fleet`` and ``POST
 API (``/predict``, ``/route``, ``/send-feedback``, ``/transform-input``,
 ``/transform-output``, ``/aggregate``), so every served graph can be a
 remote engine's unit. ``gateway_routes`` is the OAuth gateway's table,
-gRPC-Web's unary routes and their CORS preflight included. The JAX
-package's ``_header_from_head`` (an extra-header scan for its C head
-parser) has no counterpart: the pure-Python parser keeps every header, so
-gRPC-Web's ``oauth_token`` reaches ``req.headers`` as it is.
+gRPC-Web's unary routes and their CORS preflight included.
+
+The C parser captures only ``Content-Type`` and ``Authorization``; the
+other headers a handler reads (gRPC-Web's ``oauth_token``, ``traceparent``,
+``Accept`` and, when the C parser saw ``Connection: close``, the last
+``Connection``) are read from the head it validated by ``_header_from_head``
+(the JAX package's scan, the last duplicate winning as in the Python
+parser), so both paths hand a handler the same values.
 """
 
 from __future__ import annotations
@@ -126,6 +133,73 @@ def parse_head_py(raw: bytes) -> "PyHead | int | tuple[int, bytes]":
     return PyHead(method, path, headers, clen, head_end + 4)
 
 
+# the headers a handler reads besides the two the C parser captures
+_SCANNED_HEADERS = (b"oauth_token", b"traceparent", b"accept")
+
+
+def _header_from_head(head: bytes, name: bytes) -> str | None:
+    """One header's value from a head the C parser has validated (CRLF
+    lines, token field-names, no obs-fold): the last duplicate wins, as in
+    the Python parser's dict and the C parser's captured headers."""
+    target = name + b":"
+    found: str | None = None
+    for line in head.split(b"\r\n")[1:]:
+        if line[: len(target)].lower() == target:
+            found = line[len(target):].strip(b" \t").decode("latin-1")
+    return found
+
+
+def head_from_c(parsed, raw: bytes) -> "PyHead | int | tuple[int, bytes]":
+    """``native.parse_http_head(raw)``'s result (not None) under
+    ``parse_head_py``'s framing policy, with its return contract: a PyHead,
+    0 (incomplete) or ``(status, message)``. Any Transfer-Encoding is
+    refused, even beside a Content-Length (never frame a TE request by CL)."""
+    from seldon_core_tpu_torch import native
+
+    if parsed == 0:
+        return (400, b"header too large") if len(raw) > _MAX_HEADER else 0
+    if parsed == -1:
+        return (400, b"bad request")
+    flags = parsed.flags
+    if flags & native.HDRF_HAS_TE:
+        return (400, b"Transfer-Encoding not supported")
+    if flags & native.HDRF_HAS_CLEN:
+        clen = parsed.content_length
+    elif parsed.method in ("GET", "HEAD", "DELETE", "OPTIONS"):
+        clen = 0
+    else:
+        return (411, b"Content-Length required")
+    if clen > _MAX_BODY:
+        return (413, b"body too large")
+    headers: dict[str, str] = {}
+    if parsed.content_type is not None:
+        headers["content-type"] = parsed.content_type
+    if parsed.authorization is not None:
+        headers["authorization"] = parsed.authorization
+    head = raw[: parsed.body_start - 2]
+    low = head.lower()
+    names = _SCANNED_HEADERS + ((b"connection",) if flags & native.HDRF_CONN_CLOSE else ())
+    for name in names:
+        # one find in the lowered head first: a request without the header
+        # is not split into lines
+        if b"\r\n" + name + b":" in low:
+            value = _header_from_head(head, name)
+            if value is not None:
+                headers[name.decode()] = value
+    return PyHead(parsed.method, parsed.path, headers, clen, parsed.body_start)
+
+
+def parse_head(raw: bytes) -> "PyHead | int | tuple[int, bytes]":
+    """The C parse under the framing policy, or ``parse_head_py`` where the
+    native library is missing or declines the head."""
+    from seldon_core_tpu_torch import native
+
+    parsed = native.parse_http_head(raw)
+    if parsed is None:
+        return parse_head_py(raw)
+    return head_from_c(parsed, raw)
+
+
 def _route(routes: Mapping[tuple[str, str], Handler], method: str, path: str) -> Handler | None:
     """The exact route, else the ``/*`` route of the path's parent."""
     handler = routes.get((method, path))
@@ -163,7 +237,7 @@ class HttpProtocol(asyncio.Protocol):
         if self._pending_head is None:
             # only the head region is copied: copying the whole buffer per
             # TCP chunk would make large uploads O(n^2)
-            parsed = parse_head_py(bytes(self._buf[: _MAX_HEADER + 4]))
+            parsed = parse_head(bytes(self._buf[: _MAX_HEADER + 4]))
             if parsed == 0:
                 return
             if isinstance(parsed, tuple):

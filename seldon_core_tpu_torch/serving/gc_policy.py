@@ -28,10 +28,21 @@ import logging
 
 log = logging.getLogger(__name__)
 
+_applied = False
+
+
+def policy_applied() -> bool:
+    """Whether the policy has been applied in this process: the state that
+    the platform's release of a dropped deployment (``operator/
+    reconciler.py::_Release``), which has to thaw the heap, restores."""
+    return _applied
+
 
 def apply_serving_gc_policy() -> int:
     """Collect warmup garbage, then freeze survivors out of gen-2 scans.
     Returns the number of objects now frozen. Idempotent."""
+    global _applied
+    _applied = True
     gc.collect()
     gc.freeze()
     frozen = gc.get_freeze_count()

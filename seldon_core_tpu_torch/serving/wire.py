@@ -20,7 +20,10 @@ the OAuth gateway's handlers (``gateway_predictions``,
 Every failure leaves as the reference's status-JSON body with the error
 code's HTTP status, never as an HTML 500, and is counted in
 ``seldon_api_ingress_server_errors``. A request's W3C ``traceparent``
-header reaches the service, whose trace continues it.
+header reaches the service, whose trace continues it. JSON bodies decode
+through ``message_from_json_fast`` and answers encode through
+``message_to_json_fast`` where the JAX package's handlers call them (the
+native codec on large number matrices).
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ import numpy as np
 from seldon_core_tpu_torch.core.codec_json import (
     feedback_from_dict,
     message_from_dict,
-    message_from_json,
-    message_to_json,
+    message_from_json_fast,
+    message_to_json_fast,
     meta_to_dict,
 )
 from seldon_core_tpu_torch.core.codec_npy import is_npy
@@ -192,7 +195,7 @@ def _message(req: WireRequest) -> SeldonMessage:
     body."""
     if req.content_type in FORM_CONTENT_TYPES:
         return message_from_dict(payload_obj(req, ErrorCode.ENGINE_INVALID_JSON))
-    return message_from_json(req.body)
+    return message_from_json_fast(req.body)
 
 
 def npy_wire_response(out: SeldonMessage) -> WireResponse:
@@ -216,9 +219,9 @@ async def engine_predictions(service, req: WireRequest) -> WireResponse:
             out = await service.predict(SeldonMessage(bin_data=req.body), wire_npy=kind == "npy", traceparent=tp)
             if kind == "npy" and is_npy(out.bin_data):
                 return npy_wire_response(out)
-            return WireResponse(body=message_to_json(out).encode())
+            return WireResponse(body=message_to_json_fast(out))
         out = await service.predict(_message(req), traceparent=tp)
-        return WireResponse(body=message_to_json(out).encode())
+        return WireResponse(body=message_to_json_fast(out))
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(e, "predict", service)
 
@@ -229,7 +232,7 @@ async def engine_feedback(service, req: WireRequest) -> WireResponse:
     try:
         obj = payload_obj(req, ErrorCode.ENGINE_INVALID_JSON)
         out = await service.send_feedback(feedback_from_dict(obj), traceparent=req.headers.get("traceparent"))
-        return WireResponse(body=message_to_json(out).encode())
+        return WireResponse(body=message_to_json_fast(out))
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(e, "feedback", service)
 
@@ -255,7 +258,7 @@ async def engine_unit_method(service, req: WireRequest, method: str) -> WireResp
         if method == "send-feedback":
             fb = feedback_from_dict(payload_obj(req, ErrorCode.ENGINE_INVALID_JSON))
             out = await service.send_feedback(fb, traceparent=req.headers.get("traceparent"))
-            return WireResponse(body=message_to_json(out).encode())
+            return WireResponse(body=message_to_json_fast(out))
         unit = service.executor.root.unit
         with service.tracer.request_trace(
             f"ingress:{method}",
@@ -272,7 +275,7 @@ async def engine_unit_method(service, req: WireRequest, method: str) -> WireResp
                 out = SeldonMessage.from_array(np.asarray([[branch]], dtype=np.float32))
             else:  # aggregate: the route table registers only INTERNAL_API_METHODS
                 out = await unit.aggregate([message_from_dict(m) for m in obj.get("seldonMessages", [])])
-        return WireResponse(body=message_to_json(out).encode())
+        return WireResponse(body=message_to_json_fast(out))
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(e, method, service)
 
@@ -296,7 +299,7 @@ async def gateway_predictions(gw, req: WireRequest) -> WireResponse:
         if kind != "json":
             msg = SeldonMessage(bin_data=req.body)
         elif ctype in ("application/json", ""):
-            msg = message_from_json(req.body)
+            msg = message_from_json_fast(req.body)
         else:
             msg = message_from_dict(payload_obj(req, ErrorCode.APIFE_INVALID_JSON))
         out = await gw.backend.predict(dep, msg, wire_npy=kind == "npy", traceparent=req.headers.get("traceparent"))
@@ -309,7 +312,7 @@ async def gateway_predictions(gw, req: WireRequest) -> WireResponse:
             out = mirror_npy_kind(out)
             if is_npy(out.bin_data):
                 return npy_wire_response(out)
-        return WireResponse(body=message_to_json(out).encode())
+        return WireResponse(body=message_to_json_fast(out))
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(
             e, "gateway predict", fallback_code=ErrorCode.APIFE_MICROSERVICE_ERROR,
@@ -328,7 +331,7 @@ async def gateway_feedback(gw, req: WireRequest) -> WireResponse:
         if gw.metrics is not None:
             gw.metrics.ingress_request(dep.name, "feedback", time.perf_counter() - start)
             gw.metrics.feedback(dep.name, "", "", fb.reward)
-        return WireResponse(body=message_to_json(out).encode())
+        return WireResponse(body=message_to_json_fast(out))
     except Exception as e:  # noqa: BLE001 - wire boundary
         return failure_response(
             e, "gateway feedback", fallback_code=ErrorCode.APIFE_MICROSERVICE_ERROR,

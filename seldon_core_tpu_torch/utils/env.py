@@ -14,7 +14,8 @@ and ``telemetry/profile.py``; the Redis store's socket budget
 (``persistence/state.py``); the store a decode fleet spills prefix pages
 through and its warm-boot kill switch (``serving/affinity_router.py``);
 the predictor server's gRPC port and graceful-drain window
-(``serving/server.py``).
+(``serving/server.py``); the operator's PYTHON_CLASS opt-in and Kubernetes
+API address, and ``encode_b64_json`` for its manifests (``operator/``).
 """
 
 from __future__ import annotations
@@ -72,6 +73,19 @@ PERSISTENCE_STORE = "PERSISTENCE_STORE"
 # "off": no warm pre-seeding of a scaled-up replica and no sibling prefix
 # pull between replicas (default on)
 ENGINE_DECODE_REPLICA_PRESEED = "ENGINE_DECODE_REPLICA_PRESEED"
+# the platform's operator: "1" lets CRs mount PYTHON_CLASS units in-process
+# (default off), and the Kubernetes API a watcher outside a cluster speaks
+# to (e.g. http://127.0.0.1:8001 from kubectl proxy)
+SELDON_TPU_ALLOW_PYTHON_CLASS = "SELDON_TPU_ALLOW_PYTHON_CLASS"
+SELDON_TPU_K8S_API = "SELDON_TPU_K8S_API"
+
+
+def encode_b64_json(obj) -> str:
+    """JSON, base64-encoded: how a predictor rides ENGINE_PREDICTOR."""
+    import base64
+    import json
+
+    return base64.b64encode(json.dumps(obj).encode()).decode("ascii")
 
 
 def rest_timeouts(env: dict | None = None) -> tuple[float, float]:
