@@ -323,6 +323,37 @@ Phases, each of which raises on failure (no phase catches its own):
    graph cache reachable, a delete that leaves the version frozen, a
    C-parsed head keeping the first of two ``Accept`` headers. The kernels
    line credits the platform's launches apart from its standalone twins'.
+16. the tools (``serve_soak``, ``soak_legs``, ``serve_bundles``,
+   ``lint_on_host``). 16a the spec ``tools/soak.py`` builds for
+   ``--model 'bert_base?seq=512&attn_kernel=pallas'`` (BERT-base at full
+   width, float32, TF32 off) on a standalone server: a 4-row answer, 12
+   flash launches (the float32 body), held against blockwise attention
+   and the kernel's plain version within ``F32_SERVE_ATOL``, three wrong
+   attentions outside it; then ``soak()`` itself through the port's
+   gateway stack in this process, 16 users x 4 rows for 20 s, with
+   ``memory_allocated()`` sampled every 0.5 s after the soak's server
+   warmed up: 0 errors, flash launches a positive multiple of 12, the
+   soak's RSS slope net of the load generator and the device slope under
+   their bounds; one shorter soak with a unit keeping a card-side clone of
+   each batch's input and a path keeping each request body on the host
+   must pass both bounds. 16a runs in a process of its own
+   (``chip_smoke.py --soak``), fresh as the soak CLI's, since this
+   script's heap after the earlier phases absorbs a host leak unseen.
+   16b the soak CLI as processes with the
+   ``Makefile``'s ``chaos-smoke`` and ``kvtier-smoke`` arguments (run
+   together): 0 errors, an eviction and a recovery, demotions and
+   promotions, 0 keys after warmup; ``--tp 2`` exits non-zero naming
+   ``decode_mesh_axes``. 16c the install bundle's platform command
+   (``build_bundle()``, no YAML) as a process, its three ports swapped
+   for free ones and ``--watch-k8s`` for ``--watch-dir``: the rendered
+   readiness probe and Prometheus scrape answer 200, and an ``iris`` CR
+   applied through the admin port answers bit for bit what an in-process
+   server of the same file answers. 16d ``torch_mnist_cnn`` wrapped by
+   ``tools/wrap.py``, the rendered Dockerfile's CMD run from the bundle
+   (at once with 16c), driven by ``tools/contract.py``, bit for bit the
+   class in-process. 16e ``python -m seldon_core_tpu_torch.tools.lint``
+   exits 0. Then phase 2's check and timing of the flash kernel at the
+   float32 shape the soak served, at each bucket its batches reached.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -1764,15 +1795,16 @@ def _spec_prompts(sched, vocab: int, seed: int = 9):
     return prompts, budgets
 
 
-async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
+async def serve_speculative(card, path: Path, check_only: bool = False, twice: bool = True) -> dict:
     """Phase 6, one deployment: SPEC_REQUESTS staggered requests (mixed
     budgets, one opted out) through REST, on the speculative server and on
-    a copy with speculation off, in turns (spec, plain, plain, spec); every
+    a copy with speculation off, in turns (spec, plain, spec); every
     greedy row held to the plain scheduler's and to the fused generate's
     under the tie rule; one SSE stream against its buffered reply; no new
     dispatch key on either server; then the round's breakdown. Returns the
-    numbers printed. ``check_only`` serves one spec and one plain run and
-    skips the timings (the float32 copies)."""
+    numbers printed. ``check_only`` skips the timings and the breakdown
+    (the tree and float32 copies); ``twice`` False serves one spec run, not
+    two, so the repeat-run determinism check is skipped (the float32 copy)."""
     import numpy as np
 
     spec_srv, build_s, warmup_s = await _start(path)
@@ -1789,7 +1821,9 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
     label = f"{path.stem} ({dtype_name})"
     seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
     prompts, budgets = _spec_prompts(sched, vocab)
-    order = ("spec", "plain") if check_only else ("spec", "plain", "plain", "spec")
+    # the second spec run holds the determinism check; one plain run keeps
+    # the script's time
+    order = ("spec", "plain", "spec") if twice else ("spec", "plain")
     runs = {"spec": [], "plain": []}
     try:
         for kind in order:
@@ -1831,7 +1865,10 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
                                         dtype_name)}
     tokens = [e["token"] for e in events if "token" in e]
     if tokens != buffered[seq:].tolist() or events[-1].get("ids") != [buffered.tolist()]:
-        raise AssertionError(f"{label}: the SSE stream's tokens differ from the buffered reply")
+        tail = buffered[seq:].tolist()
+        first = next((i for i, (a, b) in enumerate(zip(tokens, tail)) if a != b), min(len(tokens), len(tail)))
+        raise AssertionError(f"{label}: the SSE stream's tokens differ from the buffered reply from token "
+                             f"{first}: streamed {tokens}, buffered {tail}")
     if recompiles != (0, 0, 0):
         raise AssertionError(f"{label}: new keys after warmup (spec, plain, eager twin): {recompiles}")
     st = runs["spec"][0][2]
@@ -1860,7 +1897,7 @@ async def serve_speculative(card, path: Path, check_only: bool = False) -> dict:
     return result
 
 
-def spec_breakdown(card, sched, twin, plain, reps: int = 10) -> dict:
+def spec_breakdown(card, sched, twin, plain, reps: int = 5) -> dict:
     """One speculative round pair with every slot generating at its full
     limits (all-zero block tables: every pool write lands in junk page 0),
     captured and on the eager twin: host wall (the round ends in its
@@ -2140,14 +2177,17 @@ async def serve_speculation(card) -> dict:
     per-deployment numbers."""
     results = {}
     for name in ("tiny_gpt_speculative", "tiny_gpt_tree_speculation", "gpt2_small_speculative"):
+        t0 = time.perf_counter()
         results[name] = await serve_speculative(card, BASELINE_DIR / f"{name}.json")
+        print(f"[{card}] phase 6 {name} seconds: {time.perf_counter() - t0:.3f}", flush=True)
     tree_copy = _deployment_copy("gpt2_small_speculative", {"decode_spec_tree": "2,2,1,1"})
-    results["gpt2_small_speculative_tree"] = await serve_speculative(card, tree_copy)
+    # the tree copies: ids held, twice, with no timings (the script's time)
+    results["gpt2_small_speculative_tree"] = await serve_speculative(card, tree_copy, check_only=True)
     # the GPT-2-small chain in float32 (TF32 off): ids held at the float32
     # margin, at 4 of its 12 layers (the id check holds at any depth and
     # this copy prints no timing), to keep the script's time
     f32 = _deployment_copy("gpt2_small_speculative", {"dtype": "float32"}, {"layers": "4"})
-    results["gpt2_small_speculative_f32"] = await serve_speculative(card, f32, check_only=True)
+    results["gpt2_small_speculative_f32"] = await serve_speculative(card, f32, check_only=True, twice=False)
     gpt2 = results["gpt2_small_speculative"]
     if gpt2["mean_accepted_per_round"] < SPEC_MIN_ACCEPTED:
         raise AssertionError(f"the GPT-2-small chain accepted {gpt2['mean_accepted_per_round']} draft tokens per "
@@ -2161,7 +2201,7 @@ async def serve_speculation(card) -> dict:
     # second wave waits longer for a slot than the 2 s default queue timeout
     ftree = _deployment_copy("gpt2_small_feature_draft", {"decode_spec_tree": "2,2,1,1",
                                                           "decode_spec_accept_floor": 0.0, "queue_timeout_ms": 30000.0})
-    results["gpt2_small_feature_draft_tree"] = await serve_speculative(card, ftree)
+    results["gpt2_small_feature_draft_tree"] = await serve_speculative(card, ftree, check_only=True)
     results["feature_faults"] = await feature_faults(card)
     return results
 
@@ -2571,7 +2611,7 @@ async def serve_resilience(card) -> dict:
 # The same kernels run with the same launch configurations either way, so
 # the twins must agree bit for bit, and the launch counters (credited per
 # replay on the captured side) must read the same.
-LOAD_SECONDS = 1.0  # per load point (cut from 1.5 to keep the script's time)
+LOAD_SECONDS = 0.5  # per load point (cut from 1.5, then 1.0, to keep the script's time)
 LOAD_USERS = (8, 16, 32)  # the saturating point: the first whose successor rises <= 10%
 LOAD_RISE = 1.10
 LOAD_WORKERS = 2  # client processes of a multi-user point
@@ -4184,7 +4224,10 @@ async def serve_learning(card) -> dict:
         ck = str(Path(tmp) / "gpt2_small_head.npz")
         out["distill"] = distill_feature_head(card, ck)
         uri = f"zoo://draft?features=1&hidden={DISTILL['hidden']}&ffn={DISTILL['ffn']}&distilled={ck}"
-        path = _deployment_copy("gpt2_small_feature_draft", {"decode_draft_model": uri})
+        # every round a plain step_f below the floor: the eager twin's
+        # second wave waits longer for a slot than the 2 s default queue
+        # timeout on a slower host (as phase 6's tree copy does)
+        path = _deployment_copy("gpt2_small_feature_draft", {"decode_draft_model": uri, "queue_timeout_ms": 30000.0})
         served = await serve_speculative(card, path)
     if served["accept_rate"] <= 0:
         raise AssertionError("the distilled feature head accepted no draft token")
@@ -5423,13 +5466,13 @@ def _remote_copy(ports: list, label: str, arm_params: tuple = (), etype: str = "
     return path
 
 
-async def _spawn(args: list, label: str, env: dict | None = None):
+async def _spawn(args: list, label: str, env: dict | None = None, cwd: Path = ROOT):
     """A child process of this Python (its own CUDA context on the card),
     returned once it prints its "serving ..." line, with the REST port of
     that line (None when it serves none); the gRPC port, if it names one,
     is the process's ``grpc_port``."""
     proc = await asyncio.create_subprocess_exec(sys.executable, "-m", *args, stdout=asyncio.subprocess.PIPE,
-                                                stderr=asyncio.subprocess.STDOUT, cwd=str(ROOT),
+                                                stderr=asyncio.subprocess.STDOUT, cwd=str(cwd),
                                                 env=None if env is None else {**os.environ, **env})
     lines = []
 
@@ -7672,6 +7715,507 @@ async def serve_platform(card) -> dict:
             "standalone_launches": standalone}
 
 
+# ---------------------------------------------------------------- phase 16
+TOOLS_DIR = ROOT / "build" / "tools"  # git-ignored: the wrap bundle and the platform's watched directory, per run
+SOAK_MODEL = "bert_base?seq=512&attn_kernel=pallas"  # the soak's --model: BERT-base at full width, float32
+SOAK_FEATURES = 512
+SOAK_BATCH = 4  # rows per request
+SOAK_USERS = 16
+SOAK_SECONDS = 20.0  # the clean soak's load window
+# the soak with the two planted leaks, after the clean one in the same
+# process: the heap's free pool the clean soak leaves takes the first ~15 MB
+# of kept bodies (6 s read +20.3 MB/min of RSS on the H100, PERF.md), so
+# the host plant keeps SOAK_HOST_PLANT_COPIES copies of each body: about
+# 8x a pool that size over the window
+SOAK_LEAK_SECONDS = 12.0
+SOAK_HOST_PLANT_COPIES = 8
+SOAK_SAMPLE_S = 0.5  # memory_allocated() sampling interval over the load window
+SOAK_ANSWER_ROWS = 4
+# The soak's spec served standalone, float32 probabilities against the same
+# weights with blockwise attention and with the kernel's plain version in
+# its place (TF32 off): float32 sums in another order through 12 layers.
+# A wrong attention (uniform, a 5% normaliser error, one dropped KV tile)
+# moved phase 3's bf16 answers by 0.026 to 0.040; each must land outside.
+F32_SERVE_ATOL = 1e-3
+# Slope bounds (MB per minute, least squares): the soak's RSS slope net of
+# the load generator's own growth, and memory_allocated() over the load
+# window after warmup, on the clean soak, and with both leaks planted (a
+# card-side clone of each batch's input, each request body kept on the
+# host), each of which must pass its bound. H100 readings: PERF.md.
+SOAK_RSS_SLOPE_MB_PER_MIN = 30.0
+SOAK_DEVICE_SLOPE_MB_PER_MIN = 8.0
+# 16b: the Makefile's chaos-smoke and kvtier-smoke arguments
+SOAK_CHAOS_ARGS = ["--duration", "6", "--users", "4", "--replicas", "2", "--kill-replica", "0@2"]
+SOAK_KV_ARGS = ["--duration", "3", "--users", "4", "--kv-overflow"]
+WRAP_ROUNDS = 3
+
+
+def _slope_mb_per_min(samples: list) -> float:
+    """Least-squares slope of (seconds, bytes) samples in MB per minute."""
+    if len(samples) < 2:
+        return 0.0
+    t0 = samples[0][0]
+    xs = [(t - t0) / 60.0 for t, _ in samples]
+    ys = [b / 1e6 for _, b in samples]
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    denom = sum((x - mx) ** 2 for x in xs)
+    return sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / denom if denom > 0 else 0.0
+
+
+async def soak_answer(card) -> dict:
+    """16a, first: the spec ``soak()`` builds for SOAK_MODEL (float32, no
+    ``tpu`` block) on a standalone PredictorServer: one request of
+    SOAK_ANSWER_ROWS rows, 12 flash launches, its probabilities against the
+    same weights with blockwise attention and with the kernel's plain
+    version within F32_SERVE_ATOL, three wrong attentions outside it."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.bert import apply_for_kernel, make_apply_bert
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.serving.server import PredictorServer
+    from seldon_core_tpu_torch.tools.soak import soak_predictor
+
+    predictor, _, _, generative = soak_predictor(model=SOAK_MODEL, features=SOAK_FEATURES)
+    if generative or predictor.tpu.dtype != "float32":
+        raise AssertionError(f"16a: the soak's spec for {SOAK_MODEL} is not a float32 classifier: {predictor.tpu}")
+    server = PredictorServer(predictor, deployment_name="soak", device=DEVICE)
+    server.warmup()
+    runtime = _model_runtime(server)
+    layers = len(runtime.params["layers"])
+    ids = np.random.default_rng(16).integers(0, _vocab(runtime), size=(SOAK_ANSWER_ROWS, SOAK_FEATURES))
+    await server.start("127.0.0.1", 0)
+    try:
+        before = LAUNCHES.count
+        status, out, ms = await _post(server.port, json.dumps({"data": {"ndarray": ids.tolist()}}).encode())
+        delta = LAUNCHES.count - before
+    finally:
+        await _stop_standalone(server)
+    if status != 200:
+        raise AssertionError(f"16a soak spec: HTTP {status} {out}")
+    probs = _check_probs(out, SOAK_ANSWER_ROWS)
+    require_launches("16a soak spec flash_attention", [delta], layers)
+    applies = {"blockwise": apply_for_kernel("blockwise"), "plain_version": make_apply_bert(plain_attention)}
+    controls = {name: make_apply_bert(fn) for name, fn in wrong_attentions().items()}
+    with torch.inference_mode():
+        x = torch.from_numpy(ids.astype(np.int32)).to(runtime.device)
+        got = {name: apply(runtime.params, x).float().cpu().numpy() for name, apply in {**applies, **controls}.items()}
+    worst = {name: float(np.abs(probs - g).max()) for name, g in got.items()}
+    row = {"dtype": str(runtime.dtype).removeprefix("torch."), "layers": layers, "buckets": list(runtime.buckets),
+           "latency_ms": round(ms, 3), "launches": delta, "max_abs_diff": worst, "atol": F32_SERVE_ATOL}
+    print(f"[{card}] 16a soak spec {SOAK_MODEL} standalone: {json.dumps(row)}", flush=True)
+    if max(worst["blockwise"], worst["plain_version"]) > F32_SERVE_ATOL:
+        raise AssertionError(f"16a: float32 answers disagree with the same weights run another way: {worst}")
+    for name in controls:
+        if worst[name] <= F32_SERVE_ATOL:
+            raise AssertionError(f"16a: the answer check cannot see a wrong attention ({name}: {worst[name]})")
+    del runtime, server, x
+    return row
+
+
+async def soak_on_card(card, seconds: float, plant: bool = False) -> dict:
+    """16a: ``soak()`` of SOAK_MODEL through the port's gateway stack on the
+    card, in this process, with memory_allocated() sampled every
+    SOAK_SAMPLE_S over the load window (samples before the soak's server
+    finished its warmup are dropped), its flash launches counted from then
+    on, and the batch buckets the load reached. ``plant``: a unit that
+    keeps a card-side clone of each batch's input, and a path that keeps
+    SOAK_HOST_PLANT_COPIES copies of each request body on the host."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.base import bucket_for
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.serving import fast_http
+    from seldon_core_tpu_torch.tools import soak as soak_mod
+    from seldon_core_tpu_torch.tools import stack
+
+    ready: dict = {}
+    buckets: collections.Counter = collections.Counter()
+    kept_device, kept_host = [], []
+    build, routes = stack.build_gateway_stack, fast_http.gateway_routes
+
+    def build_counted(*args, **kwargs):
+        out = build(*args, **kwargs)
+        runtime = _model_runtime(out[0])
+        inner = runtime.predict_device
+
+        def predict_device(x):
+            buckets[bucket_for(len(x), runtime.buckets)] += 1
+            if plant:
+                kept_device.append(torch.from_numpy(np.asarray(x, np.int32)).to(runtime.device))
+            return inner(x)
+
+        runtime.predict_device = predict_device
+        torch.cuda.synchronize()
+        ready.update(t=time.perf_counter(), launches=LAUNCHES.count)
+        return out
+
+    def routes_kept(gw):
+        table = routes(gw)
+        if plant:
+            handler = table[("POST", "/api/v0.1/predictions")]
+
+            async def keep(req):
+                kept_host.append(bytes(req.body) * SOAK_HOST_PLANT_COPIES)
+                return await handler(req)
+
+            table[("POST", "/api/v0.1/predictions")] = keep
+        return table
+
+    samples: list = []
+    stop = asyncio.Event()
+
+    async def sampler():
+        while not stop.is_set():
+            samples.append((time.perf_counter(), torch.cuda.memory_allocated()))
+            with contextlib.suppress(asyncio.TimeoutError):
+                await asyncio.wait_for(stop.wait(), SOAK_SAMPLE_S)
+
+    stack.build_gateway_stack, fast_http.gateway_routes = build_counted, routes_kept
+    task = asyncio.ensure_future(sampler())
+    try:
+        out = await soak_mod.soak(duration_s=seconds, users=SOAK_USERS, model=SOAK_MODEL, features=SOAK_FEATURES,
+                                  batch=SOAK_BATCH, device=DEVICE)
+    finally:
+        stop.set()
+        await task
+        stack.build_gateway_stack, fast_http.gateway_routes = build, routes
+    # the stack's boot froze the heap (the serving GC policy): thaw it so
+    # the soak's server, which soak() leaves as a cycle, is collected
+    kept_bytes = sum(t.numel() * t.element_size() for t in kept_device)
+    kept_host_bytes = sum(len(b) for b in kept_host)
+    del kept_device, kept_host
+    gc.unfreeze()
+    gc.collect()
+    gc.freeze()
+    torch.cuda.synchronize()
+    window = [(t, b) for t, b in samples if t >= ready["t"]]
+    row = {"planted": plant, "seconds": seconds, "preds_per_sec": out["preds_per_sec"], "p99_ms": out["p99_ms"],
+           "errors": out["errors"], "loop_lag_p99_ms": out["loop_lag_p99_ms"],
+           "rss_slope_net_mb_per_min": out["rss_slope_net_mb_per_min"],
+           "rss_slope_mb_per_min": out["rss_slope_mb_per_min"],
+           "device_slope_mb_per_min": round(_slope_mb_per_min(window), 3),
+           "device_mb_start": round(window[0][1] / 1e6, 3) if window else None,
+           "device_mb_end": round(window[-1][1] / 1e6, 3) if window else None,
+           "device_samples": len(window), "launches": LAUNCHES.count - ready["launches"],
+           "buckets_reached": dict(sorted(buckets.items())),
+           "device_mb_after_collect": round(torch.cuda.memory_allocated() / 1e6, 3),
+           "kept_device_mb": round(kept_bytes / 1e6, 3), "kept_host_mb": round(kept_host_bytes / 1e6, 3)}
+    return row
+
+
+def _soak_limits(row: dict) -> dict:
+    return {"rss": row["rss_slope_net_mb_per_min"] > SOAK_RSS_SLOPE_MB_PER_MIN,
+            "device": row["device_slope_mb_per_min"] > SOAK_DEVICE_SLOPE_MB_PER_MIN}
+
+
+def _recompiles(obj) -> list:
+    """Every ``recompiles_after_warmup`` in a soak report."""
+    if isinstance(obj, dict):
+        return [v for k, v in obj.items() if k == "recompiles_after_warmup"] + [
+            x for v in obj.values() for x in _recompiles(v)]
+    if isinstance(obj, list):
+        return [x for v in obj for x in _recompiles(v)]
+    return []
+
+
+def soak_cli(card, label: str, args: list) -> tuple[int, dict | None, str]:
+    """The port's soak CLI in a process of its own on the card."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "seldon_core_tpu_torch.tools.soak", *args,
+                        *([] if DEVICE == "cuda" else ["--device", DEVICE])],
+                       capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    lines = r.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if r.returncode == 0 and lines else None
+    print(f"[{card}] 16b soak {label} ({' '.join(args)}): exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return r.returncode, out, r.stderr
+
+
+def soak_legs(card) -> dict:
+    """16b: the generative soak legs on the card, as processes: the chaos
+    leg (a replica killed under load) and the KV-overflow leg pass the
+    soak's own gates and these checks; ``--tp 2`` is refused by name."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rows = {}
+    legs = (("chaos", SOAK_CHAOS_ARGS), ("kv_overflow", SOAK_KV_ARGS))
+    with ThreadPoolExecutor(len(legs)) as pool:  # the two processes run together
+        runs = list(pool.map(lambda leg: soak_cli(card, *leg), legs))
+    for (label, args), (rc, out, err) in zip(legs, runs):
+        if rc != 0:
+            raise AssertionError(f"16b soak {label}: exit {rc}: {err[-2000:]}")
+        recompiles = _recompiles(out)
+        row = {"preds_per_sec": out["preds_per_sec"], "p99_ms": out["p99_ms"], "errors": out["errors"],
+               "loop_lag_p99_ms": out["loop_lag_p99_ms"], "rss_slope_net_mb_per_min": out["rss_slope_net_mb_per_min"],
+               "recompiles_after_warmup": recompiles}
+        if label == "chaos":
+            row.update({k: out["chaos"][k] for k in ("evictions", "recoveries", "migrations", "replica_states")})
+            ok = out["chaos"]["evictions"] >= 1 and out["chaos"]["recoveries"] >= 1
+        else:
+            row.update({k: out["kv_tier"][k] for k in ("demotions", "promotions", "promote_overlap")})
+            ok = out["kv_tier"]["demotions"] >= 1 and out["kv_tier"]["promotions"] >= 1
+        print(f"[{card}] 16b soak {label}: {json.dumps(row)}", flush=True)
+        if out["errors"] != 0 or not ok or not recompiles or any(recompiles):
+            raise AssertionError(f"16b soak {label} failed its checks: {row}")
+        rows[label] = row
+    rc, out, err = soak_cli(card, "tp", ["--tp", "2"])
+    if rc == 0 or "decode_mesh_axes" not in err:
+        raise AssertionError(f"16b soak --tp 2: exit {rc}, stderr {err[-500:]!r}: not refused by name")
+    rows["tp_refused"] = err.strip().splitlines()[-1]
+    print(f"[{card}] 16b soak --tp 2 refused: {rows['tp_refused']}", flush=True)
+    return rows
+
+
+def _platform_command(watch_dir: Path) -> tuple[list, dict]:
+    """The install bundle's platform container as rendered (``build_bundle``,
+    no YAML): its command with the three ports swapped for free ones and
+    ``--watch-k8s --k8s-namespace NS`` for ``--watch-dir``, every other
+    flag kept; returns (command, {rendered port: free port})."""
+    from seldon_core_tpu_torch.tools.install import build_bundle
+
+    bundle = build_bundle()
+    dep = next(m for m in bundle if m["kind"] == "Deployment" and m["metadata"]["name"] == "seldon-core-tpu-platform")
+    pod = dep["spec"]["template"]
+    container = pod["spec"]["containers"][0]
+    named = {p["name"]: p["containerPort"] for p in container["ports"]}
+    swap = {port: _free_port() for port in named.values()}
+    cmd = list(container["command"])
+    if cmd[:3] != ["python", "-m", "seldon_core_tpu_torch.platform"]:
+        raise AssertionError(f"16c: the rendered platform command is {cmd}")
+    i = cmd.index("--watch-k8s")
+    if cmd[i + 1] != "--k8s-namespace":
+        raise AssertionError(f"16c: the rendered watch flags are {cmd[i:]}")
+    cmd[i:i + 3] = ["--watch-dir", str(watch_dir)]
+    for flag in ("--port", "--grpc-port", "--admin-port"):
+        j = cmd.index(flag)
+        cmd[j + 1] = str(swap[int(cmd[j + 1])])
+    if DEVICE != "cuda":
+        cmd += ["--device", DEVICE]
+    return cmd, {"swap": swap, "named": named, "probe": container["readinessProbe"]["httpGet"],
+                 "annotations": pod["metadata"]["annotations"]}
+
+
+async def bundle_platform(card) -> dict:
+    """16c: the install bundle's platform command as a process on the card:
+    the rendered readiness probe and Prometheus scrape answer 200 on the
+    swapped ports, and an ``iris`` CR applied through the admin port's
+    operator API answers through the data port bit for bit what an
+    in-process server of the same file answers."""
+    import shutil
+
+    import numpy as np
+
+    watch_dir = TOOLS_DIR / "watch"
+    if watch_dir.exists():
+        shutil.rmtree(watch_dir)
+    watch_dir.mkdir(parents=True)
+    cmd, meta = _platform_command(watch_dir)
+    swap, named = meta["swap"], meta["named"]
+    proc, port, boot_s = await _spawn(cmd[2:], "the bundle's platform")
+    row = {"command": " ".join(cmd[2:]), "boot_s": round(boot_s, 3)}
+    alone = None
+    try:
+        if port != swap[named["http"]] or proc.grpc_port != swap[named["grpc"]]:
+            raise AssertionError(f"16c: the platform serves REST :{port} gRPC :{proc.grpc_port}, the swapped "
+                                 f"ports are {swap}")
+        probe_port = swap[named[meta["probe"]["port"]]]
+        status, _, body, _ = await _request(probe_port, b"", path=meta["probe"]["path"], method="GET")
+        ann = meta["annotations"]
+        scrape_port = swap[int(ann["prometheus.io/port"])]
+        s_status, _, s_body, _ = await _request(scrape_port, b"", path=ann["prometheus.io/path"], method="GET")
+        row.update(readiness=[meta["probe"]["path"], probe_port, status],
+                   scrape=[ann["prometheus.io/path"], scrape_port, s_status])
+        if status != 200 or s_status != 200 or b"# TYPE" not in s_body:
+            raise AssertionError(f"16c: readiness {status} {body[:200]!r}, scrape {s_status} {s_body[:200]!r}")
+        cr = _platform_cr("iris")
+        status, applied = await _api(swap[named["admin"]], "POST", "", cr)
+        if status != 200 or applied["action"] != "created":
+            raise AssertionError(f"16c apply iris through the admin port: HTTP {status} {applied}")
+        token = await _token(port, "form", cr["spec"]["oauth_key"], cr["spec"]["oauth_secret"])
+        alone, *_ = await _start(BASELINE_DIR / "iris.json")
+        rng = np.random.default_rng(161)
+        for i in range(PLATFORM_REQUESTS):
+            x = rng.normal(size=(1 + i, 4)).round(3).tolist()
+            got = await _gate_ask(port, token, x)
+            want = await _ask_server(alone.port, x)
+            _same_bits(f"16c iris request {i}: the bundle's platform against an in-process server", got, want)
+        row["iris_requests_bit_for_bit"] = PLATFORM_REQUESTS
+    finally:
+        if alone is not None:
+            await _stop_standalone(alone)
+        await _reap(proc)
+    print(f"[{card}] 16c the install bundle's platform: {json.dumps(row)}", flush=True)
+    return row
+
+
+def _dockerfile_cmd(path: Path) -> list:
+    """The rendered Dockerfile's exec-form CMD."""
+    for line in path.read_text().splitlines():
+        if line.startswith("CMD "):
+            return json.loads(line[len("CMD "):])
+    raise AssertionError(f"{path} has no CMD")
+
+
+async def wrap_bundle(card) -> dict:
+    """16d: ``torch_mnist_cnn`` wrapped by ``tools/wrap.py``, the rendered
+    Dockerfile's CMD run as a process from the bundle's directory (its
+    ``--model-dir`` that directory), driven by ``tools/contract.py``: every
+    answer bit for bit the class's answer in this process."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.serving.microservice import load_user_object
+    from seldon_core_tpu_torch.tools import contract, wrap
+
+    out = Path(wrap.wrap_model(str(ROOT / MNIST_CNN_DIR), "MnistCnn", "0.1", "seldon",
+                               out_dir=str(TOOLS_DIR / "wrap_bundle"), force=True))
+    cmd = _dockerfile_cmd(out / "Dockerfile")
+    if cmd[:3] != ["python", "-m", "seldon_core_tpu_torch.serving.microservice"]:
+        raise AssertionError(f"16d: the rendered CMD is {cmd}")
+    cmd[cmd.index("--model-dir") + 1] = str(out)
+    params = [{"name": "train_steps", "value": "0", "type": "INT"}]
+    if DEVICE != "cuda":
+        params.append({"name": "device", "value": DEVICE, "type": "STRING"})
+    service_port = _free_port()
+    proc, port, boot_s = await _spawn(cmd[2:], "the wrapped MnistCnn", cwd=out, env={
+        "PYTHONPATH": str(ROOT), "PREDICTIVE_UNIT_SERVICE_PORT": str(service_port),
+        "PREDICTIVE_UNIT_PARAMETERS": json.dumps(params)})
+    try:
+        if port != service_port:
+            raise AssertionError(f"16d: the wrapped microservice serves :{port}, not :{service_port}")
+        spec = json.loads((out / "contract.json").read_text())
+        outs = await asyncio.to_thread(contract.run, spec, "127.0.0.1", port, rounds=WRAP_ROUNDS,
+                                       batch_size=CONTRACT_BATCH, seed=16)
+    finally:
+        await _reap(proc)
+    user = load_user_object("MnistCnn", str(out), {"train_steps": 0, **({} if DEVICE == "cuda" else
+                                                                         {"device": DEVICE})})
+    rng = np.random.default_rng(16)
+    for i, got in enumerate(outs):
+        _, batch = contract.generate_batch(spec, CONTRACT_BATCH, rng)
+        _check_probs(got, CONTRACT_BATCH, 10)
+        _same_bits(f"16d batch {i}: the wrapped microservice against the class in-process", _answer(got),
+                   np.asarray(user.predict(np.asarray(batch), []), np.float32))
+    row = {"cmd": " ".join(cmd[2:]), "boot_s": round(boot_s, 3), "batches_bit_for_bit": len(outs)}
+    print(f"[{card}] 16d the wrap bundle: {json.dumps(row)}", flush=True)
+    return row
+
+
+def lint_on_host(card) -> dict:
+    """16e: the port's invariant linter on this host exits 0."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "seldon_core_tpu_torch.tools.lint"], capture_output=True, text=True,
+                       timeout=120, cwd=str(ROOT))
+    row = {"exit": r.returncode, "seconds": round(time.perf_counter() - t0, 3),
+           "last_line": r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""}
+    print(f"[{card}] 16e lint: {json.dumps(row)}", flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"16e: the port's linter exits {r.returncode}: {r.stdout[-2000:]} {r.stderr[-500:]}")
+    return row
+
+
+async def serve_soak(card) -> dict:
+    """Phase 16a: the soak at full width in this process: the answer check,
+    the clean soak, the planted leaks. Returns its numbers; its flash
+    launches are the standalone answer's request and the clean soak's load
+    window (the two servers' warmups counted apart). ``main``
+    runs it in a process of its own (``soak_in_child``)."""
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    gc.unfreeze()  # earlier phases' frozen leftovers go before the readings
+    gc.collect()
+    LAUNCHES.reset()  # the phase's main path runs from here
+    answer = await soak_answer(card)
+    clean = await soak_on_card(card, SOAK_SECONDS)
+    # ... and ends here: credited are the answer's request and the soak's
+    # load window, each a delta around it; the two servers' warmups apart
+    launches = answer["launches"] + clean["launches"]
+    warmup_launches = LAUNCHES.count - launches
+    print(f"[{card}] 16a soak {SOAK_MODEL} clean: {json.dumps(clean)}", flush=True)
+    print(f"[{card}] 16a soak preds/s={clean['preds_per_sec']} p99_ms={clean['p99_ms']} "
+          f"loop_lag_p99_ms={clean['loop_lag_p99_ms']} rss_slope_net_mb_per_min="
+          f"{clean['rss_slope_net_mb_per_min']} (bound {SOAK_RSS_SLOPE_MB_PER_MIN}) device_slope_mb_per_min="
+          f"{clean['device_slope_mb_per_min']} (bound {SOAK_DEVICE_SLOPE_MB_PER_MIN})", flush=True)
+    layers = answer["layers"]
+    if clean["errors"] != 0 or clean["launches"] <= 0 or clean["launches"] % layers:
+        raise AssertionError(f"16a soak: {clean['errors']} errors, {clean['launches']} flash launches "
+                             f"(want a positive multiple of {layers})")
+    over = _soak_limits(clean)
+    if any(over.values()):
+        raise AssertionError(f"16a soak: a slope over its bound on the clean run: {over} {clean}")
+    leak = await soak_on_card(card, SOAK_LEAK_SECONDS, plant=True)
+    print(f"[{card}] 16a soak {SOAK_MODEL} with both leaks planted: {json.dumps(leak)}", flush=True)
+    caught = _soak_limits(leak)
+    if not all(caught.values()):
+        raise AssertionError(f"16a soak: the planted leaks pass a slope check: {caught} {leak}")
+    return {"answer": answer, "soak": clean, "planted_leaks": {**leak, "caught": caught}, "launches": launches,
+            "warmup_launches": warmup_launches}
+
+
+def soak_main() -> int:
+    """``chip_smoke.py --soak``: phase 16a in a fresh process, as the soak
+    CLI runs. After the earlier phases this script's C heap holds a large,
+    fragmented free pool that absorbs a host leak's first minutes: two full
+    runs with 16a in the script's own process read -0.27 and -0.26 MB/min
+    of RSS with the host leak planted. Prints the phase's JSON last."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import kernel_build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --soak: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(ROOT)
+    kernel_build.build()  # the libraries phase 1 built, found by their sources' hash
+    print(json.dumps({"soak_phase": asyncio.run(serve_soak(card_line()))}), flush=True)
+    return 0
+
+
+def soak_in_child(card) -> dict:
+    """Phase 16a through ``chip_smoke.py --soak``: its lines are printed
+    here, its JSON returned (the launches it counted in its own process)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--soak"], capture_output=True, text=True,
+                       timeout=900, cwd=str(ROOT))
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"16a: chip_smoke.py --soak exited {r.returncode}: {r.stdout[-2000:]} {r.stderr[-4000:]}")
+    print(f"[{card}] 16a process seconds: {time.perf_counter() - t0:.3f}", flush=True)
+    return json.loads(lines[-1])["soak_phase"]
+
+
+async def legs_and_bundles(card) -> dict:
+    """16b on a worker thread while 16c and 16d run: four processes at once."""
+    legs = asyncio.get_running_loop().run_in_executor(None, soak_legs, card)
+    bundles = await serve_bundles(card)
+    return {"soak_legs": await legs, **bundles}
+
+
+async def serve_bundles(card) -> dict:
+    """Phase 16c and 16d: the install bundle's platform and the wrap bundle,
+    each run as a process on the card, the two at once."""
+    platform, wrapped = await asyncio.gather(bundle_platform(card), wrap_bundle(card))
+    return {"bundle_platform": platform, "wrap_bundle": wrapped}
+
+
+def soak_flash_rows(card, buckets: list) -> dict:
+    """Phase 2's check and timing of the flash kernel at the float32,
+    non-causal shape the soak served, at every bucket its batches reached,
+    as the fused QKV projection's views."""
+    import torch
+
+    return {b: check_flash((f"soak_f32_b{b}_views", (b, 12, SOAK_FEATURES, SOAK_FEATURES, 64), torch.float32,
+                            False, "qkv_views"), card) for b in buckets}
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -7922,6 +8466,21 @@ def main() -> int:
           f"{json.dumps(platform_out['launches']['int8_by_body_with_standalone'])}", flush=True)
     print(f"[{card}] phase 15 seconds: {time.perf_counter() - t15:.3f}", flush=True)
 
+    # 16. the tools: the soak at full width, its generative legs, the install
+    # bundle's platform, the wrap bundle, the linter
+    t16 = time.perf_counter()
+    tools_out = soak_in_child(card)
+    tools_flash = tools_out["launches"]
+    if tools_flash <= 0:
+        raise AssertionError("the soak launched no flash_attention kernel")
+    tools_out.update(asyncio.run(legs_and_bundles(card)))
+    tools_out["lint"] = lint_on_host(card)
+    soak_rows = soak_flash_rows(card, sorted(int(b) for b in tools_out["soak"]["buckets_reached"]))
+    print(f"[{card}] phase 16 flash_attention launches: {tools_flash}, warmups apart "
+          f"{tools_out['warmup_launches']} (buckets reached "
+          f"{json.dumps(tools_out['soak']['buckets_reached'])})", flush=True)
+    print(f"[{card}] phase 16 seconds: {time.perf_counter() - t16:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -7931,7 +8490,8 @@ def main() -> int:
         "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
-        + learning_launches + source_launches + split_launches + grpc_launches + platform_flash + twins_flash,
+        + learning_launches + source_launches + split_launches + grpc_launches + platform_flash + twins_flash
+        + tools_flash,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
@@ -7942,7 +8502,9 @@ def main() -> int:
                              "split data plane (phase 13)": split_launches,
                              "gRPC (phase 14)": grpc_launches,
                              "platform (phase 15)": platform_flash,
-                             "platform's standalone twins (phase 15)": twins_flash},
+                             "platform's standalone twins (phase 15)": twins_flash,
+                             "soak (phase 16, its own process)": tools_flash},
+        "warmup_launches_apart": {"soak's two servers (phase 16)": tools_out["warmup_launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold_l2": main["ms_cold_l2"],
@@ -7955,6 +8517,9 @@ def main() -> int:
                                                   "library_ms")},
         "decoder_prefill_views": {k: prefill_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                               "bound_by", "library_ms")},
+        # float32, non-causal, at the batch buckets the phase-16 soak reached
+        "soak_f32_views": {f"b{b}": {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms")} for b, row in soak_rows.items()},
     }]
     int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
     served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
@@ -7994,6 +8559,7 @@ def main() -> int:
     print(json.dumps({"split_data_plane": {"card": card, **split_plane}}), flush=True)
     print(json.dumps({"grpc": {"card": card, **grpc_plane}}), flush=True)
     print(json.dumps({"platform": {"card": card, **platform_out}}), flush=True)
+    print(json.dumps({"tools": {"card": card, **tools_out}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
@@ -8001,6 +8567,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--soak"]:
+        sys.exit(soak_main())
     if sys.argv[1:2] == ["--grpc-load"]:
         sys.exit(grpc_load_main(sys.argv[2:]))
     sys.exit(main())

@@ -414,6 +414,10 @@ class TpuSpec:
 
 @dataclass(frozen=True)
 class ContainerSpec:
+    """Minimal PodTemplateSpec-container equivalent: what the operator needs to
+    wire a MODEL unit to its runtime (reference uses full k8s v1.Container;
+    we keep image/name/env + a model_uri for weight loading)."""
+
     name: str
     image: str = ""
     env: Mapping[str, str] = field(default_factory=dict)

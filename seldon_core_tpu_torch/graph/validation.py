@@ -46,6 +46,25 @@ UNPORTED_DECODE_KNOBS = {
 }
 
 
+# TpuSpec knobs that deliberately carry NO validation rule, acknowledged
+# here so the registry-drift lint (RD003, ``analysis/registry_drift.py``)
+# can hold "every knob has a rule or a recorded waiver" at zero (the JAX
+# package's list):
+# - batch_across_requests / fuse_graph / donate_input: booleans, parsed by
+#   ``spec.bool_param``;
+# - decode_temperature: <= 0 means greedy by contract, any float is legal;
+# - decode_top_k: <= 0 means full vocabulary by contract;
+# - decode_seed: any int seeds the per-deployment RNG stream.
+UNCONSTRAINED_KNOBS = (
+    "batch_across_requests",
+    "fuse_graph",
+    "donate_input",
+    "decode_temperature",
+    "decode_top_k",
+    "decode_seed",
+)
+
+
 def _unported(tpu, knob: str):
     return tpu.extra.get(knob, UNPORTED_DECODE_KNOBS[knob])
 

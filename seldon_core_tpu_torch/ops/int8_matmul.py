@@ -222,7 +222,9 @@ def _one_member(x, q, scale, bias):
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
-@torch.library.custom_op("seldon_tpu_torch::int8_matmul", mutates_args=())
+# the op's namespace stays out of the ``seldon_tpu_*`` metric namespace that
+# ``metrics/registry.py`` owns (lint RD002)
+@torch.library.custom_op("seldon_torch::int8_matmul", mutates_args=())
 def _int8_matmul_op(
     x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor]
 ) -> torch.Tensor:
@@ -255,7 +257,7 @@ def _vmap_rule(info, in_dims, x, q, scale, bias):
     return y.reshape(e, *lead, y.shape[-1]), 0
 
 
-torch.library.register_vmap("seldon_tpu_torch::int8_matmul", _vmap_rule)
+torch.library.register_vmap("seldon_torch::int8_matmul", _vmap_rule)
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

@@ -544,6 +544,7 @@ class PrefixIndex:
         self.max_entries = max_entries
         self.entries: dict[int, _PrefixEntry] = {}  # pin_id -> entry
         self._clock = 0
+        self.evictions = 0  # entries the cap or a reclaim pushed out
         self._root: dict[int, list] = {}  # token -> [children, entry]
 
     def _tick(self) -> int:
@@ -575,6 +576,7 @@ class PrefixIndex:
         if len(self.entries) >= self.max_entries:
             evicted = min(self.entries.values(), key=lambda e: e.last_use)
             self.remove(evicted)
+            self.evictions += 1
         e = _PrefixEntry(tokens, pages, pin_id)
         e.last_use = self._tick()
         self.entries[pin_id] = e
@@ -603,6 +605,7 @@ class PrefixIndex:
         dropped = [pin_id for pin_id in pin_ids if self.entries.pop(pin_id, None) is not None]
         if dropped:
             self._rebuild()
+            self.evictions += len(dropped)
         return len(dropped)
 
     def clear(self) -> None:
@@ -831,6 +834,7 @@ class DecodeScheduler:
         self.stat_prefix_misses = 0
         self.stat_prefix_tokens_saved = 0
         self.stat_prefix_preseeded = 0
+        self.stat_prefix_captures = 0
         # the tiers: device evictions demoted, misses promoted back, the
         # promotions made inside an overlap window, and the demotions made
         # there with the ns their page readback held the window
@@ -1280,12 +1284,15 @@ class DecodeScheduler:
         self._metrics.decode_kv_pool(self._deployment, a.free_pages, a.live_pages, a.prefix_pages)
 
     def _commit_round(self, mode: str, *, step: bool) -> None:
-        """THE per-round commit point: the step metric, the round metrics
-        and the flight frame. ``step`` marks rounds that ran a decode or
+        """THE per-round commit point: the round stats, the step metric,
+        the round metrics and the flight frame. (``stat_steps`` counts the
+        plain and the speculative rounds here, at one site, so the two
+        paths cannot drift.) ``step`` marks rounds that ran a decode or
         verify dispatch; a chunk-only round records a frame too."""
         t_c0 = time.perf_counter_ns()
         active = self._rb_active if step else self.active
         if step:
+            self.stat_steps += 1
             self._metrics.decode_step(self._deployment, active, self.n_slots)
         # the phase array freezes before the round clock stops, so the
         # commit's own cost stays inside the gap it is attributed to
@@ -1566,6 +1573,11 @@ class DecodeScheduler:
             self._demote_entry(evicted)
             self.pool.alloc.release(evicted.pin_id)
             self._metrics.decode_prefix_evicted(self._deployment)
+        self.stat_prefix_captures += 1
+
+    @property
+    def stat_prefix_evictions(self) -> int:
+        return self._prefix_index.evictions if self.prefix_enabled else 0
 
     def _demote_entry(self, entry) -> None:
         """Demote one evicted prefix entry's pages to the host tier: each
@@ -2343,7 +2355,6 @@ class DecodeScheduler:
 
                 nxt = await self._timed_call(F_STEP, step)
                 self._rb_active = self.active  # occupancy at dispatch
-            self.stat_steps += 1
             with self._phase(P_SAMPLING):
                 for i in gen:
                     seq = self._slots[i]
@@ -2423,7 +2434,6 @@ class DecodeScheduler:
         controller's update. Limit-0 slots emit exactly their plain-step
         token. Each slot's traces get one ``decode.verify`` span for the
         round (``t0``..``t1``) with its accept count."""
-        self.stat_steps += 1
         self.stat_spec_dispatches += 1
         proposed, accepted, emitted = int(limits.sum()), int(acc.sum()), 0
         tree = self.spec_tree

@@ -15,7 +15,8 @@ and ``telemetry/profile.py``; the Redis store's socket budget
 through and its warm-boot kill switch (``serving/affinity_router.py``);
 the predictor server's gRPC port and graceful-drain window
 (``serving/server.py``); the operator's PYTHON_CLASS opt-in and Kubernetes
-API address, and ``encode_b64_json`` for its manifests (``operator/``).
+API address, and ``encode_b64_json`` for its manifests (``operator/``);
+the image registry of ``tools/release.py``.
 """
 
 from __future__ import annotations
@@ -78,6 +79,9 @@ ENGINE_DECODE_REPLICA_PRESEED = "ENGINE_DECODE_REPLICA_PRESEED"
 # to (e.g. http://127.0.0.1:8001 from kubectl proxy)
 SELDON_TPU_ALLOW_PYTHON_CLASS = "SELDON_TPU_ALLOW_PYTHON_CLASS"
 SELDON_TPU_K8S_API = "SELDON_TPU_K8S_API"
+# the registry prefix ``tools/release.py --push`` tags the port's image with
+# (e.g. ghcr.io/org)
+SELDON_TPU_REGISTRY = "SELDON_TPU_REGISTRY"
 
 
 def encode_b64_json(obj) -> str:

@@ -10,7 +10,8 @@
 - ``tools/audit_tail.py`` reading back what the gateway's ``file://``
   sink wrote (``tests/test_tools.py``'s case on the port: client
   attribution, torn and corrupt lines, truncation under ``--follow``),
-  the served pairs equal to what was sent and received;
+  the served pairs equal to what was sent and received; its ``kafka://``
+  half against the JAX package's over a stub ``kafka`` client;
 - ``tools/loadtest.py`` with ``oauth_key`` through the gateway, counting
   only 200s.
 """
@@ -224,3 +225,39 @@ async def test_run_load_with_oauth_through_the_gateway_counts_only_200s():
         gws.close()
         await gws.wait_closed()
         await server.stop()
+
+
+@pytest.mark.parametrize("follow", [False, True])
+def test_kafka_tail_matches_jax(monkeypatch, follow):
+    """``kafka://``: with a stub ``kafka`` module in ``sys.modules``, the
+    port's ``audit_tail.iter_records`` yields what the JAX package's does
+    over the same planted records, and opens its consumer the same way."""
+    import sys
+    import types
+
+    from seldon_core_tpu.tools import audit_tail as jax_audit_tail
+
+    planted = [
+        {"ts": 1.5, "request": {"data": {"ndarray": [[1.0, 2.0]]}},
+         "response": {"meta": {"puid": "p1", "routing": {"r": 1}}, "data": {"ndarray": [[0.1, 0.9]]}}},
+        {"ts": 2.5, "request": {"data": {"tensor": {"shape": [1, 1], "values": [3.0]}}},
+         "response": {"meta": {"puid": "p2"}, "data": {"tensor": {"shape": [1, 1], "values": [0.5]}}}},
+    ]
+    opened = []
+
+    class KafkaConsumer:
+        def __init__(self, topic, **kwargs):
+            opened.append((topic, {k: v for k, v in kwargs.items() if k != "value_deserializer"}))
+            self._deserialize = kwargs["value_deserializer"]
+
+        def __iter__(self):
+            for record in planted:
+                yield types.SimpleNamespace(value=self._deserialize(json.dumps(record).encode()))
+
+    monkeypatch.setitem(sys.modules, "kafka", types.SimpleNamespace(KafkaConsumer=KafkaConsumer))
+    ours = list(audit_tail.iter_records("kafka://broker:9092", "client-a", follow))
+    theirs = list(jax_audit_tail.iter_records("kafka://broker:9092", "client-a", follow))
+    assert ours == theirs == [{**r, "client": "client-a"} for r in planted]
+    assert opened[0] == opened[1]
+    assert opened[0][0] == "client-a" and opened[0][1]["bootstrap_servers"] == "broker:9092"
+    assert [audit_tail._summarize(r) for r in ours] == [jax_audit_tail._summarize(r) for r in theirs]
