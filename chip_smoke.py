@@ -354,6 +354,27 @@ Phases, each of which raises on failure (no phase catches its own):
    class in-process. 16e ``python -m seldon_core_tpu_torch.tools.lint``
    exits 0. Then phase 2's check and timing of the flash kernel at the
    float32 shape the soak served, at each bucket its batches reached.
+17. the serving mesh (``serve_mesh``), on positions of the one card (the
+   card count is printed beside them: no interconnect is exercised).
+   17a ``bert_seq_parallel.json`` as the file has it (BERT-base, Ulysses,
+   {"data": 2, "seq": 4}, bf16, buckets 8/16/32) served by a
+   ``PredictorServer`` over 8 positions, then a float32 copy, the same with
+   ``seq_parallel=ring``, and a ring copy at seq 512 (a 128-token block per
+   position): each answer held against the same weights served unsharded
+   on the card (bf16: within ``SERVE_ATOL``, argmax equal beyond a tie at
+   that resolution; float32: ``MESH_F32_TOL``), 0 keys after warmup, the
+   file's 1-user p50 and 16-user predictions/s beside the unsharded
+   server's, parameter bytes and ``memory_allocated()`` growth of both.
+   17b ``moe.json`` (8 positions) and ``pipeline_tower.json`` (4) applied
+   as CRs on a ``Platform`` over the card's positions and answered through
+   its gateway, held against the unsharded model at ``SMALL_MESH_TOL``,
+   each position's parameter bytes. 17c ``bert_base_flash.json`` over
+   {"model": 4}: Megatron tensor parallelism with each position's 3 heads
+   through the flash kernel, 48 launches a forward (12 layers x 4
+   positions, counted), held against the unsharded server; the kernel at
+   (8, 3, 512, 512, 64) bf16 as QKV views against its plain version and
+   timed as in phase 2. 17d the three files without positions asked for:
+   the server and the platform's manager refuse each by the mesh rule.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -8216,6 +8237,324 @@ def soak_flash_rows(card, buckets: list) -> dict:
                             False, "qkv_views"), card) for b in buckets}
 
 
+# ---------------------------------------------------------------- phase 17
+MESH_DIR = ROOT / "build" / "mesh"  # git-ignored: the phase's deployment copies, per run
+MESH_POSITIONS = 8  # positions of the one card the phase's meshes take
+MESH_ROWS = (1, 8, 13, 32)  # rows per request held against the unsharded server (13 pads to bucket 16)
+SMALL_ROWS = (1, 8, 13)
+MESH_F32_TOL = (2e-4, 2e-5)  # rtol, atol: the JAX tests' float32 tolerance for served BERT
+SMALL_MESH_TOL = (2e-5, 2e-6)  # MoE and the pipeline (tests/test_parallel.py)
+MESH_LOAD_USERS = (1, 16)
+
+
+def _mesh_copy(name: str, stem: str, tpu_update: dict | None = None, params_update: dict | None = None) -> Path:
+    """A deployment file with its tpu block updated and unit parameters set
+    (added where the file has none), under the git-ignored build/mesh/."""
+    dep = json.loads((BASELINE_DIR / f"{name}.json").read_text())
+    pred = dep["spec"]["predictors"][0]
+    pred["tpu"].update(tpu_update or {})
+    params = {p["name"]: p for p in pred["graph"]["parameters"]}
+    for k, v in (params_update or {}).items():
+        if k in params:
+            params[k]["value"] = str(v)
+        else:
+            pred["graph"]["parameters"].append({"name": k, "value": str(v),
+                                                "type": "INT" if isinstance(v, int) else "STRING"})
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    path = MESH_DIR / f"{stem}.json"
+    path.write_text(json.dumps(dep))
+    return path
+
+
+def _positions(n: int) -> list:
+    import torch
+
+    return [torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)] * n
+
+
+def _position_bytes(runtime) -> list:
+    """Each position's parameter bytes (a leaf it shares counted in each)."""
+    from seldon_core_tpu_torch.parallel.mesh import unique_tensors
+
+    return [sum(t.numel() * t.element_size() for t in unique_tensors([pp])) for pp in runtime.params]
+
+
+def hold_mesh(label: str, got, want, dtype_name: str, tol=None) -> dict:
+    """Sharded answers against the unsharded server's on the same rows.
+    float32: ``tol`` (rtol, atol) and the same argmax. bfloat16: within
+    SERVE_ATOL (phase 3's limit), and the same argmax on every row whose
+    unsharded margin between its top two classes exceeds SERVE_ATOL (a row
+    inside it is a tie at bf16's resolution; counted)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: answers of shape {got.shape} against {want.shape}")
+    diff = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    flips = got.argmax(axis=1) != want.argmax(axis=1)
+    if dtype_name == "float32":
+        rtol, atol = tol
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=label)
+        ties = 0
+        if flips.any():
+            raise AssertionError(f"{label}: argmax differs on {int(flips.sum())} rows")
+    else:
+        ties = int((margin <= SERVE_ATOL).sum())
+        if diff > SERVE_ATOL:
+            raise AssertionError(f"{label}: max_abs_diff {diff} > {SERVE_ATOL}")
+        if (flips & (margin > SERVE_ATOL)).any():
+            raise AssertionError(f"{label}: argmax differs on rows whose margin exceeds {SERVE_ATOL}")
+    return {"rows": int(len(got)), "max_abs_diff": diff, "tie_rows": ties, "argmax_flips": int(flips.sum())}
+
+
+async def _mesh_pair(card, label: str, sharded_path: Path, flat_path: Path, positions: list):
+    """The sharded server (over ``positions``) and its unsharded twin, with
+    the allocation each added (net of cuBLAS workspaces)."""
+    a0 = _allocated() if DEVICE == "cuda" else 0
+    sharded, build_s, warm_s = await _start(sharded_path, mesh_devices=positions)
+    a1 = _allocated() if DEVICE == "cuda" else 0
+    flat, flat_build_s, flat_warm_s = await _start(flat_path)
+    a2 = _allocated() if DEVICE == "cuda" else 0
+    runtime, ref = _model_runtime(sharded), _model_runtime(flat)
+    mesh = runtime.mesh
+    if mesh is None or mesh.n_devices != 1 or ref.mesh is not None:
+        raise AssertionError(f"{label}: sharded mesh {mesh}, unsharded {ref.mesh}")
+    info = {"mesh": mesh.shape, "positions": mesh.size, "cards": _card_count(), "distinct_devices": mesh.n_devices,
+            "apply": getattr(runtime.apply_fn, "name", ""), "buckets": list(runtime.buckets),
+            "build_s": round(build_s, 3), "warmup_s": round(warm_s, 3),
+            "unsharded_build_s": round(flat_build_s, 3), "unsharded_warmup_s": round(flat_warm_s, 3),
+            "param_bytes": runtime.param_bytes(), "unsharded_param_bytes": ref.param_bytes(),
+            "allocated_bytes": a1 - a0, "unsharded_allocated_bytes": a2 - a1,
+            "warmup_reserved_bytes": sharded.warmup_reserved_bytes,
+            "unsharded_warmup_reserved_bytes": flat.warmup_reserved_bytes}
+    return sharded, flat, info
+
+
+def _card_count() -> int:
+    import torch
+
+    return torch.cuda.device_count() if DEVICE == "cuda" else 0
+
+
+async def _mesh_load(port: int, seq: int) -> dict:
+    """The 1-user p50 and the 16-user predictions/s (one-row requests, one
+    LOAD_SECONDS point each)."""
+    load = {"payload": "json", "features": seq}
+    one = await _load_point(port, MESH_LOAD_USERS[0], load)
+    many = await _load_point(port, MESH_LOAD_USERS[1], load)
+    return {"p50_ms_1_user": one["p50_ms"], "predictions_per_s_16_users": many["requests_per_sec"]}
+
+
+def _forward_split(sharded, flat, x) -> dict:
+    """One forward of ``x`` (ids on the host, answer read back) on the
+    sharded runtime and on the unsharded one: wall ms, and on the card the
+    device's busy ms and operations per forward (torch.profiler)."""
+    out = {}
+    for label, rt in (("sharded", sharded), ("unsharded", flat)):
+        kernels, ops = profile_device(lambda rt=rt: rt.predict(x)) if DEVICE == "cuda" else ({}, 0.0)
+        out[label] = {"predict_wall_ms": wall_ms(lambda rt=rt: rt.predict(x)),
+                      "device_busy_ms": sum(kernels.values()) if kernels else None, "device_ops": ops}
+    return out
+
+
+async def mesh_bert_seq(card) -> dict:
+    """17a: bert_seq_parallel.json as the file has it (BERT-base, Ulysses,
+    {"data": 2, "seq": 4}, bf16, buckets 8/16/32) on 8 positions of the
+    card, a float32 copy, the same with seq_parallel=ring, and a ring copy
+    at seq 512 (a 128-token block per position); each answer held against
+    the same weights served unsharded on the card."""
+    import numpy as np
+
+    rows = {}
+    variants = (("ulysses", {}, {}), ("ulysses_f32", {"dtype": "float32"}, {}),
+                ("ring", {}, {"seq_parallel": "ring"}), ("ring_seq512", {}, {"seq_parallel": "ring", "seq": 512}))
+    for label, tpu_u, par_u in variants:
+        path = _mesh_copy("bert_seq_parallel", f"seq_{label}", tpu_u, par_u)
+        flat_path = _mesh_copy("bert_seq_parallel", f"seq_{label}_unsharded", {**tpu_u, "mesh": {"data": 1}}, par_u)
+        sharded, flat, info = await _mesh_pair(card, f"17a {label}", path, flat_path, _positions(MESH_POSITIONS))
+        try:
+            runtime, ref = _model_runtime(sharded), _model_runtime(flat)
+            want_apply = "bert_ring" if label.startswith("ring") else "bert_ulysses"
+            if info["apply"] != want_apply or info["mesh"] != {"data": 2, "seq": 4}:
+                raise AssertionError(f"17a {label}: apply {info['apply']} over {info['mesh']}")
+            seq, vocab = ref.feature_shape[0], _vocab(ref)
+            dtype_name = str(ref.dtype).removeprefix("torch.")
+            rng = np.random.default_rng(17)
+            got, want = [], []
+            for n in MESH_ROWS:
+                x = rng.integers(0, vocab, size=(n, seq)).tolist()
+                got.append(await _ask_server(sharded.port, x))
+                want.append(await _ask_server(flat.port, x))
+            held = hold_mesh(f"17a {label}", np.concatenate(got), np.concatenate(want), dtype_name, MESH_F32_TOL)
+            keys = (runtime.recompiles_since_warmup(), ref.recompiles_since_warmup())
+            if keys != (0, 0):
+                raise AssertionError(f"17a {label}: new keys after warmup (sharded, unsharded): {keys}")
+            load = {}
+            if label == "ulysses":  # the file as it is: its latency and rate beside the unsharded twin's
+                load = {"sharded": await _mesh_load(sharded.port, seq), "unsharded": await _mesh_load(flat.port, seq),
+                        "bucket_8_forward": _forward_split(runtime, ref, rng.integers(0, vocab, size=(8, seq)))}
+        finally:
+            await _stop_standalone(sharded)
+            await _stop_standalone(flat)
+        rows[label] = {**info, "seq": seq, "dtype": dtype_name, **held, "keys_after_warmup": list(keys),
+                       **({"load": load} if load else {})}
+        print(f"[{card}] 17a bert_seq_parallel {label}: {json.dumps(rows[label])}", flush=True)
+    return rows
+
+
+async def mesh_platform(card) -> dict:
+    """17b: moe.json (8 positions) and pipeline_tower.json (4) applied as
+    CRs on the port's platform over the card's positions and answered
+    through its gateway, each answer held against the same weights served
+    unsharded; each position's parameter bytes."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.platform import Platform
+
+    rows = {}
+    platform = Platform(device=DEVICE, audit_sink_url="mem://", mesh_devices=_positions(MESH_POSITIONS))
+    await platform.serve("127.0.0.1", 0, grpc_port=None, fast_ingress=True, admin_port=0)
+    try:
+        for name in ("moe", "pipeline_tower"):
+            cr = json.loads((BASELINE_DIR / f"{name}.json").read_text())
+            dep = cr["metadata"]["name"]
+            status, body = await _api(platform.admin_port, "POST", "", cr)
+            if status != 200 or body["action"] != "created":
+                raise AssertionError(f"17b apply {name}: HTTP {status} {body}")
+            running = platform.manager.get(dep)
+            running.warmup()
+            runtime = running.runtimes()[0]
+            token = await _token(platform.port, "form", cr["spec"]["oauth_key"], cr["spec"]["oauth_secret"])
+            flat, *_ = await _start(_mesh_copy(name, f"{name}_unsharded", {"mesh": {"data": 1}}))
+            try:
+                rng = np.random.default_rng(17)
+                got, want = [], []
+                for n in SMALL_ROWS:
+                    x = rng.standard_normal((n, runtime.feature_shape[0])).round(4).tolist()
+                    got.append(await _gate_ask(platform.port, token, x))
+                    want.append(await _ask_server(flat.port, x))
+                held = hold_mesh(f"17b {name}", np.concatenate(got), np.concatenate(want), "float32", SMALL_MESH_TOL)
+                ref = _model_runtime(flat)
+                keys = runtime.recompiles_since_warmup()
+            finally:
+                await _stop_standalone(flat)
+            if keys:
+                raise AssertionError(f"17b {name}: {keys} new keys after warmup")
+            rows[name] = {"mesh": runtime.mesh.shape, "positions": runtime.mesh.size, "cards": _card_count(),
+                          "distinct_devices": runtime.mesh.n_devices, "apply": runtime.apply_fn.name,
+                          "position_param_bytes": _position_bytes(runtime), "param_bytes": runtime.param_bytes(),
+                          "unsharded_param_bytes": ref.param_bytes(),
+                          "resident_bytes": platform.manager.hbm_usage()["deployments"][dep], **held,
+                          "keys_after_warmup": keys}
+            status, _ = await _api(platform.admin_port, "DELETE", f"/{dep}")
+            if status != 200:
+                raise AssertionError(f"17b delete {name}: HTTP {status}")
+            print(f"[{card}] 17b {name} through the platform: {json.dumps(rows[name])}", flush=True)
+    finally:
+        await platform.stop()
+    return rows
+
+
+async def mesh_bert_tp(card) -> dict:
+    """17c: bert_base_flash.json over tpu.mesh {"model": 4} (Megatron tensor
+    parallelism, attn_kernel=pallas, seq 512, bf16): each position's 3
+    heads through the flash kernel, held against the unsharded server; the
+    kernel at that shape against its plain version."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    path = _mesh_copy("bert_base_flash", "tp_model4", {"mesh": {"model": 4}})
+    sharded, flat, info = await _mesh_pair(card, "17c", path, BASELINE_DIR / "bert_base_flash.json",
+                                           _positions(MESH_POSITIONS))
+    try:
+        runtime, ref = _model_runtime(sharded), _model_runtime(flat)
+        if info["mesh"] != {"model": 4} or info["apply"] != "bert_tp_pallas":
+            raise AssertionError(f"17c: apply {info['apply']} over {info['mesh']}")
+        layers, seq, vocab = len(ref.params["layers"]), ref.feature_shape[0], _vocab(ref)
+        want_launches = layers * runtime.mesh.size
+        rng = np.random.default_rng(170)
+        batches = [rng.integers(0, vocab, size=(n, seq)).tolist() for n in (1, 8, 1, 8)]
+        got, deltas = [], []
+        LAUNCHES.reset()  # the main path's run starts here
+        for x in batches:
+            before = LAUNCHES.count
+            got.append(await _ask_server(sharded.port, x))
+            deltas.append(LAUNCHES.count - before)
+        launches = LAUNCHES.count  # ... and ends here
+        want = [await _ask_server(flat.port, x) for x in batches]
+        require_launches("17c bert_base_flash over {'model': 4} flash_attention", deltas, want_launches)
+        held = hold_mesh("17c", np.concatenate(got), np.concatenate(want), "bfloat16")
+        keys = (runtime.recompiles_since_warmup(), ref.recompiles_since_warmup())
+        if keys != (0, 0):
+            raise AssertionError(f"17c: new keys after warmup (sharded, unsharded): {keys}")
+        heads = runtime.params[0]["layers"][0]["qkv"]["w"].shape[1] // 3 // 64
+        split = _forward_split(runtime, ref, rng.integers(0, vocab, size=(8, seq)))
+    finally:
+        await _stop_standalone(sharded)
+        await _stop_standalone(flat)
+    kernel_row = check_flash(("bert_tp4_b8_views", (8, heads, seq, seq, 64), torch.bfloat16, False, "qkv_views"),
+                             card) if DEVICE == "cuda" else {}
+    row = {**info, "layers": layers, "seq": seq, "heads_per_position": heads, "launches_per_forward": deltas,
+           "want_per_forward": want_launches, **held, "keys_after_warmup": list(keys), "bucket_8_forward": split}
+    print(f"[{card}] 17c bert_base_flash tensor-parallel: {json.dumps(row)}", flush=True)
+    return {"row": row, "launches": launches, "kernel": kernel_row}
+
+
+def mesh_refusals(card) -> dict:
+    """17d: the three files without positions asked for, on the one card:
+    the server and the platform's manager must each refuse every one by
+    the mesh rule."""
+    from seldon_core_tpu_torch.operator.reconciler import DeploymentManager
+    from seldon_core_tpu_torch.serving.server import PredictorServer, load_predictor
+
+    out = {}
+    manager = DeploymentManager(device=DEVICE)
+    for name in ("bert_seq_parallel", "moe", "pipeline_tower"):
+        predictor, dep = load_predictor(str(BASELINE_DIR / f"{name}.json"))
+        try:
+            PredictorServer(predictor, deployment_name=dep, device=DEVICE)
+        except ValueError as e:
+            if "devices, have 1" not in str(e):
+                raise
+            server_says = str(e)
+        else:
+            raise AssertionError(f"17d: {name} served without positions on one card")
+        r = manager.apply(json.loads((BASELINE_DIR / f"{name}.json").read_text()))
+        if r.action != "failed" or "devices, have 1" not in r.message:
+            raise AssertionError(f"17d: the platform's manager {r.action} {name} without positions: {r.message}")
+        out[name] = server_says
+    print(f"[{card}] 17d refused without positions: {json.dumps(out)}", flush=True)
+    return out
+
+
+async def serve_mesh(card) -> dict:
+    """Phase 17: the serving mesh on the one card (17a, 17b, 17c, 17d)."""
+    import shutil
+
+    if MESH_DIR.exists():
+        shutil.rmtree(MESH_DIR)
+    gc.unfreeze()  # what earlier phases' servers froze and left is freed first
+    out = {"cards": _card_count(), "positions": MESH_POSITIONS}
+    print(f"[{card}] phase 17: meshes of up to {MESH_POSITIONS} positions on {out['cards']} card(s): "
+          "no interconnect is exercised", flush=True)
+    t = time.perf_counter()
+    out["seq_parallel"] = await mesh_bert_seq(card)
+    out["seconds_17a"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out["platform"] = await mesh_platform(card)
+    out["seconds_17b"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    tp = await mesh_bert_tp(card)
+    out["tensor_parallel"], out["launches"], out["kernel"] = tp["row"], tp["launches"], tp["kernel"]
+    out["seconds_17c"] = round(time.perf_counter() - t, 3)
+    out["refused"] = mesh_refusals(card)
+    return out
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -8481,6 +8820,17 @@ def main() -> int:
           f"{json.dumps(tools_out['soak']['buckets_reached'])})", flush=True)
     print(f"[{card}] phase 16 seconds: {time.perf_counter() - t16:.3f}", flush=True)
 
+    # 17. the serving mesh on positions of the one card: sequence, expert,
+    # pipeline and tensor parallelism, and the refusals without positions
+    t17 = time.perf_counter()
+    mesh_out = asyncio.run(serve_mesh(card))
+    mesh_flash = mesh_out["launches"]
+    if mesh_flash <= 0:
+        raise AssertionError("the tensor-parallel BERT path launched no flash_attention kernel")
+    print(f"[{card}] phase 17 flash_attention launches: {mesh_flash} (17c, "
+          f"{mesh_out['tensor_parallel']['want_per_forward']} a forward)", flush=True)
+    print(f"[{card}] phase 17 seconds: {time.perf_counter() - t17:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -8491,7 +8841,7 @@ def main() -> int:
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
         + learning_launches + source_launches + split_launches + grpc_launches + platform_flash + twins_flash
-        + tools_flash,
+        + tools_flash + mesh_flash,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
@@ -8503,7 +8853,8 @@ def main() -> int:
                              "gRPC (phase 14)": grpc_launches,
                              "platform (phase 15)": platform_flash,
                              "platform's standalone twins (phase 15)": twins_flash,
-                             "soak (phase 16, its own process)": tools_flash},
+                             "soak (phase 16, its own process)": tools_flash,
+                             "tensor-parallel BERT-base over {'model': 4} (phase 17c)": mesh_flash},
         "warmup_launches_apart": {"soak's two servers (phase 16)": tools_out["warmup_launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
@@ -8520,6 +8871,9 @@ def main() -> int:
         # float32, non-causal, at the batch buckets the phase-16 soak reached
         "soak_f32_views": {f"b{b}": {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                         "library_ms")} for b, row in soak_rows.items()},
+        # one model-axis position's 3 heads of BERT-base, bf16 (phase 17c)
+        "tp4_b8_views": {k: mesh_out["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                             "library_ms")},
     }]
     int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
     served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
@@ -8560,6 +8914,7 @@ def main() -> int:
     print(json.dumps({"grpc": {"card": card, **grpc_plane}}), flush=True)
     print(json.dumps({"platform": {"card": card, **platform_out}}), flush=True)
     print(json.dumps({"tools": {"card": card, **tools_out}}), flush=True)
+    print(json.dumps({"mesh": {"card": card, **{k: v for k, v in mesh_out.items() if k != "kernel"}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

@@ -773,7 +773,10 @@ def build_executor(
     shadow_compare_hook: Callable[[str, bool], None] | None = None,
 ) -> GraphExecutor:
     """``context['device']`` names where models run (the card by default);
-    ``context['cuda_graphs']`` false builds every runtime as its eager twin.
+    ``context['mesh']`` (a ``parallel.mesh.Mesh``, or None) serves every
+    model over a mesh's positions instead, and a fused island over its
+    members' mesh; ``context['cuda_graphs']`` false builds every runtime as
+    its eager twin.
     With ``tpu.fuse_graph`` (the default) pure subtrees collapse into one
     fused unit each (``engine/fused.py``), which keeps the resilience knobs
     of the subtree's root, as in the JAX package. ``resilience_events``

@@ -14,6 +14,13 @@ Two strategies, picked from the members:
   JAX package's ``jax.vmap``);
 - heterogeneous ensemble: the children run in turn inside the one apply.
 
+On a mesh (``parallel/mesh.py``) the island's runtime takes the members'
+mesh, as the JAX package's ``fuse_graph(root, tpu_cfg, mesh)`` does: each
+member's ``MeshApply`` runs in turn on the positions' parameters, and the
+combine and transforms run on each data lead's block. ``vmap`` does not
+reach through the collectives between positions, so a homogeneous
+ensemble runs its members in turn there.
+
 Fusable units expose a pure-function hook (``engine/units.py``):
 ``as_pure_fn`` (combiner aggregate), ``as_pure_input_fn`` /
 ``as_pure_output_fn`` (transformer math). Model leaves, pure COMBINER
@@ -34,7 +41,10 @@ from seldon_core_tpu_torch.engine.executor import Node, _has_method
 from seldon_core_tpu_torch.engine.units import Unit
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit, PredictiveUnitMethod, PredictiveUnitType
 from seldon_core_tpu_torch.models.base import ModelRuntime, ModelUnit
+from seldon_core_tpu_torch.models.convert import params_to_torch
 from seldon_core_tpu_torch.models.zoo import DTYPES
+from seldon_core_tpu_torch.parallel.collectives import per_unique
+from seldon_core_tpu_torch.parallel.mesh import Mesh, MeshApply, PositionParams
 
 _IDENTITY = "identity"
 
@@ -48,6 +58,7 @@ class _PureSubtree:
     device: torch.device
     n_models: int
     n_nodes: int  # forwards the fused one replaces (models + transforms)
+    mesh: Mesh | None = None
 
 
 def _pure_transform(node: Node, method: PredictiveUnitMethod):
@@ -87,7 +98,7 @@ def _collect(node: Node) -> _PureSubtree | None:
     if not node.children:
         if isinstance(unit, ModelUnit):
             rt = unit.runtime
-            return _PureSubtree(rt.apply_fn, rt.params, rt.class_names, rt.feature_shape, rt.device, 1, 1)
+            return _PureSubtree(rt.apply_fn, rt.params, rt.class_names, rt.feature_shape, rt.device, 1, 1, rt.mesh)
         return None
 
     # routers never fuse: routing is per-request host-side control flow
@@ -119,11 +130,12 @@ def _collect(node: Node) -> _PureSubtree | None:
     children = [_collect(c) for c in node.children]
     if any(c is None for c in children):
         return None
-    devices = {c.device for c in children}
-    if len(devices) != 1:
+    if len({(c.device, c.mesh) for c in children}) != 1:
         return None
 
     first = children[0]
+    if first.mesh is not None:
+        return _mesh_subtree(children, first.mesh, combine_fn, combine_params, t_in, t_out)
     homogeneous = len(children) > 1 and all(
         c.apply_fn is first.apply_fn and _same_structure(c.params, first.params) for c in children
     )
@@ -176,6 +188,67 @@ def _collect(node: Node) -> _PureSubtree | None:
     )
 
 
+def _mesh_subtree(children: list, mesh: Mesh, combine_fn, combine_params, t_in, t_out) -> _PureSubtree:
+    """The island over a mesh: one tree per position holding every member's
+    placed parameters (and the transforms' raw ones, which ``fuse_graph``
+    places per device), and a MeshApply that runs the members in turn."""
+    member_fns = tuple(c.apply_fn for c in children)
+    tin = None if t_in is _IDENTITY else t_in[0]
+    tout = None if t_out is _IDENTITY else t_out[0]
+    params = PositionParams(
+        _IslandParams(members=[c.params[p] for c in children],
+                      **({} if tin is None else {"t_in": t_in[1]}), **({} if tout is None else {"t_out": t_out[1]}))
+        for p in range(mesh.size)
+    )
+
+    def fused(params, xs):
+        if tin is not None:
+            xs = per_unique(lambda x, p: tin(p, x), xs, [pp["t_in"] for pp in params])
+        ys = [fn(PositionParams(pp["members"][i] for pp in params), xs) for i, fn in enumerate(member_fns)]
+        out: list = [None] * mesh.size
+        for lead in mesh.leads():
+            y = [m[lead] for m in ys]
+            y = combine_fn(combine_params, y) if combine_fn is not None else y[0]
+            out[lead] = y if tout is None else tout(params[lead]["t_out"], y)
+        return out
+
+    return _PureSubtree(
+        apply_fn=MeshApply(fused, mesh, "fused"),
+        params=params,
+        class_names=next((c.class_names for c in children if c.class_names), ()),
+        feature_shape=next((c.feature_shape for c in children if c.feature_shape), None),
+        device=children[0].device,
+        n_models=sum(c.n_models for c in children),
+        n_nodes=sum(c.n_nodes for c in children) + 1,
+        mesh=mesh,
+    )
+
+
+class _IslandParams(dict):
+    """One position's parameters of a mesh island: its members' placed
+    trees under "members" (a member may be an island itself) and its
+    transforms' raw ones under "t_in" / "t_out"."""
+
+
+def _place_transforms(params: PositionParams, mesh: Mesh, dtype: torch.dtype) -> PositionParams:
+    """The transforms' parameters of a mesh island and of the islands
+    nested in it, placed once per device and shared by the positions there."""
+    placed: dict = {}
+
+    def on(raw, dev):
+        if (id(raw), dev) not in placed:
+            placed[(id(raw), dev)] = params_to_torch(raw, dev, dtype)
+        return placed[(id(raw), dev)]
+
+    def walk(pp, dev):
+        if not isinstance(pp, _IslandParams):
+            return pp
+        return _IslandParams(members=[walk(m, dev) for m in pp["members"]],
+                             **{k: on(pp[k], dev) for k in ("t_in", "t_out") if k in pp})
+
+    return PositionParams(walk(pp, mesh.positions[p]) for p, pp in enumerate(params))
+
+
 def _stack_trees(trees: list) -> Any:
     """Stack same-structured parameter trees leaf by leaf on a new leading
     (ensemble) axis."""
@@ -194,20 +267,23 @@ class FusedUnit(ModelUnit):
 def fuse_graph(root: Node, tpu_cfg=None, cuda_graphs: bool = True) -> Node:
     """Replace fusable subtrees with single FusedUnit leaves, top-down: the
     largest pure island wins. A no-op when nothing fuses. The fused runtime
-    runs on its members' device, one captured graph per bucket unless
-    ``cuda_graphs`` is false."""
+    runs on its members' device (or their mesh), one captured graph per
+    bucket unless ``cuda_graphs`` is false."""
     sub = _collect(root)
     if sub is not None and sub.n_nodes > 1:
+        dtype = DTYPES.get(getattr(tpu_cfg, "dtype", "float32"), torch.float32)
+        params = sub.params if sub.mesh is None else _place_transforms(sub.params, sub.mesh, dtype)
         runtime = ModelRuntime(
             sub.apply_fn,
-            sub.params,
+            params,
             device=sub.device,
             buckets=tuple(getattr(tpu_cfg, "batch_buckets", ()) or ()),
             max_batch=getattr(tpu_cfg, "max_batch", 64),
-            dtype=DTYPES.get(getattr(tpu_cfg, "dtype", "float32"), torch.float32),
+            dtype=dtype,
             class_names=sub.class_names,
             offload_compute=getattr(tpu_cfg, "offload_compute", "auto"),
             cuda_graphs=cuda_graphs,
+            mesh=sub.mesh,
         )
         runtime.feature_shape = sub.feature_shape
         spec = PredictiveUnit(name=root.name, type=PredictiveUnitType.MODEL)

@@ -28,11 +28,27 @@ does): payloads int8, scales float32. The model's functions take the
 quantized leaves where they use them (``ops/int8_matmul.py`` for a matmul).
 Parameters that arrive already quantized keep their payloads and float32
 scales in a plain runtime too (a fused ensemble of quantized members).
+
+With a ``mesh`` (``parallel/mesh.py``) the runtime serves the model over
+mesh positions, as ``seldon_core_tpu/models/base.py:128-134`` and
+``:222-276`` do: batch buckets round up to the data axis's multiple, the
+padded batch splits over "data", the parameters are placed per position
+from the model's partition rule (``param_pspecs``; axes the mesh lacks are
+dropped with a warning, and a replicated leaf is held once per distinct
+device), and the apply is the model's ``MeshApply`` (or its single-position
+apply run on each data lead). Where every position is on one device the
+whole sharded forward is captured once per bucket, as above; one graph
+cannot span cards, so a mesh over distinct cards runs eagerly, logged at
+build and marked ``mesh_eager`` on every request's span (``Mesh.describe``).
+``weight_quant="int8"``
+with a "model" axis is refused by name (``quantized_pspecs`` is not ported
+yet); on a data-only mesh each position serves int8 as above.
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -55,6 +71,19 @@ from seldon_core_tpu_torch.graph.spec import PredictiveUnit
 from seldon_core_tpu_torch.models.convert import params_to_torch
 from seldon_core_tpu_torch.models.quant import quantize_params
 from seldon_core_tpu_torch.ops.graphs import GraphCache
+from seldon_core_tpu_torch.parallel.collectives import shard, unshard
+from seldon_core_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    MeshApply,
+    PositionParams,
+    data_parallel,
+    place_params,
+    unique_tensors,
+)
+
+log = logging.getLogger(__name__)
 
 # forwards at or above this stall the serving loop enough to tax other
 # requests' latency; offload_compute="auto" moves them to the compute pool
@@ -84,10 +113,11 @@ ApplyFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
 
 class ModelRuntime:
-    """One model loaded onto one device.
+    """One model loaded onto one device, or over the positions of a mesh.
 
     ``apply_fn(params, x[batch, ...]) -> y[batch, ...]`` takes the parameter
-    tree (tensors on ``device``) and a batch tensor on ``device``."""
+    tree (tensors on ``device``) and a batch tensor on ``device``; on a mesh
+    it may be a ``MeshApply`` over every position's tree and block."""
 
     def __init__(
         self,
@@ -104,6 +134,8 @@ class ModelRuntime:
         layout: Callable[[np.ndarray], Any] | None = None,
         weight_quant: str = "",
         cuda_graphs: bool = True,
+        mesh: Mesh | None = None,
+        param_pspecs: Any = None,
     ):
         if weight_quant not in ("", "int8"):
             raise ValueError(f"weight_quant must be '' or 'int8', got {weight_quant!r}")
@@ -114,14 +146,26 @@ class ModelRuntime:
                 "offload_compute must be 'auto', 'always' or 'never', got "
                 f"{offload_compute!r}"
             )
+        if weight_quant == "int8" and mesh is not None and MODEL_AXIS in mesh.shape:
+            raise ValueError(
+                "tpu.weight_quant='int8' on a mesh with a 'model' axis needs quantized_pspecs, which the torch "
+                "port does not have yet: serve int8 on a data-only mesh, or the model axis unquantized"
+            )
         self.apply_fn = apply_fn
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # on a mesh: where the padded batch is staged and the output gathered
+        self.device = resolve_device(device) if mesh is None else mesh.positions[0]
         self.dtype = dtype
         # "cast": integer payloads are values and normalize to float;
         # "ids": integers are token ids and stay exact int32
         self.int_inputs = int_inputs
         self.class_names = tuple(class_names)
         self.buckets = tuple(buckets) if buckets else default_buckets(max_batch)
+        if mesh is not None and DATA_AXIS in mesh.shape:
+            # the batch splits over the data axis, so every bucket rounds up to
+            # its multiple (padding covers the difference)
+            d = mesh.shape[DATA_AXIS]
+            self.buckets = tuple(sorted({-(-b // d) * d for b in self.buckets}))
         # "auto" resolves at warmup() from a measured forward; until then
         # only "always" offloads
         self.offload_compute_mode = offload_compute
@@ -135,7 +179,18 @@ class ModelRuntime:
         self.weight_quant = weight_quant
         if weight_quant == "int8":
             params = quantize_params(params)
-        self.params = params_to_torch(params, self.device, dtype, layout)
+        if mesh is None:
+            self.params = params_to_torch(params, self.device, dtype, layout)
+        else:
+            if not isinstance(apply_fn, MeshApply):
+                self.apply_fn = data_parallel(apply_fn, mesh)
+            self.params = params if isinstance(params, PositionParams) else place_params(
+                params, param_pspecs, mesh, lambda a, dev: params_to_torch(a, dev, dtype, layout))
+            if mesh.n_devices > 1 and cuda_graphs:
+                # one CUDA graph cannot span cards
+                log.warning("mesh %s spans %d devices: its forwards run eagerly, not as captured graphs",
+                            mesh.shape, mesh.n_devices)
+                cuda_graphs = False
         # held while a forward is queued and while load_params queues its
         # copies: a replay sees every leaf of one update or none
         self.params_lock = threading.Lock()
@@ -148,7 +203,11 @@ class ModelRuntime:
         with torch.inference_mode():
             if x.dtype == torch.uint8 or (self._low_precision and x.dtype == torch.float32):
                 x = x.to(self.dtype)
-            y = self.apply_fn(self.params, x)
+            if self.mesh is None:
+                y = self.apply_fn(self.params, x)
+            else:
+                split = {DATA_AXIS: 0}
+                y = unshard(self.apply_fn(self.params, shard(x, self.mesh, split)), self.mesh, split, self.device)
             if self._low_precision and y.is_floating_point():
                 y = y.float()
         return y
@@ -193,6 +252,8 @@ class ModelRuntime:
         replay on the old one). The copies are queued on the device's current
         stream under ``params_lock``, the stream and lock a forward is
         queued under, so each forward sees all of the update or none of it."""
+        if self.mesh is not None:
+            raise ValueError("a parameter update of a runtime served over a mesh is not part of the torch port yet")
         dst, src = [], []
 
         def pair(d, s):
@@ -250,6 +311,13 @@ class ModelRuntime:
 
         for f in [compute_pool().submit(run) for _ in range(COMPUTE_POOL_WORKERS)]:
             f.result()
+
+    def param_bytes(self) -> int:
+        """Device bytes the parameters hold: every tensor once, so a leaf
+        that positions share on one device counts once (int8 payloads and
+        their float32 scales included)."""
+        trees = self.params if isinstance(self.params, PositionParams) else [self.params]
+        return sum(t.numel() * t.element_size() for t in unique_tensors(trees))
 
     def compile_counts(self) -> dict[str, int]:
         """Dispatch keys built, per program: on the card each is one captured

@@ -16,6 +16,28 @@ Attention follows the deployment knob ``attn_kernel``:
   otherwise;
 - ``blockwise``: blockwise at any length.
 
+On a mesh (``bert_apply_factory``, the JAX package's
+``_bert_apply_factory``, memoised per mesh and strategy):
+
+- a "seq" axis serves sequence-parallel: every layer runs on each
+  position's block of the sequence, and attention is ring attention
+  (``ops/ring_attention.py``, the default) or Ulysses
+  (``seq_parallel=ulysses``, ``ops/ulysses.py``; heads that the axis does
+  not divide are refused at build). A request length the axis does not
+  divide runs unsharded, with the single-device policy, as ring's fallback
+  does in the JAX package. ``attn_kernel`` does not apply there;
+- a "model" axis serves Megatron tensor parallelism (``bert_pspecs``):
+  ``qkv`` and ``mlp_in`` column-parallel, ``attn_out`` and ``mlp_out``
+  row-parallel, one psum per residual branch with the row-parallel bias
+  added once after it. The packed q|k|v columns are split per slab, so each
+  position holds whole heads of q, k and v (a plain split of the columns,
+  which is how ``P(None, "model")`` reads in the JAX package, hands the
+  first position only q heads). Attention on a position's heads follows
+  ``attn_kernel``; with ``pallas`` each position's heads go through the
+  flash kernel as strided views of its QKV projection;
+- a mesh with neither runs the single-device apply on each data lead.
+A mesh with both "seq" and "model" is refused by name.
+
 With ``tpu.weight_quant="int8"`` every projection (qkv, attn_out, mlp_in,
 mlp_out, the head) is a quantized leaf that ``dense`` hands to the W8A16
 kernel: 4 launches a layer and one for the head. The embedding tables are
@@ -26,6 +48,7 @@ those, as the JAX package dequantizes before its gather.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -40,6 +63,7 @@ from seldon_core_tpu_torch.ops.attention import (
     naive_attention,
 )
 from seldon_core_tpu_torch.ops.flash_attention import DEFAULT_BLOCK_K, flash_attention
+from seldon_core_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, P, Packed
 
 
 def _dense_init(rng: np.random.Generator, n_in, n_out):
@@ -122,25 +146,41 @@ _KERNEL_IMPLS = {
 }
 
 
-def _attention(p, x, num_heads, attn_impl):
-    b, s, d = x.shape
-    head = d // num_heads
-    q, k, v = dense(p["qkv"], x).split(d, dim=-1)
+def _qkv_heads(p, x, head_dim):
+    """q, k, v as [b, heads, s, head_dim] views of one QKV projection (on a
+    "model" position, of its heads' columns)."""
+    b, s, _ = x.shape
+    qkv = dense(p["qkv"], x)
+    width = qkv.shape[-1] // 3
 
-    def heads(t):  # a view of the QKV output, [b, heads, s, head]
-        return t.reshape(b, s, num_heads, head).transpose(1, 2)
+    def heads(t):
+        return t.reshape(b, s, width // head_dim, head_dim).transpose(1, 2)
 
-    ctx = attn_impl(heads(q), heads(k), heads(v))
-    # a view when ctx lies as [b, s, heads, head], as the CUDA kernel writes it
-    ctx = ctx.transpose(1, 2).reshape(b, s, d)
-    return dense(p["attn_out"], ctx)
+    q, k, v = qkv.split(width, dim=-1)
+    return heads(q), heads(k), heads(v)
+
+
+def _merge_heads(ctx):
+    """[b, heads, s, head_dim] -> [b, s, heads * head_dim]; a view when ctx
+    lies as [b, s, heads, head_dim], as the CUDA kernel writes it."""
+    b, h, s, d = ctx.shape
+    return ctx.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _mlp(p, x):
+    # exact erf GELU, as BERT (paper and HF) uses
+    return dense(p["mlp_out"], torch.nn.functional.gelu(dense(p["mlp_in"], x), approximate="none"))
+
+
+def _layer_finish(p, x, ctx):
+    """The layer after attention: output projection, residual and norm,
+    then the MLP block."""
+    x = _ln(p["ln1"], x + dense(p["attn_out"], _merge_heads(ctx)))
+    return _ln(p["ln2"], x + _mlp(p, x))
 
 
 def _layer_apply(p, x, num_heads, attn_impl):
-    x = _ln(p["ln1"], x + _attention(p, x, num_heads, attn_impl))
-    # exact erf GELU, as BERT (paper and HF) uses
-    h = torch.nn.functional.gelu(dense(p["mlp_in"], x), approximate="none")
-    return _ln(p["ln2"], x + dense(p["mlp_out"], h))
+    return _layer_finish(p, x, attn_impl(*_qkv_heads(p, x, x.shape[-1] // num_heads)))
 
 
 def _infer_heads(params: dict) -> int:
@@ -148,23 +188,35 @@ def _infer_heads(params: dict) -> int:
     return max(1, hidden // 64)
 
 
-def bert_logits(params: dict, x: torch.Tensor, attn_impl=_default_attention) -> torch.Tensor:
-    """x: token ids [batch, seq] (any numeric dtype) -> logits [batch, classes]."""
-    ids = x.long()
-    num_heads = _infer_heads(params)
+infer_heads = _infer_heads
+
+
+def _embed(params: dict, ids: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Token plus position embeddings of ``ids`` [b, s] at positions
+    ``offset`` on, normalized, in the compute dtype."""
     # the runtime's compute dtype: a norm vector is never quantized, and the
     # runtime casts every floating leaf that is not a scale to that dtype
     compute_dtype = params["ln_emb"]["scale"].dtype
-    positions = torch.arange(ids.shape[1], device=ids.device)
+    positions = torch.arange(offset, offset + ids.shape[1], device=ids.device)
     h = embed(params["tok_emb"], ids, compute_dtype) + embed(params["pos_emb"], positions, compute_dtype)[None]
-    h = _ln(params["ln_emb"], h)
-    for lp in params["layers"]:
-        h = _layer_apply(lp, h, num_heads, attn_impl)
+    return _ln(params["ln_emb"], h)
+
+
+def _classify(params: dict, h: torch.Tensor) -> torch.Tensor:
     cls = h[:, 0, :]  # [CLS] pooling
     pooler = params.get("pooler")
     if pooler is not None:  # HF tanh pooler, present on imported checkpoints
         cls = torch.tanh(dense(pooler, cls))
     return dense(params["head"], cls)
+
+
+def bert_logits(params: dict, x: torch.Tensor, attn_impl=_default_attention) -> torch.Tensor:
+    """x: token ids [batch, seq] (any numeric dtype) -> logits [batch, classes]."""
+    num_heads = _infer_heads(params)
+    h = _embed(params, x.long())
+    for lp in params["layers"]:
+        h = _layer_apply(lp, h, num_heads, attn_impl)
+    return _classify(params, h)
 
 
 def make_apply_bert(attn_impl):
@@ -177,13 +229,148 @@ def make_apply_bert(attn_impl):
     return apply
 
 
+_KERNEL_APPLIES: dict = {}
+
+
 def apply_for_kernel(attn_kernel: str):
-    """The serving apply for an ``attn_kernel`` knob value."""
+    """The serving apply for an ``attn_kernel`` knob value, one function per
+    value (two builds share it, as in the JAX package)."""
     if attn_kernel not in _KERNEL_IMPLS:
         raise ValueError(
             f"attn_kernel must be one of {sorted(_KERNEL_IMPLS)}, got {attn_kernel!r}"
         )
-    return make_apply_bert(_KERNEL_IMPLS[attn_kernel])
+    if attn_kernel not in _KERNEL_APPLIES:
+        _KERNEL_APPLIES[attn_kernel] = make_apply_bert(_KERNEL_IMPLS[attn_kernel])
+    return _KERNEL_APPLIES[attn_kernel]
+
+
+def bert_pspecs(params: dict) -> dict:
+    """Megatron tensor parallelism over the mesh "model" axis: ``qkv`` and
+    ``mlp_in`` column-parallel (``qkv`` per q, k and v slab, so a position
+    holds whole heads), ``attn_out`` and ``mlp_out`` row-parallel;
+    embeddings, norms, the head and an imported pooler replicated."""
+    ln = {"scale": P(), "bias": P()}
+    rep = {"w": P(), "b": P()}
+    layer = {
+        "qkv": {"w": P(None, Packed(MODEL_AXIS, 3)), "b": P(Packed(MODEL_AXIS, 3))},
+        "attn_out": {"w": P(MODEL_AXIS, None), "b": P()},
+        "ln1": ln,
+        "mlp_in": {"w": P(None, MODEL_AXIS), "b": P(MODEL_AXIS)},
+        "mlp_out": {"w": P(MODEL_AXIS, None), "b": P()},
+        "ln2": ln,
+    }
+    specs = {"tok_emb": P(), "pos_emb": P(), "ln_emb": ln, "layers": [layer for _ in params["layers"]], "head": rep}
+    if "pooler" in params:
+        specs["pooler"] = rep
+    return specs
+
+
+def _seq_parallel_apply(mesh, strategy: str):
+    """Every layer on each "seq" position's block of the sequence, with
+    ring or Ulysses attention between the blocks; the [CLS] row lives on
+    each data lead (seq coordinate 0)."""
+    from seldon_core_tpu_torch.ops.ring_attention import ring_attention_shards
+    from seldon_core_tpu_torch.ops.ulysses import ulysses_attention_shards
+    from seldon_core_tpu_torch.parallel.mesh import MeshApply, data_parallel
+
+    n = mesh.shape[SEQ_AXIS]
+    attend = ring_attention_shards if strategy == "ring" else ulysses_attention_shards
+    unsharded = data_parallel(apply_for_kernel("auto"), mesh)
+
+    def run(params, xs):
+        s = xs[0].shape[1]
+        num_heads = _infer_heads(params[0])
+        if s % n or (strategy == "ulysses" and num_heads % n):
+            # a length the axis cannot split: the single-device policy
+            return unsharded(params, xs)
+        blk = s // n
+        head_dim = params[0]["ln_emb"]["scale"].shape[-1] // num_heads
+        offsets = [mesh.coord(p, SEQ_AXIS) * blk for p in range(mesh.size)]
+        hs = [_embed(params[p], xs[p].long()[:, o:o + blk], o) for p, o in enumerate(offsets)]
+        for li in range(len(params[0]["layers"])):
+            lps = [pp["layers"][li] for pp in params]
+            q, k, v = zip(*(_qkv_heads(lp, h, head_dim) for lp, h in zip(lps, hs)))
+            ctx = attend(q, k, v, mesh, seq_axis=SEQ_AXIS)
+            hs = [_layer_finish(lp, h, c) for lp, h, c in zip(lps, hs, ctx)]
+        out: list = [None] * mesh.size
+        for lead in mesh.leads(DATA_AXIS):
+            out[lead] = softmax_f32(_classify(params[lead], hs[lead]))
+        return out
+
+    return MeshApply(run, mesh, f"bert_{strategy}")
+
+
+def _tensor_parallel_apply(mesh, attn_kernel: str):
+    """Megatron tensor parallelism over the "model" axis: each position's
+    heads and MLP columns, one psum per residual branch, the replicated
+    stream computed once per device in each group."""
+    from seldon_core_tpu_torch.parallel.collectives import psum, replicated
+    from seldon_core_tpu_torch.parallel.mesh import MeshApply
+
+    attn_impl = _KERNEL_IMPLS[attn_kernel]
+
+    def residual(norm, bias):
+        return lambda x, y: _ln(norm, x + y + bias.to(y.dtype))
+
+    def run(params, xs):
+        num_heads = _infer_heads(params[0])
+        head_dim = params[0]["ln_emb"]["scale"].shape[-1] // num_heads
+        hs = replicated(lambda p, x: _embed(p, x.long()), mesh, MODEL_AXIS, params, xs)
+        for li in range(len(params[0]["layers"])):
+            lps = [pp["layers"][li] for pp in params]
+            part = []
+            for lp, h in zip(lps, hs):
+                ctx = _merge_heads(attn_impl(*_qkv_heads(lp, h, head_dim)))
+                part.append(ctx @ lp["attn_out"]["w"].to(ctx.dtype))
+            attn = psum(part, mesh, MODEL_AXIS)
+            hs = replicated(lambda lp, h, a: residual(lp["ln1"], lp["attn_out"]["b"])(h, a), mesh, MODEL_AXIS,
+                            lps, hs, attn)
+            part = [torch.nn.functional.gelu(dense(lp["mlp_in"], h), approximate="none")
+                    @ lp["mlp_out"]["w"].to(h.dtype) for lp, h in zip(lps, hs)]
+            mlp = psum(part, mesh, MODEL_AXIS)
+            hs = replicated(lambda lp, h, m: residual(lp["ln2"], lp["mlp_out"]["b"])(h, m), mesh, MODEL_AXIS,
+                            lps, hs, mlp)
+        out: list = [None] * mesh.size
+        for lead in mesh.leads(DATA_AXIS):
+            out[lead] = softmax_f32(_classify(params[lead], hs[lead]))
+        return out
+
+    return MeshApply(run, mesh, f"bert_tp_{attn_kernel}")
+
+
+def bert_apply_factory(mesh, seq_parallel: str = "ring", num_heads: int | None = None, attn_kernel: str = "auto"):
+    """The serving apply on ``mesh`` (JAX ``models/bert.py:298-360``): a
+    "seq" axis turns on sequence parallelism (ring by default, Ulysses on
+    ``seq_parallel=ulysses``, whose heads must divide the axis: refused at
+    build), a "model" axis tensor parallelism (heads must divide it), and
+    otherwise the ``attn_kernel`` apply runs on each data lead. Memoised per
+    (mesh, strategy), so two builds share one apply."""
+    from seldon_core_tpu_torch.parallel.mesh import data_parallel, memoised_apply
+
+    if SEQ_AXIS in mesh.shape and MODEL_AXIS in mesh.shape:
+        raise ValueError(f"a BERT mesh with both 'seq' and 'model' axes ({mesh.shape}) is not part of the torch "
+                         "port: use one of them")
+    if SEQ_AXIS in mesh.shape:
+        if seq_parallel == "ulysses" and num_heads is not None:
+            n = mesh.shape[SEQ_AXIS]
+            if num_heads % n != 0:
+                raise ValueError(
+                    f"seq_parallel=ulysses needs attention heads divisible "
+                    f"by the seq-axis size: {num_heads} heads vs seq={n} — "
+                    "use a smaller seq axis or seq_parallel=ring"
+                )
+        if seq_parallel not in ("ring", "ulysses"):
+            raise ValueError(f"seq_parallel must be 'ring' or 'ulysses', got {seq_parallel!r}")
+        return memoised_apply(("bert", seq_parallel, mesh), lambda: _seq_parallel_apply(mesh, seq_parallel))
+    apply_for_kernel(attn_kernel)  # an unknown knob fails here
+    if MODEL_AXIS in mesh.shape:
+        n = mesh.shape[MODEL_AXIS]
+        if num_heads is not None and num_heads % n:
+            raise ValueError(f"tensor parallelism needs attention heads divisible by the model-axis size: "
+                             f"{num_heads} heads vs model={n}")
+        return memoised_apply(("bert", MODEL_AXIS, attn_kernel, mesh),
+                              lambda: _tensor_parallel_apply(mesh, attn_kernel))
+    return data_parallel(apply_for_kernel(attn_kernel), mesh)
 
 
 @register_model("bert_base")
@@ -192,6 +379,7 @@ def build_bert_base(
     num_classes: int = 2,
     max_len: int = 512,
     seq: int = 128,
+    seq_parallel: str = "ring",
     attn_kernel: str = "auto",
     **_,
 ) -> ModelSpec:
@@ -201,12 +389,20 @@ def build_bert_base(
             "raise max_len for long-context deployments"
         )
     apply = apply_for_kernel(attn_kernel)  # an unknown knob fails before the init
+    return _bert_spec(apply, init_bert(seed, num_classes=num_classes, max_len=max_len), seq, num_classes,
+                      seq_parallel, attn_kernel)
+
+
+def _bert_spec(apply, params, seq, num_classes, seq_parallel, attn_kernel) -> ModelSpec:
     return ModelSpec(
         apply,
-        init_bert(seed, num_classes=num_classes, max_len=max_len),
+        params,
         (seq,),
         tuple(f"class_{i}" for i in range(num_classes)),
         int_inputs="ids",
+        param_pspecs=bert_pspecs(params),
+        apply_factory=partial(bert_apply_factory, seq_parallel=seq_parallel, num_heads=_infer_heads(params),
+                              attn_kernel=attn_kernel),
     )
 
 
@@ -220,6 +416,7 @@ def build_bert_tiny(
     max_len: int = 128,
     num_classes: int = 2,
     seq: int = 16,
+    seq_parallel: str = "ring",
     attn_kernel: str = "auto",
     **_,
 ) -> ModelSpec:
@@ -231,7 +428,4 @@ def build_bert_tiny(
         seed, vocab=vocab, hidden=hidden, layers=layers, ffn=ffn,
         max_len=max_len, num_classes=num_classes,
     )
-    return ModelSpec(
-        apply, params, (seq,), tuple(f"class_{i}" for i in range(num_classes)),
-        int_inputs="ids",
-    )
+    return _bert_spec(apply, params, seq, num_classes, seq_parallel, attn_kernel)

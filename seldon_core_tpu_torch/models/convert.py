@@ -16,6 +16,13 @@ applies to its payload and to its scale alike (a convolution's HWIO payload
 and (1, 1, 1, O) scale become OIHW and (O, 1, 1, 1) under one transpose),
 the payload stays int8 and the scale stays float32 — cast to bf16 it would
 lose the per-channel precision the scheme keeps.
+
+``carry_params`` takes the JAX package's parameters of a model in place of
+the port's own draw, after checking them leaf for leaf against it: the
+models whose JAX init draws with ``jax.random`` (iris, MNIST, and the mesh
+models ``moe_mlp`` — its experts stacked [E, ...] — and ``pipe_mlp`` — its
+stages stacked [S, ...], one stage per "pipe" position) serve the same
+weights in both packages that way.
 """
 
 from __future__ import annotations
@@ -89,3 +96,29 @@ def params_to_numpy(tree: Any) -> Any:
         return np.asarray(t)
 
     return tree_map(leaf, tree)
+
+
+def carry_params(own: Any, other: Any) -> Any:
+    """``other`` (a tree of numpy arrays or tensors, e.g. ``jax.tree.map(
+    np.asarray, params)`` of the JAX package's build) as numpy leaves in
+    ``own``'s place. Raises ValueError where the two trees differ in
+    structure, or a leaf in shape or dtype: a stacked axis that does not
+    match (experts, pipe stages) is caught here, not at serving."""
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            if not isinstance(b, dict) or a.keys() != b.keys():
+                raise ValueError(f"{path or 'params'}: keys {sorted(b) if isinstance(b, dict) else type(b).__name__} "
+                                 f"where the port's build has {sorted(a)}")
+            return {k: walk(a[k], b[k], f"{path}/{k}") for k in a}
+        if isinstance(a, (list, tuple)):
+            if not isinstance(b, (list, tuple)) or len(a) != len(b):
+                raise ValueError(f"{path}: a list of another length than the port's build")
+            return type(a)(walk(x, y, f"{path}/{i}") for i, (x, y) in enumerate(zip(a, b)))
+        b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        a = np.asarray(a)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"{path}: {b.dtype}{list(b.shape)} where the port's build has {a.dtype}{list(a.shape)}")
+        return b
+
+    return walk(own, other, "")

@@ -19,6 +19,19 @@ the packages for the same seed (tests carry the JAX parameters across).
 Apply functions are module-level, not per-build closures: two builds of
 one architecture share function identity, which is what lets graph fusion
 (``engine/fused.py``) stack their parameters and vmap once.
+
+On a mesh (``parallel/mesh.py``) a runtime takes the spec's
+``apply_factory(mesh)`` (the JAX package's hook: ``bert_*`` for ring,
+Ulysses and tensor parallelism, ``moe_mlp`` for expert parallelism,
+``pipe_mlp`` for pipeline stages) and places the parameters per position
+from ``param_pspecs``; a model without a factory runs its single-position
+apply on each data lead. ``moe_mlp`` and ``pipe_mlp`` draw their dense
+layers with ``jax.random`` in the JAX package and with numpy here (as the
+small models above do); ``init_moe`` is the JAX package's numpy draw.
+A generative model, or a ``finetune`` unit, on a mesh with an axis other
+than "data" is refused by name (decode over a mesh is ``parallel/tp.py``'s
+work and the sharded train steps come with it, not ported yet); on a
+data-only mesh it serves on the first position, with a warning.
 """
 
 from __future__ import annotations
@@ -46,6 +59,8 @@ from seldon_core_tpu_torch.graph.spec import (
 from seldon_core_tpu_torch.models.base import ModelRuntime, ModelUnit
 from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
 from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+from seldon_core_tpu_torch.parallel.mesh import DATA_AXIS
+from seldon_core_tpu_torch.parallel.pipeline import stage_of
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -67,6 +82,12 @@ class ModelSpec:
     # bucket, "max_new_tokens": cap}) so serving can offer the
     # continuous-batching scheduler (tpu.decode_slots)
     generative: dict | None = None
+    # the partition rule of the parameter tree over mesh axes (a tree of
+    # parallel.mesh.P); None replicates every leaf
+    param_pspecs: Any = None
+    # mesh -> the apply to serve on it (a parallel.mesh.MeshApply); None
+    # runs apply_fn on each data lead
+    apply_factory: Callable[[Any], Any] | None = None
 
 
 Builder = Callable[..., ModelSpec]
@@ -93,7 +114,10 @@ def _register_models() -> None:
 # wait for the builder instead of building twice.
 _HEAVY_CACHE: OrderedDict[tuple, ModelSpec] = OrderedDict()
 _HEAVY_CACHE_MAX = 4
-_CACHEABLE = frozenset({"resnet50", "bert_base"})
+# tiny_gpt and draft at GPT-2-small widths take seconds of numpy draws, and
+# a speculative deployment is served beside its eager twin and a copy with
+# speculation off; a distilled draft is not cached (its file may change)
+_CACHEABLE = frozenset({"resnet50", "bert_base", "tiny_gpt", "draft"})
 _HEAVY_CACHE_LOCK = threading.Lock()
 _HEAVY_BUILDING: dict[tuple, threading.Event] = {}
 
@@ -122,7 +146,7 @@ def get_model(name: str, **kwargs) -> ModelSpec:
         _register_models()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)}")
-    key = _heavy_cache_key(name, kwargs) if name in _CACHEABLE else None
+    key = _heavy_cache_key(name, kwargs) if name in _CACHEABLE and not kwargs.get("distilled") else None
     if key is None:
         return _REGISTRY[name](**kwargs)
     with _HEAVY_CACHE_LOCK:
@@ -234,6 +258,126 @@ def build_mnist_mlp(seed: int = 0, hidden: int = 512, **_) -> ModelSpec:
     return ModelSpec(_apply_mlp3_flat, params, (784,), tuple(str(i) for i in range(10)))
 
 
+def _pipe_stage_fn(p, h):
+    """One pipeline stage: a residual tanh block, [mb, d] -> [mb, d]."""
+    return h + torch.tanh(h @ p["w"].to(h.dtype) + p["b"].to(h.dtype))
+
+
+def _apply_pipe_tower_seq(p, x):
+    """The stages in turn on one position: the math the pipelined path
+    computes."""
+    h = dense(p["embed"], x)
+    for s in range(p["stages"]["w"].shape[0]):
+        h = _pipe_stage_fn(stage_of(p["stages"], s), h)
+    return softmax_f32(dense(p["head"], h))
+
+
+def _pipe_apply_factory(mesh):
+    """A "pipe" axis runs the stages as a GPipe pipeline, one stage per
+    position (``parallel/pipeline.py``), with ``n_stages`` microbatches
+    where the bucket divides, else one; without it the stacked stages run
+    in turn on each data lead."""
+    from seldon_core_tpu_torch.parallel.collectives import replicated
+    from seldon_core_tpu_torch.parallel.mesh import PIPE_AXIS, MeshApply, data_parallel, memoised_apply
+    from seldon_core_tpu_torch.parallel.pipeline import pipeline_shards
+
+    if PIPE_AXIS not in mesh.shape:
+        return data_parallel(_apply_pipe_tower_seq, mesh)
+    n_stages = mesh.shape[PIPE_AXIS]
+
+    def apply_pipelined(params, xs):
+        batch = xs[0].shape[0]
+        m = n_stages if batch % n_stages == 0 else 1
+
+        def micro(p, x):
+            h = dense(p["embed"], x)
+            return h.reshape(m, batch // m, h.shape[-1])
+
+        stages = [stage_of(p["stages"], 0) for p in params]  # each position holds [1, ...] of the stack
+        outs = pipeline_shards(_pipe_stage_fn, stages, replicated(micro, mesh, PIPE_AXIS, params, xs), mesh, PIPE_AXIS)
+        out: list = [None] * mesh.size
+        for lead in mesh.leads():
+            out[lead] = softmax_f32(dense(params[lead]["head"], outs[lead].reshape(batch, -1)))
+        return out
+
+    return memoised_apply(("pipe_mlp", mesh), lambda: MeshApply(apply_pipelined, mesh, "pipe_mlp"))
+
+
+@register_model("pipe_mlp")
+def build_pipe_mlp(seed: int = 0, n_in: int = 16, d: int = 64, stages: int = 4, classes: int = 3, **_) -> ModelSpec:
+    """Pipeline-parallel serving model: a residual MLP tower whose stages
+    shard one per position over a "pipe" mesh axis (``tpu.mesh: {"pipe":
+    S}``); without one the same stacked parameters run in turn, so the
+    deployment alone decides the strategy."""
+    from seldon_core_tpu_torch.parallel.mesh import P
+
+    rng = np.random.default_rng(seed)
+    params = {
+        "embed": _dense_init(rng, n_in, d),
+        "stages": {
+            "w": (rng.standard_normal((stages, d, d)) * (1.0 / d) ** 0.5).astype(np.float32),
+            "b": np.zeros((stages, d), np.float32),
+        },
+        "head": _dense_init(rng, d, classes),
+    }
+    pspecs = {"embed": {"w": P(), "b": P()}, "stages": {"w": P("pipe"), "b": P("pipe")},
+              "head": {"w": P(), "b": P()}}
+    return ModelSpec(_apply_pipe_tower_seq, params, (n_in,), tuple(f"c{i}" for i in range(classes)),
+                     param_pspecs=pspecs, apply_factory=_pipe_apply_factory)
+
+
+def _apply_moe_mlp(p, x):
+    """[batch, features] -> class probabilities through a top-1 MoE FFN:
+    embed, a residual MoE block over a one-token sequence, softmax head."""
+    from seldon_core_tpu_torch.ops.moe import moe_ffn
+
+    h = dense(p["embed"], x)[:, None, :]
+    h = h + moe_ffn(p["moe"], h)
+    return softmax_f32(dense(p["head"], h[:, 0, :]))
+
+
+def _moe_apply_factory(mesh):
+    """An "expert" axis splits the experts over its positions
+    (``ops/moe.py::moe_ffn_shards``: each position's slab, then one psum);
+    without one each data lead computes every expert."""
+    from seldon_core_tpu_torch.ops.moe import moe_ffn_shards
+    from seldon_core_tpu_torch.parallel.collectives import replicated
+    from seldon_core_tpu_torch.parallel.mesh import EXPERT_AXIS, MeshApply, data_parallel, memoised_apply
+
+    if EXPERT_AXIS not in mesh.shape:
+        return data_parallel(_apply_moe_mlp, mesh)
+
+    def apply_experts(params, xs):
+        hs = replicated(lambda p, x: dense(p["embed"], x)[:, None, :], mesh, EXPERT_AXIS, params, xs)
+        moe = moe_ffn_shards([p["moe"] for p in params], hs, mesh, EXPERT_AXIS)
+        out: list = [None] * mesh.size
+        for lead in mesh.leads():
+            out[lead] = softmax_f32(dense(params[lead]["head"], (hs[lead] + moe[lead])[:, 0, :]))
+        return out
+
+    return memoised_apply(("moe_mlp", mesh), lambda: MeshApply(apply_experts, mesh, "moe_mlp"))
+
+
+@register_model("moe_mlp")
+def build_moe_mlp(seed: int = 0, n_in: int = 16, d_model: int = 64, d_ff: int = 128, n_experts: int = 8,
+                  classes: int = 3, **_) -> ModelSpec:
+    """Expert-parallel serving model: a mixture-of-experts classifier whose
+    expert weights split over the mesh "expert" axis (``ops/moe.py::
+    moe_pspecs``); without a mesh the same parameters serve dense."""
+    from seldon_core_tpu_torch.ops.moe import init_moe, moe_pspecs
+    from seldon_core_tpu_torch.parallel.mesh import P
+
+    rng = np.random.default_rng((seed, 1))  # apart from init_moe's own stream
+    params = {
+        "embed": _dense_init(rng, n_in, d_model),
+        "moe": init_moe(seed, d_model=d_model, d_ff=d_ff, n_experts=n_experts),
+        "head": _dense_init(rng, d_model, classes),
+    }
+    pspecs = {"embed": {"w": P(), "b": P()}, "moe": moe_pspecs(), "head": {"w": P(), "b": P()}}
+    return ModelSpec(_apply_moe_mlp, params, (n_in,), tuple(f"c{i}" for i in range(classes)),
+                     param_pspecs=pspecs, apply_factory=_moe_apply_factory)
+
+
 @register_model("tiny_gpt")
 def build_tiny_gpt(
     seed: int = 0,
@@ -343,7 +487,10 @@ def _apply_tiny_gpt(p, x, *, max_new_tokens: int):
     return generate(p, x, max_new_tokens)
 
 
-def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bool = True) -> ModelRuntime:
+def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bool = True,
+                            mesh=None) -> ModelRuntime:
+    """The spec's runtime on ``device``, or over ``mesh`` with the apply its
+    ``apply_factory(mesh)`` gives (JAX ``models/zoo.py:526-540``)."""
     dtype_name = getattr(tpu_cfg, "dtype", "float32")
     if dtype_name not in DTYPES:
         raise ValueError(f"tpu.dtype must be one of {sorted(DTYPES)}, got {dtype_name!r}")
@@ -355,8 +502,23 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bo
         raise ValueError(
             f"tpu.weight_quant={weight_quant!r} on a generative model is not part of the torch port yet"
         )
+    if mesh is not None and ms.generative is not None:
+        if any(size > 1 for axis, size in mesh.shape.items() if axis != DATA_AXIS):
+            raise ValueError(
+                f"a generative model on tpu.mesh {mesh.shape} is not part of the torch port yet (decode over a "
+                "mesh, parallel/tp.py and decode_mesh_axes, comes with decode tensor parallelism)"
+            )
+        # a data-only mesh (the default {"data": cards} on a host of several
+        # cards): decode serves on the first position, as before meshes
+        logging.getLogger(__name__).warning(
+            "generative model: tpu.mesh %s is served on one device, %s (decode over a mesh is not ported yet)",
+            mesh.shape, mesh.positions[0])
+        device, mesh = mesh.positions[0], None
+    apply_fn = ms.apply_fn
+    if mesh is not None and ms.apply_factory is not None:
+        apply_fn = ms.apply_factory(mesh)
     rt = ModelRuntime(
-        ms.apply_fn,
+        apply_fn,
         ms.params,
         device=device,
         buckets=tuple(getattr(tpu_cfg, "batch_buckets", ()) or ()),
@@ -368,6 +530,8 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bo
         layout=ms.layout,
         weight_quant=weight_quant,
         cuda_graphs=cuda_graphs,
+        mesh=mesh,
+        param_pspecs=ms.param_pspecs,
     )
     rt.feature_shape = ms.feature_shape
     rt.generative = ms.generative
@@ -390,11 +554,12 @@ def _parse_zoo_uri(uri: str) -> tuple[str, dict]:
 
 
 def build_runtime_from_uri(
-    uri: str, tpu_cfg, device=None, extra_params: dict | None = None, cuda_graphs: bool = True
+    uri: str, tpu_cfg, device=None, extra_params: dict | None = None, cuda_graphs: bool = True, mesh=None
 ) -> ModelRuntime:
     """``extra_params``: unit parameters beyond model/model_uri, merged as
     builder kwargs under the URI's own query string (the URI wins).
-    ``cuda_graphs=False`` builds the eager twin (``ModelRuntime``).
+    ``cuda_graphs=False`` builds the eager twin (``ModelRuntime``); ``mesh``
+    serves the model over a mesh's positions.
 
     Schemes: ``zoo://<name>?k=v`` (a seeded zoo build), ``file://<dir>`` (a
     checkpoint of either package, ``persistence/checkpoint.py``) and
@@ -418,16 +583,17 @@ def build_runtime_from_uri(
         ms = _hf_bert_spec(uri, extra_params)
     else:
         raise ValueError(f"unsupported model_uri '{uri}'")
-    return _runtime_from_modelspec(ms, tpu_cfg, device, cuda_graphs)
+    return _runtime_from_modelspec(ms, tpu_cfg, device, cuda_graphs, mesh)
 
 
 def _hf_bert_spec(uri: str, extra_params: dict) -> ModelSpec:
     """The ``hf-bert://`` branch of the JAX package's
     ``build_runtime_from_uri``: the URI's query wins over the unit
     parameters, ``seq`` defaults to 128 and may not pass the checkpoint's
-    position table, ``attn_kernel`` picks the apply. ``seq_parallel`` is
-    accepted and does nothing on one card."""
-    from seldon_core_tpu_torch.models.bert import apply_for_kernel
+    position table, ``attn_kernel`` picks the apply, and on a mesh the
+    spec carries BERT's apply factory and partition rule: ``seq_parallel``
+    (ring or ulysses) acts on a "seq" axis (JAX ``zoo.py:635-647``)."""
+    from seldon_core_tpu_torch.models.bert import apply_for_kernel, bert_apply_factory, bert_pspecs, infer_heads
     from seldon_core_tpu_torch.models.hf_import import (
         bert_params_from_hf,
         check_bert_geometry,
@@ -458,6 +624,9 @@ def _hf_bert_spec(uri: str, extra_params: dict) -> ModelSpec:
         (seq,),
         class_names_from_config(config, params["head"]["w"].shape[1]),
         int_inputs="ids",
+        param_pspecs=bert_pspecs(params),
+        apply_factory=partial(bert_apply_factory, seq_parallel=str(kwargs.get("seq_parallel", "ring")),
+                              num_heads=infer_heads(params), attn_kernel=str(kwargs.get("attn_kernel", "auto"))),
     )
 
 
@@ -480,6 +649,19 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
     if uri is None:
         raise ValueError(f"JAX_MODEL unit '{spec.name}' needs a model_uri parameter")
     finetune = bool_param(params.get("finetune", False))
+    device, mesh = context.get("device"), context.get("mesh")
+    if finetune and mesh is not None:
+        if any(size > 1 for axis, size in mesh.shape.items() if axis != DATA_AXIS):
+            raise ValueError(
+                f"unit '{spec.name}': finetune=true on tpu.mesh {mesh.shape} is not part of the torch port "
+                "yet (the sharded train steps come with decode tensor parallelism)"
+            )
+        # a data-only mesh: the replica that learns serves on the first
+        # position, as a generative model does
+        logging.getLogger(__name__).warning(
+            "unit '%s': finetune=true on tpu.mesh %s is served on one device, %s (the sharded train steps are "
+            "not ported yet)", spec.name, mesh.shape, mesh.positions[0])
+        device, mesh = mesh.positions[0], None
     if finetune and getattr(context.get("tpu"), "weight_quant", "") == "int8":
         raise ValueError(
             f"unit '{spec.name}': finetune=true cannot combine with "
@@ -488,8 +670,8 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
             "scales; serve the finetuning replica unquantized"
         )
     runtime = build_runtime_from_uri(
-        uri, context.get("tpu"), context.get("device"), extra_params=extra,
-        cuda_graphs=context.get("cuda_graphs", True),
+        uri, context.get("tpu"), device, extra_params=extra,
+        cuda_graphs=context.get("cuda_graphs", True), mesh=mesh,
     )
     if finetune:
         from seldon_core_tpu_torch.models.online import OnlineFinetuneModelUnit
@@ -508,5 +690,5 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
 
 def unit_from_container(spec: PredictiveUnit, container: ContainerSpec, context: dict) -> ModelUnit:
     runtime = build_runtime_from_uri(container.model_uri, context.get("tpu"), context.get("device"),
-                                     cuda_graphs=context.get("cuda_graphs", True))
+                                     cuda_graphs=context.get("cuda_graphs", True), mesh=context.get("mesh"))
     return ModelUnit(spec, runtime)

@@ -20,7 +20,7 @@ policy froze it, and the heap is frozen again once it has gone
 
 The default service factory builds what ``serving/server.py::
 PredictorServer`` builds (the executor on the manager's device with its
-hooks, the batcher, the service, the predictor's mesh held to one card)
+hooks, the batcher, the service, the predictor's mesh)
 and, as the JAX factory, no decode scheduler: a generative deployment
 applied here serves its fused ``generate``. ``RunningDeployment.warmup``
 captures every runtime's graphs; ``apply`` does not call it (as in the JAX
@@ -255,7 +255,9 @@ def _leaves(tree: Any):
 def deployment_param_bytes(services: dict) -> int:
     """Device bytes held by a deployment's model parameters: ``numel() *
     element_size()`` of every parameter tensor of every runtime (int8
-    payloads and their float32 scales included)."""
+    payloads and their float32 scales included), each tensor once: on a
+    mesh a replicated leaf is held once per distinct device
+    (``ModelRuntime.param_bytes``)."""
     total = 0
     for svc in services.values():
         executor = getattr(svc, "executor", None)
@@ -264,7 +266,7 @@ def deployment_param_bytes(services: dict) -> int:
         for unit in executor.units():
             runtime = getattr(unit, "runtime", None)
             if runtime is not None:
-                total += sum(t.numel() * t.element_size() for t in _leaves(runtime.params) if hasattr(t, "numel"))
+                total += runtime.param_bytes()
     return total
 
 
@@ -327,7 +329,11 @@ class DeploymentManager:
     ``store`` (the gateway's DeploymentStore) and ``backend`` (its
     InProcessBackend) make applied deployments routable through the
     gateway. ``device`` is where the default factory builds (default: the
-    card, raising when none is visible)."""
+    card, raising when none is visible). A predictor's ``tpu.mesh`` is
+    built over ``mesh_devices`` (positions; a list may repeat a device) or,
+    without it, over the cards of the host where it has an axis other than
+    "data" (``parallel/mesh.py::serving_positions``), under the JAX
+    package's device-count rule."""
 
     def __init__(
         self,
@@ -340,9 +346,11 @@ class DeploymentManager:
         hbm_budget_bytes: int | None = None,
         allow_python_class: bool | None = None,
         device=None,
+        mesh_devices=None,
     ):
         from seldon_core_tpu_torch.core.tensor import resolve_device
 
+        self.mesh_devices = None if mesh_devices is None else list(mesh_devices)
         self.store = store
         self.backend = backend
         self.metrics = metrics
@@ -376,8 +384,8 @@ class DeploymentManager:
     # ------------------------------------------------------------ factories
     def _default_service_factory(self, dep: SeldonDeployment, predictor):
         from seldon_core_tpu_torch.engine.executor import build_executor
-        from seldon_core_tpu_torch.graph.defaulting import mesh_from_spec
         from seldon_core_tpu_torch.metrics.registry import MetricsResilienceEvents
+        from seldon_core_tpu_torch.parallel.mesh import mesh_from_spec, serving_positions
         from seldon_core_tpu_torch.serving.batcher import make_batcher
         from seldon_core_tpu_torch.serving.service import PredictionService
 
@@ -394,14 +402,20 @@ class DeploymentManager:
             def shadow_hook(shadow_unit, agree):  # noqa: E306
                 metrics.shadow_compare(dep_name, predictor.name, shadow_unit, agree)
 
-        # the CR's tpu.mesh, held to the one card this process serves (a
-        # larger data axis shrinks, another axis that needs more is refused)
-        mesh_from_spec(predictor.tpu.mesh, n_devices=1)
+        # the CR's tpu.mesh over the positions asked for, or the cards where it
+        # shards (a data-only mesh stays on self.device): a larger data axis
+        # shrinks, another axis that needs more is refused
+        mesh = mesh_from_spec(predictor.tpu.mesh,
+                              serving_positions(predictor.tpu.mesh, self.device, self.mesh_devices))
+        if mesh is not None:
+            log.info("deployment %s predictor %r serves over mesh %s: %d positions on %d distinct device(s)",
+                     dep_name, predictor.name, mesh.shape, mesh.size, mesh.n_devices)
         executor = build_executor(
             predictor,
             context={
                 "allow_python_class": self.allow_python_class,
                 "device": self.device,
+                "mesh": mesh,
             },
             feedback_metrics_hook=feedback_hook,
             unit_call_hook=unit_call_hook,
@@ -423,6 +437,7 @@ class DeploymentManager:
             metrics=metrics,
             decode_npy=predictor.tpu.decode_npy_bindata,
             deadline_ms=predictor.tpu.deadline_ms,
+            mesh_attrs=None if mesh is None else mesh.describe(),
         )
 
     def _make_persister(self, name: str, services: dict):

@@ -1,0 +1,166 @@
+"""Collectives between mesh positions, in list-of-shards form.
+
+The JAX package writes its sharded ops under ``shard_map`` with
+``lax.psum``, ``lax.all_gather``, ``lax.all_to_all`` and ``lax.ppermute``,
+which XLA lowers to ICI transfers. The port's sharded ops hold one tensor per
+mesh position (``parallel/mesh.py``) and move data between positions with
+these functions, as copies and adds:
+
+- between positions on one device they are tensor operations (a position
+  receives the very tensor another holds: nothing is copied);
+- between distinct cards they are peer copies (``Tensor.to``). That path is
+  written to be right but has not run yet: the card's host has one H100.
+
+Each function takes the shards of every position and the mesh axis to act
+along, and acts within each group of positions that differ only along that
+axis (``Mesh.groups``), as a collective over a named axis does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping, Sequence
+
+import torch
+
+from seldon_core_tpu_torch.parallel.mesh import Mesh
+
+
+def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return t if t.device == device else t.to(device)
+
+
+def psum(shards: Sequence[torch.Tensor], mesh: Mesh, axis: str) -> list[torch.Tensor]:
+    """Every member of a group receives the sum of the group's shards (the
+    sum is formed once per group, on its first member's device, in axis
+    order)."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        total = shards[group[0]]
+        dev = total.device
+        for p in group[1:]:
+            total = total + _on(shards[p], dev)
+        for p in group:
+            out[p] = _on(total, mesh.positions[p])
+    return out
+
+
+def all_gather(shards: Sequence[torch.Tensor], mesh: Mesh, axis: str, dim: int) -> list[torch.Tensor]:
+    """Every member receives the group's shards concatenated along ``dim``
+    in axis order (``lax.all_gather(..., tiled=True)``)."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        dev = mesh.positions[group[0]]
+        whole = torch.cat([_on(shards[p], dev) for p in group], dim=dim)
+        for p in group:
+            out[p] = _on(whole, mesh.positions[p])
+    return out
+
+
+def all_to_all(shards: Sequence[torch.Tensor], mesh: Mesh, axis: str, split_dim: int, concat_dim: int,
+               ) -> list[torch.Tensor]:
+    """Tiled all-to-all (``lax.all_to_all(..., tiled=True)``): member i
+    splits its shard into N chunks along ``split_dim``; member j receives
+    chunk j of every member, concatenated along ``concat_dim`` in member
+    order."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        n = len(group)
+        chunks = []
+        for p in group:
+            size = shards[p].shape[split_dim]
+            if size % n:
+                raise ValueError(f"all_to_all: dimension {split_dim} of size {size} does not split over "
+                                 f"axis '{axis}' of size {n}")
+            chunks.append(shards[p].chunk(n, dim=split_dim))
+        for j, p in enumerate(group):
+            dev = mesh.positions[p]
+            out[p] = torch.cat([_on(chunks[i][j], dev) for i in range(n)], dim=concat_dim)
+    return out
+
+
+def ppermute(shards: Sequence[torch.Tensor], mesh: Mesh, axis: str, perm: Sequence[tuple[int, int]],
+             ) -> list[torch.Tensor]:
+    """``lax.ppermute``: for each (src, dst) pair of axis indices, member
+    dst receives member src's shard; a member that receives nothing gets
+    zeros."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        got = [None] * len(group)
+        for src, dst in perm:
+            got[dst] = _on(shards[group[src]], mesh.positions[group[dst]])
+        for i, p in enumerate(group):
+            out[p] = got[i] if got[i] is not None else torch.zeros_like(shards[p])
+    return out
+
+
+def per_unique(fn: Callable[..., torch.Tensor], *shard_lists: Sequence[torch.Tensor]) -> list:
+    """``fn`` over positions, called once per distinct tuple of input
+    tensors: positions that hold the very same tensors (a replicated value
+    on one device) share one result, as they would share one buffer."""
+    cache: dict = {}
+    out = []
+    for args in zip(*shard_lists):
+        key = tuple(id(a) for a in args)
+        if key not in cache:
+            cache[key] = fn(*args)
+        out.append(cache[key])
+    return out
+
+
+def shard(x: torch.Tensor, mesh: Mesh, dims: Mapping[str, int]) -> list[torch.Tensor]:
+    """A global tensor split over mesh axes: ``dims`` maps an axis to the
+    dimension it splits (axes the mesh lacks are skipped; the tensor is
+    replicated over the mesh's other axes). Each position's block lands on
+    its device; positions on one device with the same block share one
+    tensor."""
+    dims = {a: d for a, d in dims.items() if a in mesh.shape}
+    for a, d in dims.items():
+        if x.shape[d] % mesh.shape[a]:
+            raise ValueError(f"dimension {d} of size {x.shape[d]} does not split over axis '{a}' of size "
+                             f"{mesh.shape[a]}")
+    cache: dict = {}
+    out = []
+    for p in range(mesh.size):
+        key = (tuple(mesh.coord(p, a) for a in dims), mesh.positions[p])
+        if key not in cache:
+            t = x
+            for (a, d), i in zip(dims.items(), key[0]):
+                n = t.shape[d] // mesh.shape[a]
+                t = t.narrow(d, i * n, n)
+            cache[key] = _on(t, key[1])
+        out.append(cache[key])
+    return out
+
+
+def unshard(shards: Sequence[torch.Tensor], mesh: Mesh, dims: Mapping[str, int], device: torch.device,
+            ) -> torch.Tensor:
+    """The global tensor whose blocks the positions hold, split as ``shard``
+    splits it: the blocks of the positions whose other coordinates are 0,
+    concatenated on ``device``."""
+    dims = {a: d for a, d in dims.items() if a in mesh.shape}
+    blocks = {}
+    for p in range(mesh.size):
+        if all(mesh.coord(p, a) == 0 for a in mesh.axis_names if a not in dims):
+            blocks[tuple(mesh.coord(p, a) for a in dims)] = _on(shards[p], device)
+    for depth in reversed(range(len(dims))):
+        d = list(dims.values())[depth]
+        merged: dict = {}
+        for key in sorted(blocks):
+            merged.setdefault(key[:depth], []).append(blocks[key])
+        blocks = {k: v[0] if len(v) == 1 else torch.cat(v, dim=d) for k, v in merged.items()}
+    return blocks[()]
+
+
+def replicated(fn: Callable[..., torch.Tensor], mesh: Mesh, axis: str, *shard_lists: Sequence) -> list:
+    """``fn`` over positions for a value replicated over ``axis``: computed
+    once per device in each group (at the group's first position on that
+    device) and shared by the group's positions there."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        done: dict = {}
+        for p in group:
+            dev = mesh.positions[p]
+            if dev not in done:
+                done[dev] = fn(*(lst[p] for lst in shard_lists))
+            out[p] = done[dev]
+    return out

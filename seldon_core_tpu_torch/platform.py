@@ -60,7 +60,11 @@ class Platform:
         hbm_budget_bytes: int | None = None,
         allow_python_class: bool | None = None,
         device=None,
+        mesh_devices=None,
     ):
+        """``mesh_devices``: the positions every predictor's ``tpu.mesh`` is
+        built over (a list may repeat a device); default the host's cards for
+        a mesh with an axis other than "data", else ``device``."""
         self.metrics = get_metrics(metrics_enabled)
         self.oauth = OAuthProvider(token_store=make_token_store(token_store_url))
         self.store = DeploymentStore(oauth=self.oauth)
@@ -80,6 +84,7 @@ class Platform:
             hbm_budget_bytes=hbm_budget_bytes,
             allow_python_class=allow_python_class,
             device=device,
+            mesh_devices=mesh_devices,
         )
         self._servers: list[asyncio.AbstractServer] = []
         self._grpc_server = None

@@ -1,14 +1,19 @@
-"""Predictor server: one process serves one predictor on one device.
+"""Predictor server: one process serves one predictor on one device, or over a mesh.
 
 Port of ``seldon_core_tpu/serving/server.py``: parse, default and
 validate the deployment (``graph/validation.py::validate_deployment``, the
 JAX package's rules and the port's refusal of the knobs it does not serve,
 on every path: ``load_predictor`` validates the whole deployment and
 ``PredictorServer`` the predictor it is given, as the JAX ``_prepare``
-does), hold its ``tpu.mesh`` to the one device this process serves (a
-larger data axis shrinks, any other axis that needs more devices is
-refused, as the JAX package's mesh rule does), build the executor (models on the device, pure
-subtrees fused) and, for a single generative model with
+does), build its ``tpu.mesh`` (``parallel/mesh.py``) over the positions
+its caller asked for (``mesh_devices``, a list that may repeat a device:
+``[cuda:0] * 8`` serves an 8-position mesh on one card) or, where the mesh
+has an axis other than "data", over the cards this process sees (a
+data-only mesh stays on the server's device: ``parallel/mesh.py::
+serving_positions``), under the JAX package's rule (a larger
+data axis shrinks, any other axis that needs more devices is refused),
+build the executor (models on the device or the mesh, pure subtrees fused)
+and, for a single generative model with
 ``tpu.decode_slots``, its continuous-batching decode scheduler, warm every
 batch bucket, serve REST through the fast ingress and, when asked, gRPC
 beside it (``serving/grpc_server.py``), and on shutdown stop taking
@@ -53,10 +58,11 @@ import signal
 
 from seldon_core_tpu_torch.core.tensor import resolve_device
 from seldon_core_tpu_torch.engine.executor import GraphExecutor, build_executor
-from seldon_core_tpu_torch.graph.defaulting import default_deployment, mesh_from_spec
+from seldon_core_tpu_torch.graph.defaulting import default_deployment
 from seldon_core_tpu_torch.graph.spec import DeploymentSpec, PredictorSpec, SeldonDeployment
 from seldon_core_tpu_torch.graph.validation import validate_deployment
 from seldon_core_tpu_torch.metrics.registry import MetricsResilienceEvents, get_metrics, run_loop_lag_probe
+from seldon_core_tpu_torch.parallel.mesh import mesh_from_spec, serving_positions
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
 from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
@@ -79,20 +85,25 @@ class PredictorServer:
         device=None,
         cuda_graphs: bool = True,
         metrics_enabled: bool = True,
+        mesh_devices=None,
     ):
         self.predictor = predictor
         self.deployment_name = deployment_name
         self.device = resolve_device(device)
         self.metrics = get_metrics(metrics_enabled)
         # whichever way the spec came, it is held to the deployment rules,
-        # then to the one device this process serves
+        # then to the devices this process serves on
         validate_predictor(predictor, deployment_name)
-        mesh_from_spec(predictor.tpu.mesh, n_devices=1)
+        self.mesh = mesh_from_spec(predictor.tpu.mesh,
+                                   serving_positions(predictor.tpu.mesh, self.device, mesh_devices))
+        if self.mesh is not None:
+            log.info("predictor %r serves over mesh %s: %d positions on %d distinct device(s)", predictor.name,
+                     self.mesh.shape, self.mesh.size, self.mesh.n_devices)
         # cuda_graphs=False: every runtime and the decode scheduler run their
         # dispatch keys eagerly (the eager twins the card checks compare with)
         self.executor: GraphExecutor = build_executor(
             predictor,
-            context={"device": self.device, "cuda_graphs": cuda_graphs},
+            context={"device": self.device, "cuda_graphs": cuda_graphs, "mesh": self.mesh},
             resilience_events=MetricsResilienceEvents(self.metrics, deployment_name),
             unit_call_hook=lambda unit, method, dt: self.metrics.unit_call(
                 deployment_name, predictor.name, unit, method, dt
@@ -128,6 +139,7 @@ class PredictorServer:
             deadline_ms=predictor.tpu.deadline_ms,
             metrics=self.metrics,
             decode_npy=predictor.tpu.decode_npy_bindata,
+            mesh_attrs=None if self.mesh is None else self.mesh.describe(),
         )
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None
@@ -238,7 +250,9 @@ async def _amain(args) -> None:
         f"seldon-core-tpu-torch predictor '{predictor.name}' of deployment "
         f"'{dep_name}' serving REST :{server.port}"
         + (f" gRPC :{server.grpc_port}" if server.grpc_port is not None else "")
-        + f" on {server.device}",
+        + f" on {server.device}"
+        + ("" if server.mesh is None else f", mesh {server.mesh.shape} over {server.mesh.size} positions on "
+           f"{server.mesh.n_devices} distinct device(s)"),
         flush=True,
     )
     await stop_event.wait()

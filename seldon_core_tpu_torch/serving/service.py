@@ -123,6 +123,7 @@ class PredictionService:
         metrics: NullMetrics | None = None,
         tracer=None,
         decode_npy: bool = True,
+        mesh_attrs: dict | None = None,
     ):
         self.executor = executor
         self.deployment_name = deployment_name
@@ -138,6 +139,9 @@ class PredictionService:
         # tpu.decode_npy_bindata: False keeps every binData opaque, for
         # bytes-contract graphs whose payloads could start with the npy magic
         self.decode_npy = decode_npy
+        # a predictor served over a mesh: its axes, positions and distinct
+        # devices ride every ingress span (Mesh.describe)
+        self.mesh_attrs = dict(mesh_attrs or {})
         # a graph holding a router that consumes SLO feedback (the
         # PREFIX_AFFINITY built-in) gets each response's meta.tags.slo
         # verdicts back as a reward, with no client change
@@ -191,7 +195,8 @@ class PredictionService:
         return msg, npy_requested
 
     def _trace_attrs(self, method: str) -> dict:
-        return {"deployment": self.deployment_name, "predictor": self.predictor_name, "method": method}
+        return {"deployment": self.deployment_name, "predictor": self.predictor_name, "method": method,
+                **self.mesh_attrs}
 
     async def predict(
         self, msg: SeldonMessage, *, wire_npy: bool = False, traceparent: str | None = None
