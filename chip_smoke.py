@@ -342,8 +342,8 @@ Phases, each of which raises on failure (no phase catches its own):
    16b the soak CLI as processes with the
    ``Makefile``'s ``chaos-smoke`` and ``kvtier-smoke`` arguments (run
    together): 0 errors, an eviction and a recovery, demotions and
-   promotions, 0 keys after warmup; ``--tp 2`` exits non-zero naming
-   ``decode_mesh_axes``. 16c the install bundle's platform command
+   promotions, 0 keys after warmup; ``--tp 2`` on one card (its positions
+   are the host's cards) exits non-zero naming ``decode_mesh_axes``. 16c the install bundle's platform command
    (``build_bundle()``, no YAML) as a process, its three ports swapped
    for free ones and ``--watch-k8s`` for ``--watch-dir``: the rendered
    readiness probe and Prometheus scrape answer 200, and an ``iris`` CR
@@ -375,6 +375,34 @@ Phases, each of which raises on failure (no phase catches its own):
    (8, 3, 512, 512, 64) bf16 as QKV views against its plain version and
    timed as in phase 2. 17d the three files without positions asked for:
    the server and the platform's manager refuse each by the mesh rule.
+18. tensor-parallel decode (``serve_tp``; ``parallel/tp.py``,
+   ``tpu.decode_mesh_axes``) and int8 BERT over a "model" axis, on
+   positions of the one card (no interconnect is exercised). 18a
+   ``tiny_gpt_tensor_parallel.json`` as the file has it ({"tp": 2}) over
+   two positions: every greedy row held under the tie rule against the
+   same deployment at tp 1 and against the fused ``generate``, one SSE
+   stream against its buffered reply, 0 keys after warmup, the shard audit
+   and the allocator check, ``seldon_tpu_decode_kv_pages_per_device``
+   labelled tp 2; without positions, one card serves it at tp 1 with the
+   JAX package's "needs 2 devices, have 1" warning. 18b
+   ``gpt2_small_speculative`` at full width over {"tp": 4} (chain, and a
+   tree "2,2,1,1" copy) beside its tp-1 copy: 8 staggered greedy requests
+   each, held under the tie rule, accept rate, rounds, ms per token and one
+   round's device time and operations; a copy at seq 4096 with one request,
+   whose draft admission must launch the causal flash kernel 8 times (2
+   draft layers x 4 positions, counted), its ids held against tp 1; a
+   planted fault (a row-parallel bias added on every position, on the
+   target with nonzero biases) must fail the id check. 18c
+   ``bert_base_flash.json`` with ``weight_quant: int8`` over {"model": 4}:
+   answers within ``SERVE_ATOL`` of the unsharded int8 server's, 192 W8A16
+   launches on the wgmma body plus the head's on mma and 48 flash launches
+   per forward (counted), resident bytes and the 1-user p50 beside the
+   unsharded server's (phase 7b holds the four shard shapes of its W8A16
+   calls). 18d a 3 s ``soak(..., tp=2)`` over two positions, in a process
+   of its own (``chip_smoke.py --tp-soak``): its shard audit and allocator
+   check pass. Then the flash kernel at (1, 3, 4096,
+   4096, 64) causal as QKV views against its plain version, timed as in
+   phase 2.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -387,6 +415,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import faulthandler
 import gc
 import json
 import os
@@ -2362,6 +2391,13 @@ INT8_SHAPES = [  # name, (E, M, K, N), x shared by the members, the bf16 body
     ("m_ragged", (1, 4000, 768, 2304), False, "wgmma"),
     ("k_ragged", (1, 256, 776, 768), False, "wgmma"),
     ("n_ragged", (1, 256, 768, 400), False, "wgmma"),
+    # one position's shards of int8 BERT-base over {"model": 4} at bucket 8 x
+    # seq 512 (phase 18c): qkv's q, k and v column slabs, attn_out's rows
+    # (no bias: it follows the psum), mlp_in's columns, mlp_out's rows
+    ("tp4_qkv_b8", (1, 4096, 768, 576), False, "wgmma"),
+    ("tp4_attn_out_b8", (1, 4096, 192, 768), False, "wgmma"),
+    ("tp4_mlp_in_b8", (1, 4096, 768, 768), False, "wgmma"),
+    ("tp4_mlp_out_b8", (1, 4096, 768, 768), False, "wgmma"),
     # a fused ensemble of three members: the shared input, then per-member
     # rows; K = 776 ends mid-tile, where a read across a member's edge shows
     ("stacked_e3_shared_x", (3, 256, 768, 768), True, "wgmma"),
@@ -7959,7 +7995,8 @@ def soak_cli(card, label: str, args: list) -> tuple[int, dict | None, str]:
 def soak_legs(card) -> dict:
     """16b: the generative soak legs on the card, as processes: the chaos
     leg (a replica killed under load) and the KV-overflow leg pass the
-    soak's own gates and these checks; ``--tp 2`` is refused by name."""
+    soak's own gates and these checks; ``--tp 2`` on one card (the CLI's
+    positions are the host's cards) is refused by name."""
     from concurrent.futures import ThreadPoolExecutor
 
     rows = {}
@@ -8196,6 +8233,36 @@ def soak_main() -> int:
     kernel_build.build()  # the libraries phase 1 built, found by their sources' hash
     print(json.dumps({"soak_phase": asyncio.run(serve_soak(card_line()))}), flush=True)
     return 0
+
+
+def tp_soak_main() -> int:
+    """``chip_smoke.py --tp-soak``: phase 18d in a process of its own.
+    Prints the leg's JSON last."""
+    import torch
+
+    from seldon_core_tpu_torch.ops import kernel_build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --tp-soak: no CUDA card", file=sys.stderr)
+        return 2
+    os.chdir(ROOT)
+    kernel_build.build()  # the libraries phase 1 built, found by their sources' hash
+    print(json.dumps({"tp_soak": asyncio.run(tp_soak(card_line()))}), flush=True)
+    return 0
+
+
+def tp_soak_in_child(card) -> dict:
+    """Phase 18d through ``chip_smoke.py --tp-soak``: its lines printed
+    here, its JSON returned."""
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-soak"], capture_output=True, text=True,
+                       timeout=300, cwd=str(ROOT))
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"18d: chip_smoke.py --tp-soak exited {r.returncode}: {r.stdout[-2000:]} "
+                             f"{r.stderr[-4000:]}")
+    return json.loads(lines[-1])["tp_soak"]
 
 
 def soak_in_child(card) -> dict:
@@ -8555,6 +8622,403 @@ async def serve_mesh(card) -> dict:
     return out
 
 
+TP_POSITIONS = 4  # positions of the one card 18b's and 18c's meshes take
+TP_REQUESTS = 8  # staggered greedy requests per speculative deployment (18b)
+TP_LONG_SEQ = 4096  # 18b's long copy: the draft admission's prefill reaches the causal flash kernel
+TP_LONG_NEW = 64
+TP_FAULT_BIAS_STD = 0.01  # the planted bias fault's row-parallel biases
+TP_FAULT_NEW = 24  # tokens per request of the bias fault's check
+TP_INT8_WANT = {"wgmma": 192, "mma": 1, "fma": 0}  # W8A16 launches per int8 BERT-base forward over {"model": 4}
+TP_SOAK_SECONDS = 3.0
+
+
+def _kv_gauge(text: str, tp: int) -> float | None:
+    """The per-device KV page gauge's value under the tp label (None when
+    the server exports none)."""
+    vals = [v for (n, ls), v in metric_samples(text).items()
+            if n == "seldon_tpu_decode_kv_pages_per_device" and ("tp", str(tp)) in ls]
+    return max(vals) if vals else None
+
+
+async def tp_tiny(card) -> dict:
+    """18a: tiny_gpt_tensor_parallel.json as the file has it ({"tp": 2},
+    paged KV with the prefix cache and chunked prefill) over two positions
+    of the card: every greedy row held under the tie rule against the same
+    deployment at tp 1 and against the fused generate; one SSE stream
+    against its buffered reply; no new dispatch key after warmup; the shard
+    audit and the allocator check; the per-device page gauge labelled tp 2;
+    and, without positions asked for, the JAX package's warn-and-disable
+    (one card: "needs 2 devices, have 1", served at tp 1)."""
+    import logging
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.serving.server import PredictorServer, load_predictor
+
+    path = BASELINE_DIR / "tiny_gpt_tensor_parallel.json"
+    one_path = _mesh_copy("tiny_gpt_tensor_parallel", "tp_tiny_tp1", {"decode_mesh_axes": {}})
+    srv, build_s, warm_s = await _start(path, mesh_devices=_positions(2))
+    ref, *_ = await _start(one_path)
+    sched, ref_sched = srv.decode_scheduler, ref.decode_scheduler
+    runtime = _model_runtime(srv)
+    try:
+        if sched.tp != 2 or sched.mesh.size != 2 or ref_sched.tp != 1:
+            raise AssertionError(f"18a: tp {sched.tp} over {sched.mesh}, reference tp {ref_sched.tp}")
+        dtype_name = str(runtime.dtype).removeprefix("torch.")
+        seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
+        prompts, budgets = _spec_prompts(sched, vocab, seed=18)
+        replies, wall = await _spec_traffic(srv.port, prompts, budgets)
+        ref_replies, ref_wall = await _spec_traffic(ref.port, prompts, budgets)
+        status, events = await _read_sse(srv.port, prompts[:1])
+        _, _, body, _ = await _ids_post(srv.port, prompts[:1])
+        buffered = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0]
+        keys = (sched.recompiles_since_warmup(), ref_sched.recompiles_since_warmup())
+        audit = sched.shard_audit()
+        sched.pool.alloc.check()
+        gauge = _kv_gauge((await _get(srv.port, "/metrics")).decode(), 2)
+        counts = sched.compile_counts()
+    finally:
+        await _stop_standalone(srv)
+        await _stop_standalone(ref)
+    label = "18a tiny_gpt_tensor_parallel"
+    rows = _served_rows(label, replies, budgets, seq)
+    ties = {"tp1": _hold_ids(f"{label} vs tp 1", rows, _served_rows(f"{label} tp1", ref_replies, budgets, seq),
+                             runtime.params, seq, dtype_name),
+            "fused_generate": _hold_ids(f"{label} vs the fused generate", rows, _fused_oracle(runtime, prompts),
+                                        runtime.params, seq, dtype_name)}
+    tokens = [e["token"] for e in events if "token" in e]
+    if tokens != buffered[seq:].tolist() or events[-1].get("ids") != [buffered.tolist()]:
+        raise AssertionError(f"{label}: the SSE stream's tokens {tokens} differ from the buffered reply "
+                             f"{buffered[seq:].tolist()}")
+    if keys != (0, 0):
+        raise AssertionError(f"{label}: new keys after warmup (tp 2, tp 1): {keys}")
+    if audit["tp"] != 2 or audit["mesh_devices"] != 2 or audit["components_audited"] < 2:
+        raise AssertionError(f"{label}: shard audit {audit}")
+    if gauge is None:
+        raise AssertionError(f"{label}: no seldon_tpu_decode_kv_pages_per_device sample labelled tp 2")
+    # without positions: the host's cards
+    records: list = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("seldon_core_tpu_torch.serving.decode_scheduler")
+    logger.addHandler(handler)
+    try:
+        predictor, name = load_predictor(str(path))
+        bare = PredictorServer(predictor, deployment_name=name, device=DEVICE)
+    finally:
+        logger.removeHandler(handler)
+    bare_tp = bare.decode_scheduler.tp
+    await bare.decode_scheduler.close()
+    warned = [r.getMessage() for r in records if "unservable" in r.getMessage()]
+    if _card_count() < 2 and (bare_tp != 1 or not any("needs 2 devices, have 1" in w for w in warned)):
+        raise AssertionError(f"{label}: without positions, tp {bare_tp}, warnings {warned}")
+    n_tok = sum(budgets)
+    row = {"tp": 2, "positions": 2, "dtype": dtype_name, "requests": len(prompts), "tokens": n_tok,
+           "ms_per_token": wall * 1e3 / n_tok, "tp1_ms_per_token": ref_wall * 1e3 / n_tok, "tie_rows": ties,
+           "sse_tokens": len(tokens), "keys_after_warmup": list(keys), "dispatch_keys": counts, "shard_audit": audit,
+           "kv_pages_per_device_gauge": gauge, "build_s": round(build_s, 3), "warmup_s": round(warm_s, 3),
+           "without_positions": {"tp": bare_tp, "warning": warned[0] if warned else None}}
+    print(f"[{card}] 18a {json.dumps(row)}", flush=True)
+    return row
+
+
+def _round_profile(sched) -> dict:
+    """One speculative round with every slot generating at its full limits
+    (all-zero block tables: every pool write lands in junk page 0): host
+    wall, and on the card the device's busy ms and operations."""
+    import numpy as np
+    import torch
+
+    n, tree = sched.n_slots, sched.spec_tree
+    z, zf = np.zeros(n, np.int32), np.zeros(n, np.float32)
+    pos = np.full(n, sched.max_ctx - 1, np.int32)
+    bt, limits = sched.pool.block_tables(), np.full(n, sched.spec_k, np.int32)
+    wl = None if tree is None else np.tile(np.asarray(tree.branching, np.int32), (n, 1))
+
+    def spec_round():
+        sched.pool.load_block_tables(bt)
+        sched._spec(z, pos, zf, z, limits, wl, 0)
+
+    with torch.inference_mode(), sched._on_stream():
+        row = {"round_wall_ms": wall_ms(spec_round, 3)}
+        if DEVICE == "cuda":
+            kernels, ops = profile_device(spec_round)
+            busy = sum(kernels.values())
+            row.update(round_device_ms=busy if busy > 0 else "not measured", device_ops_per_round=ops)
+    return row
+
+
+async def tp_spec_pair(card, label: str, tpu: dict) -> dict:
+    """18b, one deployment: gpt2_small_speculative at full width over
+    {"tp": 4} and its tp-1 copy, TP_REQUESTS staggered greedy requests on
+    each; the tp-4 rows held under the tie rule against the tp-1 rows;
+    accept rate, rounds, ms per token and one round's device time and
+    operations beside tp 1's; no new key after warmup; the shard audit."""
+    tp_path = _mesh_copy("gpt2_small_speculative", f"tp_spec_{label}_tp4", {"decode_mesh_axes": {"tp": 4}, **tpu})
+    one_path = _mesh_copy("gpt2_small_speculative", f"tp_spec_{label}_tp1", tpu)
+    srv, build_s, warm_s = await _start(tp_path, mesh_devices=_positions(TP_POSITIONS))
+    ref, *_ = await _start(one_path)
+    sched, ref_sched = srv.decode_scheduler, ref.decode_scheduler
+    runtime = _model_runtime(srv)
+    dtype_name = str(runtime.dtype).removeprefix("torch.")
+    seq, vocab = sched.seq_len, runtime.params["tok_emb"].shape[0]
+    prompts, budgets = _spec_prompts(sched, vocab, seed=180)
+    prompts, budgets = prompts[:TP_REQUESTS], budgets[:TP_REQUESTS]
+    out = {}
+    try:
+        if sched.tp != TP_POSITIONS or not sched.spec_enabled:
+            raise AssertionError(f"18b {label}: tp {sched.tp}, speculation {sched.spec_enabled}")
+        for kind, s in (("tp4", srv), ("tp1", ref)):
+            before = _spec_stats(s.decode_scheduler)
+            replies, wall = await _spec_traffic(s.port, prompts, budgets)
+            after = _spec_stats(s.decode_scheduler)
+            out[kind] = (replies, wall, {k: after[k] - before[k] for k in after})
+        keys = (sched.recompiles_since_warmup(), ref_sched.recompiles_since_warmup())
+        audit = sched.shard_audit()
+        sched.pool.alloc.check()
+        rounds = {"tp4": _round_profile(sched), "tp1": _round_profile(ref_sched)}
+    finally:
+        await _stop_standalone(srv)
+        await _stop_standalone(ref)
+    name = f"18b gpt2_small_speculative {label}"
+    rows = _served_rows(name, out["tp4"][0], budgets, seq)
+    ties = _hold_ids(f"{name} vs tp 1", rows, _served_rows(f"{name} tp1", out["tp1"][0], budgets, seq),
+                     runtime.params, seq, dtype_name)
+    if keys != (0, 0):
+        raise AssertionError(f"{name}: new keys after warmup (tp 4, tp 1): {keys}")
+    if audit["components_audited"] < 4:
+        raise AssertionError(f"{name}: shard audit {audit}")
+    n_tok = sum(budgets)
+    row = {"tp": TP_POSITIONS, "dtype": dtype_name, "tree": tpu.get("decode_spec_tree"), "requests": len(prompts),
+           "tokens": n_tok, "tie_rows": ties, "keys_after_warmup": list(keys), "shard_audit": audit,
+           "build_s": round(build_s, 3), "warmup_s": round(warm_s, 3)}
+    for kind, (_, wall, st) in out.items():
+        row[kind] = {"accept_rate": st["accepted"] / max(st["proposed"], 1), "rounds": st["rounds"],
+                     "spec_rounds": st["spec_dispatches"], "ms_per_token": wall * 1e3 / n_tok, **rounds[kind]}
+    print(f"[{card}] {name}: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def tp_long_admission(card) -> dict:
+    """18b, the long prompt: a copy of gpt2_small_speculative over
+    {"tp": 4} at seq TP_LONG_SEQ (max_len TP_LONG_SEQ + TP_LONG_NEW, one
+    slot, 512-token chunks) with one request: the draft's admission
+    prefills the whole prompt, whose causal attention takes the flash
+    kernel on each position's 3 heads (2 draft layers x 4 positions = 8
+    launches, counted); its ids held under the tie rule against the same
+    runtime's scheduler at tp 1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
+
+    path = _mesh_copy("gpt2_small_speculative", "tp_spec_long_tp4",
+                      {"decode_mesh_axes": {"tp": TP_POSITIONS}, "decode_slots": 1, "max_batch": 1,
+                       "batch_buckets": [1], "decode_prefill_chunk": 512},
+                      {"seq": TP_LONG_SEQ, "max_len": TP_LONG_SEQ + TP_LONG_NEW, "max_new_tokens": TP_LONG_NEW})
+    srv, build_s, warm_s = await _start(path, mesh_devices=_positions(TP_POSITIONS))
+    sched, runtime = srv.decode_scheduler, _model_runtime(srv)
+    draft_layers = len(sched.draft_params["layers"])
+    want = draft_layers * TP_POSITIONS
+    dtype_name = str(runtime.dtype).removeprefix("torch.")
+    vocab = runtime.params["tok_emb"].shape[0]
+    prompt = np.random.default_rng(181).integers(0, vocab, size=(1, TP_LONG_SEQ))
+    ref = scheduler_for_executor(srv.executor, dataclasses.replace(srv.predictor.tpu, decode_mesh_axes={}))
+    ref.graphs.capture = False  # the reference runs eagerly: no capture to pay for
+    try:
+        LAUNCHES.reset()  # the main path's run starts here
+        status, _, body, ms = await _ids_post(srv.port, prompt)
+        launches = LAUNCHES.count  # ... and ends here
+        if status != 200:
+            raise AssertionError(f"18b long prompt returned HTTP {status}: {body[:300]!r}")
+        served = np.asarray(json.loads(body)["data"]["ndarray"], np.int64)[0]
+        want_ids = await ref.submit(prompt[0].astype(np.int32))
+        keys = sched.recompiles_since_warmup()
+    finally:
+        await ref.close()
+        await _stop_standalone(srv)
+    require_launches("18b draft admission at seq 4096 over {'tp': 4} flash_attention", [launches], want)
+    ties = tie_rule("18b long prompt vs tp 1", [served], [np.asarray(want_ids, np.int64)], runtime.params,
+                    TP_LONG_SEQ, dtype_name)
+    if keys:
+        raise AssertionError(f"18b long prompt: {keys} new keys after warmup")
+    row = {"seq": TP_LONG_SEQ, "draft_layers": draft_layers, "flash_launches": launches, "want": want,
+           "latency_ms": ms, "tie_rows": ties, "build_s": round(build_s, 3), "warmup_s": round(warm_s, 3)}
+    print(f"[{card}] 18b long prompt: {json.dumps(row)}", flush=True)
+    return {"row": row, "launches": launches}
+
+
+async def tp_bias_fault(card) -> dict:
+    """18b's planted fault: the GPT-2-small target with row-parallel biases
+    drawn nonzero, decoded eagerly at tp 1, at tp 4, and at tp 4 with each
+    position adding the bias to its partial product (summed four times).
+    tp 4 must pass the tie rule against tp 1; the planted fault must fail
+    it."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.parallel import tp as tp_mod
+    from seldon_core_tpu_torch.serving.decode_scheduler import DecodeScheduler
+    from seldon_core_tpu_torch.serving.server import PredictorServer, load_predictor
+
+    predictor, name = load_predictor(str(_mesh_copy("gpt2_small_speculative", "tp_fault", SPEC_OFF)))
+    server = PredictorServer(predictor, deployment_name=name, device=DEVICE, cuda_graphs=False)
+    await server.decode_scheduler.close()  # only the runtime's weights are used
+    runtime = _model_runtime(server)
+    rng = np.random.default_rng(182)
+    params = dict(runtime.params)
+    params["layers"] = [{**lp, **{name: {**lp[name], "b": torch.from_numpy(
+        rng.standard_normal(lp[name]["b"].shape).astype(np.float32) * TP_FAULT_BIAS_STD).to(lp[name]["b"])}
+        for name in ("attn_out", "mlp_out")}} for lp in runtime.params["layers"]]
+    seq, vocab = runtime.generative["seq"], params["tok_emb"].shape[0]
+    dtype_name = str(runtime.dtype).removeprefix("torch.")
+    prompts = rng.integers(0, vocab, size=(2, seq)).astype(np.int32)
+
+    async def decode(tp: int) -> list:
+        kw = {"mesh_axes": {"tp": tp}, "devices": _positions(tp)} if tp > 1 else {}
+        s = DecodeScheduler(params, seq_len=seq, max_new_tokens=TP_FAULT_NEW, n_slots=2, dtype=runtime.dtype,
+                            cuda_graphs=False, **kw)
+        try:
+            return [np.asarray(r, np.int64) for r in await asyncio.gather(*(s.submit(p) for p in prompts))]
+        finally:
+            await s.close()
+
+    one, four = await decode(1), await decode(TP_POSITIONS)
+    ties = _hold_ids("18b biased target tp 4 vs tp 1", four, one, params, seq, dtype_name)
+    real = tp_mod.row_parallel
+    tp_mod.row_parallel = lambda partials, bias, mesh, axis: real([p + bias for p in partials], bias * 0, mesh, axis)
+    try:
+        planted = await decode(TP_POSITIONS)
+    finally:
+        tp_mod.row_parallel = real
+    must_fail("18b a row-parallel bias added on every position",
+              lambda: _hold_ids("18b planted bias", planted, one, params, seq, dtype_name))
+    row = {"tie_rows": ties, "planted_rows_differing": sum(int((a != b).any()) for a, b in zip(planted, one))}
+    print(f"[{card}] 18b planted bias fault: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def tp_bert_int8(card) -> dict:
+    """18c: bert_base_flash.json with weight_quant int8 over tpu.mesh
+    {"model": 4}: each position's W8A16 calls on its shards of the int8
+    payloads and its 3 heads through the flash kernel; answers within
+    SERVE_ATOL (0.015) of the unsharded int8 server's, argmax equal off
+    ties; per forward 192 W8A16 launches on the wgmma body plus the head's
+    on mma and 48 flash launches, counted; resident bytes and the 1-user
+    p50 beside the unsharded server's."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    path = _mesh_copy("bert_base_flash", "tp_int8_model4", {"mesh": {"model": TP_POSITIONS}, "weight_quant": "int8"})
+    flat_path = _mesh_copy("bert_base_flash", "tp_int8_unsharded", {"weight_quant": "int8"})
+    sharded, flat, info = await _mesh_pair(card, "18c", path, flat_path, _positions(TP_POSITIONS))
+    try:
+        runtime, ref = _model_runtime(sharded), _model_runtime(flat)
+        if info["apply"] != "bert_tp_pallas" or runtime.weight_quant != "int8":
+            raise AssertionError(f"18c: apply {info['apply']}, weight_quant {runtime.weight_quant!r}")
+        layers, seq, vocab = len(ref.params["layers"]), ref.feature_shape[0], _vocab(ref)
+        want_flash = layers * TP_POSITIONS
+        rng = np.random.default_rng(183)
+        batches = [rng.integers(0, vocab, size=(n, seq)).tolist() for n in (1, 8, 8)]
+        got, flash_d, int8_d, body_d = [], [], [], []
+        LAUNCHES.reset()  # the main path's run starts here
+        i8.reset_launches()
+        for x in batches:
+            f0, q0 = LAUNCHES.count, i8.LAUNCHES.count
+            b0 = {b: c.count for b, c in i8.LAUNCHES_BY_BODY.items()}
+            got.append(await _ask_server(sharded.port, x))
+            flash_d.append(LAUNCHES.count - f0)
+            int8_d.append(i8.LAUNCHES.count - q0)
+            body_d.append({b: c.count - b0[b] for b, c in i8.LAUNCHES_BY_BODY.items()})
+        flash, int8 = LAUNCHES.count, i8.LAUNCHES.count  # ... and ends here
+        by_body = {b: c.count for b, c in i8.LAUNCHES_BY_BODY.items()}
+        want = [await _ask_server(flat.port, x) for x in batches]
+        keys = (runtime.recompiles_since_warmup(), ref.recompiles_since_warmup())
+        load = {"payload": "json", "features": seq}
+        p50 = {"sharded": (await _load_point(sharded.port, 1, load))["p50_ms"],
+               "unsharded": (await _load_point(flat.port, 1, load))["p50_ms"]}
+    finally:
+        await _stop_standalone(sharded)
+        await _stop_standalone(flat)
+    require_launches("18c int8 bert_base_flash over {'model': 4} flash_attention", flash_d, want_flash)
+    require_launches("18c int8 bert_base_flash over {'model': 4} int8_matmul", int8_d, sum(TP_INT8_WANT.values()))
+    if body_d != [TP_INT8_WANT] * len(batches):
+        raise AssertionError(f"18c: W8A16 launches per body and request {body_d}, want {TP_INT8_WANT} each")
+    held = hold_mesh("18c", np.concatenate(got), np.concatenate(want), "bfloat16")
+    if keys != (0, 0):
+        raise AssertionError(f"18c: new keys after warmup (sharded, unsharded): {keys}")
+    if info["param_bytes"] != info["unsharded_param_bytes"]:
+        raise AssertionError(f"18c: int8 resident bytes {info['param_bytes']} over the positions, "
+                             f"{info['unsharded_param_bytes']} unsharded")
+    row = {**info, "layers": layers, "seq": seq, "flash_per_forward": flash_d, "int8_per_forward": int8_d,
+           "int8_by_body_per_forward": body_d, **held, "keys_after_warmup": list(keys), "p50_ms_1_user": p50}
+    print(f"[{card}] 18c int8 bert_base_flash over {{'model': 4}}: {json.dumps(row)}", flush=True)
+    return {"row": row, "flash": flash, "int8": int8, "int8_by_body": by_body}
+
+
+async def tp_soak(card) -> dict:
+    """18d: a TP_SOAK_SECONDS soak of tensor-parallel decode over two
+    positions of the card (``tools/soak.py``'s tp leg): its shard audit and
+    allocator check pass, nothing is built after warmup. Run by
+    ``chip_smoke.py --tp-soak`` in a process of its own, as the soak CLI
+    runs: the soak's stack applies the serving GC policy and leaves its
+    server to the process's exit."""
+    from seldon_core_tpu_torch.tools.soak import soak
+
+    try:
+        out = await soak(duration_s=TP_SOAK_SECONDS, users=4, tp=2, device=DEVICE, mesh_devices=_positions(2))
+    finally:
+        gc.unfreeze()  # the soak's stack froze the heap
+    tp = out["tp"]
+    if (tp["tp"], tp["requested_tp"], tp["mesh_devices"]) != (2, 2, 2) or tp["recompiles_after_warmup"] or \
+            tp["components_audited"] < 2 or out["errors"]:
+        raise AssertionError(f"18d soak --tp 2: {json.dumps(tp)} errors {out['errors']}")
+    row = {"seconds": TP_SOAK_SECONDS, "tp": tp, "errors": out["errors"], "paged": out.get("paged"),
+           "preds_per_sec": out.get("preds_per_sec")}
+    print(f"[{card}] 18d soak --tp 2: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def serve_tp(card) -> dict:
+    """Phase 18: tensor-parallel decode and int8 BERT over a "model" axis on
+    positions of the one card (18a, 18b, 18c, 18d)."""
+    import torch
+
+    gc.unfreeze()
+    out = {"cards": _card_count(), "positions": TP_POSITIONS}
+    print(f"[{card}] phase 18: decode meshes of up to {TP_POSITIONS} positions on {out['cards']} card(s): "
+          "no interconnect is exercised", flush=True)
+    t = time.perf_counter()
+    out["tiny"] = await tp_tiny(card)
+    out["seconds_18a"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out["speculative"] = {label: await tp_spec_pair(card, label, tpu)
+                          for label, tpu in (("chain", {}), ("tree", {"decode_spec_tree": "2,2,1,1"}))}
+    long = await tp_long_admission(card)
+    out["long_prompt"] = long["row"]
+    out["flash_by_path"] = {"draft admission at seq 4096 over {'tp': 4} (phase 18b)": long["launches"]}
+    out["bias_fault"] = await tp_bias_fault(card)
+    out["seconds_18b"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    bert = await tp_bert_int8(card)
+    out["int8_bert"] = bert["row"]
+    out["flash_by_path"]["int8 BERT-base over {'model': 4} (phase 18c)"] = bert["flash"]
+    out["launches"] = sum(out["flash_by_path"].values())
+    out["int8_launches"], out["int8_by_body"] = bert["int8"], bert["int8_by_body"]
+    out["seconds_18c"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out["soak"] = tp_soak_in_child(card)
+    out["seconds_18d"] = round(time.perf_counter() - t, 3)
+    out["kernel"] = check_flash(("tp4_decoder_prefill_views", (1, 3, TP_LONG_SEQ, TP_LONG_SEQ, 64), torch.bfloat16,
+                                 True, "qkv_views"), card) if DEVICE == "cuda" else {}
+    return out
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -8603,6 +9067,9 @@ def main() -> int:
     from seldon_core_tpu_torch.ops import int8_matmul, kernel_build
     from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES, flash_attention
 
+    # a fatal signal (an abort at the process's exit included) prints every
+    # thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the deployments' model_store/ and model_dir paths are the checkout's
@@ -8831,6 +9298,17 @@ def main() -> int:
           f"{mesh_out['tensor_parallel']['want_per_forward']} a forward)", flush=True)
     print(f"[{card}] phase 17 seconds: {time.perf_counter() - t17:.3f}", flush=True)
 
+    # 18. tensor-parallel decode and int8 BERT over a "model" axis on
+    # positions of the one card
+    t18 = time.perf_counter()
+    tp_out = asyncio.run(serve_tp(card))
+    tp_flash, tp_int8 = tp_out["launches"], tp_out["int8_launches"]
+    if min(tp_out["flash_by_path"].values()) <= 0 or tp_int8 <= 0:
+        raise AssertionError(f"phase 18 launched flash {tp_out['flash_by_path']}, int8_matmul {tp_int8} times")
+    print(f"[{card}] phase 18 flash_attention launches: {tp_flash} {json.dumps(tp_out['flash_by_path'])}; "
+          f"int8_matmul launches: {tp_int8} by body {json.dumps(tp_out['int8_by_body'])}", flush=True)
+    print(f"[{card}] phase 18 seconds: {time.perf_counter() - t18:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -8841,7 +9319,7 @@ def main() -> int:
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
         + learning_launches + source_launches + split_launches + grpc_launches + platform_flash + twins_flash
-        + tools_flash + mesh_flash,
+        + tools_flash + mesh_flash + tp_flash,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
@@ -8854,7 +9332,8 @@ def main() -> int:
                              "platform (phase 15)": platform_flash,
                              "platform's standalone twins (phase 15)": twins_flash,
                              "soak (phase 16, its own process)": tools_flash,
-                             "tensor-parallel BERT-base over {'model': 4} (phase 17c)": mesh_flash},
+                             "tensor-parallel BERT-base over {'model': 4} (phase 17c)": mesh_flash,
+                             **tp_out["flash_by_path"]},
         "warmup_launches_apart": {"soak's two servers (phase 16)": tools_out["warmup_launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
@@ -8874,27 +9353,33 @@ def main() -> int:
         # one model-axis position's 3 heads of BERT-base, bf16 (phase 17c)
         "tp4_b8_views": {k: mesh_out["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                              "library_ms")},
+        # one decode-mesh position's 3 heads of the draft's causal prefill at
+        # seq 4096, bf16 (phase 18b)
+        "tp4_decoder_prefill_views": {k: tp_out["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                       "bound_by", "library_ms")},
     }]
     int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
     served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
               "pooler_b32_bfloat16",
               "qkv_b1_bfloat16", "qkv_b32_float32", "stacked_e3_shared_x_bfloat16", "stacked_e3_bfloat16",
               "stacked_e3_k776_shared_x_bfloat16", "stacked_e3_k776_bfloat16",
-              "m_ragged_bfloat16", "k_ragged_bfloat16", "n_ragged_bfloat16"}
+              "m_ragged_bfloat16", "k_ragged_bfloat16", "n_ragged_bfloat16",
+              "tp4_qkv_b8_bfloat16", "tp4_attn_out_b8_bfloat16", "tp4_mlp_in_b8_bfloat16", "tp4_mlp_out_b8_bfloat16"}
     kernels.append({
         "name": "int8_matmul",
         "route": "cuda",
         "source": "seldon_core_tpu_torch/csrc/int8_matmul.cu",
         # no Pallas kernel: XLA's fusion of quant.dequantize into the matmul
         "replaces": "seldon_core_tpu/models/base.py:137",
-        "launches": int8_launches + learning_int8 + source_int8 + platform_int8 + twins_int8,
+        "launches": int8_launches + learning_int8 + source_int8 + platform_int8 + twins_int8 + tp_int8,
         "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8,
                              "model sources (phase 11)": source_int8,
                              "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"],
                              "split data plane (phase 13)": split_plane["launches"]["int8_matmul"],
                              "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"],
                              "platform (phase 15)": platform_int8,
-                             "platform's standalone twins (phase 15)": twins_int8},
+                             "platform's standalone twins (phase 15)": twins_int8,
+                             "int8 BERT-base over {'model': 4} (phase 18c)": tp_int8},
         "launches_by_body": int8_by_body,
         "host_us": int8_host["wrapper_us"],
         **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
@@ -8915,6 +9400,8 @@ def main() -> int:
     print(json.dumps({"platform": {"card": card, **platform_out}}), flush=True)
     print(json.dumps({"tools": {"card": card, **tools_out}}), flush=True)
     print(json.dumps({"mesh": {"card": card, **{k: v for k, v in mesh_out.items() if k != "kernel"}}}), flush=True)
+    print(json.dumps({"tensor_parallel_decode": {"card": card, **{k: v for k, v in tp_out.items() if k != "kernel"}}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
@@ -8926,4 +9413,6 @@ if __name__ == "__main__":
         sys.exit(soak_main())
     if sys.argv[1:2] == ["--grpc-load"]:
         sys.exit(grpc_load_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-soak"]:
+        sys.exit(tp_soak_main())
     sys.exit(main())

@@ -284,6 +284,7 @@ _TPU_FIELDS = (
     "decode_slo_ttft_ms",
     "decode_slo_itl_ms",
     "decode_npy_bindata",
+    "decode_mesh_axes",
     "decode_replicas",
     "decode_router_policy",
     "decode_autoscale_replicas",
@@ -353,6 +354,10 @@ class TpuSpec:
     # False: binData is never sniffed for the npy magic (an explicit
     # application/x-npy body is still decoded); one value per deployment
     decode_npy_bindata: bool = True
+    # tensor-parallel decode (parallel/tp.py): ONE named axis, e.g.
+    # {"tp": 4}, sharding the decoder's heads and FFN and the paged KV
+    # pool's heads over that many positions; {} keeps one device
+    decode_mesh_axes: Mapping[str, int] = field(default_factory=dict)
     # the replicated decode fleet (serving/affinity_router.py): replicas
     # behind the router (affinity | round_robin | bandit; "" affinity), the
     # autoscale cap and its queue-depth trigger (0: off), the health poll
@@ -408,6 +413,7 @@ class TpuSpec:
             decode_health_poll_ms=float(obj.get("decode_health_poll_ms", 0.0)),
             decode_health_miss_threshold=int(obj.get("decode_health_miss_threshold", 3)),
             decode_drain_timeout_ms=float(obj.get("decode_drain_timeout_ms", 5000.0)),
+            decode_mesh_axes={str(k): int(v) for k, v in (obj.get("decode_mesh_axes") or {}).items()},
             extra={k: v for k, v in obj.items() if k not in _TPU_FIELDS},
         )
 
@@ -547,15 +553,13 @@ def to_json(obj: Any, exclude_none: bool = False) -> Any:
     """A spec object as the JSON the JAX package's pydantic models dump
     (``model_dump(mode="json")``): enums by value, tuples as lists, every
     field with its default. ``TpuSpec.extra`` is not a field there: its
-    ``decode_mesh_axes`` is (default ``{}``), and its other keys, which the
-    JAX package drops, are kept beside the fields, so two CRs that differ
-    only in a key the port refuses never dump the same."""
+    keys, which the JAX package drops, are kept beside the fields, so two
+    CRs that differ only in a key the port refuses never dump the same."""
     if isinstance(obj, enum.Enum):
         return obj.value
     if isinstance(obj, TpuSpec):
         out = {f.name: to_json(getattr(obj, f.name), exclude_none) for f in fields(obj) if f.name != "extra"}
-        out["decode_mesh_axes"] = {str(k): int(v) for k, v in (obj.extra.get("decode_mesh_axes") or {}).items()}
-        out.update({k: v for k, v in obj.extra.items() if k != "decode_mesh_axes"})
+        out.update(obj.extra)
         return out
     if is_dataclass(obj):
         out = {f.name: to_json(getattr(obj, f.name), exclude_none) for f in fields(obj)}

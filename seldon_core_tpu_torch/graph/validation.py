@@ -13,9 +13,8 @@ messages word for word, over the port's dataclass spec (``graph/spec.py``):
   tier's ``decode_*`` rules (``decode_problems``).
 
 The port adds its own refusal by name of each ``decode_*`` knob it does not
-serve (``UNPORTED_DECODE_KNOBS``, tensor-parallel decode alone; such a knob
-is read from ``TpuSpec.extra`` and still held to the JAX package's rule).
-One refusal stays where it is made: a ``tpu.mesh`` one card cannot hold
+serve (``UNPORTED_DECODE_KNOBS``, empty since tensor-parallel decode was
+ported; such a knob is read from ``TpuSpec.extra``). One refusal stays where it is made: a ``tpu.mesh`` one card cannot hold
 (``graph/defaulting.py::mesh_from_spec``, applied by the server).
 ``validate_deployment`` raises ValidationError listing every problem, not
 just the first.
@@ -40,10 +39,8 @@ class ValidationError(ValueError):
 
 # decode_* knobs of the JAX package the port does not serve yet, with their
 # defaults there: a deployment that sets one to anything else is refused by
-# name (tensor-parallel decode is multi-device work)
-UNPORTED_DECODE_KNOBS = {
-    "decode_mesh_axes": {},
-}
+# name (none: every knob is served)
+UNPORTED_DECODE_KNOBS: dict = {}
 
 
 # TpuSpec knobs that deliberately carry NO validation rule, acknowledged
@@ -63,10 +60,6 @@ UNCONSTRAINED_KNOBS = (
     "decode_top_k",
     "decode_seed",
 )
-
-
-def _unported(tpu, knob: str):
-    return tpu.extra.get(knob, UNPORTED_DECODE_KNOBS[knob])
 
 
 def _validate_unit(
@@ -231,9 +224,13 @@ def decode_problems(name: str, tpu) -> list[str]:
 
 
 def _mesh_axes_problems(name: str, tpu) -> list[str]:
-    """The JAX package's structural rules for tensor-parallel decode (an
-    unported knob: refused by name above, held to these rules too)."""
-    axes = dict(_unported(tpu, "decode_mesh_axes") or {})
+    """The JAX package's structural rules for tensor-parallel decode. The
+    head/FFN divisibility rules need the model's geometry and are enforced
+    at scheduler build (a hard error on direct construction,
+    warn-and-disable through serving). NO device-budget check here:
+    validation may run on a control-plane host whose device count says
+    nothing about the data plane's (the ``tpu.mesh`` precedent)."""
+    axes = dict(tpu.decode_mesh_axes or {})
     if not axes:
         return []
     problems = []
@@ -326,7 +323,7 @@ def _fleet_problems(name: str, tpu) -> list[str]:
                 f"predictor '{name}' decode_replicas/decode_autoscale_replicas need decode_slots > 0 (the "
                 "replicated tier multiplies the continuous-batching scheduler)"
             )
-        if _unported(tpu, "decode_mesh_axes"):
+        if tpu.decode_mesh_axes:
             problems.append(
                 f"predictor '{name}' decode_replicas/decode_autoscale_replicas cannot combine with "
                 "decode_mesh_axes yet (replica scale-out and tensor parallelism partition the same "

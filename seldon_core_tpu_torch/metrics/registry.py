@@ -515,6 +515,11 @@ class Metrics(NullMetrics):
             "seldon_tpu_decode_kv_pins_reclaimed_total",
             "Prefix pins reclaimed LRU-first under pool allocation pressure", ["deployment_name"],
             registry=registry)
+        self._kv_per_device = Gauge(
+            "seldon_tpu_decode_kv_pages_per_device",
+            "Allocated KV pool pages resident per mesh device (page bytes "
+            "scale 1/tp under tensor-parallel head sharding)",
+            ["deployment_name", "tp"], registry=registry)
         self._kv_tier_bytes = Gauge(
             "seldon_tpu_decode_kv_tier_bytes", "Bytes of demoted prefix KV resident per slow tier (host|store)",
             ["deployment_name", "tier"], registry=registry)
@@ -677,6 +682,9 @@ class Metrics(NullMetrics):
         self._kv_pages_free.labels(deployment).set(free)
         self._kv_pages_live.labels(deployment).set(live)
         self._kv_pages_prefix.labels(deployment).set(prefix)
+
+    def decode_kv_per_device(self, deployment, pages, tp):
+        self._kv_per_device.labels(deployment, str(tp)).set(pages)
 
     def decode_kv_shared(self, deployment, pages):
         if pages > 0:

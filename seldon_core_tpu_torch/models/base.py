@@ -40,9 +40,10 @@ apply run on each data lead). Where every position is on one device the
 whole sharded forward is captured once per bucket, as above; one graph
 cannot span cards, so a mesh over distinct cards runs eagerly, logged at
 build and marked ``mesh_eager`` on every request's span (``Mesh.describe``).
-``weight_quant="int8"``
-with a "model" axis is refused by name (``quantized_pspecs`` is not ported
-yet); on a data-only mesh each position serves int8 as above.
+With ``weight_quant="int8"`` the
+partition rule is mirrored onto the quantized leaves
+(``quant.quantized_pspecs``): a position holds its shard of each int8
+payload, as a contiguous copy, and the scales of its own columns.
 """
 
 from __future__ import annotations
@@ -69,12 +70,11 @@ from seldon_core_tpu_torch.core.tensor import (
 from seldon_core_tpu_torch.engine.units import Unit
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit
 from seldon_core_tpu_torch.models.convert import params_to_torch
-from seldon_core_tpu_torch.models.quant import quantize_params
+from seldon_core_tpu_torch.models.quant import quantize_params, quantized_pspecs
 from seldon_core_tpu_torch.ops.graphs import GraphCache
 from seldon_core_tpu_torch.parallel.collectives import shard, unshard
 from seldon_core_tpu_torch.parallel.mesh import (
     DATA_AXIS,
-    MODEL_AXIS,
     Mesh,
     MeshApply,
     PositionParams,
@@ -146,11 +146,6 @@ class ModelRuntime:
                 "offload_compute must be 'auto', 'always' or 'never', got "
                 f"{offload_compute!r}"
             )
-        if weight_quant == "int8" and mesh is not None and MODEL_AXIS in mesh.shape:
-            raise ValueError(
-                "tpu.weight_quant='int8' on a mesh with a 'model' axis needs quantized_pspecs, which the torch "
-                "port does not have yet: serve int8 on a data-only mesh, or the model axis unquantized"
-            )
         self.apply_fn = apply_fn
         self.mesh = mesh
         # on a mesh: where the padded batch is staged and the output gathered
@@ -179,6 +174,10 @@ class ModelRuntime:
         self.weight_quant = weight_quant
         if weight_quant == "int8":
             params = quantize_params(params)
+            if param_pspecs is not None:
+                # a leaf's spec applies to its int8 payload, its scales go
+                # with the payload's columns
+                param_pspecs = quantized_pspecs(param_pspecs, params)
         if mesh is None:
             self.params = params_to_torch(params, self.device, dtype, layout)
         else:

@@ -34,7 +34,11 @@ On a mesh (``bert_apply_factory``, the JAX package's
   which is how ``P(None, "model")`` reads in the JAX package, hands the
   first position only q heads). Attention on a position's heads follows
   ``attn_kernel``; with ``pallas`` each position's heads go through the
-  flash kernel as strided views of its QKV projection;
+  flash kernel as strided views of its QKV projection. With
+  ``weight_quant=int8`` each position's W8A16 calls take its shard of the
+  int8 payloads (``quant.quantized_pspecs``): qkv's q, k and v column slabs
+  with their scales, ``mlp_in``'s columns, and the rows of ``attn_out`` and
+  ``mlp_out`` with no bias in the kernel (the bias follows the psum);
 - a mesh with neither runs the single-device apply on each data lead.
 A mesh with both "seq" and "model" is refused by name.
 
@@ -54,7 +58,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.models.quant import embed
+from seldon_core_tpu_torch.models.quant import embed, is_quantized_leaf, payload
 from seldon_core_tpu_torch.models.zoo import ModelSpec, dense, register_model, softmax_f32
 from seldon_core_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
@@ -63,6 +67,7 @@ from seldon_core_tpu_torch.ops.attention import (
     naive_attention,
 )
 from seldon_core_tpu_torch.ops.flash_attention import DEFAULT_BLOCK_K, flash_attention
+from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
 from seldon_core_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, P, Packed
 
 
@@ -300,6 +305,15 @@ def _seq_parallel_apply(mesh, strategy: str):
     return MeshApply(run, mesh, f"bert_{strategy}")
 
 
+def _rows_matmul(x, w):
+    """A row-parallel partial product ``x @ w`` with no bias (it is added
+    once, after the psum); a quantized ``w`` (a position's rows of the int8
+    payload, with the leaf's scales) goes through the W8A16 kernel."""
+    if is_quantized_leaf(w):
+        return int8_matmul(x, payload(w), w["scale"], None)
+    return x @ w.to(x.dtype)
+
+
 def _tensor_parallel_apply(mesh, attn_kernel: str):
     """Megatron tensor parallelism over the "model" axis: each position's
     heads and MLP columns, one psum per residual branch, the replicated
@@ -321,12 +335,12 @@ def _tensor_parallel_apply(mesh, attn_kernel: str):
             part = []
             for lp, h in zip(lps, hs):
                 ctx = _merge_heads(attn_impl(*_qkv_heads(lp, h, head_dim)))
-                part.append(ctx @ lp["attn_out"]["w"].to(ctx.dtype))
+                part.append(_rows_matmul(ctx, lp["attn_out"]["w"]))
             attn = psum(part, mesh, MODEL_AXIS)
             hs = replicated(lambda lp, h, a: residual(lp["ln1"], lp["attn_out"]["b"])(h, a), mesh, MODEL_AXIS,
                             lps, hs, attn)
-            part = [torch.nn.functional.gelu(dense(lp["mlp_in"], h), approximate="none")
-                    @ lp["mlp_out"]["w"].to(h.dtype) for lp, h in zip(lps, hs)]
+            part = [_rows_matmul(torch.nn.functional.gelu(dense(lp["mlp_in"], h), approximate="none"),
+                                 lp["mlp_out"]["w"]) for lp, h in zip(lps, hs)]
             mlp = psum(part, mesh, MODEL_AXIS)
             hs = replicated(lambda lp, h, m: residual(lp["ln2"], lp["mlp_out"]["b"])(h, m), mesh, MODEL_AXIS,
                             lps, hs, mlp)

@@ -37,6 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from seldon_core_tpu_torch.parallel import tp as tp_mod
+from seldon_core_tpu_torch.parallel.collectives import _on as _to
+from seldon_core_tpu_torch.parallel.tp import Placed, TPLayer, TPParams, kv_placed
+
 NEG_INF = -1e30
 
 
@@ -153,24 +157,58 @@ def _qkv(p: dict, x: torch.Tensor, h: int):
     return _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
 
 
+# On a decode mesh (``parallel/tp.py``) a layer's parameters are a
+# ``TPLayer`` and its KV buffers ``Placed``: the replicated stream and the
+# full q/k/v of the replicated qkv projection stay on the lead position, the
+# attention below runs once per position on its heads against its part of
+# the buffers (``_per_head``), and ``_close`` ends each residual branch in
+# one psum. Single-device parameters take the same code with one "position".
+
+
+def _per_head(p, fn, heads, *args):
+    """``fn(*heads, *args)`` -> the attention context [n, m, h * hd] of the
+    heads it is given. ``heads``: full-head tensors [n, h, ...] (or None).
+    On a decode mesh it runs once per position, on the position's heads and
+    its parts of the ``Placed`` buffers in ``args``, and returns the list."""
+    if isinstance(p, TPLayer):
+        return p.each(fn, heads, args)
+    return fn(*heads, *args)
+
+
+def _close(p, x, ctx):
+    """The layer after attention: the output projection and the residual,
+    then the MLP half. On a decode mesh ``ctx`` holds each position's heads:
+    ``attn_out`` row-parallel, ``mlp_in`` column- and ``mlp_out``
+    row-parallel, each branch summed by one psum with its bias added once,
+    after it (two reduces per layer)."""
+    if not isinstance(p, TPLayer):
+        return _mlp(p, x + _proj(p["attn_out"], ctx))
+    mesh, axis, shards = p.mesh, p.axis, p.shards
+    part = [c @ s["attn_out"]["w"].to(c.dtype) for c, s in zip(ctx, shards)]
+    x = x + tp_mod.row_parallel(part, shards[0]["attn_out"]["b"].to(x.dtype), mesh, axis)
+    hn = _ln(p["ln2"], x)
+    part = [F.gelu(_proj(s["mlp_in"], _to(hn, dev))) @ s["mlp_out"]["w"].to(hn.dtype)
+            for s, dev in zip(shards, mesh.positions)]
+    return x + tp_mod.row_parallel(part, shards[0]["mlp_out"]["b"].to(x.dtype), mesh, axis)
+
+
 def _layer_prefill(p, x, h):
     """Returns (x_out, k[b, h, s, hd], v[b, h, s, hd]) for the cache."""
     q, k, v = _qkv(p, x, h)
-    ctx = _merge_heads(_causal_attention(q, k, v))
-    x = x + _proj(p["attn_out"], ctx)
-    return _mlp(p, x), k, v
+    ctx = _per_head(p, lambda q, k, v: _merge_heads(_causal_attention(q, k, v)), (q, k, v))
+    return _close(p, x, ctx), k, v
 
 
-def _masked_attention(p, x, q, cache_k, cache_v, valid):
+def _attend(q, cache_k, cache_v, valid, dtype):
     """Attention of q [n, h, m, hd] over the whole static cache [n, h, T, hd]
     in float32; ``valid`` [n or 1, m, T] marks the keys each query sees
-    (the others get -1e30, so their mass is exactly zero). Returns x plus
-    the attention projection."""
+    (the others get -1e30, so their mass is exactly zero). Returns the
+    context [n, m, h * hd] in ``dtype``."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.einsum("nhqd,nhkd->nhqk", q.float(), cache_k.float()) * scale
     s = torch.where(valid[:, None], s, NEG_INF)
     ctx = torch.einsum("nhqk,nhkd->nhqd", torch.softmax(s, dim=-1), cache_v.float())
-    return x + _proj(p["attn_out"], _merge_heads(ctx.to(x.dtype)))
+    return _merge_heads(ctx.to(dtype))
 
 
 def _layer_step(p, x, cache_k, cache_v, pos: int, h):
@@ -181,8 +219,7 @@ def _layer_step(p, x, cache_k, cache_v, pos: int, h):
     cache_k[:, :, pos : pos + 1] = k
     cache_v[:, :, pos : pos + 1] = v
     valid = (torch.arange(cache_k.shape[2], device=x.device) <= pos)[None, None, :]
-    x = _masked_attention(p, x, q, cache_k, cache_v, valid)
-    return _mlp(p, x), cache_k, cache_v
+    return _close(p, x, _attend(q, cache_k, cache_v, valid, x.dtype)), cache_k, cache_v
 
 
 def _embed(params, ids, pos_offset: int = 0):
@@ -278,12 +315,20 @@ def prefill(params: dict, ids) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+def _buffer(params, shape, dtype, fill: float = 0.0):
+    """A KV buffer of global ``shape`` on the parameters' device, or over
+    their decode mesh by the KV layout (``parallel/tp.py::kv_placed``)."""
+    if isinstance(params, TPParams):
+        return kv_placed(shape, dtype, params.mesh, params.axis, fill)
+    return torch.full(shape, fill, dtype=dtype, device=params["tok_emb"].device)
+
+
 def init_slot_cache(params: dict, n_slots: int, max_ctx: int, dtype=torch.float32):
-    """Zeroed slot KV cache pair, each [L, n_slots, heads, max_ctx, hd]."""
+    """Zeroed slot KV cache pair, each [L, n_slots, heads, max_ctx, hd]
+    (head-sharded over a decode mesh)."""
     d = decoder_dims(params)
     shape = (d["layers"], n_slots, d["heads"], max_ctx, d["head_dim"])
-    dev = params["tok_emb"].device
-    return torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev)
+    return _buffer(params, shape, dtype), _buffer(params, shape, dtype)
 
 
 def write_prefill(cache_k, cache_v, k, v, slot: int):
@@ -312,23 +357,29 @@ def _layer_step_slots(p, x, cache_k, cache_v, positions, h, counts=None, starts=
     masked out (the feature head on a prefix-warm admission, whose reused
     span has no draft K/V); None keeps the whole [0, pos] window."""
     q, k, v = _qkv(p, x, h)  # [n, h, m, hd]
-    n, m = x.shape[0], x.shape[1]
-    rows = torch.arange(n, device=x.device)[:, None]
+    ctx = _per_head(p, _slots_attend, (q, k, v), cache_k, cache_v, positions, counts, starts, x.dtype)
+    return _close(p, x, ctx), cache_k, cache_v
+
+
+def _slots_attend(q, k, v, cache_k, cache_v, positions, counts, starts, dtype):
+    """``_layer_step_slots``' cache write and attention on the heads given."""
+    n, m = q.shape[0], q.shape[2]
+    dev = q.device
+    rows = torch.arange(n, device=dev)[:, None]
     cols = _block_index(positions, m, cache_k.shape[2])
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [n, m, h, hd]
     if counts is not None:
-        keep = (torch.arange(m, device=x.device)[None, :] < counts[:, None])[:, :, None, None]
+        keep = (torch.arange(m, device=dev)[None, :] < counts[:, None])[:, :, None, None]
         kt = torch.where(keep, kt, cache_k[rows, :, cols, :])
         vt = torch.where(keep, vt, cache_v[rows, :, cols, :])
     cache_k[rows, :, cols, :] = kt.to(cache_k.dtype)
     cache_v[rows, :, cols, :] = vt.to(cache_v.dtype)
-    q_pos = positions[:, None] + torch.arange(m, device=x.device)[None, :]
-    keys = torch.arange(cache_k.shape[2], device=x.device)[None, None, :]
+    q_pos = positions[:, None] + torch.arange(m, device=dev)[None, :]
+    keys = torch.arange(cache_k.shape[2], device=dev)[None, None, :]
     valid = keys <= q_pos[:, :, None]
     if starts is not None:
         valid = valid & (keys >= starts[:, None, None])
-    x = _masked_attention(p, x, q, cache_k, cache_v, valid)
-    return _mlp(p, x), cache_k, cache_v
+    return _attend(q, cache_k, cache_v, valid, dtype)
 
 
 def _slots_forward(params, cache_k, cache_v, tokens, positions, counts=None):
@@ -437,31 +488,34 @@ def sample_tokens(logits, temperature, top_k, generator: torch.Generator | None)
 
 
 def paged_kv_init(params, n_pages: int, page_size: int, dtype=torch.float32, kv_dtype: str = "") -> tuple:
-    """Zeroed page pool state tuple on the parameters' device."""
+    """Zeroed page pool state tuple on the parameters' device (over a decode
+    mesh: head-sharded payloads, replicated scale planes)."""
     d = decoder_dims(params)
-    dev = params["tok_emb"].device
     shape = (d["layers"], n_pages, d["heads"], page_size, d["head_dim"])
     if kv_dtype == "int8":
         sshape = (d["layers"], n_pages, page_size)
         # scale 1 / zero point 0: junk pages read back as exact zeros
         return (
-            torch.zeros(shape, dtype=torch.int8, device=dev),
-            torch.ones(sshape, dtype=torch.float32, device=dev),
-            torch.zeros(sshape, dtype=torch.float32, device=dev),
-            torch.zeros(shape, dtype=torch.int8, device=dev),
-            torch.ones(sshape, dtype=torch.float32, device=dev),
-            torch.zeros(sshape, dtype=torch.float32, device=dev),
+            _buffer(params, shape, torch.int8),
+            _buffer(params, sshape, torch.float32, 1.0),
+            _buffer(params, sshape, torch.float32),
+            _buffer(params, shape, torch.int8),
+            _buffer(params, sshape, torch.float32, 1.0),
+            _buffer(params, sshape, torch.float32),
         )
     if kv_dtype:
         raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (want '' or 'int8')")
-    return (torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
+    return (_buffer(params, shape, dtype), _buffer(params, shape, dtype))
 
 
 def paged_copy(pool: tuple, src, dst) -> tuple:
     """Copy pool pages src[i] -> dst[i] in every state component, in place
-    (the copy-on-write primitive; padding entries copy page 0 onto itself)."""
+    (the copy-on-write primitive; padding entries copy page 0 onto itself),
+    on every position of a decode mesh."""
     for a in pool:
-        a[:, dst] = a[:, src]
+        for t in tp_mod.tensors_of(a):
+            s, d = _to(src, t.device), _to(dst, t.device)
+            t[:, d] = t[:, s]
     return pool
 
 
@@ -482,9 +536,10 @@ def _paged_write(kv: tuple, k, v, bt, positions, counts):
     positions[i] + j) into one layer's pool slices through the block
     tables, in place. Entries beyond counts[i] or past the virtual length go
     to junk page 0 instead: duplicate writes happen only there, which every
-    mask hides."""
+    mask hides. Over a decode mesh ``k``/``v`` hold every head: int8 rows
+    are quantized over all of them, then each position stores its heads."""
     n, h, m, hd = k.shape
-    ps = kv[0].shape[2]
+    ps = _local(kv[0]).shape[2]
     n_log = bt.shape[1]
     gp = positions[:, None] + torch.arange(m, device=k.device)[None, :]  # global positions
     lp = (gp // ps).clamp(0, n_log - 1)
@@ -497,17 +552,39 @@ def _paged_write(kv: tuple, k, v, bt, positions, counts):
     kt = k.transpose(1, 2).reshape(n * m, h, hd)  # per-token rows
     vt = v.transpose(1, 2).reshape(n * m, h, hd)
     if len(kv) == 2:
-        pk, pv = kv
-        pk[pf, :, of, :] = kt.to(pk.dtype)
-        pv[pf, :, of, :] = vt.to(pv.dtype)
+        _scatter_rows(kv[0], pf, of, kt)
+        _scatter_rows(kv[1], pf, of, vt)
         return kv
     kq, sk, zk, vq, sv, zv = kv
     for (qa, sa, za), rows in (((kq, sk, zk), kt), ((vq, sv, zv), vt)):
         q, scale, zp = _quant_rows(rows.float())
-        qa[pf, :, of, :] = q
-        sa[pf, of] = scale
-        za[pf, of] = zp
+        _scatter_rows(qa, pf, of, q)
+        _scatter_rows(sa, pf, of, scale)
+        _scatter_rows(za, pf, of, zp)
     return kv
+
+
+def _local(a):
+    """A buffer's first part (itself off a mesh): its local shape and dtype."""
+    return a.parts[0] if isinstance(a, Placed) else a
+
+
+def _scatter_rows(a, pf, of, rows) -> None:
+    """``a[pf, :, of, :] = rows`` (a payload, rows [N, h, hd]) or
+    ``a[pf, of] = rows`` (a scale plane, rows [N]), in place; a head-sharded
+    payload takes each position's heads."""
+    if not isinstance(a, Placed):
+        if a.dim() == 4:
+            a[pf, :, of, :] = rows.to(a.dtype)
+        else:
+            a[pf, of] = rows
+        return
+
+    def put(t, i):
+        dev = t.device
+        _scatter_rows(t, _to(pf, dev), _to(of, dev), a.block(i, rows, 1))
+
+    a.each_part(put)
 
 
 def _paged_gather(kv: tuple, bt):
@@ -533,12 +610,18 @@ def _layer_step_paged(p, x, kv, bt, positions, h, counts=None):
     just wrote. Returns (x_out, kv)."""
     q, k, v = _qkv(p, x, h)
     kv = _paged_write(kv, k, v, bt, positions, counts)
+    ctx = _per_head(p, _paged_attend, (q,), kv, bt, positions, x.dtype)
+    return _close(p, x, ctx), kv
+
+
+def _paged_attend(q, kv, bt, positions, dtype):
+    """``_layer_step_paged``'s attention on the heads given, over their
+    part of the pool."""
     cache_k, cache_v = _paged_gather(kv, bt)
-    m = x.shape[1]
-    q_pos = positions[:, None] + torch.arange(m, device=x.device)[None, :]
-    valid = torch.arange(cache_k.shape[2], device=x.device)[None, None, :] <= q_pos[:, :, None]
-    x = _masked_attention(p, x, q, cache_k, cache_v, valid)
-    return _mlp(p, x), kv
+    m = q.shape[2]
+    q_pos = positions[:, None] + torch.arange(m, device=q.device)[None, :]
+    valid = torch.arange(cache_k.shape[2], device=q.device)[None, None, :] <= q_pos[:, :, None]
+    return _attend(q, cache_k, cache_v, valid, dtype)
 
 
 def _paged_forward(params, pool, bt, tokens, positions, counts=None):
@@ -711,11 +794,18 @@ def _layer_tree_flat(p, x, cache_k, cache_v, positions, h, ek, ev, sub_mask, sta
     q, k, v = _qkv(p, x, h)  # [n, h, c, hd]
     ek = k if ek is None else torch.cat([ek, k], dim=2)
     ev = v if ev is None else torch.cat([ev, v], dim=2)
+    ctx = _per_head(p, _tree_flat_attend, (q, ek, ev), cache_k, cache_v, positions, sub_mask, starts, x.dtype)
+    return _close(p, x, ctx), ek, ev
+
+
+def _tree_flat_attend(q, ek, ev, cache_k, cache_v, positions, sub_mask, starts, dtype):
+    """``_layer_tree_flat``'s attention on the heads given: the cache window
+    plus the in-register nodes under the ancestor mask."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     qf = q.float()
     c_len = cache_k.shape[2]
     s_cache = torch.einsum("nhqd,nhkd->nhqk", qf, cache_k.float()) * scale
-    keys = torch.arange(c_len, device=x.device)[None, None, None, :]
+    keys = torch.arange(c_len, device=q.device)[None, None, None, :]
     valid = keys <= positions[:, None, None, None]
     if starts is not None:
         valid = valid & (keys >= starts[:, None, None, None])
@@ -726,8 +816,7 @@ def _layer_tree_flat(p, x, cache_k, cache_v, positions, h, ek, ev, sub_mask, sta
     ctx = torch.einsum("nhqk,nhkd->nhqd", p_attn[..., :c_len], cache_v.float()) + torch.einsum(
         "nhqk,nhkd->nhqd", p_attn[..., c_len:], ev.float()
     )
-    x = x + _proj(p["attn_out"], _merge_heads(ctx.to(x.dtype)))
-    return _mlp(p, x), ek, ev
+    return _merge_heads(ctx.to(dtype))
 
 
 def _tree_candidates(parent_logits, temperature, top_k, generator, b: int):
@@ -816,13 +905,22 @@ def _layer_tree_paged(p, x, kv, bt, positions, h, mask):
 
         k_att, v_att = _rt(k), _rt(v)
     else:
-        k_att, v_att = k.to(kv[0].dtype).float(), v.to(kv[0].dtype).float()
+        pool_dtype = _local(kv[0]).dtype
+        k_att, v_att = k.to(pool_dtype).float(), v.to(pool_dtype).float()
+    ctx = _per_head(p, _tree_paged_attend, (q, k_att, v_att), kv, bt, positions, mask, x.dtype)
+    return _close(p, x, ctx), k, v
+
+
+def _tree_paged_attend(q, k_att, v_att, kv, bt, positions, mask, dtype):
+    """``_layer_tree_paged``'s attention on the heads given: their part of
+    the pool before ``pos`` plus the dispatch's fresh K/V under the
+    ancestor mask."""
     cache_k, cache_v = _paged_gather(kv, bt)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     qf = q.float()
     c_len = cache_k.shape[2]
     s_cache = torch.einsum("nhqd,nhkd->nhqk", qf, cache_k) * scale
-    valid = torch.arange(c_len, device=x.device)[None, None, None, :] < positions[:, None, None, None]
+    valid = torch.arange(c_len, device=q.device)[None, None, None, :] < positions[:, None, None, None]
     s_cache = torch.where(valid, s_cache, NEG_INF)
     s_blk = torch.einsum("nhqd,nhkd->nhqk", qf, k_att) * scale
     s_blk = torch.where(mask[None, None], s_blk, NEG_INF)
@@ -830,8 +928,7 @@ def _layer_tree_paged(p, x, kv, bt, positions, h, mask):
     ctx = torch.einsum("nhqk,nhkd->nhqd", p_attn[..., :c_len], cache_v) + torch.einsum(
         "nhqk,nhkd->nhqd", p_attn[..., c_len:], v_att
     )
-    x = x + _proj(p["attn_out"], _merge_heads(ctx.to(x.dtype)))
-    return _mlp(p, x), k, v
+    return _merge_heads(ctx.to(dtype))
 
 
 def paged_tree_verify(params, pool, bt, tokens, positions, tree):
@@ -892,11 +989,26 @@ def draft_tree_commit(cache_k, cache_v, node_k, node_v, path_idx, positions, n_a
     rows = torch.arange(n, device=idx.device)[:, None]
     cols = _block_index(positions.long() + 1, depth, cache_k.shape[3])
     keep = (torch.arange(depth, device=idx.device)[None, :] < n_acc.long()[:, None])[:, :, None, None]
-    for cache, sel in ((cache_k, k_sel), (cache_v, v_sel)):
+
+    def commit(cache, sel):  # cache [L, n, h, T, hd], sel [L, n, h, D, hd]
+        dev = cache.device
+        r, c_, kp = _to(rows, dev), _to(cols, dev), _to(keep, dev)
         for li in range(cache.shape[0]):
             c = cache[li]  # [n, h, T, hd]
-            c[rows, :, cols, :] = torch.where(keep, sel[li].transpose(1, 2).to(c.dtype), c[rows, :, cols, :])
+            c[r, :, c_, :] = torch.where(kp, sel[li].transpose(1, 2).to(c.dtype), c[r, :, c_, :])
+
+    for cache, sel in ((cache_k, k_sel), (cache_v, v_sel)):
+        _each_block(cache, sel, 2, commit)
     return cache_k, cache_v
+
+
+def _each_block(buf, full: torch.Tensor, dim: int, fn) -> None:
+    """``fn(buffer, values)``: once, or over a decode mesh once per position
+    with its part of ``buf`` and its heads of ``full`` (head axis ``dim``)."""
+    if isinstance(buf, Placed):
+        buf.each_part(lambda t, i: fn(t, buf.block(i, full, dim)))
+    else:
+        fn(buf, full)
 
 
 def speculative_accept_tree(target_logits, block_tokens, draft_logits, width_limits, temperature, top_k,

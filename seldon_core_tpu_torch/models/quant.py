@@ -84,6 +84,41 @@ def embed(table: Any, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return table[ids].to(dtype)
 
 
+def quantized_pspecs(pspecs: Any, params: Any) -> Any:
+    """Mirror a partition-spec tree (``parallel/mesh.py::P``) onto the
+    quantized structure: a leaf's spec applies to its int8 payload, and its
+    per-channel scale goes with the payload's columns. The JAX package
+    replicates every scale and lets GSPMD slice it where the dequant meets
+    a column shard; the port hands each position's W8A16 call the scales of
+    its own columns, so a scale splits where the payload's last axis splits
+    (a column-parallel leaf) and replicates otherwise (a row-parallel one)."""
+    from seldon_core_tpu_torch.parallel.mesh import P
+
+    def expand(spec, leaf):
+        if is_quantized_leaf(leaf):
+            return quantized_leaf_spec(spec, leaf)
+        if isinstance(leaf, dict):
+            return {k: expand(spec.get(k) if isinstance(spec, dict) else None, v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            subs = spec if isinstance(spec, (list, tuple)) and not isinstance(spec, P) else [None] * len(leaf)
+            return [expand(sp, v) for sp, v in zip(subs, leaf)]
+        return spec
+
+    return expand(pspecs, params)
+
+
+def quantized_leaf_spec(spec: Any, leaf: dict) -> dict:
+    """One quantized leaf's ``{payload spec, scale spec}`` from the spec of
+    the float leaf it replaced (None replicates)."""
+    from seldon_core_tpu_torch.parallel.mesh import P
+
+    spec = spec if isinstance(spec, P) else P()
+    ndim = len(leaf[_QKEY].shape)
+    last = spec[ndim - 1] if len(spec) >= ndim else None
+    scale_ndim = len(leaf["scale"].shape)
+    return {_QKEY: spec, "scale": P(*([None] * (scale_ndim - 1)), last) if last is not None else P()}
+
+
 def quantized_nbytes(leaf: Any, nonquant_factor: float = 1.0) -> int:
     """Residency of one param leaf under this scheme: eligible kernels store
     int8 payload + per-channel f32 scales; other leaves follow the compute

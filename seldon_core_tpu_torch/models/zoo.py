@@ -28,10 +28,11 @@ from ``param_pspecs``; a model without a factory runs its single-position
 apply on each data lead. ``moe_mlp`` and ``pipe_mlp`` draw their dense
 layers with ``jax.random`` in the JAX package and with numpy here (as the
 small models above do); ``init_moe`` is the JAX package's numpy draw.
-A generative model, or a ``finetune`` unit, on a mesh with an axis other
-than "data" is refused by name (decode over a mesh is ``parallel/tp.py``'s
-work and the sharded train steps come with it, not ported yet); on a
-data-only mesh it serves on the first position, with a warning.
+A generative model, or a ``finetune`` unit, on a ``tpu.mesh`` with an axis
+other than "data" is refused by name (decode shards over
+``tpu.decode_mesh_axes``, ``parallel/tp.py``, and the sharded train steps
+are not ported yet); on a data-only mesh it serves on the first position,
+with a warning.
 """
 
 from __future__ import annotations
@@ -505,13 +506,14 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bo
     if mesh is not None and ms.generative is not None:
         if any(size > 1 for axis, size in mesh.shape.items() if axis != DATA_AXIS):
             raise ValueError(
-                f"a generative model on tpu.mesh {mesh.shape} is not part of the torch port yet (decode over a "
-                "mesh, parallel/tp.py and decode_mesh_axes, comes with decode tensor parallelism)"
+                f"a generative model on tpu.mesh {mesh.shape} is not part of the torch port yet (tensor-parallel "
+                "decode is tpu.decode_mesh_axes, parallel/tp.py)"
             )
         # a data-only mesh (the default {"data": cards} on a host of several
         # cards): decode serves on the first position, as before meshes
         logging.getLogger(__name__).warning(
-            "generative model: tpu.mesh %s is served on one device, %s (decode over a mesh is not ported yet)",
+            "generative model: tpu.mesh %s is served on one device, %s (decode shards over "
+            "tpu.decode_mesh_axes instead)",
             mesh.shape, mesh.positions[0])
         device, mesh = mesh.positions[0], None
     apply_fn = ms.apply_fn

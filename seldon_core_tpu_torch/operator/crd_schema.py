@@ -27,11 +27,11 @@ JAX package does (``_compile``, copied):
 - objects without declared properties carry
   ``x-kubernetes-preserve-unknown-fields``.
 
-``TpuSpec.extra`` is no field of the contract. The JAX spec's knobs the port
+``TpuSpec.extra`` is no field of the contract. A JAX spec knob the port
 reads from it and refuses by name (``graph/validation.py::
-UNPORTED_DECODE_KNOBS``) stay in the schema with their JAX types: a
-structural schema prunes unknown fields, and a pruned knob would reach the
-operator silently dropped instead of refused.
+UNPORTED_DECODE_KNOBS``, none at present) would stay in the schema with its
+JAX type (``_EXTRA_FIELDS``): a structural schema prunes unknown fields, and
+a pruned knob would reach the operator silently dropped instead of refused.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ _DROP_KEYS = ("title", "default", "discriminator", "definitions", "$defs")
 _SKIP_FIELDS = frozenset({("TpuSpec", "extra")})
 # fields of the JAX contract that the port keeps outside its dataclasses:
 # class -> {field: type hint}
-_EXTRA_FIELDS: dict[str, dict[str, Any]] = {"TpuSpec": {"decode_mesh_axes": Mapping[str, int]}}
+_EXTRA_FIELDS: dict[str, dict[str, Any]] = {}
 
 _PRIMITIVES = {str: "string", int: "integer", float: "number", bool: "boolean"}
 

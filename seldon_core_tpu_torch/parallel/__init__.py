@@ -1,7 +1,7 @@
 """Meshes of device positions driven by one process: the mesh, the
-collectives between positions, and the pipeline schedule (port of
-``seldon_core_tpu/parallel``; decode tensor parallelism, ``tp.py``, and
-``initialize_distributed`` are not ported yet)."""
+collectives between positions, the pipeline schedule and decode tensor
+parallelism (port of ``seldon_core_tpu/parallel``; ``initialize_distributed``
+is not ported yet)."""
 
 from seldon_core_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -18,6 +18,14 @@ from seldon_core_tpu_torch.parallel.mesh import (
     place_params,
     serving_positions,
 )
+from seldon_core_tpu_torch.parallel.tp import (
+    decode_mesh_problems,
+    decode_tp_mesh,
+    decoder_param_pspecs,
+    kv_placed,
+    place_decoder,
+    tp_width,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -33,4 +41,10 @@ __all__ = [
     "mesh_from_spec",
     "place_params",
     "serving_positions",
+    "decode_mesh_problems",
+    "decode_tp_mesh",
+    "decoder_param_pspecs",
+    "kv_placed",
+    "place_decoder",
+    "tp_width",
 ]

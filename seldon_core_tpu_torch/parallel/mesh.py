@@ -41,7 +41,7 @@ from typing import Any, Callable, Iterable, Mapping, Sequence
 import torch
 
 from seldon_core_tpu_torch.graph.defaulting import mesh_from_spec as mesh_axes_for
-from seldon_core_tpu_torch.models.quant import is_quantized_leaf
+from seldon_core_tpu_torch.models.quant import is_quantized_leaf, quantized_leaf_spec
 
 log = logging.getLogger(__name__)
 
@@ -209,8 +209,11 @@ def tree_leaves(tree: Any) -> Iterable[Any]:
 
 def _spec_tree_map(fn: Callable[[Any, Any], Any], tree: Any, specs: Any) -> Any:
     """``fn(leaf, spec)`` over a tree and its spec tree; a missing spec
-    (None, or no spec tree at all) is replicated."""
-    if is_quantized_leaf(tree) or not isinstance(tree, (dict, list, tuple)):
+    (None, or no spec tree at all) is replicated. A quantized leaf is one
+    leaf, whose spec may be ``quant.quantized_pspecs``' pair."""
+    if is_quantized_leaf(tree):
+        return fn(tree, specs if isinstance(specs, dict) else quantized_leaf_spec(specs, tree))
+    if not isinstance(tree, (dict, list, tuple)):
         return fn(tree, specs if isinstance(specs, P) else P())
     if isinstance(tree, dict):
         return {k: _spec_tree_map(fn, v, specs.get(k) if isinstance(specs, dict) else None) for k, v in tree.items()}
@@ -277,19 +280,24 @@ def place_params(params: Any, specs: Any, mesh: Mesh, place_leaf: Callable[[Any,
     dropped: set = set()
 
     def leaf(a, spec):
-        spec = _mesh_spec(spec, mesh, dropped)
-        sharded = any(e is not None for e in spec)
-        if sharded and is_quantized_leaf(a):
-            # the decode-TP slice ports quant.quantized_pspecs
-            raise ValueError("sharding an int8 weight over a mesh axis needs quantized_pspecs, which the torch "
-                             "port does not have yet")
+        # a quantized leaf: its int8 payload and its scale, each by its spec
+        parts = {k: (a[k], spec[k]) for k in a} if is_quantized_leaf(a) else {None: (a, spec)}
+        parts = {k: (arr, _mesh_spec(sp, mesh, dropped)) for k, (arr, sp) in parts.items()}
         placed: dict = {}
         out = []
         for pos in range(mesh.size):
             dev = mesh.positions[pos]
-            sl = _shard_slices(tuple(a.shape), spec, mesh, pos) if sharded else ()
+            sl = tuple(_shard_slices(tuple(arr.shape), sp, mesh, pos) if any(e is not None for e in sp) else ()
+                       for arr, sp in parts.values())
             if (dev, sl) not in placed:
-                placed[(dev, sl)] = place_leaf(_take_shard(a, sl) if sharded else a, dev)
+                shards = {k: _take_shard(arr, s) if s else arr for (k, (arr, _)), s in zip(parts.items(), sl)}
+                if None in shards:
+                    placed[(dev, sl)] = place_leaf(shards[None], dev)
+                else:
+                    # a replicated scale beside a payload shard is still held
+                    # once per device
+                    new = place_leaf(shards, dev)
+                    placed[(dev, sl)] = {k: placed.setdefault((dev, k, s), new[k]) for k, s in zip(shards, sl)}
             out.append(placed[(dev, sl)])
         return _PerPos(out)
 

@@ -122,10 +122,16 @@ streamed again). ``engine/faults.py::install_decode_faults`` arms its chaos
 hooks: a round that hangs on the loop, an induced allocator OOM, a
 readback stall on the worker, dropped probes.
 
-Not ported yet, and refused by name at deployment build
-(``graph/validation.py::decode_problems``): tensor-parallel decode. The
-queue timeout is honoured, and a request's deadline budget is enforced at
-the ingress and judged here for goodput.
+Tensor-parallel decode (``tpu.decode_mesh_axes``, e.g. ``{"tp": 4}``;
+``parallel/tp.py``): the target and the draft are placed by the head/FFN
+rule over the mesh's positions (``devices``, which may repeat a device),
+the pool's payloads and the draft cache hold one head shard per position,
+and every fused program runs over the positions with two psums a layer.
+Positions on one card run inside the same captured graph per dispatch key;
+positions over distinct cards run eagerly. The pipelined loop, the KV tiers
+and speculation sit above the programs and do not change. The queue timeout
+is honoured, and a request's deadline budget is enforced at the ingress and
+judged here for goodput.
 """
 
 from __future__ import annotations
@@ -169,10 +175,12 @@ from seldon_core_tpu_torch.models.decoder import (
     sampling_generator,
     speculative_accept,
     speculative_accept_tree,
+    _each_block,
     _tree_tables,
 )
 from seldon_core_tpu_torch.models.spec_tree import MAX_TREE_NODES, SpecTree, parse_spec_tree
 from seldon_core_tpu_torch.ops.graphs import GraphCache
+from seldon_core_tpu_torch.parallel.tp import Placed, decode_mesh_problems, decode_tp_mesh, place_decoder
 from seldon_core_tpu_torch.persistence.state import make_state_store
 from seldon_core_tpu_torch.serving.affinity_router import capture_prefix_len, usable_prefix_len
 from seldon_core_tpu_torch.serving.kv_host_tier import KVHostTier
@@ -278,9 +286,13 @@ def _scatter_prefill_rows(cache_k, cache_v, k_new, v_new, row_for_slot, valid_sl
     row, so no write has two sources."""
     s = k_new.shape[3]
     mask = valid_slot[None, :, None, None, None]
+
+    def write(cache, new):  # new: the cache's heads of the wave's K/V
+        sel = new.index_select(1, row_for_slot.to(new.device)).to(cache.dtype)  # [L, n_slots, h, s, hd]
+        cache[:, :, :, :s] = torch.where(mask.to(cache.device), sel, cache[:, :, :, :s])
+
     for cache, new in ((cache_k, k_new), (cache_v, v_new)):
-        sel = new.index_select(1, row_for_slot).to(cache.dtype)  # [L, n_slots, h, s, hd]
-        cache[:, :, :, :s] = torch.where(mask, sel, cache[:, :, :, :s])
+        _each_block(cache, new, 2, write)
     return cache_k, cache_v
 
 
@@ -712,6 +724,8 @@ class DecodeScheduler:
         slo_ttft_ms: float = 0.0,
         slo_itl_ms: float = 0.0,
         replica_id: int = 0,
+        mesh_axes: dict | None = None,
+        devices=None,
     ):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -731,6 +745,27 @@ class DecodeScheduler:
         self.max_new_tokens = max_new_tokens
         self.n_slots = n_slots
         self._init_speculation(dims, draft_params, int(spec_k), str(spec_tree or "").strip(), spec_accept_floor)
+        # tensor-parallel decode mesh (parallel/tp.py): the target and the
+        # draft are placed by the head/FFN rule up front, and every program
+        # below runs over the mesh's positions. Raises on an unservable
+        # request (too many devices, indivisible heads/ffn): the serving
+        # builder pre-checks and warn-disables
+        self.mesh, self._tp_axis, self.tp = decode_tp_mesh(mesh_axes, params, self.draft_params, devices)
+        if self.mesh is not None:
+            self.params = params = place_decoder(params, self.mesh, self._tp_axis)
+            if self.spec_enabled:
+                self.draft_params = place_decoder(self.draft_params, self.mesh, self._tp_axis)
+            if self.mesh.n_devices > 1 and cuda_graphs:
+                # one CUDA graph cannot span cards
+                log.warning("decode mesh %s spans %d devices: its rounds run eagerly, not as captured graphs",
+                            self.mesh.shape, self.mesh.n_devices)
+                cuda_graphs = False
+        # span attributes distinguishing sharded deployments in /traces
+        self._mesh_attrs = (
+            {"tp": self.tp, "mesh_axes": ",".join(f"{k}={v}" for k, v in (mesh_axes or {}).items())}
+            if self.mesh is not None
+            else {}
+        )
         self.eos_id = int(eos_id)
         self.default_temperature = float(temperature)
         self.default_top_k = int(top_k)
@@ -787,6 +822,7 @@ class DecodeScheduler:
         self._zi = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self.stat_eager_rounds = 0  # sampled round pairs, run eagerly
         if self.spec_enabled:
+            # head-sharded over a decode mesh, as the pool's payloads
             self._dck, self._dcv = init_slot_cache(self.draft_params, n_slots, self._cache_ctx, dtype)
             if self.feature_draft:
                 # each slot's carried target feature (the hidden at its last
@@ -1282,6 +1318,59 @@ class DecodeScheduler:
     def _kv_gauges(self) -> None:
         a = self.pool.alloc
         self._metrics.decode_kv_pool(self._deployment, a.free_pages, a.live_pages, a.prefix_pages)
+        # pages resident per device: the page axis is NOT sharded (every
+        # position holds all pages x its head shard), so the count matches
+        # the pool-wide allocation while per-page BYTES scale 1/tp — the
+        # tp label is what makes the gauge readable as per-device memory
+        self._metrics.decode_kv_per_device(self._deployment, a.live_pages + a.prefix_pages, self.tp)
+
+    def shard_audit(self) -> dict:
+        """Per-shard audit of the device pools on a decode mesh (the soak
+        harness runs this beside the allocator's host-side ``check()``):
+        every pool and draft-cache component must be laid out across exactly
+        the mesh's devices, 5-D payloads carrying heads/tp per position and
+        replicated components full-size. Raises AssertionError on any
+        divergence; returns a small report dict (``mesh_devices``: the
+        positions, ``distinct_devices``: the devices behind them)."""
+        pages = self.pool.alloc.live_pages + self.pool.alloc.prefix_pages
+        if self.mesh is None:
+            return {"tp": 1, "kv_pages_per_device": pages}
+        mesh = self.mesh
+        audited = 0
+
+        def _check(name: str, arr) -> None:
+            nonlocal audited
+            if not isinstance(arr, Placed) or len(arr.parts) != mesh.size:
+                raise AssertionError(f"{name}: not placed over the {mesh.size} mesh positions")
+            devs = [t.device for t in arr.parts]
+            if devs != list(mesh.positions):
+                raise AssertionError(f"{name}: parts on {devs}, mesh positions are {list(mesh.positions)}")
+            want = list(arr.shape)
+            if len(want) == 5:
+                if want[2] % self.tp:
+                    raise AssertionError(f"{name}: head axis {want[2]} % tp != 0")
+                want[2] //= self.tp
+                if len({id(t) for t in arr.parts}) != mesh.size:
+                    raise AssertionError(f"{name}: two positions share one head shard")
+            elif len({id(t) for t in arr.parts}) != mesh.n_devices:
+                raise AssertionError(f"{name}: a replicated component is not held once per device")
+            for t in arr.parts:
+                if list(t.shape) != want:
+                    raise AssertionError(f"{name}: shard shape {list(t.shape)} != {want}")
+            audited += 1
+
+        for i, a in enumerate(self.pool.state):
+            _check(f"pool[{i}]", a)
+        if self.spec_enabled:
+            _check("draft_k", self._dck)
+            _check("draft_v", self._dcv)
+        return {
+            "tp": self.tp,
+            "mesh_devices": mesh.size,
+            "distinct_devices": mesh.n_devices,
+            "components_audited": audited,
+            "kv_pages_per_device": pages,
+        }
 
     def _commit_round(self, mode: str, *, step: bool) -> None:
         """THE per-round commit point: the round stats, the step metric,
@@ -1624,7 +1713,8 @@ class DecodeScheduler:
         nbytes = int(sum(int(np.asarray(c).nbytes) for c in comps))
         for c in seq.trace_ctxs:
             ms = c.buf.begin("decode.kv_promote", c.span.span_id,
-                             {"tier": src_tier, "bytes": nbytes, "overlap": self._in_overlap}, start_ns=t0)
+                             {"tier": src_tier, "bytes": nbytes, "overlap": self._in_overlap, **self._mesh_attrs},
+                             start_ns=t0)
             ms.add_event("promoted", {"tokens": int(np.asarray(tokens).shape[0])})
             ms.end()
         return True
@@ -1896,7 +1986,7 @@ class DecodeScheduler:
             ms = c.buf.begin(
                 "decode.prefix_match" if self.prefix_enabled else "decode.admit",
                 c.span.span_id,
-                {"slot": slot, "hit": reuse > 0},
+                {"slot": slot, "hit": reuse > 0, **self._mesh_attrs},
                 start_ns=t0,
             )
             ms.add_event("reuse", {"tokens": reuse})
@@ -2229,8 +2319,8 @@ class DecodeScheduler:
                     # hinted capture: the span's pages are pinned from now on
                     self._maybe_capture(seq, i, seq.cache_prefix)
                 for ctx in seq.trace_ctxs:
-                    seq.gen_spans.append(ctx.buf.begin("decode.generate", ctx.span.span_id, {"slot": i},
-                                                       start_ns=t1))
+                    seq.gen_spans.append(ctx.buf.begin("decode.generate", ctx.span.span_id,
+                                                       {"slot": i, **self._mesh_attrs}, start_ns=t1))
                 tok = self._emit(seq, int(toks[i]))
                 if self._finished(seq, tok):
                     self._retire(i)
@@ -2442,7 +2532,7 @@ class DecodeScheduler:
                 if seq is None or seq.prefilling:
                     continue
                 riding = int(limits[i]) > 0
-                attrs = {"slot": i, "proposed": int(limits[i])}
+                attrs = {"slot": i, "proposed": int(limits[i]), **self._mesh_attrs}
                 if tree is not None:
                     nodes = int(wlimits[i].sum())
                     attrs["tree"] = ",".join(map(str, tree.branching))
@@ -2783,14 +2873,17 @@ def _draft_for(runtime, tpu_spec) -> tuple:
 
 
 def scheduler_for_executor(
-    executor, tpu_spec, *, metrics: NullMetrics | None = None, deployment_name: str = ""
+    executor, tpu_spec, *, metrics: NullMetrics | None = None, deployment_name: str = "", mesh_devices=None
 ):
     """A DecodeScheduler for a predictor whose graph is ONE generative model
     node and whose deployment opted in (tpu.decode_slots > 0), or, with
     ``decode_replicas`` or ``decode_autoscale_replicas`` above 1, a
     ``ReplicatedDecodeScheduler`` of them; None otherwise, with a log line
     when an opt-in is ignored. A multi-node graph keeps the fused path: the
-    scheduler owns the whole device loop."""
+    scheduler owns the whole device loop. ``decode_mesh_axes`` decodes
+    tensor-parallel over ``mesh_devices`` (the positions the server's
+    caller asked for, which may repeat a device), else over the host's
+    cards; an unservable request serves on one device with a warning."""
     if tpu_spec.decode_slots <= 0:
         return None
     root = executor.root
@@ -2804,6 +2897,20 @@ def scheduler_for_executor(
         )
         return None
     draft_params, spec_k, spec_tree = _draft_for(runtime, tpu_spec)
+    mesh_axes = dict(tpu_spec.decode_mesh_axes or {})
+    if mesh_axes:
+        # the spec-mode precedent: an unservable opt-in degrades to the
+        # working config with a log line, instead of failing the boot —
+        # here that means single-device dispatch when the mesh request
+        # exceeds the positions at hand or the decoder's head/FFN geometry
+        # isn't divisible by the tensor-parallel width
+        problems = decode_mesh_problems(mesh_axes, runtime.params, draft_params, mesh_devices)
+        if problems:
+            log.warning(
+                "decode_mesh_axes=%s unservable (%s) — tensor-parallel decode disabled, running single-device",
+                mesh_axes, "; ".join(problems),
+            )
+            mesh_axes = {}
     kv_store, kv_store_url = None, str(tpu_spec.decode_kv_store_tier or "")
     if kv_store_url:
         # made once, here: through serving a bad URL disables the store
@@ -2842,14 +2949,15 @@ def scheduler_for_executor(
     )
     replicas = max(1, int(tpu_spec.decode_replicas))
     autoscale_max = int(tpu_spec.decode_autoscale_replicas)
-    if max(replicas, autoscale_max) > 1 and tpu_spec.extra.get("decode_mesh_axes"):
-        # refused at validation; a spec built past it serves one scheduler,
-        # the JAX package's warn-and-disable case
+    if max(replicas, autoscale_max) > 1 and mesh_axes:
+        # refused at validation; a spec built past it serves one
+        # tensor-parallel scheduler, the JAX package's warn-and-disable case
         log.warning("decode_replicas/decode_autoscale_replicas with decode_mesh_axes is not supported yet — "
-                    "running one scheduler")
+                    "running one tensor-parallel scheduler")
         replicas, autoscale_max = 1, 0
     if max(replicas, autoscale_max) <= 1:
-        return DecodeScheduler(runtime.params, deployment_name=deployment_name, **sched_kwargs)
+        return DecodeScheduler(runtime.params, deployment_name=deployment_name, mesh_axes=mesh_axes,
+                               devices=mesh_devices if mesh_axes else None, **sched_kwargs)
 
     # the fleet on one card: every replica decodes with the runtime's own
     # parameter tensors (no copy) and owns its pool, prefix index, graph

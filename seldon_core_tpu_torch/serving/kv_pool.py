@@ -40,6 +40,7 @@ import torch
 
 from seldon_core_tpu_torch.models.decoder import paged_copy, paged_kv_init
 from seldon_core_tpu_torch.ops.graphs import GraphCache, StaticBuffer
+from seldon_core_tpu_torch.parallel.tp import Placed
 
 log = logging.getLogger(__name__)
 
@@ -405,6 +406,8 @@ class PagedKVPool:
         self.kv_dtype = kv_dtype
         self._params = params
         self._dtype = dtype
+        # the lead position's device over a decode mesh: the block tables,
+        # index uploads and the host tier's transfers are staged there
         self.device = params["tok_emb"].device
         self.n_slots = int(n_slots)
         self.graphs = graphs if graphs is not None else GraphCache(self.device)
@@ -412,7 +415,9 @@ class PagedKVPool:
             self.n_pages, self.page_size, self.n_slots, self.pages_per_slot
         )
         # the pool's tensors keep their addresses for the scheduler's life:
-        # captured graphs write and read them in place
+        # captured graphs write and read them in place. Over a decode mesh
+        # each component is ``Placed`` (parallel/tp.py): a head shard of
+        # each payload per position, the int8 planes once per device
         self.state = paged_kv_init(params, self.n_pages, self.page_size, dtype, kv_dtype)
         self._bt = StaticBuffer(self.alloc.block_tables.shape, torch.int32, self.device)
         buckets, b = [], 1
@@ -448,31 +453,52 @@ class PagedKVPool:
 
     def read_pages(self, pages) -> list[np.ndarray]:
         """Every component's columns at ``pages`` on the host, bytes
-        verbatim ([L, len(pages), ...] each). Queued on the current stream
-        and waited for: the caller reads while the pages still hold them."""
-        idx = torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
+        verbatim ([L, len(pages), ...] each; over a decode mesh every
+        position's heads gathered into the full page). Queued on the current
+        stream and waited for: the caller reads while the pages still hold
+        them."""
+        pages = np.asarray(pages, np.int64)
         with torch.inference_mode():
-            return [_as_host_bits(a.index_select(1, idx)).cpu().numpy() for a in self.state]
+            out = []
+            for a in self.state:
+                if isinstance(a, Placed):
+                    a = a.gather(lambda t: t.index_select(1, torch.as_tensor(pages, device=t.device)), 2,
+                                 self.device)
+                else:
+                    a = a.index_select(1, torch.as_tensor(pages, device=self.device))
+                out.append(_as_host_bits(a).cpu().numpy())
+            return out
 
     def write_pages(self, pages, comps: list[np.ndarray]) -> None:
         """Write host columns (``read_pages``' layout) into ``pages`` of every
         component, in place on the current stream: a byte move, no
-        conversion. Nothing here waits for the stream: the bytes go up from
-        pinned copies, asynchronously, so a write queued behind an in-flight
-        round returns at once."""
+        conversion (over a decode mesh each position takes its heads).
+        Nothing here waits for the stream: the bytes go up from pinned
+        copies, asynchronously, so a write queued behind an in-flight round
+        returns at once."""
+        pages = np.asarray(pages, np.int64)
         with torch.inference_mode():
-            idx = self._upload(np.asarray(pages, np.int64))
             for a, src in zip(self.state, comps):
                 vals = self._upload(src)
-                a.index_copy_(1, idx, vals.view(a.dtype) if a.dtype == torch.bfloat16 else vals)
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
+                def put(t, i, a=a, vals=vals):
+                    v = a.block(i, vals, 2) if isinstance(a, Placed) else vals
+                    idx = self._upload(pages, t.device)
+                    t.index_copy_(1, idx, v.view(t.dtype) if t.dtype == torch.bfloat16 else v)
+
+                if isinstance(a, Placed):
+                    a.each_part(put)
+                else:
+                    put(a, 0)
+
+    def _upload(self, array: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
         # a blocking upload from pageable memory would wait for the stream;
         # the pinned block is kept by the host allocator until its copy ran
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _copy(self, src: np.ndarray, dst: np.ndarray) -> None:
         state = self.state
@@ -518,4 +544,4 @@ class PagedKVPool:
         fresh = paged_kv_init(self._params, self.n_pages, self.page_size, self._dtype, self.kv_dtype)
         with torch.inference_mode():
             for a, f in zip(self.state, fresh):
-                a.copy_(f)
+                a.copy_(f)  # a Placed buffer copies part by part

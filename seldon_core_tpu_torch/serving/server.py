@@ -14,7 +14,9 @@ serving_positions``), under the JAX package's rule (a larger
 data axis shrinks, any other axis that needs more devices is refused),
 build the executor (models on the device or the mesh, pure subtrees fused)
 and, for a single generative model with
-``tpu.decode_slots``, its continuous-batching decode scheduler, warm every
+``tpu.decode_slots``, its continuous-batching decode scheduler (tensor-parallel
+with ``tpu.decode_mesh_axes``, over the same ``mesh_devices`` positions, or
+the host's cards without them: ``parallel/tp.py``), warm every
 batch bucket, serve REST through the fast ingress and, when asked, gRPC
 beside it (``serving/grpc_server.py``), and on shutdown stop taking
 traffic, flush the micro-batcher, drain the scheduler and give in-flight
@@ -115,8 +117,10 @@ class PredictorServer:
                 deployment_name, predictor.name, unit, agree
             ),
         )
+        # decode_mesh_axes decodes over the same positions tpu.mesh gets
         self.decode_scheduler = scheduler_for_executor(
-            self.executor, predictor.tpu, metrics=self.metrics, deployment_name=deployment_name
+            self.executor, predictor.tpu, metrics=self.metrics, deployment_name=deployment_name,
+            mesh_devices=mesh_devices,
         )
         self.batcher = (
             make_batcher(

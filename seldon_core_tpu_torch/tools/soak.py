@@ -20,9 +20,13 @@ model, driven by the raw-conn load generator. One JSON line on stdout.
 
 ``--model`` is any zoo spec: ``--model 'bert_base?seq=512&attn_kernel=pallas'
 --features 512`` serves BERT-base at full width in float32 through the
-flash kernel. ``--tp N`` (tensor-parallel decode over a mesh,
-``tpu.decode_mesh_axes``) is not ported: the port refuses it before
-anything is built.
+flash kernel. ``--tp N`` serves tensor-parallel decode
+(``tpu.decode_mesh_axes={"tp": N}``) over the host's cards, or with
+``--device cpu`` over N CPU positions (the JAX soak forces N virtual host
+devices for the same run); ``soak(..., mesh_devices=)`` takes the positions
+from its caller (``[cuda:0] * N`` on one card). A ``--tp`` soak the positions
+cannot hold is refused before anything is built, and one whose scheduler
+fell back to one device fails after the run, as the JAX soak does.
 """
 
 from __future__ import annotations
@@ -51,15 +55,30 @@ def _rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
-def refuse_tp(tp: int) -> None:
-    """``--tp`` > 1 is tensor-parallel decode, which the port does not serve
-    (``graph/validation.py::UNPORTED_DECODE_KNOBS``): refused by name,
-    never run as a one-device soak and reported as tp."""
-    if tp > 1:
+def tp_positions(tp: int, device=None, mesh_devices=None) -> list | None:
+    """The positions a ``--tp`` soak decodes over: the caller's
+    ``mesh_devices``, else N CPU positions for a CPU soak, else the host's
+    cards (None without --tp). Refused by name when they cannot hold the
+    mesh: such a soak would run on one device and report a green run that
+    never exercised the sharded geometry."""
+    if tp <= 1:
+        return None
+    import torch
+
+    from seldon_core_tpu_torch.parallel.mesh import local_cards
+
+    if mesh_devices is not None:
+        positions = list(mesh_devices)
+    elif device is not None and torch.device(device).type == "cpu":
+        positions = [torch.device("cpu")] * tp
+    else:
+        positions = local_cards("cuda") if torch.cuda.is_available() else []
+    if len(positions) < tp:
         raise RuntimeError(
-            f"soak --tp {tp}: tensor-parallel decode (tpu.decode_mesh_axes) is "
-            "not ported; the port serves one device per scheduler"
+            f"soak --tp {tp}: decode_mesh_axes={{'tp': {tp}}} needs {tp} devices, have {len(positions)} — the "
+            "mesh request would be disabled and the sharded geometry NOT exercised"
         )
+    return positions
 
 
 def _free_port() -> int:
@@ -76,6 +95,7 @@ def soak_predictor(
     spec_tree: str = "",
     prefix_share: float = 0.0,
     paged: bool = False,
+    tp: int = 0,
     replicas: int = 0,
     kv_overflow: bool = False,
 ):
@@ -97,11 +117,19 @@ def soak_predictor(
         # the paged soak's point is CoW + reclaim under a SHARED/divergent
         # traffic mix — default the mix on when the caller didn't shape it
         prefix_share = 0.6
+    if tp > 1 and not paged:
+        # the tp soak's point is the sharded program set under sustained
+        # load INCLUDING the paged copy/CoW ladder — default the pool on
+        paged = True
+        if prefix_share <= 0:
+            prefix_share = 0.6
     if replicas > 1:
         # the replica soak's point is prefix-AFFINITY routing across the
         # fleet: it needs the paged pool's small page size (the affinity
         # key is one page of tokens — the default 16-token block exceeds
         # the soak's short prompts) and a shared-prefix traffic mix
+        if tp > 1:
+            raise RuntimeError("soak --replicas does not compose with --tp")
         paged = True
         if prefix_share <= 0:
             prefix_share = 0.6
@@ -116,7 +144,7 @@ def soak_predictor(
         if prefix_share <= 0:
             prefix_share = 0.6
     generative = (
-        spec_k > 0 or bool(spec_tree) or prefix_share > 0 or paged
+        spec_k > 0 or bool(spec_tree) or prefix_share > 0 or paged or tp > 1
         or replicas > 1 or kv_overflow
     )
     if generative:
@@ -143,15 +171,27 @@ def soak_predictor(
             {"name": "resid_scale", "value": "0.1", "type": "FLOAT"},
         ]
         predictor_extra["tpu"] = {"decode_slots": 4}
+        if tp > 1:
+            # tensor-parallel mesh: hidden 256 -> 4 heads / ffn 1024, both
+            # divisible by every width up to 4 (and ffn by 8)
+            graph["parameters"] += [
+                {"name": "hidden", "value": "256", "type": "INT"},
+                {"name": "ffn", "value": "1024", "type": "INT"},
+            ]
+            predictor_extra["tpu"]["decode_mesh_axes"] = {"tp": tp}
         if spec_k > 0 or spec_tree:
             draft_uri = "zoo://draft?layers=1&resid_scale=0.1"
+            if tp > 1:
+                # the draft shards on the same mesh — pin its geometry to
+                # the target's (only vocab/max_len are auto-injected)
+                draft_uri += "&hidden=256&ffn=1024"
             predictor_extra["tpu"]["decode_draft_model"] = draft_uri
             if spec_tree:
                 # tree speculation: the same draft proposes per-depth
                 # top-b candidate branches, one widened verify scores the
                 # flattened tree — sustained load drives the tree round
-                # pair (and, with --paged, the same allocator audit the
-                # chain soaks run)
+                # pair (and, with --paged/--tp, the same allocator and
+                # per-shard audits the chain soaks run)
                 predictor_extra["tpu"]["decode_spec_tree"] = spec_tree
             else:
                 predictor_extra["tpu"]["decode_spec_k"] = spec_k
@@ -249,8 +289,9 @@ async def soak(
     drain_replica: str = "",
     kv_overflow: bool = False,
     device=None,
+    mesh_devices=None,
 ) -> dict:
-    refuse_tp(tp)
+    positions = tp_positions(tp, device, mesh_devices)
     from seldon_core_tpu_torch.serving.fast_http import gateway_routes, start_fast_server
     from seldon_core_tpu_torch.tools import stack
     from seldon_core_tpu_torch.tools.loadtest import run_load
@@ -263,6 +304,7 @@ async def soak(
         spec_tree=spec_tree,
         prefix_share=prefix_share,
         paged=paged,
+        tp=tp,
         replicas=replicas,
         kv_overflow=kv_overflow,
     )
@@ -280,6 +322,7 @@ async def soak(
         oauth_key="soak-key",
         oauth_secret="soak-secret",
         device=device,
+        mesh_devices=positions,
     )
     fault_schedules = {}
     if fault_spec is not None:
@@ -516,6 +559,29 @@ async def soak(
         # reporting a green run
         for a in allocs:
             a.check()
+    tp_stats = None
+    if tp > 1:
+        # a --tp soak that silently fell back to single-device (mesh
+        # warn-disabled: head/ffn divisibility; no scheduler) would report
+        # a vacuously green run with the shard audit never executed — the
+        # exact failure mode a CI gate keyed on exit code must not miss
+        if sched is None or getattr(sched, "tp", None) != tp:
+            raise RuntimeError(
+                f"soak --tp {tp}: scheduler runs at tp="
+                f"{getattr(sched, 'tp', None)} — the mesh request was "
+                "disabled (device count or head/ffn divisibility); the "
+                "sharded geometry was NOT exercised"
+            )
+        # per-shard audit beside the allocator's host-side check(): every
+        # pool/draft-cache buffer must be laid out across exactly the mesh
+        # positions with head-sharded payloads — a soak that drifted a
+        # buffer off the mesh (or silently replicated a shard) fails
+        # loudly here rather than reporting a green run
+        tp_stats = {
+            **sched.shard_audit(),
+            "requested_tp": tp,
+            "recompiles_after_warmup": sched.recompiles_since_warmup(),
+        }
     replica_stats = None
     if replicas > 1:
         # a --replicas soak that silently fell back to one scheduler
@@ -822,6 +888,7 @@ async def soak(
         **({"prefix": prefix_stats} if prefix_stats is not None else {}),
         **({"paged": paged_stats} if paged_stats is not None else {}),
         **({"kv_tier": kvtier_stats} if kvtier_stats is not None else {}),
+        **({"tp": tp_stats} if tp_stats is not None else {}),
     }
 
 
@@ -889,8 +956,11 @@ def main(argv=None) -> None:
         "--tp",
         type=int,
         default=0,
-        help="tensor-parallel decode over an N-device mesh "
-        "(decode_mesh_axes={'tp': N}): not ported, N > 1 is refused",
+        help="run the soak against a generative deployment decoded "
+        "tensor-parallel over an N-position mesh (decode_mesh_axes={'tp': N}) "
+        "on the host's cards, or N CPU positions with --device cpu; the "
+        "shard audit lands under 'tp' and the end-of-run allocator check "
+        "runs as usual",
     )
     ap.add_argument(
         "--replicas",
@@ -966,7 +1036,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     try:
-        refuse_tp(args.tp)
+        tp_positions(args.tp, args.device)
     except RuntimeError as e:
         sys.exit(str(e))
 

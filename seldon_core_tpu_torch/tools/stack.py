@@ -18,9 +18,12 @@ def build_gateway_stack(
     oauth_secret: str = "bench-secret",
     audit=None,
     device=None,
+    mesh_devices=None,
 ):
     """Returns (server, gw, oauth, token): a warmed PredictorServer on
-    ``device`` (the card by default) registered behind a Gateway under
+    ``device`` (the card by default; a mesh, ``tpu.mesh`` or
+    ``tpu.decode_mesh_axes``, over ``mesh_devices`` when given) registered
+    behind a Gateway under
     ``deployment_name``, whose OAuth client is (``oauth_key``,
     ``oauth_secret``), with a token already issued. ``audit`` is the
     gateway's sink (default none). Serve the gateway with
@@ -32,7 +35,7 @@ def build_gateway_stack(
     from seldon_core_tpu_torch.serving.gc_policy import apply_serving_gc_policy
     from seldon_core_tpu_torch.serving.server import PredictorServer
 
-    server = PredictorServer(predictor, deployment_name=deployment_name, device=device)
+    server = PredictorServer(predictor, deployment_name=deployment_name, device=device, mesh_devices=mesh_devices)
     server.warmup()
     apply_serving_gc_policy()
     oauth = OAuthProvider()

@@ -360,7 +360,11 @@ SERVED_WIRE_KNOBS = {"decode_npy_bindata": True}
 SERVED_FLEET_KNOBS = {"decode_replicas": 1, "decode_router_policy": "", "decode_autoscale_replicas": 0,
                       "decode_autoscale_queue_depth": 0, "decode_health_poll_ms": 0.0,
                       "decode_health_miss_threshold": 3, "decode_drain_timeout_ms": 5000.0}
-ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS, **SERVED_TIER_KNOBS,
+# tensor-parallel decode, the last knob once unported, is served: set alone
+# on a host without the positions it asks for, it serves one device with the
+# JAX package's warn-and-disable
+SERVED_MESH_KNOBS = {"decode_mesh_axes": {}}
+ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_MESH_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOBS, **SERVED_TIER_KNOBS,
                  **SERVED_WIRE_KNOBS, **SERVED_FLEET_KNOBS}
 
 
@@ -368,9 +372,14 @@ ONCE_UNPORTED = {**UNPORTED_DECODE_KNOBS, **SERVED_SPEC_KNOBS, **SERVED_SLO_KNOB
 def test_unported_decode_knob_refused_by_name(knob):
     default = ONCE_UNPORTED[knob]
     value = {str: "x", int: 2, float: 0.5, dict: {"tp": 2}, bool: False}[type(default)]
+    assert not UNPORTED_DECODE_KNOBS
     if knob == "decode_draft_model":
         server = PredictorServer(_predictor(2, **{knob: "zoo://draft"}), device="cpu")
         assert not server.decode_scheduler.spec_enabled
+    elif knob in SERVED_MESH_KNOBS:
+        server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
+        assert server.predictor.tpu.decode_mesh_axes == value
+        assert server.decode_scheduler.tp == 1 and server.decode_scheduler.mesh is None
     elif knob in SERVED_SLO_KNOBS:
         server = PredictorServer(_predictor(2, **{knob: value}), device="cpu")
         assert getattr(server.decode_scheduler, knob.replace("decode_", "").replace("_ms", "_s")) == value / 1e3

@@ -56,7 +56,7 @@ def test_crd_schema_equals_jax(depth):
     ours = crd_schema.deployment_validation_schema(depth)
     theirs = jax_crd_schema.deployment_validation_schema(depth)
     assert diff_paths(ours, theirs) == CRD_DIFFERENCES
-    # the JAX contract's 40 knobs, decode_mesh_axes (refused by name) included
+    # the JAX contract's 40 knobs, decode_mesh_axes (a served field) included
     assert len(ours["properties"]["predictors"]["items"]["properties"]["tpu"]["properties"]) == 40
 
 
@@ -69,9 +69,9 @@ def test_crd_schema_comparison_catches_a_missing_field(monkeypatch):
 
 
 def test_crd_schema_keeps_the_refused_knob():
-    """``decode_mesh_axes`` is no port dataclass field, but stays in the
-    schema: the API server would prune it, and the operator must see it to
-    refuse it by name."""
+    """``decode_mesh_axes``, a port dataclass field since tensor-parallel
+    decode was ported, has the JAX contract's type in the schema (the API
+    server would prune it otherwise), and ``extra`` is no field there."""
     tpu = crd_schema.deployment_validation_schema()["properties"]["predictors"]["items"]["properties"]["tpu"]
     assert tpu["properties"]["decode_mesh_axes"] == {"additionalProperties": {"type": "integer"}, "type": "object"}
     assert "extra" not in tpu["properties"]

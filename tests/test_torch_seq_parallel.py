@@ -179,12 +179,22 @@ def test_tensor_parallel_refuses_heads_the_axis_does_not_divide():
 
 
 def test_a_seq_and_model_mesh_and_int8_on_a_model_axis_are_refused_by_name():
+    """A seq+model mesh stays refused by name. int8 on a "model" axis, once
+    refused too, serves since ``quant.quantized_pspecs`` was ported: each
+    position holds its shard of every int8 payload and the scales of its
+    columns, and answers as the unsharded int8 runtime does (held against
+    the JAX runtime in ``tests/test_torch_tp_decode.py``)."""
     with pytest.raises(ValueError, match="both 'seq' and 'model'"):
         _runtime_from_modelspec(get_model("bert_tiny"), TpuSpec(batch_buckets=[2], max_batch=2), CPU,
                                 mesh=_mesh({"seq": 2, "model": 2}))
-    with pytest.raises(ValueError, match="quantized_pspecs"):
-        _runtime_from_modelspec(get_model("bert_tiny"), TpuSpec(batch_buckets=[2], max_batch=2, weight_quant="int8"),
-                                CPU, mesh=_mesh({"model": 2}))
+    cfg = TpuSpec(batch_buckets=[2], max_batch=2, weight_quant="int8")
+    rt = _runtime_from_modelspec(get_model("bert_tiny"), cfg, CPU, mesh=_mesh({"model": 2}))
+    one = _runtime_from_modelspec(get_model("bert_tiny"), cfg, CPU)
+    qkv = rt.params[1]["layers"][0]["qkv"]["w"]
+    assert tuple(qkv["__int8_weight__"].shape) == (128, 192) and tuple(qkv["scale"].shape) == (1, 192)
+    assert rt.param_bytes() == one.param_bytes()
+    ids = np.random.default_rng(4).integers(0, 1024, (2, 16)).astype(np.float32)
+    np.testing.assert_allclose(rt.predict(ids), one.predict(ids), rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("axes,query", [({"seq": 4}, "seq_parallel=ring"), ({"data": 1, "model": 2}, "attn_kernel=pallas")])

@@ -15,7 +15,10 @@ every earlier test's leftovers. The legs start together, once per module:
   ``profile-smoke`` (``--prefix-share 0.5 --profile FILE``), pass the soak's
   own gates on ``tiny_gpt`` (zero errors, evictions and recoveries,
   demotions and promotions, nothing built after warmup, a folded profile);
-- ``--tp 2`` is refused by name (``decode_mesh_axes``) before anything is
+- ``--tp 2 --device cpu`` serves tensor-parallel decode over two CPU
+  positions and passes the JAX soak's tp gates (the shard audit, nothing
+  built after warmup, the allocator check); a ``--tp`` soak the positions
+  cannot hold is refused by name (``decode_mesh_axes``) before anything is
   built.
 """
 
@@ -45,7 +48,9 @@ def _legs(profile_path: str) -> dict:
         "port_kv": ([PORT, "--duration", "3", "--users", "4", "--kv-overflow", "--device", "cpu"], {}),
         "port_profile": ([PORT, "--duration", "3", "--users", "4", "--prefix-share", "0.5", "--profile",
                           profile_path, "--device", "cpu"], {"ENGINE_DECODE_PIPELINE": "on"}),
-        "port_tp": ([PORT, "--tp", "2", "--device", "cpu"], {}),
+        # two users on four decode slots: no request waits for a slot, so a
+        # loaded host cannot time one out in the queue
+        "port_tp": ([PORT, "--duration", "2", "--users", "2", "--tp", "2", "--device", "cpu"], {}),
     }
 
 
@@ -138,10 +143,17 @@ def test_profile_leg_writes_folded_stacks(runs):
 
 
 def test_tp_is_refused_by_name(runs, monkeypatch):
-    rc, line, stderr = runs["port_tp"]
-    assert rc != 0 and line is None
-    assert "decode_mesh_axes" in stderr
+    """``--tp 2`` serves over two CPU positions with the JAX soak's tp
+    report; a tp soak the positions cannot hold is refused by name before
+    the stack is built (it would run on one device and report green)."""
+    out = _ok(runs, "port_tp")
+    tp = out["tp"]
+    assert tp["tp"] == tp["requested_tp"] == 2 and tp["mesh_devices"] == 2
+    assert tp["components_audited"] >= 2 and tp["recompiles_after_warmup"] == 0
+    assert out["errors"] == 0 and out["paged"]["recompiles_after_warmup"] == 0
     # in-process: refused before the stack is built
+    import torch
+
     from seldon_core_tpu_torch.tools import soak, stack
 
     def built(*a, **k):
@@ -149,7 +161,7 @@ def test_tp_is_refused_by_name(runs, monkeypatch):
 
     monkeypatch.setattr(stack, "build_gateway_stack", built)
     with pytest.raises(RuntimeError, match="decode_mesh_axes"):
-        asyncio.run(soak.soak(tp=2, device="cpu"))
+        asyncio.run(soak.soak(tp=2, device="cpu", mesh_devices=[torch.device("cpu")]))
 
 
 def test_soak_predictor_serves_any_zoo_spec():

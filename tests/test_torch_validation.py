@@ -159,11 +159,13 @@ UNPORTED_CASES = {
 
 
 # knobs of UNPORTED_CASES the port serves now: held to the reference's
-# rules alone, word for word (the replicated fleet's since it was ported;
-# tensor-parallel decode, decode_mesh_axes, stays refused by name)
+# rules alone, word for word (the replicated fleet's since it was ported,
+# tensor-parallel decode's, decode_mesh_axes, since it was)
 SERVED_CASES = {"npy_bindata_disagrees", "replicated_example", "replicas_zero", "autoscale_without_depth",
                 "autoscale_cap_below_fleet", "depth_without_autoscale", "bad_router_policy",
-                "policy_on_one_replica", "health_knobs", "poll_on_one_replica", "fleet_without_slots"}
+                "policy_on_one_replica", "health_knobs", "poll_on_one_replica", "fleet_without_slots",
+                "tensor_parallel_example", "fleet_with_mesh_axes", "two_mesh_axes", "mesh_axis_zero",
+                "mesh_axes_without_slots"}
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED_CASES))
@@ -177,7 +179,7 @@ def test_unported_knobs_refused_by_name_with_the_jax_rules(case):
     got = _port_problems(obj)
     assert [p for p in got if "not part of the torch port" not in p] == want
     assert any("not part of the torch port" in p for p in got) == (case not in SERVED_CASES)
-    assert bool(got) == (case != "replicated_example")  # the served example passes the port too
+    assert bool(got) == (not case.endswith("_example"))  # the served examples pass the port too
 
 
 def test_graph_package_exports_validation():
