@@ -8,13 +8,17 @@ Phases, each of which raises on failure (no phase catches its own):
 1. build every CUDA kernel under ``seldon_core_tpu_torch/csrc/`` with nvcc
    for sm_90a (into the git-ignored ``build/kernels/``, one nvcc per source,
    all started together), and count the Hopper instructions in the built
-   libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both,
-   the W8A16 kernel both and ``HMMA`` (its mma.sync body for ragged shapes);
+   libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both and
+   tf32 ``HMMA`` (its float32 body's 3xTF32 products; ptxas must report no
+   spill in that body), the W8A16 kernel both and ``HMMA`` (its mma.sync
+   body for ragged shapes);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, as contiguous tensors and as the views
    of one fused QKV projection that BERT hands it (plus the causal and
-   ragged cases), with limits scaled to each case's output, show that two
-   planted faults fail the same check, and time kernel, plain version and
+   ragged cases, and the float32 body's d = 128 and ragged edges), with
+   limits scaled to each case's output, show that two planted faults fail
+   the same check (for float32 a third: the plain version in one TF32
+   pass), and time kernel, plain version and
    the library call that computes the same function (CUDA events, median of
    25 single calls, each queued behind a device sleep so host launch time is
    not counted; inputs stay warm in L2, as they are when the attention
@@ -429,6 +433,9 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
+PEAK_TF32_OPS = 495e12  # dense TF32 on the tensor cores
+TF32_PASSES = 3  # the float32 flash body's products: big·big + big·small + small·big
+TF32_MMA = r"HMMA\.\d+\.F32\.TF32"  # mma.sync on tf32 operands in SASS: the float32 body's products
 # Kernel vs plain version, scaled to each case's output: the max abs error
 # may reach ULPS ulps (in the dtype) of max|ref|, and ||out - ref|| / ||ref||
 # may reach REL_L2. float32 sums in another order (measured: 2 ulps). bf16
@@ -564,16 +571,24 @@ def device_ms(fn, reps: int = 25, warmup: int = 3, cold_l2: bool = False) -> flo
     return times[len(times) // 2]
 
 
-def attention_bound(b, h, sq, sk, d, dtype_name, causal):
-    """Least time for the call on an H100 SXM: each input read once and the
-    output written once at HBM rate, against the multiply-adds the unmasked
-    (row, key) pairs need at the dtype's peak."""
+def attention_bounds(b, h, sq, sk, d, dtype_name, causal) -> dict:
+    """Least time for the call on an H100 SXM, by route: each input read
+    once and the output written once at HBM rate, against the multiply-adds
+    the unmasked (row, key) pairs need at the route's peak. bf16/f16: the
+    dtype's tensor-core rate. float32: both the CUDA cores at 67 TFLOP/s
+    ("f32") and the kernel's route, TF32_PASSES tf32 products at 495
+    TFLOP/s dense ("3xtf32"). Each route maps to (ms, "bytes" or
+    "operations")."""
     elem = 4 if dtype_name == "float32" else 2
     nbytes = elem * b * h * d * (2 * sq + 2 * sk)
     pairs = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
     ops = 4 * b * h * d * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    rates = {dtype_name: ops / PEAK_OPS[dtype_name]}
+    if dtype_name == "float32":
+        rates = {"f32": ops / PEAK_OPS["float32"], "3xtf32": TF32_PASSES * ops / PEAK_TF32_OPS}
+    return {route: (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+            for route, t_ops in rates.items()}
 
 
 def agreement(out, ref, dtype_name: str) -> dict:
@@ -615,10 +630,26 @@ def drop_kv_tile(k, v):
     return k[:, :, keep].contiguous(), v[:, :, keep].contiguous()
 
 
+def tf32_one_pass(fn):
+    """``fn()`` with float32 matmuls in one TF32 pass (what a float32 body
+    on tf32 products without the split would compute); TF32 is set back
+    as it was after."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def check_flash(case, card):
     """One kernel-vs-plain case on the card; returns its numbers. Two
     planted faults — the softmax normaliser 5% large, one KV tile dropped —
-    must fail the same check, or the check is too loose for this case."""
+    must fail the same check, or the check is too loose for this case; for
+    float32 a third, the plain version run with one TF32 pass, must fail it
+    too: the kernel's tf32 products must be split (3xTF32) to pass."""
     import torch
     import torch.nn.functional as F
 
@@ -642,11 +673,16 @@ def check_flash(case, card):
         "kv_tile_dropped": agreement(
             fa.flash_attention_reference(q, *drop_kv_tile(k, v), causal=causal), ref, dtype_name),
     }
+    if dtype == torch.float32:
+        planted["one_tf32_pass"] = agreement(
+            tf32_one_pass(lambda: fa.flash_attention_reference(q, k, v, causal=causal)), ref, dtype_name)
     ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
     ms_cold_l2 = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), cold_l2=True) if b == 8 else None
     plain_ms = device_ms(lambda: fa.flash_attention_reference(q, k, v, causal=causal))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
-    bound_ms, bound_by = attention_bound(b, h, sq, sk, d, dtype_name, causal)
+    bounds = attention_bounds(b, h, sq, sk, d, dtype_name, causal)
+    # the lesser route's bound is the one printed
+    bound_route, (bound_ms, bound_by) = min(bounds.items(), key=lambda kv: kv[1][0])
     row = dict(
         case=name, shape=[b, h, sq, sk, d], dtype=dtype_name, causal=causal, layout=layout,
         max_abs_err=agree["max_abs_err"], atol=agree["atol"], rel_l2=agree["rel_l2"],
@@ -654,7 +690,7 @@ def check_flash(case, card):
         planted_faults={k_: dict(max_abs_err=a["max_abs_err"], rel_l2=a["rel_l2"], caught=not a["ok"])
                         for k_, a in planted.items()},
         ms=ms, ms_cold_l2=ms_cold_l2, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by=bound_by,
+        bound_by=bound_by, bound_route=bound_route, bounds_ms={r: v[0] for r, v in bounds.items()},
     )
     print(f"[{card}] flash_attention {json.dumps(row)}", flush=True)
     if not agree["ok"]:
@@ -9019,6 +9055,9 @@ async def serve_tp(card) -> dict:
     return out
 
 
+F32_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route", "bounds_ms", "library_ms")
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -9029,7 +9068,7 @@ def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "--dump-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    return {op.replace("\\", ""): len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
 def host_cost(card, calls: int = 200) -> dict:
@@ -9079,18 +9118,28 @@ def main() -> int:
     print(f"[{card}] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # 1. build
+    # 1. build, from the sources: a library left by an earlier process is
+    # built again, so that ptxas reports on it
     t0 = time.perf_counter()
+    for name in kernel_build.KERNELS:
+        kernel_build.library_path(name).unlink(missing_ok=True)
     build_s = kernel_build.build()
     print(f"[{card}] build: {json.dumps(build_s)} total_s={time.perf_counter() - t0:.3f}", flush=True)
     for name, log in kernel_build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Potential Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
-    sass = sass_counts(kernel_build.library_path("flash_attention"))
+    sass = sass_counts(kernel_build.library_path("flash_attention"), ("HGMMA", "UTMALDG", TF32_MMA))
     print(f"[{card}] flash_attention SASS: {json.dumps(sass)}", flush=True)
     if min(sass.values()) == 0:
-        raise AssertionError(f"the flash kernel's library lacks wgmma or TMA instructions: {sass}")
+        raise AssertionError(f"the flash kernel's library lacks wgmma, TMA or tf32 mma.sync instructions: {sass}")
+    from flash_q_probe import ptxas_report_f32
+
+    f32_ptxas = ptxas_report_f32(kernel_build.BUILD_LOGS.get("flash_attention", ""))
+    by_body = {f"d{d} x {w} warps": r for (d, w), r in f32_ptxas.items()}
+    print(f"[{card}] flash_fwd_f32 ptxas: {json.dumps(by_body)}", flush=True)
+    if len(f32_ptxas) != 4 or any("0 bytes spill stores" not in r for r in f32_ptxas.values()):
+        raise AssertionError(f"want four float32 flash bodies (d 64 and 128, 4 and 8 warps), none spilling: {f32_ptxas}")
     int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HGMMA", "UTMALDG", "HMMA"))
     print(f"[{card}] int8_matmul SASS: {json.dumps(int8_sass)}", flush=True)
     if min(int8_sass.values()) == 0:
@@ -9122,6 +9171,14 @@ def main() -> int:
         ("decoder_prefill_views", (1, 12, 4096, 4096, 64), bf16, True, views),
         ("decoder_prefill", (1, 12, 4096, 4096, 64), bf16, True, dense),
         ("decoder_prefill_f32", (1, 12, 4096, 4096, 64), f32, True, views),
+        # the float32 body's edges: d = 128, keys ragged across its tiles and
+        # fewer than one, causal with more keys than rows (each wide enough
+        # that the dropped tile of the planted fault lies below the diagonal)
+        ("f32_d128_views", (2, 12, 512, 512, 128), f32, False, views),
+        ("f32_ragged_sk200", (2, 3, 100, 200, 64), f32, False, dense),
+        ("f32_ragged_sk200_causal", (2, 3, 256, 200, 64), f32, True, dense),
+        ("f32_below_tile_sk48", (2, 3, 77, 48, 128), f32, True, dense),
+        ("f32_causal_sk_gt_sq", (2, 3, 300, 1024, 64), f32, True, dense),
     ]
     rows = {c[0]: check_flash(c, card) for c in cases}
     host = host_cost(card)
@@ -9347,9 +9404,11 @@ def main() -> int:
                                                   "library_ms")},
         "decoder_prefill_views": {k: prefill_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                               "bound_by", "library_ms")},
-        # float32, non-causal, at the batch buckets the phase-16 soak reached
-        "soak_f32_views": {f"b{b}": {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                        "library_ms")} for b, row in soak_rows.items()},
+        # float32, non-causal, at the batch buckets the phase-16 soak reached,
+        # and causal at seq 4096; bound_ms is the lesser of bounds_ms (the
+        # CUDA cores' f32 rate, the body's 3xTF32 route), named by bound_route
+        "soak_f32_views": {f"b{b}": {k: row[k] for k in F32_ROW_KEYS} for b, row in soak_rows.items()},
+        "decoder_prefill_f32_views": {k: rows["decoder_prefill_f32"][k] for k in F32_ROW_KEYS},
         # one model-axis position's 3 heads of BERT-base, bf16 (phase 17c)
         "tp4_b8_views": {k: mesh_out["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                              "library_ms")},

@@ -198,6 +198,22 @@ def ptxas_report(log: str) -> dict[tuple[str, str], str]:
     return out
 
 
+_F32_BODY = re.compile(r"flash_fwd_f32ILi(\d+)ELi(\d+)E")
+
+
+def ptxas_report_f32(log: str) -> dict[tuple[str, str], str]:
+    """The register and spill lines ptxas -v prints for each float32 body,
+    keyed by (head_dim, warps)."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _F32_BODY.search(line)
+            key = m.groups() if m else None
+        elif key and ("spill" in line or "Used" in line):
+            out[key] = (out.get(key, "") + " " + line.split(":")[-1].strip()).strip()
+    return out
+
+
 # ------------------------------------------------------------------ driver
 def build(out: Path) -> dict[str, Path]:
     from seldon_core_tpu_torch.ops import kernel_build
@@ -232,6 +248,8 @@ def build(out: Path) -> dict[str, Path]:
             if m:
                 print(f"    bf16 d={m.group(1)} warpgroups={m.group(2)}: clobbered={clobbered_q_registers(rows)}; "
                       f"ptxas: {report.get(m.groups(), 'no report')}", flush=True)
+        for (d, warps), line in ptxas_report_f32(log).items():
+            print(f"    f32 d={d} warps={warps}: ptxas: {line}", flush=True)
         libs[name] = so
     return libs
 

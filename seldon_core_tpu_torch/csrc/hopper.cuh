@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, wgmma descriptors and fences, and on the host the tensor-map
-// encoder and the SM count. Everything here has internal linkage (an
-// anonymous namespace), so each kernel library holds its own copy.
+// mbarriers, cp.async, the tf32 split and mma.sync, wgmma descriptors and
+// fences, and on the host the tensor-map encoder and the SM count.
+// Everything here has internal linkage (an anonymous namespace), so each
+// kernel library holds its own copy.
 
 #pragma once
 
@@ -43,6 +44,41 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0 fills
+// the destination with zeros (src must still be a valid address)
+__device__ __forceinline__ void cp_async_cg16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// one arrival on the barrier once every cp.async this thread issued so far
+// has landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// float32 -> tf32 rounded to nearest, ties away from zero (cvt.rna's
+// rounding): the low 13 bits of the pattern cleared after a carry
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x as big + small, both tf32: big = rna(x), small = rna(x - big) (x - big
+// is exact in f32). big*big' + big*small' + small*big' is then x*x' to
+// about 2^-22 relative: the 3xTF32 product
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a (16x8, row-major) * b (8x8, column-major) on the tensor cores,
+// tf32 operands, f32 accumulators. Per lane (g = lane / 4, t = lane % 4):
+// a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g];
+// d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes

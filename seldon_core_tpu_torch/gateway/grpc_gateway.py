@@ -107,14 +107,17 @@ class _SyncBridgeServer:
     for the result and hands the response back to C: gateway and backend
     state stay loop-confined, so nothing needs a lock."""
 
-    def __init__(self, server, bound_port: int):
+    def __init__(self, server, bound_port: int, pool):
         self._server = server
         self.bound_port = bound_port
+        self._pool = pool  # the handlers' threads, which grpc.Server.stop leaves running
 
     async def stop(self, grace):
-        # grpc.Server.stop is thread-safe and returns at once; wait off-loop
+        # grpc.Server.stop is thread-safe and returns at once; wait off-loop,
+        # then stop and join the handler threads
         event = self._server.stop(grace)
         await asyncio.get_running_loop().run_in_executor(None, event.wait)
+        await asyncio.get_running_loop().run_in_executor(None, self._pool.shutdown)
 
 
 async def _start_sync(gw, host: str, port: int) -> _SyncBridgeServer:
@@ -135,8 +138,9 @@ async def _start_sync(gw, host: str, port: int) -> _SyncBridgeServer:
 
     # few threads: handlers only park on the loop bridge; C-core does the
     # HTTP/2 and parse work on its own threads
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=4), options=list(SERVER_OPTIONS))
+    pool = futures.ThreadPoolExecutor(max_workers=4, thread_name_prefix="seldon-grpc-gateway")
+    server = grpc.server(pool, options=list(SERVER_OPTIONS))
     add_service(server, "Seldon", {"Predict": bridge(predict), "SendFeedback": bridge(send_feedback)})
     bound = _bind(server, host, port)
     server.start()
-    return _SyncBridgeServer(server, bound)
+    return _SyncBridgeServer(server, bound, pool)

@@ -109,6 +109,31 @@ def compute_pool() -> ThreadPoolExecutor:
     return _COMPUTE_POOL
 
 
+_COMPUTE_POOL_HOLDERS = 0
+
+
+def hold_compute_pool() -> None:
+    """A server that may use the pool counts itself in; the pool itself
+    still starts at first use."""
+    global _COMPUTE_POOL_HOLDERS
+    with _COMPUTE_POOL_LOCK:
+        _COMPUTE_POOL_HOLDERS += 1
+
+
+def release_compute_pool() -> None:
+    """A server's close: the last holder to go shuts the pool down and
+    joins its threads (work already queued finishes first); the next
+    ``compute_pool()`` starts a new one."""
+    global _COMPUTE_POOL, _COMPUTE_POOL_HOLDERS
+    with _COMPUTE_POOL_LOCK:
+        _COMPUTE_POOL_HOLDERS = max(0, _COMPUTE_POOL_HOLDERS - 1)
+        pool = None
+        if _COMPUTE_POOL_HOLDERS == 0:
+            pool, _COMPUTE_POOL = _COMPUTE_POOL, None
+    if pool is not None:
+        pool.shutdown(wait=True)
+
+
 ApplyFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
 

@@ -30,6 +30,7 @@ package, the first request of a key captures it).
 from __future__ import annotations
 
 import asyncio
+import atexit
 import gc
 import hashlib
 import json
@@ -192,6 +193,8 @@ class _Release:
         # full collection, and how many times the heap was frozen again
         self.stat_collect_s: list[float] = []
         self.stat_refreezes = 0
+        self._timers: list[threading.Timer] = []  # settles due from a worker thread
+        _RELEASES.add(self)
 
     def pending(self) -> int:
         """Parts of dropped versions not yet collected."""
@@ -231,7 +234,34 @@ class _Release:
         except RuntimeError:  # a drain on a worker thread: no loop here
             timer = threading.Timer(delay, self.settle, (tries + 1,))
             timer.daemon = True
+            with self._lock:
+                self._timers = [t for t in self._timers if t.is_alive()] + [timer]
             timer.start()
+
+    def close(self) -> None:
+        """Cancel the settles still due on timer threads and join them (a
+        settle in progress finishes first): the owner is going away."""
+        while True:
+            with self._lock:
+                timers, self._timers = self._timers, []
+            if not timers:
+                return
+            for timer in timers:  # a settle in progress may start one more
+                timer.cancel()
+                if timer is not threading.current_thread():
+                    timer.join()
+
+
+# every _Release: timers still due at exit are cancelled and joined before
+# the interpreter finalises (a daemon thread killed inside gc.collect() can
+# abort the process)
+_RELEASES: "weakref.WeakSet[_Release]" = weakref.WeakSet()
+
+
+@atexit.register
+def _close_releases_at_exit() -> None:
+    for release in list(_RELEASES):
+        release.close()
 
 
 @dataclass

@@ -15,11 +15,13 @@ starts), and restores them when attached, under the same keys.
 
 from __future__ import annotations
 
+import atexit
 import hashlib
 import logging
 import os
 import pickle
 import threading
+import weakref
 from typing import Any, Iterable
 
 log = logging.getLogger(__name__)
@@ -173,11 +175,30 @@ class StatePersister:
 
         self._thread = threading.Thread(target=loop, name=f"persist-{self.deployment_id}", daemon=True)
         self._thread.start()
+        _RUNNING.add(self)
 
     def stop(self) -> None:
         """End the periodic snapshots and flush once more."""
+        self._halt()
+        self.persist_now()
+
+    def _halt(self) -> None:
+        """Stop the snapshot thread and join it (a snapshot in progress
+        finishes first)."""
+        _RUNNING.discard(self)
         if self._thread is not None:
             self._stop.set()
-            self._thread.join(timeout=2)
+            self._thread.join()
             self._thread = None
-        self.persist_now()
+
+
+# persisters whose thread runs: joined at exit where their owner never
+# stopped them, since a daemon thread killed mid-snapshot while the
+# interpreter finalises can abort the process
+_RUNNING: "weakref.WeakSet[StatePersister]" = weakref.WeakSet()
+
+
+@atexit.register
+def _halt_at_exit() -> None:
+    for persister in list(_RUNNING):
+        persister._halt()

@@ -42,6 +42,7 @@ from seldon_core_tpu_torch.gateway import (
     make_token_store,
 )
 from seldon_core_tpu_torch.metrics import get_metrics
+from seldon_core_tpu_torch.models.base import hold_compute_pool, release_compute_pool
 from seldon_core_tpu_torch.operator import DeploymentManager, operator_routes, watch_directory
 from seldon_core_tpu_torch.serving.fast_http import gateway_routes, start_fast_server
 from seldon_core_tpu_torch.serving.wire import WireRequest, WireResponse
@@ -87,6 +88,8 @@ class Platform:
             mesh_devices=mesh_devices,
         )
         self._servers: list[asyncio.AbstractServer] = []
+        hold_compute_pool()  # released by stop(): its threads go with the last holder
+        self._holds_pool = True
         self._grpc_server = None
         self._lag_probe: asyncio.Task | None = None
         self._watch_task: asyncio.Task | None = None
@@ -181,6 +184,10 @@ class Platform:
             await server.wait_closed()
         for name in self.manager.names():
             await asyncio.get_running_loop().run_in_executor(None, self.manager.delete, name)
+        self.manager.release.close()
+        if self._holds_pool:
+            self._holds_pool = False
+            release_compute_pool()
         self._servers, self._grpc_server, self._watch_task, self._lag_probe = [], None, None, None
 
 

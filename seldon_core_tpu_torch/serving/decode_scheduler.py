@@ -860,6 +860,7 @@ class DecodeScheduler:
         self._wake = asyncio.Event()
         self._task: asyncio.Task | None = None
         self._closed = False
+        self._watching = False  # counted among the profiler's watchers
         self._warmup_keys: int | None = None
 
         self.stat_steps = 0
@@ -2568,8 +2569,10 @@ class DecodeScheduler:
     async def _run(self) -> None:
         try:
             # the sampling profiler watches the loop's thread (a no-op
-            # under ENGINE_DECODE_PROFILE=off)
-            profile_mod.watch_decode_thread()
+            # under ENGINE_DECODE_PROFILE=off) until close() or abort()
+            if not self._watching:
+                profile_mod.watch_decode_thread()
+                self._watching = True
             # the round clock starts with the loop: warmup and idle time
             # before the first request are no decode bubble
             self._round_reset()
@@ -2650,6 +2653,12 @@ class DecodeScheduler:
                 pass
             self._task = None
         self._worker.shutdown(wait=True)
+        self._unwatch()
+
+    def _unwatch(self) -> None:
+        if self._watching:
+            self._watching = False
+            profile_mod.unwatch_decode_thread()
 
     async def abort(self, timeout_s: float = 5.0) -> None:
         """Hard stop of an evicted fleet replica, whose loop may hang (a
@@ -2686,6 +2695,7 @@ class DecodeScheduler:
             log.warning("decode replica %d: pool rewrite still queued behind a stuck worker after %.1fs",
                         self.replica_id, timeout_s)
         self._worker.shutdown(wait=False)
+        self._unwatch()
 
     # ------------------------------------------------- fleet health / chaos
     def health_probe(self) -> dict:

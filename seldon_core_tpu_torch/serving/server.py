@@ -64,6 +64,7 @@ from seldon_core_tpu_torch.graph.defaulting import default_deployment
 from seldon_core_tpu_torch.graph.spec import DeploymentSpec, PredictorSpec, SeldonDeployment
 from seldon_core_tpu_torch.graph.validation import validate_deployment
 from seldon_core_tpu_torch.metrics.registry import MetricsResilienceEvents, get_metrics, run_loop_lag_probe
+from seldon_core_tpu_torch.models.base import hold_compute_pool, release_compute_pool
 from seldon_core_tpu_torch.parallel.mesh import mesh_from_spec, serving_positions
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
@@ -148,6 +149,9 @@ class PredictorServer:
         self.state = {"paused": False}
         self._server: asyncio.AbstractServer | None = None
         self._grpc_server = None
+        # the shared compute pool's threads stop when the last server holding it stops
+        hold_compute_pool()
+        self._holds_pool = True
         self._lag_probe: asyncio.Task | None = None
 
     def warmup(self) -> None:
@@ -204,6 +208,9 @@ class PredictorServer:
         from seldon_core_tpu_torch.engine.remote import close_remote_units
 
         await close_remote_units(self.executor)
+        if self._holds_pool:
+            self._holds_pool = False
+            release_compute_pool()
 
 
 def validate_predictor(predictor: PredictorSpec, deployment_name: str = "") -> None:

@@ -31,6 +31,7 @@ dispatch. Kill switch ``ENGINE_DECODE_PROFILE=off``; rate knob
 
 from __future__ import annotations
 
+import atexit
 import os
 import sys
 import threading
@@ -247,6 +248,7 @@ class StackProfiler:
 
 _PROFILER: StackProfiler | None = None
 _PROFILER_LOCK = threading.Lock()
+_WATCHERS = 0  # decode loops between watch_decode_thread() and unwatch_decode_thread()
 
 
 def get_profiler() -> StackProfiler:
@@ -264,7 +266,31 @@ def watch_decode_thread() -> StackProfiler:
     process profiler — the decode scheduler calls this as its loop task
     begins, so sampling is always-on without any operator action (a
     no-op under ENGINE_DECODE_PROFILE=off)."""
+    global _WATCHERS
     prof = get_profiler()
+    with _PROFILER_LOCK:
+        _WATCHERS += 1
     prof.watch(threading.get_ident())
     prof.start()
     return prof
+
+
+def unwatch_decode_thread() -> None:
+    """A decode loop's close: the last loop to go stops the sampler thread
+    and joins it (the table stays readable). A daemon thread left running
+    is killed mid-call when the interpreter finalises, which can abort the
+    process at exit."""
+    global _WATCHERS
+    with _PROFILER_LOCK:
+        _WATCHERS = max(0, _WATCHERS - 1)
+        prof = _PROFILER if _WATCHERS == 0 else None
+    if prof is not None:
+        prof.stop()
+
+
+@atexit.register
+def _stop_at_exit() -> None:
+    """Join the sampler of a decode loop that was never closed, before the
+    interpreter finalises."""
+    if _PROFILER is not None:
+        _PROFILER.stop()

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import faulthandler
 import json
 import resource
 import socket
@@ -479,10 +480,9 @@ async def soak(
             await chaos_task
         fast.close()
         await fast.wait_closed()
-        if getattr(server, "decode_scheduler", None) is not None:
-            await server.decode_scheduler.close()
-        if server.batcher is not None:
-            await server.batcher.close()
+        # the batcher, the decode scheduler (and with it the profiler's
+        # sampler), shadows, remote units and the compute pool's threads
+        await server.stop()
 
     s = stats.summary()
     # The in-process load GENERATOR keeps every request's latency +
@@ -893,6 +893,9 @@ async def soak(
 
 
 def main(argv=None) -> None:
+    # a fatal signal (an abort at the process's exit included) prints every
+    # thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--duration", type=float, default=60.0)
     ap.add_argument("--users", type=int, default=16)

@@ -198,6 +198,10 @@ def cuda():
         (torch.float16, False, 1, 16, 128),
         (torch.float32, True, 100, 32, 64),
         (torch.bfloat16, False, 65, 48, 128),
+        # the float32 body's 64-key tiles: keys ragged across them, and a
+        # causal block with far more keys than rows
+        (torch.float32, False, 100, 200, 64),
+        (torch.float32, True, 64, 1024, 64),
     ],
 )
 def test_kernel_matches_plain_version_on_card(cuda, dtype, causal, sq, sk, d):
@@ -241,6 +245,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         (torch.bfloat16, True, 200, 3, 128),
         (torch.float16, False, 65, 2, 64),
         (torch.float32, True, 77, 3, 128),
+        (torch.float32, False, 512, 12, 128),  # the float32 body at d = 128 over 32-key tiles
     ],
 )
 def test_kernel_on_bert_layout_views_matches_plain_version(cuda, dtype, causal, s, h, d):

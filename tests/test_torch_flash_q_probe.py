@@ -81,3 +81,25 @@ def test_ptxas_report_keys_each_bf16_body():
     assert probe.ptxas_report(log) == {
         ("128", "1"): "88 bytes stack frame, 132 bytes spill stores, 136 bytes spill loads "
                       "Used 168 registers, used 16 barriers"}
+
+
+F32 = "_ZN51_GLOBAL__N__0dbd0e32_18_flash_attention_cu_2c13897913flash_fwd_f32ILi64ELi8EEEvPKfS2_S2_PfNS_7StridesEiiifi"
+
+
+def test_ptxas_report_keys_each_f32_body():
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{FN}' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        f"ptxas info    : Compiling entry function '{F32}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {F32}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 159 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{F32.replace('Li64ELi8E', 'Li128ELi4E')}' for 'sm_90a'",
+        "    112 bytes stack frame, 136 bytes spill stores, 144 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+    ])
+    assert probe.ptxas_report_f32(log) == {
+        ("64", "8"): "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads Used 159 registers, used 1 barriers",
+        ("128", "4"): "112 bytes stack frame, 136 bytes spill stores, 144 bytes spill loads "
+                      "Used 255 registers, used 1 barriers"}
+    assert list(probe.ptxas_report(log)) == [("128", "1")]
