@@ -10,8 +10,9 @@ Phases, each of which raises on failure (no phase catches its own):
    all started together), and count the Hopper instructions in the built
    libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both and
    tf32 ``HMMA`` (its float32 body's 3xTF32 products; ptxas must report no
-   spill in that body), the W8A16 kernel both and ``HMMA`` (its mma.sync
-   body for ragged shapes);
+   spill in that body), the W8A16 kernel both, ``HMMA`` (its mma.sync
+   body for ragged shapes) and tf32 ``HGMMA`` (its float32 body), with no
+   spill in its tf32x2 and splitk bodies;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, as contiguous tensors and as the views
    of one fused QKV projection that BERT hands it (plus the causal and
@@ -96,19 +97,22 @@ Phases, each of which raises on failure (no phase catches its own):
    check. The speculation path launches no flash kernel (counted).
 7. int8 weights and the resilience layer: the W8A16 kernel
    (``csrc/int8_matmul.cu``) against its plain version in bf16 and float32
-   at BERT-base's served projections at bucket 32 and bucket 1, iris's (M,
-   4 -> 3), the wgmma body's edges (M % 128 != 0, K % 64 != 0, N not a
-   multiple of the tile) and three stacked members (through the vmap rule,
-   a shared input and per-member rows, at K 768 and 776), each case on the
-   body ``select_body`` must name for it (counted per body), with scales
-   applied per row and one dropped K tile shown to fail every case, each
-   case timed beside its plain version, ``torch.addmm`` /
-   ``torch.baddbmm`` on the pre-dequantized weights and, where it took
-   the wgmma body, the mma.sync body on the same inputs; the wrapper's host
-   cost per call; the ``bert_int8`` deployment through REST (49 launches
-   per forward, counted: 48 on the wgmma body, the head on the mma body;
-   probabilities against the bf16 deployment and the CPU; resident
-   parameter bytes; a profiler breakdown at bucket 32);
+   at BERT-base's served projections at bucket 32 and bucket 1, its head,
+   iris's (M, 4 -> 3), narrow outputs around the cut (N 8, 16 and 32 at
+   32 to 4096 rows, and a K ending mid-chunk), the tiled bodies' edges (M % 128 != 0, K % 64 != 0,
+   N not a multiple of the tile, x rows off 16 bytes) and three stacked
+   members (through the vmap rule, a shared input and per-member rows, at
+   K 768 and 776), each case on the body ``select_body`` must name for it
+   (counted per body), with scales applied per row and one dropped K tile
+   (float32 also: x's tf32 part alone) shown to fail every case, each case
+   timed beside its plain version, ``torch.addmm`` / ``torch.baddbmm`` on
+   the pre-dequantized weights and the other bodies that can take it; the
+   launch floor; the wrapper's host cost per call; the ``bert_int8``
+   deployment through REST in bf16 (49 launches per forward, counted: 48
+   on the wgmma body, the head on splitk) and a float32 copy (48 on
+   tf32x2, the head on splitk), each against the same deployment without
+   weight_quant and the CPU; resident parameter bytes; a profiler
+   breakdown at bucket 32;
    ``iris_fallback_breaker`` on the card with faults
    installed (fallback and breaker, a deadline tag's 504, a breakered node
    without fallback answering 500 then 503 with Retry-After, and
@@ -436,6 +440,7 @@ PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # dense; f
 PEAK_TF32_OPS = 495e12  # dense TF32 on the tensor cores
 TF32_PASSES = 3  # the float32 flash body's products: big·big + big·small + small·big
 TF32_MMA = r"HMMA\.\d+\.F32\.TF32"  # mma.sync on tf32 operands in SASS: the float32 body's products
+TF32_WGMMA = r"HGMMA\.\d+x\d+x8\.F32\.TF32"  # wgmma on tf32 operands: the float32 W8A16 body's
 # Kernel vs plain version, scaled to each case's output: the max abs error
 # may reach ULPS ulps (in the dtype) of max|ref|, and ||out - ref|| / ||ref||
 # may reach REL_L2. float32 sums in another order (measured: 2 ulps). bf16
@@ -518,11 +523,18 @@ SPEC_MIN_ACCEPTED = 1.0
 # are held to the JAX package's own int8 bound (tests/test_quant.py:94);
 # against the port's int8 forward on the CPU to SERVE_ATOL (bf16 rounding
 # flips through 12 layers).
-# K columns per tile: 64 for the wgmma and mma bodies (bf16), 32 for fma
-INT8_K_TILE = {"bfloat16": 64, "float32": 32}
+# K columns per tile of each body (the dropped tile is one the body reads
+# as one): 64 for wgmma and mma, 32 for tf32x2 and fma; splitk has no K
+# tile, so the second 64 go. float32 cases carry a third fault: the plain
+# version on x's tf32 part alone (hi·q, one tf32 pass without the split).
+INT8_K_TILE = {"wgmma": 64, "mma": 64, "tf32x2": 32, "fma": 32, "splitk": 64}
 INT8_SERVE_ATOL = 3e-2
 INT8_LAUNCHES = 12 * 4 + 1  # qkv, attn_out, mlp_in, mlp_out per layer, and the head
-INT8_LAUNCHES_BY_BODY = {"wgmma": 12 * 4, "mma": 1, "fma": 0}  # the head has N = 2
+# by body, every body named: the head has N = 2 (splitk); the float32 copy
+# of bert_int8 (phase 7c) takes tf32x2 where bf16 takes wgmma
+INT8_LAUNCHES_BY_BODY = {"wgmma": 12 * 4, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 0}
+INT8_F32_LAUNCHES_BY_BODY = {"wgmma": 0, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 12 * 4}
+TF32X2_PASSES = 2  # the float32 W8A16 body's products: lo·q + hi·q, q exact in tf32
 
 
 def require_launches(label: str, deltas: list, want: int) -> None:
@@ -1894,7 +1906,14 @@ async def serve_speculative(card, path: Path, check_only: bool = False, twice: b
     import numpy as np
 
     spec_srv, build_s, warmup_s = await _start(path)
-    twin_srv, _, twin_warm = await _start(path, cuda_graphs=False)
+    # the eager twin is there to hold ids, not the queue's timeout: on a
+    # slower host its second wave waited past the 2 s default for a slot
+    dep = json.loads(path.read_text())
+    dep["spec"]["predictors"][0]["tpu"]["queue_timeout_ms"] = 30000.0
+    twin_path = ROOT / "build" / f"{path.stem}_eager_twin.json"
+    twin_path.parent.mkdir(exist_ok=True)
+    twin_path.write_text(json.dumps(dep))
+    twin_srv, _, twin_warm = await _start(twin_path, cuda_graphs=False)
     dep = json.loads(path.read_text())
     dep["spec"]["predictors"][0]["tpu"].update(SPEC_OFF)
     plain_path = ROOT / "build" / f"{path.stem}_plain.json"
@@ -2304,21 +2323,39 @@ def int8_weights(k: int, n: int, rng):
     return payload(leaf), leaf["scale"]
 
 
-def int8_bound(e, m, k, n, dtype_name, shared_x):
-    """Least time for the call on an H100 SXM: x read once (once for all
-    members when shared), each member's int8 payload, scales and bias read
-    once and y written once at HBM rate, against 2*M*N*K operations per
-    member at the activation dtype's peak."""
+def int8_bounds(e, m, k, n, dtype_name, shared_x) -> dict:
+    """Least time for the call on an H100 SXM, by route: x read once (once
+    for all members when shared), each member's int8 payload, scales and
+    bias read once and y written once at HBM rate, against 2*M*N*K
+    operations per member at the route's peak. bf16/f16: the dtype's
+    tensor-core rate. float32: the CUDA cores at 67 TFLOP/s ("f32") and the
+    tf32x2 body's route, TF32X2_PASSES tf32 products at 495 TFLOP/s dense
+    ("2xtf32"). Each route maps to (ms, "bytes" or "operations")."""
     elem = 4 if dtype_name == "float32" else 2
     nbytes = m * k * elem * (1 if shared_x else e) + e * (k * n + 4 * n + elem * n + elem * m * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * e * m * n * k / PEAK_OPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    ops = 2 * e * m * n * k
+    rates = {dtype_name: ops / PEAK_OPS[dtype_name]}
+    if dtype_name == "float32":
+        rates = {"f32": ops / PEAK_OPS["float32"], "2xtf32": TF32X2_PASSES * ops / PEAK_TF32_OPS}
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {route: (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+            for route, t_ops in rates.items()}
+
+
+def tf32_hi(x):
+    """x with the low 13 bits of each float32 cleared: what a tensor core
+    reads of it as a tf32 operand."""
+    import torch
+
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def int8_planted(x, q, s, b, k_tile: int) -> dict:
     """The plain version with a planted fault: scales applied per row (row k
     takes column k mod N's scale), or one K tile of x dropped (the second
-    tile, or half of a K shorter than two tiles)."""
+    tile, or half of a K shorter than two tiles); in float32 also x's tf32
+    part alone (one tf32 pass, what the tf32x2 body without its split would
+    compute)."""
     import torch
 
     from seldon_core_tpu_torch.ops.int8_matmul import _batched_reference
@@ -2329,18 +2366,32 @@ def int8_planted(x, q, s, b, k_tile: int) -> dict:
     t = max(1, min(k_tile, k // 2))
     keep = torch.ones(k, device=x.device, dtype=x.dtype)
     keep[t:2 * t] = 0
-    return {
+    faults = {
         "scale_per_row": torch.matmul(x, per_row) + b[:, None, :],
         "k_tile_dropped": _batched_reference(x * keep, q, s, b),
     }
+    if x.dtype == torch.float32:
+        faults["tf32_one_pass"] = _batched_reference(tf32_hi(x), q, s, b)
+    return faults
+
+
+def int8_other_bodies(body: str, n: int, dtype_name: str) -> tuple:
+    """The bodies timed beside the one a case launches on: the body it
+    replaced on that route (mma for bf16, fma for float32), and around the
+    narrow cut (N <= 32) the narrow and the tiled bodies both. A body that
+    cannot take the call is skipped."""
+    wide = ("mma", "wgmma") if dtype_name != "float32" else ("fma", "tf32x2")
+    others = (wide[0],) + ((wide[1], "splitk") if n <= 32 else ())
+    return tuple(b for b in others if b != body)
 
 
 def check_int8(case, card) -> dict:
     """One W8A16 kernel-vs-plain case on the card: x [E, M, K] (one x
     shared by the E members when ``shared``, as a fused ensemble's input
     is), E quantized [K, N] weights, a bias; E > 1 goes through the vmap
-    rule, as graph fusion calls it. The call must launch once, on ``body``.
-    Returns the case's numbers."""
+    rule, as graph fusion calls it. The call must launch once, on ``body``;
+    the other bodies that can take it are timed beside it
+    (``int8_other_bodies``). Returns the case's numbers."""
     import numpy as np
     import torch
 
@@ -2374,11 +2425,16 @@ def check_int8(case, card) -> dict:
         ref = _batched_reference(x, q, s, b)
         agree = agreement(out, ref, dtype_name)
         planted = {f: agreement(y, ref, dtype_name)
-                   for f, y in int8_planted(x, q, s, b, INT8_K_TILE[dtype_name]).items()}
+                   for f, y in int8_planted(x, q, s, b, INT8_K_TILE[body]).items()}
         w = (q.float() * s[:, None, :]).to(dtype)
         ms = device_ms(call)
-        # the simple body on the same inputs, where the wgmma body served
-        ms_mma = device_ms(lambda: i8._launch(x, q, s, b, body="mma")) if body == "wgmma" else None
+        ms_other = {}
+        for other in int8_other_bodies(body, n, dtype_name):
+            try:
+                i8._launch(x, q, s, b, body=other)
+            except RuntimeError:  # the body cannot take the call
+                continue
+            ms_other[other] = device_ms(lambda: i8._launch(x, q, s, b, body=other))
         plain_ms = device_ms(lambda: _batched_reference(x, q, s, b))
         if e == 1:
             library_ms = device_ms(lambda: torch.addmm(b[0], x1[0], w[0]))
@@ -2386,14 +2442,17 @@ def check_int8(case, card) -> dict:
             library_ms = device_ms(lambda: torch.baddbmm(b[:, None, :], x, w))
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
-    bound_ms, bound_by = int8_bound(e, m, k, n, dtype_name, shared)
+    bounds = int8_bounds(e, m, k, n, dtype_name, shared)
+    bound_route, (bound_ms, bound_by) = min(bounds.items(), key=lambda kv: kv[1][0])  # the lesser
     row = dict(
         case=name, shape=[e, m, k, n], dtype=dtype_name, shared_x=shared, body=body,
         max_abs_err=agree["max_abs_err"], atol=agree["atol"], rel_l2=agree["rel_l2"],
         rel_l2_limit=agree["rel_l2_limit"],
         planted_faults={f: dict(max_abs_err=a["max_abs_err"], rel_l2=a["rel_l2"], caught=not a["ok"])
                         for f, a in planted.items()},
-        ms=ms, ms_mma=ms_mma, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms=ms, ms_other_bodies=ms_other, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bound_route=bound_route,
+        bounds_ms={r: b_ms for r, (b_ms, _) in bounds.items()},
     )
     print(f"[{card}] int8_matmul {json.dumps(row)}", flush=True)
     if launched != {name_: int(name_ == body) for name_ in launched}:
@@ -2406,53 +2465,71 @@ def check_int8(case, card) -> dict:
     return row
 
 
-INT8_SHAPES = [  # name, (E, M, K, N), x shared by the members, the bf16 body
+INT8_SHAPES = [  # name, (E, M, K, N), x shared by the members, the body in bf16, in float32
     # BERT-base's projections at bucket 32 x seq 128 (M = 4096), and its head
-    ("qkv_b32", (1, 4096, 768, 2304), False, "wgmma"),
-    ("attn_out_b32", (1, 4096, 768, 768), False, "wgmma"),
-    ("mlp_in_b32", (1, 4096, 768, 3072), False, "wgmma"),
-    ("mlp_out_b32", (1, 4096, 3072, 768), False, "wgmma"),
-    ("head_b32", (1, 32, 768, 2), False, "mma"),
+    ("qkv_b32", (1, 4096, 768, 2304), False, "wgmma", "tf32x2"),
+    ("attn_out_b32", (1, 4096, 768, 768), False, "wgmma", "tf32x2"),
+    ("mlp_in_b32", (1, 4096, 768, 3072), False, "wgmma", "tf32x2"),
+    ("mlp_out_b32", (1, 4096, 3072, 768), False, "wgmma", "tf32x2"),
+    ("head_b32", (1, 32, 768, 2), False, "splitk", "splitk"),
     # the Hugging Face pooler of bert_base_hf_int8 (phase 11): [CLS] rows
-    ("pooler_b32", (1, 32, 768, 768), False, "wgmma"),
+    ("pooler_b32", (1, 32, 768, 768), False, "wgmma", "tf32x2"),
     # the same at bucket 1 (M = 128 rows, the head one)
-    ("qkv_b1", (1, 128, 768, 2304), False, "wgmma"),
-    ("attn_out_b1", (1, 128, 768, 768), False, "wgmma"),
-    ("mlp_in_b1", (1, 128, 768, 3072), False, "wgmma"),
-    ("mlp_out_b1", (1, 128, 3072, 768), False, "wgmma"),
-    ("head_b1", (1, 1, 768, 2), False, "mma"),
+    ("qkv_b1", (1, 128, 768, 2304), False, "wgmma", "tf32x2"),
+    ("attn_out_b1", (1, 128, 768, 768), False, "wgmma", "tf32x2"),
+    ("mlp_in_b1", (1, 128, 768, 3072), False, "wgmma", "tf32x2"),
+    ("mlp_out_b1", (1, 128, 3072, 768), False, "wgmma", "tf32x2"),
+    ("head_b1", (1, 1, 768, 2), False, "splitk", "splitk"),
     # iris: K = 4, N = 3, ragged everywhere
-    ("iris", (1, 5, 4, 3), False, "mma"),
-    # the wgmma body's edges: M % 128 != 0, K % 64 != 0, N % 128 != 0
-    ("m_ragged", (1, 4000, 768, 2304), False, "wgmma"),
-    ("k_ragged", (1, 256, 776, 768), False, "wgmma"),
-    ("n_ragged", (1, 256, 768, 400), False, "wgmma"),
+    ("iris", (1, 5, 4, 3), False, "splitk", "splitk"),
+    # around the narrow cut (select_body: N <= 8, or N <= 32 for at most
+    # 128 rows) at the head's rows and past the rows, and the narrow body
+    # with K ending inside its last chunk
+    ("n8_b32", (1, 32, 768, 8), False, "splitk", "splitk"),
+    ("n16_b32", (1, 32, 768, 16), False, "splitk", "splitk"),
+    ("n32_b32", (1, 32, 768, 32), False, "splitk", "splitk"),
+    ("n32_m128", (1, 128, 768, 32), False, "splitk", "splitk"),
+    ("n16_m512", (1, 512, 768, 16), False, "wgmma", "tf32x2"),
+    ("n8_m4096", (1, 4096, 768, 8), False, "splitk", "splitk"),
+    ("head_k770", (1, 32, 770, 2), False, "splitk", "splitk"),
+    # the tiled bodies' edges: M % 128 != 0, K % 64 != 0, N % 128 != 0
+    ("m_ragged", (1, 4000, 768, 2304), False, "wgmma", "tf32x2"),
+    ("k_ragged", (1, 256, 776, 768), False, "wgmma", "tf32x2"),
+    ("n_ragged", (1, 256, 768, 400), False, "wgmma", "tf32x2"),
+    # K = 774: x's rows are off 16 bytes for both tiled bodies
+    ("k774_misaligned", (1, 256, 774, 768), False, "mma", "fma"),
     # one position's shards of int8 BERT-base over {"model": 4} at bucket 8 x
     # seq 512 (phase 18c): qkv's q, k and v column slabs, attn_out's rows
     # (no bias: it follows the psum), mlp_in's columns, mlp_out's rows
-    ("tp4_qkv_b8", (1, 4096, 768, 576), False, "wgmma"),
-    ("tp4_attn_out_b8", (1, 4096, 192, 768), False, "wgmma"),
-    ("tp4_mlp_in_b8", (1, 4096, 768, 768), False, "wgmma"),
-    ("tp4_mlp_out_b8", (1, 4096, 768, 768), False, "wgmma"),
+    ("tp4_qkv_b8", (1, 4096, 768, 576), False, "wgmma", "tf32x2"),
+    ("tp4_attn_out_b8", (1, 4096, 192, 768), False, "wgmma", "tf32x2"),
+    ("tp4_mlp_in_b8", (1, 4096, 768, 768), False, "wgmma", "tf32x2"),
+    ("tp4_mlp_out_b8", (1, 4096, 768, 768), False, "wgmma", "tf32x2"),
     # a fused ensemble of three members: the shared input, then per-member
     # rows; K = 776 ends mid-tile, where a read across a member's edge shows
-    ("stacked_e3_shared_x", (3, 256, 768, 768), True, "wgmma"),
-    ("stacked_e3", (3, 256, 768, 768), False, "wgmma"),
-    ("stacked_e3_k776_shared_x", (3, 256, 776, 768), True, "wgmma"),
-    ("stacked_e3_k776", (3, 256, 776, 768), False, "wgmma"),
+    ("stacked_e3_shared_x", (3, 256, 768, 768), True, "wgmma", "tf32x2"),
+    ("stacked_e3", (3, 256, 768, 768), False, "wgmma", "tf32x2"),
+    ("stacked_e3_k776_shared_x", (3, 256, 776, 768), True, "wgmma", "tf32x2"),
+    ("stacked_e3_k776", (3, 256, 776, 768), False, "wgmma", "tf32x2"),
 ]
 
 
 def int8_kernel_checks(card) -> dict:
-    """Phase 7b: every INT8_SHAPES case in bfloat16 and float32 (fma)."""
+    """Phase 7b: every INT8_SHAPES case in bfloat16 and float32, each on the
+    body select_body names; then the launch floor, the device time of a
+    one-element fill on the same stream (what a launch alone costs as the
+    events see it)."""
     import torch
 
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, shape, shared, body in INT8_SHAPES:
+        for name, shape, shared, bf16_body, f32_body in INT8_SHAPES:
             label = f"{name}_{str(dtype).removeprefix('torch.')}"
-            body = body if dtype == torch.bfloat16 else "fma"
+            body = bf16_body if dtype == torch.bfloat16 else f32_body
             rows[label] = check_int8((label, shape, dtype, shared, body), card)
+    fill = torch.empty(1, device="cuda")
+    rows["launch_floor_ms"] = device_ms(lambda: fill.fill_(1.0))
+    print(f"[{card}] int8_matmul launch floor (a one-element fill): {rows['launch_floor_ms']} ms", flush=True)
     return rows
 
 
@@ -2508,7 +2585,8 @@ def int8_breakdown(card, label: str, runtime, ids) -> dict:
     kernels, ops = profile_device(lambda: runtime.predict(ids))
     wall = wall_ms(lambda: runtime.predict(ids))
     busy = sum(kernels.values())
-    int8 = sum(t for k, t in kernels.items() if any(b in k for b in ("wgmma_body", "mma_body", "fma_body")))
+    int8 = sum(t for k, t in kernels.items()
+               if any(b in k for b in ("wgmma_body", "mma_body", "fma_body", "splitk_body", "tf32x2_body")))
     row = dict(predict_wall_ms=wall, device_ops_per_forward=ops)
     if busy > 0:
         row.update(device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall), int8_kernel_ms=int8,
@@ -2521,17 +2599,20 @@ def int8_breakdown(card, label: str, runtime, ids) -> dict:
 
 
 async def serve_bert_int8(card, name: str = "bert_int8", want: int | None = None,
-                          want_by_body: dict | None = None) -> int:
+                          want_by_body: dict | None = None, tpu: dict | None = None) -> int:
     """Phase 7c: the bert_int8 deployment (BERT-base, bf16, bucket 32, seq
     128, int8 weights) through REST: 49 W8A16 launches per forward, counted;
-    its probabilities against the same weights' bf16 deployment without
+    its probabilities against the same weights' deployment without
     weight_quant (INT8_SERVE_ATOL) and against the port's int8 forward on
-    the CPU (SERVE_ATOL, the first rows: the forward is row-independent);
-    the parameter bytes each holds on the card; a profiler breakdown and the
-    wall time at bucket 32. Returns the main path's launches, in all and
-    by body. Phase 11 runs it on ``bert_base_hf_int8`` (``name``) with the
-    pooler's launch added to ``want`` (default INT8_LAUNCHES) and
-    ``want_by_body`` (default INT8_LAUNCHES_BY_BODY)."""
+    the CPU (SERVE_ATOL in bf16, F32_SERVE_ATOL in float32; the first rows:
+    the forward is row-independent); the parameter bytes each holds on the
+    card; a profiler breakdown and the wall time at bucket 32. Returns the
+    main path's launches, in all and by body. ``tpu`` serves a copy with
+    its tpu block updated (``{"dtype": "float32"}``: 48 tf32x2 launches and
+    the head's splitk, INT8_F32_LAUNCHES_BY_BODY), both servers. Phase 11
+    runs it on ``bert_base_hf_int8`` (``name``) with the pooler's launch
+    added to ``want`` (default INT8_LAUNCHES) and ``want_by_body`` (default
+    INT8_LAUNCHES_BY_BODY)."""
     import numpy as np
     import torch
 
@@ -2542,14 +2623,16 @@ async def serve_bert_int8(card, name: str = "bert_int8", want: int | None = None
 
     want = INT8_LAUNCHES if want is None else want
     want_by_body = INT8_LAUNCHES_BY_BODY if want_by_body is None else want_by_body
-    server, build_s, warm_s = await _start(BASELINE_DIR / f"{name}.json")
+    path = _deployment_copy(name, tpu) if tpu else BASELINE_DIR / f"{name}.json"
+    server, build_s, warm_s = await _start(path)
     runtime = _model_runtime(server)
+    label = f"{name} ({str(runtime.dtype).removeprefix('torch.')})"
     layers, seq = len(runtime.params["layers"]), runtime.feature_shape[0]
     table = runtime.params["tok_emb"]  # 30522 rows: above the rule's 8192, so not quantized
     vocab = (payload(table) if is_quantized_leaf(table) else table).shape[0]
     if not is_quantized_leaf(runtime.params["layers"][0]["qkv"]["w"]) or not is_quantized_leaf(runtime.params["head"]["w"]):
         raise AssertionError(f"{name} holds float projections")
-    print(f"[{card}] serve: {name}.json layers={layers} seq={seq} vocab={vocab} dtype={runtime.dtype} "
+    print(f"[{card}] serve: {path.name} layers={layers} seq={seq} vocab={vocab} dtype={runtime.dtype} "
           f"buckets={runtime.buckets} build_s={build_s:.3f} warmup_s={warm_s:.3f}", flush=True)
     rng = np.random.default_rng(7)
     batches = [rng.integers(0, vocab, size=(n, seq)) for n in (32, 5, 32)]
@@ -2561,7 +2644,7 @@ async def serve_bert_int8(card, name: str = "bert_int8", want: int | None = None
             by_body = {body: c.count for body, c in i8.LAUNCHES_BY_BODY.items()}
             status, out, ms = await _post(server.port, json.dumps({"data": {"ndarray": ids.tolist()}}).encode())
             if status != 200:
-                raise AssertionError(f"{name} predict returned HTTP {status}: {out}")
+                raise AssertionError(f"{label} predict returned HTTP {status}: {out}")
             served.append(_check_probs(out, len(ids)))
             deltas.append(INT8.count - before)
             body_deltas.append({body: c.count - by_body[body] for body, c in i8.LAUNCHES_BY_BODY.items()})
@@ -2571,17 +2654,17 @@ async def serve_bert_int8(card, name: str = "bert_int8", want: int | None = None
     finally:
         await server.stop()
     for ids, ms, delta, by_body in zip(batches, latencies, deltas, body_deltas):
-        print(f"[{card}] request {name} batch={len(ids)} latency_ms={ms:.3f} int8_launches={delta} "
+        print(f"[{card}] request {label} batch={len(ids)} latency_ms={ms:.3f} int8_launches={delta} "
               f"by_body={json.dumps(by_body)}", flush=True)
-    require_launches(f"{name} int8_matmul", deltas, want)
+    require_launches(f"{label} int8_matmul", deltas, want)
     if body_deltas != [want_by_body] * len(batches):
-        raise AssertionError(f"{name} int8_matmul launches per body and request {body_deltas}, "
+        raise AssertionError(f"{label} int8_matmul launches per body and request {body_deltas}, "
                              f"want {want_by_body} each")
 
-    bf16_server, *_ = await _start(_deployment_copy(name, {"weight_quant": ""}))
-    bf16 = _model_runtime(bf16_server)
-    await bf16_server.stop()
-    vs_bf16 = max(float(np.abs(p - bf16.predict(ids)).max()) for ids, p in zip(batches, served))
+    float_server, *_ = await _start(_deployment_copy(name, {**(tpu or {}), "weight_quant": ""}))
+    dense = _model_runtime(float_server)
+    await float_server.stop()
+    vs_dense = max(float(np.abs(p - dense.predict(ids)).max()) for ids, p in zip(batches, served))
     cpu_rows = 4
     cpu_params = params_to_torch(params_to_numpy(runtime.params), torch.device("cpu"), runtime.dtype)
     with torch.inference_mode():
@@ -2589,21 +2672,23 @@ async def serve_bert_int8(card, name: str = "bert_int8", want: int | None = None
         on_cpu = runtime.apply_fn(cpu_params, cpu_ids).float().numpy()
     del cpu_params
     vs_cpu = float(np.abs(served[0][:cpu_rows] - on_cpu).max())
-    resident = {"int8": param_bytes(runtime.params), "bf16": param_bytes(bf16.params)}
-    print(f"[{card}] {name} vs the bf16 deployment: max_abs_diff={vs_bf16} (atol {INT8_SERVE_ATOL}); "
-          f"vs the int8 forward on the CPU ({cpu_rows} rows): {vs_cpu} (atol {SERVE_ATOL})", flush=True)
-    print(f"[{card}] {name} parameter bytes on the card: {json.dumps(resident)} "
-          f"ratio={resident['int8'] / resident['bf16']:.4f}", flush=True)
-    if vs_bf16 > INT8_SERVE_ATOL or vs_cpu > SERVE_ATOL:
-        raise AssertionError(f"{name} disagrees: vs bf16 {vs_bf16}, vs the CPU {vs_cpu}")
-    if resident["int8"] >= resident["bf16"]:
-        raise AssertionError(f"int8 parameters take no fewer bytes than bf16: {resident}")
+    cpu_atol = F32_SERVE_ATOL if runtime.dtype == torch.float32 else SERVE_ATOL
+    resident = {"int8": param_bytes(runtime.params), "dense": param_bytes(dense.params)}
+    print(f"[{card}] {label} vs the same deployment without weight_quant: max_abs_diff={vs_dense} "
+          f"(atol {INT8_SERVE_ATOL}); vs the int8 forward on the CPU ({cpu_rows} rows): {vs_cpu} "
+          f"(atol {cpu_atol})", flush=True)
+    print(f"[{card}] {label} parameter bytes on the card: {json.dumps(resident)} "
+          f"ratio={resident['int8'] / resident['dense']:.4f}", flush=True)
+    if vs_dense > INT8_SERVE_ATOL or vs_cpu > cpu_atol:
+        raise AssertionError(f"{label} disagrees: vs without weight_quant {vs_dense}, vs the CPU {vs_cpu}")
+    if resident["int8"] >= resident["dense"]:
+        raise AssertionError(f"int8 parameters take no fewer bytes than without weight_quant: {resident}")
     ids32 = batches[0]
-    int8_row = int8_breakdown(card, name, runtime, ids32)
-    bf16_row = int8_breakdown(card, f"{name} without weight_quant (bf16)", bf16, ids32)
-    print(f"[{card}] {name} bucket 32 wall: int8 {int8_row['predict_wall_ms']:.3f} ms, bf16 "
-          f"{bf16_row['predict_wall_ms']:.3f} ms", flush=True)
-    del bf16
+    int8_row = int8_breakdown(card, label, runtime, ids32)
+    dense_row = int8_breakdown(card, f"{label} without weight_quant", dense, ids32)
+    print(f"[{card}] {label} bucket 32 wall: int8 {int8_row['predict_wall_ms']:.3f} ms, without weight_quant "
+          f"{dense_row['predict_wall_ms']:.3f} ms", flush=True)
+    del dense
     return main_launches, main_by_body
 
 
@@ -8664,7 +8749,7 @@ TP_LONG_SEQ = 4096  # 18b's long copy: the draft admission's prefill reaches the
 TP_LONG_NEW = 64
 TP_FAULT_BIAS_STD = 0.01  # the planted bias fault's row-parallel biases
 TP_FAULT_NEW = 24  # tokens per request of the bias fault's check
-TP_INT8_WANT = {"wgmma": 192, "mma": 1, "fma": 0}  # W8A16 launches per int8 BERT-base forward over {"model": 4}
+TP_INT8_WANT = {"wgmma": 192, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 0}  # W8A16 launches per int8 BERT-base forward over {"model": 4}
 TP_SOAK_SECONDS = 3.0
 
 
@@ -9058,6 +9143,20 @@ async def serve_tp(card) -> dict:
 F32_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route", "bounds_ms", "library_ms")
 
 
+def ptxas_report(log: str, bodies: tuple) -> dict:
+    """ptxas -v's register and spill lines for each entry function whose
+    mangled name holds one of ``bodies``, keyed by the body and its template
+    arguments as they appear in the name."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(%s)(I[^E']*E)?E" % "|".join(map(re.escape, bodies)), line)
+            key = (m.group(1) + (m.group(2) or "")) if m else None
+        elif key and ("spill" in line or "Used" in line):
+            out[key] = (out.get(key, "") + " " + line.split(":")[-1].strip()).strip()
+    return out
+
+
 def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
@@ -9140,10 +9239,16 @@ def main() -> int:
     print(f"[{card}] flash_fwd_f32 ptxas: {json.dumps(by_body)}", flush=True)
     if len(f32_ptxas) != 4 or any("0 bytes spill stores" not in r for r in f32_ptxas.values()):
         raise AssertionError(f"want four float32 flash bodies (d 64 and 128, 4 and 8 warps), none spilling: {f32_ptxas}")
-    int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HGMMA", "UTMALDG", "HMMA"))
+    int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HGMMA", "UTMALDG", "HMMA", TF32_WGMMA))
     print(f"[{card}] int8_matmul SASS: {json.dumps(int8_sass)}", flush=True)
     if min(int8_sass.values()) == 0:
-        raise AssertionError(f"the int8_matmul library lacks wgmma, TMA or mma.sync instructions: {int8_sass}")
+        raise AssertionError(f"the int8_matmul library lacks wgmma, TMA, mma.sync or tf32 wgmma instructions: "
+                             f"{int8_sass}")
+    int8_ptxas = ptxas_report(kernel_build.BUILD_LOGS.get("int8_matmul", ""), ("tf32x2_body", "splitk_body"))
+    print(f"[{card}] int8_matmul ptxas (splitk by dtype and width): {json.dumps(int8_ptxas)}", flush=True)
+    if (sorted(int8_ptxas).count("tf32x2_body") != 1 or sum(k.startswith("splitk_body") for k in int8_ptxas) != 24
+            or any("0 bytes spill stores" not in r for r in int8_ptxas.values())):
+        raise AssertionError(f"want the tf32x2 body and 24 splitk bodies, none spilling: {int8_ptxas}")
     print(f"[{card}] phase 1 seconds: {time.perf_counter() - t0:.3f}", flush=True)
 
     # 2. kernel against its plain version
@@ -9239,8 +9344,12 @@ def main() -> int:
     int8_rows = int8_kernel_checks(card)
     int8_host = int8_host_cost(card)
     int8_launches, int8_by_body = asyncio.run(serve_bert_int8(card))
-    if int8_launches <= 0:
-        raise AssertionError("the bert_int8 path launched no int8_matmul kernel")
+    # the same deployment in float32: the projections on tf32x2
+    int8_f32_launches, int8_f32_by_body = asyncio.run(serve_bert_int8(
+        card, want_by_body=INT8_F32_LAUNCHES_BY_BODY, tpu={"dtype": "float32"}))
+    if int8_launches <= 0 or int8_f32_launches <= 0:
+        raise AssertionError(f"the bert_int8 paths launched {int8_launches} (bf16) and {int8_f32_launches} "
+                             f"(float32) int8_matmul kernels")
     twins["bert_int8"] = asyncio.run(serve_twins(card, BASELINE_DIR / "bert_int8.json", ("int8_matmul",),
                                                  {"payload": "json", "features": 128}))
     asyncio.run(serve_resilience(card))
@@ -9419,33 +9528,62 @@ def main() -> int:
     }]
     int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
     served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
-              "pooler_b32_bfloat16",
-              "qkv_b1_bfloat16", "qkv_b32_float32", "stacked_e3_shared_x_bfloat16", "stacked_e3_bfloat16",
+              "pooler_b32_bfloat16", "qkv_b1_bfloat16", "stacked_e3_shared_x_bfloat16", "stacked_e3_bfloat16",
               "stacked_e3_k776_shared_x_bfloat16", "stacked_e3_k776_bfloat16",
               "m_ragged_bfloat16", "k_ragged_bfloat16", "n_ragged_bfloat16",
-              "tp4_qkv_b8_bfloat16", "tp4_attn_out_b8_bfloat16", "tp4_mlp_in_b8_bfloat16", "tp4_mlp_out_b8_bfloat16"}
+              "tp4_qkv_b8_bfloat16", "tp4_attn_out_b8_bfloat16", "tp4_mlp_in_b8_bfloat16", "tp4_mlp_out_b8_bfloat16",
+              "qkv_b32_float32", "attn_out_b32_float32", "mlp_in_b32_float32", "mlp_out_b32_float32",
+              "head_b32_float32"}
+    int8_keys = ("body", "max_abs_err", "ms", "ms_other_bodies", "plain_ms", "bound_ms", "bound_by", "bound_route",
+                 "bounds_ms", "library_ms")
+    int8_paths = {"bert_int8 (phase 7)": int8_launches, "bert_int8 float32 (phase 7)": int8_f32_launches,
+                  "learning (phase 10)": learning_int8,
+                  "model sources (phase 11)": source_int8,
+                  "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"],
+                  "split data plane (phase 13)": split_plane["launches"]["int8_matmul"],
+                  "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"],
+                  "platform (phase 15)": platform_int8,
+                  "platform's standalone twins (phase 15)": twins_int8,
+                  "int8 BERT-base over {'model': 4} (phase 18c)": tp_int8}
+    # by body, on the paths that count them: phase 7c's two deployments, the
+    # HF copy (11), the platform with its twins (15) and the "model" axis
+    # (18c); the head takes splitk on each, the float32 projections tf32x2
+    by_body_paths = {"bert_int8 (phase 7)": int8_by_body, "bert_int8 float32 (phase 7)": int8_f32_by_body,
+                     "model sources (phase 11)": sources["bert_base_hf_int8_by_body"],
+                     "platform with its twins (phase 15)": platform_out["launches"]["int8_by_body_with_standalone"],
+                     "int8 BERT-base over {'model': 4} (phase 18c)": tp_out["int8_by_body"]}
     kernels.append({
         "name": "int8_matmul",
         "route": "cuda",
         "source": "seldon_core_tpu_torch/csrc/int8_matmul.cu",
         # no Pallas kernel: XLA's fusion of quant.dequantize into the matmul
         "replaces": "seldon_core_tpu/models/base.py:137",
-        "launches": int8_launches + learning_int8 + source_int8 + platform_int8 + twins_int8 + tp_int8,
-        "launches_by_path": {"bert_int8 (phase 7)": int8_launches, "learning (phase 10)": learning_int8,
-                             "model sources (phase 11)": source_int8,
-                             "replicated fleet (phase 12)": fleet["launches"]["int8_matmul"],
-                             "split data plane (phase 13)": split_plane["launches"]["int8_matmul"],
-                             "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"],
-                             "platform (phase 15)": platform_int8,
-                             "platform's standalone twins (phase 15)": twins_int8,
-                             "int8 BERT-base over {'model': 4} (phase 18c)": tp_int8},
-        "launches_by_body": int8_by_body,
+        "launches": sum(int8_paths.values()),
+        "launches_by_path": int8_paths,
+        "launches_by_body": {body: sum(b.get(body, 0) for b in by_body_paths.values())
+                             for body in int8_by_body},
+        "launches_by_body_and_path": by_body_paths,
         "host_us": int8_host["wrapper_us"],
-        **{k: int8_main[k] for k in ("max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")},
-        **{name: {k: int8_rows[name][k] for k in ("body", "max_abs_err", "ms", "ms_mma", "plain_ms", "bound_ms",
-                                                   "bound_by", "library_ms")} for name in sorted(served)},
+        "launch_floor_ms": int8_rows["launch_floor_ms"],
+        **{k: int8_main[k] for k in int8_keys},
+        **{name: {k: int8_rows[name][k] for k in int8_keys} for name in sorted(served)},
     })
+    # the two bodies this slice redesigned, each with its own launches on the
+    # paths and the row of the shape it serves there
+    for body, row in (("splitk", int8_rows["head_b32_bfloat16"]), ("tf32x2", int8_rows["qkv_b32_float32"])):
+        launched = {path: counts.get(body, 0) for path, counts in by_body_paths.items()}
+        if sum(launched.values()) <= 0:
+            raise AssertionError(f"the paths launched no {body}_body: {launched}")
+        kernels.append({
+            "name": f"int8_matmul:{body}_body",
+            "route": "cuda",
+            "source": "seldon_core_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "seldon_core_tpu/models/base.py:137",
+            "launches": sum(launched.values()),
+            "launches_by_path": launched,
+            "case": row["case"],
+            **{k: row[k] for k in int8_keys},
+        })
     print(json.dumps({"captured_vs_eager": {name: {k: v for k, v in t.items() if k != "breakdown"}
                                             for name, t in twins.items()}}), flush=True)
     print(json.dumps({"telemetry": {"card": card, **telemetry_out}}), flush=True)

@@ -5,7 +5,7 @@
 // quant.dequantize into the consuming matmul (seldon_core_tpu/models/base.py
 // :137-168, seldon_core_tpu/models/quant.py:64-76), where the dequantized
 // weight never reaches HBM. Here it never leaves the SM: q crosses shared
-// memory as int8 and is dequantized in registers.
+// memory (or registers) as int8 and is dequantized in registers.
 //
 // Layouts: x [E, M, K] through a member stride (0: one x shared by every
 // member, as a fused ensemble's input is) and a row stride, K contiguous;
@@ -14,27 +14,59 @@
 // bias [E, N]; y [E, M, N] contiguous. E is 1 except in a fused ensemble,
 // where grid z walks the members.
 //
-// Three bodies. The caller names the body (ops/int8_matmul.py::select_body
-// decides before the launch, and wgmma_takes below holds the same rule); a
-// body asked for a shape or dtype it cannot take returns
-// cudaErrorInvalidValue and launches nothing.
-//   wgmma_body  bf16 / f16 activations whose operands TMA can address:
-//               K > 0, K % 8 == 0, x's row and member strides % 8 == 0,
-//               N % 16 == 0, q's member stride % 16 == 0, x and q bases
-//               16-byte aligned (TMA's 16-byte rule for bases and global
-//               strides). Every bf16 projection of BERT-base but the head.
-//   mma_body    bf16 / f16, any shape (the BERT head, N = 2; iris, K = 4,
-//               N = 3; views whose strides TMA cannot take). One CTA of 128
-//               threads per 64x64 tile, a two-stage cp.async ring over
-//               64-deep K tiles, mma.sync m16n8k16 with B fragments built
-//               by hand from the staged int8 rows, the scale multiplied in
-//               float32 and rounded to T before the product (the plain
-//               version's rounding point). Ragged edges take a scalar copy
-//               that zero-fills.
-//   fma_body    float32 activations. BK = 32. Plain FMA, no TF32 (the
-//               float32 contract holds): each K tile of q is dequantized
-//               once into a float32 shared tile, then every thread
-//               accumulates an 8x4 block of y.
+// Five bodies. The caller names the body (ops/int8_matmul.py::select_body
+// decides before the launch; wgmma_takes and tf32x2_takes below hold the
+// same addressing rules); a body asked for a shape or dtype it cannot take
+// returns cudaErrorInvalidValue and launches nothing.
+//   splitk_body  narrow outputs (select_body: N <= 8, or N <= 32 at up to
+//                128 rows), every dtype, any shape and strides: the BERT
+//                head (N = 2), iris (N = 3).
+//                Bound: a launch and one round trip to device memory (the
+//                head reads 51 KB for 49 K multiply-adds). A 64x64 tile
+//                there would be 3% used, on one SM, with 12 serial K
+//                tiles. Here every load is issued at once: K is cut into
+//                chunks of 4 values of x (8 bytes in bf16 / f16, which at
+//                the head's K = 768 measured faster than 16-byte chunks:
+//                int8_f32_probe.py), spread over the lanes of 1-8 warps
+//                per row, rows over CTAs; q's rows are read as the
+//                contiguous bytes they are (N = 2: one 8-byte load covers
+//                4 k rows); W = T(q * scale) is formed in registers (the
+//                plain version's rounding point) and multiplied in float32
+//                FMA; warp shuffles, then the row's warps through shared
+//                memory, reduce in a fixed order (no atomics: a rerun
+//                gives the same bits). An output-column group of 8 per CTA.
+//   tf32x2_body  float32 activations whose operands TMA can address (the
+//                wgmma body's rule with K, x's strides % 4 == 0). Bound:
+//                the CUDA cores' 67 TFLOP/s caps a float32 FMA body (qkv
+//                at bucket 32: 0.2164 ms); the tensor cores take tf32 at
+//                495. An int8 q (|q| <= 127) is exact in tf32, so only x is
+//                split, x = hi + lo (hi = x with its low 13 bits cleared,
+//                lo = x - hi likewise cleared): lo*q + hi*q, two tf32
+//                passes of wgmma (2 x 14.5 GFLOP at qkv: 0.0586 ms), each
+//                term to about 2^-20. The scale moves to the float32
+//                epilogue: in float32 T(q * scale) rounds once at 2^-24,
+//                far inside the float32 tolerance (the rounding-point
+//                argument below concerns bf16 and f16). The same split on
+//                mma.sync m16n8k8 (a cp.async ring, x as A split in
+//                registers) measured 1.47x slower at qkv
+//                (int8_f32_probe.py builds it). Design above the body.
+//   wgmma_body   bf16 / f16 activations whose operands TMA can address:
+//                K > 0, K % 8 == 0, x's row and member strides % 8 == 0,
+//                N % 16 == 0, q's member stride % 16 == 0, x and q bases
+//                16-byte aligned (TMA's 16-byte rule for bases and global
+//                strides). Every bf16 projection of BERT-base.
+//   mma_body     bf16 / f16, any shape (views whose strides TMA cannot
+//                take, wide outputs that are not N % 16). One CTA of 128
+//                threads per 64x64 tile, a two-stage cp.async ring over
+//                64-deep K tiles, mma.sync m16n8k16 with B fragments built
+//                by hand from the staged int8 rows, the scale multiplied in
+//                float32 and rounded to T before the product (the plain
+//                version's rounding point). Ragged edges take a scalar copy
+//                that zero-fills.
+//   fma_body     float32 activations, any shape (views tf32x2 cannot
+//                address). BK = 32. Plain FMA, no TF32: each K tile of q is
+//                dequantized once into a float32 shared tile, then every
+//                thread accumulates an 8x4 block of y.
 //
 // wgmma_body is warp-specialised, in the shape of flash_attention.cu's
 // flash_fwd_wgmma, and computes y^T = W^T x^T: the weights are wgmma's A
@@ -399,6 +431,146 @@ __global__ void __launch_bounds__(THREADS) fma_body(Args a) {
   }
 }
 
+// ----------------------------------------------------------- splitk_body
+constexpr int SK_THREADS = 256;  // 8 warps: `split` of them per row of x
+constexpr int SK_NB = 8;         // output columns per CTA (the narrow cut)
+constexpr int SK_CH = 4;         // k values of x a lane reads at once (8 or 16 bytes)
+
+// BYTES bytes from p (BYTES % 4 == 0) into 32-bit words, lowest address in
+// the low byte, with the widest load the address allows
+template <int BYTES>
+__device__ __forceinline__ void load_words(const int8_t* p, uint32_t* w) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  if constexpr (BYTES % 16 == 0) {
+    if ((addr & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < BYTES / 16; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+        w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z, w[4 * i + 3] = v.w;
+      }
+      return;
+    }
+  }
+  if constexpr (BYTES % 8 == 0) {
+    if ((addr & 7) == 0) {
+#pragma unroll
+      for (int i = 0; i < BYTES / 8; ++i) {
+        const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+        w[2 * i] = v.x, w[2 * i + 1] = v.y;
+      }
+      return;
+    }
+  }
+  if ((addr & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 4; ++i) w[i] = reinterpret_cast<const uint32_t*>(p)[i];
+    return;
+  }
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(p);
+#pragma unroll
+  for (int i = 0; i < BYTES / 4; ++i)
+    w[i] = b[4 * i] | (uint32_t(b[4 * i + 1]) << 8) | (uint32_t(b[4 * i + 2]) << 16) | (uint32_t(b[4 * i + 3]) << 24);
+}
+
+// Rows of x go to groups of `split` warps (rows per CTA = 8 / split); the
+// warps of a row take its 4-value chunks of K in turn, a lane a chunk. A
+// CTA owns NB output columns (columns n0 .. n0 + NB of y; NB = N when N <=
+// 8, so q's rows k0 .. k0 + CH are one contiguous span of CH * N bytes).
+template <typename T, int NB>
+__global__ void __launch_bounds__(SK_THREADS) splitk_body(Args a, int split) {
+  constexpr int CH = SK_CH;           // k values per chunk of x
+  constexpr int CB = CH * sizeof(T);  // its bytes
+  using Vec = typename std::conditional<CB == 16, uint4, uint2>::type;
+  constexpr int QW = CH * NB / 4;     // words of q per chunk (CH * NB % 4 == 0)
+  __shared__ float red[SK_THREADS / 32][NB];
+
+  const int e = blockIdx.z, n0 = blockIdx.y * NB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = (SK_THREADS / 32) / split;
+  const int m = blockIdx.x * rows + warp / split, slice = warp % split;
+  const int nb = min(NB, a.N - n0);  // live columns of this CTA
+  const T* xr = static_cast<const T*>(a.x) + e * a.x_es + (long long)m * a.x_rs;
+  const int8_t* qg = a.q + e * a.q_es + n0;
+  const float* sg = a.scale + e * a.s_es + n0;
+
+  // the thread that writes y[mm][n0 + j] reads its bias now, beside the
+  // loads of x and q, not after the reduction
+  const int r = threadIdx.x / NB, j = threadIdx.x % NB, mm = blockIdx.x * rows + r;
+  const bool writes = r < rows && mm < a.M && j < nb;
+  const float bias = writes && a.bias ? to_f32(static_cast<const T*>(a.bias)[e * a.b_es + n0 + j]) : 0.f;
+  float s[NB], acc[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    s[i] = i < nb ? sg[i] : 0.f;
+    acc[i] = 0.f;
+  }
+  if (m < a.M) {
+    const int nch = (a.K + CH - 1) / CH;
+#pragma unroll 2
+    for (int c = slice * 32 + lane; c < nch; c += split * 32) {
+      const int k0 = c * CH;
+      const bool full = k0 + CH <= a.K;
+      float xv[CH];
+      const T* xp = xr + k0;
+      if (full && (reinterpret_cast<uintptr_t>(xp) & (CB - 1)) == 0) {
+        const Vec v = *reinterpret_cast<const Vec*>(xp);
+        const T* tv = reinterpret_cast<const T*>(&v);
+#pragma unroll
+        for (int i = 0; i < CH; ++i) xv[i] = to_f32(tv[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < CH; ++i) xv[i] = k0 + i < a.K ? to_f32(xp[i]) : 0.f;
+      }
+      uint32_t qw[QW];
+      const int8_t* qp = qg + (long long)k0 * a.N;
+      bool loaded = false;
+      if (full && nb == NB) {
+        if (a.N == NB) {
+          load_words<CH * NB>(qp, qw);  // the chunk's q rows are one span
+          loaded = true;
+        } else if constexpr (NB % 4 == 0) {  // a column group of a wider q: NB bytes a row
+#pragma unroll
+          for (int k = 0; k < CH; ++k) load_words<NB>(qp + (long long)k * a.N, qw + k * NB / 4);
+          loaded = true;
+        }
+      }
+      if (!loaded) {  // K's tail or a ragged column group, byte by byte
+#pragma unroll
+        for (int i = 0; i < QW; ++i) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int k = (4 * i + b) / NB, n = (4 * i + b) % NB;
+            if (k0 + k < a.K && n < nb) word |= uint32_t(uint8_t(qp[(long long)k * a.N + n])) << (8 * b);
+          }
+          qw[i] = word;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < CH; ++k)
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const int b = k * NB + i;
+          const float qf = float(static_cast<int8_t>(qw[b / 4] >> (8 * (b % 4))));
+          acc[i] = fmaf(xv[k], to_f32(from_f32<T>(qf * s[i])), acc[i]);  // W = T(q * scale)
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < NB; ++i) red[warp][i] = acc[i];
+  __syncthreads();
+  if (writes) {
+    float sum = 0.f;
+    for (int sl = 0; sl < split; ++sl) sum += red[r * split + sl][j];  // in a fixed order
+    static_cast<T*>(a.y)[((long long)e * a.M + mm) * a.N + n0 + j] = from_f32<T>(sum + bias);
+  }
+}
+
 // ------------------------------------------------------------ wgmma_body
 constexpr int WG_BN = 128;  // output channels per CTA: two consumer warpgroups of 64
 constexpr int WG_BK = 64;   // K per stage: one 128-byte swizzled row of x
@@ -622,6 +794,181 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
+
+// ----------------------------------------------------------- tf32x2_body
+// Float32 x on the tensor cores in tf32, in wgmma_body's orientation: y^T
+// = W^T x^T, the int8 q as wgmma's A in registers (exact as tf32, and
+// unscaled), x as its B from shared memory, K-major (the one layout tf32
+// wgmma takes for B). One CTA = two consumer warpgroups (64 output
+// channels each) and one producer warp, for a [128 rows][128 channels]
+// tile of y; K walks in 32-deep stages (one 128-byte swizzled row of
+// float32 x) through a 4-stage TMA ring, with full and empty mbarriers.
+//   - Split: once a stage lands, the 256 consumer threads rewrite its x in
+//     place as hi = x & ~0x1fff and write lo = (x - hi) & ~0x1fff at the
+//     same offset of a lo stage (an elementwise pass keeps the swizzle),
+//     then fence.proxy.async: the stage's products are lo * q, then hi * q
+//     for each k8 step, 8 wgmma m64n128k8 a warpgroup. The split of stage
+//     k + 1 runs while stage k's products are in flight; a named barrier
+//     of the two warpgroups then hands it over.
+//   - A fragments per k8 step: row r = 16w + g of a warpgroup is channel
+//     n0 and r + 8 is n0 + 1 (wgmma_body's permutation), k index t is k row
+//     8kk + t and t + 4 is 8kk + t + 4; one 16-bit load of a swizzled q row
+//     gives both channels, and PRMT into the float 2^23 and one FADD give
+//     exact floats (no I2F).
+//   - The tensor cores truncate what they add into the accumulator they
+//     are given: each stage's 8 products go into a fresh accumulator
+//     (wgmma's scale-d 0 on the first) that an FADD folds into the running
+//     float32 sum.
+//   - Epilogue: y = acc * scale[n] + bias[n], one FMA in float32.
+// The running and the fresh accumulators take 128 registers a thread (ptxas:
+// 168 in all, no spill): one CTA an SM, with 145 KB of shared memory (4 x
+// (16 KB x + 16 KB lo + 4 KB q)).
+constexpr int TW_BM = 128;  // rows of x per CTA: wgmma's N
+constexpr int TW_BK = 32;   // K per stage: one 128-byte swizzled row of float32 x
+constexpr int TW_STAGES = 4;
+constexpr int TW_X_BYTES = TW_BM * TW_BK * 4;
+constexpr int TW_Q_BYTES = TW_BK * WG_BN;
+constexpr int TW_SMEM = 1024 + TW_STAGES * (2 * TW_X_BYTES + TW_Q_BYTES) + 16 * TW_STAGES;
+static_assert(TW_SMEM <= 232448, "tf32x2 stages");
+
+#define TW_AIN(SD) "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SD)
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+               "{" I8_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+               : I8_ACC32(0), I8_ACC32(32) : TW_AIN(scale_d));
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    tf32x2_body(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CUtensorMap tm_q, WgArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* x_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* lo_s = x_s + TW_STAGES * TW_X_BYTES;
+  uint8_t* q_s = lo_s + TW_STAGES * TW_X_BYTES;
+  const uint32_t full0 = smem_u32(q_s + TW_STAGES * TW_Q_BYTES), empty0 = full0 + 8 * TW_STAGES;
+
+  const int e = blockIdx.z, n_tile = blockIdx.x * WG_BN, m0 = blockIdx.y * TW_BM;
+  const int nk = (a.K + TW_BK - 1) / TW_BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TW_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      prefetch_map(&tm_x);
+      prefetch_map(&tm_q);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % TW_STAGES;
+        if (kt >= TW_STAGES) mbar_wait(empty0 + 8 * s, ((kt / TW_STAGES) - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, TW_X_BYTES + TW_Q_BYTES);
+        tma_load(smem_u32(x_s + s * TW_X_BYTES), &tm_x, full, kt * TW_BK, m0, e, a.x_3d);
+        tma_load(smem_u32(q_s + s * TW_Q_BYTES), &tm_q, full, n_tile, kt * TW_BK, e, a.q_3d);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, wg = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int chunk = wg * 4 + w;
+  const uint32_t col_t = ((chunk ^ t) << 4) + 2 * g, col_t4 = ((chunk ^ (t + 4)) << 4) + 2 * g;
+  const int n0 = n_tile + wg * 64 + 16 * w + 2 * g;
+  const bool live = n0 < a.N;
+  float acc[TW_BM / 2], part[TW_BM / 2];
+#pragma unroll
+  for (int i = 0; i < TW_BM / 2; ++i) acc[i] = part[i] = 0.f;
+
+  // split stage kt in place once it has landed: hi = x & ~0x1fff where it
+  // lies, lo = (x - hi) & ~0x1fff at the same offset of the lo stage
+  auto split = [&](int kt) {
+    const int s = kt % TW_STAGES;
+    mbar_wait(full0 + 8 * s, (kt / TW_STAGES) & 1);
+    float4* xv = reinterpret_cast<float4*>(x_s + s * TW_X_BYTES);
+    float4* lv = reinterpret_cast<float4*>(lo_s + s * TW_X_BYTES);
+#pragma unroll
+    for (int i = 0; i < TW_X_BYTES / 16 / 256; ++i) {
+      const float4 v = xv[tid + i * 256];
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        hi[j] = __float_as_uint(vv[j]) & 0xffffe000u;
+        lo[j] = __float_as_uint(vv[j] - __uint_as_float(hi[j])) & 0xffffe000u;
+      }
+      xv[tid + i * 256] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]), __uint_as_float(hi[2]),
+                                      __uint_as_float(hi[3]));
+      lv[tid + i * 256] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]), __uint_as_float(lo[2]),
+                                      __uint_as_float(lo[3]));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  };
+  split(0);
+  named_sync(1, 256);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % TW_STAGES;
+    const uint8_t* qt = q_s + s * TW_Q_BYTES;  // A fragments, as set out above
+    uint32_t af[TW_BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < TW_BK / 8; ++kk) {
+      const uint32_t r0 = *reinterpret_cast<const uint16_t*>(qt + (kk * 8 + t) * 128 + col_t);
+      const uint32_t r4 = *reinterpret_cast<const uint16_t*>(qt + (kk * 8 + t + 4) * 128 + col_t4);
+      const uint32_t u = (r0 | (r4 << 16)) ^ 0x80808080u;
+      af[kk][0] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f);
+      af[kk][1] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f);
+      af[kk][2] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f);
+      af[kk][3] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f);
+    }
+    const uint32_t xa = smem_u32(x_s + s * TW_X_BYTES), la = smem_u32(lo_s + s * TW_X_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TW_BK / 8; ++kk) {
+      wgmma_tf32_n128(part, af[kk], sw128_desc(la + kk * 32, 16, 1024), kk > 0);
+      wgmma_tf32_n128(part, af[kk], sw128_desc(xa + kk * 32, 16, 1024), 1);
+    }
+    wgmma_commit();
+    if (kt + 1 < nk) split(kt + 1);  // under this stage's products
+    wgmma_wait0();
+    reg_fence(part);
+    reg_fence(af);
+    mbar_arrive(empty0 + 8 * s);
+#pragma unroll
+    for (int i = 0; i < TW_BM / 2; ++i) acc[i] += part[i];
+    named_sync(1, 256);  // both warpgroups' splits of stage kt + 1 are in
+  }
+
+  if (!live) return;
+  const float* sg = a.scale + e * a.s_es;
+  const float s0 = sg[n0], s1 = sg[n0 + 1];
+  float b0 = 0.f, b1 = 0.f;
+  if (a.bias) {
+    const float* bg = static_cast<const float*>(a.bias) + e * a.b_es;
+    b0 = bg[n0];
+    b1 = bg[n0 + 1];
+  }
+  float* yg = static_cast<float*>(a.y) + (long long)e * a.M * a.N + n0;
+#pragma unroll
+  for (int j = 0; j < TW_BM / 8; ++j) {
+    const int m = m0 + 8 * j + 2 * t;
+    if (m < a.M)
+      *reinterpret_cast<float2*>(yg + (long long)m * a.N) =
+          make_float2(fmaf(acc[4 * j], s0, b0), fmaf(acc[4 * j + 2], s1, b1));
+    if (m + 1 < a.M)
+      *reinterpret_cast<float2*>(yg + (long long)(m + 1) * a.N) =
+          make_float2(fmaf(acc[4 * j + 1], s0, b0), fmaf(acc[4 * j + 3], s1, b1));
+  }
+}
+
 // ------------------------------------------------------------------ host
 // A map of rank 2 or 3 (columns, rows, member); strides in bytes of rows
 // and members; out-of-bounds boxes read as zeros.
@@ -640,24 +987,24 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ba
 struct QKey {
   const void* q;
   long long q_es;
-  int E, K, N, dev;
+  int E, K, N, dev, rows;
   bool operator==(const QKey& o) const {
-    return q == o.q && q_es == o.q_es && E == o.E && K == o.K && N == o.N && dev == o.dev;
+    return q == o.q && q_es == o.q_es && E == o.E && K == o.K && N == o.N && dev == o.dev && rows == o.rows;
   }
 };
 struct QKeyHash {
   size_t operator()(const QKey& k) const {
     size_t h = std::hash<const void*>()(k.q);
-    for (long long v : {k.q_es, (long long)k.E, (long long)k.K, (long long)k.N, (long long)k.dev})
+    for (long long v : {k.q_es, (long long)k.E, (long long)k.K, (long long)k.N, (long long)k.dev, (long long)k.rows})
       h = h * 1000003u ^ std::hash<long long>()(v);
     return h;
   }
 };
 
-bool q_map(CUtensorMap* map, const void* q, int E, int K, int N, long long q_es, int dev) {
+bool q_map(CUtensorMap* map, const void* q, int E, int K, int N, long long q_es, int dev, int rows = WG_BK) {
   static std::mutex mu;
   static std::unordered_map<QKey, CUtensorMap, QKeyHash> cache;
-  const QKey key{q, q_es, E, K, N, dev};
+  const QKey key{q, q_es, E, K, N, dev, rows};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
@@ -666,7 +1013,7 @@ bool q_map(CUtensorMap* map, const void* q, int E, int K, int N, long long q_es,
   }
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(E)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(q_es)};
-  const cuuint32_t box[3] = {WG_BN, WG_BK, 1};
+  const cuuint32_t box[3] = {WG_BN, static_cast<cuuint32_t>(rows), 1};
   if (!encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, E > 1 && q_es != 0 ? 3 : 2, q, dims, strides, box,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return false;
@@ -699,6 +1046,68 @@ bool wgmma_takes(const void* x, const void* q, int M, int N, int K, long long x_
   return (dtype == 1 || dtype == 2) && K > 0 && K % 8 == 0 && x_rs % 8 == 0 && x_es % 8 == 0 && x_rs >= K &&
          x_es >= 0 && N % 16 == 0 && q_es % 16 == 0 && q_es >= 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(q) % 16 == 0 && (M + 127) / 128 <= 65535;
+}
+
+// what tf32x2_body can address through TMA: wgmma_takes for float32 x
+// (select_body holds the same rule)
+bool tf32x2_takes(const void* x, const void* q, int M, int N, int K, long long x_es, long long x_rs,
+                  long long q_es, int dtype) {
+  return dtype == 0 && K > 0 && K % 4 == 0 && x_rs % 4 == 0 && x_es % 4 == 0 && x_rs >= K && x_es >= 0 &&
+         N % 16 == 0 && q_es % 16 == 0 && q_es >= 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(q) % 16 == 0 && (M + TW_BM - 1) / TW_BM <= 65535;
+}
+
+// warps per row of x: the fewest whose lanes hold every chunk of K at once
+// (at most 8, a CTA)
+int splitk_split(int K) {
+  const long long chunks = (K + SK_CH - 1) / SK_CH;
+  int split = 1;
+  while (split < SK_THREADS / 32 && split * 32LL < chunks) split *= 2;
+  return split;
+}
+
+template <typename T>
+cudaError_t launch_splitk(const Args& a, int E, cudaStream_t stream) {
+  const int split = splitk_split(a.K);
+  const int rows = SK_THREADS / 32 / split;
+  const int nb = a.N < SK_NB ? a.N : SK_NB;
+  const dim3 grid((a.M + rows - 1) / rows, (a.N + nb - 1) / nb, E);
+  switch (nb) {
+    case 1: splitk_body<T, 1><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    case 2: splitk_body<T, 2><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    case 3: splitk_body<T, 3><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    case 4: splitk_body<T, 4><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    case 5: splitk_body<T, 5><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    case 6: splitk_body<T, 6><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    case 7: splitk_body<T, 7><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+    default: splitk_body<T, SK_NB><<<grid, SK_THREADS, 0, stream>>>(a, split); break;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32x2(const Args& a, int E, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const WgArgs w{a.scale, a.bias, a.y, a.M, a.N, a.K, a.s_es, a.b_es, E > 1 && a.x_es != 0, E > 1 && a.q_es != 0};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.K), static_cast<cuuint64_t>(a.M),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(a.x_rs) * 4, static_cast<cuuint64_t>(a.x_es) * 4};
+  const cuuint32_t box[3] = {TW_BK, TW_BM, 1};
+  CUtensorMap tx, tq;
+  if (!encode(&tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w.x_3d ? 3 : 2, a.x, dims, strides, box,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !q_map(&tq, a.q, E, a.K, a.N, a.q_es, dev, TW_BK))
+    return cudaErrorInvalidValue;
+  static std::atomic<bool> smem_raised[MAX_DEVICES];
+  if (dev >= MAX_DEVICES || !smem_raised[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(tf32x2_body, cudaFuncAttributeMaxDynamicSharedMemorySize, TW_SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) smem_raised[dev].store(true, std::memory_order_relaxed);
+  }
+  const dim3 grid((a.N + WG_BN - 1) / WG_BN, (a.M + TW_BM - 1) / TW_BM, E);
+  tf32x2_body<<<grid, WG_THREADS, TW_SMEM, stream>>>(tx, tq, w);
+  return cudaGetLastError();
 }
 
 template <typename T, int BM>
@@ -746,10 +1155,12 @@ cudaError_t launch_wgmma_tiled(const void* x, const void* q, const float* scale,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (activations, bias and y).
-// body: 0 fma_body (float32), 1 mma_body (bf16 / f16, any shape), 2
-// wgmma_body (bf16 / f16, the shapes wgmma_takes). Returns the launch's
-// cudaError_t (0 on success); a body that cannot take the dtype or the
-// shape returns cudaErrorInvalidValue without launching.
+// body: 0 fma_body (float32, any shape), 1 mma_body (bf16 / f16, any
+// shape), 2 wgmma_body (bf16 / f16, the shapes wgmma_takes), 3 splitk_body
+// (every dtype, any shape), 4 tf32x2_body (float32, the shapes
+// tf32x2_takes). Returns the launch's cudaError_t (0 on success); a body
+// that cannot take the dtype or the shape returns cudaErrorInvalidValue
+// without launching.
 extern "C" int int8_matmul(const void* x, const void* q, const void* scale, const void* bias, void* y, int E,
                            int M, int N, int K, long long x_es, long long x_rs, long long q_es, long long s_es,
                            long long b_es, int dtype, int body, void* stream) {
@@ -757,6 +1168,8 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* scale, cons
   const bool takes = body == 0   ? dtype == 0
                      : body == 1 ? dtype != 0
                      : body == 2 ? wgmma_takes(x, q, M, N, K, x_es, x_rs, q_es, dtype)
+                     : body == 3 ? (N + SK_NB - 1) / SK_NB <= 65535
+                     : body == 4 ? tf32x2_takes(x, q, M, N, K, x_es, x_rs, q_es, dtype)
                                  : false;
   if (!takes) return static_cast<int>(cudaErrorInvalidValue);
   if (E <= 0 || M <= 0 || N <= 0) return 0;
@@ -783,6 +1196,13 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* scale, cons
   const long long ch = dtype == 0 ? 4 : 8;  // elements in 16 bytes
   a.vec_x = K % ch == 0 && x_rs % ch == 0 && x_es % ch == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.vec_q = N % 16 == 0 && q_es % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  if (body == 3) {
+    const cudaError_t err = dtype == 0   ? launch_splitk<float>(a, E, s)
+                            : dtype == 1 ? launch_splitk<__nv_bfloat16>(a, E, s)
+                                         : launch_splitk<__half>(a, E, s);
+    return static_cast<int>(err);
+  }
+  if (body == 4) return static_cast<int>(launch_tf32x2(a, E, s));
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   if (dtype == 0) {
     fma_body<<<grid, THREADS, 0, s>>>(a);

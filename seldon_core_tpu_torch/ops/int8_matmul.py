@@ -17,13 +17,16 @@ tensor it computes ``int8_matmul_reference``, the plain version, which the
 CPU tests hold against the JAX package and ``chip_smoke.py`` holds the
 kernel against on the card.
 
-The kernel has three bodies, and ``select_body`` names the one a call
+The kernel has five bodies, and ``select_body`` names the one a call
 takes before the launch, from the shape, dtype, strides and base addresses
-alone: ``wgmma`` (TMA and wgmma, bf16/f16 operands that TMA can address:
-every bf16 projection of BERT-base but its 2-class head), ``mma`` (mma.sync,
-bf16/f16 of any shape: the head, iris, misaligned views) and ``fma``
-(float32). A body that cannot take the call makes the launch fail, and the
-wrapper raises: no call is retried on another body.
+alone: ``splitk`` (narrow outputs, N <= ``NARROW_MAX_N``, or up to
+``NARROW_FEW_ROWS_MAX_N`` for at most ``FEW_ROWS`` rows, every dtype: the
+BERT head, iris), ``wgmma`` (TMA and wgmma, bf16/f16 operands that TMA can
+address: every bf16 projection of BERT-base), ``tf32x2`` (the same for
+float32: two tf32 wgmma passes over the split x, q exact), ``mma``
+(mma.sync, bf16/f16 of any shape: misaligned views) and ``fma`` (float32
+of any shape). A body that cannot take the call makes the launch fail,
+and the wrapper raises: no call is retried on another body.
 
 Under ``vmap`` the wrapper goes through a ``torch.library`` custom op with
 a vmap rule, so a fused ensemble of quantized members (``engine/fused.py``
@@ -44,11 +47,16 @@ import torch
 from seldon_core_tpu_torch.ops.flash_attention import LaunchCounter, refuse_autograd
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BODY_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
+_BODY_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "splitk": 3, "tf32x2": 4}
 # launches of the kernel, in all and by body (compare-only launches
 # included; callers reset the counters around the run they want to read)
 LAUNCHES = LaunchCounter()
 LAUNCHES_BY_BODY = {body: LaunchCounter() for body in _BODY_CODES}
+# The narrow body takes outputs up to one column group of its CTA at any
+# row count, and up to four groups for a few rows; the tiled bodies' 128-
+# row tiles win past that (PERF.md, the W8A16 table, has the times).
+NARROW_MAX_N = 8
+NARROW_FEW_ROWS_MAX_N, FEW_ROWS = 32, 128
 
 
 def reset_launches() -> None:
@@ -64,18 +72,22 @@ def select_body(m: int, n: int, k: int, dtype: torch.dtype, x_strides: tuple, q_
     takes them (a member stride of 0 shares one x), ``q_member_stride`` q's
     (0 shares one q), the pointers the operands' first bytes.
 
-    ``wgmma`` reads x and q through TMA, which needs 16-byte-aligned bases
-    and global strides that are multiples of 16 bytes: K and x's strides
-    in multiples of 8 bf16/f16 elements (rows at least K apart), N and q's
-    member stride in multiples of 16 bytes. Every other bf16/f16 call takes
-    ``mma``, float32 ``fma``."""
-    if dtype == torch.float32:
-        return "fma"
+    Outputs of at most NARROW_MAX_N columns, or NARROW_FEW_ROWS_MAX_N for
+    at most FEW_ROWS rows, take ``splitk`` in every dtype. Otherwise
+    ``wgmma`` (bf16/f16) and ``tf32x2`` (float32) read x and q through
+    TMA, which needs 16-byte-aligned bases and global strides that are
+    multiples of 16 bytes: K and x's strides in multiples of 16 bytes (8
+    bf16/f16 elements, 4 floats), rows at least K apart, N and q's member
+    stride in multiples of 16 bytes. Other bf16/f16 calls take ``mma``,
+    other float32 calls ``fma``."""
+    if n <= NARROW_MAX_N or (n <= NARROW_FEW_ROWS_MAX_N and m <= FEW_ROWS):
+        return "splitk"
     x_member, x_row = x_strides
-    if (k > 0 and k % 8 == 0 and x_row % 8 == 0 and x_row >= k and x_member % 8 == 0 and n % 16 == 0
-            and q_member_stride % 16 == 0 and x_ptr % 16 == 0 and q_ptr % 16 == 0):
-        return "wgmma"
-    return "mma"
+    per16 = 4 if dtype == torch.float32 else 8  # elements in 16 bytes
+    if (k > 0 and k % per16 == 0 and x_row % per16 == 0 and x_row >= k and x_member % per16 == 0
+            and x_ptr % 16 == 0 and n % 16 == 0 and q_member_stride % 16 == 0 and q_ptr % 16 == 0):
+        return "tf32x2" if dtype == torch.float32 else "wgmma"
+    return "fma" if dtype == torch.float32 else "mma"
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

@@ -8,6 +8,11 @@
 - the wgmma body at its edges (M % 128, K % 64 and N % 128 not 0; three
   stacked members with a K that ends mid-tile, per-member and shared x),
   each launched once on the body ``select_body`` names;
+- the narrow body (``splitk``) at N 1, 2, 3 and 8, M 1, 5, 32 and 4096, K 4,
+  768 and 776, in bf16 and float32, and the float32 tensor-core body
+  (``tf32x2``) with M, N and K ragged against its tiles and three stacked
+  members (shared and per-member x), each launched once on its body;
+- every body refusing a call it cannot take;
 - a ``bert_tiny`` int8 deployment served on ``cuda`` launches the kernel
   2 x 4 + 1 = 9 times per forward and answers as the same deployment on the
   CPU (plain version) within 2e-2 in bf16;
@@ -40,6 +45,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A16 kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the plain version sums in float32, as the kernel and the JAX package
+    # do (cuBLAS may otherwise reduce bf16 split-K partials in bf16)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -100,6 +108,50 @@ def test_int8_matmul_body_edges_match_plain_version(cuda, shape, body, shared_x)
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ATOL, atol=BF16_ATOL)
 
 
+def _one_launch_on(body, fn):
+    before = {name: c.count for name, c in i8.LAUNCHES_BY_BODY.items()}
+    got = fn()
+    torch.cuda.synchronize()
+    assert {name: c.count - before[name] for name, c in i8.LAUNCHES_BY_BODY.items()} == {
+        name: int(name == body) for name in i8.LAUNCHES_BY_BODY}
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [4, 768, 776])
+@pytest.mark.parametrize("m", [1, 5, 32, 4096])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_narrow_outputs_take_splitk_and_match_plain_version(cuda, n, m, k, dtype):
+    q, s, b = _case(cuda, 1, m, k, n, dtype, seed=n + m + k)
+    x = torch.randn(m, k, device=cuda).to(dtype)
+    got = _one_launch_on("splitk", lambda: i8.int8_matmul(x, q[0], s[0], b[0]))
+    want = i8._batched_reference(x[None], q, s, b)[0]
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=BF16_ATOL, atol=BF16_ATOL)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_x", [False, True])
+@pytest.mark.parametrize("shape", [
+    (1, 300, 776, 400),  # M % 128, K % 32 and N % 128 all ragged
+    (1, 4000, 768, 2304),  # BERT-base's qkv with M off its tiles
+    (1, 200, 772, 16),  # one narrow tile past the cut, K % 32 = 4
+    (3, 40, 776, 48),  # members whose K ends mid-stage
+])
+def test_wide_float32_takes_tf32x2_and_matches_plain_version(cuda, shape, shared_x):
+    e, m, k, n = shape
+    q, s, b = _case(cuda, e, m, k, n, torch.float32, seed=2)
+    x1 = torch.randn(1 if shared_x else e, m, k, device=cuda)
+    x = x1.expand(e, m, k)
+    if e == 1:
+        got = _one_launch_on("tf32x2", lambda: i8.int8_matmul(x1[0], q[0], s[0], b[0])[None])
+    else:
+        fused = torch.func.vmap(i8.int8_matmul, in_dims=(None if shared_x else 0, 0, 0, 0))
+        got = _one_launch_on("tf32x2", lambda: fused(x1[0] if shared_x else x1, q, s, b))
+    torch.testing.assert_close(got, i8._batched_reference(x, q, s, b), rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.gpu
 def test_int8_matmul_refuses_a_body_that_cannot_take_the_call(cuda):
     q, s, b = _case(cuda, 1, 8, 4, 3, torch.bfloat16)
@@ -108,11 +160,22 @@ def test_int8_matmul_refuses_a_body_that_cannot_take_the_call(cuda):
         i8._launch(x, q, s, b, body="wgmma")  # K = 4, N = 3: no TMA map
     with pytest.raises(RuntimeError, match="fma body"):
         i8._launch(x, q, s, b, body="fma")  # bf16 activations
+    with pytest.raises(RuntimeError, match="tf32x2 body"):
+        i8._launch(x, q, s, b, body="tf32x2")  # bf16 activations
+    with pytest.raises(RuntimeError, match="mma body"):
+        i8._launch(x.float(), q, s, b.float(), body="mma")  # float32 activations
+    with pytest.raises(RuntimeError, match="tf32x2 body"):
+        i8._launch(x.float(), q, s, b.float(), body="tf32x2")  # N = 3: no TMA map of q
+    q16, s16, b16 = _case(cuda, 1, 8, 6, 16, torch.float32)
+    with pytest.raises(RuntimeError, match="tf32x2 body"):
+        i8._launch(torch.randn(1, 8, 6, device=cuda), q16, s16, b16, body="tf32x2")  # K = 6: x rows off 16 bytes
+    for dtype in (torch.bfloat16, torch.float32):  # the narrow body takes any shape
+        i8._launch(x.to(dtype), q, s, b.to(dtype), body="splitk")
 
 
-def _predictor(graph):
+def _predictor(graph, dtype="bfloat16"):
     return PredictorSpec.from_dict({"name": "p", "graph": graph, "tpu": {
-        "max_batch": 4, "batch_buckets": [4], "dtype": "bfloat16", "weight_quant": "int8"}})
+        "max_batch": 4, "batch_buckets": [4], "dtype": dtype, "weight_quant": "int8"}})
 
 
 def _model(name, uri):
@@ -139,6 +202,19 @@ def test_bert_tiny_int8_launches_per_forward_and_answers_like_the_cpu(cuda):
     assert launches == 2 * 4 + 1
     _, want, _ = _serve(pred, "cpu", ids)
     np.testing.assert_allclose(got, want, atol=BF16_ATOL)
+
+
+@pytest.mark.gpu
+def test_bert_tiny_float32_int8_launches_by_body_and_answers_like_the_cpu(cuda):
+    ids = np.random.default_rng(1).integers(0, 1024, (3, 16)).astype(np.float32)
+    pred = _predictor(_model("bert", "zoo://bert_tiny?seq=16"), dtype="float32")
+    before = {name: c.count for name, c in i8.LAUNCHES_BY_BODY.items()}
+    _, got, launches = _serve(pred, "cuda", ids)
+    assert launches == 2 * 4 + 1
+    by_body = {name: c.count - before[name] for name, c in i8.LAUNCHES_BY_BODY.items()}
+    assert by_body["tf32x2"] >= 8 and by_body["splitk"] >= 1 and by_body["fma"] == by_body["mma"] == 0
+    _, want, _ = _serve(pred, "cpu", ids)
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 @pytest.mark.gpu
