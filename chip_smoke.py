@@ -412,6 +412,28 @@ Phases, each of which raises on failure (no phase catches its own):
    4096, 64) causal as QKV views against its plain version, timed as in
    phase 2.
 
+19. training over the mesh (``serve_training_mesh``), on positions of the
+   one card (no interconnect is exercised); no hand-written kernel is on
+   its paths, and the flash and W8A16 launch counts must not move over
+   it. 19a ``make_sharded_train_step`` on BERT-base at full width
+   (``init_bert`` defaults, float32) over {"data": 2, "seq": 2, "model":
+   2}: batch 8 x 128 split over data and seq, AdamW 2e-6, 5 steps on one
+   batch, held against the unsharded ``make_train_step`` from the same
+   init on the card: every step's loss within ``TRAIN_LOSS_RTOL``, each
+   leaf's update (gathered parameters less the init) within
+   ``TRAIN_UPDATE_RTOL`` of the unsharded update in norm, the loss
+   falling; step ms of both (median),
+   operations per step (torch.profiler), peak allocation, parameter bytes
+   per distinct device, both states under 5 GB. 19b a ``bert_base`` (seq
+   128) ``finetune: true`` unit served over {"seq": 2, "model": 2} beside
+   its one-device twin: two feedback posts of 4 rows (two Adam steps each),
+   answers moved and equal within ``FINETUNE_MESH_TOL``, 0 keys after
+   warmup. 19c ``bert_seq_parallel.json`` over {"seq": 2, "model": 2}, ring
+   and Ulysses (bf16, bucket 8), held against the unsharded server at phase
+   17's tolerance, the 1-user p50 of each. 19d ``pipe_mlp`` fine-tuned over
+   {"pipe": 4} and ``moe_mlp`` over {"data": 2, "expert": 4}, each as 19b
+   against its one-device twin.
+
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the port beside it, it exits non-zero and prints no result.
@@ -9140,6 +9162,316 @@ async def serve_tp(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+TRAIN_DIR = ROOT / "build" / "train"  # git-ignored: the phase's deployment files, per run
+TRAIN_POSITIONS = 8  # 19a's {"data": 2, "seq": 2, "model": 2}
+# AdamW at 1e-4 or 1e-5, with no warmup, left the loss of a randomly drawn
+# BERT-base above where it started after 5 steps on one batch (its first
+# step overshoots), in the sharded and the unsharded step alike; at 2e-6
+# it falls
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 5, 2e-6
+TRAIN_BERT: dict = {}  # init_bert's keyword arguments: its defaults are BERT-base
+FINETUNE_BERT = ("bert_base", {"seq": 128}, 30522)  # 19b's model, its parameters, its vocabulary
+# the CPU twin's tolerances (tests/test_torch_sharded_training.py): each
+# step's loss at rtol 1e-4; per leaf, the sharded update (parameters after
+# the steps less the init) differs from the unsharded one by at most 0.25
+# of the unsharded update's norm, whatever the rate (a state that never
+# moved reads 1.0). Adam moves an element by about lr a step whatever its
+# gradient's size, and the key third of each qkv bias has a gradient that
+# is 0 but for rounding (softmax ignores a shift common to every key), so
+# those elements step on rounding noise that the other summation order
+# draws otherwise: that leaf read 0.096 on the CPU twin at lr 5e-3, every
+# other leaf under 1e-4
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_UPDATE_RTOL = 0.25
+TRAIN_STATE_LIMIT = 5 << 30  # both states' parameters, gradients and moments together
+FINETUNE_MESH_TOL = (2e-4, 2e-5)  # rtol, atol: answers after Adam steps (the CPU twin's)
+FINETUNE_MESH_BATCH = 4  # finetune_batch: 19b and 19d post two batches, two steps
+
+
+def _sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _state_bytes(state) -> int:
+    """A train state's parameters, gradients and optimizer moments on the
+    device, every tensor once."""
+    from seldon_core_tpu_torch.training.steps import optimized_tensors
+
+    tensors = {}
+    for t in optimized_tensors(state.params):
+        tensors[id(t)] = t
+        if t.grad is not None:
+            tensors[id(t.grad)] = t.grad
+        for v in state.optimizer.state.get(t, {}).values():
+            if hasattr(v, "numel") and v.dim() > 0:
+                tensors[id(v)] = v
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The "/"-joined key path of each leaf, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def update_ratio(got, want, init) -> float:
+    """||(got - init) - (want - init)|| / ||want - init|| of one leaf, in
+    float64: how far one update strays from another, in the other's norm
+    (0 where neither moved)."""
+    d, u = (got - want).double().norm(), (want - init).double().norm()
+    return float(d / u) if float(u) > 0 else (0.0 if float(d) == 0 else float("inf"))
+
+
+def train_bert_mesh(card) -> dict:
+    """19a: ``make_sharded_train_step`` on BERT-base at full width (init_bert
+    defaults, float32) over {"data": 2, "seq": 2, "model": 2} on 8
+    positions of the card, batch 8 x 128 split over data and seq, AdamW
+    ``TRAIN_LR``, 5 steps on one batch, held step by step against the unsharded
+    ``make_train_step`` from the same init on the card: the losses, then
+    each leaf's update in the gathered parameters; the loss falls. Step ms
+    (median), operations per step, peak allocation, parameter bytes per
+    distinct device."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models.bert import bert_logits, bert_logits_factory, bert_pspecs, init_bert
+    from seldon_core_tpu_torch.parallel import Mesh, P, gather_params
+    from seldon_core_tpu_torch.parallel.mesh import unique_tensors
+    from seldon_core_tpu_torch.training.steps import (
+        adamw,
+        init_state,
+        make_sharded_train_step,
+        make_train_step,
+        tree_leaves,
+    )
+
+    dev = _positions(1)[0]
+    params = init_bert(0, **TRAIN_BERT)
+    vocab = params["tok_emb"].shape[0]
+    rng = np.random.default_rng(19)
+    x = rng.integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    y = rng.integers(0, 2, (TRAIN_BATCH,)).astype(np.int32)
+    mesh = Mesh({"data": 2, "seq": 2, "model": 2}, _positions(TRAIN_POSITIONS))
+    _sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+    logits_fn = bert_logits_factory(mesh)
+    step, state, place = make_sharded_train_step(logits_fn, adamw(TRAIN_LR), mesh, bert_pspecs(params),
+                                                 batch_pspec=P("data", "seq"), init_params=params)
+    flat_step, flat = make_train_step(bert_logits), init_state(params, adamw(TRAIN_LR), dev)
+    xs, ys = place["x"](x), place["y"](y)  # placed once: the batch upload is not part of a step
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    losses, flat_losses, ms, flat_ms = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        state, m = step(state, {"x": xs, "y": ys})
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        flat, fm = flat_step(flat, {"x": xt, "y": yt})
+        flat_losses.append(float(fm["loss"]))
+        flat_ms.append((time.perf_counter() - t0) * 1e3)
+    steps_taken = state.step
+    worst, updates, unmoved = 0.0, {}, float("inf")
+    for path, g, w, p0 in zip(leaf_paths(params), tree_leaves(gather_params(state.params)),
+                              tree_leaves(flat.params), tree_leaves(params)):
+        w, p0 = w.detach(), torch.as_tensor(p0).to(dev)
+        worst = max(worst, float((g - w).abs().max()))
+        updates[path], unmoved = update_ratio(g, w, p0), min(unmoved, update_ratio(p0, w, p0))
+    worst_leaves = sorted(updates, key=updates.get)[-3:]
+    worst_update = updates[worst_leaves[-1]]
+    state_bytes, flat_bytes = _state_bytes(state), _state_bytes(flat)
+    by_device: dict = {}
+    for t in unique_tensors(state.params):
+        by_device[str(t.device)] = by_device.get(str(t.device), 0) + t.numel() * t.element_size()
+    peak = torch.cuda.max_memory_allocated() - a0 if DEVICE == "cuda" else None
+    ops = {}
+    if DEVICE == "cuda":  # one more step each, profiled
+        for label, fn in (("sharded", lambda: step(state, {"x": xs, "y": ys})),
+                          ("unsharded", lambda: flat_step(flat, {"x": xt, "y": yt}))):
+            kernels, n_ops = profile_device(fn, reps=1)
+            ops[label] = {"device_ops_per_step": n_ops, "device_busy_ms": sum(kernels.values())}
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    row = {"mesh": mesh.shape, "positions": mesh.size, "distinct_devices": mesh.n_devices,
+           "apply": logits_fn.name, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses, "unsharded_losses": flat_losses,
+           "step_ms": ms, "unsharded_step_ms": flat_ms, "step_ms_median": med(ms),
+           "unsharded_step_ms_median": med(flat_ms), "ratio": med(ms) / med(flat_ms),
+           "param_max_abs_diff": worst, "update_ratio_worst_leaves": {k: updates[k] for k in worst_leaves},
+           "update_ratio_unmoved_state": unmoved,
+           "param_bytes_per_device": by_device, "state_bytes": state_bytes, "unsharded_state_bytes": flat_bytes,
+           "max_memory_allocated_bytes": peak, **ops}
+    print(f"[{card}] 19a sharded BERT-base train step: {json.dumps(row)}", flush=True)
+    np.testing.assert_allclose(losses, flat_losses, rtol=TRAIN_LOSS_RTOL, err_msg="19a losses, sharded vs unsharded")
+    if not losses[-1] < losses[0] or steps_taken != TRAIN_STEPS:
+        raise AssertionError(f"19a: losses {losses} after {steps_taken} steps")
+    if not worst_update <= TRAIN_UPDATE_RTOL:
+        raise AssertionError(f"19a updates after {TRAIN_STEPS} steps: the worst leaf's sharded update is "
+                             f"{worst_update} of the unsharded one's norm away (limit {TRAIN_UPDATE_RTOL})")
+    if state_bytes + flat_bytes > TRAIN_STATE_LIMIT:
+        raise AssertionError(f"19a: the two states hold {state_bytes + flat_bytes} bytes")
+    return row
+
+
+def _finetune_file(stem: str, model: str, params: dict, mesh: dict, lr: float) -> Path:
+    """A one-unit deployment of ``model`` with ``finetune: true`` (Adam,
+    batch FINETUNE_MESH_BATCH) over ``mesh``, float32, under build/train/."""
+    unit = [{"name": "model", "value": model, "type": "STRING"},
+            *({"name": k, "value": str(v), "type": "INT"} for k, v in params.items()),
+            {"name": "finetune", "value": "true", "type": "BOOL"},
+            {"name": "finetune_batch", "value": str(FINETUNE_MESH_BATCH), "type": "INT"},
+            {"name": "finetune_lr", "value": str(lr), "type": "FLOAT"},
+            {"name": "finetune_optimizer", "value": "adam", "type": "STRING"}]
+    dep = {"apiVersion": "machinelearning.seldon.io/v1alpha1", "kind": "SeldonDeployment",
+           "metadata": {"name": stem}, "spec": {"name": stem, "predictors": [{
+               "name": "main", "graph": {"name": "clf", "type": "MODEL", "implementation": "JAX_MODEL",
+                                         "methods": ["TRANSFORM_INPUT", "SEND_FEEDBACK"], "parameters": unit},
+               "tpu": {"mesh": mesh, "dtype": "float32", "batch_buckets": [FINETUNE_MESH_BATCH],
+                       "max_batch": FINETUNE_MESH_BATCH}}]}}
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRAIN_DIR / f"{stem}.json"
+    path.write_text(json.dumps(dep))
+    return path
+
+
+async def finetune_twins(card, label: str, model: str, params: dict, axes: dict, lr: float, rows) -> dict:
+    """A ``finetune: true`` unit served over ``axes`` on positions of the
+    card beside its one-device twin: the same answers before, two
+    feedback posts of FINETUNE_MESH_BATCH rows each to both (two steps
+    each), then the same answers within FINETUNE_MESH_TOL, moved, and no
+    key after warmup on either."""
+    import numpy as np
+
+    n = int(np.prod(list(axes.values())))
+    sharded, flat, info = await _mesh_pair(card, label, _finetune_file(f"{label}_mesh", model, params, axes, lr),
+                                           _finetune_file(f"{label}_flat", model, params, {"data": 1}, lr),
+                                           _positions(n))
+    try:
+        units = (sharded.executor.root.unit, flat.executor.root.unit)
+        rng = np.random.default_rng(191)
+        probe = rows(rng, FINETUNE_MESH_BATCH)
+        before = [await _ask_server(s.port, probe) for s in (sharded, flat)]
+        hold_mesh(f"{label} before", before[0], before[1], "float32", MESH_F32_TOL)
+        feedback_ms = {"sharded": [], "unsharded": []}
+        for _ in range(2):
+            body = {"request": {"data": {"ndarray": rows(rng, FINETUNE_MESH_BATCH)}}, "response": {}, "reward": 1.0,
+                    "truth": {"data": {"ndarray": rng.integers(0, 2, (FINETUNE_MESH_BATCH, 1)).tolist()}}}
+            for key, server in (("sharded", sharded), ("unsharded", flat)):
+                status, _, raw, ms = await _request(server.port, json.dumps(body).encode(), path="/api/v0.1/feedback")
+                if status != 200:
+                    raise AssertionError(f"{label}: feedback HTTP {status}: {raw[:300]!r}")
+                feedback_ms[key].append(ms)
+        after = [await _ask_server(s.port, probe) for s in (sharded, flat)]
+        steps = [u._steps_taken for u in units]
+        moved = float(np.abs(after[0] - before[0]).max())
+        if steps != [2, 2] or moved <= 1e-6:
+            raise AssertionError(f"{label}: steps {steps}, answers moved by {moved}")
+        held = hold_mesh(label, after[0], after[1], "float32", FINETUNE_MESH_TOL)
+        keys = [_model_runtime(s).recompiles_since_warmup() for s in (sharded, flat)]
+        if keys != [0, 0]:
+            raise AssertionError(f"{label}: new keys after warmup (sharded, unsharded): {keys}")
+    finally:
+        await _stop_standalone(sharded)
+        await _stop_standalone(flat)
+    row = {**info, "steps_taken": steps, "answers_moved_by": moved, **held, "keys_after_warmup": keys,
+           "feedback_ms": feedback_ms}
+    print(f"[{card}] {label} fine-tuning over {axes}: {json.dumps(row)}", flush=True)
+    return row
+
+
+async def serve_bert_seq_model(card) -> dict:
+    """19c: BERT-base (``bert_seq_parallel.json``, bf16, bucket 8) over
+    {"seq": 2, "model": 2} on 4 positions, ring and Ulysses (6 heads per
+    model position, 3 per seq position): answers held against the same
+    weights served unsharded (phase 17's tolerance), the 1-user p50 of
+    each, 0 keys after warmup."""
+    import numpy as np
+
+    rows = {}
+    for strategy in ("ring", "ulysses"):
+        tpu = {"mesh": {"seq": 2, "model": 2}, "batch_buckets": [8], "max_batch": 8}
+        path = _mesh_copy("bert_seq_parallel", f"seq_model_{strategy}", tpu, {"seq_parallel": strategy})
+        flat_path = _mesh_copy("bert_seq_parallel", f"seq_model_{strategy}_unsharded", {**tpu, "mesh": {"data": 1}},
+                               {"seq_parallel": strategy})
+        sharded, flat, info = await _mesh_pair(card, f"19c {strategy}", path, flat_path, _positions(4))
+        try:
+            ref = _model_runtime(flat)
+            if info["apply"] != f"bert_{strategy}_tp":
+                raise AssertionError(f"19c {strategy}: apply {info['apply']} over {info['mesh']}")
+            seq, vocab = ref.feature_shape[0], _vocab(ref)
+            dtype_name = str(ref.dtype).removeprefix("torch.")
+            rng = np.random.default_rng(192)
+            got, want = [], []
+            for n in (1, 8):
+                x = rng.integers(0, vocab, size=(n, seq)).tolist()
+                got.append(await _ask_server(sharded.port, x))
+                want.append(await _ask_server(flat.port, x))
+            held = hold_mesh(f"19c {strategy}", np.concatenate(got), np.concatenate(want), dtype_name, MESH_F32_TOL)
+            load = {"payload": "json", "features": seq}
+            p50 = {"sharded": (await _load_point(sharded.port, 1, load))["p50_ms"],
+                   "unsharded": (await _load_point(flat.port, 1, load))["p50_ms"]}
+            keys = [_model_runtime(s).recompiles_since_warmup() for s in (sharded, flat)]
+            if keys != [0, 0]:
+                raise AssertionError(f"19c {strategy}: new keys after warmup (sharded, unsharded): {keys}")
+        finally:
+            await _stop_standalone(sharded)
+            await _stop_standalone(flat)
+        rows[strategy] = {**info, "seq": seq, "dtype": dtype_name, **held, "p50_ms_1_user": p50,
+                          "keys_after_warmup": keys}
+        print(f"[{card}] 19c bert_base over {{'seq': 2, 'model': 2}} {strategy}: {json.dumps(rows[strategy])}",
+              flush=True)
+    return rows
+
+
+async def serve_training_mesh(card) -> dict:
+    """Phase 19: training over the mesh on positions of the one card (19a,
+    19b, 19c, 19d). No hand-written kernel is on its paths: the flash and
+    W8A16 launch counts must not move."""
+    import shutil
+
+    from seldon_core_tpu_torch.ops import int8_matmul
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    gc.unfreeze()
+    launches = (LAUNCHES.count, int8_matmul.LAUNCHES.count)
+    out = {"cards": _card_count()}
+    print(f"[{card}] phase 19: training over meshes of up to {TRAIN_POSITIONS} positions on {out['cards']} card(s): "
+          "no interconnect is exercised", flush=True)
+    t = time.perf_counter()
+    out["train_step"] = train_bert_mesh(card)
+    out["seconds_19a"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    model, kwargs, vocab = FINETUNE_BERT
+    out["bert_finetune"] = await finetune_twins(
+        card, f"19b {model}", model, kwargs, {"seq": 2, "model": 2}, 1e-4,
+        lambda rng, n: rng.integers(0, vocab, (n, kwargs["seq"])).astype(float).tolist())
+    out["seconds_19b"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out["seq_model_serving"] = await serve_bert_seq_model(card)
+    out["seconds_19c"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    floats = lambda rng, n: rng.standard_normal((n, 16)).round(3).tolist()  # noqa: E731
+    out["pipe_finetune"] = await finetune_twins(card, "19d pipe_mlp", "pipe_mlp", {}, {"pipe": 4}, 0.01, floats)
+    out["moe_finetune"] = await finetune_twins(card, "19d moe_mlp", "moe_mlp", {}, {"data": 2, "expert": 4}, 0.01,
+                                               floats)
+    out["seconds_19d"] = round(time.perf_counter() - t, 3)
+    moved = (LAUNCHES.count - launches[0], int8_matmul.LAUNCHES.count - launches[1])
+    if moved != (0, 0):
+        raise AssertionError(f"phase 19 launched flash_attention {moved[0]} and int8_matmul {moved[1]} times")
+    return out
+
+
 F32_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route", "bounds_ms", "library_ms")
 
 
@@ -9475,6 +9807,13 @@ def main() -> int:
           f"int8_matmul launches: {tp_int8} by body {json.dumps(tp_out['int8_by_body'])}", flush=True)
     print(f"[{card}] phase 18 seconds: {time.perf_counter() - t18:.3f}", flush=True)
 
+    # 19. training over the mesh on positions of the one card: the sharded
+    # train step, fine-tuning units on sharded deployments, BERT over
+    # "seq" x "model"
+    t19 = time.perf_counter()
+    train_out = asyncio.run(serve_training_mesh(card))
+    print(f"[{card}] phase 19 seconds: {time.perf_counter() - t19:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -9599,6 +9938,7 @@ def main() -> int:
     print(json.dumps({"mesh": {"card": card, **{k: v for k, v in mesh_out.items() if k != "kernel"}}}), flush=True)
     print(json.dumps({"tensor_parallel_decode": {"card": card, **{k: v for k, v in tp_out.items() if k != "kernel"}}}),
           flush=True)
+    print(json.dumps({"training_mesh": {"card": card, **train_out}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)

@@ -215,6 +215,8 @@ class ModelRuntime:
                 log.warning("mesh %s spans %d devices: its forwards run eagerly, not as captured graphs",
                             mesh.shape, mesh.n_devices)
                 cuda_graphs = False
+        # the partition rule load_params places a full tree by
+        self.param_pspecs = param_pspecs
         # held while a forward is queued and while load_params queues its
         # copies: a replay sees every leaf of one update or none
         self.params_lock = threading.Lock()
@@ -273,23 +275,36 @@ class ModelRuntime:
         """Copy a tree of the resident parameters' structure and shapes into
         them in place, as one update: the captured graphs read these tensors'
         storage, so new weights must land in it (a new tree would leave every
-        replay on the old one). The copies are queued on the device's current
-        stream under ``params_lock``, the stream and lock a forward is
-        queued under, so each forward sees all of the update or none of it."""
-        if self.mesh is not None:
-            raise ValueError("a parameter update of a runtime served over a mesh is not part of the torch port yet")
-        dst, src = [], []
+        replay on the old one). The copies are queued on the devices' current
+        streams under ``params_lock``, the lock a forward is queued under, so
+        each forward sees all of the update or none of it, on every position.
 
-        def pair(d, s):
-            dst.append(d)
-            src.append(s)
+        On a mesh the update is a ``PositionParams`` of the resident one's
+        structure (a train step's placed copies) or a full tree in the port's
+        layout (``gather_params``' form, a snapshot), placed here with the
+        runtime's partition rule; each distinct resident tensor is copied
+        once, and shapes are checked per position."""
+        if self.mesh is None:
+            dst_trees, src_trees = [self.params], [tree]
+        else:
+            if not isinstance(tree, PositionParams):
+                tree = place_params(tree, self.param_pspecs, self.mesh,
+                                    lambda a, dev: params_to_torch(a, dev, self.dtype))
+            if len(tree) != len(self.params):
+                raise ValueError(f"a parameter update for {len(tree)} positions on a mesh of {len(self.params)}")
+            dst_trees, src_trees = self.params, tree
+        pairs: dict[int, tuple] = {}
+        for pos, (d_tree, s_tree) in enumerate(zip(dst_trees, src_trees)):
+            def pair(d, s, pos=pos):
+                if tuple(d.shape) != tuple(s.shape):
+                    where = f" at mesh position {pos}" if self.mesh is not None else ""
+                    raise ValueError(f"a parameter update of shape {tuple(s.shape)} for a leaf of shape "
+                                     f"{tuple(d.shape)}{where}")
+                pairs.setdefault(id(d), (d, s))
 
-        _zip_trees(pair, self.params, tree)
-        for d, s in zip(dst, src):
-            if tuple(d.shape) != tuple(s.shape):
-                raise ValueError(f"a parameter update of shape {tuple(s.shape)} for a leaf of shape {tuple(d.shape)}")
+            _zip_trees(pair, d_tree, s_tree)
         with self.params_lock, torch.no_grad():
-            for d, s in zip(dst, src):
+            for d, s in pairs.values():
                 d.copy_(s)
 
     def _uint8_wire(self) -> bool:

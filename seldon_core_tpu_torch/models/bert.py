@@ -17,7 +17,8 @@ Attention follows the deployment knob ``attn_kernel``:
 - ``blockwise``: blockwise at any length.
 
 On a mesh (``bert_apply_factory``, the JAX package's
-``_bert_apply_factory``, memoised per mesh and strategy):
+``_bert_apply_factory``, memoised per mesh and strategy), one body serves
+every mesh (``_mesh_hidden``):
 
 - a "seq" axis serves sequence-parallel: every layer runs on each
   position's block of the sequence, and attention is ring attention
@@ -39,8 +40,18 @@ On a mesh (``bert_apply_factory``, the JAX package's
   int8 payloads (``quant.quantized_pspecs``): qkv's q, k and v column slabs
   with their scales, ``mlp_in``'s columns, and the rows of ``attn_out`` and
   ``mlp_out`` with no bias in the kernel (the bias follows the psum);
+- both axes together: each (seq, model) position holds its sequence block
+  and its model slice of the heads; ring or Ulysses runs over "seq" within
+  each model index (Ulysses where the heads of a model position divide the
+  seq axis, refused by name otherwise), and the row-parallel psums run over
+  "model";
 - a mesh with neither runs the single-device apply on each data lead.
-A mesh with both "seq" and "model" is refused by name.
+
+The same body ends in probabilities for serving (``bert_apply_factory``) or
+logits for training (``bert_logits_factory``, which on a "seq" mesh takes
+each position's sequence block as placed by ``P("data", "seq")``); it runs
+under autograd like any torch code, the flash kernel apart
+(``ops/flash_attention.py::refuse_autograd``).
 
 With ``tpu.weight_quant="int8"`` every projection (qkv, attn_out, mlp_in,
 mlp_out, the head) is a quantized leaf that ``dense`` hands to the W8A16
@@ -235,6 +246,8 @@ def make_apply_bert(attn_impl):
 
 
 _KERNEL_APPLIES: dict = {}
+# the logits of each attn_kernel value, one function each
+_KERNEL_LOGITS = {name: partial(bert_logits, attn_impl=impl) for name, impl in _KERNEL_IMPLS.items()}
 
 
 def apply_for_kernel(attn_kernel: str):
@@ -270,41 +283,6 @@ def bert_pspecs(params: dict) -> dict:
     return specs
 
 
-def _seq_parallel_apply(mesh, strategy: str):
-    """Every layer on each "seq" position's block of the sequence, with
-    ring or Ulysses attention between the blocks; the [CLS] row lives on
-    each data lead (seq coordinate 0)."""
-    from seldon_core_tpu_torch.ops.ring_attention import ring_attention_shards
-    from seldon_core_tpu_torch.ops.ulysses import ulysses_attention_shards
-    from seldon_core_tpu_torch.parallel.mesh import MeshApply, data_parallel
-
-    n = mesh.shape[SEQ_AXIS]
-    attend = ring_attention_shards if strategy == "ring" else ulysses_attention_shards
-    unsharded = data_parallel(apply_for_kernel("auto"), mesh)
-
-    def run(params, xs):
-        s = xs[0].shape[1]
-        num_heads = _infer_heads(params[0])
-        if s % n or (strategy == "ulysses" and num_heads % n):
-            # a length the axis cannot split: the single-device policy
-            return unsharded(params, xs)
-        blk = s // n
-        head_dim = params[0]["ln_emb"]["scale"].shape[-1] // num_heads
-        offsets = [mesh.coord(p, SEQ_AXIS) * blk for p in range(mesh.size)]
-        hs = [_embed(params[p], xs[p].long()[:, o:o + blk], o) for p, o in enumerate(offsets)]
-        for li in range(len(params[0]["layers"])):
-            lps = [pp["layers"][li] for pp in params]
-            q, k, v = zip(*(_qkv_heads(lp, h, head_dim) for lp, h in zip(lps, hs)))
-            ctx = attend(q, k, v, mesh, seq_axis=SEQ_AXIS)
-            hs = [_layer_finish(lp, h, c) for lp, h, c in zip(lps, hs, ctx)]
-        out: list = [None] * mesh.size
-        for lead in mesh.leads(DATA_AXIS):
-            out[lead] = softmax_f32(_classify(params[lead], hs[lead]))
-        return out
-
-    return MeshApply(run, mesh, f"bert_{strategy}")
-
-
 def _rows_matmul(x, w):
     """A row-parallel partial product ``x @ w`` with no bias (it is added
     once, after the psum); a quantized ``w`` (a position's rows of the int8
@@ -314,77 +292,156 @@ def _rows_matmul(x, w):
     return x @ w.to(x.dtype)
 
 
-def _tensor_parallel_apply(mesh, attn_kernel: str):
-    """Megatron tensor parallelism over the "model" axis: each position's
-    heads and MLP columns, one psum per residual branch, the replicated
-    stream computed once per device in each group."""
+def _mesh_hidden(mesh, params, ids, offsets, attend, attn_impl):
+    """The encoder over the mesh, one body for every BERT mesh: position p
+    holds its ids block ``ids[p]`` [b, s_p] at sequence offset
+    ``offsets[p]``, its "model" slice of the heads and MLP columns, and
+    returns its block of the final hidden states. The stream replicated
+    over "model" is computed once per device in each model group; ``qkv``
+    and ``mlp_in`` are column-parallel, ``attn_out`` and ``mlp_out``
+    row-parallel with one psum over "model" each and the bias added once
+    after it (on a mesh without "model" the psum is the position's own
+    product). Attention is ``attend`` over the "seq" axis (ring or Ulysses,
+    within each model index), else ``attn_impl`` on each position's heads."""
     from seldon_core_tpu_torch.parallel.collectives import psum, replicated
-    from seldon_core_tpu_torch.parallel.mesh import MeshApply
 
-    attn_impl = _KERNEL_IMPLS[attn_kernel]
+    num_heads = _infer_heads(params[0])
+    head_dim = params[0]["ln_emb"]["scale"].shape[-1] // num_heads
 
     def residual(norm, bias):
         return lambda x, y: _ln(norm, x + y + bias.to(y.dtype))
 
+    hs = replicated(lambda p, x, o: _embed(p, x.long(), o), mesh, MODEL_AXIS, params, ids, offsets)
+    for li in range(len(params[0]["layers"])):
+        lps = [pp["layers"][li] for pp in params]
+        q, k, v = zip(*(_qkv_heads(lp, h, head_dim) for lp, h in zip(lps, hs)))
+        ctx = attend(q, k, v, mesh, seq_axis=SEQ_AXIS) if attend else [attn_impl(*t) for t in zip(q, k, v)]
+        attn = psum([_rows_matmul(_merge_heads(c), lp["attn_out"]["w"]) for lp, c in zip(lps, ctx)], mesh,
+                    MODEL_AXIS)
+        hs = replicated(lambda lp, h, a: residual(lp["ln1"], lp["attn_out"]["b"])(h, a), mesh, MODEL_AXIS,
+                        lps, hs, attn)
+        mlp = psum([_rows_matmul(torch.nn.functional.gelu(dense(lp["mlp_in"], h), approximate="none"),
+                                 lp["mlp_out"]["w"]) for lp, h in zip(lps, hs)], mesh, MODEL_AXIS)
+        hs = replicated(lambda lp, h, m: residual(lp["ln2"], lp["mlp_out"]["b"])(h, m), mesh, MODEL_AXIS,
+                        lps, hs, mlp)
+    return hs
+
+
+def _mesh_apply(mesh, strategy: str, attn_kernel: str, head: str):
+    """BERT over a mesh with a "seq" axis, a "model" axis or both, ending in
+    softmax probabilities (``head="probs"``, serving) or logits
+    (``head="logits"``, training). Inputs are each data lead's rows: the
+    whole sequence for serving (each "seq" position takes its block of it),
+    each position's sequence block already for training (a batch placed by
+    ``P("data", "seq")``).
+
+    A length the "seq" axis does not split, or a Ulysses mesh whose heads
+    per "model" position it does not divide, runs the single-device
+    attention policy on the whole sequence, as JAX's ring apply falls back:
+    on each data lead without a "model" axis, on every position's heads
+    with one."""
+    from seldon_core_tpu_torch.ops.ring_attention import ring_attention_shards
+    from seldon_core_tpu_torch.ops.ulysses import ulysses_attention_shards
+    from seldon_core_tpu_torch.parallel.mesh import MeshApply, data_parallel
+
+    n, m = mesh.size_of(SEQ_AXIS), mesh.size_of(MODEL_AXIS)
+    has_seq, has_model = SEQ_AXIS in mesh.shape, MODEL_AXIS in mesh.shape
+    seq_blocks = has_seq and head == "logits"
+    attend = (ring_attention_shards if strategy == "ring" else ulysses_attention_shards) if has_seq else None
+    attn_impl = _KERNEL_IMPLS[attn_kernel]
+    finish = (lambda p, h: softmax_f32(_classify(p, h))) if head == "probs" else _classify
+    unsharded = data_parallel(apply_for_kernel("auto") if head == "probs" else _KERNEL_LOGITS["auto"], mesh)
+
     def run(params, xs):
-        num_heads = _infer_heads(params[0])
-        head_dim = params[0]["ln_emb"]["scale"].shape[-1] // num_heads
-        hs = replicated(lambda p, x: _embed(p, x.long()), mesh, MODEL_AXIS, params, xs)
-        for li in range(len(params[0]["layers"])):
-            lps = [pp["layers"][li] for pp in params]
-            part = []
-            for lp, h in zip(lps, hs):
-                ctx = _merge_heads(attn_impl(*_qkv_heads(lp, h, head_dim)))
-                part.append(_rows_matmul(ctx, lp["attn_out"]["w"]))
-            attn = psum(part, mesh, MODEL_AXIS)
-            hs = replicated(lambda lp, h, a: residual(lp["ln1"], lp["attn_out"]["b"])(h, a), mesh, MODEL_AXIS,
-                            lps, hs, attn)
-            part = [_rows_matmul(torch.nn.functional.gelu(dense(lp["mlp_in"], h), approximate="none"),
-                                 lp["mlp_out"]["w"]) for lp, h in zip(lps, hs)]
-            mlp = psum(part, mesh, MODEL_AXIS)
-            hs = replicated(lambda lp, h, m: residual(lp["ln2"], lp["mlp_out"]["b"])(h, m), mesh, MODEL_AXIS,
-                            lps, hs, mlp)
+        offsets = [0] * mesh.size
+        ids, attend_now = xs, attend
+        if has_seq:
+            heads = _infer_heads(params[0]) // m
+            if seq_blocks:
+                blk = xs[0].shape[1]
+                offsets = [mesh.coord(p, SEQ_AXIS) * blk for p in range(mesh.size)]
+            elif xs[0].shape[1] % n or (strategy == "ulysses" and heads % n):
+                if not has_model:
+                    return unsharded(params, xs)
+                attend_now = None  # the whole sequence on every position, the single-device policy
+            else:
+                blk = xs[0].shape[1] // n
+                offsets = [mesh.coord(p, SEQ_AXIS) * blk for p in range(mesh.size)]
+                ids = [x[:, o:o + blk] for x, o in zip(xs, offsets)]
+        hs = _mesh_hidden(mesh, params, ids, offsets, attend_now,
+                          attn_impl if not has_seq else _default_attention)
         out: list = [None] * mesh.size
         for lead in mesh.leads(DATA_AXIS):
-            out[lead] = softmax_f32(_classify(params[lead], hs[lead]))
+            out[lead] = finish(params[lead], hs[lead])
         return out
 
-    return MeshApply(run, mesh, f"bert_tp_{attn_kernel}")
+    if has_seq and has_model:
+        name = f"bert_{strategy}_tp"
+    elif has_seq:
+        name = f"bert_{strategy}"
+    else:
+        name = f"bert_tp_{attn_kernel}"
+    x_dims = {DATA_AXIS: 0, SEQ_AXIS: 1} if seq_blocks else None
+    return MeshApply(run, mesh, name if head == "probs" else f"{name}_logits", x_dims)
+
+
+def _checked_strategy(mesh, seq_parallel: str, num_heads: int | None, attn_kernel: str) -> None:
+    """The build-time refusals of a BERT mesh, by name: an unknown strategy
+    or attention knob, Ulysses heads (per "model" position) that the "seq"
+    axis does not divide, heads that the "model" axis does not divide."""
+    apply_for_kernel(attn_kernel)  # an unknown knob fails here
+    if SEQ_AXIS in mesh.shape and seq_parallel not in ("ring", "ulysses"):
+        raise ValueError(f"seq_parallel must be 'ring' or 'ulysses', got {seq_parallel!r}")
+    if num_heads is None:
+        return
+    m = mesh.size_of(MODEL_AXIS)
+    if MODEL_AXIS in mesh.shape and num_heads % m:
+        raise ValueError(f"tensor parallelism needs attention heads divisible by the model-axis size: "
+                         f"{num_heads} heads vs model={m}")
+    if SEQ_AXIS in mesh.shape and seq_parallel == "ulysses":
+        n = mesh.shape[SEQ_AXIS]
+        if (num_heads // m) % n != 0:
+            per = f"{num_heads // m} heads per model position" if m > 1 else f"{num_heads} heads"
+            raise ValueError(
+                f"seq_parallel=ulysses needs attention heads divisible "
+                f"by the seq-axis size: {per} vs seq={n} — "
+                "use a smaller seq axis or seq_parallel=ring"
+            )
 
 
 def bert_apply_factory(mesh, seq_parallel: str = "ring", num_heads: int | None = None, attn_kernel: str = "auto"):
     """The serving apply on ``mesh`` (JAX ``models/bert.py:298-360``): a
     "seq" axis turns on sequence parallelism (ring by default, Ulysses on
-    ``seq_parallel=ulysses``, whose heads must divide the axis: refused at
-    build), a "model" axis tensor parallelism (heads must divide it), and
-    otherwise the ``attn_kernel`` apply runs on each data lead. Memoised per
-    (mesh, strategy), so two builds share one apply."""
+    ``seq_parallel=ulysses``, whose heads per "model" position must divide
+    the axis: refused at build), a "model" axis tensor parallelism (heads
+    must divide it), both together each within the other, and otherwise the
+    ``attn_kernel`` apply runs on each data lead. Memoised per (mesh,
+    strategy), so two builds share one apply."""
     from seldon_core_tpu_torch.parallel.mesh import data_parallel, memoised_apply
 
-    if SEQ_AXIS in mesh.shape and MODEL_AXIS in mesh.shape:
-        raise ValueError(f"a BERT mesh with both 'seq' and 'model' axes ({mesh.shape}) is not part of the torch "
-                         "port: use one of them")
-    if SEQ_AXIS in mesh.shape:
-        if seq_parallel == "ulysses" and num_heads is not None:
-            n = mesh.shape[SEQ_AXIS]
-            if num_heads % n != 0:
-                raise ValueError(
-                    f"seq_parallel=ulysses needs attention heads divisible "
-                    f"by the seq-axis size: {num_heads} heads vs seq={n} — "
-                    "use a smaller seq axis or seq_parallel=ring"
-                )
-        if seq_parallel not in ("ring", "ulysses"):
-            raise ValueError(f"seq_parallel must be 'ring' or 'ulysses', got {seq_parallel!r}")
-        return memoised_apply(("bert", seq_parallel, mesh), lambda: _seq_parallel_apply(mesh, seq_parallel))
-    apply_for_kernel(attn_kernel)  # an unknown knob fails here
-    if MODEL_AXIS in mesh.shape:
-        n = mesh.shape[MODEL_AXIS]
-        if num_heads is not None and num_heads % n:
-            raise ValueError(f"tensor parallelism needs attention heads divisible by the model-axis size: "
-                             f"{num_heads} heads vs model={n}")
-        return memoised_apply(("bert", MODEL_AXIS, attn_kernel, mesh),
-                              lambda: _tensor_parallel_apply(mesh, attn_kernel))
-    return data_parallel(apply_for_kernel(attn_kernel), mesh)
+    _checked_strategy(mesh, seq_parallel, num_heads, attn_kernel)
+    if SEQ_AXIS not in mesh.shape and MODEL_AXIS not in mesh.shape:
+        return data_parallel(apply_for_kernel(attn_kernel), mesh)
+    strategy = seq_parallel if SEQ_AXIS in mesh.shape else ""
+    kernel = attn_kernel if SEQ_AXIS not in mesh.shape else "auto"
+    return memoised_apply(("bert", strategy, kernel, "probs", mesh),
+                          lambda: _mesh_apply(mesh, strategy, kernel, "probs"))
+
+
+def bert_logits_factory(mesh, seq_parallel: str = "ring", num_heads: int | None = None, attn_kernel: str = "auto"):
+    """The same forward as ``bert_apply_factory`` ending in logits: the
+    ``logits_fn`` of ``training/steps.py::make_sharded_train_step`` on a
+    mesh. On a "seq" mesh it takes each position's sequence block (a batch
+    placed by ``P("data", "seq")``) in place of the whole sequence."""
+    from seldon_core_tpu_torch.parallel.mesh import data_parallel, memoised_apply
+
+    _checked_strategy(mesh, seq_parallel, num_heads, attn_kernel)
+    if SEQ_AXIS not in mesh.shape and MODEL_AXIS not in mesh.shape:
+        return data_parallel(_KERNEL_LOGITS[attn_kernel], mesh)
+    strategy = seq_parallel if SEQ_AXIS in mesh.shape else ""
+    kernel = attn_kernel if SEQ_AXIS not in mesh.shape else "auto"
+    return memoised_apply(("bert", strategy, kernel, "logits", mesh),
+                          lambda: _mesh_apply(mesh, strategy, kernel, "logits"))
 
 
 @register_model("bert_base")

@@ -17,6 +17,19 @@ serving dtype, with the optimizer's moments beside them) and
 as one update, ordered against every replay: a forward sees all of a step
 or none of it, and no dispatch key is added.
 
+On a mesh (``tpu.mesh`` with any axes the port serves) the unit trains
+over the mesh, as the JAX package's step takes ``jax.value_and_grad``
+through its mesh-aware apply: the step's copies are the runtime's
+per-position blocks (``PositionParams``, sharing kept), the loss is taken
+on the global batch from the data leads' rows (``steps.data_split_apply``:
+a batch the data axis does not divide is padded with rows the loss never
+reads), each block's copies on distinct devices agree on their gradient
+(``parallel/mesh.py::sum_replica_grads``), and ``load_params`` copies every
+position's blocks in as one update. A snapshot holds the full tree
+(``gather_params``) and the optimizer's moments as full leaves, as JAX's
+``np.asarray`` of sharded arrays gathers them, so it restores into a mesh
+unit or a one-device unit alike.
+
 A forward that reaches a hand-written kernel has no backward
 (``ops/flash_attention.py``, ``ops/int8_matmul.py``): its wrapper raises
 under autograd, the step fails with that error and the weights stay, as the
@@ -37,7 +50,18 @@ from seldon_core_tpu_torch.core.message import Feedback
 from seldon_core_tpu_torch.graph.spec import PredictiveUnit
 from seldon_core_tpu_torch.models.base import ModelRuntime, ModelUnit
 from seldon_core_tpu_torch.models.convert import params_to_numpy, params_to_torch, tree_map
-from seldon_core_tpu_torch.training.steps import TrainState, adam, apply_gradients, grad_mode, init_state, sgd
+from seldon_core_tpu_torch.parallel.mesh import gather_params
+from seldon_core_tpu_torch.training.steps import (
+    TrainState,
+    adam,
+    apply_gradients,
+    data_split_apply,
+    gathered_optimizer_state,
+    grad_mode,
+    init_state,
+    load_optimizer_state,
+    sgd,
+)
 
 log = logging.getLogger(__name__)
 
@@ -128,7 +152,10 @@ class OnlineFinetuneModelUnit(ModelUnit):
             xt = torch.from_numpy(x).to(rt.device)  # float32, as the reference's step takes it
             yt = torch.from_numpy(y).to(rt.device).long()
             with grad_mode():
-                probs = rt.apply_fn(state.params, xt)
+                if rt.mesh is None:
+                    probs = rt.apply_fn(state.params, xt)
+                else:
+                    probs = data_split_apply(rt.apply_fn, state.params, xt, rt.mesh)
                 logp = torch.log(probs.float() + 1e-9)
                 loss = -logp.gather(-1, yt[:, None]).mean()
                 apply_gradients(state, loss)
@@ -148,8 +175,8 @@ class OnlineFinetuneModelUnit(ModelUnit):
                 "buffer_y": list(self._buffer_y),
                 "steps_taken": self._steps_taken,
                 # a copy: on the CPU the arrays would share the live storage
-                "params": tree_map(np.array, params_to_numpy(self.runtime.params)),
-                "opt_state": None if self._state is None else _to_numpy(self._state.optimizer.state_dict()),
+                "params": tree_map(np.array, params_to_numpy(self._full_params())),
+                "opt_state": None if self._state is None else _to_numpy(gathered_optimizer_state(self._state)),
             }
 
     def __setstate__(self, state):
@@ -159,8 +186,15 @@ class OnlineFinetuneModelUnit(ModelUnit):
             self._steps_taken = int(state.get("steps_taken", 0))
             rt = self.runtime
             if "params" in state:
-                rt.load_params(params_to_torch(state["params"], rt.device, rt.dtype))
+                # on a mesh the full tree is placed by the runtime's rule
+                rt.load_params(state["params"] if rt.mesh is not None else
+                               params_to_torch(state["params"], rt.device, rt.dtype))
             self._state = None
             if state.get("opt_state") is not None:
                 self._state = init_state(rt.params, self._optimizer)
-                self._state.optimizer.load_state_dict(_to_tensors(state["opt_state"]))
+                load_optimizer_state(self._state, _to_tensors(state["opt_state"]))
+
+    def _full_params(self):
+        """The serving parameters as one tree (gathered on a mesh)."""
+        rt = self.runtime
+        return gather_params(rt.params) if rt.mesh is not None else rt.params

@@ -28,11 +28,11 @@ from ``param_pspecs``; a model without a factory runs its single-position
 apply on each data lead. ``moe_mlp`` and ``pipe_mlp`` draw their dense
 layers with ``jax.random`` in the JAX package and with numpy here (as the
 small models above do); ``init_moe`` is the JAX package's numpy draw.
-A generative model, or a ``finetune`` unit, on a ``tpu.mesh`` with an axis
+A ``finetune`` unit trains over whatever mesh it serves on
+(``models/online.py``). A generative model on a ``tpu.mesh`` with an axis
 other than "data" is refused by name (decode shards over
-``tpu.decode_mesh_axes``, ``parallel/tp.py``, and the sharded train steps
-are not ported yet); on a data-only mesh it serves on the first position,
-with a warning.
+``tpu.decode_mesh_axes``, ``parallel/tp.py``); on a data-only mesh it
+serves on the first position, with a warning.
 """
 
 from __future__ import annotations
@@ -638,8 +638,8 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
     unit's container; every other unit parameter but ``finetune`` is a
     builder kwarg. ``finetune`` true (``bool_param``: the string "false" is
     false) builds an ``OnlineFinetuneModelUnit`` (``models/online.py``), as
-    ``make_jax_model_unit`` does, and is refused with int8 weights before
-    any parameter is built."""
+    ``make_jax_model_unit`` does, on the context's mesh as on one device,
+    and is refused with int8 weights before any parameter is built."""
     params = parameters_dict(spec.parameters)
     uri = params.get("model_uri") or (
         f"zoo://{params['model']}" if "model" in params else None
@@ -651,19 +651,6 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
     if uri is None:
         raise ValueError(f"JAX_MODEL unit '{spec.name}' needs a model_uri parameter")
     finetune = bool_param(params.get("finetune", False))
-    device, mesh = context.get("device"), context.get("mesh")
-    if finetune and mesh is not None:
-        if any(size > 1 for axis, size in mesh.shape.items() if axis != DATA_AXIS):
-            raise ValueError(
-                f"unit '{spec.name}': finetune=true on tpu.mesh {mesh.shape} is not part of the torch port "
-                "yet (the sharded train steps come with decode tensor parallelism)"
-            )
-        # a data-only mesh: the replica that learns serves on the first
-        # position, as a generative model does
-        logging.getLogger(__name__).warning(
-            "unit '%s': finetune=true on tpu.mesh %s is served on one device, %s (the sharded train steps are "
-            "not ported yet)", spec.name, mesh.shape, mesh.positions[0])
-        device, mesh = mesh.positions[0], None
     if finetune and getattr(context.get("tpu"), "weight_quant", "") == "int8":
         raise ValueError(
             f"unit '{spec.name}': finetune=true cannot combine with "
@@ -672,8 +659,8 @@ def make_model_unit(spec: PredictiveUnit, context: dict) -> ModelUnit:
             "scales; serve the finetuning replica unquantized"
         )
     runtime = build_runtime_from_uri(
-        uri, context.get("tpu"), device, extra_params=extra,
-        cuda_graphs=context.get("cuda_graphs", True), mesh=mesh,
+        uri, context.get("tpu"), context.get("device"), extra_params=extra,
+        cuda_graphs=context.get("cuda_graphs", True), mesh=context.get("mesh"),
     )
     if finetune:
         from seldon_core_tpu_torch.models.online import OnlineFinetuneModelUnit

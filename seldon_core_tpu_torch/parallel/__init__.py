@@ -13,10 +13,12 @@ from seldon_core_tpu_torch.parallel.mesh import (
     P,
     Packed,
     PositionParams,
+    gather_params,
     local_cards,
     mesh_from_spec,
     place_params,
     serving_positions,
+    sum_replica_grads,
 )
 from seldon_core_tpu_torch.parallel.tp import (
     decode_mesh_problems,
@@ -37,10 +39,12 @@ __all__ = [
     "P",
     "Packed",
     "PositionParams",
+    "gather_params",
     "local_cards",
     "mesh_from_spec",
     "place_params",
     "serving_positions",
+    "sum_replica_grads",
     "decode_mesh_problems",
     "decode_tp_mesh",
     "decoder_param_pspecs",

@@ -14,6 +14,18 @@ these functions, as copies and adds:
 Each function takes the shards of every position and the mesh axis to act
 along, and acts within each group of positions that differ only along that
 axis (``Mesh.groups``), as a collective over a named axis does.
+
+They are plain tensor operations (adds, concatenations, slices, copies), so
+autograd differentiates through them: the gradient of ``psum`` reaches every
+shard it summed, of ``ppermute`` goes back along the inverse permutation, of
+``all_to_all`` back through the inverse exchange, as the transposes of the
+``lax`` collectives under ``shard_map`` do. What differs is how a result is
+held. On one device ``psum`` and ``all_gather`` hand every member of a group
+the very same tensor, and ``replicated`` computes once per device; on
+distinct cards each member holds its own copy. Either way a loss must read
+a replicated result once per data group (``Mesh.leads``), never once per
+position: summed over the positions that share it, it would count the
+gradient once per position.
 """
 
 from __future__ import annotations

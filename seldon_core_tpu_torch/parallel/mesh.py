@@ -29,6 +29,16 @@ on one card share one copy of it. Axes a spec names that the mesh lacks are
 dropped (those dimensions replicate), as the JAX runtime's
 ``to_mesh_spec`` does, with the same warning.
 
+Training over a mesh keeps that placement. Every position computes with
+the tensors it holds, so a block of a leaf held by positions on one device
+is one tensor and autograd sums its gradient over those positions by
+itself; copies of one block on distinct devices each receive the share of
+the gradient their device computed. ``sum_replica_grads`` is the one rule
+that makes them agree: each copy's gradient becomes the sum over the copies,
+so every copy takes the same update. ``gather_params`` is the way back: the
+full tree (BERT's packed q|k|v slabs put back in place) from the blocks the
+positions hold.
+
 ``initialize_distributed`` (multi-host) is not ported yet.
 """
 
@@ -190,7 +200,16 @@ class Packed:
 
 class PositionParams(list):
     """A parameter tree per mesh position, already placed: what
-    ``place_params`` returns and what a mesh runtime holds."""
+    ``place_params`` returns and what a mesh runtime holds. ``keys`` names,
+    per position and per leaf (in tree order), the block of the full leaf
+    the position holds: the leaf's index and its index ranges per dimension
+    (``()`` for the whole leaf). Equal keys are copies of one block. None
+    where the trees were put together by hand (a fused ensemble's stack),
+    which can neither be gathered nor trained."""
+
+    def __init__(self, trees: Iterable[Any] = (), keys: list | None = None):
+        super().__init__(trees)
+        self.keys = keys
 
 
 def tree_leaves(tree: Any) -> Iterable[Any]:
@@ -256,9 +275,9 @@ def _shard_slices(shape: Sequence[int], spec: P, mesh: Mesh, pos: int) -> tuple:
     return tuple(out)
 
 
-def _take_shard(a: Any, slices: tuple) -> Any:
+def take_shard(a: Any, slices: tuple) -> Any:
     """The shard of ``a`` (a numpy array or a tensor) that ``_shard_slices``
-    names, as a new array of the same kind."""
+    names (``()``: all of it), as a new array of the same kind."""
     import numpy as np
 
     for dim, ranges in enumerate(slices):
@@ -278,19 +297,20 @@ def place_params(params: Any, specs: Any, mesh: Mesh, place_leaf: Callable[[Any,
     form on ``device``; each distinct (device, shard) is placed once and
     shared by the positions that hold it."""
     dropped: set = set()
+    leaf_keys: list = []
 
     def leaf(a, spec):
         # a quantized leaf: its int8 payload and its scale, each by its spec
         parts = {k: (a[k], spec[k]) for k in a} if is_quantized_leaf(a) else {None: (a, spec)}
         parts = {k: (arr, _mesh_spec(sp, mesh, dropped)) for k, (arr, sp) in parts.items()}
         placed: dict = {}
-        out = []
+        out, keys = [], []
         for pos in range(mesh.size):
             dev = mesh.positions[pos]
             sl = tuple(_shard_slices(tuple(arr.shape), sp, mesh, pos) if any(e is not None for e in sp) else ()
                        for arr, sp in parts.values())
             if (dev, sl) not in placed:
-                shards = {k: _take_shard(arr, s) if s else arr for (k, (arr, _)), s in zip(parts.items(), sl)}
+                shards = {k: take_shard(arr, s) if s else arr for (k, (arr, _)), s in zip(parts.items(), sl)}
                 if None in shards:
                     placed[(dev, sl)] = place_leaf(shards[None], dev)
                 else:
@@ -299,13 +319,16 @@ def place_params(params: Any, specs: Any, mesh: Mesh, place_leaf: Callable[[Any,
                     new = place_leaf(shards, dev)
                     placed[(dev, sl)] = {k: placed.setdefault((dev, k, s), new[k]) for k, s in zip(shards, sl)}
             out.append(placed[(dev, sl)])
+            keys.append((len(leaf_keys), sl))
+        leaf_keys.append(keys)
         return _PerPos(out)
 
     tree = _spec_tree_map(leaf, params, specs)
     if dropped:
         log.warning("param shardings name axes %s missing from mesh %s — those dimensions are now REPLICATED "
                     "(full param copy per device along the missing axis)", sorted(dropped), mesh.shape)
-    return PositionParams(_select(tree, pos) for pos in range(mesh.size))
+    return PositionParams((_select(tree, pos) for pos in range(mesh.size)),
+                          [[k[pos] for k in leaf_keys] for pos in range(mesh.size)])
 
 
 class _PerPos(list):
@@ -334,16 +357,128 @@ def unique_tensors(trees: Iterable[Any]) -> list[torch.Tensor]:
     return list(seen.values())
 
 
+def _keyed_leaves(params: PositionParams) -> Iterable[tuple[Any, tuple]]:
+    """(leaf, key) over every position's leaves."""
+    if params.keys is None:
+        raise ValueError("these per-position parameters were not placed by place_params: they carry no block "
+                         "keys to gather or train them by")
+    for tree, keys in zip(params, params.keys):
+        yield from zip(tree_leaves(tree), keys)
+
+
+def map_unique(fn: Callable[[Any], Any], params: PositionParams) -> PositionParams:
+    """``fn`` over every distinct leaf, once: a leaf that positions share
+    stays shared in the result, which keeps the block keys."""
+    from seldon_core_tpu_torch.models.convert import tree_map
+
+    memo: dict[int, Any] = {}
+
+    def leaf(a):
+        if id(a) not in memo:
+            memo[id(a)] = fn(a)
+        return memo[id(a)]
+
+    return PositionParams((tree_map(leaf, tree) for tree in params), params.keys)
+
+
+def sum_replica_grads(params: PositionParams) -> None:
+    """The gradient rule of a placed tree, after ``backward``: every copy of
+    a block takes the sum of the copies' gradients. A copy on a distinct
+    device stands in for the one parameter where that device computes, so
+    the global function's gradient is the sum over copies; a block that
+    positions share on one device is one tensor, already summed by
+    autograd. The JAX package has no such step: GSPMD keeps one logical
+    array per leaf."""
+    copies: dict = {}
+    for leaf, key in _keyed_leaves(params):
+        if isinstance(leaf, torch.Tensor):
+            copies.setdefault(key, {}).setdefault(id(leaf), leaf)
+    for group in (list(g.values()) for g in copies.values() if len(g) > 1):
+        grads = [t.grad for t in group if t.grad is not None]
+        if not grads:
+            continue
+        total = grads[0]
+        for g in grads[1:]:
+            total = total + g.to(total.device)
+        for t in group:
+            t.grad = total.to(t.device, copy=True)
+
+
+def _assemble(blocks: Mapping[tuple, torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The full tensor from its blocks, each keyed by its index ranges per
+    dimension (``()``: the whole tensor)."""
+    if () in blocks:
+        return blocks[()].detach().to(device, copy=True)
+    first = next(iter(blocks.values()))
+    ndim = first.dim()
+    shape = [max(hi for sl in blocks for _, hi in sl[d]) for d in range(ndim)]
+    out = torch.empty(shape, dtype=first.dtype, device=device)
+    for sl, t in blocks.items():
+        index = tuple(torch.cat([torch.arange(lo, hi, device=device) for lo, hi in sl[d]]).view(
+            [-1 if k == d else 1 for k in range(ndim)]) for d in range(ndim))
+        out[index] = t.detach().to(device)
+    return out
+
+
+def gather_blocks(params: PositionParams, value: Callable[[Any], Any], device: Any = None) -> list:
+    """Per leaf index, the full form of ``value(leaf)`` put together from
+    the blocks the positions hold: a tensor of the block's shape, or a dict
+    of them (a quantized leaf's parts, each by its own block, or an
+    optimizer's moments of the block; a 0-d entry is taken from the first
+    block). A leaf whose value is None for every block gives None."""
+    by_leaf: dict[int, dict] = {}
+    for leaf, (i, sl) in _keyed_leaves(params):
+        by_leaf.setdefault(i, {}).setdefault(sl, leaf)
+    device = normalize_device(device) if device is not None else None
+    out = []
+    for i in range(len(by_leaf)):
+        vals = {sl: value(leaf) for sl, leaf in by_leaf[i].items()}
+        first = next(iter(vals.values()))
+        if first is None:
+            out.append(None)
+            continue
+        quantized = is_quantized_leaf(next(iter(by_leaf[i].values())))
+        parts = first if isinstance(first, dict) else {None: first}
+        full = {}
+        for j, (k, v0) in enumerate(parts.items()):
+            dev = device if device is not None else v0.device
+            if v0.dim() == 0:
+                full[k] = v0.detach().to(dev, copy=True)
+            else:
+                full[k] = _assemble({sl[j if quantized else 0]: (v if k is None else v[k]) for sl, v in vals.items()},
+                                    dev)
+        out.append(full[None] if None in full else full)
+    return out
+
+
+def gather_params(params: PositionParams, device: Any = None) -> Any:
+    """The full parameter tree from the blocks the positions hold (on
+    ``device``, else the first position's), detached: what a checkpoint, an
+    online unit's snapshot and the tests read. The decode tier's
+    counterpart for its head-sharded buffers is ``parallel/tp.py::
+    Placed.gather``."""
+    from seldon_core_tpu_torch.models.convert import tree_map
+
+    full = iter(gather_blocks(params, lambda leaf: leaf, device))
+    return tree_map(lambda _: next(full), params[0])
+
+
 class MeshApply:
     """A model's apply over a mesh: ``fn(params, xs)`` takes the positions'
     parameter trees (``PositionParams``) and their input blocks (the batch
     split over "data", replicated over the other axes) and returns a list
     per position in which each data lead (``Mesh.leads``) holds its block of
     the output; other entries may be None. What the JAX package's
-    ``apply_factory(mesh)`` returns, with the collectives written out."""
+    ``apply_factory(mesh)`` returns, with the collectives written out.
+    Its operations are autograd's like any others: a loss read from the
+    leads' blocks gives every placed parameter its gradient."""
 
-    def __init__(self, fn: Callable[[Sequence[Any], Sequence[torch.Tensor]], list], mesh: Mesh, name: str):
+    def __init__(self, fn: Callable[[Sequence[Any], Sequence[torch.Tensor]], list], mesh: Mesh, name: str,
+                 x_dims: Mapping[str, int] | None = None):
         self.fn, self.mesh, self.name = fn, mesh, name
+        # how the input is split over the positions (axis -> dimension):
+        # the batch over "data"; a training apply may take sequence blocks
+        self.x_dims = dict(x_dims) if x_dims is not None else {DATA_AXIS: 0}
 
     def __call__(self, params: Sequence[Any], xs: Sequence[torch.Tensor]) -> list:
         return self.fn(params, xs)

@@ -1,16 +1,23 @@
 """Pipeline parallelism over a mesh axis: the GPipe microbatch schedule.
 
-Port of ``seldon_core_tpu/parallel/pipeline.py`` (forward only; the
-backward through the pipeline waits for the sharded train steps). Each
-position along the "pipe" axis holds one stage's parameters, and
-activations flow from stage s to stage s + 1 (the JAX package's
-``lax.ppermute``; here the tensor itself, or a peer copy between cards).
-The schedule is the (M + S - 1)-tick loop: at tick t stage 0 feeds
-microbatch t while stage s works on microbatch t - s, and the last stage
-keeps microbatch t - (S - 1) once the pipe is full. A stage with no
-microbatch in a tick (the bubble) does no work: the JAX package computes it
-on zeros and never keeps the result. The last stage's buffer is then
-broadcast to every position of the pipe.
+Port of ``seldon_core_tpu/parallel/pipeline.py``. Each position along the
+"pipe" axis holds one stage's parameters, and activations flow from stage
+s to stage s + 1 (the JAX package's ``lax.ppermute``; here the tensor
+itself, or a peer copy between cards). The schedule is the (M + S - 1)-tick
+loop: at tick t stage 0 feeds microbatch t while stage s works on
+microbatch t - s, and the last stage keeps microbatch t - (S - 1) once the
+pipe is full. A stage with no microbatch in a tick (the bubble) does no
+work: the JAX package computes it on zeros and never keeps the result. The
+last stage's buffer is then broadcast to every position of the pipe.
+
+The backward needs no schedule of its own, as in the JAX package (where
+``jax.grad`` transposes the scan and the ppermutes): autograd carries each
+microbatch's gradient back along the same ticks, from the last stage's
+kept output through the tensors the stages handed on, to every stage's
+parameters. A bubble tick made nothing, so it sends nothing back. The
+broadcast hands every position of a group one tensor on one device (a
+copy per card across cards), and a loss reads it once per group
+(``Mesh.leads``), so the broadcast does not multiply the gradient.
 """
 
 from __future__ import annotations

@@ -261,9 +261,12 @@ async def test_a_fused_island_on_a_mesh_serves_like_jax(shape, carried):
     assert runtime.recompiles_since_warmup() == 0
 
 def test_what_a_mesh_does_not_serve_yet_is_refused_by_name():
-    """Fine-tuning and decode over a mesh axis other than data wait for the
-    sharded train steps and decode TP: refused by name. On a data-only mesh
-    a fine-tuning unit and a generative model serve on the first position."""
+    """Decode over a mesh axis other than data waits for its own slice and
+    is refused by name; on a data-only mesh a generative model serves on the
+    first position. Fine-tuning, once refused on such a mesh too, trains
+    over it: a unit on {"seq": 2} and one on {"data": 2} keep their meshes,
+    and a step moves the answer they serve alike (held against JAX's units
+    in ``tests/test_torch_sharded_training.py``)."""
     from seldon_core_tpu_torch.graph.spec import TpuSpec
     from seldon_core_tpu_torch.models.online import OnlineFinetuneModelUnit
     from seldon_core_tpu_torch.models.zoo import _runtime_from_modelspec, get_model, make_model_unit
@@ -273,10 +276,17 @@ def test_what_a_mesh_does_not_serve_yet_is_refused_by_name():
                                       ).spec.predictors[0].graph
     mesh = mesh_from_spec({"data": 2}, [CPU] * 2)
     tpu = TpuSpec(batch_buckets=[2], max_batch=2)
-    with pytest.raises(ValueError, match="finetune=true on tpu.mesh"):
-        make_model_unit(unit, {"tpu": tpu, "device": CPU, "mesh": mesh_from_spec({"seq": 2}, [CPU] * 2)})
-    learner = make_model_unit(unit, {"tpu": tpu, "device": CPU, "mesh": mesh})
-    assert isinstance(learner, OnlineFinetuneModelUnit) and learner.runtime.mesh is None
+    x = np.asarray([[5.0, 3.0, 4.0, 1.0]] * 8, np.float32)
+    moved = []
+    for axes in ({"seq": 2}, {"data": 2}):
+        learner = make_model_unit(unit, {"tpu": tpu, "device": CPU, "mesh": mesh_from_spec(axes, [CPU] * 2)})
+        assert isinstance(learner, OnlineFinetuneModelUnit) and learner.runtime.mesh.shape == axes
+        before = learner.runtime.predict(x[:2])
+        learner._train(x, np.full(8, 2, np.int32))
+        after = learner.runtime.predict(x[:2])
+        assert learner._steps_taken == 1 and after[0, 2] > before[0, 2] + 0.05
+        moved.append(after)
+    np.testing.assert_allclose(moved[0], moved[1], rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="generative model on tpu.mesh"):
         _runtime_from_modelspec(get_model("tiny_gpt"), tpu, CPU, mesh=mesh_from_spec({"seq": 2}, [CPU] * 2))
     rt = _runtime_from_modelspec(get_model("tiny_gpt"), tpu, CPU, mesh=mesh)

@@ -179,13 +179,24 @@ def test_tensor_parallel_refuses_heads_the_axis_does_not_divide():
 
 
 def test_a_seq_and_model_mesh_and_int8_on_a_model_axis_are_refused_by_name():
-    """A seq+model mesh stays refused by name. int8 on a "model" axis, once
-    refused too, serves since ``quant.quantized_pspecs`` was ported: each
-    position holds its shard of every int8 payload and the scales of its
-    columns, and answers as the unsharded int8 runtime does (held against
-    the JAX runtime in ``tests/test_torch_tp_decode.py``)."""
-    with pytest.raises(ValueError, match="both 'seq' and 'model'"):
-        _runtime_from_modelspec(get_model("bert_tiny"), TpuSpec(batch_buckets=[2], max_batch=2), CPU,
+    """A seq+model mesh, once refused by name, serves: ring attention over
+    "seq" within each model index and the row-parallel psums over "model",
+    answering as the unsharded runtime does (held against JAX's runtime on
+    the same mesh in ``tests/test_torch_mesh_grads.py``); Ulysses, whose
+    one head per model position the seq axis cannot divide, is refused by
+    name. int8 on a "model" axis, once refused too, serves since
+    ``quant.quantized_pspecs`` was ported: each position holds its shard of
+    every int8 payload and the scales of its columns, and answers as the
+    unsharded int8 runtime does (held against the JAX runtime in
+    ``tests/test_torch_tp_decode.py``)."""
+    fp = TpuSpec(batch_buckets=[2], max_batch=2)
+    both = _runtime_from_modelspec(get_model("bert_tiny"), fp, CPU, mesh=_mesh({"seq": 2, "model": 2}))
+    assert both.apply_fn.name == "bert_ring_tp"
+    ids = np.random.default_rng(3).integers(0, 1024, (2, 16)).astype(np.float32)
+    np.testing.assert_allclose(both.predict(ids), _runtime_from_modelspec(get_model("bert_tiny"), fp, CPU).predict(ids),
+                               rtol=2e-4, atol=2e-5)
+    with pytest.raises(ValueError, match="1 heads per model position vs seq=2"):
+        _runtime_from_modelspec(get_model("bert_tiny", seq_parallel="ulysses"), fp, CPU,
                                 mesh=_mesh({"seq": 2, "model": 2}))
     cfg = TpuSpec(batch_buckets=[2], max_batch=2, weight_quant="int8")
     rt = _runtime_from_modelspec(get_model("bert_tiny"), cfg, CPU, mesh=_mesh({"model": 2}))
