@@ -433,6 +433,31 @@ Phases, each of which raises on failure (no phase catches its own):
    17's tolerance, the 1-user p50 of each. 19d ``pipe_mlp`` fine-tuned over
    {"pipe": 4} and ``moe_mlp`` over {"data": 2, "expert": 4}, each as 19b
    against its one-device twin.
+20. meshes across OS processes, int8 generation and generative meshes
+   (``serve_phase20``). 20a two processes on the one card (``chip_smoke.py
+   --mh-child``, the JAX package's three variables): a NCCL pair first,
+   whose refusal (two ranks on one card) is printed, then a gloo pair: the
+   twin of JAX's ``tests/test_multihost.py`` (a data-axis sum and
+   ``iris_mlp`` over {"data": 4}, two positions a process) and BERT-base
+   bf16 (bucket 8, seq 512, the flash kernel) over {"data": 2}, each
+   process feeding and reading its own rows, held against the one-process
+   mesh's rows (``MH_BF16_ATOL``, and whether bit for bit), flash launches
+   per process. 20b the same pair: BERT-base float32's sharded step over
+   {"data": 2, "model": 2}, "data" across the processes, phase 19a's batch
+   and lr, 5 steps, held against the one-process mesh's step (computed
+   here while the pair starts): losses within ``TRAIN_LOSS_RTOL``, each
+   leaf's update within ``TRAIN_UPDATE_RTOL``, an unmoved state reading 1.0;
+   step ms, operations, bytes staged through pinned host memory and
+   collectives across processes per step. 20c GPT-2-small width on int8
+   weights, bf16, through the fused ``generate`` (captured): ids against
+   the same generate on W8A16's plain version on the card under the tie
+   rule, W8A16 launches per token by body, ms per token against the
+   runtime without ``weight_quant``, resident bytes, the kernel at the
+   decode step's shapes (``GEN_INT8_SHAPES``); ``tiny_gpt`` with
+   ``decode_slots`` and ``weight_quant`` serves the fused path with the JAX
+   package's warning. 20d GPT-2-small width (bf16) served over {"data": 2,
+   "model": 2} on four positions of the card against the one-device
+   server: ids under the tie rule, 0 keys after warmup.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -9472,6 +9497,523 @@ async def serve_training_mesh(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+MH_DIR = ROOT / "build" / "multihost"  # git-ignored: the children's logs and rows, per run
+MH_CHILD_TIMEOUT_S = 150  # the gloo pair: start, 20a's forwards and 20b's steps (with rank 0's reference)
+MH_PROBE_TIMEOUT_S = 60  # the NCCL pair: a refusal comes at once, a hang is killed here
+MH_BERT_ROWS, MH_BERT_SEQ = 8, 512  # 20a: bucket 8 at seq 512 over {"data": 2}, 4 rows a process
+MH_BERT_MODEL, MH_BERT_VOCAB = "bert_base", 30522  # 20a's model: bert_base_flash's
+MH_CHILD = [str(ROOT / "chip_smoke.py")]  # the pair's script (a rehearsal points it at a wrapper)
+MH_BF16_ATOL = 0.015  # 20a: the bf16 rows against the one-process mesh's (phase 17's BERT limit)
+GPT2_WIDTH = dict(vocab=50257, hidden=768, layers=12, ffn=3072)
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 32, 16  # 20c and 20d: rows, prompt and new tokens per request
+INT8_DECODE_WARNING = "decode scheduler does not support weight_quant yet — falling back to the fused whole-batch path"
+# 20c's W8A16 shapes: GPT-2-small's projections on a decode step's rows
+# (batch 8), bf16; select_body takes wgmma for every one
+GEN_INT8_SHAPES = [("gpt2_decode_qkv_m8", (1, 8, 768, 2304)), ("gpt2_decode_attn_out_m8", (1, 8, 768, 768)),
+                   ("gpt2_decode_mlp_in_m8", (1, 8, 768, 3072)), ("gpt2_decode_mlp_out_m8", (1, 8, 3072, 768))]
+
+
+def mh_pair(mode: str, extra_env: dict | None = None) -> list:
+    """Two ``chip_smoke.py --mh-child`` processes that meet through the
+    JAX package's three variables, each logging to MH_DIR."""
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        # the host's cores shared by the pair and this process: unbounded
+        # intra-op pools spin against each other (a CPU rehearsal's step
+        # took 17x longer)
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
+                   JAX_PROCESS_ID=str(rank), OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 4)),
+                   **(extra_env or {}))
+        log = open(MH_DIR / f"{mode}_rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, *MH_CHILD, "--mh-child", mode, DEVICE],
+                                       cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    return procs
+
+
+def mh_wait(procs: list, timeout: float) -> list | None:
+    """Each child's (exit code, last JSON line or None, log tail), or None
+    when the pair outlived ``timeout``; both are stopped either way."""
+    deadline = time.monotonic() + timeout
+    out: list | None = []
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        out = None
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if out is None:
+        return None
+    for rank, (p, log) in enumerate(procs):
+        text = Path(log.name).read_text()
+        last = [line for line in text.splitlines() if line.startswith("{")]
+        out.append((p.returncode, json.loads(last[-1]) if last else None, text[-3000:]))
+    return out
+
+
+def mh_child_main(argv: list) -> int:
+    """``chip_smoke.py --mh-child <mode> <device>``: one process of phase
+    20's pair. ``nccl_probe``: what NCCL says to two processes on one card;
+    ``gloo``: 20a's and 20b's work in this process. Prints its JSON last."""
+    global DEVICE
+    import torch
+    import torch.distributed as dist
+
+    mode, DEVICE = argv[0], argv[1]
+    if DEVICE == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke --mh-child: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(ROOT)
+    from seldon_core_tpu_torch.parallel import initialize_distributed
+
+    if mode == "nccl_probe":
+        t = time.perf_counter()
+        try:
+            out = {"refused": False, "backend": initialize_distributed(backend="nccl", timeout_s=45)}
+            dist.destroy_process_group()
+        except Exception as e:  # the answer the probe records
+            out = {"refused": True, "error": f"{type(e).__name__}: {e}"[:800]}
+        out["seconds"] = round(time.perf_counter() - t, 3)
+        print(json.dumps({"nccl_probe": out}), flush=True)
+        return 0
+    t = time.perf_counter()
+    if DEVICE == "cuda":
+        from seldon_core_tpu_torch.ops import kernel_build
+
+        kernel_build.build()  # the libraries phase 1 built, found by their sources' hash
+    backend = initialize_distributed()
+    out = {"backend": backend, "rank": dist.get_rank(), "seconds_to_join": round(time.perf_counter() - t, 3)}
+    t = time.perf_counter()
+    out.update(mh_forwards())
+    out["seconds_20a"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    out.update(mh_train())
+    out["seconds_20b"] = round(time.perf_counter() - t, 3)
+    print(json.dumps({"multihost": out}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _mh_bert_ids():
+    import numpy as np
+
+    return np.random.default_rng(20).integers(0, MH_BERT_VOCAB, (MH_BERT_ROWS, MH_BERT_SEQ)).astype(np.int32)
+
+
+def _mh_runtime(uri: str, mesh, rows: int, dtype: str, **extra):
+    """A warmed runtime of ``uri`` over ``mesh`` at one bucket of ``rows``
+    (this process's rows)."""
+    from seldon_core_tpu_torch.graph.spec import TpuSpec
+    from seldon_core_tpu_torch.models.zoo import build_runtime_from_uri
+
+    rt = build_runtime_from_uri(uri, TpuSpec(batch_buckets=[rows], max_batch=rows, dtype=dtype),
+                                extra_params=extra, mesh=mesh)
+    rt.warmup()
+    return rt
+
+
+def _mh_iris(mesh):
+    """iris_mlp (seed 3, float32) over ``mesh``: 20a's twin of JAX's."""
+    return _mh_runtime("zoo://iris_mlp?seed=3", mesh, mesh.size, "float32")
+
+
+def _mh_bert(mesh):
+    """bert_base_flash's model (bf16, seq 512, the flash kernel) over
+    ``mesh``, this process's share of bucket MH_BERT_ROWS."""
+    rows = MH_BERT_ROWS * mesh.shape["data"] // mesh.global_shape["data"]
+    return _mh_runtime(f"zoo://{MH_BERT_MODEL}?seq={MH_BERT_SEQ}", mesh, rows, "bfloat16", attn_kernel="pallas")
+
+
+def mh_forwards() -> dict:
+    """20a in one process of the pair: JAX's twin over {"data": 4} (two
+    positions a process: a data-axis sum of each process's rows, iris_mlp's
+    forward on them), then BERT-base bf16 over {"data": 2} (one position a
+    process), each process feeding and reading its own rows."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.parallel import distributed as dist_ops
+    from seldon_core_tpu_torch.parallel import process_mesh
+    from seldon_core_tpu_torch.parallel.collectives import psum, shard
+
+    rank, pos = dist_ops.process_index(), _positions(1)[0]
+    dist_ops.reset_counters()
+    mesh4 = process_mesh({"data": 4}, [pos, pos])
+    full = np.arange(32, dtype=np.float32).reshape(8, 4)
+    local = torch.from_numpy(full[rank * 4:(rank + 1) * 4]).to(pos)
+    total = float(psum([(x * 2.0 + 1.0).sum() for x in shard(local, mesh4, {"data": 0})], mesh4, "data")[0])
+    twin = {"sum": total, "want": float(np.sum(full * 2.0 + 1.0)), **dist_ops.counters()}
+    x = np.linspace(-1.0, 1.0, 32, dtype=np.float32).reshape(8, 4)
+    np.save(MH_DIR / f"iris_rank{rank}.npy", _mh_iris(mesh4).predict(x[rank * 4:(rank + 1) * 4]))
+    mesh2 = process_mesh({"data": 2}, [pos])
+    bert = _mh_bert(mesh2)
+    n = MH_BERT_ROWS // 2
+    before = LAUNCHES.count
+    rows = bert.predict(_mh_bert_ids()[rank * n:(rank + 1) * n])
+    flash = LAUNCHES.count - before
+    np.save(MH_DIR / f"bert_rank{rank}.npy", rows)
+    return {"twin": twin, "mesh4": repr(mesh4), "mesh2": repr(mesh2), "bert_buckets": list(bert.buckets),
+            "bert_keys_after_warmup": bert.recompiles_since_warmup(), "flash_launches": flash}
+
+
+def _mh_train_batch():
+    """20b's BERT-base float32 init and phase 19a's batch."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.bert import init_bert
+
+    params = init_bert(0, **TRAIN_BERT)
+    rng = np.random.default_rng(19)
+    x = rng.integers(0, params["tok_emb"].shape[0], (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    y = rng.integers(0, 2, (TRAIN_BATCH,)).astype(np.int32)
+    return params, x, y
+
+
+def mh_steps(mesh, params, x, y) -> tuple:
+    """TRAIN_STEPS of BERT's sharded step over {"data": 2, "model": 2}
+    (``mesh``) on these rows, phase 19a's lr: (state, losses, step ms, the
+    last step's cross-process counters, its device operations). The last
+    step runs under the profiler on the card."""
+    from seldon_core_tpu_torch.models.bert import bert_logits_factory, bert_pspecs
+    from seldon_core_tpu_torch.parallel import P
+    from seldon_core_tpu_torch.parallel import distributed as dist_ops
+    from seldon_core_tpu_torch.training.steps import adamw, make_sharded_train_step
+
+    step, state, place = make_sharded_train_step(bert_logits_factory(mesh), adamw(TRAIN_LR), mesh,
+                                                 bert_pspecs(params), batch_pspec=P("data"), init_params=params)
+    bx, by = place["x"](x), place["y"](y)
+    losses, ms, per_step, ops = [], [], {}, None
+    for i in range(TRAIN_STEPS):
+        _sync()
+        before = dist_ops.counters()
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1 and DEVICE == "cuda":
+            box = {}
+            _, ops = profile_device(lambda: box.update(m=step(state, {"x": bx, "y": by})[1]), reps=1)
+            m = box["m"]
+        else:
+            state, m = step(state, {"x": bx, "y": by})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        after = dist_ops.counters()
+        per_step = {k: {c: after[k][c] - before[k][c] for c in after[k]} for k in after}
+    return state, losses, ms, per_step, ops
+
+
+def _median(v: list) -> float:
+    return sorted(v)[len(v) // 2]
+
+
+def mh_train() -> dict:
+    """20b in one process of the pair: BERT-base float32's sharded step over
+    {"data": 2, "model": 2}, "data" across the processes and "model" over
+    two positions of the card in each, on this process's 4 rows. Rank 0
+    writes the gathered parameters to MH_DIR for the one-process check."""
+    import torch
+
+    from seldon_core_tpu_torch.models.convert import tree_map
+    from seldon_core_tpu_torch.parallel import gather_params, process_mesh
+    from seldon_core_tpu_torch.parallel import distributed as dist_ops
+
+    rank, pos = dist_ops.process_index(), _positions(1)[0]
+    params, x, y = _mh_train_batch()
+    n = TRAIN_BATCH // 2
+    mesh = process_mesh({"data": 2, "model": 2}, [pos, pos])
+    state, losses, ms, per_step, ops = mh_steps(mesh, params, x[rank * n:(rank + 1) * n], y[rank * n:(rank + 1) * n])
+    gathered = gather_params(state.params)  # every process calls it
+    if rank == 0:
+        torch.save(tree_map(lambda t: t.cpu(), gathered), MH_DIR / "train_params.pt")
+    return {"train": {"mesh": repr(mesh), "losses": losses, "step_ms": ms, "step_ms_median": _median(ms),
+                      "device_ops_per_step": ops, "per_step": per_step}}
+
+
+def mh_one_process_train() -> dict:
+    """20b's reference, here while the pair starts: the same step over the
+    one-process mesh of four positions on the card, the whole batch."""
+    from seldon_core_tpu_torch.parallel import Mesh, gather_params
+
+    params, x, y = _mh_train_batch()
+    state, losses, ms, _, ops = mh_steps(Mesh({"data": 2, "model": 2}, _positions(4)), params, x, y)
+    return {"params": params, "gathered": gather_params(state.params), "losses": losses, "step_ms_median": _median(ms),
+            "device_ops_per_step": ops}
+
+
+def mh_update_ratios(got, ref: dict) -> dict:
+    """Each leaf's update in the pair's gathered parameters against the
+    one-process step's, and an unmoved state's (which reads 1.0)."""
+    import torch
+
+    from seldon_core_tpu_torch.training.steps import tree_leaves
+
+    updates, unmoved = {}, float("inf")
+    for path, g, w, p0 in zip(leaf_paths(ref["params"]), tree_leaves(got), tree_leaves(ref["gathered"]),
+                              tree_leaves(ref["params"])):
+        p0 = torch.as_tensor(p0).to(w.device)
+        updates[path], unmoved = update_ratio(g.to(w.device), w, p0), min(unmoved, update_ratio(p0, w, p0))
+    worst = sorted(updates, key=updates.get)[-3:]
+    return {"update_ratio_worst_leaves": {k: updates[k] for k in worst}, "update_ratio_unmoved_state": unmoved}
+
+
+async def serve_multihost(card) -> dict:
+    """Phase 20a and 20b: the NCCL probe pair and the gloo pair, started
+    together; the one-process references of 20a here meanwhile."""
+    import shutil
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.parallel import Mesh
+
+    if MH_DIR.exists():
+        shutil.rmtree(MH_DIR)
+    MH_DIR.mkdir(parents=True)
+    t = time.perf_counter()
+    # NCCL with both processes on the one card (each takes card 0)
+    probe = mh_pair("nccl_probe", {"LOCAL_RANK": "0"})
+    pair = mh_pair("gloo")
+    pos = _positions(1)[0]
+    x = np.linspace(-1.0, 1.0, 32, dtype=np.float32).reshape(8, 4)
+    iris_want = _mh_iris(Mesh({"data": 4}, [pos] * 4)).predict(x)
+    bert = _mh_bert(Mesh({"data": 2}, [pos] * 2))
+    bert_want = bert.predict(_mh_bert_ids())
+    t_ref = time.perf_counter()
+    ref = mh_one_process_train()
+    ref_s = round(time.perf_counter() - t_ref, 3)
+    probed = mh_wait(probe, MH_PROBE_TIMEOUT_S)
+    nccl = ({"hung": True, "killed_after_s": MH_PROBE_TIMEOUT_S} if probed is None
+            else {f"rank{r}": (res or {}).get("nccl_probe", {"exit": rc, "log": tail[-600:]})
+                  for r, (rc, res, tail) in enumerate(probed)})
+    print(f"[{card}] 20a NCCL, two processes on one card: {json.dumps(nccl)}", flush=True)
+    got = mh_wait(pair, MH_CHILD_TIMEOUT_S)
+    if got is None:
+        raise AssertionError(f"20a/20b: the gloo pair outlived {MH_CHILD_TIMEOUT_S} s (logs in {MH_DIR})")
+    for rank, (rc, res, tail) in enumerate(got):
+        if rc != 0 or res is None:
+            raise AssertionError(f"20a/20b: child {rank} exited {rc}: {tail}")
+    kids = [res["multihost"] for _, res, _ in got]
+    iris_got = np.concatenate([np.load(MH_DIR / f"iris_rank{r}.npy") for r in range(2)])
+    bert_got = np.concatenate([np.load(MH_DIR / f"bert_rank{r}.npy") for r in range(2)])
+    iris_diff = float(np.abs(iris_got - iris_want).max())
+    bert_diff = float(np.abs(bert_got - bert_want).max())
+    a = {"backends": [k["backend"] for k in kids], "twin": [k["twin"] for k in kids],
+         "iris_max_abs_diff": iris_diff, "bert_rows": MH_BERT_ROWS, "bert_seq": MH_BERT_SEQ,
+         "bert_max_abs_diff": bert_diff, "bert_bit_for_bit": bool(np.array_equal(bert_got, bert_want)),
+         "bert_buckets_per_process": kids[0]["bert_buckets"],
+         "keys_after_warmup": [k["bert_keys_after_warmup"] for k in kids],
+         "flash_launches_per_process": [k["flash_launches"] for k in kids],
+         "one_process_buckets": list(bert.buckets), "nccl": nccl,
+         "seconds": {k: [kid[k] for kid in kids] for k in ("seconds_to_join", "seconds_20a", "seconds_20b")}}
+    print(f"[{card}] 20a two processes on one card over gloo: {json.dumps(a)}", flush=True)
+    import torch
+
+    b = dict(kids[0]["train"])
+    b.update(rank1_losses=kids[1]["train"]["losses"], rank1_step_ms_median=kids[1]["train"]["step_ms_median"],
+             one_process_losses=ref["losses"], one_process_step_ms_median=ref["step_ms_median"],
+             one_process_device_ops_per_step=ref["device_ops_per_step"], one_process_seconds=ref_s,
+             **mh_update_ratios(torch.load(MH_DIR / "train_params.pt"), ref))
+    print(f"[{card}] 20b BERT-base float32 train step, data across two processes: {json.dumps(b)}", flush=True)
+    if a["backends"] != ["gloo", "gloo"]:
+        raise AssertionError(f"20a: backends {a['backends']}, want gloo for two processes on one card")
+    if any(t["sum"] != t["want"] for t in a["twin"]) or iris_diff > 1e-5:
+        raise AssertionError(f"20a: the twin's sum {a['twin']} or iris rows ({iris_diff}) differ")
+    if (bert_diff > MH_BF16_ATOL or a["keys_after_warmup"] != [0, 0]
+            or (DEVICE == "cuda" and min(a["flash_launches_per_process"]) <= 0)):
+        raise AssertionError(f"20a: BERT-base across processes: {json.dumps(a)}")
+    np.testing.assert_allclose(b["losses"], b["one_process_losses"], rtol=TRAIN_LOSS_RTOL,
+                               err_msg="20b losses, two processes vs one")
+    if b["losses"] != b["rank1_losses"]:
+        raise AssertionError(f"20b: the processes read other losses: {b['losses']} vs {b['rank1_losses']}")
+    worst = max(b["update_ratio_worst_leaves"].values())
+    if not worst <= TRAIN_UPDATE_RTOL or b["update_ratio_unmoved_state"] != 1.0:
+        raise AssertionError(f"20b updates: worst leaf {worst} (limit {TRAIN_UPDATE_RTOL}), unmoved state "
+                             f"{b['update_ratio_unmoved_state']} (want 1.0)")
+    if b["per_step"]["cross_process_calls"]["all_reduce"] <= 0:
+        raise AssertionError(f"20b: no all-reduce crossed the processes: {b['per_step']}")
+    return {"20a": a, "20b": b, "seconds_20ab": round(time.perf_counter() - t, 3),
+            "flash_launches": sum(a["flash_launches_per_process"])}
+
+
+def int8_generate(card) -> dict:
+    """20c: GPT-2-small width on int8 weights, bf16, through the fused
+    ``generate`` (captured at bucket 8): its ids against the same generate
+    on W8A16's plain version on the card under the tie rule, W8A16 launches
+    per token by body, ms per token against the runtime without
+    ``weight_quant``, resident bytes; the W8A16 kernel at the decode
+    step's shapes; then ``tiny_gpt`` served with ``decode_slots`` and
+    ``weight_quant`` takes the fused path with JAX's warning."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.graph.spec import TpuSpec
+    from seldon_core_tpu_torch.models import decoder
+    from seldon_core_tpu_torch.models.zoo import _runtime_from_modelspec, get_model
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
+
+    dev = _positions(1)[0]
+    ms_ = get_model("tiny_gpt", **GPT2_WIDTH, seq=GEN_PROMPT, max_new_tokens=GEN_NEW, max_len=GEN_PROMPT + GEN_NEW)
+    tpu = lambda quant: TpuSpec(dtype="bfloat16", batch_buckets=[GEN_BATCH], max_batch=GEN_BATCH,  # noqa: E731
+                                weight_quant=quant)
+    quant, plain_rt = _runtime_from_modelspec(ms_, tpu("int8"), dev), _runtime_from_modelspec(ms_, tpu(""), dev)
+    for rt in (quant, plain_rt):
+        rt.warmup()
+    ids = np.random.default_rng(21).integers(0, GPT2_WIDTH["vocab"], (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    before = {b: c.count for b, c in i8.LAUNCHES_BY_BODY.items()}
+    served = quant.predict(ids)
+    by_body = {b: c.count - before[b] for b, c in i8.LAUNCHES_BY_BODY.items()}
+    launches = sum(by_body.values())
+    with patched(i8, "int8_matmul", i8.int8_matmul_reference), torch.inference_mode():
+        ref = decoder.generate(quant.params, torch.from_numpy(ids).to(dev), GEN_NEW).cpu().numpy()
+        ties = tie_rule("20c int8 generate vs W8A16's plain version", served, ref, quant.params, GEN_PROMPT,
+                        "bfloat16")
+    ms_q, ms_f = wall_ms(lambda: quant.predict(ids)), wall_ms(lambda: plain_rt.predict(ids))
+    unquantized_ids = plain_rt.predict(ids)
+    row = {"width": GPT2_WIDTH, "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+           "ids_equal_plain_version": bool(np.array_equal(served, ref)), "tie_rows": ties,
+           "generated_equal_unquantized": float(np.mean(served[:, GEN_PROMPT:] == unquantized_ids[:, GEN_PROMPT:])),
+           "launches_per_generate": launches, "launches_by_body": by_body,
+           "launches_per_token_by_body": {b: n / GEN_NEW for b, n in by_body.items()},
+           "ms_per_token": ms_q / GEN_NEW, "unquantized_ms_per_token": ms_f / GEN_NEW,
+           "param_bytes": quant.param_bytes(), "unquantized_param_bytes": plain_rt.param_bytes(),
+           "keys_after_warmup": [quant.recompiles_since_warmup(), plain_rt.recompiles_since_warmup()]}
+    print(f"[{card}] 20c int8 GPT-2-small width, fused generate: {json.dumps(row)}", flush=True)
+    want = GPT2_WIDTH["layers"] * 4 * GEN_NEW  # qkv, attn_out, mlp_in, mlp_out a layer, each pass
+    if launches != want or by_body["wgmma"] != want or row["keys_after_warmup"] != [0, 0]:
+        raise AssertionError(f"20c: {launches} W8A16 launches by body {by_body} (want {want} wgmma), keys "
+                             f"{row['keys_after_warmup']}")
+    if DEVICE == "cuda":
+        row["kernel_rows"] = {name: check_int8((f"{name}_bfloat16", shape, torch.bfloat16, False, "wgmma"), card)
+                              for name, shape in GEN_INT8_SHAPES}
+    # tiny_gpt with decode_slots and weight_quant: the fused path, warned
+    seen: list = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logger = logging.getLogger("seldon_core_tpu_torch.serving.decode_scheduler")
+    logger.addHandler(handler)
+    try:
+        served_tiny = asyncio.run(_serve_int8_decode_slots())
+    finally:
+        logger.removeHandler(handler)
+    row["decode_slots_with_int8"] = {**served_tiny, "warned": INT8_DECODE_WARNING in seen}
+    print(f"[{card}] 20c tiny_gpt with decode_slots and weight_quant: "
+          f"{json.dumps(row['decode_slots_with_int8'])}", flush=True)
+    if not row["decode_slots_with_int8"]["warned"] or served_tiny["scheduler"] or served_tiny["keys_after_warmup"]:
+        raise AssertionError(f"20c: decode_slots with weight_quant: {row['decode_slots_with_int8']}")
+    row["launches"] = launches + served_tiny["int8_launches"]
+    return row
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _gen_predictor(tpu: dict, **params):
+    from seldon_core_tpu_torch.graph.spec import SeldonDeployment
+
+    unit = [{"name": "model", "value": "tiny_gpt", "type": "STRING"},
+            *({"name": k, "value": str(v), "type": "INT"} for k, v in params.items())]
+    return SeldonDeployment.from_dict({"spec": {"name": "gen", "predictors": [{
+        "name": "p", "graph": {"name": "gpt", "type": "MODEL", "implementation": "JAX_MODEL", "parameters": unit},
+        "tpu": tpu}]}}).spec.predictors[0]
+
+
+async def _serve_int8_decode_slots() -> dict:
+    import numpy as np
+
+    from seldon_core_tpu_torch.core.codec_json import message_from_dict
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
+    from seldon_core_tpu_torch.serving.server import PredictorServer
+
+    pred = _gen_predictor({"dtype": "bfloat16", "max_batch": 2, "batch_buckets": [2], "weight_quant": "int8",
+                           "decode_slots": 2}, seq=16, max_new_tokens=8)
+    server = PredictorServer(pred, device=DEVICE, enable_batching=False)
+    server.warmup()
+    runtime = server.executor.root.unit.runtime
+    ids = np.random.default_rng(22).integers(0, 512, (2, 16))
+    before = i8.LAUNCHES.count
+    out = np.asarray((await server.executor.execute(message_from_dict({"data": {"ndarray": ids.tolist()}}))).array)
+    launched = i8.LAUNCHES.count - before
+    await server.stop()
+    if out.shape != (2, 24) or launched <= 0:
+        raise AssertionError(f"20c: tiny_gpt int8 answered {out.shape} with {launched} W8A16 launches")
+    return {"scheduler": server.decode_scheduler is not None, "weight_quant": runtime.weight_quant,
+            "ids_shape": list(out.shape), "int8_launches": launched,
+            "keys_after_warmup": runtime.recompiles_since_warmup()}
+
+
+async def generative_mesh(card) -> dict:
+    """20d: GPT-2-small width (bf16) served over {"data": 2, "model": 2},
+    four positions of the one card given as ``mesh_devices``, beside the
+    same deployment on one device: greedy ids under the tie rule for a full
+    bucket and a padded one, 0 keys after warmup on both."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.core.codec_json import message_from_dict
+    from seldon_core_tpu_torch.serving.server import PredictorServer
+
+    params = dict(**GPT2_WIDTH, seq=GEN_PROMPT, max_new_tokens=GEN_NEW, max_len=GEN_PROMPT + GEN_NEW)
+    tpu = {"dtype": "bfloat16", "max_batch": GEN_BATCH, "batch_buckets": [GEN_BATCH]}
+    mesh_srv = PredictorServer(_gen_predictor({**tpu, "mesh": {"data": 2, "model": 2}}, **params), device=DEVICE,
+                               enable_batching=False, mesh_devices=_positions(4))
+    one_srv = PredictorServer(_gen_predictor(tpu, **params), device=DEVICE, enable_batching=False)
+    for srv in (mesh_srv, one_srv):
+        srv.warmup()
+    mesh_rt, one_rt = (s.executor.root.unit.runtime for s in (mesh_srv, one_srv))
+    rng = np.random.default_rng(23)
+    ties, rows = [], 0
+    for n in (GEN_BATCH, 5):
+        body = {"data": {"ndarray": rng.integers(0, GPT2_WIDTH["vocab"], (n, GEN_PROMPT)).tolist()}}
+        got = np.asarray((await mesh_srv.executor.execute(message_from_dict(body))).array).astype(np.int64)
+        want = np.asarray((await one_srv.executor.execute(message_from_dict(body))).array).astype(np.int64)
+        ties += tie_rule("20d mesh vs one device", got, want, one_rt.params, GEN_PROMPT, "bfloat16")
+        rows += n
+    row = {"mesh": mesh_rt.mesh.shape, "positions": mesh_rt.mesh.size, "distinct_devices": mesh_rt.mesh.n_devices,
+           "apply": mesh_rt.apply_fn.name, "buckets": list(mesh_rt.buckets), "rows": rows, "tie_rows": ties,
+           "param_bytes": mesh_rt.param_bytes(), "one_device_param_bytes": one_rt.param_bytes(),
+           "keys_after_warmup": [mesh_rt.recompiles_since_warmup(), one_rt.recompiles_since_warmup()]}
+    print(f"[{card}] 20d GPT-2-small width over {{'data': 2, 'model': 2}}: {json.dumps(row)}", flush=True)
+    for srv in (mesh_srv, one_srv):
+        await srv.stop()
+    if row["keys_after_warmup"] != [0, 0] or row["buckets"] != [GEN_BATCH]:
+        raise AssertionError(f"20d: {json.dumps(row)}")
+    return row
+
+
+def serve_phase20(card) -> dict:
+    """Phase 20: meshes across OS processes (20a, 20b), int8 weights on a
+    generative model (20c), a generative model on a mesh (20d)."""
+    from seldon_core_tpu_torch.ops import int8_matmul
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+
+    gc.unfreeze()
+    out = asyncio.run(serve_multihost(card))
+    t = time.perf_counter()
+    out["20c"] = int8_generate(card)
+    out["seconds_20c"] = round(time.perf_counter() - t, 3)
+    t = time.perf_counter()
+    flash, int8 = LAUNCHES.count, int8_matmul.LAUNCHES.count
+    out["20d"] = asyncio.run(generative_mesh(card))
+    if (LAUNCHES.count - flash, int8_matmul.LAUNCHES.count - int8) != (0, 0):
+        raise AssertionError("20d: a bf16 GPT-2-small at seq 32 launched a hand-written kernel")
+    out["seconds_20d"] = round(time.perf_counter() - t, 3)
+    return out
+
+
 F32_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_route", "bounds_ms", "library_ms")
 
 
@@ -9814,6 +10356,18 @@ def main() -> int:
     train_out = asyncio.run(serve_training_mesh(card))
     print(f"[{card}] phase 19 seconds: {time.perf_counter() - t19:.3f}", flush=True)
 
+    # 20. meshes across OS processes (two processes on the one card), int8
+    # weights on a generative model, a generative model on a mesh
+    t20 = time.perf_counter()
+    int8_before = int8_matmul.LAUNCHES.count
+    phase20 = serve_phase20(card)
+    mh_flash = phase20["flash_launches"]  # in the pair's processes, on their main paths
+    gen_int8 = phase20["20c"]["launches"]
+    print(f"[{card}] phase 20 flash_attention launches: {mh_flash} (per process "
+          f"{phase20['20a']['flash_launches_per_process']}); int8_matmul launches: {gen_int8} "
+          f"({int8_matmul.LAUNCHES.count - int8_before} with the kernel checks)", flush=True)
+    print(f"[{card}] phase 20 seconds: {time.perf_counter() - t20:.3f}", flush=True)
+
     main = rows["bert_base_b8_views"]  # the layout the served forward hands the kernel
     dag = rows["dag_seq128_b64_views"]
     prefill_row = rows["decoder_prefill_views"]
@@ -9824,7 +10378,7 @@ def main() -> int:
         "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
         "launches": bert_launches + dag_launches + decoder_launches + spec_launches + pipeline_launches
         + learning_launches + source_launches + split_launches + grpc_launches + platform_flash + twins_flash
-        + tools_flash + mesh_flash + tp_flash,
+        + tools_flash + mesh_flash + tp_flash + mh_flash,
         "launches_by_path": {"bert_base_flash (phase 3)": bert_launches, "full_dag_bert (phase 4)": dag_launches,
                              "gpt2_small_long_prompt (phase 5)": decoder_launches,
                              "speculative deployments (phase 6)": spec_launches,
@@ -9838,7 +10392,9 @@ def main() -> int:
                              "platform's standalone twins (phase 15)": twins_flash,
                              "soak (phase 16, its own process)": tools_flash,
                              "tensor-parallel BERT-base over {'model': 4} (phase 17c)": mesh_flash,
-                             **tp_out["flash_by_path"]},
+                             **tp_out["flash_by_path"],
+                             "BERT-base over {'data': 2} across two processes (phase 20a, their processes)":
+                                 mh_flash},
         "warmup_launches_apart": {"soak's two servers (phase 16)": tools_out["warmup_launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
@@ -9883,14 +10439,16 @@ def main() -> int:
                   "gRPC (phase 14)": grpc_plane["launches"]["int8_matmul"],
                   "platform (phase 15)": platform_int8,
                   "platform's standalone twins (phase 15)": twins_int8,
-                  "int8 BERT-base over {'model': 4} (phase 18c)": tp_int8}
+                  "int8 BERT-base over {'model': 4} (phase 18c)": tp_int8,
+                  "int8 GPT-2-small width generate and tiny_gpt with decode_slots (phase 20c)": gen_int8}
     # by body, on the paths that count them: phase 7c's two deployments, the
     # HF copy (11), the platform with its twins (15) and the "model" axis
     # (18c); the head takes splitk on each, the float32 projections tf32x2
     by_body_paths = {"bert_int8 (phase 7)": int8_by_body, "bert_int8 float32 (phase 7)": int8_f32_by_body,
                      "model sources (phase 11)": sources["bert_base_hf_int8_by_body"],
                      "platform with its twins (phase 15)": platform_out["launches"]["int8_by_body_with_standalone"],
-                     "int8 BERT-base over {'model': 4} (phase 18c)": tp_out["int8_by_body"]}
+                     "int8 BERT-base over {'model': 4} (phase 18c)": tp_out["int8_by_body"],
+                     "int8 GPT-2-small width generate (phase 20c)": phase20["20c"]["launches_by_body"]}
     kernels.append({
         "name": "int8_matmul",
         "route": "cuda",
@@ -9906,6 +10464,9 @@ def main() -> int:
         "launch_floor_ms": int8_rows["launch_floor_ms"],
         **{k: int8_main[k] for k in int8_keys},
         **{name: {k: int8_rows[name][k] for k in int8_keys} for name in sorted(served)},
+        # GPT-2-small's projections on a decode step's rows (phase 20c)
+        **{name: {k: row[k] for k in int8_keys}
+           for name, row in phase20["20c"].get("kernel_rows", {}).items()},
     })
     # the two bodies this slice redesigned, each with its own launches on the
     # paths and the row of the shape it serves there
@@ -9939,6 +10500,9 @@ def main() -> int:
     print(json.dumps({"tensor_parallel_decode": {"card": card, **{k: v for k, v in tp_out.items() if k != "kernel"}}}),
           flush=True)
     print(json.dumps({"training_mesh": {"card": card, **train_out}}), flush=True)
+    print(json.dumps({"phase20": {"card": card, **{k: v for k, v in phase20.items() if k != "20c"},
+                                  "20c": {k: v for k, v in phase20["20c"].items() if k != "kernel_rows"}}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
@@ -9952,4 +10516,6 @@ if __name__ == "__main__":
         sys.exit(grpc_load_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-soak"]:
         sys.exit(tp_soak_main())
+    if sys.argv[1:2] == ["--mh-child"]:
+        sys.exit(mh_child_main(sys.argv[2:]))
     sys.exit(main())

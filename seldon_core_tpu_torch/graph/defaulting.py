@@ -12,9 +12,7 @@ Port of ``seldon_core_tpu/graph/defaulting.py``:
 ``seldon_core_tpu/parallel/mesh.py::mesh_from_spec``, which the server
 applies to the mesh it is asked for. The rules a defaulted deployment is
 held to live in ``graph/validation.py`` (``spec_problems`` and
-``decode_problems`` are re-exported here for their older callers). A
-generative model with ``weight_quant`` is refused by name where the model
-is built (``models/zoo.py``): only the build knows the model decodes.
+``decode_problems`` are re-exported here for their older callers).
 """
 
 from __future__ import annotations

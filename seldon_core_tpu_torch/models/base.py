@@ -40,7 +40,10 @@ apply run on each data lead). Where every position is on one device the
 whole sharded forward is captured once per bucket, as above; one graph
 cannot span cards, so a mesh over distinct cards runs eagerly, logged at
 build and marked ``mesh_eager`` on every request's span (``Mesh.describe``).
-With ``weight_quant="int8"`` the
+On a mesh whose "data" axis spans processes (``parallel/mesh.py::
+process_mesh``) a runtime takes this process's rows and returns them, as a
+JAX program over process-local data does: its buckets round up to the
+data positions this process holds. With ``weight_quant="int8"`` the
 partition rule is mirrored onto the quantized leaves
 (``quant.quantized_pspecs``): a position holds its shard of each int8
 payload, as a contiguous copy, and the scales of its own columns.
@@ -206,6 +209,8 @@ class ModelRuntime:
         if mesh is None:
             self.params = params_to_torch(params, self.device, dtype, layout)
         else:
+            # over processes: each process's rows in, its rows out
+            mesh.check_data_only("a model runtime")
             if not isinstance(apply_fn, MeshApply):
                 self.apply_fn = data_parallel(apply_fn, mesh)
             self.params = params if isinstance(params, PositionParams) else place_params(

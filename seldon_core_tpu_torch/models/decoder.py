@@ -27,6 +27,19 @@ What changes in the port:
   speculative round draws its proposals and its acceptance from two other
   streams of the same tick (the JAX package's ``fold_in(key, 1)`` and
   ``fold_in(key, 2)``), each stream's draws in a fixed order.
+
+Int8 weights (``tpu.weight_quant="int8"``, ``models/quant.py``) reach the
+fused ``generate`` and every function it calls: a quantized projection goes
+through the W8A16 kernel (``ops/int8_matmul.py``), which forms each weight
+as the JAX package's ``dequantize`` does; a quantized embedding table
+(``tok_emb`` up to 8192 rows, ``pos_emb``) gives the rows it gathers
+dequantized, the values JAX gathers from the table ``dequantize`` returns.
+The weight-tied head over a quantized ``tok_emb`` cannot take W8A16: the
+table's per-column scale runs along the head's K (hidden), and the kernel
+scales along N. It dequantizes the table in float32, casts it, and takes a
+plain product, as JAX computes that product on ``dequantize(tok_emb)``
+outside any kernel. The decode scheduler does not take int8 weights, as in
+the JAX package (``serving/decode_scheduler.py::scheduler_for_executor``).
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from seldon_core_tpu_torch.models.quant import dequantize, embed, is_quantized_leaf, payload
 from seldon_core_tpu_torch.parallel import tp as tp_mod
 from seldon_core_tpu_torch.parallel.collectives import _on as _to
 from seldon_core_tpu_torch.parallel.tp import Placed, TPLayer, TPParams, kv_placed
@@ -117,8 +131,23 @@ def _heads_for(hidden: int) -> int:
     return max(1, hidden // 64) if hidden >= 64 else 2
 
 
+def _tensor(leaf) -> torch.Tensor:
+    """A leaf's tensor: a quantized leaf's int8 payload (its shape and
+    device are the leaf's)."""
+    return payload(leaf) if is_quantized_leaf(leaf) else leaf
+
+
+def _device(params) -> torch.device:
+    return _tensor(params["tok_emb"]).device
+
+
+def _compute_dtype(params) -> torch.dtype:
+    """The runtime's dtype: a norm vector is never quantized."""
+    return params["ln_f"]["scale"].dtype
+
+
 def _heads(params: dict) -> int:
-    return _heads_for(params["layers"][0]["qkv"]["w"].shape[0])
+    return _heads_for(_tensor(params["layers"][0]["qkv"]["w"]).shape[0])
 
 
 def _split_heads(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -142,6 +171,10 @@ def _causal_attention(q, k, v):
 
 
 def _proj(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if is_quantized_leaf(p["w"]):
+        from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
+
+        return int8_matmul(x, payload(p["w"]), p["w"]["scale"], p["b"])
     return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
 
 
@@ -222,19 +255,34 @@ def _layer_step(p, x, cache_k, cache_v, pos: int, h):
     return _close(p, x, _attend(q, cache_k, cache_v, valid, x.dtype)), cache_k, cache_v
 
 
+def _rows(params, name: str, idx):
+    """Rows ``idx`` (ids or a slice) of embedding table ``name``; a
+    quantized table's rows dequantized to the runtime's dtype
+    (``quant.embed``)."""
+    table = params[name]
+    return embed(table, idx, _compute_dtype(params)) if is_quantized_leaf(table) else table[idx]
+
+
 def _embed(params, ids, pos_offset: int = 0):
-    h = params["tok_emb"][ids]
-    return h + params["pos_emb"][pos_offset : pos_offset + ids.shape[1]][None, :, :]
+    h = _rows(params, "tok_emb", ids)
+    return h + _rows(params, "pos_emb", slice(pos_offset, pos_offset + ids.shape[1]))[None, :, :]
 
 
 def _embed_one(params, tok: torch.Tensor, pos: int) -> torch.Tensor:
     """tok: [b, 1] -> [b, 1, d] with the position-``pos`` embedding."""
-    return params["tok_emb"][tok] + params["pos_emb"][pos : pos + 1][None, :, :]
+    return _rows(params, "tok_emb", tok) + _rows(params, "pos_emb", slice(pos, pos + 1))[None, :, :]
 
 
-def _logits(params, x):
+def _tied_head(params, dtype) -> torch.Tensor:
+    """The weight-tied head's [vocab, d] table in ``dtype``: a quantized
+    ``tok_emb`` dequantized in float32, then cast (``quant.dequantize``)."""
+    return dequantize(params["tok_emb"], dtype).to(dtype)
+
+
+def _logits(params, x, head: torch.Tensor | None = None):
     x = _ln(params["ln_f"], x)
-    return x @ params["tok_emb"].t().to(x.dtype)  # weight-tied head
+    head = _tied_head(params, x.dtype) if head is None else head
+    return x @ head.t()  # weight-tied head
 
 
 def _long(ids) -> torch.Tensor:
@@ -247,12 +295,12 @@ def generate(params: dict, ids: torch.Tensor, max_new_tokens: int) -> torch.Tens
     Prefill fills the KV caches in one causal pass; then ``max_new_tokens -
     1`` single-token steps run against the static caches (the first token
     comes from prefill), written in place. No step reads back to the host."""
-    dev = params["tok_emb"].device
+    dev = _device(params)
     ids = _long(ids).to(dev)
     b, s = ids.shape
     heads = _heads(params)
     max_ctx = s + max_new_tokens
-    max_len = params["pos_emb"].shape[0]
+    max_len = _tensor(params["pos_emb"]).shape[0]
     if max_ctx > max_len:
         raise ValueError(
             f"prompt {s} + max_new_tokens {max_new_tokens} exceeds the "
@@ -267,13 +315,14 @@ def generate(params: dict, ids: torch.Tensor, max_new_tokens: int) -> torch.Tens
         x, k, v = _layer_prefill(lp, x, heads)
         cache_k[li, :, :, :s] = k
         cache_v[li, :, :, :s] = v
-    tok = torch.argmax(_logits(params, x[:, -1:, :]), dim=-1)  # [b, 1]
+    head = _tied_head(params, x.dtype)  # once, not per token
+    tok = torch.argmax(_logits(params, x[:, -1:, :], head), dim=-1)  # [b, 1]
     gen = [tok]
     for pos in range(s, s + max_new_tokens - 1):
         x = _embed_one(params, tok, pos)
         for li, lp in enumerate(params["layers"]):
             x, _, _ = _layer_step(lp, x, cache_k[li], cache_v[li], pos, heads)
-        tok = torch.argmax(_logits(params, x), dim=-1)
+        tok = torch.argmax(_logits(params, x, head), dim=-1)
         gen.append(tok)
     return torch.cat([ids, *gen], dim=1).to(torch.int32)
 
@@ -288,22 +337,22 @@ def generate(params: dict, ids: torch.Tensor, max_new_tokens: int) -> torch.Tens
 
 def decoder_dims(params: dict) -> dict:
     """Static geometry the scheduler sizes its cache from."""
-    hidden = params["layers"][0]["qkv"]["w"].shape[0]
+    hidden = _tensor(params["layers"][0]["qkv"]["w"]).shape[0]
     heads = _heads(params)
     return {
         "layers": len(params["layers"]),
         "heads": heads,
         "hidden": hidden,
         "head_dim": hidden // heads,
-        "vocab": params["tok_emb"].shape[0],
-        "max_len": params["pos_emb"].shape[0],
+        "vocab": _tensor(params["tok_emb"]).shape[0],
+        "max_len": _tensor(params["pos_emb"]).shape[0],
     }
 
 
 def prefill(params: dict, ids) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One causal pass over prompts ids[b, s] -> (logits[b, vocab],
     k[L, b, h, s, hd], v[L, b, h, s, hd])."""
-    ids = _long(ids).to(params["tok_emb"].device)
+    ids = _long(ids).to(_device(params))
     heads = _heads(params)
     x = _embed(params, ids)
     ks, vs = [], []

@@ -29,10 +29,13 @@ apply on each data lead. ``moe_mlp`` and ``pipe_mlp`` draw their dense
 layers with ``jax.random`` in the JAX package and with numpy here (as the
 small models above do); ``init_moe`` is the JAX package's numpy draw.
 A ``finetune`` unit trains over whatever mesh it serves on
-(``models/online.py``). A generative model on a ``tpu.mesh`` with an axis
-other than "data" is refused by name (decode shards over
-``tpu.decode_mesh_axes``, ``parallel/tp.py``); on a data-only mesh it
-serves on the first position, with a warning.
+(``models/online.py``). A generative model (``tiny_gpt``, no
+``param_pspecs``) serves its fused ``generate`` on any ``tpu.mesh`` as the
+JAX package runs it: parameters replicated, the batch split over the
+"data" leads, other axes replicated, buckets rounded up to the data axis's
+multiple; tensor-parallel decode is ``tpu.decode_mesh_axes``
+(``parallel/tp.py``). With ``tpu.weight_quant="int8"`` a generative model
+serves on int8 weights (``models/decoder.py``), through the fused path.
 """
 
 from __future__ import annotations
@@ -60,7 +63,6 @@ from seldon_core_tpu_torch.graph.spec import (
 from seldon_core_tpu_torch.models.base import ModelRuntime, ModelUnit
 from seldon_core_tpu_torch.models.quant import is_quantized_leaf, payload
 from seldon_core_tpu_torch.ops.int8_matmul import int8_matmul
-from seldon_core_tpu_torch.parallel.mesh import DATA_AXIS
 from seldon_core_tpu_torch.parallel.pipeline import stage_of
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -496,26 +498,6 @@ def _runtime_from_modelspec(ms: ModelSpec, tpu_cfg, device=None, cuda_graphs: bo
     if dtype_name not in DTYPES:
         raise ValueError(f"tpu.dtype must be one of {sorted(DTYPES)}, got {dtype_name!r}")
     weight_quant = getattr(tpu_cfg, "weight_quant", "")
-    if weight_quant and ms.generative is not None:
-        # the JAX package's decode scheduler does not take int8 weights
-        # either (it falls back to the fused path); the fused int8 generate
-        # is not ported yet
-        raise ValueError(
-            f"tpu.weight_quant={weight_quant!r} on a generative model is not part of the torch port yet"
-        )
-    if mesh is not None and ms.generative is not None:
-        if any(size > 1 for axis, size in mesh.shape.items() if axis != DATA_AXIS):
-            raise ValueError(
-                f"a generative model on tpu.mesh {mesh.shape} is not part of the torch port yet (tensor-parallel "
-                "decode is tpu.decode_mesh_axes, parallel/tp.py)"
-            )
-        # a data-only mesh (the default {"data": cards} on a host of several
-        # cards): decode serves on the first position, as before meshes
-        logging.getLogger(__name__).warning(
-            "generative model: tpu.mesh %s is served on one device, %s (decode shards over "
-            "tpu.decode_mesh_axes instead)",
-            mesh.shape, mesh.positions[0])
-        device, mesh = mesh.positions[0], None
     apply_fn = ms.apply_fn
     if mesh is not None and ms.apply_factory is not None:
         apply_fn = ms.apply_factory(mesh)

@@ -1,7 +1,9 @@
-"""Meshes of device positions driven by one process: the mesh, the
-collectives between positions, the pipeline schedule and decode tensor
-parallelism (port of ``seldon_core_tpu/parallel``; ``initialize_distributed``
-is not ported yet)."""
+"""Meshes of device positions: the mesh, the collectives between positions,
+the pipeline schedule and decode tensor parallelism (port of
+``seldon_core_tpu/parallel``). One process drives a mesh's positions; with
+``initialize_distributed`` (``torch.distributed`` booted from the JAX
+package's variables) a ``process_mesh`` spans OS processes, each driving
+its own positions, and the collectives cross between them."""
 
 from seldon_core_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -14,9 +16,11 @@ from seldon_core_tpu_torch.parallel.mesh import (
     Packed,
     PositionParams,
     gather_params,
+    initialize_distributed,
     local_cards,
     mesh_from_spec,
     place_params,
+    process_mesh,
     serving_positions,
     sum_replica_grads,
 )
@@ -40,9 +44,11 @@ __all__ = [
     "Packed",
     "PositionParams",
     "gather_params",
+    "initialize_distributed",
     "local_cards",
     "mesh_from_spec",
     "place_params",
+    "process_mesh",
     "serving_positions",
     "sum_replica_grads",
     "decode_mesh_problems",

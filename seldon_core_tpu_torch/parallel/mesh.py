@@ -1,4 +1,4 @@
-"""Device meshes and axis conventions, driven by one process.
+"""Device meshes and axis conventions, driven by one process or several.
 
 Port of ``seldon_core_tpu/parallel/mesh.py``. The JAX package's mesh is
 single-controller: one serving process builds a ``jax.sharding.Mesh`` and
@@ -39,7 +39,21 @@ so every copy takes the same update. ``gather_params`` is the way back: the
 full tree (BERT's packed q|k|v slabs put back in place) from the blocks the
 positions hold.
 
-``initialize_distributed`` (multi-host) is not ported yet.
+Across OS processes (the JAX package's multi-host mesh): the processes
+join one ``torch.distributed`` world with ``initialize_distributed``
+(``parallel/distributed.py``: the JAX package's three variables, gloo or
+NCCL), and ``process_mesh`` lays every process's positions out
+rank-major. Each process drives its own block of positions: the mesh it
+holds is that block (``shape``, ``positions``, ``groups`` and ``leads`` are
+local), its placement keys name blocks of the global leaf
+(``global_coord``), and a collective along an axis that spans processes
+crosses them through that axis's process group. A process feeds and reads
+only its own rows, as ``jax.make_array_from_process_local_data`` has it;
+``sum_replica_grads`` all-reduces each block over the processes that hold
+a copy. The runtime, the train step and ``gather_params`` take meshes
+where only "data" crosses processes, so that each process holds every
+block (``Mesh.check_data_only``); the server serves the mesh its own
+positions hold (``serving/server.py::refuse_spanning_mesh``).
 """
 
 from __future__ import annotations
@@ -52,6 +66,14 @@ import torch
 
 from seldon_core_tpu_torch.graph.defaulting import mesh_from_spec as mesh_axes_for
 from seldon_core_tpu_torch.models.quant import is_quantized_leaf, quantized_leaf_spec
+from seldon_core_tpu_torch.parallel.distributed import (  # noqa: F401 - initialize_distributed re-exported
+    all_gather_object,
+    initialize_distributed,
+    process_count,
+    process_group,
+    process_index,
+    reduce_sum,
+)
 
 log = logging.getLogger(__name__)
 
@@ -75,47 +97,127 @@ class Mesh:
     """Axis names and sizes over a row-major array of device positions.
     Hashable and compared by value, so applies memoised per mesh (as the
     JAX package memoises them per ``jax.sharding.Mesh``) are shared by two
-    builds over the same positions."""
+    builds over the same positions.
 
-    def __init__(self, axes: Mapping[str, int], positions: Sequence[Any]):
+    Positions may live in several processes (``process_mesh``): ``owners``
+    names each global position's process, rank-major as ``jax.devices()``
+    orders a multi-process slice. The mesh is then this process's view:
+    ``shape``, ``positions``, ``coord``, ``groups`` and ``leads`` describe
+    the positions it drives (a block of the global array), and
+    ``global_shape`` with ``global_coord`` the whole. An axis that spans
+    processes (``procs[axis] > 1``) adds a collective across them to
+    ``parallel/collectives.py``'s ops along it, through the process group of
+    ``process_group(axis)``; every such group is made at build, on every
+    process, in one order."""
+
+    def __init__(self, axes: Mapping[str, int], positions: Sequence[Any], owners: Sequence[int] | None = None):
         self.axis_names = tuple(str(a) for a in axes)
-        self.shape = {str(a): int(s) for a, s in axes.items()}
-        self.positions = tuple(normalize_device(d) for d in positions)
-        if len(self.positions) != math.prod(self.shape.values()):
-            raise ValueError(f"mesh {self.shape} needs {math.prod(self.shape.values())} positions, "
-                             f"got {len(self.positions)}")
+        self.global_shape = {str(a): int(s) for a, s in axes.items()}
+        self.global_positions = tuple(normalize_device(d) for d in positions)
+        total = math.prod(self.global_shape.values())
+        if len(self.global_positions) != total:
+            raise ValueError(f"mesh {self.global_shape} needs {total} positions, "
+                             f"got {len(self.global_positions)}")
+        self.owners = tuple(int(r) for r in owners) if owners is not None else None
+        if self.owners is not None and len(self.owners) != total:
+            raise ValueError(f"{len(self.owners)} owners for {total} positions")
+        self.n_procs = len(set(self.owners)) if self.owners is not None else 1
+        self.rank = process_index() if self.n_procs > 1 else 0
+        if self.n_procs > 1:
+            local = [i for i, r in enumerate(self.owners) if r == self.rank]
+            self.shape = _local_block(self.global_shape, local)
+        else:
+            local = list(range(total))
+            self.shape = dict(self.global_shape)
+        self.procs = {a: self.global_shape[a] // self.shape[a] for a in self.axis_names}
+        self.positions = tuple(self.global_positions[i] for i in local)
         self.size = len(self.positions)
         self.devices = tuple(dict.fromkeys(self.positions))  # distinct, in first-use order
         self.n_devices = len(self.devices)
-        self._strides = {}
-        stride = 1
-        for a in reversed(self.axis_names):
-            self._strides[a] = stride
-            stride *= self.shape[a]
+        self._strides = _strides(self.axis_names, self.shape)
+        self._global_strides = _strides(self.axis_names, self.global_shape)
+        first = local[0]
+        self.proc_coord = {a: (first // self._global_strides[a]) % self.global_shape[a] // self.shape[a]
+                           for a in self.axis_names}
+        self._groups: dict[str, tuple[Any, list[int]]] = {}
+        if self.n_procs > 1:
+            self._make_process_groups()
+
+    def _rank_at(self, proc_coord: Mapping[str, int]) -> int:
+        """The process that drives the block at these process coordinates."""
+        index = sum(proc_coord[a] * self.shape[a] * self._global_strides[a] for a in self.axis_names)
+        return self.owners[index]
+
+    def _make_process_groups(self) -> None:
+        """One process group per axis that spans processes (per block of
+        the other spanning axes): every process makes each, in one order."""
+        import itertools
+
+        spanning = [a for a in self.axis_names if self.procs[a] > 1]
+        for axis in spanning:
+            rest = [a for a in spanning if a != axis]
+            for fixed in itertools.product(*(range(self.procs[a]) for a in rest)):
+                base = {**dict.fromkeys(self.axis_names, 0), **dict(zip(rest, fixed))}
+                ranks = [self._rank_at({**base, axis: i}) for i in range(self.procs[axis])]
+                group = process_group(ranks)
+                if self.rank in ranks:
+                    self._groups[axis] = (group, ranks)
+
+    def spans(self, axis: str) -> bool:
+        """Whether ``axis`` spans processes."""
+        return self.procs.get(axis, 1) > 1
+
+    def process_group(self, axis: str) -> tuple[Any, list[int]]:
+        """(group, its ranks in axis order) of the processes that differ from
+        this one only along ``axis`` (which spans processes)."""
+        return self._groups[axis]
+
+    def check_data_only(self, what: str) -> None:
+        """Refuse, by name, a process mesh where an axis other than "data"
+        spans processes: ``what`` takes each process's own rows."""
+        crossing = [a for a in self.axis_names if a != DATA_AXIS and self.spans(a)]
+        if crossing:
+            raise ValueError(f"{what} over mesh {self.global_shape}: axis {crossing[0]!r} spans "
+                             f"{self.procs[crossing[0]]} processes; only 'data' may cross processes")
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, Mesh) and (self.shape, self.axis_names, self.positions) == (
-            other.shape, other.axis_names, other.positions)
+        return isinstance(other, Mesh) and (
+            self.global_shape, self.axis_names, self.global_positions, self.owners, self.rank) == (
+            other.global_shape, other.axis_names, other.global_positions, other.owners, other.rank)
 
     def __hash__(self) -> int:
-        return hash((self.axis_names, tuple(self.shape.values()), self.positions))
+        return hash((self.axis_names, tuple(self.global_shape.values()), self.global_positions, self.owners,
+                     self.rank))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, positions={self.size}, devices={self.n_devices})"
+        procs = f", processes={self.n_procs}" if self.n_procs > 1 else ""
+        return f"Mesh({self.global_shape}, positions={self.size}, devices={self.n_devices}{procs})"
 
     def size_of(self, axis: str) -> int:
-        """The axis's size, 1 when the mesh lacks it."""
+        """The axis's size in this process's block, 1 when the mesh lacks it."""
         return self.shape.get(axis, 1)
 
     def coord(self, pos: int, axis: str) -> int:
-        """Position ``pos``'s index along ``axis`` (0 when the mesh lacks it)."""
+        """Position ``pos``'s index along ``axis`` in this process's block
+        (0 when the mesh lacks it)."""
         if axis not in self.shape:
             return 0
         return (pos // self._strides[axis]) % self.shape[axis]
 
+    def global_coord(self, pos: int, axis: str) -> int:
+        """Position ``pos``'s index along ``axis`` in the whole mesh."""
+        if axis not in self.shape:
+            return 0
+        return self.proc_coord[axis] * self.shape[axis] + self.coord(pos, axis)
+
+    def global_index(self, pos: int) -> int:
+        """Position ``pos``'s index in the whole mesh's row-major order."""
+        return sum(self.global_coord(pos, a) * self._global_strides[a] for a in self.axis_names)
+
     def groups(self, axis: str) -> list[list[int]]:
         """The positions that differ only along ``axis``, each group in axis
-        order (one group per position when the mesh lacks the axis)."""
+        order (one group per position when the mesh lacks the axis); where
+        the axis spans processes, this process's members of each group."""
         if axis not in self.shape:
             return [[p] for p in range(self.size)]
         stride, n = self._strides[axis], self.shape[axis]
@@ -131,8 +233,56 @@ class Mesh:
         """The mesh as span and boot-log attributes. ``mesh_eager``: the
         positions span devices, so every forward runs eagerly (one CUDA
         graph cannot span cards), and each request's span says so."""
-        return {"mesh": ",".join(f"{a}={s}" for a, s in self.shape.items()), "mesh_positions": self.size,
-                "mesh_devices": self.n_devices, "mesh_eager": self.n_devices > 1}
+        out = {"mesh": ",".join(f"{a}={s}" for a, s in self.global_shape.items()), "mesh_positions": self.size,
+               "mesh_devices": self.n_devices, "mesh_eager": self.n_devices > 1}
+        if self.n_procs > 1:
+            out["mesh_processes"] = self.n_procs
+        return out
+
+
+def _strides(axis_names: Sequence[str], shape: Mapping[str, int]) -> dict[str, int]:
+    out, stride = {}, 1
+    for a in reversed(axis_names):
+        out[a] = stride
+        stride *= shape[a]
+    return out
+
+
+def _local_block(shape: Mapping[str, int], local: Sequence[int]) -> dict[str, int]:
+    """The shape of the block of the row-major array that the global
+    indices ``local`` cover; raises unless they are one aligned block (as
+    positions laid out rank-major, an equal number per process, make)."""
+    n, start = len(local), local[0]
+    if list(local) != list(range(start, start + n)) or start % n:
+        raise ValueError(f"positions {list(local)} of one process are not one aligned block of the mesh")
+    out, rest = {}, n
+    for a in reversed(list(shape)):
+        size = shape[a]
+        if rest >= size:
+            if rest % size:
+                raise ValueError(f"{n} positions per process do not tile mesh {dict(shape)}")
+            out[a], rest = size, rest // size
+        else:
+            if size % rest:
+                raise ValueError(f"{n} positions per process do not tile mesh {dict(shape)}")
+            out[a], rest = rest, 1
+    return {a: out[a] for a in shape}
+
+
+def process_mesh(axes: Mapping[str, int], devices: Sequence[Any]) -> Mesh:
+    """A Mesh over every process's ``devices`` (this process's positions;
+    a list may repeat a device), laid out rank-major. Every process calls
+    it, with as many positions each; one process gives an ordinary Mesh."""
+    devices = [str(normalize_device(d)) for d in devices]
+    if process_count() == 1:
+        return Mesh(axes, devices)
+    per_rank = all_gather_object(devices)
+    if len({len(d) for d in per_rank}) != 1:
+        raise ValueError(f"processes hold {[len(d) for d in per_rank]} positions: a process mesh needs as many "
+                         "on each")
+    positions = [d for devs in per_rank for d in devs]
+    owners = [r for r, devs in enumerate(per_rank) for _ in devs]
+    return Mesh(axes, positions, owners)
 
 
 def mesh_from_spec(axes: Mapping[str, int] | None, devices: Sequence[Any]) -> Mesh | None:
@@ -205,11 +355,30 @@ class PositionParams(list):
     the position holds: the leaf's index and its index ranges per dimension
     (``()`` for the whole leaf). Equal keys are copies of one block. None
     where the trees were put together by hand (a fused ensemble's stack),
-    which can neither be gathered nor trained."""
+    which can neither be gathered nor trained. ``mesh``: the mesh they were
+    placed over (keys name blocks of the global leaf, so on a process mesh
+    equal keys in two processes are copies too)."""
 
-    def __init__(self, trees: Iterable[Any] = (), keys: list | None = None):
+    def __init__(self, trees: Iterable[Any] = (), keys: list | None = None, mesh: Mesh | None = None):
         super().__init__(trees)
         self.keys = keys
+        self.mesh = mesh
+        self._holders: dict | None = None
+
+    def holders(self) -> dict:
+        """Per block key, the processes that hold a copy (every process
+        calls this together the first time on a process mesh)."""
+        if self._holders is None:
+            mine = sorted({k for keys in self.keys for k in keys})
+            if self.mesh is None or self.mesh.n_procs == 1:
+                self._holders = {k: (0,) for k in mine}
+            else:
+                held: dict = {}
+                for rank, keys in enumerate(all_gather_object(mine)):
+                    for k in keys:
+                        held.setdefault(k, []).append(rank)
+                self._holders = {k: tuple(v) for k, v in held.items()}
+        return self._holders
 
 
 def tree_leaves(tree: Any) -> Iterable[Any]:
@@ -265,11 +434,11 @@ def _shard_slices(shape: Sequence[int], spec: P, mesh: Mesh, pos: int) -> tuple:
             out.append(((0, n),))
             continue
         axis, parts = (entry.axis, entry.parts) if isinstance(entry, Packed) else (entry, 1)
-        k = mesh.shape[axis]
+        k = mesh.global_shape[axis]
         if n % (parts * k):
             raise ValueError(f"dimension {dim} of size {n} does not split over mesh axis '{axis}' of size {k}"
                              + (f" in {parts} packed slabs" if parts > 1 else ""))
-        slab, i = n // parts, mesh.coord(pos, axis)
+        slab, i = n // parts, mesh.global_coord(pos, axis)
         block = slab // k
         out.append(tuple((s * slab + i * block, s * slab + (i + 1) * block) for s in range(parts)))
     return tuple(out)
@@ -328,7 +497,7 @@ def place_params(params: Any, specs: Any, mesh: Mesh, place_leaf: Callable[[Any,
         log.warning("param shardings name axes %s missing from mesh %s — those dimensions are now REPLICATED "
                     "(full param copy per device along the missing axis)", sorted(dropped), mesh.shape)
     return PositionParams((_select(tree, pos) for pos in range(mesh.size)),
-                          [[k[pos] for k in leaf_keys] for pos in range(mesh.size)])
+                          [[k[pos] for k in leaf_keys] for pos in range(mesh.size)], mesh)
 
 
 class _PerPos(list):
@@ -378,7 +547,7 @@ def map_unique(fn: Callable[[Any], Any], params: PositionParams) -> PositionPara
             memo[id(a)] = fn(a)
         return memo[id(a)]
 
-    return PositionParams((tree_map(leaf, tree) for tree in params), params.keys)
+    return PositionParams((tree_map(leaf, tree) for tree in params), params.keys, params.mesh)
 
 
 def sum_replica_grads(params: PositionParams) -> None:
@@ -388,20 +557,47 @@ def sum_replica_grads(params: PositionParams) -> None:
     the global function's gradient is the sum over copies; a block that
     positions share on one device is one tensor, already summed by
     autograd. The JAX package has no such step: GSPMD keeps one logical
-    array per leaf."""
+    array per leaf.
+
+    On a process mesh the copies held by other processes join the sum
+    through one all-reduce per block over the processes that hold it, the
+    blocks taken in one order on every process (leaf index, then index
+    ranges): a process without a gradient for its copy sends zeros."""
     copies: dict = {}
     for leaf, key in _keyed_leaves(params):
         if isinstance(leaf, torch.Tensor):
             copies.setdefault(key, {}).setdefault(id(leaf), leaf)
-    for group in (list(g.values()) for g in copies.values() if len(g) > 1):
+    mesh = params.mesh
+    across = mesh is not None and mesh.n_procs > 1
+    holders = params.holders() if across else {}
+    for key in sorted(copies):
+        group = list(copies[key].values())
         grads = [t.grad for t in group if t.grad is not None]
-        if not grads:
+        ranks = holders.get(key, (0,))
+        if len(ranks) == 1 and len(group) == 1:
             continue
-        total = grads[0]
-        for g in grads[1:]:
-            total = total + g.to(total.device)
+        if grads:
+            total = grads[0]
+            for g in grads[1:]:
+                total = total + g.to(total.device)
+        else:
+            if len(ranks) == 1:
+                continue
+            total = torch.zeros_like(group[0])
+        if len(ranks) > 1:
+            total = reduce_sum(total, _holders_group(mesh, ranks))
         for t in group:
             t.grad = total.to(t.device, copy=True)
+
+
+def _holders_group(mesh: Mesh, ranks: Sequence[int]):
+    """The process group of a block's holders: the data axis's (a train
+    step lets no other axis cross processes, ``Mesh.check_data_only``)."""
+    group, members = mesh.process_group(DATA_AXIS) if mesh.spans(DATA_AXIS) else (None, [])
+    if sorted(members) != sorted(ranks):
+        raise ValueError(f"a block held by processes {sorted(ranks)} on mesh {mesh.global_shape}: copies may "
+                         "cross processes along 'data' only")
+    return group
 
 
 def _assemble(blocks: Mapping[tuple, torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -425,10 +621,17 @@ def gather_blocks(params: PositionParams, value: Callable[[Any], Any], device: A
     the blocks the positions hold: a tensor of the block's shape, or a dict
     of them (a quantized leaf's parts, each by its own block, or an
     optimizer's moments of the block; a 0-d entry is taken from the first
-    block). A leaf whose value is None for every block gives None."""
+    block). A leaf whose value is None for every block gives None. On a
+    process mesh every process calls it together, and each must hold every
+    block (as where only "data" crosses processes)."""
     by_leaf: dict[int, dict] = {}
     for leaf, (i, sl) in _keyed_leaves(params):
         by_leaf.setdefault(i, {}).setdefault(sl, leaf)
+    if params.mesh is not None and params.mesh.n_procs > 1:
+        missing = sorted(set(params.holders()) - {(i, sl) for i, blocks in by_leaf.items() for sl in blocks})
+        if missing:
+            raise ValueError(f"{len(missing)} blocks of these parameters are held by other processes only "
+                             f"(the first: leaf {missing[0][0]}): gather them where only 'data' crosses processes")
     device = normalize_device(device) if device is not None else None
     out = []
     for i in range(len(by_leaf)):

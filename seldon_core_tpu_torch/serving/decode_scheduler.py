@@ -2868,18 +2868,26 @@ def _draft_for(runtime, tpu_spec) -> tuple:
             )
         return None, 0, ""
     name, kwargs = _parse_zoo_uri(draft_uri) if draft_uri.startswith("zoo://") else (draft_uri, {})
-    dims = decoder_dims(runtime.params)
+    target = _decode_params(runtime)
+    dims = decoder_dims(target)
     kwargs = {"vocab": dims["vocab"], "max_len": dims["max_len"], **kwargs}
     if kwargs.get("features"):
         # a feature head's fuse consumes the target's hidden, and its FFN
         # defaults to the target's width
-        kwargs = {"hidden": dims["hidden"], "ffn": int(runtime.params["layers"][0]["mlp_in"]["w"].shape[1]), **kwargs}
+        kwargs = {"hidden": dims["hidden"], "ffn": int(target["layers"][0]["mlp_in"]["w"].shape[1]), **kwargs}
     spec = get_model(name, **kwargs)
     if not (isinstance(spec.params, dict) and "tok_emb" in spec.params):
         log.warning("decode_draft_model=%r is not a decoder (models/decoder.py layout) — speculation disabled",
                     draft_uri)
         return None, 0, ""
     return params_to_torch(spec.params, runtime.device), spec_k, spec_tree
+
+
+def _decode_params(runtime):
+    """The parameter tree a scheduler decodes with: a runtime served over
+    a ``tpu.mesh`` holds a replicated tree per position, and the scheduler
+    decodes on the first (tensor-parallel decode is ``decode_mesh_axes``)."""
+    return runtime.params[0] if getattr(runtime, "mesh", None) is not None else runtime.params
 
 
 def scheduler_for_executor(
@@ -2893,7 +2901,9 @@ def scheduler_for_executor(
     scheduler owns the whole device loop. ``decode_mesh_axes`` decodes
     tensor-parallel over ``mesh_devices`` (the positions the server's
     caller asked for, which may repeat a device), else over the host's
-    cards; an unservable request serves on one device with a warning."""
+    cards; an unservable request serves on one device with a warning. A
+    runtime on int8 weights keeps the fused path, with the JAX package's
+    warning word for word (the scheduler does not take int8 weights)."""
     if tpu_spec.decode_slots <= 0:
         return None
     root = executor.root
@@ -2906,6 +2916,12 @@ def scheduler_for_executor(
             tpu_spec.decode_slots,
         )
         return None
+    if getattr(runtime, "weight_quant", ""):
+        log.warning(
+            "decode scheduler does not support weight_quant yet — falling "
+            "back to the fused whole-batch path"
+        )
+        return None
     draft_params, spec_k, spec_tree = _draft_for(runtime, tpu_spec)
     mesh_axes = dict(tpu_spec.decode_mesh_axes or {})
     if mesh_axes:
@@ -2914,7 +2930,7 @@ def scheduler_for_executor(
         # here that means single-device dispatch when the mesh request
         # exceeds the positions at hand or the decoder's head/FFN geometry
         # isn't divisible by the tensor-parallel width
-        problems = decode_mesh_problems(mesh_axes, runtime.params, draft_params, mesh_devices)
+        problems = decode_mesh_problems(mesh_axes, _decode_params(runtime), draft_params, mesh_devices)
         if problems:
             log.warning(
                 "decode_mesh_axes=%s unservable (%s) — tensor-parallel decode disabled, running single-device",
@@ -2966,7 +2982,7 @@ def scheduler_for_executor(
                     "running one tensor-parallel scheduler")
         replicas, autoscale_max = 1, 0
     if max(replicas, autoscale_max) <= 1:
-        return DecodeScheduler(runtime.params, deployment_name=deployment_name, mesh_axes=mesh_axes,
+        return DecodeScheduler(_decode_params(runtime), deployment_name=deployment_name, mesh_axes=mesh_axes,
                                devices=mesh_devices if mesh_axes else None, **sched_kwargs)
 
     # the fleet on one card: every replica decodes with the runtime's own
@@ -2978,7 +2994,8 @@ def scheduler_for_executor(
     base_name = deployment_name or "decode"
 
     def replica(i: int) -> DecodeScheduler:
-        return DecodeScheduler(runtime.params, deployment_name=f"{base_name}/r{i}", replica_id=i, **sched_kwargs)
+        return DecodeScheduler(_decode_params(runtime), deployment_name=f"{base_name}/r{i}", replica_id=i,
+                               **sched_kwargs)
 
     store_factory = None
     if autoscale_max > replicas:

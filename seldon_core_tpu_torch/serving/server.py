@@ -55,6 +55,7 @@ import argparse
 import asyncio
 import json
 import logging
+import math
 import os
 import signal
 
@@ -65,7 +66,7 @@ from seldon_core_tpu_torch.graph.spec import DeploymentSpec, PredictorSpec, Seld
 from seldon_core_tpu_torch.graph.validation import validate_deployment
 from seldon_core_tpu_torch.metrics.registry import MetricsResilienceEvents, get_metrics, run_loop_lag_probe
 from seldon_core_tpu_torch.models.base import hold_compute_pool, release_compute_pool
-from seldon_core_tpu_torch.parallel.mesh import mesh_from_spec, serving_positions
+from seldon_core_tpu_torch.parallel.mesh import initialize_distributed, mesh_from_spec, process_count, serving_positions
 from seldon_core_tpu_torch.serving.batcher import make_batcher
 from seldon_core_tpu_torch.serving.decode_scheduler import scheduler_for_executor
 from seldon_core_tpu_torch.serving.fast_http import engine_routes, start_fast_server
@@ -97,8 +98,9 @@ class PredictorServer:
         # whichever way the spec came, it is held to the deployment rules,
         # then to the devices this process serves on
         validate_predictor(predictor, deployment_name)
-        self.mesh = mesh_from_spec(predictor.tpu.mesh,
-                                   serving_positions(predictor.tpu.mesh, self.device, mesh_devices))
+        positions = serving_positions(predictor.tpu.mesh, self.device, mesh_devices)
+        refuse_spanning_mesh(predictor.tpu.mesh, positions)
+        self.mesh = mesh_from_spec(predictor.tpu.mesh, positions)
         if self.mesh is not None:
             log.info("predictor %r serves over mesh %s: %d positions on %d distinct device(s)", predictor.name,
                      self.mesh.shape, self.mesh.size, self.mesh.n_devices)
@@ -233,7 +235,25 @@ def load_predictor(path: str, predictor: str | None = None) -> tuple[PredictorSp
     return (preds[predictor] if predictor else dep.spec.predictors[0]), dep.spec.name
 
 
+def refuse_spanning_mesh(axes, positions) -> None:
+    """In a world of several processes (``initialize_distributed``), a
+    served ``tpu.mesh`` that needs more positions than this process serves
+    is refused by name. The JAX package builds such a mesh over every
+    process's devices, and a request sent to one process then waits in a
+    collective on the others until they leave (and raises): each process
+    serves the mesh its own positions hold."""
+    n = math.prod(int(s) for s in (axes or {}).values())
+    if process_count() > 1 and n > len(positions):
+        raise ValueError(f"tpu.mesh {dict(axes)} needs {n} positions and this process serves {len(positions)}: "
+                         f"a served mesh that spans processes ({process_count()} here) is not served; serve a mesh "
+                         "the process's own devices hold")
+
+
 async def _amain(args) -> None:
+    # multi-host boot, as the JAX server's: join the processes that
+    # JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID name
+    # before anything builds a model (does nothing without a coordinator)
+    initialize_distributed()
     predictor, dep_name = load_predictor(args.deployment, args.predictor)
     server = PredictorServer(
         predictor,

@@ -45,6 +45,18 @@ collectives from shardings, so:
   every copy takes the same update.
 - The loss is the cross-entropy mean over the global batch: the leads'
   logits are gathered in batch order before it is taken, once.
+
+Over a mesh whose "data" axis spans processes (``parallel/mesh.py::
+process_mesh``), each process feeds only its own rows, as
+``jax.make_array_from_process_local_data`` has it: the batch placements
+split this process's rows over its positions, and the step returns the
+loss and accuracy of the global batch. Each process takes the
+cross-entropy of its rows scaled to the global batch (its share of the
+mean), so the losses of all processes sum to the global one, and its
+backward gives each block's copies in this process their share of the
+gradient; ``sum_replica_grads`` then all-reduces every block over the
+processes that hold it. The loss is read once per data lead, and the
+processes' leads are disjoint. Only "data" may cross processes here.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ import torch.nn.functional as F
 
 from seldon_core_tpu_torch.models.convert import tree_map
 from seldon_core_tpu_torch.models.quant import is_quantized_leaf
+from seldon_core_tpu_torch.parallel import distributed as dist_ops
 from seldon_core_tpu_torch.parallel.collectives import shard, unshard
 from seldon_core_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -164,7 +177,7 @@ def grad_mode():
 def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
     """One optimizer update from ``loss``'s gradient; ``state.step`` + 1.
     A placed tree's copies of a block first agree on their gradient
-    (``sum_replica_grads``)."""
+    (``sum_replica_grads``, across processes too)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     if isinstance(state.params, PositionParams):
@@ -397,14 +410,18 @@ def make_sharded_train_step(
     ``make_train_step``'s on that device. ``step(state, {"x", "y"})`` takes
     global tensors or host arrays (placed here) or the placements' blocks;
     its loss is the cross-entropy mean over the global batch, and ``loss``
-    and ``accuracy`` come back as scalars on the first position's device."""
-    if mesh is None or mesh.size == 1:
+    and ``accuracy`` come back as scalars on the first position's device.
+    On a mesh across processes every process calls it and each step, with
+    its own rows (``{"x", "y"}`` of this process), and each gets the global
+    batch's loss and accuracy."""
+    if mesh is None or (mesh.size == 1 and mesh.n_procs == 1):
         device = mesh.positions[0] if mesh is not None else None
         state = init_state(init_params, optimizer, device)
         place = BatchPlacement(None, {}, device)
         return make_train_step(logits_fn), state, {"x": place, "y": place}
     if not isinstance(logits_fn, MeshApply):
         logits_fn = data_parallel(logits_fn, mesh)
+    mesh.check_data_only("a sharded train step")
     x_place = BatchPlacement(mesh, pspec_dims(batch_pspec, mesh))
     y_place = BatchPlacement(mesh, pspec_dims(label_pspec, mesh))
     wants = {a: d for a, d in logits_fn.x_dims.items() if a in mesh.shape}
@@ -415,6 +432,7 @@ def make_sharded_train_step(
     state = TrainState(params, optimizer(unique_tensors(params)), 0)
     lead = mesh.positions[0]
     split = {DATA_AXIS: 0}
+    procs = mesh.procs.get(DATA_AXIS, 1)
 
     def step(state: TrainState, batch: Mapping[str, Any]):
         xs = batch["x"] if isinstance(batch["x"], (list, tuple)) else x_place(batch["x"])
@@ -422,9 +440,15 @@ def make_sharded_train_step(
         with grad_mode():
             logits = unshard(logits_fn(state.params, xs), mesh, split, lead)
             loss = cross_entropy(logits, y)
+            if procs > 1:
+                loss = loss / procs  # this process's share of the global mean (equal rows each)
             apply_gradients(state, loss)
         acc = (logits.detach().argmax(-1) == y.long()).float().mean()
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        loss = loss.detach()
+        if procs > 1:
+            group = mesh.process_group(DATA_AXIS)[0]
+            loss, acc = dist_ops.reduce_sum(loss, group), dist_ops.reduce_sum(acc, group) / procs
+        return state, {"loss": loss, "accuracy": acc}
 
     return step, state, {"x": x_place, "y": y_place}
 
@@ -433,7 +457,9 @@ def data_split_apply(apply_fn: MeshApply, params: PositionParams, x: torch.Tenso
     """A serving mesh apply on a global batch of any size: zero rows pad it
     to the data axis's multiple, it splits over "data", and the leads'
     blocks come back in batch order on the first position's device with the
-    padding dropped (a loss over them is the global batch's)."""
+    padding dropped (a loss over them is the global batch's). On a mesh
+    across processes the batch is this process's rows, and so are the
+    answers."""
     n, d = x.shape[0], mesh.size_of(DATA_AXIS)
     if n % d:
         x = torch.cat([x, x.new_zeros((d - n % d, *x.shape[1:]))])

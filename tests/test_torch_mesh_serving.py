@@ -261,12 +261,14 @@ async def test_a_fused_island_on_a_mesh_serves_like_jax(shape, carried):
     assert runtime.recompiles_since_warmup() == 0
 
 def test_what_a_mesh_does_not_serve_yet_is_refused_by_name():
-    """Decode over a mesh axis other than data waits for its own slice and
-    is refused by name; on a data-only mesh a generative model serves on the
-    first position. Fine-tuning, once refused on such a mesh too, trains
-    over it: a unit on {"seq": 2} and one on {"data": 2} keep their meshes,
-    and a step moves the answer they serve alike (held against JAX's units
-    in ``tests/test_torch_sharded_training.py``)."""
+    """What was once refused on a mesh now serves over it. Fine-tuning
+    trains over its mesh: a unit on {"seq": 2} and one on {"data": 2} keep
+    their meshes, and a step moves the answer they serve alike (held
+    against JAX's units in ``tests/test_torch_sharded_training.py``). A
+    generative model, once refused on an axis other than data and moved to
+    the first position on a data-only mesh, keeps either mesh and answers
+    as unsharded (held against JAX's server in
+    ``test_a_generative_model_on_a_mesh_serves_like_jax``)."""
     from seldon_core_tpu_torch.graph.spec import TpuSpec
     from seldon_core_tpu_torch.models.online import OnlineFinetuneModelUnit
     from seldon_core_tpu_torch.models.zoo import _runtime_from_modelspec, get_model, make_model_unit
@@ -287,10 +289,50 @@ def test_what_a_mesh_does_not_serve_yet_is_refused_by_name():
         assert learner._steps_taken == 1 and after[0, 2] > before[0, 2] + 0.05
         moved.append(after)
     np.testing.assert_allclose(moved[0], moved[1], rtol=1e-6, atol=1e-7)
-    with pytest.raises(ValueError, match="generative model on tpu.mesh"):
-        _runtime_from_modelspec(get_model("tiny_gpt"), tpu, CPU, mesh=mesh_from_spec({"seq": 2}, [CPU] * 2))
-    rt = _runtime_from_modelspec(get_model("tiny_gpt"), tpu, CPU, mesh=mesh)
-    assert rt.mesh is None and rt.device == CPU
+    gpt = dict(seq=8, max_new_tokens=4)
+    ids = np.random.default_rng(3).integers(0, 512, (2, 8)).astype(np.int32)
+    want = _runtime_from_modelspec(get_model("tiny_gpt", **gpt), tpu, CPU).predict(ids)
+    for axes in ({"seq": 2}, {"data": 2}):
+        rt = _runtime_from_modelspec(get_model("tiny_gpt", **gpt), tpu, CPU, mesh=mesh_from_spec(axes, [CPU] * 2))
+        assert rt.mesh.shape == axes
+        np.testing.assert_array_equal(rt.predict(ids), want)
+
+
+def _gpt_mesh_dep(axes: dict) -> dict:
+    return {"spec": {"name": "g", "predictors": [{
+        "name": "p", "graph": {"name": "gpt", "type": "MODEL", "implementation": "JAX_MODEL", "parameters": [
+            {"name": "model", "value": "tiny_gpt", "type": "STRING"},
+            {"name": "seq", "value": "8", "type": "INT"},
+            {"name": "max_new_tokens", "value": "5", "type": "INT"}]},
+        "tpu": {"dtype": "float32", "max_batch": 4, "mesh": axes}}]}}
+
+
+@pytest.mark.parametrize("axes", [{"seq": 2}, {"data": 2, "model": 2}, {"data": 2}], ids=lambda a: str(a))
+async def test_a_generative_model_on_a_mesh_serves_like_jax(axes):
+    """``tiny_gpt`` (no partition rule) on a mesh, as the JAX server runs
+    it: parameters replicated, the batch split over the data leads, the
+    other axes replicated, buckets rounded up to the data axis's multiple;
+    the same ids for a full bucket and a padded one, and no key after
+    warmup."""
+    dep = _gpt_mesh_dep(axes)
+    jax_pred, pred = _predictors(dep)
+    n = int(np.prod(list(axes.values())))
+    jax_srv = JaxPredictorServer(jax_pred, deployment_name="g", enable_batching=False)
+    srv = PredictorServer(pred, deployment_name="g", enable_batching=False, device="cpu", mesh_devices=[CPU] * n)
+    srv.warmup()
+    runtime = srv.executor.root.unit.runtime
+    jax_runtime = jax_srv.executor.root.unit.runtime
+    assert runtime.mesh.shape == axes == dict(jax_srv.mesh.shape)
+    assert runtime.buckets == jax_runtime.buckets == ((2, 4) if "data" in axes else (1, 2, 4))
+    assert runtime.apply_fn.name.startswith("data_parallel")
+    rng = np.random.default_rng(11)
+    for rows in (4, 3):
+        body = {"data": {"ndarray": rng.integers(0, 512, (rows, 8)).tolist()}}
+        want = np.asarray((await jax_srv.executor.execute(jax_message_from_dict(body))).array)
+        got = np.asarray((await srv.executor.execute(message_from_dict(body))).array)
+        assert got.shape == want.shape == (rows, 13)
+        np.testing.assert_array_equal(got, want)
+    assert runtime.recompiles_since_warmup() == 0
 
 
 def _finetune_graph() -> dict:
