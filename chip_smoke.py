@@ -12,7 +12,7 @@ Phases, each of which raises on failure (no phase catches its own):
    tf32 ``HMMA`` (its float32 body's 3xTF32 products; ptxas must report no
    spill in that body), the W8A16 kernel both, ``HMMA`` (its mma.sync
    body for ragged shapes) and tf32 ``HGMMA`` (its float32 body), with no
-   spill in its tf32x2 and splitk bodies;
+   spill in its tf32x2, splitk and fewrows bodies;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, as contiguous tensors and as the views
    of one fused QKV projection that BERT hands it (plus the causal and
@@ -99,12 +99,16 @@ Phases, each of which raises on failure (no phase catches its own):
    (``csrc/int8_matmul.cu``) against its plain version in bf16 and float32
    at BERT-base's served projections at bucket 32 and bucket 1, its head,
    iris's (M, 4 -> 3), narrow outputs around the cut (N 8, 16 and 32 at
-   32 to 4096 rows, and a K ending mid-chunk), the tiled bodies' edges (M % 128 != 0, K % 64 != 0,
+   32 to 4096 rows, and a K ending mid-chunk), the pooler's 32 rows and
+   the few-rows body's edges (N off its tile, K off a k16 step, x rows off
+   16 bytes, stacked members at 8 rows, one row past its cut), the tiled
+   bodies' edges (M % 128 != 0, K % 64 != 0,
    N not a multiple of the tile, x rows off 16 bytes) and three stacked
    members (through the vmap rule, a shared input and per-member rows, at
    K 768 and 776), each case on the body ``select_body`` must name for it
    (counted per body), with scales applied per row and one dropped K tile
-   (float32 also: x's tf32 part alone) shown to fail every case, each case
+   (float32 also: x's tf32 part alone; fewrows also: one of its cluster's
+   K slices) shown to fail every case, each case
    timed beside its plain version, ``torch.addmm`` / ``torch.baddbmm`` on
    the pre-dequantized weights and the other bodies that can take it; the
    launch floor; the wrapper's host cost per call; the ``bert_int8``
@@ -451,9 +455,11 @@ Phases, each of which raises on failure (no phase catches its own):
    collectives across processes per step. 20c GPT-2-small width on int8
    weights, bf16, through the fused ``generate`` (captured): ids against
    the same generate on W8A16's plain version on the card under the tie
-   rule, W8A16 launches per token by body, ms per token against the
-   runtime without ``weight_quant``, resident bytes, the kernel at the
-   decode step's shapes (``GEN_INT8_SHAPES``); ``tiny_gpt`` with
+   rule, W8A16 launches by body (the prefill's 48 on wgmma, the 15 decode
+   steps' 720 on fewrows), ms per token against the runtime without
+   ``weight_quant``, resident bytes, the few-rows body at the decode
+   step's shapes in bf16 and float32 and the pooler's (``GEN_INT8_SHAPES``,
+   the tiled body timed beside it); ``tiny_gpt`` with
    ``decode_slots`` and ``weight_quant`` serves the fused path with the JAX
    package's warning. 20d GPT-2-small width (bf16) served over {"data": 2,
    "model": 2} on four positions of the card against the one-device
@@ -469,6 +475,7 @@ the model's projections run in full float32 where they are float32).
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import faulthandler
 import gc
@@ -571,16 +578,19 @@ SPEC_MIN_ACCEPTED = 1.0
 # against the port's int8 forward on the CPU to SERVE_ATOL (bf16 rounding
 # flips through 12 layers).
 # K columns per tile of each body (the dropped tile is one the body reads
-# as one): 64 for wgmma and mma, 32 for tf32x2 and fma; splitk has no K
-# tile, so the second 64 go. float32 cases carry a third fault: the plain
-# version on x's tf32 part alone (hi·q, one tf32 pass without the split).
-INT8_K_TILE = {"wgmma": 64, "mma": 64, "tf32x2": 32, "fma": 32, "splitk": 64}
+# as one): 64 for wgmma and mma, 32 for tf32x2 and fma, 16 for fewrows (a
+# warp's step); splitk has no K tile, so the second 64 go. float32 cases
+# carry a third fault: the plain version on x's tf32 part alone (hi·q, one
+# tf32 pass without the split); fewrows cases a fourth: the second of its
+# FEWROWS_CLUSTER K slices dropped (one cluster rank's partial).
+INT8_K_TILE = {"wgmma": 64, "mma": 64, "tf32x2": 32, "fma": 32, "splitk": 64, "fewrows": 16}
+FEWROWS_CLUSTER = 8  # csrc/int8_matmul.cu's FR_CLUSTER: CTAs along K, each a slice of whole k16 steps
 INT8_SERVE_ATOL = 3e-2
 INT8_LAUNCHES = 12 * 4 + 1  # qkv, attn_out, mlp_in, mlp_out per layer, and the head
 # by body, every body named: the head has N = 2 (splitk); the float32 copy
 # of bert_int8 (phase 7c) takes tf32x2 where bf16 takes wgmma
-INT8_LAUNCHES_BY_BODY = {"wgmma": 12 * 4, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 0}
-INT8_F32_LAUNCHES_BY_BODY = {"wgmma": 0, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 12 * 4}
+INT8_LAUNCHES_BY_BODY = {"wgmma": 12 * 4, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 0, "fewrows": 0}
+INT8_F32_LAUNCHES_BY_BODY = {"wgmma": 0, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 12 * 4, "fewrows": 0}
 TF32X2_PASSES = 2  # the float32 W8A16 body's products: lo·q + hi·q, q exact in tf32
 
 
@@ -2397,12 +2407,21 @@ def tf32_hi(x):
     return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-def int8_planted(x, q, s, b, k_tile: int) -> dict:
+def fewrows_k_slice(k: int) -> int:
+    """The K columns of one cluster rank of the few-rows body: whole k16
+    steps, FEWROWS_CLUSTER slices (launch_fewrows_nt's cut)."""
+    steps = (k + 15) // 16
+    return 16 * ((steps + FEWROWS_CLUSTER - 1) // FEWROWS_CLUSTER)
+
+
+def int8_planted(x, q, s, b, k_tile: int, k_slice: int | None = None) -> dict:
     """The plain version with a planted fault: scales applied per row (row k
     takes column k mod N's scale), or one K tile of x dropped (the second
     tile, or half of a K shorter than two tiles); in float32 also x's tf32
     part alone (one tf32 pass, what the tf32x2 body without its split would
-    compute)."""
+    compute); with ``k_slice``, the second slice of that many K columns
+    dropped (a cluster rank's partial left out of the sum; half of a K
+    shorter than two slices)."""
     import torch
 
     from seldon_core_tpu_torch.ops.int8_matmul import _batched_reference
@@ -2419,15 +2438,23 @@ def int8_planted(x, q, s, b, k_tile: int) -> dict:
     }
     if x.dtype == torch.float32:
         faults["tf32_one_pass"] = _batched_reference(tf32_hi(x), q, s, b)
+    if k_slice is not None:
+        ks = max(1, min(k_slice, k // 2))
+        keep = torch.ones(k, device=x.device, dtype=x.dtype)
+        keep[ks:2 * ks] = 0
+        faults["k_slice_dropped"] = _batched_reference(x * keep, q, s, b)
     return faults
 
 
 def int8_other_bodies(body: str, n: int, dtype_name: str) -> tuple:
     """The bodies timed beside the one a case launches on: the body it
-    replaced on that route (mma for bf16, fma for float32), and around the
-    narrow cut (N <= 32) the narrow and the tiled bodies both. A body that
-    cannot take the call is skipped."""
+    replaced on that route (mma for bf16, fma for float32; the tiled body,
+    wgmma or tf32x2, for the few-rows body), and around the narrow cut (N <=
+    32) the narrow and the tiled bodies both. A body that cannot take the
+    call is skipped."""
     wide = ("mma", "wgmma") if dtype_name != "float32" else ("fma", "tf32x2")
+    if body == "fewrows":
+        return (wide[1],)
     others = (wide[0],) + ((wide[1], "splitk") if n <= 32 else ())
     return tuple(b for b in others if b != body)
 
@@ -2472,7 +2499,8 @@ def check_int8(case, card) -> dict:
         ref = _batched_reference(x, q, s, b)
         agree = agreement(out, ref, dtype_name)
         planted = {f: agreement(y, ref, dtype_name)
-                   for f, y in int8_planted(x, q, s, b, INT8_K_TILE[body]).items()}
+                   for f, y in int8_planted(x, q, s, b, INT8_K_TILE[body],
+                                            fewrows_k_slice(k) if body == "fewrows" else None).items()}
         w = (q.float() * s[:, None, :]).to(dtype)
         ms = device_ms(call)
         ms_other = {}
@@ -2520,7 +2548,7 @@ INT8_SHAPES = [  # name, (E, M, K, N), x shared by the members, the body in bf16
     ("mlp_out_b32", (1, 4096, 3072, 768), False, "wgmma", "tf32x2"),
     ("head_b32", (1, 32, 768, 2), False, "splitk", "splitk"),
     # the Hugging Face pooler of bert_base_hf_int8 (phase 11): [CLS] rows
-    ("pooler_b32", (1, 32, 768, 768), False, "wgmma", "tf32x2"),
+    ("pooler_b32", (1, 32, 768, 768), False, "fewrows", "fewrows"),
     # the same at bucket 1 (M = 128 rows, the head one)
     ("qkv_b1", (1, 128, 768, 2304), False, "wgmma", "tf32x2"),
     ("attn_out_b1", (1, 128, 768, 768), False, "wgmma", "tf32x2"),
@@ -2539,6 +2567,17 @@ INT8_SHAPES = [  # name, (E, M, K, N), x shared by the members, the body in bf16
     ("n16_m512", (1, 512, 768, 16), False, "wgmma", "tf32x2"),
     ("n8_m4096", (1, 4096, 768, 8), False, "splitk", "splitk"),
     ("head_k770", (1, 32, 770, 2), False, "splitk", "splitk"),
+    # the few-rows body's edges (select_body: at most FEW_ROWS_WIDE rows past
+    # the narrow cut): N off its 32-channel tile with K off a k16 step, N
+    # ending mid-tile at K = 3072, x rows off 16 bytes (K = 770), three
+    # stacked members at a decode step's rows, shared and per-member x, and
+    # one row past the cut on wgmma
+    ("fewrows_ragged_n_m3", (1, 3, 776, 2312), False, "fewrows", "fewrows"),
+    ("fewrows_ragged_n_k3072", (1, 8, 3072, 760), False, "fewrows", "fewrows"),
+    ("fewrows_k770_m13", (1, 13, 770, 776), False, "fewrows", "fewrows"),
+    ("fewrows_stacked_e3_shared_x", (3, 8, 768, 768), True, "fewrows", "fewrows"),
+    ("fewrows_stacked_e3", (3, 8, 776, 768), False, "fewrows", "fewrows"),
+    ("past_the_cut_m33", (1, 33, 768, 768), False, "wgmma", "tf32x2"),
     # the tiled bodies' edges: M % 128 != 0, K % 64 != 0, N % 128 != 0
     ("m_ragged", (1, 4000, 768, 2304), False, "wgmma", "tf32x2"),
     ("k_ragged", (1, 256, 776, 768), False, "wgmma", "tf32x2"),
@@ -4694,7 +4733,7 @@ async def serve_model_sources(card) -> dict:
             await s.stop()
     del servers, runtimes
     want = INT8_LAUNCHES + 1  # bert_int8's 49 and the pooler's
-    by_body = {**INT8_LAUNCHES_BY_BODY, "wgmma": INT8_LAUNCHES_BY_BODY["wgmma"] + 1}  # the pooler: N = 768
+    by_body = {**INT8_LAUNCHES_BY_BODY, "fewrows": 1}  # the pooler: 32 [CLS] rows, N = 768
     out["bert_base_hf_int8"], out["bert_base_hf_int8_by_body"] = await serve_bert_int8(
         card, "bert_base_hf_int8", want, by_body)
     return out
@@ -8796,7 +8835,7 @@ TP_LONG_SEQ = 4096  # 18b's long copy: the draft admission's prefill reaches the
 TP_LONG_NEW = 64
 TP_FAULT_BIAS_STD = 0.01  # the planted bias fault's row-parallel biases
 TP_FAULT_NEW = 24  # tokens per request of the bias fault's check
-TP_INT8_WANT = {"wgmma": 192, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 0}  # W8A16 launches per int8 BERT-base forward over {"model": 4}
+TP_INT8_WANT = {"wgmma": 192, "mma": 0, "fma": 0, "splitk": 1, "tf32x2": 0, "fewrows": 0}  # W8A16 launches per int8 BERT-base forward over {"model": 4}
 TP_SOAK_SECONDS = 3.0
 
 
@@ -9509,9 +9548,13 @@ GPT2_WIDTH = dict(vocab=50257, hidden=768, layers=12, ffn=3072)
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 32, 16  # 20c and 20d: rows, prompt and new tokens per request
 INT8_DECODE_WARNING = "decode scheduler does not support weight_quant yet — falling back to the fused whole-batch path"
 # 20c's W8A16 shapes: GPT-2-small's projections on a decode step's rows
-# (batch 8), bf16; select_body takes wgmma for every one
-GEN_INT8_SHAPES = [("gpt2_decode_qkv_m8", (1, 8, 768, 2304)), ("gpt2_decode_attn_out_m8", (1, 8, 768, 768)),
-                   ("gpt2_decode_mlp_in_m8", (1, 8, 768, 3072)), ("gpt2_decode_mlp_out_m8", (1, 8, 3072, 768))]
+# (batch 8) in bf16 and float32, and BERT's pooler on 32 [CLS] rows;
+# select_body takes fewrows for every one (wgmma, tf32x2 timed beside)
+GEN_INT8_PROJECTIONS = [("gpt2_decode_qkv_m8", (1, 8, 768, 2304)), ("gpt2_decode_attn_out_m8", (1, 8, 768, 768)),
+                        ("gpt2_decode_mlp_in_m8", (1, 8, 768, 3072)), ("gpt2_decode_mlp_out_m8", (1, 8, 3072, 768))]
+GEN_INT8_SHAPES = [*((name, shape, "bfloat16") for name, shape in GEN_INT8_PROJECTIONS),
+                   ("pooler_m32", (1, 32, 768, 768), "bfloat16"),
+                   *((name, shape, "float32") for name, shape in GEN_INT8_PROJECTIONS)]
 
 
 def mh_pair(mode: str, extra_env: dict | None = None) -> list:
@@ -9845,10 +9888,11 @@ def int8_generate(card) -> dict:
     """20c: GPT-2-small width on int8 weights, bf16, through the fused
     ``generate`` (captured at bucket 8): its ids against the same generate
     on W8A16's plain version on the card under the tie rule, W8A16 launches
-    per token by body, ms per token against the runtime without
-    ``weight_quant``, resident bytes; the W8A16 kernel at the decode
-    step's shapes; then ``tiny_gpt`` served with ``decode_slots`` and
-    ``weight_quant`` takes the fused path with JAX's warning."""
+    by body (48 on wgmma for the prefill, 720 on fewrows for the decode
+    steps), ms per token against the runtime without ``weight_quant``,
+    resident bytes; the few-rows body at GEN_INT8_SHAPES; then
+    ``tiny_gpt`` served with ``decode_slots`` and ``weight_quant`` takes
+    the fused path with JAX's warning."""
     import logging
 
     import numpy as np
@@ -9886,13 +9930,17 @@ def int8_generate(card) -> dict:
            "param_bytes": quant.param_bytes(), "unquantized_param_bytes": plain_rt.param_bytes(),
            "keys_after_warmup": [quant.recompiles_since_warmup(), plain_rt.recompiles_since_warmup()]}
     print(f"[{card}] 20c int8 GPT-2-small width, fused generate: {json.dumps(row)}", flush=True)
-    want = GPT2_WIDTH["layers"] * 4 * GEN_NEW  # qkv, attn_out, mlp_in, mlp_out a layer, each pass
-    if launches != want or by_body["wgmma"] != want or row["keys_after_warmup"] != [0, 0]:
-        raise AssertionError(f"20c: {launches} W8A16 launches by body {by_body} (want {want} wgmma), keys "
+    # qkv, attn_out, mlp_in, mlp_out a layer: the prefill's 8 x 32 rows on
+    # wgmma, each of the GEN_NEW - 1 decode steps' 8 rows on fewrows
+    per_pass = GPT2_WIDTH["layers"] * 4
+    want = {b: {"wgmma": per_pass, "fewrows": per_pass * (GEN_NEW - 1)}.get(b, 0) for b in by_body}
+    if by_body != want or row["keys_after_warmup"] != [0, 0]:
+        raise AssertionError(f"20c: {launches} W8A16 launches by body {by_body} (want {want}), keys "
                              f"{row['keys_after_warmup']}")
     if DEVICE == "cuda":
-        row["kernel_rows"] = {name: check_int8((f"{name}_bfloat16", shape, torch.bfloat16, False, "wgmma"), card)
-                              for name, shape in GEN_INT8_SHAPES}
+        row["kernel_rows"] = {f"{name}_{dt}": check_int8((f"{name}_{dt}", shape, getattr(torch, dt), False, "fewrows"),
+                                                         card)
+                              for name, shape, dt in GEN_INT8_SHAPES}
     # tiny_gpt with decode_slots and weight_quant: the fused path, warned
     seen: list = []
     handler = logging.Handler()
@@ -10102,7 +10150,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Potential Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
-    sass = sass_counts(kernel_build.library_path("flash_attention"), ("HGMMA", "UTMALDG", TF32_MMA))
+    # both libraries' disassemblies at once (each cuobjdump takes seconds)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        int8_sass_job = pool.submit(sass_counts, kernel_build.library_path("int8_matmul"),
+                                    ("HGMMA", "UTMALDG", "HMMA", TF32_WGMMA))
+        sass = sass_counts(kernel_build.library_path("flash_attention"), ("HGMMA", "UTMALDG", TF32_MMA))
+        int8_sass = int8_sass_job.result()
     print(f"[{card}] flash_attention SASS: {json.dumps(sass)}", flush=True)
     if min(sass.values()) == 0:
         raise AssertionError(f"the flash kernel's library lacks wgmma, TMA or tf32 mma.sync instructions: {sass}")
@@ -10113,16 +10166,18 @@ def main() -> int:
     print(f"[{card}] flash_fwd_f32 ptxas: {json.dumps(by_body)}", flush=True)
     if len(f32_ptxas) != 4 or any("0 bytes spill stores" not in r for r in f32_ptxas.values()):
         raise AssertionError(f"want four float32 flash bodies (d 64 and 128, 4 and 8 warps), none spilling: {f32_ptxas}")
-    int8_sass = sass_counts(kernel_build.library_path("int8_matmul"), ("HGMMA", "UTMALDG", "HMMA", TF32_WGMMA))
     print(f"[{card}] int8_matmul SASS: {json.dumps(int8_sass)}", flush=True)
     if min(int8_sass.values()) == 0:
         raise AssertionError(f"the int8_matmul library lacks wgmma, TMA, mma.sync or tf32 wgmma instructions: "
                              f"{int8_sass}")
-    int8_ptxas = ptxas_report(kernel_build.BUILD_LOGS.get("int8_matmul", ""), ("tf32x2_body", "splitk_body"))
-    print(f"[{card}] int8_matmul ptxas (splitk by dtype and width): {json.dumps(int8_ptxas)}", flush=True)
+    int8_ptxas = ptxas_report(kernel_build.BUILD_LOGS.get("int8_matmul", ""),
+                              ("tf32x2_body", "splitk_body", "fewrows_body"))
+    print(f"[{card}] int8_matmul ptxas (splitk by dtype and width, fewrows by dtype and row tiles): "
+          f"{json.dumps(int8_ptxas)}", flush=True)
     if (sorted(int8_ptxas).count("tf32x2_body") != 1 or sum(k.startswith("splitk_body") for k in int8_ptxas) != 24
+            or sum(k.startswith("fewrows_body") for k in int8_ptxas) != 9
             or any("0 bytes spill stores" not in r for r in int8_ptxas.values())):
-        raise AssertionError(f"want the tf32x2 body and 24 splitk bodies, none spilling: {int8_ptxas}")
+        raise AssertionError(f"want the tf32x2 body, 24 splitk and 9 fewrows bodies, none spilling: {int8_ptxas}")
     print(f"[{card}] phase 1 seconds: {time.perf_counter() - t0:.3f}", flush=True)
 
     # 2. kernel against its plain version
@@ -10468,9 +10523,11 @@ def main() -> int:
         **{name: {k: row[k] for k in int8_keys}
            for name, row in phase20["20c"].get("kernel_rows", {}).items()},
     })
-    # the two bodies this slice redesigned, each with its own launches on the
-    # paths and the row of the shape it serves there
-    for body, row in (("splitk", int8_rows["head_b32_bfloat16"]), ("tf32x2", int8_rows["qkv_b32_float32"])):
+    # the bodies redesigned after wgmma_body, each with its own launches on the
+    # paths and the row of the shape it serves there (fewrows: a decode
+    # step's mlp_out, the row it gained most on)
+    for body, row in (("splitk", int8_rows["head_b32_bfloat16"]), ("tf32x2", int8_rows["qkv_b32_float32"]),
+                      ("fewrows", phase20["20c"]["kernel_rows"]["gpt2_decode_mlp_out_m8_bfloat16"])):
         launched = {path: counts.get(body, 0) for path, counts in by_body_paths.items()}
         if sum(launched.values()) <= 0:
             raise AssertionError(f"the paths launched no {body}_body: {launched}")

@@ -14,10 +14,10 @@
 // bias [E, N]; y [E, M, N] contiguous. E is 1 except in a fused ensemble,
 // where grid z walks the members.
 //
-// Five bodies. The caller names the body (ops/int8_matmul.py::select_body
-// decides before the launch; wgmma_takes and tf32x2_takes below hold the
-// same addressing rules); a body asked for a shape or dtype it cannot take
-// returns cudaErrorInvalidValue and launches nothing.
+// Six bodies. The caller names the body (ops/int8_matmul.py::select_body
+// decides before the launch; wgmma_takes, tf32x2_takes and fewrows_takes
+// below hold the same rules); a body asked for a shape or dtype it cannot
+// take returns cudaErrorInvalidValue and launches nothing.
 //   splitk_body  narrow outputs (select_body: N <= 8, or N <= 32 at up to
 //                128 rows), every dtype, any shape and strides: the BERT
 //                head (N = 2), iris (N = 3).
@@ -35,6 +35,28 @@
 //                FMA; warp shuffles, then the row's warps through shared
 //                memory, reduce in a fixed order (no atomics: a rerun
 //                gives the same bits). An output-column group of 8 per CTA.
+//   fewrows_body few rows past the narrow cut (select_body: M <=
+//                FEW_ROWS_WIDE), every dtype, any strides: a decode step's
+//                8 rows of GPT-2-small's projections, BERT's pooler (32).
+//                Bound: the int8 weight bytes and a launch (qkv at 8 rows:
+//                14 M multiply-adds against 1.77 MB, 0.00055 ms at 3.35
+//                TB/s; the event floor of a launch is 0.0050 ms). wgmma_body
+//                gave such a call 6-24 CTAs of 128 rows, 8 of them used,
+//                each walking all of K in series. Here a cluster of 8 CTAs
+//                splits K for every 32 output channels (192-768 CTAs at
+//                GPT-2-small's widths), each lane reads its q bytes once,
+//                every load of a warp in flight at once, and the slices are
+//                summed through distributed shared memory in rank order.
+//                What is left at 8 rows is mostly fixed cost: a launch, one
+//                round trip, one cluster barrier, the store (PERF.md).
+//                Products on mma.sync (weights as A, x's rows as one n8
+//                tile per 8 rows), not float32 FMA: the tensor cores sum
+//                over k, so a lane holds 4 sums per block of 16 channels
+//                and 8 rows instead of FMA's channels x M rows of partials
+//                over its own k rows (64 registers for 4 channels at M =
+//                16, 128 for 16 channels at M = 8), and the dequantize, 16
+//                instructions per 4 weights, is then the only per-byte
+//                work at any M. Design above the body.
 //   tf32x2_body  float32 activations whose operands TMA can address (the
 //                wgmma body's rule with K, x's strides % 4 == 0). Bound:
 //                the CUDA cores' 67 TFLOP/s caps a float32 FMA body (qkv
@@ -131,6 +153,7 @@
 // Per 64-deep K tile a CTA's shared memory serves each warpgroup's wgmma
 // the whole x stage (BM x 128 B) and its 64 channels' int8 rows once.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -969,6 +992,272 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------- fewrows_body
+// Few rows of x (a decode step's 8, a pooler's 32) against a wide q. The
+// tiled bodies' 128-row tiles leave such a call a few CTAs and serial K
+// tiles; here the card's SMs share q's bytes, each read once, and the
+// products are mma.sync m16n8k16 with the weights as A: a warp step is 16
+// k rows x 32 output channels (one 4-byte load of q per lane and k row: a
+// warp's load covers 4 rows of 32 contiguous bytes), built in registers as
+// wgmma_body builds its A (PRMT, dequant4: W = T(q * scale) rounded once,
+// the plain version's rounding point); x's rows are B, k16 x n8: 8 rows are
+// one n8 tile, read straight from device memory (8 bytes a lane, in
+// fragment order). Both are permuted so that each lane's bytes are
+// contiguous: fragment row g of block j is channel FR_CPT g + 2j (row g + 8
+// is FR_CPT g + 2j + 1), and the fragment's k index 2t, 2t + 1, 2t + 8,
+// 2t + 9 is the step's k row 4t .. 4t + 3. Float32 x takes the same A
+// exact (q as tf32, unscaled; the scale moves to the epilogue as in
+// tf32x2_body) on mma.sync m16n8k8 in two passes over x = hi + lo; each
+// k16 step's four products go into a fresh accumulator folded in by an
+// FADD (the tensor cores truncate what they add into one).
+// Grid (FR_CLUSTER, ceil(N / FR_CH), E x row groups of 8 NT rows), one
+// thread-block cluster along K: the cluster's FR_CLUSTER CTAs take K
+// slices of whole k16 steps, a CTA's warps FR_WARP_STEPS steps each, all
+// their loads in flight at once (FR_DEPTH deep); the bias (and float32's
+// scale) is read beside them. Sums: the warps' partials meet in shared
+// memory and are summed in warp order; each row goes by a remote store to
+// the rank that stores it (row r NT .. r NT + NT - 1: rank r); one cluster
+// barrier; each rank sums its rows over the ranks in rank order, adds the
+// bias, rounds once to T and stores: no atomics, no workspace, one launch;
+// a rerun gives the same bits. The tile (32 channels, 2 steps a warp, up
+// to 12 warps) is the one that measured fastest at GPT-2-small's decode
+// shapes (PERF.md, int8_fewrows_probe.py): the registers a thread holds
+// decide how many clusters are active at once, and with 64 channels and a
+// step a warp qkv's 36 clusters ran in two waves. At 32 rows a warp's
+// steps load one at a time (FR_DEPTH_32): with both in flight mlp_in lost
+// to wgmma_body.
+constexpr int FR_CLUSTER = 8;                // CTAs along K: one portable cluster
+constexpr int FR_JB = 2;                     // 16-channel mma blocks per warp
+constexpr int FR_CPT = 2 * FR_JB;            // output channels (bytes of a q row) per lane
+constexpr int FR_CH = 8 * FR_CPT;            // output channels per CTA
+constexpr int FR_WARPS = 12;                 // warps per CTA at most
+constexpr int FR_WARP_STEPS = 2;             // k16 steps of the slice per warp (fewer warps: more CTAs an SM)
+constexpr int FR_DEPTH = 2;                  // warp steps whose loads are in flight together
+constexpr int FR_DEPTH_32 = 1;               // at 32 rows (NT = 4): fewer registers, more CTAs an SM
+constexpr int FR_MAX_ROWS = 32;              // select_body's FEW_ROWS_WIDE
+constexpr int FR_NARROW_N = 32;              // splitk keeps N <= 8, and N <= 32 ...
+constexpr int FR_NARROW_ROWS = 128;          // ... at up to 128 rows
+
+// what fewrows_body takes: every dtype, stride and offset, past the
+// narrow cut and up to FR_MAX_ROWS rows (select_body holds the same rule)
+bool fewrows_takes(int M, int N) {
+  return M <= FR_MAX_ROWS && N > SK_NB && (N > FR_NARROW_N || M > FR_NARROW_ROWS);
+}
+
+// four values of x from k (k % 4 == 0) as raw words in fragment order
+// (bf16 / f16: two packed pairs, float32: four floats); zero past K
+template <typename T>
+__device__ __forceinline__ void fr_load_x(const T* row, int k, int K, bool vec, uint32_t* w) {
+  constexpr int XW = sizeof(T);  // words per four values
+  if (vec && k + 4 <= K) {
+    if constexpr (XW == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row + k);
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + k);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < XW; ++i) w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (k + i >= K) break;
+    if constexpr (XW == 2)
+      w[i / 2] |= uint32_t(reinterpret_cast<const uint16_t*>(row)[k + i]) << (16 * (i % 2));
+    else
+      w[i] = reinterpret_cast<const uint32_t*>(row)[k + i];
+  }
+}
+
+// FR_CPT bytes of q's row k from channel c (zero past K and N)
+__device__ __forceinline__ void fr_load_q(const int8_t* qg, int k, int c, const Args& a, bool vec, uint32_t* w) {
+  const int8_t* p = qg + (long long)k * a.N + c;
+  if (vec && k < a.K && c + FR_CPT <= a.N) {
+    if constexpr (FR_CPT == 8) {  // 64 channels a CTA (int8_fewrows_probe.py's ch64)
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
+    } else {
+      static_assert(FR_CPT == 4, "a lane's q bytes: one 4- or 8-byte load");
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < FR_CPT / 4; ++i) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (k < a.K && c + 4 * i + b < a.N) word |= uint32_t(uint8_t(p[4 * i + b])) << (8 * b);
+    w[i] = word;
+  }
+}
+
+// the two halves of a cluster barrier: a CTA may touch another's shared
+// memory only once every CTA of the cluster has arrived (has started)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+// q's four bytes in a word as exact floats (tf32 operands): no I2F
+__device__ __forceinline__ void exact4(uint32_t u, uint32_t* f) {
+  u ^= 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f);
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(FR_WARPS * 32) __cluster_dims__(FR_CLUSTER, 1, 1)
+    fewrows_body(Args a, int slice_steps, int row_groups) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int XW = sizeof(T);
+  constexpr int TO = 8 * NT * FR_CH;  // a CTA's partial: [8 NT rows][FR_CH channels] floats
+  constexpr int RPR = 8 * NT / FR_CLUSTER;  // rows of the tile each rank stores
+  static_assert(RPR * FR_CLUSTER == 8 * NT, "the ranks split the tile's rows");
+  constexpr int depth = NT >= 4 ? FR_DEPTH_32 : FR_DEPTH;
+  extern __shared__ float fr_red[];  // [warps][TO], the bias and scale of the CTA's channels, recv [TO]
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster_arrive_relaxed();  // waited for before the first remote store
+  const int n0 = blockIdx.y * FR_CH, e = blockIdx.z / row_groups, r0 = (blockIdx.z % row_groups) * 8 * NT;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, c0 = n0 + FR_CPT * g;
+  const int ksteps = (a.K + 15) / 16;
+  const int s_begin = rank * slice_steps, s_end = min(ksteps, s_begin + slice_steps);
+  const T* xg = static_cast<const T*>(a.x) + e * a.x_es;
+  const int8_t* qg = a.q + e * a.q_es;
+  const bool vec_x = a.vec_x, vec_q = a.vec_q;
+
+  float sc[FR_CPT];  // bf16 / f16: the scales of this lane's channels (float32 scales in the epilogue)
+#pragma unroll
+  for (int i = 0; i < FR_CPT; ++i) sc[i] = !F32 && c0 + i < a.N ? a.scale[e * a.s_es + c0 + i] : 0.f;
+  // the epilogue's bias (and float32's scale) of the CTA's channels, read
+  // beside q and put in shared memory after the K loop: no second round
+  // trip to device memory before the store
+  const T* bg = a.bias ? static_cast<const T*>(a.bias) + e * a.b_es : nullptr;
+  float edge[2][FR_CH / 32];
+#pragma unroll
+  for (int i = 0; i < FR_CH / 32; ++i) {
+    const int n = n0 + threadIdx.x + i * blockDim.x;
+    const bool in = threadIdx.x + i * blockDim.x < FR_CH && n < a.N;
+    edge[0][i] = in && bg ? to_f32(bg[n]) : 0.f;
+    edge[1][i] = in && F32 ? a.scale[e * a.s_es + n] : 0.f;
+  }
+  float acc[FR_JB][NT][4];
+#pragma unroll
+  for (int j = 0; j < FR_JB; ++j)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.f;
+
+  for (int s0 = s_begin + warp; s0 < s_end; s0 += warps * depth) {  // warp w: steps w, w + warps, ...
+    uint32_t qw[depth][4][FR_CPT / 4], xw[depth][NT][XW];
+#pragma unroll
+    for (int d = 0; d < depth; ++d) {  // every load of the chunk first
+      const int k = (s0 + d * warps) * 16 + 4 * t;
+      const bool live = s0 + d * warps < s_end;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fr_load_q(qg, live ? k + i : a.K, c0, a, vec_q, qw[d][i]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = r0 + nt * 8 + g;
+        fr_load_x<T>(xg + (long long)min(m, a.M - 1) * a.x_rs, k, live && m < a.M ? a.K : 0, vec_x, xw[d][nt]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < depth; ++d) {
+      if (s0 + d * warps >= s_end) break;
+#pragma unroll
+      for (int j = 0; j < FR_JB; ++j) {
+        // bytes 2j, 2j + 1 of rows (4t, 4t + 1) and (4t + 2, 4t + 3), interleaved
+        const int wi = j / 2, o = 2 * (j % 2);
+        const uint32_t sel = o | (o + 4) << 4 | (o + 1) << 8 | (o + 5) << 12;
+        const uint32_t u01 = __byte_perm(qw[d][0][wi], qw[d][1][wi], sel);
+        const uint32_t u23 = __byte_perm(qw[d][2][wi], qw[d][3][wi], sel);
+        if constexpr (F32) {
+          // k8 pass A: rows 4t (k t) and 4t + 1 (k t + 4); pass B: 4t + 2, 4t + 3
+          uint32_t fa[4], fb[4];
+          exact4(u01, fa);
+          exact4(u23, fb);
+          const uint32_t pa[4] = {fa[0], fa[2], fa[1], fa[3]}, pb[4] = {fb[0], fb[2], fb[1], fb[3]};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              hi[i] = xw[d][nt][i] & 0xffffe000u;
+              lo[i] = __float_as_uint(__uint_as_float(xw[d][nt][i]) - __uint_as_float(hi[i])) & 0xffffe000u;
+            }
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(part, pa, lo[0], lo[1]);
+            mma_tf32(part, pa, hi[0], hi[1]);
+            mma_tf32(part, pb, lo[2], lo[3]);
+            mma_tf32(part, pb, hi[2], hi[3]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][nt][i] += part[i];
+          }
+        } else {
+          uint32_t af[4];
+          dequant4<T>(u01, sc[2 * j], sc[2 * j + 1], af[0], af[1]);
+          dequant4<T>(u23, sc[2 * j], sc[2 * j + 1], af[2], af[3]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_16816<T>(acc[j][nt], af, xw[d][nt]);
+        }
+      }
+    }
+  }
+
+  // the warps' partials in shared memory, [warp][row][channel]
+  float* red = fr_red + warp * TO;
+#pragma unroll
+  for (int j = 0; j < FR_JB; ++j)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = FR_CPT * g + 2 * j, m = nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(red + m * FR_CH + c) = make_float2(acc[j][nt][0], acc[j][nt][2]);
+      *reinterpret_cast<float2*>(red + (m + 1) * FR_CH + c) = make_float2(acc[j][nt][1], acc[j][nt][3]);
+    }
+  float* edge_s = fr_red + warps * TO;  // [2][FR_CH]: bias, scale
+  float* recv = edge_s + 2 * FR_CH;     // [FR_CLUSTER ranks][RPR rows][FR_CH]: the rows this rank stores
+#pragma unroll
+  for (int i = 0; i < FR_CH / 32; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < FR_CH) edge_s[c] = edge[0][i], edge_s[FR_CH + c] = edge[1][i];
+  }
+  __syncthreads();
+  // each partial row, summed over the warps in warp order, goes to the
+  // rank that stores it (row ml: rank ml / RPR), into this rank's slot of
+  // its recv: remote stores, then one cluster barrier (release / acquire)
+  cluster_wait();  // every rank has started: its shared memory is there
+  for (int o = threadIdx.x; o < TO; o += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += fr_red[w * TO + o];
+    const int ml = o / FR_CH;
+    cluster.map_shared_rank(recv, ml / RPR)[(rank * RPR + ml % RPR) * FR_CH + o % FR_CH] = s;
+  }
+  cluster.sync();
+
+  // rank r: rows r RPR .. r RPR + RPR - 1 of the tile, summed over the
+  // ranks in rank order from its own shared memory
+  for (int o = threadIdx.x; o < RPR * FR_CH; o += blockDim.x) {
+    const int c = o % FR_CH, m = r0 + rank * RPR + o / FR_CH, n = n0 + c;
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < FR_CLUSTER; ++r) v += recv[r * RPR * FR_CH + o];
+    if (m < a.M && n < a.N) {
+      const float b = edge_s[c];
+      const float out = F32 ? fmaf(v, edge_s[FR_CH + c], b) : v + b;
+      static_cast<T*>(a.y)[((long long)e * a.M + m) * a.N + n] = from_f32<T>(out);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 // A map of rank 2 or 3 (columns, rows, member); strides in bytes of rows
 // and members; out-of-bounds boxes read as zeros.
@@ -1136,6 +1425,50 @@ cudaError_t launch_wgmma(const void* x, const void* q, const float* scale, const
   return cudaGetLastError();
 }
 
+// fewrows_body at NT row tiles of 8: K cut into FR_CLUSTER slices of whole
+// k16 steps, a warp per step of the slice (at most FR_WARPS), row groups of
+// 8 NT rows in grid z beside the members
+template <typename T, int NT>
+cudaError_t launch_fewrows_nt(Args a, int E, cudaStream_t stream) {
+  const int ksteps = (a.K + 15) / 16;
+  const int slice = (ksteps + FR_CLUSTER - 1) / FR_CLUSTER;
+  const int per_warp = (slice + FR_WARP_STEPS - 1) / FR_WARP_STEPS;
+  const int warps = per_warp < 1 ? 1 : per_warp < FR_WARPS ? per_warp : FR_WARPS;
+  const int row_groups = (a.M + 8 * NT - 1) / (8 * NT);
+  constexpr int most = ((FR_WARPS + 1) * 8 * NT + 2) * FR_CH * static_cast<int>(sizeof(float));
+  auto kernel = fewrows_body<T, NT>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> smem_raised[MAX_DEVICES];
+  if (dev >= MAX_DEVICES || !smem_raised[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    // the L1 / shared split at its most shared: the default split held
+    // this body to 2 CTAs an SM (30 active clusters: two waves at qkv's 36)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) smem_raised[dev].store(true, std::memory_order_relaxed);
+  }
+  const dim3 grid(FR_CLUSTER, (a.N + FR_CH - 1) / FR_CH, E * row_groups);
+  kernel<<<grid, warps * 32, ((warps + 1) * 8 * NT + 2) * FR_CH * sizeof(float), stream>>>(a, slice, row_groups);
+  return cudaGetLastError();
+}
+
+// the row tiles by M (row groups of 32 past 32 rows); the vector loads'
+// rules: x rows of whole 4-value groups from an aligned base, q rows of
+// whole FR_CPT-byte groups
+template <typename T>
+cudaError_t launch_fewrows(Args a, int E, cudaStream_t stream) {
+  const long long x4 = 4;
+  a.vec_x = a.x_rs % x4 == 0 && a.x_es % x4 == 0 && reinterpret_cast<uintptr_t>(a.x) % (4 * sizeof(T)) == 0;
+  a.vec_q = a.N % FR_CPT == 0 && a.q_es % FR_CPT == 0 && reinterpret_cast<uintptr_t>(a.q) % FR_CPT == 0;
+  if (a.M <= 8) return launch_fewrows_nt<T, 1>(a, E, stream);
+  if (a.M <= 16) return launch_fewrows_nt<T, 2>(a, E, stream);
+  return launch_fewrows_nt<T, 4>(a, E, stream);
+}
+
 template <typename T>
 cudaError_t launch_wgmma_tiled(const void* x, const void* q, const float* scale, const void* bias, void* y, int E,
                                int M, int N, int K, long long x_es, long long x_rs, long long q_es, long long s_es,
@@ -1158,7 +1491,8 @@ cudaError_t launch_wgmma_tiled(const void* x, const void* q, const float* scale,
 // body: 0 fma_body (float32, any shape), 1 mma_body (bf16 / f16, any
 // shape), 2 wgmma_body (bf16 / f16, the shapes wgmma_takes), 3 splitk_body
 // (every dtype, any shape), 4 tf32x2_body (float32, the shapes
-// tf32x2_takes). Returns the launch's cudaError_t (0 on success); a body
+// tf32x2_takes), 5 fewrows_body (every dtype, the calls fewrows_takes).
+// Returns the launch's cudaError_t (0 on success); a body
 // that cannot take the dtype or the shape returns cudaErrorInvalidValue
 // without launching.
 extern "C" int int8_matmul(const void* x, const void* q, const void* scale, const void* bias, void* y, int E,
@@ -1170,6 +1504,8 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* scale, cons
                      : body == 2 ? wgmma_takes(x, q, M, N, K, x_es, x_rs, q_es, dtype)
                      : body == 3 ? (N + SK_NB - 1) / SK_NB <= 65535
                      : body == 4 ? tf32x2_takes(x, q, M, N, K, x_es, x_rs, q_es, dtype)
+                     : body == 5 ? fewrows_takes(M, N) && (N + FR_CH - 1) / FR_CH <= 65535 &&
+                                       static_cast<long long>(E) * ((M + 31) / 32) <= 65535
                                  : false;
   if (!takes) return static_cast<int>(cudaErrorInvalidValue);
   if (E <= 0 || M <= 0 || N <= 0) return 0;
@@ -1203,6 +1539,12 @@ extern "C" int int8_matmul(const void* x, const void* q, const void* scale, cons
     return static_cast<int>(err);
   }
   if (body == 4) return static_cast<int>(launch_tf32x2(a, E, s));
+  if (body == 5) {
+    const cudaError_t err = dtype == 0   ? launch_fewrows<float>(a, E, s)
+                            : dtype == 1 ? launch_fewrows<__nv_bfloat16>(a, E, s)
+                                         : launch_fewrows<__half>(a, E, s);
+    return static_cast<int>(err);
+  }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   if (dtype == 0) {
     fma_body<<<grid, THREADS, 0, s>>>(a);

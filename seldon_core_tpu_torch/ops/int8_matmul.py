@@ -17,11 +17,13 @@ tensor it computes ``int8_matmul_reference``, the plain version, which the
 CPU tests hold against the JAX package and ``chip_smoke.py`` holds the
 kernel against on the card.
 
-The kernel has five bodies, and ``select_body`` names the one a call
+The kernel has six bodies, and ``select_body`` names the one a call
 takes before the launch, from the shape, dtype, strides and base addresses
 alone: ``splitk`` (narrow outputs, N <= ``NARROW_MAX_N``, or up to
 ``NARROW_FEW_ROWS_MAX_N`` for at most ``FEW_ROWS`` rows, every dtype: the
-BERT head, iris), ``wgmma`` (TMA and wgmma, bf16/f16 operands that TMA can
+BERT head, iris), ``fewrows`` (at most ``FEW_ROWS_WIDE`` rows past the
+narrow cut, every dtype and stride: a decode step's projections, BERT's
+pooler), ``wgmma`` (TMA and wgmma, bf16/f16 operands that TMA can
 address: every bf16 projection of BERT-base), ``tf32x2`` (the same for
 float32: two tf32 wgmma passes over the split x, q exact), ``mma``
 (mma.sync, bf16/f16 of any shape: misaligned views) and ``fma`` (float32
@@ -47,7 +49,7 @@ import torch
 from seldon_core_tpu_torch.ops.flash_attention import LaunchCounter, refuse_autograd
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BODY_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "splitk": 3, "tf32x2": 4}
+_BODY_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "splitk": 3, "tf32x2": 4, "fewrows": 5}
 # launches of the kernel, in all and by body (compare-only launches
 # included; callers reset the counters around the run they want to read)
 LAUNCHES = LaunchCounter()
@@ -57,6 +59,10 @@ LAUNCHES_BY_BODY = {body: LaunchCounter() for body in _BODY_CODES}
 # row tiles win past that (PERF.md, the W8A16 table, has the times).
 NARROW_MAX_N = 8
 NARROW_FEW_ROWS_MAX_N, FEW_ROWS = 32, 128
+# Past the narrow cut, calls of at most this many rows take the few-rows
+# body: a cluster of CTAs along K shares q's bytes, where the tiled bodies'
+# 128-row tiles leave the card a few CTAs (PERF.md, the sweep of M).
+FEW_ROWS_WIDE = 32
 
 
 def reset_launches() -> None:
@@ -73,7 +79,8 @@ def select_body(m: int, n: int, k: int, dtype: torch.dtype, x_strides: tuple, q_
     (0 shares one q), the pointers the operands' first bytes.
 
     Outputs of at most NARROW_MAX_N columns, or NARROW_FEW_ROWS_MAX_N for
-    at most FEW_ROWS rows, take ``splitk`` in every dtype. Otherwise
+    at most FEW_ROWS rows, take ``splitk`` in every dtype; wider ones of at
+    most FEW_ROWS_WIDE rows ``fewrows``, whatever their strides. Otherwise
     ``wgmma`` (bf16/f16) and ``tf32x2`` (float32) read x and q through
     TMA, which needs 16-byte-aligned bases and global strides that are
     multiples of 16 bytes: K and x's strides in multiples of 16 bytes (8
@@ -82,6 +89,8 @@ def select_body(m: int, n: int, k: int, dtype: torch.dtype, x_strides: tuple, q_
     other float32 calls ``fma``."""
     if n <= NARROW_MAX_N or (n <= NARROW_FEW_ROWS_MAX_N and m <= FEW_ROWS):
         return "splitk"
+    if m <= FEW_ROWS_WIDE:
+        return "fewrows"
     x_member, x_row = x_strides
     per16 = 4 if dtype == torch.float32 else 8  # elements in 16 bytes
     if (k > 0 and k % per16 == 0 and x_row % per16 == 0 and x_row >= k and x_member % per16 == 0

@@ -179,3 +179,22 @@ async def test_decode_slots_with_int8_serve_the_fused_path_with_jaxs_warning(cap
     want = await theirs.executor.execute(jax_message({"data": {"ndarray": ids.tolist()}}))
     np.testing.assert_array_equal(np.asarray(got.array), np.asarray(want.array))
     assert runtime.recompiles_since_warmup() == 0
+
+
+@pytest.mark.parametrize("dtype, prefill_body", [("bfloat16", "wgmma"), ("float32", "tf32x2")])
+def test_int8_generate_asks_for_fewrows_at_every_decode_projection(monkeypatch, dtype, prefill_body):
+    """A small-width int8 ``generate`` (2 rows, a 32-token prompt, 4 new
+    tokens): the prefill's 64 rows ask for the tiled body at each of the 4
+    projections a layer, and each of the 3 decode steps' 2 rows for the
+    few-rows body. The CPU computes the plain version, so the rule is read
+    where the card would launch."""
+    from seldon_core_tpu_torch.ops import int8_matmul as i8
+
+    port = _runtime_from_modelspec(get_model("tiny_gpt", seq=32, max_new_tokens=4), _tpu(dtype), CPU)
+    layers = len(port.params["layers"])
+    bodies = []
+    batched = i8._batched
+    monkeypatch.setattr(i8, "_batched", lambda x, q, s, b: bodies.append(i8.body_for(x, q)) or batched(x, q, s, b))
+    out = port.predict(_ids(2, 32))
+    assert out.shape == (2, 36)
+    assert bodies == [prefill_body] * 4 * layers + ["fewrows"] * 4 * layers * 3

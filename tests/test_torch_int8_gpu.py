@@ -12,6 +12,11 @@
   768 and 776, in bf16 and float32, and the float32 tensor-core body
   (``tf32x2``) with M, N and K ragged against its tiles and three stacked
   members (shared and per-member x), each launched once on its body;
+- the few-rows body (``fewrows``) at GPT-2-small's four projections on a
+  decode step's 8 rows and BERT's pooler on 32, N and K ragged against its
+  tile and k16 steps, three stacked members (shared and per-member x) and
+  no bias, in bf16, f16 and float32, each launched once on its body, and
+  two runs bit for bit;
 - every body refusing a call it cannot take;
 - a ``bert_tiny`` int8 deployment served on ``cuda`` launches the kernel
   2 x 4 + 1 = 9 times per forward and answers as the same deployment on the
@@ -171,6 +176,56 @@ def test_int8_matmul_refuses_a_body_that_cannot_take_the_call(cuda):
         i8._launch(torch.randn(1, 8, 6, device=cuda), q16, s16, b16, body="tf32x2")  # K = 6: x rows off 16 bytes
     for dtype in (torch.bfloat16, torch.float32):  # the narrow body takes any shape
         i8._launch(x.to(dtype), q, s, b.to(dtype), body="splitk")
+    with pytest.raises(RuntimeError, match="fewrows body"):
+        i8._launch(x, q, s, b, body="fewrows")  # N = 3: the narrow body's
+    q768, s768, b768 = _case(cuda, 1, 33, 768, 768, torch.bfloat16)
+    x33 = torch.randn(1, 33, 768, device=cuda).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="fewrows body"):
+        i8._launch(x33, q768, s768, b768, body="fewrows")  # one row past FEW_ROWS_WIDE
+    i8._launch(x33[:, :32], q768, s768, b768, body="fewrows")
+
+
+def _tolerance(dtype):
+    return dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=BF16_ATOL, atol=BF16_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 8, 768, 2304),  # GPT-2-small's qkv on a decode step's rows
+    (1, 8, 768, 768),  # attn_out
+    (1, 8, 768, 3072),  # mlp_in
+    (1, 8, 3072, 768),  # mlp_out
+    (1, 1, 3072, 768),  # one row
+    (1, 32, 768, 768),  # BERT's pooler on 32 [CLS] rows
+    (1, 3, 776, 2312),  # N off the 32-channel tile, K off a k16 step
+    (1, 8, 3072, 760),  # N ending mid-tile at K = 3072
+])
+def test_few_rows_take_fewrows_and_match_plain_version(cuda, shape, dtype):
+    e, m, k, n = shape
+    q, s, b = _case(cuda, e, m, k, n, dtype, seed=m + k + n)
+    x = torch.randn(m, k, device=cuda).to(dtype)
+    got = _one_launch_on("fewrows", lambda: i8.int8_matmul(x, q[0], s[0], b[0]))
+    again = i8.int8_matmul(x, q[0], s[0], b[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # the K slices meet in a fixed order
+    torch.testing.assert_close(got.float(), i8._batched_reference(x[None], q, s, b)[0].float(), **_tolerance(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shared_x", [False, True])
+def test_fewrows_stacked_members_and_no_bias_match_plain_version(cuda, shared_x, dtype):
+    e, m, k, n = 3, 8, 776, 768
+    q, s, b = _case(cuda, e, m, k, n, dtype, seed=3)
+    x1 = torch.randn(1 if shared_x else e, m, k, device=cuda).to(dtype)
+    fused = torch.func.vmap(i8.int8_matmul, in_dims=(None if shared_x else 0, 0, 0, 0))
+    got = _one_launch_on("fewrows", lambda: fused(x1[0] if shared_x else x1, q, s, b))
+    torch.testing.assert_close(got.float(), i8._batched_reference(x1.expand(e, m, k), q, s, b).float(),
+                               **_tolerance(dtype))
+    plain = _one_launch_on("fewrows", lambda: i8.int8_matmul(x1[0], q[0], s[0]))
+    torch.testing.assert_close(plain.float(), i8._batched_reference(x1[:1], q[:1], s[:1], None)[0].float(),
+                               **_tolerance(dtype))
 
 
 def _predictor(graph, dtype="bfloat16"):
