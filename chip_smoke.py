@@ -10,16 +10,20 @@ Phases, each of which raises on failure (no phase catches its own):
    all started together), and count the Hopper instructions in the built
    libraries (``HGMMA``, ``UTMALDG``): the flash kernel must hold both and
    tf32 ``HMMA`` (its float32 body's 3xTF32 products; ptxas must report no
-   spill in that body), the W8A16 kernel both, ``HMMA`` (its mma.sync
+   spill in that body), its one-tile body ``HGMMA``, ``UTMALDG`` and the
+   TMA store ``UTMASTG`` (no spill either), the W8A16 kernel both, ``HMMA`` (its mma.sync
    body for ragged shapes) and tf32 ``HGMMA`` (its float32 body), with no
    spill in its tf32x2, splitk and fewrows bodies;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, as contiguous tensors and as the views
    of one fused QKV projection that BERT hands it (plus the causal and
    ragged cases, and the float32 body's d = 128 and ragged edges), with
-   limits scaled to each case's output, show that two planted faults fail
-   the same check (for float32 a third: the plain version in one TF32
-   pass), and time kernel, plain version and
+   limits scaled to each case's output, show that three planted faults fail
+   the same check (the normaliser 5% large, one KV tile or half of a
+   shorter one dropped, each item reading the next item's K; for float32 a
+   fourth: the plain version in one TF32 pass), name the body each case
+   took (``LAUNCHES_BY_BODY``; the one-tile body at the BERT DAG's seq-128
+   buckets and short-key edges, timed beside ``wgmma``), and time kernel, plain version and
    the library call that computes the same function (CUDA events, median of
    25 single calls, each queued behind a device sleep so host launch time is
    not counted; inputs stay warm in L2, as they are when the attention
@@ -43,7 +47,9 @@ Phases, each of which raises on failure (no phase catches its own):
    with a stem padded (3, 3) and a max-pool padded (1, 1) shown to fail;
    fused, sequential and unfused forwards timed); the transformer ->
    epsilon-greedy -> 2x BERT-base DAG at seq 128 as JSON ids (12 kernel
-   launches per request, answers against blockwise attention, and a
+   launches per request, each on the body ``select_body`` names for the
+   request's bucket: ``wgmma`` at bucket 1, the one-tile body at buckets 8
+   and 64; answers against blockwise attention, and a
    feedback that moves only the routed arm); on iris the reference's
    engine surface (``/pause`` then ``/ready`` 503, ``/unpause`` then 200,
    by GET and POST; urlencoded and multipart ``json=`` predictions equal to
@@ -713,12 +719,24 @@ def tf32_one_pass(fn):
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+def next_item_k(k):
+    """k with each (batch, head)'s keys taken from the next one's (the last
+    from the first): what a body that read one stage of its ring for the
+    wrong item would attend over."""
+    b, h, sk, d = k.shape
+    return k.reshape(b * h, sk, d).roll(-1, 0).reshape(b, h, sk, d)
+
+
 def check_flash(case, card):
-    """One kernel-vs-plain case on the card; returns its numbers. Two
-    planted faults — the softmax normaliser 5% large, one KV tile dropped —
-    must fail the same check, or the check is too loose for this case; for
-    float32 a third, the plain version run with one TF32 pass, must fail it
-    too: the kernel's tf32 products must be split (3xTF32) to pass."""
+    """One kernel-vs-plain case on the card; returns its numbers. Three
+    planted faults — the softmax normaliser 5% large, one KV tile dropped
+    (half the keys of a shorter KV), each item's K read from the next
+    item's — must fail the same check, or the check is too loose for this
+    case; for float32 a fourth, the plain version run with one TF32 pass,
+    must fail it too: the kernel's tf32 products must be split (3xTF32) to
+    pass. The case names the body it took, counted through
+    ``LAUNCHES_BY_BODY`` (``select_body``'s choice); a one-tile case is
+    also timed on ``wgmma``, with whether the two agree bit for bit."""
     import torch
     import torch.nn.functional as F
 
@@ -732,8 +750,13 @@ def check_flash(case, card):
         q = torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(b, h, sk, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(b, h, sk, d, generator=g, device="cuda").to(dtype)
+    before = {body: c.count for body, c in fa.LAUNCHES_BY_BODY.items()}
     out = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    launched = {body: c.count - before[body] for body, c in fa.LAUNCHES_BY_BODY.items()}
+    body = fa.body_for(q, k, causal)
+    if launched != {b_: int(b_ == body) for b_ in launched}:
+        raise AssertionError(f"flash_attention {name}: launches by body {launched}, want one on {body}")
     ref = fa.flash_attention_reference(q, k, v, causal=causal)
     dtype_name = str(dtype).removeprefix("torch.")
     agree = agreement(out, ref, dtype_name)
@@ -741,11 +764,16 @@ def check_flash(case, card):
         "l_x1.05": agreement((out.float() / 1.05).to(dtype), ref, dtype_name),
         "kv_tile_dropped": agreement(
             fa.flash_attention_reference(q, *drop_kv_tile(k, v), causal=causal), ref, dtype_name),
+        "next_item_k": agreement(fa.flash_attention_reference(q, next_item_k(k), v, causal=causal), ref, dtype_name),
     }
     if dtype == torch.float32:
         planted["one_tf32_pass"] = agreement(
             tf32_one_pass(lambda: fa.flash_attention_reference(q, k, v, causal=causal)), ref, dtype_name)
     ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    ms_other, same_bits = {}, {}
+    if body == "onetile":
+        same_bits["wgmma"] = bool(torch.equal(out, fa._launch(q, k, v, causal, body="wgmma")))
+        ms_other["wgmma"] = device_ms(lambda: fa._launch(q, k, v, causal, body="wgmma"))
     ms_cold_l2 = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), cold_l2=True) if b == 8 else None
     plain_ms = device_ms(lambda: fa.flash_attention_reference(q, k, v, causal=causal))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
@@ -753,12 +781,13 @@ def check_flash(case, card):
     # the lesser route's bound is the one printed
     bound_route, (bound_ms, bound_by) = min(bounds.items(), key=lambda kv: kv[1][0])
     row = dict(
-        case=name, shape=[b, h, sq, sk, d], dtype=dtype_name, causal=causal, layout=layout,
+        case=name, shape=[b, h, sq, sk, d], dtype=dtype_name, causal=causal, layout=layout, body=body,
         max_abs_err=agree["max_abs_err"], atol=agree["atol"], rel_l2=agree["rel_l2"],
         rel_l2_limit=agree["rel_l2_limit"],
         planted_faults={k_: dict(max_abs_err=a["max_abs_err"], rel_l2=a["rel_l2"], caught=not a["ok"])
                         for k_, a in planted.items()},
-        ms=ms, ms_cold_l2=ms_cold_l2, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        ms=ms, ms_other_bodies=ms_other, same_bits_as_other_bodies=same_bits, ms_cold_l2=ms_cold_l2,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
         bound_by=bound_by, bound_route=bound_route, bounds_ms={r: v[0] for r, v in bounds.items()},
     )
     print(f"[{card}] flash_attention {json.dumps(row)}", flush=True)
@@ -1371,41 +1400,53 @@ def _unstack(tree, i):
     return tree[i]
 
 
-async def serve_dag(card) -> int:
+async def serve_dag(card) -> tuple[int, dict]:
     """Phase 4c: transformer -> epsilon-greedy -> 2x BERT-base (seq 128,
     attn_kernel=pallas) as JSON ids. The flash kernel must launch 12 times
-    per request; the answers are held against blockwise attention on the
-    routed arm's weights; one feedback of reward 1 must move only the routed
-    arm's counts and rewards. Returns the kernel launches of the path."""
+    per request, each on the body ``select_body`` names for the request's
+    bucket (the one-tile body at bucket 64, which must take it); the answers
+    are held against blockwise attention on the routed arm's weights; one
+    feedback of reward 1 must move only the routed arm's counts and
+    rewards. Returns the kernel launches of the path, in all and by body."""
     import numpy as np
 
-    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES
+    from seldon_core_tpu_torch.ops import flash_attention as fa
+    from seldon_core_tpu_torch.ops.flash_attention import LAUNCHES, LAUNCHES_BY_BODY
 
     server, build_s, warmup_s = await _start(BASELINE_DIR / "full_dag_bert.json")
     router_node = server.executor.root.children[0]
     router = router_node.unit
     arms = [c.unit.runtime for c in router_node.children]
     seq, vocab = arms[0].feature_shape[0], arms[0].params["tok_emb"].shape[0]
-    layers = len(arms[0].params["layers"])
+    layers, heads = len(arms[0].params["layers"]), arms[0].params["tok_emb"].shape[1] // 64
+
+    def body_at(n):
+        bucket = min(b for b in arms[0].buckets if b >= n)
+        return fa.select_body(bucket, heads, seq, seq, 64, arms[0].dtype, False)
+
     print(f"[{card}] full_dag_bert: {server.executor.root.name} -> {router_node.name} -> "
           f"{[c.name for c in router_node.children]} seq={seq} layers={layers} dtype={arms[0].dtype} "
           f"buckets={arms[0].buckets} build_s={build_s:.3f} warmup_s={warmup_s:.3f}", flush=True)
     rng = np.random.default_rng(4)
     try:
-        served, deltas, latencies, responses = [], [], [], []
+        if body_at(64) != "onetile":
+            raise AssertionError(f"full_dag_bert's bucket 64 would take the {body_at(64)} flash body, not onetile")
+        served, deltas, body_deltas, latencies, responses = [], [], [], [], []
 
         async def ask(ids):
             before = LAUNCHES.count
+            by_body = {body: c.count for body, c in LAUNCHES_BY_BODY.items()}
             status, out, ms = await _post(server.port, json.dumps({"data": {"ndarray": ids.tolist()}}).encode())
             if status != 200:
                 raise AssertionError(f"DAG predict returned HTTP {status}: {out}")
             route = out["meta"]["routing"][router_node.name]
             served.append((arms[route], ids, _check_probs(out, len(ids))))
             deltas.append(LAUNCHES.count - before)
+            body_deltas.append({body: c.count - by_body[body] for body, c in LAUNCHES_BY_BODY.items()})
             latencies.append((len(ids), route, ms))
             responses.append(out)
 
-        LAUNCHES.reset()  # the path's run starts here
+        fa.reset_launches()  # the path's run starts here
         for n in (1, 8, 1, 64, 1):
             await ask(rng.integers(0, vocab, size=(n, seq)))
         route = responses[0]["meta"]["routing"][router_node.name]
@@ -1424,14 +1465,19 @@ async def serve_dag(card) -> int:
         for n in (1, 8):
             await ask(rng.integers(0, vocab, size=(n, seq)))
         launches = LAUNCHES.count  # ... and ends here
+        launches_by_body = {body: c.count for body, c in LAUNCHES_BY_BODY.items()}
     finally:
         await server.stop()
-    for (n, route, ms), delta in zip(latencies, deltas):
+    for (n, route, ms), delta, by_body in zip(latencies, deltas, body_deltas):
         print(f"[{card}] request full_dag_bert batch={n} seq={seq} arm={route} latency_ms={ms:.3f} "
-              f"kernel_launches={delta}", flush=True)
+              f"kernel_launches={delta} by_body={json.dumps(by_body)}", flush=True)
     require_launches("full_dag_bert flash_attention", deltas, layers)
+    want = [{body: layers * (body == body_at(n)) for body in LAUNCHES_BY_BODY} for n, _, _ in latencies]
+    if body_deltas != want:
+        raise AssertionError(f"full_dag_bert flash launches by body per request {body_deltas}, want {want}")
+    print(f"[{card}] full_dag_bert flash launches by body: {json.dumps(launches_by_body)}", flush=True)
     check_served_bert(card, "full_dag_bert", served)
-    return launches
+    return launches, launches_by_body
 
 
 def _ids_post(port: int, ids, tags: dict | None = None, path: str = "/api/v0.1/predictions"):
@@ -10079,16 +10125,20 @@ def ptxas_report(log: str, bodies: tuple) -> dict:
     return out
 
 
-def sass_counts(library: Path, ops=("HGMMA", "UTMALDG")) -> dict:
+def sass_counts(library: Path, ops=("HGMMA", "UTMALDG"), function: str | None = None) -> dict:
     """How many of each instruction in ``ops`` (by default HGMMA, wgmma,
     and UTMALDG, a TMA load) the built library holds, from its
-    disassembly."""
+    disassembly; with ``function``, only in the functions whose mangled
+    name holds it."""
     import re
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "--dump-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
+    if function is not None:
+        sass = "\n".join(part for part in re.split(r"\n\s*Function : ", sass)[1:]
+                         if function in part.partition("\n")[0])
     return {op.replace("\\", ""): len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
@@ -10150,15 +10200,24 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Potential Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
-    # both libraries' disassemblies at once (each cuobjdump takes seconds)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # the libraries' disassemblies at once (each cuobjdump takes seconds)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         int8_sass_job = pool.submit(sass_counts, kernel_build.library_path("int8_matmul"),
                                     ("HGMMA", "UTMALDG", "HMMA", TF32_WGMMA))
+        onetile_sass_job = pool.submit(sass_counts, kernel_build.library_path("flash_attention"),
+                                       ("HGMMA", "UTMALDG", "UTMASTG"), "flash_fwd_onetile")
         sass = sass_counts(kernel_build.library_path("flash_attention"), ("HGMMA", "UTMALDG", TF32_MMA))
-        int8_sass = int8_sass_job.result()
-    print(f"[{card}] flash_attention SASS: {json.dumps(sass)}", flush=True)
+        int8_sass, onetile_sass = int8_sass_job.result(), onetile_sass_job.result()
+    print(f"[{card}] flash_attention SASS: {json.dumps(sass)}; flash_fwd_onetile alone: {json.dumps(onetile_sass)}",
+          flush=True)
     if min(sass.values()) == 0:
         raise AssertionError(f"the flash kernel's library lacks wgmma, TMA or tf32 mma.sync instructions: {sass}")
+    if min(onetile_sass.values()) == 0:
+        raise AssertionError(f"the one-tile flash body lacks wgmma, TMA loads or the TMA store: {onetile_sass}")
+    onetile_ptxas = ptxas_report(kernel_build.BUILD_LOGS.get("flash_attention", ""), ("flash_fwd_onetile",))
+    print(f"[{card}] flash_fwd_onetile ptxas: {json.dumps(onetile_ptxas)}", flush=True)
+    if len(onetile_ptxas) != 2 or any("0 bytes spill stores" not in r for r in onetile_ptxas.values()):
+        raise AssertionError(f"want two one-tile flash bodies (bf16, f16), none spilling: {onetile_ptxas}")
     from flash_q_probe import ptxas_report_f32
 
     f32_ptxas = ptxas_report_f32(kernel_build.BUILD_LOGS.get("flash_attention", ""))
@@ -10199,8 +10258,14 @@ def main() -> int:
         # the DAG's BERT-base arms at seq 128: one 128-key tile
         ("dag_seq128_b1", (1, 12, 128, 128, 64), bf16, False, dense),
         ("dag_seq128_b1_views", (1, 12, 128, 128, 64), bf16, False, views),
+        ("dag_seq128_b8_views", (8, 12, 128, 128, 64), bf16, False, views),
         ("dag_seq128_b64", (64, 12, 128, 128, 64), bf16, False, dense),
         ("dag_seq128_b64_views", (64, 12, 128, 128, 64), bf16, False, views),
+        # the one-tile body's edges: fewer keys than a tile, ragged and
+        # longer q (several q blocks an item's keys), f16
+        ("onetile_sk16", (64, 12, 128, 16, 64), bf16, False, dense),
+        ("onetile_sk48_sq77", (64, 12, 77, 48, 64), bf16, False, dense),
+        ("onetile_sk112_sq300_f16", (32, 12, 300, 112, 64), torch.float16, False, dense),
         # the decoder's prefill at GPT-2-small widths and a 4096-token prompt
         ("decoder_prefill_views", (1, 12, 4096, 4096, 64), bf16, True, views),
         ("decoder_prefill", (1, 12, 4096, 4096, 64), bf16, True, dense),
@@ -10240,7 +10305,7 @@ def main() -> int:
     asyncio.run(serve_small(card))
     asyncio.run(serve_engine_compat(card))
     serve_resnet_ensemble(card)
-    dag_launches = asyncio.run(serve_dag(card))
+    dag_launches, dag_by_body = asyncio.run(serve_dag(card))
     if dag_launches <= 0:
         raise AssertionError("the DAG path launched no flash_attention kernel")
     twins.update(asyncio.run(baseline_twins(card)))
@@ -10459,7 +10524,7 @@ def main() -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "seq128_b64_views": {k: dag[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "seq128_b64_views": {k: dag[k] for k in ("body", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms")},
         "decoder_prefill_views": {k: prefill_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                               "bound_by", "library_ms")},
@@ -10476,6 +10541,22 @@ def main() -> int:
         "tp4_decoder_prefill_views": {k: tp_out["kernel"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                                        "bound_by", "library_ms")},
     }]
+    # the flash body redesigned for one tile of keys, with its launches on
+    # the DAG's path (bucket 64's and bucket 8's requests) and the row of
+    # bucket 64, as BERT hands it the QKV views
+    if dag_by_body["onetile"] <= 0:
+        raise AssertionError(f"the DAG path launched no one-tile flash body: {dag_by_body}")
+    kernels.append({
+        "name": "flash_attention:onetile",
+        "route": "cuda",
+        "source": "seldon_core_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "seldon_core_tpu/ops/pallas_flash.py:147",
+        "launches": dag_by_body["onetile"],
+        "launches_by_path": {"full_dag_bert (phase 4)": dag_by_body["onetile"]},
+        "case": dag["case"],
+        **{k: dag[k] for k in ("body", "max_abs_err", "ms", "ms_other_bodies", "same_bits_as_other_bodies",
+                               "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     int8_main = int8_rows["qkv_b32_bfloat16"]  # the served shape with the most work
     served = {"attn_out_b32_bfloat16", "mlp_in_b32_bfloat16", "mlp_out_b32_bfloat16", "head_b32_bfloat16",
               "pooler_b32_bfloat16", "qkv_b1_bfloat16", "stacked_e3_shared_x_bfloat16", "stacked_e3_bfloat16",

@@ -18,6 +18,15 @@ only their contract: ``block_k`` decides which KV lengths are rejected as
 ragged (``_kv_block``), exactly as on the TPU. The CUDA kernel tiles by its
 own fixed sizes (64 or 128 q rows x 128 keys for bf16/f16), masks ragged
 edges itself, and ignores both.
+
+The kernel has three bodies, and ``select_body`` names the one a call
+takes before the launch, from the shape, dtype and causal flag alone:
+``f32`` (float32), ``onetile`` (bf16/f16 at head_dim 64 whose keys fit
+one 128-key tile, not causal, with at least ``ONETILE_MIN_ITEMS`` (batch x
+head, 128-row q block) items: the BERT DAG's seq-128 buckets past the cut)
+and ``wgmma`` (every other bf16/f16 call). A body that cannot take the
+call makes the launch fail, and the wrapper raises: no call is retried on
+another body.
 """
 
 from __future__ import annotations
@@ -34,6 +43,14 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_K = 2048
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_BODY_CODES = {"wgmma": 0, "f32": 1, "onetile": 2}
+Q_BLOCK = 128  # q rows of the bf16/f16 bodies' largest block: an item of the one-tile body
+# The one-tile body takes keys that fit one tile, from this many items up;
+# below, the two bodies time within 1% of each other (csrc/flash_attention.cu's
+# OT_MAX_KEYS and OT_MIN_ITEMS; PERF.md, the flash_onetile_probe.py sweep,
+# has the times that set the cut).
+ONETILE_MAX_KEYS = 128
+ONETILE_MIN_ITEMS = 64
 
 
 class LaunchCounter:
@@ -54,7 +71,35 @@ class LaunchCounter:
             self.count = 0
 
 
+# launches of the kernel, in all and by body (compare-only launches
+# included; callers reset the counters around the run they want to read)
 LAUNCHES = LaunchCounter()
+LAUNCHES_BY_BODY = {body: LaunchCounter() for body in _BODY_CODES}
+
+
+def reset_launches() -> None:
+    LAUNCHES.reset()
+    for counter in LAUNCHES_BY_BODY.values():
+        counter.reset()
+
+
+def select_body(b: int, h: int, sq: int, sk: int, d: int, dtype: torch.dtype, causal: bool) -> str:
+    """The kernel body for q [b, h, sq, d] over sk keys: ``f32`` for
+    float32; ``onetile`` for bf16/f16 at head_dim 64 with at most
+    ONETILE_MAX_KEYS keys, not causal, and at least ONETILE_MIN_ITEMS
+    (batch x head, Q_BLOCK-row q block) items; ``wgmma`` otherwise."""
+    if dtype == torch.float32:
+        return "f32"
+    items = b * h * -(-sq // Q_BLOCK)
+    if d == 64 and sk <= ONETILE_MAX_KEYS and not causal and items >= ONETILE_MIN_ITEMS:
+        return "onetile"
+    return "wgmma"
+
+
+def body_for(q: torch.Tensor, k: torch.Tensor, causal: bool = False) -> str:
+    """``select_body`` for q [b, h, sq, d] and k [b, h, sk, d]."""
+    b, h, sq, d = q.shape
+    return select_body(b, h, sq, k.shape[2], d, q.dtype, causal)
 
 
 def refuse_autograd(name: str, *tensors) -> None:
@@ -153,12 +198,16 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float,  # scale
             ctypes.c_int,  # causal
             ctypes.POINTER(ctypes.c_longlong),  # 12 strides: (b, h, s) of q, k, v, o
+            ctypes.c_int,  # body code
             ctypes.c_void_p,  # cudaStream_t
         ]
     return lib
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, body: str | None = None) -> torch.Tensor:
+    """One launch; ``body`` None takes ``select_body``'s choice, a name
+    forces that body (chip_smoke.py times one body against the other) and
+    raises where it cannot take the call."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if d not in HEAD_DIMS:
@@ -174,6 +223,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         check_kernel_layout(name, t)
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _kernel_strides(t)))
+    if body is None:
+        body = select_body(b, h, sq, sk, d, q.dtype, causal)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -191,11 +242,14 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
             1.0 / math.sqrt(d),
             int(causal),
             strides,
+            _BODY_CODES[body],
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({body} body, q {tuple(q.shape)}, sk {sk}, "
+                           f"{q.dtype}, causal {causal}): cudaError {err}")
     LAUNCHES.add()
+    LAUNCHES_BY_BODY[body].add()
     return out
 
 

@@ -14,8 +14,8 @@ key, which holds
 - the hand-written kernels' launches counted while it was captured.
 
 A replay credits those launches back to the kernels' counters
-(``ops/flash_attention.py::LAUNCHES``, ``ops/int8_matmul.py::LAUNCHES`` and
-``LAUNCHES_BY_BODY``), so the counters read the same whether a path runs
+(``LAUNCHES`` and ``LAUNCHES_BY_BODY`` of ``ops/flash_attention.py`` and
+``ops/int8_matmul.py``), so the counters read the same whether a path runs
 captured or eager; a capture itself launches nothing and counts nothing.
 
 The entries of one cache share one graph memory pool and one capture stream
@@ -53,7 +53,8 @@ import torch
 from seldon_core_tpu_torch.ops import flash_attention, int8_matmul
 
 # every launch counter a captured function can move
-COUNTERS = (flash_attention.LAUNCHES, int8_matmul.LAUNCHES, *int8_matmul.LAUNCHES_BY_BODY.values())
+COUNTERS = (flash_attention.LAUNCHES, *flash_attention.LAUNCHES_BY_BODY.values(), int8_matmul.LAUNCHES,
+            *int8_matmul.LAUNCHES_BY_BODY.values())
 
 
 def _counts() -> list[int]:

@@ -269,8 +269,9 @@ def fake_cuda(monkeypatch):
 
 
 def _two_kernel_fn(x):
-    """Stands for a forward with one flash launch and one int8 wgmma launch."""
+    """Stands for a forward with one flash wgmma launch and one int8 wgmma launch."""
     flash_attention.LAUNCHES.add()
+    flash_attention.LAUNCHES_BY_BODY["wgmma"].add()
     int8_matmul.LAUNCHES.add()
     int8_matmul.LAUNCHES_BY_BODY["wgmma"].add()
     return x * 2
@@ -280,19 +281,21 @@ def test_replays_credit_the_launches_counted_at_capture(fake_cuda):
     state, make = fake_cuda
     cache = make()
     entry = cache.entry(("forward", 4, "<f4"), _two_kernel_fn, [((4,), torch.float32)])
-    flash_attention.LAUNCHES.reset()
+    flash_attention.reset_launches()
     int8_matmul.reset_launches()
     entry.run(np.ones(4, np.float32))
     # the eager run before the capture launched once; the capture counted
     # one more that never ran, taken back; the first replay credits one
-    # flash, int8, int8 by body: fma, mma, wgmma, splitk, tf32x2, fewrows
-    assert entry.launches == [1, 1, 0, 0, 1, 0, 0, 0]
+    # flash, flash by body: wgmma, f32, onetile; int8, int8 by body: fma,
+    # mma, wgmma, splitk, tf32x2, fewrows
+    assert entry.launches == [1, 1, 0, 0, 1, 0, 0, 1, 0, 0, 0]
     assert flash_attention.LAUNCHES.count == 2 and int8_matmul.LAUNCHES_BY_BODY["wgmma"].count == 2
+    assert flash_attention.LAUNCHES_BY_BODY["wgmma"].count == 2
     for i in range(3):
         entry.run(np.ones(4, np.float32))
         assert flash_attention.LAUNCHES.count == 3 + i and int8_matmul.LAUNCHES.count == 3 + i
     assert entry.graph.replays == 4 and cache.stat_captures == 1 and cache.counts() == {"forward": 1}
-    assert int8_matmul.LAUNCHES_BY_BODY["mma"].count == 0
+    assert int8_matmul.LAUNCHES_BY_BODY["mma"].count == 0 and flash_attention.LAUNCHES_BY_BODY["onetile"].count == 0
     assert state["gc_while_capturing"] is False and gc.isenabled()
 
 
